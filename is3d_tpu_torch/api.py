@@ -6,9 +6,10 @@ from file or from memory, run particlization, and read back results.  Every
 tensor lives on the device given to ``IS3D(..., device=...)``; a request for
 CUDA on a machine without it raises instead of running on the CPU.
 
-This slice runs operation 1 (smooth spectra) on viscous-hydro surfaces with
-linear delta-f (df 1-2); the other paths raise NotImplementedError naming
-the ROADMAP slice that ports them.
+The port runs operation 0 (dN/dX spacetime distributions) and operation 1
+(smooth spectra) on viscous-hydro surfaces with linear delta-f (df 1-2);
+the other paths raise NotImplementedError naming the ROADMAP slice that
+ports them.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ _DTYPES = {"f64": torch.float64, "f32": torch.float32}
 @dataclass
 class RunResult:
     spectra: Optional[np.ndarray] = None        # (S, PT, PHI, Y)
+    dN_dX: Optional[dict] = None                # operation 0
     mcids: Optional[np.ndarray] = None
     averages: Optional[ThermoAverages] = None
 
@@ -56,7 +58,12 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _not_ported(what: str, slice_name: str):
+def _not_ported(what: str, slice_name: str, cfg: Config):
+    if cfg.operation == 0:
+        # dN/dX (slice 7) runs VH df 1-2; its other halves come with the
+        # slices that port their emission functions
+        what = f"operation 0 (dN/dX) with {what}"
+        slice_name += " (slice 7 ported dN/dX for viscous hydro, df 1-2)"
     raise NotImplementedError(f"{what} is not ported yet: ROADMAP "
                               f"section 1, {slice_name}")
 
@@ -64,22 +71,20 @@ def _not_ported(what: str, slice_name: str):
 def check_supported(cfg: Config):
     """Raise NotImplementedError for every configuration this slice of the
     port does not run."""
-    if cfg.operation == 0:
-        _not_ported("operation 0 (dN/dX)", "slice 7")
     if cfg.operation == 2:
-        _not_ported("operation 2 (sampler)", "slice 9")
-    if cfg.operation != 1:
+        _not_ported("operation 2 (sampler)", "slice 9", cfg)
+    if cfg.operation not in (0, 1):
         raise ValueError(f"operation must be 0, 1 or 2, got {cfg.operation}")
     if cfg.mode in (2, 3):
-        _not_ported(f"surface mode {cfg.mode} (VAH)", "slice 8")
+        _not_ported(f"surface mode {cfg.mode} (VAH)", "slice 8", cfg)
     if cfg.mode == 5:
-        _not_ported("surface mode 5 (spin polarization)", "slice 8")
+        _not_ported("surface mode 5 (spin polarization)", "slice 8", cfg)
     if cfg.df_mode in (3, 4):
-        _not_ported(f"df_mode {cfg.df_mode} (feqmod)", "slice 6")
+        _not_ported(f"df_mode {cfg.df_mode} (feqmod)", "slice 6", cfg)
     if cfg.df_mode not in (1, 2):
         raise ValueError(f"df_mode must be 1-4, got {cfg.df_mode}")
-    if cfg.do_resonance_decays:
-        _not_ported("do_resonance_decays=1 (feed-down)", "slice 4")
+    if cfg.operation == 1 and cfg.do_resonance_decays:
+        _not_ported("do_resonance_decays=1 (feed-down)", "slice 4", cfg)
     if cfg.precision not in _DTYPES:
         raise ValueError(f"precision must be one of {sorted(_DTYPES)}, got "
                          f"{cfg.precision!r}")
@@ -105,7 +110,7 @@ class IS3D:
                  chosen_file: Optional[str] = None, device="cuda",
                  mesh=None):
         if mesh is not None:
-            _not_ported("mesh= (multi-GPU)", "slice 11")
+            _not_ported("mesh= (multi-GPU)", "slice 11", cfg)
         check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -203,7 +208,6 @@ class IS3D:
     def run_particlization(self, write_files: bool = True,
                            timer=None) -> RunResult:
         from .utils import PhaseTimer
-        from .kernels.smooth import smooth_spectra
         timer = timer or PhaseTimer(verbose=False)
         self.timer = timer
         cfg = self.cfg
@@ -215,15 +219,27 @@ class IS3D:
             df_data, species, mcids, grid = self._prepare()
 
         result = RunResult(mcids=np.asarray(mcids), averages=self.averages)
-        with timer.phase("smooth spectra"):
-            spectra = smooth_spectra(self.surface, species, grid, df_data,
-                                     cfg)
-            # the host copy waits for the device: the phase includes it
-            result.spectra = spectra.cpu().numpy()
-        if write_files:
-            with timer.phase("writers"):
-                self._write_smooth_files(result.spectra, grid.to("cpu"),
-                                         mcids, self.results_dir)
+        if cfg.operation == 1:
+            from .kernels.smooth import smooth_spectra
+            with timer.phase("smooth spectra"):
+                spectra = smooth_spectra(self.surface, species, grid,
+                                         df_data, cfg)
+                # the host copy waits for the device: the phase includes it
+                result.spectra = spectra.cpu().numpy()
+            if write_files:
+                with timer.phase("writers"):
+                    self._write_smooth_files(result.spectra, grid.to("cpu"),
+                                             mcids, self.results_dir)
+        else:
+            from .kernels.dndx import spacetime_distributions
+            with timer.phase("dN/dX spacetime"):
+                # returns host arrays: the phase includes the device time
+                result.dN_dX = spacetime_distributions(
+                    self.surface, species, grid, df_data, cfg)
+            if write_files:
+                with timer.phase("writers"):
+                    writers.write_spacetime_distributions(
+                        result.dN_dX, mcids, self.results_dir)
         return result
 
     def _write_smooth_files(self, spectra, grid, mcids, results_dir):

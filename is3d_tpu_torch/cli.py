@@ -55,7 +55,11 @@ def main(argv=None):
     print(f"  device = {run.device}")
     result = run.run_particlization(timer=PhaseTimer(verbose=True))
     dt = time.time() - t0
-    print(f"spectra shape {result.spectra.shape}")
+    if result.spectra is not None:
+        print(f"spectra shape {result.spectra.shape}")
+    else:
+        print(f"dN/dX: {len(result.mcids)} species, dN_dy shape "
+              f"{result.dN_dX['dN_dy'].shape}")
     print(run.timer.summary())
     print(f"done in {dt:.2f} s; output in {run.results_dir}")
     return 0

@@ -9,7 +9,7 @@
 //
 // Inputs (built by is3d_tpu_torch/kernels/smooth.py):
 //   cells   (n_cells, NF) row-major per-cell scalars, field order `Field`
-//           below (== FIELDS in smooth.py); pad rows are inert
+//           in emission.cuh (== FIELDS in smooth.py); pad rows are inert
 //   mass, sign, baryon, deg (n_species); pT (n_pT); px, py (n_pT*n_phi);
 //   nodes, weights (n_nodes): 3+1D the output rapidities, 2+1D the eta
 //           quadrature.
@@ -24,7 +24,7 @@
 // which Hopper's unordered blocks do not have).  Cells come in tiles
 // staged in shared memory; for fixed nodes the block also computes each
 // cell's per-(cell, node) composites A1, B1, C1-C3, D1 once into shared
-// memory, so the per-point work is the fma chain below.
+// memory, so the per-point work is the fma chain of emission.cuh.
 //
 // What bounds it: not bytes.  A group of 16384 cells is 2.4 MB and stays
 // in L2; per point the kernel does ~40 fma and the special functions: one
@@ -41,116 +41,17 @@
 
 #include <cuda_runtime.h>
 
+#include "emission.cuh"
+
 namespace {
 
-// must match FIELDS in is3d_tpu_torch/kernels/smooth.py
-enum Field {
-  F_TAU, F_DAT, F_DAX, F_DAY, F_DANT, F_UT, F_UX, F_UY, F_TUN,
-  F_INVT, F_ALPHAB, F_PITT, F_PITX, F_PITY, F_PITN, F_PIXX, F_PIXY,
-  F_PIXN, F_PIYY, F_PIYN, F_PINN, F_VT, F_VX, F_VY, F_VN, F_BENTH,
-  F_BULKPI, F_ETA, F_YFLOW, F_KSC, F_KB0, F_KB1, F_KB2, F_KDV,
-  F_KC3, F_KC4, NF
-};
+using namespace is3d;
 
-constexpr int NCOMP = 6;           // A1, B1, C1, C2, C3, D1
 constexpr int BLOCK = 256;         // points per block
 constexpr int MAX_TILE = 64;       // cells per shared-memory tile
 constexpr size_t SMEM_BUDGET = 48 * 1024;
 
 enum Mode { MODE_3D = 0, MODE_2D_FIXED = 1, MODE_2D_REMAP = 2 };
-
-__device__ __forceinline__ float d_exp(float x) { return expf(x); }
-__device__ __forceinline__ double d_exp(double x) { return exp(x); }
-__device__ __forceinline__ float d_sqrt(float x) { return sqrtf(x); }
-__device__ __forceinline__ double d_sqrt(double x) { return sqrt(x); }
-__device__ __forceinline__ float d_cosh(float x) { return coshf(x); }
-__device__ __forceinline__ double d_cosh(double x) { return cosh(x); }
-__device__ __forceinline__ float d_sinh(float x) { return sinhf(x); }
-__device__ __forceinline__ double d_sinh(double x) { return sinh(x); }
-
-template <typename T>
-struct Point {            // per-thread momentum point
-  T mT, mT2, mTpx, mTpy, px, py, px2, py2, pxpy, m2, sgn, bar, srem;
-};
-
-template <typename T>
-struct Comp {             // per (cell, node)
-  T A1, B1, C1, C2, C3, D1;
-};
-
-template <typename T>
-struct CellPoint {        // per (cell, point), node-independent
-  T W1, W2, C4, D2, invT, alphaB, bulkPi, benth;
-  T ksc, kb0, kb1, kb2, kdv, kc3, kc4;
-};
-
-// field f of tile cell c lives at raw[f * ld + c]
-template <typename T>
-__device__ __forceinline__ Comp<T> composites(const T* raw, int ld, int c,
-                                              T ch, T sh) {
-  const T t_sh = sh * raw[F_TAU * ld + c];
-  Comp<T> k;
-  k.A1 = ch * raw[F_DAT * ld + c] + sh * raw[F_DANT * ld + c];
-  k.B1 = ch * raw[F_UT * ld + c] - sh * raw[F_TUN * ld + c];
-  k.C1 = ch * ch * raw[F_PITT * ld + c] + t_sh * t_sh * raw[F_PINN * ld + c]
-         - T(2) * ch * t_sh * raw[F_PITN * ld + c];
-  k.C2 = T(-2) * (ch * raw[F_PITX * ld + c] - t_sh * raw[F_PIXN * ld + c]);
-  k.C3 = T(-2) * (ch * raw[F_PITY * ld + c] - t_sh * raw[F_PIYN * ld + c]);
-  k.D1 = ch * raw[F_VT * ld + c] - t_sh * raw[F_VN * ld + c];
-  return k;
-}
-
-template <typename T>
-__device__ __forceinline__ CellPoint<T> cell_point(const T* raw, int ld,
-                                                   int c, const Point<T>& p) {
-  CellPoint<T> q;
-  q.W1 = raw[F_DAX * ld + c] * p.px + raw[F_DAY * ld + c] * p.py;
-  q.W2 = raw[F_UX * ld + c] * p.px + raw[F_UY * ld + c] * p.py;
-  q.C4 = raw[F_PIXX * ld + c] * p.px2 + raw[F_PIYY * ld + c] * p.py2
-         + T(2) * raw[F_PIXY * ld + c] * p.pxpy;
-  q.D2 = raw[F_VX * ld + c] * p.px + raw[F_VY * ld + c] * p.py;
-  q.invT = raw[F_INVT * ld + c];
-  q.alphaB = raw[F_ALPHAB * ld + c];
-  q.bulkPi = raw[F_BULKPI * ld + c];
-  q.benth = raw[F_BENTH * ld + c];
-  q.ksc = raw[F_KSC * ld + c];
-  q.kb0 = raw[F_KB0 * ld + c];
-  q.kb1 = raw[F_KB1 * ld + c];
-  q.kb2 = raw[F_KB2 * ld + c];
-  q.kdv = raw[F_KDV * ld + c];
-  q.kc3 = raw[F_KC3 * ld + c];
-  q.kc4 = raw[F_KC4 * ld + c];
-  return q;
-}
-
-// p.dsigma * f_eq * (1 + df) at one (cell, node, point)
-template <typename T, int DF>
-__device__ __forceinline__ T emission(const Point<T>& p, const CellPoint<T>& q,
-                                      const Comp<T>& k, int regulate,
-                                      int outflow) {
-  const T pds = p.mT * k.A1 + q.W1;
-  const T pdotu = p.mT * k.B1 - q.W2;
-  const T pipp = p.mT2 * k.C1 + p.mTpx * k.C2 + p.mTpy * k.C3 + q.C4;
-  const T Vp = p.mT * k.D1 - q.D2;
-  const T feq = T(1) / (d_exp(pdotu * q.invT - p.bar * q.alphaB) + p.sgn);
-  const T feqbar = T(1) - p.sgn * feq;
-  T df;
-  if (DF == 1) {
-    df = q.ksc * pipp
-         + (q.kb0 * p.m2 + (q.kb1 * p.bar + q.kb2 * pdotu) * pdotu) * q.bulkPi
-         + (q.kc3 * p.bar + q.kc4 * pdotu) * Vp;
-  } else {
-    const T r = T(1) / pdotu;
-    df = q.ksc * pipp * r
-         + (q.kb0 * pdotu + q.kb1 * p.bar + q.kb2 * (pdotu - p.m2 * r))
-           * q.bulkPi
-         + (q.benth - p.bar * r) * Vp * q.kdv;
-  }
-  df = feqbar * df;
-  if (regulate) df = df < T(-1) ? T(-1) : (df > T(1) ? T(1) : df);
-  const T f = feq * df + feq;
-  return (outflow ? (pds > T(0) ? pds : T(0)) : pds) * f;
-}
 
 template <typename T, int MODE, int DF>
 __global__ void __launch_bounds__(BLOCK)

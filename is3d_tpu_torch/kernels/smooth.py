@@ -44,6 +44,7 @@ from ..io.tables import MomentumGrid
 from ..io.deltaf import DeltafData
 from ..tensors import TensorContainer
 from .common import surface_columns, prepare_cells, fermi_bose, effective_chunk
+from .launch import check_float, check_tensor, require_cuda, launch
 
 # reference temperature of the eta-node remap's s(mT) = sqrt(T_ref/mT)
 ETA_REMAP_T_REF = 0.15
@@ -65,6 +66,15 @@ _PAD_ONE_FIELDS = ("tau", "ut", "invT")
 
 # launches of the CUDA kernel in this process (smooth_spectra_cuda)
 LAUNCHES = 0
+
+# per (cell, species, pT, phi, rapidity) evaluation of the 3+1D float32
+# kernel, by df mode, counted in its sm_90a SASS (the cell loop's body:
+# FFMA, FMUL, FADD, FSETP, FSEL, FMNMX, ... and MUFU.EX2 + MUFU.RCP); the
+# body issues 134 (df 1) and 159 (df 2) instructions in all, 24 of them
+# shared-memory loads.  chip_smoke.py divides these by the card's FP32
+# and SFU issue rates for the kernel's bound
+FP32_PER_EVAL = {1: 46, 2: 56}
+SFU_PER_EVAL = {1: 2, 2: 3}
 
 
 @dataclass(frozen=True)
@@ -115,9 +125,10 @@ def momentum_constants(species: SpeciesArrays, grid: MomentumGrid,
     py = grid.pT[:, None] * torch.sin(grid.phi)[None, :]
     nodes, weights = ((grid.y, torch.ones_like(grid.y)) if dimension == 3
                       else (grid.eta, grid.eta_weight))
+    c = lambda t: t.contiguous()
     return MomentumConstants(
-        mass=species.mass, sign=species.sign, baryon=species.baryon,
-        degeneracy=species.degeneracy, pT=grid.pT,
+        mass=c(species.mass), sign=c(species.sign), baryon=c(species.baryon),
+        degeneracy=c(species.degeneracy), pT=c(grid.pT),
         px=px.reshape(P * F).contiguous(), py=py.reshape(P * F).contiguous(),
         nodes=nodes.contiguous(), weights=weights.contiguous(), n_phi=F)
 
@@ -175,11 +186,12 @@ def pack_cells(c: dict, cfg: Config) -> torch.Tensor:
 
 # ------------------------------------------------------------ plain version
 
-def _plain_chunk(x: torch.Tensor, mom: MomentumConstants,
-                 flags: SpectraFlags) -> torch.Tensor:
-    """Contribution of a chunk of packed cells, as (c, R, S, P, F) blocks
-    reduced over cells (3+1D: (R, S, P, F)) or over cells and weighted
-    nodes (2+1D: (S, P, F), before the remap jacobian)."""
+def plain_block(x: torch.Tensor, mom: MomentumConstants,
+                flags: SpectraFlags) -> torch.Tensor:
+    """p.dsigma f_eq (1 + df) of a chunk of packed cells at every (cell,
+    node, species, pT, phi): the (c, R, S, P, F) block, without node
+    weights, prefactor or degeneracy (the port of _chunk_contribution's
+    reduce=False block)."""
     S, P, F = mom.mass.shape[0], mom.pT.shape[0], mom.n_phi
     R = mom.nodes.shape[0]
     g = lambda name: x[:, IDX[name]].view(-1, 1, 1, 1, 1)
@@ -235,9 +247,18 @@ def _plain_chunk(x: torch.Tensor, mom: MomentumConstants,
     if flags.regulate:
         df = torch.clamp(df, -1.0, 1.0)
     f = feq * df + feq
-    contrib = (torch.clamp(pds, min=0.0) if flags.outflow else pds) * f
+    return (torch.clamp(pds, min=0.0) if flags.outflow else pds) * f
+
+
+def _plain_chunk(x: torch.Tensor, mom: MomentumConstants,
+                 flags: SpectraFlags) -> torch.Tensor:
+    """Contribution of a chunk of packed cells, the plain_block reduced
+    over cells (3+1D: (R, S, P, F)) or over cells and weighted nodes (2+1D:
+    (S, P, F), before the remap jacobian)."""
+    contrib = plain_block(x, mom, flags)
     if flags.dimension == 3:
         return contrib.sum(0)
+    R = mom.nodes.shape[0]
     return (contrib * mom.weights.view(1, R, 1, 1, 1)).sum((0, 1))
 
 
@@ -295,47 +316,30 @@ def smooth_spectra_cuda(cells: torch.Tensor, mom: MomentumConstants,
     """Launch the hand-written kernel (csrc/smooth_spectra.cu) on the
     current stream: (S, n_pT, n_phi, n_y_out) in the cells' dtype."""
     global LAUNCHES
-    if cells.device.type != "cuda":
-        raise ValueError(f"smooth_spectra_cuda needs CUDA tensors, got "
-                         f"{cells.device}")
-    if cells.dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"smooth_spectra_cuda takes float32 or float64, "
-                         f"got {cells.dtype}")
-    if cells.dim() != 2 or cells.shape[1] != NF or not cells.is_contiguous():
-        raise ValueError(f"cells must be a contiguous (C, {NF}) matrix, got "
-                         f"{tuple(cells.shape)}")
+    check_float("smooth_spectra_cuda", cells)
+    check_tensor("cells", cells, (cells.shape[0], NF), cells)
     S, P, F = mom.mass.shape[0], mom.pT.shape[0], mom.n_phi
     R = mom.nodes.shape[0]
-    want = dict(mass=S, sign=S, baryon=S, degeneracy=S, pT=P, px=P * F,
-                py=P * F, nodes=R, weights=R)
-    for name, n in want.items():
-        t = getattr(mom, name)
-        if (t.device != cells.device or t.dtype != cells.dtype
-                or t.dim() != 1 or t.shape[0] != n
-                or not t.is_contiguous()):
-            raise ValueError(f"momentum constant {name}: need a contiguous "
-                             f"({n},) {cells.dtype} tensor on {cells.device}, "
-                             f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+    for name, n in dict(mass=S, sign=S, baryon=S, degeneracy=S, pT=P,
+                        px=P * F, py=P * F, nodes=R, weights=R).items():
+        check_tensor(f"momentum constant {name}", getattr(mom, name), (n,),
+                     cells)
+    require_cuda("smooth_spectra_cuda", cells)
     n_out = R if flags.dimension == 3 else 1
     out = torch.empty((S, P, F, n_out), device=cells.device,
                       dtype=cells.dtype)
     lib = _spectra_library()
     fn = (lib.is3d_smooth_spectra_f32 if cells.dtype == torch.float32
           else lib.is3d_smooth_spectra_f64)
-    with torch.cuda.device(cells.device):
-        stream = torch.cuda.current_stream(cells.device).cuda_stream
-        rc = fn(cells.data_ptr(), cells.shape[0], NF,
-                mom.mass.data_ptr(), mom.sign.data_ptr(),
-                mom.baryon.data_ptr(), mom.degeneracy.data_ptr(), S,
-                mom.pT.data_ptr(), mom.px.data_ptr(), mom.py.data_ptr(), P, F,
-                mom.nodes.data_ptr(), mom.weights.data_ptr(), R,
-                flags.df_mode, flags.dimension, int(flags.remap),
-                int(flags.regulate), int(flags.outflow),
-                CF_PREFACTOR, ETA_REMAP_T_REF, out.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError("smooth_spectra kernel launch failed: "
-                           f"{lib.is3d_cuda_error_string(rc).decode()} "
-                           f"(error {rc})")
+    launch(lib, "smooth_spectra", fn, cells.device,
+           cells.data_ptr(), cells.shape[0], NF,
+           mom.mass.data_ptr(), mom.sign.data_ptr(),
+           mom.baryon.data_ptr(), mom.degeneracy.data_ptr(), S,
+           mom.pT.data_ptr(), mom.px.data_ptr(), mom.py.data_ptr(), P, F,
+           mom.nodes.data_ptr(), mom.weights.data_ptr(), R,
+           flags.df_mode, flags.dimension, int(flags.remap),
+           int(flags.regulate), int(flags.outflow),
+           CF_PREFACTOR, ETA_REMAP_T_REF, out.data_ptr())
     LAUNCHES += 1
     return out
 

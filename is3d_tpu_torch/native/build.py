@@ -7,13 +7,17 @@ flags:
 * ``fastio`` (native/fastio.cpp, g++): the surface tokenizer and the
   writers' ``%.8e`` formatter.  Without a host compiler the callers fall
   back to byte-identical Python loops.
-* the CUDA kernels (csrc/*.cu, nvcc for sm_90a, plain C interface): no
-  fallback -- a failed build raises with the compiler's output.
+* the CUDA kernels (csrc/*.cu, nvcc for sm_90a, plain C interface; the
+  hash also covers every csrc/*.cuh header, so a header edit rebuilds):
+  no fallback -- a failed build raises with the compiler's output.
+  ``build_cuda_libraries`` compiles several sources at once, one nvcc
+  process each.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -25,6 +29,7 @@ import numpy as np
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(_PKG, "_build")
 _FASTIO_SRC = os.path.join(_PKG, "native", "fastio.cpp")
+_CSRC = os.path.join(_PKG, "csrc")
 
 _lock = threading.Lock()
 _fastio = None
@@ -38,10 +43,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
-def _cached_path(name: str, src: str, flags) -> str:
+def _cached_path(name: str, sources, flags) -> str:
+    """The library's path under BUILD_DIR, keyed by the bytes of every file
+    in ``sources`` (in order) and the flags."""
     h = hashlib.sha256()
-    with open(src, "rb") as f:
-        h.update(f.read())
+    for src in sources:
+        with open(src, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(flags).encode())
     os.makedirs(BUILD_DIR, exist_ok=True)
     return os.path.join(BUILD_DIR, f"{name}_{h.hexdigest()[:16]}.so")
@@ -58,7 +66,7 @@ def _build_fastio():
     """Compile fastio.cpp into a cached .so and LOAD it; returns the loaded
     CDLL or None.  A .so that compiles but cannot be dlopen'ed is not
     cached, or every later process would silently lose the native path."""
-    so_path = _cached_path("fastio", _FASTIO_SRC, ())
+    so_path = _cached_path("fastio", [_FASTIO_SRC], ())
     if os.path.exists(so_path):
         lib = _try_load(so_path)
         if lib is not None:
@@ -168,28 +176,62 @@ def _nvcc() -> str:
                        f"{home}/bin): cannot build the CUDA kernels")
 
 
+def _cuda_paths(name: str) -> tuple[str, str]:
+    """(source, cached library path) of ``csrc/<name>.cu``; the key covers
+    every csrc/*.cuh header, whichever the source includes."""
+    src = os.path.join(_CSRC, f"{name}.cu")
+    headers = sorted(glob.glob(os.path.join(_CSRC, "*.cuh")))
+    return src, _cached_path(name, [src, *headers], NVCC_FLAGS)
+
+
+def build_cuda_libraries(names) -> None:
+    """Compile each ``csrc/<name>.cu`` that has no cached library yet, one
+    nvcc process per source, all started together.  Raises with the
+    compiler's output if nvcc is missing or any build fails; every process
+    started here has ended when this returns or raises."""
+    with _lock:
+        todo = []
+        for name in names:
+            src, so_path = _cuda_paths(name)
+            if name not in _cuda_libs and not os.path.exists(so_path):
+                todo.append((name, src, so_path))
+        if not todo:
+            return
+        nvcc = _nvcc()
+        procs = []
+        try:
+            for name, src, so_path in todo:
+                tmp = so_path + f".tmp{os.getpid()}"
+                proc = subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-o", tmp, src],
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                procs.append((name, src, so_path, tmp, proc))
+            failed = []
+            for name, src, so_path, tmp, proc in procs:
+                out, err = proc.communicate(timeout=600)
+                CUDA_BUILD_LOGS[name] = out + err
+                if proc.returncode != 0:
+                    failed.append(f"nvcc failed to build {src} (exit "
+                                  f"{proc.returncode}):\n{out}{err}")
+                else:
+                    os.replace(tmp, so_path)
+        finally:
+            for *_, proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        if failed:
+            raise RuntimeError("\n".join(failed))
+
+
 def cuda_library(name: str) -> ctypes.CDLL:
     """Build (once per source hash) and load ``csrc/<name>.cu``.  Raises
     with the compiler's output if nvcc is missing or the build fails."""
     lib = _cuda_libs.get(name)
     if lib is not None:
         return lib
+    build_cuda_libraries([name])
     with _lock:
-        if name in _cuda_libs:
-            return _cuda_libs[name]
-        src = os.path.join(_PKG, "csrc", f"{name}.cu")
-        so_path = _cached_path(name, src, NVCC_FLAGS)
-        if not os.path.exists(so_path):
-            tmp = so_path + f".tmp{os.getpid()}"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
-            proc = subprocess.run(cmd, capture_output=True, text=True,
-                                  timeout=600)
-            CUDA_BUILD_LOGS[name] = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed to build {src} "
-                                   f"(exit {proc.returncode}):\n"
-                                   f"{proc.stdout}{proc.stderr}")
-            os.replace(tmp, so_path)
-        lib = ctypes.CDLL(so_path)
-        _cuda_libs[name] = lib
-        return lib
+        if name not in _cuda_libs:
+            _cuda_libs[name] = ctypes.CDLL(_cuda_paths(name)[1])
+        return _cuda_libs[name]

@@ -40,17 +40,25 @@ def _pad_inert(cols: dict, n_target: int) -> dict:
     return cols
 
 
+def _fold(acc, part):
+    """acc + part leaf by leaf (a tensor or a dict of tensors), in place
+    into acc; the first partial is copied."""
+    if isinstance(part, dict):
+        return {k: _fold(None if acc is None else acc[k], v)
+                for k, v in part.items()}
+    return part.clone() if acc is None else acc.add_(part)
+
+
 def grouped_cell_reduce(kernel_fn, cols: dict, replicated: tuple,
-                        cfg: Config) -> torch.Tensor:
-    """Reduce ``kernel_fn(cols_group, *replicated)`` over the cell axis
-    through the canonical group tree: one call per group, partials folded
-    in group order."""
+                        cfg: Config):
+    """Reduce ``kernel_fn(cols_group, *replicated)`` -- a tensor, or a dict
+    of accumulator tensors -- over the cell axis through the canonical group
+    tree: one call per group, every leaf folded in group order."""
     n = cols["tau"].shape[0]
     G, gs = canonical_groups(cfg, n)
     cols = _pad_inert(cols, G * gs)
     acc = None
     for g in range(G):
         sub = {k: v[g * gs:(g + 1) * gs] for k, v in cols.items()}
-        part = kernel_fn(sub, *replicated)
-        acc = part.clone() if acc is None else acc.add_(part)
+        acc = _fold(acc, kernel_fn(sub, *replicated))
     return acc

@@ -1,4 +1,4 @@
-"""Run-time utilities: phase timing.
+"""Run-time utilities: phase timing and CUDA-event kernel timing.
 
 The reference's only instrumentation is a wall-clock Stopwatch around
 calculate_spectra (src/cpp/Stopwatch.h) plus progress printfs.  Here every
@@ -38,3 +38,20 @@ class PhaseTimer:
         lines = [f"  {name:<28s} {dt:8.3f} s" for name, dt in self.phases]
         lines.append(f"  {'total':<28s} {self.total():8.3f} s")
         return "\n".join(lines)
+
+
+def cuda_median_ms(fn, n: int = 5):
+    """Median and all of ``n`` CUDA-event times (ms) of ``fn()`` on the
+    current stream, each run synchronized; the caller warms up first."""
+    import statistics
+    import torch
+    times = []
+    for _ in range(n):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(statistics.median(times)), times

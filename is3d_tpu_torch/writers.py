@@ -1,10 +1,11 @@
-"""Reference-compatible results/*.dat writers for the smooth spectra.
+"""Reference-compatible results/*.dat writers for the smooth spectra and
+the spacetime distributions.
 
 File layouts mirror the reference's writer methods
-(emissionfunction.cpp:381-772, 1053-1136): same column orders, block
-separators, and `scientific << setprecision(8)` number formatting, so
-downstream analysis scripts written for the reference keep working.
-Spectra arrive as host numpy arrays.
+(emissionfunction.cpp:381-772, 1053-1136,
+emissionfunction_smooth_kernels.cpp:1404-1439): same column orders, block
+separators, and number formatting, so downstream analysis scripts written
+for the reference keep working.  Results arrive as host numpy arrays.
 """
 
 from __future__ import annotations
@@ -179,3 +180,28 @@ def write_continuous_vn(spectra, grid, mcids, dimension, results_dir="results"):
         path = f"{results_dir}/vn_continuous/vn_{int(mcid)}.dat"
         _write_sci_table(path, None, rows[s].reshape(-1, 2 + K_MAX),
                          blank_every=len(pTs))
+
+
+def write_spacetime_distributions(dX: dict, mcids, results_dir="results"):
+    """results/spacetime_distribution/{dN_taudtaudy,dN_twopirdrdy,
+    dN_twopitaurdtaudrdy,dN_dydeta}_MCID.dat (reference:
+    emissionfunction_smooth_kernels.cpp:1404-1439)."""
+    d = os.path.join(results_dir, "spacetime_distribution")
+    os.makedirs(d, exist_ok=True)
+    tau_mid, r_mid, eta = dX["tau_mid"], dX["r_mid"], dX["eta"]
+    for i, mcid in enumerate(np.asarray(mcids)):
+        mcid = int(mcid)
+        with open(f"{d}/dN_taudtaudy_{mcid}.dat", "w") as f:
+            for it, tm in enumerate(tau_mid):
+                f.write(f"{tm:.6e}\t{dX['dN_taudtaudy'][i, it]:.6e}\n")
+        with open(f"{d}/dN_twopirdrdy_{mcid}.dat", "w") as f:
+            for ir, rm in enumerate(r_mid):
+                f.write(f"{rm:.6e}\t{dX['dN_twopirdrdy'][i, ir]:.6e}\n")
+        with open(f"{d}/dN_twopitaurdtaudrdy_{mcid}.dat", "w") as f:
+            for ir, rm in enumerate(r_mid):
+                for it, tm in enumerate(tau_mid):
+                    f.write(f"{tm:.6e}\t{rm:.6e}\t"
+                            f"{dX['dN_twopitaurdtaudrdy'][i, it, ir]:.6e}\n")
+        with open(f"{d}/dN_dydeta_{mcid}_{len(eta)}pt.dat", "w") as f:
+            for ie, ev in enumerate(eta):
+                f.write(f"{ev:.6e}\t{dX['dN_dydeta'][i, ie]:.6e}\n")

@@ -17,17 +17,25 @@ Phases, each printing its own line(s):
    (atol 2e-5 * max, rtol 2e-4) and f64 (rtol 1e-10, atol 1e-13 * max):
    the spectra kernel on every path (3+1D df 1/2, 2+1D fixed nodes, 2+1D
    mT remap; regulate/outflow off and on; one baryon + diffusion case
-   each); the dN/dX kernel and its binning kernel (777 cells, 40 species;
-   2+1D and 3+1D, df 1/2, regulate/outflow off and on, baryon + diffusion);
-   the spectra prototype and the reduction probe;
+   each); the spectra kernel's edges (species, momentum points and nodes
+   that are not multiples of its blocking factors; 3+1D rapidities far
+   enough from the cells that exp(u.p/T) overflows, where the output must
+   be exactly 0; a boson at small mT; large shear with regulate on, where
+   the clip must bite); the dN/dX kernel and its binning kernel (777
+   cells, 40 species; 2+1D and 3+1D, df 1/2, regulate/outflow off and on,
+   baryon + diffusion); the binning kernel's edges (empty bins, a bin of
+   every cell, bins longer and shorter than one slice, two launches
+   bit-identical); the spectra prototype and the reduction probe;
 4. operation 1 main path: a synthetic 131072-cell x 320-species 3+1D
    mode-1 run directory through ``is3d_tpu_torch.cli.main`` (df 2, shear +
    bulk, regulate, outflow, f32, native 32 x 24 x 21 grid), then the same
    CLI on a 256-cell run directory on cuda and on cpu (f64), whose spectra
    files must agree;
 5. the spectra kernel against the plain version on one canonical group of
-   that surface (16384 cells), f32: agreement, then paired times (CUDA
-   events, one warm-up, median of 5);
+   that surface (16384 cells), f32: agreement, two launches bit-identical,
+   both f32 versions against the f64 kernel, then paired times (CUDA
+   events, one warm-up, median of 5) and the kernel's instructions per
+   evaluation (tools/sass_count.py, where cuobjdump reads the library);
 6. operation 0 main path: a synthetic 65536-cell x 320-species 2+1D run
    directory through ``cli.main`` (df 1, shear + bulk, regulate, outflow,
    f32, native 32 x 24 x 48 grid): launches = canonical groups, every
@@ -36,15 +44,21 @@ Phases, each printing its own line(s):
 7. the dN/dX kernel and the binning kernel on one canonical group of that
    surface (8192 cells), f32: agreement with the plain versions, two
    launches bit-identical, paired times (one warm-up -- for the plain
-   version its agreement call -- and the median of 5);
+   version its agreement call -- and the median of 5; the binning kernel,
+   its plain version and its library yardstick as 20 calls queued behind
+   a device-side sleep, per call);
 8. the experiments at their own shapes, each through its ``measure()``:
    the spectra prototype (32768 cells x 320 x 768 x 21; its plain version
    on the first 1024 cells) and the reduction probe (176 x 48 x 320 x 768).
 
-Before every path (4, 6, 8) all launch counts are set to 0 and they are
-read right after it.  The line before the last is the kernel record as
-JSON; the last line is ``{"ok": true, "device": {...}}``.  Any failed phase
-exits nonzero before that line is printed.
+Bounds: the larger of the bytes over the memory rate and the operations
+over the card's FP32 and SFU rates, the spectra, dN/dX and prototype
+kernels' operations from one yardstick counted in the formula
+(kernels/smooth.py, FORMULA_OPS).  Before every path (4, 6, 8) all launch
+counts are set to 0 and they are read right after it.  The line before
+the last is the kernel record as JSON; the last line is ``{"ok": true,
+"device": {...}}``.  Any failed phase exits nonzero before that line is
+printed.
 """
 
 from __future__ import annotations
@@ -200,6 +214,53 @@ def phase_small_cases():
             _check(name, got, want, *tol[dtype])
 
 
+def phase_small_edges():
+    """The spectra kernel's edges (testing.SPECTRA_EDGES: ragged blocking,
+    exp overflow with exact zeros, light bosons, an active clip) against
+    the plain version, f32 and f64, 777 cells and 40 species."""
+    from is3d_tpu_torch import testing
+    from is3d_tpu_torch.kernels.smooth import (smooth_spectra_cuda,
+                                               smooth_spectra_plain)
+    for dtype in (torch.float32, torch.float64):
+        for case in testing.SPECTRA_EDGES:
+            cells, mom, flags = testing.spectra_edge_inputs(
+                case, n_cells=777, n_species=40, dtype=dtype, device="cuda")
+            got = smooth_spectra_cuda(cells, mom, flags)
+            want = smooth_spectra_plain(cells, mom, flags)
+            torch.cuda.synchronize()
+            seen = testing.spectra_edge_seen(case, cells, mom, flags, want)
+            _check(f"{str(dtype)[6:]} edge {case} ({seen})", got, want,
+                   *TOL[dtype])
+            zero = want == 0
+            if (got[zero] != 0).any():
+                fail(f"{dtype} {case}: {int((got[zero] != 0).sum())} of the "
+                     f"plain version's {int(zero.sum())} exact zeros are "
+                     "nonzero in the kernel")
+
+
+def phase_small_bins():
+    """The binning kernel's edges (testing.BIN_EDGES: empty bins, a bin of
+    every cell, bins longer and shorter than one slice) against its plain
+    version, f32 and f64; two launches bit-identical."""
+    from is3d_tpu_torch.kernels import dndx
+    from is3d_tpu_torch import testing
+    for dtype in (torch.float32, torch.float64):
+        for case in testing.BIN_EDGES:
+            per_cell, plan = testing.bin_edge_inputs(case, dtype=dtype,
+                                                     device="cuda")
+            got = dndx.dndx_bin_cuda(per_cell, plan)
+            again = dndx.dndx_bin_cuda(per_cell, plan)
+            want = dndx.dndx_bin_plain(per_cell, plan)
+            torch.cuda.synchronize()
+            counts = torch.diff(plan.start).cpu()
+            _check(f"dndx_bin {str(dtype)[6:]} {case}: "
+                   f"{per_cell.shape[0]} cells, {int((counts == 0).sum())} "
+                   f"empty of {plan.n_bins} bins, longest "
+                   f"{int(counts.max())} entries", got, want, *TOL[dtype])
+            if not torch.equal(got, again):
+                fail(f"dndx_bin {case}: two launches differ")
+
+
 def _run_cli(argv):
     from is3d_tpu_torch import cli
     buf = io.StringIO()
@@ -342,11 +403,21 @@ def phase_pair(smi: str, run_dir: str, cfg):
     flags = spectra_flags(cfg, grid)
     kern = lambda: smooth_spectra_cuda(cells, mom, flags)
     plain = lambda: smooth_spectra_plain(cells, mom, flags, cfg.cell_chunk)
-    got, want = kern(), plain()
+    got, again, want = kern(), kern(), plain()
     torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        fail("smooth_spectra: two launches on the main-path group differ")
     max_err = _check(f"float32 main-path group ({tuple(cells.shape)} cells, "
                      f"{tuple(got.shape)} out)", got, want, 2e-4, 2e-5)
-    kern()
+    # both float32 versions against the float64 kernel on the same inputs
+    ref = smooth_spectra_cuda(cells.double(), mom.to(dtype=torch.float64),
+                              flags)
+    scale = ref.abs().max()
+    print("[pair] float32 against the float64 kernel, largest difference "
+          f"as a share of the largest value: kernel "
+          f"{((got.double() - ref).abs().max() / scale).item():.2e}, plain "
+          f"{((want.double() - ref).abs().max() / scale).item():.2e}")
+    del ref
     plain()
     torch.cuda.synchronize()
     k_ms, k_all = cuda_median_ms(kern)
@@ -357,8 +428,25 @@ def phase_pair(smi: str, run_dir: str, cfg):
           f"{', '.join(f'{t:.2f}' for t in k_all)}), plain {p_ms:.3f} ms "
           f"(runs {', '.join(f'{t:.1f}' for t in p_all)}), "
           f"kernel {evals / k_ms * 1e3:.3e} evaluations/s, "
-          f"plain/kernel {p_ms / k_ms:.2f}")
+          f"plain/kernel {p_ms / k_ms:.2f}; two launches bit-identical; "
+          "issued per evaluation: "
+          + _issued("smooth_spectra", f"spectra_kernelIfLi{cfg.dimension}E"
+                    f"Li{cfg.df_mode}E"))
     return max_err, k_ms, p_ms, evals, _nbytes(cells, got, *mom_tensors(mom))
+
+
+def _issued(library: str, kernel: str) -> str:
+    """Instructions per evaluation in the SASS of the first kernel of
+    ``library`` whose mangled name matches ``kernel`` (tools/sass_count.py),
+    or "not measured" where cuobjdump is missing or finds no loop."""
+    from is3d_tpu_torch.native import build
+    from is3d_tpu_torch.tools import sass_count
+    r = sass_count.per_eval(build._cuda_paths(library)[1], kernel)
+    if r is None:
+        return "not measured"
+    return (f"{r['instructions']:.2f} instructions, {r['fp32']:.2f} FP32, "
+            f"{r['sfu']:.2f} SFU, {r['lds']:.2f} shared loads (loop of "
+            f"{r['evaluations']:.0f} evaluations)")
 
 
 def _modules():
@@ -569,7 +657,7 @@ def phase_dndx_main(smi: str):
 
 def phase_dndx_pair(smi: str, clock: float, run_dir: str, cfg):
     from is3d_tpu_torch.api import IS3D
-    from is3d_tpu_torch.utils import cuda_median_ms
+    from is3d_tpu_torch.utils import cuda_median_ms, cuda_queued_ms
     from is3d_tpu_torch.kernels import dndx
     from is3d_tpu_torch.parallel.mesh import canonical_groups
 
@@ -594,15 +682,16 @@ def phase_dndx_pair(smi: str, clock: float, run_dir: str, cfg):
     k_ms, k_all = cuda_median_ms(kern)
     p_ms, p_all = cuda_median_ms(plain)
     evals = cells.shape[0] * S * wM.shape[0] * R
-    bound = _bound(evals, dndx.FP32_PER_EVAL[cfg.df_mode],
-                   dndx.SFU_PER_EVAL[cfg.df_mode],
+    bound = _bound(evals, *dndx.FORMULA_OPS[cfg.df_mode],
                    _nbytes(cells, wM, wR, *got, *mom_tensors(mom)), clock)
     print(f"[dndx pair] {smi} | one group {shape}: kernel {k_ms:.3f} ms "
           f"(runs {', '.join(f'{t:.2f}' for t in k_all)}), plain "
           f"{p_ms:.3f} ms (runs {', '.join(f'{t:.1f}' for t in p_all)}), "
           f"kernel {evals / k_ms * 1e3:.3e} evaluations/s, plain/kernel "
           f"{p_ms / k_ms:.2f}, bound {bound[0]:.3f} ms ({bound[1]}); two "
-          "launches bit-identical")
+          "launches bit-identical; issued per evaluation: "
+          + _issued("dndx", "percell_kernelIfNS_16EmissionProducerIf"
+                    f"Li{cfg.df_mode}ELi{cfg.dimension}E"))
     rec_dndx = dict(launches=None, max_abs_err=err, ms=k_ms, plain_ms=p_ms,
                     bound_ms=bound[0], bound_by=bound[1], library_ms=None)
 
@@ -627,18 +716,44 @@ def phase_dndx_pair(smi: str, clock: float, run_dir: str, cfg):
                   2e-5)
     _check("dndx_bin's library yardstick (torch.sparse.mm)", lib_out.T,
            hist_want, 2e-4, 2e-5)
-    b_ms, b_all = cuda_median_ms(bkern)
-    bp_ms, _ = cuda_median_ms(bplain)
-    bl_ms, _ = cuda_median_ms(blib)
+    b_ms, b_all = cuda_queued_ms(bkern)
+    bp_ms, _ = cuda_queued_ms(bplain)
+    bl_ms, _ = cuda_queued_ms(blib)
     bbound = _bound(plan.key.shape[0] * S, 1, 0,
                     _nbytes(per_cell, plan.cell, plan.start, hist), clock)
     print(f"[bin pair] {smi} | one group: kernel {b_ms:.4f} ms (runs "
           f"{', '.join(f'{t:.4f}' for t in b_all)}), plain {bp_ms:.4f} ms, "
           f"torch.sparse.mm {bl_ms:.4f} ms, bound {bbound[0]:.4f} ms "
-          f"({bbound[1]}); two launches bit-identical")
+          f"({bbound[1]}); two launches bit-identical; device time per "
+          f"call by kernel: {_kernel_split(bkern)}")
     rec_bin = dict(launches=None, max_abs_err=berr, ms=b_ms, plain_ms=bp_ms,
                    bound_ms=bbound[0], bound_by=bbound[1], library_ms=bl_ms)
     return rec_dndx, rec_bin
+
+
+def _kernel_split(fn, calls: int = 20, tries: int = 3) -> str:
+    """Device time per call of ``fn`` by CUDA kernel name, from
+    torch.profiler over ``calls`` calls, or "not measured" where the
+    profiler records no device time in ``tries`` tries (a trace on the
+    card has come back without device events now and then)."""
+    from torch.profiler import profile, ProfilerActivity
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        parts = []
+        for e in prof.key_averages():
+            us = (getattr(e, "self_device_time_total", None)
+                  or getattr(e, "self_cuda_time_total", 0))
+            if us and "kernel" in e.key:
+                m = re.search(r"(\w+)<", e.key)
+                parts.append(f"{m.group(1) if m else e.key[:40]} "
+                             f"{us / calls:.2f} us")
+        if parts:
+            return ", ".join(parts)
+    return "not measured"
 
 
 def phase_experiments(smi: str, clock: float):
@@ -659,13 +774,16 @@ def phase_experiments(smi: str, clock: float):
         wants = r["want"] if isinstance(r["want"], tuple) else (r["want"],)
         err = max(_check(f"{name} float32 own shape ({r['label']})", g, w,
                          2e-4, 2e-5) for g, w in zip(outs, wants))
-        bound = _bound(r["evaluations"], mod.FP32_PER_EVAL, mod.SFU_PER_EVAL,
-                       r["bytes"], clock)
+        bound = _bound(r["evaluations"], *mod.BOUND_OPS, r["bytes"], clock)
+        issued = (_issued("smooth_proto", "proto_kernelIf")
+                  if name == "smooth_proto" else
+                  _issued("dndx", "percell_kernelIfNS_13ProbeProducer"))
         print(f"[{name}] {smi} | {r['label']}: kernel {r['ms']:.3f} ms "
               f"(runs {', '.join(f'{t:.3f}' for t in r['runs'])}), "
               f"{r['evaluations'] / r['ms'] * 1e3:.3e} evaluations/s; plain "
               f"{r['plain_ms']:.3f} ms ({r['plain_label']}); bound "
-              f"{bound[0]:.3f} ms ({bound[1]}); launches {r['launches']}")
+              f"{bound[0]:.3f} ms ({bound[1]}); launches {r['launches']}; "
+              f"issued per evaluation: {issued}")
         records[name] = dict(launches=r["launches"], max_abs_err=err,
                              ms=r["ms"], plain_ms=r["plain_ms"],
                              bound_ms=bound[0], bound_by=bound[1],
@@ -677,7 +795,9 @@ def main():
     smi, clock = phase_device()
     phase_build()
     phase_small_cases()
+    phase_small_edges()
     phase_small_dndx()
+    phase_small_bins()
     phase_small_experiments()
     shutil.rmtree(WORK, ignore_errors=True)
     try:
@@ -688,8 +808,7 @@ def main():
         phase_small_path_cpu_vs_cuda()
         max_err, k_ms, p_ms, evals, moved = phase_pair(smi, run_dir, cfg)
         smooth, dndx, _, _ = _modules()
-        bound = _bound(evals, smooth.FP32_PER_EVAL[cfg.df_mode],
-                       smooth.SFU_PER_EVAL[cfg.df_mode], moved, clock)
+        bound = _bound(evals, *smooth.FORMULA_OPS[cfg.df_mode], moved, clock)
         print(f"[pair] bound of one group {bound[0]:.3f} ms ({bound[1]}): "
               f"kernel at {bound[0] / k_ms:.1%} of it")
         shutil.rmtree(run_dir, ignore_errors=True)

@@ -19,33 +19,17 @@
 //     constants) plus wM (n_pT*n_phi) and wR (n_nodes).
 //   * ProbeProducer: P2's synthetic f = 1/(e^x + 1) (1 + 0.1 x) w(s, m),
 //     x = a(c, r) b(s, m) + 0.3 a(c, r); scale_s = 1.
-// A third kernel, bin_kernel, turns per_cell into the (tau, r)
-// histograms: the scatter-add of _dndx_jit (.at[].add) as a fixed-order
-// segment sum over cells pre-sorted by bin (kernels/dndx.py:bin_plan).
-//
-// Design.  Block (s, split) owns one species and a contiguous range of
-// cells; thread t owns the momentum points m = t, t + 256, ....  Cells
-// come in tiles of TILE staged in shared memory, and rapidity nodes in
-// chunks of RC whose per-(cell, node) composites are staged beside them.
-// Per (cell, point) the thread sums wR_r wM_m f over the chunk's nodes in
-// registers and a fixed shuffle tree folds the warp into a per-(warp,
-// cell) slot; per node it keeps RC register accumulators over the tile's
-// cells, folded the same way into per-(warp, node) slots.  So the (C, R,
-// S, M) block (9.7e10 values, 0.39 TB in float32, for one 8192-cell group
-// of 320 species x 768 points x 48 nodes) never leaves the registers,
-// and shared memory is O(R + TILE) whatever the node count (the
-// 241-node reference eta table included).  Every sum runs in a fixed
-// order and nothing uses float atomics: the per-(split, species, node)
-// partials go to a second, fixed-order pass (fold_kernel), so results
-// are bit-identical run to run.
-//
-// What bounds it: operations, like the spectra kernel -- per point ~40
-// fma, one exp and one or two IEEE reciprocals (emission.cuh); the cells
-// of a group are 1.2-2.4 MB and stay in L2.  The design adds per point
-// only the register accumulation (2 fma) and, per (cell, point, node
-// chunk), one cell_point recomputation and a 5-step shuffle, both
-// amortised over RC nodes.  Blocks split the cells so that about eight
-// blocks per SM are in flight even when the species alone would give 2-3.
+// Two more kernels turn per_cell into the (tau, r) histograms: the
+// scatter-add of _dndx_jit (.at[].add) as a fixed-order segment sum over
+// the (bin, cell) entries pre-sorted by bin (kernels/dndx.py:bin_plan).
+// The segments are very uneven -- one bin (dN/dy) holds every cell, the
+// tau and r bins hundreds, many (tau, r) bins none -- so the sum runs in
+// two passes over fixed slices of SLICE entries: slice_kernel sums each
+// slice's runs of one bin (a thread per (slice, species), species
+// fastest, so a warp reads 128 contiguous bytes per entry, and a long bin
+// spreads over the card), and bin_kernel adds, per (bin, species), the
+// pieces of the bin's slices in order.  Bound by latency: the bytes (one
+// read of per_cell) take a few microseconds; nothing uses atomics.
 
 #include <cuda_runtime.h>
 
@@ -61,6 +45,8 @@ constexpr int TILE = 16;             // cells per shared-memory tile
 constexpr int RC = 8;                // rapidity nodes per staged chunk
 constexpr size_t SMEM_BUDGET = 48 * 1024;
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int SLICE = 64;            // binning entries per slice
+constexpr int BIN_TILE = 32;         // bins and species per bin_kernel block
 
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
@@ -300,21 +286,104 @@ fold_kernel(const T* __restrict__ partial, int n_split, int n_species,
   dydeta[i] = (deg != nullptr ? prefactor * deg[s] : prefactor) * v;
 }
 
-// hist[s, b] = sum over k in [start[b], start[b+1]) of per_cell[cell[k], s],
-// k ascending; one thread per (bin, species), species fastest
+// The entries [j SLICE, (j + 1) SLICE) of slice j fall into runs of one
+// bin each, summed over their entries in ascending order: the first run's
+// sum goes to piece row j, every later run's (it starts its bin b) to row
+// n_slices + b, so bin_kernel reads a bin's slices as consecutive rows.
+// Loads come in batches to keep them in flight.
 template <typename T>
 __global__ void __launch_bounds__(BLOCK)
-bin_kernel(const T* __restrict__ per_cell, int n_species,
-           const int* __restrict__ cell, const int* __restrict__ start,
-           int n_bins, T* __restrict__ hist) {
+slice_kernel(const T* __restrict__ per_cell, int n_species,
+             const int* __restrict__ cell, const long long* __restrict__ key,
+             int n_entries, int n_slices, T* __restrict__ piece) {
+  constexpr int BATCH = 16;
   const long long i = (long long)blockIdx.x * BLOCK + threadIdx.x;
-  if (i >= (long long)n_bins * n_species) return;
-  const int b = (int)(i / n_species);
-  const int s = (int)(i - (long long)b * n_species);
+  if (i >= (long long)n_slices * n_species) return;
+  const int j = (int)(i / n_species);
+  const int s = (int)(i - (long long)j * n_species);
+  const int k0 = j * SLICE;
+  const int k1 = min(k0 + SLICE, n_entries);
   T v = T(0);
-  for (int k = start[b]; k < start[b + 1]; ++k)
-    v += per_cell[(size_t)cell[k] * n_species + s];
-  hist[(size_t)s * n_bins + b] = v;
+  long long row = j;
+  long long prev = key[k0];
+  for (int b = k0; b < k1; b += BATCH) {
+    T val[BATCH];
+    long long kb[BATCH];
+#pragma unroll
+    for (int t = 0; t < BATCH; ++t) {
+      const int k = min(b + t, k1 - 1);
+      val[t] = per_cell[(size_t)cell[k] * n_species + s];
+      kb[t] = key[k];
+    }
+#pragma unroll
+    for (int t = 0; t < BATCH; ++t) {
+      if (b + t < k1) {
+        if (kb[t] != prev) {                        // a new run starts here
+          piece[(size_t)row * n_species + s] = v;
+          v = T(0);
+          row = n_slices + kb[t];
+          prev = kb[t];
+        }
+        v += val[t];
+      }
+    }
+  }
+  piece[(size_t)row * n_species + s] = v;
+}
+
+// hist[s, b] = sum over k in [start[b], start[b+1]) of per_cell[cell[k], s]:
+// the piece of b's first run, then the first-run pieces of the slices that
+// start inside b, in order.  A block owns BIN_TILE bins x BIN_TILE
+// species: lanes run over species to read, the tile is transposed in
+// shared memory, and lanes run over bins to write.
+template <typename T>
+__global__ void __launch_bounds__(BLOCK)
+bin_kernel(int n_species, const int* __restrict__ start, int n_bins,
+           int n_slices, const T* __restrict__ piece, T* __restrict__ hist) {
+  __shared__ T tile[BIN_TILE][BIN_TILE + 1];        // [species][bin]
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int b0 = blockIdx.x * BIN_TILE;
+  const int s0 = blockIdx.y * BIN_TILE;
+  const int s = s0 + lane;
+  // unrolled over the warp's bins, so their loads overlap
+#pragma unroll
+  for (int q = 0; q < BIN_TILE / WARPS; ++q) {
+    const int bb = warp + q * WARPS;
+    const int b = b0 + bb;
+    T v = T(0);
+    if (b < n_bins && s < n_species) {
+      const int k0 = start[b];
+      const int k1 = start[b + 1];
+      if (k0 < k1) {
+        const int j0 = k0 / SLICE;
+        const size_t head = k0 == j0 * SLICE ? (size_t)j0
+                                             : (size_t)n_slices + b;
+        v = piece[head * n_species + s];
+        // the slices that start inside b, BATCH loads in flight at a time
+        // (a plain loop issues each load after the previous add)
+        constexpr int BATCH = 16;
+        const int j1 = (k1 + SLICE - 1) / SLICE;    // slices j < j1 start in b
+        int j = j0 + 1;
+        for (; j + BATCH <= j1; j += BATCH) {
+          T x[BATCH];
+#pragma unroll
+          for (int t = 0; t < BATCH; ++t)
+            x[t] = piece[(size_t)(j + t) * n_species + s];
+#pragma unroll
+          for (int t = 0; t < BATCH; ++t) v += x[t];
+        }
+        for (; j < j1; ++j) v += piece[(size_t)j * n_species + s];
+      }
+    }
+    tile[lane][bb] = v;
+  }
+  __syncthreads();
+  for (int ss = warp; ss < BIN_TILE; ss += WARPS) {
+    const int b = b0 + lane;
+    if (b < n_bins && s0 + ss < n_species)
+      hist[(size_t)(s0 + ss) * n_bins + b] = tile[ss][lane];
+  }
 }
 
 // ------------------------------------------------------------- launchers
@@ -400,16 +469,34 @@ int launch_probe(const void* a, int n_cells, int n_nodes, const void* b,
 }
 
 template <typename T>
-int launch_bin(const void* per_cell, int n_species, const void* cell,
-               const void* start, int n_bins, void* hist, void* stream) {
-  if (n_species < 1 || n_bins < 1) return cudaErrorInvalidValue;
-  const long long n = (long long)n_bins * n_species;
-  if ((n + BLOCK - 1) / BLOCK > 0x7fffffffLL) return cudaErrorInvalidValue;
-  bin_kernel<T><<<(unsigned)((n + BLOCK - 1) / BLOCK), BLOCK, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(per_cell), n_species,
-      static_cast<const int*>(cell), static_cast<const int*>(start), n_bins,
-      static_cast<T*>(hist));
+int launch_bin(const void* per_cell_v, int n_species, const void* cell_v,
+               const void* key_v, int n_entries, const void* start_v,
+               int n_bins, void* piece_v, long long n_piece_rows,
+               void* hist_v, void* stream_v) {
+  if (n_species < 1 || n_bins < 1 || n_entries < 0)
+    return cudaErrorInvalidValue;
+  const long long n_slices = ((long long)n_entries + SLICE - 1) / SLICE;
+  const long long n_part = n_slices * n_species;
+  if (n_piece_rows < n_slices + n_bins ||
+      (n_part + BLOCK - 1) / BLOCK > 0x7fffffffLL ||
+      (n_species + BIN_TILE - 1) / BIN_TILE > 65535)
+    return cudaErrorInvalidValue;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_v);
+  T* piece = static_cast<T*>(piece_v);
+  if (n_part > 0) {
+    slice_kernel<T><<<(unsigned)((n_part + BLOCK - 1) / BLOCK), BLOCK, 0,
+                      stream>>>(
+        static_cast<const T*>(per_cell_v), n_species,
+        static_cast<const int*>(cell_v), static_cast<const long long*>(key_v),
+        n_entries, (int)n_slices, piece);
+    const int rc = (int)cudaGetLastError();
+    if (rc != 0) return rc;
+  }
+  const dim3 grid((unsigned)((n_bins + BIN_TILE - 1) / BIN_TILE),
+                  (unsigned)((n_species + BIN_TILE - 1) / BIN_TILE));
+  bin_kernel<T><<<grid, BLOCK, 0, stream>>>(
+      n_species, static_cast<const int*>(start_v), n_bins, (int)n_slices,
+      piece, static_cast<T*>(hist_v));
   return (int)cudaGetLastError();
 }
 
@@ -449,9 +536,10 @@ IS3D_PROBE_ENTRY(is3d_dndx_probe_f64, double)
 
 #define IS3D_BIN_ENTRY(NAME, T)                                               \
   int NAME(const void* per_cell, int n_species, const void* cell,            \
-           const void* start, int n_bins, void* hist, void* stream) {        \
-    return launch_bin<T>(per_cell, n_species, cell, start, n_bins, hist,     \
-                         stream);                                            \
+           const void* key, int n_entries, const void* start, int n_bins,    \
+           void* piece, long long n_piece_rows, void* hist, void* stream) {  \
+    return launch_bin<T>(per_cell, n_species, cell, key, n_entries, start,   \
+                         n_bins, piece, n_piece_rows, hist, stream);         \
   }
 IS3D_BIN_ENTRY(is3d_dndx_bin_f32, float)
 IS3D_BIN_ENTRY(is3d_dndx_bin_f64, double)

@@ -26,12 +26,12 @@ from ..kernels.launch import check_float, check_tensor, require_cuda, launch
 
 C, R, S, M = 176, 48, 320, 768
 
-# per (cell, node, species, point) evaluation of the float32 probe
-# instantiation, counted in its sm_90a SASS (the unrolled loop body holds
-# 8 evaluations: 142 FP32-pipe instructions, 8 ex2 and 8 reciprocals; 341
-# instructions in all)
-FP32_PER_EVAL = 142 / 8
-SFU_PER_EVAL = 2
+# (FP32, SFU) per (cell, node, species, point) evaluation for the bound,
+# counted in the producer's formula as kernels/smooth.py counts the
+# emission's (terms of fewer indices hoisted): x = a (b + 0.3) 1 | exp
+# (SFU), + 1 1 | 1/(...) (SFU), (1 + 0.1 x) w wM = 0.1 a (b + 0.3) w wM +
+# w wM 1, and the sum over points 1
+BOUND_OPS = (4, 2)
 
 # launches of the kernel in this process (percell_probe_cuda)
 LAUNCHES = 0

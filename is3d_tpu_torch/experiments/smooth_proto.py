@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..kernels.common import effective_chunk
+from ..kernels.smooth import FORMULA_OPS
 from ..kernels.launch import check_float, check_tensor, require_cuda, launch
 
 # the prototype's cell column order (csrc/smooth_proto.cu `PField`)
@@ -38,11 +39,10 @@ S_TILE = 32
 ARGS = ("cells", "mTf", "mT2", "mTpx", "mTpy", "pxf", "pyf", "m2", "sign",
         "bary", "yg")
 
-# per (cell, species, momentum point, rapidity) evaluation of the float32
-# kernel, counted in its sm_90a SASS (the cell loop's body: 61 FP32-pipe
-# instructions, one ex2 and three reciprocals; 127 instructions in all)
-FP32_PER_EVAL = 61
-SFU_PER_EVAL = 4
+# (FP32, SFU) operations per (cell, species, momentum point, rapidity)
+# evaluation for the bound: the spectra kernel's yardstick at df 2, the
+# prototype's mode (kernels/smooth.py, FORMULA_OPS)
+BOUND_OPS = FORMULA_OPS[2]
 
 # launches of the CUDA kernel in this process (proto_spectra_cuda)
 LAUNCHES = 0

@@ -39,25 +39,26 @@ from ..io.tables import MomentumGrid
 from ..io.deltaf import DeltafData
 from .common import surface_columns, prepare_cells, effective_chunk
 from .launch import check_float, check_tensor, require_cuda, launch
-from .smooth import (MomentumConstants, SpectraFlags, NF, pack_cells,
-                     plain_block, spectra_flags, momentum_constants)
+from .smooth import (MomentumConstants, SpectraFlags, NF,
+                     FORMULA_OPS as SPECTRA_FORMULA_OPS,
+                     pack_cells, plain_block, spectra_flags,
+                     momentum_constants)
 
 # launches of the CUDA kernels in this process: the per-cell reduction
 # (dndx_cuda) and the histogram segment sum (dndx_bin_cuda)
 LAUNCHES = 0
 BIN_LAUNCHES = 0
 
-# csrc/dndx.cu: cells per shared-memory tile, and the blocks the cell
-# split aims for (eight per SM of an H100)
+# csrc/dndx.cu: cells per shared-memory tile, binning entries per slice,
+# and the blocks the cell split aims for (eight per SM of an H100)
 _TILE = 16
+_SLICE = 64
 _TARGET_BLOCKS = 8 * 132
 
-# per (cell, node, species, point) evaluation of the 2+1D float32 kernel,
-# by df mode, counted in its sm_90a SASS (the unrolled loop body holds 16
-# evaluations: 601 (df 1) and 680 (df 2) FP32-pipe instructions, 16 ex2
-# and 16 or 32 reciprocals; 1054 and 1325 instructions in all)
-FP32_PER_EVAL = {1: 601 / 16, 2: 680 / 16}
-SFU_PER_EVAL = {1: 2, 2: 3}
+# the bound's yardstick is the spectra kernel's (kernels/smooth.py): the
+# emission value plus the sum over momentum points; the sums over nodes and
+# over cells act once per (cell, node, species), not per evaluation
+FORMULA_OPS = SPECTRA_FORMULA_OPS
 
 
 def dndx_cols(surface, cfg: Config) -> dict:
@@ -136,7 +137,11 @@ def _library():
                            vp, vp, vp, vp]             # outputs, scratch, stream
         for fn in (lib.is3d_dndx_bin_f32, lib.is3d_dndx_bin_f64):
             fn.restype = ci
-            fn.argtypes = [vp, ci, vp, vp, ci, vp, vp]
+            fn.argtypes = [vp, ci,                     # per_cell, S
+                           vp, vp, ci,                 # cell, key, E
+                           vp, ci,                     # start, n_bins
+                           vp, ctypes.c_longlong,      # pieces, their rows
+                           vp, vp]                     # hist, stream
         lib.is3d_cuda_error_string.restype = ctypes.c_char_p
         lib.is3d_cuda_error_string.argtypes = [ci]
         lib._is3d_bound = True
@@ -252,8 +257,8 @@ def dndx_bin_plain(per_cell: torch.Tensor, plan: BinPlan) -> torch.Tensor:
 
 
 def dndx_bin_cuda(per_cell: torch.Tensor, plan: BinPlan) -> torch.Tensor:
-    """Launch csrc/dndx.cu's segment-sum kernel: hist (S, n_bins), each
-    bin summed over its cells in index order (no atomics)."""
+    """Launch csrc/dndx.cu's segment sum (slice_kernel, then bin_kernel):
+    hist (S, n_bins), each bin summed in a fixed order (no atomics)."""
     global BIN_LAUNCHES
     check_float("dndx_bin_cuda", per_cell)
     if per_cell.dim() != 2:
@@ -262,16 +267,21 @@ def dndx_bin_cuda(per_cell: torch.Tensor, plan: BinPlan) -> torch.Tensor:
     check_tensor("per_cell", per_cell, tuple(per_cell.shape), per_cell)
     check_tensor("plan.start", plan.start, (plan.n_bins + 1,), per_cell,
                  torch.int32)
-    check_tensor("plan.cell", plan.cell, (plan.key.shape[0],), per_cell,
-                 torch.int32)
+    E = plan.key.shape[0]
+    check_tensor("plan.cell", plan.cell, (E,), per_cell, torch.int32)
+    check_tensor("plan.key", plan.key, (E,), per_cell, torch.int64)
     require_cuda("dndx_bin_cuda", per_cell)
     S = per_cell.shape[1]
     hist = per_cell.new_empty((S, plan.n_bins))
+    # per-run sums: each slice's first run, then each bin's (csrc/dndx.cu)
+    n_rows = -(-E // _SLICE) + plan.n_bins
+    pieces = per_cell.new_empty((n_rows, S))
     lib = _library()
     fn = (lib.is3d_dndx_bin_f32 if per_cell.dtype == torch.float32
           else lib.is3d_dndx_bin_f64)
     launch(lib, "dndx_bin", fn, per_cell.device, per_cell.data_ptr(), S,
-           plan.cell.data_ptr(), plan.start.data_ptr(), plan.n_bins,
+           plan.cell.data_ptr(), plan.key.data_ptr(), E,
+           plan.start.data_ptr(), plan.n_bins, pieces.data_ptr(), n_rows,
            hist.data_ptr())
     BIN_LAUNCHES += 1
     return hist

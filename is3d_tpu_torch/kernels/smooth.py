@@ -67,14 +67,33 @@ _PAD_ONE_FIELDS = ("tau", "ut", "invT")
 # launches of the CUDA kernel in this process (smooth_spectra_cuda)
 LAUNCHES = 0
 
-# per (cell, species, pT, phi, rapidity) evaluation of the 3+1D float32
-# kernel, by df mode, counted in its sm_90a SASS (the cell loop's body:
-# FFMA, FMUL, FADD, FSETP, FSEL, FMNMX, ... and MUFU.EX2 + MUFU.RCP); the
-# body issues 134 (df 1) and 159 (df 2) instructions in all, 24 of them
-# shared-memory loads.  chip_smoke.py divides these by the card's FP32
-# and SFU issue rates for the kernel's bound
-FP32_PER_EVAL = {1: 46, 2: 56}
-SFU_PER_EVAL = {1: 2, 2: 3}
+# The yardstick of the emission kernels' bounds: the FP32 and SFU
+# operations per evaluation that depend on cell, node, species and momentum
+# point all at once, counted once from emission<T, DF> in csrc/emission.cuh
+# at the main paths' flags (regulate and outflow on), an FMA as one
+# operation.  A factor or term of fewer indices is hoisted and not counted:
+# it is formed once per cell, (cell, node), (cell, species) or (cell,
+# point) and folded into the staged values (1/T and log2 e into B1 and W2,
+# k_sc into C1-C4, bulkPi into the k_b, k_dv into benth and the diffusion
+# terms, the (cell, species) constants into C4's sum).  Per evaluation,
+# (FP32, SFU):
+#   both:  p.dsigma 1, u.p 1, pi:pp 3 (its addend carries the hoisted
+#          terms), V.p 1, exponent 1 | exp (SFU), + sign 1 | 1/(...) (SFU),
+#          1 - sign feq 1                                           = 9
+#   df 1:  kb2 u.p + kb1 b 1, (...) u.p + pi:pp 1, kc4 u.p + kc3 b 1,
+#          (...) V.p + (...) 1                                      = 4
+#   df 2:  1/u.p (SFU); as r (pi:pp - kb2 m2 - kdv b V.p) + kb' u.p +
+#          (kb1 b + kdv benth V.p): pi:pp - (...) V.p 1,
+#          kdv benth V.p + kb1 b 1, kb' u.p + (...) 1, r (...) + (...) 1 = 4
+#   both:  feqbar df 1, clip 2, feq df + feq 1, max(p.dsigma, 0) 1  = 5
+# so the emission value takes (18, 2) for df 1 and (18, 3) for df 2.  Each
+# kernel adds its sum over the cells or momentum points, 1 FMA (the
+# momentum weight folds into p.dsigma; the 2+1D node weight and the dN/dX
+# kernel's sums of that per (cell, node, species) are not counted).  The
+# bound is the larger of FP32 / (SMs x 128 lanes x clock), SFU / (SMs x 16
+# lanes x clock) and the bytes over the memory rate.
+EMISSION_OPS = {1: (18, 2), 2: (18, 3)}
+FORMULA_OPS = {df: (fp32 + 1, sfu) for df, (fp32, sfu) in EMISSION_OPS.items()}
 
 
 @dataclass(frozen=True)
@@ -304,7 +323,12 @@ def _spectra_library():
                            vp, vp, ci,                 # nodes, weights, n_nodes
                            ci, ci, ci, ci, ci,         # df, dim, remap, reg, outflow
                            cd, cd,                     # prefactor, T_ref
+                           ci, vp,                     # n_split, partials
                            vp, vp]                     # out, stream
+        for fn in (lib.is3d_smooth_spectra_splits_f32,
+                   lib.is3d_smooth_spectra_splits_f64):
+            fn.restype = ci
+            fn.argtypes = [ci] * 8       # n_cells, S, P, F, R, df, dim, remap
         lib.is3d_cuda_error_string.restype = ctypes.c_char_p
         lib.is3d_cuda_error_string.argtypes = [ci]
         lib._is3d_bound = True
@@ -329,8 +353,20 @@ def smooth_spectra_cuda(cells: torch.Tensor, mom: MomentumConstants,
     out = torch.empty((S, P, F, n_out), device=cells.device,
                       dtype=cells.dtype)
     lib = _spectra_library()
-    fn = (lib.is3d_smooth_spectra_f32 if cells.dtype == torch.float32
-          else lib.is3d_smooth_spectra_f64)
+    f64 = cells.dtype == torch.float64
+    shape = (cells.shape[0], S, P, F, R, flags.df_mode, flags.dimension,
+             int(flags.remap))
+    # the kernel splits the cells to fill the card's waves (one partial
+    # per split, folded in split order); the count depends on the card
+    with torch.cuda.device(cells.device):
+        n_split = (lib.is3d_smooth_spectra_splits_f64 if f64
+                   else lib.is3d_smooth_spectra_splits_f32)(*shape)
+    if n_split < 1:
+        raise RuntimeError("smooth_spectra: no launch configuration: "
+                           f"{lib.is3d_cuda_error_string(-n_split).decode()}")
+    partial = (cells.new_empty((n_split, S, P, F, n_out)) if n_split > 1
+               else None)
+    fn = lib.is3d_smooth_spectra_f64 if f64 else lib.is3d_smooth_spectra_f32
     launch(lib, "smooth_spectra", fn, cells.device,
            cells.data_ptr(), cells.shape[0], NF,
            mom.mass.data_ptr(), mom.sign.data_ptr(),
@@ -339,7 +375,8 @@ def smooth_spectra_cuda(cells: torch.Tensor, mom: MomentumConstants,
            mom.nodes.data_ptr(), mom.weights.data_ptr(), R,
            flags.df_mode, flags.dimension, int(flags.remap),
            int(flags.regulate), int(flags.outflow),
-           CF_PREFACTOR, ETA_REMAP_T_REF, out.data_ptr())
+           CF_PREFACTOR, ETA_REMAP_T_REF, n_split,
+           None if partial is None else partial.data_ptr(), out.data_ptr())
     LAUNCHES += 1
     return out
 

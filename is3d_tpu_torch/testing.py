@@ -228,3 +228,109 @@ def write_synthetic_run_dir(path: str, n_cells: int, n_species: int,
     with open(os.path.join(path, "iS3D_parameters.dat"), "w") as f:
         f.write("".join(f"{k} = {v}\n" for k, v in run_params.items()))
     return path
+
+
+# ------------------------------------------------------- kernel edge cases
+
+# The spectra kernel's edges, shared by the gpu tests and chip_smoke.py:
+# species, momentum points and nodes that are not multiples of its blocking
+# (4 species x 3 nodes, 128 points a block), 3+1D rapidities far enough
+# from the cells that exp(u.p/T) overflows, light bosons at small mT, and
+# large shear with the clip on.  Shear and bulk df are on, and regulate and
+# outflow unless a case turns them off.
+_RAGGED = dict(n_pT=11, n_phi=13, n_y=5, n_eta=13)
+SPECTRA_EDGES = {
+    **{f"{d}d_df{df}_ragged": dict(dimension=d, df_mode=df, n_species=41,
+                                   grid=_RAGGED)
+       for d in (3, 2) for df in (2, 1)},
+    "3d_overflow": dict(dimension=3, df_mode=2, reg_out=0,
+                        grid=dict(n_y=7, y_max=12.0)),
+    "3d_light_bosons": dict(dimension=3, df_mode=2, light_bosons=True,
+                            grid=dict(pT_max=0.2)),
+    "3d_clip": dict(dimension=3, df_mode=2, scale_pi=30.0),
+}
+
+
+def spectra_edge_inputs(case: str, n_cells: int = 203, n_species: int = 7,
+                        dtype=torch.float64, device="cpu"):
+    """(cells, mom, flags): the spectra kernel's packed inputs for the
+    SPECTRA_EDGES case ``case``, on ``device``."""
+    import dataclasses
+    from .config import Config
+    from .io.tables import native_momentum_grid
+    from .kernels import smooth
+    from .kernels.common import surface_columns, prepare_cells
+    spec = dict(dict(n_species=n_species, reg_out=1, grid={},
+                     light_bosons=False, scale_pi=1.0), **SPECTRA_EDGES[case])
+    dimension = spec["dimension"]
+    cfg = Config(operation=1, mode=1, dimension=dimension,
+                 df_mode=spec["df_mode"], include_shear_deltaf=1,
+                 include_bulk_deltaf=1, regulate_deltaf=spec["reg_out"],
+                 outflow=spec["reg_out"])
+    cells = synthetic_surface_cells(n_cells, dimension, seed=7)
+    for k in ("pixx", "pixy", "pixn", "piyy", "piyn"):
+        cells[k] = cells[k] * spec["scale_pi"]
+    surface = surface_from_arrays(dtype=dtype, device=device, **cells)
+    grid = native_momentum_grid(dimension, dtype=dtype, device=device, **dict(
+        dict(n_pT=8, n_phi=6, n_y=5, n_eta=12, eta_mT_rescale=False),
+        **spec["grid"]))
+    species = synthetic_species(spec["n_species"], dtype=dtype, device=device)
+    if spec["light_bosons"]:
+        species = dataclasses.replace(species, mass=torch.where(
+            species.sign < 0, torch.full_like(species.mass, 0.02),
+            species.mass))
+    df_data = synthetic_deltaf_data(dtype=dtype, device=device)
+    packed = smooth.pack_cells(
+        prepare_cells(surface_columns(surface, cfg), cfg, df_data), cfg)
+    return (packed, smooth.momentum_constants(species, grid, dimension),
+            smooth.spectra_flags(cfg, grid))
+
+
+def spectra_edge_seen(case: str, cells, mom, flags, out) -> str:
+    """What the plain spectra ``out`` of a SPECTRA_EDGES case show of the
+    edge the case is named for; raises AssertionError where they do not
+    show it."""
+    import dataclasses
+    from .kernels import smooth
+    assert torch.isfinite(out).all() and out.abs().max() > 0, case
+    if "ragged" in case:
+        S, M, R = mom.mass.shape[0], mom.px.shape[0], mom.nodes.shape[0]
+        assert S % 4 and M % 128 and R % 3, (S, M, R)
+        return f"{S} species x {M} points x {R} nodes"
+    if case == "3d_overflow":
+        n = int((out == 0).sum())
+        assert n > 0, "no output is exactly 0"
+        return f"{n} outputs exactly 0"
+    if case == "3d_light_bosons":
+        assert (mom.mass[mom.sign < 0] == 0.02).all()
+        return f"bosons of mass 0.02, pT <= {mom.pT.max().item():.2f}"
+    free = smooth.smooth_spectra_plain(cells, mom, dataclasses.replace(
+        flags, regulate=False))
+    moved = ((free - out).abs().max() / out.abs().max()).item()
+    assert moved > 1e-3, f"the clip moves the output by only {moved:.2e}"
+    return f"the clip moves the output by {moved:.2e} of its max"
+
+
+# The binning kernel's edges: (cells, bin settings) with empty bins, a bin
+# of every cell, bins longer and shorter than one 64-entry slice.
+BIN_EDGES = {"many_empty": (777, dict(tau_bins=30, r_bins=20)),
+             "long_bins": (777, dict(tau_bins=3, r_bins=2)),
+             "one_tau_bin": (1000, dict(tau_max=1000.0, tau_bins=2,
+                                        r_max=1000.0, r_bins=1)),
+             "one_slice": (64, dict(tau_bins=30, r_bins=20)),
+             "few_cells": (5, dict(tau_bins=30, r_bins=20))}
+
+
+def bin_edge_inputs(case: str, dtype=torch.float64, device="cpu"):
+    """(per_cell (n, 41), plan): the binning kernel's inputs for the
+    BIN_EDGES case ``case``, on ``device``."""
+    from .config import Config
+    from .kernels import dndx
+    n, bins = BIN_EDGES[case]
+    cells = synthetic_surface_cells(n, 2, seed=len(case))
+    t = lambda k: torch.as_tensor(cells[k], dtype=dtype, device=device)
+    plan = dndx.bin_plan(t("tau"), t("x"), t("y"), Config(operation=0,
+                                                          **bins))
+    per_cell = torch.as_tensor(np.random.default_rng(n).random((n, 41)),
+                               dtype=dtype, device=device)
+    return per_cell, plan

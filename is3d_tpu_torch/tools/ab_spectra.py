@@ -1,17 +1,31 @@
-"""Time the spectra kernel of two checkouts of this repository in one
-process tree on one card, in the order A, B, B, A.
+"""Time the spectra kernel and the dN/dX binning kernel of two checkouts of
+this repository in one process tree on one card, in the order A, B, B, A.
 
     python -m is3d_tpu_torch.tools.ab_spectra ROOT_A ROOT_B [--cells N]
+        [--cases 3d_df2,3d_df1,2d_fixed,2d_remap,bin]
 
 Each turn runs a fresh interpreter that imports ``is3d_tpu_torch`` from
-that root (building its csrc/smooth_spectra.cu into that root's _build/),
-launches ``smooth_spectra_cuda`` on one group of the main path's shape --
-N synthetic 3+1D cells (seed 0), 320 species, the native 32 x 24 x 21
-grid, df 2 with shear + bulk, regulate, outflow, float32 -- once to warm
-up, then times 5 launches (CUDA events) and prints their median and the
-sum of the output.  The report is one JSON line per turn and the ratio of
-the medians.  Uses only functions both sides have had since the kernel was
-first ported.
+that root (building its kernels into that root's _build/) and, per case:
+
+* ``3d_df2`` (the operation-1 main path), ``3d_df1``, ``2d_fixed``,
+  ``2d_remap``: ``smooth_spectra_cuda`` on one group of N synthetic cells
+  (seed 0; 3+1D or 2+1D), 320 species, the native grid (32 x 24, 21 y or
+  48 eta nodes, without or with the mT remap), df 2 (1 for ``3d_df1``)
+  with shear + bulk, regulate, outflow, float32: one launch to warm up,
+  then 5 launches timed with CUDA events;
+* ``bin``: ``dndx_bin_cuda`` on one group of the operation-0 main path's
+  shape -- the bin plan of 8192 synthetic 2+1D cells (seed 2) on the
+  default 120 x 60 (tau, r) bins and a (8192, 320) per-cell table drawn
+  with numpy (seed 5) -- one warm-up, then 5 runs of 20 calls queued
+  behind a device-side sleep, so the events time the device and not the
+  host's enqueue.
+
+The report is one JSON line per turn (median, runs, output sum and the
+float32 output's largest difference from the same side's float64 kernel,
+as a share of its largest value, per case) and, per case, the medians of
+both sides, their ratio B / A, the relative difference of the output sums
+and both sides' float32-vs-float64 differences.  Uses only functions both
+sides have had since the kernels were first ported.
 """
 
 from __future__ import annotations
@@ -22,42 +36,80 @@ import os
 import subprocess
 import sys
 
+CASES = ("3d_df2", "3d_df1", "2d_fixed", "2d_remap", "bin")
+
 _TURN = r"""
 import json, statistics, sys
 sys.path.insert(0, sys.argv[1])
+import numpy as np
 import torch
 from is3d_tpu_torch import testing
 from is3d_tpu_torch.config import Config
 from is3d_tpu_torch.io.tables import native_momentum_grid
-from is3d_tpu_torch.kernels import smooth
+from is3d_tpu_torch.kernels import smooth, dndx
 from is3d_tpu_torch.kernels.common import surface_columns, prepare_cells
 assert smooth.__file__.startswith(sys.argv[1]), smooth.__file__
 dev, dt = torch.device("cuda"), torch.float32
-cfg = Config(operation=1, mode=1, dimension=3, df_mode=2, precision="f32",
-             include_shear_deltaf=1, include_bulk_deltaf=1,
-             regulate_deltaf=1, outflow=1)
-surf = testing.synthetic_surface(int(sys.argv[2]), 3, seed=0, dtype=dt,
-                                 device=dev)
-species = testing.synthetic_species(320, dtype=dt, device=dev)
-grid = native_momentum_grid(3, dtype=dt, device=dev)
-df_data = testing.synthetic_deltaf_data(dtype=dt, device=dev)
-cells = smooth.pack_cells(prepare_cells(surface_columns(surf, cfg), cfg,
-                                        df_data), cfg)
-mom = smooth.momentum_constants(species, grid, 3)
-flags = smooth.spectra_flags(cfg, grid)
-out = smooth.smooth_spectra_cuda(cells, mom, flags)
-torch.cuda.synchronize()
-times = []
-for _ in range(5):
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    out = smooth.smooth_spectra_cuda(cells, mom, flags)
-    b.record()
-    b.synchronize()
-    times.append(a.elapsed_time(b))
-print(json.dumps({"root": sys.argv[1], "ms": statistics.median(times),
-                  "runs": times, "sum": float(out.double().sum())}))
+n_cells, cases = int(sys.argv[2]), sys.argv[3].split(",")
+SPECTRA = {"3d_df2": (3, 2, False), "3d_df1": (3, 1, False),
+           "2d_fixed": (2, 2, False), "2d_remap": (2, 2, True)}
+
+
+def timed(fn, inner=1):
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        if inner > 1:
+            torch.cuda._sleep(20_000_000)
+        a.record()
+        for _ in range(inner):
+            out = fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / inner)
+    return statistics.median(times), times, float(out.double().sum())
+
+
+report = {"root": sys.argv[1]}
+for case in cases:
+    if case in SPECTRA:
+        dim, df, remap = SPECTRA[case]
+        cfg = Config(operation=1, mode=1, dimension=dim, df_mode=df,
+                     precision="f32", include_shear_deltaf=1,
+                     include_bulk_deltaf=1, regulate_deltaf=1, outflow=1)
+        surf = testing.synthetic_surface(n_cells, dim, seed=0, dtype=dt,
+                                         device=dev)
+        species = testing.synthetic_species(320, dtype=dt, device=dev)
+        grid = native_momentum_grid(dim, eta_mT_rescale=remap, dtype=dt,
+                                    device=dev)
+        df_data = testing.synthetic_deltaf_data(dtype=dt, device=dev)
+        cells = smooth.pack_cells(prepare_cells(surface_columns(surf, cfg),
+                                                cfg, df_data), cfg)
+        mom = smooth.momentum_constants(species, grid, dim)
+        flags = smooth.spectra_flags(cfg, grid)
+        ms, runs, total = timed(
+            lambda: smooth.smooth_spectra_cuda(cells, mom, flags))
+        out = smooth.smooth_spectra_cuda(cells, mom, flags).double()
+        ref = smooth.smooth_spectra_cuda(cells.double(),
+                                         mom.to(dtype=torch.float64), flags)
+        err = float((out - ref).abs().max() / ref.abs().max())
+    else:
+        cfg = Config(operation=0, mode=1, dimension=2)
+        surf = testing.synthetic_surface(8192, 2, seed=2, dtype=dt,
+                                         device=dev)
+        plan = dndx.bin_plan(surf.tau, surf.x, surf.y, cfg)
+        per_cell = torch.from_numpy(np.random.default_rng(5).random(
+            (8192, 320), dtype=np.float32)).to(dev)
+        ms, runs, total = timed(lambda: dndx.dndx_bin_cuda(per_cell, plan),
+                                inner=20)
+        ref = dndx.dndx_bin_cuda(per_cell.double(), plan)
+        out = dndx.dndx_bin_cuda(per_cell, plan).double()
+        err = float((out - ref).abs().max() / ref.abs().max())
+    report[case] = {"ms": ms, "runs": runs, "sum": total, "err_f64": err}
+print(json.dumps(report))
 """
 
 
@@ -66,21 +118,34 @@ def main(argv=None):
     ap.add_argument("root_a")
     ap.add_argument("root_b")
     ap.add_argument("--cells", type=int, default=16384)
+    ap.add_argument("--cases", default=",".join(CASES))
     args = ap.parse_args(argv)
+    cases = args.cases.split(",")
+    unknown = set(cases) - set(CASES)
+    if unknown:
+        ap.error(f"unknown cases {sorted(unknown)}; known: {CASES}")
     roots = [os.path.abspath(r) for r in (args.root_a, args.root_b)]
     results = {r: [] for r in roots}
     for root in (roots[0], roots[1], roots[1], roots[0]):
         proc = subprocess.run([sys.executable, "-c", _TURN, root,
-                               str(args.cells)], capture_output=True,
-                              text=True, check=True, timeout=900)
+                               str(args.cells), ",".join(cases)],
+                              capture_output=True, text=True, check=True,
+                              timeout=1800)
         line = proc.stdout.strip().splitlines()[-1]
         print(line, flush=True)
         results[root].append(json.loads(line))
-    med = {r: sorted(t["ms"] for t in results[r]) for r in roots}
-    a, b = (sum(med[r]) / 2 for r in roots)
-    print(json.dumps({"a_ms": a, "b_ms": b, "b_over_a": b / a,
-                      "same_sum": len({t["sum"] for r in roots
-                                       for t in results[r]}) == 1}))
+    for case in cases:
+        med = {r: sum(t[case]["ms"] for t in results[r]) / 2 for r in roots}
+        sums = {r: results[r][0][case]["sum"] for r in roots}
+        a, b = (med[r] for r in roots)
+        print(json.dumps({
+            "case": case, "a_ms": a, "b_ms": b, "b_over_a": b / a,
+            "same_sum": len({t[case]["sum"] for r in roots
+                             for t in results[r]}) == 1,
+            "sum_rel_diff": abs(sums[roots[1]] - sums[roots[0]])
+            / abs(sums[roots[0]]),
+            "a_err_f64": results[roots[0]][0][case]["err_f64"],
+            "b_err_f64": results[roots[1]][0][case]["err_f64"]}))
     return 0
 
 

@@ -12,7 +12,8 @@ innermost loops -- the bodies between a backward branch and its target --
 with the instruction count, the FP32-pipe instructions (FFMA, FMUL, FADD,
 FSETP, FSEL, FMNMX, ...), the SFU instructions (MUFU.*) and the shared-
 memory loads.  Divide a body's counts by its MUFU.EX2 count for the
-instructions per evaluation of the spectra, dN/dX and prototype kernels.
+instructions per evaluation of the spectra, dN/dX and prototype kernels
+(``per_eval`` does that for one kernel of one library).
 """
 
 from __future__ import annotations
@@ -34,9 +35,11 @@ def _opcode(op: str) -> str:
     return parts[1] if parts[0].startswith("@") else parts[0]
 
 
-def loops(sass: str, pattern: str, n_loops: int = 3):
+def loops(sass: str, pattern: str, n_loops: int | None = 3,
+          innermost: bool = False):
     """(kernel, [(length, Counter of opcodes)]) for the ``n_loops``
-    shortest loops holding an SFU instruction, per matching kernel."""
+    shortest loops holding an SFU instruction (all if None; only loops
+    that hold no other loop if ``innermost``), per matching kernel."""
     for func in re.split(r"\n\s*Function : ", sass)[1:]:
         name = func.split("\n", 1)[0].strip()
         if not re.search(pattern, name):
@@ -45,22 +48,66 @@ def loops(sass: str, pattern: str, n_loops: int = 3):
             re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
             for line in func.splitlines()) if m]
         index = {a: i for i, (a, _) in enumerate(ins)}
-        found = []
+        spans = []
         for i, (a, op) in enumerate(ins):
             m = re.search(r"BRA.*?(0x[0-9a-f]+)", op)
             if m and int(m.group(1), 16) < a and int(m.group(1), 16) in index:
-                body = [_opcode(o) for _, o in ins[index[int(m.group(1), 16)]:
-                                                   i + 1]]
-                if any(o.startswith("MUFU") for o in body):
-                    found.append(body)
+                spans.append((index[int(m.group(1), 16)], i))
+        found = []
+        for lo, hi in spans:
+            if innermost and any(lo <= a and b <= hi and (a, b) != (lo, hi)
+                                 for a, b in spans):
+                continue
+            body = [_opcode(o) for _, o in ins[lo:hi + 1]]
+            if any(o.startswith("MUFU") for o in body):
+                found.append(body)
         found.sort(key=len)
         yield name, [(len(b), collections.Counter(b)) for b in found[:n_loops]]
+
+
+def _tool() -> str | None:
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    return tool if os.path.exists(tool) else None
+
+
+def _summary(c: collections.Counter) -> tuple[int, dict, int]:
+    """(FP32-pipe, MUFU.* by name, shared loads) of one loop body."""
+    base = collections.Counter()
+    for k, v in c.items():
+        base[k.split(".")[0]] += v
+    sfu = {k: v for k, v in c.items() if k.startswith("MUFU")}
+    return sum(base[k] for k in FP32), sfu, base["LDS"]
+
+
+def per_eval(lib: str, pattern: str) -> dict | None:
+    """Instructions per evaluation in the innermost loop of the first
+    kernel of ``lib`` matching ``pattern`` whose body holds the most
+    MUFU.EX2 (one per evaluation): dict(instructions, fp32, sfu, lds,
+    evaluations), or None where cuobjdump is missing or finds no such
+    loop."""
+    tool = _tool()
+    if tool is None:
+        return None
+    proc = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True)
+    if proc.returncode != 0:
+        return None
+    for _, bodies in loops(proc.stdout, pattern, None, innermost=True):
+        bodies = [(n, c) for n, c in bodies if c["MUFU.EX2"]]
+        if not bodies:
+            continue
+        length, c = max(bodies, key=lambda b: b[1]["MUFU.EX2"])
+        fp32, sfu, lds = _summary(c)
+        n = c["MUFU.EX2"]
+        return dict(instructions=length / n, fp32=fp32 / n,
+                    sfu=sum(sfu.values()) / n, lds=lds / n, evaluations=n)
+    return None
 
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     pattern = argv[0] if argv else "."
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    tool = _tool() or "cuobjdump"
     build = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "_build")
     for lib in sorted(glob.glob(os.path.join(build, "*.so"))):
@@ -72,13 +119,9 @@ def main(argv=None):
         for name, bodies in loops(sass, pattern):
             print(f"{os.path.basename(lib)} {name}")
             for length, c in bodies:
-                base = collections.Counter()
-                for k, v in c.items():
-                    base[k.split(".")[0]] += v
-                fp32 = sum(base[k] for k in FP32)
-                sfu = {k: v for k, v in c.items() if k.startswith("MUFU")}
+                fp32, sfu, lds = _summary(c)
                 print(f"  loop of {length} instructions: FP32 {fp32}, "
-                      f"SFU {sfu}, LDS {base['LDS']}")
+                      f"SFU {sfu}, LDS {lds}")
     return 0
 
 

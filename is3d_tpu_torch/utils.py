@@ -55,3 +55,25 @@ def cuda_median_ms(fn, n: int = 5):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(statistics.median(times)), times
+
+
+def cuda_queued_ms(fn, inner: int = 20, n: int = 5):
+    """Median and all of ``n`` device times (ms) per call of ``fn()`` for a
+    call much shorter than its host overhead: each run queues ``inner``
+    calls behind a device-side sleep, so the events time the calls back to
+    back on the device and not the host's enqueue.  The caller warms up
+    first."""
+    import statistics
+    import torch
+    times = []
+    for _ in range(n):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)          # ~10 ms at 2 GHz
+        a.record()
+        for _ in range(inner):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / inner)
+    return float(statistics.median(times)), times

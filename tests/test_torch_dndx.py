@@ -156,6 +156,34 @@ def test_dndx_plain_matches_jax_cell_reduction(dimension, df_mode, compat):
                                atol=ATOL_REL * np.abs(want_dy).max())
 
 
+@pytest.mark.parametrize("layout", ["one_bin", "one_bin_and_out_of_range"])
+def test_histograms_with_empty_and_dominant_bins_match_jax(layout):
+    """bin_plan + dndx_bin_plain against the JAX package's scatter-add on
+    a surface whose cells crowd one tau bin and one r bin, so nearly every
+    bin is empty and one (tau, r) bin holds every in-range cell; with
+    cells outside the tau and r ranges in the second layout.  Compared
+    through spacetime_distributions on both sides (f64)."""
+    n = 40
+    cells = random_cells(n, 2, seed=11)
+    rng = np.random.default_rng(12)
+    cells["tau"] = rng.uniform(5.25, 5.55, n)      # tau bin 13 (width 0.4)
+    r, phi = rng.uniform(3.05, 3.5, n), rng.uniform(0, 2 * np.pi, n)
+    cells["x"], cells["y"] = r * np.cos(phi), r * np.sin(phi)  # r bin 5
+    if layout == "one_bin_and_out_of_range":
+        cells["tau"][::3] = 15.0
+        cells["x"][1::4], cells["y"][1::4] = 20.0, 0.0
+    got, want = run_both(cells, dict(dimension=2, df_mode=1, **VISC))
+    taur = np.asarray(want["dN_twopitaurdtaudrdy"])
+    assert (np.count_nonzero(np.asarray(want["raw_tau_hist"]), axis=1)
+            == 1).all()
+    assert (np.count_nonzero(taur.reshape(taur.shape[0], -1), axis=1)
+            == 1).all()
+    for k in KEYS:
+        w = np.asarray(want[k])
+        np.testing.assert_allclose(got[k], w, rtol=RTOL,
+                                   atol=ATOL_REL * np.abs(w).max(), err_msg=k)
+
+
 def test_bin_plan_entries_follow_the_jax_bin_rules():
     """Every cell lands in its floor bin, cells outside a range have no
     entry there, bins list their cells in index order, and the last bin

@@ -13,6 +13,7 @@ import torch
 from is3d_tpu_torch import cli, testing
 from is3d_tpu_torch.api import IS3D
 from is3d_tpu_torch.config import Config
+from is3d_tpu_torch.io.surface import surface_from_arrays
 from is3d_tpu_torch.io.tables import native_momentum_grid
 from is3d_tpu_torch.experiments import smooth_proto, dndx_reduce_probe
 from is3d_tpu_torch.kernels import smooth, dndx
@@ -124,6 +125,36 @@ def test_kernel_matches_plain_on_gpu(cuda_card, dimension, remap):
     scale = want.abs().max().item()
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                rtol=1e-10, atol=1e-13 * scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(testing.SPECTRA_EDGES))
+def test_kernel_edges_match_plain_on_gpu(cuda_card, case):
+    """The spectra kernel's edges (testing.SPECTRA_EDGES) against the plain
+    version, f64; two launches bit-identical, exact zeros kept."""
+    cells, mom, flags = testing.spectra_edge_inputs(case, device="cuda")
+    got = smooth.smooth_spectra_cuda(cells, mom, flags)
+    again = smooth.smooth_spectra_cuda(cells, mom, flags)
+    want = smooth.smooth_spectra_plain(cells, mom, flags)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    scale = want.abs().max().item()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-10, atol=1e-13 * scale)
+    zero = want == 0
+    assert torch.equal(got[zero], want[zero])
+    if case == "3d_overflow":
+        assert zero.any()
+
+
+@pytest.mark.parametrize("case", sorted(testing.SPECTRA_EDGES))
+def test_kernel_edge_inputs_are_what_they_claim(case):
+    """On the CPU: the edge cases' plain spectra are finite and show the
+    edge they are named for (exact zeros where exp overflows, an active
+    clip, light bosons, shapes off the kernel's blocking)."""
+    cells, mom, flags = testing.spectra_edge_inputs(case)
+    out = smooth.smooth_spectra_plain(cells, mom, flags)
+    assert testing.spectra_edge_seen(case, cells, mom, flags, out)
 
 
 # ------------------------------------------------- the dN/dX and experiments
@@ -247,6 +278,37 @@ def test_dndx_kernels_match_plain_on_gpu(cuda_card, dimension):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(testing.BIN_EDGES))
+def test_bin_kernel_edges_match_plain_on_gpu(cuda_card, case):
+    per_cell, plan = testing.bin_edge_inputs(case, device="cuda")
+    got = dndx.dndx_bin_cuda(per_cell, plan)
+    again = dndx.dndx_bin_cuda(per_cell, plan)
+    want = dndx.dndx_bin_plain(per_cell, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=1e-12, atol=1e-13)
+
+
+def test_bin_edge_plans_have_their_edges():
+    """On the CPU: the binning edge cases hold empty bins, bins longer than
+    a slice, a (tau) bin of every cell, and a group shorter than a slice,
+    and the plain version sums every bin."""
+    seen = set()
+    for case in testing.BIN_EDGES:
+        per_cell, plan = testing.bin_edge_inputs(case)
+        counts = torch.diff(plan.start)
+        n = per_cell.shape[0]
+        seen |= {"empty"} if (counts == 0).any() else set()
+        seen |= {"long"} if (counts[:-1] > 64).any() else set()
+        seen |= {"every"} if (counts[:-1] == n).any() else set()
+        seen |= {"short"} if n < 64 else set()
+        hist = dndx.dndx_bin_plain(per_cell, plan)
+        torch.testing.assert_close(hist[:, -1], per_cell.sum(0))
+    assert seen == {"empty", "long", "every", "short"}
+
+
+@pytest.mark.gpu
 def test_experiment_kernels_match_plain_on_gpu(cuda_card):
     x = smooth_proto.proto_inputs(40, S=64, P=3, F=4, Y=3,
                                   dtype=torch.float64, device="cuda")
@@ -263,6 +325,22 @@ def test_experiment_kernels_match_plain_on_gpu(cuda_card):
         scale = w.abs().max().item()
         np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
                                    rtol=1e-10, atol=1e-13 * scale)
+
+
+def test_bound_yardstick_is_shared():
+    """K1, the dN/dX kernel and P1 take their bounds from one count of the
+    emission formula, with its per-cell factors hoisted: each kernel adds
+    one sum over cells or points, P1 is K1's at df 2.  df 1 is FP32-bound,
+    df 2 and the probe SFU-bound (SFU has 16 lanes to FP32's 128)."""
+    assert smooth.EMISSION_OPS == {1: (18, 2), 2: (18, 3)}
+    for df, (fp32, sfu) in smooth.EMISSION_OPS.items():
+        assert smooth.FORMULA_OPS[df] == (fp32 + 1, sfu)
+    assert dndx.FORMULA_OPS == smooth.FORMULA_OPS
+    assert smooth_proto.BOUND_OPS == smooth.FORMULA_OPS[2]
+    rate = lambda ops: max(ops[0] / 128, ops[1] / 16)
+    assert rate(smooth.FORMULA_OPS[1]) == 19 / 128
+    assert rate(smooth.FORMULA_OPS[2]) == 3 / 16
+    assert rate(dndx_reduce_probe.BOUND_OPS) == 2 / 16
 
 
 def test_cuda_cache_key_covers_every_header(tmp_path, monkeypatch):

@@ -23,9 +23,14 @@ Phases, each printing its own line(s):
    be exactly 0; a boson at small mT; large shear with regulate on, where
    the clip must bite); the dN/dX kernel and its binning kernel (777
    cells, 40 species; 2+1D and 3+1D, df 1/2, regulate/outflow off and on,
-   baryon + diffusion); the binning kernel's edges (empty bins, a bin of
+   baryon + diffusion); the dN/dX kernel's edges (species, nodes and rows
+   that are not multiples of its blocking, fewer rows than one batch, one
+   row, exp overflow with exact zeros, light bosons, an active clip, pad
+   rows; two launches bit-identical); the binning kernel's edges (empty
+   bins, a bin of
    every cell, bins longer and shorter than one slice, two launches
-   bit-identical); the spectra prototype and the reduction probe;
+   bit-identical); the spectra prototype (with masked cells, which must
+   add exactly 0) and the reduction probe;
 4. operation 1 main path: a synthetic 131072-cell x 320-species 3+1D
    mode-1 run directory through ``is3d_tpu_torch.cli.main`` (df 2, shear +
    bulk, regulate, outflow, f32, native 32 x 24 x 21 grid), then the same
@@ -36,6 +41,8 @@ Phases, each printing its own line(s):
    both f32 versions against the f64 kernel, then paired times (CUDA
    events, one warm-up, median of 5) and the kernel's instructions per
    evaluation (tools/sass_count.py, where cuobjdump reads the library);
+   then the time of its 2+1D mT-remap path on one synthetic 16384-cell
+   group beside its bound;
 6. operation 0 main path: a synthetic 65536-cell x 320-species 2+1D run
    directory through ``cli.main`` (df 1, shear + bulk, regulate, outflow,
    f32, native 32 x 24 x 48 grid): launches = canonical groups, every
@@ -43,7 +50,8 @@ Phases, each printing its own line(s):
    the same CLI on a 256-cell run directory on cuda and on cpu (f64);
 7. the dN/dX kernel and the binning kernel on one canonical group of that
    surface (8192 cells), f32: agreement with the plain versions, two
-   launches bit-identical, paired times (one warm-up -- for the plain
+   launches bit-identical, the f32 kernel and the f32 plain version against
+   the f64 kernel, paired times (one warm-up -- for the plain
    version its agreement call -- and the median of 5; the binning kernel,
    its plain version and its library yardstick as 20 calls queued behind
    a device-side sleep, per call);
@@ -236,6 +244,34 @@ def phase_small_edges():
                 fail(f"{dtype} {case}: {int((got[zero] != 0).sum())} of the "
                      f"plain version's {int(zero.sum())} exact zeros are "
                      "nonzero in the kernel")
+
+
+def phase_small_dndx_edges():
+    """The dN/dX kernel's edges (testing.DNDX_EDGES) against the plain
+    version, f32 and f64, 777 cells and 40 species unless the case says
+    otherwise; two launches bit-identical, exact zeros kept."""
+    from is3d_tpu_torch import testing
+    from is3d_tpu_torch.kernels import dndx
+    for dtype in (torch.float32, torch.float64):
+        for case in testing.DNDX_EDGES:
+            x = testing.dndx_edge_inputs(case, n_cells=777, n_species=40,
+                                         dtype=dtype, device="cuda")
+            got, again = dndx.dndx_cuda(*x), dndx.dndx_cuda(*x)
+            want = dndx.dndx_plain(*x)
+            torch.cuda.synchronize()
+            seen = testing.dndx_edge_seen(case, *x, *want)
+            for part, g, a, w in zip(("per cell", "dN/dy/deta"), got, again,
+                                     want):
+                _check(f"dndx {str(dtype)[6:]} edge {case} ({seen}) {part}",
+                       g, w, *TOL[dtype])
+                if not torch.equal(g, a):
+                    fail(f"dndx {dtype} {case} {part}: two launches differ")
+                zero = w == 0
+                if (g[zero] != 0).any():
+                    fail(f"dndx {dtype} {case} {part}: "
+                         f"{int((g[zero] != 0).sum())} of the plain "
+                         f"version's {int(zero.sum())} exact zeros are "
+                         "nonzero in the kernel")
 
 
 def phase_small_bins():
@@ -435,6 +471,44 @@ def phase_pair(smi: str, run_dir: str, cfg):
     return max_err, k_ms, p_ms, evals, _nbytes(cells, got, *mom_tensors(mom))
 
 
+def phase_remap_time(smi: str, clock: float):
+    """The spectra kernel's 2+1D mT-remap path (remap_kernel) on one
+    synthetic 16384-cell group at the native 2+1D grid, df 2, f32: its time
+    (one warm-up, median of 3) beside its bound; its agreement with the
+    plain version is checked at small shapes (phase 3)."""
+    from is3d_tpu_torch import testing
+    from is3d_tpu_torch.config import Config
+    from is3d_tpu_torch.io.tables import native_momentum_grid
+    from is3d_tpu_torch.kernels import smooth
+    from is3d_tpu_torch.utils import cuda_median_ms
+    dev, dt = torch.device("cuda"), torch.float32
+    cfg = Config(operation=1, mode=1, dimension=2, df_mode=2,
+                 include_shear_deltaf=1, include_bulk_deltaf=1,
+                 regulate_deltaf=1, outflow=1)
+    grid = native_momentum_grid(2, eta_mT_rescale=True, dtype=dt, device=dev)
+    cells, mom, flags = _group_inputs(
+        testing.synthetic_surface(16384, 2, seed=0, dtype=dt, device=dev),
+        testing.synthetic_species(MAIN_SPECIES, dtype=dt, device=dev), grid,
+        testing.synthetic_deltaf_data(dtype=dt, device=dev), cfg)
+    launches = smooth.LAUNCHES
+    kern = lambda: smooth.smooth_spectra_cuda(cells, mom, flags)
+    out = kern()
+    torch.cuda.synchronize()
+    if not (torch.isfinite(out).all() and out.abs().max() > 0):
+        fail("remap path: non-finite or all-zero spectra")
+    ms, runs = cuda_median_ms(kern, n=3)
+    evals = cells.shape[0] * out.numel() * grid.n_eta
+    bound = _bound(evals, *smooth.remap_formula_ops(cfg.df_mode, grid.n_phi),
+                   _nbytes(cells, out, *mom_tensors(mom)), clock)
+    print(f"[remap] {smi} | one group {cells.shape[0]} cells x "
+          f"{MAIN_SPECIES} x {out.shape[1] * out.shape[2]} x {grid.n_eta} "
+          f"(2+1D mT remap, df 2): kernel {ms:.3f} ms (runs "
+          f"{', '.join(f'{t:.2f}' for t in runs)}), bound {bound[0]:.3f} ms "
+          f"({bound[1]}), kernel at {bound[0] / ms:.1%} of it; "
+          f"{smooth.LAUNCHES - launches} launches here, one per canonical "
+          "group on a 2+1D operation-1 run")
+
+
 def _issued(library: str, kernel: str) -> str:
     """Instructions per evaluation in the SASS of the first kernel of
     ``library`` whose mangled name matches ``kernel`` (tools/sass_count.py),
@@ -572,11 +646,17 @@ def phase_small_experiments():
     for dtype in (torch.float32, torch.float64):
         x = proto.proto_inputs(50, S=64, P=4, F=6, Y=5, seed=3, dtype=dtype,
                                device="cuda")
+        x["cells"][::3, proto.IDX["mask"]] = 0.0
         got = proto.proto_spectra_cuda(*(x[n] for n in proto.ARGS))
         want = proto.proto_spectra_plain(*(x[n] for n in proto.ARGS))
         torch.cuda.synchronize()
-        _check(f"smooth_proto {str(dtype)[6:]} 50 cells x 64 x 24 x 5", got,
-               want, *TOL[dtype])
+        _check(f"smooth_proto {str(dtype)[6:]} 50 cells (17 masked) x 64 x "
+               "24 x 5", got, want, *TOL[dtype])
+        x["cells"][:, proto.IDX["mask"]] = 0.0
+        none = proto.proto_spectra_cuda(*(x[n] for n in proto.ARGS))
+        if (none != 0).any():
+            fail(f"smooth_proto {dtype}: masked cells add "
+                 f"{none.abs().max().item():.3e}, not exactly 0")
         x = probe.probe_inputs(37, 7, 20, 50, seed=4, dtype=dtype,
                                device="cuda")
         args = (x["a"], x["b"], x["w"], x["wM"], x["wR"])
@@ -679,6 +759,16 @@ def phase_dndx_pair(smi: str, clock: float, run_dir: str, cfg):
                      got[0], want[0], 2e-4, 2e-5),
               _check(f"dndx float32 main-path group dN/dy/deta", got[1],
                      want[1], 2e-4, 2e-5))
+    # both float32 versions against the float64 kernel on the same inputs
+    ref = dndx.dndx_cuda(cells.double(), mom.to(dtype=torch.float64), flags,
+                         wM.double(), wR.double())
+    share = lambda a, r: ((a.double() - r).abs().max() / r.abs().max()).item()
+    print("[dndx pair] float32 against the float64 kernel, largest "
+          "difference as a share of the largest value (per cell, dN/dy/deta)"
+          f": kernel {share(got[0], ref[0]):.2e}, {share(got[1], ref[1]):.2e}"
+          f"; plain {share(want[0], ref[0]):.2e}, "
+          f"{share(want[1], ref[1]):.2e}")
+    del ref
     k_ms, k_all = cuda_median_ms(kern)
     p_ms, p_all = cuda_median_ms(plain)
     evals = cells.shape[0] * S * wM.shape[0] * R
@@ -691,7 +781,7 @@ def phase_dndx_pair(smi: str, clock: float, run_dir: str, cfg):
           f"{p_ms / k_ms:.2f}, bound {bound[0]:.3f} ms ({bound[1]}); two "
           "launches bit-identical; issued per evaluation: "
           + _issued("dndx", "percell_kernelIfNS_16EmissionProducerIf"
-                    f"Li{cfg.df_mode}ELi{cfg.dimension}E"))
+                    f"Li{cfg.df_mode}ELi{cfg.dimension}ELb1E"))
     rec_dndx = dict(launches=None, max_abs_err=err, ms=k_ms, plain_ms=p_ms,
                     bound_ms=bound[0], bound_by=bound[1], library_ms=None)
 
@@ -797,6 +887,7 @@ def main():
     phase_small_cases()
     phase_small_edges()
     phase_small_dndx()
+    phase_small_dndx_edges()
     phase_small_bins()
     phase_small_experiments()
     shutil.rmtree(WORK, ignore_errors=True)
@@ -812,6 +903,7 @@ def main():
         print(f"[pair] bound of one group {bound[0]:.3f} ms ({bound[1]}): "
               f"kernel at {bound[0] / k_ms:.1%} of it")
         shutil.rmtree(run_dir, ignore_errors=True)
+        phase_remap_time(smi, clock)
         counts, dndx_dir, dndx_cfg = phase_dndx_main(smi)
         phase_small_path_cpu_vs_cuda(
             "small_dndx", dimension=2, params=dict(operation=0),

@@ -12,13 +12,58 @@
 //     dydeta[s, r]   = scale_s * sum_c sum_m wM_m f(c, r, s, m)
 //
 // Two producers instantiate the same reduction:
-//   * EmissionProducer: p.dsigma f_eq (1 + df) of emission.cuh (linear df
-//     1-2) at fixed rapidity nodes, 2+1D (Delta = -eta_r, wR = eta weights)
-//     or 3+1D (Delta = y_r - eta_c, wR = 1); scale_s = CF * degeneracy.
-//     Inputs as smooth_spectra.cu (packed cells, species and momentum
-//     constants) plus wM (n_pT*n_phi) and wR (n_nodes).
+//   * EmissionProducer: p.dsigma f_eq (1 + df) (linear df 1-2) in the
+//     folded form of folded.cuh at fixed rapidity nodes, 2+1D (Delta =
+//     -eta_r, wR = eta weights) or 3+1D (Delta = y_r - eta_c, wR = 1);
+//     scale_s = CF * degeneracy.  Inputs: the packed cells of
+//     smooth_spectra.cu and three tables the wrapper prepacks
+//     (kernels/dndx.py:emission_tables): species (S, 4) = m^2, sign,
+//     baryon, 0; mT (S, n_pT, 2) = mT, mT^2; points (M, 8) = px, py, px^2,
+//     py^2, px py, wM, 0, 0.
 //   * ProbeProducer: P2's synthetic f = 1/(e^x + 1) (1 + 0.1 x) w(s, m),
 //     x = a(c, r) b(s, m) + 0.3 a(c, r); scale_s = 1.
+//
+// What bounds it on this card: FP32 and SFU issue, not bytes (a group of
+// 8192 cells is 1.2 MB of input and 10 MB of output against 1e11
+// evaluations).  The formula needs 19 FP32 and 2 (df 1) or 3 (df 2) SFU
+// operations per evaluation (kernels/smooth.py, FORMULA_OPS).  The first
+// version of this kernel (a block per species, a thread per momentum
+// point, nodes staged 8 at a time, a warp reduction per (cell, point slot,
+// chunk)) issued 66 instructions per evaluation.
+//
+// Design: the transposed loop of P2, with the register blocking of
+// smooth_spectra.cu.
+//   * A thread owns one cell and YC rapidity nodes, for J species: the
+//     cell's NS folded scalars and the 6 composites of each of its nodes
+//     live in registers, formed once per (cell, node group, species group)
+//     straight from the packed row (no shared-memory staging; the 16
+//     threads of a cell read the same row).  It then walks the momentum
+//     points, pT outer and phi inner (unrolled by two), whose constants
+//     are the same for the whole block and come as broadcast 16-byte loads
+//     from the point table, staged in shared memory where it fits (read
+//     through L1 where not).  Per point it forms the per-(cell, point)
+//     terms once for J x YC evaluations and px C2 + py C3 once per node
+//     for J.
+//   * t[j][y] = sum_m wM f is a register sum.  Both outputs derive from
+//     it once per (cell, species group), so nothing but the evaluation is
+//     in the point loop: per_cell adds sum_y wR_y t[j][y] over the threads
+//     of the cell through shared memory in node order; dydeta adds t over
+//     the block's cells in a thread-private shared-memory slot and, at the
+//     end, over the block's threads of one node group in cell order.
+//   * The cells are split over blockIdx.y; the wrapper picks the split
+//     from the card's resident-block count so the waves fill
+//     (kernels/dndx.py:cell_split), and fold_kernel adds the splits'
+//     partials in order.  Every sum runs in a fixed order and nothing uses
+//     atomics: two launches give identical bits.
+//   * float32 takes ex2.approx on a pre-scaled argument and rcp.approx
+//     (folded.cuh), which keep +inf -> 0; float64 keeps IEEE exp and
+//     division and runs two blocks per SM.
+// Dropped: the same blocking with a thread per momentum point (as in
+// smooth_spectra.cu).  There t[j][y] is spread over the block's threads,
+// so per_cell needs a block reduction per cell and dydeta either J x R
+// register accumulators (192 for 48 nodes) or a reduction per (cell, node
+// group); here both sums cost a few instructions per 9216 evaluations.
+//
 // Two more kernels turn per_cell into the (tau, r) histograms: the
 // scatter-add of _dndx_jit (.at[].add) as a fixed-order segment sum over
 // the (bin, cell) entries pre-sorted by bin (kernels/dndx.py:bin_plan).
@@ -33,99 +78,138 @@
 
 #include <cuda_runtime.h>
 
-#include "emission.cuh"
+#include "folded.cuh"
 
 namespace {
 
 using namespace is3d;
 
-constexpr int BLOCK = 256;           // threads (momentum points) per block
+constexpr int PBLOCK = 128;          // (cell, node group) threads per block
+constexpr int J = 4;                 // species per thread
+constexpr int YC = 3;                // nodes per thread
+constexpr int PW = 8;                // values per row of the point table
+constexpr int PHI_UNROLL = 2;        // phi steps per trip of the point loop
+// the point table is staged in shared memory up to this size (4 resident
+// blocks of it fit an SM); a larger one is read from global memory (L1)
+constexpr size_t POINTS_SMEM_MAX = 32 * 1024;
+constexpr int BLOCK = 256;           // threads of the fold and bin kernels
 constexpr int WARPS = BLOCK / 32;
-constexpr int TILE = 16;             // cells per shared-memory tile
-constexpr int RC = 8;                // rapidity nodes per staged chunk
-constexpr size_t SMEM_BUDGET = 48 * 1024;
-constexpr unsigned FULL = 0xffffffffu;
 constexpr int SLICE = 64;            // binning entries per slice
 constexpr int BIN_TILE = 32;         // bins and species per bin_kernel block
 
-template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(FULL, v, off);
-  return v;                                        // valid in lane 0
-}
-
 // ------------------------------------------------------------- producers
 
-template <typename T, int DF, int DIM>
+// A producer stages what its block shares into dynamic shared memory,
+// gives the per-thread state of one (cell, node group) and adds, for the
+// J species from s0 on, t[j][y] += sum_m wM_m f(c, r0 + y, s0 + j, m).
+// Species and nodes past the end are clamped to the last real one; the
+// kernel never stores them.
+
+// PS: the point table is staged in shared memory
+template <typename T, int DF, int DIM, bool PS>
 struct EmissionProducer {
   const T* cells;                    // (n_cells, NF) packed rows
-  const T* mass;
-  const T* sign;
-  const T* baryon;
-  const T* pT;
-  const T* px;
-  const T* py;
-  int n_phi;
-  int regulate;
-  int outflow;
+  const T* nodes;                    // (n_nodes)
+  const T* species;                  // (n_species, 4) m^2, sign, baryon, 0
+  const T* mt;                       // (n_species, n_pT, 2) mT, mT^2
+  const T* points;                   // (M, 8) px, py, px^2, py^2, px py, wM
+  int n_species, n_nodes, n_pT, n_phi;
+  int regulate, outflow;
 
-  using PointState = Point<T>;
-  using CellState = CellPoint<T>;
+  size_t shared_bytes() const {
+    return PS ? (size_t)n_pT * n_phi * PW * sizeof(T) : 0;
+  }
 
-  // tile layout: raw [NF][TILE] | composites [NCOMP][TILE * RC]
-  static size_t tile_elems() { return (size_t)NF * TILE + NCOMP * TILE * RC; }
+  __device__ __forceinline__ void stage(T* sm) const {
+    if (PS)
+      for (int i = threadIdx.x; i < n_pT * n_phi * PW; i += PBLOCK)
+        sm[i] = points[i];
+  }
 
-  __device__ void stage_cells(T* tile, int c0, int nc) const {
-    for (int i = threadIdx.x; i < nc * NF; i += BLOCK) {
-      const int c = i / NF;
-      tile[(i - c * NF) * TILE + c] = cells[(size_t)c0 * NF + i];
+  struct CellState {
+    T sc[NS];                        // folded scalars (folded.cuh)
+    T k[YC][6];                      // A1, B1, C1', C2', C3', D1' per node
+  };
+
+  __device__ __forceinline__ void load(CellState& cs, int cell, int r0) const {
+    const T* g = cells + (size_t)cell * NF;
+    stage_scalars<T, DF>(g, cs.sc);
+#pragma unroll
+    for (int y = 0; y < YC; ++y) {
+      const T node = nodes[min(r0 + y, n_nodes - 1)];
+      T o[NK];
+      stage_composites<T, DF>(g, DIM == 3 ? node - g[F_ETA] : -node, T(0), o);
+#pragma unroll
+      for (int i = 0; i < 6; ++i) cs.k[y][i] = o[i];
     }
   }
 
-  __device__ void stage_nodes(T* tile, int c0, int nc, const T* node_s,
-                              int r0, int nr) const {
-    const T* raw = tile;
-    T* comp = tile + NF * TILE;
-    constexpr int ldc = TILE * RC;
-    for (int i = threadIdx.x; i < nc * nr; i += BLOCK) {
-      const int c = i / nr;
-      const int rr = i - c * nr;
-      const T delta = DIM == 3 ? node_s[r0 + rr] - raw[F_ETA * TILE + c]
-                               : -node_s[r0 + rr];
-      const Comp<T> k =
-          composites(raw, TILE, c, d_cosh(delta), d_sinh(delta));
-      const int j = c * RC + rr;
-      comp[0 * ldc + j] = k.A1;
-      comp[1 * ldc + j] = k.B1;
-      comp[2 * ldc + j] = k.C1;
-      comp[3 * ldc + j] = k.C2;
-      comp[4 * ldc + j] = k.C3;
-      comp[5 * ldc + j] = k.D1;
+  __device__ __forceinline__ void sum_points(const CellState& cs, int s0,
+                                             T (&t)[J][YC],
+                                             const T* sm) const {
+    using F = Fn<T>;
+    const T dlo = regulate ? T(-1) : -F::inf();
+    const T dhi = regulate ? T(1) : F::inf();
+    const T plo = outflow ? T(0) : -F::inf();
+    const T dax = cs.sc[S_DAX], day = cs.sc[S_DAY];
+    const T nux = cs.sc[S_NUX], nuy = cs.sc[S_NUY];
+    const T nvx = cs.sc[S_NVX], nvy = cs.sc[S_NVY];
+    const T pxx = cs.sc[S_PXX], pyy = cs.sc[S_PYY], pxy = cs.sc[S_PXY];
+    const T invT = cs.sc[S_INVT], kp = cs.sc[S_KP], kv = cs.sc[S_KV];
+    // per (cell, species)
+    T km2[J], b1[J], c3b[J], nbal[J], sgn[J], bar[J];
+    const T* mts[J];
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int s = min(s0 + j, n_species - 1);
+      T m2, unused;
+      F::ld4(species + (size_t)s * 4, m2, sgn[j], bar[j], unused);
+      km2[j] = cs.sc[S_KM2] * m2;
+      b1[j] = cs.sc[S_KB1] * bar[j];
+      c3b[j] = cs.sc[S_KC3] * bar[j];
+      nbal[j] = -cs.sc[S_ALPHA] * bar[j];
+      mts[j] = mt + (size_t)s * n_pT * 2;
     }
-  }
-
-  __device__ PointState point(int s, int m) const {
-    return make_point<T>(mass[s], pT[m / n_phi], px[m], py[m], sign[s],
-                         baryon[s]);
-  }
-
-  __device__ CellState cell(const T* tile, int c, const PointState& p) const {
-    return cell_point(tile, TILE, c, p);
-  }
-
-  __device__ T eval(const T* tile, int c, int rr, const PointState& p,
-                    const CellState& q) const {
-    const T* comp = tile + NF * TILE;
-    constexpr int ldc = TILE * RC;
-    const int j = c * RC + rr;
-    Comp<T> k;
-    k.A1 = comp[0 * ldc + j];
-    k.B1 = comp[1 * ldc + j];
-    k.C1 = comp[2 * ldc + j];
-    k.C2 = comp[3 * ldc + j];
-    k.C3 = comp[4 * ldc + j];
-    k.D1 = comp[5 * ldc + j];
-    return emission<T, DF>(p, q, k, regulate, outflow);
+    const T* q = PS ? sm : points;
+    for (int ip = 0; ip < n_pT; ++ip) {
+      T mT[J], mT2[J];
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        mT[j] = mts[j][2 * ip];
+        mT2[j] = mts[j][2 * ip + 1];
+      }
+#pragma unroll PHI_UNROLL
+      for (int iphi = 0; iphi < n_phi; ++iphi, q += PW) {
+        T px, py, px2, py2, pxpy, wm, u0, u1;
+        F::ld4(q, px, py, px2, py2);
+        F::ld4(q + 4, pxpy, wm, u0, u1);
+        // per (cell, point)
+        const T W1 = fma(dax, px, day * py);
+        const T nW2 = fma(nux, px, nuy * py);
+        const T nD2 = fma(nvx, px, nvy * py);
+        const T C4 = fma(pxx, px2, fma(pyy, py2, pxy * pxpy));
+        T c4s[J];
+#pragma unroll
+        for (int j = 0; j < J; ++j) c4s[j] = km2[j] + C4;
+#pragma unroll
+        for (int y = 0; y < YC; ++y) {
+          const T A1 = cs.k[y][0], B1 = cs.k[y][1], C1 = cs.k[y][2];
+          const T D1 = cs.k[y][5];
+          const T c23 = fma(px, cs.k[y][3], py * cs.k[y][4]);
+#pragma unroll
+          for (int j = 0; j < J; ++j) {
+            const T pds = fma(mT[j], A1, W1);
+            const T pdu = fma(mT[j], B1, nW2);
+            const T pipp = fma(mT2[j], C1, fma(mT[j], c23, c4s[j]));
+            const T Vp = fma(mT[j], D1, nD2);
+            const T f = folded_f<T, DF>(pdu, pipp, Vp, invT, nbal[j], sgn[j],
+                                        bar[j], kp, b1[j], kv, c3b[j], dlo,
+                                        dhi);
+            t[j][y] = fma(fmax(pds, plo) * wm, f, t[j][y]);
+          }
+        }
+      }
+    }
   }
 };
 
@@ -134,140 +218,140 @@ struct ProbeProducer {
   const T* a;                        // (n_cells, n_nodes)
   const T* b;                        // (n_species, M)
   const T* w;                        // (n_species, M)
-  int n_nodes;
-  int M;
+  const T* wM;                       // (M)
+  int n_species, n_nodes, M;
 
-  struct PointState { T b, w; };
-  struct CellState {};
+  size_t shared_bytes() const { return 0; }
 
-  // tile layout: a [TILE][RC]
-  static size_t tile_elems() { return (size_t)TILE * RC; }
+  __device__ __forceinline__ void stage(T*) const {}
 
-  __device__ void stage_cells(T*, int, int) const {}
+  struct CellState {
+    T xa[YC], x0[YC];                // x = xa b + x0, scaled for the exp
+    T ha[YC], h0[YC];                // 1 + 0.1 x = ha b + h0
+  };
 
-  __device__ void stage_nodes(T* tile, int c0, int nc, const T*, int r0,
-                              int nr) const {
-    for (int i = threadIdx.x; i < nc * nr; i += BLOCK) {
-      const int c = i / nr;
-      const int rr = i - c * nr;
-      tile[c * RC + rr] = a[(size_t)(c0 + c) * n_nodes + r0 + rr];
+  __device__ __forceinline__ void load(CellState& cs, int cell, int r0) const {
+#pragma unroll
+    for (int y = 0; y < YC; ++y) {
+      const T av = a[(size_t)cell * n_nodes + min(r0 + y, n_nodes - 1)];
+      cs.xa[y] = Fn<T>::SCALE * av;
+      cs.x0[y] = Fn<T>::SCALE * (T(0.3) * av);
+      cs.ha[y] = T(0.1) * av;
+      cs.h0[y] = T(1) + T(0.1) * (T(0.3) * av);
     }
   }
 
-  __device__ PointState point(int s, int m) const {
-    const size_t i = (size_t)s * M + m;
-    return PointState{b[i], w[i]};
-  }
-
-  __device__ CellState cell(const T*, int, const PointState&) const {
-    return CellState{};
-  }
-
-  __device__ T eval(const T* tile, int c, int rr, const PointState& p,
-                    const CellState&) const {
-    const T av = tile[c * RC + rr];
-    const T x = av * p.b + T(0.3) * av;
-    const T f = T(1) / (d_exp(x) + T(1));
-    return f * (T(1) + T(0.1) * x) * p.w;
+  __device__ __forceinline__ void sum_points(const CellState& cs, int s0,
+                                             T (&t)[J][YC],
+                                             const T*) const {
+    using F = Fn<T>;
+    const T* bs[J];
+    const T* ws[J];
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const size_t row = (size_t)min(s0 + j, n_species - 1) * M;
+      bs[j] = b + row;
+      ws[j] = w + row;
+    }
+#pragma unroll 4
+    for (int m = 0; m < M; ++m) {
+      const T wm = wM[m];
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const T bv = bs[j][m];
+        const T ww = ws[j][m] * wm;
+#pragma unroll
+        for (int y = 0; y < YC; ++y) {
+          const T f = F::rcp(F::exp_scaled(fma(cs.xa[y], bv, cs.x0[y])) + T(1));
+          t[j][y] = fma(f * fma(cs.ha[y], bv, cs.h0[y]), ww, t[j][y]);
+        }
+      }
+    }
   }
 };
 
 // ------------------------------------------------------------- kernels
 
-// grid (n_species, n_split); partial (n_split, n_species, n_nodes)
+// grid (species groups of J, n_split); thread tid owns node group tid % NG
+// (NG = ceil(n_nodes / YC)) of cell tid / NG of each batch of CB = PBLOCK /
+// NG cells; partial (n_split, n_species, n_nodes), unscaled
 template <typename T, typename Prod>
-__global__ void __launch_bounds__(BLOCK)
+__global__ void __launch_bounds__(PBLOCK, 16 / sizeof(T))
 percell_kernel(Prod prod, int n_cells, int cells_per_split, int n_species,
-               int M, const T* __restrict__ nodes, const T* __restrict__ wR,
-               const T* __restrict__ wM, int n_nodes,
+               int n_nodes, const T* __restrict__ wR,
                const T* __restrict__ deg, T prefactor,
                T* __restrict__ per_cell, T* __restrict__ partial) {
-  // one extern declaration (as double: 8-byte aligned) for every
-  // instantiation; carved as nodes | wR | per-(warp, node) | per-(warp,
-  // cell) | producer tile
-  extern __shared__ double smem_d[];
-  const int R = n_nodes;
-  T* node_s = reinterpret_cast<T*>(smem_d);
-  T* wR_s = node_s + R;
-  T* dydw = wR_s + R;                               // [WARPS][R]
-  T* pcw = dydw + WARPS * R;                        // [WARPS][TILE]
-  T* tile = pcw + WARPS * TILE;
+  // pcs: each thread's per-cell sums; dys: each thread's running sums
+  // over its cells, slot (j, y) of thread tid at dys[(j YC + y) PBLOCK +
+  // tid], re-read at the end as the block's (cell slot, node group) table
+  __shared__ T pcs[PBLOCK * J];
+  __shared__ T dys[J * YC * PBLOCK];
+  extern __shared__ double4 dyn_d4[];
+  T* sm = reinterpret_cast<T*>(dyn_d4);
+  prod.stage(sm);
+  __syncthreads();
 
-  const int s = blockIdx.x;
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
+  const int NG = (n_nodes + YC - 1) / YC;
+  const int CB = PBLOCK / NG;
+  const int g = tid % NG;
+  const int cb = tid / NG;
+  const int r0 = g * YC;
+  const int s0 = blockIdx.x * J;
   const int cbeg = blockIdx.y * cells_per_split;
   const int cend = min(n_cells, cbeg + cells_per_split);
-  const int ppt = (M + BLOCK - 1) / BLOCK;          // points per thread
 
-  for (int i = tid; i < R; i += BLOCK) {
-    node_s[i] = nodes[i];
-    wR_s[i] = wR[i];
-  }
-  for (int i = tid; i < WARPS * R; i += BLOCK) dydw[i] = T(0);
-  for (int i = tid; i < WARPS * TILE; i += BLOCK) pcw[i] = T(0);
-  const T scale = deg != nullptr ? prefactor * deg[s] : prefactor;
+  T wr[YC];
+#pragma unroll
+  for (int y = 0; y < YC; ++y) wr[y] = r0 + y < n_nodes ? wR[r0 + y] : T(0);
+#pragma unroll
+  for (int i = 0; i < J * YC; ++i) dys[i * PBLOCK + tid] = T(0);
 
-  for (int c0 = cbeg; c0 < cend; c0 += TILE) {
-    const int nc = min(TILE, cend - c0);
-    __syncthreads();                                // previous tile consumed
-    prod.stage_cells(tile, c0, nc);
-    for (int r0 = 0; r0 < R; r0 += RC) {
-      const int nr = min(RC, R - r0);
-      __syncthreads();                              // raw staged, chunk free
-      prod.stage_nodes(tile, c0, nc, node_s, r0, nr);
-      __syncthreads();
-      T acc[RC];
+  for (int c0 = cbeg; c0 < cend; c0 += CB) {
+    const int c = c0 + cb;
+    const bool live = cb < CB && c < cend;
+    typename Prod::CellState cs;
+    prod.load(cs, live ? c : cbeg, r0);
+    T t[J][YC];
 #pragma unroll
-      for (int rr = 0; rr < RC; ++rr) acc[rr] = T(0);
-      for (int j = 0; j < ppt; ++j) {
-        const int m = tid + j * BLOCK;
-        const bool active = m < M;
-        typename Prod::PointState p{};
-        T wm = T(0);
-        if (active) {
-          p = prod.point(s, m);
-          wm = wM[m];
-        }
-        for (int c = 0; c < nc; ++c) {
-          T pc = T(0);
-          if (active) {
-            const typename Prod::CellState q = prod.cell(tile, c, p);
+    for (int j = 0; j < J; ++j)
 #pragma unroll
-            for (int rr = 0; rr < RC; ++rr) {
-              if (rr < nr) {
-                const T e = wm * prod.eval(tile, c, rr, p, q);
-                pc += wR_s[r0 + rr] * e;
-                acc[rr] += e;
-              }
-            }
-          }
-          pc = warp_sum(pc);
-          if (lane == 0) pcw[warp * TILE + c] += pc;
-        }
+      for (int y = 0; y < YC; ++y) t[j][y] = T(0);
+    prod.sum_points(cs, s0, t, sm);
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      T pc = T(0);
+#pragma unroll
+      for (int y = 0; y < YC; ++y) {
+        const T v = live ? t[j][y] : T(0);
+        pc = fma(wr[y], v, pc);
+        dys[(j * YC + y) * PBLOCK + tid] += v;
       }
-#pragma unroll
-      for (int rr = 0; rr < RC; ++rr) {
-        const T v = warp_sum(acc[rr]);
-        if (lane == 0 && rr < nr) dydw[warp * R + r0 + rr] += v;
+      pcs[tid * J + j] = pc;
+    }
+    __syncthreads();
+    for (int i = tid; i < CB * J; i += PBLOCK) {
+      const int b = i / J;                          // cell slot of the batch
+      const int j = i - b * J;
+      if (c0 + b < cend && s0 + j < n_species) {
+        T v = T(0);
+        for (int k = 0; k < NG; ++k) v += pcs[(b * NG + k) * J + j];
+        const T scale = deg != nullptr ? prefactor * deg[s0 + j] : prefactor;
+        per_cell[(size_t)(c0 + b) * n_species + s0 + j] = scale * v;
       }
     }
-    __syncthreads();                                // pcw complete
-    for (int c = tid; c < nc; c += BLOCK) {
-      T v = T(0);
-      for (int w = 0; w < WARPS; ++w) {
-        v += pcw[w * TILE + c];
-        pcw[w * TILE + c] = T(0);
-      }
-      per_cell[(size_t)(c0 + c) * n_species + s] = scale * v;
-    }
+    __syncthreads();                                // pcs free again
   }
-  __syncthreads();                                  // dydw complete
-  for (int r = tid; r < R; r += BLOCK) {
+  __syncthreads();
+  for (int i = tid; i < NG * J * YC; i += PBLOCK) {
+    const int k = i / (J * YC);                     // node group
+    const int jy = i - k * (J * YC);
+    const int j = jy / YC;
+    const int r = k * YC + jy - j * YC;
+    if (r >= n_nodes || s0 + j >= n_species) continue;
     T v = T(0);
-    for (int w = 0; w < WARPS; ++w) v += dydw[w * R + r];
-    partial[((size_t)blockIdx.y * n_species + s) * R + r] = v;
+    for (int b = 0; b < CB; ++b) v += dys[jy * PBLOCK + b * NG + k];
+    partial[((size_t)blockIdx.y * n_species + s0 + j) * n_nodes + r] = v;
   }
 }
 
@@ -388,32 +472,47 @@ bin_kernel(int n_species, const int* __restrict__ start, int n_bins,
 
 // ------------------------------------------------------------- launchers
 
+// resident blocks of percell_kernel<T, Prod> on the current card (SMs x
+// blocks per SM), or minus a CUDA error code
+template <typename T, typename Prod>
+int percell_slots(size_t shared_bytes) {
+  int dev = 0, n_sm = 0, per_sm = 0;
+  int rc = (int)cudaGetDevice(&dev);
+  if (rc == 0)
+    rc = (int)cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
+                                     dev);
+  if (rc == 0)
+    rc = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, percell_kernel<T, Prod>, PBLOCK, shared_bytes);
+  if (rc != 0) return -rc;
+  if (per_sm < 1) return -(int)cudaErrorInvalidConfiguration;
+  return n_sm * per_sm;
+}
+
 template <typename T, typename Prod>
 int launch_percell(const Prod& prod, int n_cells, int cells_per_split,
-                   int n_species, int M, const void* nodes_v,
-                   const void* wR_v, const void* wM_v, int n_nodes,
+                   int n_species, int n_nodes, const void* wR_v,
                    const void* deg_v, double prefactor, void* per_cell_v,
                    void* dydeta_v, void* partial_v, void* stream_v) {
-  if (n_cells < 1 || n_species < 1 || M < 1 || n_nodes < 1 ||
-      cells_per_split < TILE || cells_per_split % TILE != 0)
+  if (n_cells < 1 || n_species < 1 || n_nodes < 1 ||
+      n_nodes > PBLOCK * YC || cells_per_split < 1)
     return cudaErrorInvalidValue;
+  const int cb = PBLOCK / ((n_nodes + YC - 1) / YC);
   const long long n_split =
       ((long long)n_cells + cells_per_split - 1) / cells_per_split;
-  if (n_split > 65535 || n_species > 0x7fffffff / n_nodes)
+  // a split of whole batches, so no batch straddles two blocks
+  if ((n_split > 1 && cells_per_split % cb != 0) || n_split > 65535 ||
+      n_species > 0x7fffffff / n_nodes)
     return cudaErrorInvalidValue;
-  const size_t smem = (2 * (size_t)n_nodes + WARPS * (size_t)n_nodes +
-                       WARPS * TILE + Prod::tile_elems()) * sizeof(T);
-  if (smem > SMEM_BUDGET) return cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_v);
-  const T* nodes = static_cast<const T*>(nodes_v);
-  const T* wR = static_cast<const T*>(wR_v);
-  const T* wM = static_cast<const T*>(wM_v);
   const T* deg = static_cast<const T*>(deg_v);
   T* partial = static_cast<T*>(partial_v);
   percell_kernel<T, Prod>
-      <<<dim3((unsigned)n_species, (unsigned)n_split), BLOCK, smem, stream>>>(
-          prod, n_cells, cells_per_split, n_species, M, nodes, wR, wM,
-          n_nodes, deg, (T)prefactor, static_cast<T*>(per_cell_v), partial);
+      <<<dim3((unsigned)((n_species + J - 1) / J), (unsigned)n_split), PBLOCK,
+         prod.shared_bytes(), stream>>>(prod, n_cells, cells_per_split,
+                                        n_species, n_nodes,
+                      static_cast<const T*>(wR_v), deg, (T)prefactor,
+                      static_cast<T*>(per_cell_v), partial);
   int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
   const int n = n_species * n_nodes;
@@ -424,48 +523,81 @@ int launch_percell(const Prod& prod, int n_cells, int cells_per_split,
 }
 
 template <typename T>
-int launch_dndx(const void* cells, int n_cells, int nf, const void* mass,
-                const void* sign, const void* baryon, const void* deg,
-                int n_species, const void* pT, const void* px,
-                const void* py, int n_pT, int n_phi, const void* nodes,
-                const void* wR, const void* wM, int n_nodes, int df_mode,
-                int dimension, int regulate, int outflow, double prefactor,
+size_t point_table_bytes(int n_pT, int n_phi) {
+  return (size_t)n_pT * n_phi * PW * sizeof(T);
+}
+
+// IS3D_EMISSION(DF, DIM, PS) runs once with the instantiation of the
+// flags; the point table goes to shared memory where it fits
+#define IS3D_DISPATCH_PS(DF_, DIM_)                                           \
+  {                                                                          \
+    if (staged) IS3D_EMISSION(DF_, DIM_, true)                               \
+    else IS3D_EMISSION(DF_, DIM_, false)                                     \
+  }
+#define IS3D_DISPATCH(df_mode, dimension, n_pT, n_phi)                        \
+  const bool staged = point_table_bytes<T>(n_pT, n_phi) <= POINTS_SMEM_MAX;  \
+  if (dimension == 3) {                                                      \
+    if (df_mode == 1) IS3D_DISPATCH_PS(1, 3) else IS3D_DISPATCH_PS(2, 3)     \
+  } else {                                                                   \
+    if (df_mode == 1) IS3D_DISPATCH_PS(1, 2) else IS3D_DISPATCH_PS(2, 2)     \
+  }
+
+bool emission_shape_ok(int df_mode, int dimension, int n_pT, int n_phi) {
+  return (df_mode == 1 || df_mode == 2) &&
+         (dimension == 2 || dimension == 3) && n_pT >= 1 && n_phi >= 1 &&
+         n_pT <= 0x7fffffff / PW / n_phi;
+}
+
+template <typename T>
+int dndx_slots(int df_mode, int dimension, int n_pT, int n_phi) {
+  if (!emission_shape_ok(df_mode, dimension, n_pT, n_phi))
+    return -(int)cudaErrorInvalidValue;
+#define IS3D_EMISSION(DF_, DIM_, PS_)                                         \
+  return percell_slots<T, EmissionProducer<T, DF_, DIM_, PS_>>(              \
+      PS_ ? point_table_bytes<T>(n_pT, n_phi) : 0);
+  IS3D_DISPATCH(df_mode, dimension, n_pT, n_phi)
+#undef IS3D_EMISSION
+}
+
+template <typename T>
+int launch_dndx(const void* cells, int n_cells, int nf, const void* species,
+                const void* deg, int n_species, const void* mt,
+                const void* points, int n_pT, int n_phi, const void* nodes,
+                const void* wR, int n_nodes, int df_mode, int dimension,
+                int regulate, int outflow, double prefactor,
                 int cells_per_split, void* per_cell, void* dydeta,
                 void* partial, void* stream) {
-  if (nf != NF || (df_mode != 1 && df_mode != 2) ||
-      (dimension != 2 && dimension != 3) || n_pT < 1 || n_phi < 1)
+  if (nf != NF || !emission_shape_ok(df_mode, dimension, n_pT, n_phi))
     return cudaErrorInvalidValue;
-#define IS3D_DNDX(DF_, DIM_)                                                  \
+#define IS3D_EMISSION(DF_, DIM_, PS_)                                         \
   {                                                                          \
-    EmissionProducer<T, DF_, DIM_> prod{                                     \
-        static_cast<const T*>(cells), static_cast<const T*>(mass),           \
-        static_cast<const T*>(sign), static_cast<const T*>(baryon),          \
-        static_cast<const T*>(pT), static_cast<const T*>(px),                \
-        static_cast<const T*>(py), n_phi, regulate, outflow};                \
+    EmissionProducer<T, DF_, DIM_, PS_> prod{                                \
+        static_cast<const T*>(cells), static_cast<const T*>(nodes),          \
+        static_cast<const T*>(species), static_cast<const T*>(mt),           \
+        static_cast<const T*>(points), n_species, n_nodes, n_pT, n_phi,      \
+        regulate, outflow};                                                  \
     return launch_percell<T>(prod, n_cells, cells_per_split, n_species,      \
-                             n_pT * n_phi, nodes, wR, wM, n_nodes, deg,      \
-                             prefactor, per_cell, dydeta, partial, stream);  \
+                             n_nodes, wR, deg, prefactor, per_cell, dydeta,  \
+                             partial, stream);                               \
   }
-  if (dimension == 3) {
-    if (df_mode == 1) IS3D_DNDX(1, 3) else IS3D_DNDX(2, 3)
-  } else {
-    if (df_mode == 1) IS3D_DNDX(1, 2) else IS3D_DNDX(2, 2)
-  }
-#undef IS3D_DNDX
-  return cudaErrorInvalidValue;                     // not reached
+  IS3D_DISPATCH(df_mode, dimension, n_pT, n_phi)
+#undef IS3D_EMISSION
 }
+#undef IS3D_DISPATCH
+#undef IS3D_DISPATCH_PS
 
 template <typename T>
 int launch_probe(const void* a, int n_cells, int n_nodes, const void* b,
                  const void* w, int n_species, int M, const void* wM,
                  const void* wR, int cells_per_split, void* per_cell,
                  void* sr, void* partial, void* stream) {
+  if (M < 1) return cudaErrorInvalidValue;
   ProbeProducer<T> prod{static_cast<const T*>(a), static_cast<const T*>(b),
-                        static_cast<const T*>(w), n_nodes, M};
-  // the probe has no rapidity nodes: wR fills the unused node table
-  return launch_percell<T>(prod, n_cells, cells_per_split, n_species, M, wR,
-                           wR, wM, n_nodes, nullptr, 1.0, per_cell, sr,
-                           partial, stream);
+                        static_cast<const T*>(w), static_cast<const T*>(wM),
+                        n_species, n_nodes, M};
+  return launch_percell<T>(prod, n_cells, cells_per_split, n_species,
+                           n_nodes, wR, nullptr, 1.0, per_cell, sr, partial,
+                           stream);
 }
 
 template <typename T>
@@ -505,22 +637,36 @@ int launch_bin(const void* per_cell_v, int n_species, const void* cell_v,
 extern "C" {
 
 #define IS3D_DNDX_ENTRY(NAME, T)                                              \
-  int NAME(const void* cells, int n_cells, int nf, const void* mass,         \
-           const void* sign, const void* baryon, const void* deg,            \
-           int n_species, const void* pT, const void* px, const void* py,    \
-           int n_pT, int n_phi, const void* nodes, const void* wR,           \
-           const void* wM, int n_nodes, int df_mode, int dimension,          \
+  int NAME(const void* cells, int n_cells, int nf, const void* species,      \
+           const void* deg, int n_species, const void* mt,                   \
+           const void* points, int n_pT, int n_phi, const void* nodes,       \
+           const void* wR, int n_nodes, int df_mode, int dimension,          \
            int regulate, int outflow, double prefactor, int cells_per_split, \
            void* per_cell, void* dydeta, void* partial, void* stream) {      \
-    return launch_dndx<T>(cells, n_cells, nf, mass, sign, baryon, deg,       \
-                          n_species, pT, px, py, n_pT, n_phi, nodes, wR, wM, \
-                          n_nodes, df_mode, dimension, regulate, outflow,    \
-                          prefactor, cells_per_split, per_cell, dydeta,      \
-                          partial, stream);                                  \
+    return launch_dndx<T>(cells, n_cells, nf, species, deg, n_species, mt,   \
+                          points, n_pT, n_phi, nodes, wR, n_nodes, df_mode,  \
+                          dimension, regulate, outflow, prefactor,           \
+                          cells_per_split, per_cell, dydeta, partial,        \
+                          stream);                                           \
   }
 IS3D_DNDX_ENTRY(is3d_dndx_f32, float)
 IS3D_DNDX_ENTRY(is3d_dndx_f64, double)
 #undef IS3D_DNDX_ENTRY
+
+// resident blocks of the dN/dX kernel (probe: of its probe instantiation)
+// on the current card, or minus a CUDA error code
+int is3d_dndx_slots_f32(int df_mode, int dimension, int n_pT, int n_phi) {
+  return dndx_slots<float>(df_mode, dimension, n_pT, n_phi);
+}
+int is3d_dndx_slots_f64(int df_mode, int dimension, int n_pT, int n_phi) {
+  return dndx_slots<double>(df_mode, dimension, n_pT, n_phi);
+}
+int is3d_dndx_probe_slots_f32() {
+  return percell_slots<float, ProbeProducer<float>>(0);
+}
+int is3d_dndx_probe_slots_f64() {
+  return percell_slots<double, ProbeProducer<double>>(0);
+}
 
 #define IS3D_PROBE_ENTRY(NAME, T)                                             \
   int NAME(const void* a, int n_cells, int n_nodes, const void* b,           \

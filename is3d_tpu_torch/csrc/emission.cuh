@@ -1,6 +1,8 @@
-// Per-point Cooper-Frye emission with linear delta-f, shared by the
-// spectra kernel (smooth_spectra.cu) and the dN/dX kernel (dndx.cu), so
-// both evaluate p.dsigma * f_eq * (1 + df) from one source.
+// Per-point Cooper-Frye emission with linear delta-f: the packed cell
+// fields, the per-(cell, node) composites every kernel shares, and the
+// unfolded evaluation p.dsigma * f_eq * (1 + df) of the spectra kernel's
+// 2+1D remap path (smooth_spectra.cu).  The register-blocked kernels
+// evaluate the folded form of folded.cuh.
 //
 // Per (cell, rapidity node) the kinematics enter through cosh/sinh of
 // Delta = y - eta, so every per-point quantity is a short fma chain:

@@ -22,7 +22,8 @@ import torch
 
 from ..kernels import dndx
 from ..kernels.common import effective_chunk
-from ..kernels.launch import check_float, check_tensor, require_cuda, launch
+from ..kernels.launch import (check_float, check_tensor, require_cuda, launch,
+                              resident_blocks)
 
 C, R, S, M = 176, 48, 320, 768
 
@@ -85,14 +86,18 @@ def percell_probe_cuda(a, b, w, wM, wR) -> tuple[torch.Tensor, torch.Tensor]:
                            ("w", w, (n_species, n_points)),
                            ("wM", wM, (n_points,)), ("wR", wR, (n_nodes,))):
         check_tensor(name, t, shape, a)
+    dndx.cells_per_batch(n_nodes)
     require_cuda("percell_probe_cuda", a)
-    per, n_split = dndx.cell_split(n_cells, n_species)
+    lib = dndx._library()
+    f64 = a.dtype == torch.float64
+    slots = resident_blocks(lib, "dndx_probe",
+                            lib.is3d_dndx_probe_slots_f64 if f64
+                            else lib.is3d_dndx_probe_slots_f32, a.device)
+    per, n_split = dndx.cell_split(n_cells, n_species, n_nodes, slots)
     per_cell = a.new_empty((n_cells, n_species))
     sr = a.new_empty((n_species, n_nodes))
     partial = a.new_empty((n_split, n_species, n_nodes))
-    lib = dndx._library()
-    fn = (lib.is3d_dndx_probe_f32 if a.dtype == torch.float32
-          else lib.is3d_dndx_probe_f64)
+    fn = lib.is3d_dndx_probe_f64 if f64 else lib.is3d_dndx_probe_f32
     launch(lib, "dndx_probe", fn, a.device, a.data_ptr(), n_cells, n_nodes,
            b.data_ptr(), w.data_ptr(), n_species, n_points, wM.data_ptr(),
            wR.data_ptr(), per, per_cell.data_ptr(), sr.data_ptr(),

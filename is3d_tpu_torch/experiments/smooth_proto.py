@@ -10,6 +10,9 @@ prototype of the spectra kernel), with the same inputs and output:
     -> out (S / s_tile, Y, s_tile, M), the cell sum of
        where(p.dsigma > 0, p.dsigma f_eq (1 + clip(df, -1, 1)), 0) * mask
 
+The mask is a validity weight >= 0 (0 or 1 in P1): the kernel folds it into
+the cell's surface-normal terms, so a masked cell adds exactly 0.
+
 Shapes are the arguments' (P1's module globals C, S, P, F, Y are the
 defaults of ``proto_inputs``).  Time the kernel on the card at P1's shape
 (C = 32768, S = 320, M = 32 x 24, Y = 21, float32)::
@@ -26,7 +29,8 @@ import torch
 
 from ..kernels.common import effective_chunk
 from ..kernels.smooth import FORMULA_OPS
-from ..kernels.launch import check_float, check_tensor, require_cuda, launch
+from ..kernels.launch import (check_float, check_tensor, require_cuda, launch,
+                              resident_blocks, split_to_fill)
 
 # the prototype's cell column order (csrc/smooth_proto.cu `PField`)
 FIELDS = ("tau", "dat", "dax", "day", "dan", "ut", "ux", "uy", "un", "T",
@@ -46,6 +50,10 @@ BOUND_OPS = FORMULA_OPS[2]
 
 # launches of the CUDA kernel in this process (proto_spectra_cuda)
 LAUNCHES = 0
+
+# csrc/smooth_proto.cu: cells per shared-memory tile; the most cell splits
+_TILE = 32
+_MAX_SPLIT = 8
 
 
 def proto_inputs(C: int = 32768, S: int = 320, P: int = 32, F: int = 24,
@@ -155,11 +163,27 @@ def _library():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         for fn in (lib.is3d_smooth_proto_f32, lib.is3d_smooth_proto_f64):
             fn.restype = ci
-            fn.argtypes = [vp, ci, ci] + [vp] * 10 + [ci] * 4 + [vp, vp]
+            fn.argtypes = [vp, ci, ci] + [vp] * 10 + [ci] * 5 + [vp, vp, vp]
+        for fn in (lib.is3d_smooth_proto_slots_f32,
+                   lib.is3d_smooth_proto_slots_f64):
+            fn.restype = ci
+            fn.argtypes = []
+        lib.is3d_smooth_proto_blocks.restype = ctypes.c_longlong
+        lib.is3d_smooth_proto_blocks.argtypes = [ci, ci, ci]   # S, M, Y
         lib.is3d_cuda_error_string.restype = ctypes.c_char_p
         lib.is3d_cuda_error_string.argtypes = [ci]
         lib._is3d_bound = True
     return lib
+
+
+def cell_split(n_cells: int, blocks_per_split: int,
+               slots: int) -> tuple[int, int]:
+    """(cells per split, splits) of the kernel's grid on a card that holds
+    ``slots`` of its blocks at once: whole tiles per split, the fewest
+    splits (up to _MAX_SPLIT) that fill the card's waves."""
+    per, n_split = split_to_fill(-(-n_cells // _TILE), blocks_per_split,
+                                 slots, _MAX_SPLIT)
+    return per * _TILE, n_split
 
 
 def proto_spectra_cuda(cells, mTf, mT2, mTpx, mTpy, pxf, pyf, m2, sign, bary,
@@ -183,24 +207,34 @@ def proto_spectra_cuda(cells, mTf, mT2, mTpx, mTpy, pxf, pyf, m2, sign, bary,
     require_cuda("proto_spectra_cuda", cells)
     out = cells.new_empty((S // s_tile, Y, s_tile, M))
     lib = _library()
-    fn = (lib.is3d_smooth_proto_f32 if cells.dtype == torch.float32
-          else lib.is3d_smooth_proto_f64)
+    f64 = cells.dtype == torch.float64
+    slots = resident_blocks(lib, "smooth_proto",
+                            lib.is3d_smooth_proto_slots_f64 if f64
+                            else lib.is3d_smooth_proto_slots_f32,
+                            cells.device)
+    per, n_split = cell_split(cells.shape[0],
+                              lib.is3d_smooth_proto_blocks(S, M, Y), slots)
+    partial = cells.new_empty((n_split, *out.shape)) if n_split > 1 else None
+    fn = lib.is3d_smooth_proto_f64 if f64 else lib.is3d_smooth_proto_f32
     launch(lib, "smooth_proto", fn, cells.device, cells.data_ptr(),
            cells.shape[0], NF, *(args[n].data_ptr() for n in shapes), S, M,
-           Y, s_tile, out.data_ptr())
+           Y, s_tile, per, None if partial is None else partial.data_ptr(),
+           out.data_ptr())
     LAUNCHES += 1
     return out
 
 
 def measure(C: int = 32768, plain_cells: int = 1024, seed: int = 0) -> dict:
     """On the card, float32 at P1's shape: the kernel against the plain
-    version on the first ``plain_cells`` cells (one launch; the plain
-    version's time there, median of 3 after that call), then the
+    version on the first ``plain_cells`` cells with every fourth of them
+    masked (one launch; the plain version's time there, median of 3
+    after that call), then the
     experiment's run: the kernel over all C cells, one warm-up and the
     median of 5 (CUDA events).  ``launches`` counts the experiment's run."""
     from ..utils import cuda_median_ms
     x = proto_inputs(C, seed=seed, device="cuda")
     sub = dict(x, cells=x["cells"][:plain_cells].contiguous())
+    sub["cells"][::4, IDX["mask"]] = 0.0
     got = proto_spectra_cuda(*(sub[n] for n in ARGS))
     plain = lambda: proto_spectra_plain(*(sub[n] for n in ARGS))
     want = plain()
@@ -219,7 +253,8 @@ def measure(C: int = 32768, plain_cells: int = 1024, seed: int = 0) -> dict:
                 bytes=sum(t.numel() * t.element_size()
                           for t in (*x.values(), out)),
                 label=f"{C} cells x {S} x {M} x {Y}",
-                plain_label=f"plain on the first {plain_cells} cells")
+                plain_label=f"plain on the first {plain_cells} cells, every "
+                            "fourth masked")
 
 
 def main():

@@ -10,9 +10,11 @@ One group of cells goes through:
 
 1. ``prepare_cells`` + ``smooth.pack_cells``: the spectra kernel's (Cp, NF)
    input;
-2. ``dndx_cuda`` (the hand-written kernel csrc/dndx.cu) for CUDA tensors,
-   ``dndx_plain`` for CPU tensors: per_cell (Cp, S) and dydeta (S, R), both
-   x CF_PREFACTOR x degeneracy;
+2. ``dndx_cuda`` (the hand-written kernel csrc/dndx.cu, fed the species,
+   mT and point tables of ``emission_tables`` and a cell split chosen by
+   ``cell_split`` to fill the card) for CUDA tensors, ``dndx_plain`` for
+   CPU tensors: per_cell (Cp, S) and dydeta (S, R), both x CF_PREFACTOR x
+   degeneracy;
 3. ``bin_plan`` (the group's bin of every cell, sorted once) and
    ``dndx_bin_cuda`` (csrc/dndx.cu's segment-sum kernel) or
    ``dndx_bin_plain``: the tau, r and (tau, r) histograms and dN/dy.
@@ -38,7 +40,8 @@ from ..data import SpeciesArrays
 from ..io.tables import MomentumGrid
 from ..io.deltaf import DeltafData
 from .common import surface_columns, prepare_cells, effective_chunk
-from .launch import check_float, check_tensor, require_cuda, launch
+from .launch import (check_float, check_tensor, require_cuda, launch,
+                     resident_blocks, split_to_fill)
 from .smooth import (MomentumConstants, SpectraFlags, NF,
                      FORMULA_OPS as SPECTRA_FORMULA_OPS,
                      pack_cells, plain_block, spectra_flags,
@@ -49,11 +52,13 @@ from .smooth import (MomentumConstants, SpectraFlags, NF,
 LAUNCHES = 0
 BIN_LAUNCHES = 0
 
-# csrc/dndx.cu: cells per shared-memory tile, binning entries per slice,
-# and the blocks the cell split aims for (eight per SM of an H100)
-_TILE = 16
+# csrc/dndx.cu: threads per block, species and nodes per thread of the
+# per-cell kernel; binning entries per slice; the most cell splits
+_BLOCK = 128
+_J = 4
+_YC = 3
 _SLICE = 64
-_TARGET_BLOCKS = 8 * 132
+_MAX_SPLIT = 1024
 
 # the bound's yardstick is the spectra kernel's (kernels/smooth.py): the
 # emission value plus the sum over momentum points; the sums over nodes and
@@ -123,12 +128,19 @@ def _library():
         for fn in (lib.is3d_dndx_f32, lib.is3d_dndx_f64):
             fn.restype = ci
             fn.argtypes = [vp, ci, ci,                 # cells, n_cells, nf
-                           vp, vp, vp, vp, ci,         # species, n_species
-                           vp, vp, vp, ci, ci,         # pT, px, py, n_pT, n_phi
-                           vp, vp, vp, ci,             # nodes, wR, wM, n_nodes
+                           vp, vp, ci,                 # species, deg, S
+                           vp, vp, ci, ci,             # mt, points, n_pT, n_phi
+                           vp, vp, ci,                 # nodes, wR, n_nodes
                            ci, ci, ci, ci,             # df, dim, reg, outflow
                            cd, ci,                     # prefactor, split
                            vp, vp, vp, vp]             # outputs, scratch, stream
+        for fn in (lib.is3d_dndx_slots_f32, lib.is3d_dndx_slots_f64):
+            fn.restype = ci
+            fn.argtypes = [ci, ci, ci, ci]             # df, dim, n_pT, n_phi
+        for fn in (lib.is3d_dndx_probe_slots_f32,
+                   lib.is3d_dndx_probe_slots_f64):
+            fn.restype = ci
+            fn.argtypes = []
         for fn in (lib.is3d_dndx_probe_f32, lib.is3d_dndx_probe_f64):
             fn.restype = ci
             fn.argtypes = [vp, ci, ci,                 # a, n_cells, n_nodes
@@ -148,13 +160,45 @@ def _library():
     return lib
 
 
-def cell_split(n_cells: int, n_species: int) -> tuple[int, int]:
-    """(cells per block, blocks per species) of the kernel's grid: whole
-    tiles per block, enough blocks for about _TARGET_BLOCKS in all."""
-    tiles = -(-max(n_cells, 1) // _TILE)
-    n_split = min(tiles, max(1, -(-_TARGET_BLOCKS // max(n_species, 1))))
-    per = -(-tiles // n_split) * _TILE
-    return per, -(-max(n_cells, 1) // per)
+def emission_tables(mom: MomentumConstants,
+                    wM: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor,
+                                               torch.Tensor]:
+    """The kernel's momentum-side inputs, each row one 16-byte-aligned
+    load: species (S, 4) = m^2, sign, baryon, 0; mt (S, P, 2) = mT, mT^2
+    with mT = sqrt(m^2 + pT^2); points (M, 8) = px, py, px^2, py^2, px py,
+    wM, 0, 0 (M = P * n_phi, m = p * n_phi + f)."""
+    m2 = mom.mass ** 2
+    z = torch.zeros_like(m2)
+    species = torch.stack([m2, mom.sign, mom.baryon, z], dim=1)
+    mT2 = m2[:, None] + mom.pT[None, :] ** 2
+    mt = torch.stack([torch.sqrt(mT2), mT2], dim=2)
+    zp = torch.zeros_like(mom.px)
+    points = torch.stack([mom.px, mom.py, mom.px ** 2, mom.py ** 2,
+                          mom.px * mom.py, wM, zp, zp], dim=1)
+    return species.contiguous(), mt.contiguous(), points.contiguous()
+
+
+def cells_per_batch(n_nodes: int) -> int:
+    """Cells a block of the per-cell kernel takes at once: its threads are
+    (cell, group of _YC nodes) pairs."""
+    groups = -(-n_nodes // _YC)
+    if not 1 <= groups <= _BLOCK:
+        raise ValueError(f"the dN/dX kernel takes 1 to {_BLOCK * _YC} "
+                         f"rapidity nodes, got {n_nodes}")
+    return _BLOCK // groups
+
+
+def cell_split(n_cells: int, n_species: int, n_nodes: int,
+               slots: int) -> tuple[int, int]:
+    """(cells per split, splits) of the per-cell kernel's grid (species
+    groups of _J, splits) on a card that holds ``slots`` of its blocks at
+    once: whole batches per split, the fewest splits that fill the card's
+    waves (launch.split_to_fill)."""
+    batch = cells_per_batch(n_nodes)
+    n_batches = -(-max(n_cells, 1) // batch)
+    per, n_split = split_to_fill(n_batches, -(-max(n_species, 1) // _J),
+                                 slots, _MAX_SPLIT)
+    return per * batch, n_split
 
 
 def dndx_cuda(cells: torch.Tensor, mom: MomentumConstants,
@@ -176,21 +220,25 @@ def dndx_cuda(cells: torch.Tensor, mom: MomentumConstants,
                      cells)
     check_tensor("wM", wM, (P * F,), cells)
     check_tensor("wR", wR, (R,), cells)
+    cells_per_batch(R)
     require_cuda("dndx_cuda", cells)
     C = cells.shape[0]
-    per, n_split = cell_split(C, S)
+    lib = _library()
+    f64 = cells.dtype == torch.float64
+    slots = resident_blocks(
+        lib, "dndx",
+        lib.is3d_dndx_slots_f64 if f64 else lib.is3d_dndx_slots_f32,
+        cells.device, flags.df_mode, flags.dimension, P, F)
+    per, n_split = cell_split(C, S, R, slots)
+    species, mt, points = emission_tables(mom, wM)
     per_cell = cells.new_empty((C, S))
     dydeta = cells.new_empty((S, R))
     partial = cells.new_empty((n_split, S, R))
-    lib = _library()
-    fn = (lib.is3d_dndx_f32 if cells.dtype == torch.float32
-          else lib.is3d_dndx_f64)
-    launch(lib, "dndx", fn, cells.device,
-           cells.data_ptr(), C, NF,
-           mom.mass.data_ptr(), mom.sign.data_ptr(),
-           mom.baryon.data_ptr(), mom.degeneracy.data_ptr(), S,
-           mom.pT.data_ptr(), mom.px.data_ptr(), mom.py.data_ptr(), P, F,
-           mom.nodes.data_ptr(), wR.data_ptr(), wM.data_ptr(), R,
+    launch(lib, "dndx", lib.is3d_dndx_f64 if f64 else lib.is3d_dndx_f32,
+           cells.device, cells.data_ptr(), C, NF,
+           species.data_ptr(), mom.degeneracy.data_ptr(), S,
+           mt.data_ptr(), points.data_ptr(), P, F,
+           mom.nodes.data_ptr(), wR.data_ptr(), R,
            flags.df_mode, flags.dimension, int(flags.regulate),
            int(flags.outflow), CF_PREFACTOR, per, per_cell.data_ptr(),
            dydeta.data_ptr(), partial.data_ptr())

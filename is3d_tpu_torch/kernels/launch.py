@@ -1,7 +1,8 @@
 """What every CUDA kernel wrapper does around its launch: check its
 arguments (dtype, shape and contiguity first, the device last, so a CPU
-call reaches every check) and launch on the device's current stream,
-raising on the error code the C entry point returns."""
+call reaches every check), split the cells so the card's waves fill, and
+launch on the device's current stream, raising on the error code the C
+entry point returns."""
 
 from __future__ import annotations
 
@@ -45,3 +46,42 @@ def launch(lib, what: str, fn, device: torch.device, *args):
         raise RuntimeError(f"{what} kernel launch failed: "
                            f"{lib.is3d_cuda_error_string(rc).decode()} "
                            f"(error {rc})")
+
+
+def resident_blocks(lib, what: str, fn, device: torch.device, *args) -> int:
+    """The blocks of a kernel that ``device`` holds at once, from the C
+    entry ``fn(*args)`` (SMs x blocks per SM, or minus a CUDA error
+    code)."""
+    with torch.cuda.device(device):
+        slots = fn(*args)
+    if slots < 1:
+        raise RuntimeError(f"{what}: no launch configuration: "
+                           f"{lib.is3d_cuda_error_string(-slots).decode()}")
+    return slots
+
+
+def split_to_fill(n_units: int, blocks_per_split: int, slots: int,
+                  max_split: int) -> tuple[int, int]:
+    """(units per split, splits) for a kernel whose grid is
+    ``blocks_per_split`` blocks of equal work for each contiguous range of
+    its ``n_units`` sequential units (cell tiles or batches), on a card
+    that holds ``slots`` blocks at once.  A launch of k splits runs in
+    ceil(blocks / slots) waves, each as long as one split's units; the
+    result is the fewest splits whose waves x units come within 2 % of the
+    best of 1..max_split.  Every unit belongs to exactly one split, and
+    only the last split may be short."""
+    n_units = max(int(n_units), 1)
+    if blocks_per_split < 1 or slots < 1 or max_split < 1:
+        raise ValueError("split_to_fill needs positive blocks_per_split, "
+                         f"slots and max_split, got {blocks_per_split}, "
+                         f"{slots}, {max_split}")
+    costs = {}
+    for k in range(1, min(max_split, n_units) + 1):
+        per = -(-n_units // k)
+        n_split = -(-n_units // per)
+        if n_split not in costs:
+            waves = -(-blocks_per_split * n_split // slots)
+            costs[n_split] = (waves * per, per)
+    best = min(c for c, _ in costs.values())
+    n_split = min(k for k, (c, _) in costs.items() if c <= 1.02 * best)
+    return costs[n_split][1], n_split

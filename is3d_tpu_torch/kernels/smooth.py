@@ -94,6 +94,19 @@ LAUNCHES = 0
 # lanes x clock) and the bytes over the memory rate.
 EMISSION_OPS = {1: (18, 2), 2: (18, 3)}
 FORMULA_OPS = {df: (fp32 + 1, sfu) for df, (fp32, sfu) in EMISSION_OPS.items()}
+# With the 2+1D mT remap the nodes move with (cell, species, pT), so the
+# node kinematics cannot be hoisted out of the species: per (cell, node,
+# species, pT), shared by the n_phi points of that pT, the argument 1 | exp
+# (SFU) | 1/e (SFU), cosh and sinh 4, tau sinh 1, A1 2, B1 2, C1 6, C2 2,
+# C3 2, D1 2 (composites() in csrc/emission.cuh, per-cell factors folded).
+REMAP_NODE_OPS = (22, 2)
+
+
+def remap_formula_ops(df_mode: int, n_phi: int) -> tuple[float, float]:
+    """(FP32, SFU) per evaluation of the 2+1D remap path: the fixed-node
+    yardstick plus the node kinematics' share of one of n_phi points."""
+    fp32, sfu = FORMULA_OPS[df_mode]
+    return fp32 + REMAP_NODE_OPS[0] / n_phi, sfu + REMAP_NODE_OPS[1] / n_phi
 
 
 @dataclass(frozen=True)

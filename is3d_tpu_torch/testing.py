@@ -251,29 +251,48 @@ SPECTRA_EDGES = {
 }
 
 
-def spectra_edge_inputs(case: str, n_cells: int = 203, n_species: int = 7,
-                        dtype=torch.float64, device="cpu"):
-    """(cells, mom, flags): the spectra kernel's packed inputs for the
-    SPECTRA_EDGES case ``case``, on ``device``."""
+def edge_spec(edges: dict, case: str, n_cells: int = 203,
+              n_species: int = 7) -> dict:
+    """The settings of an edge case with every default filled in."""
+    return dict(dict(n_cells=n_cells, n_species=n_species, reg_out=1, grid={},
+                     light_bosons=False, scale_pi=1.0, rows=None),
+                **edges[case])
+
+
+def edge_config_kw(spec: dict) -> dict:
+    """Config settings of an edge case (shear and bulk df on)."""
+    return dict(mode=1, dimension=spec["dimension"], df_mode=spec["df_mode"],
+                include_shear_deltaf=1, include_bulk_deltaf=1,
+                regulate_deltaf=spec["reg_out"], outflow=spec["reg_out"])
+
+
+def edge_grid_kw(spec: dict) -> dict:
+    return dict(dict(n_pT=8, n_phi=6, n_y=5, n_eta=12, eta_mT_rescale=False),
+                **spec["grid"])
+
+
+def edge_surface_cells(spec: dict) -> dict:
+    """The numpy cell columns of an edge case (seed 7, shear scaled)."""
+    cells = synthetic_surface_cells(spec["n_cells"], spec["dimension"],
+                                    seed=7)
+    for k in ("pixx", "pixy", "pixn", "piyy", "piyn"):
+        cells[k] = cells[k] * spec["scale_pi"]
+    return cells
+
+
+def _edge_inputs(spec: dict, operation: int, dtype, device):
+    """(packed cells, mom, flags, grid, cfg) of an edge case."""
     import dataclasses
     from .config import Config
     from .io.tables import native_momentum_grid
     from .kernels import smooth
     from .kernels.common import surface_columns, prepare_cells
-    spec = dict(dict(n_species=n_species, reg_out=1, grid={},
-                     light_bosons=False, scale_pi=1.0), **SPECTRA_EDGES[case])
     dimension = spec["dimension"]
-    cfg = Config(operation=1, mode=1, dimension=dimension,
-                 df_mode=spec["df_mode"], include_shear_deltaf=1,
-                 include_bulk_deltaf=1, regulate_deltaf=spec["reg_out"],
-                 outflow=spec["reg_out"])
-    cells = synthetic_surface_cells(n_cells, dimension, seed=7)
-    for k in ("pixx", "pixy", "pixn", "piyy", "piyn"):
-        cells[k] = cells[k] * spec["scale_pi"]
-    surface = surface_from_arrays(dtype=dtype, device=device, **cells)
-    grid = native_momentum_grid(dimension, dtype=dtype, device=device, **dict(
-        dict(n_pT=8, n_phi=6, n_y=5, n_eta=12, eta_mT_rescale=False),
-        **spec["grid"]))
+    cfg = Config(operation=operation, **edge_config_kw(spec))
+    surface = surface_from_arrays(dtype=dtype, device=device,
+                                  **edge_surface_cells(spec))
+    grid = native_momentum_grid(dimension, dtype=dtype, device=device,
+                                **edge_grid_kw(spec))
     species = synthetic_species(spec["n_species"], dtype=dtype, device=device)
     if spec["light_bosons"]:
         species = dataclasses.replace(species, mass=torch.where(
@@ -282,8 +301,18 @@ def spectra_edge_inputs(case: str, n_cells: int = 203, n_species: int = 7,
     df_data = synthetic_deltaf_data(dtype=dtype, device=device)
     packed = smooth.pack_cells(
         prepare_cells(surface_columns(surface, cfg), cfg, df_data), cfg)
+    if spec["rows"] is not None:
+        packed = packed[:spec["rows"]].contiguous()
     return (packed, smooth.momentum_constants(species, grid, dimension),
-            smooth.spectra_flags(cfg, grid))
+            smooth.spectra_flags(cfg, grid), grid, cfg)
+
+
+def spectra_edge_inputs(case: str, n_cells: int = 203, n_species: int = 7,
+                        dtype=torch.float64, device="cpu"):
+    """(cells, mom, flags): the spectra kernel's packed inputs for the
+    SPECTRA_EDGES case ``case``, on ``device``."""
+    spec = edge_spec(SPECTRA_EDGES, case, n_cells, n_species)
+    return _edge_inputs(spec, 1, dtype, device)[:3]
 
 
 def spectra_edge_seen(case: str, cells, mom, flags, out) -> str:
@@ -309,6 +338,75 @@ def spectra_edge_seen(case: str, cells, mom, flags, out) -> str:
     moved = ((free - out).abs().max() / out.abs().max()).item()
     assert moved > 1e-3, f"the clip moves the output by only {moved:.2e}"
     return f"the clip moves the output by {moved:.2e} of its max"
+
+
+# The dN/dX kernel's edges, shared by the tests and chip_smoke.py: species
+# and nodes that are not multiples of its blocking (4 species x 3 nodes a
+# thread) and rows that are not whole batches (128 threads over (cell,
+# node group) pairs); fewer rows than one batch, exactly one row; 3+1D
+# rapidities far enough from the cells that exp(u.p/T) overflows (dN/dy/
+# deta exactly 0 there); light bosons at small mT; large shear with the
+# clip on; pad rows (per_cell exactly 0).
+DNDX_EDGES = {
+    "2d_df1_ragged": dict(dimension=2, df_mode=1, n_species=41,
+                          grid=_RAGGED),
+    "3d_df2_ragged": dict(dimension=3, df_mode=2, n_species=41,
+                          grid=_RAGGED),
+    "2d_few_rows": dict(dimension=2, df_mode=1, n_cells=5),
+    "2d_one_row": dict(dimension=2, df_mode=2, n_cells=3, rows=1),
+    "3d_overflow": dict(dimension=3, df_mode=2, reg_out=0,
+                        grid=dict(n_y=7, y_max=12.0)),
+    "3d_light_bosons": dict(dimension=3, df_mode=1, light_bosons=True,
+                            grid=dict(pT_max=0.2)),
+    "2d_clip": dict(dimension=2, df_mode=2, scale_pi=30.0),
+    "2d_pad_rows": dict(dimension=2, df_mode=1, n_cells=37),
+}
+
+
+def dndx_edge_inputs(case: str, n_cells: int = 203, n_species: int = 7,
+                     dtype=torch.float64, device="cpu"):
+    """(cells, mom, flags, wM, wR): the dN/dX kernel's inputs for the
+    DNDX_EDGES case ``case``, on ``device``."""
+    from .kernels import dndx
+    spec = edge_spec(DNDX_EDGES, case, n_cells, n_species)
+    packed, mom, flags, grid, cfg = _edge_inputs(spec, 0, dtype, device)
+    return (packed, mom, flags, dndx.momentum_weights(grid, cfg),
+            dndx.node_weights(grid, cfg.dimension))
+
+
+def dndx_edge_seen(case: str, cells, mom, flags, wM, wR, per_cell,
+                   dydeta) -> str:
+    """What the plain outputs of a DNDX_EDGES case show of the edge the
+    case is named for; raises AssertionError where they do not show it."""
+    import dataclasses
+    from .kernels import dndx
+    assert torch.isfinite(per_cell).all() and torch.isfinite(dydeta).all()
+    assert per_cell.abs().max() > 0 and dydeta.abs().max() > 0, case
+    rows, S, R = cells.shape[0], mom.mass.shape[0], mom.nodes.shape[0]
+    batch = dndx.cells_per_batch(R)
+    if "ragged" in case:
+        assert S % 4 and R % 3 and rows % batch, (S, R, rows, batch)
+        return f"{rows} rows in batches of {batch} x {S} species x {R} nodes"
+    if case in ("2d_few_rows", "2d_one_row"):
+        assert rows < batch and (rows == 1) == (case == "2d_one_row")
+        return f"{rows} rows, batches of {batch}"
+    if case == "3d_overflow":
+        n = int((dydeta == 0).sum())
+        assert n > 0, "no dN/dy/deta value is exactly 0"
+        return f"{n} dN/dy/deta values exactly 0"
+    if case == "3d_light_bosons":
+        assert (mom.mass[mom.sign < 0] == 0.02).all()
+        return f"bosons of mass 0.02, pT <= {mom.pT.max().item():.2f}"
+    if case == "2d_pad_rows":
+        n = DNDX_EDGES[case]["n_cells"]
+        assert rows > n and (per_cell[n:] == 0).all()
+        assert (per_cell[:n] != 0).any()
+        return f"{rows - n} pad rows of {rows} exactly 0"
+    free = dndx.dndx_plain(cells, mom, dataclasses.replace(
+        flags, regulate=False), wM, wR)[0]
+    moved = ((free - per_cell).abs().max() / per_cell.abs().max()).item()
+    assert moved > 1e-3, f"the clip moves per_cell by only {moved:.2e}"
+    return f"the clip moves per_cell by {moved:.2e} of its max"
 
 
 # The binning kernel's edges: (cells, bin settings) with empty bins, a bin

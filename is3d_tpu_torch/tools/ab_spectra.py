@@ -1,8 +1,8 @@
-"""Time the spectra kernel and the dN/dX binning kernel of two checkouts of
-this repository in one process tree on one card, in the order A, B, B, A.
+"""Time the hand-written kernels of two checkouts of this repository in one
+process tree on one card, in the order A, B, B, A.
 
     python -m is3d_tpu_torch.tools.ab_spectra ROOT_A ROOT_B [--cells N]
-        [--cases 3d_df2,3d_df1,2d_fixed,2d_remap,bin]
+        [--cases 3d_df2,3d_df1,2d_fixed,2d_remap,bin,dndx,proto]
 
 Each turn runs a fresh interpreter that imports ``is3d_tpu_torch`` from
 that root (building its kernels into that root's _build/) and, per case:
@@ -18,14 +18,22 @@ that root (building its kernels into that root's _build/) and, per case:
   default 120 x 60 (tau, r) bins and a (8192, 320) per-cell table drawn
   with numpy (seed 5) -- one warm-up, then 5 runs of 20 calls queued
   behind a device-side sleep, so the events time the device and not the
-  host's enqueue.
+  host's enqueue;
+* ``dndx``: ``dndx_cuda`` on one group of the operation-0 main path's
+  shape -- 8192 synthetic 2+1D cells (seed 2), 320 species, the native
+  32 x 24 grid with 48 fixed eta nodes, df 1 with shear + bulk, regulate,
+  outflow, float32 -- timed as the spectra cases; the sum and the
+  float64 difference are those of the per-cell output;
+* ``proto``: ``proto_spectra_cuda`` at the prototype's own shape (32768
+  cells x 320 x 768 x 21, float32, ``proto_inputs`` seed 0), timed as the
+  spectra cases; the float64 difference on its first 2048 cells.
 
 The report is one JSON line per turn (median, runs, output sum and the
 float32 output's largest difference from the same side's float64 kernel,
 as a share of its largest value, per case) and, per case, the medians of
 both sides, their ratio B / A, the relative difference of the output sums
 and both sides' float32-vs-float64 differences.  Uses only functions both
-sides have had since the kernels were first ported.
+sides have had since their kernels were first ported.
 """
 
 from __future__ import annotations
@@ -36,7 +44,7 @@ import os
 import subprocess
 import sys
 
-CASES = ("3d_df2", "3d_df1", "2d_fixed", "2d_remap", "bin")
+CASES = ("3d_df2", "3d_df1", "2d_fixed", "2d_remap", "bin", "dndx", "proto")
 
 _TURN = r"""
 import json, statistics, sys
@@ -48,6 +56,7 @@ from is3d_tpu_torch.config import Config
 from is3d_tpu_torch.io.tables import native_momentum_grid
 from is3d_tpu_torch.kernels import smooth, dndx
 from is3d_tpu_torch.kernels.common import surface_columns, prepare_cells
+from is3d_tpu_torch.experiments import smooth_proto
 assert smooth.__file__.startswith(sys.argv[1]), smooth.__file__
 dev, dt = torch.device("cuda"), torch.float32
 n_cells, cases = int(sys.argv[2]), sys.argv[3].split(",")
@@ -95,6 +104,37 @@ for case in cases:
         out = smooth.smooth_spectra_cuda(cells, mom, flags).double()
         ref = smooth.smooth_spectra_cuda(cells.double(),
                                          mom.to(dtype=torch.float64), flags)
+        err = float((out - ref).abs().max() / ref.abs().max())
+    elif case == "dndx":
+        cfg = Config(operation=0, mode=1, dimension=2, df_mode=1,
+                     precision="f32", include_shear_deltaf=1,
+                     include_bulk_deltaf=1, regulate_deltaf=1, outflow=1)
+        surf = testing.synthetic_surface(8192, 2, seed=2, dtype=dt,
+                                         device=dev)
+        species = testing.synthetic_species(320, dtype=dt, device=dev)
+        grid = native_momentum_grid(2, eta_mT_rescale=False, dtype=dt,
+                                    device=dev)
+        df_data = testing.synthetic_deltaf_data(dtype=dt, device=dev)
+        cells = smooth.pack_cells(prepare_cells(surface_columns(surf, cfg),
+                                                cfg, df_data), cfg)
+        mom = smooth.momentum_constants(species, grid, 2)
+        flags = smooth.spectra_flags(cfg, grid)
+        wM = dndx.momentum_weights(grid, cfg)
+        wR = dndx.node_weights(grid, 2)
+        ms, runs, total = timed(
+            lambda: dndx.dndx_cuda(cells, mom, flags, wM, wR)[0])
+        out = dndx.dndx_cuda(cells, mom, flags, wM, wR)[0].double()
+        ref = dndx.dndx_cuda(cells.double(), mom.to(dtype=torch.float64),
+                             flags, wM.double(), wR.double())[0]
+        err = float((out - ref).abs().max() / ref.abs().max())
+    elif case == "proto":
+        x = smooth_proto.proto_inputs(device=dev)
+        args = [x[n] for n in smooth_proto.ARGS]
+        ms, runs, total = timed(
+            lambda: smooth_proto.proto_spectra_cuda(*args))
+        sub = [args[0][:2048].contiguous()] + args[1:]
+        out = smooth_proto.proto_spectra_cuda(*sub).double()
+        ref = smooth_proto.proto_spectra_cuda(*(a.double() for a in sub))
         err = float((out - ref).abs().max() / ref.abs().max())
     else:
         cfg = Config(operation=0, mode=1, dimension=2)

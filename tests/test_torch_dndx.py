@@ -34,6 +34,7 @@ from is3d_tpu_torch.kernels import dndx
 from is3d_tpu_torch.kernels.common import surface_columns, prepare_cells
 from is3d_tpu_torch.kernels.smooth import (pack_cells, spectra_flags,
                                            momentum_constants)
+from is3d_tpu_torch import testing as ptesting
 from is3d_tpu_torch.testing import write_synthetic_run_dir
 
 from test_torch_smooth import jax_state, random_cells
@@ -149,6 +150,43 @@ def test_dndx_plain_matches_jax_cell_reduction(dimension, df_mode, compat):
         spectra_flags(cfg, grid), dndx.momentum_weights(grid, cfg),
         dndx.node_weights(grid, dimension), cell_chunk=7)
     assert per_cell.shape == (packed.shape[0], 5)
+    assert torch.equal(per_cell[n:], torch.zeros_like(per_cell[n:]))
+    np.testing.assert_allclose(per_cell[:n].numpy(), want_pc, rtol=RTOL,
+                               atol=ATOL_REL * np.abs(want_pc).max())
+    np.testing.assert_allclose(dydeta.numpy(), want_dy, rtol=RTOL,
+                               atol=ATOL_REL * np.abs(want_dy).max())
+
+
+@pytest.mark.parametrize("case", sorted(ptesting.DNDX_EDGES))
+def test_dndx_plain_matches_jax_cell_reduction_on_edges(case):
+    """dndx_plain on the dN/dX kernel's edge cases (testing.DNDX_EDGES, 75
+    cells) against _cell_dNdy(_chunk_contribution(reduce=False)) on the
+    same cells, grid and species built on the JAX side (f64, rtol 1e-9);
+    pad rows are exactly 0."""
+    import dataclasses
+    spec = ptesting.edge_spec(ptesting.DNDX_EDGES, case, n_cells=75)
+    cells, mom, flags, wM, wR = ptesting.dndx_edge_inputs(case, n_cells=75)
+    per_cell, dydeta = dndx.dndx_plain(cells, mom, flags, wM, wR,
+                                       cell_chunk=32)
+
+    n = spec["rows"] or spec["n_cells"]
+    raw = {k: v[:n] for k, v in ptesting.edge_surface_cells(spec).items()}
+    jcfg = JConfig(operation=0, **ptesting.edge_config_kw(spec))
+    jgrid = j_native_grid(dimension=spec["dimension"],
+                          **ptesting.edge_grid_kw(spec))
+    jsp = jtesting.synthetic_species(n_species=spec["n_species"])
+    if spec["light_bosons"]:
+        jsp = dataclasses.replace(jsp, mass=jnp.where(jsp.sign < 0, 0.02,
+                                                      jsp.mass))
+    np.testing.assert_array_equal(np.asarray(jsp.mass), mom.mass.numpy())
+    jsurf = JSurface(**{k: jnp.asarray(v) for k, v in raw.items()})
+    c = j_prepare_cells(j_surface_columns(jsurf, jcfg), jcfg,
+                        jtesting.synthetic_deltaf_data())
+    block = _chunk_contribution(c, jnp.ones(n, bool), jsp, jgrid, jcfg,
+                                reduce=False)
+    want_pc, want_dy = (np.asarray(a) for a in
+                        jdndx._cell_dNdy(block, jsp, jgrid, jcfg))
+    assert np.abs(want_pc).max() > 0
     assert torch.equal(per_cell[n:], torch.zeros_like(per_cell[n:]))
     np.testing.assert_allclose(per_cell[:n].numpy(), want_pc, rtol=RTOL,
                                atol=ATOL_REL * np.abs(want_pc).max())

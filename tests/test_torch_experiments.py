@@ -47,6 +47,34 @@ def test_proto_plain_matches_pallas_interpret(monkeypatch):
                                atol=2e-5 * np.abs(want).max())
 
 
+def test_proto_plain_matches_pallas_interpret_with_masked_cells(monkeypatch):
+    """As above with mask 0 on every third cell: the masked rows add
+    exactly 0 on both sides, so both equal their sums without those rows
+    (the plain version at 1e-6 of max: another f32 summation order)."""
+    monkeypatch.setenv("PALLAS_INTERPRET", "1")
+    p1 = _load("pallas_smooth_proto")
+    monkeypatch.setattr(p1, "C", 32)
+    x = smooth_proto.proto_inputs(32, S=p1.S, P=p1.P, F=p1.F, Y=p1.Y,
+                                  seed=4)
+    x["cells"][::3, smooth_proto.IDX["mask"]] = 0.0
+    args = [x[n] for n in smooth_proto.ARGS]
+    want = np.asarray(p1.pallas_spectra(*(jnp.asarray(a.numpy())
+                                          for a in args)))
+    got = smooth_proto.proto_spectra_plain(*args).numpy()
+    assert np.isfinite(want).all() and np.abs(want).max() > 0
+    np.testing.assert_allclose(got, want, rtol=2e-4,
+                               atol=2e-5 * np.abs(want).max())
+    kept = x["cells"][x["cells"][:, smooth_proto.IDX["mask"]] > 0]
+    assert kept.shape[0] == 21
+    dense = smooth_proto.proto_spectra_plain(kept.contiguous(),
+                                             *args[1:]).numpy()
+    np.testing.assert_allclose(got, dense, rtol=0,
+                               atol=1e-6 * np.abs(dense).max())
+    x["cells"][:, smooth_proto.IDX["mask"]] = 0.0
+    none = smooth_proto.proto_spectra_plain(x["cells"], *args[1:])
+    assert torch.equal(none, torch.zeros_like(none))
+
+
 def test_proto_plain_is_chunk_invariant():
     """The cell chunking of the plain version only regroups the sum."""
     x = smooth_proto.proto_inputs(9, S=64, P=3, F=4, Y=3, seed=2,

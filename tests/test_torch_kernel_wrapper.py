@@ -18,6 +18,7 @@ from is3d_tpu_torch.io.tables import native_momentum_grid
 from is3d_tpu_torch.experiments import smooth_proto, dndx_reduce_probe
 from is3d_tpu_torch.kernels import smooth, dndx
 from is3d_tpu_torch.kernels.common import surface_columns, prepare_cells
+from is3d_tpu_torch.kernels.launch import split_to_fill
 from is3d_tpu_torch.native import build
 
 torch.set_num_threads(1)
@@ -248,12 +249,121 @@ def test_new_wrappers_check_their_arguments(wrapper, fault):
     assert not {"dndx", "smooth_proto"} & set(build._cuda_libs)
 
 
+SLOTS = (1, 7, 264, 528, 1056, 10 ** 6)
+
+
 def test_cell_split_covers_every_cell_in_whole_tiles():
-    for n_cells, n_species in ((1, 1), (15, 320), (777, 40), (8192, 320),
-                               (176, 320), (100000, 3)):
-        per, n_split = dndx.cell_split(n_cells, n_species)
-        assert per % 16 == 0 and per * n_split >= n_cells
-        assert per * (n_split - 1) < n_cells
+    """Whatever the card's resident-block count, the dN/dX kernel's split
+    is whole batches of cells, covers every cell once, and only its last
+    range is short."""
+    for n_cells in (1, 15, 16, 176, 777, 8192, 65536):
+        for n_species, n_nodes in ((1, 1), (320, 48), (41, 13), (7, 5),
+                                   (3, 384)):
+            batch = dndx.cells_per_batch(n_nodes)
+            assert batch == 128 // -(-n_nodes // 3)
+            for slots in SLOTS:
+                per, n_split = dndx.cell_split(n_cells, n_species, n_nodes,
+                                               slots)
+                assert per % batch == 0 and 1 <= n_split <= 1024
+                assert per * (n_split - 1) < n_cells <= per * n_split
+    # the operation-0 main-path group on an H100 at 4 blocks per SM: 13
+    # ranges of 79 batches, 1040 blocks in two waves of 528
+    assert dndx.cell_split(8192, 320, 48, 528) == (632, 13)
+    with pytest.raises(ValueError, match="rapidity nodes"):
+        dndx.cells_per_batch(385)
+
+
+@pytest.mark.parametrize("n_cells", [0, 1, 15, 16, 1024, 32768])
+def test_proto_cell_split_covers_every_cell_in_whole_tiles(n_cells):
+    for blocks in (1, 80, 3360):
+        for slots in SLOTS:
+            per, n_split = smooth_proto.cell_split(n_cells, blocks, slots)
+            assert per % 32 == 0 and 1 <= n_split <= 8
+            assert per * (n_split - 1) < max(n_cells, 1) <= per * n_split
+    # the prototype's own shape on an H100 at 4 blocks per SM
+    assert smooth_proto.cell_split(32768, 3360, 528) == (16384, 2)
+
+
+@pytest.mark.parametrize("n_units,blocks,slots,max_split", [
+    (1, 80, 528, 1024), (22, 80, 528, 1024), (1024, 80, 528, 1024),
+    (1024, 3360, 528, 8), (8192, 80, 528, 1024), (100, 1, 528, 64),
+    (77, 13, 5, 16), (1000, 600, 528, 4)])
+def test_split_to_fill_is_the_fewest_splits_near_the_best(n_units, blocks,
+                                                          slots, max_split):
+    per, n_split = split_to_fill(n_units, blocks, slots, max_split)
+    assert 1 <= n_split <= max_split
+    assert per * (n_split - 1) < n_units <= per * n_split
+
+    def cost(k):
+        p = -(-n_units // k)
+        return -(-blocks * -(-n_units // p) // slots) * p
+    best = min(cost(k) for k in range(1, min(max_split, n_units) + 1))
+    assert cost(n_split) <= 1.02 * best
+    assert all(cost(k) > 1.02 * best for k in range(1, n_split)
+               if -(-n_units // -(-n_units // k)) == k)
+    with pytest.raises(ValueError, match="positive"):
+        split_to_fill(n_units, blocks, 0, max_split)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+def test_emission_tables_equal_their_definition(dtype):
+    """The tables dndx_cuda prepacks for its kernel: one row per species,
+    (species, pT) and momentum point, padded to 16-byte loads."""
+    cells, mom, flags, wM, wR, _ = _dndx_inputs(20, 2, dtype=dtype)
+    species, mt, points = dndx.emission_tables(mom, wM)
+    S, P, M = 5, 4, 16
+    assert species.shape == (S, 4) and mt.shape == (S, P, 2)
+    assert points.shape == (M, 8)
+    assert all(t.dtype == dtype and t.is_contiguous()
+               for t in (species, mt, points))
+    for s in range(S):
+        assert species[s].tolist() == [(mom.mass[s] ** 2).item(),
+                                       mom.sign[s].item(),
+                                       mom.baryon[s].item(), 0.0]
+        for p in range(P):
+            mT2 = mom.mass[s] ** 2 + mom.pT[p] ** 2
+            assert mt[s, p, 1] == mT2 and mt[s, p, 0] == torch.sqrt(mT2)
+    for m in range(M):
+        px, py = mom.px[m], mom.py[m]
+        assert points[m].tolist() == [px.item(), py.item(), (px * px).item(),
+                                      (py * py).item(), (px * py).item(),
+                                      wM[m].item(), 0.0, 0.0]
+
+
+@pytest.mark.parametrize("case", sorted(testing.DNDX_EDGES))
+def test_dndx_edge_inputs_are_what_they_claim(case):
+    """On the CPU: the dN/dX edge cases' plain outputs are finite and show
+    the edge they are named for (shapes off the kernel's blocking, fewer
+    rows than a batch, exact zeros where exp overflows, an active clip,
+    light bosons, inert pad rows)."""
+    x = testing.dndx_edge_inputs(case)
+    out = dndx.dndx_plain(*x)
+    assert testing.dndx_edge_seen(case, *x, *out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+@pytest.mark.parametrize("case", sorted(testing.DNDX_EDGES))
+def test_dndx_kernel_edges_match_plain_on_gpu(cuda_card, case, dtype):
+    """The dN/dX kernel's edges (testing.DNDX_EDGES) against the plain
+    version: f32 at rtol 2e-4 / atol 2e-5 x max (approximate exp and
+    reciprocal, another summation order), f64 at rtol 1e-10 / atol 1e-13 x
+    max; two launches bit-identical, exact zeros kept."""
+    rtol, atol = ((2e-4, 2e-5) if dtype == torch.float32
+                  else (1e-10, 1e-13))
+    x = testing.dndx_edge_inputs(case, dtype=dtype, device="cuda")
+    got, again, want = dndx.dndx_cuda(*x), dndx.dndx_cuda(*x), \
+        dndx.dndx_plain(*x)
+    torch.cuda.synchronize()
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   rtol=rtol,
+                                   atol=atol * w.abs().max().item())
+        zero = w == 0
+        assert torch.equal(g[zero], w[zero])
+    if case == "3d_overflow":
+        assert (want[1] == 0).any()
 
 
 @pytest.mark.gpu
@@ -341,6 +451,10 @@ def test_bound_yardstick_is_shared():
     assert rate(smooth.FORMULA_OPS[1]) == 19 / 128
     assert rate(smooth.FORMULA_OPS[2]) == 3 / 16
     assert rate(dndx_reduce_probe.BOUND_OPS) == 2 / 16
+    # the 2+1D remap adds its node kinematics once per (cell, node, species,
+    # pT): a 24th of (22, 2) per evaluation on the native grid
+    assert smooth.remap_formula_ops(2, 24) == (19 + 22 / 24, 3 + 2 / 24)
+    assert smooth.remap_formula_ops(1, 1) == (19 + 22, 2 + 2)
 
 
 def test_cuda_cache_key_covers_every_header(tmp_path, monkeypatch):

@@ -21,7 +21,10 @@ Phases, each printing its own line(s):
    that are not multiples of its blocking factors; 3+1D rapidities far
    enough from the cells that exp(u.p/T) overflows, where the output must
    be exactly 0; a boson at small mT; large shear with regulate on, where
-   the clip must bite); the dN/dX kernel and its binning kernel (777
+   the clip must bite; with the 2+1D remap also flow rapidities up to 2,
+   light bosons where s(mT) clamps to 1, eta nodes so far out that the
+   lightest species' outputs are exactly 0, pad rows); the dN/dX kernel
+   and its binning kernel (777
    cells, 40 species; 2+1D and 3+1D, df 1/2, regulate/outflow off and on,
    baryon + diffusion); the dN/dX kernel's edges (species, nodes and rows
    that are not multiples of its blocking, fewer rows than one batch, one
@@ -38,11 +41,18 @@ Phases, each printing its own line(s):
    files must agree;
 5. the spectra kernel against the plain version on one canonical group of
    that surface (16384 cells), f32: agreement, two launches bit-identical,
-   both f32 versions against the f64 kernel, then paired times (CUDA
-   events, one warm-up, median of 5) and the kernel's instructions per
+   both f32 versions against the f64 kernel (the kernel's difference at
+   most 3x the plain version's), then paired times (CUDA events, one
+   warm-up, median of 5), the bound and the kernel's instructions per
    evaluation (tools/sass_count.py, where cuobjdump reads the library);
-   then the time of its 2+1D mT-remap path on one synthetic 16384-cell
-   group beside its bound;
+5a. the default 2+1D operation-1 main path: a synthetic 131072-cell x
+   320-species 2+1D run directory through ``cli.main`` (df 2, shear + bulk,
+   regulate, outflow, f32, native 32 x 24 x 48 grid with the mT remap):
+   launches of the remap kernel = canonical groups, the results tree; then
+   the same CLI on a 256-cell run directory on cuda and on cpu (f64); then
+   the remap kernel on one canonical group of that surface as in 5, held
+   against one run of the plain version on the whole group (16384 cells,
+   the 33 s it takes being its time in the record);
 6. operation 0 main path: a synthetic 65536-cell x 320-species 2+1D run
    directory through ``cli.main`` (df 1, shear + bulk, regulate, outflow,
    f32, native 32 x 24 x 48 grid): launches = canonical groups, every
@@ -62,7 +72,7 @@ Phases, each printing its own line(s):
 Bounds: the larger of the bytes over the memory rate and the operations
 over the card's FP32 and SFU rates, the spectra, dN/dX and prototype
 kernels' operations from one yardstick counted in the formula
-(kernels/smooth.py, FORMULA_OPS).  Before every path (4, 6, 8) all launch
+(kernels/smooth.py, FORMULA_OPS).  Before every path (4, 5a, 6, 8) all launch
 counts are set to 0 and they are read right after it.  The line before
 the last is the kernel record as JSON; the last line is ``{"ok": true,
 "device": {...}}``.  Any failed phase exits nonzero before that line is
@@ -90,6 +100,9 @@ MAIN_CELLS, MAIN_SPECIES = 131072, 320
 MAIN_ARGS = ["device=cuda", "precision=f32", "operation=1", "dimension=3",
              "df_mode=2", "include_shear_deltaf=1", "include_bulk_deltaf=1",
              "regulate_deltaf=1", "outflow=1"]
+MAIN2D_ARGS = ["device=cuda", "precision=f32", "operation=1", "dimension=2",
+               "df_mode=2", "include_shear_deltaf=1", "include_bulk_deltaf=1",
+               "regulate_deltaf=1", "outflow=1"]
 DNDX_CELLS = 65536
 DNDX_ARGS = ["device=cuda", "precision=f32", "operation=0", "dimension=2",
              "df_mode=1", "include_shear_deltaf=1", "include_bulk_deltaf=1",
@@ -327,49 +340,53 @@ def _results_ok(results, mcids, n_y):
         fail("pion spectra are not finite, non-negative and positive at y=0")
 
 
-def phase_main_path(smi: str):
+def phase_main_path(smi: str, name="main", dimension=3, args=MAIN_ARGS,
+                    n_nodes=21, want=None):
+    """One operation-1 CLI run at full size: 3+1D (21 rapidities) or 2+1D
+    (48 eta nodes, mT remap).  ``want``: the launch counts the run must
+    show (default: the spectra kernel once per canonical group)."""
     from is3d_tpu_torch.config import load_config
-    from is3d_tpu_torch.kernels import smooth
     from is3d_tpu_torch.parallel.mesh import canonical_groups
     from is3d_tpu_torch.io.pdg import load_chosen_mcids
     from is3d_tpu_torch.testing import write_synthetic_run_dir
 
-    run_dir = os.path.join(WORK, "main")
+    run_dir = os.path.join(WORK, name.replace(" ", "_"))
     t0 = time.perf_counter()
-    write_synthetic_run_dir(run_dir, MAIN_CELLS, MAIN_SPECIES, dimension=3,
-                            seed=0)
-    print(f"[main] synthetic run dir {MAIN_CELLS} cells x {MAIN_SPECIES} "
+    write_synthetic_run_dir(run_dir, MAIN_CELLS, MAIN_SPECIES,
+                            dimension=dimension, seed=0)
+    print(f"[{name}] synthetic run dir {MAIN_CELLS} cells x {MAIN_SPECIES} "
           f"species written in {time.perf_counter() - t0:.2f} s")
 
-    smooth.LAUNCHES = 0
+    _reset_counts()
     t0 = time.perf_counter()
-    rc, phases, out = _run_cli([run_dir] + MAIN_ARGS)
+    rc, phases, out = _run_cli([run_dir] + args)
     wall = time.perf_counter() - t0
-    launches = smooth.LAUNCHES
+    counts = _counts()
     # the CLI's output without its config echo ("  key = value")
-    print("\n".join("[main] cli: " + l for l in out.splitlines()
+    print("\n".join(f"[{name}] cli: " + l for l in out.splitlines()
                     if " = " not in l))
     if rc != 0:
         fail(f"cli exited {rc}")
     cfg = load_config(os.path.join(run_dir, "iS3D_parameters.dat"),
-                      overrides=dict(a.split("=", 1) for a in MAIN_ARGS[1:]))
+                      overrides=dict(a.split("=", 1) for a in args[1:]))
     groups, _ = canonical_groups(cfg, MAIN_CELLS)
-    if launches != groups:
-        fail(f"{launches} kernel launches on the main path, expected one per "
-             f"canonical group ({groups})")
+    _expect_counts(f"{name} path", counts,
+                   {k: groups for k in want or ("smooth_spectra",)})
     mcids = load_chosen_mcids(os.path.join(
         run_dir, "PDG", "chosen_particles_urqmd_v3.3+.dat"))
     if len(mcids) != MAIN_SPECIES:
         fail(f"{len(mcids)} chosen species")
-    _results_ok(os.path.join(run_dir, "results"), mcids, n_y=21)
-    evals = MAIN_CELLS * MAIN_SPECIES * 32 * 24 * 21
+    _results_ok(os.path.join(run_dir, "results"), mcids,
+                n_y=n_nodes if dimension == 3 else 1)
+    evals = MAIN_CELLS * MAIN_SPECIES * 32 * 24 * n_nodes
     t_spec = phases["smooth spectra"]
-    print(f"[main] {smi} | prepare {phases['prepare (io, pdg, deltaf)']:.3f} s"
+    print(f"[{name}] {smi} | prepare "
+          f"{phases['prepare (io, pdg, deltaf)']:.3f} s"
           f", spectra {t_spec:.3f} s, writers {phases['writers']:.3f} s, "
           f"cli wall {wall:.3f} s | {evals:.3e} evaluations, "
-          f"{evals / t_spec:.3e} evaluations/s | launches {launches} = "
-          f"groups {groups}")
-    return launches, run_dir, cfg, phases
+          f"{evals / t_spec:.3e} evaluations/s | launches "
+          f"{counts['smooth_spectra']} = groups {groups}")
+    return counts, run_dir, cfg, phases
 
 
 def phase_small_path_cpu_vs_cuda(name="small", dimension=3, params=None,
@@ -420,13 +437,20 @@ def _values(path):
     return np.asarray(vals)
 
 
-def phase_pair(smi: str, run_dir: str, cfg):
+def phase_pair(smi: str, clock: float, run_dir: str, cfg, tag="pair",
+               plain_runs=5):
+    """The spectra kernel on one canonical group (16384 cells) of a
+    main-path surface, f32, at the grid and the split the main path
+    launches: agreement with the plain version on the whole group, two
+    launches bit-identical, both f32 versions against the f64 kernel (the
+    kernel's difference at most 3x the plain version's), times (the kernel
+    one warm-up, median of 5; the plain version too, or with ``plain_runs``
+    = 1 the one run that the kernel is held against, where a run takes
+    tens of seconds), bound, instructions per evaluation."""
     from is3d_tpu_torch.api import IS3D
     from is3d_tpu_torch.utils import cuda_median_ms
+    from is3d_tpu_torch.kernels import smooth
     from is3d_tpu_torch.kernels.common import surface_columns, prepare_cells
-    from is3d_tpu_torch.kernels.smooth import (
-        pack_cells, momentum_constants, spectra_flags, smooth_spectra_cuda,
-        smooth_spectra_plain)
     from is3d_tpu_torch.parallel.mesh import canonical_groups
 
     run = IS3D(cfg, data_dir=run_dir, device="cuda")
@@ -434,79 +458,65 @@ def phase_pair(smi: str, run_dir: str, cfg):
     cols = surface_columns(run.surface, cfg)
     _, gs = canonical_groups(cfg, run.surface.n_cells)
     group = {k: v[:gs] for k, v in cols.items()}
-    cells = pack_cells(prepare_cells(group, cfg, df_data), cfg)
-    mom = momentum_constants(species, grid, cfg.dimension)
-    flags = spectra_flags(cfg, grid)
-    kern = lambda: smooth_spectra_cuda(cells, mom, flags)
-    plain = lambda: smooth_spectra_plain(cells, mom, flags, cfg.cell_chunk)
-    got, again, want = kern(), kern(), plain()
-    torch.cuda.synchronize()
+    cells = smooth.pack_cells(prepare_cells(group, cfg, df_data), cfg)
+    mom = smooth.momentum_constants(species, grid, cfg.dimension)
+    mom64 = mom.to(dtype=torch.float64)
+    flags = smooth.spectra_flags(cfg, grid)
+    # as smooth_spectra gives it: the node table built once for all groups
+    table = smooth.remap_node_table(mom) if flags.remap else None
+    kern = lambda: smooth.smooth_spectra_cuda(cells, mom, flags, table)
+    plain = lambda: smooth.smooth_spectra_plain(cells, mom, flags,
+                                                cfg.cell_chunk)
+    got, again = kern(), kern()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    want = plain()
+    t1.record()
+    t1.synchronize()
+    p_all = [t0.elapsed_time(t1)]
     if not torch.equal(got, again):
-        fail("smooth_spectra: two launches on the main-path group differ")
-    max_err = _check(f"float32 main-path group ({tuple(cells.shape)} cells, "
-                     f"{tuple(got.shape)} out)", got, want, 2e-4, 2e-5)
+        fail(f"smooth_spectra ({tag}): two launches on the same group differ")
+    nodes = grid.n_eta if cfg.dimension == 2 else 1
+    path = "2+1D mT remap" if flags.remap else f"{cfg.dimension}+1D"
+    max_err = _check(f"float32 {path} main-path group ({tuple(cells.shape)} "
+                     f"cells, {tuple(got.shape)} out)", got, want, 2e-4, 2e-5)
     # both float32 versions against the float64 kernel on the same inputs
-    ref = smooth_spectra_cuda(cells.double(), mom.to(dtype=torch.float64),
-                              flags)
-    scale = ref.abs().max()
-    print("[pair] float32 against the float64 kernel, largest difference "
-          f"as a share of the largest value: kernel "
-          f"{((got.double() - ref).abs().max() / scale).item():.2e}, plain "
-          f"{((want.double() - ref).abs().max() / scale).item():.2e}")
-    del ref
-    plain()
-    torch.cuda.synchronize()
+    ref = smooth.smooth_spectra_cuda(cells.double(), mom64, flags)
+    share = lambda a: ((a.double() - ref).abs().max() / ref.abs().max()).item()
+    k_share, p_share = share(got), share(want)
+    print(f"[{tag}] float32 against the float64 kernel on the whole group, "
+          "largest difference as a share of the largest value: kernel "
+          f"{k_share:.2e}, plain {p_share:.2e}")
+    if k_share > 3.0 * p_share:
+        fail(f"smooth_spectra ({tag}): float32 differs from the float64 "
+             "kernel by more than 3x the float32 plain version's difference")
+    del ref, want
     k_ms, k_all = cuda_median_ms(kern)
-    p_ms, p_all = cuda_median_ms(plain)
-    evals = cells.shape[0] * got.numel()
-    print(f"[pair] {smi} | one group {cells.shape[0]} cells x "
-          f"{tuple(got.shape)}: kernel {k_ms:.3f} ms (runs "
-          f"{', '.join(f'{t:.2f}' for t in k_all)}), plain {p_ms:.3f} ms "
-          f"(runs {', '.join(f'{t:.1f}' for t in p_all)}), "
-          f"kernel {evals / k_ms * 1e3:.3e} evaluations/s, "
-          f"plain/kernel {p_ms / k_ms:.2f}; two launches bit-identical; "
-          "issued per evaluation: "
-          + _issued("smooth_spectra", f"spectra_kernelIfLi{cfg.dimension}E"
-                    f"Li{cfg.df_mode}E"))
-    return max_err, k_ms, p_ms, evals, _nbytes(cells, got, *mom_tensors(mom))
-
-
-def phase_remap_time(smi: str, clock: float):
-    """The spectra kernel's 2+1D mT-remap path (remap_kernel) on one
-    synthetic 16384-cell group at the native 2+1D grid, df 2, f32: its time
-    (one warm-up, median of 3) beside its bound; its agreement with the
-    plain version is checked at small shapes (phase 3)."""
-    from is3d_tpu_torch import testing
-    from is3d_tpu_torch.config import Config
-    from is3d_tpu_torch.io.tables import native_momentum_grid
-    from is3d_tpu_torch.kernels import smooth
-    from is3d_tpu_torch.utils import cuda_median_ms
-    dev, dt = torch.device("cuda"), torch.float32
-    cfg = Config(operation=1, mode=1, dimension=2, df_mode=2,
-                 include_shear_deltaf=1, include_bulk_deltaf=1,
-                 regulate_deltaf=1, outflow=1)
-    grid = native_momentum_grid(2, eta_mT_rescale=True, dtype=dt, device=dev)
-    cells, mom, flags = _group_inputs(
-        testing.synthetic_surface(16384, 2, seed=0, dtype=dt, device=dev),
-        testing.synthetic_species(MAIN_SPECIES, dtype=dt, device=dev), grid,
-        testing.synthetic_deltaf_data(dtype=dt, device=dev), cfg)
-    launches = smooth.LAUNCHES
-    kern = lambda: smooth.smooth_spectra_cuda(cells, mom, flags)
-    out = kern()
-    torch.cuda.synchronize()
-    if not (torch.isfinite(out).all() and out.abs().max() > 0):
-        fail("remap path: non-finite or all-zero spectra")
-    ms, runs = cuda_median_ms(kern, n=3)
-    evals = cells.shape[0] * out.numel() * grid.n_eta
-    bound = _bound(evals, *smooth.remap_formula_ops(cfg.df_mode, grid.n_phi),
-                   _nbytes(cells, out, *mom_tensors(mom)), clock)
-    print(f"[remap] {smi} | one group {cells.shape[0]} cells x "
-          f"{MAIN_SPECIES} x {out.shape[1] * out.shape[2]} x {grid.n_eta} "
-          f"(2+1D mT remap, df 2): kernel {ms:.3f} ms (runs "
-          f"{', '.join(f'{t:.2f}' for t in runs)}), bound {bound[0]:.3f} ms "
-          f"({bound[1]}), kernel at {bound[0] / ms:.1%} of it; "
-          f"{smooth.LAUNCHES - launches} launches here, one per canonical "
-          "group on a 2+1D operation-1 run")
+    if plain_runs > 1:
+        p_all = cuda_median_ms(plain, plain_runs)[1]
+    p_ms = float(np.median(p_all))
+    evals = cells.shape[0] * got.numel() * nodes
+    ops = (smooth.remap_formula_ops(cfg.df_mode, grid.n_phi) if flags.remap
+           else smooth.FORMULA_OPS[cfg.df_mode])
+    bound = _bound(evals, *ops, _nbytes(cells, got, *mom_tensors(mom)), clock)
+    kernel = f"spectra_kernelIfLi{cfg.dimension}ELi{cfg.df_mode}E"
+    if flags.remap:
+        width = smooth.remap_grid(
+            smooth._spectra_library(), cells.device, False, *got.shape[:3],
+            nodes, cfg.df_mode).phi_width
+        kernel = f"remap_kernelIfLi{cfg.df_mode}ELi{width}E"
+    print(f"[{tag}] {smi} | one group {cells.shape[0]} cells x "
+          f"{tuple(got.shape)} x {nodes} nodes ({path}, df {cfg.df_mode}): "
+          f"kernel {k_ms:.3f} ms (runs "
+          f"{', '.join(f'{t:.2f}' for t in k_all)}), plain {p_ms:.3f} ms on "
+          f"the same group (runs "
+          f"{', '.join(f'{t:.1f}' for t in p_all)}), "
+          f"kernel {evals / k_ms * 1e3:.3e} evaluations/s; bound "
+          f"{bound[0]:.3f} ms ({bound[1]}), kernel at "
+          f"{bound[0] / k_ms:.1%} of it; two launches bit-identical; "
+          "issued per evaluation: " + _issued("smooth_spectra", kernel))
+    return dict(launches=None, max_abs_err=max_err, ms=k_ms, plain_ms=p_ms,
+                bound_ms=bound[0], bound_by=bound[1], library_ms=None)
 
 
 def _issued(library: str, kernel: str) -> str:
@@ -531,13 +541,16 @@ def _modules():
 
 def _reset_counts():
     smooth, dndx, proto, probe = _modules()
-    smooth.LAUNCHES = dndx.LAUNCHES = dndx.BIN_LAUNCHES = 0
+    smooth.LAUNCHES = smooth.REMAP_LAUNCHES = 0
+    dndx.LAUNCHES = dndx.BIN_LAUNCHES = 0
     proto.LAUNCHES = probe.LAUNCHES = 0
 
 
 def _counts() -> dict:
     smooth, dndx, proto, probe = _modules()
-    return dict(smooth_spectra=smooth.LAUNCHES, dndx=dndx.LAUNCHES,
+    return dict(smooth_spectra=smooth.LAUNCHES,
+                smooth_spectra_remap=smooth.REMAP_LAUNCHES,
+                dndx=dndx.LAUNCHES,
                 dndx_bin=dndx.BIN_LAUNCHES, smooth_proto=proto.LAUNCHES,
                 dndx_probe=probe.LAUNCHES)
 
@@ -557,7 +570,7 @@ def _nbytes(*tensors) -> int:
 
 def mom_tensors(mom):
     return (mom.mass, mom.sign, mom.baryon, mom.degeneracy, mom.pT, mom.px,
-            mom.py, mom.nodes, mom.weights)
+            mom.py, mom.nodes, mom.weights, mom.cos_phi, mom.sin_phi)
 
 
 def _bound(evals: float, fp32: float, sfu: float, nbytes: float,
@@ -892,18 +905,20 @@ def main():
     phase_small_experiments()
     shutil.rmtree(WORK, ignore_errors=True)
     try:
-        _reset_counts()
-        launches, run_dir, cfg, _ = phase_main_path(smi)
-        _expect_counts("spectra main path", _counts(),
-                       dict(smooth_spectra=launches))
+        counts, run_dir, cfg, _ = phase_main_path(smi)
         phase_small_path_cpu_vs_cuda()
-        max_err, k_ms, p_ms, evals, moved = phase_pair(smi, run_dir, cfg)
-        smooth, dndx, _, _ = _modules()
-        bound = _bound(evals, *smooth.FORMULA_OPS[cfg.df_mode], moved, clock)
-        print(f"[pair] bound of one group {bound[0]:.3f} ms ({bound[1]}): "
-              f"kernel at {bound[0] / k_ms:.1%} of it")
+        rec_spectra = phase_pair(smi, clock, run_dir, cfg)
+        rec_spectra["launches"] = counts["smooth_spectra"]
         shutil.rmtree(run_dir, ignore_errors=True)
-        phase_remap_time(smi, clock)
+        counts, run_dir, cfg2d, _ = phase_main_path(
+            smi, "main 2d", dimension=2, args=MAIN2D_ARGS, n_nodes=48,
+            want=("smooth_spectra", "smooth_spectra_remap"))
+        phase_small_path_cpu_vs_cuda(
+            "small_2d", dimension=2, label="2+1D mT remap df2")
+        rec_remap = phase_pair(smi, clock, run_dir, cfg2d, "remap pair",
+                               plain_runs=1)
+        rec_remap["launches"] = counts["smooth_spectra_remap"]
+        shutil.rmtree(run_dir, ignore_errors=True)
         counts, dndx_dir, dndx_cfg = phase_dndx_main(smi)
         phase_small_path_cpu_vs_cuda(
             "small_dndx", dimension=2, params=dict(operation=0),
@@ -919,9 +934,10 @@ def main():
     kernels = [
         dict(name="smooth_spectra", route="cuda",
              source=src + "smooth_spectra.cu",
-             replaces="is3d_tpu/kernels/pallas_smooth.py:61",
-             launches=launches, max_abs_err=max_err, ms=k_ms, plain_ms=p_ms,
-             bound_ms=bound[0], bound_by=bound[1], library_ms=None),
+             replaces="is3d_tpu/kernels/pallas_smooth.py:61", **rec_spectra),
+        dict(name="smooth_spectra_remap", route="cuda",
+             source=src + "smooth_spectra.cu",
+             replaces="is3d_tpu/kernels/smooth.py:161", **rec_remap),
         dict(name="dndx", route="cuda", source=src + "dndx.cu",
              replaces="is3d_tpu/kernels/dndx.py:66", **rec_dndx),
         dict(name="dndx_bin", route="cuda", source=src + "dndx.cu",

@@ -8,9 +8,12 @@ through three steps:
    coefficients per cell (kernels/common.py);
 2. ``pack_cells`` folds them into the kernel's input, a (Cp, NF) matrix of
    per-cell scalars (Cp a multiple of CELL_BLOCK, pad rows inert);
-3. ``smooth_spectra_cuda`` (the hand-written kernel csrc/smooth_spectra.cu)
-   reduces the group for CUDA tensors, ``smooth_spectra_plain`` (chunked
-   tensor algebra, the port of ``_chunk_contribution``) for CPU tensors.
+3. ``smooth_spectra_cuda`` (the hand-written kernels of
+   csrc/smooth_spectra.cu: ``spectra_kernel`` at fixed nodes,
+   ``remap_kernel`` with the 2+1D remap, fed ``remap_node_table`` and a
+   cell split from ``remap_cell_split``) reduces the group for CUDA
+   tensors, ``smooth_spectra_plain`` (chunked tensor algebra, the port of
+   ``_chunk_contribution``) for CPU tensors.
 
 Both take the same inputs and return (S, n_pT, n_phi, n_y_out).  The
 group partials are folded by ``parallel.mesh.grouped_cell_reduce``.
@@ -44,7 +47,8 @@ from ..io.tables import MomentumGrid
 from ..io.deltaf import DeltafData
 from ..tensors import TensorContainer
 from .common import surface_columns, prepare_cells, fermi_bose, effective_chunk
-from .launch import check_float, check_tensor, require_cuda, launch
+from .launch import (check_float, check_tensor, require_cuda, launch,
+                     split_to_fill)
 
 # reference temperature of the eta-node remap's s(mT) = sqrt(T_ref/mT)
 ETA_REMAP_T_REF = 0.15
@@ -64,12 +68,14 @@ IDX = {n: i for i, n in enumerate(FIELDS)}
 # fields are 1 so every denominator stays finite
 _PAD_ONE_FIELDS = ("tau", "ut", "invT")
 
-# launches of the CUDA kernel in this process (smooth_spectra_cuda)
+# launches of the CUDA kernels in this process (smooth_spectra_cuda): all
+# of them, and those that took the 2+1D remap kernel
 LAUNCHES = 0
+REMAP_LAUNCHES = 0
 
 # The yardstick of the emission kernels' bounds: the FP32 and SFU
 # operations per evaluation that depend on cell, node, species and momentum
-# point all at once, counted once from emission<T, DF> in csrc/emission.cuh
+# point all at once, counted once from the emission formula (plain_block)
 # at the main paths' flags (regulate and outflow on), an FMA as one
 # operation.  A factor or term of fewer indices is hoisted and not counted:
 # it is formed once per cell, (cell, node), (cell, species) or (cell,
@@ -96,10 +102,16 @@ EMISSION_OPS = {1: (18, 2), 2: (18, 3)}
 FORMULA_OPS = {df: (fp32 + 1, sfu) for df, (fp32, sfu) in EMISSION_OPS.items()}
 # With the 2+1D mT remap the nodes move with (cell, species, pT), so the
 # node kinematics cannot be hoisted out of the species: per (cell, node,
-# species, pT), shared by the n_phi points of that pT, the argument 1 | exp
-# (SFU) | 1/e (SFU), cosh and sinh 4, tau sinh 1, A1 2, B1 2, C1 6, C2 2,
-# C3 2, D1 2 (composites() in csrc/emission.cuh, per-cell factors folded).
-REMAP_NODE_OPS = (22, 2)
+# species, pT), shared by the n_phi points of that pT.  exp(+-Delta) is the
+# product of mT/2 exp(+-y_flow), of indices (cell, species, pT), and
+# exp(-+s eta_r), of indices (species, pT, node): both exponentials are
+# hoisted, so no SFU operation is left.  Counted from the formula with
+# ch = mT cosh Delta, sh = mT sinh Delta and the per-cell factors folded:
+# the two products 2, ch and sh 2, A1 2, B1 2, D1 2, C1 6 (ch^2, sh^2,
+# ch sh and three FMAs), pT ch and pT sh 2 (mT px C2 + mT py C3 = pT ch
+# g(cell, phi) + pT sh h(cell, phi), so C2 and C3 are not formed per node;
+# the sum joins pi:pp's three FMAs per evaluation).
+REMAP_NODE_OPS = (18, 0)
 
 
 def remap_formula_ops(df_mode: int, n_phi: int) -> tuple[float, float]:
@@ -122,6 +134,8 @@ class MomentumConstants(TensorContainer):
     py: torch.Tensor          # (P*F,) pT sin(phi)
     nodes: torch.Tensor       # (R,) 3+1D: output y; 2+1D: eta nodes
     weights: torch.Tensor     # (R,) 2+1D eta weights (unused in 3+1D)
+    cos_phi: torch.Tensor     # (F,) px = pT cos_phi, py = pT sin_phi
+    sin_phi: torch.Tensor     # (F,)
     n_phi: int
 
 
@@ -153,8 +167,9 @@ def spectra_flags(cfg: Config, grid: MomentumGrid) -> SpectraFlags:
 def momentum_constants(species: SpeciesArrays, grid: MomentumGrid,
                        dimension: int) -> MomentumConstants:
     P, F = grid.n_pT, grid.n_phi
-    px = grid.pT[:, None] * torch.cos(grid.phi)[None, :]
-    py = grid.pT[:, None] * torch.sin(grid.phi)[None, :]
+    cos_phi, sin_phi = torch.cos(grid.phi), torch.sin(grid.phi)
+    px = grid.pT[:, None] * cos_phi[None, :]
+    py = grid.pT[:, None] * sin_phi[None, :]
     nodes, weights = ((grid.y, torch.ones_like(grid.y)) if dimension == 3
                       else (grid.eta, grid.eta_weight))
     c = lambda t: t.contiguous()
@@ -162,7 +177,23 @@ def momentum_constants(species: SpeciesArrays, grid: MomentumGrid,
         mass=c(species.mass), sign=c(species.sign), baryon=c(species.baryon),
         degeneracy=c(species.degeneracy), pT=c(grid.pT),
         px=px.reshape(P * F).contiguous(), py=py.reshape(P * F).contiguous(),
-        nodes=nodes.contiguous(), weights=weights.contiguous(), n_phi=F)
+        nodes=nodes.contiguous(), weights=weights.contiguous(),
+        cos_phi=c(cos_phi), sin_phi=c(sin_phi), n_phi=F)
+
+
+def remap_scale(mom: MomentumConstants) -> torch.Tensor:
+    """s(mT) = sqrt(T_ref / max(mT, T_ref)) of the 2+1D eta-node remap,
+    (S, P): the nodes' scale and the jacobian of the node map."""
+    mT = torch.sqrt(mom.mass[:, None] ** 2 + mom.pT[None, :] ** 2)
+    return torch.sqrt(ETA_REMAP_T_REF / torch.clamp(mT, min=ETA_REMAP_T_REF))
+
+
+def remap_node_table(mom: MomentumConstants) -> torch.Tensor:
+    """The remap kernel's node factors, (S, P, R, 2) = exp(-s eta_r),
+    exp(+s eta_r) with s = remap_scale: exp(+-Delta) at Delta = y_flow -
+    s eta_r is exp(+-y_flow) times one of them."""
+    se = remap_scale(mom)[:, :, None] * mom.nodes[None, None, :]
+    return torch.stack([torch.exp(-se), torch.exp(se)], dim=3).contiguous()
 
 
 def pack_cells(c: dict, cfg: Config) -> torch.Tensor:
@@ -236,8 +267,7 @@ def plain_block(x: torch.Tensor, mom: MomentumConstants,
     nodes = mom.nodes.view(1, R, 1, 1, 1)
 
     if flags.remap:
-        s = torch.sqrt(ETA_REMAP_T_REF / torch.clamp(mT, min=ETA_REMAP_T_REF))
-        delta = g("yflow") - s.view(1, 1, S, P, 1) * nodes
+        delta = g("yflow") - remap_scale(mom).view(1, 1, S, P, 1) * nodes
     elif flags.dimension == 3:
         delta = nodes - g("eta")
     else:
@@ -312,10 +342,7 @@ def smooth_spectra_plain(cells: torch.Tensor, mom: MomentumConstants,
         out = acc.permute(1, 2, 3, 0)
     else:
         if flags.remap:
-            mT = torch.sqrt(mom.mass[:, None] ** 2 + mom.pT[None, :] ** 2)
-            s = torch.sqrt(ETA_REMAP_T_REF
-                           / torch.clamp(mT, min=ETA_REMAP_T_REF))
-            acc = acc * s[:, :, None]
+            acc = acc * remap_scale(mom)[:, :, None]
         out = acc[..., None]
     deg = mom.degeneracy.view(S, 1, 1, 1)
     return (CF_PREFACTOR * deg * out).contiguous()
@@ -334,41 +361,123 @@ def _spectra_library():
                            vp, vp, vp, vp, ci,         # species, n_species
                            vp, vp, vp, ci, ci,         # pT, px, py, n_pT, n_phi
                            vp, vp, ci,                 # nodes, weights, n_nodes
-                           ci, ci, ci, ci, ci,         # df, dim, remap, reg, outflow
-                           cd, cd,                     # prefactor, T_ref
-                           ci, vp,                     # n_split, partials
+                           ci, ci, ci, ci,             # df, dim, reg, outflow
+                           cd, ci, vp,                 # prefactor, n_split, partials
                            vp, vp]                     # out, stream
         for fn in (lib.is3d_smooth_spectra_splits_f32,
                    lib.is3d_smooth_spectra_splits_f64):
             fn.restype = ci
-            fn.argtypes = [ci] * 8       # n_cells, S, P, F, R, df, dim, remap
+            fn.argtypes = [ci] * 7       # n_cells, S, P, F, R, df, dim
+        for fn in (lib.is3d_smooth_spectra_remap_f32,
+                   lib.is3d_smooth_spectra_remap_f64):
+            fn.restype = ci
+            fn.argtypes = [vp, ci, ci,                 # cells, n_cells, nf
+                           vp, vp, vp, vp, ci,         # species, n_species
+                           vp, ci, vp, vp, ci,         # pT, n_pT, cos, sin, n_phi
+                           vp, vp, ci,                 # node table, weights, n_nodes
+                           ci, ci, ci,                 # df, reg, outflow
+                           cd, cd, ci, ci,             # prefactor, T_ref, split, parts
+                           vp, vp, vp]                 # partials, out, stream
+        for fn in (lib.is3d_smooth_spectra_remap_grid_f32,
+                   lib.is3d_smooth_spectra_remap_grid_f64):
+            fn.restype = ci
+            fn.argtypes = [ci] * 5 + [ctypes.POINTER(ci)]  # S, P, F, R, df, out
         lib.is3d_cuda_error_string.restype = ctypes.c_char_p
         lib.is3d_cuda_error_string.argtypes = [ci]
         lib._is3d_bound = True
     return lib
 
 
+@dataclass(frozen=True)
+class RemapGrid:
+    """The remap kernel's grid for one shape on one card, as the C side
+    (csrc/smooth_spectra.cu:remap_grid, the owner of the blocking) reports
+    it."""
+
+    blocks: int        # blocks for each range of cells
+    slots: int         # blocks the card holds at once
+    node_chunks: int   # chunks of nodes: partial sums for each range of cells
+    tile: int          # cells per shared-memory tile
+    max_split: int     # most ranges of cells
+    phi_width: int     # angles per thread: the kernel's instantiation
+
+
+def remap_grid(lib, device: torch.device, f64: bool, n_species: int,
+               n_pT: int, n_phi: int, n_nodes: int, df_mode: int) -> RemapGrid:
+    out = (ctypes.c_int * 6)()
+    fn = (lib.is3d_smooth_spectra_remap_grid_f64 if f64
+          else lib.is3d_smooth_spectra_remap_grid_f32)
+    with torch.cuda.device(device):
+        rc = fn(n_species, n_pT, n_phi, n_nodes, df_mode, out)
+    if rc != 0:
+        raise RuntimeError("smooth_spectra remap: no launch configuration: "
+                           f"{lib.is3d_cuda_error_string(rc).decode()}")
+    return RemapGrid(*out)
+
+
+def remap_cell_split(n_cells: int, grid: RemapGrid) -> tuple[int, int]:
+    """(cells per split, splits) of the remap kernel's grid: whole tiles
+    per split, the fewest splits that fill the card's waves
+    (launch.split_to_fill)."""
+    n_tiles = -(-max(n_cells, 1) // grid.tile)
+    per, n_split = split_to_fill(n_tiles, max(grid.blocks, 1), grid.slots,
+                                 grid.max_split)
+    return per * grid.tile, n_split
+
+
 def smooth_spectra_cuda(cells: torch.Tensor, mom: MomentumConstants,
-                        flags: SpectraFlags) -> torch.Tensor:
+                        flags: SpectraFlags,
+                        table: torch.Tensor | None = None) -> torch.Tensor:
     """Launch the hand-written kernel (csrc/smooth_spectra.cu) on the
-    current stream: (S, n_pT, n_phi, n_y_out) in the cells' dtype."""
-    global LAUNCHES
+    current stream: (S, n_pT, n_phi, n_y_out) in the cells' dtype.  With
+    ``flags.remap`` the angles must be separable as ``momentum_constants``
+    builds them (px = pT cos_phi, py = pT sin_phi), and ``table`` is
+    ``remap_node_table(mom)``, which depends on ``mom`` alone: a caller
+    with many groups builds it once, else it is built here."""
+    global LAUNCHES, REMAP_LAUNCHES
     check_float("smooth_spectra_cuda", cells)
     check_tensor("cells", cells, (cells.shape[0], NF), cells)
     S, P, F = mom.mass.shape[0], mom.pT.shape[0], mom.n_phi
     R = mom.nodes.shape[0]
     for name, n in dict(mass=S, sign=S, baryon=S, degeneracy=S, pT=P,
-                        px=P * F, py=P * F, nodes=R, weights=R).items():
+                        px=P * F, py=P * F, nodes=R, weights=R, cos_phi=F,
+                        sin_phi=F).items():
         check_tensor(f"momentum constant {name}", getattr(mom, name), (n,),
                      cells)
+    remap = flags.dimension == 2 and flags.remap
+    if remap and table is not None:
+        check_tensor("remap node table", table, (S, P, R, 2), cells)
     require_cuda("smooth_spectra_cuda", cells)
     n_out = R if flags.dimension == 3 else 1
     out = torch.empty((S, P, F, n_out), device=cells.device,
                       dtype=cells.dtype)
     lib = _spectra_library()
     f64 = cells.dtype == torch.float64
-    shape = (cells.shape[0], S, P, F, R, flags.df_mode, flags.dimension,
-             int(flags.remap))
+    species = (mom.mass.data_ptr(), mom.sign.data_ptr(),
+               mom.baryon.data_ptr(), mom.degeneracy.data_ptr(), S)
+    if remap:
+        # the kernel's grid spans chunks of nodes and ranges of cells (one
+        # partial each, folded in order); the split depends on the card
+        grid = remap_grid(lib, cells.device, f64, S, P, F, R, flags.df_mode)
+        per, n_split = remap_cell_split(cells.shape[0], grid)
+        if table is None:
+            table = remap_node_table(mom)
+        n_parts = n_split * grid.node_chunks
+        partial = cells.new_empty((n_parts, S, P, F))
+        launch(lib, "smooth_spectra remap",
+               lib.is3d_smooth_spectra_remap_f64 if f64
+               else lib.is3d_smooth_spectra_remap_f32, cells.device,
+               cells.data_ptr(), cells.shape[0], NF, *species,
+               mom.pT.data_ptr(), P, mom.cos_phi.data_ptr(),
+               mom.sin_phi.data_ptr(), F, table.data_ptr(),
+               mom.weights.data_ptr(), R, flags.df_mode,
+               int(flags.regulate), int(flags.outflow), CF_PREFACTOR,
+               ETA_REMAP_T_REF, per, n_parts, partial.data_ptr(),
+               out.data_ptr())
+        LAUNCHES += 1
+        REMAP_LAUNCHES += 1
+        return out
+    shape = (cells.shape[0], S, P, F, R, flags.df_mode, flags.dimension)
     # the kernel splits the cells to fill the card's waves (one partial
     # per split, folded in split order); the count depends on the card
     with torch.cuda.device(cells.device):
@@ -381,14 +490,12 @@ def smooth_spectra_cuda(cells: torch.Tensor, mom: MomentumConstants,
                else None)
     fn = lib.is3d_smooth_spectra_f64 if f64 else lib.is3d_smooth_spectra_f32
     launch(lib, "smooth_spectra", fn, cells.device,
-           cells.data_ptr(), cells.shape[0], NF,
-           mom.mass.data_ptr(), mom.sign.data_ptr(),
-           mom.baryon.data_ptr(), mom.degeneracy.data_ptr(), S,
+           cells.data_ptr(), cells.shape[0], NF, *species,
            mom.pT.data_ptr(), mom.px.data_ptr(), mom.py.data_ptr(), P, F,
            mom.nodes.data_ptr(), mom.weights.data_ptr(), R,
-           flags.df_mode, flags.dimension, int(flags.remap),
+           flags.df_mode, flags.dimension,
            int(flags.regulate), int(flags.outflow),
-           CF_PREFACTOR, ETA_REMAP_T_REF, n_split,
+           CF_PREFACTOR, n_split,
            None if partial is None else partial.data_ptr(), out.data_ptr())
     LAUNCHES += 1
     return out
@@ -397,10 +504,11 @@ def smooth_spectra_cuda(cells: torch.Tensor, mom: MomentumConstants,
 # ------------------------------------------------------------ entry point
 
 def _group_spectra(cols: dict, mom: MomentumConstants, flags: SpectraFlags,
-                   df_data: DeltafData, cfg: Config) -> torch.Tensor:
+                   df_data: DeltafData, table: torch.Tensor | None,
+                   cfg: Config) -> torch.Tensor:
     cells = pack_cells(prepare_cells(cols, cfg, df_data), cfg)
     if cells.device.type == "cuda":
-        return smooth_spectra_cuda(cells, mom, flags)
+        return smooth_spectra_cuda(cells, mom, flags, table)
     if cells.device.type == "cpu":
         return smooth_spectra_plain(cells, mom, flags, cfg.cell_chunk)
     raise ValueError(f"no spectra path for device {cells.device}")
@@ -418,6 +526,9 @@ def smooth_spectra(surface, species: SpeciesArrays, grid: MomentumGrid,
     flags = spectra_flags(cfg, grid)
     mom = momentum_constants(species, grid, cfg.dimension)
     cols = surface_columns(surface, cfg)
+    # the remap kernel's node table, once for every group
+    table = (remap_node_table(mom)
+             if flags.remap and cols["tau"].device.type == "cuda" else None)
     return grouped_cell_reduce(
-        lambda c, m, fl, d: _group_spectra(c, m, fl, d, cfg),
-        cols, (mom, flags, df_data), cfg)
+        lambda c, m, fl, d, t: _group_spectra(c, m, fl, d, t, cfg),
+        cols, (mom, flags, df_data, table), cfg)

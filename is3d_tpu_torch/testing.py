@@ -237,8 +237,15 @@ def write_synthetic_run_dir(path: str, n_cells: int, n_species: int,
 # (4 species x 3 nodes, 128 points a block), 3+1D rapidities far enough
 # from the cells that exp(u.p/T) overflows, light bosons at small mT, and
 # large shear with the clip on.  Shear and bulk df are on, and regulate and
-# outflow unless a case turns them off.
+# outflow unless a case turns them off.  The 2d_remap cases take the 2+1D
+# mT remap (a thread per (species, pT) for 8, 16 or 24 angles, 12 nodes a
+# block in register blocks of 3, cells in tiles of 8): ragged shapes; flow
+# rapidities |y_flow| up to 2 (u^eta scaled); light bosons whose mT straddles
+# T_ref, where s(mT) clamps to 1; the clip; eta nodes shifted so far out
+# that exp(u.p/T) overflows at every node for the lightest species
+# (outputs exactly 0) and at no node for the heaviest; pad rows.
 _RAGGED = dict(n_pT=11, n_phi=13, n_y=5, n_eta=13)
+_REMAP = dict(eta_mT_rescale=True)
 SPECTRA_EDGES = {
     **{f"{d}d_df{df}_ragged": dict(dimension=d, df_mode=df, n_species=41,
                                    grid=_RAGGED)
@@ -248,6 +255,17 @@ SPECTRA_EDGES = {
     "3d_light_bosons": dict(dimension=3, df_mode=2, light_bosons=True,
                             grid=dict(pT_max=0.2)),
     "3d_clip": dict(dimension=3, df_mode=2, scale_pi=30.0),
+    **{f"2d_remap_df{df}_ragged": dict(dimension=2, df_mode=df, n_species=41,
+                                       grid=dict(_RAGGED, **_REMAP))
+       for df in (2, 1)},
+    "2d_remap_yflow": dict(dimension=2, df_mode=2, scale_un=7.0, grid=_REMAP),
+    "2d_remap_light_bosons": dict(dimension=2, df_mode=2, light_bosons=True,
+                                  grid=dict(_REMAP, pT_max=0.2)),
+    "2d_remap_clip": dict(dimension=2, df_mode=2, scale_pi=30.0, grid=_REMAP),
+    "2d_remap_overflow": dict(dimension=2, df_mode=2, reg_out=0,
+                              eta_shift=15.0, grid=_REMAP),
+    "2d_remap_pad_rows": dict(dimension=2, df_mode=1, n_cells=37,
+                              grid=_REMAP),
 }
 
 
@@ -255,7 +273,8 @@ def edge_spec(edges: dict, case: str, n_cells: int = 203,
               n_species: int = 7) -> dict:
     """The settings of an edge case with every default filled in."""
     return dict(dict(n_cells=n_cells, n_species=n_species, reg_out=1, grid={},
-                     light_bosons=False, scale_pi=1.0, rows=None),
+                     light_bosons=False, scale_pi=1.0, scale_un=1.0,
+                     eta_shift=0.0, rows=None),
                 **edges[case])
 
 
@@ -272,11 +291,13 @@ def edge_grid_kw(spec: dict) -> dict:
 
 
 def edge_surface_cells(spec: dict) -> dict:
-    """The numpy cell columns of an edge case (seed 7, shear scaled)."""
+    """The numpy cell columns of an edge case (seed 7, shear and u^eta
+    scaled)."""
     cells = synthetic_surface_cells(spec["n_cells"], spec["dimension"],
                                     seed=7)
     for k in ("pixx", "pixy", "pixn", "piyy", "piyn"):
         cells[k] = cells[k] * spec["scale_pi"]
+    cells["un"] = cells["un"] * spec["scale_un"]
     return cells
 
 
@@ -293,6 +314,8 @@ def _edge_inputs(spec: dict, operation: int, dtype, device):
                                   **edge_surface_cells(spec))
     grid = native_momentum_grid(dimension, dtype=dtype, device=device,
                                 **edge_grid_kw(spec))
+    if spec["eta_shift"]:
+        grid = dataclasses.replace(grid, eta=grid.eta + spec["eta_shift"])
     species = synthetic_species(spec["n_species"], dtype=dtype, device=device)
     if spec["light_bosons"]:
         species = dataclasses.replace(species, mass=torch.where(
@@ -322,17 +345,37 @@ def spectra_edge_seen(case: str, cells, mom, flags, out) -> str:
     import dataclasses
     from .kernels import smooth
     assert torch.isfinite(out).all() and out.abs().max() > 0, case
-    if "ragged" in case:
-        S, M, R = mom.mass.shape[0], mom.px.shape[0], mom.nodes.shape[0]
+    assert flags.remap == case.startswith("2d_remap"), case
+    S, M, R = mom.mass.shape[0], mom.px.shape[0], mom.nodes.shape[0]
+    P, F = mom.pT.shape[0], mom.n_phi
+    if case.endswith("ragged"):
         assert S % 4 and M % 128 and R % 3, (S, M, R)
+        if flags.remap:
+            assert (S * P) % 128 and R % 12 % 3, (S, P, R)
+            assert F not in (8, 16, 24), F
         return f"{S} species x {M} points x {R} nodes"
-    if case == "3d_overflow":
+    if case.endswith("overflow"):
         n = int((out == 0).sum())
-        assert n > 0, "no output is exactly 0"
-        return f"{n} outputs exactly 0"
-    if case == "3d_light_bosons":
+        assert 0 < n < out.numel(), f"{n} outputs are exactly 0"
+        return f"{n} of {out.numel()} outputs exactly 0"
+    if case.endswith("light_bosons"):
         assert (mom.mass[mom.sign < 0] == 0.02).all()
-        return f"bosons of mass 0.02, pT <= {mom.pT.max().item():.2f}"
+        seen = f"bosons of mass 0.02, pT <= {mom.pT.max().item():.2f}"
+        if flags.remap:
+            s = smooth.remap_scale(mom)
+            assert (s == 1).any() and (s < 1).any()
+            seen += f", s(mT) = 1 at {int((s == 1).sum())} of {S * P}"
+        return seen
+    if case.endswith("yflow"):
+        yflow = cells[:, smooth.IDX["yflow"]].abs().max().item()
+        assert 1.5 < yflow < 2.5, yflow
+        return f"|y_flow| up to {yflow:.2f}"
+    if case.endswith("pad_rows"):
+        n = SPECTRA_EDGES[case]["n_cells"]
+        assert cells.shape[0] > n
+        pad = smooth.smooth_spectra_plain(cells[n:], mom, flags)
+        assert (pad == 0).all()
+        return f"{cells.shape[0] - n} pad rows of {cells.shape[0]} add 0"
     free = smooth.smooth_spectra_plain(cells, mom, dataclasses.replace(
         flags, regulate=False))
     moved = ((free - out).abs().max() / out.abs().max()).item()

@@ -1,7 +1,9 @@
-"""Time the hand-written kernels of two checkouts of this repository in one
-process tree on one card, in the order A, B, B, A.
+"""Time the hand-written kernels of two (or more) checkouts of this
+repository in one process tree on one card, in the order A, B, B, A (A, B,
+C, C, B, A).
 
-    python -m is3d_tpu_torch.tools.ab_spectra ROOT_A ROOT_B [--cells N]
+    python -m is3d_tpu_torch.tools.ab_spectra ROOT_A ROOT_B [ROOT_C ...]
+        [--cells N]
         [--cases 3d_df2,3d_df1,2d_fixed,2d_remap,bin,dndx,proto]
 
 Each turn runs a fresh interpreter that imports ``is3d_tpu_torch`` from
@@ -30,9 +32,10 @@ that root (building its kernels into that root's _build/) and, per case:
 
 The report is one JSON line per turn (median, runs, output sum and the
 float32 output's largest difference from the same side's float64 kernel,
-as a share of its largest value, per case) and, per case, the medians of
-both sides, their ratio B / A, the relative difference of the output sums
-and both sides' float32-vs-float64 differences.  Uses only functions both
+as a share of its largest value, per case) and, per case and for every
+root after the first, the medians of A and of that root, their ratio B / A,
+the relative difference of the output sums and both sides'
+float32-vs-float64 differences.  Uses only functions both
 sides have had since their kernels were first ported.
 """
 
@@ -156,7 +159,7 @@ print(json.dumps(report))
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("root_a")
-    ap.add_argument("root_b")
+    ap.add_argument("root_b", nargs="+")
     ap.add_argument("--cells", type=int, default=16384)
     ap.add_argument("--cases", default=",".join(CASES))
     args = ap.parse_args(argv)
@@ -164,9 +167,9 @@ def main(argv=None):
     unknown = set(cases) - set(CASES)
     if unknown:
         ap.error(f"unknown cases {sorted(unknown)}; known: {CASES}")
-    roots = [os.path.abspath(r) for r in (args.root_a, args.root_b)]
+    roots = [os.path.abspath(r) for r in (args.root_a, *args.root_b)]
     results = {r: [] for r in roots}
-    for root in (roots[0], roots[1], roots[1], roots[0]):
+    for root in roots + roots[::-1]:
         proc = subprocess.run([sys.executable, "-c", _TURN, root,
                                str(args.cells), ",".join(cases)],
                               capture_output=True, text=True, check=True,
@@ -177,15 +180,18 @@ def main(argv=None):
     for case in cases:
         med = {r: sum(t[case]["ms"] for t in results[r]) / 2 for r in roots}
         sums = {r: results[r][0][case]["sum"] for r in roots}
-        a, b = (med[r] for r in roots)
-        print(json.dumps({
-            "case": case, "a_ms": a, "b_ms": b, "b_over_a": b / a,
-            "same_sum": len({t[case]["sum"] for r in roots
-                             for t in results[r]}) == 1,
-            "sum_rel_diff": abs(sums[roots[1]] - sums[roots[0]])
-            / abs(sums[roots[0]]),
-            "a_err_f64": results[roots[0]][0][case]["err_f64"],
-            "b_err_f64": results[roots[1]][0][case]["err_f64"]}))
+        first = roots[0]
+        for other in roots[1:]:
+            print(json.dumps({
+                "case": case, "b": os.path.relpath(other),
+                "a_ms": med[first], "b_ms": med[other],
+                "b_over_a": med[other] / med[first],
+                "same_sum": len({t[case]["sum"] for r in (first, other)
+                                 for t in results[r]}) == 1,
+                "sum_rel_diff": abs(sums[other] - sums[first])
+                / abs(sums[first]),
+                "a_err_f64": results[first][0][case]["err_f64"],
+                "b_err_f64": results[other][0][case]["err_f64"]}))
     return 0
 
 

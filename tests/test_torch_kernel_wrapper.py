@@ -6,6 +6,8 @@ unported configurations raise NotImplementedError.  The kernels
 themselves are checked against their plain versions by the gpu-marked
 tests below and by chip_smoke.py."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -18,7 +20,7 @@ from is3d_tpu_torch.io.tables import native_momentum_grid
 from is3d_tpu_torch.experiments import smooth_proto, dndx_reduce_probe
 from is3d_tpu_torch.kernels import smooth, dndx
 from is3d_tpu_torch.kernels.common import surface_columns, prepare_cells
-from is3d_tpu_torch.kernels.launch import split_to_fill
+from is3d_tpu_torch.kernels.launch import launch, split_to_fill
 from is3d_tpu_torch.native import build
 
 torch.set_num_threads(1)
@@ -129,11 +131,63 @@ def test_kernel_matches_plain_on_gpu(cuda_card, dimension, remap):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("f64", [False, True])
+def test_remap_grid_on_gpu(cuda_card, f64):
+    """The grids the CPU test of the cell split assumes are those the C
+    side reports, a given node table gives the same bits as the one the
+    wrapper builds, and a part count that is not the grid's is refused
+    before anything is written."""
+    lib = smooth._spectra_library()
+    dev = torch.device("cuda")
+    for (S, P, F, R), (blocks, chunks, width) in REMAP_GRIDS.items():
+        for df_mode in (1, 2):
+            grid = smooth.remap_grid(lib, dev, f64, S, P, F, R, df_mode)
+            assert (grid.blocks, grid.node_chunks, grid.tile, grid.max_split,
+                    grid.phi_width) == (blocks, chunks, 8, 64, width)
+            assert grid.slots >= torch.cuda.get_device_properties(
+                dev).multi_processor_count
+    dtype = torch.float64 if f64 else torch.float32
+    cells, mom, flags = _packed(*_inputs(203, 2, True, dtype=dtype,
+                                         device="cuda"))
+    table = smooth.remap_node_table(mom)
+    assert torch.equal(smooth.smooth_spectra_cuda(cells, mom, flags, table),
+                       smooth.smooth_spectra_cuda(cells, mom, flags))
+    S, P, Fn, R = mom.mass.shape[0], mom.pT.shape[0], mom.n_phi, \
+        mom.nodes.shape[0]
+    grid = smooth.remap_grid(lib, dev, f64, S, P, Fn, R, flags.df_mode)
+    per, n_split = smooth.remap_cell_split(cells.shape[0], grid)
+    out = torch.zeros((S, P, Fn, 1), dtype=dtype, device=dev)
+    partial = torch.zeros((n_split * grid.node_chunks + 1, S, P, Fn),
+                          dtype=dtype, device=dev)
+    fn = (lib.is3d_smooth_spectra_remap_f64 if f64
+          else lib.is3d_smooth_spectra_remap_f32)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        launch(lib, "smooth_spectra remap", fn, dev, cells.data_ptr(),
+               cells.shape[0], smooth.NF, mom.mass.data_ptr(),
+               mom.sign.data_ptr(), mom.baryon.data_ptr(),
+               mom.degeneracy.data_ptr(), S, mom.pT.data_ptr(), P,
+               mom.cos_phi.data_ptr(), mom.sin_phi.data_ptr(), Fn,
+               table.data_ptr(), mom.weights.data_ptr(), R, flags.df_mode,
+               int(flags.regulate), int(flags.outflow), 1.0,
+               smooth.ETA_REMAP_T_REF, per, partial.shape[0],
+               partial.data_ptr(), out.data_ptr())
+    torch.cuda.synchronize()
+    assert not partial.any() and not out.any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
 @pytest.mark.parametrize("case", sorted(testing.SPECTRA_EDGES))
-def test_kernel_edges_match_plain_on_gpu(cuda_card, case):
-    """The spectra kernel's edges (testing.SPECTRA_EDGES) against the plain
-    version, f64; two launches bit-identical, exact zeros kept."""
-    cells, mom, flags = testing.spectra_edge_inputs(case, device="cuda")
+def test_kernel_edges_match_plain_on_gpu(cuda_card, case, dtype):
+    """The spectra kernels' edges (testing.SPECTRA_EDGES, fixed nodes and
+    the 2+1D remap) against the plain version: f32 at rtol 2e-4 / atol 2e-5
+    x max (approximate exp and reciprocal, another summation order), f64 at
+    rtol 1e-10 / atol 1e-13 x max; two launches bit-identical, exact zeros
+    kept."""
+    rtol, atol = ((2e-4, 2e-5) if dtype == torch.float32
+                  else (1e-10, 1e-13))
+    cells, mom, flags = testing.spectra_edge_inputs(case, dtype=dtype,
+                                                    device="cuda")
     got = smooth.smooth_spectra_cuda(cells, mom, flags)
     again = smooth.smooth_spectra_cuda(cells, mom, flags)
     want = smooth.smooth_spectra_plain(cells, mom, flags)
@@ -141,10 +195,10 @@ def test_kernel_edges_match_plain_on_gpu(cuda_card, case):
     assert torch.equal(got, again)
     scale = want.abs().max().item()
     np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
-                               rtol=1e-10, atol=1e-13 * scale)
+                               rtol=rtol, atol=atol * scale)
     zero = want == 0
     assert torch.equal(got[zero], want[zero])
-    if case == "3d_overflow":
+    if case.endswith("overflow"):
         assert zero.any()
 
 
@@ -152,7 +206,9 @@ def test_kernel_edges_match_plain_on_gpu(cuda_card, case):
 def test_kernel_edge_inputs_are_what_they_claim(case):
     """On the CPU: the edge cases' plain spectra are finite and show the
     edge they are named for (exact zeros where exp overflows, an active
-    clip, light bosons, shapes off the kernel's blocking)."""
+    clip, light bosons, shapes off the kernels' blocking; with the 2+1D
+    remap also flow rapidities up to 2, s(mT) clamped to 1 and inert pad
+    rows)."""
     cells, mom, flags = testing.spectra_edge_inputs(case)
     out = smooth.smooth_spectra_plain(cells, mom, flags)
     assert testing.spectra_edge_seen(case, cells, mom, flags, out)
@@ -208,10 +264,18 @@ def _wrapper_calls(dtype=torch.float64, fault=None):
         return t
 
     cells, mom, flags, wM, wR, plan = _dndx_inputs(20, 2, dtype=dtype)
+    remap = dataclasses.replace(flags, remap=True)
     per_cell = torch.rand(cells.shape[0], 5, dtype=dtype)
     proto = smooth_proto.proto_inputs(8, S=32, P=2, F=3, Y=2, dtype=dtype)
     probe = dndx_reduce_probe.probe_inputs(6, 3, 4, 5, dtype=dtype)
     return {
+        "smooth_spectra_remap": lambda: smooth.smooth_spectra_cuda(
+            spoil(cells), mom, remap),
+        "smooth_spectra_remap_cos": lambda: smooth.smooth_spectra_cuda(
+            cells, dataclasses.replace(mom, cos_phi=spoil(mom.cos_phi)),
+            remap),
+        "smooth_spectra_remap_table": lambda: smooth.smooth_spectra_cuda(
+            cells, mom, remap, spoil(smooth.remap_node_table(mom))),
         "dndx": lambda: dndx.dndx_cuda(spoil(cells), mom, flags, wM, wR),
         "dndx_wM": lambda: dndx.dndx_cuda(cells, mom, flags, spoil(wM), wR),
         "dndx_bin": lambda: dndx.dndx_bin_cuda(spoil(per_cell), plan),
@@ -240,13 +304,15 @@ def test_new_wrappers_check_their_arguments(wrapper, fault):
     """CPU tensors, a wrong dtype, a wrong shape and a non-contiguous
     tensor each raise before any launch (the device is checked last, so a
     CPU call reaches every other check)."""
-    counts = (dndx.LAUNCHES, dndx.BIN_LAUNCHES, smooth_proto.LAUNCHES,
-              dndx_reduce_probe.LAUNCHES)
+    current = lambda: (smooth.LAUNCHES, smooth.REMAP_LAUNCHES, dndx.LAUNCHES,
+                       dndx.BIN_LAUNCHES, smooth_proto.LAUNCHES,
+                       dndx_reduce_probe.LAUNCHES)
+    counts = current()
     with pytest.raises(ValueError, match=FAULTS[fault]):
         _wrapper_calls(fault=fault)[wrapper]()
-    assert counts == (dndx.LAUNCHES, dndx.BIN_LAUNCHES, smooth_proto.LAUNCHES,
-                      dndx_reduce_probe.LAUNCHES)
-    assert not {"dndx", "smooth_proto"} & set(build._cuda_libs)
+    assert counts == current()
+    assert not {"smooth_spectra", "dndx", "smooth_proto"} & set(
+        build._cuda_libs)
 
 
 SLOTS = (1, 7, 264, 528, 1056, 10 ** 6)
@@ -271,6 +337,69 @@ def test_cell_split_covers_every_cell_in_whole_tiles():
     assert dndx.cell_split(8192, 320, 48, 528) == (632, 13)
     with pytest.raises(ValueError, match="rapidity nodes"):
         dndx.cells_per_batch(385)
+
+
+# (S, P, F, R): (blocks for each range of cells, chunks of nodes, angles per
+# thread) of the remap kernel's grid
+REMAP_GRIDS = {(320, 32, 24, 48): (80 * 1 * 4, 4, 24),
+               (41, 11, 13, 13): (8, 2, 16), (5, 4, 4, 6): (1, 1, 8),
+               (7, 8, 6, 12): (1, 1, 8), (40, 8, 32, 25): (3 * 2 * 3, 3, 16),
+               (1, 1, 48, 241): (2 * 21, 21, 24)}
+
+
+@pytest.mark.parametrize("n_cells", [0, 1, 7, 8, 16, 777, 16384, 131072])
+def test_remap_cell_split_covers_every_cell_in_whole_tiles(n_cells):
+    """Whatever the card's resident-block count, the remap kernel's split
+    is whole tiles, covers every cell once, and only its last range is
+    short.  The grids are those the C side reports for these shapes (blocks
+    of 128 (species, pT) pairs x chunks of angles x chunks of 12 nodes,
+    tiles of 8 cells, at most 64 ranges; test_remap_grid_on_gpu holds them
+    against it)."""
+    for blocks, chunks, width in REMAP_GRIDS.values():
+        for slots in SLOTS:
+            grid = smooth.RemapGrid(blocks, slots, chunks, 8, 64, width)
+            per, n_split = smooth.remap_cell_split(n_cells, grid)
+            assert per % 8 == 0 and 1 <= n_split <= 64
+            assert per * (n_split - 1) < max(n_cells, 1) <= per * n_split
+    # a main-path group on an H100 at 5 blocks per SM: 33 ranges of 63
+    # tiles x 4 node chunks x 80 blocks = 10560 blocks in 16 waves of 660
+    # (2 ranges, 640 blocks in one wave, measured 6.9 % slower)
+    main = smooth.RemapGrid(320, 660, 4, 8, 64, 24)
+    assert smooth.remap_cell_split(16384, main) == (504, 33)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+def test_remap_node_table_equals_its_definition(dtype):
+    """The table smooth_spectra_cuda prepacks for the remap kernel: exp(-s
+    eta_r) and exp(+s eta_r) per (species, pT, node) with s = sqrt(T_ref /
+    max(mT, T_ref)), so that cosh and sinh of Delta = y_flow - s eta_r are
+    sums of products with exp(+-y_flow)."""
+    cells, mom, flags = _packed(*_inputs(5, 2, True, dtype=dtype))
+    table = smooth.remap_node_table(mom)
+    S, P, R = 5, 4, 6
+    assert table.shape == (S, P, R, 2) and table.dtype == dtype
+    assert table.is_contiguous()
+    s = smooth.remap_scale(mom)
+    for i in range(S):
+        for p in range(P):
+            mT = torch.sqrt(mom.mass[i] ** 2 + mom.pT[p] ** 2)
+            assert s[i, p] == torch.sqrt(smooth.ETA_REMAP_T_REF / torch.clamp(
+                mT, min=smooth.ETA_REMAP_T_REF))
+            assert torch.equal(table[i, p, :, 0],
+                               torch.exp(-(s[i, p] * mom.nodes)))
+            assert torch.equal(table[i, p, :, 1],
+                               torch.exp(s[i, p] * mom.nodes))
+    assert (s <= 1).all() and (s[mom.mass < 0.14] < 1).any()
+    # cosh and sinh of Delta from the table and exp(+-y_flow)
+    yflow = cells[:, smooth.IDX["yflow"]].view(-1, 1, 1, 1)
+    delta = yflow - s[None, :, :, None] * mom.nodes
+    ep = torch.exp(yflow) * table[None, ..., 0]
+    em = torch.exp(-yflow) * table[None, ..., 1]
+    tol = 1e-5 if dtype == torch.float32 else 1e-13
+    torch.testing.assert_close(0.5 * (ep + em), torch.cosh(delta), rtol=tol,
+                               atol=0)
+    torch.testing.assert_close(0.5 * (ep - em), torch.sinh(delta), rtol=tol,
+                               atol=tol)
 
 
 @pytest.mark.parametrize("n_cells", [0, 1, 15, 16, 1024, 32768])
@@ -452,9 +581,12 @@ def test_bound_yardstick_is_shared():
     assert rate(smooth.FORMULA_OPS[2]) == 3 / 16
     assert rate(dndx_reduce_probe.BOUND_OPS) == 2 / 16
     # the 2+1D remap adds its node kinematics once per (cell, node, species,
-    # pT): a 24th of (22, 2) per evaluation on the native grid
-    assert smooth.remap_formula_ops(2, 24) == (19 + 22 / 24, 3 + 2 / 24)
-    assert smooth.remap_formula_ops(1, 1) == (19 + 22, 2 + 2)
+    # pT): a 24th of 18 FP32 per evaluation on the native grid, and no SFU
+    # operation (its two exponentials have fewer indices and are hoisted)
+    assert smooth.REMAP_NODE_OPS == (18, 0)
+    assert smooth.remap_formula_ops(2, 24) == (19 + 18 / 24, 3)
+    assert smooth.remap_formula_ops(1, 1) == (19 + 18, 2)
+    assert rate(smooth.remap_formula_ops(2, 24)) == 3 / 16
 
 
 def test_cuda_cache_key_covers_every_header(tmp_path, monkeypatch):

@@ -179,3 +179,65 @@ def test_smooth_spectra_f32_matches_pallas_interpret(monkeypatch, df_mode,
     assert got.dtype == np.float32 and got.shape == want.shape
     scale = np.abs(want).max()
     np.testing.assert_allclose(got, want, atol=2e-5 * scale, rtol=2e-4)
+
+
+def test_remap_node_table_reproduces_jax_operands():
+    """The remap kernel's prepacked node factors exp(-+s eta_r) and its
+    per-cell exp(+-y_flow) against the operands of the JAX body's addition
+    theorem (_rescaled_eta_operands): mT cosh(s eta_r), mT sinh(s eta_r),
+    their products, (cosh, sinh)(-y_flow) and the jacobian s(mT).  Both
+    sides f64 and the same elementary functions of the same arguments:
+    rtol 1e-12."""
+    from is3d_tpu.kernels.smooth import _rescaled_eta_operands
+    from is3d_tpu_torch.kernels import smooth as tsmooth
+    from is3d_tpu_torch.kernels.common import surface_columns, prepare_cells
+
+    cells = random_cells(40, 2, seed=3)
+    cells["un"] = cells["un"] * 7.0               # |y_flow| up to ~2
+    jgrid = j_native_grid(dimension=2, **SMALL_GRID)
+    jsp = jtesting.synthetic_species(n_species=14)
+    S, P, F, R = 14, jgrid.n_pT, jgrid.n_phi, jgrid.n_eta
+    cfg = Config(operation=1, mode=1, dimension=2, df_mode=2, **VISC)
+    c = prepare_cells(surface_columns(convert.surface_from_state(cells), cfg),
+                      cfg, convert.deltaf_from_state(
+                          jax_state(jtesting.synthetic_deltaf_data())))
+    jc = {k: jnp.asarray(c[k].numpy()) for k in ("ux", "uy", "ut", "tau",
+                                                 "un")}
+    CHR, SHR, CHR2, SHR2, CHRSHR, chs, shs, s_flat = (
+        np.asarray(x) for x in _rescaled_eta_operands(jc, jsp, jgrid, S, P,
+                                                      F, P * F))
+
+    grid = convert.grid_from_state(jax_state(jgrid))
+    assert grid.eta_mT_rescale
+    mom = tsmooth.momentum_constants(
+        convert.species_from_state(jax_state(jsp)), grid, 2)
+    table = tsmooth.remap_node_table(mom).numpy()          # (S, P, R, 2)
+    s = tsmooth.remap_scale(mom).numpy()
+    mT = np.sqrt(mom.mass.numpy()[:, None] ** 2 + mom.pT.numpy()[None] ** 2)
+    ch = 0.5 * (table[..., 1] + table[..., 0])
+    sh = 0.5 * (table[..., 1] - table[..., 0])
+
+    def block(x):                  # (S, P, R) -> the operands' (1, R, S, M)
+        return np.broadcast_to(x[:, :, None, :], (S, P, F, R)).reshape(
+            S, P * F, R).transpose(2, 0, 1)[None]
+
+    tol = dict(rtol=1e-12, atol=0)
+    np.testing.assert_allclose(block(mT[..., None] * ch), CHR, **tol)
+    np.testing.assert_allclose(block(mT[..., None] * sh), SHR, rtol=1e-12,
+                               atol=1e-15)
+    np.testing.assert_allclose(block((mT ** 2)[..., None] * ch * ch), CHR2,
+                               **tol)
+    np.testing.assert_allclose(block((mT ** 2)[..., None] * sh * sh), SHR2,
+                               rtol=1e-12, atol=1e-15)
+    np.testing.assert_allclose(block((mT ** 2)[..., None] * ch * sh), CHRSHR,
+                               rtol=1e-12, atol=1e-15)
+    np.testing.assert_allclose(
+        np.broadcast_to(s[:, :, None], (S, P, F)).reshape(S, P * F), s_flat,
+        **tol)
+    packed = tsmooth.pack_cells(c, cfg)[:40]
+    yflow = packed[:, tsmooth.IDX["yflow"]].numpy()
+    assert 1.5 < np.abs(yflow).max() < 2.5
+    ey, eym = np.exp(yflow), np.exp(-yflow)
+    np.testing.assert_allclose(0.5 * (ey + eym), chs, **tol)
+    np.testing.assert_allclose(-0.5 * (ey - eym), shs, rtol=1e-12,
+                               atol=1e-15)

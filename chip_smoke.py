@@ -10,9 +10,9 @@ Phases, each printing its own line(s):
 1. device: the card's name, power limit and maximum SM clock
    (nvidia-smi); fails without CUDA;
 2. build: every kernel source (csrc/smooth_spectra.cu, csrc/dndx.cu,
-   csrc/smooth_proto.cu; one nvcc each, all started together) and the
-   fastio host library, from this checkout's sources, with ptxas's
-   register and spill lines;
+   csrc/smooth_proto.cu, csrc/decays.cu; one nvcc each, all started
+   together) and the fastio host library, from this checkout's sources,
+   with ptxas's register and spill lines;
 3. each kernel against its plain torch version at small shapes, in f32
    (atol 2e-5 * max, rtol 2e-4) and f64 (rtol 1e-10, atol 1e-13 * max):
    the spectra kernel on every path (3+1D df 1/2, 2+1D fixed nodes, 2+1D
@@ -33,7 +33,11 @@ Phases, each printing its own line(s):
    bins, a bin of
    every cell, bins longer and shorter than one slice, two launches
    bit-identical); the spectra prototype (with masked cells, which must
-   add exactly 0) and the reduction probe;
+   add exactly 0) and the reduction probe; the decay-wave kernel's edges
+   (testing.DECAY_EDGES: 2- and 3-body, 2+1D and 3+1D; parent MT past
+   the grid, Phi in the wrap cell, |Y| > y_max with exact zeros, massless
+   daughters, adjusted masses, a row fed by many tasks, a parent at the
+   -745 floor; two launches bit-identical);
 4. operation 1 main path: a synthetic 131072-cell x 320-species 3+1D
    mode-1 run directory through ``is3d_tpu_torch.cli.main`` (df 2, shear +
    bulk, regulate, outflow, f32, native 32 x 24 x 21 grid), then the same
@@ -65,6 +69,21 @@ Phases, each printing its own line(s):
    version its agreement call -- and the median of 5; the binning kernel,
    its plain version and its library yardstick as 20 calls queued behind
    a device-side sleep, per call);
+7a. the operation-1 main path with decays: a synthetic 131072-cell x
+   320-species 3+1D run directory on the decaying list through
+   ``cli.main`` (as 4, do_resonance_decays = 1): its phases by name, the
+   waves and channel contributions it prints and the wave kernel's
+   launches, each equal to is3d_tpu's count of the list's schedule
+   (testing.DECAYS_MAIN_SCHEDULE: waves, and the waves with 2- (3-) body
+   tasks), the decay files; then the same CLI on
+   256-cell run directories on cuda and on cpu (f64), 2+1D with 24 and
+   3+1D with 16 species; then the cascade again on that run's smooth
+   spectra, wave by wave: each launch timed (CUDA events, one warm-up,
+   median of 3) beside its bound, the largest launch of each body held
+   against its plain version on the same inputs (one timed run, all its
+   buckets; the kernel record's ms, plain_ms and bound_ms are of that
+   launch, path_ms the sum over the path's launches), and the f32 cascade
+   against the f64 one;
 8. the experiments at their own shapes, each through its ``measure()``:
    the spectra prototype (32768 cells x 320 x 768 x 21; its plain version
    on the first 1024 cells) and the reduction probe (176 x 48 x 320 x 768).
@@ -72,7 +91,9 @@ Phases, each printing its own line(s):
 Bounds: the larger of the bytes over the memory rate and the operations
 over the card's FP32 and SFU rates, the spectra, dN/dX and prototype
 kernels' operations from one yardstick counted in the formula
-(kernels/smooth.py, FORMULA_OPS).  Before every path (4, 5a, 6, 8) all launch
+(kernels/smooth.py, FORMULA_OPS), the wave kernel's from its own
+(kernels/decays.py, WAVE_FORMULA_OPS) and the evaluations its inputs
+need.  Before every path (4, 5a, 6, 7a, 8) all launch
 counts are set to 0 and they are read right after it.  The line before
 the last is the kernel record as JSON; the last line is ``{"ok": true,
 "device": {...}}``.  Any failed phase exits nonzero before that line is
@@ -107,7 +128,8 @@ DNDX_CELLS = 65536
 DNDX_ARGS = ["device=cuda", "precision=f32", "operation=0", "dimension=2",
              "df_mode=1", "include_shear_deltaf=1", "include_bulk_deltaf=1",
              "regulate_deltaf=1", "outflow=1"]
-KERNEL_SOURCES = ("smooth_spectra", "dndx", "smooth_proto")
+DECAYS_ARGS = MAIN_ARGS + ["do_resonance_decays=1"]
+KERNEL_SOURCES = ("smooth_spectra", "dndx", "smooth_proto", "decays")
 # H100 SXM: SMs, FP32 and SFU lanes per SM, memory rate (bytes/s)
 N_SM, FP32_LANES, SFU_LANES, HBM_RATE = 132, 128, 16, 3.35e12
 
@@ -310,6 +332,38 @@ def phase_small_bins():
                 fail(f"dndx_bin {case}: two launches differ")
 
 
+def phase_small_decay_edges():
+    """The wave kernel's edges (testing.DECAY_EDGES: 2- and 3-body, 2+1D and
+    3+1D; MT past the grid, Phi wrap, |Y| > y_max with exact zeros,
+    massless daughters, adjusted masses, a row fed by many tasks, a parent
+    at the floor) against the plain version, f32 and f64; two launches
+    bit-identical, exact zeros kept."""
+    from is3d_tpu_torch import testing
+    from is3d_tpu_torch.kernels import decays
+    for dtype in (torch.float32, torch.float64):
+        for case in testing.DECAY_EDGES:
+            tables, tasks, wg, n_seg = testing.decay_edge_inputs(
+                case, dtype=dtype, device="cuda")
+            shape = (n_seg,) + tables.logdN.shape[1:]
+            got = torch.zeros(shape, dtype=torch.float64, device="cuda")
+            again = torch.zeros_like(got)
+            decays.decay_wave_cuda(tables, tasks, wg, got)
+            decays.decay_wave_cuda(tables, tasks, wg, again)
+            want = decays.wave_plain(tables, tasks, wg, n_seg).double()
+            torch.cuda.synchronize()
+            seen = testing.decay_edge_seen(case, tables, tasks, wg, n_seg,
+                                           want)
+            _check(f"decay_wave {str(dtype)[6:]} edge {case} ({seen})", got,
+                   want, *TOL[dtype])
+            if not torch.equal(got, again):
+                fail(f"decay_wave {dtype} {case}: two launches differ")
+            zero = want == 0
+            if (got[zero] != 0).any():
+                fail(f"decay_wave {dtype} {case}: "
+                     f"{int((got[zero] != 0).sum())} of the plain version's "
+                     f"{int(zero.sum())} exact zeros are nonzero")
+
+
 def _run_cli(argv):
     from is3d_tpu_torch import cli
     buf = io.StringIO()
@@ -341,10 +395,13 @@ def _results_ok(results, mcids, n_y):
 
 
 def phase_main_path(smi: str, name="main", dimension=3, args=MAIN_ARGS,
-                    n_nodes=21, want=None):
+                    n_nodes=21, want=None, decays=False):
     """One operation-1 CLI run at full size: 3+1D (21 rapidities) or 2+1D
-    (48 eta nodes, mT remap).  ``want``: the launch counts the run must
-    show (default: the spectra kernel once per canonical group)."""
+    (48 eta nodes, mT remap), with ``decays`` on the decaying synthetic
+    list and do_resonance_decays = 1.  ``want``: the kernels the run must
+    launch once per canonical group (default: the spectra kernel); with
+    ``decays`` also the wave kernel once per wave that has tasks of its
+    body."""
     from is3d_tpu_torch.config import load_config
     from is3d_tpu_torch.parallel.mesh import canonical_groups
     from is3d_tpu_torch.io.pdg import load_chosen_mcids
@@ -353,7 +410,7 @@ def phase_main_path(smi: str, name="main", dimension=3, args=MAIN_ARGS,
     run_dir = os.path.join(WORK, name.replace(" ", "_"))
     t0 = time.perf_counter()
     write_synthetic_run_dir(run_dir, MAIN_CELLS, MAIN_SPECIES,
-                            dimension=dimension, seed=0)
+                            dimension=dimension, seed=0, decays=decays)
     print(f"[{name}] synthetic run dir {MAIN_CELLS} cells x {MAIN_SPECIES} "
           f"species written in {time.perf_counter() - t0:.2f} s")
 
@@ -370,14 +427,22 @@ def phase_main_path(smi: str, name="main", dimension=3, args=MAIN_ARGS,
     cfg = load_config(os.path.join(run_dir, "iS3D_parameters.dat"),
                       overrides=dict(a.split("=", 1) for a in args[1:]))
     groups, _ = canonical_groups(cfg, MAIN_CELLS)
-    _expect_counts(f"{name} path", counts,
-                   {k: groups for k in want or ("smooth_spectra",)})
     mcids = load_chosen_mcids(os.path.join(
         run_dir, "PDG", "chosen_particles_urqmd_v3.3+.dat"))
+    expect = {k: groups for k in want or ("smooth_spectra",)}
+    if decays:
+        # one launch per wave that has tasks of each body
+        sched = _main_decays_schedule()
+        expect.update(decay_wave_2body=sched["waves_2body"],
+                      decay_wave_3body=sched["waves_3body"])
+    _expect_counts(f"{name} path", counts, expect)
     if len(mcids) != MAIN_SPECIES:
         fail(f"{len(mcids)} chosen species")
     _results_ok(os.path.join(run_dir, "results"), mcids,
                 n_y=n_nodes if dimension == 3 else 1)
+    if decays:
+        _decay_results_ok(os.path.join(run_dir, "results"), mcids, n_nodes,
+                          out)
     evals = MAIN_CELLS * MAIN_SPECIES * 32 * 24 * n_nodes
     t_spec = phases["smooth spectra"]
     print(f"[{name}] {smi} | prepare "
@@ -386,17 +451,71 @@ def phase_main_path(smi: str, name="main", dimension=3, args=MAIN_ARGS,
           f"cli wall {wall:.3f} s | {evals:.3e} evaluations, "
           f"{evals / t_spec:.3e} evaluations/s | launches "
           f"{counts['smooth_spectra']} = groups {groups}")
+    if decays:
+        print(f"[{name}] {smi} | phases: " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in phases.items()) + " | launches "
+            + ", ".join(f"{k} {counts[k]}" for k in
+                        ("decay_wave_2body", "decay_wave_3body")))
     return counts, run_dir, cfg, phases
+
+
+def _main_decays_schedule() -> dict:
+    """The schedule of the [decays main] list as is3d_tpu counts it
+    (testing.DECAYS_MAIN_SCHEDULE, held to is3d_tpu's own schedule by the
+    CPU tests), not as the port's schedule, which drives the launches."""
+    from is3d_tpu_torch.testing import DECAYS_MAIN_SCHEDULE as want
+    if (want["n_species"], want["seed"]) != (MAIN_SPECIES, 0):
+        fail(f"testing.DECAYS_MAIN_SCHEDULE is for {want['n_species']} "
+             f"species, seed {want['seed']}")
+    return want
+
+
+def _decay_results_ok(results, mcids, n_y, out):
+    """The decay files exist, are finite and non-negative, every species
+    gains or keeps (feed-down only adds) and the pions gain; the CLI
+    printed the channel contributions and waves of the list's schedule."""
+    m = re.search(r"Resonance decays: (\d+) channel-contributions added in "
+                  r"(\d+) waves", out)
+    want = _main_decays_schedule()
+    if not m or (int(m.group(1)), int(m.group(2))) != (
+            want["channel_contributions"], want["waves"]):
+        fail(f"the decays run printed {m and m.group(0)!r}, not "
+             f"{want['channel_contributions']} channel contributions in "
+             f"{want['waves']} waves")
+    for mcid in mcids:
+        if not os.path.isfile(os.path.join(
+                results, f"dN_pTdpTdphidy_{mcid}_resonance_decays.dat")):
+            fail(f"missing dN_pTdpTdphidy_{mcid}_resonance_decays.dat")
+    table = np.loadtxt(os.path.join(results,
+                                    "dN_dpTdphidy_resonance_decays.dat"),
+                       skiprows=1)
+    if (table.shape != (len(mcids) * n_y * 24 * 32, 4)
+            or not np.isfinite(table).all() or (table[:, 3] < 0).any()):
+        fail(f"dN_dpTdphidy_resonance_decays.dat: shape {table.shape}, "
+             "or values not finite and non-negative")
+    gain = {}
+    for mcid in (211, 22):
+        a, b = (np.loadtxt(os.path.join(results, f"dN_pTdpTdphidy_{mcid}"
+                                        f"{sfx}.dat"), skiprows=1)[:, 3]
+                for sfx in ("", "_resonance_decays"))
+        if not (np.isfinite(b).all() and (b >= a).all() and (b > a).any()):
+            fail(f"{mcid}: the decayed spectrum is not finite and above the "
+                 "smooth one")
+        gain[mcid] = b.sum() / max(a.sum(), 1e-300)
+    print(f"[decays main] {m.group(1)} channel contributions in "
+          f"{m.group(2)} waves; decayed/smooth yield on the grid: pi+ "
+          f"{gain[211]:.4f}, photon {gain[22]:.3e}")
 
 
 def phase_small_path_cpu_vs_cuda(name="small", dimension=3, params=None,
                                  args=("df_mode=2", "regulate_deltaf=1"),
-                                 label="3+1D df2"):
+                                 label="3+1D df2", n_species=11,
+                                 decays=False):
     """The whole CLI path on cuda and on cpu, f64, on a small run dir."""
     from is3d_tpu_torch.testing import write_synthetic_run_dir
     run_dir = os.path.join(WORK, name)
-    write_synthetic_run_dir(run_dir, 256, 11, dimension=dimension, seed=1,
-                            params=params)
+    write_synthetic_run_dir(run_dir, 256, n_species, dimension=dimension,
+                            seed=1, params=params, decays=decays)
     trees = {}
     for device in ("cuda", "cpu"):
         results = os.path.join(run_dir, f"results_{device}")
@@ -419,7 +538,8 @@ def phase_small_path_cpu_vs_cuda(name="small", dimension=3, params=None,
                      "differs between cuda and cpu beyond 1e-6")
             worst = max(worst, float(err.max() / np.abs(va).max()))
             n_files += 1
-    print(f"[{name} path] 256 cells x 11 species {label} f64: {n_files} "
+    print(f"[{name} path] 256 cells x {n_species} species {label} f64: "
+          f"{n_files} "
           f"result files agree between cuda and cpu (max difference "
           f"{worst:.2e} of each file's largest value)")
     if n_files == 0:
@@ -454,7 +574,7 @@ def phase_pair(smi: str, clock: float, run_dir: str, cfg, tag="pair",
     from is3d_tpu_torch.parallel.mesh import canonical_groups
 
     run = IS3D(cfg, data_dir=run_dir, device="cuda")
-    df_data, species, _, grid = run._prepare()
+    _, df_data, species, _, grid = run._prepare()
     cols = surface_columns(run.surface, cfg)
     _, gs = canonical_groups(cfg, run.surface.n_cells)
     group = {k: v[:gs] for k, v in cols.items()}
@@ -534,25 +654,28 @@ def _issued(library: str, kernel: str) -> str:
 
 
 def _modules():
-    from is3d_tpu_torch.kernels import smooth, dndx
+    from is3d_tpu_torch.kernels import smooth, dndx, decays
     from is3d_tpu_torch.experiments import smooth_proto, dndx_reduce_probe
-    return smooth, dndx, smooth_proto, dndx_reduce_probe
+    return smooth, dndx, smooth_proto, dndx_reduce_probe, decays
 
 
 def _reset_counts():
-    smooth, dndx, proto, probe = _modules()
+    smooth, dndx, proto, probe, decays = _modules()
     smooth.LAUNCHES = smooth.REMAP_LAUNCHES = 0
     dndx.LAUNCHES = dndx.BIN_LAUNCHES = 0
     proto.LAUNCHES = probe.LAUNCHES = 0
+    decays.TWO_BODY_LAUNCHES = decays.THREE_BODY_LAUNCHES = 0
 
 
 def _counts() -> dict:
-    smooth, dndx, proto, probe = _modules()
+    smooth, dndx, proto, probe, decays = _modules()
     return dict(smooth_spectra=smooth.LAUNCHES,
                 smooth_spectra_remap=smooth.REMAP_LAUNCHES,
                 dndx=dndx.LAUNCHES,
                 dndx_bin=dndx.BIN_LAUNCHES, smooth_proto=proto.LAUNCHES,
-                dndx_probe=probe.LAUNCHES)
+                dndx_probe=probe.LAUNCHES,
+                decay_wave_2body=decays.TWO_BODY_LAUNCHES,
+                decay_wave_3body=decays.THREE_BODY_LAUNCHES)
 
 
 def _expect_counts(path: str, counts: dict, want: dict):
@@ -755,7 +878,7 @@ def phase_dndx_pair(smi: str, clock: float, run_dir: str, cfg):
     from is3d_tpu_torch.parallel.mesh import canonical_groups
 
     run = IS3D(cfg, data_dir=run_dir, device="cuda")
-    df_data, species, _, grid = run._prepare()
+    _, df_data, species, _, grid = run._prepare()
     _, gs = canonical_groups(cfg, run.surface.n_cells)
     cells, mom, flags, wM, wR, plan = _dndx_group_inputs(
         run.surface, species, grid, df_data, cfg, gs)
@@ -834,6 +957,116 @@ def phase_dndx_pair(smi: str, clock: float, run_dir: str, cfg):
     return rec_dndx, rec_bin
 
 
+def phase_decays_pair(smi: str, clock: float, run_dir: str, cfg):
+    """The wave kernel on the main decays path's own waves: the smooth
+    spectra of the run directory (f32, recomputed), then wave by wave each
+    launch timed (CUDA events into a scratch accumulator, one warm-up,
+    median of 3) beside its bound, and the cascade carried on.  The
+    largest launch of each body is held against its plain version on the
+    same inputs (all its buckets, one timed run).  Then the f32 cascade
+    against the f64 one on the same spectra."""
+    from is3d_tpu_torch.api import IS3D
+    from is3d_tpu_torch.utils import cuda_median_ms
+    from is3d_tpu_torch.kernels import decays
+
+    run = IS3D(cfg.replace(do_resonance_decays=0), data_dir=run_dir,
+               device="cuda")
+    spectra = torch.as_tensor(run.run_particlization(
+        write_files=False).spectra, device="cuda")
+    table, _, _, mcids, grid = run._prepare()
+    pT64 = grid.pT.to("cpu", torch.float64).numpy()
+    waves = decays.plan_waves(decays._decay_schedule(
+        table, mcids, pT64, cfg.lightest_particle))
+    wg = decays.wave_grid(grid, cfg.dimension, torch.float32, "cuda")
+    staged = decays.stage_waves(waves, pT64, torch.float32, "cuda")
+    acc = spectra.double()
+    scratch = torch.zeros_like(acc)
+    largest = {}
+    total = {2: 0.0, 3: 0.0}
+    for i, st in enumerate(staged):
+        tables = decays.parent_tables(acc, st.rows, st.masses, st.mtg,
+                                      torch.float32)
+        for tasks in st.launches:
+            kern = lambda: decays.decay_wave_cuda(tables, tasks, wg, scratch)
+            kern()
+            ms, runs = cuda_median_ms(kern, 3)
+            evals = decays.wave_evaluations(tasks, wg)
+            fed = tasks.target.shape[0] * acc[0].numel() * 8
+            nbytes = (_nbytes(tables.logdN, tables.tc, tables.ts, tables.mtg,
+                              tasks.slot, tasks.par) + 2 * fed)
+            bound = _bound(evals, *decays.WAVE_FORMULA_OPS[cfg.dimension],
+                           nbytes, clock)
+            total[tasks.nbody] += ms
+            print(f"[decays pair] {smi} | wave {i} {tasks.nbody}-body: "
+                  f"{tasks.slot.shape[0]} tasks on {st.rows.shape[0]} slots, "
+                  f"{evals:.3e} evaluations: kernel {ms:.3f} ms (runs "
+                  f"{', '.join(f'{t:.3f}' for t in runs)}), bound "
+                  f"{bound[0]:.3f} ms ({bound[1]}), {bound[0] / ms:.1%} of "
+                  f"it, {evals / ms * 1e3:.3e} evaluations/s")
+            if evals > largest.get(tasks.nbody, (0,))[0]:
+                largest[tasks.nbody] = (evals, i, tables, tasks, ms, bound)
+            decays.decay_wave_cuda(tables, tasks, wg, acc)
+    torch.cuda.synchronize()
+    print(f"[decays pair] {smi} | kernel time over the path's launches: "
+          f"2-body {total[2]:.3f} ms, 3-body {total[3]:.3f} ms")
+
+    records = {}
+    # ms, plain_ms and bound_ms are of the largest launch ("launch"); the
+    # path's launches differ in size by two orders of magnitude, path_ms
+    # sums them
+    for nbody, (evals, i, tables, tasks, ms, bound) in sorted(
+            largest.items()):
+        got = torch.zeros_like(acc)
+        again = torch.zeros_like(acc)
+        decays.decay_wave_cuda(tables, tasks, wg, got)
+        decays.decay_wave_cuda(tables, tasks, wg, again)
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        want = decays.wave_plain(tables, tasks, wg, acc.shape[0])
+        t1.record()
+        t1.synchronize()
+        p_ms = t0.elapsed_time(t1)
+        if not torch.equal(got, again):
+            fail(f"decay_wave {nbody}-body (pair): two launches differ")
+        err = _check(f"decay_wave float32 {nbody}-body wave {i} of the main "
+                     f"path ({tasks.slot.shape[0]} tasks)", got,
+                     want.double(), *TOL[torch.float32])
+        bucket = decays.WAVE_BUCKET[cfg.dimension]
+        n_buckets = -(-tasks.slot.shape[0] // bucket)
+        print(f"[decays pair] {smi} | {nbody}-body wave {i}: kernel "
+              f"{ms:.3f} ms, plain {p_ms:.1f} ms on the same launch "
+              f"({n_buckets} buckets of {bucket} tasks, "
+              f"{p_ms / n_buckets:.1f} ms a bucket), plain/kernel "
+              f"{p_ms / ms:.1f}; bound {bound[0]:.3f} ms ({bound[1]}); two "
+              "launches bit-identical")
+        records[nbody] = dict(launches=None, max_abs_err=err, ms=ms,
+                              plain_ms=p_ms, bound_ms=bound[0],
+                              bound_by=bound[1], library_ms=None,
+                              launch=f"wave {i}, the largest",
+                              path_ms=total[nbody])
+        del want, got, again
+
+    # the f32 cascade (the main path's) against f64 on the same spectra
+    grid64 = grid.to(dtype=torch.float64)
+    with contextlib.redirect_stdout(io.StringIO()):
+        f32 = decays.do_resonance_decays(spectra, table, mcids, grid, cfg)
+        f64 = decays.do_resonance_decays(spectra.double(), table, mcids,
+                                         grid64, cfg)
+    torch.cuda.synchronize()
+    if not torch.isfinite(f32).all():
+        fail("the f32 cascade has non-finite values")
+    gain = (f64 - spectra.double()).abs().amax(dim=(1, 2, 3))
+    diff = (f32 - f64).abs().amax(dim=(1, 2, 3))
+    scale = f64.abs().amax(dim=(1, 2, 3))
+    fed = gain > 0
+    print(f"[decays pair] {smi} | f32 cascade against f64 on the same "
+          f"spectra: largest difference {(diff / scale).max().item():.2e} "
+          f"of a species' largest value, "
+          f"{(diff[fed] / gain[fed]).max().item():.2e} of its largest "
+          f"feed-down ({int(fed.sum())} species fed)")
+    return records
+
+
 def _kernel_split(fn, calls: int = 20, tries: int = 3) -> str:
     """Device time per call of ``fn`` by CUDA kernel name, from
     torch.profiler over ``calls`` calls, or "not measured" where the
@@ -862,7 +1095,7 @@ def _kernel_split(fn, calls: int = 20, tries: int = 3) -> str:
 def phase_experiments(smi: str, clock: float):
     """Each experiment at its own shape through its measure(): the counts
     are set to 0 before it and read after it."""
-    _, _, proto, probe = _modules()
+    _, _, proto, probe, _ = _modules()
     records = {}
     for name, mod in (("smooth_proto", proto), ("dndx_probe", probe)):
         _reset_counts()
@@ -903,6 +1136,7 @@ def main():
     phase_small_dndx_edges()
     phase_small_bins()
     phase_small_experiments()
+    phase_small_decay_edges()
     shutil.rmtree(WORK, ignore_errors=True)
     try:
         counts, run_dir, cfg, _ = phase_main_path(smi)
@@ -927,6 +1161,20 @@ def main():
         rec_dndx, rec_bin = phase_dndx_pair(smi, clock, dndx_dir, dndx_cfg)
         rec_dndx["launches"] = counts["dndx"]
         rec_bin["launches"] = counts["dndx_bin"]
+        shutil.rmtree(dndx_dir, ignore_errors=True)
+        counts, run_dir, cfg, _ = phase_main_path(
+            smi, "decays main", args=DECAYS_ARGS, decays=True)
+        # 3+1D with 16 species (through the photon and omega, so 2- and
+        # 3-body and a massless daughter): the CPU's plain 3-body waves on
+        # the native 21-rapidity grid take 1.5 min at 17 species
+        for dimension, n_species in ((2, 24), (3, 16)):
+            phase_small_path_cpu_vs_cuda(
+                f"small_decays_{dimension}d", dimension=dimension,
+                label=f"{dimension}+1D df2 with decays",
+                n_species=n_species, decays=True)
+        rec_decays = phase_decays_pair(smi, clock, run_dir, cfg)
+        for nbody in (2, 3):
+            rec_decays[nbody]["launches"] = counts[f"decay_wave_{nbody}body"]
         experiments = phase_experiments(smi, clock)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
@@ -948,6 +1196,10 @@ def main():
         dict(name="smooth_proto", route="cuda", source=src + "smooth_proto.cu",
              replaces="experiments/pallas_smooth_proto.py:36",
              **experiments["smooth_proto"]),
+        dict(name="decay_wave_2body", route="cuda", source=src + "decays.cu",
+             replaces="is3d_tpu/kernels/decays.py:583", **rec_decays[2]),
+        dict(name="decay_wave_3body", route="cuda", source=src + "decays.cu",
+             replaces="is3d_tpu/kernels/decays.py:600", **rec_decays[3]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,8 +2,9 @@
 
 The port of ``is3d_tpu`` (JAX on a TPU) to PyTorch with hand-written Hopper
 kernels.  It runs operation 0 (dN/dX spacetime distributions) and operation
-1 (smooth spectra) with linear delta-f (df 1-2) on viscous-hydro surfaces
-end to end: the reference's run directory in, its results tree out.
+1 (smooth spectra and the resonance-decay feed-down) with linear delta-f
+(df 1-2) on viscous-hydro surfaces end to end: the reference's run
+directory in, its results tree out.
 Imports torch and numpy, never jax.
 """
 

@@ -7,9 +7,10 @@ tensor lives on the device given to ``IS3D(..., device=...)``; a request for
 CUDA on a machine without it raises instead of running on the CPU.
 
 The port runs operation 0 (dN/dX spacetime distributions) and operation 1
-(smooth spectra) on viscous-hydro surfaces with linear delta-f (df 1-2);
-the other paths raise NotImplementedError naming the ROADMAP slice that
-ports them.
+(smooth spectra, with the resonance-decay feed-down when
+do_resonance_decays = 1) on viscous-hydro surfaces with linear delta-f (df
+1-2); the other paths raise NotImplementedError naming the ROADMAP slice
+that ports them.
 """
 
 from __future__ import annotations
@@ -83,8 +84,6 @@ def check_supported(cfg: Config):
         _not_ported(f"df_mode {cfg.df_mode} (feqmod)", "slice 6", cfg)
     if cfg.df_mode not in (1, 2):
         raise ValueError(f"df_mode must be 1-4, got {cfg.df_mode}")
-    if cfg.operation == 1 and cfg.do_resonance_decays:
-        _not_ported("do_resonance_decays=1 (feed-down)", "slice 4", cfg)
     if cfg.precision not in _DTYPES:
         raise ValueError(f"precision must be one of {sorted(_DTYPES)}, got "
                          f"{cfg.precision!r}")
@@ -158,7 +157,8 @@ class IS3D:
 
     def _prepare(self):
         """Host-side tables (PDG, df coefficients, densities) and the
-        device-side species, grid and df data."""
+        device-side species, grid and df data: (particle_table, df_data,
+        species, chosen mcids, grid)."""
         cfg = self.cfg
         if self.surface is None:
             self.read_fo_surf_from_file()
@@ -203,7 +203,7 @@ class IS3D:
         else:
             grid = native_momentum_grid(cfg.dimension, dtype=self._dtype,
                                         device=self.device)
-        return df_data, species, chosen_mcids, grid
+        return particle_table, df_data, species, chosen_mcids, grid
 
     def run_particlization(self, write_files: bool = True,
                            timer=None) -> RunResult:
@@ -216,7 +216,7 @@ class IS3D:
             # a rerun into the same results_dir must not duplicate blocks
             writers.clean_results_dir(self.results_dir)
         with timer.phase("prepare (io, pdg, deltaf)"):
-            df_data, species, mcids, grid = self._prepare()
+            particle_table, df_data, species, mcids, grid = self._prepare()
 
         result = RunResult(mcids=np.asarray(mcids), averages=self.averages)
         if cfg.operation == 1:
@@ -226,10 +226,27 @@ class IS3D:
                                          df_data, cfg)
                 # the host copy waits for the device: the phase includes it
                 result.spectra = spectra.cpu().numpy()
+            # before the dispatch: a copy to the host waits for the stream
+            host_grid = grid.to("cpu")
+            decayed = None
+            if cfg.do_resonance_decays:
+                from .kernels.decays import do_resonance_decays
+                # the cascade is queued on the device and runs while the
+                # host writes the smooth files; reading it back waits
+                with timer.phase("resonance decays dispatch"):
+                    decayed = do_resonance_decays(spectra, particle_table,
+                                                  mcids, grid, cfg)
             if write_files:
                 with timer.phase("writers"):
-                    self._write_smooth_files(result.spectra, grid.to("cpu"),
+                    self._write_smooth_files(result.spectra, host_grid,
                                              mcids, self.results_dir)
+            if decayed is not None:
+                with timer.phase("resonance decays"):
+                    result.spectra = decayed.cpu().numpy()
+                if write_files:
+                    with timer.phase("decay writers"):
+                        self._write_decay_files(result.spectra, host_grid,
+                                                mcids, self.results_dir)
         else:
             from .kernels.dndx import spacetime_distributions
             with timer.phase("dN/dX spacetime"):
@@ -255,3 +272,11 @@ class IS3D:
                                 results_dir)
         writers.write_dN_twopipTdpTdy(spectra, grid, mcids, cfg.dimension,
                                       results_dir)
+
+    def _write_decay_files(self, decayed, grid, mcids, results_dir):
+        """The feed-down's files (reference: is3d_tpu/api.py:562-569)."""
+        dim = self.cfg.dimension
+        writers.write_dN_pTdpTdphidy(decayed, grid, mcids, dim, results_dir,
+                                     suffix="_resonance_decays")
+        writers.write_dN_dpTdphidy(decayed, grid, mcids, dim, results_dir,
+                                   suffix="_resonance_decays")

@@ -89,6 +89,9 @@ class Config:
                                 # tree (parallel/mesh.py): one kernel launch
                                 # per group, partials folded in group order
 
+    def replace(self, **kw) -> "Config":
+        return dataclasses.replace(self, **kw)
+
 
 _FIELD_TYPES = {f.name: f.type for f in dataclasses.fields(Config)}
 _INT_FIELDS = {

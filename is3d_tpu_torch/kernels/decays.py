@@ -1,0 +1,761 @@
+"""Resonance-decay feed-down on smooth spectra (2- and 3-body).
+
+Port of ``is3d_tpu.kernels.decays`` (its module docstring gives the
+physics, the reference's layout and the deliberate fixes of its defects).
+For each unstable parent R and each channel R -> 1 + 2 (+ 3), the daughter
+spectrum gains
+
+    dN_1/(pT dpT dphi dy) += pref * int dv dzeta MT dN_R(Y, MT, Phi)
+
+with 12-point Gauss-Legendre rules in v (Y = y + v DeltaY) and zeta (MT =
+MTbar + DeltaMT cos zeta), the parent's log spectrum interpolated
+bilinearly in (MT, Phi) (trilinearly with Y in 3+1D) and continued as
+exp(c + s MT) past its MT grid; 3-body channels add an outer 12-point
+integral over the invariant mass s of the (2, 3) pair.
+
+The cascade runs in three layers:
+
+1. ``_decay_schedule`` (host, numpy): a static function of the particle
+   table and the chosen list.  Per parent its channel-group tasks
+   (kinematics and prefactors) and its wave: a parent decays after every
+   heavier parent that feeds it, and the parents of one wave decay
+   together.  ``plan_waves`` gives each wave its parent slots, one per
+   (parent, adjusted mass), since the MT tail fit takes the adjusted
+   mass's MT grid.
+2. ``prepare_parents`` (torch on the spectra's device): the patched log
+   tables and the MT tail fit of a wave's slots, read from the running
+   spectra.
+3. The wave integrals: ``decay_wave_cuda`` (the hand-written kernel
+   csrc/decays.cu) for CUDA tensors, ``two_body_wave_plain`` and
+   ``three_body_wave_plain`` (the gather form of the reference's
+   evaluators, in buckets of tasks) for CPU tensors.
+
+``do_resonance_decays`` keeps the spectra on their device from the first
+wave to the last: every host-to-device copy is made before the first
+launch, all-zero parents are evaluated (their log table is the -745 floor,
+so they add exp(-745) ~ 0) instead of skipped after a read-back, and the
+waves accumulate into a float64 copy of the spectra whatever the wave's
+dtype.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..tensors import TensorContainer
+from .launch import check_float, check_tensor, require_cuda, launch
+
+TWO_PI = 2.0 * math.pi
+GAUSS_PTS = 12
+_GL_X, _GL_W = np.polynomial.legendre.leggauss(GAUSS_PTS)
+_Q_X, _Q_W = np.polynomial.legendre.leggauss(24)
+
+MT_FIT_THRESHOLD2 = 2.73   # mT^2 > 2.73 M^2 for tail-fit points (ref :2063)
+
+# tasks per call of the plain integrals: bounds their (tasks, pT, phi, y,
+# v, zeta) temporaries
+WAVE_BUCKET = {2: 256, 3: 32}
+
+# launches of csrc/decays.cu in this process (decay_wave_cuda), by body
+TWO_BODY_LAUNCHES = 0
+THREE_BODY_LAUNCHES = 0
+
+# The yardstick of the wave kernel's bound: FP32 and SFU operations per
+# evaluation, one Phi solution at one (task, pT, phi, y, v, zeta[, s])
+# inside the MT grid, an FMA as one operation, everything of fewer indices
+# hoisted: Phi = Phi~ +- phi (1), the wrap to [0, 2 pi) (2), the phi
+# weight (2), the bilinear (MT, phi) lerp of one rapidity plane (3 lerps
+# of 2), in 3+1D two planes and the Y lerp (14), exp (1 FP32 + 1 SFU), the
+# weighted sum (1).
+WAVE_FORMULA_OPS = {2: (13, 1), 3: (21, 1)}
+
+
+# ======================================================================
+# schedule (host, numpy)
+# ======================================================================
+
+def _q_factor(M, m1, m2, m3):
+    """Normalization Q = int_{s-}^{s+} ds g(s) (reference :99-121)."""
+    a = (M + m1) ** 2
+    b = (M - m1) ** 2
+    c = (m2 + m3) ** 2
+    d = (m2 - m3) ** 2
+    s = c + (b - c) * (1.0 + _Q_X) / 2.0
+    return float(np.sum(_Q_W * (b - c)
+                        * np.sqrt(np.abs((a - s) * (b - s) * (s - c) * (s - d)))
+                        / (2.0 * s)))
+
+
+def _group_daughters(daughter_idx, chosen_pos):
+    """Group chosen daughters by species -> list of (table_idx, multiplicity,
+    other_daughter_table_indices)."""
+    groups = {}
+    for di in daughter_idx:
+        if di in chosen_pos:
+            if di not in groups:
+                others = list(daughter_idx)
+                others.remove(di)
+                groups[di] = [0, others]
+            groups[di][0] += 1
+    return [(di, mult, others) for di, (mult, others) in groups.items()]
+
+
+def _decay_schedule(table, mcids, pT, lightest):
+    """Per-parent channel-group tasks and the wave level of every parent,
+    a static function of the particle table and the chosen list (never of
+    the spectra).  Returns (parent_rows, tasks2, tasks3, level): the chosen
+    row of each decaying parent, heaviest first; per parent its 2-body
+    tasks (seg, pref, MT_grid, m2, Estar, pstar, M) and 3-body tasks (seg,
+    pref, MT_grid, m2, M, s_minus, s_plus, d), seg the daughter's chosen
+    row; the wave of each parent."""
+    mcids = np.asarray(mcids)
+    chosen_table_idx = np.array([table.index_of_mcid(int(m)) for m in mcids])
+    chosen_pos = {int(ti): i for i, ti in enumerate(chosen_table_idx)}
+
+    # heaviest -> lightest among chosen, skip the lightest particle
+    order = np.argsort(-table.mass[chosen_table_idx], kind="stable")
+
+    parent_rows = []
+    parent_tasks2 = []
+    parent_tasks3 = []
+    for ichosen in order:
+        ti = int(chosen_table_idx[ichosen])
+        if table.stable[ti]:
+            continue
+        if int(mcids[ichosen]) == int(lightest):
+            continue
+        mass_parent0 = float(table.mass[ti])
+        width_parent = float(table.width[ti])
+        tasks2 = []
+        tasks3 = []
+
+        for ch in range(len(table.decays_branch[ti])):
+            branch = float(table.decays_branch[ti][ch])
+            nd = abs(int(table.decays_n[ti][ch]))
+            if branch <= 0.0 or nd in (0, 1) or nd > 3:
+                continue
+            d_mcids = [int(m) for m in table.decays_part[ti][ch][:nd]]
+            try:
+                d_idx = [table.index_of_mcid(m) for m in d_mcids]
+            except KeyError:
+                continue
+
+            if nd == 2:
+                i1, i2 = d_idx
+                m1 = float(table.mass[i1])
+                m2 = float(table.mass[i2])
+                M = mass_parent0
+                # width shift to open sub-threshold channels (ref
+                # :242-258); with all three widths zero the channel is
+                # closed outright (the loop could not make progress)
+                closed = False
+                w_par = 0.25 * width_parent
+                w1 = 0.5 * float(table.width[i1])
+                w2 = 0.5 * float(table.width[i2])
+                if m1 + m2 > M and w_par == 0.0 and w1 == 0.0 and w2 == 0.0:
+                    closed = True
+                while not closed and m1 + m2 > M:
+                    M += w_par
+                    m1 -= w1
+                    m2 -= w2
+                    if m1 < 0.0 or m2 < 0.0:
+                        closed = True
+                if closed:
+                    continue
+                adj_mass = {i1: m1, i2: m2}
+                MT_grid = np.sqrt(pT ** 2 + M ** 2)
+                for di, mult, others in _group_daughters(d_idx, chosen_pos):
+                    ma = adj_mass[di]
+                    # Estar takes the *other* daughter's adjusted mass
+                    mb = adj_mass[others[0]]
+                    Estar = (M * M + ma * ma - mb * mb) / (2.0 * M)
+                    pstar2 = Estar * Estar - ma * ma
+                    if pstar2 <= 0.0:
+                        continue
+                    pstar = math.sqrt(pstar2)
+                    pref = mult * M * branch / (8.0 * pstar)
+                    tasks2.append((chosen_pos[di], pref, MT_grid, ma * ma,
+                                   Estar, pstar, M))
+            else:
+                M = mass_parent0
+                for di, mult, others in _group_daughters(d_idx, chosen_pos):
+                    ma = float(table.mass[di])
+                    mb = float(table.mass[others[0]])
+                    mc_ = float(table.mass[others[1]])
+                    s_plus = (M - ma) ** 2
+                    s_minus = (mb + mc_) ** 2
+                    d_ = (mb - mc_) ** 2
+                    if s_plus <= s_minus:
+                        continue  # kinematically closed at the table masses
+                    Q = _q_factor(M, ma, mb, mc_)
+                    if Q <= 0.0:
+                        continue
+                    MT_grid = np.sqrt(pT ** 2 + M ** 2)
+                    pref = mult * M * M * (s_plus - s_minus) * branch / (8.0 * Q)
+                    tasks3.append((chosen_pos[di], pref, MT_grid, ma * ma,
+                                   M, s_minus, s_plus, d_))
+
+        if tasks2 or tasks3:
+            parent_rows.append(int(ichosen))
+            parent_tasks2.append(tasks2)
+            parent_tasks3.append(tasks3)
+
+    # levelize: a parent waits for the heavier parents that feed it.  Feed
+    # from a lighter parent into a heavier one (width-shifted channels)
+    # still lands in the heavier spectrum but after its decay, as in the
+    # reference's mass-ordered sequential cascade.
+    row_to_slot = {r: i for i, r in enumerate(parent_rows)}
+    level = np.zeros(len(parent_rows), dtype=np.int64)
+    for i in range(len(parent_rows)):      # mass-descending order
+        targets = [row_to_slot.get(t[0])
+                   for t in parent_tasks2[i] + parent_tasks3[i]]
+        # i feeds an already-processed heavier parent j: run i no earlier
+        # than j (the same wave reads j's spectrum before any add lands)
+        for j in targets:
+            if j is not None and j < i:
+                level[i] = max(level[i], level[j])
+        # lighter parents fed by i decay strictly after i
+        for j in targets:
+            if j is not None and j > i:
+                level[j] = max(level[j], level[i] + 1)
+    return parent_rows, parent_tasks2, parent_tasks3, level
+
+
+@dataclass(frozen=True)
+class WavePlan:
+    """One wave on the host: the chosen row and the (adjusted) mass of each
+    parent slot, and the tasks with their slot, in schedule order:
+    2-body (seg, pref, slot, m2, Estar, pstar, M), 3-body (seg, pref,
+    slot, m2, M, s_minus, s_plus, d)."""
+    rows: list
+    masses: list
+    tasks2: list
+    tasks3: list
+
+
+def plan_waves(schedule) -> list:
+    """The schedule's waves, each parent with one slot per distinct
+    (adjusted) mass among its tasks."""
+    parent_rows, tasks2, tasks3, level = schedule
+    n_waves = int(level.max()) + 1 if len(parent_rows) else 0
+    waves = []
+    for w in range(n_waves):
+        rows, masses, t2, t3 = [], [], [], []
+        for i in np.nonzero(level == w)[0]:
+            slot_by_M = {}
+
+            def slot_for(M, _row=parent_rows[i], _s=slot_by_M):
+                if M not in _s:
+                    _s[M] = len(rows)
+                    rows.append(_row)
+                    masses.append(M)
+                return _s[M]
+
+            t2 += [(t[0], t[1], slot_for(t[6])) + t[3:] for t in tasks2[i]]
+            t3 += [(t[0], t[1], slot_for(t[4])) + t[3:] for t in tasks3[i]]
+        waves.append(WavePlan(rows, masses, t2, t3))
+    return waves
+
+
+# ======================================================================
+# device-side inputs of the wave integrals
+# ======================================================================
+
+@dataclass(frozen=True)
+class WaveGrid(TensorContainer):
+    """The momentum grid and the quadrature rules of the wave integrals:
+    quad (3, 12) = Gauss-Legendre nodes x, weights w, cos(pi (1 + x) / 2)
+    (the zeta nodes); y is (1,) in 2+1D."""
+    pT: torch.Tensor
+    phi: torch.Tensor
+    y: torch.Tensor
+    quad: torch.Tensor
+    dimension: int
+
+
+def wave_grid(grid, dimension: int, dtype, device) -> WaveGrid:
+    x = torch.as_tensor(_GL_X, dtype=dtype)
+    quad = torch.stack([x, torch.as_tensor(_GL_W, dtype=dtype),
+                        torch.cos(0.5 * math.pi * (1.0 + x))])
+    t = lambda a: a.to(device=device, dtype=dtype).contiguous()
+    return WaveGrid(pT=t(grid.pT), phi=t(grid.phi),
+                    y=t(grid.y[:1] if dimension == 2 else grid.y),
+                    quad=quad.to(device).contiguous(), dimension=dimension)
+
+
+@dataclass(frozen=True)
+class ParentTables(TensorContainer):
+    """A wave's parent slots: logdN (U, P, F, Y) patched log spectra; tc, ts
+    (U, F, Y) the MT tail's const and slope; mtg (U, P) the MT grid
+    sqrt(pT^2 + M^2) of the slot's mass."""
+    logdN: torch.Tensor
+    tc: torch.Tensor
+    ts: torch.Tensor
+    mtg: torch.Tensor
+
+
+@dataclass(frozen=True)
+class WaveTasks(TensorContainer):
+    """One launch: the 2- or 3-body tasks of a wave.  par (K, 6) = pref,
+    m2, Estar, pstar, M, 0 (2-body) or pref, m2, M, s_minus, s_plus, d
+    (3-body); seg (K,) the target row of each task; the fold's plan: the
+    rows fed (target), and for each the tasks feeding it in schedule order
+    (order[tstart[t]:tstart[t + 1]])."""
+    nbody: int
+    slot: torch.Tensor     # (K,) int32
+    seg: torch.Tensor      # (K,) int64
+    par: torch.Tensor      # (K, 6)
+    order: torch.Tensor    # (K,) int32
+    target: torch.Tensor   # (n_target,) int32
+    tstart: torch.Tensor   # (n_target + 1,) int32
+
+
+def wave_tasks(nbody: int, tasks: list, dtype, device) -> WaveTasks:
+    """WaveTasks of the host task tuples of WavePlan."""
+    seg = np.array([t[0] for t in tasks], dtype=np.int64)
+    par = np.zeros((len(tasks), 6))
+    par[:, 0] = [t[1] for t in tasks]
+    par[:, 1:len(tasks[0]) - 2] = [t[3:] for t in tasks]
+    order = np.argsort(seg, kind="stable")
+    target, counts = np.unique(seg, return_counts=True)
+    tstart = np.concatenate([[0], np.cumsum(counts)])
+    i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=device)
+    return WaveTasks(
+        nbody=nbody, slot=i32([t[2] for t in tasks]),
+        seg=torch.as_tensor(seg, device=device),
+        par=torch.as_tensor(par, dtype=dtype, device=device),
+        order=i32(order), target=i32(target), tstart=i32(tstart))
+
+
+def prepare_parents(parents: torch.Tensor, mtg: torch.Tensor,
+                    masses: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """(U, P, F, Y) parent spectra -> (patched log (U, P, F, Y), tail const
+    and slope (U, F, Y)): per (slot, phi, y) column, the least-squares line
+    log dN = c + s MT through the relativistic finite points (MT >
+    sqrt(2.73) M; the last two finite points where fewer than two are),
+    and every non-finite log replaced by the line; const -745 and slope 0
+    where no line fits.  mtg (U, P) the slots' MT grids, masses (U,)
+    float64."""
+    dtype = parents.dtype
+    pos = parents > 0.0
+    logdN = torch.where(pos, torch.log(torch.where(pos, parents, 1.0)),
+                        -math.inf)
+    mt = mtg[:, :, None, None]
+    mT_min = (MT_FIT_THRESHOLD2 ** 0.5 * masses).to(dtype)[:, None, None,
+                                                             None]
+    finite = torch.isfinite(logdN)
+    primary = finite & (mt > mT_min)
+    # 1 at the last finite point of a column, 2 at the one before, ...
+    rank_from_end = torch.flip(torch.cumsum(
+        torch.flip(finite.to(torch.int32), [1]), 1), [1])
+    fallback = finite & (rank_from_end <= 2)
+    sel = torch.where(primary.sum(1, keepdim=True) >= 2, primary, fallback)
+    self_f = sel.to(dtype)
+    ylog = torch.where(sel, logdN, 0.0)
+    S0 = self_f.sum(1)
+    S1 = (self_f * mt).sum(1)
+    S2 = (self_f * mt * mt).sum(1)
+    T0 = ylog.sum(1)
+    T1 = (ylog * mt).sum(1)
+    det = S0 * S2 - S1 * S1
+    ok = (S0 >= 2) & (det.abs() > 0.0)
+    safe_det = torch.where(ok, det, 1.0)
+    slope = torch.where(ok, (S0 * T1 - S1 * T0) / safe_det, 0.0)
+    const = torch.where(ok, (T0 * S2 - T1 * S1) / safe_det, -745.0)
+    patched = torch.where(finite, logdN, const[:, None] + slope[:, None] * mt)
+    return patched.contiguous(), const.contiguous(), slope.contiguous()
+
+
+def parent_tables(acc: torch.Tensor, rows: torch.Tensor,
+                  masses: torch.Tensor, mtg: torch.Tensor,
+                  dtype) -> ParentTables:
+    """A wave's ParentTables from the running float64 spectra ``acc`` (S,
+    P, F, Y): slot u reads row rows[u] with mass masses[u] (float64) and
+    MT grid mtg[u], in the wave's ``dtype``."""
+    parents = acc.index_select(0, rows).to(dtype)
+    logdN, tc, ts = prepare_parents(parents, mtg, masses)
+    return ParentTables(logdN=logdN, tc=tc, ts=ts, mtg=mtg)
+
+
+# ======================================================================
+# plain versions of the wave integrals (torch, gather form)
+# ======================================================================
+
+def _interp_phi_indices(phi, Phip):
+    """Wrap-around linear interpolation stencil in Phip.
+    Returns (iL, iR, wL, wR)."""
+    F = phi.shape[0]
+    inside = (Phip >= phi[0]) & (Phip <= phi[-1])
+    iR_in = torch.searchsorted(phi, Phip).clamp(1, F - 1)
+    iL_in = iR_in - 1
+    # outside: between (phi[-1] - 2 pi) and phi[0]; the angle is mapped
+    # near 0 (the reference's expression, kept as it is)
+    Phip_out = Phip - torch.floor(Phip / math.pi) * TWO_PI
+    phiL = torch.where(inside, phi[iL_in], phi[-1] - TWO_PI)
+    phiR = torch.where(inside, phi[iR_in], phi[0])
+    x = torch.where(inside, Phip, Phip_out)
+    iL = torch.where(inside, iL_in, F - 1)
+    iR = torch.where(inside, iR_in, 0)
+    t = (x - phiL) / (phiR - phiL)
+    return iL, iR, 1.0 - t, t
+
+
+def _eval_parent_pair(tables: ParentTables, slot, wg: WaveGrid, MT, Phip1,
+                      Phip2, Y):
+    """Sum of exp(log dN) at (MT, Phip1[, Y]) and (MT, Phip2[, Y]): the
+    gather form of the reference's evaluators (_eval_parent_2d_pair_gather,
+    _eval_parent_3d_pair_gather), batched over tasks with slot (B,).
+    Shapes broadcast to (B, P, F, Y, V, Z): MT (B, P, 1, 1, V, Z), Phip
+    (B, P, F, 1, V, Z), Y (B, P, 1, Y, V, 1) or None in 2+1D."""
+    U, Pg, F, NY = tables.logdN.shape
+    B = slot.shape[0]
+    g = tables.mtg[slot]                                   # (B, Pg)
+    q = MT.reshape(B, -1).contiguous()
+    iMR = torch.searchsorted(g, q).clamp(1, Pg - 1)
+    iML = iMR - 1
+    gL, gR = g.gather(1, iML), g.gather(1, iMR)
+    tM = ((q - gL) / (gR - gL)).reshape(MT.shape)
+    inside = (q <= g[:, -1:]).reshape(MT.shape)
+    iML = iML.reshape(MT.shape)
+    iMR = iMR.reshape(MT.shape)
+    s = slot.reshape((B,) + (1,) * (MT.dim() - 1))
+    flat = tables.logdN.reshape(-1)
+    tc, ts = tables.tc.reshape(-1), tables.ts.reshape(-1)
+    if Y is None:
+        planes = [(torch.zeros_like(s), None)]
+    else:
+        iYR = torch.searchsorted(wg.y, Y.contiguous()).clamp(1, NY - 1)
+        iYL = iYR - 1
+        tY = (Y - wg.y[iYL]) / (wg.y[iYR] - wg.y[iYL])
+        planes = [(iYL, 1.0 - tY), (iYR, tY)]
+
+    def one(Phip):
+        iL, iR, wL, wR = _interp_phi_indices(wg.phi, Phip)
+        # flat offsets of the (MT row, phi) and (phi) stencils at the size
+        # of Phip; the y plane is added last, at the full size
+        row = {(m, f): ((s * Pg + iM) * F + iF) * NY
+               for m, iM in (("L", iML), ("R", iMR))
+               for f, iF in (("L", iL), ("R", iR))}
+        col = {f: (s * F + iF) * NY for f, iF in (("L", iL), ("R", iR))}
+        val = 0.0
+        for iY, wY in planes:
+            L = lambda m, f: flat[row[m, f] + iY]
+            C = lambda v, f: v[col[f] + iY]
+            bi = ((L("L", "L") * wL + L("L", "R") * wR) * (1.0 - tM)
+                  + (L("R", "L") * wL + L("R", "R") * wR) * tM)
+            tail = ((C(tc, "L") + C(ts, "L") * MT) * wL
+                    + (C(tc, "R") + C(ts, "R") * MT) * wR)
+            plane = torch.where(inside, bi, tail)
+            val = plane if wY is None else val + plane * wY
+        return torch.exp(val)
+
+    out = one(Phip1) + one(Phip2)
+    if Y is None:
+        return out
+    return torch.where(Y.abs() <= wg.y[-1].abs(), out, 0.0)
+
+
+def _kinematics(m2, Estar, pstar, M, wg: WaveGrid):
+    """The (v, zeta) nodes of B tasks with m2, Estar, pstar, M (B,) (the
+    reference's _decay_kinematics and _parent_MT_Phip, batched): DeltaY
+    (B, P), the parent's MT and Phi~ (B, P, V, Z), the v weights (B, P,
+    V)."""
+    x, wv, coszeta = wg.quad
+    pT = wg.pT
+    c = lambda t: t[:, None, None]                         # (B, 1, 1)
+    pT2 = pT ** 2
+    mT2 = pT2 + m2[:, None]                                # (B, P)
+    mT = torch.sqrt(mT2)
+    DeltaY = torch.log((pstar[:, None] + torch.sqrt(Estar[:, None] ** 2
+                                                    + pT2)) / mT)
+    a = x * DeltaY[..., None]                              # (B, P, V)
+    coshv, sinhv = torch.cosh(a), torch.sinh(a)
+    # cancellation-free forms (reference :484-498): mT^2 cosh^2 - pT^2 =
+    # m1^2 + mT^2 sinh^2 and Estar^2 + pT^2 - mT^2 cosh^2 = pstar^2 -
+    # mT^2 sinh^2; the left-hand forms are NaN for massless daughters in
+    # float32
+    mT2s2 = mT2[..., None] * sinhv ** 2
+    denom = c(m2) + mT2s2
+    MTbar = c(Estar * M) * mT[..., None] * coshv / denom
+    DeltaMT = (c(M) * pT[:, None] * torch.sqrt((c(pstar) ** 2 - mT2s2).abs())
+               / denom)
+    mTc = mT[..., None] * coshv / pT[:, None]
+    vw = DeltaY[..., None] * wv / torch.sqrt(denom.abs())  # (B, P, V)
+    MT = MTbar[..., None] + DeltaMT[..., None] * coszeta   # (B, P, V, Z)
+    # 1e-30 (not 1e-300): a normal number in float32 too
+    PT = torch.sqrt(torch.clamp_min(MT ** 2 - c(M)[..., None] ** 2, 1e-30))
+    Phip_t = torch.acos(torch.clamp(
+        (MT * mTc[..., None] - (Estar[:, None] * M[:, None] / pT)[..., None,
+                                                                  None])
+        / PT, -1.0, 1.0))
+    return DeltaY, MT, Phip_t, vw
+
+
+def _two_body_integral(tables: ParentTables, slot, m2, Estar, pstar, M,
+                       wg: WaveGrid):
+    """(B, P, F, Y) feed-down integrals, without prefactor, of B tasks
+    with slot, m2, Estar, pstar, M (B,) (the reference's
+    _two_body_integral, batched)."""
+    DeltaY, MT, Phip_t, vw = _kinematics(m2, Estar, pstar, M, wg)
+    x, wv, _ = wg.quad
+    # (B, P, F, V, Z) -> with a y axis (B, P, F, 1, V, Z)
+    ph = wg.phi[None, None, :, None, None]
+    Phip1 = torch.remainder(Phip_t[:, :, None] + ph, TWO_PI)[:, :, :, None]
+    Phip2 = torch.remainder(-Phip_t[:, :, None] + ph, TWO_PI)[:, :, :, None]
+    MTb = MT[:, :, None, None]                             # (B, P, 1, 1, V, Z)
+    Y = None
+    if wg.dimension == 3:
+        Y = wg.y[:, None] + x[None, :] * DeltaY[..., None, None]   # (B, P, Y, V)
+        Y = Y[:, :, None, :, :, None]                      # (B, P, 1, Y, V, 1)
+    dN = _eval_parent_pair(tables, slot, wg, MTb, Phip1, Phip2, Y)
+    zsum = torch.einsum("bpfyvz,z->bpfyv", MTb * dN, wv)
+    return torch.einsum("bpfyv,bpv->bpfy", zsum, vw)
+
+
+def _three_body_s(m2, M, s_minus, s_plus, d, wg: WaveGrid):
+    """Estar, pstar and the weight (B, 12) at the 12 s nodes of B 3-body
+    tasks (the reference's _three_body_integral)."""
+    x, w, _ = wg.quad
+    s = s_minus[:, None] + (s_plus - s_minus)[:, None] * (1.0 + x) / 2.0
+    Estar = (M[:, None] ** 2 + m2[:, None] - s) / (2.0 * M[:, None])
+    pstar = torch.sqrt(torch.clamp_min(Estar ** 2 - m2[:, None], 1e-30))
+    sw = w * torch.sqrt(((s - s_minus[:, None]) * (s - d[:, None])).abs()) / s
+    return Estar, pstar, sw
+
+
+def _three_body_integral(tables: ParentTables, slot, m2, M, s_minus, s_plus,
+                         d, wg: WaveGrid):
+    """The outer 12-point s integral of _two_body_integral: Estar, pstar
+    and the weight depend on the invariant mass s of the (2, 3) pair."""
+    Estar, pstar, sw = _three_body_s(m2, M, s_minus, s_plus, d, wg)
+    out = 0.0
+    for k in range(GAUSS_PTS):
+        out = out + sw[:, k, None, None, None] * _two_body_integral(
+            tables, slot, m2, Estar[:, k], pstar[:, k], M, wg)
+    return out
+
+
+def task_nodes(tasks: WaveTasks, wg: WaveGrid):
+    """DeltaY (K, S, P) and the parent's MT and Phi~ (K, S, P, V, Z) of
+    every task, S = 1 (2-body) or the 12 s nodes (3-body)."""
+    p = tasks.par[:, 1:]
+    if tasks.nbody == 2:
+        DY, MT, Ph, _ = _kinematics(p[:, 0], p[:, 1], p[:, 2], p[:, 3], wg)
+        return DY[:, None], MT[:, None], Ph[:, None]
+    Estar, pstar, _ = _three_body_s(*p.unbind(1), wg)
+    nodes = [_kinematics(p[:, 0], Estar[:, k], pstar[:, k], p[:, 1], wg)
+             for k in range(GAUSS_PTS)]
+    return tuple(torch.stack([n[i] for n in nodes], 1) for i in range(3))
+
+
+def wave_evaluations(tasks: WaveTasks, wg: WaveGrid) -> int:
+    """The evaluations one launch does on these inputs: per (task, s, pT,
+    phi, y, v, zeta) two Phi solutions, in 3+1D only where |Y| <= |y_max|
+    (the rest is exactly 0 and never evaluated)."""
+    DY = task_nodes(tasks, wg)[0]                          # (K, S, P)
+    x = wg.quad[0]
+    if wg.dimension == 2:
+        n_vy = DY.numel() * GAUSS_PTS
+    else:
+        Y = wg.y[:, None] + x[None, :] * DY[..., None, None]    # (K,S,P,Y,V)
+        n_vy = int((Y.abs() <= wg.y[-1].abs()).sum())
+    return n_vy * GAUSS_PTS * wg.phi.shape[0] * 2
+
+
+def _wave_plain(integral, tables: ParentTables, tasks: WaveTasks,
+                wg: WaveGrid, n_seg: int):
+    P, F, NY = tables.logdN.shape[1:]
+    out = tables.logdN.new_zeros((n_seg, P, F, NY))
+    B = WAVE_BUCKET[wg.dimension]
+    for lo in range(0, tasks.slot.shape[0], B):
+        par = tasks.par[lo:lo + B]
+        part = integral(tables, tasks.slot[lo:lo + B].long(), wg, par[:, 1:])
+        out.index_add_(0, tasks.seg[lo:lo + B],
+                       part * par[:, 0, None, None, None])
+    return out
+
+
+def two_body_wave_plain(tables: ParentTables, tasks: WaveTasks,
+                        wg: WaveGrid, n_seg: int):
+    """Plain version of the wave kernel's 2-body launch: the (n_seg, P, F,
+    Y) feed-down of the tasks, each x its prefactor, summed over tasks in
+    schedule order (index_add_), in buckets of WAVE_BUCKET tasks."""
+    return _wave_plain(
+        lambda t, sl, g, p: _two_body_integral(t, sl, p[:, 0], p[:, 1],
+                                               p[:, 2], p[:, 3], g),
+        tables, tasks, wg, n_seg)
+
+
+def three_body_wave_plain(tables: ParentTables, tasks: WaveTasks,
+                          wg: WaveGrid, n_seg: int):
+    """Plain version of the wave kernel's 3-body launch (as
+    two_body_wave_plain)."""
+    return _wave_plain(
+        lambda t, sl, g, p: _three_body_integral(t, sl, p[:, 0], p[:, 1],
+                                                 p[:, 2], p[:, 3], p[:, 4],
+                                                 g),
+        tables, tasks, wg, n_seg)
+
+
+def wave_plain(tables: ParentTables, tasks: WaveTasks, wg: WaveGrid,
+               n_seg: int):
+    fn = two_body_wave_plain if tasks.nbody == 2 else three_body_wave_plain
+    return fn(tables, tasks, wg, n_seg)
+
+
+# ======================================================================
+# the hand-written kernel (csrc/decays.cu)
+# ======================================================================
+
+def _library():
+    from ..native.build import cuda_library
+    lib = cuda_library("decays")
+    if not getattr(lib, "_is3d_bound", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        for fn in (lib.is3d_decay_wave_f32, lib.is3d_decay_wave_f64):
+            fn.restype = ci
+            fn.argtypes = [ci, ci,                     # nbody, dimension
+                           vp, vp, vp, vp,             # logdN, tc, ts, mtg
+                           vp, vp, vp, vp,             # pT, phi, y, quad
+                           ci, ci, ci, ci,             # U, P, F, Y
+                           vp, vp, ci,                 # slot, par, K
+                           vp, vp, vp, ci,             # order, target, tstart, n
+                           vp, vp, vp]                 # scratch, acc, stream
+        lib.is3d_cuda_error_string.restype = ctypes.c_char_p
+        lib.is3d_cuda_error_string.argtypes = [ci]
+        lib._is3d_bound = True
+    return lib
+
+
+def decay_wave_cuda(tables: ParentTables, tasks: WaveTasks, wg: WaveGrid,
+                    acc: torch.Tensor):
+    """Launch csrc/decays.cu on the current stream: the wave kernel writes
+    each task's feed-down x its prefactor to scratch, the fold kernel adds
+    each target row's tasks in schedule order into ``acc`` (S, P, F, Y),
+    float64, in place."""
+    global TWO_BODY_LAUNCHES, THREE_BODY_LAUNCHES
+    check_float("decay_wave_cuda", tables.logdN)
+    if tables.logdN.dim() != 4:
+        raise ValueError("logdN must be (U, P, F, Y), got "
+                         f"{tuple(tables.logdN.shape)}")
+    U, P, F, NY = tables.logdN.shape
+    like = tables.logdN
+    check_tensor("logdN", like, (U, P, F, NY), like)
+    check_tensor("tc", tables.tc, (U, F, NY), like)
+    check_tensor("ts", tables.ts, (U, F, NY), like)
+    check_tensor("mtg", tables.mtg, (U, P), like)
+    check_tensor("pT", wg.pT, (P,), like)
+    check_tensor("phi", wg.phi, (F,), like)
+    check_tensor("y", wg.y, (NY,), like)
+    check_tensor("quad", wg.quad, (3, GAUSS_PTS), like)
+    K = tasks.slot.shape[0]
+    n_t = tasks.target.shape[0]
+    check_tensor("slot", tasks.slot, (K,), like, torch.int32)
+    check_tensor("par", tasks.par, (K, 6), like)
+    check_tensor("order", tasks.order, (K,), like, torch.int32)
+    check_tensor("target", tasks.target, (n_t,), like, torch.int32)
+    check_tensor("tstart", tasks.tstart, (n_t + 1,), like, torch.int32)
+    check_tensor("acc", acc, (acc.shape[0], P, F, NY), like, torch.float64)
+    if tasks.nbody not in (2, 3) or (wg.dimension, NY > 1) not in (
+            (2, False), (3, True)):
+        raise ValueError(f"decay_wave_cuda takes 2- or 3-body tasks and a "
+                         f"2+1D (Y = 1) or 3+1D (Y > 1) grid, got "
+                         f"{tasks.nbody}-body, dimension {wg.dimension}, "
+                         f"Y = {NY}")
+    require_cuda("decay_wave_cuda", like)
+    lib = _library()
+    scratch = like.new_empty((K, P, F, NY))
+    fn = (lib.is3d_decay_wave_f64 if like.dtype == torch.float64
+          else lib.is3d_decay_wave_f32)
+    launch(lib, "decay_wave", fn, like.device, tasks.nbody, wg.dimension,
+           like.data_ptr(), tables.tc.data_ptr(), tables.ts.data_ptr(),
+           tables.mtg.data_ptr(), wg.pT.data_ptr(), wg.phi.data_ptr(),
+           wg.y.data_ptr(), wg.quad.data_ptr(), U, P, F, NY,
+           tasks.slot.data_ptr(), tasks.par.data_ptr(), K,
+           tasks.order.data_ptr(), tasks.target.data_ptr(),
+           tasks.tstart.data_ptr(), n_t, scratch.data_ptr(), acc.data_ptr())
+    if tasks.nbody == 2:
+        TWO_BODY_LAUNCHES += 1
+    else:
+        THREE_BODY_LAUNCHES += 1
+
+
+# ======================================================================
+# the cascade
+# ======================================================================
+
+@dataclass(frozen=True)
+class StagedWave:
+    """A wave's device inputs, made before the cascade's first launch."""
+    rows: torch.Tensor      # (U,) int64
+    masses: torch.Tensor    # (U,) float64
+    mtg: torch.Tensor       # (U, P) the wave's dtype
+    launches: tuple         # WaveTasks of its 2-body, then 3-body tasks
+
+
+def stage_waves(waves: list, pT64: np.ndarray, dtype, device) -> list:
+    """Every wave's device inputs (all host-to-device copies of the
+    cascade)."""
+    staged = []
+    for w in waves:
+        M = np.asarray(w.masses, np.float64)
+        mtg = np.sqrt(pT64[None, :] ** 2 + M[:, None] ** 2)
+        staged.append(StagedWave(
+            rows=torch.as_tensor(np.asarray(w.rows, np.int64), device=device),
+            masses=torch.as_tensor(M, device=device),
+            mtg=torch.as_tensor(mtg, dtype=dtype, device=device),
+            launches=tuple(wave_tasks(nb, t, dtype, device)
+                           for nb, t in ((2, w.tasks2), (3, w.tasks3)) if t)))
+    return staged
+
+
+def do_resonance_decays(spectra: torch.Tensor, table, mcids, grid,
+                        cfg) -> torch.Tensor:
+    """Apply the 2- and 3-body feed-down cascade to smooth spectra.
+
+    spectra: (S, P, F, Y) on the run's device, in chosen-particle (mcids)
+    order; the waves run in its dtype.  Returns the decayed spectra,
+    float64, on the same device: dispatched and not waited for on CUDA
+    (reading the result back waits).  The result is the reference's
+    heaviest -> lightest cascade (do_resonance_decays, :143-203), its
+    parents grouped into waves."""
+    dev, dtype = spectra.device, spectra.dtype
+    dimension = int(cfg.dimension)
+    pT64 = grid.pT.to("cpu", torch.float64).numpy()
+    # the wave kernel wraps Phi = +-Phi~ + phi to [0, 2 pi) with one add or
+    # subtract of 2 pi, exact for a phi grid in [0, 2 pi) (in the waves'
+    # dtype); the plain version is held to the same grids
+    phi = grid.phi.to("cpu", dtype)
+    if not bool(((phi >= 0.0) & (phi < TWO_PI)).all()):
+        raise ValueError("the feed-down takes a phi grid in [0, 2 pi), got "
+                         f"[{phi.min().item()}, {phi.max().item()}]")
+    schedule = _decay_schedule(table, np.asarray(mcids), pT64,
+                               cfg.lightest_particle)
+    waves = plan_waves(schedule)
+    wg = wave_grid(grid, dimension, dtype, dev)
+    staged = stage_waves(waves, pT64, dtype, dev)
+    n_y = 1 if dimension == 2 else wg.y.shape[0]
+    want = (len(mcids), wg.pT.shape[0], wg.phi.shape[0], n_y)
+    if tuple(spectra.shape) != want:
+        raise ValueError(f"spectra must be {want}, got {tuple(spectra.shape)}")
+
+    acc = spectra.to(torch.float64).clone()
+    for st in staged:
+        # every slot reads the spectra as they were before this wave
+        tables = parent_tables(acc, st.rows, st.masses, st.mtg, dtype)
+        for tasks in st.launches:
+            if dev.type == "cuda":
+                decay_wave_cuda(tables, tasks, wg, acc)
+            elif dev.type == "cpu":
+                acc += wave_plain(tables, tasks, wg, acc.shape[0]).double()
+            else:
+                raise ValueError(f"no decay path for device {dev}")
+    n_channels = sum(len(w.tasks2) + len(w.tasks3) for w in waves)
+    print(f"Resonance decays: {n_channels} channel-contributions added"
+          f" in {len(waves)} waves")
+    return acc

@@ -128,45 +128,134 @@ def synthetic_deltaf_data(dtype=torch.float64, device="cpu",
 
 # --------------------------------------------------------------- run dir
 
-def _pdg_entries(n_species: int, rng) -> list:
-    """PDG rows (mcid, name, mass, gspin, baryon, strange, charge) whose
-    table holds at least ``n_species`` species once the reader has mirrored
-    the baryons: the seed hadrons, then resonance-like entries alternating
-    meson and baryon."""
+def _pdg_entries(n_species: int, rng, drng=None) -> list:
+    """PDG rows (mcid, name, mass, width, gspin, baryon, strange, charge,
+    channels) whose table holds at least ``n_species`` chosen species once
+    the reader has mirrored the baryons: the seed hadrons, then
+    resonance-like entries alternating meson and baryon.  Given ``drng``
+    (the decaying list), the named resonances of _DECAY_NAMED come after
+    the seed hadrons and the fillers decay, their channels drawn from
+    ``drng`` (the fillers' masses and degeneracies come from ``rng`` as
+    without it).  A channel is (branch, daughter mcids); a row without
+    channels is stable."""
+    decays = drng is not None
     rows = []
     for mcid, (mass, _sign, deg, baryon) in zip(_SEED_MCIDS, _SPECIES_SEED):
         if mcid < 0 and baryon != 0:
             continue                       # antibaryon: mirrored by the reader
         name, strange, charge = _SEED_PDG[mcid]
-        rows.append((mcid, name, mass, deg, int(baryon), strange, charge))
-    count = lambda: sum(2 if r[4] > 0 else 1 for r in rows)
+        width, channels = (_DECAY_SEED.get(mcid, (0.0, [])) if decays
+                           else (0.0, []))
+        rows.append((mcid, name, mass, width, deg, int(baryon), strange,
+                     charge, channels))
+    if decays:
+        rows += [r[:8] + ([(b, d) for b, d in r[8]],) for r in _DECAY_NAMED]
+    count = lambda: sum(2 if r[5] > 0 else 1 for r in rows)
+    want = n_species + (len(_UNCHOSEN) if decays else 0)
     i = len(_SPECIES_SEED)
-    while count() < n_species:
+    while count() < want:
         mass = 1.0 + 0.005 * i + 0.1 * rng.random()
         deg = float(rng.integers(1, 6))
-        if i % 2:
-            rows.append((9000000 + i, f"meson{i}", mass, deg, 0, 0, 0))
-        else:
-            rows.append((9100000 + i, f"baryon{i}", mass, deg, 1, 0, 0))
+        baryon = 0 if i % 2 else 1
+        mcid = (9000000 if i % 2 else 9100000) + i
+        name = f"meson{i}" if i % 2 else f"baryon{i}"
+        channels = (_filler_channels(rows, mass, baryon, drng) if decays
+                    else [])
+        width = 0.05 + 0.3 * drng.random() if channels else 0.0
+        rows.append((mcid, name, mass, width, deg, baryon, 0, 0, channels))
         i += 1
     return rows
 
 
+# The decaying list (write_synthetic_run_dir(..., decays=True)): the seed
+# hadrons with rho0 and Delta++ unstable, a photon, an eta that is listed
+# but never chosen, named resonances whose channels cover what the
+# feed-down cascade must handle, and fillers that decay into lighter
+# listed hadrons.  Named channels, (branch, daughters):
+#   rho3 -> f2 pi0, f2 -> rho0 rho0, rho0 -> pi+ pi-: three waves deep;
+#   f2 -> rho0 rho0: two identical daughters, below threshold at the
+#     table masses and opened by the width shift;
+#   h1 -> f2 pi0: below threshold too, and h1 is lighter than f2, so a
+#     lighter parent feeds a heavier one (upward feed);
+#   omega -> pi0 gamma, eta' -> rho0 gamma, omega gamma: massless
+#     daughters;
+#   omega -> pi+ pi- pi0, rho3 -> omega pi+ pi-: 3-body channels;
+#     eta' -> eta pi+ pi- and eta pi0 pi0: with the unchosen eta and with
+#     two identical daughters; omega -> K+ K- pi0: closed at the table
+#     masses (skipped).
+_DECAY_SEED = {113: (0.149, [(1.0, (211, -211))]),
+               2224: (0.117, [(1.0, (2212, 211))])}
+_DECAY_NAMED = [
+    (22, "gamma", 0.0, 0.0, 2.0, 0, 0, 0, []),
+    (221, "eta", 0.547862, 0.0, 1.0, 0, 0, 0, []),
+    (223, "omega", 0.78265, 0.00849, 3.0, 0, 0, 0,
+     [(0.892, (211, -211, 111)), (0.083, (111, 22)), (0.024, (211, -211)),
+      (0.001, (321, -321, 111))]),
+    (331, "eta'", 0.95778, 0.000188, 1.0, 0, 0, 0,
+     [(0.426, (221, 211, -211)), (0.289, (113, 22)),
+      (0.228, (221, 111, 111)), (0.057, (223, 22))]),
+    (225, "f2", 1.2755, 0.1867, 5.0, 0, 0, 0,
+     [(0.565, (211, -211)), (0.283, (111, 111)), (0.152, (113, 113))]),
+    (10223, "h1", 1.166, 0.375, 3.0, 0, 0, 0,
+     [(0.7, (113, 111)), (0.3, (225, 111))]),
+    (117, "rho3", 1.6888, 0.161, 7.0, 0, 0, 0,
+     [(0.5, (225, 111)), (0.3, (211, -211, 111)), (0.2, (223, 211, -211))]),
+]
+_UNCHOSEN = (221,)
+# the fillers' channels: lighter named or seed hadrons, or a filler at
+# least 0.3 GeV lighter with a pi0
+_MESON_CHANNELS = [(211, -211), (111, 111), (321, -321), (113, 111),
+                   (223, 111), (221, 111), (113, 113), (225, 111),
+                   (211, -211, 111), (223, 211, -211), (111, 111, 111)]
+_BARYON_CHANNELS = [(2212, 111), (2112, 111), (2212, -211), (3122, 321),
+                    (2224, -211), (2212, 211, -211), (2112, 111, 111)]
+
+
+def _filler_channels(rows: list, mass: float, baryon: int, rng) -> list:
+    """1 to 3 channels of a filler of ``mass``, open at the table masses,
+    into hadrons already in ``rows`` (the reader mirrors a baryon's
+    channels from the rows above it); branches sum to 1 at 6 digits."""
+    masses = {r[0]: r[2] for r in rows}
+    masses.update({-r[0]: r[2] for r in rows if r[5] > 0})
+    pool = [ds for ds in (_BARYON_CHANNELS if baryon else _MESON_CHANNELS)
+            if sum(masses[d] for d in ds) < mass - 0.02]
+    lighter = [r[0] for r in rows if r[0] >= 9000000 and r[5] == baryon
+               and r[2] < mass - 0.3]
+    if not pool:
+        return []
+    n = int(rng.integers(1, 4))
+    picks = [pool[j] for j in rng.choice(len(pool), size=min(n, len(pool)),
+                                         replace=False)]
+    if lighter and rng.random() < 0.4:
+        picks[-1] = (int(rng.choice(lighter)), 111)
+    w = rng.random(len(picks)) + 0.2
+    branch = [round(float(x), 6) for x in w / w.sum()]
+    branch[-1] = round(1.0 - sum(branch[:-1]), 6)
+    return list(zip(branch, picks))
+
+
 def _write_pdg(path: str, rows: list):
     with open(path, "w") as f:
-        for mcid, name, mass, deg, baryon, strange, charge in rows:
-            f.write(f"{mcid} {name} {mass:.6f} 0.000000 {deg:.0f} {baryon} "
-                    f"{strange} 0 0 1 {charge} 1\n")
-            # stable: one self-decay line (mcid, 1 daughter, branch 1)
-            f.write(f"{mcid} 1 1.000000 {mcid} 0 0 0 0\n")
+        for (mcid, name, mass, width, deg, baryon, strange, charge,
+             channels) in rows:
+            f.write(f"{mcid} {name} {mass:.6f} {width:.6f} {deg:.0f} "
+                    f"{baryon} {strange} 0 0 1 {charge} "
+                    f"{max(len(channels), 1)}\n")
+            if not channels:
+                # stable: one self-decay line (mcid, 1 daughter, branch 1)
+                f.write(f"{mcid} 1 1.000000 {mcid} 0 0 0 0\n")
+            for branch, ds in channels:
+                d = " ".join(str(m) for m in (*ds, 0, 0, 0, 0)[:5])
+                f.write(f"{mcid} {len(ds)} {branch:.6f} {d}\n")
 
 
 def _chosen_mcids(rows: list, n_species: int) -> list:
     table = []
     for r in rows:
-        table.append(r[0])
-        if r[4] > 0:
-            table.append(-r[0])
+        if r[0] not in _UNCHOSEN:
+            table.append(r[0])
+            if r[5] > 0:
+                table.append(-r[0])
     chosen = [m for m in _SEED_MCIDS][:n_species]
     chosen += [m for m in table if m not in chosen][:n_species - len(chosen)]
     if len(chosen) != n_species:
@@ -183,12 +272,15 @@ _RUN_PARAMS = dict(
 
 def write_synthetic_run_dir(path: str, n_cells: int, n_species: int,
                             dimension: int, seed: int = 0,
-                            params: dict | None = None) -> str:
+                            params: dict | None = None,
+                            decays: bool = False) -> str:
     """Write a complete mode-1 run directory under ``path``:
 
     * ``PDG/pdg-urqmd_v3.3+.dat`` (conventional format, every species
-      stable) and ``PDG/chosen_particles_urqmd_v3.3+.dat`` selecting
-      exactly ``n_species`` species (counted after baryon mirroring);
+      stable; with ``decays`` the decaying list of _DECAY_NAMED, whose
+      run parameters set do_resonance_decays = 1) and
+      ``PDG/chosen_particles_urqmd_v3.3+.dat`` selecting exactly
+      ``n_species`` species (counted after baryon mirroring);
     * ``deltaf_coefficients/vh/urqmd/*.dat`` from the delta-f generator
       on that list, with two muB rows;
     * ``input/surface.dat``: ``n_cells`` synthetic cells in the mode-1
@@ -203,7 +295,8 @@ def write_synthetic_run_dir(path: str, n_cells: int, n_species: int,
     rng = np.random.default_rng(seed)
     pdg_dir = os.path.join(path, "PDG")
     os.makedirs(pdg_dir, exist_ok=True)
-    rows = _pdg_entries(n_species, rng)
+    rows = _pdg_entries(n_species, rng,
+                        np.random.default_rng([seed, 1]) if decays else None)
     _write_pdg(os.path.join(pdg_dir, "pdg-urqmd_v3.3+.dat"), rows)
     with open(os.path.join(pdg_dir, "chosen_particles_urqmd_v3.3+.dat"),
               "w") as f:
@@ -224,7 +317,8 @@ def write_synthetic_run_dir(path: str, n_cells: int, n_species: int,
     np.savetxt(os.path.join(path, "input", "surface.dat"),
                np.stack(raw, axis=1), fmt="%.10e")
 
-    run_params = {**_RUN_PARAMS, "dimension": dimension, **(params or {})}
+    run_params = {**_RUN_PARAMS, "dimension": dimension,
+                  "do_resonance_decays": int(decays), **(params or {})}
     with open(os.path.join(path, "iS3D_parameters.dat"), "w") as f:
         f.write("".join(f"{k} = {v}\n" for k, v in run_params.items()))
     return path
@@ -475,3 +569,138 @@ def bin_edge_inputs(case: str, dtype=torch.float64, device="cpu"):
     per_cell = torch.as_tensor(np.random.default_rng(n).random((n, 41)),
                                dtype=dtype, device=device)
     return per_cell, plan
+
+
+# ------------------------------------------------------- decaying list
+
+# The schedule of the decaying list that chip_smoke.py's [decays main] path
+# runs (320 species, seed 0): its channel contributions and waves (the
+# CLI's "Resonance decays: ..." line) and the waves with 2-body and with
+# 3-body tasks (the wave kernel's launches of each body).
+# tests/test_torch_decays.py holds is3d_tpu's own schedule of this list to
+# these numbers, so the chip run checks the port's against an independent
+# count.
+DECAYS_MAIN_SCHEDULE = dict(n_species=320, seed=0, channel_contributions=1216,
+                            waves=4, waves_2body=4, waves_3body=4)
+
+
+def write_decaying_pdg(path: str, n_species: int, seed: int = 0):
+    """Write, as the file ``path`` in pdg.dat's format, the decaying
+    synthetic list that write_synthetic_run_dir(..., decays=True) writes
+    for ``n_species`` and ``seed``; return its chosen mcids."""
+    rows = _pdg_entries(n_species, np.random.default_rng(seed),
+                        np.random.default_rng([seed, 1]))
+    _write_pdg(path, rows)
+    return np.asarray(_chosen_mcids(rows, n_species), np.int64)
+
+
+def synthetic_decaying_table(n_species: int, seed: int = 0):
+    """(ParticleTable, chosen mcids) of the decaying synthetic list
+    (write_decaying_pdg), read back through the port's PDG reader."""
+    import tempfile
+    from .io import pdg as pdg_io
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "pdg.dat")
+        mcids = write_decaying_pdg(path, n_species, seed)
+        table = pdg_io.read_resonances_conventional(path)
+    return table, mcids
+
+
+def thermal_spectra(table, mcids, grid, dimension: int) -> np.ndarray:
+    """(S, P, F, Y) smooth positive spectra exp(-MT / 0.16) (1 + 0.2 cos 2
+    phi) exp(-y^2 / 8), float64, from a host grid."""
+    mass = table.mass[[table.index_of_mcid(int(m)) for m in mcids]]
+    pT = np.asarray(grid.pT, np.float64)
+    phi = np.asarray(grid.phi, np.float64)
+    y = np.asarray(grid.y, np.float64) if dimension == 3 else np.zeros(1)
+    MT = np.sqrt(pT[None, :] ** 2 + mass[:, None] ** 2)
+    return (np.exp(-MT / 0.16)[:, :, None, None]
+            * (1.0 + 0.2 * np.cos(2.0 * phi))[None, None, :, None]
+            * np.exp(-y ** 2 / 8.0)[None, None, None, :])
+
+
+# The wave kernel's edges, shared by the gpu tests and chip_smoke.py: every
+# 2- or 3-body task of the decaying list (24 species, all waves merged into
+# one launch) on a ragged grid (7 pT up to 3 GeV x 9 phi x 5 y): parent MT
+# past the slot's MT grid (the exp(c + s MT) tail), Phi in the wrap cell,
+# massless daughters (omega -> pi0 gamma, eta' -> rho0 gamma), adjusted
+# masses (f2 -> rho0 rho0, h1 -> f2 pi0), a row fed by many tasks (pi+),
+# one parent row all zero (its log table the -745 floor) and one with its
+# upper half in pT zero (patched by the tail fit); the narrow_y cases take
+# 3 rapidities within |y| <= 0.05, so many (v, y) nodes have |Y| > y_max,
+# and at small pT every v node of a 2-body task: its output is exactly 0.
+DECAY_EDGES = {
+    **{f"{nb}body_{d}d": dict(nbody=nb, dimension=d)
+       for nb in (2, 3) for d in (2, 3)},
+    **{f"{nb}body_3d_narrow_y": dict(nbody=nb, dimension=3,
+                                     grid=dict(n_y=3, y_max=0.05))
+       for nb in (2, 3)},
+}
+
+
+def decay_edge_inputs(case: str, dtype=torch.float64, device="cpu"):
+    """(tables, tasks, wg, n_seg): one launch of the wave kernel for the
+    DECAY_EDGES case ``case``, on ``device``."""
+    from .io.tables import native_momentum_grid
+    from .kernels import decays
+    spec = dict(dict(grid={}), **DECAY_EDGES[case])
+    dimension = spec["dimension"]
+    table, mcids = synthetic_decaying_table(24)
+    grid = native_momentum_grid(dimension, **dict(
+        dict(n_pT=7, pT_max=3.0, n_phi=9, n_y=5, n_eta=4), **spec["grid"]))
+    pT64 = grid.pT.numpy()
+    waves = decays.plan_waves(decays._decay_schedule(table, mcids, pT64,
+                                                     111))
+    rows, masses, tasks = [], [], []
+    for w in waves:
+        pick = w.tasks2 if spec["nbody"] == 2 else w.tasks3
+        tasks += [t[:2] + (t[2] + len(rows),) + t[3:] for t in pick]
+        rows += w.rows
+        masses += w.masses
+    spectra = thermal_spectra(table, mcids, grid, dimension)
+    spectra[rows[0]] = 0.0
+    spectra[rows[-1], pT64.shape[0] // 2:] = 0.0
+    wg = decays.wave_grid(grid, dimension, dtype, device)
+    M = np.asarray(masses)
+    mtg = torch.as_tensor(np.sqrt(pT64[None] ** 2 + M[:, None] ** 2),
+                          dtype=dtype, device=device)
+    acc = torch.as_tensor(spectra, device=device)
+    tables = decays.parent_tables(
+        acc, torch.as_tensor(rows, device=device),
+        torch.as_tensor(M, device=device), mtg, dtype)
+    return (tables, decays.wave_tasks(spec["nbody"], tasks, dtype, device),
+            wg, len(mcids))
+
+
+def decay_edge_seen(case: str, tables, tasks, wg, n_seg, out) -> str:
+    """What the plain output of a DECAY_EDGES case shows of its edges;
+    raises AssertionError where it does not show them."""
+    from .kernels import decays
+    assert torch.isfinite(out).all() and out.abs().max() > 0, case
+    _, MT, Ph = decays.task_nodes(tasks, wg)
+    mtg = tables.mtg[tasks.slot.long()]
+    tail = int((MT > mtg[:, -1, None, None, None, None]).sum())
+    Phi = torch.remainder(Ph[..., None] + wg.phi, decays.TWO_PI)
+    wrap = int(((Phi < wg.phi[0]) | (Phi > wg.phi[-1])).sum())
+    m2, counts = tasks.par[:, 1], torch.diff(tasks.tstart)
+    massless = int((m2 == 0).sum())
+    floor = int((tables.tc == -745.0).all(-1).all(-1).sum())
+    assert tail and wrap and floor and counts.max() > 4, (
+        tail, wrap, floor, counts.max())
+    assert massless or tasks.nbody == 3, "no massless daughter"
+    seen = (f"{tasks.slot.shape[0]} tasks, {tail} of {MT.numel()} nodes in "
+            f"the tail, {wrap} Phi in the wrap cell, {massless} massless, a "
+            f"row fed by {int(counts.max())}, {floor} slots at the floor")
+    if case.endswith("narrow_y"):
+        Y = wg.y[:, None] + wg.quad[0] * decays.task_nodes(tasks, wg)[0][
+            ..., None, None]
+        past = int((Y.abs() > wg.y[-1].abs()).sum())
+        assert past > 0, "no (v, y) node past |y_max|"
+        seen += f", {past} of {Y.numel()} (v, y) nodes past |y_max|"
+        # a 3-body output keeps its s nodes near s+, where DeltaY -> 0
+        if tasks.nbody == 2:
+            fed = out[tasks.target.long()]
+            n = int((fed == 0).sum())
+            assert 0 < n < fed.numel(), f"{n} outputs are exactly 0"
+            seen += f", {n} of {fed.numel()} fed outputs exactly 0"
+    return seen

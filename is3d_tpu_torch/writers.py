@@ -10,6 +10,7 @@ for the reference keep working.  Results arrive as host numpy arrays.
 
 from __future__ import annotations
 
+import math
 import os
 
 import numpy as np
@@ -19,6 +20,10 @@ from .observables import (_np, dN_dphidy, dN_twopipTdpTdy, dN_dy,
 
 
 def _sci(v: float) -> str:
+    # C's printf (native/fastio.cpp) keeps the sign of a NaN; Python's
+    # format drops it
+    if math.isnan(v) and math.copysign(1.0, v) < 0:
+        return "-nan"
     return f"{v:.8e}"
 
 
@@ -76,8 +81,13 @@ def _ensure_dir(path: str):
 # into the same results_dir must clear its previous outputs first
 _OWNED_PATTERNS = (
     "dN_pTdpTdphidy.dat", "dN_pTdpTdphidy_*.dat",
+    "dN_dpTdphidy.dat", "dN_dpTdphidy_*.dat",
     "dN_dphidy_*.dat", "dN_twopipTdpTdy_*.dat",
     "dN_dy_*.dat", "vn_continuous/vn_*.dat",
+    "spacetime_distribution/dN_taudtaudy_*.dat",
+    "spacetime_distribution/dN_twopirdrdy_*.dat",
+    "spacetime_distribution/dN_twopitaurdtaudrdy_*.dat",
+    "spacetime_distribution/dN_dydeta_*.dat",
 )
 
 
@@ -117,6 +127,21 @@ def write_dN_pTdpTdphidy(spectra, grid, mcids, dimension, results_dir="results",
         path = f"{results_dir}/dN_pTdpTdphidy_{int(mcid)}{suffix}.dat"
         _write_sci_table(path, "y\tphip\tpT\tdN_pTdpTdphidy\n", rows[s],
                          blank_every=len(pTs))
+
+
+def write_dN_dpTdphidy(spectra, grid, mcids, dimension, results_dir="results",
+                       suffix=""):
+    """results/dN_dpTdphidy[_resonance_decays].dat (reference:
+    emissionfunction.cpp:490-591): the layout of dN_pTdpTdphidy.dat with the
+    pT Jacobian in the value (dN/pTdpTdphidy * pT) and a header row."""
+    spectra = np.asarray(spectra)
+    ys = _y_values(grid, dimension)
+    pTs = _np(grid.pT)
+    phis = _np(grid.phi)
+    rows = _block_rows(ys, phis, pTs, spectra * pTs[None, :, None, None])
+    _write_sci_table(f"{results_dir}/dN_dpTdphidy{suffix}.dat",
+                     "y\tphip\tpT\tdN_dpTdphidy\n", rows.reshape(-1, 4),
+                     blank_every=len(pTs))
 
 
 def write_dN_dphidy(spectra, grid, mcids, dimension, results_dir="results"):

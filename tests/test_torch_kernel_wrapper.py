@@ -18,7 +18,7 @@ from is3d_tpu_torch.config import Config
 from is3d_tpu_torch.io.surface import surface_from_arrays
 from is3d_tpu_torch.io.tables import native_momentum_grid
 from is3d_tpu_torch.experiments import smooth_proto, dndx_reduce_probe
-from is3d_tpu_torch.kernels import smooth, dndx
+from is3d_tpu_torch.kernels import smooth, dndx, decays
 from is3d_tpu_torch.kernels.common import surface_columns, prepare_cells
 from is3d_tpu_torch.kernels.launch import launch, split_to_fill
 from is3d_tpu_torch.native import build
@@ -107,7 +107,8 @@ def test_cli_defaults_to_cuda_and_raises_without_it(no_cuda, tmp_path):
 @pytest.mark.parametrize("override,slice_name", [
     (dict(operation=0, df_mode=3), "slice 7"), (dict(operation=2), "slice 9"),
     (dict(mode=2), "slice 8"), (dict(mode=5), "slice 8"),
-    (dict(df_mode=3), "slice 6"), (dict(do_resonance_decays=1), "slice 4"),
+    (dict(df_mode=3), "slice 6"),
+    (dict(do_resonance_decays=1, df_mode=4), "slice 6"),
 ])
 def test_unported_configurations_raise(override, slice_name):
     with pytest.raises(NotImplementedError, match=slice_name):
@@ -268,7 +269,18 @@ def _wrapper_calls(dtype=torch.float64, fault=None):
     per_cell = torch.rand(cells.shape[0], 5, dtype=dtype)
     proto = smooth_proto.proto_inputs(8, S=32, P=2, F=3, Y=2, dtype=dtype)
     probe = dndx_reduce_probe.probe_inputs(6, 3, 4, 5, dtype=dtype)
+    tables, tasks, wg, n_seg = testing.decay_edge_inputs("2body_2d",
+                                                         dtype=dtype)
+    acc = torch.zeros((n_seg,) + tables.logdN.shape[1:], dtype=torch.float64)
     return {
+        "decay_wave": lambda: decays.decay_wave_cuda(
+            dataclasses.replace(tables, logdN=spoil(tables.logdN)), tasks,
+            wg, acc),
+        "decay_wave_par": lambda: decays.decay_wave_cuda(
+            tables, dataclasses.replace(tasks, par=spoil(tasks.par)), wg,
+            acc),
+        "decay_wave_acc": lambda: decays.decay_wave_cuda(
+            tables, tasks, wg, spoil(acc)),
         "smooth_spectra_remap": lambda: smooth.smooth_spectra_cuda(
             spoil(cells), mom, remap),
         "smooth_spectra_remap_cos": lambda: smooth.smooth_spectra_cuda(
@@ -306,12 +318,13 @@ def test_new_wrappers_check_their_arguments(wrapper, fault):
     CPU call reaches every other check)."""
     current = lambda: (smooth.LAUNCHES, smooth.REMAP_LAUNCHES, dndx.LAUNCHES,
                        dndx.BIN_LAUNCHES, smooth_proto.LAUNCHES,
-                       dndx_reduce_probe.LAUNCHES)
+                       dndx_reduce_probe.LAUNCHES, decays.TWO_BODY_LAUNCHES,
+                       decays.THREE_BODY_LAUNCHES)
     counts = current()
     with pytest.raises(ValueError, match=FAULTS[fault]):
         _wrapper_calls(fault=fault)[wrapper]()
     assert counts == current()
-    assert not {"smooth_spectra", "dndx", "smooth_proto"} & set(
+    assert not {"smooth_spectra", "dndx", "smooth_proto", "decays"} & set(
         build._cuda_libs)
 
 
@@ -605,3 +618,74 @@ def test_cuda_cache_key_covers_every_header(tmp_path, monkeypatch):
     third = build._cuda_paths("k")[1]
     (tmp_path / "k.cu").write_text('#include "h.cuh"\n// edit\n')
     assert len({first, second, third, build._cuda_paths("k")[1]}) == 4
+
+
+def test_decays_cpu_tensors_take_plain_path_and_never_load_kernel():
+    counts = (decays.TWO_BODY_LAUNCHES, decays.THREE_BODY_LAUNCHES)
+    table, mcids = testing.synthetic_decaying_table(24)
+    grid = native_momentum_grid(2, n_pT=4, n_phi=4, n_eta=4)
+    spectra = torch.as_tensor(testing.thermal_spectra(table, mcids, grid, 2))
+    out = decays.do_resonance_decays(spectra, table, mcids, grid,
+                                     Config(dimension=2))
+    assert out.device.type == "cpu" and (out >= spectra).all()
+    assert (out > spectra).any()
+    assert (decays.TWO_BODY_LAUNCHES, decays.THREE_BODY_LAUNCHES) == counts
+    assert "decays" not in build._cuda_libs
+
+
+@pytest.mark.parametrize("case", sorted(testing.DECAY_EDGES))
+def test_decay_edge_inputs_are_what_they_claim(case):
+    """The wave kernel's edge cases show their edges in the plain output
+    (tail nodes, wrapped Phi, massless daughters, rows fed by many tasks,
+    a parent at the floor, exact zeros beyond |y_max|)."""
+    x = testing.decay_edge_inputs(case)
+    testing.decay_edge_seen(case, *x, decays.wave_plain(*x))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+@pytest.mark.parametrize("case", sorted(testing.DECAY_EDGES))
+def test_decay_wave_edges_match_plain_on_gpu(cuda_card, case, dtype):
+    """The wave kernel against its plain version on every edge case, f32 at
+    rtol 2e-4 / atol 2e-5 x max, f64 at rtol 1e-10 / atol 1e-13 x max;
+    exact zeros kept; two launches bit-identical."""
+    tables, tasks, wg, n_seg = testing.decay_edge_inputs(case, dtype=dtype,
+                                                         device="cuda")
+    acc = torch.zeros((n_seg,) + tables.logdN.shape[1:], dtype=torch.float64,
+                      device="cuda")
+    again = torch.zeros_like(acc)
+    launches = decays.TWO_BODY_LAUNCHES + decays.THREE_BODY_LAUNCHES
+    decays.decay_wave_cuda(tables, tasks, wg, acc)
+    decays.decay_wave_cuda(tables, tasks, wg, again)
+    want = decays.wave_plain(tables, tasks, wg, n_seg).double()
+    torch.cuda.synchronize()
+    assert (decays.TWO_BODY_LAUNCHES + decays.THREE_BODY_LAUNCHES
+            == launches + 2)
+    testing.decay_edge_seen(case, tables, tasks, wg, n_seg, want)
+    rtol, atol = (2e-4, 2e-5) if dtype == torch.float32 else (1e-10, 1e-13)
+    np.testing.assert_allclose(acc.cpu().numpy(), want.cpu().numpy(),
+                               rtol=rtol,
+                               atol=atol * want.abs().max().item())
+    assert torch.equal(acc, again)
+    assert (acc[want == 0] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dimension", [2, 3])
+def test_decay_cascade_cuda_matches_cpu_on_gpu(cuda_card, dimension):
+    """The whole cascade on the card (f64 kernel) against the CPU's plain
+    waves, and in f32 against f64 to the waves' float32 accuracy."""
+    table, mcids = testing.synthetic_decaying_table(40)
+    grid = native_momentum_grid(dimension, n_pT=8, pT_max=3.0, n_phi=8,
+                                n_y=5, n_eta=4)
+    spectra = torch.as_tensor(testing.thermal_spectra(table, mcids, grid,
+                                                      dimension))
+    cfg = Config(dimension=dimension)
+    cpu = decays.do_resonance_decays(spectra, table, mcids, grid, cfg)
+    gpu = decays.do_resonance_decays(spectra.cuda(), table, mcids,
+                                     grid.to("cuda"), cfg)
+    f32 = decays.do_resonance_decays(spectra.float().cuda(), table, mcids,
+                                     grid.to("cuda", torch.float32), cfg)
+    scale = cpu.abs().amax(dim=(1, 2, 3), keepdim=True)
+    assert ((gpu.cpu() - cpu).abs() <= 1e-10 * cpu.abs() + 1e-13 * scale).all()
+    assert ((f32.cpu() - cpu).abs() <= 1e-4 * scale).all()

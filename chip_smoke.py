@@ -82,8 +82,12 @@ Phases, each printing its own line(s):
    median of 3) beside its bound, the largest launch of each body held
    against its plain version on the same inputs (one timed run, all its
    buckets; the kernel record's ms, plain_ms and bound_ms are of that
-   launch, path_ms the sum over the path's launches), and the f32 cascade
-   against the f64 one;
+   launch, path_ms the sum over the path's launches), the wave kernel's
+   SASS per evaluation (f32 3+1D, each body), and the f32 cascade against
+   the f64 one; then the 2+1D waves at full width (320 species of the
+   decaying list, native 32 x 24 grid) on the smooth spectra of a 2+1D
+   run cut to 16384 cells, timed the same way, the largest launch of each
+   body against its plain version;
 8. the experiments at their own shapes, each through its ``measure()``:
    the spectra prototype (32768 cells x 320 x 768 x 21; its plain version
    on the first 1024 cells) and the reduction probe (176 x 48 x 320 x 768).
@@ -129,6 +133,7 @@ DNDX_ARGS = ["device=cuda", "precision=f32", "operation=0", "dimension=2",
              "df_mode=1", "include_shear_deltaf=1", "include_bulk_deltaf=1",
              "regulate_deltaf=1", "outflow=1"]
 DECAYS_ARGS = MAIN_ARGS + ["do_resonance_decays=1"]
+DECAYS_2D_CELLS = 16384
 KERNEL_SOURCES = ("smooth_spectra", "dndx", "smooth_proto", "decays")
 # H100 SXM: SMs, FP32 and SFU lanes per SM, memory rate (bytes/s)
 N_SM, FP32_LANES, SFU_LANES, HBM_RATE = 132, 128, 16, 3.35e12
@@ -957,28 +962,21 @@ def phase_dndx_pair(smi: str, clock: float, run_dir: str, cfg):
     return rec_dndx, rec_bin
 
 
-def phase_decays_pair(smi: str, clock: float, run_dir: str, cfg):
-    """The wave kernel on the main decays path's own waves: the smooth
-    spectra of the run directory (f32, recomputed), then wave by wave each
-    launch timed (CUDA events into a scratch accumulator, one warm-up,
-    median of 3) beside its bound, and the cascade carried on.  The
-    largest launch of each body is held against its plain version on the
-    same inputs (all its buckets, one timed run).  Then the f32 cascade
-    against the f64 one on the same spectra."""
-    from is3d_tpu_torch.api import IS3D
+def _decay_waves(smi: str, clock: float, tag: str, spectra, table, mcids,
+                 grid, cfg):
+    """The cascade on ``spectra`` wave by wave, f32: each launch timed (CUDA
+    events into a scratch accumulator, one warm-up, median of 3) beside its
+    bound, then added to the running spectra.  Returns the largest launch
+    of each body (evaluations, wave, tables, tasks, ms, bound), the kernel
+    time over the launches of each body, and the wave grid."""
     from is3d_tpu_torch.utils import cuda_median_ms
     from is3d_tpu_torch.kernels import decays
-
-    run = IS3D(cfg.replace(do_resonance_decays=0), data_dir=run_dir,
-               device="cuda")
-    spectra = torch.as_tensor(run.run_particlization(
-        write_files=False).spectra, device="cuda")
-    table, _, _, mcids, grid = run._prepare()
     pT64 = grid.pT.to("cpu", torch.float64).numpy()
     waves = decays.plan_waves(decays._decay_schedule(
         table, mcids, pT64, cfg.lightest_particle))
     wg = decays.wave_grid(grid, cfg.dimension, torch.float32, "cuda")
     staged = decays.stage_waves(waves, pT64, torch.float32, "cuda")
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     acc = spectra.double()
     scratch = torch.zeros_like(acc)
     largest = {}
@@ -996,9 +994,13 @@ def phase_decays_pair(smi: str, clock: float, run_dir: str, cfg):
                               tasks.slot, tasks.par) + 2 * fed)
             bound = _bound(evals, *decays.WAVE_FORMULA_OPS[cfg.dimension],
                            nbytes, clock)
+            pb, n_chunks = decays.wave_split(tasks.nbody, tasks.slot.shape[0],
+                                        *tables.logdN.shape[1:],
+                                        torch.float32, n_sm)
             total[tasks.nbody] += ms
-            print(f"[decays pair] {smi} | wave {i} {tasks.nbody}-body: "
+            print(f"[{tag}] {smi} | wave {i} {tasks.nbody}-body: "
                   f"{tasks.slot.shape[0]} tasks on {st.rows.shape[0]} slots, "
+                  f"{pb} pT a block, {n_chunks} (s, v) chunks a task, "
                   f"{evals:.3e} evaluations: kernel {ms:.3f} ms (runs "
                   f"{', '.join(f'{t:.3f}' for t in runs)}), bound "
                   f"{bound[0]:.3f} ms ({bound[1]}), {bound[0] / ms:.1%} of "
@@ -1007,33 +1009,39 @@ def phase_decays_pair(smi: str, clock: float, run_dir: str, cfg):
                 largest[tasks.nbody] = (evals, i, tables, tasks, ms, bound)
             decays.decay_wave_cuda(tables, tasks, wg, acc)
     torch.cuda.synchronize()
-    print(f"[decays pair] {smi} | kernel time over the path's launches: "
+    print(f"[{tag}] {smi} | kernel time over the path's launches: "
           f"2-body {total[2]:.3f} ms, 3-body {total[3]:.3f} ms")
+    return largest, total, wg
 
+
+def _decay_largest_vs_plain(smi: str, tag: str, largest: dict, wg,
+                            n_seg: int) -> dict:
+    """The largest launch of each body against its plain version on the
+    same inputs (all its buckets, one timed run); two launches
+    bit-identical.  Returns the kernel records by body."""
+    from is3d_tpu_torch.kernels import decays
     records = {}
-    # ms, plain_ms and bound_ms are of the largest launch ("launch"); the
-    # path's launches differ in size by two orders of magnitude, path_ms
-    # sums them
     for nbody, (evals, i, tables, tasks, ms, bound) in sorted(
             largest.items()):
-        got = torch.zeros_like(acc)
-        again = torch.zeros_like(acc)
+        shape = (n_seg,) + tables.logdN.shape[1:]
+        got = torch.zeros(shape, dtype=torch.float64, device="cuda")
+        again = torch.zeros_like(got)
         decays.decay_wave_cuda(tables, tasks, wg, got)
         decays.decay_wave_cuda(tables, tasks, wg, again)
         t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         t0.record()
-        want = decays.wave_plain(tables, tasks, wg, acc.shape[0])
+        want = decays.wave_plain(tables, tasks, wg, n_seg)
         t1.record()
         t1.synchronize()
         p_ms = t0.elapsed_time(t1)
         if not torch.equal(got, again):
-            fail(f"decay_wave {nbody}-body (pair): two launches differ")
-        err = _check(f"decay_wave float32 {nbody}-body wave {i} of the main "
-                     f"path ({tasks.slot.shape[0]} tasks)", got,
+            fail(f"decay_wave {nbody}-body ({tag}): two launches differ")
+        err = _check(f"decay_wave float32 {wg.dimension}+1D {nbody}-body "
+                     f"wave {i} ({tasks.slot.shape[0]} tasks)", got,
                      want.double(), *TOL[torch.float32])
-        bucket = decays.WAVE_BUCKET[cfg.dimension]
+        bucket = decays.WAVE_BUCKET[wg.dimension]
         n_buckets = -(-tasks.slot.shape[0] // bucket)
-        print(f"[decays pair] {smi} | {nbody}-body wave {i}: kernel "
+        print(f"[{tag}] {smi} | {nbody}-body wave {i}: kernel "
               f"{ms:.3f} ms, plain {p_ms:.1f} ms on the same launch "
               f"({n_buckets} buckets of {bucket} tasks, "
               f"{p_ms / n_buckets:.1f} ms a bucket), plain/kernel "
@@ -1042,9 +1050,38 @@ def phase_decays_pair(smi: str, clock: float, run_dir: str, cfg):
         records[nbody] = dict(launches=None, max_abs_err=err, ms=ms,
                               plain_ms=p_ms, bound_ms=bound[0],
                               bound_by=bound[1], library_ms=None,
-                              launch=f"wave {i}, the largest",
-                              path_ms=total[nbody])
+                              launch=f"wave {i}, the largest")
         del want, got, again
+    return records
+
+
+def phase_decays_pair(smi: str, clock: float, run_dir: str, cfg):
+    """The wave kernel on the main decays path's own waves: the smooth
+    spectra of the run directory (f32, recomputed), every launch timed
+    beside its bound, the largest launch of each body against its plain
+    version, the kernel's SASS per evaluation, the f32 cascade against the
+    f64 one on the same spectra; then the 2+1D waves at full width on
+    their own spectra (phase_decays_2d)."""
+    from is3d_tpu_torch.api import IS3D
+    from is3d_tpu_torch.kernels import decays
+
+    run = IS3D(cfg.replace(do_resonance_decays=0), data_dir=run_dir,
+               device="cuda")
+    spectra = torch.as_tensor(run.run_particlization(
+        write_files=False).spectra, device="cuda")
+    table, _, _, mcids, grid = run._prepare()
+    largest, total, wg = _decay_waves(smi, clock, "decays pair", spectra,
+                                      table, mcids, grid, cfg)
+    # ms, plain_ms and bound_ms are of the largest launch ("launch"); the
+    # path's launches differ in size by two orders of magnitude, path_ms
+    # sums them
+    records = _decay_largest_vs_plain(smi, "decays pair", largest, wg,
+                                      spectra.shape[0])
+    for nbody in records:
+        records[nbody]["path_ms"] = total[nbody]
+        print(f"[decays pair] {smi} | wave_kernel f32 3+1D {nbody}-body, "
+              "issued per evaluation: " + _issued(
+                  "decays", f"wave_kernelIfLi3ELi{nbody}E"))
 
     # the f32 cascade (the main path's) against f64 on the same spectra
     grid64 = grid.to(dtype=torch.float64)
@@ -1065,6 +1102,37 @@ def phase_decays_pair(smi: str, clock: float, run_dir: str, cfg):
           f"{(diff[fed] / gain[fed]).max().item():.2e} of its largest "
           f"feed-down ({int(fed.sum())} species fed)")
     return records
+
+
+def phase_decays_2d(smi: str, clock: float):
+    """The 2+1D waves at full width: the decaying synthetic list (320
+    species), the native 32 x 24 grid, on the smooth spectra of a 2+1D
+    run directory cut to DECAYS_2D_CELLS cells (the waves' work does not
+    depend on the cell count): every launch timed beside its bound, the
+    largest of each body against its plain version."""
+    from is3d_tpu_torch.api import IS3D
+    from is3d_tpu_torch.config import load_config
+    from is3d_tpu_torch.testing import write_synthetic_run_dir
+
+    run_dir = os.path.join(WORK, "decays_2d")
+    write_synthetic_run_dir(run_dir, DECAYS_2D_CELLS, MAIN_SPECIES,
+                            dimension=2, seed=0, decays=True)
+    cfg = load_config(os.path.join(run_dir, "iS3D_parameters.dat"),
+                      overrides=dict(a.split("=", 1)
+                                     for a in MAIN2D_ARGS[1:]))
+    run = IS3D(cfg.replace(do_resonance_decays=0), data_dir=run_dir,
+               device="cuda")
+    spectra = torch.as_tensor(run.run_particlization(
+        write_files=False).spectra, device="cuda")
+    table, _, _, mcids, grid = run._prepare()
+    print(f"[decays 2d] smooth spectra of {DECAYS_2D_CELLS} cells x "
+          f"{len(mcids)} species, 2+1D, native {tuple(spectra.shape[1:3])} "
+          "grid (cells cut from the main path's 131072: the waves' work "
+          "does not depend on them)")
+    largest, _, wg = _decay_waves(smi, clock, "decays 2d", spectra, table,
+                                  mcids, grid, cfg)
+    _decay_largest_vs_plain(smi, "decays 2d", largest, wg, spectra.shape[0])
+    shutil.rmtree(run_dir, ignore_errors=True)
 
 
 def _kernel_split(fn, calls: int = 20, tries: int = 3) -> str:
@@ -1175,6 +1243,8 @@ def main():
         rec_decays = phase_decays_pair(smi, clock, run_dir, cfg)
         for nbody in (2, 3):
             rec_decays[nbody]["launches"] = counts[f"decay_wave_{nbody}body"]
+        shutil.rmtree(run_dir, ignore_errors=True)
+        phase_decays_2d(smi, clock)
         experiments = phase_experiments(smi, clock)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)

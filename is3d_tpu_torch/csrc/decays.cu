@@ -5,7 +5,7 @@
 // channel, one chosen daughter species, one parent slot) the feed-down
 //
 //     out[task, p, f, y] = pref * [sum_s ws] sum_v sum_zeta w(v, zeta)
-//                          MT (dN(MT, Phi+, Y) + dN(MT, Phi-, Y))
+//                          MT (dN(MT, Phi~ + phi_f, Y) + dN(MT, phi_f - Phi~, Y))
 //
 // with 12-point Gauss-Legendre rules in v (Y = y + v DeltaY), zeta (MT =
 // MTbar + DeltaMT cos zeta) and, for 3-body tasks, the invariant mass s of
@@ -23,32 +23,44 @@
 // (2+1D) or 21 (3+1D) FP32 operations and one SFU operation per
 // evaluation (kernels/decays.py: WAVE_FORMULA_OPS).
 //
-// Design (a first, simple version; its time and bound are recorded, not
-// tuned):
-//   * A block per (task, chunk of PB pT values).  It stages the task's
-//     parent slot -- the whole log table (P x F x Y), the tail tc/ts
-//     (F x Y), the MT grid -- and the phi and y grids in shared memory, so
-//     every gather of the interpolation is a shared load.  At the native
-//     3+1D grid that is 70 KB in float32 and 140 KB in float64, above the
-//     48 KB default, so the launch sets the dynamic shared-memory limit.
-//   * The (v, zeta) nodes depend on (task, pT[, s]) only: the block builds
-//     them once into a shared table (MT, Phi~ = arccos(...), the weight
-//     wz vw MT, the MT stencil's left index and weight, -1 for the tail),
-//     each thread one node.  3-body tasks rebuild it for each s.
-//   * A thread owns one output (pT, phi, y) and walks the 144 nodes; per v
-//     it forms the Y stencil once (3+1D), per node it forms both Phi
-//     solutions, wraps each to [0, 2 pi) (one add or subtract, as exact as
-//     fmod on a phi grid in [0, 2 pi); the wrap cell between phi[F-1] -
-//     2 pi and phi[0] as the plain version), finds the phi interval by a
-//     binary search in shared memory and gathers 4 (2+1D) or 8 (3+1D)
-//     table values.  3+1D takes PB = 1 (F x Y outputs, in passes of 256);
-//     2+1D, which has only F outputs per pT, takes 256 / F pT a block.
-//   * float32 takes ex2.approx on x log2(e) for exp (+inf -> inf, -inf ->
-//     0), the accurate acosf, logf, coshf, sinhf for the nodes; float64
-//     keeps IEEE exp.  The 1e-30 floor of PT^2 is normal in float32.
-//   * fold_kernel adds each target row's tasks, in schedule order, into the
-//     float64 accumulator of the spectra (a thread per target value); no
-//     atomics, so two launches give identical bits.
+// Design:
+//   * A block per (task, chunk of PB pT values, chunk of the task's (s, v)
+//     node pairs: 12 for a 2-body task, 144 for a 3-body one).  It
+//     stages the task's parent slot in shared memory -- the log table and
+//     the tail tc/ts with their phi columns padded to F + 2 (column c holds
+//     the slot's column (c - 1) mod F), float32 scaled by log2(e) so exp is
+//     one ex2 -- and the grids.  The host (kernels/decays.py: wave_split)
+//     picks PB and the (s, v) chunks from the wave's size and the SM count,
+//     so the few tasks of the last waves still fill the card; each (task,
+//     chunk) writes its own scratch row.
+//   * The (v, zeta) nodes depend on (task, pT, s) only: every thread of the
+//     block builds those of its chunk once per s into a shared table: Phi~, the weight ws
+//     wz vw MT, and the (MT) stencil as one row offset and two weights --
+//     inside the MT grid (1 - tM, tM) on rows iM and iM + 1, in the tail
+//     (1, MT) on tc and ts -- so both are the same four-load bilinear form.
+//   * Phi without a search or a branch on the wrap: the padded phi grid
+//     phi[F-1] - 2 pi, phi[0..F-1], phi[0] + 2 pi has F + 1 ordinary
+//     intervals; a uniform bucket table over [0, 2 pi) (at most one grid
+//     point per bucket, kernels/decays.py: phi_cells) gives the interval of
+//     a wrapped angle with one load and one compare.  Interval, phi weight
+//     and the four bilinear weights are formed once per (node, phi_f, +-).
+//   * A thread owns (pT, phi_f) and a run of YR consecutive rapidities
+//     (3+1D; all 21 in float32).  Per v it forms each output's Y stencil
+//     (Y = y_j + v DeltaY, a sorted walk over the y grid); per (node, +-)
+//     it walks its run keeping the last interpolated rapidity plane in a
+//     register, so neighbouring outputs share it: a plane is 4 shared loads
+//     at immediate offsets and 4 FMAs.  Where the run's stencils are not
+//     consecutive (a y grid that is not uniform) a second loop forms each
+//     stencil's planes and still reuses the plane where they overlap.
+//     Outputs with |Y| > |y_max| are summed apart per v and dropped, so
+//     they add exactly 0.
+//   * float32 takes ex2.approx on the log2(e)-scaled table (+inf -> inf,
+//     -inf -> 0), the accurate acosf, logf, coshf, sinhf for the nodes;
+//     float64 keeps IEEE exp on the unscaled table.
+//   * fold_kernel adds each target row's (task, chunk) rows -- its tasks
+//     in schedule order, each task's chunks in ascending order -- into
+//     the float64 accumulator of the spectra (a thread per target value);
+//     no atomics, so two launches give identical bits.
 
 #include <cuda_runtime.h>
 
@@ -56,10 +68,10 @@ namespace {
 
 constexpr int NG = 12;             // Gauss-Legendre points in v, zeta, s
 constexpr int NODES = NG * NG;     // (v, zeta) nodes per (task, pT[, s])
-constexpr int THREADS = 256;
-constexpr int MAX_PB = 16;         // pT values a block
+constexpr int THREADS = 256;       // most threads a block
 constexpr int NPAR = 6;            // parameters per task
 constexpr int FOLD_THREADS = 256;
+constexpr int MAX_BUCKETS = 512;   // kernels/decays.py: PHI_MAX_BUCKETS
 constexpr size_t MAX_SMEM = 232448;
 
 template <typename T>
@@ -68,10 +80,11 @@ struct Fn;
 template <>
 struct Fn<float> {
   static constexpr float TWO_PI = 6.283185307179586f;
-  static constexpr float PI = 3.141592653589793f;
-  static __device__ __forceinline__ float exp(float x) {
+  static constexpr float SCALE = 1.4426950408889634f;   // log2(e)
+  // exp of a table value scaled by SCALE
+  static __device__ __forceinline__ float exps(float x) {
     float y;
-    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x * 1.4426950408889634f));
+    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
     return y;
   }
   static __device__ __forceinline__ float sqrt(float x) { return sqrtf(x); }
@@ -79,24 +92,26 @@ struct Fn<float> {
   static __device__ __forceinline__ float cosh(float x) { return coshf(x); }
   static __device__ __forceinline__ float sinh(float x) { return sinhf(x); }
   static __device__ __forceinline__ float acos(float x) { return acosf(x); }
-  static __device__ __forceinline__ float floor(float x) { return floorf(x); }
   static __device__ __forceinline__ float abs(float x) { return fabsf(x); }
 };
 
 template <>
 struct Fn<double> {
   static constexpr double TWO_PI = 6.283185307179586;
-  static constexpr double PI = 3.141592653589793;
-  static __device__ __forceinline__ double exp(double x) { return ::exp(x); }
+  static constexpr double SCALE = 1.0;
+  static __device__ __forceinline__ double exps(double x) { return ::exp(x); }
   static __device__ __forceinline__ double sqrt(double x) { return ::sqrt(x); }
   static __device__ __forceinline__ double log(double x) { return ::log(x); }
   static __device__ __forceinline__ double cosh(double x) { return ::cosh(x); }
   static __device__ __forceinline__ double sinh(double x) { return ::sinh(x); }
   static __device__ __forceinline__ double acos(double x) { return ::acos(x); }
-  static __device__ __forceinline__ double floor(double x) {
-    return ::floor(x);
-  }
   static __device__ __forceinline__ double abs(double x) { return fabs(x); }
+};
+
+// rapidities a thread owns in 3+1D (kernels/decays.py: WAVE_Y_RUN)
+template <typename T, int DIM>
+struct YRun {
+  static constexpr int R = DIM == 2 ? 1 : (sizeof(T) == 4 ? 21 : 7);
 };
 
 template <typename T>
@@ -117,47 +132,54 @@ __device__ __forceinline__ int lower_bound(const T* a, int n, T x) {
   return lo;
 }
 
-// the shared-memory layout of a block (T arrays first, then ints)
+// The shared-memory layout of a block (T arrays first, then ints).  The
+// padded table, tc and ts are contiguous, rows FP * NY apart, with G
+// elements before and after: a run's planes past the y grid (outputs that
+// are dropped) read there.
 template <typename T>
 struct Smem {
-  T *tab, *tc, *ts, *mtg, *phi, *invd, *y, *qx, *qw, *qz;
-  T *nMT, *nPh, *nW, *nTM, *ysh;
-  int* nIM;
+  int FP, NY, G, NB;
+  T *tab, *tc, *mtg, *phl, *invd, *y, *qx, *qw, *qz, *nDY;
+  T *nPh, *nW, *nW0, *nW1;
+  int *nRow, *bucket;
 
-  static __host__ __device__ size_t bytes(int P, int F, int NY, int PB) {
-    const size_t FY = (size_t)F * NY;
-    return sizeof(T) * ((size_t)P * FY + 2 * FY + P + 2 * F + NY + 3 * NG
-                        + 4 * (size_t)PB * NODES + (size_t)PB * NG)
-           + sizeof(int) * (size_t)PB * NODES;
-  }
-
-  __device__ Smem(unsigned char* raw, int P, int F, int NY, int PB) {
-    const int FY = F * NY;
-    tab = reinterpret_cast<T*>(raw);
-    tc = tab + (size_t)P * FY;
-    ts = tc + FY;
-    mtg = ts + FY;
-    phi = mtg + P;
-    invd = phi + F;
-    y = invd + F;
+  __host__ __device__ Smem(unsigned char* raw, int P, int F, int NY_, int R,
+                           int PB, int NB_)
+      : FP(F + 2), NY(NY_), G(R + 2), NB(NB_) {
+    T* p = reinterpret_cast<T*>(raw);
+    tab = p + G;
+    tc = tab + (size_t)P * FP * NY;
+    mtg = tc + 2 * FP * NY + G;
+    phl = mtg + P;
+    invd = phl + F + 2;
+    y = invd + F + 1;
     qx = y + NY;
     qw = qx + NG;
     qz = qw + NG;
-    nMT = qz + NG;
-    nPh = nMT + PB * NODES;
+    nDY = qz + NG;
+    nPh = nDY + PB;
     nW = nPh + PB * NODES;
-    nTM = nW + PB * NODES;
-    ysh = nTM + PB * NODES;
-    nIM = reinterpret_cast<int*>(ysh + PB * NG);
+    nW0 = nW + PB * NODES;
+    nW1 = nW0 + PB * NODES;
+    nRow = reinterpret_cast<int*>(nW1 + PB * NODES);
+    bucket = nRow + PB * NODES;
+  }
+
+  __host__ __device__ size_t bytes() const {
+    return reinterpret_cast<const unsigned char*>(bucket + NB)
+           - reinterpret_cast<const unsigned char*>(tab - G);
   }
 };
 
-// the (v, zeta) node n of pT value pb of the block: MT, Phi~, the weight
-// wz vw MT, the MT stencil (left index, -1 past the grid; weight); node
-// zeta = 0 also keeps v DeltaY
+// the (v, zeta) node n of pT value pb of the block at one s (Es, ps, its
+// weight sw): Phi~, the weight sw wz vw MT, the MT stencil as a row offset
+// into the padded table (iM's row; tc's inside the tail) and its two
+// weights (1 - tM, tM; in the tail 1 and MT on tc and ts); node (v_dy, 0)
+// also keeps DeltaY
 template <typename T>
 __device__ __forceinline__ void build_node(const Smem<T>& s, int n, T pt,
-                                           int P, T m2, T Es, T ps, T M) {
+                                           int P, T m2, T Es, T ps, T M,
+                                           T sw, int v_dy) {
   using F_ = Fn<T>;
   const int pb = n / NODES, v = (n / NG) % NG, z = n % NG;
   const T pT2 = pt * pt;
@@ -166,7 +188,7 @@ __device__ __forceinline__ void build_node(const Smem<T>& s, int n, T pt,
   const T DY = F_::log((ps + F_::sqrt(Es * Es + pT2)) / mT);
   const T a = s.qx[v] * DY;
   const T ch = F_::cosh(a), sh = F_::sinh(a);
-  // cancellation-free forms (kernels/decays.py, _two_body_integral)
+  // cancellation-free forms (kernels/decays.py, _kinematics)
   const T mT2s2 = mT2 * (sh * sh);
   const T den = m2 + mT2s2;
   const T MTbar = Es * M * mT * ch / den;
@@ -176,118 +198,247 @@ __device__ __forceinline__ void build_node(const Smem<T>& s, int n, T pt,
   const T MT = MTbar + DMT * s.qz[z];
   const T PT = F_::sqrt(max_(MT * MT - M * M, T(1e-30)));
   const T arg = (MT * mTc - Es * M / pt) / PT;
-  s.nMT[n] = MT;
   s.nPh[n] = F_::acos(min_(max_(arg, T(-1)), T(1)));
-  s.nW[n] = s.qw[z] * vw * MT;
+  s.nW[n] = sw * (s.qw[z] * vw * MT);
   const int iR = min(max(lower_bound(s.mtg, P, MT), 1), P - 1);
-  s.nTM[n] = (MT - s.mtg[iR - 1]) / (s.mtg[iR] - s.mtg[iR - 1]);
-  s.nIM[n] = MT <= s.mtg[P - 1] ? iR - 1 : -1;
-  if (z == 0) s.ysh[pb * NG + v] = a;
+  const bool inside = MT <= s.mtg[P - 1];
+  const T tM = (MT - s.mtg[iR - 1]) / (s.mtg[iR] - s.mtg[iR - 1]);
+  s.nW0[n] = inside ? T(1) - tM : T(1);
+  s.nW1[n] = inside ? tM : MT;
+  s.nRow[n] = inside ? (iR - 1) * s.FP * s.NY : (int)(s.tc - s.tab);
+  if (v == v_dy && z == 0) s.nDY[pb] = DY;
 }
 
-// log dN at (MT, Phi[, plane iy]) of the stencil (iM, tM) (iM < 0: the
-// tail), phi cell (iL, iR, t)
+// One Phi solution of a node: the table offset of its (row, left column)
+// corner and the four bilinear weights of the corners q, q + NY (right
+// column), q + FP NY (next row, or ts), q + FP NY + NY
 template <typename T>
-__device__ __forceinline__ T plane(const Smem<T>& s, int F, int NY, int iM,
-                                   T tM, T MT, int iL, int iR, T t, int iy) {
-  const T wL = T(1) - t;
-  if (iM >= 0) {
-    const T* r0 = s.tab + (size_t)iM * F * NY + iy;
-    const T* r1 = r0 + F * NY;
-    return (r0[iL * NY] * wL + r0[iR * NY] * t) * (T(1) - tM)
-           + (r1[iL * NY] * wL + r1[iR * NY] * t) * tM;
-  }
-  return (s.tc[iL * NY + iy] + s.ts[iL * NY + iy] * MT) * wL
-         + (s.tc[iR * NY + iy] + s.ts[iR * NY + iy] * MT) * t;
-}
+struct Corner {
+  int q;
+  T w00, w01, w10, w11;
+};
 
-// dN at one Phi solution (before the wrap to [0, 2 pi))
-template <typename T, int DIM>
-__device__ __forceinline__ T eval(const Smem<T>& s, int F, int NY, int iM,
-                                  T tM, T MT, T Phi, int iYL, T tY) {
+template <typename T>
+__device__ __forceinline__ Corner<T> corner(const Smem<T>& s, T Phi, int row,
+                                            T W0, T W1, T binv) {
   using F_ = Fn<T>;
-  // jnp.mod / torch.remainder (fmod, then + 2 pi where negative).  Phi =
-  // +-Phi~ + phi lies in [-pi, 3 pi] on a grid in [0, 2 pi), which the
-  // host checks (do_resonance_decays): there one add or subtract of 2 pi
-  // gives the same bits (fmod is exact, and so is Phi - 2 pi for Phi in
-  // [2 pi, 4 pi))
+  // jnp.mod / torch.remainder: Phi = phi_f +- Phi~ lies in [-pi, 3 pi] on
+  // a phi grid in [0, 2 pi), which the host checks; there one add or
+  // subtract of 2 pi gives the same bits
   T Pw = Phi;
   if (Pw < T(0)) Pw += F_::TWO_PI;
   else if (Pw >= F_::TWO_PI) Pw -= F_::TWO_PI;
-  int iL, iR;
-  T t;
-  if (Pw >= s.phi[0] && Pw <= s.phi[F - 1]) {
-    iR = min(max(lower_bound(s.phi, F, Pw), 1), F - 1);
-    iL = iR - 1;
-    t = (Pw - s.phi[iL]) * s.invd[iL];
-  } else {
-    // the wrap cell (phi[F-1] - 2 pi, phi[0]), the angle mapped near 0
-    const T x = Pw - F_::floor(Pw / F_::PI) * F_::TWO_PI;
-    iL = F - 1;
-    iR = 0;
-    t = (x - (s.phi[F - 1] - F_::TWO_PI)) * s.invd[F - 1];
+  int i = s.bucket[min((int)(Pw * binv), s.NB - 1)];
+  if (Pw > s.phl[i + 1]) ++i;
+  const T t = (Pw - s.phl[i]) * s.invd[i];
+  Corner<T> c;
+  c.q = row + i * s.NY;
+  c.w00 = W0 * (T(1) - t);
+  c.w01 = W0 * t;
+  c.w10 = W1 * (T(1) - t);
+  c.w11 = W1 * t;
+  return c;
+}
+
+// the interpolated log dN of one rapidity plane at corner offset q
+template <typename T>
+__device__ __forceinline__ T plane(const T* tab, int q, int NY, int FPNY,
+                                   const Corner<T>& c) {
+  return tab[q] * c.w00 + tab[q + NY] * c.w01 + tab[q + FPNY] * c.w10
+         + tab[q + FPNY + NY] * c.w11;
+}
+
+// the left plane of Y's stencil on the y grid (the plain version's
+// clamped torch.searchsorted): a search for the first Y of a run (Ls < 0),
+// then a walk up from the last one (the run's Y increase)
+template <typename T>
+__device__ __forceinline__ int y_stencil(const Smem<T>& s, int Ls, T Y) {
+  if (Ls < 0) return min(max(lower_bound(s.y, s.NY, Y), 1), s.NY - 1) - 1;
+  while (Ls < s.NY - 2 && s.y[Ls + 1] < Y) ++Ls;
+  return Ls;
+}
+
+// One s node of the block: add the 3+1D feed-down of output (pb, f, run
+// j0 .. j0 + R) over v in [v0, v1) to acc[0..R) from the node table built
+// for that s
+template <typename T, int R>
+__device__ __forceinline__ void eval_3d(const Smem<T>& s, int pb, int f,
+                                        int j0, int v0, int v1, T yedge,
+                                        T binv, T* acc) {
+  using F_ = Fn<T>;
+  const int NY = s.NY, FPNY = s.FP * NY;
+  const T phif = s.phl[f + 1];
+  for (int v = v0; v < v1; ++v) {
+    // the run's Y stencils: left plane L_j and the weight tY[j] of plane
+    // L_j + 1; bit j of mask where |Y| <= |y_max|; regular where L_j = c +
+    // j for every such j
+    const T a = s.qx[v] * s.nDY[pb];
+    T tY[R];
+    unsigned mask = 0;
+    bool regular = true;
+    int c = 0, Ls = -1;
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      tY[j] = T(0);
+      if (j0 + j < NY) {
+        const T Y = s.y[j0 + j] + a;
+        if (F_::abs(Y) <= yedge) {
+          Ls = y_stencil(s, Ls, Y);
+          tY[j] = (Y - s.y[Ls]) / (s.y[Ls + 1] - s.y[Ls]);
+          if (mask == 0) c = Ls - j;
+          else if (Ls != c + j) regular = false;
+          mask |= 1u << j;
+        }
+      }
+    }
+    if (mask == 0) continue;
+    T part[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) part[j] = T(0);
+    const int n0 = (pb * NG + v) * NG;
+    if (regular) {
+      for (int z = 0; z < NG; ++z) {
+        const int n = n0 + z;
+        const T Ph = s.nPh[n], W = s.nW[n], W0 = s.nW0[n], W1 = s.nW1[n];
+        const int row = s.nRow[n];
+#pragma unroll
+        for (int sg = 0; sg < 2; ++sg) {
+          const Corner<T> cc =
+              corner(s, sg ? phif - Ph : phif + Ph, row, W0, W1, binv);
+          const T* t0 = s.tab + cc.q + c;
+          T lo = plane(t0, 0, NY, FPNY, cc);
+#pragma unroll
+          for (int j = 0; j < R; ++j) {
+            const T hi = plane(t0, j + 1, NY, FPNY, cc);
+            part[j] += W * F_::exps(lo + tY[j] * (hi - lo));
+            lo = hi;
+          }
+        }
+      }
+    } else {
+      for (int z = 0; z < NG; ++z) {
+        const int n = n0 + z;
+        const T Ph = s.nPh[n], W = s.nW[n], W0 = s.nW0[n], W1 = s.nW1[n];
+        const int row = s.nRow[n];
+#pragma unroll
+        for (int sg = 0; sg < 2; ++sg) {
+          const Corner<T> cc =
+              corner(s, sg ? phif - Ph : phif + Ph, row, W0, W1, binv);
+          // the stencils again (this path is rare): a plane is formed once
+          // where one output's right plane is the next one's left
+          int Ls = -1, Lp = -1;
+          T hi = T(0);
+#pragma unroll
+          for (int j = 0; j < R; ++j) {
+            if (!((mask >> j) & 1u)) continue;
+            Ls = y_stencil(s, Ls, s.y[j0 + j] + a);
+            T lo = hi;
+            if (Ls != Lp) lo = plane(s.tab, cc.q + Ls, NY, FPNY, cc);
+            hi = plane(s.tab, cc.q + Ls + 1, NY, FPNY, cc);
+            Lp = Ls + 1;
+            part[j] += W * F_::exps(lo + tY[j] * (hi - lo));
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < R; ++j)
+      if ((mask >> j) & 1u) acc[j] += part[j];
   }
-  T val;
-  if (DIM == 3)
-    val = plane(s, F, NY, iM, tM, MT, iL, iR, t, iYL) * (T(1) - tY)
-          + plane(s, F, NY, iM, tM, MT, iL, iR, t, iYL + 1) * tY;
-  else
-    val = plane(s, F, NY, iM, tM, MT, iL, iR, t, 0);
-  return F_::exp(val);
+}
+
+// One s node of the block in 2+1D: add the feed-down of output (pb, f)
+// over v in [v0, v1)
+template <typename T>
+__device__ __forceinline__ void eval_2d(const Smem<T>& s, int pb, int f,
+                                        int v0, int v1, T binv, T* acc) {
+  using F_ = Fn<T>;
+  const int FP = s.FP;
+  const T phif = s.phl[f + 1];
+  T sum = T(0);
+  for (int n = (pb * NG + v0) * NG; n < (pb * NG + v1) * NG; ++n) {
+    const T Ph = s.nPh[n], W = s.nW[n], W0 = s.nW0[n], W1 = s.nW1[n];
+    const int row = s.nRow[n];
+#pragma unroll
+    for (int sg = 0; sg < 2; ++sg) {
+      const Corner<T> cc =
+          corner(s, sg ? phif - Ph : phif + Ph, row, W0, W1, binv);
+      sum += W * F_::exps(plane(s.tab, cc.q, 1, FP, cc));
+    }
+  }
+  acc[0] += sum;
 }
 
 template <typename T, int DIM, int NBODY>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, sizeof(T) == 4 ? 2 : 1)
     wave_kernel(const T* __restrict__ logdN, const T* __restrict__ tc,
                 const T* __restrict__ ts, const T* __restrict__ mtg,
-                const T* __restrict__ pT, const T* __restrict__ phi,
+                const T* __restrict__ pT, const T* __restrict__ phl,
+                const T* __restrict__ invd, const int* __restrict__ bucket,
                 const T* __restrict__ y, const T* __restrict__ quad,
                 const int* __restrict__ slot, const T* __restrict__ par,
-                int P, int F, int NY, int PB, T* __restrict__ out) {
+                int P, int F, int NY, int PB, int NC, int NB,
+                T* __restrict__ out) {
   using F_ = Fn<T>;
+  constexpr int R = YRun<T, DIM>::R;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Smem<T> s(smem_raw, P, F, NY, PB);
-  const int k = blockIdx.x;
-  const int p0 = blockIdx.y * PB;
+  const Smem<T> s(smem_raw, P, F, NY, R, PB, NB);
+  const int k = blockIdx.x, p0 = blockIdx.y * PB, ck = blockIdx.z;
   const int np = min(PB, P - p0);
-  const int FY = F * NY;
-  const int PFY = P * FY;
+  const int nt = blockDim.x, tid = threadIdx.x;
+  const int FY = F * NY, FPNY = s.FP * NY, PFY = P * FY;
   const size_t u = slot[k];
 
-  for (int i = threadIdx.x; i < PFY; i += THREADS)
-    s.tab[i] = logdN[u * PFY + i];
-  for (int i = threadIdx.x; i < FY; i += THREADS) {
-    s.tc[i] = tc[u * FY + i];
-    s.ts[i] = ts[u * FY + i];
+  // the slot, scaled and with its phi columns padded: column c of the
+  // staged table holds column (c - 1) mod F
+  for (int i = tid; i < P * FPNY; i += nt) {
+    const int m = i / FPNY, r = i - m * FPNY, c = r / NY, iy = r - c * NY;
+    const int oc = c == 0 ? F - 1 : (c == F + 1 ? 0 : c - 1);
+    s.tab[i] = F_::SCALE * logdN[u * PFY + (size_t)(m * F + oc) * NY + iy];
   }
-  for (int i = threadIdx.x; i < P; i += THREADS) s.mtg[i] = mtg[u * P + i];
-  for (int i = threadIdx.x; i < F; i += THREADS) s.phi[i] = phi[i];
-  for (int i = threadIdx.x; i < NY; i += THREADS) s.y[i] = y[i];
-  for (int i = threadIdx.x; i < NG; i += THREADS) {
+  for (int i = tid; i < FPNY; i += nt) {
+    const int c = i / NY, iy = i - c * NY;
+    const int oc = c == 0 ? F - 1 : (c == F + 1 ? 0 : c - 1);
+    s.tc[i] = F_::SCALE * tc[u * FY + oc * NY + iy];
+    s.tc[FPNY + i] = F_::SCALE * ts[u * FY + oc * NY + iy];
+  }
+  for (int i = tid; i < s.G; i += nt) {
+    s.tab[i - s.G] = T(0);
+    s.tc[2 * FPNY + i] = T(0);
+  }
+  for (int i = tid; i < P; i += nt) s.mtg[i] = mtg[u * P + i];
+  for (int i = tid; i < F + 2; i += nt) s.phl[i] = phl[i];
+  for (int i = tid; i < F + 1; i += nt) s.invd[i] = invd[i];
+  for (int i = tid; i < NB; i += nt) s.bucket[i] = bucket[i];
+  for (int i = tid; i < NY; i += nt) s.y[i] = y[i];
+  for (int i = tid; i < NG; i += nt) {
     s.qx[i] = quad[i];
     s.qw[i] = quad[NG + i];
     s.qz[i] = quad[2 * NG + i];
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < F; i += THREADS)
-    s.invd[i] = T(1) / (i + 1 < F ? s.phi[i + 1] - s.phi[i]
-                                  : s.phi[0] - (s.phi[F - 1] - F_::TWO_PI));
 
   const T* pk = par + (size_t)k * NPAR;
   const T pref = pk[0], m2 = pk[1];
   const T M = NBODY == 2 ? pk[4] : pk[2];
-  const T yedge = F_::abs(s.y[NY - 1]);
-  const int n_out = np * FY;
-  const int n_nodes = np * NODES;
+  const T yedge = F_::abs(y[NY - 1]);
+  const T binv = T(NB) / F_::TWO_PI;
+  const int NCH = (NY + R - 1) / R;
+  const int n_out = np * F * NCH;
+  // this block's chunk [q0, q1) of the task's (s, v) pairs, q = s NG + v
+  const int Q = (NBODY == 2 ? 1 : NG) * NG;
+  const int q0 = ck * Q / NC, q1 = (ck + 1) * Q / NC;
 
-  for (int base = 0; base < n_out; base += THREADS) {
-    const int o = base + threadIdx.x;
+  // one pass unless F * (runs per pT) is above the block's threads
+  for (int base = 0; base < n_out; base += nt) {
+    const int o = base + tid;
     const bool active = o < n_out;
-    const int pb = active ? o / FY : 0;
-    const int f = active ? (o / NY) % F : 0;
-    const int yj = active ? o % NY : 0;
-    T acc = T(0);
-    for (int is = 0; is < (NBODY == 3 ? NG : 1); ++is) {
+    const int f = o % F, ch = (o / F) % NCH, pb = o / (F * NCH);
+    T acc[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) acc[j] = T(0);
+    for (int is = q0 / NG; is * NG < q1; ++is) {
+      const int v0 = max(q0 - is * NG, 0), v1 = min(q1 - is * NG, NG);
+      const int nv = v1 - v0;
       T Es, ps, sw;
       if (NBODY == 2) {
         Es = pk[2];
@@ -295,126 +446,129 @@ __global__ void __launch_bounds__(THREADS)
         sw = T(1);
       } else {
         const T sm = pk[3], sp = pk[4], d = pk[5];
-        const T sv = sm + (sp - sm) * (T(1) + s.qx[is]) / T(2);
+        const T sv = sm + (sp - sm) * (T(1) + quad[is]) / T(2);
         Es = (M * M + m2 - sv) / (T(2) * M);
         ps = F_::sqrt(max_(Es * Es - m2, T(1e-30)));
-        sw = s.qw[is] * F_::sqrt(F_::abs((sv - sm) * (sv - d))) / sv;
+        sw = quad[NG + is] * F_::sqrt(F_::abs((sv - sm) * (sv - d))) / sv;
       }
-      __syncthreads();            // the last node table is no longer read
-      for (int n = threadIdx.x; n < n_nodes; n += THREADS)
-        build_node(s, n, pT[p0 + n / NODES], P, m2, Es, ps, M);
+      __syncthreads();      // staged, or the last node table is read
+      for (int i = tid; i < np * nv * NG; i += nt) {
+        const int b = i / (nv * NG), v = v0 + (i / NG) % nv;
+        build_node(s, (b * NG + v) * NG + i % NG, pT[p0 + b], P, m2, Es, ps,
+                   M, sw, v0);
+      }
       __syncthreads();
       if (!active) continue;
-      const T phif = s.phi[f];
-      T part = T(0);
-      for (int v = 0; v < NG; ++v) {
-        int iYL = 0;
-        T tY = T(0);
-        if (DIM == 3) {
-          const T Y = s.y[yj] + s.ysh[pb * NG + v];
-          if (!(F_::abs(Y) <= yedge)) continue;     // exactly 0 there
-          iYL = min(max(lower_bound(s.y, NY, Y), 1), NY - 1) - 1;
-          tY = (Y - s.y[iYL]) / (s.y[iYL + 1] - s.y[iYL]);
-        }
-        T zs = T(0);
-        const int n0 = (pb * NG + v) * NG;
-        for (int z = 0; z < NG; ++z) {
-          const int n = n0 + z;
-          const T MT = s.nMT[n], Ph = s.nPh[n], tM = s.nTM[n];
-          const int iM = s.nIM[n];
-          zs += s.nW[n] * (eval<T, DIM>(s, F, NY, iM, tM, MT, Ph + phif, iYL,
-                                        tY)
-                           + eval<T, DIM>(s, F, NY, iM, tM, MT, phif - Ph,
-                                          iYL, tY));
-        }
-        part += zs;
-      }
-      acc += sw * part;
+      if constexpr (DIM == 3)
+        eval_3d<T, R>(s, pb, f, ch * R, v0, v1, yedge, binv, acc);
+      else
+        eval_2d(s, pb, f, v0, v1, binv, acc);
     }
-    if (active)
-      out[(size_t)k * PFY + (size_t)(p0 + pb) * FY + f * NY + yj] =
-          pref * acc;
+    if (!active) continue;
+    T* o_ = out + ((size_t)k * NC + ck) * PFY + (size_t)(p0 + pb) * FY
+            + f * NY + ch * R;
+#pragma unroll
+    for (int j = 0; j < R; ++j)
+      if (ch * R + j < NY) o_[j] = pref * acc[j];
   }
 }
 
-// acc[target[t], e] += sum over j in [tstart[t], tstart[t+1]) of
-// scratch[order[j], e], in that order, in float64
+// acc[target[t], e] += the scratch rows of target t at e, in float64: for
+// j in [tstart[t], tstart[t+1]) the rows order[j] NC + 0 .. NC - 1, in
+// that order
 template <typename T>
 __global__ void __launch_bounds__(FOLD_THREADS)
     fold_kernel(const T* __restrict__ scratch, const int* __restrict__ order,
                 const int* __restrict__ target,
-                const int* __restrict__ tstart, long long PFY,
+                const int* __restrict__ tstart, int NC, long long PFY,
                 double* __restrict__ acc) {
   const long long e = (long long)blockIdx.x * FOLD_THREADS + threadIdx.x;
   const int t = blockIdx.y;
   if (e >= PFY) return;
   double sum = 0.0;
   for (int j = tstart[t]; j < tstart[t + 1]; ++j)
-    sum += (double)scratch[(size_t)order[j] * PFY + e];
+    for (int c = 0; c < NC; ++c)
+      sum += (double)scratch[((size_t)order[j] * NC + c) * PFY + e];
   acc[(size_t)target[t] * PFY + e] += sum;
 }
 
 template <typename T, int DIM, int NBODY>
-cudaError_t launch_kernel(dim3 grid, size_t smem, cudaStream_t stream,
-                          const T* logdN, const T* tc, const T* ts,
-                          const T* mtg, const T* pT, const T* phi, const T* y,
-                          const T* quad, const int* slot, const T* par, int P,
-                          int F, int NY, int PB, T* out) {
+cudaError_t launch_kernel(dim3 grid, int threads, size_t smem,
+                          cudaStream_t stream, const T* logdN, const T* tc,
+                          const T* ts, const T* mtg, const T* pT,
+                          const T* phl, const T* invd, const int* bucket,
+                          const T* y, const T* quad, const int* slot,
+                          const T* par, int P, int F, int NY, int PB,
+                          int NC, int NB, T* out) {
   auto kern = wave_kernel<T, DIM, NBODY>;
   cudaError_t rc = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (rc != cudaSuccess) return rc;
-  kern<<<grid, THREADS, smem, stream>>>(logdN, tc, ts, mtg, pT, phi, y, quad,
-                                        slot, par, P, F, NY, PB, out);
+  kern<<<grid, threads, smem, stream>>>(logdN, tc, ts, mtg, pT, phl, invd,
+                                        bucket, y, quad, slot, par, P, F, NY,
+                                        PB, NC, NB, out);
   return cudaGetLastError();
+}
+
+template <typename T, int DIM>
+size_t smem_bytes(int P, int F, int NY, int PB, int NB) {
+  return Smem<T>(nullptr, P, F, NY, YRun<T, DIM>::R, PB, NB).bytes();
 }
 
 template <typename T>
 int launch_wave(int nbody, int dim, const void* logdN_v, const void* tc_v,
                 const void* ts_v, const void* mtg_v, const void* pT_v,
-                const void* phi_v, const void* y_v, const void* quad_v, int U,
-                int P, int F, int NY, const void* slot_v, const void* par_v,
-                int K, const void* order_v, const void* target_v,
+                const void* phl_v, const void* invd_v, const void* bucket_v,
+                int NB, const void* y_v, const void* quad_v, int U, int P,
+                int F, int NY, const void* slot_v, const void* par_v, int K,
+                int PB, int NC, const void* order_v, const void* target_v,
                 const void* tstart_v, int n_target, void* scratch_v,
                 void* acc_v, void* stream_v) {
   if (K < 1 || U < 1 || P < 2 || F < 2 || n_target < 1 || n_target > 65535 ||
+      NB < 1 || NB > MAX_BUCKETS || PB < 1 || PB > P || NC < 1 ||
+      NC > (nbody == 2 ? 1 : NG) * NG ||
       (nbody != 2 && nbody != 3) || !((dim == 2 && NY == 1) ||
                                       (dim == 3 && NY >= 2)))
     return cudaErrorInvalidValue;
-  const int FY = F * NY;
-  const int PB = max(1, min(min(P, MAX_PB), THREADS / FY));
-  const size_t smem = Smem<T>::bytes(P, F, NY, PB);
+  const int R = dim == 2 ? YRun<T, 2>::R : YRun<T, 3>::R;
+  const size_t smem = dim == 2 ? smem_bytes<T, 2>(P, F, NY, PB, NB)
+                               : smem_bytes<T, 3>(P, F, NY, PB, NB);
   if (smem > MAX_SMEM) return cudaErrorInvalidValue;
+  const int outputs = PB * F * ((NY + R - 1) / R);
+  const int threads = min(THREADS, (outputs + 31) / 32 * 32);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_v);
-  const dim3 grid((unsigned)K, (unsigned)((P + PB - 1) / PB));
+  const dim3 grid((unsigned)K, (unsigned)((P + PB - 1) / PB), (unsigned)NC);
   const T* logdN = static_cast<const T*>(logdN_v);
   const T* tc = static_cast<const T*>(tc_v);
   const T* ts = static_cast<const T*>(ts_v);
   const T* mtg = static_cast<const T*>(mtg_v);
   const T* pT = static_cast<const T*>(pT_v);
-  const T* phi = static_cast<const T*>(phi_v);
+  const T* phl = static_cast<const T*>(phl_v);
+  const T* invd = static_cast<const T*>(invd_v);
+  const int* bucket = static_cast<const int*>(bucket_v);
   const T* y = static_cast<const T*>(y_v);
   const T* quad = static_cast<const T*>(quad_v);
   const int* slot = static_cast<const int*>(slot_v);
   const T* par = static_cast<const T*>(par_v);
   T* scratch = static_cast<T*>(scratch_v);
   cudaError_t rc;
-#define IS3D_WAVE(D, N)                                                      \
-  launch_kernel<T, D, N>(grid, smem, stream, logdN, tc, ts, mtg, pT, phi, y, \
-                         quad, slot, par, P, F, NY, PB, scratch)
+#define IS3D_WAVE(D, N)                                                     \
+  launch_kernel<T, D, N>(grid, threads, smem, stream, logdN, tc, ts, mtg,  \
+                         pT, phl, invd, bucket, y, quad, slot, par, P, F,  \
+                         NY, PB, NC, NB, scratch)
   if (dim == 2)
     rc = nbody == 2 ? IS3D_WAVE(2, 2) : IS3D_WAVE(2, 3);
   else
     rc = nbody == 2 ? IS3D_WAVE(3, 2) : IS3D_WAVE(3, 3);
 #undef IS3D_WAVE
   if (rc != cudaSuccess) return (int)rc;
-  const long long PFY = (long long)P * FY;
+  const long long PFY = (long long)P * F * NY;
   const dim3 fgrid((unsigned)((PFY + FOLD_THREADS - 1) / FOLD_THREADS),
                    (unsigned)n_target);
   fold_kernel<T><<<fgrid, FOLD_THREADS, 0, stream>>>(
       scratch, static_cast<const int*>(order_v),
       static_cast<const int*>(target_v), static_cast<const int*>(tstart_v),
-      PFY, static_cast<double*>(acc_v));
+      NC, PFY, static_cast<double*>(acc_v));
   return (int)cudaGetLastError();
 }
 
@@ -422,16 +576,18 @@ int launch_wave(int nbody, int dim, const void* logdN_v, const void* tc_v,
 
 extern "C" {
 
-#define IS3D_DECAY_ENTRY(NAME, T)                                            \
-  int NAME(int nbody, int dim, const void* logdN, const void* tc,           \
-           const void* ts, const void* mtg, const void* pT, const void* phi, \
-           const void* y, const void* quad, int U, int P, int F, int NY,    \
-           const void* slot, const void* par, int K, const void* order,     \
-           const void* target, const void* tstart, int n_target,            \
-           void* scratch, void* acc, void* stream) {                        \
-    return launch_wave<T>(nbody, dim, logdN, tc, ts, mtg, pT, phi, y, quad, \
-                          U, P, F, NY, slot, par, K, order, target, tstart, \
-                          n_target, scratch, acc, stream);                  \
+#define IS3D_DECAY_ENTRY(NAME, T)                                             \
+  int NAME(int nbody, int dim, const void* logdN, const void* tc,            \
+           const void* ts, const void* mtg, const void* pT, const void* phl, \
+           const void* invd, const void* bucket, int NB, const void* y,      \
+           const void* quad, int U, int P, int F, int NY, const void* slot,  \
+           const void* par, int K, int PB, int NC, const void* order,       \
+           const void* target, const void* tstart, int n_target,             \
+           void* scratch, void* acc, void* stream) {                         \
+    return launch_wave<T>(nbody, dim, logdN, tc, ts, mtg, pT, phl, invd,     \
+                          bucket, NB, y, quad, U, P, F, NY, slot, par, K,    \
+                          PB, NC, order, target, tstart, n_target, scratch, \
+                          acc, stream);                                      \
   }
 IS3D_DECAY_ENTRY(is3d_decay_wave_f32, float)
 IS3D_DECAY_ENTRY(is3d_decay_wave_f64, double)

@@ -74,6 +74,13 @@ THREE_BODY_LAUNCHES = 0
 # weighted sum (1).
 WAVE_FORMULA_OPS = {2: (13, 1), 3: (21, 1)}
 
+# the wave kernel's blocking, as csrc/decays.cu has it: threads a block
+# (THREADS), rapidities a thread owns in 3+1D (YRun), buckets of the phi
+# table (MAX_BUCKETS)
+WAVE_THREADS = 256
+WAVE_Y_RUN = {torch.float32: 21, torch.float64: 7}
+PHI_MAX_BUCKETS = 512
+
 
 # ======================================================================
 # schedule (host, numpy)
@@ -270,22 +277,74 @@ def plan_waves(schedule) -> list:
 class WaveGrid(TensorContainer):
     """The momentum grid and the quadrature rules of the wave integrals:
     quad (3, 12) = Gauss-Legendre nodes x, weights w, cos(pi (1 + x) / 2)
-    (the zeta nodes); y is (1,) in 2+1D."""
+    (the zeta nodes); y is (1,) in 2+1D; phi_pad, phi_invd, phi_bucket the
+    wave kernel's phi intervals (phi_cells)."""
     pT: torch.Tensor
     phi: torch.Tensor
     y: torch.Tensor
     quad: torch.Tensor
     dimension: int
+    phi_pad: torch.Tensor      # (F + 2,)
+    phi_invd: torch.Tensor     # (F + 1,)
+    phi_bucket: torch.Tensor   # (NB,) int32
+
+
+def phi_cells(phi) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The wave kernel's phi intervals of a sorted phi grid in [0, 2 pi):
+    the padded grid phi[F-1] - 2 pi, phi[0..F-1], phi[0] + 2 pi (F + 2
+    points, F + 1 intervals; interval i takes table columns (i - 1) mod F
+    and i mod F, so the wrap cell is an ordinary interval), the inverse
+    widths of its intervals, and a table of NB uniform buckets over [0, 2
+    pi): bucket b holds the interval of the angle b h - h / 1000 (h = 2 pi
+    / NB).  NB is the least for which every bucket, widened by h / 1000 on
+    each side against the rounding of the kernel's b = int(Pw NB / 2 pi),
+    holds at most one grid point, so one compare with the interval's right
+    end finds the interval of any angle of the bucket
+    (phi_cell_lookup).  Raises if no NB <= PHI_MAX_BUCKETS does."""
+    phi = np.asarray(phi, np.float64)
+    pad = np.concatenate([[phi[-1] - TWO_PI], phi, [phi[0] + TWO_PI]])
+    for nb in range(1, PHI_MAX_BUCKETS + 1):
+        h = TWO_PI / nb
+        lo = np.arange(nb) * h - 1e-3 * h
+        hi = lo + 1.002 * h
+        n_in = (np.searchsorted(pad[1:], hi) - np.searchsorted(pad[1:], lo))
+        if n_in.max() <= 1:
+            bucket = np.maximum(np.searchsorted(pad, lo) - 1, 0)
+            return pad, 1.0 / np.diff(pad), bucket.astype(np.int32)
+    raise ValueError(f"the phi grid of {phi.shape[0]} points has spacings "
+                     f"down to {np.diff(pad).min():.3e}: no table of at most "
+                     f"{PHI_MAX_BUCKETS} uniform buckets holds one point "
+                     "each")
+
+
+def phi_cell_lookup(Pw, wg: WaveGrid):
+    """(iL, iR, t) of wrapped angles Pw in [0, 2 pi) as the wave kernel
+    finds them: the bucket's interval i, i + 1 where Pw lies past its right
+    end; the table columns (i - 1) mod F and i mod F and the weight of the
+    right one."""
+    nb = wg.phi_bucket.shape[0]
+    F = wg.phi.shape[0]
+    binv = (torch.tensor(float(nb), dtype=Pw.dtype)
+            / torch.tensor(TWO_PI, dtype=Pw.dtype))
+    b = (Pw * binv).long().clamp(max=nb - 1)
+    i = wg.phi_bucket.long()[b]
+    i = i + (Pw > wg.phi_pad[i + 1]).long()
+    t = (Pw - wg.phi_pad[i]) * wg.phi_invd[i]
+    return (i + F - 1) % F, i % F, t
 
 
 def wave_grid(grid, dimension: int, dtype, device) -> WaveGrid:
     x = torch.as_tensor(_GL_X, dtype=dtype)
     quad = torch.stack([x, torch.as_tensor(_GL_W, dtype=dtype),
                         torch.cos(0.5 * math.pi * (1.0 + x))])
-    t = lambda a: a.to(device=device, dtype=dtype).contiguous()
+    t = lambda a: torch.as_tensor(a).to(device=device,
+                                        dtype=dtype).contiguous()
+    pad, invd, bucket = phi_cells(grid.phi.to("cpu", torch.float64).numpy())
     return WaveGrid(pT=t(grid.pT), phi=t(grid.phi),
                     y=t(grid.y[:1] if dimension == 2 else grid.y),
-                    quad=quad.to(device).contiguous(), dimension=dimension)
+                    quad=quad.to(device).contiguous(), dimension=dimension,
+                    phi_pad=t(pad), phi_invd=t(invd),
+                    phi_bucket=torch.as_tensor(bucket, device=device))
 
 
 @dataclass(frozen=True)
@@ -612,6 +671,32 @@ def wave_plain(tables: ParentTables, tasks: WaveTasks, wg: WaveGrid,
 # the hand-written kernel (csrc/decays.cu)
 # ======================================================================
 
+def wave_split(nbody: int, n_tasks: int, P: int, F: int, NY: int, dtype,
+               n_sm: int) -> tuple[int, int]:
+    """(pT values a block, chunks a task) of one wave kernel launch: a
+    block takes as many pT values as its threads hold runs of (phi, y)
+    outputs, in balanced chunks, and each task's (s, v) node pairs (12 for
+    a 2-body task, 144 for a 3-body one) go in as many chunks as the wave
+    needs for 4 blocks an SM, so the few tasks of the last waves still
+    fill the card."""
+    run = 1 if NY == 1 else WAVE_Y_RUN[dtype]
+    pb = max(1, min(P, WAVE_THREADS // (F * -(-NY // run))))
+    pb = -(-P // -(-P // pb))
+    blocks = n_tasks * -(-P // pb)
+    pairs = GAUSS_PTS * (1 if nbody == 2 else GAUSS_PTS)
+    return pb, min(pairs, -(-4 * n_sm // blocks))
+
+
+def fold_rows(tasks: WaveTasks, n_chunks: int) -> list:
+    """The scratch rows that fold_kernel adds into each target row, in its
+    order: the row's tasks in schedule order, each task's chunks 0 ..
+    n_chunks - 1 (row task * n_chunks + chunk)."""
+    order = tasks.order.tolist()
+    tstart = tasks.tstart.tolist()
+    return [[order[j] * n_chunks + c for j in range(tstart[t], tstart[t + 1])
+             for c in range(n_chunks)] for t in range(len(tstart) - 1)]
+
+
 def _library():
     from ..native.build import cuda_library
     lib = cuda_library("decays")
@@ -621,9 +706,10 @@ def _library():
             fn.restype = ci
             fn.argtypes = [ci, ci,                     # nbody, dimension
                            vp, vp, vp, vp,             # logdN, tc, ts, mtg
-                           vp, vp, vp, vp,             # pT, phi, y, quad
+                           vp, vp, vp, vp, ci,         # pT, phi cells, NB
+                           vp, vp,                     # y, quad
                            ci, ci, ci, ci,             # U, P, F, Y
-                           vp, vp, ci,                 # slot, par, K
+                           vp, vp, ci, ci, ci,         # slot, par, K, PB, NC
                            vp, vp, vp, ci,             # order, target, tstart, n
                            vp, vp, vp]                 # scratch, acc, stream
         lib.is3d_cuda_error_string.restype = ctypes.c_char_p
@@ -635,9 +721,9 @@ def _library():
 def decay_wave_cuda(tables: ParentTables, tasks: WaveTasks, wg: WaveGrid,
                     acc: torch.Tensor):
     """Launch csrc/decays.cu on the current stream: the wave kernel writes
-    each task's feed-down x its prefactor to scratch, the fold kernel adds
-    each target row's tasks in schedule order into ``acc`` (S, P, F, Y),
-    float64, in place."""
+    each (task, chunk)'s feed-down x its prefactor to scratch, the fold
+    kernel adds each target row's rows (fold_rows) into ``acc`` (S, P, F,
+    Y), float64, in place."""
     global TWO_BODY_LAUNCHES, THREE_BODY_LAUNCHES
     check_float("decay_wave_cuda", tables.logdN)
     if tables.logdN.dim() != 4:
@@ -651,6 +737,10 @@ def decay_wave_cuda(tables: ParentTables, tasks: WaveTasks, wg: WaveGrid,
     check_tensor("mtg", tables.mtg, (U, P), like)
     check_tensor("pT", wg.pT, (P,), like)
     check_tensor("phi", wg.phi, (F,), like)
+    check_tensor("phi_pad", wg.phi_pad, (F + 2,), like)
+    check_tensor("phi_invd", wg.phi_invd, (F + 1,), like)
+    NB = wg.phi_bucket.shape[0]
+    check_tensor("phi_bucket", wg.phi_bucket, (NB,), like, torch.int32)
     check_tensor("y", wg.y, (NY,), like)
     check_tensor("quad", wg.quad, (3, GAUSS_PTS), like)
     K = tasks.slot.shape[0]
@@ -669,14 +759,17 @@ def decay_wave_cuda(tables: ParentTables, tasks: WaveTasks, wg: WaveGrid,
                          f"Y = {NY}")
     require_cuda("decay_wave_cuda", like)
     lib = _library()
-    scratch = like.new_empty((K, P, F, NY))
+    n_sm = torch.cuda.get_device_properties(like.device).multi_processor_count
+    pb, n_chunks = wave_split(tasks.nbody, K, P, F, NY, like.dtype, n_sm)
+    scratch = like.new_empty((K * n_chunks, P, F, NY))
     fn = (lib.is3d_decay_wave_f64 if like.dtype == torch.float64
           else lib.is3d_decay_wave_f32)
     launch(lib, "decay_wave", fn, like.device, tasks.nbody, wg.dimension,
            like.data_ptr(), tables.tc.data_ptr(), tables.ts.data_ptr(),
-           tables.mtg.data_ptr(), wg.pT.data_ptr(), wg.phi.data_ptr(),
+           tables.mtg.data_ptr(), wg.pT.data_ptr(), wg.phi_pad.data_ptr(),
+           wg.phi_invd.data_ptr(), wg.phi_bucket.data_ptr(), NB,
            wg.y.data_ptr(), wg.quad.data_ptr(), U, P, F, NY,
-           tasks.slot.data_ptr(), tasks.par.data_ptr(), K,
+           tasks.slot.data_ptr(), tasks.par.data_ptr(), K, pb, n_chunks,
            tasks.order.data_ptr(), tasks.target.data_ptr(),
            tasks.tstart.data_ptr(), n_t, scratch.data_ptr(), acc.data_ptr())
     if tasks.nbody == 2:

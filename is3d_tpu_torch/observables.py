@@ -2,9 +2,9 @@
 
 Numpy equivalents of the reference's writer-side integrations
 (emissionfunction.cpp:593-772, 1053-1136): dN/dphidy, dN/(2pi pT dpT dy),
-dN/dy, and the continuous anisotropic-flow harmonics v_n(pT, y).  They run
-on the host on the final (S, PT, PHI, Y) spectra; grid tensors are read
-back with ``_np``.
+dN/dy, the mean pT, and the continuous anisotropic-flow harmonics v_n(pT,
+y).  They run on the host on the final (S, PT, PHI, Y) spectra; grid
+tensors are read back with ``_np``.
 """
 
 from __future__ import annotations
@@ -45,6 +45,17 @@ def dN_dy(spectra, grid, include_pT_jacobian: bool = True) -> np.ndarray:
     pw = _np(grid.pT_weight)
     w = pw * _np(grid.pT) if include_pT_jacobian else pw
     return np.einsum("spfy,p,f->sy", _np(spectra), w, _np(grid.phi_weight))
+
+
+def mean_pT(spectra, grid) -> np.ndarray:
+    """(S, PT, PHI, Y) -> (S, Y): mean transverse momentum, the Gauss
+    integral of pT^2 spectra over dN/dy (with its pT Jacobian); 0 where
+    dN/dy is 0."""
+    num = np.einsum("spfy,p,f->sy", _np(spectra),
+                    _np(grid.pT_weight) * _np(grid.pT) ** 2,
+                    _np(grid.phi_weight))
+    den = dN_dy(spectra, grid)
+    return num / np.where(den == 0.0, 1.0, den)
 
 
 def continuous_vn(spectra, grid, k_max: int = K_MAX):

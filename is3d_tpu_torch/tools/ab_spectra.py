@@ -4,7 +4,7 @@ C, C, B, A).
 
     python -m is3d_tpu_torch.tools.ab_spectra ROOT_A ROOT_B [ROOT_C ...]
         [--cells N]
-        [--cases 3d_df2,3d_df1,2d_fixed,2d_remap,bin,dndx,proto]
+        [--cases 3d_df2,3d_df1,2d_fixed,2d_remap,bin,dndx,proto,decays]
 
 Each turn runs a fresh interpreter that imports ``is3d_tpu_torch`` from
 that root (building its kernels into that root's _build/) and, per case:
@@ -47,7 +47,8 @@ import os
 import subprocess
 import sys
 
-CASES = ("3d_df2", "3d_df1", "2d_fixed", "2d_remap", "bin", "dndx", "proto")
+CASES = ("3d_df2", "3d_df1", "2d_fixed", "2d_remap", "bin", "dndx", "proto",
+         "decays")
 
 _TURN = r"""
 import json, statistics, sys
@@ -57,7 +58,7 @@ import torch
 from is3d_tpu_torch import testing
 from is3d_tpu_torch.config import Config
 from is3d_tpu_torch.io.tables import native_momentum_grid
-from is3d_tpu_torch.kernels import smooth, dndx
+from is3d_tpu_torch.kernels import smooth, dndx, decays
 from is3d_tpu_torch.kernels.common import surface_columns, prepare_cells
 from is3d_tpu_torch.experiments import smooth_proto
 assert smooth.__file__.startswith(sys.argv[1]), smooth.__file__
@@ -139,6 +140,34 @@ for case in cases:
         out = smooth_proto.proto_spectra_cuda(*sub).double()
         ref = smooth_proto.proto_spectra_cuda(*(a.double() for a in sub))
         err = float((out - ref).abs().max() / ref.abs().max())
+    elif case == "decays":
+        table, mcids = testing.synthetic_decaying_table(320)
+        grid = native_momentum_grid(3)
+        pT64 = grid.pT.numpy()
+        waves = decays.plan_waves(decays._decay_schedule(
+            table, mcids, pT64, Config().lightest_particle))
+        acc = torch.as_tensor(testing.thermal_spectra(table, mcids, grid, 3),
+                              device=dev)
+        f64 = torch.float64
+        wg, wg64 = (decays.wave_grid(grid, 3, t, dev) for t in (dt, f64))
+        for i, (st, st64) in enumerate(zip(
+                decays.stage_waves(waves, pT64, dt, dev),
+                decays.stage_waves(waves, pT64, f64, dev))):
+            tables = decays.parent_tables(acc, st.rows, st.masses, st.mtg, dt)
+            tables64 = decays.parent_tables(acc, st64.rows, st64.masses,
+                                            st64.mtg, f64)
+            for tasks, tasks64 in zip(st.launches, st64.launches):
+                scratch = torch.zeros_like(acc)
+                ms, runs, total = timed(lambda: (decays.decay_wave_cuda(
+                    tables, tasks, wg, scratch), scratch)[1])
+                out, ref = torch.zeros_like(acc), torch.zeros_like(acc)
+                decays.decay_wave_cuda(tables, tasks, wg, out)
+                decays.decay_wave_cuda(tables64, tasks64, wg64, ref)
+                err = float((out - ref).abs().max() / ref.abs().max())
+                report[f"decays_w{i}_{tasks.nbody}body"] = {
+                    "ms": ms, "runs": runs, "sum": total, "err_f64": err}
+                decays.decay_wave_cuda(tables, tasks, wg, acc)
+        continue
     else:
         cfg = Config(operation=0, mode=1, dimension=2)
         surf = testing.synthetic_surface(8192, 2, seed=2, dtype=dt,
@@ -177,7 +206,9 @@ def main(argv=None):
         line = proc.stdout.strip().splitlines()[-1]
         print(line, flush=True)
         results[root].append(json.loads(line))
-    for case in cases:
+    # a case may report several entries (decays: one a launch)
+    entries = [k for k in results[roots[0]][0] if k != "root"]
+    for case in entries:
         med = {r: sum(t[case]["ms"] for t in results[r]) / 2 for r in roots}
         sums = {r: results[r][0][case]["sum"] for r in roots}
         first = roots[0]

@@ -290,3 +290,22 @@ def test_splines_and_lrf_match_jax():
                            t(u["ux"]), t(u["uy"]), t(u["un"]), t(tau)),
           j_lrf.complete_Vmu(V["Vx"], V["Vy"], V["Vn"], jut, u["ux"],
                              u["uy"], u["un"], tau))
+
+
+@pytest.mark.parametrize("dimension", [2, 3])
+def test_mean_pT_matches_jax(dimension):
+    """observables.mean_pT (S, Y) on the same numpy spectra, with one
+    species all zero (a zero dN/dy, mapped to a mean of 0), at rtol 1e-12
+    in f64."""
+    from is3d_tpu import observables as j_obs
+    from is3d_tpu_torch import observables
+    kw = dict(n_pT=8, n_phi=6, n_y=5, n_eta=4)
+    grid = native_momentum_grid(dimension, **kw)
+    jgrid = j_native_grid(dimension, **kw)
+    n_y = 5 if dimension == 3 else 1
+    spectra = np.random.default_rng(7).random((4, 8, 6, n_y))
+    spectra[2] = 0.0
+    got = observables.mean_pT(torch.as_tensor(spectra), grid)
+    want = np.asarray(j_obs.mean_pT(spectra, jgrid))
+    assert got.shape == (4, n_y) and (got[2] == 0).all()
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=0)

@@ -689,3 +689,111 @@ def test_decay_cascade_cuda_matches_cpu_on_gpu(cuda_card, dimension):
     scale = cpu.abs().amax(dim=(1, 2, 3), keepdim=True)
     assert ((gpu.cpu() - cpu).abs() <= 1e-10 * cpu.abs() + 1e-13 * scale).all()
     assert ((f32.cpu() - cpu).abs() <= 1e-4 * scale).all()
+
+
+PHI_GRIDS = [("gauss_legendre", n) for n in (6, 7, 12, 24, 31, 48)] + [
+    ("ragged", testing._RAGGED["n_phi"]), ("decay_edges", 9)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+@pytest.mark.parametrize("kind,n_phi", PHI_GRIDS)
+def test_phi_bucket_lookup_matches_searchsorted(kind, n_phi, dtype):
+    """The wave kernel's phi lookup (padded grid, uniform buckets, one
+    compare; decays.phi_cell_lookup mirrors it) finds the interval that
+    torch.searchsorted and the wrap-cell rule of _interp_phi_indices find,
+    on random angles, angles exactly on the nodes and angles in the wrap
+    cell on both sides; on a node the two may take the neighbouring
+    intervals, and the interpolated value agrees (f32 to 1e-4 of a unit
+    table: the wrap cell's shift by 2 pi rounds at 4.8e-7 rad)."""
+    grid = native_momentum_grid(2, n_pT=4, n_phi=n_phi, n_eta=4)
+    wg = decays.wave_grid(grid, 2, dtype, "cpu")
+    assert wg.phi_bucket.shape[0] <= decays.PHI_MAX_BUCKETS
+    phi = wg.phi
+    rng = np.random.default_rng(n_phi)
+    t = lambda a: torch.as_tensor(a, dtype=dtype)
+    Pw = torch.cat([t(rng.uniform(0, 2 * np.pi, 5000)), phi,
+                    t(rng.uniform(0, float(phi[0]), 200)),
+                    t(rng.uniform(float(phi[-1]), 2 * np.pi, 200))])
+    Pw = Pw[Pw < decays.TWO_PI]
+    iL, iR, _, w = decays._interp_phi_indices(phi, Pw)
+    jL, jR, u = decays.phi_cell_lookup(Pw, wg)
+    same = (iL == jL) & (iR == jR)
+    on_node = (Pw[:, None] == phi).any(1)
+    assert bool((same | on_node).all())
+    assert int(same.sum()) > Pw.shape[0] - phi.shape[0] - 1
+    # the weight lies in [0, 1] up to the rounding of (Pw - left) / width
+    eps = 1e-5 if dtype == torch.float32 else 1e-12
+    assert bool(((u >= -eps) & (u <= 1 + eps)).all())
+    v = t(rng.normal(size=phi.shape[0]))
+    err = (v[iL] * (1 - w) + v[iR] * w - v[jL] * (1 - u) - v[jR] * u).abs()
+    assert err.max().item() < (1e-4 if dtype == torch.float32 else 1e-12)
+
+
+def test_phi_bucket_table_raises_where_it_cannot_bucket():
+    """Two grid points closer than 2 pi / PHI_MAX_BUCKETS leave no bucket
+    table with one point a bucket: the host raises."""
+    phi = np.linspace(0.1, 6.0, 10)
+    decays.phi_cells(phi)
+    phi[4] = phi[3] + 1e-4
+    with pytest.raises(ValueError, match="no table of at most"):
+        decays.phi_cells(phi)
+
+
+@pytest.mark.parametrize("nbody", [2, 3])
+def test_wave_split_folds_every_row_once_in_order(nbody):
+    """For waves of 1-300 tasks the split gives every (task, chunk of (s,
+    v) node pairs) its scratch row, fold_rows adds each exactly once -- a
+    target row's tasks in schedule order, each task's chunks in ascending
+    order -- and the grid has at least 4 blocks an SM unless every chunk is
+    one (s, v) pair."""
+    rng = np.random.default_rng(nbody)
+    pairs = 12 if nbody == 2 else 144
+    for n_tasks in list(range(1, 13)) + [20, 65, 173, 277, 300]:
+        for dtype, NY in ((torch.float32, 21), (torch.float64, 21),
+                          (torch.float32, 1)):
+            pb, n_chunks = decays.wave_split(nbody, n_tasks, 32, 24, NY,
+                                             dtype, 132)
+            assert 1 <= pb <= 32 and 1 <= n_chunks <= pairs
+            blocks = n_tasks * -(-32 // pb) * n_chunks
+            assert blocks >= 4 * 132 or n_chunks == pairs
+            assert n_chunks == 1 or blocks < 4 * 132 + n_tasks * 32
+        seg = rng.integers(0, 7, n_tasks)
+        tasks = decays.wave_tasks(
+            nbody, [(int(s), 1.0, 0) + (0.0,) * (4 if nbody == 2 else 5)
+                    for s in seg], torch.float64, "cpu")
+        rows = decays.fold_rows(tasks, n_chunks)
+        flat = [r for t in rows for r in t]
+        assert sorted(flat) == list(range(n_tasks * n_chunks))
+        for t, target in enumerate(tasks.target.tolist()):
+            want = [k * n_chunks + c for k in np.nonzero(seg == target)[0]
+                    for c in range(n_chunks)]
+            assert rows[t] == want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+def test_decay_wave_s_split_matches_plain_on_gpu(cuda_card, dtype):
+    """A 3-task 3-body wave (3+1D), which the card takes in several chunks
+    of its (s, v) node pairs, against its plain version; two launches
+    bit-identical."""
+    tables, tasks, wg, n_seg = testing.decay_edge_inputs(
+        "3body_3d", dtype=dtype, device="cuda")
+    # three tasks of parents off the -745 floor (slot 0 is all zero)
+    pick = torch.nonzero(tasks.slot.cpu() > 0)[:3, 0].tolist()
+    host = [(int(tasks.seg[i]), float(tasks.par[i, 0]), int(tasks.slot[i]))
+            + tuple(tasks.par[i, 1:].tolist()) for i in pick]
+    tasks = decays.wave_tasks(3, host, dtype, "cuda")
+    U, P, F, NY = tables.logdN.shape
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    assert decays.wave_split(3, 3, P, F, NY, dtype, n_sm)[1] > 1
+    acc = torch.zeros((n_seg, P, F, NY), dtype=torch.float64, device="cuda")
+    again = torch.zeros_like(acc)
+    decays.decay_wave_cuda(tables, tasks, wg, acc)
+    decays.decay_wave_cuda(tables, tasks, wg, again)
+    want = decays.wave_plain(tables, tasks, wg, n_seg).double()
+    torch.cuda.synchronize()
+    rtol, atol = (2e-4, 2e-5) if dtype == torch.float32 else (1e-10, 1e-13)
+    np.testing.assert_allclose(acc.cpu().numpy(), want.cpu().numpy(),
+                               rtol=rtol,
+                               atol=atol * want.abs().max().item())
+    assert torch.equal(acc, again)

@@ -37,7 +37,8 @@ Phases, each printing its own line(s):
    (testing.DECAY_EDGES: 2- and 3-body, 2+1D and 3+1D; parent MT past
    the grid, Phi in the wrap cell, |Y| > y_max with exact zeros, massless
    daughters, adjusted masses, a row fed by many tasks, a parent at the
-   -745 floor; two launches bit-identical);
+   -745 floor, a stretched y grid whose stencils are not consecutive; two
+   launches bit-identical);
 4. operation 1 main path: a synthetic 131072-cell x 320-species 3+1D
    mode-1 run directory through ``is3d_tpu_torch.cli.main`` (df 2, shear +
    bulk, regulate, outflow, f32, native 32 x 24 x 21 grid), then the same
@@ -96,8 +97,7 @@ Bounds: the larger of the bytes over the memory rate and the operations
 over the card's FP32 and SFU rates, the spectra, dN/dX and prototype
 kernels' operations from one yardstick counted in the formula
 (kernels/smooth.py, FORMULA_OPS), the wave kernel's from its own
-(kernels/decays.py, WAVE_FORMULA_OPS) and the evaluations its inputs
-need.  Before every path (4, 5a, 6, 7a, 8) all launch
+count of what its inputs need (kernels/decays.py, wave_operations).  Before every path (4, 5a, 6, 7a, 8) all launch
 counts are set to 0 and they are read right after it.  The line before
 the last is the kernel record as JSON; the last line is ``{"ok": true,
 "device": {...}}``.  Any failed phase exits nonzero before that line is
@@ -341,8 +341,9 @@ def phase_small_decay_edges():
     """The wave kernel's edges (testing.DECAY_EDGES: 2- and 3-body, 2+1D and
     3+1D; MT past the grid, Phi wrap, |Y| > y_max with exact zeros,
     massless daughters, adjusted masses, a row fed by many tasks, a parent
-    at the floor) against the plain version, f32 and f64; two launches
-    bit-identical, exact zeros kept."""
+    at the floor, stencils that are not consecutive on a stretched y grid)
+    against the plain version, f32 and f64; two launches bit-identical,
+    exact zeros kept."""
     from is3d_tpu_torch import testing
     from is3d_tpu_torch.kernels import decays
     for dtype in (torch.float32, torch.float64):
@@ -704,8 +705,9 @@ def mom_tensors(mom):
 def _bound(evals: float, fp32: float, sfu: float, nbytes: float,
            clock: float) -> tuple[float, str]:
     """The least time (ms) the card could take: the larger of the bytes
-    over the memory rate and the FP32 and SFU instructions over their
-    issue rates at the maximum SM clock."""
+    over the memory rate and the FP32 and SFU instructions (``evals`` x
+    ``fp32`` and x ``sfu``) over their issue rates at the maximum SM
+    clock."""
     t_ops = max(evals * fp32 / (N_SM * FP32_LANES * clock),
                 evals * sfu / (N_SM * SFU_LANES * clock))
     t_bytes = nbytes / HBM_RATE
@@ -976,7 +978,7 @@ def _decay_waves(smi: str, clock: float, tag: str, spectra, table, mcids,
         table, mcids, pT64, cfg.lightest_particle))
     wg = decays.wave_grid(grid, cfg.dimension, torch.float32, "cuda")
     staged = decays.stage_waves(waves, pT64, torch.float32, "cuda")
-    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    lib = decays._library()
     acc = spectra.double()
     scratch = torch.zeros_like(acc)
     largest = {}
@@ -992,19 +994,27 @@ def _decay_waves(smi: str, clock: float, tag: str, spectra, table, mcids,
             fed = tasks.target.shape[0] * acc[0].numel() * 8
             nbytes = (_nbytes(tables.logdN, tables.tc, tables.ts, tables.mtg,
                               tasks.slot, tasks.par) + 2 * fed)
-            bound = _bound(evals, *decays.WAVE_FORMULA_OPS[cfg.dimension],
-                           nbytes, clock)
-            pb, n_chunks = decays.wave_split(tasks.nbody, tasks.slot.shape[0],
-                                        *tables.logdN.shape[1:],
-                                        torch.float32, n_sm)
+            fp32, sfu = decays.wave_operations(tasks, wg)
+            bound = _bound(1.0, fp32, sfu, nbytes, clock)
+            t_fp32, t_sfu = (_bound(1.0, fp32, 0, 0, clock)[0],
+                             _bound(1.0, 0, sfu, 0, clock)[0])
+            bl = decays.wave_blocking(lib, acc.device, torch.float32,
+                                      tasks.nbody, cfg.dimension,
+                                      tasks.slot.shape[0],
+                                      *tables.logdN.shape[1:],
+                                      wg.phi_bucket.shape[0])
             total[tasks.nbody] += ms
             print(f"[{tag}] {smi} | wave {i} {tasks.nbody}-body: "
                   f"{tasks.slot.shape[0]} tasks on {st.rows.shape[0]} slots, "
-                  f"{pb} pT a block, {n_chunks} (s, v) chunks a task, "
-                  f"{evals:.3e} evaluations: kernel {ms:.3f} ms (runs "
+                  f"{bl.pt_block} pT a block, {bl.chunks} (s, v) chunks a "
+                  f"task, {bl.smem} B of shared memory a block, "
+                  f"{evals:.3e} evaluations, {fp32 / evals:.3f} FP32 and "
+                  f"{sfu / evals:.0f} SFU an evaluation at least: kernel "
+                  f"{ms:.3f} ms (runs "
                   f"{', '.join(f'{t:.3f}' for t in runs)}), bound "
-                  f"{bound[0]:.3f} ms ({bound[1]}), {bound[0] / ms:.1%} of "
-                  f"it, {evals / ms * 1e3:.3e} evaluations/s")
+                  f"{bound[0]:.3f} ms ({bound[1]}: FP32 {t_fp32:.3f}, SFU "
+                  f"{t_sfu:.3f}), {bound[0] / ms:.1%} of it, "
+                  f"{evals / ms * 1e3:.3e} evaluations/s")
             if evals > largest.get(tasks.nbody, (0,))[0]:
                 largest[tasks.nbody] = (evals, i, tables, tasks, ms, bound)
             decays.decay_wave_cuda(tables, tasks, wg, acc)

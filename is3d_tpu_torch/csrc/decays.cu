@@ -16,12 +16,12 @@
 // gather form of the plain versions (kernels/decays.py:
 // two_body_wave_plain, three_body_wave_plain), node for node.
 //
-// What bounds it on this card: FP32 and SFU issue, not bytes.  A wave's
-// inputs are the slots' tables (a 3+1D slot of 32 x 24 x 21 is 64.5 KB in
-// float32) and the output is one (P, F, Y) block per task, against 288
-// evaluations per output value (3456 for 3-body); the yardstick counts 13
-// (2+1D) or 21 (3+1D) FP32 operations and one SFU operation per
-// evaluation (kernels/decays.py: WAVE_FORMULA_OPS).
+// What bounds it on this card: SFU issue, not bytes.  A wave's inputs are
+// the slots' tables (a 3+1D slot of 32 x 24 x 21 is 64.5 KB in float32)
+// and the output is one (P, F, Y) block per task, against 288 evaluations
+// per output value (3456 for 3-body); each evaluation takes one ex2 and,
+// with planes shared between neighbouring rapidities, about 7 FP32
+// operations in 3+1D (12 in 2+1D) (kernels/decays.py: wave_operations).
 //
 // Design:
 //   * A block per (task, chunk of PB pT values, chunk of the task's (s, v)
@@ -29,10 +29,11 @@
 //     stages the task's parent slot in shared memory -- the log table and
 //     the tail tc/ts with their phi columns padded to F + 2 (column c holds
 //     the slot's column (c - 1) mod F), float32 scaled by log2(e) so exp is
-//     one ex2 -- and the grids.  The host (kernels/decays.py: wave_split)
-//     picks PB and the (s, v) chunks from the wave's size and the SM count,
-//     so the few tasks of the last waves still fill the card; each (task,
-//     chunk) writes its own scratch row.
+//     one ex2 -- and the grids.  wave_blocking, the one owner of the
+//     blocking, picks PB and the (s, v) chunks from the wave's size and the
+//     SM count, so the few tasks of the last waves still fill the card, and
+//     reports them to the wrapper (kernels/decays.py: wave_blocking); each
+//     (task, chunk) writes its own scratch row.
 //   * The (v, zeta) nodes depend on (task, pT, s) only: every thread of the
 //     block builds those of its chunk once per s into a shared table: Phi~, the weight ws
 //     wz vw MT, and the (MT) stencil as one row offset and two weights --
@@ -41,7 +42,8 @@
 //   * Phi without a search or a branch on the wrap: the padded phi grid
 //     phi[F-1] - 2 pi, phi[0..F-1], phi[0] + 2 pi has F + 1 ordinary
 //     intervals; a uniform bucket table over [0, 2 pi) (at most one grid
-//     point per bucket, kernels/decays.py: phi_cells) gives the interval of
+//     point per bucket, kernels/decays.py: phi_cells; as many buckets as
+//     the grid needs, up to what shared memory holds) gives the interval of
 //     a wrapped angle with one load and one compare.  Interval, phi weight
 //     and the four bilinear weights are formed once per (node, phi_f, +-).
 //   * A thread owns (pT, phi_f) and a run of YR consecutive rapidities
@@ -71,7 +73,6 @@ constexpr int NODES = NG * NG;     // (v, zeta) nodes per (task, pT[, s])
 constexpr int THREADS = 256;       // most threads a block
 constexpr int NPAR = 6;            // parameters per task
 constexpr int FOLD_THREADS = 256;
-constexpr int MAX_BUCKETS = 512;   // kernels/decays.py: PHI_MAX_BUCKETS
 constexpr size_t MAX_SMEM = 232448;
 
 template <typename T>
@@ -108,7 +109,7 @@ struct Fn<double> {
   static __device__ __forceinline__ double abs(double x) { return fabs(x); }
 };
 
-// rapidities a thread owns in 3+1D (kernels/decays.py: WAVE_Y_RUN)
+// rapidities a thread owns in 3+1D
 template <typename T, int DIM>
 struct YRun {
   static constexpr int R = DIM == 2 ? 1 : (sizeof(T) == 4 ? 21 : 7);
@@ -515,25 +516,62 @@ size_t smem_bytes(int P, int F, int NY, int PB, int NB) {
   return Smem<T>(nullptr, P, F, NY, YRun<T, DIM>::R, PB, NB).bytes();
 }
 
+// The wave kernel's blocking for a launch of K tasks on the current card,
+// the one owner of it: out = {PB pT values a block, NC chunks of each
+// task's (s, v) node pairs, dynamic shared memory a block with an NB-bucket
+// phi table, most buckets the shared memory takes}.  A block takes as many
+// pT values as its threads hold runs of (phi, y) outputs, in balanced
+// chunks; the node pairs (12 for a 2-body task, 144 for a 3-body one) go
+// in as many chunks as the wave needs for 4 blocks an SM.
+template <typename T>
+int wave_blocking(int nbody, int dim, int K, int P, int F, int NY, int NB,
+                  int* out) {
+  if (K < 1 || P < 2 || F < 2 || NB < 0 || out == nullptr ||
+      (nbody != 2 && nbody != 3) ||
+      !((dim == 2 && NY == 1) || (dim == 3 && NY >= 2)))
+    return cudaErrorInvalidValue;
+  int dev = 0, n_sm = 0;
+  int rc = (int)cudaGetDevice(&dev);
+  if (rc == 0)
+    rc = (int)cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
+                                     dev);
+  if (rc != 0) return rc;
+  const int R = dim == 2 ? YRun<T, 2>::R : YRun<T, 3>::R;
+  const int runs = F * ((NY + R - 1) / R);
+  int PB = max(1, min(P, THREADS / runs));
+  PB = (P + (P + PB - 1) / PB - 1) / ((P + PB - 1) / PB);
+  const long long blocks = (long long)K * ((P + PB - 1) / PB);
+  const long long pairs = (nbody == 2 ? 1 : NG) * NG;
+  const long long want = (4LL * n_sm + blocks - 1) / blocks;
+  const size_t base = dim == 2 ? smem_bytes<T, 2>(P, F, NY, PB, 0)
+                               : smem_bytes<T, 3>(P, F, NY, PB, 0);
+  const size_t with_nb = base + (size_t)NB * sizeof(int);
+  out[0] = PB;
+  out[1] = (int)(want < pairs ? want : pairs);
+  out[2] = with_nb > (size_t)0x7fffffff ? 0x7fffffff : (int)with_nb;
+  out[3] = base > MAX_SMEM ? 0 : (int)((MAX_SMEM - base) / sizeof(int));
+  return cudaSuccess;
+}
+
 template <typename T>
 int launch_wave(int nbody, int dim, const void* logdN_v, const void* tc_v,
                 const void* ts_v, const void* mtg_v, const void* pT_v,
                 const void* phl_v, const void* invd_v, const void* bucket_v,
                 int NB, const void* y_v, const void* quad_v, int U, int P,
                 int F, int NY, const void* slot_v, const void* par_v, int K,
-                int PB, int NC, const void* order_v, const void* target_v,
+                int NC, const void* order_v, const void* target_v,
                 const void* tstart_v, int n_target, void* scratch_v,
                 void* acc_v, void* stream_v) {
-  if (K < 1 || U < 1 || P < 2 || F < 2 || n_target < 1 || n_target > 65535 ||
-      NB < 1 || NB > MAX_BUCKETS || PB < 1 || PB > P || NC < 1 ||
-      NC > (nbody == 2 ? 1 : NG) * NG ||
-      (nbody != 2 && nbody != 3) || !((dim == 2 && NY == 1) ||
-                                      (dim == 3 && NY >= 2)))
+  // the scratch rows (K x NC) must be those of the blocking
+  int bl[4];
+  int rc0 = wave_blocking<T>(nbody, dim, K, P, F, NY, NB, bl);
+  if (rc0 != cudaSuccess) return rc0;
+  const int PB = bl[0];
+  const size_t smem = (size_t)bl[2];
+  if (U < 1 || n_target < 1 || n_target > 65535 || NB < 1 || NC != bl[1] ||
+      smem > MAX_SMEM)
     return cudaErrorInvalidValue;
   const int R = dim == 2 ? YRun<T, 2>::R : YRun<T, 3>::R;
-  const size_t smem = dim == 2 ? smem_bytes<T, 2>(P, F, NY, PB, NB)
-                               : smem_bytes<T, 3>(P, F, NY, PB, NB);
-  if (smem > MAX_SMEM) return cudaErrorInvalidValue;
   const int outputs = PB * F * ((NY + R - 1) / R);
   const int threads = min(THREADS, (outputs + 31) / 32 * 32);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_v);
@@ -581,17 +619,29 @@ extern "C" {
            const void* ts, const void* mtg, const void* pT, const void* phl, \
            const void* invd, const void* bucket, int NB, const void* y,      \
            const void* quad, int U, int P, int F, int NY, const void* slot,  \
-           const void* par, int K, int PB, int NC, const void* order,       \
+           const void* par, int K, int NC, const void* order,               \
            const void* target, const void* tstart, int n_target,             \
            void* scratch, void* acc, void* stream) {                         \
     return launch_wave<T>(nbody, dim, logdN, tc, ts, mtg, pT, phl, invd,     \
                           bucket, NB, y, quad, U, P, F, NY, slot, par, K,    \
-                          PB, NC, order, target, tstart, n_target, scratch, \
-                          acc, stream);                                      \
+                          NC, order, target, tstart, n_target, scratch, acc, \
+                          stream);                                           \
   }
 IS3D_DECAY_ENTRY(is3d_decay_wave_f32, float)
 IS3D_DECAY_ENTRY(is3d_decay_wave_f64, double)
 #undef IS3D_DECAY_ENTRY
+
+// the wave kernel's blocking for a launch on the current card: out[4] = pT
+// values a block, chunks of each task's (s, v) node pairs, shared memory a
+// block, most phi buckets; returns a CUDA error code
+int is3d_decay_wave_blocking_f32(int nbody, int dim, int K, int P, int F,
+                                 int NY, int NB, int* out) {
+  return wave_blocking<float>(nbody, dim, K, P, F, NY, NB, out);
+}
+int is3d_decay_wave_blocking_f64(int nbody, int dim, int K, int P, int F,
+                                 int NY, int NB, int* out) {
+  return wave_blocking<double>(nbody, dim, K, P, F, NY, NB, out);
+}
 
 const char* is3d_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -65,22 +65,19 @@ WAVE_BUCKET = {2: 256, 3: 32}
 TWO_BODY_LAUNCHES = 0
 THREE_BODY_LAUNCHES = 0
 
-# The yardstick of the wave kernel's bound: FP32 and SFU operations per
-# evaluation, one Phi solution at one (task, pT, phi, y, v, zeta[, s])
-# inside the MT grid, an FMA as one operation, everything of fewer indices
-# hoisted: Phi = Phi~ +- phi (1), the wrap to [0, 2 pi) (2), the phi
-# weight (2), the bilinear (MT, phi) lerp of one rapidity plane (3 lerps
-# of 2), in 3+1D two planes and the Y lerp (14), exp (1 FP32 + 1 SFU), the
-# weighted sum (1).
-WAVE_FORMULA_OPS = {2: (13, 1), 3: (21, 1)}
-
-# the wave kernel's blocking, as csrc/decays.cu has it: threads a block
-# (THREADS), rapidities a thread owns in 3+1D (YRun), buckets of the phi
-# table (MAX_BUCKETS)
-WAVE_THREADS = 256
-WAVE_Y_RUN = {torch.float32: 21, torch.float64: 7}
-PHI_MAX_BUCKETS = 512
-
+# The yardstick of the wave kernel's bound (wave_operations): the least
+# FP32 and SFU operations of one Phi solution at one (task, pT, phi, y, v,
+# zeta[, s]) inside the MT grid, an FMA as one operation, everything of
+# fewer indices hoisted (the log2(e) scale of exp into the table).  2+1D,
+# per evaluation: Phi = Phi~ +- phi (1), the wrap to [0, 2 pi) (2), the phi
+# weight (2), the bilinear (MT, phi) lerp (3 lerps of 2), the weighted sum
+# (1), exp (1 SFU).  3+1D, rapidity planes shared by neighbouring outputs:
+# per evaluation one plane from four corner weights (4), the Y lerp (2),
+# the weighted sum (1), exp (1 SFU); per (node, phi, +-) with an
+# evaluation, Phi, the wrap and the phi weight (5), the four corner weights
+# (5) and the first plane of its run of rapidities (4).
+WAVE_EVAL_OPS = {2: (12, 1), 3: (7, 1)}
+WAVE_RUN_OPS = 14
 
 # ======================================================================
 # schedule (host, numpy)
@@ -278,18 +275,20 @@ class WaveGrid(TensorContainer):
     """The momentum grid and the quadrature rules of the wave integrals:
     quad (3, 12) = Gauss-Legendre nodes x, weights w, cos(pi (1 + x) / 2)
     (the zeta nodes); y is (1,) in 2+1D; phi_pad, phi_invd, phi_bucket the
-    wave kernel's phi intervals (phi_cells)."""
+    wave kernel's phi intervals (phi_cells), built for CUDA tensors only
+    (None on the CPU, whose plain version searches the grid)."""
     pT: torch.Tensor
     phi: torch.Tensor
     y: torch.Tensor
     quad: torch.Tensor
     dimension: int
-    phi_pad: torch.Tensor      # (F + 2,)
-    phi_invd: torch.Tensor     # (F + 1,)
-    phi_bucket: torch.Tensor   # (NB,) int32
+    phi_pad: torch.Tensor | None = None      # (F + 2,)
+    phi_invd: torch.Tensor | None = None     # (F + 1,)
+    phi_bucket: torch.Tensor | None = None   # (NB,) int32
 
 
-def phi_cells(phi) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+def phi_cells(phi, max_buckets: int) -> tuple[np.ndarray, np.ndarray,
+                                              np.ndarray]:
     """The wave kernel's phi intervals of a sorted phi grid in [0, 2 pi):
     the padded grid phi[F-1] - 2 pi, phi[0..F-1], phi[0] + 2 pi (F + 2
     points, F + 1 intervals; interval i takes table columns (i - 1) mod F
@@ -300,10 +299,13 @@ def phi_cells(phi) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     each side against the rounding of the kernel's b = int(Pw NB / 2 pi),
     holds at most one grid point, so one compare with the interval's right
     end finds the interval of any angle of the bucket
-    (phi_cell_lookup).  Raises if no NB <= PHI_MAX_BUCKETS does."""
+    (phi_cell_lookup).  Buckets narrower than the grid's least spacing /
+    1.002 always do; raises if no NB <= max_buckets (what the kernel's
+    shared memory holds, wave_blocking) does."""
     phi = np.asarray(phi, np.float64)
     pad = np.concatenate([[phi[-1] - TWO_PI], phi, [phi[0] + TWO_PI]])
-    for nb in range(1, PHI_MAX_BUCKETS + 1):
+    enough = int(1.002 * TWO_PI / np.diff(pad).min()) + 1
+    for nb in range(1, min(max_buckets, enough) + 1):
         h = TWO_PI / nb
         lo = np.arange(nb) * h - 1e-3 * h
         hi = lo + 1.002 * h
@@ -313,23 +315,22 @@ def phi_cells(phi) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
             return pad, 1.0 / np.diff(pad), bucket.astype(np.int32)
     raise ValueError(f"the phi grid of {phi.shape[0]} points has spacings "
                      f"down to {np.diff(pad).min():.3e}: no table of at most "
-                     f"{PHI_MAX_BUCKETS} uniform buckets holds one point "
-                     "each")
+                     f"{max_buckets} uniform buckets holds one point each")
 
 
-def phi_cell_lookup(Pw, wg: WaveGrid):
+def phi_cell_lookup(Pw, pad, invd, bucket):
     """(iL, iR, t) of wrapped angles Pw in [0, 2 pi) as the wave kernel
-    finds them: the bucket's interval i, i + 1 where Pw lies past its right
-    end; the table columns (i - 1) mod F and i mod F and the weight of the
-    right one."""
-    nb = wg.phi_bucket.shape[0]
-    F = wg.phi.shape[0]
+    finds them in the tensors of phi_cells: the bucket's interval i, i + 1
+    where Pw lies past its right end; the table columns (i - 1) mod F and
+    i mod F and the weight of the right one."""
+    nb = bucket.shape[0]
+    F = pad.shape[0] - 2
     binv = (torch.tensor(float(nb), dtype=Pw.dtype)
             / torch.tensor(TWO_PI, dtype=Pw.dtype))
     b = (Pw * binv).long().clamp(max=nb - 1)
-    i = wg.phi_bucket.long()[b]
-    i = i + (Pw > wg.phi_pad[i + 1]).long()
-    t = (Pw - wg.phi_pad[i]) * wg.phi_invd[i]
+    i = bucket.long()[b]
+    i = i + (Pw > pad[i + 1]).long()
+    t = (Pw - pad[i]) * invd[i]
     return (i + F - 1) % F, i % F, t
 
 
@@ -339,12 +340,19 @@ def wave_grid(grid, dimension: int, dtype, device) -> WaveGrid:
                         torch.cos(0.5 * math.pi * (1.0 + x))])
     t = lambda a: torch.as_tensor(a).to(device=device,
                                         dtype=dtype).contiguous()
-    pad, invd, bucket = phi_cells(grid.phi.to("cpu", torch.float64).numpy())
-    return WaveGrid(pT=t(grid.pT), phi=t(grid.phi),
-                    y=t(grid.y[:1] if dimension == 2 else grid.y),
+    y = t(grid.y[:1] if dimension == 2 else grid.y)
+    cells = {}
+    if torch.device(device).type == "cuda":
+        most = wave_blocking(_library(), torch.device(device), dtype, 2,
+                             dimension, 1, grid.pT.shape[0],
+                             grid.phi.shape[0], y.shape[0], 0).max_buckets
+        pad, invd, bucket = phi_cells(
+            grid.phi.to("cpu", torch.float64).numpy(), most)
+        cells = dict(phi_pad=t(pad), phi_invd=t(invd),
+                     phi_bucket=torch.as_tensor(bucket, device=device))
+    return WaveGrid(pT=t(grid.pT), phi=t(grid.phi), y=y,
                     quad=quad.to(device).contiguous(), dimension=dimension,
-                    phi_pad=t(pad), phi_invd=t(invd),
-                    phi_bucket=torch.as_tensor(bucket, device=device))
+                    **cells)
 
 
 @dataclass(frozen=True)
@@ -612,18 +620,36 @@ def task_nodes(tasks: WaveTasks, wg: WaveGrid):
     return tuple(torch.stack([n[i] for n in nodes], 1) for i in range(3))
 
 
+def _wave_vy(tasks: WaveTasks, wg: WaveGrid):
+    """(K, S, P, V) counts of the outputs y of each (task, s, pT, v) that
+    are evaluated: all (1) in 2+1D, in 3+1D those with |Y| <= |y_max| (the
+    rest is exactly 0 and never evaluated)."""
+    DY = task_nodes(tasks, wg)[0]                          # (K, S, P)
+    if wg.dimension == 2:
+        return DY.new_ones(DY.shape + (GAUSS_PTS,), dtype=torch.int64)
+    Y = wg.y[:, None] + wg.quad[0][None, :] * DY[..., None, None]
+    return (Y.abs() <= wg.y[-1].abs()).sum(-2)             # (K, S, P, V)
+
+
 def wave_evaluations(tasks: WaveTasks, wg: WaveGrid) -> int:
     """The evaluations one launch does on these inputs: per (task, s, pT,
     phi, y, v, zeta) two Phi solutions, in 3+1D only where |Y| <= |y_max|
     (the rest is exactly 0 and never evaluated)."""
-    DY = task_nodes(tasks, wg)[0]                          # (K, S, P)
-    x = wg.quad[0]
-    if wg.dimension == 2:
-        n_vy = DY.numel() * GAUSS_PTS
-    else:
-        Y = wg.y[:, None] + x[None, :] * DY[..., None, None]    # (K,S,P,Y,V)
-        n_vy = int((Y.abs() <= wg.y[-1].abs()).sum())
-    return n_vy * GAUSS_PTS * wg.phi.shape[0] * 2
+    return int(_wave_vy(tasks, wg).sum()) * GAUSS_PTS * wg.phi.shape[0] * 2
+
+
+def wave_operations(tasks: WaveTasks, wg: WaveGrid) -> tuple[int, int]:
+    """The least (FP32, SFU) operations of one launch on these inputs
+    (WAVE_EVAL_OPS a evaluation, in 3+1D WAVE_RUN_OPS a (node, phi, +-)
+    with an evaluation)."""
+    n_vy = _wave_vy(tasks, wg)
+    per = GAUSS_PTS * wg.phi.shape[0] * 2
+    evals = int(n_vy.sum()) * per
+    fp32, sfu = WAVE_EVAL_OPS[wg.dimension]
+    fp32 *= evals
+    if wg.dimension == 3:
+        fp32 += WAVE_RUN_OPS * int((n_vy > 0).sum()) * per
+    return fp32, sfu * evals
 
 
 def _wave_plain(integral, tables: ParentTables, tasks: WaveTasks,
@@ -671,20 +697,29 @@ def wave_plain(tables: ParentTables, tasks: WaveTasks, wg: WaveGrid,
 # the hand-written kernel (csrc/decays.cu)
 # ======================================================================
 
-def wave_split(nbody: int, n_tasks: int, P: int, F: int, NY: int, dtype,
-               n_sm: int) -> tuple[int, int]:
-    """(pT values a block, chunks a task) of one wave kernel launch: a
-    block takes as many pT values as its threads hold runs of (phi, y)
-    outputs, in balanced chunks, and each task's (s, v) node pairs (12 for
-    a 2-body task, 144 for a 3-body one) go in as many chunks as the wave
-    needs for 4 blocks an SM, so the few tasks of the last waves still
-    fill the card."""
-    run = 1 if NY == 1 else WAVE_Y_RUN[dtype]
-    pb = max(1, min(P, WAVE_THREADS // (F * -(-NY // run))))
-    pb = -(-P // -(-P // pb))
-    blocks = n_tasks * -(-P // pb)
-    pairs = GAUSS_PTS * (1 if nbody == 2 else GAUSS_PTS)
-    return pb, min(pairs, -(-4 * n_sm // blocks))
+@dataclass(frozen=True)
+class WaveBlocking:
+    """The wave kernel's blocking for one launch on one card, as the C side
+    (csrc/decays.cu:wave_blocking, the owner of the blocking) reports
+    it."""
+    pt_block: int      # pT values a block
+    chunks: int        # chunks of each task's (s, v) node pairs
+    smem: int          # shared memory a block (bytes)
+    max_buckets: int   # most phi buckets the shared memory holds
+
+
+def wave_blocking(lib, device: torch.device, dtype, nbody: int,
+                  dimension: int, n_tasks: int, P: int, F: int, NY: int,
+                  n_buckets: int) -> WaveBlocking:
+    out = (ctypes.c_int * 4)()
+    fn = (lib.is3d_decay_wave_blocking_f64 if dtype == torch.float64
+          else lib.is3d_decay_wave_blocking_f32)
+    with torch.cuda.device(device):
+        rc = fn(nbody, dimension, n_tasks, P, F, NY, n_buckets, out)
+    if rc != 0:
+        raise RuntimeError("decay_wave: no launch configuration: "
+                           f"{lib.is3d_cuda_error_string(rc).decode()}")
+    return WaveBlocking(*out)
 
 
 def fold_rows(tasks: WaveTasks, n_chunks: int) -> list:
@@ -709,9 +744,13 @@ def _library():
                            vp, vp, vp, vp, ci,         # pT, phi cells, NB
                            vp, vp,                     # y, quad
                            ci, ci, ci, ci,             # U, P, F, Y
-                           vp, vp, ci, ci, ci,         # slot, par, K, PB, NC
+                           vp, vp, ci, ci,             # slot, par, K, NC
                            vp, vp, vp, ci,             # order, target, tstart, n
                            vp, vp, vp]                 # scratch, acc, stream
+        for fn in (lib.is3d_decay_wave_blocking_f32,
+                   lib.is3d_decay_wave_blocking_f64):
+            fn.restype = ci
+            fn.argtypes = [ci] * 7 + [ctypes.POINTER(ci)]
         lib.is3d_cuda_error_string.restype = ctypes.c_char_p
         lib.is3d_cuda_error_string.argtypes = [ci]
         lib._is3d_bound = True
@@ -737,10 +776,11 @@ def decay_wave_cuda(tables: ParentTables, tasks: WaveTasks, wg: WaveGrid,
     check_tensor("mtg", tables.mtg, (U, P), like)
     check_tensor("pT", wg.pT, (P,), like)
     check_tensor("phi", wg.phi, (F,), like)
-    check_tensor("phi_pad", wg.phi_pad, (F + 2,), like)
-    check_tensor("phi_invd", wg.phi_invd, (F + 1,), like)
-    NB = wg.phi_bucket.shape[0]
-    check_tensor("phi_bucket", wg.phi_bucket, (NB,), like, torch.int32)
+    if wg.phi_bucket is not None:
+        check_tensor("phi_pad", wg.phi_pad, (F + 2,), like)
+        check_tensor("phi_invd", wg.phi_invd, (F + 1,), like)
+        check_tensor("phi_bucket", wg.phi_bucket, (wg.phi_bucket.shape[0],),
+                     like, torch.int32)
     check_tensor("y", wg.y, (NY,), like)
     check_tensor("quad", wg.quad, (3, GAUSS_PTS), like)
     K = tasks.slot.shape[0]
@@ -758,9 +798,13 @@ def decay_wave_cuda(tables: ParentTables, tasks: WaveTasks, wg: WaveGrid,
                          f"{tasks.nbody}-body, dimension {wg.dimension}, "
                          f"Y = {NY}")
     require_cuda("decay_wave_cuda", like)
+    if wg.phi_bucket is None:
+        raise ValueError("decay_wave_cuda needs the phi cells of a wave grid "
+                         "built on the card (wave_grid on a CUDA device)")
+    NB = wg.phi_bucket.shape[0]
     lib = _library()
-    n_sm = torch.cuda.get_device_properties(like.device).multi_processor_count
-    pb, n_chunks = wave_split(tasks.nbody, K, P, F, NY, like.dtype, n_sm)
+    n_chunks = wave_blocking(lib, like.device, like.dtype, tasks.nbody,
+                             wg.dimension, K, P, F, NY, NB).chunks
     scratch = like.new_empty((K * n_chunks, P, F, NY))
     fn = (lib.is3d_decay_wave_f64 if like.dtype == torch.float64
           else lib.is3d_decay_wave_f32)
@@ -769,7 +813,7 @@ def decay_wave_cuda(tables: ParentTables, tasks: WaveTasks, wg: WaveGrid,
            tables.mtg.data_ptr(), wg.pT.data_ptr(), wg.phi_pad.data_ptr(),
            wg.phi_invd.data_ptr(), wg.phi_bucket.data_ptr(), NB,
            wg.y.data_ptr(), wg.quad.data_ptr(), U, P, F, NY,
-           tasks.slot.data_ptr(), tasks.par.data_ptr(), K, pb, n_chunks,
+           tasks.slot.data_ptr(), tasks.par.data_ptr(), K, n_chunks,
            tasks.order.data_ptr(), tasks.target.data_ptr(),
            tasks.tstart.data_ptr(), n_t, scratch.data_ptr(), acc.data_ptr())
     if tasks.nbody == 2:

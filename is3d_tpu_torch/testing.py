@@ -8,6 +8,7 @@ freeze-out surface near T ~ 0.155 GeV.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import numpy as np
@@ -629,11 +630,18 @@ def thermal_spectra(table, mcids, grid, dimension: int) -> np.ndarray:
 # upper half in pT zero (patched by the tail fit); the narrow_y cases take
 # 3 rapidities within |y| <= 0.05, so many (v, y) nodes have |Y| > y_max,
 # and at small pT every v node of a 2-body task: its output is exactly 0.
+# The stretched_y cases take 7 rapidities y_max sinh(2 u) / sinh(2), u
+# uniform in [-1, 1]: on a y grid that is not uniform the Y stencils of
+# neighbouring outputs are not always neighbours (the kernel's second
+# stencil loop).
 DECAY_EDGES = {
     **{f"{nb}body_{d}d": dict(nbody=nb, dimension=d)
        for nb in (2, 3) for d in (2, 3)},
     **{f"{nb}body_3d_narrow_y": dict(nbody=nb, dimension=3,
                                      grid=dict(n_y=3, y_max=0.05))
+       for nb in (2, 3)},
+    **{f"{nb}body_3d_stretched_y": dict(nbody=nb, dimension=3,
+                                        grid=dict(n_y=7), stretch=2.0)
        for nb in (2, 3)},
 }
 
@@ -648,6 +656,11 @@ def decay_edge_inputs(case: str, dtype=torch.float64, device="cpu"):
     table, mcids = synthetic_decaying_table(24)
     grid = native_momentum_grid(dimension, **dict(
         dict(n_pT=7, pT_max=3.0, n_phi=9, n_y=5, n_eta=4), **spec["grid"]))
+    if "stretch" in spec:
+        a = spec["stretch"]
+        u = np.linspace(-1.0, 1.0, grid.y.shape[0])
+        grid = dataclasses.replace(grid, y=torch.as_tensor(
+            float(grid.y[-1]) * np.sinh(a * u) / np.sinh(a)))
     pT64 = grid.pT.numpy()
     waves = decays.plan_waves(decays._decay_schedule(table, mcids, pT64,
                                                      111))
@@ -691,6 +704,21 @@ def decay_edge_seen(case: str, tables, tasks, wg, n_seg, out) -> str:
     seen = (f"{tasks.slot.shape[0]} tasks, {tail} of {MT.numel()} nodes in "
             f"the tail, {wrap} Phi in the wrap cell, {massless} massless, a "
             f"row fed by {int(counts.max())}, {floor} slots at the floor")
+    if case.endswith("stretched_y"):
+        # runs of outputs whose Y stencils are not consecutive: the left
+        # plane's offset from the output's index varies along the run
+        Y = wg.y[:, None] + wg.quad[0] * decays.task_nodes(tasks, wg)[0][
+            ..., None, None]                                # (K, S, P, Y, V)
+        NY = wg.y.shape[0]
+        L = torch.searchsorted(wg.y, Y.contiguous()).clamp(1, NY - 1) - 1
+        off = L - torch.arange(NY, device=L.device)[:, None]
+        inside = Y.abs() <= wg.y[-1].abs()
+        big = 1 << 20
+        spread = (torch.where(inside, off, -big).amax(-2)
+                  - torch.where(inside, off, big).amin(-2))
+        n = int(((spread > 0) & inside.any(-2)).sum())
+        assert n > 0, "every run of stencils is consecutive"
+        seen += f", {n} of {spread.numel()} (v) runs not consecutive"
     if case.endswith("narrow_y"):
         Y = wg.y[:, None] + wg.quad[0] * decays.task_nodes(tasks, wg)[0][
             ..., None, None]

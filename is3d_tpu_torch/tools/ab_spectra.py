@@ -28,7 +28,15 @@ that root (building its kernels into that root's _build/) and, per case:
   float64 difference are those of the per-cell output;
 * ``proto``: ``proto_spectra_cuda`` at the prototype's own shape (32768
   cells x 320 x 768 x 21, float32, ``proto_inputs`` seed 0), timed as the
-  spectra cases; the float64 difference on its first 2048 cells.
+  spectra cases; the float64 difference on its first 2048 cells;
+* ``decays``: ``decay_wave_cuda`` on every launch of the feed-down
+  cascade of the decaying synthetic list (320 species, seed 0) on thermal
+  spectra (``testing.thermal_spectra``), the native 32 x 24 grid with 21
+  y in 3+1D and in 2+1D, in float32 and float64, each launch added to the
+  running spectra before the next wave; timed as the spectra cases, one
+  entry a (dimension, dtype, wave, body) (``decays_w0_3body`` the 3+1D
+  float32 ones, ``decays_2d_float64_w0_3body`` the others); the float32
+  entries' difference from the float64 kernel on the same launch.
 
 The report is one JSON line per turn (median, runs, output sum and the
 float32 output's largest difference from the same side's float64 kernel,
@@ -142,31 +150,38 @@ for case in cases:
         err = float((out - ref).abs().max() / ref.abs().max())
     elif case == "decays":
         table, mcids = testing.synthetic_decaying_table(320)
-        grid = native_momentum_grid(3)
-        pT64 = grid.pT.numpy()
-        waves = decays.plan_waves(decays._decay_schedule(
-            table, mcids, pT64, Config().lightest_particle))
-        acc = torch.as_tensor(testing.thermal_spectra(table, mcids, grid, 3),
-                              device=dev)
         f64 = torch.float64
-        wg, wg64 = (decays.wave_grid(grid, 3, t, dev) for t in (dt, f64))
-        for i, (st, st64) in enumerate(zip(
-                decays.stage_waves(waves, pT64, dt, dev),
-                decays.stage_waves(waves, pT64, f64, dev))):
-            tables = decays.parent_tables(acc, st.rows, st.masses, st.mtg, dt)
-            tables64 = decays.parent_tables(acc, st64.rows, st64.masses,
-                                            st64.mtg, f64)
-            for tasks, tasks64 in zip(st.launches, st64.launches):
-                scratch = torch.zeros_like(acc)
-                ms, runs, total = timed(lambda: (decays.decay_wave_cuda(
-                    tables, tasks, wg, scratch), scratch)[1])
-                out, ref = torch.zeros_like(acc), torch.zeros_like(acc)
-                decays.decay_wave_cuda(tables, tasks, wg, out)
-                decays.decay_wave_cuda(tables64, tasks64, wg64, ref)
-                err = float((out - ref).abs().max() / ref.abs().max())
-                report[f"decays_w{i}_{tasks.nbody}body"] = {
-                    "ms": ms, "runs": runs, "sum": total, "err_f64": err}
-                decays.decay_wave_cuda(tables, tasks, wg, acc)
+        for dim, wdt in ((3, dt), (3, f64), (2, dt), (2, f64)):
+            grid = native_momentum_grid(dim)
+            pT64 = grid.pT.numpy()
+            waves = decays.plan_waves(decays._decay_schedule(
+                table, mcids, pT64, Config().lightest_particle))
+            acc = torch.as_tensor(testing.thermal_spectra(table, mcids, grid,
+                                                          dim), device=dev)
+            wg, wg64 = (decays.wave_grid(grid, dim, t, dev)
+                        for t in (wdt, f64))
+            name = "decays" + ("" if (dim, wdt) == (3, dt) else
+                               f"_{dim}d_{str(wdt)[-7:]}")
+            for i, (st, st64) in enumerate(zip(
+                    decays.stage_waves(waves, pT64, wdt, dev),
+                    decays.stage_waves(waves, pT64, f64, dev))):
+                tables = decays.parent_tables(acc, st.rows, st.masses,
+                                              st.mtg, wdt)
+                tables64 = decays.parent_tables(acc, st64.rows, st64.masses,
+                                                st64.mtg, f64)
+                for tasks, tasks64 in zip(st.launches, st64.launches):
+                    scratch = torch.zeros_like(acc)
+                    ms, runs, total = timed(lambda: (decays.decay_wave_cuda(
+                        tables, tasks, wg, scratch), scratch)[1])
+                    err = None
+                    if wdt != f64:
+                        out, ref = torch.zeros_like(acc), torch.zeros_like(acc)
+                        decays.decay_wave_cuda(tables, tasks, wg, out)
+                        decays.decay_wave_cuda(tables64, tasks64, wg64, ref)
+                        err = float((out - ref).abs().max() / ref.abs().max())
+                    report[f"{name}_w{i}_{tasks.nbody}body"] = {
+                        "ms": ms, "runs": runs, "sum": total, "err_f64": err}
+                    decays.decay_wave_cuda(tables, tasks, wg, acc)
         continue
     else:
         cfg = Config(operation=0, mode=1, dimension=2)

@@ -706,9 +706,11 @@ def test_phi_bucket_lookup_matches_searchsorted(kind, n_phi, dtype):
     intervals, and the interpolated value agrees (f32 to 1e-4 of a unit
     table: the wrap cell's shift by 2 pi rounds at 4.8e-7 rad)."""
     grid = native_momentum_grid(2, n_pT=4, n_phi=n_phi, n_eta=4)
-    wg = decays.wave_grid(grid, 2, dtype, "cpu")
-    assert wg.phi_bucket.shape[0] <= decays.PHI_MAX_BUCKETS
-    phi = wg.phi
+    phi = grid.phi.to(dtype).contiguous()
+    cells = [torch.as_tensor(a) for a in decays.phi_cells(grid.phi.numpy(),
+                                                          512)]
+    assert cells[2].shape[0] <= 512
+    pad, invd = (a.to(dtype) for a in cells[:2])
     rng = np.random.default_rng(n_phi)
     t = lambda a: torch.as_tensor(a, dtype=dtype)
     Pw = torch.cat([t(rng.uniform(0, 2 * np.pi, 5000)), phi,
@@ -716,7 +718,7 @@ def test_phi_bucket_lookup_matches_searchsorted(kind, n_phi, dtype):
                     t(rng.uniform(float(phi[-1]), 2 * np.pi, 200))])
     Pw = Pw[Pw < decays.TWO_PI]
     iL, iR, _, w = decays._interp_phi_indices(phi, Pw)
-    jL, jR, u = decays.phi_cell_lookup(Pw, wg)
+    jL, jR, u = decays.phi_cell_lookup(Pw, pad, invd, cells[2])
     same = (iL == jL) & (iR == jR)
     on_node = (Pw[:, None] == phi).any(1)
     assert bool((same | on_node).all())
@@ -730,44 +732,108 @@ def test_phi_bucket_lookup_matches_searchsorted(kind, n_phi, dtype):
 
 
 def test_phi_bucket_table_raises_where_it_cannot_bucket():
-    """Two grid points closer than 2 pi / PHI_MAX_BUCKETS leave no bucket
+    """Two grid points closer than 2 pi / max_buckets leave no bucket
     table with one point a bucket: the host raises."""
     phi = np.linspace(0.1, 6.0, 10)
-    decays.phi_cells(phi)
+    decays.phi_cells(phi, 512)
     phi[4] = phi[3] + 1e-4
-    with pytest.raises(ValueError, match="no table of at most"):
-        decays.phi_cells(phi)
+    with pytest.raises(ValueError, match="no table of at most 512"):
+        decays.phi_cells(phi, 512)
+    # buckets narrower than the least spacing always do
+    assert decays.phi_cells(phi, 10 ** 5)[2].shape[0] <= int(
+        1.002 * 2 * np.pi / 1e-4) + 1
+
+
+def test_decays_cpu_take_a_phi_grid_the_kernel_would_need_many_buckets_for():
+    """The CPU's plain path builds no bucket table, so a 64-point
+    Gauss-Legendre phi grid (end spacing 0.0093 rad, 700 and more buckets)
+    decays on the CPU as any other; the wave grid it builds has no phi
+    cells."""
+    table, mcids = testing.synthetic_decaying_table(24)
+    grid = native_momentum_grid(2, n_pT=4, n_phi=64, n_eta=4)
+    assert decays.phi_cells(grid.phi.numpy(), 10 ** 4)[2].shape[0] > 512
+    assert decays.wave_grid(grid, 2, torch.float64, "cpu").phi_bucket is None
+    spectra = torch.as_tensor(testing.thermal_spectra(table, mcids, grid, 2))
+    out = decays.do_resonance_decays(spectra, table, mcids, grid,
+                                     Config(dimension=2))
+    assert (out >= spectra).all() and (out > spectra).any()
+    assert "decays" not in build._cuda_libs
 
 
 @pytest.mark.parametrize("nbody", [2, 3])
 def test_wave_split_folds_every_row_once_in_order(nbody):
-    """For waves of 1-300 tasks the split gives every (task, chunk of (s,
-    v) node pairs) its scratch row, fold_rows adds each exactly once -- a
-    target row's tasks in schedule order, each task's chunks in ascending
-    order -- and the grid has at least 4 blocks an SM unless every chunk is
-    one (s, v) pair."""
+    """For waves of 1-300 tasks and every chunk count the card's blocking
+    can give (1 to the task's (s, v) node pairs; test_wave_blocking_on_gpu
+    holds the C side's choice), fold_rows adds each (task, chunk) scratch
+    row exactly once -- a target row's tasks in schedule order, each task's
+    chunks in ascending order."""
     rng = np.random.default_rng(nbody)
     pairs = 12 if nbody == 2 else 144
     for n_tasks in list(range(1, 13)) + [20, 65, 173, 277, 300]:
-        for dtype, NY in ((torch.float32, 21), (torch.float64, 21),
-                          (torch.float32, 1)):
-            pb, n_chunks = decays.wave_split(nbody, n_tasks, 32, 24, NY,
-                                             dtype, 132)
-            assert 1 <= pb <= 32 and 1 <= n_chunks <= pairs
-            blocks = n_tasks * -(-32 // pb) * n_chunks
-            assert blocks >= 4 * 132 or n_chunks == pairs
-            assert n_chunks == 1 or blocks < 4 * 132 + n_tasks * 32
         seg = rng.integers(0, 7, n_tasks)
         tasks = decays.wave_tasks(
             nbody, [(int(s), 1.0, 0) + (0.0,) * (4 if nbody == 2 else 5)
                     for s in seg], torch.float64, "cpu")
-        rows = decays.fold_rows(tasks, n_chunks)
-        flat = [r for t in rows for r in t]
-        assert sorted(flat) == list(range(n_tasks * n_chunks))
-        for t, target in enumerate(tasks.target.tolist()):
-            want = [k * n_chunks + c for k in np.nonzero(seg == target)[0]
-                    for c in range(n_chunks)]
-            assert rows[t] == want
+        for n_chunks in sorted({1, 2, 5, 11, pairs, int(rng.integers(
+                1, pairs + 1))}):
+            rows = decays.fold_rows(tasks, n_chunks)
+            flat = [r for t in rows for r in t]
+            assert sorted(flat) == list(range(n_tasks * n_chunks))
+            for t, target in enumerate(tasks.target.tolist()):
+                want = [k * n_chunks + c
+                        for k in np.nonzero(seg == target)[0]
+                        for c in range(n_chunks)]
+                assert rows[t] == want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nbody", [2, 3])
+def test_wave_blocking_on_gpu(cuda_card, nbody):
+    """The C side's blocking for waves of 1-300 tasks on the native 32 x 24
+    grid: balanced pT chunks, at least 4 blocks an SM unless every chunk
+    is one (s, v) pair, no more chunks than that needs, the shared memory
+    of the phi table counted; a launch with another chunk count than the
+    blocking's is refused."""
+    lib = decays._library()
+    dev = torch.device("cuda")
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    pairs = 12 if nbody == 2 else 144
+    for n_tasks in list(range(1, 13)) + [20, 65, 173, 277, 300]:
+        for dtype, dim, NY in ((torch.float32, 3, 21), (torch.float64, 3, 21),
+                               (torch.float32, 2, 1), (torch.float64, 2, 1)):
+            bl = decays.wave_blocking(lib, dev, dtype, nbody, dim, n_tasks,
+                                      32, 24, NY, 40)
+            assert 1 <= bl.pt_block <= 32 and 1 <= bl.chunks <= pairs
+            n_pt = -(-32 // bl.pt_block)
+            assert bl.pt_block * n_pt - 32 < n_pt
+            blocks = n_tasks * n_pt * bl.chunks
+            assert blocks >= 4 * n_sm or bl.chunks == pairs
+            assert bl.chunks == 1 or blocks < 4 * n_sm + n_tasks * 32
+            bare = decays.wave_blocking(lib, dev, dtype, nbody, dim,
+                                        n_tasks, 32, 24, NY, 0)
+            assert bl.smem == bare.smem + 40 * 4
+            assert bare.smem + 4 * bare.max_buckets <= 232448
+    tables, tasks, wg, n_seg = testing.decay_edge_inputs(
+        f"{nbody}body_3d", dtype=torch.float32, device="cuda")
+    U, P, F, NY = tables.logdN.shape
+    K, NB = tasks.slot.shape[0], wg.phi_bucket.shape[0]
+    n_chunks = decays.wave_blocking(lib, dev, torch.float32, nbody, 3, K, P,
+                                    F, NY, NB).chunks
+    scratch = torch.zeros((K * (n_chunks + 1), P, F, NY), device=dev)
+    acc = torch.zeros((n_seg, P, F, NY), dtype=torch.float64, device=dev)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        launch(lib, "decay_wave", lib.is3d_decay_wave_f32, dev, nbody, 3,
+               tables.logdN.data_ptr(), tables.tc.data_ptr(),
+               tables.ts.data_ptr(), tables.mtg.data_ptr(),
+               wg.pT.data_ptr(), wg.phi_pad.data_ptr(),
+               wg.phi_invd.data_ptr(), wg.phi_bucket.data_ptr(), NB,
+               wg.y.data_ptr(), wg.quad.data_ptr(), U, P, F, NY,
+               tasks.slot.data_ptr(), tasks.par.data_ptr(), K, n_chunks + 1,
+               tasks.order.data_ptr(), tasks.target.data_ptr(),
+               tasks.tstart.data_ptr(), tasks.target.shape[0],
+               scratch.data_ptr(), acc.data_ptr())
+    torch.cuda.synchronize()
+    assert (acc == 0).all()
 
 
 @pytest.mark.gpu
@@ -784,8 +850,9 @@ def test_decay_wave_s_split_matches_plain_on_gpu(cuda_card, dtype):
             + tuple(tasks.par[i, 1:].tolist()) for i in pick]
     tasks = decays.wave_tasks(3, host, dtype, "cuda")
     U, P, F, NY = tables.logdN.shape
-    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    assert decays.wave_split(3, 3, P, F, NY, dtype, n_sm)[1] > 1
+    assert decays.wave_blocking(decays._library(), torch.device("cuda"),
+                                dtype, 3, 3, 3, P, F, NY,
+                                wg.phi_bucket.shape[0]).chunks > 1
     acc = torch.zeros((n_seg, P, F, NY), dtype=torch.float64, device="cuda")
     again = torch.zeros_like(acc)
     decays.decay_wave_cuda(tables, tasks, wg, acc)

@@ -10,8 +10,8 @@ Phases, each printing its own line(s):
 1. device: the card's name, power limit and maximum SM clock
    (nvidia-smi); fails without CUDA;
 2. build: every kernel source (csrc/smooth_spectra.cu, csrc/dndx.cu,
-   csrc/smooth_proto.cu, csrc/decays.cu; one nvcc each, all started
-   together) and the fastio host library, from this checkout's sources,
+   csrc/smooth_proto.cu, csrc/decays.cu, csrc/feqmod.cu; one nvcc each,
+   all started together) and the fastio host library, from this checkout's sources,
    with ptxas's register and spill lines;
 3. each kernel against its plain torch version at small shapes, in f32
    (atol 2e-5 * max, rtol 2e-4) and f64 (rtol 1e-10, atol 1e-13 * max):
@@ -38,7 +38,13 @@ Phases, each printing its own line(s):
    the grid, Phi in the wrap cell, |Y| > y_max with exact zeros, massless
    daughters, adjusted masses, a row fed by many tasks, a parent at the
    -745 floor, a stretched y grid whose stencils are not consecutive; two
-   launches bit-identical);
+   launches bit-identical); [feqmod small]: the three entry points of the
+   feqmod kernel K3 (fixed nodes, 2+1D remap, the dN/dX producer) on
+   testing.FEQMOD_EDGES (df 3 and 4; clean, mixed and mostly broken-down
+   cells; the 3+1D narrow mask; ragged species, points and nodes; exp
+   overflow with exact zeros; the df 4 clamp; both
+   reference_compat_feqmod_eta settings; a baryon case; betaV = 0 tables;
+   pad rows; two launches bit-identical);
 4. operation 1 main path: a synthetic 131072-cell x 320-species 3+1D
    mode-1 run directory through ``is3d_tpu_torch.cli.main`` (df 2, shear +
    bulk, regulate, outflow, f32, native 32 x 24 x 21 grid), then the same
@@ -91,13 +97,28 @@ Phases, each printing its own line(s):
    body against its plain version;
 8. the experiments at their own shapes, each through its ``measure()``:
    the spectra prototype (32768 cells x 320 x 768 x 21; its plain version
-   on the first 1024 cells) and the reduction probe (176 x 48 x 320 x 768).
+   on the first 1024 cells) and the reduction probe (176 x 48 x 320 x 768);
+9. the feqmod paths: [feqmod main] a synthetic 131072-cell x 320-species
+   3+1D run directory through ``cli.main`` with df 3 (shear + bulk,
+   regulate, outflow, f32, native grid): launches = canonical groups, the
+   results tree, the share of breakdown cells; the same CLI on a 256-cell
+   run directory (bulk x 30) on cuda and on cpu (f64); [feqmod pair] one
+   16384-cell group as it is and with the shear x 30 (most cells break
+   down): f32 against the f64 kernel, paired times, its first 2048 cells
+   against the plain version, the bound from the evaluations each chain
+   makes, SASS per evaluation; [feqmod main 2d] the same with df 4 in
+   2+1D (the mT remap) and its pair (plain on 512 cells); [feqmod dndx]
+   operation 0 with df 3 on 16384 cells x 320 species (2+1D) and one of
+   its groups (plain on 512 cells).
 
 Bounds: the larger of the bytes over the memory rate and the operations
 over the card's FP32 and SFU rates, the spectra, dN/dX and prototype
 kernels' operations from one yardstick counted in the formula
 (kernels/smooth.py, FORMULA_OPS), the wave kernel's from its own
-count of what its inputs need (kernels/decays.py, wave_operations).  Before every path (4, 5a, 6, 7a, 8) all launch
+count of what its inputs need (kernels/decays.py, wave_operations), the
+feqmod kernels' from theirs (kernels/feqmod.py, feqmod_formula_ops; f_mod
+and the fallback counted apart, as the data has them).  Before every path
+(4, 5a, 6, 7a, 8, 9) all launch
 counts are set to 0 and they are read right after it.  The line before
 the last is the kernel record as JSON; the last line is ``{"ok": true,
 "device": {...}}``.  Any failed phase exits nonzero before that line is
@@ -133,8 +154,22 @@ DNDX_ARGS = ["device=cuda", "precision=f32", "operation=0", "dimension=2",
              "df_mode=1", "include_shear_deltaf=1", "include_bulk_deltaf=1",
              "regulate_deltaf=1", "outflow=1"]
 DECAYS_ARGS = MAIN_ARGS + ["do_resonance_decays=1"]
+FEQMOD_ARGS = ["device=cuda", "precision=f32", "operation=1", "dimension=3",
+               "df_mode=3", "include_shear_deltaf=1", "include_bulk_deltaf=1",
+               "regulate_deltaf=1", "outflow=1"]
+FEQMOD2D_ARGS = ["device=cuda", "precision=f32", "operation=1",
+                 "dimension=2", "df_mode=4", "include_shear_deltaf=1",
+                 "include_bulk_deltaf=1", "regulate_deltaf=1", "outflow=1"]
+FEQMOD_DNDX_CELLS = 16384
+FEQMOD_DNDX_ARGS = ["device=cuda", "precision=f32", "operation=0",
+                    "dimension=2", "df_mode=3", "include_shear_deltaf=1",
+                    "include_bulk_deltaf=1", "regulate_deltaf=1", "outflow=1"]
+# the cells of a group that the plain feqmod version is held to (and timed
+# on) in the [feqmod pair] and [feqmod dndx] phases
+FEQMOD_PLAIN_CELLS = 2048
 DECAYS_2D_CELLS = 16384
-KERNEL_SOURCES = ("smooth_spectra", "dndx", "smooth_proto", "decays")
+KERNEL_SOURCES = ("smooth_spectra", "dndx", "smooth_proto", "decays",
+                  "feqmod")
 # H100 SXM: SMs, FP32 and SFU lanes per SM, memory rate (bytes/s)
 N_SM, FP32_LANES, SFU_LANES, HBM_RATE = 132, 128, 16, 3.35e12
 
@@ -314,6 +349,49 @@ def phase_small_dndx_edges():
                          "nonzero in the kernel")
 
 
+def phase_small_feqmod():
+    """[feqmod small]: each feqmod entry point against its plain version on
+    testing.FEQMOD_EDGES (the fixed-node kernel and the dN/dX producer on
+    3+1D and 2+1D fixed nodes, the remap kernel on the 2+1D remap), f32
+    and f64, 777 cells and 40 species unless the case says otherwise; two
+    launches bit-identical, exact zeros kept."""
+    from is3d_tpu_torch import testing
+    from is3d_tpu_torch.kernels import feqmod, dndx
+    n = 0
+    for dtype in (torch.float32, torch.float64):
+        for case in testing.FEQMOD_EDGES:
+            x, rn, wcs, mom, flags, wM, wR = testing.feqmod_edge_inputs(
+                case, n_cells=777, n_species=40, dtype=dtype, device="cuda")
+            runs = [("spectra", ("",), lambda: (feqmod.feqmod_spectra_cuda(
+                x, rn, wcs, mom, flags),), lambda: (
+                feqmod.feqmod_spectra_plain(x, rn, wcs, mom, flags),))]
+            if not flags.remap:
+                runs.append(("dndx", (" per cell", " dN/dy/deta"),
+                             lambda: dndx.dndx_feqmod_cuda(
+                                 x, rn, wcs, mom, flags, wM, wR),
+                             lambda: dndx.dndx_feqmod_plain(
+                                 x, rn, wcs, mom, flags, wM, wR)))
+            for entry, parts, kern, plain in runs:
+                got, again, want = kern(), kern(), plain()
+                torch.cuda.synchronize()
+                seen = testing.feqmod_edge_seen(case, x, rn, wcs, mom, flags,
+                                                feqmod.feqmod_spectra_plain(
+                                                    x, rn, wcs, mom, flags))
+                for part, g, a, w in zip(parts, got, again, want):
+                    name = f"feqmod {entry}{part} {str(dtype)[6:]} {case}"
+                    _check(f"{name} ({seen})", g, w, *TOL[dtype])
+                    if not torch.equal(g, a):
+                        fail(f"{name}: two launches differ")
+                    zero = w == 0
+                    if (g[zero] != 0).any():
+                        fail(f"{name}: {int((g[zero] != 0).sum())} of the "
+                             f"plain version's {int(zero.sum())} exact zeros "
+                             "are nonzero in the kernel")
+                    n += 1
+    print(f"[feqmod small] {n} comparisons of the three entry points with "
+          "their plain versions agree; two launches bit-identical")
+
+
 def phase_small_bins():
     """The binning kernel's edges (testing.BIN_EDGES: empty bins, a bin of
     every cell, bins longer and shorter than one slice) against its plain
@@ -456,7 +534,8 @@ def phase_main_path(smi: str, name="main", dimension=3, args=MAIN_ARGS,
           f", spectra {t_spec:.3f} s, writers {phases['writers']:.3f} s, "
           f"cli wall {wall:.3f} s | {evals:.3e} evaluations, "
           f"{evals / t_spec:.3e} evaluations/s | launches "
-          f"{counts['smooth_spectra']} = groups {groups}")
+          + ", ".join(f"{k} {counts[k]}" for k in want or ("smooth_spectra",))
+          + f" = groups {groups}")
     if decays:
         print(f"[{name}] {smi} | phases: " + ", ".join(
             f"{k} {v:.3f} s" for k, v in phases.items()) + " | launches "
@@ -516,12 +595,13 @@ def _decay_results_ok(results, mcids, n_y, out):
 def phase_small_path_cpu_vs_cuda(name="small", dimension=3, params=None,
                                  args=("df_mode=2", "regulate_deltaf=1"),
                                  label="3+1D df2", n_species=11,
-                                 decays=False):
+                                 decays=False, scale_bulk=1.0):
     """The whole CLI path on cuda and on cpu, f64, on a small run dir."""
     from is3d_tpu_torch.testing import write_synthetic_run_dir
     run_dir = os.path.join(WORK, name)
     write_synthetic_run_dir(run_dir, 256, n_species, dimension=dimension,
-                            seed=1, params=params, decays=decays)
+                            seed=1, params=params, decays=decays,
+                            scale_bulk=scale_bulk)
     trees = {}
     for device in ("cuda", "cpu"):
         results = os.path.join(run_dir, f"results_{device}")
@@ -645,6 +725,232 @@ def phase_pair(smi: str, clock: float, run_dir: str, cfg, tag="pair",
                 bound_ms=bound[0], bound_by=bound[1], library_ms=None)
 
 
+def _feqmod_run(run_dir: str, cfg):
+    """(surface columns, species, grid, df_data) of a run directory on the
+    card, as the CLI prepares them."""
+    from is3d_tpu_torch.api import IS3D
+    from is3d_tpu_torch.kernels.common import surface_columns
+    run = IS3D(cfg, data_dir=run_dir, device="cuda")
+    _, df_data, species, _, grid = run._prepare()
+    return surface_columns(run.surface, cfg), species, grid, df_data
+
+
+def _feqmod_share(tag: str, run_dir: str, cfg):
+    """Print the share of a run's cells that break down (and, in 3+1D, that
+    may take the narrow mask: detA < 0.01)."""
+    from is3d_tpu_torch.io.tables import laguerre_device
+    from is3d_tpu_torch.kernels import feqmod
+    from is3d_tpu_torch.kernels.common import prepare_cells
+    cols, _, _, df_data = _feqmod_run(run_dir, cfg)
+    c = feqmod.feqmod_transform(prepare_cells(cols, cfg, df_data),
+                                laguerre_device(dtype=cols["tau"].dtype,
+                                                device="cuda"), cfg)
+    bd = c["breakdown"]
+    narrow = (~bd) & (c["detA"] < feqmod.NARROW_DETA)
+    print(f"[{tag}] {int(bd.sum())} of {bd.numel()} cells break down "
+          f"({bd.double().mean().item():.2%}), {int(narrow.sum())} have "
+          f"detA < 0.01 without breaking down; detA in "
+          f"[{c['detA'].min().item():.4f}, {c['detA'].max().item():.4f}]")
+
+
+def _feqmod_evals(x, mom, flags) -> tuple[float, float]:
+    """(f_mod, fallback) evaluations of a launch on the packed cells x: a
+    breakdown cell evaluates only the fallback, and a 3+1D cell with detA
+    < 0.01 also at the nodes where |y - eta| < detA."""
+    from is3d_tpu_torch.kernels.feqmod import FQ, NARROW_DETA
+    S, M, R = mom.mass.shape[0], mom.px.shape[0], mom.nodes.shape[0]
+    bd = x[:, FQ["bd"]] > 0
+    fb_nodes = bd.double() * R
+    if flags.dimension == 3:
+        detA, eta = x[:, FQ["detA"]], x[:, FQ["eta"]]
+        narrow = (((~bd) & (detA < NARROW_DETA))[:, None]
+                  & ((mom.nodes[None, :] - eta[:, None]).abs()
+                     < detA[:, None]))
+        fb_nodes = fb_nodes + narrow.sum(1)
+    fb = fb_nodes.sum().item() * S * M
+    return x.shape[0] * R * S * M - fb, fb
+
+
+def _feqmod_bound(x, mom, flags, nbytes: int, clock: float):
+    """The bound of a feqmod launch from the evaluations this input makes
+    of each chain (kernels/feqmod.py: feqmod_formula_ops)."""
+    from is3d_tpu_torch.kernels import feqmod
+    mod, fb = _feqmod_evals(x, mom, flags)
+    ops = [feqmod.feqmod_formula_ops(flags.df_mode, flags.remap, mom.n_phi,
+                                     fallback) for fallback in (False, True)]
+    evals = mod + fb
+    fp32 = (mod * ops[0][0] + fb * ops[1][0]) / evals
+    sfu = (mod * ops[0][1] + fb * ops[1][1]) / evals
+    return _bound(evals, fp32, sfu, nbytes, clock), evals, fb / evals
+
+
+def _scaled_group(cols: dict, n: int, shear: float) -> dict:
+    """The first n cells of a run's columns with the shear stress x
+    ``shear`` (a strong shear breaks the momentum transform down through
+    detA and keeps T_mod, a function of the bulk pressure, as it was)."""
+    g = {k: v[:n] for k, v in cols.items()}
+    for k in ("pixx", "pixy", "pixn", "piyy", "piyn"):
+        g[k] = g[k] * shear
+    return g
+
+
+def phase_feqmod_pair(smi: str, clock: float, run_dir: str, cfg, tag: str,
+                      kinds=(("clean", 1.0), ("most", 30.0)),
+                      plain_cells=FEQMOD_PLAIN_CELLS):
+    """[feqmod pair]: a feqmod spectra kernel on one canonical group (16384
+    cells) of a main-path surface as it is, and with the shear stress x 30
+    (most cells break down), f32: the float64 kernel on the same cells,
+    two launches bit-identical, the group's first ``plain_cells`` cells
+    held against the plain version; paired CUDA-event times (f32, f64; one
+    warm-up, median of 5 and 3), the plain version's one run on those
+    cells, the bound from the evaluations of each chain, the kernel's
+    instructions per evaluation.  Returns the record of each kind."""
+    from is3d_tpu_torch.io.tables import laguerre_device
+    from is3d_tpu_torch.kernels import feqmod
+    from is3d_tpu_torch.kernels.smooth import (momentum_constants,
+                                               remap_node_table)
+    from is3d_tpu_torch.parallel.mesh import canonical_groups
+    from is3d_tpu_torch.utils import cuda_median_ms
+
+    cols, species, grid, df_data = _feqmod_run(run_dir, cfg)
+    _, gs = canonical_groups(cfg, cols["tau"].shape[0])
+    flags = feqmod.feqmod_flags(cfg, grid)
+    mom = momentum_constants(species, grid, cfg.dimension)
+    f64 = dict(species=species.to(dtype=torch.float64),
+               df_data=df_data.to(dtype=torch.float64),
+               mom=mom.to(dtype=torch.float64),
+               lag=laguerre_device(dtype=torch.float64, device="cuda"))
+    lag = laguerre_device(dtype=torch.float32, device="cuda")
+    table = remap_node_table(mom) if flags.remap else None
+    table64 = remap_node_table(f64["mom"]) if flags.remap else None
+    kernel = f"fixed_kernelIfLi{cfg.dimension}EE"
+    if flags.remap:
+        width = feqmod.feqmod_grid(
+            feqmod._library(), torch.device("cuda"), False,
+            mom.mass.shape[0], mom.pT.shape[0], mom.n_phi,
+            mom.nodes.shape[0], 2, True).phi_width
+        kernel = f"remap_kernelIfLi{width}EE"
+    records = {}
+    for kind, shear in kinds:
+        group = _scaled_group(cols, gs, shear)
+        x, rn, wcs = feqmod.group_inputs(group, species, lag, df_data, cfg,
+                                         flags)
+        x64, rn64, wcs64 = feqmod.group_inputs(
+            {k: v.double() for k, v in group.items()}, f64["species"],
+            f64["lag"], f64["df_data"], cfg, flags)
+        kern = lambda: feqmod.feqmod_spectra_cuda(x, rn, wcs, mom, flags,
+                                                  table)
+        kern64 = lambda: feqmod.feqmod_spectra_cuda(x64, rn64, wcs64,
+                                                    f64["mom"], flags,
+                                                    table64)
+        got, again, ref = kern(), kern(), kern64()
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            fail(f"{tag} {kind}: two launches on the same group differ")
+        f32_share = ((got.double() - ref).abs().max()
+                     / ref.abs().max()).item()
+        n = plain_cells
+        xs, rns, wcss = (t[:n].contiguous() for t in (x, rn, wcs))
+        kslice = lambda: feqmod.feqmod_spectra_cuda(xs, rns, wcss, mom, flags,
+                                                    table)
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        want = feqmod.feqmod_spectra_plain(xs, rns, wcss, mom, flags,
+                                           cfg.cell_chunk)
+        t1.record()
+        t1.synchronize()
+        p_ms = t0.elapsed_time(t1)
+        err = _check(f"{tag} {kind} float32, the group's first {n} cells",
+                     kslice(), want, 2e-4, 2e-5)
+        del want, ref
+        k_ms, k_all = cuda_median_ms(kern)
+        k64_ms, k64_all = cuda_median_ms(kern64, 3)
+        ks_ms, _ = cuda_median_ms(kslice, 3)
+        bound, evals, fb_share = _feqmod_bound(
+            x, mom, flags, _nbytes(x, rn, wcs, got, *mom_tensors(mom)), clock)
+        bd = (x[:, feqmod.FQ["bd"]] > 0).double().mean().item()
+        print(f"[{tag}] {smi} | {kind}: one group {x.shape[0]} cells x "
+              f"{tuple(got.shape)} ({bd:.1%} of cells break down, "
+              f"{fb_share:.1%} of {evals:.3e} evaluations take the "
+              f"fallback): kernel {k_ms:.3f} ms (runs "
+              f"{', '.join(f'{t:.2f}' for t in k_all)}), float64 kernel "
+              f"{k64_ms:.3f} ms (runs "
+              f"{', '.join(f'{t:.1f}' for t in k64_all)}); float32 against float64 {f32_share:.2e} of the largest "
+              f"value; on the first {n} cells kernel {ks_ms:.3f} ms, plain "
+              f"{p_ms:.1f} ms (one run); bound {bound[0]:.3f} ms "
+              f"({bound[1]}), kernel at {bound[0] / k_ms:.1%} of it; two "
+              "launches bit-identical; issued per evaluation (both chains' "
+              "loop bodies over their exps): " + _issued("feqmod", kernel))
+        records[kind] = dict(launches=None, max_abs_err=err, ms=k_ms,
+                             plain_ms=p_ms, bound_ms=bound[0],
+                             bound_by=bound[1], library_ms=None, cells=gs,
+                             plain_cells=n, kernel_ms_on_plain_cells=ks_ms,
+                             f64_ms=k64_ms, breakdown_share=bd,
+                             fallback_share=fb_share)
+    return records
+
+
+def phase_feqmod_dndx_pair(smi: str, clock: float, run_dir: str, cfg,
+                           plain_cells=512):
+    """[feqmod dndx]: the dN/dX kernel's feqmod producer on one canonical
+    group of that run, f32: two launches bit-identical, its first
+    ``plain_cells`` cells held against the plain version, times, bound."""
+    import dataclasses
+    from is3d_tpu_torch.io.tables import laguerre_device
+    from is3d_tpu_torch.kernels import dndx, feqmod
+    from is3d_tpu_torch.kernels.smooth import momentum_constants
+    from is3d_tpu_torch.parallel.mesh import canonical_groups
+    from is3d_tpu_torch.utils import cuda_median_ms
+
+    cols, species, grid, df_data = _feqmod_run(run_dir, cfg)
+    grid = dataclasses.replace(grid, eta_mT_rescale=False)
+    _, gs = canonical_groups(cfg, cols["tau"].shape[0])
+    flags = feqmod.feqmod_flags(cfg, grid)
+    mom = momentum_constants(species, grid, cfg.dimension)
+    wM = dndx.momentum_weights(grid, cfg)
+    wR = dndx.node_weights(grid, cfg.dimension)
+    x, rn, wcs = feqmod.group_inputs(
+        {k: v[:gs] for k, v in cols.items()}, species,
+        laguerre_device(dtype=torch.float32, device="cuda"), df_data, cfg,
+        flags)
+    kern = lambda: dndx.dndx_feqmod_cuda(x, rn, wcs, mom, flags, wM, wR)
+    got, again = kern(), kern()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail("dndx feqmod: two launches on the same group differ")
+    n = plain_cells
+    xs, rns, wcss = (t[:n].contiguous() for t in (x, rn, wcs))
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    want = dndx.dndx_feqmod_plain(xs, rns, wcss, mom, flags, wM, wR,
+                                  cfg.cell_chunk)
+    t1.record()
+    t1.synchronize()
+    p_ms = t0.elapsed_time(t1)
+    part = dndx.dndx_feqmod_cuda(xs, rns, wcss, mom, flags, wM, wR)
+    err = max(_check(f"dndx feqmod float32, the group's first {n} cells, "
+                     "per cell", part[0], want[0], 2e-4, 2e-5),
+              _check(f"dndx feqmod float32, the group's first {n} cells, "
+                     "dN/dy/deta", part[1], want[1], 2e-4, 2e-5))
+    k_ms, k_all = cuda_median_ms(kern)
+    bound, evals, fb_share = _feqmod_bound(
+        x, mom, flags, _nbytes(x, rn, wcs, wM, wR, *got, *mom_tensors(mom)),
+        clock)
+    print(f"[feqmod dndx] {smi} | one group {x.shape[0]} cells x "
+          f"{mom.mass.shape[0]} x {wM.shape[0]} x {wR.shape[0]} "
+          f"({fb_share:.1%} of {evals:.3e} evaluations take the fallback): "
+          f"kernel {k_ms:.3f} ms (runs {', '.join(f'{t:.2f}' for t in k_all)}"
+          f"), plain {p_ms:.1f} ms on its first {n} cells (one run); bound "
+          f"{bound[0]:.3f} ms ({bound[1]}), kernel at "
+          f"{bound[0] / k_ms:.1%} of it; two launches bit-identical; issued "
+          "per evaluation: " + _issued(
+              "dndx", "percell_kernelIfNS_14FeqmodProducerIf"
+              f"Li{cfg.dimension}E"))
+    return dict(launches=None, max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                bound_ms=bound[0], bound_by=bound[1], library_ms=None,
+                cells=gs, plain_cells=n)
+
+
 def _issued(library: str, kernel: str) -> str:
     """Instructions per evaluation in the SASS of the first kernel of
     ``library`` whose mangled name matches ``kernel`` (tools/sass_count.py),
@@ -660,28 +966,32 @@ def _issued(library: str, kernel: str) -> str:
 
 
 def _modules():
-    from is3d_tpu_torch.kernels import smooth, dndx, decays
+    from is3d_tpu_torch.kernels import smooth, dndx, decays, feqmod
     from is3d_tpu_torch.experiments import smooth_proto, dndx_reduce_probe
-    return smooth, dndx, smooth_proto, dndx_reduce_probe, decays
+    return smooth, dndx, smooth_proto, dndx_reduce_probe, decays, feqmod
 
 
 def _reset_counts():
-    smooth, dndx, proto, probe, decays = _modules()
+    smooth, dndx, proto, probe, decays, feqmod = _modules()
     smooth.LAUNCHES = smooth.REMAP_LAUNCHES = 0
-    dndx.LAUNCHES = dndx.BIN_LAUNCHES = 0
+    dndx.LAUNCHES = dndx.BIN_LAUNCHES = dndx.FEQMOD_LAUNCHES = 0
     proto.LAUNCHES = probe.LAUNCHES = 0
     decays.TWO_BODY_LAUNCHES = decays.THREE_BODY_LAUNCHES = 0
+    feqmod.LAUNCHES = feqmod.REMAP_LAUNCHES = 0
 
 
 def _counts() -> dict:
-    smooth, dndx, proto, probe, decays = _modules()
+    smooth, dndx, proto, probe, decays, feqmod = _modules()
     return dict(smooth_spectra=smooth.LAUNCHES,
                 smooth_spectra_remap=smooth.REMAP_LAUNCHES,
                 dndx=dndx.LAUNCHES,
                 dndx_bin=dndx.BIN_LAUNCHES, smooth_proto=proto.LAUNCHES,
                 dndx_probe=probe.LAUNCHES,
                 decay_wave_2body=decays.TWO_BODY_LAUNCHES,
-                decay_wave_3body=decays.THREE_BODY_LAUNCHES)
+                decay_wave_3body=decays.THREE_BODY_LAUNCHES,
+                feqmod_spectra=feqmod.LAUNCHES,
+                feqmod_spectra_remap=feqmod.REMAP_LAUNCHES,
+                dndx_feqmod=dndx.FEQMOD_LAUNCHES)
 
 
 def _expect_counts(path: str, counts: dict, want: dict):
@@ -811,34 +1121,38 @@ def phase_small_experiments():
                    w, *TOL[dtype])
 
 
-def phase_dndx_main(smi: str):
+def phase_dndx_main(smi: str, tag="dndx main", n_cells=DNDX_CELLS,
+                    args=DNDX_ARGS, want=("dndx", "dndx_bin")):
+    """One operation-0 CLI run on a synthetic 2+1D run directory of
+    ``n_cells`` cells x 320 species: launches of ``want`` = canonical
+    groups, every spacetime_distribution file present and finite, pion
+    dN/dy > 0."""
     from is3d_tpu_torch.config import load_config
     from is3d_tpu_torch.io.pdg import load_chosen_mcids
     from is3d_tpu_torch.io.tables import native_momentum_grid
     from is3d_tpu_torch.parallel.mesh import canonical_groups
     from is3d_tpu_torch.testing import write_synthetic_run_dir
 
-    run_dir = os.path.join(WORK, "dndx")
+    run_dir = os.path.join(WORK, tag.replace(" ", "_"))
     t0 = time.perf_counter()
-    write_synthetic_run_dir(run_dir, DNDX_CELLS, MAIN_SPECIES, dimension=2,
+    write_synthetic_run_dir(run_dir, n_cells, MAIN_SPECIES, dimension=2,
                             seed=2, params=dict(operation=0))
-    print(f"[dndx main] synthetic run dir {DNDX_CELLS} cells x "
+    print(f"[{tag}] synthetic run dir {n_cells} cells x "
           f"{MAIN_SPECIES} species written in "
           f"{time.perf_counter() - t0:.2f} s")
     _reset_counts()
     t0 = time.perf_counter()
-    rc, phases, out = _run_cli([run_dir] + DNDX_ARGS)
+    rc, phases, out = _run_cli([run_dir] + list(args))
     wall = time.perf_counter() - t0
     counts = _counts()
-    print("\n".join("[dndx main] cli: " + l for l in out.splitlines()
+    print("\n".join(f"[{tag}] cli: " + l for l in out.splitlines()
                     if " = " not in l))
     if rc != 0:
         fail(f"dN/dX cli exited {rc}")
     cfg = load_config(os.path.join(run_dir, "iS3D_parameters.dat"),
-                      overrides=dict(a.split("=", 1) for a in DNDX_ARGS[1:]))
-    groups, _ = canonical_groups(cfg, DNDX_CELLS)
-    _expect_counts("dN/dX main path", counts,
-                   dict(dndx=groups, dndx_bin=groups))
+                      overrides=dict(a.split("=", 1) for a in args[1:]))
+    groups, _ = canonical_groups(cfg, n_cells)
+    _expect_counts(f"{tag} path", counts, {k: groups for k in want})
     mcids = load_chosen_mcids(os.path.join(
         run_dir, "PDG", "chosen_particles_urqmd_v3.3+.dat"))
     if len(mcids) != MAIN_SPECIES:
@@ -867,14 +1181,14 @@ def phase_dndx_main(smi: str):
     dndy = float(dydeta[:, 1] @ grid.eta_weight.numpy())
     if not dndy > 0:
         fail(f"pion dN/dy = {dndy} is not positive")
-    evals = DNDX_CELLS * MAIN_SPECIES * 32 * 24 * grid.n_eta
+    evals = n_cells * MAIN_SPECIES * 32 * 24 * grid.n_eta
     t_dx = phases["dN/dX spacetime"]
-    print(f"[dndx main] {smi} | prepare "
+    print(f"[{tag}] {smi} | prepare "
           f"{phases['prepare (io, pdg, deltaf)']:.3f} s, dN/dX {t_dx:.3f} s, "
           f"writers {phases['writers']:.3f} s, cli wall {wall:.3f} s | "
           f"{evals:.3e} evaluations, {evals / t_dx:.3e} evaluations/s | "
-          f"launches dndx {counts['dndx']}, dndx_bin {counts['dndx_bin']} "
-          f"= groups {groups} | {n_files} files, pion dN/dy {dndy:.6e}")
+          "launches " + ", ".join(f"{k} {counts[k]}" for k in want)
+          + f" = groups {groups} | {n_files} files, pion dN/dy {dndy:.6e}")
     return counts, run_dir, cfg
 
 
@@ -1173,7 +1487,7 @@ def _kernel_split(fn, calls: int = 20, tries: int = 3) -> str:
 def phase_experiments(smi: str, clock: float):
     """Each experiment at its own shape through its measure(): the counts
     are set to 0 before it and read after it."""
-    _, _, proto, probe, _ = _modules()
+    _, _, proto, probe, _, _ = _modules()
     records = {}
     for name, mod in (("smooth_proto", proto), ("dndx_probe", probe)):
         _reset_counts()
@@ -1205,6 +1519,45 @@ def phase_experiments(smi: str, clock: float):
     return records
 
 
+def phase_feqmod(smi: str, clock: float):
+    """The feqmod (df 3-4) paths at full width: [feqmod main] (3+1D df 3)
+    and its 256-cell cuda-against-cpu run, [feqmod pair] on a clean and a
+    mostly broken-down group; [feqmod main 2d] (2+1D df 4, mT remap), its
+    small run and pair; [feqmod dndx] (operation 0, df 3) and its group.
+    Returns the kernel records of the three entry points."""
+    counts, run_dir, cfg, _ = phase_main_path(
+        smi, "feqmod main", args=FEQMOD_ARGS, want=("feqmod_spectra",))
+    _feqmod_share("feqmod main", run_dir, cfg)
+    phase_small_path_cpu_vs_cuda(
+        "small_feqmod", dimension=3, args=("df_mode=3", "regulate_deltaf=1"),
+        label="3+1D df3 (bulk x 30)", scale_bulk=30.0)
+    pair = phase_feqmod_pair(smi, clock, run_dir, cfg, "feqmod pair")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    rec = dict(pair["clean"], launches=counts["feqmod_spectra"],
+               most_breakdown=pair["most"])
+
+    counts, run_dir, cfg, _ = phase_main_path(
+        smi, "feqmod main 2d", dimension=2, args=FEQMOD2D_ARGS, n_nodes=48,
+        want=("feqmod_spectra_remap",))
+    _feqmod_share("feqmod main 2d", run_dir, cfg)
+    phase_small_path_cpu_vs_cuda(
+        "small_feqmod_2d", dimension=2,
+        args=("df_mode=4", "regulate_deltaf=1"),
+        label="2+1D mT remap df4 (bulk x 30)", scale_bulk=30.0)
+    pair = phase_feqmod_pair(smi, clock, run_dir, cfg, "feqmod remap pair",
+                             kinds=(("clean", 1.0),), plain_cells=512)
+    shutil.rmtree(run_dir, ignore_errors=True)
+    rec_remap = dict(pair["clean"], launches=counts["feqmod_spectra_remap"])
+
+    counts, run_dir, cfg = phase_dndx_main(
+        smi, "feqmod dndx", FEQMOD_DNDX_CELLS, FEQMOD_DNDX_ARGS,
+        want=("dndx_feqmod", "dndx_bin"))
+    rec_dndx = phase_feqmod_dndx_pair(smi, clock, run_dir, cfg)
+    rec_dndx["launches"] = counts["dndx_feqmod"]
+    shutil.rmtree(run_dir, ignore_errors=True)
+    return rec, rec_remap, rec_dndx
+
+
 def main():
     smi, clock = phase_device()
     phase_build()
@@ -1215,6 +1568,7 @@ def main():
     phase_small_bins()
     phase_small_experiments()
     phase_small_decay_edges()
+    phase_small_feqmod()
     shutil.rmtree(WORK, ignore_errors=True)
     try:
         counts, run_dir, cfg, _ = phase_main_path(smi)
@@ -1256,6 +1610,8 @@ def main():
         shutil.rmtree(run_dir, ignore_errors=True)
         phase_decays_2d(smi, clock)
         experiments = phase_experiments(smi, clock)
+        rec_feqmod, rec_feqmod_remap, rec_feqmod_dndx = phase_feqmod(smi,
+                                                                    clock)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     src = "is3d_tpu_torch/csrc/"
@@ -1280,6 +1636,13 @@ def main():
              replaces="is3d_tpu/kernels/decays.py:583", **rec_decays[2]),
         dict(name="decay_wave_3body", route="cuda", source=src + "decays.cu",
              replaces="is3d_tpu/kernels/decays.py:600", **rec_decays[3]),
+        dict(name="feqmod_spectra", route="cuda", source=src + "feqmod.cu",
+             replaces="is3d_tpu/kernels/feqmod.py:276", **rec_feqmod),
+        dict(name="feqmod_spectra_remap", route="cuda",
+             source=src + "feqmod.cu",
+             replaces="is3d_tpu/kernels/feqmod.py:276", **rec_feqmod_remap),
+        dict(name="dndx_feqmod", route="cuda", source=src + "dndx.cu",
+             replaces="is3d_tpu/kernels/dndx.py:110", **rec_feqmod_dndx),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -9,8 +9,8 @@ CUDA on a machine without it raises instead of running on the CPU.
 The port runs operation 0 (dN/dX spacetime distributions) and operation 1
 (smooth spectra, with the resonance-decay feed-down when
 do_resonance_decays = 1) on viscous-hydro surfaces with linear delta-f (df
-1-2); the other paths raise NotImplementedError naming the ROADMAP slice
-that ports them.
+1-2) and modified equilibrium distributions (df 3-4); the other paths raise
+NotImplementedError naming the ROADMAP slice that ports them.
 """
 
 from __future__ import annotations
@@ -61,10 +61,10 @@ def resolve_device(device) -> torch.device:
 
 def _not_ported(what: str, slice_name: str, cfg: Config):
     if cfg.operation == 0:
-        # dN/dX (slice 7) runs VH df 1-2; its other halves come with the
+        # dN/dX (slice 7) runs VH df 1-4; its other halves come with the
         # slices that port their emission functions
         what = f"operation 0 (dN/dX) with {what}"
-        slice_name += " (slice 7 ported dN/dX for viscous hydro, df 1-2)"
+        slice_name += " (slice 7 ported dN/dX for viscous hydro, df 1-4)"
     raise NotImplementedError(f"{what} is not ported yet: ROADMAP "
                               f"section 1, {slice_name}")
 
@@ -80,9 +80,7 @@ def check_supported(cfg: Config):
         _not_ported(f"surface mode {cfg.mode} (VAH)", "slice 8", cfg)
     if cfg.mode == 5:
         _not_ported("surface mode 5 (spin polarization)", "slice 8", cfg)
-    if cfg.df_mode in (3, 4):
-        _not_ported(f"df_mode {cfg.df_mode} (feqmod)", "slice 6", cfg)
-    if cfg.df_mode not in (1, 2):
+    if cfg.df_mode not in (1, 2, 3, 4):
         raise ValueError(f"df_mode must be 1-4, got {cfg.df_mode}")
     if cfg.precision not in _DTYPES:
         raise ValueError(f"precision must be one of {sorted(_DTYPES)}, got "
@@ -174,7 +172,8 @@ class IS3D:
         deltaf_io.compute_particle_densities(
             particle_table, cfg.df_mode, self.averages, df_data,
             include_baryon=bool(cfg.include_baryon))
-        if cfg.include_baryon and self.surface.muB is not None:
+        if (cfg.include_baryon and cfg.df_mode in (1, 2, 3)
+                and self.surface.muB is not None):
             # the nonzero-muB bilinear path would silently extrapolate;
             # fail host-side like the reference (deltafReader.cpp:425)
             deltaf_io.validate_df_range(
@@ -220,10 +219,8 @@ class IS3D:
 
         result = RunResult(mcids=np.asarray(mcids), averages=self.averages)
         if cfg.operation == 1:
-            from .kernels.smooth import smooth_spectra
             with timer.phase("smooth spectra"):
-                spectra = smooth_spectra(self.surface, species, grid,
-                                         df_data, cfg)
+                spectra = self._smooth_spectra(species, grid, df_data)
                 # the host copy waits for the device: the phase includes it
                 result.spectra = spectra.cpu().numpy()
             # before the dispatch: a copy to the host waits for the stream
@@ -258,6 +255,17 @@ class IS3D:
                     writers.write_spacetime_distributions(
                         result.dN_dX, mcids, self.results_dir)
         return result
+
+    def _smooth_spectra(self, species, grid, df_data):
+        """The smooth spectra of the df mode (reference dispatch:
+        is3d_tpu/api.py:732-736)."""
+        if self.cfg.df_mode in (1, 2):
+            from .kernels.smooth import smooth_spectra
+            return smooth_spectra(self.surface, species, grid, df_data,
+                                  self.cfg)
+        from .kernels.feqmod import smooth_spectra_feqmod
+        return smooth_spectra_feqmod(self.surface, species, grid, df_data,
+                                     self.cfg)
 
     def _write_smooth_files(self, spectra, grid, mcids, results_dir):
         cfg = self.cfg

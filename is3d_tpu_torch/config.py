@@ -88,6 +88,14 @@ class Config:
     reduce_groups: int = 8      # groups of the canonical cell-reduction
                                 # tree (parallel/mesh.py): one kernel launch
                                 # per group, partials folded in group order
+    # is3d_tpu's in-kernel chunk routing of the feqmod pass
+    # (kernels/feqmod.routed_switch there), accepted so its parameter files
+    # load.  Inert here: they change no result and no code path.  The port's
+    # CUDA kernels branch per cell (the reference's own scalar semantics)
+    # and its plain version evaluates both chains and selects per point,
+    # which JAX's three routed branches equal by construction.
+    feqmod_partition: int = 1
+    feqmod_partition_min_cells: int = 16384
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)

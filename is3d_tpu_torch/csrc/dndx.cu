@@ -11,7 +11,7 @@
 //     per_cell[c, s] = scale_s * sum_r wR_r sum_m wM_m f(c, r, s, m)
 //     dydeta[s, r]   = scale_s * sum_c sum_m wM_m f(c, r, s, m)
 //
-// Two producers instantiate the same reduction:
+// Three producers instantiate the same reduction:
 //   * EmissionProducer: p.dsigma f_eq (1 + df) (linear df 1-2) in the
 //     folded form of folded.cuh at fixed rapidity nodes, 2+1D (Delta =
 //     -eta_r, wR = eta weights) or 3+1D (Delta = y_r - eta_c, wR = 1);
@@ -20,6 +20,16 @@
 //     (kernels/dndx.py:emission_tables): species (S, 4) = m^2, sign,
 //     baryon, 0; mT (S, n_pT, 2) = mT, mT^2; points (M, 8) = px, py, px^2,
 //     py^2, px py, wM, 0, 0.
+//   * FeqmodProducer: p.dsigma f of the modified-equilibrium df (df 3-4,
+//     the third entry point of is3d_tpu/kernels/feqmod.py's
+//     _chunk_contribution_feqmod, with reduce=False under
+//     is3d_tpu/kernels/dndx.py:110-124) at fixed rapidity nodes: the
+//     emission value of feqmod.cuh on the packed rows of feqmod.cu
+//     (kernels/feqmod.py:pack_feqmod_cells) and its (cell, species) renorm
+//     and validity tables; the tables of EmissionProducer.  Each thread
+//     branches per (cell, node) between f_mod and the fallback, so a warp
+//     whose cells differ runs both; the dN/dX kernel is a first version
+//     here, its time against its bound in PERF.md.
 //   * ProbeProducer: P2's synthetic f = 1/(e^x + 1) (1 + 0.1 x) w(s, m),
 //     x = a(c, r) b(s, m) + 0.3 a(c, r); scale_s = 1.
 //
@@ -78,6 +88,7 @@
 
 #include <cuda_runtime.h>
 
+#include "feqmod.cuh"
 #include "folded.cuh"
 
 namespace {
@@ -206,6 +217,125 @@ struct EmissionProducer {
                                         bar[j], kp, b1[j], kv, c3b[j], dlo,
                                         dhi);
             t[j][y] = fma(fmax(pds, plo) * wm, f, t[j][y]);
+          }
+        }
+      }
+    }
+  }
+};
+
+// the modified-equilibrium df (feqmod.cuh); staged: the point table is in
+// shared memory
+template <typename T, int DIM>
+struct FeqmodProducer {
+  const T* cells;                    // (n_cells, NQ) packed rows
+  const T* rn;                       // (n_cells, n_species) |renorm|
+  const T* wcs;                      // (n_cells, n_species) validity
+  const T* nodes;                    // (n_nodes)
+  const T* species;                  // (n_species, 4) m^2, sign, baryon, 0
+  const T* mt;                       // (n_species, n_pT, 2) mT, mT^2
+  const T* points;                   // (M, 8) px, py, px^2, py^2, px py, wM
+  int n_species, n_nodes, n_pT, n_phi;
+  int df_mode, sw, regulate, outflow, staged;
+
+  size_t shared_bytes() const {
+    return staged ? (size_t)n_pT * n_phi * PW * sizeof(T) : 0;
+  }
+
+  __device__ __forceinline__ void stage(T* sm) const {
+    if (staged)
+      for (int i = threadIdx.x; i < n_pT * n_phi * PW; i += PBLOCK)
+        sm[i] = points[i];
+  }
+
+  struct CellState {
+    int cell;
+    T k[YC][NKQ];                    // feqmod_node's values per node
+  };
+
+  __device__ __forceinline__ void load(CellState& cs, int cell, int r0) const {
+    cs.cell = cell;
+    const T* g = cells + (size_t)cell * NQ;
+#pragma unroll
+    for (int y = 0; y < YC; ++y)
+      feqmod_node<T, DIM>(g, nodes[min(r0 + y, n_nodes - 1)], T(1), cs.k[y]);
+  }
+
+  __device__ __forceinline__ void sum_points(const CellState& cs, int s0,
+                                             T (&t)[J][YC],
+                                             const T* sm) const {
+    using F = Fn<T>;
+    const T L = F::SCALE;
+    const T* g = cells + (size_t)cs.cell * NQ;
+    const bool bd = g[Q_BD] != T(0);
+    const bool narrow = feqmod_narrow<T, DIM>(g);
+    const T dax = g[Q_DAX], day = g[Q_DAY];
+    const T ux = g[Q_UX], uy = g[Q_UY], vx = g[Q_VX], vy = g[Q_VY];
+    const T pxx = g[Q_PIXX], pyy = g[Q_PIYY], pxy2 = T(2) * g[Q_PIXY];
+    const T invTmL = L * g[Q_INVTM];
+    const FbCoef<T> k = fb_coef(g);
+    // per (cell, species)
+    T m2[J], sgn[J], bar[J], nbm[J], rnj[J], wj[J];
+    const T* mts[J];
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int s = min(s0 + j, n_species - 1);
+      T unused;
+      F::ld4(species + (size_t)s * 4, m2[j], sgn[j], bar[j], unused);
+      nbm[j] = -L * g[Q_ABM] * bar[j];
+      rnj[j] = rn[(size_t)cs.cell * n_species + s];
+      wj[j] = wcs[(size_t)cs.cell * n_species + s];
+      mts[j] = mt + (size_t)s * n_pT * 2;
+    }
+    bool fb[YC];
+#pragma unroll
+    for (int y = 0; y < YC; ++y) fb[y] = bd || (narrow && cs.k[y][11] != T(0));
+    const T* q = staged ? sm : points;
+    for (int ip = 0; ip < n_pT; ++ip) {
+      T mT[J], mT2[J];
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        mT[j] = mts[j][2 * ip];
+        mT2[j] = mts[j][2 * ip + 1];
+      }
+      for (int iphi = 0; iphi < n_phi; ++iphi, q += PW) {
+        T px, py, px2, py2, pxpy, wm, u0, u1;
+        F::ld4(q, px, py, px2, py2);
+        F::ld4(q + 4, pxpy, wm, u0, u1);
+        // per (cell, point)
+        const T W1 = fma(dax, px, day * py);
+        T gam[3];
+#pragma unroll
+        for (int k3 = 0; k3 < 3; ++k3)
+          gam[k3] = fma(g[Q_GX0 + k3], px, g[Q_GY0 + k3] * py);
+#pragma unroll
+        for (int y = 0; y < YC; ++y) {
+          const T* kk = cs.k[y];
+          if (!fb[y]) {
+#pragma unroll
+            for (int j = 0; j < J; ++j) {
+              const T x2 = x_squared(mT[j], kk + 1, gam);
+              const T f = mod_value(x2, m2[j], invTmL, nbm[j], sgn[j],
+                                    rnj[j]);
+              const T v = emit_mod(fma(mT[j], kk[0], W1), f, outflow)
+                          * wj[j];
+              t[j][y] = fma(v, wm, t[j][y]);
+            }
+          } else {
+            const T nW2 = -fma(ux, px, uy * py);
+            const T nD2 = -fma(vx, px, vy * py);
+            const T C4 = fma(pxx, px2, fma(pyy, py2, pxy2 * pxpy));
+            const T c23 = fma(px, kk[7], py * kk[8]);
+#pragma unroll
+            for (int j = 0; j < J; ++j) {
+              const T pdu = fma(mT[j], kk[5], nW2);
+              const T pipp = fma(mT2[j], kk[6], fma(mT[j], c23, C4));
+              const T Vp = fma(mT[j], kk[9], nD2);
+              const T f = fallback_value(df_mode, sw, pdu, pipp, Vp, m2[j],
+                                         sgn[j], bar[j], k, regulate);
+              const T v = emit(fma(mT[j], kk[4], W1), f, outflow) * wj[j];
+              t[j][y] = fma(v, wm, t[j][y]);
+            }
           }
         }
       }
@@ -586,6 +716,52 @@ int launch_dndx(const void* cells, int n_cells, int nf, const void* species,
 #undef IS3D_DISPATCH
 #undef IS3D_DISPATCH_PS
 
+bool feqmod_shape_ok(int df_mode, int dimension, int n_pT, int n_phi) {
+  return (df_mode == 3 || df_mode == 4) &&
+         (dimension == 2 || dimension == 3) && n_pT >= 1 && n_phi >= 1 &&
+         n_pT <= 0x7fffffff / PW / n_phi;
+}
+
+template <typename T>
+int dndx_feqmod_slots(int df_mode, int dimension, int n_pT, int n_phi) {
+  if (!feqmod_shape_ok(df_mode, dimension, n_pT, n_phi))
+    return -(int)cudaErrorInvalidValue;
+  const size_t bytes = point_table_bytes<T>(n_pT, n_phi);
+  const size_t staged = bytes <= POINTS_SMEM_MAX ? bytes : 0;
+  return dimension == 3
+             ? percell_slots<T, FeqmodProducer<T, 3>>(staged)
+             : percell_slots<T, FeqmodProducer<T, 2>>(staged);
+}
+
+template <typename T>
+int launch_dndx_feqmod(const void* cells, int n_cells, int nq,
+                       const void* rn, const void* wcs, const void* species,
+                       const void* deg, int n_species, const void* mt,
+                       const void* points, int n_pT, int n_phi,
+                       const void* nodes, const void* wR, int n_nodes,
+                       int df_mode, int dimension, int sw, int regulate,
+                       int outflow, double prefactor, int cells_per_split,
+                       void* per_cell, void* dydeta, void* partial,
+                       void* stream) {
+  if (nq != NQ || !feqmod_shape_ok(df_mode, dimension, n_pT, n_phi))
+    return cudaErrorInvalidValue;
+  const int staged = point_table_bytes<T>(n_pT, n_phi) <= POINTS_SMEM_MAX;
+#define IS3D_FEQMOD(DIM_)                                                     \
+  {                                                                          \
+    FeqmodProducer<T, DIM_> prod{                                            \
+        static_cast<const T*>(cells), static_cast<const T*>(rn),             \
+        static_cast<const T*>(wcs), static_cast<const T*>(nodes),            \
+        static_cast<const T*>(species), static_cast<const T*>(mt),           \
+        static_cast<const T*>(points), n_species, n_nodes, n_pT, n_phi,      \
+        df_mode, sw, regulate, outflow, staged};                             \
+    return launch_percell<T>(prod, n_cells, cells_per_split, n_species,      \
+                             n_nodes, wR, deg, prefactor, per_cell, dydeta,  \
+                             partial, stream);                               \
+  }
+  if (dimension == 3) IS3D_FEQMOD(3) else IS3D_FEQMOD(2)
+#undef IS3D_FEQMOD
+}
+
 template <typename T>
 int launch_probe(const void* a, int n_cells, int n_nodes, const void* b,
                  const void* w, int n_species, int M, const void* wM,
@@ -652,6 +828,36 @@ extern "C" {
 IS3D_DNDX_ENTRY(is3d_dndx_f32, float)
 IS3D_DNDX_ENTRY(is3d_dndx_f64, double)
 #undef IS3D_DNDX_ENTRY
+
+// the feqmod producer (df 3-4): rn, wcs (n_cells, n_species) beside the
+// packed rows (n_cells, NQ) of kernels/feqmod.py:pack_feqmod_cells
+#define IS3D_DNDX_FEQMOD_ENTRY(NAME, T)                                       \
+  int NAME(const void* cells, int n_cells, int nq, const void* rn,           \
+           const void* wcs, const void* species, const void* deg,            \
+           int n_species, const void* mt, const void* points, int n_pT,      \
+           int n_phi, const void* nodes, const void* wR, int n_nodes,        \
+           int df_mode, int dimension, int sw, int regulate, int outflow,    \
+           double prefactor, int cells_per_split, void* per_cell,            \
+           void* dydeta, void* partial, void* stream) {                      \
+    return launch_dndx_feqmod<T>(cells, n_cells, nq, rn, wcs, species, deg,  \
+                                 n_species, mt, points, n_pT, n_phi, nodes,  \
+                                 wR, n_nodes, df_mode, dimension, sw,        \
+                                 regulate, outflow, prefactor,               \
+                                 cells_per_split, per_cell, dydeta, partial, \
+                                 stream);                                    \
+  }
+IS3D_DNDX_FEQMOD_ENTRY(is3d_dndx_feqmod_f32, float)
+IS3D_DNDX_FEQMOD_ENTRY(is3d_dndx_feqmod_f64, double)
+#undef IS3D_DNDX_FEQMOD_ENTRY
+
+int is3d_dndx_feqmod_slots_f32(int df_mode, int dimension, int n_pT,
+                               int n_phi) {
+  return dndx_feqmod_slots<float>(df_mode, dimension, n_pT, n_phi);
+}
+int is3d_dndx_feqmod_slots_f64(int df_mode, int dimension, int n_pT,
+                               int n_phi) {
+  return dndx_feqmod_slots<double>(df_mode, dimension, n_pT, n_phi);
+}
 
 // resident blocks of the dN/dX kernel (probe: of its probe instantiation)
 // on the current card, or minus a CUDA error code

@@ -9,7 +9,8 @@ src/cpp/Table.cpp, src/cpp/readindata.cpp:19-83):
 
 Both are supported: loading reference-format files, and native generation of
 the same quadratures (numpy/scipy host-side).  All grids end up as a
-MomentumGrid of tensors.
+MomentumGrid of tensors; the Gauss-Laguerre rules of the feqmod thermal
+moments as a {alpha: (nodes, weights)} dict of tensors (laguerre_device).
 """
 
 from __future__ import annotations
@@ -45,6 +46,22 @@ def load_block_table(path: str) -> np.ndarray:
     return np.asarray(rows, dtype=np.float64)
 
 
+def load_gauss_laguerre_file(
+        path: str) -> dict[int, tuple[np.ndarray, np.ndarray]]:
+    """Load the reference's multi-alpha generalized Gauss-Laguerre file.
+
+    Format (reference: src/cpp/readindata.cpp:24-54): first line
+    ``n_alpha  n_points``; then n_alpha blocks of n_points rows
+    ``alpha_index  root  weight``.
+    Returns {alpha: (roots, weights)}.
+    """
+    with open(path) as f:
+        toks = f.read().split()
+    n_alpha, n_points = int(toks[0]), int(toks[1])
+    vals = np.asarray(toks[2:], dtype=np.float64).reshape(n_alpha, n_points, 3)
+    return {a: (vals[a, :, 1], vals[a, :, 2]) for a in range(n_alpha)}
+
+
 def gauss_laguerre(n_points: int, alphas=(0, 1, 2, 3)) -> dict[int, tuple[np.ndarray, np.ndarray]]:
     """Natively generate generalized Gauss-Laguerre roots/weights.
 
@@ -64,6 +81,32 @@ def gauss_legendre(n_points: int, a: float = -1.0, b: float = 1.0):
     x, w = np.polynomial.legendre.leggauss(n_points)
     xm, xr = 0.5 * (b + a), 0.5 * (b - a)
     return xm + xr * x, xr * w
+
+
+def laguerre_device(n_points: int = 32, alphas=(1, 2), dtype=torch.float64,
+                    device="cpu") -> dict:
+    """Gauss-Laguerre {alpha: (nodes, weights)} as tensors on ``device``,
+    the one source of the rules for every kernel path that integrates
+    thermal moments on the device (the feqmod spectra and dN/dX)."""
+    raw = gauss_laguerre(n_points, alphas=tuple(alphas))
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    return {a: (t(r), t(w)) for a, (r, w) in raw.items()}
+
+
+def laguerre_in_precision(laguerre, dtype, device=None) -> dict:
+    """Cast (or build, if None) a ``laguerre_device()`` dict to the
+    surface's dtype and device.  The thermal moments of the feqmod
+    renormalization are computed in the surface's precision: an f64 table
+    against f32 cells would promote every (cell, species, node) term, and
+    the kernels take one dtype.  Every feqmod path casts through this one
+    helper (kernels/feqmod.smooth_spectra_feqmod,
+    kernels/dndx.spacetime_distributions)."""
+    if laguerre is None:
+        laguerre = laguerre_device(dtype=dtype,
+                                   device="cpu" if device is None else device)
+    return {a: (torch.as_tensor(r, dtype=dtype, device=device),
+                torch.as_tensor(w, dtype=dtype, device=device))
+            for a, (r, w) in laguerre.items()}
 
 
 # ------------------------------------------------------------- momentum grid

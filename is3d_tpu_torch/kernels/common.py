@@ -24,6 +24,13 @@ def fermi_bose(x, s):
     return 1.0 / (torch.exp(x) + s)
 
 
+def scaled_fermi_bose(a, x, s):
+    """f = a / (e^x + s): the occupation with a folded-in scale (the feqmod
+    kernel's renormalized f_mod), one division as in the JAX package.
+    Forward only: the derivative waits for the autograd slice."""
+    return a / (torch.exp(x) + s)
+
+
 def surface_columns(surface: Surface, cfg) -> dict:
     """Extract the cell columns a VH kernel needs, zero-filling switched-off
     viscous blocks exactly like the reference's SoA unpack
@@ -83,9 +90,19 @@ def prepare_cells(cols: dict, cfg, df_data: Optional[DeltafData]) -> dict:
         c["alphaB"] = (c["muB"] / c["T"]) if cfg.include_baryon else zl
 
     if df_data is not None:
+        bulkPi = c["bulkPi"]
+        if cfg.df_mode == 4:
+            # clamp bulkPi into the Jonah spline domain
+            # (reference: emissionfunction_smooth_kernels.cpp:586-594)
+            P = c["P"]
+            bmax = df_data.bulkPi_over_Peq_max
+            bulkPi = torch.where(bulkPi < -P, -(1.0 - 1.0e-5) * P, bulkPi)
+            bulkPi = torch.where(bulkPi / P > bmax, P * (bmax - 1.0e-5),
+                                 bulkPi)
+            c["bulkPi"] = bulkPi
         c["df"] = evaluate_df_coefficients(
             df_data, cfg.df_mode, bool(cfg.include_baryon),
-            c["T"], c["muB"], c["E"], c["P"], c["bulkPi"])
+            c["T"], c["muB"], c["E"], c["P"], bulkPi)
     return c
 
 

@@ -1,0 +1,755 @@
+"""Smooth Cooper-Frye spectra with modified equilibrium distributions
+(df modes 3 "Mike" and 4 "Jonah").
+
+Port of ``is3d_tpu.kernels.feqmod`` (the reference's
+calculate_dN_ptdptdphidy_feqmod, emissionfunction_smooth_kernels.cpp:
+396-996).  One group of cells goes through:
+
+1. ``prepare_cells`` (kernels/common.py) and ``prepare_feqmod_cells``:
+   torch on the device.  Per cell the Milne tetrad, pi in the local rest
+   frame, the symmetric momentum transform A = (1 + bulk_mod) 1 +
+   shear_mod pi_LRF, its adjugate inverse with the fixed 2-pass residual
+   refinement folded into one operator Minv (``refined_inverse``),
+   T_mod / alphaB_mod, the breakdown flag (detA <= deta_min; df 3 also a
+   negative linearized pi0 density) and, per (cell, species), the
+   renormalization n_linear / n_mod (df 3, Gauss-Laguerre moments in the
+   surface's precision) or z (df 4);
+2. ``pack_feqmod_cells``: the kernels' inputs, a (C, NQ) matrix of
+   per-cell scalars (field order FQ_FIELDS) and two (C, S) tables: rn =
+   |renorm| (0 where it is not finite) and wcs = validity x finite renorm.
+   x = Minv p is linear in the momentum p_LRF = mT (alpha ch + beta sh) +
+   gamma(px, py), so only its coefficients come in: a = Minv alpha, b =
+   Minv beta and gx, gy with Minv gamma = px gx + py gy;
+3. ``feqmod_spectra_cuda`` (csrc/feqmod.cu: ``fixed_kernel`` at fixed
+   nodes, ``remap_kernel`` with the 2+1D mT remap) for CUDA tensors,
+   ``feqmod_spectra_plain`` for CPU tensors.  The group partials are folded
+   by ``parallel.mesh.grouped_cell_reduce``.
+
+The plain version evaluates both chains (f_mod at the scaled nodes, the
+linearized fallback at the unscaled ones) at every point and selects per
+(cell, node), as the JAX "both" branch does.  Both evaluate |Minv p|^2 as
+the sum of the squares of x's three components, where the JAX package
+expands it into a quadratic form (qaa, qab, qbb per cell and qag, qbg, qgg
+per point): the two are equal, but the expansion cancels on cells near
+breakdown (|Minv| large, |Minv p| small), where in float32 it loses up to
+0.1 of x2 and moves spectra by 1e-3 of their maximum (testing.FEQMOD_EDGES
+"3d_df4_mixed", against float64).  JAX's ``routed_switch`` and
+``_routing_sort`` have no counterpart: they only choose which chains a
+chunk traces, and its three branches give the same values by construction
+(is3d_tpu/kernels/feqmod.py:606-629).  Where f_mod is exactly 0 (|x|^2
+or the exponential overflowed) the point emits exactly 0, also where
+p.dsigma overflowed (2+1D fixed nodes scaled by a large detA in float32),
+which the JAX package leaves as 0 inf = NaN.  The CUDA kernels branch per
+cell instead, the reference's own scalar semantics (emissionfunction_
+smooth_kernels.cpp:811-877): a breakdown cell evaluates only the fallback,
+and in 3+1D a cell with detA < 0.01 also takes it at the nodes where
+|y - eta| < detA.  The JAX Config keys feqmod_partition and
+feqmod_partition_min_cells are accepted and change nothing.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from dataclasses import dataclass
+
+import torch
+
+from ..units import CF_PREFACTOR, TWO_PI2_HBARC3
+from ..config import Config
+from ..data import SpeciesArrays
+from ..io.tables import MomentumGrid, laguerre_in_precision
+from ..io.deltaf import DeltafData
+from ..physics import lrf, thermal
+from .common import (surface_columns, prepare_cells, scaled_fermi_bose,
+                     fermi_bose, effective_chunk, CHUNK_ELEMENT_BUDGET)
+from .launch import (check_float, check_tensor, require_cuda, launch,
+                     split_to_fill)
+from .smooth import (ETA_REMAP_T_REF, MomentumConstants, df_switches,
+                     emission_terms, node_delta, momentum_constants,
+                     remap_scale, remap_node_table, REMAP_NODE_OPS)
+
+# per-cell scalar field order of the packed (C, NQ) matrix; the CUDA
+# header's `enum FqField` (csrc/feqmod.cuh) must list the same names in the
+# same order.  The fallback's fields keep smooth.FIELDS' names, so the
+# linear kinematics (smooth.emission_terms) read them as they are.
+FQ_FIELDS = (
+    # both chains
+    "tau", "eta", "dat", "dant", "dax", "day",
+    # the momentum transform: breakdown flag, detA, node scale (2+1D fixed
+    # nodes eta_scale, remap zscale, 3+1D 1), flow rapidity of the mod
+    # nodes, x = Minv p's coefficients, 1/T_mod, alphaB_mod
+    "bd", "detA", "scale", "yfm", "a0", "a1", "a2", "b0", "b1", "b2", "gx0",
+    "gx1", "gx2", "gy0", "gy1", "gy2", "invTm", "abm",
+    # the linearized fallback
+    "ut", "tun", "ux", "uy", "pitt", "pitx", "pity", "pitn", "pinn", "pixx",
+    "pixy", "pixn", "piyy", "piyn", "Vt", "Vx", "Vy", "Vn", "invT", "alphaB",
+    "ksh", "kF", "kG", "k3", "bulkPi", "benth", "kV", "dz", "dl", "yflow")
+NQ = len(FQ_FIELDS)
+FQ = {n: i for i, n in enumerate(FQ_FIELDS)}
+
+# 3+1D cells whose detA is below this take the fallback at the nodes where
+# |y - eta| < detA (JAX _chunk_contribution_feqmod's narrow-cell mask)
+NARROW_DETA = 0.01
+
+# launches of the CUDA kernels in this process: at fixed nodes
+# (fixed_kernel) and with the 2+1D mT remap (remap_kernel)
+LAUNCHES = 0
+REMAP_LAUNCHES = 0
+
+# The bound's yardstick, counted once from the formula at the main paths'
+# flags (shear + bulk, regulate and outflow on), an FMA as one operation,
+# factors of fewer indices hoisted as in kernels/smooth.py.  Per evaluation
+# (cell, node, species, momentum point), (FP32, SFU):
+#   f_mod:    x = Minv p = mT alpha(c,r) + gamma(c,m) 3 (alpha per (cell,
+#             node), gamma per (cell, point), shared by the species and
+#             nodes), |x|^2 3, saturation of NaN/-inf 1, max(., 0) and
+#             + m^2 2 | sqrt (SFU), the exponent 1 | exp (SFU), + sign 1 |
+#             1/(...) (SFU), x |renorm| 1, p.dsigma 1, the outflow select 1,
+#             x validity 1, the sum 1                           = (16, 3)
+#   fallback: u.p, pi:pp (3), V.p and p.dsigma as the linear kernels 6,
+#             exponent 2 | exp, + sign 1 | rcp, 1 - sign feq 1,
+#             1/u.p | rcp; df 3 unregrouped: shear 2, bulk 5, diff 3,
+#             the sum 2, x feqbar 1; clip 2, feq df + feq 1, select 1,
+#             x validity 1, the sum 1                           = (29, 3)
+#             df 4: shear 3, bulk 5 (its constant hoisted), sum 1, clip 2,
+#             feq df + feq 1, select 1, x validity 1, sum 1     = (24, 3)
+# The work depends on the data: a breakdown cell evaluates only the
+# fallback, a clean one only f_mod (the 3+1D narrow nodes take the
+# fallback), so a bound counts each kind of evaluation this run makes.
+MOD_OPS = (16, 3)
+FALLBACK_OPS = {3: (29, 3), 4: (24, 3)}
+# The 2+1D remap adds per (cell, node, species, pT), shared by the n_phi
+# angles: the mod node's exp 1 SFU and its reciprocal 1 SFU, e^delta =
+# e^y_flow e^(...) 1, p.dsigma's and x's node terms mT (h+ e^delta + h-
+# e^-delta) 2 each, 8; per angle x takes pT gamma1(c, phi) + alpha, as at
+# fixed nodes.  The fallback's node composites are smooth.REMAP_NODE_OPS.
+REMAP_MOD_NODE_OPS = (9, 2)
+
+
+def feqmod_formula_ops(df_mode: int, remap: bool, n_phi: int,
+                       fallback: bool) -> tuple[float, float]:
+    """(FP32, SFU) per evaluation of one chain (f_mod, or the fallback
+    with ``fallback``): the yardstick above plus, with the remap, the node
+    kinematics' share of one of n_phi points."""
+    if fallback:
+        fp32, sfu = FALLBACK_OPS[df_mode]
+        node = REMAP_NODE_OPS
+    else:
+        fp32, sfu = MOD_OPS
+        node = REMAP_MOD_NODE_OPS
+    if not remap:
+        return float(fp32), float(sfu)
+    return fp32 + node[0] / n_phi, sfu + node[1] / n_phi
+
+
+@dataclass(frozen=True)
+class FeqmodFlags:
+    df_mode: int
+    dimension: int
+    remap: bool
+    regulate: bool
+    outflow: bool
+    shear: bool
+    bulk: bool
+    diff: bool
+
+    @property
+    def switches(self) -> int:
+        """The fallback's terms as the kernels' bit mask: shear 1, bulk 2,
+        diffusion 4 (df 4's fallback has no diffusion term)."""
+        return (int(self.shear) | 2 * int(self.bulk)
+                | 4 * int(self.diff and self.df_mode == 3))
+
+
+def feqmod_flags(cfg: Config, grid: MomentumGrid) -> FeqmodFlags:
+    if cfg.df_mode not in (3, 4):
+        raise ValueError("smooth_spectra_feqmod handles df modes 3-4")
+    shear, bulk, diff = df_switches(cfg)
+    return FeqmodFlags(df_mode=int(cfg.df_mode), dimension=int(cfg.dimension),
+                       remap=bool(cfg.dimension == 2 and grid.eta_mT_rescale),
+                       regulate=bool(cfg.regulate_deltaf),
+                       outflow=bool(cfg.outflow), shear=shear, bulk=bulk,
+                       diff=diff)
+
+
+# ------------------------------------------------------ per-cell algebra
+
+def adjugate_sym(A):
+    Axx, Axy, Axz, Ayy, Ayz, Azz = A
+    adj_xx = Ayy * Azz - Ayz * Ayz
+    adj_xy = Axz * Ayz - Axy * Azz
+    adj_xz = Axy * Ayz - Ayy * Axz
+    adj_yy = Axx * Azz - Axz * Axz
+    adj_yz = Axy * Axz - Axx * Ayz
+    adj_zz = Axx * Ayy - Axy * Axy
+    det = Axx * adj_xx + Axy * adj_xy + Axz * adj_xz
+    return (adj_xx, adj_xy, adj_xz, adj_yy, adj_yz, adj_zz), det
+
+
+def sym_to_gen(S):
+    """Symmetric 6-tuple (xx, xy, xz, yy, yz, zz) -> row-major 9-tuple."""
+    xx, xy, xz, yy, yz, zz = S
+    return (xx, xy, xz, xy, yy, yz, xz, yz, zz)
+
+
+def gen_matmul(P, Q):
+    """Row-major 9-tuple 3x3 product P @ Q, broadcastable entries."""
+    p11, p12, p13, p21, p22, p23, p31, p32, p33 = P
+    q11, q12, q13, q21, q22, q23, q31, q32, q33 = Q
+    return (p11 * q11 + p12 * q21 + p13 * q31,
+            p11 * q12 + p12 * q22 + p13 * q32,
+            p11 * q13 + p12 * q23 + p13 * q33,
+            p21 * q11 + p22 * q21 + p23 * q31,
+            p21 * q12 + p22 * q22 + p23 * q32,
+            p21 * q13 + p22 * q23 + p23 * q33,
+            p31 * q11 + p32 * q21 + p33 * q31,
+            p31 * q12 + p32 * q22 + p33 * q32,
+            p31 * q13 + p32 * q23 + p33 * q33)
+
+
+def gen_matvec(M, v):
+    m11, m12, m13, m21, m22, m23, m31, m32, m33 = M
+    vx, vy, vz = v
+    return (m11 * vx + m12 * vy + m13 * vz,
+            m21 * vx + m22 * vy + m23 * vz,
+            m31 * vx + m32 * vy + m33 * vz)
+
+
+def refined_inverse(A_sym, B_sym):
+    """The fixed 2-pass residual refinement of x = A^-1 p folded into one
+    per-cell operator: with B the adjugate inverse and e = I - B A,
+    x2 = (I + e + e^2) B p.  Cells where the series does not contract
+    (Frobenius^2 of e at least 0.25: detA near the breakdown threshold, or
+    indefinite transforms) keep the plain adjugate inverse, exact in exact
+    arithmetic; they are breakdown cells or masked downstream anyway."""
+    B = sym_to_gen(B_sym)
+    BA = gen_matmul(B, sym_to_gen(A_sym))
+    one = 1.0 + 0.0 * BA[0]
+    zero = 0.0 * BA[0]
+    eye = (one, zero, zero, zero, one, zero, zero, zero, one)
+    e = tuple(i - ba for i, ba in zip(eye, BA))
+    EB = gen_matmul(e, B)
+    EEB = gen_matmul(e, EB)
+    ok = sum(x * x for x in e) < 0.25
+    return tuple(torch.where(ok, b + eb + eeb, b)
+                 for b, eb, eeb in zip(B, EB, EEB))
+
+
+def mode3_renorm(c: dict, species: SpeciesArrays, laguerre: dict
+                 ) -> torch.Tensor:
+    """n_linear / n_mod per (cell, species), (C, S) (reference:
+    emissionfunction_smooth_kernels.cpp:744-765), the cells taken in
+    chunks that keep each (chunk, S, nodes) quadrature block within
+    common.CHUNK_ELEMENT_BUDGET."""
+    C, S = c["T"].shape[0], species.mass.shape[0]
+    n_q = laguerre[1][0].shape[0]
+    chunk = max(1, CHUNK_ELEMENT_BUDGET // max(S * n_q, 1))
+    return torch.cat([_mode3_renorm_chunk(
+        {k: c[k][c0:c0 + chunk] for k in ("T", "bulkPi", "T_mod",
+                                          "alphaB", "alphaB_mod")},
+        {k: getattr(c["df"], k)[c0:c0 + chunk]
+         for k in ("betabulk", "G", "F")}, species, laguerre)
+        for c0 in range(0, max(C, 1), chunk)])[:C]
+
+
+def _mode3_renorm_chunk(c, df, species, laguerre):
+    r1, w1 = laguerre[1]
+    r2, w2 = laguerre[2]
+    T, bulkPi = c["T"], c["bulkPi"]
+    T_mod = c["T_mod"]
+    alphaB = c["alphaB"][:, None]
+    alphaB_mod = c["alphaB_mod"][:, None]
+
+    mbar = species.mass[None, :] / T[:, None]           # (C,S)
+    mbar_mod = species.mass[None, :] / T_mod[:, None]
+    baryon = species.baryon[None, :]
+    sign = species.sign[None, :]
+    deg = species.degeneracy[None, :]
+
+    neq_fact = (T**3 / TWO_PI2_HBARC3)[:, None]
+    J20_fact = (T**4 / TWO_PI2_HBARC3)[:, None]
+    nmod_fact = (T_mod**3 / TWO_PI2_HBARC3)[:, None]
+    dn_fact = (bulkPi / df["betabulk"])[:, None]
+
+    gt = lambda f, r, w, mb, aB: thermal.gauss_thermal(f, r, w, mb, aB,
+                                                       baryon, sign)
+    neq = neq_fact * deg * gt(thermal.neq_int, r1, w1, mbar, alphaB)
+    N10 = baryon * neq_fact * deg * gt(thermal.J10_int, r1, w1, mbar, alphaB)
+    J20 = J20_fact * deg * gt(thermal.J20_int, r2, w2, mbar, alphaB)
+    n_linear = neq + dn_fact * (neq + N10 * df["G"][:, None]
+                                + J20 * (df["F"] / T / T)[:, None])
+    n_mod = nmod_fact * deg * gt(thermal.neq_int, r1, w1, mbar_mod,
+                                 alphaB_mod)
+    return n_linear / n_mod
+
+
+def mode3_breakdown(c: dict, laguerre: dict, cfg: Config) -> torch.Tensor:
+    """Per-cell breakdown flag: detA <= deta_min or a negative linearized
+    pi0 density (reference: emissionfunction.cpp:109-150 with fast = 0)."""
+    r1, w1 = laguerre[1]
+    r2, w2 = laguerre[2]
+    T, bulkPi, df = c["T"], c["bulkPi"], c["df"]
+    mbar_pi = cfg.mass_pion0 / T
+    zero = torch.zeros_like(T)
+    neq_fact = T**3 / TWO_PI2_HBARC3
+    J20_fact = T * neq_fact
+    neq_pi = neq_fact * thermal.gauss_thermal(
+        thermal.neq_int, r1, w1, mbar_pi, zero, zero, -torch.ones_like(T))
+    J20_pi = J20_fact * thermal.gauss_thermal(
+        thermal.J20_int, r2, w2, mbar_pi, zero, zero, -torch.ones_like(T))
+    dn_pi = bulkPi * (neq_pi + J20_pi * df.F / T / T) / df.betabulk
+    pion_negative = (neq_pi + dn_pi) < 0.0
+    return (c["detA"] <= cfg.deta_min) | pion_negative
+
+
+def feqmod_transform(c: dict, laguerre: dict, cfg: Config) -> dict:
+    """Per-cell momentum transform and breakdown flag: the LRF basis, A =
+    (1 + bulk_mod) 1 + shear_mod pi_LRF, its adjugate inverse, detA,
+    T_mod / alphaB_mod."""
+    df = c["df"]
+    tau = c["tau"]
+    basis = lrf.milne_basis(c["ut"], c["ux"], c["uy"], c["un"], tau)
+    c["basis"] = basis
+    pixx_L, pixy_L, pixz_L, piyy_L, piyz_L, pizz_L = lrf.boost_pimunu_to_lrf(
+        basis, c["pitt"], c["pitx"], c["pity"], c["pitn"], c["pixx"],
+        c["pixy"], c["pixn"], c["piyy"], c["piyn"], c["pinn"], tau)
+
+    if cfg.df_mode == 3:
+        c["T_mod"] = c["T"] + c["bulkPi"] * df.F / df.betabulk
+        c["alphaB_mod"] = c["alphaB"] + c["bulkPi"] * df.G / df.betabulk
+        bulk_mod = c["bulkPi"] / (3.0 * df.betabulk)
+    else:
+        c["T_mod"] = c["T"]
+        c["alphaB_mod"] = c["alphaB"]
+        bulk_mod = df.lam
+    shear_mod = 0.5 / df.betapi
+
+    A = (1.0 + pixx_L * shear_mod + bulk_mod,
+         pixy_L * shear_mod,
+         pixz_L * shear_mod,
+         1.0 + piyy_L * shear_mod + bulk_mod,
+         piyz_L * shear_mod,
+         1.0 + pizz_L * shear_mod + bulk_mod)
+    adj, detA = adjugate_sym(A)
+    c["A"] = A
+    c["detA"] = detA
+    safe_det = torch.where(torch.abs(detA) < 1e-300,
+                           torch.ones_like(detA), detA)
+    c["A_inv"] = tuple(a / safe_det for a in adj)
+    if cfg.df_mode == 3:
+        c["breakdown"] = mode3_breakdown(c, laguerre, cfg)
+    else:
+        # mode 4 falls back only where the modified distribution stops
+        # being defined (A no longer positive definite); the JAX package's
+        # deliberate divergence from the reference
+        c["breakdown"] = detA <= cfg.deta_min
+    return c
+
+
+def prepare_feqmod_cells(c: dict, species: SpeciesArrays, laguerre: dict,
+                         cfg: Config, eta_rescaled: bool = False) -> dict:
+    """Extend ``prepare_cells``' bundle with the feqmod per-cell data:
+    Minv, renorm (C, S), renorm_ok and, in 2+1D, eta_scale."""
+    c = feqmod_transform(c, laguerre, cfg)
+    df = c["df"]
+    detA = c["detA"]
+    c["Minv"] = refined_inverse(c["A"], c["A_inv"])
+    C, S = detA.shape[0], species.mass.shape[0]
+    if cfg.include_bulk_deltaf:
+        if cfg.df_mode == 3:
+            renorm = mode3_renorm(c, species, laguerre)
+        else:
+            renorm = df.z[:, None].expand(C, S)
+    else:
+        renorm = detA.new_ones((C, S))
+    finite = torch.isfinite(renorm)
+    if cfg.dimension == 3 or eta_rescaled:
+        # the explicit 1/detA momentum-space jacobian (with 2+1D fixed
+        # nodes the eta -> detA eta substitution supplies it instead)
+        renorm = renorm / detA[:, None]
+    c["renorm"] = torch.where(finite, renorm, torch.zeros_like(renorm))
+    c["renorm_ok"] = finite
+    if cfg.dimension == 2:
+        # the 2+1D eta -> detA eta substitution; the reference spectra
+        # kernel skips it for detA >= 1 (reference_compat_feqmod_eta)
+        use = detA > cfg.deta_min
+        if cfg.reference_compat_feqmod_eta:
+            use = use & (detA < 1.0)
+        c["eta_scale"] = torch.where(use, detA, torch.ones_like(detA))
+    return c
+
+
+def _zscale(c: dict) -> torch.Tensor:
+    """The 2+1D remap's per-cell longitudinal compression of the f_mod
+    nodes, A_zz sqrt(T_mod / T), sanitized: A_zz <= 1e-3 (A indefinite)
+    reverts to the shared map, NaN / inf go to 1, clipped to [1e-3, 10]."""
+    Azz = c["A"][5]
+    Azz = torch.where(Azz > 1e-3, Azz, torch.ones_like(Azz))
+    z = Azz * torch.sqrt(torch.clamp(c["T_mod"], min=1e-6) / c["T"])
+    z = torch.nan_to_num(z, nan=1.0, posinf=1.0, neginf=1.0)
+    return torch.clamp(z, 1e-3, 10.0)
+
+
+def pack_feqmod_cells(c: dict, cfg: Config, flags: FeqmodFlags
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(x (C, NQ), rn (C, S), wcs (C, S)) from ``prepare_feqmod_cells``'
+    output: the kernels' inputs and the plain version's."""
+    df, T, tau = c["df"], c["T"], c["tau"]
+    z = torch.zeros_like(T)
+    b = c["basis"]
+    M = c["Minv"]
+    Ma = gen_matvec(M, (-b.Xt, z, -b.Zt))
+    Mb = gen_matvec(M, (b.Xn * tau, z, b.Zn * tau))
+    # Minv (E2, F2, 0) = px Gx + py Gy with E2 = Xx px + Xy py, F2 = Yx px
+    # + Yy py (the zero component kept: a non-finite Minv poisons x as in
+    # the JAX package, and the saturation then gives f_mod = 0)
+    Gx = gen_matvec(M, (b.Xx, b.Yx, z))
+    Gy = gen_matvec(M, (b.Xy, b.Yy, z))
+    if flags.remap:
+        scale = _zscale(c)
+    elif flags.dimension == 2:
+        scale = c["eta_scale"]
+    else:
+        scale = torch.ones_like(T)
+    u0p = torch.sqrt(1.0 + c["ux"] ** 2 + c["uy"] ** 2)
+    vals = dict(c)
+    vals.update(
+        eta=c["eta"] if flags.dimension == 3 else z, dant=c["dan"] / tau,
+        bd=c["breakdown"].to(T.dtype), scale=scale,
+        yfm=lrf.flow_rapidity(tau, c["ut"], c["un"]),
+        **{f"{n}{i}": v[i] for n, v in (("a", Ma), ("b", Mb), ("gx", Gx),
+                                        ("gy", Gy)) for i in range(3)},
+        invTm=1.0 / c["T_mod"], abm=c["alphaB_mod"],
+        tun=tau * c["un"], invT=1.0 / T,
+        ksh=0.5 / (df.betapi * T), benth=c["baryon_enthalpy_ratio"],
+        yflow=torch.asinh(tau * c["un"] / u0p))
+    if flags.df_mode == 3:
+        vals.update(kF=df.F / (T ** 2 * df.betabulk), kG=df.G / df.betabulk,
+                    k3=1.0 / (3.0 * T * df.betabulk), kV=1.0 / df.betaV,
+                    dz=z, dl=z)
+    else:
+        vals.update(kF=z, kG=z, k3=z, kV=z, dz=df.delta_z,
+                    dl=df.delta_lambda)
+    x = torch.stack([vals[name] for name in FQ_FIELDS], dim=1).contiguous()
+    rn = torch.abs(c["renorm"]).contiguous()
+    wcs = (c["valid"][:, None] & c["renorm_ok"]).to(T.dtype).contiguous()
+    return x, rn, wcs
+
+
+# ------------------------------------------------------------ plain version
+
+def fallback_f(g, sp, pdotu, pipp, Vp, flags: FeqmodFlags):
+    """The linearized fallback f_eq (1 + df) (JAX _chunk_contribution_
+    feqmod): df 3 the Chapman-Enskog form, deliberately not regrouped (a
+    clip-regulated +-inf must not become 0 inf = NaN on degenerate tables,
+    betaV = 0 with baryon number 0); df 4 Jonah's, without the chemical
+    potential.  ``g`` the per-cell fields, ``sp`` the species'."""
+    sign, bary, m2 = sp("sign"), sp("baryon"), sp("m2")
+    arg = pdotu * g("invT")
+    if flags.df_mode == 3:
+        arg = arg - bary * g("alphaB")
+    feq = fermi_bose(arg, sign)
+    feqbar = 1.0 - sign * feq
+    r = 1.0 / pdotu
+    terms = []
+    if flags.df_mode == 3:
+        if flags.shear:
+            terms.append(g("ksh") * pipp * r)
+        if flags.bulk:
+            terms.append((g("kF") * pdotu + g("kG") * bary
+                          + g("k3") * (pdotu - m2 * r)) * g("bulkPi"))
+        if flags.diff:
+            terms.append((g("benth") - bary * r) * Vp * g("kV"))
+        out_df = feqbar * sum(terms[1:], terms[0]) if terms else None
+    else:
+        if flags.shear:
+            terms.append(feqbar * g("ksh") * pipp * r)
+        if flags.bulk:
+            terms.append(g("dz") - 3.0 * g("dl")
+                         + feqbar * g("dl") * (pdotu - m2 * r) * g("invT"))
+        out_df = sum(terms[1:], terms[0]) if terms else None
+    if out_df is None:
+        return feq
+    if flags.regulate:
+        out_df = torch.clamp(out_df, -1.0, 1.0)
+    return feq * out_df + feq
+
+
+def feqmod_block(x: torch.Tensor, rn: torch.Tensor, wcs: torch.Tensor,
+                 mom: MomentumConstants, flags: FeqmodFlags) -> torch.Tensor:
+    """p.dsigma f of a chunk of packed cells at every (cell, node, species,
+    pT, phi): the (c, R, S, P, F) block with validity and the renorm mask
+    applied, without node weights, prefactor or degeneracy (the port of
+    _chunk_contribution_feqmod's "both" branch; with reduce=False, what the
+    dN/dX reduction takes)."""
+    S, P, F = mom.mass.shape[0], mom.pT.shape[0], mom.n_phi
+    R = mom.nodes.shape[0]
+    g = lambda name: x[:, FQ[name]].view(-1, 1, 1, 1, 1)
+    spv = dict(sign=mom.sign, baryon=mom.baryon, m2=mom.mass ** 2)
+    sp = lambda name: spv[name].view(1, 1, S, 1, 1)
+    cs = lambda t: t.view(-1, 1, S, 1, 1)
+    mT = torch.sqrt(mom.mass[:, None] ** 2 + mom.pT[None, :] ** 2)
+    mT5 = mT.view(1, 1, S, P, 1)
+    px5 = mom.px.view(1, 1, 1, P, F)
+    py5 = mom.py.view(1, 1, 1, P, F)
+    nodes = mom.nodes.view(1, R, 1, 1, 1)
+
+    # the fallback at the unscaled nodes (the linear kernels' kinematics)
+    delta_u = node_delta(g, mom, flags)
+    pds_u, pdotu, pipp, Vp = emission_terms(g, mom, delta_u)
+    f_fb = fallback_f(g, sp, pdotu, pipp, Vp, flags)
+
+    # f_mod at the scaled nodes: x = Minv p = mT (a ch + b sh) + px gx
+    # + py gy, |x|^2 its sum of squares
+    W1 = g("dax") * px5 + g("day") * py5
+    abg = [(g(f"a{i}"), g(f"b{i}"), g(f"gx{i}") * px5 + g(f"gy{i}") * py5)
+           for i in range(3)]
+    if flags.remap:
+        # f_mod's nodes y_flow + zscale s(mT) eta_r: one exp, ch and sh
+        # refactored into e^delta and e^-delta
+        s5 = remap_scale(mom).view(1, 1, S, P, 1)
+        eq = torch.exp(g("yfm") + g("scale") * nodes * s5)
+        rq = 1.0 / eq
+        pds_s = (mT5 * (0.5 * (g("dat") + g("dant")) * eq
+                        + 0.5 * (g("dat") - g("dant")) * rq) + W1)
+        xs = [mT5 * (0.5 * (a + b) * eq + 0.5 * (a - b) * rq) + gam
+              for a, b, gam in abg]
+    else:
+        delta_s = (delta_u if flags.dimension == 3
+                   else -g("scale") * nodes)
+        ch, sh = torch.cosh(delta_s), torch.sinh(delta_s)
+        pds_s = mT5 * (ch * g("dat") + sh * g("dant")) + W1
+        xs = [mT5 * (ch * a + sh * b) + gam for a, b, gam in abg]
+    x2 = xs[0] * xs[0] + xs[1] * xs[1] + xs[2] * xs[2]
+    # saturate: NaN and +-inf mean |x|^2 overflowed, so E_mod = inf and
+    # f_mod = 0 exactly
+    x2 = torch.nan_to_num(x2, nan=math.inf, posinf=math.inf,
+                          neginf=math.inf)
+    E_mod = torch.sqrt(sp("m2") + torch.clamp(x2, min=0.0))
+    f_mod = scaled_fermi_bose(cs(rn), E_mod * g("invTm")
+                              - sp("baryon") * g("abm"), sp("sign"))
+    if flags.remap:
+        f_mod = f_mod * g("scale")
+
+    bd = g("bd") > 0
+    if flags.dimension == 3:
+        detA = g("detA")
+        bd = bd | ((detA < NARROW_DETA) & (torch.abs(delta_u) < detA))
+    pds = torch.where(bd, pds_u, pds_s)
+    contrib = pds * torch.where(bd, f_fb, f_mod)
+    zero = torch.zeros_like(contrib)
+    # an f_mod of exactly 0 emits nothing, also where p.dsigma overflowed
+    # (2+1D fixed nodes at a large eta_scale: cosh is inf in float32), where
+    # the JAX package's 0 inf is NaN
+    contrib = torch.where(~bd & (f_mod == 0), zero, contrib)
+    if flags.outflow:
+        contrib = torch.where(pds > 0.0, contrib, zero)
+    return contrib * cs(wcs)
+
+
+def feqmod_spectra_plain(x: torch.Tensor, rn: torch.Tensor,
+                         wcs: torch.Tensor, mom: MomentumConstants,
+                         flags: FeqmodFlags,
+                         cell_chunk: int = 65536) -> torch.Tensor:
+    """Plain torch version of the kernels on the same inputs:
+    (S, n_pT, n_phi, n_y_out), cells reduced in chunks whose block (of
+    about 4 live copies) stays within common.CHUNK_ELEMENT_BUDGET."""
+    S, P, F = mom.mass.shape[0], mom.pT.shape[0], mom.n_phi
+    R = mom.nodes.shape[0]
+    C = x.shape[0]
+    chunk = effective_chunk(cell_chunk, C, 4 * R * S * P * F)
+    acc = None
+    for c0 in range(0, max(C, 1), chunk):
+        block = feqmod_block(x[c0:c0 + chunk], rn[c0:c0 + chunk],
+                             wcs[c0:c0 + chunk], mom, flags)
+        if flags.dimension == 3:
+            part = block.sum(0)
+        else:
+            part = (block * mom.weights.view(1, R, 1, 1, 1)).sum((0, 1))
+        acc = part if acc is None else acc.add_(part)
+    if flags.dimension == 3:
+        out = acc.permute(1, 2, 3, 0)
+    else:
+        if flags.remap:
+            # jacobian of the eta -> shift + s(mT) eta substitution
+            acc = acc * remap_scale(mom)[:, :, None]
+        out = acc[..., None]
+    deg = mom.degeneracy.view(S, 1, 1, 1)
+    return (CF_PREFACTOR * deg * out).contiguous()
+
+
+# ------------------------------------------------------------- CUDA kernel
+
+def _library():
+    from ..native.build import cuda_library
+    lib = cuda_library("feqmod")
+    if not getattr(lib, "_is3d_bound", False):
+        vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+        for fn in (lib.is3d_feqmod_grid_f32, lib.is3d_feqmod_grid_f64):
+            fn.restype = ci
+            fn.argtypes = [ci] * 6 + [ctypes.POINTER(ci)]  # S P F R dim remap
+        for fn in (lib.is3d_feqmod_f32, lib.is3d_feqmod_f64):
+            fn.restype = ci
+            fn.argtypes = [vp, ci, ci, vp, vp,         # cells, C, nq, rn, wcs
+                           vp, vp, vp, vp, ci,         # species, n_species
+                           vp, vp, vp, ci, ci,         # pT px py n_pT n_phi
+                           vp, vp, ci,                 # nodes, weights, R
+                           ci, ci, ci, ci, ci,         # df, dim, sw, reg, out
+                           cd, ci, ci, vp,             # prefactor, per, parts
+                           vp, vp]                     # out, stream
+        for fn in (lib.is3d_feqmod_remap_f32, lib.is3d_feqmod_remap_f64):
+            fn.restype = ci
+            fn.argtypes = [vp, ci, ci, vp, vp,         # cells, C, nq, rn, wcs
+                           vp, vp, vp, vp, ci,         # species, n_species
+                           vp, ci, vp, vp, ci,         # pT, n_pT, cos, sin, F
+                           vp, vp, vp, ci,             # table, nodes, wts, R
+                           ci, ci, ci, ci,             # df, sw, reg, outflow
+                           cd, cd, ci, ci, vp,         # CF T_ref per parts
+                           vp, vp]                     # out, stream
+        lib.is3d_cuda_error_string.restype = ctypes.c_char_p
+        lib.is3d_cuda_error_string.argtypes = [ci]
+        lib._is3d_bound = True
+    return lib
+
+
+@dataclass(frozen=True)
+class FeqmodGrid:
+    """A feqmod kernel's grid for one shape on one card, as the C side
+    (csrc/feqmod.cu:feqmod_grid, the owner of the blocking) reports it."""
+
+    blocks: int        # blocks for each range of cells
+    slots: int         # blocks the card holds at once
+    parts: int         # partial sums for each range of cells
+    tile: int          # cells per shared-memory tile
+    max_split: int     # most ranges of cells
+    phi_width: int     # remap: angles per thread (its instantiation)
+
+
+def feqmod_grid(lib, device: torch.device, f64: bool, n_species: int,
+                n_pT: int, n_phi: int, n_nodes: int, dimension: int,
+                remap: bool) -> FeqmodGrid:
+    out = (ctypes.c_int * 6)()
+    fn = lib.is3d_feqmod_grid_f64 if f64 else lib.is3d_feqmod_grid_f32
+    with torch.cuda.device(device):
+        rc = fn(n_species, n_pT, n_phi, n_nodes, dimension, int(remap), out)
+    if rc != 0:
+        raise RuntimeError("feqmod: no launch configuration: "
+                           f"{lib.is3d_cuda_error_string(rc).decode()}")
+    return FeqmodGrid(*out)
+
+
+def cell_split(n_cells: int, grid: FeqmodGrid) -> tuple[int, int]:
+    """(cells per split, splits): whole tiles per split, the fewest splits
+    that fill the card's waves (launch.split_to_fill)."""
+    n_tiles = -(-max(n_cells, 1) // grid.tile)
+    per, n_split = split_to_fill(n_tiles, max(grid.blocks, 1), grid.slots,
+                                 grid.max_split)
+    return per * grid.tile, n_split
+
+
+def feqmod_spectra_cuda(x: torch.Tensor, rn: torch.Tensor, wcs: torch.Tensor,
+                        mom: MomentumConstants, flags: FeqmodFlags,
+                        table: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch the hand-written kernel (csrc/feqmod.cu) on the current
+    stream: (S, n_pT, n_phi, n_y_out) in the cells' dtype.  With
+    ``flags.remap``, ``table`` is ``smooth.remap_node_table(mom)`` (the
+    fallback's shared nodes), built here if not given."""
+    global LAUNCHES, REMAP_LAUNCHES
+    check_float("feqmod_spectra_cuda", x)
+    C = x.shape[0]
+    S, P, F = mom.mass.shape[0], mom.pT.shape[0], mom.n_phi
+    R = mom.nodes.shape[0]
+    check_tensor("cells", x, (C, NQ), x)
+    check_tensor("rn", rn, (C, S), x)
+    check_tensor("wcs", wcs, (C, S), x)
+    for name, n in dict(mass=S, sign=S, baryon=S, degeneracy=S, pT=P,
+                        px=P * F, py=P * F, nodes=R, weights=R, cos_phi=F,
+                        sin_phi=F).items():
+        check_tensor(f"momentum constant {name}", getattr(mom, name), (n,),
+                     x)
+    if flags.remap and table is not None:
+        check_tensor("remap node table", table, (S, P, R, 2), x)
+    require_cuda("feqmod_spectra_cuda", x)
+    lib = _library()
+    f64 = x.dtype == torch.float64
+    grid = feqmod_grid(lib, x.device, f64, S, P, F, R, flags.dimension,
+                       flags.remap)
+    per, n_split = cell_split(C, grid)
+    n_parts = n_split * grid.parts
+    n_out = R if flags.dimension == 3 else 1
+    out = x.new_empty((S, P, F, n_out))
+    partial = x.new_empty((n_parts, S, P, F, n_out))
+    species = (mom.mass.data_ptr(), mom.sign.data_ptr(),
+               mom.baryon.data_ptr(), mom.degeneracy.data_ptr(), S)
+    common = (x.data_ptr(), C, NQ, rn.data_ptr(), wcs.data_ptr(), *species)
+    sw = (flags.df_mode, flags.switches, int(flags.regulate),
+          int(flags.outflow))
+    if flags.remap:
+        if table is None:
+            table = remap_node_table(mom)
+        launch(lib, "feqmod remap",
+               lib.is3d_feqmod_remap_f64 if f64 else lib.is3d_feqmod_remap_f32,
+               x.device, *common, mom.pT.data_ptr(), P,
+               mom.cos_phi.data_ptr(), mom.sin_phi.data_ptr(), F,
+               table.data_ptr(), mom.nodes.data_ptr(),
+               mom.weights.data_ptr(), R, *sw, CF_PREFACTOR, ETA_REMAP_T_REF,
+               per, n_parts, partial.data_ptr(), out.data_ptr())
+        REMAP_LAUNCHES += 1
+        return out
+    launch(lib, "feqmod", lib.is3d_feqmod_f64 if f64 else lib.is3d_feqmod_f32,
+           x.device, *common, mom.pT.data_ptr(), mom.px.data_ptr(),
+           mom.py.data_ptr(), P, F, mom.nodes.data_ptr(),
+           mom.weights.data_ptr(), R, flags.df_mode, flags.dimension,
+           *sw[1:], CF_PREFACTOR, per, n_parts, partial.data_ptr(),
+           out.data_ptr())
+    LAUNCHES += 1
+    return out
+
+
+# ------------------------------------------------------------ entry point
+
+def group_inputs(cols: dict, species: SpeciesArrays, laguerre: dict,
+                 df_data: DeltafData, cfg: Config, flags: FeqmodFlags):
+    """(x, rn, wcs) of one group of raw cell columns."""
+    c = prepare_cells(cols, cfg, df_data)
+    c = prepare_feqmod_cells(c, species, laguerre, cfg,
+                             eta_rescaled=flags.remap)
+    return pack_feqmod_cells(c, cfg, flags)
+
+
+def _group_spectra(cols: dict, species: SpeciesArrays, mom: MomentumConstants,
+                   flags: FeqmodFlags, laguerre: dict, df_data: DeltafData,
+                   table: torch.Tensor | None, cfg: Config) -> torch.Tensor:
+    x, rn, wcs = group_inputs(cols, species, laguerre, df_data, cfg, flags)
+    if x.device.type == "cuda":
+        return feqmod_spectra_cuda(x, rn, wcs, mom, flags, table)
+    if x.device.type == "cpu":
+        return feqmod_spectra_plain(x, rn, wcs, mom, flags, cfg.cell_chunk)
+    raise ValueError(f"no feqmod spectra path for device {x.device}")
+
+
+def smooth_spectra_feqmod(surface, species: SpeciesArrays, grid: MomentumGrid,
+                          df_data: DeltafData, cfg: Config,
+                          laguerre: dict | None = None) -> torch.Tensor:
+    """dN/(pT dpT dphi dy) with modified equilibrium df (modes 3-4), shape
+    (S, n_pT, n_phi, n_y_out), on the surface's device.
+
+    The cell reduction runs through the canonical group tree
+    (parallel/mesh.grouped_cell_reduce): one kernel launch per group,
+    partials folded in group order.  The Gauss-Laguerre table (default
+    32 nodes, alphas 1 and 2) is replicated to every group like df_data,
+    in the surface's precision."""
+    from ..parallel.mesh import grouped_cell_reduce
+    flags = feqmod_flags(cfg, grid)
+    cols = surface_columns(surface, cfg)
+    dev, dt = cols["tau"].device, cols["tau"].dtype
+    laguerre = laguerre_in_precision(laguerre, dt, dev)
+    mom = momentum_constants(species, grid, cfg.dimension)
+    # the remap kernel's fallback node table, once for every group
+    table = (remap_node_table(mom)
+             if flags.remap and dev.type == "cuda" else None)
+    return grouped_cell_reduce(
+        lambda c, sp, m, fl, lag, d, t: _group_spectra(c, sp, m, fl, lag, d,
+                                                       t, cfg),
+        cols, (species, mom, flags, laguerre, df_data, table), cfg)

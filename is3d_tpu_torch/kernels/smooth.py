@@ -249,29 +249,29 @@ def pack_cells(c: dict, cfg: Config) -> torch.Tensor:
 
 # ------------------------------------------------------------ plain version
 
-def plain_block(x: torch.Tensor, mom: MomentumConstants,
-                flags: SpectraFlags) -> torch.Tensor:
-    """p.dsigma f_eq (1 + df) of a chunk of packed cells at every (cell,
-    node, species, pT, phi): the (c, R, S, P, F) block, without node
-    weights, prefactor or degeneracy (the port of _chunk_contribution's
-    reduce=False block)."""
+def node_delta(g, mom: MomentumConstants, flags: SpectraFlags):
+    """Delta = y - eta of the plain block at every (cell, node[, species,
+    pT]): 3+1D y_r - eta_c, 2+1D -eta_r, with the 2+1D remap y_flow(cell) -
+    s(mT) eta_r.  ``g(name)`` is a per-cell field shaped (c, 1, 1, 1, 1)."""
+    S, P = mom.mass.shape[0], mom.pT.shape[0]
+    nodes = mom.nodes.view(1, -1, 1, 1, 1)
+    if flags.remap:
+        return g("yflow") - remap_scale(mom).view(1, 1, S, P, 1) * nodes
+    if flags.dimension == 3:
+        return nodes - g("eta")
+    return -nodes
+
+
+def emission_terms(g, mom: MomentumConstants, delta: torch.Tensor):
+    """(p.dsigma, u.p, pi:pp, V.p) at every (cell, node, species, pT, phi)
+    for the rapidity differences ``delta`` (node_delta's shape), from the
+    per-cell fields ``g(name)`` of FIELDS' names (the linear-df kinematics
+    the feqmod fallback shares)."""
     S, P, F = mom.mass.shape[0], mom.pT.shape[0], mom.n_phi
-    R = mom.nodes.shape[0]
-    g = lambda name: x[:, IDX[name]].view(-1, 1, 1, 1, 1)
     mT = torch.sqrt(mom.mass[:, None] ** 2 + mom.pT[None, :] ** 2)
     mT5 = mT.view(1, 1, S, P, 1)
     px5 = mom.px.view(1, 1, 1, P, F)
     py5 = mom.py.view(1, 1, 1, P, F)
-    sp = lambda v: v.view(1, 1, S, 1, 1)
-    sign, bary, m2 = sp(mom.sign), sp(mom.baryon), sp(mom.mass ** 2)
-    nodes = mom.nodes.view(1, R, 1, 1, 1)
-
-    if flags.remap:
-        delta = g("yflow") - remap_scale(mom).view(1, 1, S, P, 1) * nodes
-    elif flags.dimension == 3:
-        delta = nodes - g("eta")
-    else:
-        delta = -nodes
     ch, sh = torch.cosh(delta), torch.sinh(delta)
     t_sh = sh * g("tau")
     A1 = ch * g("dat") + sh * g("dant")
@@ -291,6 +291,20 @@ def plain_block(x: torch.Tensor, mom: MomentumConstants,
     pdotu = mT5 * B1 - W2
     pipp = mT5 * mT5 * C1 + mT5 * px5 * C2 + mT5 * py5 * C3 + C4
     Vp = mT5 * D1 - D2
+    return pds, pdotu, pipp, Vp
+
+
+def plain_block(x: torch.Tensor, mom: MomentumConstants,
+                flags: SpectraFlags) -> torch.Tensor:
+    """p.dsigma f_eq (1 + df) of a chunk of packed cells at every (cell,
+    node, species, pT, phi): the (c, R, S, P, F) block, without node
+    weights, prefactor or degeneracy (the port of _chunk_contribution's
+    reduce=False block)."""
+    S = mom.mass.shape[0]
+    g = lambda name: x[:, IDX[name]].view(-1, 1, 1, 1, 1)
+    sp = lambda v: v.view(1, 1, S, 1, 1)
+    sign, bary, m2 = sp(mom.sign), sp(mom.baryon), sp(mom.mass ** 2)
+    pds, pdotu, pipp, Vp = emission_terms(g, mom, node_delta(g, mom, flags))
 
     feq = fermi_bose(pdotu * g("invT") - bary * g("alphaB"), sign)
     feqbar = 1.0 - sign * feq

@@ -60,11 +60,14 @@ def synthetic_species(n_species: int = 11, dtype=torch.float64,
 
 
 def synthetic_surface_cells(n_cells: int, dimension: int = 2,
-                            seed: int = 0) -> dict:
-    """Random but physical freeze-out cells (numpy dict of columns)."""
+                            seed: int = 0, scale_bulk: float = 1.0) -> dict:
+    """Random but physical freeze-out cells (numpy dict of columns).
+    ``scale_bulk`` multiplies bulkPi: the modified equilibrium df (df 3-4)
+    breaks down where bulk (and shear) are strong for the coefficient
+    tables (FEQMOD_EDGES)."""
     rng = np.random.default_rng(seed)
     n = n_cells
-    return dict(
+    cells = dict(
         tau=rng.uniform(1.0, 10.0, n),
         x=rng.uniform(-8, 8, n), y=rng.uniform(-8, 8, n),
         eta=(rng.uniform(-3, 3, n) if dimension == 3 else np.zeros(n)),
@@ -82,6 +85,8 @@ def synthetic_surface_cells(n_cells: int, dimension: int = 2,
         muB=np.zeros(n), nB=np.zeros(n),
         Vx=np.zeros(n), Vy=np.zeros(n), Vn=np.zeros(n),
     )
+    cells["bulkPi"] = cells["bulkPi"] * scale_bulk
+    return cells
 
 
 def synthetic_surface(n_cells: int, dimension: int = 2, seed: int = 0,
@@ -274,7 +279,8 @@ _RUN_PARAMS = dict(
 def write_synthetic_run_dir(path: str, n_cells: int, n_species: int,
                             dimension: int, seed: int = 0,
                             params: dict | None = None,
-                            decays: bool = False) -> str:
+                            decays: bool = False,
+                            scale_bulk: float = 1.0) -> str:
     """Write a complete mode-1 run directory under ``path``:
 
     * ``PDG/pdg-urqmd_v3.3+.dat`` (conventional format, every species
@@ -285,7 +291,8 @@ def write_synthetic_run_dir(path: str, n_cells: int, n_species: int,
     * ``deltaf_coefficients/vh/urqmd/*.dat`` from the delta-f generator
       on that list, with two muB rows;
     * ``input/surface.dat``: ``n_cells`` synthetic cells in the mode-1
-      layout (thermodynamic columns divided by hbarC);
+      layout (thermodynamic columns divided by hbarC; bulkPi x
+      ``scale_bulk``);
     * ``iS3D_parameters.dat`` (operation 1, mode 1, ``dimension``; ``params``
       overrides any key).
 
@@ -308,7 +315,7 @@ def write_synthetic_run_dir(path: str, n_cells: int, n_species: int,
     deltaf_generator.write_tables(
         T, muB, tables, os.path.join(path, "deltaf_coefficients", "vh", "urqmd"))
 
-    cells = synthetic_surface_cells(n_cells, dimension, seed)
+    cells = synthetic_surface_cells(n_cells, dimension, seed, scale_bulk)
     order = ["tau", "x", "y", "eta", "dat", "dax", "day", "dan",
              "ux", "uy", "un"]
     raw = [cells[k] for k in order]
@@ -570,6 +577,184 @@ def bin_edge_inputs(case: str, dtype=torch.float64, device="cpu"):
     per_cell = torch.as_tensor(np.random.default_rng(n).random((n, 41)),
                                dtype=dtype, device=device)
     return per_cell, plan
+
+
+# The feqmod kernels' edges (df 3-4), shared by the gpu tests and
+# chip_smoke.py.  Each case runs through the entry points of its path: 3+1D
+# and 2+1D fixed nodes the fixed-node kernel and the dN/dX producer, the
+# 2+1D remap the remap kernel.  The synthetic delta-f tables are far from
+# a real gas's (betapi and betabulk ~100x small), so shear and bulk are
+# scaled down to reach clean cells (scale_pi 0.01, scale_bulk 0.001: none
+# break down), mixed ones (0.1, 0.01: 20-50 %) and mostly broken-down ones
+# (0.3, 0.01: 75-90 %; df 3 by a negative pi0 density or detA, df 4 by
+# detA).  Further: near-degenerate 3+1D cells (bulkPi = -0.9 P under df 4:
+# detA in (0, 0.01)) with eta on the output rapidities, where the narrow
+# mask takes the fallback; species, points and nodes that are not multiples
+# of the blocking (4 species x 3 nodes, 128 points a block; the remap's
+# 128 (species, pT) a block, 8, 16 or 24 angles, 12 nodes); exp overflow
+# with exact zeros; the df 4 clamp (bulkPi < -P and above the Jonah
+# table's bulkPi/P); reference_compat_feqmod_eta; a df 3 baryon case
+# (alphaB_mod); degenerate tables (betaV = 0 with diffusion and
+# regulation: the unregrouped fallback keeps the clipped +-inf finite);
+# pad rows of the canonical group tree (inert, adding exactly 0).
+_MOD = dict(scale_pi=0.01, scale_bulk=0.001)
+_MIXED = dict(scale_pi=0.1, scale_bulk=0.01)
+_MOST = dict(scale_pi=0.3, scale_bulk=0.01)
+FEQMOD_EDGES = {
+    "3d_df3_clean": dict(dimension=3, df_mode=3, **_MOD),
+    "3d_df4_mixed": dict(dimension=3, df_mode=4, **_MIXED),
+    "3d_df3_most": dict(dimension=3, df_mode=3, **_MOST),
+    "3d_df4_narrow": dict(dimension=3, df_mode=4, scale_pi=0.01,
+                          bulk_P=(-0.9,), eta_on_y=True),
+    "3d_df3_ragged": dict(dimension=3, df_mode=3, n_species=41,
+                          grid=_RAGGED, **_MIXED),
+    "3d_overflow": dict(dimension=3, df_mode=4, reg_out=0,
+                        grid=dict(n_y=7, y_max=12.0), **_MIXED),
+    "3d_df4_clamp": dict(dimension=3, df_mode=4, scale_pi=0.01,
+                         bulk_P=(-1.5, 0.2, 40.0)),
+    "3d_df3_baryon": dict(dimension=3, df_mode=3, baryon=True, **_MIXED),
+    "3d_degenerate": dict(dimension=3, df_mode=3, baryon=True, diff=True,
+                          zero_betaV=True, **_MOST),
+    "2d_df3_ragged": dict(dimension=2, df_mode=3, n_species=41,
+                          grid=_RAGGED, **_MIXED),
+    "2d_df4_most": dict(dimension=2, df_mode=4, **_MOST),
+    "2d_df4_compat": dict(dimension=2, df_mode=4, compat=1, scale_pi=0.01,
+                          scale_bulk=3.0),
+    "2d_pad_rows": dict(dimension=2, df_mode=3, n_cells=37, pad_to=48,
+                        **_MIXED),
+    "2d_remap_df3_mixed": dict(dimension=2, df_mode=3, grid=_REMAP, **_MIXED),
+    "2d_remap_df4_most": dict(dimension=2, df_mode=4, grid=_REMAP, **_MOST),
+    "2d_remap_df3_clean": dict(dimension=2, df_mode=3, grid=_REMAP, **_MOD),
+    "2d_remap_ragged": dict(dimension=2, df_mode=4, n_species=41,
+                            grid=dict(_RAGGED, **_REMAP), **_MIXED),
+    "2d_remap_overflow": dict(dimension=2, df_mode=3, reg_out=0,
+                              eta_shift=16.5, grid=_REMAP, **_MOD),
+    "2d_remap_pad_rows": dict(dimension=2, df_mode=4, n_cells=37, pad_to=48,
+                              grid=_REMAP, **_MIXED),
+}
+
+
+def feqmod_edge_spec(case: str, n_cells: int = 203,
+                     n_species: int = 7) -> dict:
+    """A FEQMOD_EDGES case with every default filled in."""
+    spec = dict(dict(scale_bulk=1.0, bulk_P=None, eta_on_y=False,
+                     baryon=False, diff=False, zero_betaV=False, compat=0,
+                     pad_to=None),
+                **edge_spec(FEQMOD_EDGES, case, n_cells, n_species))
+    return spec
+
+
+def feqmod_edge_inputs(case: str, n_cells: int = 203, n_species: int = 7,
+                       dtype=torch.float64, device="cpu"):
+    """(x, rn, wcs, mom, flags, wM, wR): the feqmod kernels' inputs for the
+    FEQMOD_EDGES case ``case`` on ``device``, and the dN/dX weights of its
+    grid."""
+    from .config import Config
+    from .io.tables import native_momentum_grid, laguerre_device
+    from .kernels import feqmod, dndx
+    from .kernels.common import surface_columns
+    from .kernels.smooth import momentum_constants
+    from .parallel.mesh import _pad_inert
+    spec = feqmod_edge_spec(case, n_cells, n_species)
+    dim = spec["dimension"]
+    cfg = Config(operation=1, **edge_config_kw(spec),
+                 include_baryon=int(spec["baryon"]),
+                 include_baryondiff_deltaf=int(spec["diff"]),
+                 reference_compat_feqmod_eta=spec["compat"])
+    grid = native_momentum_grid(dim, dtype=dtype, device=device,
+                                **edge_grid_kw(spec))
+    if spec["eta_shift"]:
+        grid = dataclasses.replace(grid, eta=grid.eta + spec["eta_shift"])
+    cells = edge_surface_cells(spec)
+    cells["bulkPi"] = cells["bulkPi"] * spec["scale_bulk"]
+    if spec["bulk_P"] is not None:
+        f = np.resize(np.asarray(spec["bulk_P"], float), spec["n_cells"])
+        cells["bulkPi"] = f * cells["P"]
+    if spec["eta_on_y"]:
+        y = grid.y.cpu().numpy()
+        cells["eta"] = y[np.abs(cells["eta"][:, None] - y[None, :])
+                         .argmin(1)]
+    if spec["baryon"]:
+        rng = np.random.default_rng(spec["n_cells"])
+        n = spec["n_cells"]
+        cells.update(muB=rng.uniform(0.05, 0.3, n),
+                     nB=rng.uniform(0.01, 0.05, n))
+        if spec["diff"]:
+            cells.update(Vx=rng.normal(0, 0.02, n), Vy=rng.normal(0, 0.02, n),
+                         Vn=rng.normal(0, 0.005, n))
+    surface = surface_from_arrays(dtype=dtype, device=device, **cells)
+    species = synthetic_species(spec["n_species"], dtype=dtype,
+                                device=device)
+    df_data = synthetic_deltaf_data(dtype=dtype, device=device)
+    if spec["zero_betaV"]:
+        tables = dict(df_data.tables, betaV=torch.zeros_like(
+            df_data.tables["betaV"]))
+        df_data = dataclasses.replace(df_data, tables=tables)
+    flags = feqmod.feqmod_flags(cfg, grid)
+    cols = surface_columns(surface, cfg)
+    if spec["pad_to"] is not None:
+        cols = _pad_inert(cols, spec["pad_to"])
+    x, rn, wcs = feqmod.group_inputs(
+        cols, species, laguerre_device(dtype=dtype, device=device), df_data,
+        cfg, flags)
+    return (x, rn, wcs, momentum_constants(species, grid, dim), flags,
+            dndx.momentum_weights(grid, cfg), dndx.node_weights(grid, dim))
+
+
+def feqmod_edge_seen(case: str, x, rn, wcs, mom, flags, out) -> str:
+    """What the plain spectra ``out`` of a FEQMOD_EDGES case show of the
+    edge the case is named for; raises AssertionError where they do not
+    show it."""
+    from .kernels import feqmod, smooth
+    assert torch.isfinite(out).all() and out.abs().max() > 0, case
+    assert flags.remap == ("remap" in case), case
+    spec = feqmod_edge_spec(case)
+    bd = x[:, feqmod.FQ["bd"]] > 0
+    share = f"{int(bd.sum())} of {x.shape[0]} cells break down"
+    S, M, R = mom.mass.shape[0], mom.px.shape[0], mom.nodes.shape[0]
+    P, F = mom.pT.shape[0], mom.n_phi
+    if case.endswith("ragged"):
+        assert S % 4 and M % 128 and R % 3, (S, M, R)
+        if flags.remap:
+            assert (S * P) % 128 and R % 12 % 3 and F not in (8, 16, 24)
+        return f"{S} species x {M} points x {R} nodes; {share}"
+    if case.endswith("overflow"):
+        n = int((out == 0).sum())
+        assert 0 < n < out.numel(), f"{n} outputs are exactly 0"
+        return f"{n} of {out.numel()} outputs exactly 0"
+    if case.endswith("pad_rows"):
+        n = spec["n_cells"]
+        assert x.shape[0] > n
+        pad = feqmod.feqmod_spectra_plain(x[n:], rn[n:], wcs[n:], mom, flags)
+        assert (pad == 0).all()
+        return f"{x.shape[0] - n} pad rows of {x.shape[0]} add 0"
+    if case.endswith("narrow"):
+        detA = x[:, feqmod.FQ["detA"]]
+        narrow = (~bd) & (detA > 0) & (detA < feqmod.NARROW_DETA)
+        assert narrow.sum() > 0
+        return (f"{int(narrow.sum())} cells with 0 < detA < 0.01 on the "
+                f"output rapidities; {share}")
+    if case.endswith("clamp"):
+        return f"bulkPi at -1.5 P and 40 P clamped into the Jonah table"
+    if case.endswith("compat"):
+        scale = x[:, feqmod.FQ["scale"]]
+        detA = x[:, feqmod.FQ["detA"]]
+        assert ((detA >= 1) & (scale == 1)).any() and (scale < 1).any()
+        return (f"{int((detA >= 1).sum())} cells with detA >= 1 keep eta "
+                f"unscaled; {share}")
+    if case.endswith("baryon"):
+        assert x[:, feqmod.FQ["abm"]].abs().max() > 0
+        return f"alphaB_mod up to {x[:, feqmod.FQ['abm']].abs().max():.3f}"
+    if case.endswith("degenerate"):
+        assert torch.isinf(x[:, feqmod.FQ["kV"]]).all() and bd.any()
+        return f"1/betaV = inf on every cell; {share}"
+    if case.endswith("clean"):
+        assert not bd.any()
+    elif case.endswith("most"):
+        assert bd.float().mean() > 0.7
+    else:
+        assert bd.any() and not bd.all()
+    return share
 
 
 # ------------------------------------------------------- decaying list

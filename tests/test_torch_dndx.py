@@ -294,7 +294,7 @@ def test_cli_runs_operation0(op0_run_dirs):
 
 
 @pytest.mark.parametrize("override,slice_name", [
-    (dict(df_mode=3), "slice 6"), (dict(df_mode=4), "slice 6"),
+    (dict(mode=2, df_mode=3), "slice 8"), (dict(mode=5, df_mode=4), "slice 8"),
     (dict(mode=2), "slice 8"), (dict(mode=3), "slice 8"),
     (dict(mode=5), "slice 8"),
 ])

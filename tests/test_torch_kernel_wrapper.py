@@ -18,7 +18,7 @@ from is3d_tpu_torch.config import Config
 from is3d_tpu_torch.io.surface import surface_from_arrays
 from is3d_tpu_torch.io.tables import native_momentum_grid
 from is3d_tpu_torch.experiments import smooth_proto, dndx_reduce_probe
-from is3d_tpu_torch.kernels import smooth, dndx, decays
+from is3d_tpu_torch.kernels import smooth, dndx, decays, feqmod
 from is3d_tpu_torch.kernels.common import surface_columns, prepare_cells
 from is3d_tpu_torch.kernels.launch import launch, split_to_fill
 from is3d_tpu_torch.native import build
@@ -105,10 +105,11 @@ def test_cli_defaults_to_cuda_and_raises_without_it(no_cuda, tmp_path):
 
 
 @pytest.mark.parametrize("override,slice_name", [
-    (dict(operation=0, df_mode=3), "slice 7"), (dict(operation=2), "slice 9"),
+    (dict(operation=0, mode=2, df_mode=3), "slice 7"),
+    (dict(operation=2), "slice 9"),
     (dict(mode=2), "slice 8"), (dict(mode=5), "slice 8"),
-    (dict(df_mode=3), "slice 6"),
-    (dict(do_resonance_decays=1, df_mode=4), "slice 6"),
+    (dict(operation=2, df_mode=3), "slice 9"),
+    (dict(do_resonance_decays=1, df_mode=4, mode=3), "slice 8"),
 ])
 def test_unported_configurations_raise(override, slice_name):
     with pytest.raises(NotImplementedError, match=slice_name):
@@ -272,7 +273,24 @@ def _wrapper_calls(dtype=torch.float64, fault=None):
     tables, tasks, wg, n_seg = testing.decay_edge_inputs("2body_2d",
                                                          dtype=dtype)
     acc = torch.zeros((n_seg,) + tables.logdN.shape[1:], dtype=torch.float64)
+    fx, frn, fwcs, fmom, fflags, fwM, fwR = testing.feqmod_edge_inputs(
+        "3d_df4_mixed", n_cells=9, n_species=5, dtype=dtype)
+    rx, rrn, rwcs, rmom, rflags, _, _ = testing.feqmod_edge_inputs(
+        "2d_remap_df3_mixed", n_cells=9, n_species=5, dtype=dtype)
     return {
+        "feqmod": lambda: feqmod.feqmod_spectra_cuda(spoil(fx), frn, fwcs,
+                                                     fmom, fflags),
+        "feqmod_rn": lambda: feqmod.feqmod_spectra_cuda(fx, spoil(frn), fwcs,
+                                                        fmom, fflags),
+        "feqmod_remap_wcs": lambda: feqmod.feqmod_spectra_cuda(
+            rx, rrn, spoil(rwcs), rmom, rflags),
+        "feqmod_remap_table": lambda: feqmod.feqmod_spectra_cuda(
+            rx, rrn, rwcs, rmom, rflags,
+            spoil(smooth.remap_node_table(rmom))),
+        "dndx_feqmod": lambda: dndx.dndx_feqmod_cuda(
+            spoil(fx), frn, fwcs, fmom, fflags, fwM, fwR),
+        "dndx_feqmod_wR": lambda: dndx.dndx_feqmod_cuda(
+            fx, frn, fwcs, fmom, fflags, fwM, spoil(fwR)),
         "decay_wave": lambda: decays.decay_wave_cuda(
             dataclasses.replace(tables, logdN=spoil(tables.logdN)), tasks,
             wg, acc),
@@ -319,13 +337,14 @@ def test_new_wrappers_check_their_arguments(wrapper, fault):
     current = lambda: (smooth.LAUNCHES, smooth.REMAP_LAUNCHES, dndx.LAUNCHES,
                        dndx.BIN_LAUNCHES, smooth_proto.LAUNCHES,
                        dndx_reduce_probe.LAUNCHES, decays.TWO_BODY_LAUNCHES,
-                       decays.THREE_BODY_LAUNCHES)
+                       decays.THREE_BODY_LAUNCHES, feqmod.LAUNCHES,
+                       feqmod.REMAP_LAUNCHES, dndx.FEQMOD_LAUNCHES)
     counts = current()
     with pytest.raises(ValueError, match=FAULTS[fault]):
         _wrapper_calls(fault=fault)[wrapper]()
     assert counts == current()
-    assert not {"smooth_spectra", "dndx", "smooth_proto", "decays"} & set(
-        build._cuda_libs)
+    assert not {"smooth_spectra", "dndx", "smooth_proto", "decays",
+                "feqmod"} & set(build._cuda_libs)
 
 
 SLOTS = (1, 7, 264, 528, 1056, 10 ** 6)
@@ -864,3 +883,105 @@ def test_decay_wave_s_split_matches_plain_on_gpu(cuda_card, dtype):
                                rtol=rtol,
                                atol=atol * want.abs().max().item())
     assert torch.equal(acc, again)
+
+
+# ------------------------------------------------------- feqmod (df 3-4)
+
+def test_feqmod_cpu_tensors_take_plain_path_and_never_load_kernel():
+    """df 3-4 on CPU tensors: the plain versions of the spectra (fixed
+    nodes and remap) and of the dN/dX producer; no launch, no library."""
+    counts = (feqmod.LAUNCHES, feqmod.REMAP_LAUNCHES, dndx.FEQMOD_LAUNCHES)
+    for dimension, remap, df_mode in ((3, False, 3), (2, True, 4)):
+        cfg = Config(operation=1, mode=1, dimension=dimension,
+                     df_mode=df_mode, include_shear_deltaf=1,
+                     include_bulk_deltaf=1, outflow=1)
+        cells = testing.synthetic_surface_cells(30, dimension, seed=8,
+                                                scale_bulk=0.01)
+        for k in ("pixx", "pixy", "pixn", "piyy", "piyn"):
+            cells[k] = cells[k] * 0.1
+        surf = surface_from_arrays(**cells)
+        grid = native_momentum_grid(dimension, n_pT=4, n_phi=4, n_y=3,
+                                    n_eta=6, eta_mT_rescale=remap)
+        species = testing.synthetic_species(5)
+        df_data = testing.synthetic_deltaf_data()
+        out = feqmod.smooth_spectra_feqmod(surf, species, grid, df_data, cfg)
+        assert out.device.type == "cpu" and torch.isfinite(out).all()
+        dX = dndx.spacetime_distributions(
+            surf, species, grid, df_data,
+            dataclasses.replace(cfg, operation=0, tau_bins=12, r_bins=8))
+        assert np.isfinite(dX["dN_dy"]).all() and (dX["dN_dy"] > 0).all()
+    assert counts == (feqmod.LAUNCHES, feqmod.REMAP_LAUNCHES,
+                      dndx.FEQMOD_LAUNCHES)
+    assert not {"feqmod", "dndx"} & set(build._cuda_libs)
+
+
+@pytest.mark.parametrize("case", sorted(testing.FEQMOD_EDGES))
+def test_feqmod_edge_inputs_are_what_they_claim(case):
+    """On the CPU: the feqmod edge cases' plain spectra are finite and
+    show the edge they are named for (their share of broken-down cells,
+    the narrow mask's cells, shapes off the kernels' blocking, exact zeros
+    where exp overflows, inert pad rows, the compat flag's unscaled cells,
+    alphaB_mod, 1/betaV = inf)."""
+    x, rn, wcs, mom, flags, wM, wR = testing.feqmod_edge_inputs(case)
+    out = feqmod.feqmod_spectra_plain(x, rn, wcs, mom, flags)
+    assert testing.feqmod_edge_seen(case, x, rn, wcs, mom, flags, out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
+@pytest.mark.parametrize("case", sorted(testing.FEQMOD_EDGES))
+def test_feqmod_kernel_edges_match_plain_on_gpu(cuda_card, case, dtype):
+    """The feqmod kernels' edges (testing.FEQMOD_EDGES) against the plain
+    versions: the spectra kernel of the case's path and, at fixed nodes,
+    the dN/dX producer; f32 at rtol 2e-4 / atol 2e-5 x max, f64 at rtol
+    1e-10 / atol 1e-13 x max; two launches bit-identical, exact zeros
+    kept."""
+    rtol, atol = ((2e-4, 2e-5) if dtype == torch.float32
+                  else (1e-10, 1e-13))
+    x, rn, wcs, mom, flags, wM, wR = testing.feqmod_edge_inputs(
+        case, dtype=dtype, device="cuda")
+    runs = [(lambda: (feqmod.feqmod_spectra_cuda(x, rn, wcs, mom, flags),),
+             (feqmod.feqmod_spectra_plain(x, rn, wcs, mom, flags),))]
+    if not flags.remap:
+        runs.append((lambda: dndx.dndx_feqmod_cuda(x, rn, wcs, mom, flags,
+                                                   wM, wR),
+                     dndx.dndx_feqmod_plain(x, rn, wcs, mom, flags, wM, wR)))
+    for kern, want in runs:
+        got, again = kern(), kern()
+        torch.cuda.synchronize()
+        for g, a, w in zip(got, again, want):
+            assert torch.equal(g, a)
+            np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                       rtol=rtol,
+                                       atol=atol * w.abs().max().item())
+            zero = w == 0
+            assert torch.equal(g[zero], w[zero])
+
+
+def test_feqmod_cell_split_covers_every_cell_in_whole_tiles():
+    """The feqmod kernels' cell ranges: whole tiles, every cell once."""
+    for tile, max_split in ((16, 8), (8, 64)):
+        for n_cells in (1, 15, 16, 17, 777, 16384):
+            for slots in SLOTS:
+                grid = feqmod.FeqmodGrid(blocks=96, slots=slots, parts=1,
+                                         tile=tile, max_split=max_split,
+                                         phi_width=0)
+                per, n_split = feqmod.cell_split(n_cells, grid)
+                assert per % tile == 0 and 1 <= n_split <= max_split
+                assert (n_split - 1) * per < n_cells <= n_split * per
+
+
+def test_feqmod_yardstick():
+    """The feqmod bound's count: f_mod 16 FP32 + 3 SFU (sqrt, exp, rcp;
+    SFU-bound, as K1's df 2), the fallback 29 (df 3) / 24 (df 4) FP32 + 3
+    SFU (FP32-bound); the remap adds its node kinematics per (cell, node,
+    species, pT), a 24th of them per evaluation on the native grid."""
+    rate = lambda ops: max(ops[0] / 128, ops[1] / 16)
+    assert feqmod.feqmod_formula_ops(3, False, 24, False) == (16.0, 3.0)
+    assert rate(feqmod.MOD_OPS) == 3 / 16
+    assert rate(feqmod.FALLBACK_OPS[3]) == 29 / 128
+    assert feqmod.feqmod_formula_ops(4, False, 24, True) == (24.0, 3.0)
+    assert feqmod.feqmod_formula_ops(3, True, 24, False) == (
+        16 + 9 / 24, 3 + 2 / 24)
+    assert feqmod.feqmod_formula_ops(4, True, 24, True) == (
+        24 + 18 / 24, 3.0)

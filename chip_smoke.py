@@ -10,9 +10,10 @@ Phases, each printing its own line(s):
 1. device: the card's name, power limit and maximum SM clock
    (nvidia-smi); fails without CUDA;
 2. build: every kernel source (csrc/smooth_spectra.cu, csrc/dndx.cu,
-   csrc/smooth_proto.cu, csrc/decays.cu, csrc/feqmod.cu; one nvcc each,
-   all started together) and the fastio host library, from this checkout's sources,
-   with ptxas's register and spill lines;
+   csrc/smooth_proto.cu, csrc/decays.cu, csrc/feqmod.cu, csrc/vah.cu,
+   csrc/polzn.cu; one nvcc each, all started together) and the fastio
+   host library, from this checkout's sources, with ptxas's register and
+   spill lines;
 3. each kernel against its plain torch version at small shapes, in f32
    (atol 2e-5 * max, rtol 2e-4) and f64 (rtol 1e-10, atol 1e-13 * max):
    the spectra kernel on every path (3+1D df 1/2, 2+1D fixed nodes, 2+1D
@@ -44,38 +45,45 @@ Phases, each printing its own line(s):
    cells; the 3+1D narrow mask; ragged species, points and nodes; exp
    overflow with exact zeros; the df 4 clamp; both
    reference_compat_feqmod_eta settings; a baryon case; betaV = 0 tables;
-   pad rows; two launches bit-identical);
+   pad rows; two launches bit-identical); [vah small]: the three entry
+   points of the VAH kernel K4 (fixed nodes, 2+1D remap, the dN/dX
+   producer) on testing.VAH_EDGES (every chain setting, regulate/outflow
+   off and on, a_L on one side of 1, ragged shapes, strong flow, exact
+   zeros, pad rows); [polzn small]: both polarization kernels K6 on
+   testing.POLZN_EDGES, each of the five sums (a massless species' inf
+   and NaN in the same places); f32 and f64, two launches bit-identical,
+   exact zeros kept;
 4. operation 1 main path: a synthetic 131072-cell x 320-species 3+1D
    mode-1 run directory through ``is3d_tpu_torch.cli.main`` (df 2, shear +
    bulk, regulate, outflow, f32, native 32 x 24 x 21 grid), then the same
    CLI on a 256-cell run directory on cuda and on cpu (f64), whose spectra
    files must agree;
-5. the spectra kernel against the plain version on one canonical group of
-   that surface (16384 cells), f32: agreement, two launches bit-identical,
-   both f32 versions against the f64 kernel (the kernel's difference at
-   most 3x the plain version's), then paired times (CUDA events, one
-   warm-up, median of 5), the bound and the kernel's instructions per
+5. the spectra kernel on one canonical group of that surface (16384
+   cells), f32: two launches bit-identical; on the group's first 4096
+   cells agreement with the plain version and both f32 versions against
+   the f64 kernel (the kernel's difference at most 3x the plain
+   version's); times (CUDA events, one warm-up, median of 5; the plain
+   version's one run), the bound and the kernel's instructions per
    evaluation (tools/sass_count.py, where cuobjdump reads the library);
 5a. the default 2+1D operation-1 main path: a synthetic 131072-cell x
    320-species 2+1D run directory through ``cli.main`` (df 2, shear + bulk,
    regulate, outflow, f32, native 32 x 24 x 48 grid with the mT remap):
    launches of the remap kernel = canonical groups, the results tree; then
    the same CLI on a 256-cell run directory on cuda and on cpu (f64); then
-   the remap kernel on one canonical group of that surface as in 5, held
-   against one run of the plain version on the whole group (16384 cells,
-   the 33 s it takes being its time in the record);
+   the remap kernel on one canonical group of that surface as in 5 (the
+   plain version on its first 2048 cells);
 6. operation 0 main path: a synthetic 65536-cell x 320-species 2+1D run
    directory through ``cli.main`` (df 1, shear + bulk, regulate, outflow,
    f32, native 32 x 24 x 48 grid): launches = canonical groups, every
    spacetime_distribution file present and finite, pion dN/dy > 0; then
    the same CLI on a 256-cell run directory on cuda and on cpu (f64);
 7. the dN/dX kernel and the binning kernel on one canonical group of that
-   surface (8192 cells), f32: agreement with the plain versions, two
-   launches bit-identical, the f32 kernel and the f32 plain version against
-   the f64 kernel, paired times (one warm-up -- for the plain
-   version its agreement call -- and the median of 5; the binning kernel,
-   its plain version and its library yardstick as 20 calls queued behind
-   a device-side sleep, per call);
+   surface (8192 cells), f32: two launches bit-identical; on the group's
+   first 2048 cells agreement with the plain version and the f32 kernel
+   and the f32 plain version against the f64 kernel; times (one warm-up
+   and the median of 5; the plain version's one run; the binning kernel,
+   its plain version and its library yardstick on the whole group as 20
+   calls queued behind a device-side sleep, per call);
 7a. the operation-1 main path with decays: a synthetic 131072-cell x
    320-species 3+1D run directory on the decaying list through
    ``cli.main`` (as 4, do_resonance_decays = 1): its phases by name, the
@@ -109,7 +117,28 @@ Phases, each printing its own line(s):
    makes, SASS per evaluation; [feqmod main 2d] the same with df 4 in
    2+1D (the mT remap) and its pair (plain on 512 cells); [feqmod dndx]
    operation 0 with df 3 on 16384 cells x 320 species (2+1D) and one of
-   its groups (plain on 512 cells).
+   its groups (plain on 512 cells);
+10. the VAH paths: [vah main 2d] a synthetic 131072-cell x 320-species
+   mode-2 (VAH) 2+1D run directory through ``cli.main`` (shear and bulk
+   df on in the config, gated off: no c0..c4 columns; regulate, outflow,
+   f32, the mT remap): launches of the remap kernel = groups, the results
+   tree; [vah main 3d] the same in 3+1D (fixed nodes); their 256-cell
+   cuda-against-cpu runs (2+1D mode 2, 3+1D mode 3); [vah pair] one group
+   of each, and the 3+1D group with synthetic c0..c4 (every chain on): f32
+   against the f64 kernel, paired times, plain on 512 / 2048 cells, bound
+   (kernels/vah.py, vah_formula_ops), SASS; [vah dndx] operation 0 on a
+   16384-cell mode-2 2+1D run, its small run and one group;
+11. the polarization paths: [polzn main 2d] a synthetic 131072 x 320
+   mode-5 2+1D run directory through ``cli.main`` (the remap kernel, then
+   K1's remap spectra, df 2), the S*.dat files, its 256-cell
+   cuda-against-cpu run; [polzn main 3d] the same in 3+1D (the fixed-node
+   kernel, then K1); [polzn pair] one group of each as [vah pair]
+   (kernels/polzn.py, polzn_formula_ops).
+
+Depth cut to keep the run near ten minutes: [pair], [remap pair] and
+[dndx pair] hold the kernel to its plain version on the group's first
+4096, 2048 and 2048 cells, one run each (five runs on the whole group
+took 110 s and 70 s before, and one 31 s for the remap).
 
 Bounds: the larger of the bytes over the memory rate and the operations
 over the card's FP32 and SFU rates, the spectra, dN/dX and prototype
@@ -117,8 +146,10 @@ kernels' operations from one yardstick counted in the formula
 (kernels/smooth.py, FORMULA_OPS), the wave kernel's from its own
 count of what its inputs need (kernels/decays.py, wave_operations), the
 feqmod kernels' from theirs (kernels/feqmod.py, feqmod_formula_ops; f_mod
-and the fallback counted apart, as the data has them).  Before every path
-(4, 5a, 6, 7a, 8, 9) all launch
+and the fallback counted apart, as the data has them), the VAH and
+polarization kernels' from theirs (kernels/vah.py, vah_formula_ops;
+kernels/polzn.py, polzn_formula_ops).  Before every path (4, 5a, 6, 7a,
+8, 9, 10, 11) all launch
 counts are set to 0 and they are read right after it.  The line before
 the last is the kernel record as JSON; the last line is ``{"ok": true,
 "device": {...}}``.  Any failed phase exits nonzero before that line is
@@ -168,8 +199,23 @@ FEQMOD_DNDX_ARGS = ["device=cuda", "precision=f32", "operation=0",
 # on) in the [feqmod pair] and [feqmod dndx] phases
 FEQMOD_PLAIN_CELLS = 2048
 DECAYS_2D_CELLS = 16384
+# anisotropic hydro (modes 2-3) and spin polarization (mode 5): shear and
+# bulk df on in the config, which the VAH gate drops (no c0..c4 columns,
+# as on every real VAH surface)
+VAH2D_ARGS = ["device=cuda", "precision=f32", "operation=1", "dimension=2",
+              "include_shear_deltaf=1", "include_bulk_deltaf=1",
+              "regulate_deltaf=1", "outflow=1"]
+VAH3D_ARGS = ["device=cuda", "precision=f32", "operation=1", "dimension=3",
+              "include_shear_deltaf=1", "include_bulk_deltaf=1",
+              "regulate_deltaf=1", "outflow=1"]
+VAH_DNDX_CELLS = 16384
+VAH_DNDX_ARGS = ["device=cuda", "precision=f32", "operation=0",
+                 "dimension=2", "include_shear_deltaf=1",
+                 "include_bulk_deltaf=1", "regulate_deltaf=1", "outflow=1"]
+POLZN2D_ARGS = MAIN2D_ARGS
+POLZN3D_ARGS = MAIN_ARGS
 KERNEL_SOURCES = ("smooth_spectra", "dndx", "smooth_proto", "decays",
-                  "feqmod")
+                  "feqmod", "vah", "polzn")
 # H100 SXM: SMs, FP32 and SFU lanes per SM, memory rate (bytes/s)
 N_SM, FP32_LANES, SFU_LANES, HBM_RATE = 132, 128, 16, 3.35e12
 
@@ -392,6 +438,100 @@ def phase_small_feqmod():
           "their plain versions agree; two launches bit-identical")
 
 
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """The bit pattern of a float tensor (NaN equals NaN of the same
+    bits)."""
+    return t.view(torch.int64 if t.dtype == torch.float64 else torch.int32)
+
+
+def _check_pattern(name, got, want, rtol, atol_rel):
+    """_check for outputs that hold inf or NaN by design (a massless
+    species' polarization): the same NaN, +inf and -inf positions, the
+    finite values within the tolerance."""
+    for what, f in (("NaN", torch.isnan), ("+inf", torch.isposinf),
+                    ("-inf", torch.isneginf)):
+        if not torch.equal(f(got), f(want)):
+            fail(f"{name}: the kernel's {what} positions differ from the "
+                 "plain version's")
+    fin = torch.isfinite(want)
+    return _check(f"{name} [{int((~fin).sum())} non-finite values in the "
+                  "same places]", got[fin], want[fin], rtol, atol_rel)
+
+
+def _edge_check(name, got, again, want, tol) -> float:
+    """A kernel's output on an edge case against its plain version, two
+    launches bit-identical, the plain version's exact zeros kept."""
+    check = _check if torch.isfinite(want).all() else _check_pattern
+    err = check(name, got, want, *tol)
+    if not torch.equal(_bits(got), _bits(again)):
+        fail(f"{name}: two launches differ")
+    zero = want == 0
+    if (got[zero] != 0).any():
+        fail(f"{name}: {int((got[zero] != 0).sum())} of the plain version's "
+             f"{int(zero.sum())} exact zeros are nonzero in the kernel")
+    return err
+
+
+def phase_small_vah():
+    """[vah small]: each VAH entry point (fixed_kernel, remap_kernel, and
+    the dN/dX producer on the fixed-node cases) against its plain version
+    on testing.VAH_EDGES, f32 and f64, 777 cells and 40 species unless the
+    case says otherwise; two launches bit-identical, exact zeros kept."""
+    from is3d_tpu_torch import testing
+    from is3d_tpu_torch.kernels import vah, dndx
+    n = 0
+    for dtype in (torch.float32, torch.float64):
+        for case in testing.VAH_EDGES:
+            x, mom, flags, wM, wR = testing.vah_edge_inputs(
+                case, n_cells=777, n_species=40, dtype=dtype, device="cuda")
+            want = vah.vah_spectra_plain(x, mom, flags)
+            seen = testing.vah_edge_seen(case, x, mom, flags, want)
+            runs = [("spectra", ("",), lambda: (vah.vah_spectra_cuda(
+                x, mom, flags),), (want,))]
+            if not flags.remap:
+                runs.append(("dndx", (" per cell", " dN/dy/deta"),
+                             lambda: dndx.dndx_vah_cuda(x, mom, flags, wM,
+                                                        wR),
+                             dndx.dndx_vah_plain(x, mom, flags, wM, wR)))
+            for entry, parts, kern, plain in runs:
+                got, again = kern(), kern()
+                torch.cuda.synchronize()
+                for part, g, a, w in zip(parts, got, again, plain):
+                    _edge_check(f"vah {entry}{part} {str(dtype)[6:]} {case} "
+                                f"({seen})", g, a, w, TOL[dtype])
+                    n += 1
+    print(f"[vah small] {n} comparisons of the three entry points with "
+          "their plain versions agree; two launches bit-identical; exact "
+          "zeros kept")
+
+
+def phase_small_polzn():
+    """[polzn small]: both polarization kernels against their plain
+    version on testing.POLZN_EDGES (the massless cases held to the same
+    inf/NaN positions), f32 and f64, 777 cells and 40 species unless the
+    case says otherwise, each of the five sums; two launches bit-identical,
+    exact zeros kept."""
+    from is3d_tpu_torch import testing
+    from is3d_tpu_torch.kernels import polzn
+    n = 0
+    for dtype in (torch.float32, torch.float64):
+        for case in testing.POLZN_EDGES:
+            x, mom, pm, wR, flags, table = testing.polzn_edge_inputs(
+                case, n_cells=777, n_species=40, dtype=dtype, device="cuda")
+            want = polzn.polzn_plain(x, mom, pm, wR, flags)
+            seen = testing.polzn_edge_seen(case, x, mom, pm, wR, flags, want)
+            got = polzn.polzn_cuda(x, mom, pm, wR, flags, table)
+            again = polzn.polzn_cuda(x, mom, pm, wR, flags, table)
+            torch.cuda.synchronize()
+            for part, g, a, w in zip(polzn.SUMS, got, again, want):
+                _edge_check(f"polzn {part} {str(dtype)[6:]} {case} ({seen})",
+                            g, a, w, TOL[dtype])
+                n += 1
+    print(f"[polzn small] {n} comparisons of the two kernels' five sums "
+          "with their plain version agree; two launches bit-identical; "
+          "exact zeros kept; the massless species' inf/NaN in place")
+
+
 def phase_small_bins():
     """The binning kernel's edges (testing.BIN_EDGES: empty bins, a bin of
     every cell, bins longer and shorter than one slice) against its plain
@@ -479,13 +619,14 @@ def _results_ok(results, mcids, n_y):
 
 
 def phase_main_path(smi: str, name="main", dimension=3, args=MAIN_ARGS,
-                    n_nodes=21, want=None, decays=False):
+                    n_nodes=21, want=None, decays=False, mode=1):
     """One operation-1 CLI run at full size: 3+1D (21 rapidities) or 2+1D
     (48 eta nodes, mT remap), with ``decays`` on the decaying synthetic
-    list and do_resonance_decays = 1.  ``want``: the kernels the run must
-    launch once per canonical group (default: the spectra kernel); with
-    ``decays`` also the wave kernel once per wave that has tasks of its
-    body."""
+    list and do_resonance_decays = 1, on a surface of ``mode`` (1, 2, 3 or
+    5: testing.write_synthetic_run_dir).  ``want``: the kernels the run
+    must launch once per canonical group (default: the spectra kernel);
+    with ``decays`` also the wave kernel once per wave that has tasks of
+    its body; mode 5 also writes the polarization files."""
     from is3d_tpu_torch.config import load_config
     from is3d_tpu_torch.parallel.mesh import canonical_groups
     from is3d_tpu_torch.io.pdg import load_chosen_mcids
@@ -494,7 +635,8 @@ def phase_main_path(smi: str, name="main", dimension=3, args=MAIN_ARGS,
     run_dir = os.path.join(WORK, name.replace(" ", "_"))
     t0 = time.perf_counter()
     write_synthetic_run_dir(run_dir, MAIN_CELLS, MAIN_SPECIES,
-                            dimension=dimension, seed=0, decays=decays)
+                            dimension=dimension, seed=0, decays=decays,
+                            mode=mode)
     print(f"[{name}] synthetic run dir {MAIN_CELLS} cells x {MAIN_SPECIES} "
           f"species written in {time.perf_counter() - t0:.2f} s")
 
@@ -524,13 +666,18 @@ def phase_main_path(smi: str, name="main", dimension=3, args=MAIN_ARGS,
         fail(f"{len(mcids)} chosen species")
     _results_ok(os.path.join(run_dir, "results"), mcids,
                 n_y=n_nodes if dimension == 3 else 1)
+    if mode == 5:
+        _polzn_results_ok(os.path.join(run_dir, "results"), mcids,
+                          n_y=n_nodes if dimension == 3 else 1, tag=name)
     if decays:
         _decay_results_ok(os.path.join(run_dir, "results"), mcids, n_nodes,
                           out)
     evals = MAIN_CELLS * MAIN_SPECIES * 32 * 24 * n_nodes
     t_spec = phases["smooth spectra"]
+    pol = (f", polarization {phases['spin polarization']:.3f} s (writers "
+           f"{phases['polarization writers']:.3f} s)" if mode == 5 else "")
     print(f"[{name}] {smi} | prepare "
-          f"{phases['prepare (io, pdg, deltaf)']:.3f} s"
+          f"{phases['prepare (io, pdg, deltaf)']:.3f} s{pol}"
           f", spectra {t_spec:.3f} s, writers {phases['writers']:.3f} s, "
           f"cli wall {wall:.3f} s | {evals:.3e} evaluations, "
           f"{evals / t_spec:.3e} evaluations/s | launches "
@@ -595,13 +742,13 @@ def _decay_results_ok(results, mcids, n_y, out):
 def phase_small_path_cpu_vs_cuda(name="small", dimension=3, params=None,
                                  args=("df_mode=2", "regulate_deltaf=1"),
                                  label="3+1D df2", n_species=11,
-                                 decays=False, scale_bulk=1.0):
+                                 decays=False, scale_bulk=1.0, mode=1):
     """The whole CLI path on cuda and on cpu, f64, on a small run dir."""
     from is3d_tpu_torch.testing import write_synthetic_run_dir
     run_dir = os.path.join(WORK, name)
     write_synthetic_run_dir(run_dir, 256, n_species, dimension=dimension,
                             seed=1, params=params, decays=decays,
-                            scale_bulk=scale_bulk)
+                            scale_bulk=scale_bulk, mode=mode)
     trees = {}
     for device in ("cuda", "cpu"):
         results = os.path.join(run_dir, f"results_{device}")
@@ -644,15 +791,15 @@ def _values(path):
 
 
 def phase_pair(smi: str, clock: float, run_dir: str, cfg, tag="pair",
-               plain_runs=5):
+               plain_cells=4096):
     """The spectra kernel on one canonical group (16384 cells) of a
     main-path surface, f32, at the grid and the split the main path
-    launches: agreement with the plain version on the whole group, two
-    launches bit-identical, both f32 versions against the f64 kernel (the
-    kernel's difference at most 3x the plain version's), times (the kernel
-    one warm-up, median of 5; the plain version too, or with ``plain_runs``
-    = 1 the one run that the kernel is held against, where a run takes
-    tens of seconds), bound, instructions per evaluation."""
+    launches: two launches bit-identical; on the group's first
+    ``plain_cells`` cells agreement with the plain version and both f32
+    versions against the f64 kernel (the kernel's difference at most 3x
+    the plain version's); times (the kernel one warm-up, median of 5; the
+    plain version's one run, tens of seconds a whole group), bound,
+    instructions per evaluation."""
     from is3d_tpu_torch.api import IS3D
     from is3d_tpu_torch.utils import cuda_median_ms
     from is3d_tpu_torch.kernels import smooth
@@ -671,36 +818,30 @@ def phase_pair(smi: str, clock: float, run_dir: str, cfg, tag="pair",
     # as smooth_spectra gives it: the node table built once for all groups
     table = smooth.remap_node_table(mom) if flags.remap else None
     kern = lambda: smooth.smooth_spectra_cuda(cells, mom, flags, table)
-    plain = lambda: smooth.smooth_spectra_plain(cells, mom, flags,
-                                                cfg.cell_chunk)
     got, again = kern(), kern()
-    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    t0.record()
-    want = plain()
-    t1.record()
-    t1.synchronize()
-    p_all = [t0.elapsed_time(t1)]
     if not torch.equal(got, again):
         fail(f"smooth_spectra ({tag}): two launches on the same group differ")
+    n = plain_cells
+    cs = cells[:n].contiguous()
+    want, p_ms = _timed_once(lambda: smooth.smooth_spectra_plain(
+        cs, mom, flags, cfg.cell_chunk))
+    got_n = smooth.smooth_spectra_cuda(cs, mom, flags, table)
     nodes = grid.n_eta if cfg.dimension == 2 else 1
     path = "2+1D mT remap" if flags.remap else f"{cfg.dimension}+1D"
-    max_err = _check(f"float32 {path} main-path group ({tuple(cells.shape)} "
-                     f"cells, {tuple(got.shape)} out)", got, want, 2e-4, 2e-5)
+    max_err = _check(f"float32 {path} main-path group, its first {n} cells "
+                     f"({tuple(got.shape)} out)", got_n, want, 2e-4, 2e-5)
     # both float32 versions against the float64 kernel on the same inputs
-    ref = smooth.smooth_spectra_cuda(cells.double(), mom64, flags)
+    ref = smooth.smooth_spectra_cuda(cs.double(), mom64, flags)
     share = lambda a: ((a.double() - ref).abs().max() / ref.abs().max()).item()
-    k_share, p_share = share(got), share(want)
-    print(f"[{tag}] float32 against the float64 kernel on the whole group, "
-          "largest difference as a share of the largest value: kernel "
-          f"{k_share:.2e}, plain {p_share:.2e}")
+    k_share, p_share = share(got_n), share(want)
+    print(f"[{tag}] float32 against the float64 kernel on the group's first "
+          f"{n} cells, largest difference as a share of the largest value: "
+          f"kernel {k_share:.2e}, plain {p_share:.2e}")
     if k_share > 3.0 * p_share:
         fail(f"smooth_spectra ({tag}): float32 differs from the float64 "
              "kernel by more than 3x the float32 plain version's difference")
     del ref, want
     k_ms, k_all = cuda_median_ms(kern)
-    if plain_runs > 1:
-        p_all = cuda_median_ms(plain, plain_runs)[1]
-    p_ms = float(np.median(p_all))
     evals = cells.shape[0] * got.numel() * nodes
     ops = (smooth.remap_formula_ops(cfg.df_mode, grid.n_phi) if flags.remap
            else smooth.FORMULA_OPS[cfg.df_mode])
@@ -715,14 +856,14 @@ def phase_pair(smi: str, clock: float, run_dir: str, cfg, tag="pair",
           f"{tuple(got.shape)} x {nodes} nodes ({path}, df {cfg.df_mode}): "
           f"kernel {k_ms:.3f} ms (runs "
           f"{', '.join(f'{t:.2f}' for t in k_all)}), plain {p_ms:.3f} ms on "
-          f"the same group (runs "
-          f"{', '.join(f'{t:.1f}' for t in p_all)}), "
+          f"the group's first {n} cells (one run), "
           f"kernel {evals / k_ms * 1e3:.3e} evaluations/s; bound "
           f"{bound[0]:.3f} ms ({bound[1]}), kernel at "
           f"{bound[0] / k_ms:.1%} of it; two launches bit-identical; "
           "issued per evaluation: " + _issued("smooth_spectra", kernel))
     return dict(launches=None, max_abs_err=max_err, ms=k_ms, plain_ms=p_ms,
-                bound_ms=bound[0], bound_by=bound[1], library_ms=None)
+                bound_ms=bound[0], bound_by=bound[1], library_ms=None,
+                cells=cells.shape[0], plain_cells=n)
 
 
 def _feqmod_run(run_dir: str, cfg):
@@ -966,22 +1107,26 @@ def _issued(library: str, kernel: str) -> str:
 
 
 def _modules():
-    from is3d_tpu_torch.kernels import smooth, dndx, decays, feqmod
+    from is3d_tpu_torch.kernels import smooth, dndx, decays, feqmod, vah, polzn
     from is3d_tpu_torch.experiments import smooth_proto, dndx_reduce_probe
-    return smooth, dndx, smooth_proto, dndx_reduce_probe, decays, feqmod
+    return (smooth, dndx, smooth_proto, dndx_reduce_probe, decays, feqmod,
+            vah, polzn)
 
 
 def _reset_counts():
-    smooth, dndx, proto, probe, decays, feqmod = _modules()
+    smooth, dndx, proto, probe, decays, feqmod, vah, polzn = _modules()
     smooth.LAUNCHES = smooth.REMAP_LAUNCHES = 0
     dndx.LAUNCHES = dndx.BIN_LAUNCHES = dndx.FEQMOD_LAUNCHES = 0
+    dndx.VAH_LAUNCHES = 0
     proto.LAUNCHES = probe.LAUNCHES = 0
     decays.TWO_BODY_LAUNCHES = decays.THREE_BODY_LAUNCHES = 0
     feqmod.LAUNCHES = feqmod.REMAP_LAUNCHES = 0
+    vah.LAUNCHES = vah.REMAP_LAUNCHES = 0
+    polzn.LAUNCHES = polzn.REMAP_LAUNCHES = 0
 
 
 def _counts() -> dict:
-    smooth, dndx, proto, probe, decays, feqmod = _modules()
+    smooth, dndx, proto, probe, decays, feqmod, vah, polzn = _modules()
     return dict(smooth_spectra=smooth.LAUNCHES,
                 smooth_spectra_remap=smooth.REMAP_LAUNCHES,
                 dndx=dndx.LAUNCHES,
@@ -991,7 +1136,11 @@ def _counts() -> dict:
                 decay_wave_3body=decays.THREE_BODY_LAUNCHES,
                 feqmod_spectra=feqmod.LAUNCHES,
                 feqmod_spectra_remap=feqmod.REMAP_LAUNCHES,
-                dndx_feqmod=dndx.FEQMOD_LAUNCHES)
+                dndx_feqmod=dndx.FEQMOD_LAUNCHES,
+                vah_spectra=vah.LAUNCHES,
+                vah_spectra_remap=vah.REMAP_LAUNCHES,
+                dndx_vah=dndx.VAH_LAUNCHES,
+                polzn=polzn.LAUNCHES, polzn_remap=polzn.REMAP_LAUNCHES)
 
 
 def _expect_counts(path: str, counts: dict, want: dict):
@@ -1122,11 +1271,11 @@ def phase_small_experiments():
 
 
 def phase_dndx_main(smi: str, tag="dndx main", n_cells=DNDX_CELLS,
-                    args=DNDX_ARGS, want=("dndx", "dndx_bin")):
+                    args=DNDX_ARGS, want=("dndx", "dndx_bin"), mode=1):
     """One operation-0 CLI run on a synthetic 2+1D run directory of
-    ``n_cells`` cells x 320 species: launches of ``want`` = canonical
-    groups, every spacetime_distribution file present and finite, pion
-    dN/dy > 0."""
+    ``n_cells`` cells x 320 species on a surface of ``mode``: launches of
+    ``want`` = canonical groups, every spacetime_distribution file present
+    and finite, pion dN/dy > 0."""
     from is3d_tpu_torch.config import load_config
     from is3d_tpu_torch.io.pdg import load_chosen_mcids
     from is3d_tpu_torch.io.tables import native_momentum_grid
@@ -1136,7 +1285,7 @@ def phase_dndx_main(smi: str, tag="dndx main", n_cells=DNDX_CELLS,
     run_dir = os.path.join(WORK, tag.replace(" ", "_"))
     t0 = time.perf_counter()
     write_synthetic_run_dir(run_dir, n_cells, MAIN_SPECIES, dimension=2,
-                            seed=2, params=dict(operation=0))
+                            seed=2, params=dict(operation=0), mode=mode)
     print(f"[{tag}] synthetic run dir {n_cells} cells x "
           f"{MAIN_SPECIES} species written in "
           f"{time.perf_counter() - t0:.2f} s")
@@ -1192,7 +1341,14 @@ def phase_dndx_main(smi: str, tag="dndx main", n_cells=DNDX_CELLS,
     return counts, run_dir, cfg
 
 
-def phase_dndx_pair(smi: str, clock: float, run_dir: str, cfg):
+def phase_dndx_pair(smi: str, clock: float, run_dir: str, cfg,
+                    plain_cells=2048):
+    """The dN/dX kernel on one canonical group (8192 cells) of the
+    operation-0 path, f32: two launches bit-identical; on the group's first
+    ``plain_cells`` cells agreement with the plain version and both f32
+    versions against the f64 kernel; times, bound, SASS; then the binning
+    kernel on the group's per-cell dN/dy against its plain version and its
+    library yardstick."""
     from is3d_tpu_torch.api import IS3D
     from is3d_tpu_torch.utils import cuda_median_ms, cuda_queued_ms
     from is3d_tpu_torch.kernels import dndx
@@ -1204,43 +1360,47 @@ def phase_dndx_pair(smi: str, clock: float, run_dir: str, cfg):
     cells, mom, flags, wM, wR, plan = _dndx_group_inputs(
         run.surface, species, grid, df_data, cfg, gs)
     kern = lambda: dndx.dndx_cuda(cells, mom, flags, wM, wR)
-    plain = lambda: dndx.dndx_plain(cells, mom, flags, wM, wR,
-                                    cfg.cell_chunk)
-    got, again, want = kern(), kern(), plain()
+    got, again = kern(), kern()
     torch.cuda.synchronize()
     if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
         fail("dndx: two launches on the same group differ")
+    n = plain_cells
+    cs = cells[:n].contiguous()
+    want, p_ms = _timed_once(lambda: dndx.dndx_plain(cs, mom, flags, wM, wR,
+                                                     cfg.cell_chunk))
+    got_n = dndx.dndx_cuda(cs, mom, flags, wM, wR)
     S, R = got[1].shape
     shape = f"{cells.shape[0]} cells x {S} x {wM.shape[0]} x {R}"
-    err = max(_check(f"dndx float32 main-path group ({shape}) per cell",
-                     got[0], want[0], 2e-4, 2e-5),
-              _check(f"dndx float32 main-path group dN/dy/deta", got[1],
-                     want[1], 2e-4, 2e-5))
+    err = max(_check(f"dndx float32 main-path group ({shape}), its first {n} "
+                     "cells, per cell", got_n[0], want[0], 2e-4, 2e-5),
+              _check(f"dndx float32 main-path group, its first {n} cells, "
+                     "dN/dy/deta", got_n[1], want[1], 2e-4, 2e-5))
     # both float32 versions against the float64 kernel on the same inputs
-    ref = dndx.dndx_cuda(cells.double(), mom.to(dtype=torch.float64), flags,
+    ref = dndx.dndx_cuda(cs.double(), mom.to(dtype=torch.float64), flags,
                          wM.double(), wR.double())
     share = lambda a, r: ((a.double() - r).abs().max() / r.abs().max()).item()
-    print("[dndx pair] float32 against the float64 kernel, largest "
-          "difference as a share of the largest value (per cell, dN/dy/deta)"
-          f": kernel {share(got[0], ref[0]):.2e}, {share(got[1], ref[1]):.2e}"
+    print(f"[dndx pair] float32 against the float64 kernel on the group's "
+          f"first {n} cells, largest difference as a share of the largest "
+          "value (per cell, dN/dy/deta): kernel "
+          f"{share(got_n[0], ref[0]):.2e}, {share(got_n[1], ref[1]):.2e}"
           f"; plain {share(want[0], ref[0]):.2e}, "
           f"{share(want[1], ref[1]):.2e}")
     del ref
     k_ms, k_all = cuda_median_ms(kern)
-    p_ms, p_all = cuda_median_ms(plain)
     evals = cells.shape[0] * S * wM.shape[0] * R
     bound = _bound(evals, *dndx.FORMULA_OPS[cfg.df_mode],
                    _nbytes(cells, wM, wR, *got, *mom_tensors(mom)), clock)
     print(f"[dndx pair] {smi} | one group {shape}: kernel {k_ms:.3f} ms "
           f"(runs {', '.join(f'{t:.2f}' for t in k_all)}), plain "
-          f"{p_ms:.3f} ms (runs {', '.join(f'{t:.1f}' for t in p_all)}), "
-          f"kernel {evals / k_ms * 1e3:.3e} evaluations/s, plain/kernel "
-          f"{p_ms / k_ms:.2f}, bound {bound[0]:.3f} ms ({bound[1]}); two "
+          f"{p_ms:.3f} ms on its first {n} cells (one run), "
+          f"kernel {evals / k_ms * 1e3:.3e} evaluations/s, bound "
+          f"{bound[0]:.3f} ms ({bound[1]}); two "
           "launches bit-identical; issued per evaluation: "
           + _issued("dndx", "percell_kernelIfNS_16EmissionProducerIf"
                     f"Li{cfg.df_mode}ELi{cfg.dimension}ELb1E"))
     rec_dndx = dict(launches=None, max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                    bound_ms=bound[0], bound_by=bound[1], library_ms=None)
+                    bound_ms=bound[0], bound_by=bound[1], library_ms=None,
+                    cells=cells.shape[0], plain_cells=n)
 
     # the binning kernel on this group's per-cell dN/dy
     per_cell = got[0]
@@ -1487,7 +1647,7 @@ def _kernel_split(fn, calls: int = 20, tries: int = 3) -> str:
 def phase_experiments(smi: str, clock: float):
     """Each experiment at its own shape through its measure(): the counts
     are set to 0 before it and read after it."""
-    _, _, proto, probe, _, _ = _modules()
+    _, _, proto, probe, *_ = _modules()
     records = {}
     for name, mod in (("smooth_proto", proto), ("dndx_probe", probe)):
         _reset_counts()
@@ -1558,6 +1718,319 @@ def phase_feqmod(smi: str, clock: float):
     return rec, rec_remap, rec_dndx
 
 
+def _polzn_results_ok(results, mcids, n_y, tag):
+    """The polarization files exist, are finite, of the spectra's layout,
+    and not all zero."""
+    for name in ("St", "Sx", "Sy", "Sn"):
+        v = np.loadtxt(os.path.join(results, f"{name}.dat"))
+        if v.shape != (len(mcids) * n_y * 24 * 32, 4) or not (
+                np.isfinite(v).all() and (v[:, 3] != 0).any()):
+            fail(f"{tag}: {name}.dat has shape {v.shape}, or values not "
+                 "finite, or all zero")
+    print(f"[{tag}] St.dat, Sx.dat, Sy.dat, Sn.dat: {len(mcids)} species x "
+          f"{n_y * 24 * 32} points each, finite")
+
+
+def _run_state(run_dir: str, cfg):
+    """(run, species, grid) of a run directory on the card, as the CLI
+    prepares them."""
+    from is3d_tpu_torch.api import IS3D
+    run = IS3D(cfg, data_dir=run_dir, device="cuda")
+    _, _, species, _, grid = run._prepare()
+    return run, species, grid
+
+
+def _timed_once(fn):
+    """(fn(), its CUDA-event ms) for one run that takes seconds."""
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    out = fn()
+    t1.record()
+    t1.synchronize()
+    return out, t0.elapsed_time(t1)
+
+
+def _group_pair(name: str, parts, kern, kern64, kslice, plain, n: int):
+    """One group's float32 kernel as [vah pair] and [polzn pair] take it:
+    two launches bit-identical, the float64 kernel on the same cells
+    (the largest difference as a share of each output's largest value,
+    the worst of ``parts``), the group's first ``n`` cells (``kslice``)
+    held against the plain version (``plain``, one timed run);
+    CUDA-event medians of the kernel (5), the float64 kernel (3) and the
+    slice (3).  Returns (the group's outputs, the measurements)."""
+    from is3d_tpu_torch.utils import cuda_median_ms
+    tup = lambda t: t if isinstance(t, tuple) else (t,)
+    got, again, ref = tup(kern()), tup(kern()), tup(kern64())
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"{name}: two launches on the same group differ")
+    f32_share = max(((g.double() - r).abs().max() / r.abs().max()).item()
+                    for g, r in zip(got, ref))
+    want, p_ms = _timed_once(plain)
+    err = max(_check(f"{name} float32{part}, the group's first {n} cells",
+                     g, w, 2e-4, 2e-5)
+              for part, g, w in zip(parts, tup(kslice()), tup(want)))
+    del want, ref
+    k_ms, k_all = cuda_median_ms(kern)
+    k64_ms, k64_all = cuda_median_ms(kern64, 3)
+    ks_ms, _ = cuda_median_ms(kslice, 3)
+    return got, dict(err=err, f32_share=f32_share, p_ms=p_ms, k_ms=k_ms,
+                     k_all=k_all, k64_ms=k64_ms, k64_all=k64_all, ks_ms=ks_ms)
+
+
+def _pair_line(m: dict, evals: float, n: int, bound) -> str:
+    """The measurements of _group_pair as the pair phases print them."""
+    return (f"kernel {m['k_ms']:.3f} ms (runs "
+            f"{', '.join(f'{t:.2f}' for t in m['k_all'])}), "
+            f"{evals / m['k_ms'] * 1e3:.3e} evaluations/s; float64 kernel "
+            f"{m['k64_ms']:.3f} ms (runs "
+            f"{', '.join(f'{t:.1f}' for t in m['k64_all'])}); float32 "
+            f"against float64 {m['f32_share']:.2e} of the largest value (the "
+            f"worst output); on the first {n} cells kernel {m['ks_ms']:.3f} "
+            f"ms, plain {m['p_ms']:.1f} ms (one run); bound {bound[0]:.3f} ms "
+            f"({bound[1]}), kernel at {bound[0] / m['k_ms']:.1%} of it; two "
+            "launches bit-identical; issued per evaluation: ")
+
+
+def _pair_record(m: dict, bound, cells: int, n: int) -> dict:
+    return dict(launches=None, max_abs_err=m["err"], ms=m["k_ms"],
+                plain_ms=m["p_ms"], bound_ms=bound[0], bound_by=bound[1],
+                library_ms=None, cells=cells, plain_cells=n,
+                kernel_ms_on_plain_cells=m["ks_ms"], f64_ms=m["k64_ms"],
+                f32_vs_f64=m["f32_share"])
+
+
+def phase_vah_pair(smi: str, clock: float, groups: list) -> list:
+    """[vah pair]: a VAH spectra kernel on one canonical group (16384
+    cells) of a main-path surface, f32, for each (kind, columns, species,
+    grid, cfg, plain_cells) of ``groups``: two launches bit-identical, the
+    float64 kernel on the same cells, the group's first ``plain_cells``
+    cells held against the plain version; CUDA-event times (f32 one
+    warm-up and the median of 5, f64 of 3), the plain version's one run,
+    evaluations/s, the bound (kernels/vah.py:vah_formula_ops), SASS per
+    evaluation.  Returns the record of each kind."""
+    from is3d_tpu_torch.kernels import vah
+    from is3d_tpu_torch.kernels.smooth import momentum_constants
+    records = []
+    for kind, cols, species, grid, cfg, n in groups:
+        flags = vah.vah_flags(vah.effective_vah_cfg(cols, cfg), grid)
+        x = vah.group_inputs(cols, flags)
+        x64 = vah.group_inputs({k: v.double() for k, v in cols.items()},
+                               flags)
+        xs = x[:n].contiguous()
+        mom = momentum_constants(species, grid, cfg.dimension)
+        mom64 = mom.to(dtype=torch.float64)
+        (got,), m = _group_pair(
+            f"vah pair {kind}", ("",),
+            lambda: vah.vah_spectra_cuda(x, mom, flags),
+            lambda: vah.vah_spectra_cuda(x64, mom64, flags),
+            lambda: vah.vah_spectra_cuda(xs, mom, flags),
+            lambda: vah.vah_spectra_plain(xs, mom, flags, cfg.cell_chunk), n)
+        R = mom.nodes.shape[0]
+        evals = x.shape[0] * mom.mass.shape[0] * mom.px.shape[0] * R
+        bound = _bound(evals, *vah.vah_formula_ops(flags, mom.n_phi),
+                       _nbytes(x, got, *mom_tensors(mom)), clock)
+        if flags.remap:
+            width = vah.vah_grid(vah._library(), x.device, False,
+                                 mom.mass.shape[0], mom.pT.shape[0],
+                                 mom.n_phi, R, flags).phi_width
+            kernel = f"remap_kernelIfLi{width}ELi{flags.switches}EE"
+        else:
+            kernel = (f"fixed_kernelIfLi{flags.dimension}ELi"
+                      f"{flags.switches}EE")
+        aL = cols["aL"]
+        print(f"[vah pair] {smi} | {kind}: one group {x.shape[0]} cells x "
+              f"{tuple(got.shape)} x {R} nodes (chains {flags.switches}, "
+              f"a_L in [{aL.min().item():.2f}, {aL.max().item():.2f}]): "
+              + _pair_line(m, evals, n, bound) + _issued("vah", kernel))
+        records.append(_pair_record(m, bound, x.shape[0], n))
+    return records
+
+
+def phase_vah_dndx_pair(smi: str, clock: float, run_dir: str, cfg,
+                        plain_cells=512) -> dict:
+    """[vah dndx]: the dN/dX kernel's VAH producer on one canonical group
+    of that run, f32: two launches bit-identical, its first
+    ``plain_cells`` cells held against the plain version, times, bound."""
+    import dataclasses
+    from is3d_tpu_torch.kernels import dndx, vah
+    from is3d_tpu_torch.kernels.smooth import momentum_constants
+    from is3d_tpu_torch.parallel.mesh import canonical_groups
+    from is3d_tpu_torch.utils import cuda_median_ms
+    run, species, grid = _run_state(run_dir, cfg)
+    grid = dataclasses.replace(grid, eta_mT_rescale=False)
+    cols = vah.vah_surface_cols(run.surface)
+    _, gs = canonical_groups(cfg, cols["tau"].shape[0])
+    cols = {k: v[:gs] for k, v in cols.items()}
+    flags = vah.vah_flags(vah.effective_vah_cfg(cols, cfg), grid)
+    x = vah.group_inputs(cols, flags)
+    mom = momentum_constants(species, grid, cfg.dimension)
+    wM = dndx.momentum_weights(grid, cfg)
+    wR = dndx.node_weights(grid, cfg.dimension)
+    kern = lambda: dndx.dndx_vah_cuda(x, mom, flags, wM, wR)
+    got, again = kern(), kern()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail("dndx vah: two launches on the same group differ")
+    n = plain_cells
+    xs = x[:n].contiguous()
+    want, p_ms = _timed_once(lambda: dndx.dndx_vah_plain(
+        xs, mom, flags, wM, wR, cfg.cell_chunk))
+    part = dndx.dndx_vah_cuda(xs, mom, flags, wM, wR)
+    err = max(_check(f"dndx vah float32, the group's first {n} cells, per "
+                     "cell", part[0], want[0], 2e-4, 2e-5),
+              _check(f"dndx vah float32, the group's first {n} cells, "
+                     "dN/dy/deta", part[1], want[1], 2e-4, 2e-5))
+    k_ms, k_all = cuda_median_ms(kern)
+    R = wR.shape[0]
+    evals = x.shape[0] * mom.mass.shape[0] * wM.shape[0] * R
+    bound = _bound(evals, *vah.vah_formula_ops(flags, mom.n_phi),
+                   _nbytes(x, wM, wR, *got, *mom_tensors(mom)), clock)
+    print(f"[vah dndx] {smi} | one group {x.shape[0]} cells x "
+          f"{mom.mass.shape[0]} x {wM.shape[0]} x {R} (chains "
+          f"{flags.switches}): kernel {k_ms:.3f} ms (runs "
+          f"{', '.join(f'{t:.2f}' for t in k_all)}), plain {p_ms:.1f} ms on "
+          f"its first {n} cells (one run); bound {bound[0]:.3f} ms "
+          f"({bound[1]}), kernel at {bound[0] / k_ms:.1%} of it; two "
+          "launches bit-identical; issued per evaluation: " + _issued(
+              "dndx", f"percell_kernelIfNS_11VahProducerIfLi{cfg.dimension}E"))
+    return dict(launches=None, max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                bound_ms=bound[0], bound_by=bound[1], library_ms=None,
+                cells=gs, plain_cells=n)
+
+
+def phase_polzn_pair(smi: str, clock: float, groups: list) -> list:
+    """[polzn pair]: a polarization kernel on one canonical group (16384
+    cells) of a main-path surface, f32, for each (kind, columns, species,
+    grid, cfg, T_avg, plain_cells) of ``groups``: as [vah pair], the five
+    sums each held to its plain version, the bound from
+    kernels/polzn.py:polzn_formula_ops."""
+    from is3d_tpu_torch.kernels import polzn
+    from is3d_tpu_torch.kernels.smooth import (momentum_constants,
+                                               remap_node_table)
+    records = []
+    for kind, cols, species, grid, cfg, T_avg, n in groups:
+        flags = polzn.polzn_flags(cfg, grid)
+        x = polzn.pack_polzn_cells(cols, T_avg, flags)
+        x64 = polzn.pack_polzn_cells({k: v.double() for k, v in cols.items()},
+                                     T_avg, flags)
+        xs = x[:n].contiguous()
+        mom = momentum_constants(species, grid, cfg.dimension)
+        mom64 = mom.to(dtype=torch.float64)
+        pm = polzn.species_pm(species)
+        pm64 = polzn.species_pm(species.to(dtype=torch.float64))
+        wR = polzn.node_weights(grid, flags)
+        table = remap_node_table(mom) if flags.remap else None
+        table64 = remap_node_table(mom64) if flags.remap else None
+        got, m = _group_pair(
+            f"polzn pair {kind}", [f" {s}" for s in polzn.SUMS],
+            lambda: polzn.polzn_cuda(x, mom, pm, wR, flags, table),
+            lambda: polzn.polzn_cuda(x64, mom64, pm64, wR.double(), flags,
+                                     table64),
+            lambda: polzn.polzn_cuda(xs, mom, pm, wR, flags, table),
+            lambda: polzn.polzn_plain(xs, mom, pm, wR, flags,
+                                      cfg.cell_chunk), n)
+        R = mom.nodes.shape[0]
+        evals = x.shape[0] * mom.mass.shape[0] * mom.px.shape[0] * R
+        nb = _nbytes(x, pm, wR, *got, *mom_tensors(mom)) + (
+            _nbytes(table) if flags.remap else 0)
+        bound = _bound(evals, *polzn.polzn_formula_ops(flags.remap,
+                                                      mom.n_phi), nb, clock)
+        kernel = ("remap_kernelIfEEv" if flags.remap
+                  else f"fixed_kernelIfLi{flags.dimension}EE")
+        print(f"[polzn pair] {smi} | {kind}: one group {x.shape[0]} cells x "
+              f"{tuple(got[0].shape)} x {R} nodes, five sums: "
+              + _pair_line(m, evals, n, bound) + _issued("polzn", kernel))
+        records.append(_pair_record(m, bound, x.shape[0], n))
+    return records
+
+
+def _first_group(cols: dict, cfg) -> dict:
+    """The first canonical group of a run's cell columns."""
+    from is3d_tpu_torch.parallel.mesh import canonical_groups
+    _, gs = canonical_groups(cfg, cols["tau"].shape[0])
+    return {k: v[:gs] for k, v in cols.items()}
+
+
+def phase_vah(smi: str, clock: float):
+    """The VAH paths: [vah main 2d] (mode 2, 2+1D, the mT remap) and [vah
+    main 3d] (mode 2, 3+1D fixed nodes) through the CLI at 131072 x 320,
+    each with a 256-cell cuda-against-cpu run (the 3+1D one on a mode-3
+    surface); [vah pair] on one group of each (and of the 3+1D one with
+    synthetic c0..c4: every chain on); [vah dndx] (operation 0, mode 2,
+    16384 cells) and its group.  Returns the kernel records of the three
+    entry points."""
+    from is3d_tpu_torch import testing
+    from is3d_tpu_torch.kernels import vah
+    counts2, run_dir2, cfg2, _ = phase_main_path(
+        smi, "vah main 2d", dimension=2, args=VAH2D_ARGS, n_nodes=48,
+        want=("vah_spectra_remap",), mode=2)
+    phase_small_path_cpu_vs_cuda("small_vah_2d", dimension=2,
+                                 label="2+1D mode 2 mT remap", mode=2)
+    counts3, run_dir3, cfg3, _ = phase_main_path(
+        smi, "vah main 3d", args=VAH3D_ARGS, want=("vah_spectra",), mode=2)
+    phase_small_path_cpu_vs_cuda("small_vah_3d", dimension=3,
+                                 label="3+1D mode 3", mode=3)
+    run2, species2, grid2 = _run_state(run_dir2, cfg2)
+    run3, species3, grid3 = _run_state(run_dir3, cfg3)
+    g2 = _first_group(vah.vah_surface_cols(run2.surface), cfg2)
+    g3 = _first_group(vah.vah_surface_cols(run3.surface), cfg3)
+    coeffs = testing.synthetic_vah_coefficients(
+        {"tau": np.zeros(g3["tau"].shape[0])}, seed=0)
+    g3c = dict(g3, **{k: torch.tensor(v, dtype=torch.float32, device="cuda")
+                      for k, v in coeffs.items()})
+    rec_remap, rec_fixed, rec_chains = phase_vah_pair(smi, clock, [
+        ("2+1D remap", g2, species2, grid2, cfg2, 512),
+        ("3+1D fixed", g3, species3, grid3, cfg3, 2048),
+        ("3+1D fixed, every chain", g3c, species3, grid3, cfg3, 2048)])
+    for d in (run_dir2, run_dir3):
+        shutil.rmtree(d, ignore_errors=True)
+    rec_remap["launches"] = counts2["vah_spectra_remap"]
+    rec_fixed.update(launches=counts3["vah_spectra"], every_chain=rec_chains)
+
+    counts, run_dir, cfg = phase_dndx_main(
+        smi, "vah dndx", VAH_DNDX_CELLS, VAH_DNDX_ARGS,
+        want=("dndx_vah", "dndx_bin"), mode=2)
+    phase_small_path_cpu_vs_cuda("small_vah_dndx", dimension=2,
+                                 params=dict(operation=0),
+                                 label="2+1D operation 0 mode 2", mode=2)
+    rec_dndx = phase_vah_dndx_pair(smi, clock, run_dir, cfg)
+    rec_dndx["launches"] = counts["dndx_vah"]
+    shutil.rmtree(run_dir, ignore_errors=True)
+    return rec_fixed, rec_remap, rec_dndx
+
+
+def phase_polzn(smi: str, clock: float):
+    """The polarization paths: [polzn main 2d] (mode 5, 2+1D: the remap
+    kernel, then K1's remap spectra) and [polzn main 3d] (3+1D: the
+    fixed-node kernel, then K1) through the CLI at 131072 x 320, the
+    first with its 256-cell cuda-against-cpu run; [polzn pair] on one
+    group of each.  Returns the kernel records of both."""
+    from is3d_tpu_torch.kernels import polzn
+    counts2, run_dir2, cfg2, _ = phase_main_path(
+        smi, "polzn main 2d", dimension=2, args=POLZN2D_ARGS, n_nodes=48,
+        want=("polzn_remap", "smooth_spectra", "smooth_spectra_remap"),
+        mode=5)
+    phase_small_path_cpu_vs_cuda("small_polzn_2d", dimension=2,
+                                 label="2+1D mode 5 (polarization, spectra)",
+                                 mode=5)
+    counts3, run_dir3, cfg3, _ = phase_main_path(
+        smi, "polzn main 3d", args=POLZN3D_ARGS,
+        want=("polzn", "smooth_spectra"), mode=5)
+    run2, species2, grid2 = _run_state(run_dir2, cfg2)
+    run3, species3, grid3 = _run_state(run_dir3, cfg3)
+    rec_remap, rec_fixed = phase_polzn_pair(smi, clock, [
+        ("2+1D remap", _first_group(polzn.polzn_cols(run2.surface), cfg2),
+         species2, grid2, cfg2, run2.plasma().temperature, 512),
+        ("3+1D fixed", _first_group(polzn.polzn_cols(run3.surface), cfg3),
+         species3, grid3, cfg3, run3.plasma().temperature, 2048)])
+    for d in (run_dir2, run_dir3):
+        shutil.rmtree(d, ignore_errors=True)
+    rec_remap["launches"] = counts2["polzn_remap"]
+    rec_fixed["launches"] = counts3["polzn"]
+    return rec_fixed, rec_remap
+
+
 def main():
     smi, clock = phase_device()
     phase_build()
@@ -1569,6 +2042,8 @@ def main():
     phase_small_experiments()
     phase_small_decay_edges()
     phase_small_feqmod()
+    phase_small_vah()
+    phase_small_polzn()
     shutil.rmtree(WORK, ignore_errors=True)
     try:
         counts, run_dir, cfg, _ = phase_main_path(smi)
@@ -1582,7 +2057,7 @@ def main():
         phase_small_path_cpu_vs_cuda(
             "small_2d", dimension=2, label="2+1D mT remap df2")
         rec_remap = phase_pair(smi, clock, run_dir, cfg2d, "remap pair",
-                               plain_runs=1)
+                               plain_cells=2048)
         rec_remap["launches"] = counts["smooth_spectra_remap"]
         shutil.rmtree(run_dir, ignore_errors=True)
         counts, dndx_dir, dndx_cfg = phase_dndx_main(smi)
@@ -1612,6 +2087,8 @@ def main():
         experiments = phase_experiments(smi, clock)
         rec_feqmod, rec_feqmod_remap, rec_feqmod_dndx = phase_feqmod(smi,
                                                                     clock)
+        rec_vah, rec_vah_remap, rec_vah_dndx = phase_vah(smi, clock)
+        rec_polzn, rec_polzn_remap = phase_polzn(smi, clock)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     src = "is3d_tpu_torch/csrc/"
@@ -1643,6 +2120,16 @@ def main():
              replaces="is3d_tpu/kernels/feqmod.py:276", **rec_feqmod_remap),
         dict(name="dndx_feqmod", route="cuda", source=src + "dndx.cu",
              replaces="is3d_tpu/kernels/dndx.py:110", **rec_feqmod_dndx),
+        dict(name="vah_spectra", route="cuda", source=src + "vah.cu",
+             replaces="is3d_tpu/kernels/vah.py:51", **rec_vah),
+        dict(name="vah_spectra_remap", route="cuda", source=src + "vah.cu",
+             replaces="is3d_tpu/kernels/vah.py:51", **rec_vah_remap),
+        dict(name="dndx_vah", route="cuda", source=src + "dndx.cu",
+             replaces="is3d_tpu/kernels/dndx.py:102", **rec_vah_dndx),
+        dict(name="polzn", route="cuda", source=src + "polzn.cu",
+             replaces="is3d_tpu/kernels/polzn.py:42", **rec_polzn),
+        dict(name="polzn_remap", route="cuda", source=src + "polzn.cu",
+             replaces="is3d_tpu/kernels/polzn.py:42", **rec_polzn_remap),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

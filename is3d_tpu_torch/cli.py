@@ -25,7 +25,11 @@ _USAGE = (
     "             PDG/, tables/, deltaf_coefficients/ (default: .)\n"
     "  device     cuda (default) or cpu\n"
     "  key=value  parameter overrides, e.g. df_mode=2 precision=f32\n"
-    "             (reference: ParameterReader::readFromArguments)")
+    "             (reference: ParameterReader::readFromArguments)\n"
+    "  operation  0 (dN/dX) or 1 (spectra); mode 0-7: 1 viscous hydro,\n"
+    "             2 / 3 anisotropic hydro (VAH, PL / PL,PT matched),\n"
+    "             5 viscous hydro + thermal vorticity (the spin\n"
+    "             polarization, then the operation)")
 
 
 def main(argv=None):

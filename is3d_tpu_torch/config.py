@@ -80,6 +80,20 @@ class Config:
     # the consistent, correct behavior
     reference_compat_feqmod_eta: int = 0
 
+    # --- anisotropic hydro (modes 2-3; no reference counterpart) ---
+    # drop the VAH residual-df chains whose coefficient columns (c0..c4,
+    # bulkPi) are exact zeros from the kernel launch (kernels/vah.py
+    # effective_vah_cfg; bit-identical, the dropped terms are exact zeros).
+    # No VAH hydro format carries c0..c4 and no reference reader fills
+    # them, so it fires on every real mode-2/3 surface; 0 forces the chains
+    vah_df_gate: int = 1
+    # opt-in: fill missing per-cell c0..c4 on mode-2/3 surfaces by bilinear
+    # interpolation of deltaf_coefficients/vah/c{0..4}_vah1.dat in (Lambda,
+    # aL), tables the reference's C++ build never loads (only its legacy
+    # CUDA port did, deltafReader.cu:208); default off: zero or
+    # user-supplied columns, as the reference
+    vah_coefficient_tables: int = 0
+
     # --- run knobs (no reference counterpart) ---
     precision: str = "f64"      # "f64" for parity runs, "f32" fast path
     cell_chunk: int = 65536     # cells per chunk of the plain spectra path

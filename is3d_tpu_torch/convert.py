@@ -16,7 +16,7 @@ import torch
 
 from .data import SpeciesArrays
 from .io.deltaf import DeltafData
-from .io.surface import Surface, surface_from_arrays
+from .io.surface import Surface, ThermoAverages, surface_from_arrays
 from .io.tables import MomentumGrid
 from .physics.splines import CubicSpline
 
@@ -28,9 +28,17 @@ def _t(a, device, dtype) -> torch.Tensor:
 
 def surface_from_state(state: dict, device="cpu",
                        dtype=torch.float64) -> Surface:
+    """Every surface column, those of the VAH (Lambda, aL, aT, c0..c4, W,
+    pi_perp) and vorticity (w) blocks too; absent (None) ones stay None."""
     return surface_from_arrays(dtype=dtype, device=device,
                                **{k: v for k, v in state.items()
                                   if v is not None})
+
+
+def averages_from_state(state: dict) -> ThermoAverages:
+    """The surface averages (the run's plasma: T_avg and the rest) from
+    the JAX package's ThermoAverages fields."""
+    return ThermoAverages(**{k: float(v) for k, v in state.items()})
 
 
 def species_from_state(state: dict, device="cpu",

@@ -11,7 +11,7 @@
 //     per_cell[c, s] = scale_s * sum_r wR_r sum_m wM_m f(c, r, s, m)
 //     dydeta[s, r]   = scale_s * sum_c sum_m wM_m f(c, r, s, m)
 //
-// Three producers instantiate the same reduction:
+// Four producers instantiate the same reduction:
 //   * EmissionProducer: p.dsigma f_eq (1 + df) (linear df 1-2) in the
 //     folded form of folded.cuh at fixed rapidity nodes, 2+1D (Delta =
 //     -eta_r, wR = eta weights) or 3+1D (Delta = y_r - eta_c, wR = 1);
@@ -30,6 +30,13 @@
 //     branches per (cell, node) between f_mod and the fallback, so a warp
 //     whose cells differ runs both; the dN/dX kernel is a first version
 //     here, its time against its bound in PERF.md.
+//   * VahProducer: p.dsigma f of the anisotropic-hydro emission (modes
+//     2-3, is3d_tpu/kernels/vah.py's _chunk_vah_spectra with reduce=False
+//     under is3d_tpu/kernels/dndx.py:102-109) at fixed rapidity nodes: the
+//     emission value of vah.cuh on the packed rows of vah.cu
+//     (kernels/vah.py:pack_vah_cells); the residual chains a runtime
+//     switch of the producer (one instantiation per dimension, each chain
+//     set its own code path); the tables of EmissionProducer.
 //   * ProbeProducer: P2's synthetic f = 1/(e^x + 1) (1 + 0.1 x) w(s, m),
 //     x = a(c, r) b(s, m) + 0.3 a(c, r); scale_s = 1.
 //
@@ -90,6 +97,7 @@
 
 #include "feqmod.cuh"
 #include "folded.cuh"
+#include "vah.cuh"
 
 namespace {
 
@@ -339,6 +347,109 @@ struct FeqmodProducer {
           }
         }
       }
+    }
+  }
+};
+
+// the anisotropic-hydro emission (vah.cuh); staged: the point table is in
+// shared memory
+template <typename T, int DIM>
+struct VahProducer {
+  const T* cells;                    // (n_cells, NV) packed rows
+  const T* nodes;                    // (n_nodes)
+  const T* species;                  // (n_species, 4) m^2, sign, baryon, 0
+  const T* mt;                       // (n_species, n_pT, 2) mT, mT^2
+  const T* points;                   // (M, 8) px, py, px^2, py^2, px py, wM
+  int n_species, n_nodes, n_pT, n_phi;
+  int sw, regulate, outflow, staged;
+
+  size_t shared_bytes() const {
+    return staged ? (size_t)n_pT * n_phi * PW * sizeof(T) : 0;
+  }
+
+  __device__ __forceinline__ void stage(T* sm) const {
+    if (staged)
+      for (int i = threadIdx.x; i < n_pT * n_phi * PW; i += PBLOCK)
+        sm[i] = points[i];
+  }
+
+  struct CellState {
+    int cell;
+    T k[YC][NKV];                    // vah_node's values per node
+  };
+
+  __device__ __forceinline__ void load(CellState& cs, int cell, int r0) const {
+    cs.cell = cell;
+    const T* g = cells + (size_t)cell * NV;
+#pragma unroll
+    for (int y = 0; y < YC; ++y) {
+      const T node = nodes[min(r0 + y, n_nodes - 1)];
+      vah_node<T>(g, DIM == 3 ? node - g[V_ETA] : -node, T(1), cs.k[y]);
+    }
+  }
+
+  template <int SW>
+  __device__ __forceinline__ void sum_sw(const CellState& cs, int s0,
+                                         T (&t)[J][YC], const T* sm) const {
+    using F = Fn<T>;
+    const T* g = cells + (size_t)cs.cell * NV;
+    const VahCoef<T> k = vah_coef<T>(g);
+    const T dax = g[V_DAX], day = g[V_DAY], ux = g[V_UX], uy = g[V_UY];
+    // per (cell, species)
+    T m2[J], sgn[J];
+    const T* mts[J];
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int s = min(s0 + j, n_species - 1);
+      T bar, unused;
+      F::ld4(species + (size_t)s * 4, m2[j], sgn[j], bar, unused);
+      mts[j] = mt + (size_t)s * n_pT * 2;
+    }
+    const T* q = staged ? sm : points;
+    for (int ip = 0; ip < n_pT; ++ip) {
+      T mT[J], mT2[J];
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        mT[j] = mts[j][2 * ip];
+        mT2[j] = mts[j][2 * ip + 1];
+      }
+      for (int iphi = 0; iphi < n_phi; ++iphi, q += PW) {
+        T px, py, px2, py2, pxpy, wm, u0, u1;
+        F::ld4(q, px, py, px2, py2);
+        F::ld4(q + 4, pxpy, wm, u0, u1);
+        // per (cell, point)
+        const T W1 = fma(dax, px, day * py);
+        const T nW2 = -fma(ux, px, uy * py);
+        T C4 = T(0), nWW = T(0);
+        if (SW & VSW_SHEAR) {
+          C4 = fma(g[V_KPIXX], px2,
+                   fma(g[V_KPIYY], py2, T(2) * g[V_KPIXY] * pxpy));
+          nWW = -fma(g[V_WX], px, g[V_WY] * py);
+        }
+#pragma unroll
+        for (int y = 0; y < YC; ++y) {
+          const T* kk = cs.k[y];
+          const T c23 = (SW & VSW_SHEAR) ? fma(px, kk[5], py * kk[6]) : T(0);
+#pragma unroll
+          for (int j = 0; j < J; ++j) {
+            const T v = vah_point<T, SW>(kk, mT[j], mT2[j], m2[j], sgn[j], W1,
+                                         nW2, C4, nWW, c23, k, regulate,
+                                         outflow);
+            t[j][y] = fma(v, wm, t[j][y]);
+          }
+        }
+      }
+    }
+  }
+
+  __device__ __forceinline__ void sum_points(const CellState& cs, int s0,
+                                             T (&t)[J][YC],
+                                             const T* sm) const {
+    switch (sw) {
+      case 0: sum_sw<0>(cs, s0, t, sm); break;
+      case 1: sum_sw<1>(cs, s0, t, sm); break;
+      case 2: sum_sw<2>(cs, s0, t, sm); break;
+      default: sum_sw<3>(cs, s0, t, sm); break;
     }
   }
 };
@@ -762,6 +873,47 @@ int launch_dndx_feqmod(const void* cells, int n_cells, int nq,
 #undef IS3D_FEQMOD
 }
 
+bool vah_shape_ok(int dimension, int sw, int n_pT, int n_phi) {
+  return (dimension == 2 || dimension == 3) && sw >= 0 && sw <= 3 &&
+         n_pT >= 1 && n_phi >= 1 && n_pT <= 0x7fffffff / PW / n_phi;
+}
+
+template <typename T>
+int dndx_vah_slots(int dimension, int sw, int n_pT, int n_phi) {
+  if (!vah_shape_ok(dimension, sw, n_pT, n_phi))
+    return -(int)cudaErrorInvalidValue;
+  const size_t bytes = point_table_bytes<T>(n_pT, n_phi);
+  const size_t staged = bytes <= POINTS_SMEM_MAX ? bytes : 0;
+  return dimension == 3 ? percell_slots<T, VahProducer<T, 3>>(staged)
+                        : percell_slots<T, VahProducer<T, 2>>(staged);
+}
+
+template <typename T>
+int launch_dndx_vah(const void* cells, int n_cells, int nv,
+                    const void* species, const void* deg, int n_species,
+                    const void* mt, const void* points, int n_pT, int n_phi,
+                    const void* nodes, const void* wR, int n_nodes,
+                    int dimension, int sw, int regulate, int outflow,
+                    double prefactor, int cells_per_split, void* per_cell,
+                    void* dydeta, void* partial, void* stream) {
+  if (nv != NV || !vah_shape_ok(dimension, sw, n_pT, n_phi))
+    return cudaErrorInvalidValue;
+  const int staged = point_table_bytes<T>(n_pT, n_phi) <= POINTS_SMEM_MAX;
+#define IS3D_VAH(DIM_)                                                        \
+  {                                                                          \
+    VahProducer<T, DIM_> prod{                                               \
+        static_cast<const T*>(cells), static_cast<const T*>(nodes),          \
+        static_cast<const T*>(species), static_cast<const T*>(mt),           \
+        static_cast<const T*>(points), n_species, n_nodes, n_pT, n_phi, sw,  \
+        regulate, outflow, staged};                                          \
+    return launch_percell<T>(prod, n_cells, cells_per_split, n_species,      \
+                             n_nodes, wR, deg, prefactor, per_cell, dydeta,  \
+                             partial, stream);                               \
+  }
+  if (dimension == 3) IS3D_VAH(3) else IS3D_VAH(2)
+#undef IS3D_VAH
+}
+
 template <typename T>
 int launch_probe(const void* a, int n_cells, int n_nodes, const void* b,
                  const void* w, int n_species, int M, const void* wM,
@@ -857,6 +1009,32 @@ int is3d_dndx_feqmod_slots_f32(int df_mode, int dimension, int n_pT,
 int is3d_dndx_feqmod_slots_f64(int df_mode, int dimension, int n_pT,
                                int n_phi) {
   return dndx_feqmod_slots<double>(df_mode, dimension, n_pT, n_phi);
+}
+
+// the VAH producer (modes 2-3): the packed rows (n_cells, NV) of
+// kernels/vah.py:pack_vah_cells; sw the residual chains (shear 1, bulk 2)
+#define IS3D_DNDX_VAH_ENTRY(NAME, T)                                          \
+  int NAME(const void* cells, int n_cells, int nv, const void* species,      \
+           const void* deg, int n_species, const void* mt,                   \
+           const void* points, int n_pT, int n_phi, const void* nodes,       \
+           const void* wR, int n_nodes, int dimension, int sw, int regulate, \
+           int outflow, double prefactor, int cells_per_split,               \
+           void* per_cell, void* dydeta, void* partial, void* stream) {      \
+    return launch_dndx_vah<T>(cells, n_cells, nv, species, deg, n_species,   \
+                              mt, points, n_pT, n_phi, nodes, wR, n_nodes,   \
+                              dimension, sw, regulate, outflow, prefactor,   \
+                              cells_per_split, per_cell, dydeta, partial,    \
+                              stream);                                       \
+  }
+IS3D_DNDX_VAH_ENTRY(is3d_dndx_vah_f32, float)
+IS3D_DNDX_VAH_ENTRY(is3d_dndx_vah_f64, double)
+#undef IS3D_DNDX_VAH_ENTRY
+
+int is3d_dndx_vah_slots_f32(int dimension, int sw, int n_pT, int n_phi) {
+  return dndx_vah_slots<float>(dimension, sw, n_pT, n_phi);
+}
+int is3d_dndx_vah_slots_f64(int dimension, int sw, int n_pT, int n_phi) {
+  return dndx_vah_slots<double>(dimension, sw, n_pT, n_phi);
 }
 
 // resident blocks of the dN/dX kernel (probe: of its probe instantiation)

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from ..tensors import TensorContainer
-from ..units import TWO_PI2_HBARC3
+from ..units import HBARC, TWO_PI2_HBARC3
 from ..physics.splines import CubicSpline, build_natural_cubic
 from ..physics import thermal
 from .tables import gauss_laguerre
@@ -102,6 +102,72 @@ def load_deltaf_tables(coeff_dir: str, hrg_eos: int):
         T, muB, vals = _load_coeff_file(f"{coeff_dir}/vh/{sub}/{name}.dat")
         tables[name] = vals
     return T, muB, tables
+
+
+VAH_COEFF_NAMES = ("c0", "c1", "c2", "c3", "c4")
+
+
+def load_vah_coefficient_tables(coeff_dir: str) -> dict:
+    """Load the anisotropic-hydro residual-df coefficient tables
+    ``deltaf_coefficients/vah/c{0..4}_vah1.dat``, a data asset the
+    reference's C++ build never loads (its kernel reads c0..c4 from FO_surf
+    fields no reader fills, emissionfunction.cpp:1409-1417; only its legacy
+    CUDA port wires them, src/cuda/deltafReader.cu:74-78).
+
+    File format (the block layout of the vh tables): two header counts nL,
+    naL, a label line, then nL*naL rows of (Lambda [fm^-1], aL, c) with
+    Lambda varying fastest.  Returns a dict with the Lambda/aL grids and the
+    five (naL, nL) coefficient arrays as raw file values (the 1/hbarC^3
+    unit conversion is applied at interpolation time, as
+    src/cuda/deltafReader.cu:273-277 does)."""
+    out = {}
+    L = aL = None
+    for name in VAH_COEFF_NAMES:
+        path = f"{coeff_dir}/vah/{name}_vah1.dat"
+        with open(path) as f:
+            lines = f.read().splitlines()
+        nL = int(lines[0].split()[0])
+        naL = int(lines[1].split()[0])
+        data = np.array(" ".join(lines[3:]).split(),
+                        dtype=np.float64).reshape(-1, 3)
+        if data.shape[0] != nL * naL:
+            raise ValueError(
+                f"{path}: expected {nL * naL} rows, got {data.shape[0]}")
+        L = data[:nL, 0]
+        aL = data[::nL, 1]
+        out[name] = data[:, 2].reshape(naL, nL)
+    out["Lambda_invfm"] = L
+    out["aL"] = aL
+    return out
+
+
+def interpolate_vah_coefficients(tables: dict, Lambda, aL) -> dict:
+    """Per-cell c0..c4 from the vah tables by bilinear interpolation in
+    (Lambda / hbarC [fm^-1], aL), converted by 1/hbarC^3: the semantics of
+    the one reference component that ever consumed these tables
+    (src/cuda/deltafReader.cu:208-283).  ``Lambda`` is in GeV (surface
+    units).  Host numpy, once per run, clamped to the table domain."""
+    L_grid = tables["Lambda_invfm"]
+    aL_grid = tables["aL"]
+    Lq = np.clip(np.asarray(Lambda, np.float64) / HBARC,
+                 L_grid[0], L_grid[-1])
+    aq = np.clip(np.asarray(aL, np.float64), aL_grid[0], aL_grid[-1])
+    iL = np.clip(np.searchsorted(L_grid, Lq, side="right"), 1,
+                 len(L_grid) - 1)
+    ia = np.clip(np.searchsorted(aL_grid, aq, side="right"), 1,
+                 len(aL_grid) - 1)
+    L1, L2 = L_grid[iL - 1], L_grid[iL]
+    a1, a2 = aL_grid[ia - 1], aL_grid[ia]
+    wL = (Lq - L1) / (L2 - L1)
+    wa = (aq - a1) / (a2 - a1)
+    out = {}
+    for name in VAH_COEFF_NAMES:
+        v = tables[name]
+        interp = ((v[ia - 1, iL - 1] * (1.0 - wL) + v[ia - 1, iL] * wL)
+                  * (1.0 - wa)
+                  + (v[ia, iL - 1] * (1.0 - wL) + v[ia, iL] * wL) * wa)
+        out[name] = interp / HBARC**3
+    return out
 
 
 def compute_jonah_arrays(mass, gspin, sign, T_avg: float, laguerre=None):

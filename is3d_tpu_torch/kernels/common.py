@@ -107,10 +107,12 @@ def prepare_cells(cols: dict, cfg, df_data: Optional[DeltafData]) -> dict:
 
 
 # columns that must pad with a physical (non-zero) value so kernels stay
-# finite on inert pad cells (they appear in denominators / sqrt arguments);
+# finite on inert pad cells (they appear in denominators / sqrt arguments:
+# with Lambda = aL = 0 the VAH kernels' 1/Lambda and xi_L = 1/aL^2 - 1
+# would be inf, and the zero dsigma would turn them into 0 inf = NaN);
 # everything else pads with 0, and dsigma = 0 makes a pad cell's
-# contribution exactly zero via the u.dsigma > 0 validity mask.
-PAD_ONE_COLUMNS = ("tau", "T", "E", "P")
+# contribution exactly zero.
+PAD_ONE_COLUMNS = ("tau", "T", "E", "P", "Lambda", "aL")
 
 
 # element budget of one chunk of the plain (torch) spectra path's

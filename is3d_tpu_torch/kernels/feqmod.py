@@ -64,7 +64,7 @@ from ..physics import lrf, thermal
 from .common import (surface_columns, prepare_cells, scaled_fermi_bose,
                      fermi_bose, effective_chunk, CHUNK_ELEMENT_BUDGET)
 from .launch import (check_float, check_tensor, require_cuda, launch,
-                     split_to_fill)
+                     kernel_grid, tile_split)
 from .smooth import (ETA_REMAP_T_REF, MomentumConstants, df_switches,
                      emission_terms, node_delta, momentum_constants,
                      remap_scale, remap_node_table, REMAP_NODE_OPS)
@@ -613,39 +613,15 @@ def _library():
     return lib
 
 
-@dataclass(frozen=True)
-class FeqmodGrid:
-    """A feqmod kernel's grid for one shape on one card, as the C side
-    (csrc/feqmod.cu:feqmod_grid, the owner of the blocking) reports it."""
-
-    blocks: int        # blocks for each range of cells
-    slots: int         # blocks the card holds at once
-    parts: int         # partial sums for each range of cells
-    tile: int          # cells per shared-memory tile
-    max_split: int     # most ranges of cells
-    phi_width: int     # remap: angles per thread (its instantiation)
-
-
 def feqmod_grid(lib, device: torch.device, f64: bool, n_species: int,
                 n_pT: int, n_phi: int, n_nodes: int, dimension: int,
-                remap: bool) -> FeqmodGrid:
-    out = (ctypes.c_int * 6)()
-    fn = lib.is3d_feqmod_grid_f64 if f64 else lib.is3d_feqmod_grid_f32
-    with torch.cuda.device(device):
-        rc = fn(n_species, n_pT, n_phi, n_nodes, dimension, int(remap), out)
-    if rc != 0:
-        raise RuntimeError("feqmod: no launch configuration: "
-                           f"{lib.is3d_cuda_error_string(rc).decode()}")
-    return FeqmodGrid(*out)
-
-
-def cell_split(n_cells: int, grid: FeqmodGrid) -> tuple[int, int]:
-    """(cells per split, splits): whole tiles per split, the fewest splits
-    that fill the card's waves (launch.split_to_fill)."""
-    n_tiles = -(-max(n_cells, 1) // grid.tile)
-    per, n_split = split_to_fill(n_tiles, max(grid.blocks, 1), grid.slots,
-                                 grid.max_split)
-    return per * grid.tile, n_split
+                remap: bool):
+    """A feqmod kernel's launch.KernelGrid for one shape on one card
+    (csrc/feqmod.cu:feqmod_grid owns the blocking)."""
+    return kernel_grid(
+        lib, "feqmod",
+        lib.is3d_feqmod_grid_f64 if f64 else lib.is3d_feqmod_grid_f32,
+        device, n_species, n_pT, n_phi, n_nodes, dimension, int(remap))
 
 
 def feqmod_spectra_cuda(x: torch.Tensor, rn: torch.Tensor, wcs: torch.Tensor,
@@ -675,7 +651,7 @@ def feqmod_spectra_cuda(x: torch.Tensor, rn: torch.Tensor, wcs: torch.Tensor,
     f64 = x.dtype == torch.float64
     grid = feqmod_grid(lib, x.device, f64, S, P, F, R, flags.dimension,
                        flags.remap)
-    per, n_split = cell_split(C, grid)
+    per, n_split = tile_split(C, grid)
     n_parts = n_split * grid.parts
     n_out = R if flags.dimension == 3 else 1
     out = x.new_empty((S, P, F, n_out))

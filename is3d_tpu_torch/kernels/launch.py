@@ -6,6 +6,9 @@ entry point returns."""
 
 from __future__ import annotations
 
+import ctypes
+from dataclasses import dataclass
+
 import torch
 
 
@@ -85,3 +88,38 @@ def split_to_fill(n_units: int, blocks_per_split: int, slots: int,
     best = min(c for c, _ in costs.values())
     n_split = min(k for k, (c, _) in costs.items() if c <= 1.02 * best)
     return costs[n_split][1], n_split
+
+
+@dataclass(frozen=True)
+class KernelGrid:
+    """A tiled kernel's grid for one shape on one card, as its C side (the
+    owner of the blocking: csrc/feqmod.cu, vah.cu, polzn.cu) reports it."""
+
+    blocks: int        # blocks for each range of cells
+    slots: int         # blocks the card holds at once
+    parts: int         # partial sums for each range of cells
+    tile: int          # cells per shared-memory tile
+    max_split: int     # most ranges of cells
+    phi_width: int     # remap: angles per thread (its instantiation)
+
+
+def kernel_grid(lib, what: str, fn, device: torch.device,
+                *args) -> KernelGrid:
+    """The grid the C entry point ``fn(*args, out)`` reports on
+    ``device``; raise with the CUDA error string if it returns nonzero."""
+    out = (ctypes.c_int * 6)()
+    with torch.cuda.device(device):
+        rc = fn(*args, out)
+    if rc != 0:
+        raise RuntimeError(f"{what}: no launch configuration: "
+                           f"{lib.is3d_cuda_error_string(rc).decode()}")
+    return KernelGrid(*out)
+
+
+def tile_split(n_cells: int, grid: KernelGrid) -> tuple[int, int]:
+    """(cells per split, splits) of a tiled kernel: whole tiles per split,
+    the fewest splits that fill the card's waves (split_to_fill)."""
+    n_tiles = -(-max(n_cells, 1) // grid.tile)
+    per, n_split = split_to_fill(n_tiles, max(grid.blocks, 1), grid.slots,
+                                 grid.max_split)
+    return per * grid.tile, n_split

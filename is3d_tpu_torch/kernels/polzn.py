@@ -1,0 +1,370 @@
+"""Thermal-vorticity spin polarization (mode 5).
+
+Port of ``is3d_tpu.kernels.polzn`` (the reference's calculate_spin_polzn,
+src/cpp/emissionfunction_polzn_kernels.cpp:27-265): per momentum point the
+covariant polarization vector
+
+    S_mu(p) = -(1 - sign f0) / (8 m) 2 eps_{mu nu rho sigma} p^nu w^{rho sigma}
+
+is integrated over the surface with the measure p.dsigma f0 and normalized
+by Snorm = int p.dsigma f0.  f0 = 1 / (exp(u.p / T_avg) + sign) takes the
+surface-averaged temperature (the plasma's, which honours
+set_FO_temperature), not each cell's.  Every cell counts: there is no
+u.dsigma filter (the reference's kernel has none, :120-141).
+
+One group of cells goes through:
+
+1. ``pack_polzn_cells``: the kernels' input, a (C, NW) matrix of per-cell
+   scalars (field order PW_FIELDS);
+2. ``polzn_cuda`` (csrc/polzn.cu: ``fixed_kernel`` at fixed nodes,
+   ``remap_kernel`` with the 2+1D mT remap) for CUDA tensors,
+   ``polzn_plain`` for CPU tensors: the five sums (St, Sx, Sy, Sn, Snorm),
+   each (S, n_pT, n_phi, n_y_out).
+
+``spin_polarization`` folds the groups' five sums leaf by leaf in group
+order (``parallel.mesh.grouped_cell_reduce``) and ``polzn_normalize``
+divides by Snorm.
+
+Quadrature, as the JAX package: 2+1D fixed nodes weigh eta_weight x
+(eta[1] - eta[0]) (the reference's quirk, :62-71; it divides out of
+S/Snorm); the 2+1D remap moves the nodes to Delta = y_flow - s eta_r with
+s = sqrt(T_ref / max(mT, T_ref)) per (species, pT), and the jacobian s
+multiplies the reduced sums.  A massless species has pref = -0.25/m = -inf:
+its S sums are inf or NaN as the JAX package's are, Snorm stays finite.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+
+import torch
+
+from ..config import Config
+from ..data import SpeciesArrays
+from ..io.tables import MomentumGrid
+from ..physics import lrf
+from .common import fermi_bose, effective_chunk
+from .launch import (check_float, check_tensor, require_cuda, launch,
+                     kernel_grid, tile_split)
+from .smooth import (ETA_REMAP_T_REF, MomentumConstants, momentum_constants,
+                     remap_scale, remap_node_table)
+
+# per-cell scalar field order of the packed (C, NW) matrix; the CUDA
+# source's `enum PwField` (csrc/polzn.cu) must list the same names in the
+# same order.  ut_T, tun_T, ux_T, uy_T carry 1/T_avg; dant = dan / tau,
+# itau = 1 / tau
+PW_FIELDS = ("tau", "eta", "dat", "dant", "dax", "day", "ut_T", "tun_T",
+             "ux_T", "uy_T", "itau", "wtx", "wty", "wtn", "wxy", "wxn", "wyn",
+             "yflow")
+NW = len(PW_FIELDS)
+PW = {n: i for i, n in enumerate(PW_FIELDS)}
+SUMS = ("St", "Sx", "Sy", "Sn", "Snorm")
+
+# launches of the CUDA kernels in this process
+LAUNCHES = 0
+REMAP_LAUNCHES = 0
+
+# The bound's yardstick, counted once from the formula, an FMA as one
+# operation, factors of fewer indices hoisted.  Per evaluation (cell,
+# node, species, momentum point), (FP32, SFU): p.dsigma 1, u.p / T 1 |
+# exp (SFU), + sign 1 | 1/(...) (SFU), pref = pm (1 - sign f0) 1, meas =
+# p.dsigma f0 w 2, mp = meas pref 1, the four eps-contractions mT s1 + s2 4,
+# the five sums 5                                               = (16, 2)
+FORMULA_OPS = (16, 2)
+# The 2+1D remap, per (cell, node, species, pT) and shared by the n_phi
+# angles: e^Delta and e^-Delta from the node table 2, ch and sh 2,
+# p.dsigma's and u.p's node terms 2 each, the four s1 6
+REMAP_NODE_OPS = (14, 0)
+
+
+def polzn_formula_ops(remap: bool, n_phi: int) -> tuple[float, float]:
+    """(FP32, SFU) per evaluation: the yardstick above plus, with the
+    remap, the node kinematics' share of one of n_phi points."""
+    fp32, sfu = FORMULA_OPS
+    if not remap:
+        return float(fp32), float(sfu)
+    return fp32 + REMAP_NODE_OPS[0] / n_phi, sfu + REMAP_NODE_OPS[1] / n_phi
+
+
+@dataclass(frozen=True)
+class PolznFlags:
+    dimension: int
+    remap: bool
+
+
+def polzn_flags(cfg: Config, grid: MomentumGrid) -> PolznFlags:
+    return PolznFlags(dimension=int(cfg.dimension),
+                      remap=bool(cfg.dimension == 2 and grid.eta_mT_rescale))
+
+
+def polzn_cols(surface) -> dict:
+    """Cell columns the polarization kernel reduces over."""
+    if surface.wtx is None:
+        raise ValueError("spin polarization needs a mode-5 surface with "
+                         "thermal vorticity components")
+    cols = {k: getattr(surface, k) for k in (
+        "tau", "dat", "dax", "day", "dan", "ux", "uy", "un", "wtx", "wty",
+        "wtn", "wxy", "wxn", "wyn")}
+    cols["eta"] = (surface.eta if surface.eta is not None
+                   else torch.zeros_like(surface.tau))
+    return cols
+
+
+def pack_polzn_cells(cols: dict, T_avg: float,
+                     flags: PolznFlags) -> torch.Tensor:
+    """(C, NW) kernel input from ``polzn_cols`` output (3+1D keeps the
+    cells' eta; 2+1D takes 0)."""
+    tau = cols["tau"]
+    ut = lrf.u_tau(cols["ux"], cols["uy"], cols["un"], tau)
+    inv_T = 1.0 / T_avg
+    vals = dict(cols)
+    vals.update(
+        eta=cols["eta"] if flags.dimension == 3 else torch.zeros_like(tau),
+        dant=cols["dan"] / tau, ut_T=ut * inv_T,
+        tun_T=tau * cols["un"] * inv_T, ux_T=cols["ux"] * inv_T,
+        uy_T=cols["uy"] * inv_T, itau=1.0 / tau,
+        yflow=lrf.flow_rapidity(tau, ut, cols["un"]))
+    return torch.stack([vals[n] for n in PW_FIELDS], dim=1).contiguous()
+
+
+def node_weights(grid: MomentumGrid, flags: PolznFlags) -> torch.Tensor:
+    """The weight of each rapidity node in the cell sum: 3+1D 1; 2+1D
+    fixed nodes eta_weight x (eta[1] - eta[0]) (the reference's quirk);
+    2+1D remap eta_weight."""
+    if flags.dimension == 3:
+        return torch.ones_like(grid.y)
+    if flags.remap:
+        return grid.eta_weight.contiguous()
+    eta = grid.eta
+    d_eta = (eta[1] - eta[0]) if eta.shape[0] > 1 else 1.0
+    return (grid.eta_weight * d_eta).contiguous()
+
+
+# ------------------------------------------------------------ plain version
+
+def polzn_block(x: torch.Tensor, mom: MomentumConstants, pm: torch.Tensor,
+                flags: PolznFlags) -> tuple[torch.Tensor, ...]:
+    """(mp St', mp Sx', mp Sy', mp Sn', meas) of a chunk of packed cells at
+    every (cell, node, species, pT, phi), meas = p.dsigma f0 and mp = meas
+    pref, without node weights; pm = -0.25 / m per species."""
+    S, P, F = mom.mass.shape[0], mom.pT.shape[0], mom.n_phi
+    g = lambda name: x[:, PW[name]].view(-1, 1, 1, 1, 1)
+    sp = lambda t: t.view(1, 1, S, 1, 1)
+    mT = torch.sqrt(mom.mass[:, None] ** 2 + mom.pT[None, :] ** 2)
+    mT5 = mT.view(1, 1, S, P, 1)
+    px5 = mom.px.view(1, 1, 1, P, F)
+    py5 = mom.py.view(1, 1, 1, P, F)
+    nodes = mom.nodes.view(1, -1, 1, 1, 1)
+    if flags.remap:
+        delta = g("yflow") - remap_scale(mom).view(1, 1, S, P, 1) * nodes
+    elif flags.dimension == 3:
+        delta = nodes - g("eta")
+    else:
+        delta = -nodes
+    ch, sh = torch.cosh(delta), torch.sinh(delta)
+    # p^eta (not tau p^eta) contracts the vorticity: sh / tau
+    sh_t = sh * g("itau")
+    pds = mT5 * (ch * g("dat") + sh * g("dant")) + (g("dax") * px5
+                                                     + g("day") * py5)
+    arg = mT5 * (ch * g("ut_T") - sh * g("tun_T")) - (g("ux_T") * px5
+                                                       + g("uy_T") * py5)
+    sign = sp(mom.sign)
+    f0 = fermi_bose(arg, sign)
+    pref = sp(pm) * (1.0 - sign * f0)
+    meas = pds * f0
+    mp = meas * pref
+    wxy, wxn, wyn = g("wxy"), g("wxn"), g("wyn")
+    wtx, wty, wtn = g("wtx"), g("wty"), g("wtn")
+    St = mp * (mT5 * (wxy * sh_t) + (wyn * px5 - wxn * py5))
+    Sx = mp * (mT5 * (wyn * ch + wty * sh_t) - wtn * py5)
+    Sy = mp * (-mT5 * (wxn * ch + wtx * sh_t) + wtn * px5)
+    Sn = mp * (mT5 * (wxy * ch) + (wtx * py5 - wty * px5))
+    return St, Sx, Sy, Sn, meas
+
+
+def polzn_plain(x: torch.Tensor, mom: MomentumConstants, pm: torch.Tensor,
+                wR: torch.Tensor, flags: PolznFlags,
+                cell_chunk: int = 65536) -> tuple[torch.Tensor, ...]:
+    """Plain torch version of the kernels on the same inputs: the five
+    sums (St, Sx, Sy, Sn, Snorm), each (S, n_pT, n_phi, n_y_out), cells
+    reduced in chunks within common.CHUNK_ELEMENT_BUDGET (the block holds
+    about 8 live copies)."""
+    S, P, F = mom.mass.shape[0], mom.pT.shape[0], mom.n_phi
+    R = mom.nodes.shape[0]
+    C = x.shape[0]
+    chunk = effective_chunk(cell_chunk, C, 8 * R * S * P * F)
+    acc = None
+    for c0 in range(0, max(C, 1), chunk):
+        parts = []
+        for b in polzn_block(x[c0:c0 + chunk], mom, pm, flags):
+            if flags.dimension == 3:
+                parts.append(b.sum(0))
+            else:
+                parts.append((b * wR.view(1, R, 1, 1, 1)).sum((0, 1)))
+        acc = parts if acc is None else [a.add_(p)
+                                         for a, p in zip(acc, parts)]
+    out = []
+    for a in acc:
+        if flags.dimension == 3:
+            a = a.permute(1, 2, 3, 0)
+        else:
+            if flags.remap:
+                # the substitution's jacobian s(mT), on the reduced sums
+                a = a * remap_scale(mom)[:, :, None]
+            a = a[..., None]
+        out.append(a.contiguous())
+    return tuple(out)
+
+
+def polzn_normalize(sums) -> dict:
+    """(St, Sx, Sy, Sn, Snorm) -> the result dict with the S/Snorm arrays
+    (Snorm == 0 guarded: the ratio is 0 there)."""
+    St, Sx, Sy, Sn, Snorm = sums
+    safe = torch.where(Snorm == 0.0, torch.ones_like(Snorm), Snorm)
+    return dict(St=St, Sx=Sx, Sy=Sy, Sn=Sn, Snorm=Snorm,
+                St_over_Snorm=St / safe, Sx_over_Snorm=Sx / safe,
+                Sy_over_Snorm=Sy / safe, Sn_over_Snorm=Sn / safe)
+
+
+# ------------------------------------------------------------- CUDA kernel
+
+def _library():
+    from ..native.build import cuda_library
+    lib = cuda_library("polzn")
+    if not getattr(lib, "_is3d_bound", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        for fn in (lib.is3d_polzn_grid_f32, lib.is3d_polzn_grid_f64):
+            fn.restype = ci
+            fn.argtypes = [ci] * 6 + [ctypes.POINTER(ci)]  # S P F R dim remap
+        for fn in (lib.is3d_polzn_f32, lib.is3d_polzn_f64):
+            fn.restype = ci
+            fn.argtypes = [vp, ci, ci,                 # cells, C, nw
+                           vp, vp, vp, ci,             # mass sign pm, S
+                           vp, vp, vp, ci, ci,         # pT px py n_pT n_phi
+                           vp, vp, ci, ci,             # nodes, wR, R, dim
+                           ci, ci, vp,                 # per, parts, partial
+                           vp, vp]                     # out, stream
+        for fn in (lib.is3d_polzn_remap_f32, lib.is3d_polzn_remap_f64):
+            fn.restype = ci
+            fn.argtypes = [vp, ci, ci,                 # cells, C, nw
+                           vp, vp, vp, ci,             # mass sign pm, S
+                           vp, ci, vp, vp, ci,         # pT, n_pT, cos, sin, F
+                           vp, vp, ci,                 # table, wR, R
+                           ctypes.c_double,            # T_ref
+                           ci, ci, vp,                 # per, parts, partial
+                           vp, vp]                     # out, stream
+        lib.is3d_cuda_error_string.restype = ctypes.c_char_p
+        lib.is3d_cuda_error_string.argtypes = [ci]
+        lib._is3d_bound = True
+    return lib
+
+
+def polzn_grid(lib, device: torch.device, f64: bool, n_species: int,
+               n_pT: int, n_phi: int, n_nodes: int, flags: PolznFlags):
+    """A polarization kernel's launch.KernelGrid for one shape on one card
+    (csrc/polzn.cu:polzn_grid owns the blocking)."""
+    return kernel_grid(
+        lib, "polzn",
+        lib.is3d_polzn_grid_f64 if f64 else lib.is3d_polzn_grid_f32,
+        device, n_species, n_pT, n_phi, n_nodes, flags.dimension,
+        int(flags.remap))
+
+
+def polzn_cuda(x: torch.Tensor, mom: MomentumConstants, pm: torch.Tensor,
+               wR: torch.Tensor, flags: PolznFlags,
+               table: torch.Tensor | None = None) -> tuple[torch.Tensor, ...]:
+    """Launch the hand-written kernel (csrc/polzn.cu) on the current
+    stream: the five sums, each (S, n_pT, n_phi, n_y_out) in the cells'
+    dtype.  With ``flags.remap``, ``table`` is
+    ``smooth.remap_node_table(mom)``, built here if not given, and the
+    angles must be separable as ``momentum_constants`` builds them."""
+    global LAUNCHES, REMAP_LAUNCHES
+    check_float("polzn_cuda", x)
+    C = x.shape[0]
+    S, P, F = mom.mass.shape[0], mom.pT.shape[0], mom.n_phi
+    R = mom.nodes.shape[0]
+    check_tensor("cells", x, (C, NW), x)
+    check_tensor("pm", pm, (S,), x)
+    check_tensor("wR", wR, (R,), x)
+    for name, n in dict(mass=S, sign=S, pT=P, px=P * F, py=P * F, nodes=R,
+                        cos_phi=F, sin_phi=F).items():
+        check_tensor(f"momentum constant {name}", getattr(mom, name), (n,),
+                     x)
+    if flags.remap and table is not None:
+        check_tensor("remap node table", table, (S, P, R, 2), x)
+    if flags.remap and flags.dimension != 2:
+        raise ValueError("polzn_cuda: the remap is 2+1D only")
+    require_cuda("polzn_cuda", x)
+    lib = _library()
+    f64 = x.dtype == torch.float64
+    grid = polzn_grid(lib, x.device, f64, S, P, F, R, flags)
+    per, n_split = tile_split(C, grid)
+    n_parts = n_split * grid.parts
+    n_out = R if flags.dimension == 3 else 1
+    out = x.new_empty((5, S, P, F, n_out))
+    partial = x.new_empty((n_parts, 5, S, P, F, n_out))
+    head = (x.data_ptr(), C, NW, mom.mass.data_ptr(), mom.sign.data_ptr(),
+            pm.data_ptr(), S)
+    if flags.remap:
+        if table is None:
+            table = remap_node_table(mom)
+        launch(lib, "polzn remap",
+               lib.is3d_polzn_remap_f64 if f64 else lib.is3d_polzn_remap_f32,
+               x.device, *head, mom.pT.data_ptr(), P,
+               mom.cos_phi.data_ptr(), mom.sin_phi.data_ptr(), F,
+               table.data_ptr(), wR.data_ptr(), R, ETA_REMAP_T_REF, per,
+               n_parts, partial.data_ptr(), out.data_ptr())
+        REMAP_LAUNCHES += 1
+    else:
+        launch(lib, "polzn", lib.is3d_polzn_f64 if f64 else lib.is3d_polzn_f32,
+               x.device, *head, mom.pT.data_ptr(), mom.px.data_ptr(),
+               mom.py.data_ptr(), P, F, mom.nodes.data_ptr(), wR.data_ptr(),
+               R, flags.dimension, per, n_parts, partial.data_ptr(),
+               out.data_ptr())
+        LAUNCHES += 1
+    return tuple(out.unbind(0))
+
+
+# ------------------------------------------------------------ entry point
+
+def species_pm(species: SpeciesArrays) -> torch.Tensor:
+    """pm = -0.25 / m per species (-inf for a massless one)."""
+    return (-0.25 / species.mass).contiguous()
+
+
+def _group_sums(cols: dict, mom: MomentumConstants, pm: torch.Tensor,
+                wR: torch.Tensor, flags: PolznFlags,
+                table: torch.Tensor | None, T_avg: float,
+                cfg: Config) -> dict:
+    x = pack_polzn_cells(cols, T_avg, flags)
+    if x.device.type == "cuda":
+        sums = polzn_cuda(x, mom, pm, wR, flags, table)
+    elif x.device.type == "cpu":
+        sums = polzn_plain(x, mom, pm, wR, flags, cfg.cell_chunk)
+    else:
+        raise ValueError(f"no polarization path for device {x.device}")
+    return dict(zip(SUMS, sums))
+
+
+def spin_polarization(surface, species: SpeciesArrays, grid: MomentumGrid,
+                      cfg: Config, plasma) -> dict:
+    """St, Sx, Sy, Sn (unnormalized sums), Snorm and the normalized
+    S{t,x,y,n}_over_Snorm, each (S, n_pT, n_phi, n_y_out), on the surface's
+    device.  ``plasma.temperature`` is T_avg (it honours
+    set_FO_temperature).  The cell reduction runs through the canonical
+    group tree: one launch per group, the five sums folded in group
+    order."""
+    from ..parallel.mesh import grouped_cell_reduce
+    cols = polzn_cols(surface)
+    flags = polzn_flags(cfg, grid)
+    mom = momentum_constants(species, grid, cfg.dimension)
+    pm = species_pm(species)
+    wR = node_weights(grid, flags)
+    table = (remap_node_table(mom)
+             if flags.remap and cols["tau"].device.type == "cuda" else None)
+    T_avg = float(plasma.temperature)
+    acc = grouped_cell_reduce(
+        lambda c, m, p, w, fl, t: _group_sums(c, m, p, w, fl, t, T_avg, cfg),
+        cols, (mom, pm, wR, flags, table), cfg)
+    return polzn_normalize(tuple(acc[k] for k in SUMS))

@@ -89,6 +89,14 @@ def synthetic_surface_cells(n_cells: int, dimension: int = 2,
     return cells
 
 
+def synthetic_vorticity(n_cells: int, seed: int = 0) -> dict:
+    """The six thermal-vorticity components of a mode-5 surface
+    (dimensionless, O(0.05))."""
+    rng = np.random.default_rng([seed, 5])
+    return {k: rng.normal(0, 0.05, n_cells)
+            for k in ("wtx", "wty", "wtn", "wxy", "wxn", "wyn")}
+
+
 def synthetic_surface(n_cells: int, dimension: int = 2, seed: int = 0,
                       dtype=torch.float64, device="cpu") -> Surface:
     return surface_from_arrays(
@@ -276,12 +284,93 @@ _RUN_PARAMS = dict(
     outflow=1, group_particles=0, do_resonance_decays=0)
 
 
+def synthetic_vah_cells(n_cells: int, dimension: int = 2, seed: int = 0,
+                        pl_over_p=(0.3, 2.5)) -> dict:
+    """Anisotropic-hydro cells (numpy columns, GeV units): the viscous
+    cells of ``synthetic_surface_cells`` with the full pi_perp^munu, W^mu,
+    PL / PT, and (a_L, Lambda) from PL/P (uniform in ``pl_over_p``; the
+    default spans a_L from 0.40 to 4.3) by the conformal fit, as the mode-2
+    reader infers them; a_T = 1."""
+    from .physics.anisotropic import aL_fit, R200
+    cells = synthetic_surface_cells(n_cells, dimension, seed)
+    rng = np.random.default_rng([seed, 2])
+    n = n_cells
+    for k in ("pitt", "pitx", "pity", "pitn", "pinn"):
+        cells[k] = rng.normal(0, 0.002, n)
+    cells.update(Wt=rng.normal(0, 0.002, n), Wx=rng.normal(0, 0.002, n),
+                 Wy=rng.normal(0, 0.002, n), Wn=rng.normal(0, 0.0005, n))
+    cells["PL"] = cells["P"] * rng.uniform(*pl_over_p, n)
+    cells["PT"] = (3.0 * cells["P"] - cells["PL"]) / 2.0
+    aL = aL_fit(cells["PL"] / cells["P"])
+    cells.update(aL=aL, aT=np.ones(n),
+                 Lambda=cells["T"] / (0.5 * aL * R200(aL)) ** 0.25)
+    return cells
+
+
+def synthetic_vah_coefficients(cells: dict, seed: int = 0) -> dict:
+    """Per-cell VAH residual-df coefficients c0..c4 whose df reaches O(1)
+    on these surfaces (the clip bites with regulate on)."""
+    rng = np.random.default_rng([seed, 3])
+    n = cells["tau"].shape[0]
+    return {f"c{i}": rng.normal(0, 30.0, n) for i in range(5)}
+
+
+def _surface_rows(cells: dict, mode: int) -> np.ndarray:
+    """(n_cells, columns) of a surface file in the reference layout of
+    ``mode`` (1, 2, 3 or 5), thermodynamic columns divided by hbarC."""
+    u = [cells[k] for k in ("ux", "uy", "un")]
+    ut = np.sqrt(1.0 + u[0] ** 2 + u[1] ** 2 + (cells["tau"] * u[2]) ** 2)
+    head = [cells[k] for k in ("tau", "x", "y", "eta", "dat", "dax", "day",
+                               "dan")]
+    g = lambda *ks: [cells[k] / HBARC for k in ks]
+    if mode in (2, 3):
+        pi_W = g("pitt", "pitx", "pity", "pitn", "pixx", "pixy", "pixn",
+                 "piyy", "piyn", "pinn", "Wt", "Wx", "Wy", "Wn")
+    if mode == 2:
+        cols = head + [ut] + u + g("E", "T", "P", "PL") + pi_W + g("bulkPi")
+    elif mode == 3:
+        cols = (head + [ut] + u + g("E", "T", "PL", "PT") + pi_W
+                + g("Lambda") + [cells["aT"], cells["aL"]])
+    else:
+        cols = head + u + g("E", "T", "P", "pixx", "pixy", "pixn", "piyy",
+                            "piyn", "bulkPi")
+        if mode == 5:
+            cols += [cells[k] for k in ("wtx", "wty", "wtn", "wxy", "wxn",
+                                        "wyn")]
+    return np.stack(cols, axis=1)
+
+
+def write_vah_coefficient_tables(path: str, seed: int = 0) -> str:
+    """Write synthetic ``deltaf_coefficients/vah/c{0..4}_vah1.dat`` under
+    the run directory ``path`` in the reference's layout (two header
+    counts nL, naL, a label line, then (Lambda [fm^-1], aL, c) rows with
+    Lambda fastest): smooth functions on Lambda in [0.6, 1.25] fm^-1 and
+    a_L in [0.2, 2.0], of the magnitude synthetic_vah_coefficients
+    gives once divided by hbarC^3."""
+    rng = np.random.default_rng([seed, 4])
+    L = np.linspace(0.6, 1.25, 14)
+    aL = np.linspace(0.2, 2.0, 19)
+    d = os.path.join(path, "deltaf_coefficients", "vah")
+    os.makedirs(d, exist_ok=True)
+    for i in range(5):
+        a, b, c = rng.normal(0, 1, 3)
+        vals = (30.0 * HBARC ** 3 * (a + b * np.sin(3.0 * L)[None, :]
+                                     + c * aL[:, None] ** 2))
+        rows = np.stack([np.broadcast_to(L[None, :], vals.shape),
+                         np.broadcast_to(aL[:, None], vals.shape), vals],
+                        axis=-1).reshape(-1, 3)
+        with open(os.path.join(d, f"c{i}_vah1.dat"), "w") as f:
+            f.write(f"{len(L)}\n{len(aL)}\nLambda[fm^-1] aL c{i}\n")
+            np.savetxt(f, rows, fmt="%.10e")
+    return path
+
+
 def write_synthetic_run_dir(path: str, n_cells: int, n_species: int,
                             dimension: int, seed: int = 0,
                             params: dict | None = None,
                             decays: bool = False,
-                            scale_bulk: float = 1.0) -> str:
-    """Write a complete mode-1 run directory under ``path``:
+                            scale_bulk: float = 1.0, mode: int = 1) -> str:
+    """Write a complete run directory under ``path``:
 
     * ``PDG/pdg-urqmd_v3.3+.dat`` (conventional format, every species
       stable; with ``decays`` the decaying list of _DECAY_NAMED, whose
@@ -290,11 +379,14 @@ def write_synthetic_run_dir(path: str, n_cells: int, n_species: int,
       ``n_species`` species (counted after baryon mirroring);
     * ``deltaf_coefficients/vh/urqmd/*.dat`` from the delta-f generator
       on that list, with two muB rows;
-    * ``input/surface.dat``: ``n_cells`` synthetic cells in the mode-1
-      layout (thermodynamic columns divided by hbarC; bulkPi x
-      ``scale_bulk``);
-    * ``iS3D_parameters.dat`` (operation 1, mode 1, ``dimension``; ``params``
-      overrides any key).
+    * ``input/surface.dat``: ``n_cells`` synthetic cells in the reference
+      layout of ``mode`` (thermodynamic columns divided by hbarC; bulkPi x
+      ``scale_bulk``): 1 viscous hydro; 2 and 3 anisotropic hydro
+      (synthetic_vah_cells: PL/P in [0.3, 2.5]; mode 3 carries Lambda,
+      a_T and a_L, mode 2's reader infers them); 5 viscous hydro and the
+      six thermal-vorticity components;
+    * ``iS3D_parameters.dat`` (operation 1, ``mode``, ``dimension``;
+      ``params`` overrides any key).
 
     There is no ``tables/``, so runs use the native momentum grid."""
     from .io import pdg as pdg_io
@@ -315,17 +407,21 @@ def write_synthetic_run_dir(path: str, n_cells: int, n_species: int,
     deltaf_generator.write_tables(
         T, muB, tables, os.path.join(path, "deltaf_coefficients", "vh", "urqmd"))
 
-    cells = synthetic_surface_cells(n_cells, dimension, seed, scale_bulk)
-    order = ["tau", "x", "y", "eta", "dat", "dax", "day", "dan",
-             "ux", "uy", "un"]
-    raw = [cells[k] for k in order]
-    raw += [cells[k] / HBARC for k in ("E", "T", "P", "pixx", "pixy", "pixn",
-                                       "piyy", "piyn", "bulkPi")]
+    if mode in (2, 3):
+        cells = synthetic_vah_cells(n_cells, dimension, seed)
+    elif mode in (1, 5):
+        cells = synthetic_surface_cells(n_cells, dimension, seed)
+        if mode == 5:
+            cells.update(synthetic_vorticity(n_cells, seed))
+    else:
+        raise ValueError(f"write_synthetic_run_dir writes modes 1, 2, 3 "
+                         f"and 5, got {mode}")
+    cells["bulkPi"] = cells["bulkPi"] * scale_bulk
     os.makedirs(os.path.join(path, "input"), exist_ok=True)
     np.savetxt(os.path.join(path, "input", "surface.dat"),
-               np.stack(raw, axis=1), fmt="%.10e")
+               _surface_rows(cells, mode), fmt="%.10e")
 
-    run_params = {**_RUN_PARAMS, "dimension": dimension,
+    run_params = {**_RUN_PARAMS, "dimension": dimension, "mode": mode,
                   "do_resonance_decays": int(decays), **(params or {})}
     with open(os.path.join(path, "iS3D_parameters.dat"), "w") as f:
         f.write("".join(f"{k} = {v}\n" for k, v in run_params.items()))
@@ -392,6 +488,17 @@ def edge_grid_kw(spec: dict) -> dict:
                 **spec["grid"])
 
 
+def edge_grid(spec: dict, dtype, device):
+    """The native momentum grid of an edge case, its eta nodes shifted by
+    ``eta_shift``."""
+    from .io.tables import native_momentum_grid
+    grid = native_momentum_grid(spec["dimension"], dtype=dtype, device=device,
+                                **edge_grid_kw(spec))
+    if spec["eta_shift"]:
+        grid = dataclasses.replace(grid, eta=grid.eta + spec["eta_shift"])
+    return grid
+
+
 def edge_surface_cells(spec: dict) -> dict:
     """The numpy cell columns of an edge case (seed 7, shear and u^eta
     scaled)."""
@@ -407,17 +514,13 @@ def _edge_inputs(spec: dict, operation: int, dtype, device):
     """(packed cells, mom, flags, grid, cfg) of an edge case."""
     import dataclasses
     from .config import Config
-    from .io.tables import native_momentum_grid
     from .kernels import smooth
     from .kernels.common import surface_columns, prepare_cells
     dimension = spec["dimension"]
     cfg = Config(operation=operation, **edge_config_kw(spec))
     surface = surface_from_arrays(dtype=dtype, device=device,
                                   **edge_surface_cells(spec))
-    grid = native_momentum_grid(dimension, dtype=dtype, device=device,
-                                **edge_grid_kw(spec))
-    if spec["eta_shift"]:
-        grid = dataclasses.replace(grid, eta=grid.eta + spec["eta_shift"])
+    grid = edge_grid(spec, dtype, device)
     species = synthetic_species(spec["n_species"], dtype=dtype, device=device)
     if spec["light_bosons"]:
         species = dataclasses.replace(species, mass=torch.where(
@@ -650,7 +753,7 @@ def feqmod_edge_inputs(case: str, n_cells: int = 203, n_species: int = 7,
     FEQMOD_EDGES case ``case`` on ``device``, and the dN/dX weights of its
     grid."""
     from .config import Config
-    from .io.tables import native_momentum_grid, laguerre_device
+    from .io.tables import laguerre_device
     from .kernels import feqmod, dndx
     from .kernels.common import surface_columns
     from .kernels.smooth import momentum_constants
@@ -661,10 +764,7 @@ def feqmod_edge_inputs(case: str, n_cells: int = 203, n_species: int = 7,
                  include_baryon=int(spec["baryon"]),
                  include_baryondiff_deltaf=int(spec["diff"]),
                  reference_compat_feqmod_eta=spec["compat"])
-    grid = native_momentum_grid(dim, dtype=dtype, device=device,
-                                **edge_grid_kw(spec))
-    if spec["eta_shift"]:
-        grid = dataclasses.replace(grid, eta=grid.eta + spec["eta_shift"])
+    grid = edge_grid(spec, dtype, device)
     cells = edge_surface_cells(spec)
     cells["bulkPi"] = cells["bulkPi"] * spec["scale_bulk"]
     if spec["bulk_P"] is not None:
@@ -755,6 +855,218 @@ def feqmod_edge_seen(case: str, x, rn, wcs, mom, flags, out) -> str:
     else:
         assert bd.any() and not bd.all()
     return share
+
+
+# ------------------------------------------------- VAH and polarization
+
+# The VAH kernels' edges (K4: fixed_kernel, remap_kernel and the dN/dX
+# producer), shared by the gpu tests and chip_smoke.py.  Every chain
+# setting (sw: shear 1, bulk 2) on each path; regulate and outflow off
+# (reg_out 0) and on; ragged species, points and nodes; a_L below and
+# above 1 only (PL/P in [0.3, 0.9] or [1.2, 2.5]); strong longitudinal
+# flow (u^eta x 7, |y_flow| up to 2); 3+1D rapidities and 2+1D eta nodes
+# far enough out that exp overflows (exact zeros; in 2+1D the nodes in a
+# narrow window at eta 8-9 and a_L near 1, so that the light species
+# overflow in float64 at every node and the heavy ones, whose remap scale
+# s is a third of theirs, stay above float32's smallest normal); pad rows
+# of the
+# canonical group tree (inert, adding exactly 0).  The c0..c4 columns are
+# synthetic_vah_coefficients' where a chain is on, absent where not.
+VAH_EDGES = {
+    **{f"3d_sw{sw}": dict(dimension=3, sw=sw) for sw in range(4)},
+    "3d_sw3_plain": dict(dimension=3, sw=3, reg_out=0),
+    "3d_ragged": dict(dimension=3, sw=3, n_species=41, grid=_RAGGED),
+    "3d_overflow": dict(dimension=3, sw=0, reg_out=0,
+                        grid=dict(n_y=7, y_max=12.0)),
+    "3d_aL_below_1": dict(dimension=3, sw=1, pl_over_p=(0.3, 0.9)),
+    **{f"2d_fixed_sw{sw}": dict(dimension=2, sw=sw) for sw in (0, 3)},
+    "2d_fixed_ragged": dict(dimension=2, sw=2, n_species=41, grid=_RAGGED),
+    **{f"2d_remap_sw{sw}": dict(dimension=2, sw=sw, grid=_REMAP)
+       for sw in range(4)},
+    "2d_remap_sw3_plain": dict(dimension=2, sw=3, reg_out=0, grid=_REMAP),
+    "2d_remap_ragged": dict(dimension=2, sw=3, n_species=41,
+                            grid=dict(_RAGGED, **_REMAP)),
+    "2d_remap_phi24": dict(dimension=2, sw=1, grid=dict(_REMAP, n_phi=24)),
+    "2d_remap_aL_above_1": dict(dimension=2, sw=0, pl_over_p=(1.2, 2.5),
+                                grid=_REMAP),
+    "2d_remap_yflow": dict(dimension=2, sw=3, scale_un=7.0, grid=_REMAP),
+    "2d_remap_overflow": dict(dimension=2, sw=0, reg_out=0, eta_shift=8.5,
+                              pl_over_p=(0.9, 1.1),
+                              grid=dict(_REMAP, eta_max=0.5)),
+    "2d_remap_pad_rows": dict(dimension=2, sw=3, n_cells=37, pad_to=48,
+                              grid=_REMAP),
+}
+
+
+def vah_edge_spec(case: str, n_cells: int = 203, n_species: int = 7) -> dict:
+    """A VAH_EDGES case with every default filled in."""
+    return dict(dict(pl_over_p=(0.3, 2.5), pad_to=None),
+                **edge_spec(VAH_EDGES, case, n_cells, n_species))
+
+
+def vah_edge_inputs(case: str, n_cells: int = 203, n_species: int = 7,
+                    dtype=torch.float64, device="cpu"):
+    """(x, mom, flags, wM, wR): the VAH kernels' packed inputs for the
+    VAH_EDGES case ``case`` on ``device``, and the dN/dX weights of its
+    grid (the dN/dX producer takes the fixed-node cases)."""
+    from .config import Config
+    from .kernels import vah, dndx
+    from .kernels.smooth import momentum_constants
+    from .parallel.mesh import _pad_inert
+    spec = vah_edge_spec(case, n_cells, n_species)
+    dim, sw = spec["dimension"], spec["sw"]
+    cfg = Config(operation=1, mode=2, dimension=dim,
+                 include_shear_deltaf=sw & 1, include_bulk_deltaf=sw >> 1,
+                 regulate_deltaf=spec["reg_out"], outflow=spec["reg_out"])
+    grid = edge_grid(spec, dtype, device)
+    cells = synthetic_vah_cells(spec["n_cells"], dim, seed=7,
+                                pl_over_p=spec["pl_over_p"])
+    cells["un"] = cells["un"] * spec["scale_un"]
+    if sw:
+        cells.update(synthetic_vah_coefficients(cells, seed=7))
+    surface = surface_from_arrays(dtype=dtype, device=device, **cells)
+    cols = vah.vah_surface_cols(surface)
+    if spec["pad_to"] is not None:
+        cols = _pad_inert(cols, spec["pad_to"])
+    flags = vah.vah_flags(vah.effective_vah_cfg(cols, cfg), grid)
+    assert flags.switches == sw, (case, flags)
+    species = synthetic_species(spec["n_species"], dtype=dtype,
+                                device=device)
+    return (vah.group_inputs(cols, flags),
+            momentum_constants(species, grid, dim), flags,
+            dndx.momentum_weights(grid, cfg), dndx.node_weights(grid, dim))
+
+
+def vah_edge_seen(case: str, x, mom, flags, out) -> str:
+    """What the plain spectra ``out`` of a VAH_EDGES case show of the edge
+    the case is named for; raises AssertionError where they do not."""
+    from .kernels import vah
+    assert torch.isfinite(out).all() and out.abs().max() > 0, case
+    assert flags.remap == ("remap" in case), case
+    spec = vah_edge_spec(case)
+    aL = x[:, vah.VF["aL"]]
+    S, M, R = mom.mass.shape[0], mom.px.shape[0], mom.nodes.shape[0]
+    if case.endswith("ragged"):
+        assert S % 4 and M % 128 and R % 3, (S, M, R)
+        return f"{S} species x {M} points x {R} nodes"
+    if case.endswith("overflow"):
+        n = int((out == 0).sum())
+        assert 0 < n < out.numel(), f"{n} outputs are exactly 0"
+        return f"{n} of {out.numel()} outputs exactly 0"
+    if case.endswith("pad_rows"):
+        n = spec["n_cells"]
+        assert x.shape[0] > n
+        pad = vah.vah_spectra_plain(x[n:], mom, flags)
+        assert (pad == 0).all()
+        return f"{x.shape[0] - n} pad rows of {x.shape[0]} add 0"
+    if case.endswith("yflow"):
+        yf = x[:, vah.VF["yflow"]].abs().max().item()
+        assert yf > 1.0
+        return f"|y_flow| up to {yf:.2f}"
+    if case.endswith("below_1"):
+        assert (aL < 1).all()
+    elif case.endswith("above_1"):
+        assert (aL > 1).all()
+    else:
+        assert (aL < 1).any() and (aL > 1).any()
+    return (f"a_L in [{aL.min().item():.2f}, {aL.max().item():.2f}], "
+            f"chains {flags.switches}, regulate/outflow {int(flags.regulate)}")
+
+
+# The polarization kernels' edges (K6: fixed_kernel, remap_kernel): each
+# path; ragged species, points and nodes (the remap takes 8 angles a
+# thread); strong longitudinal flow; 3+1D rapidities far enough out that
+# f0 is exactly 0 (exact zeros); a massless species, whose S sums are inf
+# or NaN (pm = -0.25 / m = -inf) and must keep that pattern; pad rows.
+POLZN_EDGES = {
+    "3d": dict(dimension=3),
+    "3d_ragged": dict(dimension=3, n_species=41, grid=_RAGGED),
+    "3d_overflow": dict(dimension=3, grid=dict(n_y=7, y_max=12.0)),
+    "3d_massless": dict(dimension=3, massless=True),
+    "2d_fixed": dict(dimension=2),
+    "2d_fixed_ragged": dict(dimension=2, n_species=41, grid=_RAGGED),
+    "2d_remap": dict(dimension=2, grid=_REMAP),
+    "2d_remap_ragged": dict(dimension=2, n_species=41,
+                            grid=dict(_RAGGED, **_REMAP)),
+    "2d_remap_yflow": dict(dimension=2, scale_un=7.0, grid=_REMAP),
+    "2d_remap_massless": dict(dimension=2, massless=True, grid=_REMAP),
+    "2d_remap_pad_rows": dict(dimension=2, n_cells=37, pad_to=48,
+                              grid=_REMAP),
+}
+POLZN_T_AVG = 0.152
+
+
+def polzn_edge_spec(case: str, n_cells: int = 203,
+                    n_species: int = 7) -> dict:
+    """A POLZN_EDGES case with every default filled in."""
+    return dict(dict(massless=False, pad_to=None),
+                **edge_spec(POLZN_EDGES, case, n_cells, n_species))
+
+
+def polzn_edge_inputs(case: str, n_cells: int = 203, n_species: int = 7,
+                      dtype=torch.float64, device="cpu"):
+    """(x, mom, pm, wR, flags, table): the polarization kernels' inputs
+    for the POLZN_EDGES case ``case`` on ``device`` (table: the remap's
+    node table, else None)."""
+    from .config import Config
+    from .kernels import polzn
+    from .kernels.smooth import momentum_constants, remap_node_table
+    from .parallel.mesh import _pad_inert
+    spec = polzn_edge_spec(case, n_cells, n_species)
+    dim = spec["dimension"]
+    cfg = Config(operation=1, mode=5, dimension=dim)
+    grid = edge_grid(spec, dtype, device)
+    cells = edge_surface_cells(spec)
+    cells.update(synthetic_vorticity(spec["n_cells"], seed=7))
+    surface = surface_from_arrays(dtype=dtype, device=device, **cells)
+    species = synthetic_species(spec["n_species"], dtype=dtype,
+                                device=device)
+    if spec["massless"]:
+        species = dataclasses.replace(species, mass=torch.where(
+            torch.arange(spec["n_species"], device=device) == 2,
+            torch.zeros_like(species.mass), species.mass))
+    flags = polzn.polzn_flags(cfg, grid)
+    cols = polzn.polzn_cols(surface)
+    if spec["pad_to"] is not None:
+        cols = _pad_inert(cols, spec["pad_to"])
+    mom = momentum_constants(species, grid, dim)
+    return (polzn.pack_polzn_cells(cols, POLZN_T_AVG, flags), mom,
+            polzn.species_pm(species), polzn.node_weights(grid, flags), flags,
+            remap_node_table(mom) if flags.remap else None)
+
+
+def polzn_edge_seen(case: str, x, mom, pm, wR, flags, sums) -> str:
+    """What the plain sums of a POLZN_EDGES case show of the edge the case
+    is named for; raises AssertionError where they do not."""
+    from .kernels import polzn
+    spec = polzn_edge_spec(case)
+    assert flags.remap == ("remap" in case), case
+    snorm = sums[4]
+    assert torch.isfinite(snorm).all() and snorm.abs().max() > 0, case
+    finite = all(torch.isfinite(t).all() for t in sums[:4])
+    if case.endswith("massless"):
+        bad = sum(int((~torch.isfinite(t)).sum()) for t in sums[:4])
+        assert not finite and bad > 0
+        return f"{bad} non-finite S values (the massless species)"
+    assert finite, case
+    S, M, R = mom.mass.shape[0], mom.px.shape[0], mom.nodes.shape[0]
+    if case.endswith("ragged"):
+        assert S % 4 and M % 128 and R % 3, (S, M, R)
+        return f"{S} species x {M} points x {R} nodes"
+    if case.endswith("overflow"):
+        n = int((snorm == 0).sum())
+        assert 0 < n < snorm.numel(), f"{n} outputs are exactly 0"
+        return f"{n} of {snorm.numel()} Snorm values exactly 0"
+    if case.endswith("pad_rows"):
+        n = spec["n_cells"]
+        pad = polzn.polzn_plain(x[n:], mom, pm, wR, flags)
+        assert all((t == 0).all() for t in pad)
+        return f"{x.shape[0] - n} pad rows of {x.shape[0]} add 0"
+    if case.endswith("yflow"):
+        yf = x[:, polzn.PW["yflow"]].abs().max().item()
+        assert yf > 1.0
+        return f"|y_flow| up to {yf:.2f}"
+    return f"{S} species x {M} points x {R} nodes"
 
 
 # ------------------------------------------------------- decaying list

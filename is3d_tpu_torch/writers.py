@@ -1,5 +1,5 @@
-"""Reference-compatible results/*.dat writers for the smooth spectra and
-the spacetime distributions.
+"""Reference-compatible results/*.dat writers for the smooth spectra, the
+spin polarization and the spacetime distributions.
 
 File layouts mirror the reference's writer methods
 (emissionfunction.cpp:381-772, 1053-1136,
@@ -84,6 +84,7 @@ _OWNED_PATTERNS = (
     "dN_dpTdphidy.dat", "dN_dpTdphidy_*.dat",
     "dN_dphidy_*.dat", "dN_twopipTdpTdy_*.dat",
     "dN_dy_*.dat", "vn_continuous/vn_*.dat",
+    "St.dat", "Sx.dat", "Sy.dat", "Sn.dat", "Snorm.dat",
     "spacetime_distribution/dN_taudtaudy_*.dat",
     "spacetime_distribution/dN_twopirdrdy_*.dat",
     "spacetime_distribution/dN_twopitaurdtaudrdy_*.dat",
@@ -205,6 +206,22 @@ def write_continuous_vn(spectra, grid, mcids, dimension, results_dir="results"):
         path = f"{results_dir}/vn_continuous/vn_{int(mcid)}.dat"
         _write_sci_table(path, None, rows[s].reshape(-1, 2 + K_MAX),
                          blank_every=len(pTs))
+
+
+def write_polarization(St, Sx, Sy, Sn, Snorm, grid, dimension,
+                       results_dir="results"):
+    """results/S{t,x,y,n}.dat, normalized by Snorm (reference:
+    emissionfunction.cpp:775-827); a point with Snorm == 0 writes 0, as
+    kernels/polzn.polzn_normalize gives."""
+    ys = _y_values(grid, dimension)
+    pTs = _np(grid.pT)
+    phis = _np(grid.phi)
+    Snorm = _np(Snorm)
+    Snorm = np.where(Snorm == 0.0, 1.0, Snorm)
+    for name, arr in (("St", St), ("Sx", Sx), ("Sy", Sy), ("Sn", Sn)):
+        rows = _block_rows(ys, phis, pTs, _np(arr) / Snorm)
+        _write_sci_table(f"{results_dir}/{name}.dat", None,
+                         rows.reshape(-1, 4), blank_every=len(pTs))
 
 
 def write_spacetime_distributions(dX: dict, mcids, results_dir="results"):

@@ -29,6 +29,7 @@ from is3d_tpu.tools import deltaf_generator as j_gen
 from is3d_tpu.data import species_from_table as j_species_from_table
 
 from is3d_tpu_torch import convert
+from is3d_tpu_torch.api import IS3D
 from is3d_tpu_torch.config import Config, load_config
 from is3d_tpu_torch.io import pdg, deltaf, surface
 from is3d_tpu_torch.io.tables import native_momentum_grid
@@ -104,11 +105,10 @@ def test_config_parsing_matches_jax(name):
     names = [f.name for f in dataclasses.fields(Config)]
     for n in names:
         assert getattr(got, n) == getattr(want, n), n
-    # every reference key of is3d_tpu's Config is kept; only TPU knobs go
-    # (the feqmod partition keys stay, accepted and inert)
+    # every reference key of is3d_tpu's Config is kept, and the VAH keys;
+    # only TPU knobs go (the feqmod partition keys stay, accepted and inert)
     dropped = {f.name for f in dataclasses.fields(want)} - set(names)
-    assert dropped == {"mesh_axis", "vah_df_gate",
-                       "vah_coefficient_tables", "remat_scan",
+    assert dropped == {"mesh_axis", "remat_scan",
                        "sampler_cell_chunk", "sampler_gather_tetrad",
                        "sampler_alias", "sampler_pack"}
 
@@ -185,8 +185,12 @@ def test_vh_surface_readers_match_jax(tmp_path, mode, baryon, diff):
 
 
 def test_vah_modes_raise_not_implemented(tmp_path):
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        surface.read_surface(str(tmp_path / "none.dat"), mode=2)
+    # the VAH readers are ported; what VAH surfaces do not run yet is the
+    # sampler (operation 2)
+    for mode in (2, 3):
+        with pytest.raises(NotImplementedError, match="slice 9"):
+            IS3D(Config(operation=2, mode=mode), data_dir=str(tmp_path),
+                 device="cpu")
 
 
 @pytest.mark.parametrize("df_mode,include_baryon",

@@ -20,7 +20,8 @@ from is3d_tpu_torch.io.tables import native_momentum_grid
 from is3d_tpu_torch.experiments import smooth_proto, dndx_reduce_probe
 from is3d_tpu_torch.kernels import smooth, dndx, decays, feqmod
 from is3d_tpu_torch.kernels.common import surface_columns, prepare_cells
-from is3d_tpu_torch.kernels.launch import launch, split_to_fill
+from is3d_tpu_torch.kernels.launch import (launch, split_to_fill,
+                                           KernelGrid, tile_split)
 from is3d_tpu_torch.native import build
 
 torch.set_num_threads(1)
@@ -105,11 +106,12 @@ def test_cli_defaults_to_cuda_and_raises_without_it(no_cuda, tmp_path):
 
 
 @pytest.mark.parametrize("override,slice_name", [
-    (dict(operation=0, mode=2, df_mode=3), "slice 7"),
+    (dict(operation=2, mode=2, df_mode=3), "slice 9"),
     (dict(operation=2), "slice 9"),
-    (dict(mode=2), "slice 8"), (dict(mode=5), "slice 8"),
+    (dict(operation=2, mode=2), "slice 9"),
+    (dict(operation=2, mode=5), "slice 9"),
     (dict(operation=2, df_mode=3), "slice 9"),
-    (dict(do_resonance_decays=1, df_mode=4, mode=3), "slice 8"),
+    (dict(operation=2, do_resonance_decays=1, df_mode=4, mode=3), "slice 9"),
 ])
 def test_unported_configurations_raise(override, slice_name):
     with pytest.raises(NotImplementedError, match=slice_name):
@@ -963,10 +965,10 @@ def test_feqmod_cell_split_covers_every_cell_in_whole_tiles():
     for tile, max_split in ((16, 8), (8, 64)):
         for n_cells in (1, 15, 16, 17, 777, 16384):
             for slots in SLOTS:
-                grid = feqmod.FeqmodGrid(blocks=96, slots=slots, parts=1,
-                                         tile=tile, max_split=max_split,
-                                         phi_width=0)
-                per, n_split = feqmod.cell_split(n_cells, grid)
+                grid = KernelGrid(blocks=96, slots=slots, parts=1,
+                                  tile=tile, max_split=max_split,
+                                  phi_width=0)
+                per, n_split = tile_split(n_cells, grid)
                 assert per % tile == 0 and 1 <= n_split <= max_split
                 assert (n_split - 1) * per < n_cells <= n_split * per
 

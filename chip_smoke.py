@@ -11,9 +11,9 @@ Phases, each printing its own line(s):
    (nvidia-smi); fails without CUDA;
 2. build: every kernel source (csrc/smooth_spectra.cu, csrc/dndx.cu,
    csrc/smooth_proto.cu, csrc/decays.cu, csrc/feqmod.cu, csrc/vah.cu,
-   csrc/polzn.cu; one nvcc each, all started together) and the fastio
-   host library, from this checkout's sources, with ptxas's register and
-   spill lines;
+   csrc/polzn.cu, csrc/sample.cu, csrc/mc_decays.cu; one nvcc each, all
+   started together) and the fastio host library, from this checkout's
+   sources, with ptxas's register and spill lines;
 3. each kernel against its plain torch version at small shapes, in f32
    (atol 2e-5 * max, rtol 2e-4) and f64 (rtol 1e-10, atol 1e-13 * max):
    the spectra kernel on every path (3+1D df 1/2, 2+1D fixed nodes, 2+1D
@@ -52,7 +52,16 @@ Phases, each printing its own line(s):
    zeros, pad rows); [polzn small]: both polarization kernels K6 on
    testing.POLZN_EDGES, each of the five sums (a massless species' inf
    and NaN in the same places); f32 and f64, two launches bit-identical,
-   exact zeros kept;
+   exact zeros kept; [sample small]: the event kernel K7 against its
+   plain version slot by slot on testing.SAMPLE_EDGES (df 1-4, 2+1D and
+   3+1D, broken-down cells, baryon diffusion in 2+1D and 3+1D; a
+   massless species and zero-yield cells no slot may draw), f32 and f64,
+   the flipped decisions counted (none allowed in f64), two launches
+   bit-identical, and a batch past its packed capacity run again to the
+   same events; [alias small]: K7a on testing.alias_edge_weights, tables
+   identical to the plain version's; [cascade small]: K8 on
+   testing.cascade_edge_inputs, the same daughters and lineage words, and
+   its two guards (capacity, a table short of a pass);
 4. operation 1 main path: a synthetic 131072-cell x 320-species 3+1D
    mode-1 run directory through ``is3d_tpu_torch.cli.main`` (df 2, shear +
    bulk, regulate, outflow, f32, native 32 x 24 x 21 grid), then the same
@@ -133,7 +142,23 @@ Phases, each printing its own line(s):
    K1's remap spectra, df 2), the S*.dat files, its 256-cell
    cuda-against-cpu run; [polzn main 3d] the same in 3+1D (the fixed-node
    kernel, then K1); [polzn pair] one group of each as [vah pair]
-   (kernels/polzn.py, polzn_formula_ops).
+   (kernels/polzn.py, polzn_formula_ops);
+12. the sampler (operation 2): [sample main 2d] a synthetic 131072 x 320
+   2+1D run directory through ``IS3D.from_run_dir(...)
+   .run_particlization()`` (df 2, shear + bulk, f32, oversample to
+   min_num_hadrons = 1.5e6): phases, the sampler's split (phase A,
+   dispatch, wait, copy to the host, assembly), kept hadrons/s,
+   efficiency, K7 launched once a batch, K7a three times, the OSCAR list;
+   its 256-cell f64 cuda-against-cpu run (the same streams: the same
+   lists); [sample pair] K7 on one batch of that shape against its bound
+   (kernels/sample.py, sample_formula_ops) with the compaction's time,
+   the batch's last event at full width and a 16384-slot batch against
+   its plain version, K7a on the species
+   table against its plain version and its byte bound; [sample decays]
+   the same run on the decaying list with do_resonance_decays = 1 (K8
+   once a pass, stable hadrons only) and its small runs; [cascade pair]
+   K8 pass by pass on two sampled events against its plain version and
+   its bound (kernels/mc_decays.py, cascade_formula_ops).
 
 Depth cut to keep the run near ten minutes: [pair], [remap pair] and
 [dndx pair] hold the kernel to its plain version on the group's first
@@ -148,8 +173,13 @@ count of what its inputs need (kernels/decays.py, wave_operations), the
 feqmod kernels' from theirs (kernels/feqmod.py, feqmod_formula_ops; f_mod
 and the fallback counted apart, as the data has them), the VAH and
 polarization kernels' from theirs (kernels/vah.py, vah_formula_ops;
-kernels/polzn.py, polzn_formula_ops).  Before every path (4, 5a, 6, 7a,
-8, 9, 10, 11) all launch
+kernels/polzn.py, polzn_formula_ops), the sampler's and the cascade's
+from their multiply-highs on the INT32 pipe (64 lanes an SM), their
+special functions and their gathers: a table that fits in the 50 MB L2
+read once, a larger one a 32-byte sector a gather (kernels/sample.py,
+gather_bytes, sample_formula_ops; kernels/mc_decays.py,
+cascade_formula_ops).  Before
+every path (4, 5a, 6, 7a, 8, 9, 10, 11, 12) all launch
 counts are set to 0 and they are read right after it.  The line before
 the last is the kernel record as JSON; the last line is ``{"ok": true,
 "device": {...}}``.  Any failed phase exits nonzero before that line is
@@ -214,10 +244,26 @@ VAH_DNDX_ARGS = ["device=cuda", "precision=f32", "operation=0",
                  "include_bulk_deltaf=1", "regulate_deltaf=1", "outflow=1"]
 POLZN2D_ARGS = MAIN2D_ARGS
 POLZN3D_ARGS = MAIN_ARGS
+# operation 2 (the sampler): the 2+1D main path at full width, oversampled
+# to a few million hadrons (about 1.8e6, a 400 MB OSCAR list), and the same
+# with the event-level decays on the decaying list
+SAMPLE2D_ARGS = ["device=cuda", "precision=f32", "operation=2",
+                 "dimension=2", "df_mode=2", "include_shear_deltaf=1",
+                 "include_bulk_deltaf=1", "regulate_deltaf=1", "outflow=1",
+                 "oversample=1", "min_num_hadrons=1500000",
+                 "sampler_seed=17"]
+SAMPLE_DECAYS_ARGS = [a for a in SAMPLE2D_ARGS
+                      if not a.startswith("min_num_hadrons")] + [
+                          "min_num_hadrons=600000", "do_resonance_decays=1"]
+# the slots of the small batch K7 is held to its plain version on in
+# [sample pair]
+SAMPLE_PLAIN_SLOTS = 16384
 KERNEL_SOURCES = ("smooth_spectra", "dndx", "smooth_proto", "decays",
-                  "feqmod", "vah", "polzn")
-# H100 SXM: SMs, FP32 and SFU lanes per SM, memory rate (bytes/s)
+                  "feqmod", "vah", "polzn", "sample", "mc_decays")
+# H100 SXM: SMs, FP32, SFU and INT32-multiply lanes per SM, memory rate
+# (bytes/s)
 N_SM, FP32_LANES, SFU_LANES, HBM_RATE = 132, 128, 16, 3.35e12
+INT32_LANES = 64
 
 
 def fail(msg: str):
@@ -1107,14 +1153,16 @@ def _issued(library: str, kernel: str) -> str:
 
 
 def _modules():
-    from is3d_tpu_torch.kernels import smooth, dndx, decays, feqmod, vah, polzn
+    from is3d_tpu_torch.kernels import (smooth, dndx, decays, feqmod, vah,
+                                        polzn, sample, mc_decays)
     from is3d_tpu_torch.experiments import smooth_proto, dndx_reduce_probe
     return (smooth, dndx, smooth_proto, dndx_reduce_probe, decays, feqmod,
-            vah, polzn)
+            vah, polzn, sample, mc_decays)
 
 
 def _reset_counts():
-    smooth, dndx, proto, probe, decays, feqmod, vah, polzn = _modules()
+    (smooth, dndx, proto, probe, decays, feqmod, vah, polzn, sample,
+     mc_decays) = _modules()
     smooth.LAUNCHES = smooth.REMAP_LAUNCHES = 0
     dndx.LAUNCHES = dndx.BIN_LAUNCHES = dndx.FEQMOD_LAUNCHES = 0
     dndx.VAH_LAUNCHES = 0
@@ -1123,10 +1171,12 @@ def _reset_counts():
     feqmod.LAUNCHES = feqmod.REMAP_LAUNCHES = 0
     vah.LAUNCHES = vah.REMAP_LAUNCHES = 0
     polzn.LAUNCHES = polzn.REMAP_LAUNCHES = 0
+    sample.LAUNCHES = sample.ALIAS_LAUNCHES = mc_decays.LAUNCHES = 0
 
 
 def _counts() -> dict:
-    smooth, dndx, proto, probe, decays, feqmod, vah, polzn = _modules()
+    (smooth, dndx, proto, probe, decays, feqmod, vah, polzn, sample,
+     mc_decays) = _modules()
     return dict(smooth_spectra=smooth.LAUNCHES,
                 smooth_spectra_remap=smooth.REMAP_LAUNCHES,
                 dndx=dndx.LAUNCHES,
@@ -1140,7 +1190,10 @@ def _counts() -> dict:
                 vah_spectra=vah.LAUNCHES,
                 vah_spectra_remap=vah.REMAP_LAUNCHES,
                 dndx_vah=dndx.VAH_LAUNCHES,
-                polzn=polzn.LAUNCHES, polzn_remap=polzn.REMAP_LAUNCHES)
+                polzn=polzn.LAUNCHES, polzn_remap=polzn.REMAP_LAUNCHES,
+                sample_events=sample.LAUNCHES,
+                alias_tables=sample.ALIAS_LAUNCHES,
+                mc_cascade=mc_decays.LAUNCHES)
 
 
 def _expect_counts(path: str, counts: dict, want: dict):
@@ -2031,6 +2084,528 @@ def phase_polzn(smi: str, clock: float):
     return rec_fixed, rec_remap
 
 
+# ------------------------------------------------------------- operation 2
+
+def _slot_err(name, want, got, counts, n_cap, dtype) -> tuple[int, int,
+                                                              float]:
+    """K7's slots (``got``) against its plain version's (``want``) on one
+    batch: (flipped slots, valid slots, the largest difference of the lab
+    momenta and eta on the slots decided alike, as a share of each field's
+    largest value).  A slot is flipped where its acceptance, rounds or
+    keep differ (a uniform within rounding of its weight); float64 allows
+    none, float32 1e-4 of the slots.  The cell and species of every slot
+    agree."""
+    valid = (torch.arange(n_cap, device=counts.device)[None, :]
+             < counts[:, None])
+    flips = valid & ((want["ok"] != got["ok"])
+                     | (want["rounds"] != got["rounds"])
+                     | (want["keep"] != got["keep"]))
+    nf, nv = int(flips.sum()), int(valid.sum())
+    if nf > (0 if dtype == torch.float64 else 1e-4 * nv):
+        fail(f"{name}: {nf} of {nv} slots decided otherwise than the plain "
+             "version")
+    for k in ("sidx", "cidx"):
+        if not torch.equal(want[k][valid], got[k][valid]):
+            fail(f"{name}: the kernel's {k} differ from the plain version's")
+    both = valid & ~flips & want["ok"]
+    rtol, atol = TOL[dtype]
+    worst = 0.0
+    for k in ("px", "py", "pz", "eta"):
+        a, b = want[k][both].double(), got[k][both].double()
+        scale = float(a.abs().max())
+        err = (a - b).abs()
+        if not torch.isfinite(b).all() or (
+                err > rtol * a.abs() + atol * scale).any():
+            fail(f"{name}: {k} outside rtol={rtol}, atol={atol}*max")
+        worst = max(worst, float(err.max()) / scale)
+    return nf, nv, worst
+
+
+def phase_small_sample():
+    """[sample small]: K7 against its plain version on testing.SAMPLE_EDGES
+    (every df mode, 2+1D and 3+1D, broken-down cells, baryon diffusion;
+    a massless species and zero-yield cells no slot may draw), f32 and
+    f64, slot by slot, two launches bit-identical; then a batch forced
+    past its packed capacity runs again to the same events."""
+    from is3d_tpu_torch import testing
+    from is3d_tpu_torch.config import Config
+    from is3d_tpu_torch.io.surface import ThermoAverages
+    from is3d_tpu_torch.kernels import sample
+    flips = {torch.float32: [0, 0], torch.float64: [0, 0]}
+    for case in sorted(testing.SAMPLE_EDGES):
+        for dtype in (torch.float32, torch.float64):
+            inp = testing.sample_edge_inputs(case, dtype, "cuda")
+            args = (inp["rows"], inp["layout"], inp["tables"],
+                    inp["species"], inp["counts"], inp["seed"], inp["ev0"],
+                    inp["n_cap"], inp["cfg"])
+            got, again = (sample.event_batch_cuda(*args) for _ in range(2))
+            want = sample.event_batch_plain(
+                inp["rows"], inp["tables"], inp["species"], inp["counts"],
+                sample.PhiloxSource(inp["seed"], inp["ev0"], dtype),
+                inp["n_cap"], inp["cfg"])
+            torch.cuda.synchronize()
+            if not all(torch.equal(got[k], again[k]) for k in got):
+                fail(f"[sample small] {case}: two launches differ")
+            name = f"[sample small] {case} {str(dtype)[6:]}"
+            nf, nv, err = _slot_err(name, want, got, inp["counts"],
+                                    inp["n_cap"], dtype)
+            try:
+                seen = testing.sample_edge_seen(case, inp, got)
+            except AssertionError as e:
+                fail(f"{name}: the case did not exercise its edge: {e}")
+            flips[dtype][0] += nf
+            flips[dtype][1] += nv
+            print(f"{name}: {seen}; {nf} flipped, max err {err:.2e} of max; "
+                  "two launches bit-identical")
+    for dtype, (nf, nv) in flips.items():
+        print(f"[sample small] {str(dtype)[6:]}: {nf} of {nv} slots flipped "
+              f"({nf / nv:.2e})")
+
+    # a batch past its packed capacity runs again at twice it: same events
+    f32 = torch.float32
+    cfg = Config(operation=2, precision="f32", include_shear_deltaf=1,
+                 include_bulk_deltaf=1, y_cut=3.0)
+    kw = dict(nevents=6, events_per_batch=3, seed=5)
+    args = (testing.synthetic_surface(512, 2, seed=3, dtype=f32,
+                                      device="cuda"),
+            testing.synthetic_species(13, f32, "cuda"), np.arange(13),
+            testing.synthetic_deltaf_data(f32, "cuda"), cfg,
+            ThermoAverages(0.152, 0.33, 0.057, 0.0, 0.0))
+    info_ref, info = {}, {}
+    ref = sample.sample_particles(*args, info=info_ref, **kw)
+    packed_capacity = sample._packed_capacity
+    sample._packed_capacity = lambda *a: 256
+    try:
+        got = sample.sample_particles(*args, info=info, **kw)
+    finally:
+        sample._packed_capacity = packed_capacity
+    if info["reruns"] < 1 or info_ref["reruns"]:
+        fail(f"[sample small] forced rerun: {info['reruns']} reruns")
+    same = len(ref) == len(got) and all(
+        a[k].tobytes() == b[k].tobytes() for a, b in zip(ref, got) for k in a)
+    if not same:
+        fail("[sample small] a rerun at twice the capacity changed events")
+    print(f"[sample small] capacity 256 for batches of "
+          f"{sum(len(e['mcid']) for e in ref[:3])} kept hadrons: "
+          f"{info['reruns']} reruns, capacity {info['capacity']}, the same "
+          "events byte for byte")
+
+
+def phase_small_alias():
+    """[alias small]: K7a against its plain version on
+    testing.alias_edge_weights (zero rows, one entry, flat rows, a 1e12
+    range with 60 % zeros, the main path's row shapes), f32 and f64: the
+    same tables bit for bit, two launches bit-identical."""
+    from is3d_tpu_torch import testing
+    from is3d_tpu_torch.kernels import sample
+    for dtype in (torch.float32, torch.float64):
+        names = []
+        for name, w in testing.alias_edge_weights(dtype, "cuda").items():
+            qs, order = sample.alias_sort(w)
+            got = sample.alias_tables_cuda(qs.clone(), order)
+            again = sample.alias_tables_cuda(qs.clone(), order)
+            want = sample.alias_tables_plain(qs, order)
+            torch.cuda.synchronize()
+            for g, a, p in zip(got, again, want):
+                if not (torch.equal(g, a) and torch.equal(g, p)):
+                    fail(f"[alias small] {name} {dtype}: the kernel's "
+                         "tables differ from the plain version's")
+            names.append(f"{name} {tuple(w.shape)}")
+        print(f"[alias small] {str(dtype)[6:]}: {', '.join(names)}: tables "
+              "identical to the plain version's, two launches bit-identical")
+
+
+def phase_small_cascade():
+    """[cascade small]: K8 against cascade_plain on
+    testing.cascade_edge_inputs (3000 hadrons of the 60-species decaying
+    list, every pass), f32 and f64: the same daughters and lineage words,
+    momenta and vertices within the tolerance, two runs bit-identical;
+    then the guards: a capacity too small raises, and a table short of a
+    pass leaves unstable hadrons, which decay_events refuses."""
+    from is3d_tpu_torch import testing
+    from is3d_tpu_torch.kernels import mc_decays
+    for dtype in (torch.float32, torch.float64):
+        runs = [testing.cascade_edge_inputs(dtype, "cuda") for _ in range(3)]
+        a = runs[0]
+        na = mc_decays.cascade_plain(a["state"], a["n0"], a["dev_tabs"],
+                                     a["key"], a["tabs"].n_passes)
+        nb, nc = (mc_decays.run_cascade(r["state"], r["n0"], r["dev_tabs"],
+                                        r["key"], r["tabs"].n_passes)
+                  for r in runs[1:])
+        torch.cuda.synchronize()
+        b, c = runs[1]["state"], runs[2]["state"]
+        if not na == nb == nc:
+            fail(f"[cascade small] {dtype}: {na}, {nb}, {nc} hadrons")
+        for k in ("sidx", "eid", "lin") + mc_decays.STATE_FLOATS:
+            if not torch.equal(b[k][:nb], c[k][:nb]):
+                fail(f"[cascade small] {dtype}: two runs differ in {k}")
+        for k in ("sidx", "eid", "lin"):
+            if not torch.equal(a["state"][k][:na], b[k][:na]):
+                fail(f"[cascade small] {dtype}: {k} differ from the plain "
+                     "version's")
+        err = max(_check(f"[cascade small] {str(dtype)[6:]} {k}", b[k][:na],
+                         a["state"][k][:na], *TOL[dtype])
+                  for k in mc_decays.STATE_FLOATS)
+        stable = a["tabs"].stable[b["sidx"][:nb].cpu().numpy()].all()
+        print(f"[cascade small] {str(dtype)[6:]}: {a['n0']} hadrons -> {nb} "
+              f"in {a['tabs'].n_passes} passes, all stable {stable}, max err "
+              f"{err:.2e}; two runs bit-identical")
+        if not stable:
+            fail("[cascade small] unstable hadrons left")
+
+    small = testing.cascade_edge_inputs(torch.float32, "cuda", n=64)
+    st = {k: v[:small["n0"]].clone() for k, v in small["state"].items()}
+    try:
+        mc_decays.run_cascade(st, small["n0"], small["dev_tabs"],
+                              small["key"], small["tabs"].n_passes)
+        fail("[cascade small] a capacity of the input count did not raise")
+    except RuntimeError as e:
+        print(f"[cascade small] capacity {small['n0']}: raised ({e})")
+    table, tabs = small["table"], mc_decays.cached_tables(small["table"], 111)
+    r = np.random.default_rng(0)
+    s = r.integers(0, len(tabs.mc_id), 3000)
+    p = r.normal(0, 0.5, (3000, 3))
+    z = np.zeros(3000)
+    events = [dict(mcid=tabs.mc_id[s], mass=tabs.mass[s],
+                   E=np.sqrt(tabs.mass[s]**2 + (p**2).sum(1)), px=p[:, 0],
+                   py=p[:, 1], pz=p[:, 2], t=z + 6, x=z, y=z, z=z,
+                   tau=z + 6, eta=z, yp=z)]
+    tabs.n_passes -= 1
+    try:
+        mc_decays.decay_events(events, table, seed=1, device="cuda")
+        fail("[cascade small] a table short of a pass did not raise")
+    except RuntimeError as e:
+        print(f"[cascade small] {tabs.n_passes} of {tabs.n_passes + 1} "
+              f"passes: raised ({e})")
+    finally:
+        tabs.n_passes += 1
+
+
+def _oscar_ok(path: str, n_events: int, n_hadrons: int, allowed=None):
+    """The OSCAR list: one '# n' header an event with hadrons, n rows of 9
+    numbers each, the header counts summing to ``n_hadrons``; the first
+    100000 rows finite, their mc ids in ``allowed``."""
+    headers, rows = [], 0
+    with open(path, "rb") as f:
+        for line in f:
+            if line.startswith(b"#"):
+                headers.append(int(line.split()[1]))
+            else:
+                rows += 1
+    if len(headers) > n_events or sum(headers) != n_hadrons or rows != sum(
+            headers):
+        fail(f"{path}: {len(headers)} events, {sum(headers)} hadrons in "
+             f"the headers, {rows} rows; expected {n_hadrons} hadrons in at "
+             f"most {n_events} events")
+    head = np.loadtxt(path, comments="#", max_rows=100000)
+    if head.shape[1] != 9 or not np.isfinite(head).all():
+        fail(f"{path}: rows are not 9 finite numbers")
+    if allowed is not None and not np.isin(head[:, 0].astype(np.int64),
+                                           allowed).all():
+        fail(f"{path}: mc ids outside the allowed set")
+    return os.path.getsize(path)
+
+
+def phase_sample_main(smi: str, name: str, args, decays=False):
+    """One operation-2 run at full width through the API a user calls
+    (``IS3D.from_run_dir(...).run_particlization()``; the CLI's path) on a
+    synthetic 131072-cell x 320-species 2+1D run directory (``decays``: the
+    decaying list): phases, the sampler's split (phase A, dispatch, wait
+    for the card, the copy to the host, event assembly), kept hadrons/s,
+    efficiency; K7 launched once a batch (and once a rerun), K7a three
+    times (the 2-level cell table and the species table), K8 once a pass
+    with decays; the OSCAR list (with decays: stable hadrons only)."""
+    from is3d_tpu_torch.api import IS3D
+    from is3d_tpu_torch.config import load_config
+    from is3d_tpu_torch.testing import write_synthetic_run_dir
+    from is3d_tpu_torch.utils import PhaseTimer
+
+    run_dir = os.path.join(WORK, name.replace(" ", "_"))
+    t0 = time.perf_counter()
+    write_synthetic_run_dir(run_dir, MAIN_CELLS, MAIN_SPECIES, dimension=2,
+                            seed=0, decays=decays)
+    print(f"[{name}] synthetic run dir {MAIN_CELLS} cells x {MAIN_SPECIES} "
+          f"species written in {time.perf_counter() - t0:.2f} s")
+    overrides = dict(a.split("=", 1) for a in args[1:])
+    _reset_counts()
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        run = IS3D.from_run_dir(run_dir, overrides=overrides, device="cuda")
+        timer = PhaseTimer(verbose=False)
+        result = run.run_particlization(timer=timer)
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    for line in buf.getvalue().splitlines():
+        print(f"[{name}] run: {line}")
+    phases = dict(timer.phases)
+    info = result.sample_info
+    want = dict(sample_events=info["batches"] + info["reruns"],
+                alias_tables=3)
+    if decays:
+        want["mc_cascade"] = info["decays"]["passes"]
+    _expect_counts(f"{name} path", counts, want)
+    n_ev = len(result.events)
+    n_had = sum(len(e["mcid"]) for e in result.events)
+    allowed = None
+    if decays:
+        table = run._prepare()[0]
+        allowed = np.asarray(table.mc_id)[np.asarray(table.stable, bool)]
+        allowed = np.concatenate([allowed, [run.cfg.lightest_particle]])
+    size = _oscar_ok(os.path.join(run_dir, "results", "particle_list_osc.dat"),
+                     n_ev, n_had, allowed)
+    t = info["timings"]
+    t_s = phases["sampler"]
+    eff = 100.0 * info["accepted"] / info["proposed"]
+    print(f"[{name}] {smi} | prepare "
+          f"{phases['prepare (io, pdg, deltaf)']:.3f} s, sampler {t_s:.3f} s "
+          f"(phase A {t['phase_a']:.3f}, dispatch {t['dispatch']:.3f}, wait "
+          f"{t['wait']:.3f}, copy {t['copy']:.3f}, assembly "
+          f"{t['assembly']:.3f}), "
+          + (f"MC decays {phases['MC resonance decays']:.3f} s "
+             f"({info['decays']['hadrons_in']} unstable -> "
+             f"{info['decays']['hadrons_out']} in {info['decays']['passes']} "
+             f"passes, capacity {info['decays']['capacity']}), "
+             if decays else "")
+          + f"writers {phases['writers']:.3f} s, wall {wall:.3f} s | "
+          f"{n_ev} events ({info['batches']} batches of "
+          f"{info['events_per_batch']}, {info['reruns']} reruns, n_cap "
+          f"{info['n_cap']}, lam {info['lam']:.1f}), {n_had} hadrons, "
+          f"{n_had / t_s:.4e} hadrons/s in the sampler phase, efficiency "
+          f"{eff:.2f} %, OSCAR {size / 1e6:.1f} MB | launches "
+          + ", ".join(f"{k} {counts[k]}" for k in want))
+    cfg = load_config(os.path.join(run_dir, "iS3D_parameters.dat"),
+                      overrides=overrides)
+    return counts, run_dir, cfg, info
+
+
+def _sample_bound(ops: dict, clock: float) -> tuple[float, str]:
+    """The least time (ms) of a sampler or cascade launch: the larger of
+    its bytes over the memory rate and its multiply-highs and special
+    functions over their lanes' rates at the maximum SM clock."""
+    t = dict(bytes=ops["bytes"] / HBM_RATE,
+             operations=max(ops["mulhi"] / (N_SM * INT32_LANES * clock),
+                            ops["sfu"] / (N_SM * SFU_LANES * clock)))
+    by = max(t, key=t.get)
+    return t[by] * 1e3, by
+
+
+def phase_sample_pair(smi: str, clock: float, run_dir: str, cfg,
+                      info: dict):
+    """[sample pair]: on the [sample main 2d] surface, f32, K7 on one batch
+    of the main path's shape (CUDA events, median of 3; two launches
+    bit-identical) beside its bound (kernels/sample.py:
+    sample_formula_ops, from this batch's slots, rounds and cells) and the
+    compaction (pack_batch); the batch's last event at full width and a
+    small batch of SAMPLE_PLAIN_SLOTS slots against the plain version,
+    slot by slot; K7a on the
+    (131072, 320) species table against its plain version (identical,
+    one timed run), with its byte bound.  Returns the kernel records of K7
+    and K7a."""
+    from is3d_tpu_torch.kernels import rng, sample
+    from is3d_tpu_torch.utils import cuda_median_ms
+    from is3d_tpu_torch.api import IS3D
+    run = IS3D(cfg, data_dir=run_dir, device="cuda")
+    _, df_data, species, _, _ = run._prepare()
+    cell = sample.build_cell_data(run.surface, species, df_data, cfg,
+                                  run.plasma())
+    species = sample._cast_floats(species, torch.float32)
+    dn = cell.pop("dn_list")
+    C, S = dn.shape
+
+    qs, order = sample.alias_sort(dn)
+    work = qs.clone()
+    copy_ms, _ = cuda_median_ms(lambda: work.copy_(qs), 3)
+    a_all_ms, a_runs = cuda_median_ms(
+        lambda: (work.copy_(qs), sample.alias_tables_cuda(work, order)), 3)
+    a_ms = a_all_ms - copy_ms
+    got = sample.alias_tables_cuda(qs.clone(), order)
+    want, a_plain_ms = _timed_once(lambda: sample.alias_tables_plain(qs,
+                                                                      order))
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        fail("[sample pair] K7a's species table differs from the plain "
+             "version's")
+    del want, work
+    a_bound = sample.alias_formula_bytes(C, S, 4) / HBM_RATE * 1e3
+    print(f"[sample pair] {smi} | K7a species table {C} x {S}: {a_ms:.3f} "
+          f"ms (runs with the {copy_ms:.3f} ms copy of the sorted weights: "
+          f"{', '.join(f'{x:.3f}' for x in a_runs)}), plain {a_plain_ms:.1f} "
+          f"ms (one run), tables identical; bound {a_bound:.4f} ms (bytes), "
+          f"kernel at {a_bound / a_ms:.2%} of it")
+
+    tables = sample.build_alias_tables(dn, cell["dn_tot"])
+    del dn
+    rows, layout = sample.pack_rows(cell, cfg)
+    lam, n_cap, B = info["lam"], info["n_cap"], info["events_per_batch"]
+    seed = 17
+    counts = torch.as_tensor(rng.poisson_counts(seed, range(B), lam),
+                             dtype=torch.int32, device="cuda")
+    kern = lambda: sample.event_batch_cuda(rows, layout, tables, species,
+                                           counts, seed, 0, n_cap, cfg)
+    out, again = kern(), kern()
+    torch.cuda.synchronize()
+    if not all(torch.equal(out[k], again[k]) for k in out):
+        fail("[sample pair] two launches of K7 differ")
+    del again
+    k_ms, k_runs = cuda_median_ms(kern, 3)
+    n_valid, n_rounds = int(counts.sum()), int(out["rounds"].sum())
+    valid = (torch.arange(n_cap, device="cuda")[None, :]
+             < counts[:, None])
+    ops = sample.sample_formula_ops(B * n_cap, n_valid, n_rounds, rows,
+                                    tables, out["cidx"][valid])
+    bound = _sample_bound(ops, clock)
+    # the batch's last event at full width against the plain version:
+    # every slot counter to n_cap, a global event past the first
+    last = B - 1
+    want, last_ms = _timed_once(lambda: sample.event_batch_plain(
+        rows, tables, species, counts[last:],
+        sample.PhiloxSource(seed, last, torch.float32), n_cap, cfg))
+    nf_last, nv_last, err_last = _slot_err(
+        f"[sample pair] event {last} at full width", want,
+        {k: v[last:] for k, v in out.items()}, counts[last:], n_cap,
+        torch.float32)
+    del want
+    cap = sample._packed_capacity(B, info["lam"], n_cap)
+    p_ms, _ = cuda_median_ms(lambda: sample.pack_batch(out, cfg, S, C, cap),
+                             3)
+    kept = int(out["keep"].sum())
+
+    small = torch.tensor([SAMPLE_PLAIN_SLOTS], dtype=torch.int32,
+                         device="cuda")
+    ks = lambda: sample.event_batch_cuda(rows, layout, tables, species, small,
+                                         seed, 0, SAMPLE_PLAIN_SLOTS, cfg)
+    got = ks()
+    want, plain_ms = _timed_once(lambda: sample.event_batch_plain(
+        rows, tables, species, small,
+        sample.PhiloxSource(seed, 0, torch.float32), SAMPLE_PLAIN_SLOTS,
+        cfg))
+    nf, nv, err = _slot_err("[sample pair] small batch", want, got, small,
+                            SAMPLE_PLAIN_SLOTS, torch.float32)
+    ks_ms, _ = cuda_median_ms(ks, 3)
+    print(f"[sample pair] event {last} of the batch, {nv_last} slots: "
+          f"plain {last_ms:.1f} ms (one run), {nf_last} flipped, max err "
+          f"{err_last:.2e} of max")
+    print(f"[sample pair] {smi} | K7 one batch {B} events x {n_cap} slots "
+          f"({n_valid} hadrons to sample, {n_rounds} proposals = "
+          f"{n_rounds / n_valid:.3f} a slot, {kept} kept): {k_ms:.3f} ms "
+          f"(runs {', '.join(f'{x:.3f}' for x in k_runs)}), "
+          f"{kept / k_ms * 1e3:.4e} kept hadrons/s; compaction "
+          f"(cumsum and index copy) {p_ms:.3f} ms; bound {bound[0]:.4f} ms "
+          f"({bound[1]}: {ops['bytes'] / 1e6:.1f} MB, {ops['mulhi']:.4e} "
+          f"multiply-highs, {ops['sfu']:.4e} special functions), kernel at "
+          f"{bound[0] / k_ms:.1%} of it; two launches bit-identical; small "
+          f"batch of {SAMPLE_PLAIN_SLOTS} slots: kernel {ks_ms:.3f} ms, plain "
+          f"{plain_ms:.1f} ms (one run), {nf} of {nv} slots flipped, max err "
+          f"{err:.2e} of max")
+    rec_k7 = dict(launches=None, max_abs_err=max(err, err_last), ms=k_ms,
+                  plain_ms=plain_ms,
+                  bound_ms=bound[0], bound_by=bound[1], library_ms=None,
+                  slots=B * n_cap, plain_slots=SAMPLE_PLAIN_SLOTS,
+                  kernel_ms_on_plain_slots=ks_ms, flipped=nf + nf_last,
+                  full_event_slots=nv_last, full_event_plain_ms=last_ms,
+                  compaction_ms=p_ms)
+    rec_k7a = dict(launches=None, max_abs_err=0.0, ms=a_ms,
+                   plain_ms=a_plain_ms, bound_ms=a_bound, bound_by="bytes",
+                   library_ms=None, rows=C, width=S)
+    return rec_k7, rec_k7a
+
+
+def phase_cascade_pair(smi: str, clock: float, run_dir: str, cfg):
+    """[cascade pair]: K8 pass by pass on the unstable hadrons of two
+    sampled events of the [sample decays] surface (f32): each pass timed
+    (CUDA events, median of 3, on a copy of the state the pass starts
+    from) beside its bound (kernels/mc_decays.py:cascade_formula_ops) and
+    held against its plain version on the same state (one timed run).
+    Returns K8's kernel record (the pass with the most decays)."""
+    from is3d_tpu_torch.api import IS3D
+    from is3d_tpu_torch.kernels import mc_decays, rng, sample
+    run = IS3D(cfg, data_dir=run_dir, device="cuda")
+    table, df_data, species, mcids, _ = run._prepare()
+    events = sample.sample_particles(run.surface, species, mcids, df_data,
+                                     cfg, run.plasma(), nevents=2, seed=17)
+    inp = mc_decays.cascade_inputs(events, table, cfg.lightest_particle,
+                                   mc_decays.derive_decay_seed(17),
+                                   device="cuda")
+    st, n, tabs = inp["state"], inp["n0"], inp["tabs"]
+    C = st["E"].shape[0]
+    table_bytes = sum(t.nbytes for t in inp["dev_tabs"].values())
+    scratch = dict(extra=torch.empty(C, dtype=torch.int32, device="cuda"),
+                   ch=torch.empty(C, dtype=torch.int32, device="cuda"))
+    best = None
+    for p in range(tabs.n_passes):
+        snap = {k: v.clone() for k, v in st.items()}
+        times = []
+        for _ in range(3):
+            s = {k: v.clone() for k, v in snap.items()}
+            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0.record()
+            n_new = mc_decays.cascade_pass_cuda(s, n, inp["dev_tabs"],
+                                                inp["key"], scratch)
+            t1.record()
+            t1.synchronize()
+            times.append(t0.elapsed_time(t1))
+        ms = float(np.median(times))
+        plain = {k: v.clone() for k, v in snap.items()}
+        lin = plain["lin"][:n]
+        n_plain, plain_ms = _timed_once(lambda: mc_decays.cascade_pass_plain(
+            plain, n, inp["dev_tabs"],
+            rng.decay_uniforms(inp["key"], lin, torch.float32),
+            tuple(rng.child_lineage(inp["key"], lin, j) for j in (1, 2, 3))))
+        if n_plain != n_new:
+            fail(f"[cascade pair] pass {p}: {n_new} hadrons, plain {n_plain}")
+        for k in ("sidx", "eid", "lin"):
+            if not torch.equal(s[k][:n_new], plain[k][:n_new]):
+                fail(f"[cascade pair] pass {p}: {k} differ")
+        err = max(_check(f"[cascade pair] pass {p} {k}", s[k][:n_new],
+                         plain[k][:n_new], *TOL[torch.float32])
+                  for k in mc_decays.STATE_FLOATS)
+        n_dec = int((inp["dev_tabs"]["stable"][st["sidx"][:n].long()]
+                     == 0).sum())
+        ops = mc_decays.cascade_formula_ops(n, n_dec, n_new - n, 4,
+                                            table_bytes)
+        bound = _sample_bound(ops, clock)
+        print(f"[cascade pair] {smi} | pass {p}: {n} live, {n_dec} decay, "
+              f"-> {n_new}: {ms:.3f} ms (runs "
+              f"{', '.join(f'{x:.3f}' for x in times)}), plain "
+              f"{plain_ms:.3f} ms; bound {bound[0]:.4f} ms ({bound[1]}), "
+              f"kernel at {bound[0] / ms:.1%} of it")
+        if best is None or n_dec > best["decaying"]:
+            best = dict(launches=None, max_abs_err=err, ms=ms,
+                        plain_ms=plain_ms, bound_ms=bound[0],
+                        bound_by=bound[1], library_ms=None, pass_index=p,
+                        live=n, decaying=n_dec)
+        n = mc_decays.cascade_pass_cuda(st, n, inp["dev_tabs"], inp["key"],
+                                        scratch)
+    return best
+
+
+def phase_sample(smi: str, clock: float):
+    """The operation-2 paths: [sample main 2d] and its 256-cell
+    cuda-against-cpu runs (f64; the same Philox streams, so the same
+    lists), [sample pair]; [sample decays] (the decaying list,
+    do_resonance_decays = 1) with its small runs and [cascade pair].
+    Returns the kernel records of K7, K7a and K8."""
+    counts, run_dir, cfg, info = phase_sample_main(smi, "sample main 2d",
+                                                   SAMPLE2D_ARGS)
+    small = dict(operation=2, sampler_seed=3, oversample=1,
+                 min_num_hadrons=3000)
+    phase_small_path_cpu_vs_cuda("small_sample", dimension=2, params=small,
+                                 label="operation 2 df2")
+    rec_k7, rec_k7a = phase_sample_pair(smi, clock, run_dir, cfg, info)
+    rec_k7["launches"] = counts["sample_events"]
+    rec_k7a["launches"] = counts["alias_tables"]
+    shutil.rmtree(run_dir, ignore_errors=True)
+    counts, run_dir, cfg, _ = phase_sample_main(
+        smi, "sample decays", SAMPLE_DECAYS_ARGS, decays=True)
+    phase_small_path_cpu_vs_cuda("small_sample_decays", dimension=2,
+                                 params=small, n_species=24, decays=True,
+                                 label="operation 2 df2 with decays")
+    rec_k8 = phase_cascade_pair(smi, clock, run_dir, cfg)
+    rec_k8["launches"] = counts["mc_cascade"]
+    shutil.rmtree(run_dir, ignore_errors=True)
+    return rec_k7, rec_k7a, rec_k8
+
+
 def main():
     smi, clock = phase_device()
     phase_build()
@@ -2044,6 +2619,9 @@ def main():
     phase_small_feqmod()
     phase_small_vah()
     phase_small_polzn()
+    phase_small_sample()
+    phase_small_alias()
+    phase_small_cascade()
     shutil.rmtree(WORK, ignore_errors=True)
     try:
         counts, run_dir, cfg, _ = phase_main_path(smi)
@@ -2089,6 +2667,7 @@ def main():
                                                                     clock)
         rec_vah, rec_vah_remap, rec_vah_dndx = phase_vah(smi, clock)
         rec_polzn, rec_polzn_remap = phase_polzn(smi, clock)
+        rec_k7, rec_k7a, rec_k8 = phase_sample(smi, clock)
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     src = "is3d_tpu_torch/csrc/"
@@ -2130,6 +2709,12 @@ def main():
              replaces="is3d_tpu/kernels/polzn.py:42", **rec_polzn),
         dict(name="polzn_remap", route="cuda", source=src + "polzn.cu",
              replaces="is3d_tpu/kernels/polzn.py:42", **rec_polzn_remap),
+        dict(name="sample_events", route="cuda", source=src + "sample.cu",
+             replaces="is3d_tpu/kernels/sample.py:1099", **rec_k7),
+        dict(name="alias_tables", route="cuda", source=src + "sample.cu",
+             replaces="is3d_tpu/kernels/sample.py:92", **rec_k7a),
+        dict(name="mc_cascade", route="cuda", source=src + "mc_decays.cu",
+             replaces="is3d_tpu/kernels/mc_decays.py:242", **rec_k8),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -11,8 +11,11 @@ The port runs operation 0 (dN/dX spacetime distributions) and operation 1
 do_resonance_decays = 1) on viscous-hydro surfaces with linear delta-f (df
 1-2) and modified equilibrium distributions (df 3-4), on anisotropic-hydro
 surfaces (modes 2-3, the VAH emission) and on thermal-vorticity surfaces
-(mode 5: the spin polarization, then the operation); the other paths raise
-NotImplementedError naming the ROADMAP slice that ports them.
+(mode 5: the spin polarization, then the operation); operation 2 (the
+Monte-Carlo sampler, with the event-level decay cascade when
+do_resonance_decays = 1) on the viscous-hydro surfaces, df 1-4.  The
+other paths raise NotImplementedError naming the ROADMAP slice that ports
+them.
 """
 
 from __future__ import annotations
@@ -47,6 +50,8 @@ class RunResult:
     spectra: Optional[np.ndarray] = None        # (S, PT, PHI, Y)
     dN_dX: Optional[dict] = None                # operation 0
     polarization: Optional[dict] = None         # mode 5
+    events: Optional[list] = None               # operation 2
+    sample_info: Optional[dict] = None          # operation 2: batch plan
     mcids: Optional[np.ndarray] = None
     averages: Optional[ThermoAverages] = None
 
@@ -73,10 +78,11 @@ def _not_ported(what: str, slice_name: str, cfg: Config):
 def check_supported(cfg: Config):
     """Raise NotImplementedError for every configuration this slice of the
     port does not run."""
-    if cfg.operation == 2:
-        _not_ported("operation 2 (sampler)", "slice 9", cfg)
-    if cfg.operation not in (0, 1):
+    if cfg.operation not in (0, 1, 2):
         raise ValueError(f"operation must be 0, 1 or 2, got {cfg.operation}")
+    if cfg.operation == 2:
+        from .kernels.sample import check_sampler_supported
+        check_sampler_supported(cfg)
     # df_mode must be valid on every surface; VAH (modes 2-3) ignores it
     if cfg.df_mode not in (1, 2, 3, 4):
         raise ValueError(f"df_mode must be 1-4, got {cfg.df_mode}")
@@ -309,6 +315,9 @@ class IS3D:
                     with timer.phase("decay writers"):
                         self._write_decay_files(result.spectra, host_grid,
                                                 mcids, self.results_dir)
+        elif cfg.operation == 2:
+            self._sample(result, particle_table, df_data, species, mcids,
+                         timer, write_files)
         else:
             from .kernels.dndx import spacetime_distributions
             with timer.phase("dN/dX spacetime"):
@@ -320,6 +329,47 @@ class IS3D:
                     writers.write_spacetime_distributions(
                         result.dN_dX, mcids, self.results_dir)
         return result
+
+    def _sample(self, result, particle_table, df_data, species, mcids,
+                timer, write_files):
+        """Operation 2 (is3d_tpu/api.py:338-425, one process): the sampled
+        events, decayed with do_resonance_decays = 1 (not under
+        test_sampler, whose histograms compare with the undecayed yield),
+        then the OSCAR list or the test_sampler histograms."""
+        from .kernels.sample import sample_particles, _resolve_seed
+        cfg = self.cfg
+        seed = _resolve_seed(None, cfg)
+        info = {}
+        with timer.phase("sampler"):
+            result.events = sample_particles(
+                self.surface, species, np.asarray(mcids), df_data, cfg,
+                self.plasma(), seed=seed, info=info)
+        result.sample_info = info
+        if cfg.do_resonance_decays and not cfg.test_sampler:
+            from .kernels.mc_decays import decay_events, derive_decay_seed
+            with timer.phase("MC resonance decays"):
+                # the decay streams' own seed: the sampler's would key the
+                # same counters
+                info["decays"] = {}
+                result.events = decay_events(
+                    result.events, particle_table, cfg,
+                    seed=derive_decay_seed(seed),
+                    event_offset=info.get("event_lo", 0), device=self.device,
+                    info=info["decays"])
+        if not write_files:
+            return
+        os.makedirs(self.results_dir, exist_ok=True)
+        with timer.phase("writers"):
+            if cfg.test_sampler:
+                from .histograms import (sampler_test_histograms,
+                                         write_sampler_test)
+                hist = sampler_test_histograms(result.events, mcids, cfg,
+                                               info["total_yield"])
+                write_sampler_test(hist, mcids, self.results_dir)
+            else:
+                writers.write_particle_list_oscar(
+                    result.events,
+                    os.path.join(self.results_dir, "particle_list_osc.dat"))
 
     def _smooth_spectra(self, species, grid, df_data):
         """The smooth spectra of the surface and df mode (reference

@@ -26,7 +26,8 @@ _USAGE = (
     "  device     cuda (default) or cpu\n"
     "  key=value  parameter overrides, e.g. df_mode=2 precision=f32\n"
     "             (reference: ParameterReader::readFromArguments)\n"
-    "  operation  0 (dN/dX) or 1 (spectra); mode 0-7: 1 viscous hydro,\n"
+    "  operation  0 (dN/dX), 1 (spectra) or 2 (sampled particle lists);\n"
+    "             mode 0-7: 1 viscous hydro,\n"
     "             2 / 3 anisotropic hydro (VAH, PL / PL,PT matched),\n"
     "             5 viscous hydro + thermal vorticity (the spin\n"
     "             polarization, then the operation)")
@@ -61,6 +62,9 @@ def main(argv=None):
     dt = time.time() - t0
     if result.spectra is not None:
         print(f"spectra shape {result.spectra.shape}")
+    elif result.events is not None:
+        n = sum(len(e["mcid"]) for e in result.events)
+        print(f"sampled {len(result.events)} events, {n} hadrons")
     else:
         print(f"dN/dX: {len(result.mcids)} species, dN_dy shape "
               f"{result.dN_dX['dN_dy'].shape}")

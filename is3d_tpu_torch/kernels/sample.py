@@ -1,0 +1,1253 @@
+"""Monte-Carlo particle sampler (operation 2): discrete hadron lists from
+the Cooper-Frye emission function of a viscous-hydro surface, df 1-4.
+
+Port of is3d_tpu/kernels/sample.py (the reference's sampler,
+emissionfunction_sampling_kernels.cpp:653-1225, restructured for a
+data-parallel device):
+
+* Phase A, plain torch on the device (``cell_data``): per cell the LRF
+  tetrad, dsigma / pi / V in the LRF, the df coefficients, the feqmod
+  transform and breakdown, and the (cell, species) densities dn; then the
+  Walker-alias tables of the (cell, species) draw (``build_alias_tables``,
+  kernel K7a on the card).
+* Phase B, one batch of B events x n_cap hadron slots (``event_batch``):
+  by Poisson superposition one count n ~ Poisson(sum dn) an event, each
+  slot < n drawing its cell and species from the alias tables, its LRF
+  momentum by rejection, the feqmod rescale, the viscous and flux keep,
+  and the lab boost.  On the card this is kernel K7 (csrc/sample.cu), one
+  thread a slot; ``event_batch_plain`` is its plain version.  Compaction of
+  the kept slots to event-major packed arrays is a cumsum and an index
+  copy (``pack_batch``).
+* The host drains batches (``_drain_event_range``): the device-to-host
+  copy of batch k runs on a side stream while batch k+1's kernel runs, and
+  a batch whose kept hadrons overflow the packed capacity is run again at
+  twice the capacity (its streams are counter-keyed: the same hadrons).
+
+Random numbers: the port's own Philox streams (kernels/rng.py), keyed on
+(seed, global event, slot, rejection round, purpose); the per-event count
+is drawn on the host from numpy's Philox keyed on (seed, event).  Event i
+depends only on (seed, i), so ``event_partition`` slices concatenate to
+the unpartitioned run byte for byte.  The lists equal is3d_tpu's in
+distribution, not event by event (its streams are Threefry's).
+
+Left for later slices (each raises NotImplementedError naming it): the
+VAH sampler (modes 2-3), the cell-chunked sampler (``sampler_cell_chunk``,
+on by default above 2^20 cells), the sharded sampler (``mesh=``) and the
+binary-search draws (``sampler_alias = 0``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import math
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..data import SpeciesArrays
+from ..io.deltaf import DeltafData, evaluate_df_coefficients
+from ..io.tables import laguerre_device
+from ..physics import lrf, thermal
+from ..units import TWO_PI2_HBARC3
+from . import rng
+from .common import CHUNK_ELEMENT_BUDGET, prepare_cells, surface_columns
+from .feqmod import adjugate_sym, mode3_breakdown
+from .launch import check_float, check_tensor, launch, require_cuda
+
+TWO_PI = 2.0 * math.pi
+MBAR_LIGHT = 1.008        # light/heavy proposal split (reference :481)
+MAX_REJECTION_ROUNDS = 256
+CELL_BLOCK = 512          # cells per row of the 2-level cell alias table
+
+# kernel launches (K7: event batches; K7a: alias tables)
+LAUNCHES = 0
+ALIAS_LAUNCHES = 0
+
+
+def _not_ported(what: str, slice_name: str):
+    raise NotImplementedError(f"{what} is not ported yet: ROADMAP section "
+                              f"1, {slice_name}")
+
+
+def check_sampler_supported(cfg: Config, n_cells: Optional[int] = None):
+    """Raise NotImplementedError for the sampler paths this slice leaves
+    out: VAH surfaces, the binary-search draws, and (given the cell count)
+    an active cell chunk."""
+    if cfg.mode in (2, 3):
+        _not_ported("operation 2 on VAH surfaces (modes 2-3)",
+                    "slice 9, second half")
+    if not cfg.sampler_alias:
+        _not_ported("sampler_alias = 0 (binary-search draws)",
+                    "slice 9, second half")
+    if n_cells is not None and resolve_cell_chunk(cfg, n_cells) is not None:
+        _not_ported(f"the cell-chunked sampler ({n_cells} cells, "
+                    f"sampler_cell_chunk = {cfg.sampler_cell_chunk})",
+                    "slice 9, second half")
+
+
+def resolve_cell_chunk(cfg: Config, n_cells: int):
+    """Chunk size in cells, or None for the single phase A
+    (is3d_tpu/kernels/sample.py:_resolve_cell_chunk)."""
+    v = int(cfg.sampler_cell_chunk)
+    if v < 0:
+        return None
+    if v == 0:
+        return (1 << 19) if n_cells > (1 << 20) else None
+    return v if n_cells > v else None
+
+
+def pion_thermal_weight_max(x):
+    """Max of the light-hadron equilibrium weight for m/T < 0.8554
+    (rational fit, reference: emissionfunction_sampling_kernels.cpp:172-195)."""
+    x2 = x * x
+    x3 = x2 * x
+    x4 = x3 * x
+    num = (143206.88623164667 - 95956.76008684626 * x - 21341.937407169076 * x2
+           + 14388.446116867359 * x3 - 6083.775788504437 * x4)
+    den = (-0.3541350577684533 + 143218.69233952634 * x - 24516.803600065778 * x2
+           - 115811.59391199696 * x3 + 35814.36403387459 * x4)
+    return 1.00001 * num / den
+
+
+# ======================================================================
+# Alias tables (K7a)
+# ======================================================================
+
+def _next_pow2_int(n: int) -> int:
+    return 1 << max(0, int(n - 1).bit_length())
+
+
+def alias_sort(weights: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The input of the Vose pass: each row scaled to mean 1 (zero rows:
+    all ones) and sorted descending, stably, with the original index of
+    each sorted entry (int32)."""
+    R, K = weights.shape
+    W = weights.sum(dim=1, keepdim=True)
+    safe = torch.where(W > 0.0, W, torch.ones_like(W))
+    q0 = torch.where(W > 0.0, weights * (float(K) / safe),
+                     torch.ones_like(weights))
+    qs, order = torch.sort(-q0, dim=1, stable=True)
+    return (-qs).contiguous(), order.to(torch.int32).contiguous()
+
+
+def alias_tables_plain(qs: torch.Tensor, order: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The Vose two-pointer pass of is3d_tpu's _alias_build (:92-162) over
+    rows sorted descending (``alias_sort``), vectorized over rows: each of
+    the K steps finalizes one slot of every row, the donor i when it has
+    dropped below 1, else the smallest untouched entry j against it.
+    Returns (prob, alias) in the rows' original slot order."""
+    R, K = qs.shape
+    qs = qs.clone()
+    order = order.long()
+    rows = torch.arange(R, device=qs.device)
+    prob_s = torch.ones_like(qs)
+    alias_s = torch.zeros((R, K), dtype=torch.long, device=qs.device)
+    i = torch.zeros(R, dtype=torch.long, device=qs.device)
+    j = torch.full((R,), K - 1, dtype=torch.long, device=qs.device)
+    one = torch.ones((), dtype=qs.dtype, device=qs.device)
+    for _ in range(K):
+        qi = qs[rows, i]
+        last = i == j
+        small_i = (qi < 1.0) & ~last
+        ip1 = torch.clamp(i + 1, max=K - 1)
+        qj = qs[rows, j]
+        pos = torch.where(last | small_i, i, j)
+        prob_val = torch.where(last, one, torch.clamp(
+            torch.where(small_i, qi, qj), 0.0, 1.0))
+        alias_pos = torch.where(last, i, torch.where(small_i, ip1, i))
+        alias_val = order[rows, alias_pos]
+        upd_idx = torch.where(small_i, ip1, i)
+        upd_val = torch.where(small_i, qs[rows, ip1] - (1.0 - qi),
+                              torch.where(last, qi, qi - (1.0 - qj)))
+        qs[rows, upd_idx] = upd_val
+        prob_s[rows, pos] = prob_val
+        alias_s[rows, pos] = alias_val
+        step = small_i | last
+        i = torch.where(step, i + 1, i)
+        j = torch.where(step, j, j - 1)
+    prob = torch.ones_like(prob_s).scatter_(1, order, prob_s)
+    alias = torch.zeros_like(alias_s).scatter_(1, order, alias_s)
+    return prob, alias.to(torch.int32)
+
+
+def alias_tables_cuda(qs: torch.Tensor, order: torch.Tensor
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K7a (csrc/sample.cu, alias_kernel): the same pass, one thread a
+    row.  ``qs`` is overwritten (scratch)."""
+    global ALIAS_LAUNCHES
+    check_float("alias_tables_cuda", qs)
+    R, K = qs.shape
+    check_tensor("sorted weights", qs, (R, K), qs)
+    check_tensor("order", order, (R, K), qs, dtype=torch.int32)
+    require_cuda("alias_tables_cuda", qs)
+    lib = _library()
+    prob = torch.ones_like(qs)
+    alias = torch.zeros((R, K), dtype=torch.int32, device=qs.device)
+    fn = (lib.is3d_alias_build_f64 if qs.dtype == torch.float64
+          else lib.is3d_alias_build_f32)
+    launch(lib, "alias tables", fn, qs.device, qs.data_ptr(),
+           order.data_ptr(), R, K, prob.data_ptr(), alias.data_ptr())
+    ALIAS_LAUNCHES += 1
+    return prob, alias
+
+
+def alias_build(weights: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Walker alias tables (prob (R, K), alias (R, K) int32) of R
+    categorical rows of nonnegative ``weights``: u in [0, 1) picks
+    b = floor(u K), then b if frac(u K) < prob[b] else alias[b].  Rows of
+    zero total weight get uniform tables.  K7a on CUDA tensors, the plain
+    pass on CPU ones."""
+    qs, order = alias_sort(weights)
+    if weights.device.type == "cpu":
+        return alias_tables_plain(qs, order)
+    return alias_tables_cuda(qs, order)
+
+
+def alias_pick(prob, alias, row_idx, u):
+    """One alias draw per query: u in [0, 1) -> column index of row_idx."""
+    K = prob.shape[1]
+    x = u * K
+    b = torch.clamp(x.to(torch.int32), max=K - 1).long()
+    f = x - b.to(x.dtype)
+    row_idx = row_idx.long()
+    return torch.where(f < prob[row_idx, b], b,
+                       alias[row_idx, b].long()).to(torch.int32)
+
+
+def build_alias_tables(dn_list: torch.Tensor, dn_tot: torch.Tensor) -> dict:
+    """The 2-level cell draw (rows of CELL_BLOCK cells and one row over
+    the blocks) and the per-cell species draw
+    (is3d_tpu/kernels/sample.py:_build_alias_tables)."""
+    C = dn_tot.shape[0]
+    CB = min(CELL_BLOCK, _next_pow2_int(C))
+    G = -(-C // CB)
+    blocks = torch.cat([dn_tot, dn_tot.new_zeros(G * CB - C)]).reshape(G, CB)
+    grp_prob, grp_alias = alias_build(blocks.sum(dim=1)[None])
+    blk_prob, blk_alias = alias_build(blocks)
+    sp_prob, sp_alias = alias_build(dn_list)
+    return dict(grp_prob=grp_prob, grp_alias=grp_alias, blk_prob=blk_prob,
+                blk_alias=blk_alias, sp_prob=sp_prob, sp_alias=sp_alias)
+
+
+# ======================================================================
+# Phase A: per-cell data
+# ======================================================================
+
+def _species_yields_block(c, df, species, laguerre, cfg):
+    """(C, S) max densities of one block of cells (reference
+    max_particle_number, sampling_kernels.cpp:282-357)."""
+    r1, w1 = laguerre[1]
+    r2, w2 = laguerre[2]
+    T = c["T"][:, None]
+    alphaB = c["alphaB"][:, None]
+    mbar = species.mass[None, :] / T
+    baryon = species.baryon[None, :]
+    sign = species.sign[None, :]
+    deg = species.degeneracy[None, :]
+    neq_fact = T**3 / TWO_PI2_HBARC3
+    gt = thermal.gauss_thermal
+    neq = neq_fact * deg * gt(thermal.neq_int, r1, w1, mbar, alphaB, baryon,
+                              sign)
+    linear = 2.0 * neq
+    if cfg.df_mode in (1, 2):
+        return linear
+    if cfg.df_mode == 3:
+        J20_fact = T * neq_fact
+        if cfg.include_baryon:
+            J10 = neq_fact * deg * gt(thermal.J10_int, r1, w1, mbar, alphaB,
+                                      baryon, sign)
+        else:
+            J10 = torch.zeros_like(neq)
+        J20 = J20_fact * deg * gt(thermal.J20_int, r2, w2, mbar, alphaB,
+                                  baryon, sign)
+        bulk_density = (neq + baryon * J10 * df["G"][:, None]
+                        + J20 * (df["F"] / T[:, 0] ** 2)[:, None]
+                        ) / df["betabulk"][:, None]
+        mod = neq + c["bulkPi"][:, None] * bulk_density
+    else:   # mode 4: z . neq at zero chemical potential
+        neq0 = neq_fact * deg * gt(thermal.neq_int, r1, w1, mbar,
+                                   torch.zeros_like(alphaB),
+                                   torch.zeros_like(baryon), sign)
+        mod = df["z"][:, None] * neq0
+    return torch.where(c["breakdown"][:, None], linear, mod)
+
+
+def _species_yields_exact(c, species, laguerre, cfg):
+    """The (C, S) densities, cells in chunks that keep each (chunk, S,
+    nodes) quadrature block within common.CHUNK_ELEMENT_BUDGET."""
+    C, S = c["T"].shape[0], species.n_species
+    Q = laguerre[1][0].shape[0]
+    chunk = max(1, CHUNK_ELEMENT_BUDGET // max(S * Q, 1))
+    names = ("T", "alphaB", "bulkPi", "breakdown")
+    dfn = ("F", "G", "z", "betabulk")
+    return torch.cat([_species_yields_block(
+        {k: c[k][c0:c0 + chunk] for k in names},
+        {k: getattr(c["df"], k)[c0:c0 + chunk] for k in dfn},
+        species, laguerre, cfg) for c0 in range(0, max(C, 1), chunk)])[:C]
+
+
+def _species_yields_fast(c, species, cfg):
+    """Fast mode: densities at the surface-averaged state, shared by all
+    cells (reference fast_max_particle_number, sampling_kernels.cpp:239-279)."""
+    neq = species.equilibrium_density[None, :]
+    C = c["T"].shape[0]
+    if cfg.df_mode in (1, 2):
+        return (2.0 * neq).expand(C, species.n_species).clone()
+    if cfg.df_mode == 3:
+        mod = neq + c["bulkPi"][:, None] * species.bulk_density[None, :]
+    else:
+        mod = c["df"].z[:, None] * neq
+    return torch.where(c["breakdown"][:, None], 2.0 * neq, mod)
+
+
+# per-cell df coefficients read by the hadron-level viscous weight
+DF_FIELDS = ("c0", "c1", "c2", "c3", "c4", "shear14", "F", "G", "betabulk",
+             "betaV", "betapi", "delta_lambda", "delta_z")
+
+
+def cell_data(cols: dict, species: SpeciesArrays, df_data: DeltafData,
+              laguerre: dict, plasma_avg: tuple, cfg: Config) -> dict:
+    """Every per-cell sampler input, (C,) and (C, S) tensors
+    (is3d_tpu/kernels/sample.py:_cell_data_impl, viscous hydro): the LRF
+    fields, the df and feqmod per-cell values, the breakdown flag,
+    ``dn_list`` (C, S), ``dn_tot`` and ``mean_cell``."""
+    c = prepare_cells(cols, cfg, df_data)
+    tau = c["tau"]
+    basis = lrf.milne_basis(c["ut"], c["ux"], c["uy"], c["un"], tau)
+    dst, dsx, dsy, dsz = lrf.boost_dsigma_to_lrf(
+        basis, c["dat"], c["dax"], c["day"], c["dan"],
+        c["ut"], c["ux"], c["uy"], c["un"])
+    ds_space, ds_max = lrf.dsigma_magnitude(dst, dsx, dsy, dsz)
+    piL = lrf.boost_pimunu_to_lrf(basis, c["pitt"], c["pitx"], c["pity"],
+                                  c["pitn"], c["pixx"], c["pixy"], c["pixn"],
+                                  c["piyy"], c["piyn"], c["pinn"], tau)
+    VL = lrf.boost_Vmu_to_lrf(basis, c["Vt"], c["Vx"], c["Vy"], c["Vn"], tau)
+    Vdsigma = (c["Vt"] * c["dat"] + c["Vx"] * c["dax"] + c["Vy"] * c["day"]
+               + c["Vn"] * c["dan"])
+
+    df = c["df"]
+    zl = torch.zeros_like(tau)
+    if cfg.df_mode == 3:
+        T_mod = c["T"] + c["bulkPi"] * df.F / df.betabulk
+        alphaB_mod = c["alphaB"] + c["bulkPi"] * df.G / df.betabulk
+        shear_mod = 0.5 / df.betapi
+        bulk_mod = c["bulkPi"] / (3.0 * df.betabulk)
+        diff_mod = c["T"] / df.betaV
+    elif cfg.df_mode == 4:
+        T_mod, alphaB_mod = c["T"], zl
+        shear_mod = 0.5 / df.betapi
+        bulk_mod = df.lam
+        diff_mod = zl
+    else:
+        T_mod, alphaB_mod = c["T"], c["alphaB"]
+        shear_mod = bulk_mod = diff_mod = zl
+
+    if cfg.df_mode in (3, 4):
+        A = (1.0 + piL[0] * shear_mod + bulk_mod,
+             piL[1] * shear_mod, piL[2] * shear_mod,
+             1.0 + piL[3] * shear_mod + bulk_mod,
+             piL[4] * shear_mod,
+             1.0 + piL[5] * shear_mod + bulk_mod)
+        _, detA = adjugate_sym(A)
+        c["detA"] = detA
+        if cfg.df_mode == 3:
+            if cfg.fast:
+                # breakdown from the average state (reference fast path,
+                # does_feqmod_breakdown with fast = 1, emissionfunction.cpp:114-120)
+                T_avg, muB_avg = plasma_avg
+                zero = torch.zeros_like(T_avg)
+                df_avg = evaluate_df_coefficients(
+                    df_data, cfg.df_mode, bool(cfg.include_baryon),
+                    T_avg, muB_avg, zero, zero, zero)
+                dfb = dataclasses.replace(df_avg, **{
+                    f.name: getattr(df_avg, f.name).expand(tau.shape)
+                    for f in dataclasses.fields(df_avg)})
+                cavg = dict(T=T_avg.expand(tau.shape), bulkPi=c["bulkPi"],
+                            detA=detA, df=dfb)
+                breakdown = mode3_breakdown(cavg, laguerre, cfg)
+            else:
+                breakdown = mode3_breakdown(c, laguerre, cfg)
+        else:
+            # Jonah's f_mod normally never falls back, except where A loses
+            # positive definiteness (detA <= deta_min): as is3d_tpu does
+            breakdown = detA <= cfg.deta_min
+    else:
+        breakdown = torch.zeros_like(tau, dtype=torch.bool)
+    c["breakdown"] = breakdown
+
+    if cfg.fast:
+        dn_list = _species_yields_fast(c, species, cfg)
+    else:
+        dn_list = _species_yields_exact(c, species, laguerre, cfg)
+    dn_list = torch.clamp(dn_list, min=0.0)     # negative weights: UB in C++
+    # massless species cannot be sampled (reference exits at :479)
+    dn_list = torch.where(species.mass[None, :] > 0.0, dn_list,
+                          torch.zeros_like(dn_list))
+
+    y_max = cfg.y_cut if cfg.dimension == 2 else 0.5
+    dn_tot = dn_list.sum(dim=1) * (2.0 * y_max * ds_max)
+    dn_tot = torch.where(c["valid"], dn_tot, torch.zeros_like(dn_tot))
+
+    # mean yield for the oversampling estimate (reference
+    # estimate_mean_particle_number, sampling_kernels.cpp:200-236)
+    neq_s = species.equilibrium_density[None, :]
+    if cfg.df_mode == 4:
+        per_sp = torch.where(breakdown[:, None],
+                             (1.0 + df.delta_z[:, None]) * neq_s,
+                             df.z[:, None] * neq_s)
+        mean_cell = c["udsigma"] * per_sp.sum(dim=1)
+    else:
+        mean_cell = (c["udsigma"] * (
+            neq_s + c["bulkPi"][:, None] * species.bulk_density[None, :]
+        ).sum(dim=1) - ds_space * Vdsigma * species.diff_density.sum())
+    mean_cell = torch.where(c["valid"], mean_cell, torch.zeros_like(mean_cell))
+
+    out = dict(
+        tau=tau, x=c["x"], y=c["y"], eta=c["eta"],
+        T=c["T"], alphaB=c["alphaB"], T_mod=T_mod, alphaB_mod=alphaB_mod,
+        shear_mod=shear_mod, bulk_mod=bulk_mod, diff_mod=diff_mod,
+        breakdown=breakdown, benth=c["baryon_enthalpy_ratio"],
+        bulkPi=c["bulkPi"],
+        dst=dst, dsx=dsx, dsy=dsy, dsz=dsz, ds_max=ds_max,
+        ut=c["ut"], ux=c["ux"], uy=c["uy"], un=c["un"],
+        Xt=basis.Xt, Xx=basis.Xx, Xy=basis.Xy, Xn=basis.Xn,
+        Yx=basis.Yx, Yy=basis.Yy, Zt=basis.Zt, Zn=basis.Zn,
+        pixx=piL[0], pixy=piL[1], pixz=piL[2], piyy=piL[3], piyz=piL[4],
+        pizz=piL[5], Vx=VL[0], Vy=VL[1], Vz=VL[2],
+        dn_list=dn_list, dn_tot=dn_tot, mean_cell=mean_cell)
+    for name in DF_FIELDS:
+        out["df_" + name] = getattr(df, name)
+    return out
+
+
+# ======================================================================
+# Phase B: one batch of events, one thread (or lane) a hadron slot
+# ======================================================================
+
+# the per-cell fields of the slot's row gather (is3d_tpu/kernels/sample.py
+# :734-784): those read before the keep decision, pruned per df_mode, then
+# those of the lab boost
+_PRE_COMMON = ("T", "alphaB", "benth", "bulkPi",
+               "pixx", "pixy", "pixz", "piyy", "piyz", "pizz",
+               "Vx", "Vy", "Vz", "dst", "dsx", "dsy", "dsz", "ds_max")
+_PRE_DF = {
+    1: ("df_c0", "df_c1", "df_c2", "df_c3", "df_c4", "df_shear14"),
+    2: ("df_betapi", "df_F", "df_G", "df_betabulk", "df_betaV"),
+    3: ("df_betapi", "df_F", "df_G", "df_betabulk", "df_betaV",
+        "T_mod", "alphaB_mod", "breakdown", "shear_mod", "bulk_mod",
+        "diff_mod"),
+    4: ("df_betapi", "df_delta_lambda", "df_delta_z",
+        "T_mod", "breakdown", "shear_mod", "bulk_mod", "diff_mod"),
+}
+_LAB_FIELDS = ("tau", "x", "y", "eta", "ut", "ux", "uy", "un",
+               "Xt", "Xx", "Xy", "Xn", "Yx", "Yy", "Zt", "Zn")
+
+# every field the event kernel can read, in the order of csrc/sample.cu's
+# `Field` enum; the kernel finds each in a row through ``layout``
+ROW_FIELDS = (_PRE_COMMON + ("df_c0", "df_c1", "df_c2", "df_c3", "df_c4",
+                             "df_shear14", "df_betapi", "df_F", "df_G",
+                             "df_betabulk", "df_betaV", "df_delta_lambda",
+                             "df_delta_z", "T_mod", "alphaB_mod",
+                             "breakdown", "shear_mod", "bulk_mod",
+                             "diff_mod") + _LAB_FIELDS)
+
+
+def gather_fields(cfg: Config) -> tuple:
+    """The fields of one slot's row: the pre-keep fields of the df mode,
+    then the lab fields with the tetrad (sampler_gather_tetrad is inert:
+    is3d_tpu's per-slot rebuild gives the same values)."""
+    return _PRE_COMMON + _PRE_DF[cfg.df_mode] + _LAB_FIELDS
+
+
+def pack_rows(cell: dict, cfg: Config) -> tuple[torch.Tensor, torch.Tensor]:
+    """(rows, layout): the gathered fields of every cell row-major, (C, NF)
+    in the cell data's float dtype with NF padded to 16 bytes (so a row
+    starts 16-byte aligned), and the int32 column of each ROW_FIELDS
+    entry in a row (-1 where the df mode has none), on the host."""
+    fields = gather_fields(cfg)
+    dtype = cell["tau"].dtype
+    per = 128 // torch.finfo(dtype).bits
+    nf = -(-len(fields) // per) * per
+    C = cell["tau"].shape[0]
+    rows = torch.zeros((C, nf), dtype=dtype, device=cell["tau"].device)
+    for i, k in enumerate(fields):
+        rows[:, i] = cell[k].to(dtype)
+    layout = torch.tensor([fields.index(k) if k in fields else -1
+                           for k in ROW_FIELDS], dtype=torch.int32)
+    return rows, layout
+
+
+def _df_weight(cfg, g, E, px, py, pz, mass2, sign, baryon):
+    """Viscous weight (1 + df)/2 for the linear branch
+    (reference compute_df_weight, sampling_kernels.cpp:361-453)."""
+    pipp = (px * px * g["pixx"] + py * py * g["piyy"] + pz * pz * g["pizz"]
+            + 2.0 * (px * py * g["pixy"] + px * pz * g["pixz"]
+                     + py * pz * g["piyz"]))
+    Vp = -(px * g["Vx"] + py * g["Vy"] + pz * g["Vz"])
+    T = g["T"]
+    bulkPi = g["bulkPi"]
+    if cfg.df_mode == 1:
+        chem = baryon * g["alphaB"]
+        feqbar = 1.0 - sign / (torch.exp(E / T - chem) + sign)
+        df_shear = pipp / g["df_shear14"]
+        df_bulk = ((g["df_c0"] - g["df_c2"]) * mass2
+                   + (baryon * g["df_c1"] + (4.0 * g["df_c2"] - g["df_c0"]) * E)
+                   * E) * bulkPi
+        df_diff = (baryon * g["df_c3"] + g["df_c4"] * E) * Vp
+        df_tot = feqbar * (df_shear + df_bulk + df_diff)
+    elif cfg.df_mode in (2, 3):
+        chem = baryon * g["alphaB"]
+        feqbar = 1.0 - sign / (torch.exp(E / T - chem) + sign)
+        df_shear = pipp / (2.0 * E * g["df_betapi"] * T)
+        df_bulk = (baryon * g["df_G"] + g["df_F"] * E / T**2
+                   + (E - mass2 / E) / (3.0 * T)) * bulkPi / g["df_betabulk"]
+        df_diff = (g["benth"] - baryon / E) * Vp / g["df_betaV"]
+        df_tot = feqbar * (df_shear + df_bulk + df_diff)
+    else:   # mode 4 linearized (Jonah)
+        feqbar = 1.0 - sign / (torch.exp(E / T) + sign)
+        df_shear = feqbar * pipp / (2.0 * E * g["df_betapi"] * T)
+        df_bulk = (g["df_delta_z"] - 3.0 * g["df_delta_lambda"]
+                   + feqbar * g["df_delta_lambda"] * (E - mass2 / E) / T)
+        df_tot = df_shear + df_bulk
+    df_tot = torch.clamp(df_tot, -1.0, 1.0)
+    return 0.5 * (1.0 + df_tot)
+
+
+def _propose(u, mbar, sign, chem):
+    """One rejection round of the given slots from its five uniforms ``u``
+    on [tiny, 1): the light (mbar < 1.008) p^2 e^-p proposal from three
+    exponential deviates (reference :481-517) or the heavy 3-component
+    k^j e^-k mixture (:520-599).  Returns (accept, pbar, Ebar, phi,
+    costheta)."""
+    l1, l2, l3 = torch.log(u[0]), torch.log(u[1]), torch.log(u[2])
+    l12 = l1 + l2
+    mbar2 = mbar * mbar
+    # light branch
+    pbar_l = -(l1 + l2 + l3)
+    Ebar_l = torch.sqrt(pbar_l * pbar_l + mbar2)
+    phi_l = l12 * l12 / (pbar_l * pbar_l)
+    cos_l = (l1 - l2) / l12
+    weq_max = torch.where((mbar < 0.8554) & (sign == -1.0),
+                          pion_thermal_weight_max(mbar),
+                          torch.ones_like(mbar))
+    w_l = torch.exp(pbar_l - Ebar_l) / (1.0 + sign * torch.exp(-Ebar_l)) / weq_max
+    # heavy branch: pick the k^j e^-k component
+    w0 = mbar2
+    w1 = 2.0 * mbar
+    tot = w0 + w1 + 2.0
+    r = u[3] * tot
+    j1 = (r >= w0) & (r < w0 + w1)
+    j2 = r >= (w0 + w1)
+    kbar = torch.where(j2, -(l1 + l2 + l3), torch.where(j1, -l12, -l1))
+    phi_h = torch.where(j2, l12 * l12 / (kbar * kbar),
+                        torch.where(j1, -l1 / kbar, u[1]))
+    cos_h = torch.where(j2, (l1 - l2) / l12, 2.0 * u[2] - 1.0)
+    Ebar_h = kbar + mbar
+    pbar_h = torch.sqrt(torch.clamp(Ebar_h * Ebar_h - mbar2, min=0.0))
+    e = torch.exp(Ebar_h - chem)
+    w_h = pbar_h / Ebar_h * e / (e + sign)
+
+    light = mbar < MBAR_LIGHT
+    pbar = torch.where(light, pbar_l, pbar_h)
+    Ebar = torch.where(light, Ebar_l, Ebar_h)
+    phi = TWO_PI * torch.where(light, phi_l, phi_h)
+    cost = torch.where(light, cos_l, cos_h)
+    w = torch.where(light, w_l, w_h)
+    return u[4] < w, pbar, Ebar, phi, cost
+
+
+def _lab_kinematics(g, mass, E, px, py, pz, u_y, cfg):
+    """Boost LRF momenta to the lab frame with the row's tetrad and rebuild
+    the rapidity and (2+1D) the space-time rapidity (reference
+    :1144-1192)."""
+    basis = lrf.MilneBasis(Xt=g["Xt"], Xx=g["Xx"], Xy=g["Xy"], Xn=g["Xn"],
+                           Yx=g["Yx"], Yy=g["Yy"], Zt=g["Zt"], Zn=g["Zn"])
+    ptau, px_lab, py_lab, pn = lrf.boost_pLRF_to_lab(
+        basis, g["ut"], g["ux"], g["uy"], g["un"], E, px, py, pz)
+    tau = g["tau"]
+    mass2 = mass * mass
+    mT = torch.sqrt(mass2 + px_lab**2 + py_lab**2)
+    if cfg.dimension == 2:
+        # boost-invariant: rapidity uniform on [-y_cut, y_cut], (pz, eta)
+        # rebuilt (reference :1168-1192)
+        yp = cfg.y_cut * (2.0 * u_y - 1.0)
+        sinhy = torch.sinh(yp)
+        coshy = torch.sqrt(1.0 + sinhy * sinhy)
+        sinheta = (ptau * sinhy - tau * pn * coshy) / mT
+        eta_out = torch.asinh(sinheta)
+        pz_lab = mT * sinhy
+    else:
+        eta_out = g["eta"]
+        pz_lab = tau * pn * torch.cosh(eta_out) + ptau * torch.sinh(eta_out)
+    return px_lab, py_lab, pz_lab, eta_out
+
+
+class PhiloxSource:
+    """The uniforms of a batch of events from the port's Philox streams
+    (kernels/rng.py), the same numbers K7 draws: each slot's five own
+    draws and its five of each rejection round, keyed on (seed, global
+    event, slot, round)."""
+
+    def __init__(self, seed: int, ev0: int, dtype: torch.dtype):
+        self.key = rng.seed_key(seed)
+        self.ev0 = int(ev0)
+        self.dtype = dtype
+
+    def slot_draws(self, ev: torch.Tensor, slot: torch.Tensor):
+        """(5, ...) uniforms on [0, 1): cell group, cell in block,
+        species, keep, rapidity."""
+        return rng.slot_uniforms(self.key, slot, ev + self.ev0, self.dtype)
+
+    def round_draws(self, r: int, ev: torch.Tensor, slot: torch.Tensor):
+        """(5, ...) uniforms on [tiny, 1) of rejection round r."""
+        return rng.slot_uniforms(self.key, slot, ev + self.ev0, self.dtype,
+                                 round_=r, open0=True)
+
+
+def event_batch_plain(rows: torch.Tensor, tables: dict,
+                      species: SpeciesArrays, counts: torch.Tensor, src,
+                      n_cap: int, cfg: Config) -> dict:
+    """The plain version of K7: every slot of B events x ``n_cap``
+    (is3d_tpu/kernels/sample.py:_one_event_lrf and _lab_kinematics, VH
+    branches).  ``rows`` is ``pack_rows``' (C, NF); ``counts`` (B,) the
+    events' hadron counts; ``src`` gives the uniforms (``PhiloxSource``,
+    or a test's replay of is3d_tpu's).  Returns (B, n_cap) tensors: keep,
+    ok (momentum accepted), rounds (proposals made), sidx, cidx, and the
+    lab px, py, pz, eta (2+1D: sampled; 3+1D: the cell's).  Slots at or
+    past an event's count have keep = ok = False and rounds = 0."""
+    dev, dtype = rows.device, rows.dtype
+    B = counts.shape[0]
+    C = rows.shape[0]
+    fields = gather_fields(cfg)
+    ev = torch.arange(B, device=dev)[:, None].expand(B, n_cap)
+    sl = torch.arange(n_cap, device=dev)[None, :].expand(B, n_cap)
+    slot = sl < counts.to(dev)[:, None]
+    u = src.slot_draws(ev, sl)
+
+    CB = tables["blk_prob"].shape[1]
+    grp = alias_pick(tables["grp_prob"], tables["grp_alias"],
+                     torch.zeros_like(sl), u[0])
+    within = alias_pick(tables["blk_prob"], tables["blk_alias"], grp, u[1])
+    cidx = torch.clamp(grp * CB + within, max=C - 1)
+    sidx = alias_pick(tables["sp_prob"], tables["sp_alias"], cidx, u[2])
+    r = rows[cidx.long()]
+    g = {k: r[..., i] for i, k in enumerate(fields)}
+    s = sidx.long()
+    mass = species.mass[s]
+    mass2 = mass * mass
+    sign = species.sign[s]
+    baryon = species.baryon[s]
+
+    if cfg.df_mode in (1, 2):
+        use_mod = torch.zeros_like(slot)
+        T_eff = g["T"]
+        chem_s = baryon * g["alphaB"]
+    else:
+        use_mod = ~(g["breakdown"] > 0.5)
+        T_eff = torch.where(use_mod, g["T_mod"], g["T"])
+        if cfg.df_mode == 4:
+            # Jonah's feqmod samples at zero chemical potential (:1111-1117)
+            chem_s = torch.where(use_mod, torch.zeros_like(T_eff),
+                                 baryon * g["alphaB"])
+        else:
+            chem_s = baryon * torch.where(use_mod, g["alphaB_mod"],
+                                          g["alphaB"])
+    mbar = mass / T_eff
+
+    # rejection, every pending slot proposing each round; round r of a
+    # slot has its own uniforms, so the pending slots are compacted
+    done = ~slot
+    pbar = torch.zeros_like(T_eff)
+    Ebar = torch.ones_like(T_eff)
+    phi = torch.zeros_like(T_eff)
+    cost = torch.zeros_like(T_eff)
+    rounds = torch.zeros((B, n_cap), dtype=torch.int32, device=dev)
+    for rnd in range(MAX_REJECTION_ROUNDS):
+        pend = (~done).nonzero(as_tuple=True)
+        if pend[0].numel() == 0:
+            break
+        acc, pb, Eb, ph, ct = _propose(src.round_draws(rnd, *pend),
+                                       mbar[pend], sign[pend], chem_s[pend])
+        rounds[pend] += 1
+        a = tuple(p[acc] for p in pend)
+        pbar[a], Ebar[a], phi[a], cost[a] = pb[acc], Eb[acc], ph[acc], ct[acc]
+        done[a] = True
+    ok = done & slot
+
+    sint = torch.sqrt(torch.clamp(1.0 - cost * cost, min=0.0))
+    E = Ebar * T_eff
+    p = pbar * T_eff
+    px = p * sint * torch.cos(phi)
+    py = p * sint * torch.sin(phi)
+    pz = p * cost
+
+    if cfg.df_mode in (3, 4):
+        # feqmod momentum rescale p = A p_mod + shifts (reference :619-650)
+        dm = g["diff_mod"] * (E * g["benth"] + baryon)
+        bx = (1.0 + g["bulk_mod"]) * px + g["shear_mod"] * (
+            g["pixx"] * px + g["pixy"] * py + g["pixz"] * pz) + dm * g["Vx"]
+        by = (1.0 + g["bulk_mod"]) * py + g["shear_mod"] * (
+            g["pixy"] * px + g["piyy"] * py + g["piyz"] * pz) + dm * g["Vy"]
+        bz = (1.0 + g["bulk_mod"]) * pz + g["shear_mod"] * (
+            g["pixz"] * px + g["piyz"] * py + g["pizz"] * pz) + dm * g["Vz"]
+        px = torch.where(use_mod, bx, px)
+        py = torch.where(use_mod, by, py)
+        pz = torch.where(use_mod, bz, pz)
+        E = torch.where(use_mod, torch.sqrt(mass2 + px**2 + py**2 + pz**2), E)
+
+    w_visc = torch.where(use_mod, torch.ones_like(E),
+                         _df_weight(cfg, g, E, px, py, pz, mass2, sign,
+                                    baryon))
+    w_flux = torch.clamp(E * g["dst"] - px * g["dsx"] - py * g["dsy"]
+                         - pz * g["dsz"], min=0.0) / (E * g["ds_max"])
+    keep = ok & (u[3] < w_flux * w_visc)
+    pxl, pyl, pzl, eta = _lab_kinematics(g, mass, E, px, py, pz, u[4], cfg)
+    return dict(keep=keep, ok=ok, rounds=rounds, sidx=sidx, cidx=cidx,
+                px=pxl, py=pyl, pz=pzl, eta=eta)
+
+
+SLOT_OUTPUTS = ("keep", "ok", "rounds", "sidx", "cidx", "px", "py", "pz",
+                "eta")
+
+# K7's yardstick, counted from the formula: a Philox-4x32-10 block is 20
+# multiply-highs on the INT32 pipe; a slot's own draws and each rejection
+# round take 2 blocks in float32 (5 uniforms, 4 a block) and 3 in float64;
+# a rejection round takes 6 special functions (3 logs, a sqrt, 2 exps of
+# the light proposal), a slot 8 more after it (sint, cos, sin, the df exp,
+# the feqmod / lab mT sqrt, sinh, cosh's sqrt, asinh); a slot gathers its
+# row and three (prob, alias) pairs, each table's gathers counted by
+# gather_bytes
+PHILOX_MULHI = 20
+PROPOSAL_SFU = 6
+SLOT_SFU = 8
+L2_BYTES = 50 * 2**20     # the H100's L2
+
+
+def gather_bytes(table_bytes: int, n_gathers: int) -> int:
+    """The least memory traffic of ``n_gathers`` random gathers from a
+    table of ``table_bytes``: a table that fits in L2 is read at most once,
+    a larger one a 32-byte sector a gather."""
+    if table_bytes <= L2_BYTES:
+        return min(table_bytes, 32 * n_gathers)
+    return 32 * n_gathers
+
+
+def sample_formula_ops(n_slots: int, n_valid: int, n_rounds: int,
+                       rows: torch.Tensor, tables: dict,
+                       cidx: torch.Tensor) -> dict:
+    """The work of one K7 launch as its inputs need it: ``n_slots`` slots
+    of which ``n_valid`` below their event's count, ``n_rounds``
+    proposals made (the sum of the slots' rounds: rounds per slot = 1 /
+    efficiency), on ``rows`` and the alias ``tables`` it was given;
+    ``cidx`` the cells the valid slots drew.  A pick reads its alias entry
+    only where the column's probability fails: the species table's alias
+    reads are counted as their expectation on those cells' rows, the small
+    tables' as every gather.  Returns the bytes (each table's gathers by
+    gather_bytes, outputs written once), the multiply-highs and the
+    special functions."""
+    itemsize = rows.element_size()
+    blocks = 2 if itemsize == 4 else 3
+    row_sectors = -(-rows.shape[1] * itemsize // 32)
+    miss = 1.0 - tables["sp_prob"].double().mean(dim=1)
+    sp_alias_reads = int(round(float(miss[cidx.long()].sum())))
+    gathers = gather_bytes(rows.nbytes, n_valid * row_sectors) + sum(
+        gather_bytes(tables[f"{t}_{k}"].nbytes,
+                     sp_alias_reads if t + k == "spalias" else n_valid)
+        for t in ("grp", "blk", "sp") for k in ("prob", "alias"))
+    out_bytes = 2 + 3 * 4 + 4 * itemsize
+    return dict(bytes=gathers + n_slots * out_bytes,
+                mulhi=PHILOX_MULHI * blocks * (n_valid + n_rounds),
+                sfu=PROPOSAL_SFU * n_rounds + SLOT_SFU * n_valid)
+
+
+def alias_formula_bytes(R: int, K: int, itemsize: int) -> int:
+    """K7a moves each sorted weight, index, prob and alias entry once."""
+    return R * K * (2 * itemsize + 8)
+
+
+def event_batch_cuda(rows: torch.Tensor, layout: torch.Tensor, tables: dict,
+                     species: SpeciesArrays, counts: torch.Tensor,
+                     seed: int, ev0: int, n_cap: int, cfg: Config) -> dict:
+    """K7 (csrc/sample.cu, event_kernel): ``event_batch_plain`` with the
+    port's Philox streams, one thread a slot.  Same arguments and outputs
+    (keep and ok as bool)."""
+    global LAUNCHES
+    check_float("event_batch_cuda", rows)
+    C, nf = rows.shape
+    S = species.mass.shape[0]
+    B = counts.shape[0]
+    G, CB = tables["blk_prob"].shape
+    check_tensor("rows", rows, (C, nf), rows)
+    # the C entry copies the layout into the launch's parameters
+    lay = layout.to("cpu", torch.int32).contiguous()
+    if tuple(lay.shape) != (len(ROW_FIELDS),) or int(lay.max()) >= nf:
+        raise ValueError(f"layout: need {len(ROW_FIELDS)} columns below "
+                         f"{nf}, got {tuple(lay.shape)}")
+    check_tensor("grp_prob", tables["grp_prob"], (1, G), rows)
+    check_tensor("grp_alias", tables["grp_alias"], (1, G), rows,
+                 dtype=torch.int32)
+    check_tensor("blk_alias", tables["blk_alias"], (G, CB), rows,
+                 dtype=torch.int32)
+    check_tensor("sp_prob", tables["sp_prob"], (C, S), rows)
+    check_tensor("sp_alias", tables["sp_alias"], (C, S), rows,
+                 dtype=torch.int32)
+    mass, sign, baryon = (getattr(species, k).contiguous()
+                          for k in ("mass", "sign", "baryon"))
+    for name, t in (("mass", mass), ("sign", sign), ("baryon", baryon)):
+        check_tensor(name, t, (S,), rows)
+    check_tensor("counts", counts, (B,), rows, dtype=torch.int32)
+    if nf * rows.element_size() % 16 or rows.data_ptr() % 16:
+        raise ValueError("event_batch_cuda: rows must be 16-byte aligned")
+    if B * n_cap >= 1 << 31 or ev0 + B > 1 << 32:
+        raise ValueError("event_batch_cuda: more slots or events than the "
+                         "kernel's 32-bit counters take")
+    require_cuda("event_batch_cuda", rows)
+    lib = _library()
+    dev = rows.device
+    out = dict(keep=torch.empty((B, n_cap), dtype=torch.bool, device=dev),
+               ok=torch.empty((B, n_cap), dtype=torch.bool, device=dev),
+               rounds=torch.empty((B, n_cap), dtype=torch.int32, device=dev),
+               sidx=torch.empty((B, n_cap), dtype=torch.int32, device=dev),
+               cidx=torch.empty((B, n_cap), dtype=torch.int32, device=dev))
+    for k in ("px", "py", "pz", "eta"):
+        out[k] = torch.empty((B, n_cap), dtype=rows.dtype, device=dev)
+    k0, k1 = rng.seed_key(seed)
+    fn = (lib.is3d_sample_events_f64 if rows.dtype == torch.float64
+          else lib.is3d_sample_events_f32)
+    launch(lib, "sample events", fn, dev, rows.data_ptr(), C, nf,
+           lay.data_ptr(), tables["grp_prob"].data_ptr(),
+           tables["grp_alias"].data_ptr(), G, tables["blk_prob"].data_ptr(),
+           tables["blk_alias"].data_ptr(), CB, tables["sp_prob"].data_ptr(),
+           tables["sp_alias"].data_ptr(), S, mass.data_ptr(),
+           sign.data_ptr(), baryon.data_ptr(),
+           counts.data_ptr(), B, n_cap, ev0, k0, k1, cfg.dimension,
+           cfg.df_mode, float(cfg.y_cut),
+           *(out[k].data_ptr() for k in SLOT_OUTPUTS))
+    LAUNCHES += 1
+    return out
+
+
+def _library():
+    from ..native.build import cuda_library
+    lib = cuda_library("sample")
+    if not getattr(lib, "_is3d_bound", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        for fn in (lib.is3d_alias_build_f32, lib.is3d_alias_build_f64):
+            fn.restype = ci
+            fn.argtypes = [vp, vp, ci, ci, vp, vp, vp]   # qs order R K prob alias stream
+        for fn in (lib.is3d_sample_events_f32, lib.is3d_sample_events_f64):
+            fn.restype = ci
+            fn.argtypes = [vp, ci, ci, vp,              # rows C nf layout
+                           vp, vp, ci, vp, vp, ci,      # grp, blk tables
+                           vp, vp, ci,                  # species tables, S
+                           vp, vp, vp,                  # mass sign baryon
+                           vp, ci, ci, ctypes.c_longlong,  # counts B n_cap ev0
+                           ctypes.c_uint, ctypes.c_uint,   # key
+                           ci, ci, ctypes.c_double,     # dim df y_cut
+                           vp, vp, vp, vp, vp,          # keep ok rounds sidx cidx
+                           vp, vp, vp, vp,              # px py pz eta
+                           vp]                          # stream
+        lib.is3d_cuda_error_string.restype = ctypes.c_char_p
+        lib.is3d_cuda_error_string.argtypes = [ci]
+        lib._is3d_bound = True
+    return lib
+
+
+def event_batch(rows, layout, tables, species, counts, seed: int, ev0: int,
+                n_cap: int, cfg: Config) -> dict:
+    """One batch's slots: K7 on CUDA tensors, the plain version on CPU
+    ones."""
+    if rows.device.type == "cpu":
+        return event_batch_plain(rows, tables, species, counts,
+                                 PhiloxSource(seed, ev0, rows.dtype), n_cap,
+                                 cfg)
+    return event_batch_cuda(rows, layout, tables, species, counts, seed, ev0,
+                            n_cap, cfg)
+
+
+# ======================================================================
+# Packing and the host side
+# ======================================================================
+
+EVENT_FIELDS = ("mcid", "mass", "tau", "x", "y", "eta", "t", "z",
+                "E", "px", "py", "pz", "yp")
+_PACK_INT = ("sidx", "cidx", "scidx")
+
+
+def _index_pack_bits(n_species: int, n_cells: int):
+    """Bit position fusing (species, cell) into one int32 word sidx <<
+    cbits | cidx, or None where they do not fit in 31 bits."""
+    cbits = max(1, (max(n_cells, 1) - 1).bit_length())
+    sbits = max(1, (max(n_species, 1) - 1).bit_length())
+    return cbits if (cbits + sbits) <= 31 else None
+
+
+def _pack_fields(cfg: Config, fused_idx: bool) -> tuple:
+    """Fields copied to the host; the rest are rebuilt there
+    (is3d_tpu/kernels/sample.py:_pack_fields)."""
+    idx = ("scidx",) if fused_idx else ("sidx", "cidx")
+    if cfg.dimension == 2:
+        return idx + ("eta", "px", "py", "pz")
+    return idx + ("px", "py", "pz")
+
+
+def _pack_f16(cfg: Config) -> bool:
+    """sampler_pack: f16 momenta (and 2+1D eta) on the copy to the host,
+    "auto" on float32 runs only."""
+    mode = cfg.sampler_pack
+    if mode == "auto":
+        mode = "f16" if cfg.precision == "f32" else "f32"
+    return mode == "f16"
+
+
+def pack_batch(out: dict, cfg: Config, n_species: int, n_cells: int,
+               cap: int) -> tuple[dict, torch.Tensor]:
+    """The kept slots of a batch, event-major in (cap,) arrays: a cumsum
+    over the keep flags and an index copy (kept slots past ``cap`` are
+    dropped; the caller compares the count with ``cap``).  Returns
+    (packed, per-event kept counts (B,) int32)."""
+    keep = out["keep"].reshape(-1)
+    pos = torch.cumsum(keep, 0, dtype=torch.int64) - 1
+    idx = torch.where(keep & (pos < cap), pos, torch.full_like(pos, cap))
+    cbits = _index_pack_bits(n_species, n_cells)
+    vals = dict(out)
+    if cbits is not None:
+        vals["scidx"] = (out["sidx"] << cbits) | out["cidx"]
+    f16 = _pack_f16(cfg)
+    packed = {}
+    for k in _pack_fields(cfg, cbits is not None):
+        v = vals[k].reshape(-1)
+        buf = v.new_zeros(cap + 1).scatter_(0, idx, v)[:cap]
+        packed[k] = buf.to(torch.float16) if (f16 and k not in _PACK_INT) \
+            else buf
+    return packed, out["keep"].sum(dim=1, dtype=torch.int32)
+
+
+def _empty_event() -> dict:
+    """A zero-hadron event with the full EVENT_FIELDS schema."""
+    return {k: (np.zeros(0, dtype=np.int64) if k == "mcid"
+                else np.zeros(0)) for k in EVENT_FIELDS}
+
+
+def _cell_positions(cell: dict, cfg: Config) -> dict:
+    """Host copies of the per-cell positions the packed stream references
+    by index."""
+    names = ("tau", "x", "y") if cfg.dimension == 2 else ("tau", "x", "y",
+                                                          "eta")
+    return {k: cell[k].double().cpu().numpy() for k in names}
+
+
+def _reconstruct_packed(packed: dict, mcids_np, mass_np, cellpos: dict,
+                        cfg: Config) -> None:
+    """Rebuild the derived per-hadron fields on the host, in place
+    (is3d_tpu/kernels/sample.py:_reconstruct_packed): (mcid, mass) from
+    the species index, positions from the cell index, on-shell E, (t, z)
+    and yp; f16 fields are widened to f32 first.  Every field is copied
+    out of ``packed``'s arrays, which may be reused staging buffers."""
+    for k, v in packed.items():
+        packed[k] = v.astype(np.float32 if v.dtype == np.float16
+                             else v.dtype)
+    n_cells = len(cellpos["tau"])
+    if "scidx" in packed:
+        cbits = _index_pack_bits(len(mcids_np), n_cells)
+        sc = packed.pop("scidx").astype(np.int64)
+        sidx = sc >> cbits
+        cidx = sc & ((1 << cbits) - 1)
+    else:
+        sidx = packed.pop("sidx").astype(np.int64)
+        cidx = packed.pop("cidx").astype(np.int64)
+    sidx = np.clip(sidx, 0, len(mcids_np) - 1)
+    packed["mcid"] = mcids_np[sidx]
+    packed["mass"] = mass_np[sidx].astype(packed["px"].dtype)
+    cidx = np.clip(cidx, 0, n_cells - 1)
+    dtype = packed["px"].dtype
+    for k in cellpos:
+        if k == "eta" and "eta" in packed:
+            continue            # 2+1D: eta is per hadron
+        packed[k] = cellpos[k][cidx].astype(dtype)
+    packed["E"] = np.sqrt(packed["mass"]**2 + packed["px"]**2
+                          + packed["py"]**2 + packed["pz"]**2)
+    packed["t"] = packed["tau"] * np.cosh(packed["eta"])
+    packed["z"] = packed["tau"] * np.sinh(packed["eta"])
+    with np.errstate(divide="ignore", invalid="ignore"):
+        packed["yp"] = 0.5 * np.log(
+            (packed["E"] + packed["pz"])
+            / np.maximum(packed["E"] - packed["pz"], 1e-45))
+
+
+def _sampler_dtype(dtype: torch.dtype) -> torch.dtype:
+    """At least float32 (is3d_tpu/kernels/sample.py:_sampler_dtype)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def _sampler_cols(surface, cfg) -> dict:
+    cols = surface_columns(surface, cfg)
+    cols["x"] = surface.x
+    cols["y"] = surface.y
+    return cols
+
+
+def _cast_floats(obj, dtype):
+    if isinstance(obj, dict):
+        return {k: (v.to(dtype) if torch.is_floating_point(v) else v)
+                for k, v in obj.items()}
+    return obj.to(dtype=dtype)
+
+
+def build_cell_data(surface, species, df_data, cfg, plasma, laguerre=None
+                    ) -> dict:
+    """Phase A of a viscous-hydro surface, inputs upcast to at least
+    float32."""
+    check_sampler_supported(cfg, surface.tau.shape[0])
+    dtype = _sampler_dtype(surface.tau.dtype)
+    dev = surface.tau.device
+    if laguerre is None:
+        laguerre = laguerre_device(32, (1, 2), dtype=dtype, device=dev)
+    plasma_avg = (torch.tensor(float(plasma.temperature), dtype=dtype,
+                               device=dev),
+                  torch.tensor(float(plasma.baryon_chemical_potential),
+                               dtype=dtype, device=dev))
+    return cell_data(_cast_floats(_sampler_cols(surface, cfg), dtype),
+                     _cast_floats(species, dtype),
+                     _cast_floats(df_data, dtype), laguerre, plasma_avg, cfg)
+
+
+def _total_yield(cell, cfg) -> float:
+    """Physical mean hadrons per event (2+1D includes the 2 y_cut factor)."""
+    ntot = float(cell["mean_cell"].sum())
+    if cfg.dimension == 2:
+        ntot *= 2.0 * cfg.y_cut
+    return ntot
+
+
+def _oversample_nevents(nevents, ntot: float, cfg) -> int:
+    """Oversampling event count (reference: emissionfunction.cpp:1524-1532)."""
+    if nevents is not None:
+        return nevents
+    if not cfg.oversample:
+        return 1
+    return max(1, min(int(math.ceil(cfg.min_num_hadrons / max(ntot, 1e-30))),
+                      cfg.max_num_samples))
+
+
+def _slot_capacity(lam: float) -> int:
+    """Per-event hadron-slot capacity: mean + 10 sigma, padded to 128."""
+    n_cap = int(lam + 10.0 * math.sqrt(lam) + 64.0)
+    return -(-n_cap // 128) * 128
+
+
+def _resolve_seed(seed, cfg) -> int:
+    if seed is None:
+        seed = cfg.sampler_seed
+    if seed < 0:
+        seed = int(np.random.SeedSequence().entropy % (2**31))
+    return int(seed)
+
+
+def _batch_width(nevents: int, n_cap: int) -> int:
+    """Events per batch under the 4M-slot budget, batches of equal size."""
+    b_max = max(1, min(nevents, (1 << 22) // n_cap))
+    n_batches = -(-nevents // b_max)
+    return -(-nevents // n_batches)
+
+
+def _packed_capacity(B: int, ntot_est: float, n_cap: int) -> int:
+    """Packed capacity for a B-event batch: mean yield + 10 sigma + 25 %
+    headroom (a batch beyond it runs again at twice the capacity)."""
+    cap = int(1.25 * B * ntot_est + 10.0 * math.sqrt(B * ntot_est) + 1024.0)
+    return min(-(-cap // 128) * 128, B * n_cap)
+
+
+def calculate_total_yield(surface, species, df_data, cfg, plasma,
+                          laguerre=None) -> float:
+    """Mean total hadron yield of the surface (reference:
+    sampling_kernels.cpp:653-831); in 2+1D dN/dy x 2 y_cut.
+    ``sample_particles`` returns the same number in ``info``."""
+    cell = build_cell_data(surface, species, df_data, cfg, plasma, laguerre)
+    return _total_yield(cell, cfg)
+
+
+def sample_particles(surface, species: SpeciesArrays, mcids,
+                     df_data: DeltafData, cfg: Config, plasma,
+                     nevents: Optional[int] = None,
+                     seed: Optional[int] = None, laguerre=None,
+                     events_per_batch: Optional[int] = None, mesh=None,
+                     event_partition: Optional[tuple] = None,
+                     info: Optional[dict] = None) -> list:
+    """Sample particle event lists on the surface's device: a list of
+    per-event dicts of numpy arrays (EVENT_FIELDS).  With oversampling,
+    Nevents = min(ceil(min_num_hadrons / Ntot), max_num_samples)
+    (emissionfunction.cpp:1504-1562).
+
+    ``event_partition=(k, n)`` samples the k-th of n contiguous slices of
+    the global event range; event i depends only on (seed, i), so the
+    slices concatenate to the unpartitioned run byte for byte.  ``info``
+    gets ``event_lo``, ``nevents_global``, ``total_yield`` (the mean
+    hadrons an event, ``calculate_total_yield``'s number), the batch plan
+    (``batches``, ``n_cap``, ``capacity``, ``reruns``), the momenta
+    ``accepted`` and ``proposed``, and host-clock ``timings`` (s): phase
+    A, dispatch, wait, copy, assembly."""
+    if mesh is not None:
+        _not_ported("mesh= (the sharded sampler)", "slice 11")
+    if event_partition is not None:
+        k, n = event_partition
+        if not (0 <= int(k) < int(n)):
+            raise ValueError(f"event_partition must be (k, n) with "
+                             f"0 <= k < n, got {event_partition}")
+    t0 = time.perf_counter()
+    cell = build_cell_data(surface, species, df_data, cfg, plasma, laguerre)
+    dtype = cell["tau"].dtype
+    species = _cast_floats(species, dtype)
+    tables = build_alias_tables(cell.pop("dn_list"), cell["dn_tot"])
+    rows, layout = pack_rows(cell, cfg)
+
+    def _slice(n_global: int) -> tuple:
+        if event_partition is None:
+            return 0, n_global
+        k, n = (int(v) for v in event_partition)
+        return (k * n_global) // n, ((k + 1) * n_global) // n
+
+    lam = float(cell["dn_tot"].sum())
+    timings = dict(phase_a=time.perf_counter() - t0)
+    total = _total_yield(cell, cfg)
+    if info is not None:
+        info.update(timings=timings, total_yield=total)
+    if lam <= 0.0:
+        lo0, hi0 = _slice(nevents or 1)
+        if info is not None:
+            info.update(event_lo=lo0, nevents_global=nevents or 1)
+        return [_empty_event() for _ in range(hi0 - lo0)]
+
+    ntot = abs(total)
+    nevents = _oversample_nevents(nevents, ntot, cfg)
+    ev_lo, ev_hi = _slice(nevents)
+    if info is not None:
+        info.update(event_lo=ev_lo, nevents_global=nevents)
+    if ev_hi == ev_lo:
+        return []
+    n_cap = _slot_capacity(lam)
+    B = events_per_batch or _batch_width(ev_hi - ev_lo, n_cap)
+    cap = _packed_capacity(B, min(ntot, lam) or lam, n_cap)
+    events = []
+    plan = dict(batches=0, n_cap=n_cap, events_per_batch=B, capacity=cap,
+                reruns=0, lam=lam)
+    acc, samp = _drain_event_range(
+        rows, layout, tables, species, cell, cfg, _resolve_seed(seed, cfg),
+        lam, ev_lo, ev_hi, B, n_cap, np.asarray(mcids, dtype=np.int64),
+        timings, plan, events)
+    plan.update(accepted=acc, proposed=samp)
+    if info is not None:
+        info.update(plan)
+    if samp:
+        print(f"Momentum sampling efficiency = {100.0 * acc / samp:.2f} %")
+    return events
+
+
+def _drain_event_range(rows, layout, tables, species, cell, cfg, seed: int,
+                       lam: float, ev_lo: int, ev_hi: int, B: int,
+                       n_cap: int, mcids_np, timings: dict, plan: dict,
+                       events: list) -> tuple[int, int]:
+    """Run and drain every batch of [ev_lo, ev_hi), appending per-event
+    dicts to ``events``; returns the (accepted, proposed) momenta.
+
+    On the card batch k+1 is queued before batch k is drained: batch k's
+    kept hadrons go to pinned host memory on a side stream while k+1's
+    kernel runs.  A batch whose kept hadrons exceed the packed capacity
+    runs again at twice the capacity (counter-keyed streams: the same
+    hadrons), and the capacity stays doubled."""
+    dev = rows.device
+    cuda = dev.type == "cuda"
+    C, S = rows.shape[0], species.n_species
+    mass_np = species.mass.double().cpu().numpy()
+    cellpos = _cell_positions(cell, cfg)
+    copy_stream = torch.cuda.Stream(dev) if cuda else None
+    stage = {}      # pinned host buffers the kept columns land in
+    for k in ("dispatch", "wait", "copy", "assembly"):
+        timings.setdefault(k, 0.0)
+    totals = [0, 0]
+
+    def dispatch(start: int, b: int, cap: int) -> dict:
+        t = time.perf_counter()
+        counts = torch.from_numpy(rng.poisson_counts(
+            seed, range(start, start + b), lam).astype(np.int32))
+        if int(counts.max()) > n_cap:
+            raise RuntimeError(f"sampler: an event of {int(counts.max())} "
+                               f"hadrons exceeds the slot capacity {n_cap}")
+        if cuda:     # a blocking copy would wait for the queued batch
+            counts = counts.pin_memory().to(dev, non_blocking=True)
+        out = event_batch(rows, layout, tables, species, counts, seed, start,
+                          n_cap, cfg)
+        packed, per_event = pack_batch(out, cfg, S, C, cap)
+        small = torch.stack([per_event.sum(dtype=torch.int64),
+                             out["ok"].sum(dtype=torch.int64),
+                             out["rounds"].sum(dtype=torch.int64)])
+        item = dict(start=start, b=b, cap=cap, packed=packed)
+        if cuda:
+            item["per_event"] = torch.empty(b, dtype=torch.int32,
+                                            pin_memory=True)
+            item["small"] = torch.empty(3, dtype=torch.int64,
+                                        pin_memory=True)
+            item["per_event"].copy_(per_event, non_blocking=True)
+            item["small"].copy_(small, non_blocking=True)
+            item["ready"] = torch.cuda.Event()
+            item["ready"].record()
+        else:
+            item["per_event"], item["small"] = per_event, small
+        timings["dispatch"] += time.perf_counter() - t
+        return item
+
+    def drain(item: dict):
+        t = time.perf_counter()
+        if cuda:
+            item["ready"].synchronize()
+        n_kept, n_ok, n_rounds = (int(v) for v in item["small"])
+        timings["wait"] += time.perf_counter() - t
+        if n_kept > item["cap"]:
+            cap = item["cap"]
+            while cap < n_kept:
+                cap *= 2
+            plan["capacity"] = cap
+            plan["reruns"] += 1
+            return drain(dispatch(item["start"], item["b"], cap))
+        t = time.perf_counter()
+        if cuda:
+            for k, v in item["packed"].items():
+                if k not in stage or stage[k].shape[0] < n_kept:
+                    stage[k] = torch.empty(v.shape[0], dtype=v.dtype,
+                                           pin_memory=True)
+            copy_stream.wait_event(item["ready"])
+            with torch.cuda.stream(copy_stream):
+                host = {k: stage[k][:n_kept].copy_(v[:n_kept],
+                                                   non_blocking=True)
+                        for k, v in item["packed"].items()}
+            copy_stream.synchronize()
+        else:
+            host = {k: v[:n_kept] for k, v in item["packed"].items()}
+        cut = {k: v.numpy() for k, v in host.items()}
+        timings["copy"] += time.perf_counter() - t
+        t = time.perf_counter()
+        counts = item["per_event"].numpy().astype(np.int64)
+        offsets = np.concatenate([[0], np.cumsum(counts)])
+        _reconstruct_packed(cut, mcids_np, mass_np, cellpos, cfg)
+        for e in range(item["b"]):
+            lo, hi = int(offsets[e]), int(offsets[e + 1])
+            events.append({k: cut[k][lo:hi] for k in EVENT_FIELDS})
+        totals[0] += n_ok
+        totals[1] += n_rounds
+        plan["batches"] += 1
+        timings["assembly"] += time.perf_counter() - t
+
+    pending = None
+    for start in range(ev_lo, ev_hi, B):
+        item = dispatch(start, min(B, ev_hi - start), plan["capacity"])
+        if pending is not None:
+            drain(pending)
+        pending = item
+    if pending is not None:
+        drain(pending)
+    return totals[0], totals[1]

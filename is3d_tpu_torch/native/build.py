@@ -4,9 +4,9 @@ Two libraries are compiled at first use from the sources in this package
 into ``is3d_tpu_torch/_build/``, each cached under a hash of its source and
 flags:
 
-* ``fastio`` (native/fastio.cpp, g++): the surface tokenizer and the
-  writers' ``%.8e`` formatter.  Without a host compiler the callers fall
-  back to byte-identical Python loops.
+* ``fastio`` (native/fastio.cpp, g++): the surface tokenizer, the
+  writers' ``%.8e`` formatter and the OSCAR list formatter.  Without a
+  host compiler the callers fall back to byte-identical Python loops.
 * the CUDA kernels (csrc/*.cu, nvcc for sm_90a, plain C interface; the
   hash also covers every csrc/*.cuh header, so a header edit rebuilds):
   no fallback -- a failed build raises with the compiler's output.
@@ -116,6 +116,10 @@ def get_fastio():
                 lib.count_doubles.argtypes = [ctypes.c_char_p,
                                               ctypes.c_longlong]
                 dp = ctypes.POINTER(ctypes.c_double)
+                lib.write_oscar_event.restype = ctypes.c_longlong
+                lib.write_oscar_event.argtypes = [
+                    ctypes.c_char_p, ctypes.c_int, ctypes.c_longlong,
+                    ctypes.POINTER(ctypes.c_longlong)] + [dp] * 8
                 lib.write_sci_table.restype = ctypes.c_longlong
                 lib.write_sci_table.argtypes = [
                     ctypes.c_char_p, ctypes.c_int, ctypes.c_char_p, dp,
@@ -162,6 +166,29 @@ def fast_write_sci_table(path: str, append: bool, header: str | None,
         rows.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
         rows.shape[0], rows.shape[1], int(blank_every))
     return got == rows.shape[0]
+
+
+def fast_write_oscar_event(path: str, append: bool, ev: dict) -> bool:
+    """Append one event's OSCAR block natively; False if the native lib is
+    unavailable or the write failed (the caller falls back to the
+    byte-identical Python loop)."""
+    lib = get_fastio()
+    if lib is None:
+        return False
+    mcid = np.ascontiguousarray(ev["mcid"], dtype=np.int64)
+    n = len(mcid)
+    cols = [np.ascontiguousarray(ev[k], dtype=np.float64)
+            for k in ("t", "x", "y", "z", "E", "px", "py", "pz")]
+    if any(len(c) != n for c in cols):
+        # a ragged event would make the C side read out of bounds; the
+        # Python fallback raises a clean IndexError instead
+        return False
+    dp = ctypes.POINTER(ctypes.c_double)
+    got = lib.write_oscar_event(
+        path.encode(), 1 if append else 0, n,
+        mcid.ctypes.data_as(ctypes.POINTER(ctypes.c_longlong)),
+        *[c.ctypes.data_as(dp) for c in cols])
+    return got == n
 
 
 def _nvcc() -> str:

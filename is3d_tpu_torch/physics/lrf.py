@@ -89,6 +89,46 @@ def boost_pimunu_to_lrf(b: MilneBasis, pitt, pitx, pity, pitn,
     return pixx_LRF, pixy_LRF, pixz_LRF, piyy_LRF, piyz_LRF, pizz_LRF
 
 
+def boost_dsigma_to_lrf(b: MilneBasis, dat, dax, day, dan, ut, ux, uy, un):
+    """dsigma in the LRF: (u.dsigma, -X.dsigma, -Y.dsigma, -Z.dsigma)
+    (reference: viscous_correction.cpp:69-80)."""
+    dst = dat * ut + dax * ux + day * uy + dan * un
+    dsx = -(dat * b.Xt + dax * b.Xx + day * b.Xy + dan * b.Xn)
+    dsy = -(dax * b.Yx + day * b.Yy)
+    dsz = -(dat * b.Zt + dan * b.Zn)
+    return dst, dsx, dsy, dsz
+
+
+def dsigma_magnitude(dst, dsx, dsy, dsz):
+    """(dsigma_space, dsigma_magnitude) = (|spatial part|, |u.dsigma| + space)
+    -- the sampler's max effective volume (reference:
+    viscous_correction.cpp:82-86)."""
+    space = torch.sqrt(dsx * dsx + dsy * dsy + dsz * dsz)
+    return space, torch.abs(dst) + space
+
+
+def boost_Vmu_to_lrf(b: MilneBasis, Vt, Vx, Vy, Vn, tau):
+    """Baryon diffusion in the LRF: V_i = -X_i . V
+    (reference: viscous_correction.cpp:161-173)."""
+    tau2 = tau * tau
+    Vx_LRF = -Vt * b.Xt + Vx * b.Xx + Vy * b.Xy + tau2 * Vn * b.Xn
+    Vy_LRF = Vx * b.Yx + Vy * b.Yy
+    Vz_LRF = -Vt * b.Zt + tau2 * Vn * b.Zn
+    return Vx_LRF, Vy_LRF, Vz_LRF
+
+
+def boost_pLRF_to_lab(b: MilneBasis, ut, ux, uy, un, E_LRF, px_LRF, py_LRF,
+                      pz_LRF):
+    """LRF momentum -> contravariant lab (Milne) momentum
+    (reference: emissionfunction.cpp:40-51).
+    Returns (p^tau, p^x, p^y, p^eta)."""
+    ptau = E_LRF * ut + px_LRF * b.Xt + pz_LRF * b.Zt
+    px = E_LRF * ux + px_LRF * b.Xx + py_LRF * b.Yx
+    py = E_LRF * uy + px_LRF * b.Xy + py_LRF * b.Yy
+    pn = E_LRF * un + px_LRF * b.Xn + pz_LRF * b.Zn
+    return ptau, px, py, pn
+
+
 def flow_rapidity(tau, ut, un):
     """Longitudinal flow rapidity y_flow = atanh(tau u^eta / u^tau),
     sanitized for f32: extreme (or corrupted) longitudinal flow rounds

@@ -1229,3 +1229,148 @@ def decay_edge_seen(case: str, tables, tasks, wg, n_seg, out) -> str:
             assert 0 < n < fed.numel(), f"{n} outputs are exactly 0"
             seen += f", {n} of {fed.numel()} fed outputs exactly 0"
     return seen
+
+
+# ------------------------------------------------- the sampler's edge cases
+
+# K7's edge cases (kernels/sample.py:event_batch_cuda against
+# event_batch_plain): every df mode in 2+1D and 3+1D; shear and bulk x
+# ``scales`` (df 3 breaks down on a share of the cells, "2d_df3_broken" on
+# most); baryon diffusion in 2+1D and 3+1D.  Every case
+# has a massless species (index 2) and a quarter of its cells with dsigma
+# = 0 (zero yield), neither of which a slot may draw.
+SAMPLE_EDGES = {
+    "2d_df1": dict(dimension=2, df_mode=1),
+    "3d_df1": dict(dimension=3, df_mode=1),
+    "2d_df2": dict(dimension=2, df_mode=2),
+    "3d_df2": dict(dimension=3, df_mode=2),
+    "2d_df2_baryon": dict(dimension=2, df_mode=2, baryon=True),
+    "3d_df2_baryon": dict(dimension=3, df_mode=2, baryon=True),
+    "2d_df3_broken": dict(dimension=2, df_mode=3, scales=(0.3, 0.01)),
+    "3d_df3": dict(dimension=3, df_mode=3, scales=(0.1, 0.01)),
+    "2d_df4": dict(dimension=2, df_mode=4, scales=(0.1, 0.01)),
+    "3d_df4": dict(dimension=3, df_mode=4, scales=(0.1, 0.01)),
+}
+SAMPLE_EDGE_SEED = 23
+
+
+def sample_edge_inputs(case: str, dtype=torch.float64, device="cpu",
+                       n_cells: int = 1024, n_species: int = 13) -> dict:
+    """The inputs of one batch of K7 for SAMPLE_EDGES[case]: rows and
+    layout (kernels/sample.py:pack_rows), the alias tables, species, the
+    per-event counts (a full event, a third, an empty one, one hadron),
+    n_cap, the Config, and the cell data (for edge_seen)."""
+    from .config import Config
+    from .io.surface import ThermoAverages
+    from .kernels import sample
+    spec = SAMPLE_EDGES[case]
+    dim = spec["dimension"]
+    cells = synthetic_surface_cells(n_cells, dim, seed=7)
+    s_pi, s_bulk = spec.get("scales", (1.0, 1.0))
+    for k in ("pixx", "pixy", "pixn", "piyy", "piyn"):
+        cells[k] = cells[k] * s_pi
+    cells["bulkPi"] = cells["bulkPi"] * s_bulk
+    for k in ("dat", "dax", "day", "dan"):
+        cells[k][::4] = 0.0
+    kw = dict(operation=2, dimension=dim, df_mode=spec["df_mode"],
+              include_shear_deltaf=1, include_bulk_deltaf=1, y_cut=3.0)
+    if spec.get("baryon"):
+        rng = np.random.default_rng(8)
+        cells.update(muB=rng.uniform(0.05, 0.3, n_cells),
+                     nB=rng.uniform(0.01, 0.05, n_cells),
+                     Vx=rng.normal(0, 0.01, n_cells),
+                     Vy=rng.normal(0, 0.01, n_cells),
+                     Vn=rng.normal(0, 0.002, n_cells))
+        kw.update(include_baryon=1, include_baryondiff_deltaf=1)
+    cfg = Config(**kw)
+    species = synthetic_species(n_species, dtype=dtype, device=device)
+    species = dataclasses.replace(species, mass=species.mass.clone())
+    species.mass[2] = 0.0
+    surface = surface_from_arrays(dtype=dtype, device=device, **cells)
+    plasma = ThermoAverages(0.152, 0.33, 0.057, 0.0, 0.0)
+    cell = sample.build_cell_data(surface, species,
+                                  synthetic_deltaf_data(dtype, device), cfg,
+                                  plasma)
+    tables = sample.build_alias_tables(cell.pop("dn_list"), cell["dn_tot"])
+    rows, layout = sample.pack_rows(cell, cfg)
+    lam = float(cell["dn_tot"].sum())
+    n_cap = sample._slot_capacity(lam)
+    counts = torch.tensor([n_cap, n_cap // 3, 0, 1], dtype=torch.int32,
+                          device=device)
+    return dict(rows=rows, layout=layout, tables=tables, species=species,
+                counts=counts, n_cap=n_cap, cfg=cfg, cell=cell,
+                seed=SAMPLE_EDGE_SEED, ev0=5)
+
+
+def sample_edge_seen(case: str, inp: dict, out: dict) -> str:
+    """Check that the case exercised what it claims on the slots ``out``
+    (either version's): no slot drew the massless species or a zero-yield
+    cell, slots needed more than one rejection round, kept hadrons; df 3:
+    slots of broken-down cells ("broken": most of them).  Returns a short
+    description; raises AssertionError otherwise."""
+    counts = inp["counts"].cpu()
+    n_cap = inp["n_cap"]
+    valid = torch.arange(n_cap)[None, :] < counts[:, None]
+    sidx, cidx = out["sidx"].cpu()[valid], out["cidx"].cpu()[valid].long()
+    dn_tot = inp["cell"]["dn_tot"].cpu()
+    assert not (sidx == 2).any(), "a slot drew the massless species"
+    assert (dn_tot[cidx] > 0).all(), "a slot drew a zero-yield cell"
+    assert (dn_tot == 0).sum() >= len(dn_tot) // 4
+    rounds = out["rounds"].cpu()[valid]
+    kept = int(out["keep"].cpu().sum())
+    assert int(rounds.max()) > 1 and kept > 0
+    desc = (f"{int(valid.sum())} slots, {kept} kept, rounds up to "
+            f"{int(rounds.max())}")
+    if inp["cfg"].df_mode == 3:
+        broken = inp["cell"]["breakdown"].cpu()[cidx].double().mean().item()
+        assert broken > (0.5 if "broken" in case else 0.0), broken
+        desc += f", {broken:.0%} of slots on broken-down cells"
+    return desc
+
+
+def alias_edge_weights(dtype=torch.float64, device="cpu") -> dict:
+    """Weight matrices for K7a (kernels/sample.py:alias_tables_cuda):
+    zero rows, one nonzero entry, flat rows, a 1e12 dynamic range with
+    60 % zeros, and the main path's shapes (rows of 320 species, blocks of
+    512 cells, one row of 256 blocks)."""
+    rng = np.random.default_rng(3)
+    mixed = rng.lognormal(0.0, 4.0, (64, 37)) * (rng.random((64, 37)) > 0.6)
+    mixed[0] = 0.0
+    mixed[1] = 0.0
+    mixed[1, 5] = 1e-3
+    mixed[2] = 1.0
+    mixed[3, :] = 1e-12
+    mixed[3, 7] = 1.0
+    cases = dict(mixed=mixed, k1=rng.random((5, 1)), k2=rng.random((9, 2)),
+                 species=rng.gamma(0.3, 1.0, (4096, 320)),
+                 blocks=rng.gamma(2.0, 1.0, (256, 512)) * (rng.random(
+                     (256, 512)) > 0.1),
+                 groups=rng.gamma(5.0, 1.0, (1, 256)))
+    return {k: torch.as_tensor(v, dtype=dtype, device=device)
+            for k, v in cases.items()}
+
+
+def cascade_edge_inputs(dtype=torch.float64, device="cpu", n: int = 3000,
+                        n_species: int = 60, seed: int = 0) -> dict:
+    """K8's inputs on the decaying synthetic list: ``n`` hadrons of every
+    species (stable ones pass through a pass untouched) in events of 10,
+    their cascade state (kernels/mc_decays.py:initial_state) at the
+    worst-case capacity, the table, its device tables and the key."""
+    from .kernels import mc_decays, rng as krng
+    table, _ = synthetic_decaying_table(n_species, seed)
+    tabs = mc_decays.build_decay_tables(table)
+    r = np.random.default_rng(seed + 1)
+    sidx = r.integers(0, len(tabs.mc_id), n).astype(np.int32)
+    m = tabs.mass[sidx]
+    p = r.normal(0.0, 0.6, (n, 3))
+    cols = dict(px=p[:, 0], py=p[:, 1], pz=p[:, 2],
+                E=np.sqrt(m**2 + (p**2).sum(1)), t=r.uniform(4, 9, n),
+                x=r.normal(0, 3, n), y=r.normal(0, 3, n),
+                z=r.normal(0, 1, n))
+    eid = (np.arange(n) // 10).astype(np.int32)
+    cap = 1 << int(int(tabs.maxmult[sidx].sum()) - 1).bit_length()
+    key = krng.seed_key(mc_decays.derive_decay_seed(seed))
+    st = mc_decays.initial_state(sidx, cols, eid, eid.astype(np.int64) + 3,
+                                 np.arange(n) % 10, cap, key, dtype, device)
+    return dict(state=st, n0=n, table=table, tabs=tabs,
+                dev_tabs=tabs.device(dtype, device), key=key)

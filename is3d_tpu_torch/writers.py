@@ -1,5 +1,6 @@
 """Reference-compatible results/*.dat writers for the smooth spectra, the
-spin polarization and the spacetime distributions.
+spin polarization, the spacetime distributions and the sampled particle
+list.
 
 File layouts mirror the reference's writer methods
 (emissionfunction.cpp:381-772, 1053-1136,
@@ -89,6 +90,13 @@ _OWNED_PATTERNS = (
     "spacetime_distribution/dN_twopirdrdy_*.dat",
     "spacetime_distribution/dN_twopitaurdtaudrdy_*.dat",
     "spacetime_distribution/dN_dydeta_*.dat",
+    # operation 2: the OSCAR list and the test_sampler histogram tree
+    # (histograms.write_sampler_test; the sampled *_sampled_*_test.dat
+    # spacetime files are matched by the globs above)
+    "particle_list_*.dat", "momentum_distribution/pT_pdf_*.dat",
+    "dN_dy/dN_dy_*.dat", "dN_deta/dN_deta_*.dat",
+    "momentum_distribution/dN_2pipTdpTdy_*.dat", "vn/vn_*.dat",
+    "mean_yield.dat", "yield_list.dat",
 )
 
 
@@ -247,3 +255,36 @@ def write_spacetime_distributions(dX: dict, mcids, results_dir="results"):
         with open(f"{d}/dN_dydeta_{mcid}_{len(eta)}pt.dat", "w") as f:
             for ie, ev in enumerate(eta):
                 f.write(f"{ev:.6e}\t{dX['dN_dydeta'][i, ie]:.6e}\n")
+
+
+def write_particle_list_oscar(events, path="results/particle_list_osc.dat"):
+    """OSCAR-style list for the UrQMD / SMASH afterburner (reference:
+    emissionfunction.cpp:863-901): per event a ``# N`` header and rows
+    ``mcid t x y z E px py pz`` at 16 significant digits; events with no
+    hadron are skipped.  Through the native formatter
+    (native/fastio.cpp:write_oscar_event) when it builds, else a
+    byte-identical Python loop."""
+    from .native.build import fast_write_oscar_event
+    _ensure_dir(path)
+    open(path, "w").close()          # truncate; events append
+    first = True
+    for ev in events:
+        n = len(ev["mcid"])
+        if n == 0:
+            continue
+        # a failed native write may have appended partial bytes: rewind so
+        # the fallback writes a clean block
+        size_before = os.path.getsize(path)
+        if fast_write_oscar_event(path, append=not first, ev=ev):
+            first = False
+            continue
+        if os.path.getsize(path) != size_before:
+            os.truncate(path, size_before)
+        with open(path, "a") as f:
+            f.write(f"# {n}\n")
+            for i in range(n):
+                row = " ".join(f"{float(ev[k][i]):.16e}"
+                               for k in ("t", "x", "y", "z", "E", "px", "py",
+                                         "pz"))
+                f.write(f"{int(ev['mcid'][i])} {row}\n")
+        first = False

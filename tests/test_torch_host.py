@@ -92,7 +92,9 @@ CONFIG_TEXTS = {
         unknown_key = 5
     """,
     "port_knobs": "precision = f32\ncell_chunk = 4096\ncell_slab = 1000\n"
-                  "reduce_groups = 4\ndf_mode = 1.0e+0\n",
+                  "reduce_groups = 4\ndf_mode = 1.0e+0\n"
+                  "sampler_pack = f16\nsampler_cell_chunk = -1\n"
+                  "sampler_gather_tetrad = 0\nsampler_alias = 1\n",
 }
 
 
@@ -105,12 +107,11 @@ def test_config_parsing_matches_jax(name):
     names = [f.name for f in dataclasses.fields(Config)]
     for n in names:
         assert getattr(got, n) == getattr(want, n), n
-    # every reference key of is3d_tpu's Config is kept, and the VAH keys;
-    # only TPU knobs go (the feqmod partition keys stay, accepted and inert)
+    # every reference key of is3d_tpu's Config is kept, and the VAH and
+    # sampler keys; only TPU knobs go (the feqmod partition keys stay,
+    # accepted and inert)
     dropped = {f.name for f in dataclasses.fields(want)} - set(names)
-    assert dropped == {"mesh_axis", "remat_scan",
-                       "sampler_cell_chunk", "sampler_gather_tetrad",
-                       "sampler_alias", "sampler_pack"}
+    assert dropped == {"mesh_axis", "remat_scan"}
 
 
 def test_pdg_tables_and_species_match_jax(run_dirs):

@@ -107,10 +107,10 @@ def test_cli_defaults_to_cuda_and_raises_without_it(no_cuda, tmp_path):
 
 @pytest.mark.parametrize("override,slice_name", [
     (dict(operation=2, mode=2, df_mode=3), "slice 9"),
-    (dict(operation=2), "slice 9"),
+    (dict(operation=2, sampler_alias=0), "slice 9"),
     (dict(operation=2, mode=2), "slice 9"),
-    (dict(operation=2, mode=5), "slice 9"),
-    (dict(operation=2, df_mode=3), "slice 9"),
+    (dict(operation=2, mode=3), "slice 9"),
+    (dict(operation=2, df_mode=3, sampler_alias=0), "slice 9"),
     (dict(operation=2, do_resonance_decays=1, df_mode=4, mode=3), "slice 9"),
 ])
 def test_unported_configurations_raise(override, slice_name):

@@ -1,0 +1,178 @@
+"""The sampler's and the cascade's kernel wrappers without JAX: the CPU
+dispatch takes the plain versions and never loads a kernel; the wrappers
+refuse CPU tensors; the edge inputs (is3d_tpu_torch.testing's
+SAMPLE_EDGES, alias_edge_weights, cascade_edge_inputs) are what they
+claim; and, on a CUDA card (gpu-marked), K7, K7a and K8 against their
+plain versions on those inputs.
+
+On the GPU: python -m pytest tests/test_torch_sample_kernels.py -m gpu
+--noconftest (the conftest imports jax).  Tolerances: K7a identical
+tables; K7 slot by slot, f64 with no flipped decision (acceptance,
+rounds, keep) and rtol 1e-10 / atol 1e-13 x max, f32 with at most 0.2 %
+of slots flipped and rtol 2e-4 / atol 2e-5 x max on the rest; K8 the same
+daughters, f64 rtol 1e-10, f32 rtol 2e-4.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from is3d_tpu_torch import testing
+from is3d_tpu_torch.kernels import mc_decays, sample
+from is3d_tpu_torch.native import build
+
+torch.set_num_threads(1)
+
+TOL = {torch.float32: (2e-4, 2e-5), torch.float64: (1e-10, 1e-13)}
+FLIPS = {torch.float32: 2e-3, torch.float64: 0.0}
+
+
+@pytest.fixture
+def cuda_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (on the GPU: python -m pytest "
+                    "tests/test_torch_sample_kernels.py -m gpu --noconftest)")
+
+
+def test_cpu_dispatch_never_loads_a_kernel(monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"loaded {name} on the CPU path")
+    monkeypatch.setattr(build, "cuda_library", refuse)
+    inp = testing.sample_edge_inputs("2d_df2", n_cells=128)
+    out = sample.event_batch(inp["rows"], inp["layout"], inp["tables"],
+                             inp["species"], inp["counts"], 5, 0,
+                             inp["n_cap"], inp["cfg"])
+    assert out["keep"].shape == (4, inp["n_cap"])
+    c = testing.cascade_edge_inputs(n=50)
+    n = mc_decays.run_cascade(c["state"], c["n0"], c["dev_tabs"], c["key"],
+                              c["tabs"].n_passes)
+    assert n > c["n0"]
+
+
+def test_wrappers_refuse_cpu_tensors():
+    inp = testing.sample_edge_inputs("2d_df1", n_cells=64)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        sample.event_batch_cuda(inp["rows"], inp["layout"], inp["tables"],
+                                inp["species"], inp["counts"], 5, 0,
+                                inp["n_cap"], inp["cfg"])
+    qs, order = sample.alias_sort(torch.rand(3, 5, dtype=torch.float64))
+    with pytest.raises(ValueError, match="needs CUDA"):
+        sample.alias_tables_cuda(qs, order)
+    with pytest.raises(ValueError, match="int32"):
+        sample.alias_tables_cuda(qs, order.long())
+    c = testing.cascade_edge_inputs(n=20)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        mc_decays.cascade_pass_cuda(c["state"], c["n0"], c["dev_tabs"],
+                                    c["key"], {})
+
+
+@pytest.mark.parametrize("case", sorted(testing.SAMPLE_EDGES))
+def test_sample_edge_inputs_are_what_they_claim(case):
+    inp = testing.sample_edge_inputs(case, n_cells=512)
+    out = sample.event_batch_plain(
+        inp["rows"], inp["tables"], inp["species"], inp["counts"],
+        sample.PhiloxSource(inp["seed"], inp["ev0"], torch.float64),
+        inp["n_cap"], inp["cfg"])
+    testing.sample_edge_seen(case, inp, out)
+    assert not out["keep"][2].any() and int(out["ok"][3].sum()) <= 1
+
+
+def realized_pmf(prob, alias):
+    prob, alias = prob.double().cpu().numpy(), alias.cpu().numpy()
+    pmf = prob.copy()
+    for r in range(prob.shape[0]):
+        np.add.at(pmf[r], alias[r], 1.0 - prob[r])
+    return pmf / prob.shape[1]
+
+
+def test_alias_edge_tables_realize_their_weights():
+    for name, w in testing.alias_edge_weights().items():
+        if w.shape[0] > 512:
+            w = w[:512]
+        prob, alias = sample.alias_build(w)
+        tot = w.sum(1, keepdim=True)
+        target = torch.where(tot > 0, w / torch.where(tot > 0, tot, 1.0),
+                             1.0 / w.shape[1]).numpy()
+        err = np.abs(realized_pmf(prob, alias) - target).sum(1).max()
+        assert err < 1e-12, (name, err)
+
+
+def test_cascade_plain_ends_stable_and_conserves_momentum():
+    c = testing.cascade_edge_inputs(n=400)
+    st = c["state"]
+    p0 = [float(st[k][:c["n0"]].sum()) for k in ("E", "px", "py", "pz")]
+    n = mc_decays.run_cascade(st, c["n0"], c["dev_tabs"], c["key"],
+                              c["tabs"].n_passes)
+    assert c["tabs"].stable[st["sidx"][:n].numpy()].all()
+    p1 = [float(st[k][:n].sum()) for k in ("E", "px", "py", "pz")]
+    np.testing.assert_allclose(p1, p0, rtol=1e-9, atol=1e-9)
+
+
+def compare_slots(a: dict, b: dict, counts, n_cap: int, dtype) -> int:
+    """Slot-by-slot agreement of K7 (b) with its plain version (a); the
+    flipped slots' count."""
+    valid = (torch.arange(n_cap, device=counts.device)[None, :]
+             < counts[:, None])
+    flips = valid & ((a["ok"] != b["ok"]) | (a["rounds"] != b["rounds"])
+                     | (a["keep"] != b["keep"]))
+    assert int(flips.sum()) <= FLIPS[dtype] * int(valid.sum())
+    for k in ("sidx", "cidx"):
+        assert torch.equal(a[k][valid], b[k][valid]), k
+    both = valid & ~flips & a["ok"]
+    rtol, atol = TOL[dtype]
+    for k in ("px", "py", "pz", "eta"):
+        x, y = b[k][both].double(), a[k][both].double()
+        assert torch.isfinite(x).all()
+        torch.testing.assert_close(x, y, rtol=rtol,
+                                   atol=atol * float(y.abs().max()))
+    return int(flips.sum())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", sorted(testing.SAMPLE_EDGES))
+def test_event_kernel_matches_plain_on_gpu(cuda_card, case, dtype):
+    inp = testing.sample_edge_inputs(case, dtype, "cuda")
+    args = (inp["rows"], inp["layout"], inp["tables"], inp["species"],
+            inp["counts"], inp["seed"], inp["ev0"], inp["n_cap"], inp["cfg"])
+    got = sample.event_batch_cuda(*args)
+    again = sample.event_batch_cuda(*args)
+    want = sample.event_batch_plain(
+        inp["rows"], inp["tables"], inp["species"], inp["counts"],
+        sample.PhiloxSource(inp["seed"], inp["ev0"], dtype), inp["n_cap"],
+        inp["cfg"])
+    torch.cuda.synchronize()
+    for k in got:
+        assert torch.equal(got[k], again[k]), k
+    compare_slots(want, got, inp["counts"], inp["n_cap"], dtype)
+    testing.sample_edge_seen(case, inp, got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_alias_kernel_matches_plain_on_gpu(cuda_card, dtype):
+    for name, w in testing.alias_edge_weights(dtype, "cuda").items():
+        qs, order = sample.alias_sort(w)
+        got = sample.alias_tables_cuda(qs.clone(), order)
+        want = sample.alias_tables_plain(qs, order)
+        for g, x in zip(got, want):
+            assert torch.equal(g, x), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cascade_kernel_matches_plain_on_gpu(cuda_card, dtype):
+    a = testing.cascade_edge_inputs(dtype, "cuda")
+    b = testing.cascade_edge_inputs(dtype, "cuda")
+    na = mc_decays.cascade_plain(a["state"], a["n0"], a["dev_tabs"],
+                                 a["key"], a["tabs"].n_passes)
+    nb = mc_decays.run_cascade(b["state"], b["n0"], b["dev_tabs"], b["key"],
+                               b["tabs"].n_passes)
+    assert na == nb > a["n0"]
+    for k in ("sidx", "eid", "lin"):
+        assert torch.equal(a["state"][k][:na], b["state"][k][:na]), k
+    rtol, atol = TOL[dtype]
+    for k in mc_decays.STATE_FLOATS:
+        y = a["state"][k][:na].double()
+        torch.testing.assert_close(b["state"][k][:na].double(), y, rtol=rtol,
+                                   atol=atol * float(y.abs().max()))

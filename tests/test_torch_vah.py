@@ -159,10 +159,13 @@ def test_averages_file_written_for_modes_0_1_4_6_7(tmp_path, mode):
 
 def test_vah_modes_raise_not_implemented_for_the_sampler():
     """Modes 2, 3 and 5 run operations 0 and 1; operation 2 (the sampler)
-    still raises, naming its slice."""
+    runs on mode 5 (viscous hydro) and still raises on the VAH modes,
+    naming its slice."""
     for mode in (2, 3, 5):
         check_supported(Config(operation=1, mode=mode))
         check_supported(Config(operation=0, mode=mode))
+    check_supported(Config(operation=2, mode=5))
+    for mode in (2, 3):
         with pytest.raises(NotImplementedError, match="slice 9"):
             check_supported(Config(operation=2, mode=mode))
 

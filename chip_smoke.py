@@ -57,9 +57,12 @@ Phases, each printing its own line(s):
    3+1D, broken-down cells, baryon diffusion in 2+1D and 3+1D; a
    massless species and zero-yield cells no slot may draw), f32 and f64,
    the flipped decisions counted (none allowed in f64), two launches
-   bit-identical, and a batch past its packed capacity run again to the
-   same events; [alias small]: K7a on testing.alias_edge_weights, tables
-   identical to the plain version's; [cascade small]: K8 on
+   bit-identical, its packed mode bit for bit pack_batch of its per-slot
+   output (at the run's capacity and past it), and a batch past its
+   packed capacity run again, through the packed mode, to the same
+   events; [alias small]: K7a on testing.alias_edge_weights (rows too long
+   for its shared memory too), tables identical to the plain version's;
+   [cascade small]: K8 on
    testing.cascade_edge_inputs, the same daughters and lineage words, and
    its two guards (capacity, a table short of a pass);
 4. operation 1 main path: a synthetic 131072-cell x 320-species 3+1D
@@ -148,13 +151,17 @@ Phases, each printing its own line(s):
    .run_particlization()`` (df 2, shear + bulk, f32, oversample to
    min_num_hadrons = 1.5e6): phases, the sampler's split (phase A,
    dispatch, wait, copy to the host, assembly), kept hadrons/s,
-   efficiency, K7 launched once a batch, K7a three times, the OSCAR list;
-   its 256-cell f64 cuda-against-cpu run (the same streams: the same
-   lists); [sample pair] K7 on one batch of that shape against its bound
-   (kernels/sample.py, sample_formula_ops) with the compaction's time,
-   the batch's last event at full width and a 16384-slot batch against
-   its plain version, K7a on the species
-   table against its plain version and its byte bound; [sample decays]
+   efficiency, K7's packed mode launched once a batch, K7a three times,
+   the OSCAR list; its 256-cell f64 cuda-against-cpu run (the same
+   streams: the same lists; the cuda run through the packed mode);
+   [sample pair] alias_scale and K7a on the species table (against its
+   plain version, its byte bound and torch's stable sort of the rows),
+   K7 on one batch of that shape in per-slot mode against its bound
+   (kernels/sample.py, sample_formula_ops) with pack_batch's compaction
+   of its output, and in packed mode against its own bound, bit for bit
+   pack_batch's at the run's capacity and past it; the batch's last event
+   at full width and a 16384-slot batch against its plain version;
+   [sample decays]
    the same run on the decaying list with do_resonance_decays = 1 (K8
    once a pass, stable hadrons only) and its small runs; [cascade pair]
    K8 pass by pass on two sampled events against its plain version and
@@ -1171,7 +1178,8 @@ def _reset_counts():
     feqmod.LAUNCHES = feqmod.REMAP_LAUNCHES = 0
     vah.LAUNCHES = vah.REMAP_LAUNCHES = 0
     polzn.LAUNCHES = polzn.REMAP_LAUNCHES = 0
-    sample.LAUNCHES = sample.ALIAS_LAUNCHES = mc_decays.LAUNCHES = 0
+    sample.LAUNCHES = sample.PACKED_LAUNCHES = sample.ALIAS_LAUNCHES = 0
+    mc_decays.LAUNCHES = 0
 
 
 def _counts() -> dict:
@@ -1192,6 +1200,7 @@ def _counts() -> dict:
                 dndx_vah=dndx.VAH_LAUNCHES,
                 polzn=polzn.LAUNCHES, polzn_remap=polzn.REMAP_LAUNCHES,
                 sample_events=sample.LAUNCHES,
+                sample_packed=sample.PACKED_LAUNCHES,
                 alias_tables=sample.ALIAS_LAUNCHES,
                 mc_cascade=mc_decays.LAUNCHES)
 
@@ -2121,12 +2130,44 @@ def _slot_err(name, want, got, counts, n_cap, dtype) -> tuple[int, int,
     return nf, nv, worst
 
 
+def _packed_same(name, got, ref, per_slot, cfg, n_species, n_cells,
+                 cap) -> int:
+    """K7's packed output ``got`` (packed arrays, per-event counts,
+    totals) against pack_batch of its per-slot output: the same counts and
+    totals, and the first min(kept, cap) entries of every packed field bit
+    for bit.  Returns the kept count."""
+    from is3d_tpu_torch.kernels import sample
+    packed, per_event, small = got
+    want, want_events = sample.pack_batch(per_slot, cfg, n_species, n_cells,
+                                          cap)
+    kept = int(want_events.sum())
+    totals = [kept, int(per_slot["ok"].sum()), int(per_slot["rounds"].sum())]
+    if not torch.equal(per_event, want_events) or small.tolist() != totals:
+        fail(f"{name}: packed counts {per_event.tolist()}, "
+             f"{small.tolist()}; pack_batch {want_events.tolist()}, {totals}")
+    n = min(kept, cap)
+    bits = lambda t: t.view(torch.int16) if t.dtype == torch.float16 else t
+    if sorted(packed) != sorted(want) or not all(
+            packed[k].dtype == want[k].dtype
+            and torch.equal(bits(packed[k][:n]), bits(want[k][:n]))
+            for k in want):
+        fail(f"{name}: the packed arrays differ from pack_batch's")
+    if ref is not None and not all(
+            torch.equal(bits(packed[k][:n]), bits(ref[0][k][:n]))
+            for k in packed):
+        fail(f"{name}: two packed launches differ")
+    return kept
+
+
 def phase_small_sample():
     """[sample small]: K7 against its plain version on testing.SAMPLE_EDGES
     (every df mode, 2+1D and 3+1D, broken-down cells, baryon diffusion;
     a massless species and zero-yield cells no slot may draw), f32 and
-    f64, slot by slot, two launches bit-identical; then a batch forced
-    past its packed capacity runs again to the same events."""
+    f64, slot by slot, two launches bit-identical; its packed mode bit for
+    bit against pack_batch of the per-slot output, at the run's packed
+    capacity and at half the kept hadrons (past it), two launches
+    bit-identical; then a batch forced past its packed capacity runs
+    again, through the packed mode, to the same events."""
     from is3d_tpu_torch import testing
     from is3d_tpu_torch.config import Config
     from is3d_tpu_torch.io.surface import ThermoAverages
@@ -2155,8 +2196,21 @@ def phase_small_sample():
                 fail(f"{name}: the case did not exercise its edge: {e}")
             flips[dtype][0] += nf
             flips[dtype][1] += nv
+            C, S = inp["rows"].shape[0], inp["species"].mass.shape[0]
+            kept = int(got["keep"].sum())
+            caps = (sample._packed_capacity(
+                4, float(inp["cell"]["dn_tot"].sum()), inp["n_cap"]),
+                max(kept // 2, 1))
+            for cap in caps:
+                runs = [sample.event_batch_packed_cuda(*args, cap)
+                        for _ in range(2)]
+                torch.cuda.synchronize()
+                _packed_same(f"{name} packed cap {cap}", runs[1], runs[0],
+                             got, inp["cfg"], S, C, cap)
             print(f"{name}: {seen}; {nf} flipped, max err {err:.2e} of max; "
-                  "two launches bit-identical")
+                  "two launches bit-identical; packed mode identical to "
+                  f"pack_batch at capacities {caps[0]} and {caps[1]} "
+                  f"({kept} kept)")
     for dtype, (nf, nv) in flips.items():
         print(f"[sample small] {str(dtype)[6:]}: {nf} of {nv} slots flipped "
               f"({nf / nv:.2e})")
@@ -2175,12 +2229,15 @@ def phase_small_sample():
     ref = sample.sample_particles(*args, info=info_ref, **kw)
     packed_capacity = sample._packed_capacity
     sample._packed_capacity = lambda *a: 256
+    _reset_counts()
     try:
         got = sample.sample_particles(*args, info=info, **kw)
     finally:
         sample._packed_capacity = packed_capacity
     if info["reruns"] < 1 or info_ref["reruns"]:
         fail(f"[sample small] forced rerun: {info['reruns']} reruns")
+    _expect_counts("[sample small] forced rerun", _counts(), dict(
+        sample_packed=info["batches"] + info["reruns"], alias_tables=3))
     same = len(ref) == len(got) and all(
         a[k].tobytes() == b[k].tobytes() for a, b in zip(ref, got) for k in a)
     if not same:
@@ -2188,29 +2245,34 @@ def phase_small_sample():
     print(f"[sample small] capacity 256 for batches of "
           f"{sum(len(e['mcid']) for e in ref[:3])} kept hadrons: "
           f"{info['reruns']} reruns, capacity {info['capacity']}, the same "
-          "events byte for byte")
+          "events byte for byte (packed mode, "
+          f"{info['batches'] + info['reruns']} launches)")
 
 
 def phase_small_alias():
     """[alias small]: K7a against its plain version on
     testing.alias_edge_weights (zero rows, one entry, flat rows, a 1e12
-    range with 60 % zeros, the main path's row shapes), f32 and f64: the
-    same tables bit for bit, two launches bit-identical."""
+    range with 60 % zeros, the main path's row shapes, rows too long for
+    shared memory), f32 and f64: the same tables bit for bit, two launches
+    bit-identical; the rows a block of each shape."""
     from is3d_tpu_torch import testing
     from is3d_tpu_torch.kernels import sample
     for dtype in (torch.float32, torch.float64):
         names = []
         for name, w in testing.alias_edge_weights(dtype, "cuda").items():
-            qs, order = sample.alias_sort(w)
-            got = sample.alias_tables_cuda(qs.clone(), order)
-            again = sample.alias_tables_cuda(qs.clone(), order)
-            want = sample.alias_tables_plain(qs, order)
+            q0 = sample.alias_scale(w)
+            got = sample.alias_tables_cuda(q0)
+            again = sample.alias_tables_cuda(q0)
+            want = sample.alias_tables_plain(*sample.alias_sort(w))
             torch.cuda.synchronize()
             for g, a, p in zip(got, again, want):
                 if not (torch.equal(g, a) and torch.equal(g, p)):
                     fail(f"[alias small] {name} {dtype}: the kernel's "
                          "tables differ from the plain version's")
-            names.append(f"{name} {tuple(w.shape)}")
+            per_block = sample._library().is3d_alias_rows_per_block(
+                w.shape[1], int(dtype == torch.float64))
+            names.append(f"{name} {tuple(w.shape)} ({per_block} rows a "
+                         "block)")
         print(f"[alias small] {str(dtype)[6:]}: {', '.join(names)}: tables "
               "identical to the plain version's, two launches bit-identical")
 
@@ -2340,7 +2402,7 @@ def phase_sample_main(smi: str, name: str, args, decays=False):
         print(f"[{name}] run: {line}")
     phases = dict(timer.phases)
     info = result.sample_info
-    want = dict(sample_events=info["batches"] + info["reruns"],
+    want = dict(sample_packed=info["batches"] + info["reruns"],
                 alias_tables=3)
     if decays:
         want["mc_cascade"] = info["decays"]["passes"]
@@ -2392,18 +2454,24 @@ def _sample_bound(ops: dict, clock: float) -> tuple[float, str]:
 
 def phase_sample_pair(smi: str, clock: float, run_dir: str, cfg,
                       info: dict):
-    """[sample pair]: on the [sample main 2d] surface, f32, K7 on one batch
-    of the main path's shape (CUDA events, median of 3; two launches
-    bit-identical) beside its bound (kernels/sample.py:
-    sample_formula_ops, from this batch's slots, rounds and cells) and the
-    compaction (pack_batch); the batch's last event at full width and a
-    small batch of SAMPLE_PLAIN_SLOTS slots against the plain version,
-    slot by slot; K7a on the
-    (131072, 320) species table against its plain version (identical,
-    one timed run), with its byte bound.  Returns the kernel records of K7
-    and K7a."""
+    """[sample pair]: on the [sample main 2d] surface, f32 (device times:
+    5 calls queued behind a device-side sleep, median of 3): alias_scale
+    and K7a (its stable sort and pass) on the (131072, 320) species table,
+    beside torch's stable sort of the same rows (K7a against its plain
+    version, identical, one timed run) with its byte bound; K7 on one batch of the main path's shape in per-slot mode
+    (median of 3; two launches bit-identical) beside its bound
+    (kernels/sample.py: sample_formula_ops, from this batch's slots and
+    rounds) and pack_batch's compaction of its output (the path before
+    K7's packed mode), and in packed mode beside its own bound (the same
+    gathers, the packed bytes as output): bit-identical to pack_batch of
+    the per-slot output at the run's capacity and at half the kept
+    hadrons; the batch's last event at full width and a small batch of
+    SAMPLE_PLAIN_SLOTS slots against the plain version, slot by slot.
+    Returns the kernel records of K7 and K7a."""
     from is3d_tpu_torch.kernels import rng, sample
-    from is3d_tpu_torch.utils import cuda_median_ms
+    from is3d_tpu_torch.utils import cuda_queued_ms
+    # device time: 5 calls queued behind a device-side sleep, median of 3
+    timed = lambda fn: cuda_queued_ms(fn, inner=5, n=3)
     from is3d_tpu_torch.api import IS3D
     run = IS3D(cfg, data_dir=run_dir, device="cuda")
     _, df_data, species, _, _ = run._prepare()
@@ -2413,25 +2481,26 @@ def phase_sample_pair(smi: str, clock: float, run_dir: str, cfg,
     dn = cell.pop("dn_list")
     C, S = dn.shape
 
-    qs, order = sample.alias_sort(dn)
-    work = qs.clone()
-    copy_ms, _ = cuda_median_ms(lambda: work.copy_(qs), 3)
-    a_all_ms, a_runs = cuda_median_ms(
-        lambda: (work.copy_(qs), sample.alias_tables_cuda(work, order)), 3)
-    a_ms = a_all_ms - copy_ms
-    got = sample.alias_tables_cuda(qs.clone(), order)
-    want, a_plain_ms = _timed_once(lambda: sample.alias_tables_plain(qs,
-                                                                      order))
+    q0 = sample.alias_scale(dn)
+    scale_ms, _ = timed(lambda: sample.alias_scale(dn))
+    sort_ms, _ = timed(lambda: sample._sort_rows(q0))
+    got = sample.alias_tables_cuda(q0)
+    a_ms, a_runs = timed(lambda: sample.alias_tables_cuda(q0))
+    want, a_plain_ms = _timed_once(lambda: sample.alias_tables_plain(
+        *sample._sort_rows(q0)))
     if not all(torch.equal(g, w) for g, w in zip(got, want)):
         fail("[sample pair] K7a's species table differs from the plain "
              "version's")
-    del want, work
+    del want, got, q0
     a_bound = sample.alias_formula_bytes(C, S, 4) / HBM_RATE * 1e3
-    print(f"[sample pair] {smi} | K7a species table {C} x {S}: {a_ms:.3f} "
-          f"ms (runs with the {copy_ms:.3f} ms copy of the sorted weights: "
-          f"{', '.join(f'{x:.3f}' for x in a_runs)}), plain {a_plain_ms:.1f} "
-          f"ms (one run), tables identical; bound {a_bound:.4f} ms (bytes), "
-          f"kernel at {a_bound / a_ms:.2%} of it")
+    per_block = sample._library().is3d_alias_rows_per_block(S, 0)
+    print(f"[sample pair] {smi} | species table {C} x {S}: alias_scale "
+          f"(torch) {scale_ms:.3f} ms; K7a (the stable sort and the pass) "
+          f"{a_ms:.3f} ms (runs {', '.join(f'{x:.3f}' for x in a_runs)}; "
+          f"{per_block} rows a block), against torch's stable sort alone "
+          f"{sort_ms:.3f} ms; plain {a_plain_ms:.1f} ms (one run), tables "
+          f"identical; bound {a_bound:.4f} ms (bytes), kernel at "
+          f"{a_bound / a_ms:.2%} of it")
 
     tables = sample.build_alias_tables(dn, cell["dn_tot"])
     del dn
@@ -2447,13 +2516,32 @@ def phase_sample_pair(smi: str, clock: float, run_dir: str, cfg,
     if not all(torch.equal(out[k], again[k]) for k in out):
         fail("[sample pair] two launches of K7 differ")
     del again
-    k_ms, k_runs = cuda_median_ms(kern, 3)
+    k_ms, k_runs = timed(kern)
     n_valid, n_rounds = int(counts.sum()), int(out["rounds"].sum())
-    valid = (torch.arange(n_cap, device="cuda")[None, :]
-             < counts[:, None])
     ops = sample.sample_formula_ops(B * n_cap, n_valid, n_rounds, rows,
-                                    tables, out["cidx"][valid])
+                                    tables)
     bound = _sample_bound(ops, clock)
+    cap = info["capacity"]
+    p_ms, _ = timed(lambda: sample.pack_batch(out, cfg, S, C, cap))
+    kept = int(out["keep"].sum())
+
+    # packed mode: bit for bit pack_batch's, at the run's capacity and
+    # past half the kept hadrons
+    pk = lambda c: sample.event_batch_packed_cuda(
+        rows, layout, tables, species, counts, seed, 0, n_cap, cfg, c)
+    for c in (cap, kept // 2):
+        first = pk(c)
+        _packed_same(f"[sample pair] packed, capacity {c}", pk(c), first,
+                     out, cfg, S, C, c)
+        del first
+    pk_ms, pk_runs = timed(lambda: pk(cap))
+    packed = pk(cap)[0]
+    pk_ops = sample.sample_formula_ops(
+        B * n_cap, n_valid, n_rounds, rows, tables,
+        out_bytes=sample.packed_bytes(packed, kept, B))
+    pk_bound = _sample_bound(pk_ops, clock)
+    del packed
+
     # the batch's last event at full width against the plain version:
     # every slot counter to n_cap, a global event past the first
     last = B - 1
@@ -2465,10 +2553,6 @@ def phase_sample_pair(smi: str, clock: float, run_dir: str, cfg,
         {k: v[last:] for k, v in out.items()}, counts[last:], n_cap,
         torch.float32)
     del want
-    cap = sample._packed_capacity(B, info["lam"], n_cap)
-    p_ms, _ = cuda_median_ms(lambda: sample.pack_batch(out, cfg, S, C, cap),
-                             3)
-    kept = int(out["keep"].sum())
 
     small = torch.tensor([SAMPLE_PLAIN_SLOTS], dtype=torch.int32,
                          device="cuda")
@@ -2481,20 +2565,26 @@ def phase_sample_pair(smi: str, clock: float, run_dir: str, cfg,
         cfg))
     nf, nv, err = _slot_err("[sample pair] small batch", want, got, small,
                             SAMPLE_PLAIN_SLOTS, torch.float32)
-    ks_ms, _ = cuda_median_ms(ks, 3)
+    ks_ms, _ = timed(ks)
     print(f"[sample pair] event {last} of the batch, {nv_last} slots: "
           f"plain {last_ms:.1f} ms (one run), {nf_last} flipped, max err "
           f"{err_last:.2e} of max")
     print(f"[sample pair] {smi} | K7 one batch {B} events x {n_cap} slots "
           f"({n_valid} hadrons to sample, {n_rounds} proposals = "
-          f"{n_rounds / n_valid:.3f} a slot, {kept} kept): {k_ms:.3f} ms "
-          f"(runs {', '.join(f'{x:.3f}' for x in k_runs)}), "
-          f"{kept / k_ms * 1e3:.4e} kept hadrons/s; compaction "
-          f"(cumsum and index copy) {p_ms:.3f} ms; bound {bound[0]:.4f} ms "
-          f"({bound[1]}: {ops['bytes'] / 1e6:.1f} MB, {ops['mulhi']:.4e} "
-          f"multiply-highs, {ops['sfu']:.4e} special functions), kernel at "
-          f"{bound[0] / k_ms:.1%} of it; two launches bit-identical; small "
-          f"batch of {SAMPLE_PLAIN_SLOTS} slots: kernel {ks_ms:.3f} ms, plain "
+          f"{n_rounds / n_valid:.3f} a slot, {kept} kept): per-slot mode "
+          f"{k_ms:.3f} ms (runs {', '.join(f'{x:.3f}' for x in k_runs)}), "
+          f"bound {bound[0]:.4f} ms ({bound[1]}: {ops['bytes'] / 1e6:.1f} "
+          f"MB, {ops['mulhi']:.4e} multiply-highs, {ops['sfu']:.4e} special "
+          f"functions), kernel at {bound[0] / k_ms:.1%} of it; pack_batch "
+          f"of its output (cumsum and index copy) {p_ms:.3f} ms; packed "
+          f"mode {pk_ms:.3f} ms (runs "
+          f"{', '.join(f'{x:.3f}' for x in pk_runs)}), "
+          f"{kept / pk_ms * 1e3:.4e} kept hadrons/s, bound "
+          f"{pk_bound[0]:.4f} ms ({pk_bound[1]}: "
+          f"{pk_ops['bytes'] / 1e6:.1f} MB), at {pk_bound[0] / pk_ms:.1%} "
+          f"of it, bit-identical to pack_batch at capacities {cap} and "
+          f"{kept // 2}; two launches bit-identical; small batch of "
+          f"{SAMPLE_PLAIN_SLOTS} slots: kernel {ks_ms:.3f} ms, plain "
           f"{plain_ms:.1f} ms (one run), {nf} of {nv} slots flipped, max err "
           f"{err:.2e} of max")
     rec_k7 = dict(launches=None, max_abs_err=max(err, err_last), ms=k_ms,
@@ -2503,10 +2593,12 @@ def phase_sample_pair(smi: str, clock: float, run_dir: str, cfg,
                   slots=B * n_cap, plain_slots=SAMPLE_PLAIN_SLOTS,
                   kernel_ms_on_plain_slots=ks_ms, flipped=nf + nf_last,
                   full_event_slots=nv_last, full_event_plain_ms=last_ms,
-                  compaction_ms=p_ms)
+                  packed_ms=pk_ms, packed_bound_ms=pk_bound[0],
+                  packed_bound_by=pk_bound[1], compaction_ms_before=p_ms)
     rec_k7a = dict(launches=None, max_abs_err=0.0, ms=a_ms,
                    plain_ms=a_plain_ms, bound_ms=a_bound, bound_by="bytes",
-                   library_ms=None, rows=C, width=S)
+                   library_ms=None, rows=C, width=S, rows_per_block=per_block,
+                   alias_scale_ms=scale_ms, torch_sort_ms=sort_ms)
     return rec_k7, rec_k7a
 
 
@@ -2589,10 +2681,17 @@ def phase_sample(smi: str, clock: float):
                                                    SAMPLE2D_ARGS)
     small = dict(operation=2, sampler_seed=3, oversample=1,
                  min_num_hadrons=3000)
+    _reset_counts()
     phase_small_path_cpu_vs_cuda("small_sample", dimension=2, params=small,
                                  label="operation 2 df2")
+    small_counts = _counts()
+    if small_counts["sample_packed"] < 1 or small_counts["sample_events"]:
+        fail(f"[small_sample path] K7 launches {small_counts}: expected the "
+             "packed mode only")
+    print(f"[small_sample path] the cuda run went through K7's packed mode "
+          f"({small_counts['sample_packed']} launches)")
     rec_k7, rec_k7a = phase_sample_pair(smi, clock, run_dir, cfg, info)
-    rec_k7["launches"] = counts["sample_events"]
+    rec_k7["launches"] = counts["sample_packed"]
     rec_k7a["launches"] = counts["alias_tables"]
     shutil.rmtree(run_dir, ignore_errors=True)
     counts, run_dir, cfg, _ = phase_sample_main(

@@ -9,7 +9,11 @@ Reads ``<run_dir>/iS3D_parameters.dat``, the surface from
 run directory, writes outputs to ``<run_dir>/results/``.  ``key=value``
 arguments override parameters (reference: ParameterReader::readFromArguments).
 ``device`` (default cuda) is consumed by the CLI: cuda must be available
-when asked for; the run never moves to the CPU on its own.
+when asked for; the run never moves to the CPU on its own.  is3d_tpu's
+harness key ``platform`` names the device too (cpu -> device=cpu, gpu or
+cuda -> device=cuda); its pod keys and ``host_devices`` are multi-device
+keys and raise NotImplementedError until multi-GPU (ROADMAP slice 11) is
+ported.
 """
 
 from __future__ import annotations
@@ -23,7 +27,8 @@ _USAGE = (
     "[key=value ...]\n"
     "  run_dir    directory with iS3D_parameters.dat, input/surface.dat,\n"
     "             PDG/, tables/, deltaf_coefficients/ (default: .)\n"
-    "  device     cuda (default) or cpu\n"
+    "  device     cuda (default) or cpu; platform=cpu|gpu|cuda says the\n"
+    "             same (is3d_tpu's key)\n"
     "  key=value  parameter overrides, e.g. df_mode=2 precision=f32\n"
     "             (reference: ParameterReader::readFromArguments)\n"
     "  operation  0 (dN/dX), 1 (spectra) or 2 (sampled particle lists);\n"
@@ -31,6 +36,13 @@ _USAGE = (
     "             2 / 3 anisotropic hydro (VAH, PL / PL,PT matched),\n"
     "             5 viscous hydro + thermal vorticity (the spin\n"
     "             polarization, then the operation)")
+
+
+# is3d_tpu's multi-device CLI keys: its pod mode and its virtual CPU
+# device count
+_MULTI_DEVICE_KEYS = ("multihost_coordinator", "multihost_nproc",
+                      "multihost_pid", "host_devices")
+_PLATFORM_DEVICE = {"cpu": "cpu", "gpu": "cuda", "cuda": "cuda"}
 
 
 def main(argv=None):
@@ -47,7 +59,24 @@ def main(argv=None):
               file=sys.stderr)
         return 2
     overrides = dict(a.split("=", 1) for a in argv)
-    device = overrides.pop("device", "cuda")
+    multi = [k for k in _MULTI_DEVICE_KEYS if k in overrides]
+    if multi:
+        raise NotImplementedError(
+            f"{', '.join(multi)} (multi-device runs) is not ported yet: "
+            "ROADMAP section 1, slice 11")
+    device = overrides.pop("device", None)
+    if "platform" in overrides:
+        platform = overrides.pop("platform")
+        mapped = _PLATFORM_DEVICE.get(platform)
+        if mapped is None or (device is not None
+                              and device.split(":")[0] != mapped):
+            print(f"platform={platform} "
+                  + (f"contradicts device={device}" if mapped else
+                     "is not one of cpu, gpu, cuda") + f"\n{_USAGE}",
+                  file=sys.stderr)
+            return 2
+        device = device or mapped
+    device = device or "cuda"
 
     from .api import IS3D
     from .utils import PhaseTimer

@@ -10,14 +10,17 @@ data-parallel device):
   transform and breakdown, and the (cell, species) densities dn; then the
   Walker-alias tables of the (cell, species) draw (``build_alias_tables``,
   kernel K7a on the card).
-* Phase B, one batch of B events x n_cap hadron slots (``event_batch``):
-  by Poisson superposition one count n ~ Poisson(sum dn) an event, each
-  slot < n drawing its cell and species from the alias tables, its LRF
-  momentum by rejection, the feqmod rescale, the viscous and flux keep,
-  and the lab boost.  On the card this is kernel K7 (csrc/sample.cu), one
-  thread a slot; ``event_batch_plain`` is its plain version.  Compaction of
-  the kept slots to event-major packed arrays is a cumsum and an index
-  copy (``pack_batch``).
+* Phase B, one batch of B events x n_cap hadron slots
+  (``event_batch_packed``): by Poisson superposition one count n ~
+  Poisson(sum dn) an event, each slot < n drawing its cell and species
+  from the alias tables, its LRF momentum by rejection, the feqmod
+  rescale, the viscous and flux keep, and the lab boost; the kept slots
+  compacted to event-major packed arrays.  On the card this is kernel K7
+  (csrc/sample.cu), tiles of slots with the compaction in the same
+  launch; its plain version is ``event_batch_plain`` (every slot) and
+  ``pack_batch`` (a cumsum and an index copy), and its per-slot mode
+  (``event_batch_cuda``) is what the plain version is held to slot by
+  slot.
 * The host drains batches (``_drain_event_range``): the device-to-host
   copy of batch k runs on a side stream while batch k+1's kernel runs, and
   a batch whose kept hadrons overflow the packed capacity is run again at
@@ -63,8 +66,10 @@ MBAR_LIGHT = 1.008        # light/heavy proposal split (reference :481)
 MAX_REJECTION_ROUNDS = 256
 CELL_BLOCK = 512          # cells per row of the 2-level cell alias table
 
-# kernel launches (K7: event batches; K7a: alias tables)
+# kernel launches (K7: event batches, per-slot and packed; K7a: alias
+# tables)
 LAUNCHES = 0
+PACKED_LAUNCHES = 0
 ALIAS_LAUNCHES = 0
 
 
@@ -121,17 +126,26 @@ def _next_pow2_int(n: int) -> int:
     return 1 << max(0, int(n - 1).bit_length())
 
 
-def alias_sort(weights: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """The input of the Vose pass: each row scaled to mean 1 (zero rows:
-    all ones) and sorted descending, stably, with the original index of
-    each sorted entry (int32)."""
+def alias_scale(weights: torch.Tensor) -> torch.Tensor:
+    """Each row scaled to mean 1 (zero rows: all ones)."""
     R, K = weights.shape
     W = weights.sum(dim=1, keepdim=True)
     safe = torch.where(W > 0.0, W, torch.ones_like(W))
-    q0 = torch.where(W > 0.0, weights * (float(K) / safe),
-                     torch.ones_like(weights))
+    return torch.where(W > 0.0, weights * (float(K) / safe),
+                       torch.ones_like(weights)).contiguous()
+
+
+def _sort_rows(q0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Rows sorted descending, stably, with the original index of each
+    sorted entry (int32)."""
     qs, order = torch.sort(-q0, dim=1, stable=True)
     return (-qs).contiguous(), order.to(torch.int32).contiguous()
+
+
+def alias_sort(weights: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The input of the Vose pass: ``alias_scale``'s rows sorted
+    descending, stably, with the original index of each sorted entry."""
+    return _sort_rows(alias_scale(weights))
 
 
 def alias_tables_plain(qs: torch.Tensor, order: torch.Tensor
@@ -175,25 +189,62 @@ def alias_tables_plain(qs: torch.Tensor, order: torch.Tensor
     return prob, alias.to(torch.int32)
 
 
-def alias_tables_cuda(qs: torch.Tensor, order: torch.Tensor
-                      ) -> tuple[torch.Tensor, torch.Tensor]:
-    """K7a (csrc/sample.cu, alias_kernel): the same pass, one thread a
-    row.  ``qs`` is overwritten (scratch)."""
+def _pair_views(pairs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(prob, alias) of an interleaved (R, K, 2) table: an entry is prob,
+    then alias (int32) in the next 32-bit word, 2 x itemsize bytes."""
+    return pairs[..., 0], pairs.view(torch.int32)[..., pairs.element_size()
+                                                 // 4]
+
+
+def pair_table(prob: torch.Tensor, alias: torch.Tensor) -> torch.Tensor:
+    """The interleaved (R, K, 2) table the event kernel reads a (prob,
+    alias) entry of in one load: the storage of ``prob`` and ``alias``
+    where they are K7a's views of one (``alias_tables_cuda``), else a copy
+    into a new one."""
+    R, K = prob.shape
+    w = prob.element_size() // 4
+    if (prob.stride() == (2 * K, 2) and alias.stride() == (2 * K * w, 2 * w)
+            and alias.dtype == torch.int32
+            and alias.data_ptr() == prob.data_ptr() + prob.element_size()
+            and prob.storage_offset() == 0):
+        return prob.as_strided((R, K, 2), (2 * K, 2, 1))
+    pairs = torch.zeros((R, K, 2), dtype=prob.dtype, device=prob.device)
+    p, a = _pair_views(pairs)
+    p.copy_(prob)
+    a.copy_(alias)
+    return pairs
+
+
+def alias_tables_cuda(q0: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """K7a (csrc/sample.cu, alias_kernel) on ``alias_scale``'s rows: the
+    stable descending sort and the pass of ``alias_tables_plain`` in one
+    launch, rows staged in shared memory (rows too long for it: torch's
+    sort, then a thread a row in device memory).  Returns (prob, alias) as
+    strided views of one interleaved table (``pair_table``)."""
     global ALIAS_LAUNCHES
-    check_float("alias_tables_cuda", qs)
-    R, K = qs.shape
-    check_tensor("sorted weights", qs, (R, K), qs)
-    check_tensor("order", order, (R, K), qs, dtype=torch.int32)
-    require_cuda("alias_tables_cuda", qs)
+    check_float("alias_tables_cuda", q0)
+    R, K = q0.shape
+    check_tensor("scaled weights", q0, (R, K), q0)
+    require_cuda("alias_tables_cuda", q0)
     lib = _library()
-    prob = torch.ones_like(qs)
-    alias = torch.zeros((R, K), dtype=torch.int32, device=qs.device)
-    fn = (lib.is3d_alias_build_f64 if qs.dtype == torch.float64
-          else lib.is3d_alias_build_f32)
-    launch(lib, "alias tables", fn, qs.device, qs.data_ptr(),
-           order.data_ptr(), R, K, prob.data_ptr(), alias.data_ptr())
+    f64 = q0.dtype == torch.float64
+    per_block = lib.is3d_alias_rows_per_block(K, int(f64))
+    if per_block < 0:
+        raise RuntimeError("alias tables: no launch configuration: "
+                           f"{lib.is3d_cuda_error_string(-per_block)}")
+    pairs = torch.empty((R, K, 2), dtype=q0.dtype, device=q0.device)
+    if per_block:
+        fn = lib.is3d_alias_build_f64 if f64 else lib.is3d_alias_build_f32
+        launch(lib, "alias tables", fn, q0.device, q0.data_ptr(), R, K,
+               pairs.data_ptr())
+    else:
+        qs, order = _sort_rows(q0)
+        fn = (lib.is3d_alias_build_sorted_f64 if f64
+              else lib.is3d_alias_build_sorted_f32)
+        launch(lib, "alias tables", fn, q0.device, qs.data_ptr(),
+               order.data_ptr(), R, K, pairs.data_ptr())
     ALIAS_LAUNCHES += 1
-    return prob, alias
+    return _pair_views(pairs)
 
 
 def alias_build(weights: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -202,10 +253,9 @@ def alias_build(weights: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     b = floor(u K), then b if frac(u K) < prob[b] else alias[b].  Rows of
     zero total weight get uniform tables.  K7a on CUDA tensors, the plain
     pass on CPU ones."""
-    qs, order = alias_sort(weights)
     if weights.device.type == "cpu":
-        return alias_tables_plain(qs, order)
-    return alias_tables_cuda(qs, order)
+        return alias_tables_plain(*alias_sort(weights))
+    return alias_tables_cuda(alias_scale(weights))
 
 
 def alias_pick(prob, alias, row_idx, u):
@@ -720,8 +770,8 @@ SLOT_OUTPUTS = ("keep", "ok", "rounds", "sidx", "cidx", "px", "py", "pz",
 # a rejection round takes 6 special functions (3 logs, a sqrt, 2 exps of
 # the light proposal), a slot 8 more after it (sint, cos, sin, the df exp,
 # the feqmod / lab mT sqrt, sinh, cosh's sqrt, asinh); a slot gathers its
-# row and three (prob, alias) pairs, each table's gathers counted by
-# gather_bytes
+# row and three (prob, alias) entries, one gather each (no layout reads an
+# entry in fewer), each table's gathers counted by gather_bytes
 PHILOX_MULHI = 20
 PROPOSAL_SFU = 6
 SLOT_SFU = 8
@@ -739,76 +789,102 @@ def gather_bytes(table_bytes: int, n_gathers: int) -> int:
 
 def sample_formula_ops(n_slots: int, n_valid: int, n_rounds: int,
                        rows: torch.Tensor, tables: dict,
-                       cidx: torch.Tensor) -> dict:
+                       out_bytes: Optional[int] = None) -> dict:
     """The work of one K7 launch as its inputs need it: ``n_slots`` slots
     of which ``n_valid`` below their event's count, ``n_rounds``
     proposals made (the sum of the slots' rounds: rounds per slot = 1 /
-    efficiency), on ``rows`` and the alias ``tables`` it was given;
-    ``cidx`` the cells the valid slots drew.  A pick reads its alias entry
-    only where the column's probability fails: the species table's alias
-    reads are counted as their expectation on those cells' rows, the small
-    tables' as every gather.  Returns the bytes (each table's gathers by
-    gather_bytes, outputs written once), the multiply-highs and the
-    special functions."""
+    efficiency), on ``rows`` and the alias ``tables`` it was given.  A
+    pick gathers one (prob, alias) entry of its table.  Returns the bytes
+    (each table's gathers by gather_bytes; the outputs written once:
+    ``out_bytes``, default the per-slot mode's), the multiply-highs and
+    the special functions."""
     itemsize = rows.element_size()
     blocks = 2 if itemsize == 4 else 3
     row_sectors = -(-rows.shape[1] * itemsize // 32)
-    miss = 1.0 - tables["sp_prob"].double().mean(dim=1)
-    sp_alias_reads = int(round(float(miss[cidx.long()].sum())))
     gathers = gather_bytes(rows.nbytes, n_valid * row_sectors) + sum(
-        gather_bytes(tables[f"{t}_{k}"].nbytes,
-                     sp_alias_reads if t + k == "spalias" else n_valid)
-        for t in ("grp", "blk", "sp") for k in ("prob", "alias"))
-    out_bytes = 2 + 3 * 4 + 4 * itemsize
-    return dict(bytes=gathers + n_slots * out_bytes,
+        gather_bytes(tables[f"{t}_prob"].nbytes + tables[f"{t}_alias"].nbytes,
+                     n_valid) for t in ("grp", "blk", "sp"))
+    if out_bytes is None:
+        out_bytes = n_slots * (2 + 3 * 4 + 4 * itemsize)
+    return dict(bytes=gathers + out_bytes,
                 mulhi=PHILOX_MULHI * blocks * (n_valid + n_rounds),
                 sfu=PROPOSAL_SFU * n_rounds + SLOT_SFU * n_valid)
 
 
+def packed_bytes(packed: dict, n_kept: int, n_events: int) -> int:
+    """The bytes packed mode writes: each packed field's entries of the
+    hadrons kept (at most its capacity), the per-event counts and the
+    three totals."""
+    n = min(n_kept, min(v.shape[0] for v in packed.values()))
+    return (n * sum(v.element_size() for v in packed.values())
+            + 4 * n_events + 3 * 8)
+
+
 def alias_formula_bytes(R: int, K: int, itemsize: int) -> int:
-    """K7a moves each sorted weight, index, prob and alias entry once."""
-    return R * K * (2 * itemsize + 8)
+    """K7a reads each scaled weight once and writes each (prob, alias)
+    entry once (a pass over rows sorted outside it would also read each
+    sorted entry's index: R K (2 itemsize + 8))."""
+    return R * K * (2 * itemsize + 4)
 
 
-def event_batch_cuda(rows: torch.Tensor, layout: torch.Tensor, tables: dict,
-                     species: SpeciesArrays, counts: torch.Tensor,
-                     seed: int, ev0: int, n_cap: int, cfg: Config) -> dict:
-    """K7 (csrc/sample.cu, event_kernel): ``event_batch_plain`` with the
-    port's Philox streams, one thread a slot.  Same arguments and outputs
-    (keep and ok as bool)."""
-    global LAUNCHES
-    check_float("event_batch_cuda", rows)
+def _event_args(rows, layout, tables, species, counts, seed, ev0, n_cap,
+                cfg, what):
+    """Check K7's inputs and return the C entry's common arguments (and
+    the tensors they point into, kept alive by the caller)."""
+    check_float(what, rows)
     C, nf = rows.shape
     S = species.mass.shape[0]
     B = counts.shape[0]
     G, CB = tables["blk_prob"].shape
     check_tensor("rows", rows, (C, nf), rows)
-    # the C entry copies the layout into the launch's parameters
+    # the C entry checks the layout against its df mode's columns
     lay = layout.to("cpu", torch.int32).contiguous()
     if tuple(lay.shape) != (len(ROW_FIELDS),) or int(lay.max()) >= nf:
         raise ValueError(f"layout: need {len(ROW_FIELDS)} columns below "
                          f"{nf}, got {tuple(lay.shape)}")
-    check_tensor("grp_prob", tables["grp_prob"], (1, G), rows)
-    check_tensor("grp_alias", tables["grp_alias"], (1, G), rows,
-                 dtype=torch.int32)
-    check_tensor("blk_alias", tables["blk_alias"], (G, CB), rows,
-                 dtype=torch.int32)
-    check_tensor("sp_prob", tables["sp_prob"], (C, S), rows)
-    check_tensor("sp_alias", tables["sp_alias"], (C, S), rows,
-                 dtype=torch.int32)
+    pairs = []
+    for t, shape in (("grp", (1, G)), ("blk", (G, CB)), ("sp", (C, S))):
+        prob, alias = tables[f"{t}_prob"], tables[f"{t}_alias"]
+        if (tuple(prob.shape) != shape or tuple(alias.shape) != shape
+                or prob.dtype != rows.dtype or alias.dtype != torch.int32
+                or prob.device != rows.device
+                or alias.device != rows.device):
+            raise ValueError(f"{t} table: need {shape} {rows.dtype} prob "
+                             f"and int32 alias on {rows.device}, got "
+                             f"{tuple(prob.shape)} {prob.dtype}, "
+                             f"{tuple(alias.shape)} {alias.dtype}")
+        pairs.append(pair_table(prob, alias))
     mass, sign, baryon = (getattr(species, k).contiguous()
                           for k in ("mass", "sign", "baryon"))
     for name, t in (("mass", mass), ("sign", sign), ("baryon", baryon)):
         check_tensor(name, t, (S,), rows)
     check_tensor("counts", counts, (B,), rows, dtype=torch.int32)
     if nf * rows.element_size() % 16 or rows.data_ptr() % 16:
-        raise ValueError("event_batch_cuda: rows must be 16-byte aligned")
+        raise ValueError(f"{what}: rows must be 16-byte aligned")
     if B * n_cap >= 1 << 31 or ev0 + B > 1 << 32:
-        raise ValueError("event_batch_cuda: more slots or events than the "
-                         "kernel's 32-bit counters take")
-    require_cuda("event_batch_cuda", rows)
+        raise ValueError(f"{what}: more slots or events than the kernel's "
+                         "32-bit counters take")
+    require_cuda(what, rows)
+    k0, k1 = rng.seed_key(seed)
+    args = (rows.data_ptr(), C, nf, lay.data_ptr(), pairs[0].data_ptr(), G,
+            pairs[1].data_ptr(), CB, pairs[2].data_ptr(), S,
+            mass.data_ptr(), sign.data_ptr(), baryon.data_ptr(),
+            counts.data_ptr(), B, n_cap, ev0, k0, k1, cfg.dimension,
+            cfg.df_mode, float(cfg.y_cut))
+    return args, (lay, pairs, mass, sign, baryon)
+
+
+def event_batch_cuda(rows: torch.Tensor, layout: torch.Tensor, tables: dict,
+                     species: SpeciesArrays, counts: torch.Tensor,
+                     seed: int, ev0: int, n_cap: int, cfg: Config) -> dict:
+    """K7's per-slot mode (csrc/sample.cu, event_kernel): the outputs of
+    ``event_batch_plain`` with the port's Philox streams (keep and ok as
+    bool; slots at or past an event's count all zero)."""
+    global LAUNCHES
+    args, alive = _event_args(rows, layout, tables, species, counts, seed,
+                              ev0, n_cap, cfg, "event_batch_cuda")
     lib = _library()
-    dev = rows.device
+    B, dev = counts.shape[0], rows.device
     out = dict(keep=torch.empty((B, n_cap), dtype=torch.bool, device=dev),
                ok=torch.empty((B, n_cap), dtype=torch.bool, device=dev),
                rounds=torch.empty((B, n_cap), dtype=torch.int32, device=dev),
@@ -816,20 +892,46 @@ def event_batch_cuda(rows: torch.Tensor, layout: torch.Tensor, tables: dict,
                cidx=torch.empty((B, n_cap), dtype=torch.int32, device=dev))
     for k in ("px", "py", "pz", "eta"):
         out[k] = torch.empty((B, n_cap), dtype=rows.dtype, device=dev)
-    k0, k1 = rng.seed_key(seed)
     fn = (lib.is3d_sample_events_f64 if rows.dtype == torch.float64
           else lib.is3d_sample_events_f32)
-    launch(lib, "sample events", fn, dev, rows.data_ptr(), C, nf,
-           lay.data_ptr(), tables["grp_prob"].data_ptr(),
-           tables["grp_alias"].data_ptr(), G, tables["blk_prob"].data_ptr(),
-           tables["blk_alias"].data_ptr(), CB, tables["sp_prob"].data_ptr(),
-           tables["sp_alias"].data_ptr(), S, mass.data_ptr(),
-           sign.data_ptr(), baryon.data_ptr(),
-           counts.data_ptr(), B, n_cap, ev0, k0, k1, cfg.dimension,
-           cfg.df_mode, float(cfg.y_cut),
+    launch(lib, "sample events", fn, dev, *args,
            *(out[k].data_ptr() for k in SLOT_OUTPUTS))
     LAUNCHES += 1
     return out
+
+
+def event_batch_packed_cuda(rows: torch.Tensor, layout: torch.Tensor,
+                            tables: dict, species: SpeciesArrays,
+                            counts: torch.Tensor, seed: int, ev0: int,
+                            n_cap: int, cfg: Config, cap: int
+                            ) -> tuple[dict, torch.Tensor, torch.Tensor]:
+    """K7's packed mode: the kept hadrons of the batch compacted in the
+    same launch.  Returns what ``event_batch_packed_plain`` returns, bit
+    for bit over the first min(kept, cap) entries of each packed array
+    (the rest is not written)."""
+    global PACKED_LAUNCHES
+    args, alive = _event_args(rows, layout, tables, species, counts, seed,
+                              ev0, n_cap, cfg, "event_batch_packed_cuda")
+    lib = _library()
+    B, dev = counts.shape[0], rows.device
+    C, S = rows.shape[0], species.mass.shape[0]
+    cbits = _index_pack_bits(S, C)
+    fdt = torch.float16 if _pack_f16(cfg) else rows.dtype
+    packed = {k: torch.empty(cap, dtype=torch.int32 if k in _PACK_INT
+                             else fdt, device=dev)
+              for k in _pack_fields(cfg, cbits is not None)}
+    per_event = torch.zeros(B, dtype=torch.int32, device=dev)
+    tiles = lib.is3d_sample_tiles(B * n_cap)
+    scratch = torch.zeros(4 + tiles, dtype=torch.int64, device=dev)
+    ptr = lambda k: packed[k].data_ptr() if k in packed else None
+    fn = (lib.is3d_sample_packed_f64 if rows.dtype == torch.float64
+          else lib.is3d_sample_packed_f32)
+    launch(lib, "sample events (packed)", fn, dev, *args, cap,
+           -1 if cbits is None else cbits, int(fdt == torch.float16),
+           ptr("scidx") or ptr("sidx"), ptr("cidx"), ptr("px"), ptr("py"),
+           ptr("pz"), ptr("eta"), per_event.data_ptr(), scratch.data_ptr())
+    PACKED_LAUNCHES += 1
+    return packed, per_event, scratch[1:4]
 
 
 def _library():
@@ -839,35 +941,60 @@ def _library():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         for fn in (lib.is3d_alias_build_f32, lib.is3d_alias_build_f64):
             fn.restype = ci
-            fn.argtypes = [vp, vp, ci, ci, vp, vp, vp]   # qs order R K prob alias stream
+            fn.argtypes = [vp, ci, ci, vp, vp]   # q0 R K pairs stream
+        for fn in (lib.is3d_alias_build_sorted_f32,
+                   lib.is3d_alias_build_sorted_f64):
+            fn.restype = ci
+            fn.argtypes = [vp, vp, ci, ci, vp, vp]   # qs order R K pairs stream
+        lib.is3d_alias_rows_per_block.restype = ci
+        lib.is3d_alias_rows_per_block.argtypes = [ci, ci]
+        common = [vp, ci, ci, vp,                   # rows C nf layout
+                  vp, ci, vp, ci, vp, ci,           # grp, blk, sp pairs
+                  vp, vp, vp,                       # mass sign baryon
+                  vp, ci, ci, ctypes.c_longlong,    # counts B n_cap ev0
+                  ctypes.c_uint, ctypes.c_uint,     # key
+                  ci, ci, ctypes.c_double]          # dim df y_cut
         for fn in (lib.is3d_sample_events_f32, lib.is3d_sample_events_f64):
             fn.restype = ci
-            fn.argtypes = [vp, ci, ci, vp,              # rows C nf layout
-                           vp, vp, ci, vp, vp, ci,      # grp, blk tables
-                           vp, vp, ci,                  # species tables, S
-                           vp, vp, vp,                  # mass sign baryon
-                           vp, ci, ci, ctypes.c_longlong,  # counts B n_cap ev0
-                           ctypes.c_uint, ctypes.c_uint,   # key
-                           ci, ci, ctypes.c_double,     # dim df y_cut
-                           vp, vp, vp, vp, vp,          # keep ok rounds sidx cidx
-                           vp, vp, vp, vp,              # px py pz eta
-                           vp]                          # stream
+            fn.argtypes = common + [vp] * 9 + [vp]  # the slot outputs, stream
+        for fn in (lib.is3d_sample_packed_f32, lib.is3d_sample_packed_f64):
+            fn.restype = ci
+            fn.argtypes = common + [ci, ci, ci,     # cap cbits f16
+                                    vp, vp, vp, vp, vp, vp,  # idx0 idx1 px py pz eta
+                                    vp, vp, vp]     # per_event scratch stream
+        lib.is3d_sample_tiles.restype = ci
+        lib.is3d_sample_tiles.argtypes = [ctypes.c_longlong]
         lib.is3d_cuda_error_string.restype = ctypes.c_char_p
         lib.is3d_cuda_error_string.argtypes = [ci]
         lib._is3d_bound = True
     return lib
 
 
-def event_batch(rows, layout, tables, species, counts, seed: int, ev0: int,
-                n_cap: int, cfg: Config) -> dict:
-    """One batch's slots: K7 on CUDA tensors, the plain version on CPU
-    ones."""
+def event_batch_packed_plain(rows, tables, species, counts, src,
+                             n_cap: int, cfg: Config, cap: int
+                             ) -> tuple[dict, torch.Tensor, torch.Tensor]:
+    """The plain version of K7's packed mode: ``pack_batch`` of
+    ``event_batch_plain``.  Returns (the packed (cap,) arrays, the
+    per-event kept counts (B,) int32, (kept, accepted, proposed) int64)."""
+    out = event_batch_plain(rows, tables, species, counts, src, n_cap, cfg)
+    packed, per_event = pack_batch(out, cfg, species.mass.shape[0],
+                                   rows.shape[0], cap)
+    small = torch.stack([per_event.sum(dtype=torch.int64),
+                         out["ok"].sum(dtype=torch.int64),
+                         out["rounds"].sum(dtype=torch.int64)])
+    return packed, per_event, small
+
+
+def event_batch_packed(rows, layout, tables, species, counts, seed: int,
+                       ev0: int, n_cap: int, cfg: Config, cap: int):
+    """One batch's kept hadrons: K7's packed mode on CUDA tensors, the
+    plain version on CPU ones."""
     if rows.device.type == "cpu":
-        return event_batch_plain(rows, tables, species, counts,
-                                 PhiloxSource(seed, ev0, rows.dtype), n_cap,
-                                 cfg)
-    return event_batch_cuda(rows, layout, tables, species, counts, seed, ev0,
-                            n_cap, cfg)
+        return event_batch_packed_plain(
+            rows, tables, species, counts,
+            PhiloxSource(seed, ev0, rows.dtype), n_cap, cfg, cap)
+    return event_batch_packed_cuda(rows, layout, tables, species, counts,
+                                   seed, ev0, n_cap, cfg, cap)
 
 
 # ======================================================================
@@ -1156,13 +1283,13 @@ def _drain_event_range(rows, layout, tables, species, cell, cfg, seed: int,
     dicts to ``events``; returns the (accepted, proposed) momenta.
 
     On the card batch k+1 is queued before batch k is drained: batch k's
-    kept hadrons go to pinned host memory on a side stream while k+1's
-    kernel runs.  A batch whose kept hadrons exceed the packed capacity
-    runs again at twice the capacity (counter-keyed streams: the same
-    hadrons), and the capacity stays doubled."""
+    kept hadrons, compacted by K7's packed mode, go to pinned host memory
+    on a side stream while k+1's kernel runs.  A batch whose kept hadrons
+    exceed the packed capacity runs again at twice the capacity
+    (counter-keyed streams: the same hadrons), and the capacity stays
+    doubled."""
     dev = rows.device
     cuda = dev.type == "cuda"
-    C, S = rows.shape[0], species.n_species
     mass_np = species.mass.double().cpu().numpy()
     cellpos = _cell_positions(cell, cfg)
     copy_stream = torch.cuda.Stream(dev) if cuda else None
@@ -1180,12 +1307,9 @@ def _drain_event_range(rows, layout, tables, species, cell, cfg, seed: int,
                                f"hadrons exceeds the slot capacity {n_cap}")
         if cuda:     # a blocking copy would wait for the queued batch
             counts = counts.pin_memory().to(dev, non_blocking=True)
-        out = event_batch(rows, layout, tables, species, counts, seed, start,
-                          n_cap, cfg)
-        packed, per_event = pack_batch(out, cfg, S, C, cap)
-        small = torch.stack([per_event.sum(dtype=torch.int64),
-                             out["ok"].sum(dtype=torch.int64),
-                             out["rounds"].sum(dtype=torch.int64)])
+        packed, per_event, small = event_batch_packed(
+            rows, layout, tables, species, counts, seed, start, n_cap, cfg,
+            cap)
         item = dict(start=start, b=b, cap=cap, packed=packed)
         if cuda:
             item["per_event"] = torch.empty(b, dtype=torch.int32,

@@ -1331,8 +1331,10 @@ def sample_edge_seen(case: str, inp: dict, out: dict) -> str:
 def alias_edge_weights(dtype=torch.float64, device="cpu") -> dict:
     """Weight matrices for K7a (kernels/sample.py:alias_tables_cuda):
     zero rows, one nonzero entry, flat rows, a 1e12 dynamic range with
-    60 % zeros, and the main path's shapes (rows of 320 species, blocks of
-    512 cells, one row of 256 blocks)."""
+    60 % zeros, rows of few distinct values (ties the sort keeps in index
+    order), the main path's shapes (rows of 320 species, blocks of 512
+    cells, one row of 256 blocks), and rows of 9000 entries, too long for
+    the kernel's shared memory (a group row of a 4.6M-cell surface)."""
     rng = np.random.default_rng(3)
     mixed = rng.lognormal(0.0, 4.0, (64, 37)) * (rng.random((64, 37)) > 0.6)
     mixed[0] = 0.0
@@ -1342,10 +1344,12 @@ def alias_edge_weights(dtype=torch.float64, device="cpu") -> dict:
     mixed[3, :] = 1e-12
     mixed[3, 7] = 1.0
     cases = dict(mixed=mixed, k1=rng.random((5, 1)), k2=rng.random((9, 2)),
+                 ties=rng.integers(0, 4, (40, 77)).astype(float),
                  species=rng.gamma(0.3, 1.0, (4096, 320)),
                  blocks=rng.gamma(2.0, 1.0, (256, 512)) * (rng.random(
                      (256, 512)) > 0.1),
-                 groups=rng.gamma(5.0, 1.0, (1, 256)))
+                 groups=rng.gamma(5.0, 1.0, (1, 256)),
+                 long=rng.gamma(0.5, 1.0, (2, 9000)))
     return {k: torch.as_tensor(v, dtype=dtype, device=device)
             for k, v in cases.items()}
 

@@ -4,7 +4,8 @@ C, C, B, A).
 
     python -m is3d_tpu_torch.tools.ab_spectra ROOT_A ROOT_B [ROOT_C ...]
         [--cells N]
-        [--cases 3d_df2,3d_df1,2d_fixed,2d_remap,bin,dndx,proto,decays]
+        [--cases 3d_df2,3d_df1,2d_fixed,2d_remap,bin,dndx,proto,decays,
+                 alias,sample]
 
 Each turn runs a fresh interpreter that imports ``is3d_tpu_torch`` from
 that root (building its kernels into that root's _build/) and, per case:
@@ -36,7 +37,21 @@ that root (building its kernels into that root's _build/) and, per case:
   running spectra before the next wave; timed as the spectra cases, one
   entry a (dimension, dtype, wave, body) (``decays_w0_3body`` the 3+1D
   float32 ones, ``decays_2d_float64_w0_3body`` the others); the float32
-  entries' difference from the float64 kernel on the same launch.
+  entries' difference from the float64 kernel on the same launch;
+* ``alias`` and ``sample``, the sampler on the surface of chip_smoke.py's
+  [sample main 2d] run (``testing.write_synthetic_run_dir``: 131072 2+1D
+  cells, 320 species, seed 0; df 2 with shear + bulk, float32, oversampled
+  to 1.5e6 hadrons, sampler_seed 17), written once into a temporary
+  directory: ``alias`` times the species table's alias phase through that
+  side's ``alias_build`` on its (131072, 320) weights (torch's scaling and
+  stable sort and K7a before the sort moved into K7a; the scaling and K7a
+  after); ``sample``
+  times one batch of the main path's shape (its events per batch, slot
+  and packed capacities, seed 17, events 0..B-1) through that side's
+  dispatch path: K7's packed mode (``event_batch_packed``) where the side
+  has it, else the per-slot kernel and ``pack_batch``; its sum is that of
+  the kept hadrons' px.  Both time 5 calls queued behind a device-side
+  sleep, as ``bin`` does: the device's time, not the host's enqueue.
 
 The report is one JSON line per turn (median, runs, output sum and the
 float32 output's largest difference from the same side's float64 kernel,
@@ -56,7 +71,7 @@ import subprocess
 import sys
 
 CASES = ("3d_df2", "3d_df1", "2d_fixed", "2d_remap", "bin", "dndx", "proto",
-         "decays")
+         "decays", "alias", "sample")
 
 _TURN = r"""
 import json, statistics, sys
@@ -94,7 +109,27 @@ def timed(fn, inner=1):
     return statistics.median(times), times, float(out.double().sum())
 
 
+# the [sample main 2d] surface's config, species and cell data
+def sampler_surface():
+    import tempfile
+    from is3d_tpu_torch.api import IS3D
+    from is3d_tpu_torch.kernels import sample
+    run_dir = tempfile.mkdtemp()
+    testing.write_synthetic_run_dir(run_dir, 131072, 320, dimension=2,
+                                    seed=0)
+    cfg = Config(operation=2, mode=1, dimension=2, df_mode=2,
+                 precision="f32", include_shear_deltaf=1,
+                 include_bulk_deltaf=1, regulate_deltaf=1, outflow=1,
+                 oversample=1, min_num_hadrons=1500000, sampler_seed=17)
+    run = IS3D(cfg, data_dir=run_dir, device="cuda")
+    _, df_data, species, _, _ = run._prepare()
+    cell = sample.build_cell_data(run.surface, species, df_data, cfg,
+                                  run.plasma())
+    return cfg, sample._cast_floats(species, dt), cell
+
+
 report = {"root": sys.argv[1]}
+surface = None
 for case in cases:
     if case in SPECTRA:
         dim, df, remap = SPECTRA[case]
@@ -183,6 +218,41 @@ for case in cases:
                         "ms": ms, "runs": runs, "sum": total, "err_f64": err}
                     decays.decay_wave_cuda(tables, tasks, wg, acc)
         continue
+    elif case in ("alias", "sample"):
+        from is3d_tpu_torch.kernels import rng, sample
+        surface = surface or sampler_surface()
+        cfg, species, cell = surface
+        dn = cell["dn_list"]
+        if case == "alias":
+            ms, runs, total = timed(lambda: sample.alias_build(dn)[0],
+                                    inner=5)
+            err = None
+        else:
+            tables = sample.build_alias_tables(dn, cell["dn_tot"])
+            rows, layout = sample.pack_rows(cell, cfg)
+            lam = float(cell["dn_tot"].sum())
+            ntot = abs(sample._total_yield(cell, cfg))
+            n_cap = sample._slot_capacity(lam)
+            B = sample._batch_width(sample._oversample_nevents(None, ntot,
+                                                               cfg), n_cap)
+            cap = sample._packed_capacity(B, min(ntot, lam) or lam, n_cap)
+            counts = torch.as_tensor(rng.poisson_counts(17, range(B), lam),
+                                     dtype=torch.int32, device=dev)
+            S, C = species.mass.shape[0], rows.shape[0]
+            if hasattr(sample, "event_batch_packed"):
+                go = lambda: sample.event_batch_packed(
+                    rows, layout, tables, species, counts, 17, 0, n_cap, cfg,
+                    cap)
+            else:
+                go = lambda: (lambda p, e: (p, e, None))(*sample.pack_batch(
+                    sample.event_batch_cuda(rows, layout, tables, species,
+                                            counts, 17, 0, n_cap, cfg),
+                    cfg, S, C, cap))
+            ms, runs, _ = timed(lambda: go()[1], inner=5)
+            packed, per_event, _ = go()
+            kept = int(per_event.sum())
+            total = float(packed["px"][:min(kept, cap)].double().sum())
+            err = None
     else:
         cfg = Config(operation=0, mode=1, dimension=2)
         surf = testing.synthetic_surface(8192, 2, seed=2, dtype=dt,

@@ -2,14 +2,17 @@
 dispatch takes the plain versions and never loads a kernel; the wrappers
 refuse CPU tensors; the edge inputs (is3d_tpu_torch.testing's
 SAMPLE_EDGES, alias_edge_weights, cascade_edge_inputs) are what they
-claim; and, on a CUDA card (gpu-marked), K7, K7a and K8 against their
-plain versions on those inputs.
+claim; the packed plain version is pack_batch of the per-slot one; the
+interleaved (prob, alias) tables' views; and, on a CUDA card
+(gpu-marked), K7 (per-slot and packed), K7a and K8 against their plain
+versions on those inputs.
 
 On the GPU: python -m pytest tests/test_torch_sample_kernels.py -m gpu
 --noconftest (the conftest imports jax).  Tolerances: K7a identical
 tables; K7 slot by slot, f64 with no flipped decision (acceptance,
-rounds, keep) and rtol 1e-10 / atol 1e-13 x max, f32 with at most 0.2 %
-of slots flipped and rtol 2e-4 / atol 2e-5 x max on the rest; K8 the same
+rounds, keep) and rtol 1e-10 / atol 1e-13 x max, f32 with at most 1e-4
+of the slots flipped and rtol 2e-4 / atol 2e-5 x max on the rest; K7's
+packed mode bit for bit pack_batch of its per-slot output; K8 the same
 daughters, f64 rtol 1e-10, f32 rtol 2e-4.
 """
 
@@ -24,7 +27,7 @@ from is3d_tpu_torch.native import build
 torch.set_num_threads(1)
 
 TOL = {torch.float32: (2e-4, 2e-5), torch.float64: (1e-10, 1e-13)}
-FLIPS = {torch.float32: 2e-3, torch.float64: 0.0}
+FLIPS = {torch.float32: 1e-4, torch.float64: 0.0}
 
 
 @pytest.fixture
@@ -39,10 +42,11 @@ def test_cpu_dispatch_never_loads_a_kernel(monkeypatch):
         raise AssertionError(f"loaded {name} on the CPU path")
     monkeypatch.setattr(build, "cuda_library", refuse)
     inp = testing.sample_edge_inputs("2d_df2", n_cells=128)
-    out = sample.event_batch(inp["rows"], inp["layout"], inp["tables"],
-                             inp["species"], inp["counts"], 5, 0,
-                             inp["n_cap"], inp["cfg"])
-    assert out["keep"].shape == (4, inp["n_cap"])
+    packed, per_event, small = sample.event_batch_packed(
+        inp["rows"], inp["layout"], inp["tables"], inp["species"],
+        inp["counts"], 5, 0, inp["n_cap"], inp["cfg"], 4 * inp["n_cap"])
+    assert per_event.shape == (4,) and int(small[0]) == int(per_event.sum())
+    assert packed["px"].shape == (4 * inp["n_cap"],)
     c = testing.cascade_edge_inputs(n=50)
     n = mc_decays.run_cascade(c["state"], c["n0"], c["dev_tabs"], c["key"],
                               c["tabs"].n_passes)
@@ -55,11 +59,20 @@ def test_wrappers_refuse_cpu_tensors():
         sample.event_batch_cuda(inp["rows"], inp["layout"], inp["tables"],
                                 inp["species"], inp["counts"], 5, 0,
                                 inp["n_cap"], inp["cfg"])
-    qs, order = sample.alias_sort(torch.rand(3, 5, dtype=torch.float64))
     with pytest.raises(ValueError, match="needs CUDA"):
-        sample.alias_tables_cuda(qs, order)
-    with pytest.raises(ValueError, match="int32"):
-        sample.alias_tables_cuda(qs, order.long())
+        sample.event_batch_packed_cuda(
+            inp["rows"], inp["layout"], inp["tables"], inp["species"],
+            inp["counts"], 5, 0, inp["n_cap"], inp["cfg"], 100)
+    bad = dict(inp["tables"], sp_alias=inp["tables"]["sp_alias"].long())
+    with pytest.raises(ValueError, match="sp table"):
+        sample.event_batch_cuda(inp["rows"], inp["layout"], bad,
+                                inp["species"], inp["counts"], 5, 0,
+                                inp["n_cap"], inp["cfg"])
+    q0 = sample.alias_scale(torch.rand(3, 5, dtype=torch.float64))
+    with pytest.raises(ValueError, match="needs CUDA"):
+        sample.alias_tables_cuda(q0)
+    with pytest.raises(ValueError, match="float32 or float64"):
+        sample.alias_tables_cuda(q0.to(torch.float16))
     c = testing.cascade_edge_inputs(n=20)
     with pytest.raises(ValueError, match="needs CUDA"):
         mc_decays.cascade_pass_cuda(c["state"], c["n0"], c["dev_tabs"],
@@ -75,6 +88,82 @@ def test_sample_edge_inputs_are_what_they_claim(case):
         inp["n_cap"], inp["cfg"])
     testing.sample_edge_seen(case, inp, out)
     assert not out["keep"][2].any() and int(out["ok"][3].sum()) <= 1
+
+
+def packed_equal(got, want, n: int):
+    """The first n entries of two packed dicts, bit for bit."""
+    bits = lambda t: t.view(torch.int16) if t.dtype == torch.float16 else t
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        assert torch.equal(bits(got[k][:n]), bits(want[k][:n])), k
+
+
+@pytest.mark.parametrize("case", sorted(testing.SAMPLE_EDGES))
+def test_packed_plain_is_pack_batch_of_the_slots(case):
+    """event_batch_packed_plain: pack_batch of event_batch_plain field for
+    field, its per-event counts and (kept, accepted, proposed) totals;
+    and past its capacity the first cap hadrons with the counts exact."""
+    inp = testing.sample_edge_inputs(case, torch.float32, n_cells=256)
+    cfg = inp["cfg"].replace(precision="f32")       # f16 momenta
+    src = lambda: sample.PhiloxSource(inp["seed"], inp["ev0"], torch.float32)
+    out = sample.event_batch_plain(inp["rows"], inp["tables"], inp["species"],
+                                   inp["counts"], src(), inp["n_cap"], cfg)
+    kept = int(out["keep"].sum())
+    C, S = inp["rows"].shape[0], inp["species"].mass.shape[0]
+    for cap in (4 * inp["n_cap"], kept // 2):
+        want, want_events = sample.pack_batch(out, cfg, S, C, cap)
+        packed, per_event, small = sample.event_batch_packed_plain(
+            inp["rows"], inp["tables"], inp["species"], inp["counts"], src(),
+            inp["n_cap"], cfg, cap)
+        packed_equal(packed, want, min(kept, cap))
+        assert torch.equal(per_event, want_events)
+        assert small.tolist() == [kept, int(out["ok"].sum()),
+                                  int(out["rounds"].sum())]
+        assert packed["px"].dtype == torch.float16
+    assert 0 < kept // 2 < kept
+
+
+def test_pair_table_views_equal_the_plain_tables():
+    """The interleaved (prob, alias) table: its views read back the plain
+    pass's tables; built from such views it is their storage, no copy;
+    from separate tables a copy."""
+    for dtype in (torch.float32, torch.float64):
+        w = testing.alias_edge_weights(dtype)["mixed"]
+        prob, alias = sample.alias_tables_plain(*sample.alias_sort(w))
+        pairs = sample.pair_table(prob, alias)
+        assert pairs.shape == prob.shape + (2,) and pairs.dtype == dtype
+        p, a = sample._pair_views(pairs)
+        assert torch.equal(p, prob) and torch.equal(a, alias)
+        again = sample.pair_table(p, a)
+        assert again.data_ptr() == pairs.data_ptr()
+        assert torch.equal(again, pairs)
+        words = pairs.view(torch.int32).reshape(-1, 2 * dtype.itemsize // 4)
+        assert torch.equal(words[:, dtype.itemsize // 4], alias.reshape(-1))
+
+
+def test_formula_counts_one_gather_a_pick():
+    """sample_formula_ops: a pick gathers one (prob, alias) entry, so a
+    table larger than L2 costs one 32-byte sector a valid slot; packed
+    mode's output is its packed bytes."""
+    rows = torch.zeros((4096, 40), dtype=torch.float32)
+    big = (6_600_000, 2)        # 52.8 MB of (prob, alias) entries
+    tables = dict(grp_prob=torch.zeros(1, 8), grp_alias=torch.zeros(
+        (1, 8), dtype=torch.int32), blk_prob=torch.zeros(8, 512),
+        blk_alias=torch.zeros((8, 512), dtype=torch.int32),
+        sp_prob=torch.empty(big), sp_alias=torch.empty(big,
+                                                       dtype=torch.int32))
+    ops = sample.sample_formula_ops(1000, 900, 1500, rows, tables,
+                                    out_bytes=0)
+    assert ops["bytes"] == (min(rows.nbytes, 32 * 900 * 5) + 64
+                            + min(8 * 4096, 32 * 900) + 32 * 900)
+    assert ops["mulhi"] == 20 * 2 * (900 + 1500)
+    per_slot = sample.sample_formula_ops(1000, 900, 1500, rows, tables)
+    assert per_slot["bytes"] - ops["bytes"] == 1000 * (2 + 12 + 16)
+    packed = dict(scidx=torch.zeros(50, dtype=torch.int32),
+                  px=torch.zeros(50, dtype=torch.float16))
+    assert sample.packed_bytes(packed, 40, 3) == 40 * 6 + 12 + 24
+    assert sample.packed_bytes(packed, 80, 3) == 50 * 6 + 12 + 24
 
 
 def realized_pmf(prob, alias):
@@ -150,11 +239,37 @@ def test_event_kernel_matches_plain_on_gpu(cuda_card, case, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", sorted(testing.SAMPLE_EDGES))
+def test_packed_kernel_matches_pack_batch_on_gpu(cuda_card, case, dtype):
+    """K7's packed mode bit for bit pack_batch of its per-slot output, at a
+    capacity above the kept hadrons and at half of them; two launches
+    identical."""
+    inp = testing.sample_edge_inputs(case, dtype, "cuda")
+    cfg = inp["cfg"].replace(precision="f32" if dtype == torch.float32
+                             else "f64")
+    args = (inp["rows"], inp["layout"], inp["tables"], inp["species"],
+            inp["counts"], inp["seed"], inp["ev0"], inp["n_cap"], cfg)
+    out = sample.event_batch_cuda(*args)
+    kept = int(out["keep"].sum())
+    C, S = inp["rows"].shape[0], inp["species"].mass.shape[0]
+    for cap in (4 * inp["n_cap"], kept // 2):
+        want, want_events = sample.pack_batch(out, cfg, S, C, cap)
+        got = sample.event_batch_packed_cuda(*args, cap)
+        again = sample.event_batch_packed_cuda(*args, cap)
+        torch.cuda.synchronize()
+        packed_equal(got[0], want, min(kept, cap))
+        packed_equal(again[0], got[0], min(kept, cap))
+        assert torch.equal(got[1], want_events)
+        assert got[2].tolist() == [kept, int(out["ok"].sum()),
+                                   int(out["rounds"].sum())]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_alias_kernel_matches_plain_on_gpu(cuda_card, dtype):
     for name, w in testing.alias_edge_weights(dtype, "cuda").items():
-        qs, order = sample.alias_sort(w)
-        got = sample.alias_tables_cuda(qs.clone(), order)
-        want = sample.alias_tables_plain(qs, order)
+        got = sample.alias_tables_cuda(sample.alias_scale(w))
+        want = sample.alias_tables_plain(*sample.alias_sort(w))
         for g, x in zip(got, want):
             assert torch.equal(g, x), name
 

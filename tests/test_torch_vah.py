@@ -384,3 +384,26 @@ def test_vah_cli_results_match_jax(tmp_path, name):
                                    atol=1e-6 * np.abs(va).max(), err_msg=rel)
     assert not os.path.exists(os.path.join(
         run_dir, "average_thermodynamic_quantities.dat"))
+
+
+def test_mode3_baryon_outside_the_vh_table_matches_jax(tmp_path):
+    """A mode-3 surface with include_baryon = 1 whose muB lies outside the
+    VH δf table's grid: both packages run it (VAH never reads that table,
+    so neither checks the range there) and agree at the f64 bar."""
+    run_dir = testing.write_synthetic_run_dir(
+        str(tmp_path / "run"), 24, 7, 3, seed=9, mode=3,
+        params=dict(include_baryon=1))
+    path = os.path.join(run_dir, "input", "surface.dat")
+    m = np.loadtxt(path)
+    hbarc = 0.197327053
+    muB = np.linspace(0.9, 1.2, m.shape[0]) / hbarc      # table: [0, 0.8]
+    np.savetxt(path, np.concatenate(
+        [m, muB[:, None], np.full((m.shape[0], 1), 0.05)], axis=1),
+        fmt="%.10e")
+    ref = JIS3D.from_run_dir(run_dir, results_dir=str(tmp_path / "jax"))
+    want = ref.run_particlization(write_files=False)
+    port = IS3D.from_run_dir(run_dir, device="cpu")
+    got = port.run_particlization(write_files=False)
+    assert port.cfg.include_baryon and port.cfg.mode == 3
+    assert float(port.surface.muB.min()) > 0.8
+    assert_close(got.spectra, want.spectra)

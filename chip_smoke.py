@@ -63,8 +63,11 @@ Phases, each printing its own line(s):
    events; [alias small]: K7a on testing.alias_edge_weights (rows too long
    for its shared memory too), tables identical to the plain version's;
    [cascade small]: K8 on
-   testing.cascade_edge_inputs, the same daughters and lineage words, and
-   its two guards (capacity, a table short of a pass);
+   testing.cascade_edge_inputs (4 and testing.WIDE_CHANNELS channels a
+   species), f32 and f64: the same daughters and lineage words,
+   one launch a pass queued with no host sync (set_sync_debug_mode
+   "error"), two runs bit-identical, and its two guards (capacity, a table
+   short of a pass);
 4. operation 1 main path: a synthetic 131072-cell x 320-species 3+1D
    mode-1 run directory through ``is3d_tpu_torch.cli.main`` (df 2, shear +
    bulk, regulate, outflow, f32, native 32 x 24 x 21 grid), then the same
@@ -163,9 +166,11 @@ Phases, each printing its own line(s):
    at full width and a 16384-slot batch against its plain version;
    [sample decays]
    the same run on the decaying list with do_resonance_decays = 1 (K8
-   once a pass, stable hadrons only) and its small runs; [cascade pair]
-   K8 pass by pass on two sampled events against its plain version and
-   its bound (kernels/mc_decays.py, cascade_formula_ops).
+   once a pass, stable hadrons only; the MC-decay phase's split: upload,
+   lookup, cascade, regroup, download) and its small runs; [cascade pair]
+   K8 pass by pass on that run's events against its plain version and
+   its bound (kernels/mc_decays.py, cascade_formula_ops), each pass's
+   device time and the whole cascade as one call.
 
 Depth cut to keep the run near ten minutes: [pair], [remap pair] and
 [dndx pair] hold the kernel to its plain version on the group's first
@@ -2277,43 +2282,73 @@ def phase_small_alias():
               "identical to the plain version's, two launches bit-identical")
 
 
+@contextlib.contextmanager
+def _no_host_sync():
+    """Any operation that makes the host wait on the card raises inside."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
 def phase_small_cascade():
     """[cascade small]: K8 against cascade_plain on
     testing.cascade_edge_inputs (3000 hadrons of the 60-species decaying
-    list, every pass), f32 and f64: the same daughters and lineage words,
-    momenta and vertices within the tolerance, two runs bit-identical;
-    then the guards: a capacity too small raises, and a table short of a
-    pass leaves unstable hadrons, which decay_events refuses."""
+    list, every pass), f32 and f64, on its tables (4 channels a species)
+    and on them widened to testing.WIDE_CHANNELS, as real PDG lists are:
+    the same daughters and lineage words, momenta and
+    vertices within the tolerance, two runs bit-identical, one launch a
+    pass queued with no host sync (set_sync_debug_mode("error")) and one
+    read at the end; then the guards: a capacity too small raises, and a
+    table short of a pass leaves unstable hadrons, which decay_events
+    refuses."""
     from is3d_tpu_torch import testing
     from is3d_tpu_torch.kernels import mc_decays
     for dtype in (torch.float32, torch.float64):
-        runs = [testing.cascade_edge_inputs(dtype, "cuda") for _ in range(3)]
-        a = runs[0]
-        na = mc_decays.cascade_plain(a["state"], a["n0"], a["dev_tabs"],
-                                     a["key"], a["tabs"].n_passes)
-        nb, nc = (mc_decays.run_cascade(r["state"], r["n0"], r["dev_tabs"],
-                                        r["key"], r["tabs"].n_passes)
-                  for r in runs[1:])
-        torch.cuda.synchronize()
-        b, c = runs[1]["state"], runs[2]["state"]
-        if not na == nb == nc:
-            fail(f"[cascade small] {dtype}: {na}, {nb}, {nc} hadrons")
-        for k in ("sidx", "eid", "lin") + mc_decays.STATE_FLOATS:
-            if not torch.equal(b[k][:nb], c[k][:nb]):
-                fail(f"[cascade small] {dtype}: two runs differ in {k}")
-        for k in ("sidx", "eid", "lin"):
-            if not torch.equal(a["state"][k][:na], b[k][:na]):
-                fail(f"[cascade small] {dtype}: {k} differ from the plain "
-                     "version's")
-        err = max(_check(f"[cascade small] {str(dtype)[6:]} {k}", b[k][:na],
-                         a["state"][k][:na], *TOL[dtype])
-                  for k in mc_decays.STATE_FLOATS)
-        stable = a["tabs"].stable[b["sidx"][:nb].cpu().numpy()].all()
-        print(f"[cascade small] {str(dtype)[6:]}: {a['n0']} hadrons -> {nb} "
-              f"in {a['tabs'].n_passes} passes, all stable {stable}, max err "
-              f"{err:.2e}; two runs bit-identical")
-        if not stable:
-            fail("[cascade small] unstable hadrons left")
+        for channels in (None, testing.WIDE_CHANNELS):
+            runs = [testing.cascade_edge_inputs(dtype, "cuda",
+                                                channels=channels)
+                    for _ in range(3)]
+            a = runs[0]
+            n_passes = a["tabs"].n_passes
+            na = mc_decays.cascade_plain(a["state"], a["n0"], a["dev_tabs"],
+                                         a["key"], n_passes)
+            ns = []
+            for r in runs[1:]:
+                mc_decays.LAUNCHES = 0
+                with _no_host_sync():
+                    counts = mc_decays.launch_cascade(
+                        r["state"], r["n0"], r["dev_tabs"], r["key"],
+                        n_passes)
+                if mc_decays.LAUNCHES != n_passes:
+                    fail(f"[cascade small] {mc_decays.LAUNCHES} launches for "
+                         f"{n_passes} passes")
+                ns.append(mc_decays.final_count(counts,
+                                                r["state"]["E"].shape[0]))
+            nb, nc = ns
+            torch.cuda.synchronize()
+            b, c = runs[1]["state"], runs[2]["state"]
+            tag = (f"[cascade small] {str(dtype)[6:]} "
+                   f"{a['tabs'].cum.shape[1]} channels")
+            if not na == nb == nc:
+                fail(f"{tag}: {na}, {nb}, {nc} hadrons")
+            for k in ("sidx", "eid", "lin") + mc_decays.STATE_FLOATS:
+                if not torch.equal(b[k][:nb], c[k][:nb]):
+                    fail(f"{tag}: two runs differ in {k}")
+            for k in ("sidx", "eid", "lin"):
+                if not torch.equal(a["state"][k][:na], b[k][:na]):
+                    fail(f"{tag}: {k} differ from the plain version's")
+            err = max(_check(f"{tag} {k}", b[k][:na], a["state"][k][:na],
+                             *TOL[dtype])
+                      for k in mc_decays.STATE_FLOATS)
+            stable = a["tabs"].stable[b["sidx"][:nb].cpu().numpy()].all()
+            print(f"{tag} {tuple(a['tabs'].cum.shape)}: {a['n0']} hadrons -> "
+                  f"{nb} in {n_passes} passes ({n_passes} launches, no host "
+                  f"sync between them), all stable {stable}, max err "
+                  f"{err:.2e}; two runs bit-identical")
+            if not stable:
+                fail("[cascade small] unstable hadrons left")
 
     small = testing.cascade_edge_inputs(torch.float32, "cuda", n=64)
     st = {k: v[:small["n0"]].clone() for k, v in small["state"].items()}
@@ -2427,8 +2462,10 @@ def phase_sample_main(smi: str, name: str, args, decays=False):
           + (f"MC decays {phases['MC resonance decays']:.3f} s "
              f"({info['decays']['hadrons_in']} unstable -> "
              f"{info['decays']['hadrons_out']} in {info['decays']['passes']} "
-             f"passes, capacity {info['decays']['capacity']}), "
-             if decays else "")
+             f"passes, capacity {info['decays']['capacity']}; "
+             + ", ".join(f"{k} {v:.4f}" for k, v in
+                         info["decays"]["timings"].items())
+             + "), " if decays else "")
           + f"writers {phases['writers']:.3f} s, wall {wall:.3f} s | "
           f"{n_ev} events ({info['batches']} batches of "
           f"{info['events_per_batch']}, {info['reruns']} reruns, n_cap "
@@ -2602,13 +2639,37 @@ def phase_sample_pair(smi: str, clock: float, run_dir: str, cfg,
     return rec_k7, rec_k7a
 
 
+def _restored(work: dict, snap: dict, n: int):
+    """``fn`` that copies the first ``n`` slots of ``snap`` over ``work``
+    (all a K8 pass reads; it writes only those and slots past n)."""
+    dst = [work[k][:n] for k in snap]
+    src = [snap[k][:n] for k in snap]
+    return lambda: torch._foreach_copy_(dst, src)
+
+
+def _queued_less(fn, restore) -> float:
+    """Device ms of ``fn`` run after ``restore``: both queued (5 calls
+    behind a device-side sleep, median of 5), less ``restore`` alone."""
+    from is3d_tpu_torch.utils import cuda_queued_ms
+    both, _ = cuda_queued_ms(lambda: (restore(), fn()), inner=5, n=5)
+    alone, _ = cuda_queued_ms(restore, inner=5, n=5)
+    return both - alone
+
+
 def phase_cascade_pair(smi: str, clock: float, run_dir: str, cfg):
-    """[cascade pair]: K8 pass by pass on the unstable hadrons of two
-    sampled events of the [sample decays] surface (f32): each pass timed
-    (CUDA events, median of 3, on a copy of the state the pass starts
-    from) beside its bound (kernels/mc_decays.py:cascade_formula_ops) and
-    held against its plain version on the same state (one timed run).
-    Returns K8's kernel record (the pass with the most decays)."""
+    """[cascade pair]: K8 pass by pass on the unstable hadrons of the
+    [sample decays] run's events (the same 2 events, seed 17; f32), each
+    pass on a copy of the state it starts from: its device time (the
+    launch queued behind a restore of the state, less the restore alone;
+    utils.cuda_queued_ms) beside its bound
+    (kernels/mc_decays.py:cascade_formula_ops), CUDA events around one
+    call of the one-pass entry (the earlier method, the host's enqueue and
+    the count's read included), and the plain version on the same state
+    (one timed run; the same daughters and lineage words, floats within
+    TOL).  Then the whole cascade: one run_cascade call (every pass
+    queued, one read) under CUDA events, its passes' device time, one
+    launch a pass.  Returns K8's kernel record (the pass with the most
+    decays)."""
     from is3d_tpu_torch.api import IS3D
     from is3d_tpu_torch.kernels import mc_decays, rng, sample
     run = IS3D(cfg, data_dir=run_dir, device="cuda")
@@ -2618,31 +2679,32 @@ def phase_cascade_pair(smi: str, clock: float, run_dir: str, cfg):
     inp = mc_decays.cascade_inputs(events, table, cfg.lightest_particle,
                                    mc_decays.derive_decay_seed(17),
                                    device="cuda")
-    st, n, tabs = inp["state"], inp["n0"], inp["tabs"]
+    st, n0, tabs = inp["state"], inp["n0"], inp["tabs"]
+    dev_tabs, key = inp["dev_tabs"], inp["key"]
     C = st["E"].shape[0]
-    table_bytes = sum(t.nbytes for t in inp["dev_tabs"].values())
-    scratch = dict(extra=torch.empty(C, dtype=torch.int32, device="cuda"),
-                   ch=torch.empty(C, dtype=torch.int32, device="cuda"))
-    best = None
+    first = {k: v.clone() for k, v in st.items()}
+    table_bytes = sum(t.nbytes for t in dev_tabs.values())
+    work = {k: v.clone() for k, v in st.items()}
+    counts, scratch = mc_decays.cascade_buffers(C, 1, n0, "cuda")
+    go = mc_decays.pass_launcher(work, dev_tabs, key, counts, scratch)
+    best, n, bound_all = None, n0, 0.0
     for p in range(tabs.n_passes):
         snap = {k: v.clone() for k, v in st.items()}
+
+        restore = _restored(work, snap, n)
+        ms = _queued_less(lambda: go(0, n), lambda: (
+            restore(), counts.fill_(n), scratch.zero_()))
         times = []
         for _ in range(3):
             s = {k: v.clone() for k, v in snap.items()}
-            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            t0.record()
-            n_new = mc_decays.cascade_pass_cuda(s, n, inp["dev_tabs"],
-                                                inp["key"], scratch)
-            t1.record()
-            t1.synchronize()
-            times.append(t0.elapsed_time(t1))
-        ms = float(np.median(times))
+            n_new, t = _timed_once(lambda: mc_decays.cascade_pass_cuda(
+                s, n, dev_tabs, key))
+            times.append(t)
         plain = {k: v.clone() for k, v in snap.items()}
         lin = plain["lin"][:n]
         n_plain, plain_ms = _timed_once(lambda: mc_decays.cascade_pass_plain(
-            plain, n, inp["dev_tabs"],
-            rng.decay_uniforms(inp["key"], lin, torch.float32),
-            tuple(rng.child_lineage(inp["key"], lin, j) for j in (1, 2, 3))))
+            plain, n, dev_tabs, rng.decay_uniforms(key, lin, torch.float32),
+            tuple(rng.child_lineage(key, lin, j) for j in (1, 2, 3))))
         if n_plain != n_new:
             fail(f"[cascade pair] pass {p}: {n_new} hadrons, plain {n_plain}")
         for k in ("sidx", "eid", "lin"):
@@ -2651,23 +2713,52 @@ def phase_cascade_pair(smi: str, clock: float, run_dir: str, cfg):
         err = max(_check(f"[cascade pair] pass {p} {k}", s[k][:n_new],
                          plain[k][:n_new], *TOL[torch.float32])
                   for k in mc_decays.STATE_FLOATS)
-        n_dec = int((inp["dev_tabs"]["stable"][st["sidx"][:n].long()]
-                     == 0).sum())
+        n_dec = int((dev_tabs["stable"][st["sidx"][:n].long()] == 0).sum())
         ops = mc_decays.cascade_formula_ops(n, n_dec, n_new - n, 4,
                                             table_bytes)
         bound = _sample_bound(ops, clock)
+        bound_all += bound[0]
+        events_ms = float(np.median(times))
         print(f"[cascade pair] {smi} | pass {p}: {n} live, {n_dec} decay, "
-              f"-> {n_new}: {ms:.3f} ms (runs "
+              f"-> {n_new}: {ms:.4f} ms on the device (events around one "
+              f"call {events_ms:.3f} ms, runs "
               f"{', '.join(f'{x:.3f}' for x in times)}), plain "
               f"{plain_ms:.3f} ms; bound {bound[0]:.4f} ms ({bound[1]}), "
               f"kernel at {bound[0] / ms:.1%} of it")
         if best is None or n_dec > best["decaying"]:
             best = dict(launches=None, max_abs_err=err, ms=ms,
                         plain_ms=plain_ms, bound_ms=bound[0],
-                        bound_by=bound[1], library_ms=None, pass_index=p,
+                        bound_by=bound[1], library_ms=None,
+                        ms_events_one_call=events_ms, pass_index=p,
                         live=n, decaying=n_dec)
-        n = mc_decays.cascade_pass_cuda(st, n, inp["dev_tabs"], inp["key"],
-                                        scratch)
+        st = s
+        n = n_new
+
+    # the whole cascade from the first state: one call, and on the device
+    def cascade():
+        s = {k: v.clone() for k, v in first.items()}
+        torch.cuda.synchronize()
+        mc_decays.LAUNCHES = 0
+        return _timed_once(lambda: mc_decays.run_cascade(
+            s, n0, dev_tabs, key, tabs.n_passes))
+    calls = [cascade() for _ in range(5)]
+    if mc_decays.LAUNCHES != tabs.n_passes or {c[0] for c in calls} != {n}:
+        fail(f"[cascade pair] the cascade: {mc_decays.LAUNCHES} launches, "
+             f"{sorted({c[0] for c in calls})} hadrons; expected "
+             f"{tabs.n_passes} and {n}")
+    cascade_ms = float(np.median([c[1] for c in calls]))
+    device_ms = _queued_less(
+        lambda: mc_decays.launch_cascade(work, n0, dev_tabs, key,
+                                         tabs.n_passes),
+        _restored(work, first, n0))
+    print(f"[cascade pair] {smi} | the cascade, {n0} -> {n} hadrons in "
+          f"{tabs.n_passes} passes ({tabs.n_passes} launches, one read): "
+          f"{cascade_ms:.4f} ms as one call (runs "
+          f"{', '.join(f'{c[1]:.3f}' for c in calls)}), {device_ms:.4f} ms "
+          f"on the device; bound {bound_all:.4f} ms, at "
+          f"{bound_all / device_ms:.1%} of the device time")
+    best.update(cascade_ms=cascade_ms, cascade_device_ms=device_ms,
+                cascade_bound_ms=bound_all)
     return best
 
 

@@ -27,9 +27,9 @@
 // (kernels/sample.py:event_batch_plain) is held to slot by slot.  Packed
 // mode compacts the kept hadrons in the same launch, as JAX's function
 // does: each tile counts its kept slots (ballots), takes its global offset
-// by a single-pass decoupled look-back over the tiles before it (integer
-// and exact; tiles are numbered in the order blocks start, so every
-// earlier tile is running or done), and writes the fields of
+// by a single-pass decoupled look-back over the tiles before it
+// (scan.cuh; integer and exact; tiles are numbered in the order blocks
+// start, so every earlier tile is running or done), and writes the fields of
 // kernels/sample.py:_pack_fields (f16 where _pack_f16 says) straight into
 // the (cap,) arrays, event-major; hadrons past cap are dropped while the
 // counts stay exact.  It adds the per-event kept counts and the ok and
@@ -76,8 +76,11 @@
 #include <cstdint>
 
 #include "philox.cuh"
+#include "scan.cuh"
 
 namespace {
+
+using namespace is3d_scan;
 
 constexpr int kMaxRounds = 256;
 constexpr int kThreads = 128;                 // K7: threads a block
@@ -415,47 +418,6 @@ struct TileSmem {
     list = reinterpret_cast<unsigned short*>(misc + 4);
   }
 };
-
-__device__ __forceinline__ unsigned lanemask_lt() {
-  unsigned m;
-  asm("mov.u32 %0, %%lanemask_lt;" : "=r"(m));
-  return m;
-}
-
-// inclusive sum over the warp
-__device__ __forceinline__ int warp_scan(int v, int lane) {
-#pragma unroll
-  for (int d = 1; d < 32; d *= 2) {
-    const int o = __shfl_up_sync(kFull, v, d);
-    if (lane >= d) v += o;
-  }
-  return v;
-}
-
-// the kept slots before this tile: single-pass decoupled look-back over
-// the state words (bits 62-63: 1 = the tile's own count is published, 2 =
-// its inclusive prefix; bits 0-31 the count), run by one thread
-__device__ unsigned long long look_back(unsigned long long* states, int tile,
-                                        unsigned long long agg) {
-  constexpr unsigned long long kAgg = 1ull << 62, kPre = 2ull << 62;
-  if (tile == 0) {
-    atomicExch(&states[0], kPre | agg);
-    return 0;
-  }
-  atomicExch(&states[tile], kAgg | agg);
-  unsigned long long excl = 0;
-  for (int j = tile - 1; j >= 0;) {
-    const unsigned long long v =
-        *reinterpret_cast<volatile unsigned long long*>(&states[j]);
-    const unsigned long long flag = v >> 62;
-    if (flag == 0) continue;             // tile j still running
-    excl += v & 0xffffffffull;
-    if (flag == 2) break;
-    --j;
-  }
-  atomicExch(&states[tile], kPre | (excl + agg));
-  return excl;
-}
 
 template <typename T>
 __device__ __forceinline__ void store_packed(void* p, int pos, T v, bool f16) {

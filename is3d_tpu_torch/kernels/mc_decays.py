@@ -14,9 +14,13 @@ decays one generation (``n_passes`` = the table's longest chain):
 * daughter 1 in the parent's slot, daughters 2-3 at n + exclusive-cumsum
   offsets in slot order, so the layout does not depend on thread timing.
 
-On the card a pass is kernel K8 (csrc/mc_decays.cu: a decide launch, the
-cumsum, a write launch), one thread a live hadron; ``cascade_pass_plain``
-is its plain version.
+On the card a pass is one launch of kernel K8 (csrc/mc_decays.cu, a
+thread a live hadron, the daughters' slots by an in-kernel prefix sum) and
+the live count stays on the card: ``launch_cascade`` queues every pass,
+``run_cascade`` reads the counts once; ``cascade_pass_plain`` is its plain
+version.  ``decay_events`` keeps the events on the device between the host
+lists (upload, species lookup, cascade, regrouping by event, one copy
+back), as torch on the CPU too.
 
 Random numbers: the port's Philox lineage streams (kernels/rng.py).  Each
 hadron carries a 64-bit lineage word: a sampled hadron's is a hash of
@@ -32,6 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -46,7 +51,7 @@ KQ = 257          # inverse-CDF quantile nodes per 3-body channel
 _M23_GRID = 2048  # host-side CDF resolution
 DECAY_SEED_TAG = 0x6D63
 
-# kernel launches of K8: one per pass (a decide and a write launch)
+# kernel launches of K8: one a pass
 LAUNCHES = 0
 
 
@@ -340,15 +345,11 @@ def cascade_plain(st: dict, n0: int, tabs: dict, key, n_passes: int) -> int:
     return n
 
 
-def cascade_pass_cuda(st: dict, n: int, tabs: dict, key, scratch: dict
-                      ) -> int:
-    """K8 (csrc/mc_decays.cu): one generation of the first ``n`` hadrons,
-    a decide launch (channel, daughters-to-add), the exclusive cumsum of
-    the daughter counts, and a write launch (draws, kinematics, daughter 1
-    in place, daughters 2-3 at n + offset).  Returns the new live count."""
-    global LAUNCHES
+def _checked(st: dict, tabs: dict) -> int:
+    """K8's argument checks (dtypes, shapes, contiguity, then the device);
+    returns the state's capacity."""
     E = st["E"]
-    check_float("cascade_pass_cuda", E)
+    check_float("K8", E)
     C = E.shape[0]
     S, CH = tabs["cum"].shape
     for k in STATE_FLOATS:
@@ -363,45 +364,96 @@ def cascade_pass_cuda(st: dict, n: int, tabs: dict, key, scratch: dict
     for k in ("nd", "d1", "d2", "d3"):
         check_tensor(k, tabs[k], (S, CH), E, dtype=torch.int32)
     check_tensor("quant", tabs["quant"], (S, CH, KQ), E)
-    require_cuda("cascade_pass_cuda", E)
-    if n == 0:
-        return 0
+    require_cuda("K8", E)
+    return C
+
+
+def cascade_buffers(C: int, n_passes: int, n0: int, device) -> tuple:
+    """The live counts (n_passes + 1,), each n0 (pass p writes counts[p +
+    1] before pass p + 1 reads it; a fill, no copy from the host), and, a
+    row a pass, the tile counter and the look-back state words of every
+    tile of C slots, zeroed."""
+    tile = _library().is3d_cascade_tile()
+    counts = torch.full((n_passes + 1,), n0, dtype=torch.int32,
+                        device=device)
+    scratch = torch.zeros((n_passes, 1 + -(-C // tile)), dtype=torch.int64,
+                          device=device)
+    return counts, scratch
+
+
+def pass_launcher(st: dict, tabs: dict, key, counts, scratch):
+    """K8's arguments checked once for a cascade on ``st``: returns
+    ``go(p, n_upper)``, which queues pass p (csrc/mc_decays.cu,
+    pass_kernel: reads its live count from counts[p] on the card and
+    writes counts[p + 1]; its grid from ``n_upper``, a bound of that
+    count).  ``counts`` and ``scratch`` as ``cascade_buffers`` makes
+    them."""
+    C = _checked(st, tabs)
+    E = st["E"]
     lib = _library()
-    f64 = E.dtype == torch.float64
-    extra, ch = scratch["extra"][:n], scratch["ch"][:n]
-    k0, k1 = key
-    tab_ptrs = (tabs["mass"].data_ptr(), tabs["ctau"].data_ptr(),
-                tabs["stable"].data_ptr(), tabs["cum"].data_ptr(),
-                tabs["nd"].data_ptr(), tabs["d1"].data_ptr(),
-                tabs["d2"].data_ptr(), tabs["d3"].data_ptr(),
-                tabs["quant"].data_ptr(), S, CH)
-    launch(lib, "cascade decide",
-           lib.is3d_cascade_decide_f64 if f64 else lib.is3d_cascade_decide_f32,
-           E.device, st["sidx"].data_ptr(), st["lin"].data_ptr(), n,
-           *tab_ptrs, k0, k1, extra.data_ptr(), ch.data_ptr())
-    offs = torch.cumsum(extra, 0, dtype=torch.int32)
-    n_new = n + int(offs[-1])
-    if n_new > C:
-        raise RuntimeError(f"decay cascade overflow: {n_new} hadrons > "
+    n_passes = counts.shape[0] - 1
+    check_tensor("counts", counts, (n_passes + 1,), E, dtype=torch.int32)
+    check_tensor("scratch", scratch,
+                 (n_passes, 1 + -(-C // lib.is3d_cascade_tile())), E,
+                 dtype=torch.int64)
+    fn = (lib.is3d_cascade_pass_f64 if E.dtype == torch.float64
+          else lib.is3d_cascade_pass_f32)
+    head = (st["sidx"].data_ptr(), st["lin"].data_ptr(), st["eid"].data_ptr(),
+            *(st[k].data_ptr() for k in STATE_FLOATS), C)
+    tail = (*(tabs[k].data_ptr() for k in ("mass", "ctau", "stable", "cum",
+                                           "nd", "d1", "d2", "d3", "quant")),
+            *tabs["cum"].shape, *key)
+    row = scratch.stride(0) * 8
+
+    def go(p: int, n_upper: int):
+        global LAUNCHES
+        word = scratch.data_ptr() + p * row
+        launch(lib, "cascade pass", fn, E.device, *head, p,
+               counts.data_ptr(), word, word + 8, n_upper, *tail)
+        LAUNCHES += 1
+    return go
+
+
+def final_count(counts, C: int) -> int:
+    """The final live count from the passes' counts (one read from the
+    card); raises if a pass outgrew the capacity."""
+    host = counts.cpu().tolist()
+    over = [n for n in host if n > C]
+    if over:
+        raise RuntimeError(f"decay cascade overflow: {over[0]} hadrons > "
                            f"capacity {C} (worst-case bound violated)")
-    launch(lib, "cascade write",
-           lib.is3d_cascade_write_f64 if f64 else lib.is3d_cascade_write_f32,
-           E.device, st["sidx"].data_ptr(), st["lin"].data_ptr(),
-           st["eid"].data_ptr(), *(st[k].data_ptr() for k in STATE_FLOATS),
-           n, C, *tab_ptrs, k0, k1, extra.data_ptr(), ch.data_ptr(),
-           offs.data_ptr())
-    LAUNCHES += 1
-    return n_new
+    return host[-1]
+
+
+def launch_cascade(st: dict, n0: int, tabs: dict, key, n_passes: int):
+    """Queue the whole cascade on the card, one K8 launch a pass, with no
+    read from the card: pass p's grid is sized for min(C, 3^p n0) hadrons
+    and its live count is read on the card.  Returns the (n_passes + 1,)
+    int32 live counts, counts[0] = n0, still on the card."""
+    C = _checked(st, tabs)
+    counts, scratch = cascade_buffers(C, n_passes, n0, st["E"].device)
+    go = pass_launcher(st, tabs, key, counts, scratch)
+    for p in range(n_passes):
+        go(p, min(C, n0 * 3**p))
+    return counts
+
+
+def cascade_pass_cuda(st: dict, n: int, tabs: dict, key) -> int:
+    """K8 (csrc/mc_decays.cu) on one generation of the first ``n`` hadrons,
+    in place: one launch of pass_kernel, then a read of the new live
+    count.  The cascade's own path is ``launch_cascade``, which reads
+    nothing between passes.  Returns the new live count."""
+    C = _checked(st, tabs)
+    return final_count(launch_cascade(st, n, tabs, key, 1), C) if n else 0
 
 
 # K8's yardstick, counted from the formula: a decay draws 2 Philox blocks
-# in float32 (7 uniforms) and 4 in float64, plus 1 in the decide launch and
-# 3 for its daughters' lineage words, 20 multiply-highs a block; 13 special
-# functions (8 sqrts, 2 cos, 2 sin, a log1p); per live hadron the decide
-# launch reads its species and lineage (20 bytes) and writes two ints, a
-# decaying one gathers 8 sectors of tables (sample.gather_bytes: tables
-# that fit in L2 are read once) and reads its state, and every daughter's
-# state is written once
+# in float32 (7 uniforms) and 4 in float64, and 3 for its daughters'
+# lineage words, 20 multiply-highs a block; 13 special functions (8 sqrts,
+# 2 cos, 2 sin, a log1p); every live hadron's species is read (4 bytes), a
+# decaying one's lineage, event and floats, and it gathers 8 sectors of
+# tables (sample.gather_bytes: tables that fit in L2 are read once); every
+# daughter's state is written once
 CASCADE_SFU = 13
 
 
@@ -412,10 +464,10 @@ def cascade_formula_ops(n_live: int, n_dec: int, n_new: int,
     ``table_bytes`` in all."""
     state = 4 + 16 + 4 + 8 * itemsize
     draws = 2 if itemsize == 4 else 4
-    return dict(bytes=n_live * 28 + n_dec * state
+    return dict(bytes=n_live * 4 + n_dec * (state - 4)
                 + gather_bytes(table_bytes, 8 * n_dec)
                 + (n_dec + n_new) * state,
-                mulhi=20 * (n_live + n_dec * (draws + 3)),
+                mulhi=20 * n_dec * (draws + 3),
                 sfu=CASCADE_SFU * n_dec)
 
 
@@ -424,14 +476,15 @@ def _library():
     lib = cuda_library("mc_decays")
     if not getattr(lib, "_is3d_bound", False):
         vp, ci, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-        tabs = [vp] * 9 + [ci, ci]      # mass ctau stable cum nd d1 d2 d3 quant S CH
-        for fn in (lib.is3d_cascade_decide_f32, lib.is3d_cascade_decide_f64):
+        for fn in (lib.is3d_cascade_pass_f32, lib.is3d_cascade_pass_f64):
             fn.restype = ci
-            fn.argtypes = [vp, vp, ci] + tabs + [cu, cu, vp, vp, vp]
-        for fn in (lib.is3d_cascade_write_f32, lib.is3d_cascade_write_f64):
-            fn.restype = ci
-            fn.argtypes = ([vp, vp, vp] + [vp] * 8 + [ci, ci] + tabs
-                           + [cu, cu, vp, vp, vp, vp])
+            # state (sidx lin eid, 8 floats), cap, pass, counts, tile
+            # counter, states, n_upper, tables (mass ctau stable cum nd d1
+            # d2 d3 quant, S, CH), key, stream
+            fn.argtypes = ([vp] * 11 + [ci, ci, vp, vp, vp, ci] + [vp] * 9
+                           + [ci, ci, cu, cu, vp])
+        lib.is3d_cascade_tile.restype = ci
+        lib.is3d_cascade_tile.argtypes = []
         lib.is3d_cuda_error_string.restype = ctypes.c_char_p
         lib.is3d_cuda_error_string.argtypes = [ci]
         lib._is3d_bound = True
@@ -439,40 +492,35 @@ def _library():
 
 
 def run_cascade(st: dict, n0: int, tabs: dict, key, n_passes: int) -> int:
-    """The cascade on the state's device: K8 a pass on CUDA tensors, the
-    plain passes on CPU ones.  Returns the final live count."""
+    """The cascade on the state's device: on CUDA every pass queued
+    (``launch_cascade``) and the live counts read once at the end; on the
+    CPU the plain passes.  Returns the final live count."""
     if st["E"].device.type == "cpu":
         return cascade_plain(st, n0, tabs, key, n_passes)
-    C = st["E"].shape[0]
-    scratch = dict(extra=torch.empty(C, dtype=torch.int32,
-                                     device=st["E"].device),
-                   ch=torch.empty(C, dtype=torch.int32,
-                                  device=st["E"].device))
-    n = n0
-    for _ in range(n_passes):
-        n = cascade_pass_cuda(st, n, tabs, key, scratch)
-    return n
+    return final_count(launch_cascade(st, n0, tabs, key, n_passes),
+                        st["E"].shape[0])
 
 
 # ======================================================================
-# host orchestration
+# host orchestration: torch on the events' device
 # ======================================================================
 
 EVENT_FIELDS = ("mcid", "mass", "E", "px", "py", "pz", "t", "x", "y", "z",
                 "tau", "eta", "yp")
+FLOAT_FIELDS = EVENT_FIELDS[1:]
+DECAY_TIMINGS = ("upload", "lookup", "cascade", "regroup", "download")
 
 
-def initial_state(sidx: np.ndarray, cols: dict, eid: np.ndarray,
-                  eg: np.ndarray, ordv: np.ndarray, C: int, key, dtype,
+def initial_state(sidx, cols: dict, eid, eg, ordv, C: int, key, dtype,
                   device) -> dict:
-    """The cascade's state of capacity C from n0 unstable hadrons: species
-    indices, STATE_FLOATS columns, batch-local event ids and root lineage
-    words from (global event, in-event ordinal)."""
+    """The cascade's state of capacity C from n0 unstable hadrons (arrays
+    or tensors): species indices, STATE_FLOATS columns, batch-local event
+    ids and root lineage words from (global event, in-event ordinal)."""
     n0 = len(sidx)
 
     def pad(v, dt, fill=0):
         out = torch.full((C,), fill, dtype=dt, device=device)
-        out[:n0] = torch.as_tensor(np.asarray(v), dtype=dt, device=device)
+        out[:n0] = torch.as_tensor(v, dtype=dt, device=device)
         return out
 
     st = {k: pad(cols[k], dtype) for k in STATE_FLOATS}
@@ -486,57 +534,112 @@ def initial_state(sidx: np.ndarray, cols: dict, eid: np.ndarray,
     return st
 
 
-def _concat_events(events: list, tabs: DecayTables) -> tuple:
-    """The events' columns concatenated, each hadron's species index, its
-    batch-local event id and its in-event ordinal."""
+def _lookup_tables(table, lightest: int, device) -> dict:
+    """The species lookup's tensors on ``device`` (cached with the decay
+    tables): the sorted mc ids and their species, each species' mc id,
+    mass, stability and worst-case multiplicity."""
+    tabs, dev = _TABLE_CACHE[(id(table), int(lightest))][1:]
+    key = ("lookup", str(device))
+    if key not in dev:
+        order = np.argsort(tabs.mc_id, kind="stable")
+        t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)
+        dev[key] = dict(ids_sorted=t(tabs.mc_id[order]), order=t(order),
+                        mc_id=t(tabs.mc_id), mass=t(tabs.mass),
+                        stable=t(tabs.stable), maxmult=t(tabs.maxmult))
+    return dev[key]
+
+
+def _upload(events: list, dtype, device) -> tuple:
+    """Every event's columns copied straight into one buffer on ``device``
+    at its offset: mcid (N,) int64 and the FLOAT_FIELDS (12, N)."""
     counts = [len(e["E"]) for e in events]
-    N = int(sum(counts))
-    cols = {k: np.concatenate([np.asarray(e[k]) for e in events])
-            for k in EVENT_FIELDS}
-    mcid_in = cols["mcid"].astype(np.int64)
-    eid = np.repeat(np.arange(len(events), dtype=np.int32), counts)
-    ordv = (np.arange(N, dtype=np.int64)
-            - np.repeat(np.cumsum([0] + counts[:-1]).astype(np.int64),
-                        counts))
-    order = np.argsort(tabs.mc_id, kind="stable")
-    pos = np.clip(np.searchsorted(tabs.mc_id[order], mcid_in), 0,
-                  len(order) - 1)
-    sidx = order[pos].astype(np.int32)
-    bad = tabs.mc_id[sidx] != mcid_in
-    if bad.any():
-        raise KeyError(f"sampled mc id(s) not in the particle table: "
-                       f"{np.unique(mcid_in[bad])[:5]}")
-    return cols, sidx, eid, ordv
+    N = sum(counts)
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    mcid = torch.empty(N, dtype=torch.int64, device=device)
+    cols = torch.empty((len(FLOAT_FIELDS), N), dtype=dtype, device=device)
+    lo = 0
+    for e, n in zip(events, counts):
+        # a copy from pageable memory returns once its source is staged
+        mcid[lo:lo + n].copy_(torch.from_numpy(np.ascontiguousarray(
+            e["mcid"], dtype=np.int64)), non_blocking=True)
+        for j, k in enumerate(FLOAT_FIELDS):
+            cols[j, lo:lo + n].copy_(torch.from_numpy(np.ascontiguousarray(
+                e[k], dtype=np_dtype)), non_blocking=True)
+        lo += n
+    return mcid, cols, counts
 
 
 def cascade_inputs(events: list, table, lightest_particle: int, seed: int,
-                   event_offset: int = 0, device="cpu") -> dict:
-    """What the cascade of ``events``' unstable hadrons starts from: the
-    state at its worst-case capacity (``initial_state``), n0, the host and
-    device tables and the key; the stable hadrons' columns and event ids
-    (``passed``, ``eid_passed``), which pass through untouched."""
+                   event_offset: int = 0, device="cpu", mark=None) -> dict:
+    """The events on ``device`` and what their unstable hadrons' cascade
+    starts from: ``mcid`` and ``cols`` (FLOAT_FIELDS) of every hadron,
+    its batch-local ``eid``, the stable ones' indices (``passed``, in
+    order), n0, the state at its worst-case capacity (``initial_state``),
+    the host and device tables and the key.  One read from the device (an
+    unknown mc id's count, n0 and the capacity).  ``mark(name)`` is called
+    after the upload and after the lookup."""
+    mark = mark or (lambda name: None)
+    device = torch.device(device)
     tabs = cached_tables(table, lightest_particle)
-    cols, sidx, eid, ordv = _concat_events(events, tabs)
-    unst = ~tabs.stable[sidx]
     dtype_np = np.asarray(events[0]["E"]).dtype
-    if dtype_np not in (np.float32, np.float64):
-        dtype_np = np.dtype(np.float64)
     dtype = torch.float32 if dtype_np == np.float32 else torch.float64
+    mcid, cols, counts = _upload(events, dtype, device)
+    mark("upload")
+
+    lk = _lookup_tables(table, lightest_particle, device)
+    N, S = mcid.shape[0], len(tabs.mc_id)
+    pos = torch.clamp(torch.searchsorted(lk["ids_sorted"], mcid), max=S - 1)
+    sidx = lk["order"][pos]
+    bad = lk["mc_id"][sidx] != mcid
+    unst = ~lk["stable"][sidx]
+    n_bad, n0, mult = torch.stack([
+        bad.sum(), unst.sum(),
+        torch.where(unst, lk["maxmult"][sidx], 0).sum()]).cpu().tolist()
+    if n_bad:
+        raise KeyError(f"sampled mc id(s) not in the particle table: "
+                       f"{torch.unique(mcid[bad]).cpu().numpy()[:5]}")
+    n_ev = len(events)
+    per_event = torch.as_tensor(counts, dtype=torch.int64).to(device)
+    eid = torch.repeat_interleave(
+        torch.arange(n_ev, dtype=torch.int64, device=device), per_event,
+        output_size=N)
+    ordv = (torch.arange(N, dtype=torch.int64, device=device)
+            - (torch.cumsum(per_event, 0) - per_event)[eid])
+    # the unstable hadrons first, then the stable ones, each in order
+    split = torch.argsort((~unst).to(torch.uint8), stable=True)
     key = rng.seed_key(seed)
-    n0 = int(unst.sum())
-    out = dict(n0=n0, tabs=tabs, key=key, dtype_np=dtype_np,
-               passed={k: v[~unst] for k, v in cols.items()},
-               eid_passed=eid[~unst])
+    out = dict(n0=n0, tabs=tabs, key=key, dtype=dtype, n_events=n_ev,
+               mcid=mcid, cols=cols, eid=eid, passed=split[n0:], lookup=lk)
     if n0:
-        C = 1 << max(0, int(int(tabs.maxmult[sidx[unst]].sum()) - 1)
-                     .bit_length())
+        u = split[:n0]
+        C = 1 << max(0, int(mult - 1).bit_length())
         out["state"] = initial_state(
-            sidx[unst], {k: cols[k][unst] for k in STATE_FLOATS}, eid[unst],
-            eid[unst].astype(np.int64) + int(event_offset), ordv[unst], C,
-            key, dtype, device)
+            sidx[u], {k: cols[FLOAT_FIELDS.index(k)][u]
+                      for k in STATE_FLOATS},
+            eid[u], eid[u] + int(event_offset), ordv[u], C, key, dtype,
+            device)
         out["dev_tabs"] = _cached_device_tables(table, lightest_particle,
                                                 dtype, device)
+    mark("lookup")
     return out
+
+
+def _final_columns(inp: dict, nf: int) -> tuple:
+    """The cascade's nf hadrons as output columns: mcid, FLOAT_FIELDS
+    (mass from the species; tau, eta, yp from the vertex and momentum, in
+    the column's dtype), their event ids and the count of unstable ones."""
+    st, lk = inp["state"], inp["lookup"]
+    s = st["sidx"][:nf].long()
+    E, pz, t, z = (st[k][:nf] for k in ("E", "pz", "t", "z"))
+    c = dict(mass=lk["mass"][s].to(inp["dtype"]),
+             **{k: st[k][:nf] for k in STATE_FLOATS})
+    c["tau"] = torch.sqrt(torch.clamp(t * t - z * z, min=0.0))
+    c["eta"] = 0.5 * torch.log(torch.clamp(t + z, min=1e-45)
+                               / torch.clamp(t - z, min=1e-45))
+    c["yp"] = 0.5 * torch.log((E + pz) / torch.clamp(E - pz, min=1e-45))
+    left = (~lk["stable"][s]).sum()
+    return (lk["mc_id"][s], torch.stack([c[k] for k in FLOAT_FIELDS]),
+            st["eid"][:nf].long(), left)
 
 
 def decay_events(events: list, table, cfg=None, seed: int = 0,
@@ -544,51 +647,91 @@ def decay_events(events: list, table, cfg=None, seed: int = 0,
                  event_offset: int = 0, device="cpu", info=None) -> list:
     """Decay every unstable resonance of sampled events to stable hadrons
     on ``device``: a new list in the same schema holding the final-state
-    hadrons, decay products with their decay vertices.  ``event_offset``
-    is the global index of events[0]: a slice of events decayed with its
-    offset equals the same events decayed in one call.  Deterministic in
-    (events, seed, event_offset).  ``info`` gets the cascade's capacity,
-    hadrons in and out and passes."""
+    hadrons, each event's stable input hadrons in their order, then its
+    decay products (with their decay vertices) in cascade-slot order.
+    ``event_offset`` is the global index of events[0]: a slice of events
+    decayed with its offset equals the same events decayed in one call.
+    Deterministic in (events, seed, event_offset).
+
+    Between the host lists everything is torch on ``device`` (the CPU too):
+    the events uploaded at their offsets, the species lookup and the
+    stable/unstable split, the cascade, the output columns and their
+    regrouping by event (a stable sort of the event ids), then one copy
+    into (pinned) host memory; each event's arrays are slices of it.
+    ``info`` gets the cascade's capacity, hadrons in and out, passes and
+    host-clock ``timings`` (s, DECAY_TIMINGS; on CUDA each split ends with
+    a device synchronize, so it holds its own device work)."""
     if lightest_particle is None:
         lightest_particle = int(getattr(cfg, "lightest_particle", 111))
     if not events:
         return []
     if sum(len(e["E"]) for e in events) == 0:
         return [dict(e) for e in events]
-    inp = cascade_inputs(events, table, lightest_particle, seed,
-                         event_offset, device)
-    tabs, dtype_np = inp["tabs"], inp["dtype_np"]
-    if inp["n0"] == 0:
-        out_cols, eid_o = inp["passed"], inp["eid_passed"]
-    else:
-        st = inp["state"]
-        nf = run_cascade(st, inp["n0"], inp["dev_tabs"], inp["key"],
-                         tabs.n_passes)
-        if info is not None:
-            info.update(capacity=st["E"].shape[0], hadrons_in=inp["n0"],
-                        hadrons_out=nf, passes=tabs.n_passes)
-        host = {k: st[k][:nf].cpu().numpy() for k in
-                ("sidx",) + STATE_FLOATS + ("eid",)}
-        sidx_o = host["sidx"]
-        if np.any(~tabs.stable[sidx_o]):
-            raise RuntimeError("unstable hadrons survived the cascade; the "
-                               "table's chain depth exceeded n_passes")
-        E, pz, t, z = host["E"], host["pz"], host["t"], host["z"]
-        casc = dict(mcid=tabs.mc_id[sidx_o],
-                    mass=tabs.mass[sidx_o].astype(dtype_np), E=E,
-                    px=host["px"], py=host["py"], pz=pz, t=t, x=host["x"],
-                    y=host["y"], z=z)
-        casc["tau"] = np.sqrt(np.maximum(t * t - z * z, 0.0))
-        with np.errstate(divide="ignore", invalid="ignore"):
-            casc["eta"] = 0.5 * np.log(
-                np.maximum(t + z, 1e-45) / np.maximum(t - z, 1e-45))
-            casc["yp"] = 0.5 * np.log((E + pz) / np.maximum(E - pz, 1e-45))
-        out_cols = {k: np.concatenate([np.asarray(inp["passed"][k],
-                                                  dtype=v.dtype), v])
-                    for k, v in casc.items()}
-        eid_o = np.concatenate([inp["eid_passed"], host["eid"]])
+    device = torch.device(device)
+    timings = {}
+    clock = [time.perf_counter()]
 
-    order = np.argsort(eid_o, kind="stable")
-    bounds = np.searchsorted(eid_o[order], np.arange(len(events) + 1))
-    return [{k: v[order[bounds[e]:bounds[e + 1]]] for k, v in out_cols.items()}
-            for e in range(len(events))]
+    def mark(name):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        now = time.perf_counter()
+        timings[name] = now - clock[0]
+        clock[0] = now
+
+    inp = cascade_inputs(events, table, lightest_particle, seed,
+                         event_offset, device, mark)
+    if info is not None:
+        info["timings"] = timings
+    if inp["n0"] == 0:
+        return [{k: np.array(e[k]) for k in EVENT_FIELDS} for e in events]
+    tabs, st = inp["tabs"], inp["state"]
+    nf = run_cascade(st, inp["n0"], inp["dev_tabs"], inp["key"],
+                     tabs.n_passes)
+    mark("cascade")
+    if info is not None:
+        info.update(capacity=st["E"].shape[0], hadrons_in=inp["n0"],
+                    hadrons_out=nf, passes=tabs.n_passes)
+
+    # [passed; cascaded], ordered by event (stable), into one buffer
+    mcid_c, cols_c, eid_c, left = _final_columns(inp, nf)
+    passed = inp["passed"]
+    eid_o = torch.cat([inp["eid"][passed], eid_c])
+    order = torch.argsort(eid_o, stable=True)
+    n_ev, M = inp["n_events"], eid_o.shape[0]
+    isz = cols_c.element_size()
+    F = len(FLOAT_FIELDS)
+    buf = torch.empty(8 * M + F * M * isz + 8 * (n_ev + 2),
+                      dtype=torch.uint8, device=device)
+    mcid_o = buf[:8 * M].view(torch.int64)
+    cols_o = buf[8 * M:8 * M + F * M * isz].view(inp["dtype"]).view(F, M)
+    meta = buf[8 * M + F * M * isz:].view(torch.int64)
+    torch.index_select(torch.cat([inp["mcid"][passed], mcid_c]), 0, order,
+                       out=mcid_o)
+    torch.index_select(torch.cat([inp["cols"][:, passed], cols_c], dim=1), 1,
+                       order, out=cols_o)
+    meta[:n_ev + 1] = torch.searchsorted(
+        eid_o[order], torch.arange(n_ev + 1, device=device))
+    meta[n_ev + 1] = left
+    mark("regroup")
+
+    if device.type == "cuda":
+        host = torch.empty(buf.shape, dtype=torch.uint8, pin_memory=True)
+        host.copy_(buf)
+    else:
+        host = buf
+    h = host.numpy()
+    np_dtype = np.float32 if inp["dtype"] == torch.float32 else np.float64
+    mcid_h = h[:8 * M].view(np.int64)
+    cols_h = h[8 * M:8 * M + F * M * isz].view(np_dtype).reshape(F, M)
+    meta_h = h[8 * M + F * M * isz:].view(np.int64)
+    if meta_h[n_ev + 1]:
+        raise RuntimeError("unstable hadrons survived the cascade; the "
+                           "table's chain depth exceeded n_passes")
+    out = []
+    for e in range(n_ev):
+        lo, hi = int(meta_h[e]), int(meta_h[e + 1])
+        ev = {"mcid": mcid_h[lo:hi]}
+        ev.update((k, cols_h[j, lo:hi]) for j, k in enumerate(FLOAT_FIELDS))
+        out.append(ev)
+    mark("download")
+    return out

@@ -1354,15 +1354,37 @@ def alias_edge_weights(dtype=torch.float64, device="cpu") -> dict:
             for k, v in cases.items()}
 
 
+# channels a species in cascade_edge_inputs' wide tables, as real PDG
+# lists have (the synthetic list has at most 4)
+WIDE_CHANNELS = 64
+
+
+def widen_decay_tables(tabs, channels: int):
+    """The same decay tables padded with no-op channels (cum 1, two
+    daughters of species 0) to ``channels`` a species: a species' last
+    real channel already closes its row at 1 and no uniform reaches 1, so
+    every cascade is the same."""
+    pad = ((0, 0), (0, channels - tabs.cum.shape[1]))
+    return dataclasses.replace(
+        tabs, cum=np.pad(tabs.cum, pad, constant_values=1.0),
+        nd=np.pad(tabs.nd, pad, constant_values=2),
+        d1=np.pad(tabs.d1, pad), d2=np.pad(tabs.d2, pad),
+        d3=np.pad(tabs.d3, pad), quant=np.pad(tabs.quant, pad + ((0, 0),)))
+
+
 def cascade_edge_inputs(dtype=torch.float64, device="cpu", n: int = 3000,
-                        n_species: int = 60, seed: int = 0) -> dict:
+                        n_species: int = 60, seed: int = 0,
+                        channels: int | None = None) -> dict:
     """K8's inputs on the decaying synthetic list: ``n`` hadrons of every
     species (stable ones pass through a pass untouched) in events of 10,
     their cascade state (kernels/mc_decays.py:initial_state) at the
-    worst-case capacity, the table, its device tables and the key."""
+    worst-case capacity, the table, its device tables and the key;
+    ``channels`` widens the tables (``widen_decay_tables``)."""
     from .kernels import mc_decays, rng as krng
     table, _ = synthetic_decaying_table(n_species, seed)
     tabs = mc_decays.build_decay_tables(table)
+    if channels is not None:
+        tabs = widen_decay_tables(tabs, channels)
     r = np.random.default_rng(seed + 1)
     sidx = r.integers(0, len(tabs.mc_id), n).astype(np.int32)
     m = tabs.mass[sidx]

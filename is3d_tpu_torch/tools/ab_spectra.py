@@ -5,7 +5,7 @@ C, C, B, A).
     python -m is3d_tpu_torch.tools.ab_spectra ROOT_A ROOT_B [ROOT_C ...]
         [--cells N]
         [--cases 3d_df2,3d_df1,2d_fixed,2d_remap,bin,dndx,proto,decays,
-                 alias,sample]
+                 alias,sample,cascade]
 
 Each turn runs a fresh interpreter that imports ``is3d_tpu_torch`` from
 that root (building its kernels into that root's _build/) and, per case:
@@ -51,7 +51,19 @@ that root (building its kernels into that root's _build/) and, per case:
   dispatch path: K7's packed mode (``event_batch_packed``) where the side
   has it, else the per-slot kernel and ``pack_batch``; its sum is that of
   the kept hadrons' px.  Both time 5 calls queued behind a device-side
-  sleep, as ``bin`` does: the device's time, not the host's enqueue.
+  sleep, as ``bin`` does: the device's time, not the host's enqueue;
+* ``cascade``, K8 on chip_smoke.py's [cascade pair] shape: the unstable
+  hadrons of the [sample decays] run's 2 events (the decaying list of
+  that surface, sampler_seed 17, min_num_hadrons 6e5), float32, pass by
+  pass on the state each pass starts from (advanced by that side's
+  kernel): ``cascade_p<k>`` the pass's device time (5 calls queued behind
+  a device-side sleep, each after a copy of the state's live slots back,
+  less the copies alone; a side whose pass is a decide launch, a torch
+  cumsum and a write launch around a host read has the three queued
+  without the read), ``cascade_device`` every pass so, ``cascade_call``
+  one ``run_cascade`` call under CUDA events (the host's enqueue and
+  reads included, median of 5); the sums are those of the state's px
+  after the pass.
 
 The report is one JSON line per turn (median, runs, output sum and the
 float32 output's largest difference from the same side's float64 kernel,
@@ -71,7 +83,7 @@ import subprocess
 import sys
 
 CASES = ("3d_df2", "3d_df1", "2d_fixed", "2d_remap", "bin", "dndx", "proto",
-         "decays", "alias", "sample")
+         "decays", "alias", "sample", "cascade")
 
 _TURN = r"""
 import json, statistics, sys
@@ -126,6 +138,114 @@ def sampler_surface():
     cell = sample.build_cell_data(run.surface, species, df_data, cfg,
                                   run.plasma())
     return cfg, sample._cast_floats(species, dt), cell
+
+
+# K8 on the [cascade pair] shape: pass by pass and the whole cascade
+def cascade_cases(report):
+    import tempfile
+    from is3d_tpu_torch.api import IS3D
+    from is3d_tpu_torch.kernels import mc_decays, sample
+    from is3d_tpu_torch.kernels.launch import launch
+    run_dir = tempfile.mkdtemp()
+    testing.write_synthetic_run_dir(run_dir, 131072, 320, dimension=2,
+                                    seed=0, decays=True)
+    cfg = Config(operation=2, mode=1, dimension=2, df_mode=2,
+                 precision="f32", include_shear_deltaf=1,
+                 include_bulk_deltaf=1, regulate_deltaf=1, outflow=1,
+                 oversample=1, min_num_hadrons=600000, sampler_seed=17,
+                 do_resonance_decays=1)
+    run = IS3D(cfg, data_dir=run_dir, device="cuda")
+    table, df_data, species, mcids, _ = run._prepare()
+    events = sample.sample_particles(run.surface, species, mcids, df_data,
+                                     cfg, run.plasma(), nevents=2, seed=17)
+    inp = mc_decays.cascade_inputs(events, table, cfg.lightest_particle,
+                                   mc_decays.derive_decay_seed(17),
+                                   device="cuda")
+    st, n0, tabs = inp["state"], inp["n0"], inp["dev_tabs"]
+    key, n_passes = inp["key"], inp["tabs"].n_passes
+    C = st["E"].shape[0]
+    first = {k: v.clone() for k, v in st.items()}
+    work = {k: v.clone() for k, v in st.items()}
+    zero = torch.zeros(1, device=dev)
+    lib = mc_decays._library()
+    parent = hasattr(lib, "is3d_cascade_decide_f32")
+    if parent:      # decide, cumsum, write around a host read
+        extra, chan = (torch.empty(C, dtype=torch.int32, device=dev)
+                       for _ in range(2))
+        tab_ptrs = (*(tabs[k].data_ptr() for k in (
+            "mass", "ctau", "stable", "cum", "nd", "d1", "d2", "d3",
+            "quant")), *tabs["cum"].shape)
+
+        def reset(n):
+            pass
+
+        def device_pass(n):
+            launch(lib, "decide", lib.is3d_cascade_decide_f32, dev,
+                   work["sidx"].data_ptr(), work["lin"].data_ptr(), n,
+                   *tab_ptrs, *key, extra.data_ptr(), chan.data_ptr())
+            offs = torch.cumsum(extra[:n], 0, dtype=torch.int32)
+            launch(lib, "write", lib.is3d_cascade_write_f32, dev,
+                   work["sidx"].data_ptr(), work["lin"].data_ptr(),
+                   work["eid"].data_ptr(),
+                   *(work[k].data_ptr() for k in mc_decays.STATE_FLOATS),
+                   n, C, *tab_ptrs, *key, extra.data_ptr(), chan.data_ptr(),
+                   offs.data_ptr())
+        scratch = dict(extra=extra, ch=chan)
+        advance = lambda s, n: mc_decays.cascade_pass_cuda(s, n, tabs, key,
+                                                           scratch)
+    else:           # one launch a pass, the count on the card
+        counts, scratch = mc_decays.cascade_buffers(C, 1, n0, dev)
+        go = mc_decays.pass_launcher(work, tabs, key, counts, scratch)
+
+        def reset(n):
+            counts.fill_(n)
+            scratch.zero_()
+
+        def device_pass(n):
+            go(0, n)
+        advance = lambda s, n: mc_decays.cascade_pass_cuda(s, n, tabs, key)
+
+    def restored(snap, n):      # the state's live slots and the counts
+        dst, src = [work[k][:n] for k in snap], [snap[k][:n] for k in snap]
+        return lambda: (torch._foreach_copy_(dst, src), reset(n))
+
+    def device_ms(fn, restore):
+        both = timed(lambda: (restore(), fn(), zero)[2], inner=5)[1]
+        alone = timed(lambda: (restore(), zero)[1], inner=5)[1]
+        runs = [b - a for b, a in zip(both, alone)]
+        return statistics.median(runs), runs
+
+    n, sizes = n0, [n0]
+    for p in range(n_passes):
+        snap = {k: v.clone() for k, v in st.items()}
+        ms, runs = device_ms(lambda: device_pass(n), restored(snap, n))
+        n = advance(st, n)
+        sizes.append(n)
+        report[f"cascade_p{p}"] = {"ms": ms, "runs": runs, "err_f64": None,
+                                   "sum": float(st["px"][:n].double().sum())}
+    if parent:
+        whole = lambda: [device_pass(m) for m in sizes[:-1]]
+    else:
+        whole = lambda: mc_decays.launch_cascade(work, n0, tabs, key,
+                                                 n_passes)
+    ms, runs = device_ms(whole, restored(first, n0))
+    report["cascade_device"] = {"ms": ms, "runs": runs, "err_f64": None,
+                                "sum": float(st["px"][:n].double().sum())}
+    calls = []
+    for _ in range(6):
+        s = {k: v.clone() for k, v in first.items()}
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        nf = mc_decays.run_cascade(s, n0, tabs, key, n_passes)
+        b.record()
+        b.synchronize()
+        calls.append(a.elapsed_time(b))
+    assert nf == n, (nf, n)
+    report["cascade_call"] = {"ms": statistics.median(calls[1:]),
+                              "runs": calls[1:], "err_f64": None,
+                              "sum": float(s["px"][:n].double().sum())}
 
 
 report = {"root": sys.argv[1]}
@@ -217,6 +337,9 @@ for case in cases:
                     report[f"{name}_w{i}_{tasks.nbody}body"] = {
                         "ms": ms, "runs": runs, "sum": total, "err_f64": err}
                     decays.decay_wave_cuda(tables, tasks, wg, acc)
+        continue
+    elif case == "cascade":
+        cascade_cases(report)
         continue
     elif case in ("alias", "sample"):
         from is3d_tpu_torch.kernels import rng, sample

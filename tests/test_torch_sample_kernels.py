@@ -3,9 +3,12 @@ dispatch takes the plain versions and never loads a kernel; the wrappers
 refuse CPU tensors; the edge inputs (is3d_tpu_torch.testing's
 SAMPLE_EDGES, alias_edge_weights, cascade_edge_inputs) are what they
 claim; the packed plain version is pack_batch of the per-slot one; the
-interleaved (prob, alias) tables' views; and, on a CUDA card
-(gpu-marked), K7 (per-slot and packed), K7a and K8 against their plain
-versions on those inputs.
+interleaved (prob, alias) tables' views; the wide decay tables give the
+same cascade; and, on a CUDA card (gpu-marked), K7 (per-slot and packed),
+K7a and K8 against their plain versions on those inputs (K8 pass by pass
+and whole, on 4 and 64 channels a species, queued with no host sync, two
+runs bit-identical, its overflow guard; decay_events on the card against
+the CPU run).
 
 On the GPU: python -m pytest tests/test_torch_sample_kernels.py -m gpu
 --noconftest (the conftest imports jax).  Tolerances: K7a identical
@@ -76,7 +79,7 @@ def test_wrappers_refuse_cpu_tensors():
     c = testing.cascade_edge_inputs(n=20)
     with pytest.raises(ValueError, match="needs CUDA"):
         mc_decays.cascade_pass_cuda(c["state"], c["n0"], c["dev_tabs"],
-                                    c["key"], {})
+                                    c["key"])
 
 
 @pytest.mark.parametrize("case", sorted(testing.SAMPLE_EDGES))
@@ -291,3 +294,118 @@ def test_cascade_kernel_matches_plain_on_gpu(cuda_card, dtype):
         y = a["state"][k][:na].double()
         torch.testing.assert_close(b["state"][k][:na].double(), y, rtol=rtol,
                                    atol=atol * float(y.abs().max()))
+
+
+def test_wide_tables_give_the_same_cascade():
+    """testing.widen_decay_tables pads no-op channels: the plain cascade on
+    the wide tables equals the one on the narrow tables, bit for bit."""
+    a = testing.cascade_edge_inputs(n=400)
+    b = testing.cascade_edge_inputs(n=400, channels=testing.WIDE_CHANNELS)
+    assert b["dev_tabs"]["cum"].shape[1] == testing.WIDE_CHANNELS
+    na = mc_decays.run_cascade(a["state"], a["n0"], a["dev_tabs"], a["key"],
+                               a["tabs"].n_passes)
+    nb = mc_decays.run_cascade(b["state"], b["n0"], b["dev_tabs"], b["key"],
+                               b["tabs"].n_passes)
+    assert na == nb > a["n0"]
+    for k in a["state"]:
+        assert torch.equal(a["state"][k][:na], b["state"][k][:na]), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("channels", [None, testing.WIDE_CHANNELS])
+def test_cascade_pass_kernel_matches_plain_pass_on_gpu(cuda_card, channels,
+                                                       dtype):
+    """K8 pass by pass (the one-pass entry) against the plain pass on the
+    same state, on 4 and 64 channels a species."""
+    a = testing.cascade_edge_inputs(dtype, "cuda", channels=channels)
+    b = testing.cascade_edge_inputs(dtype, "cuda", channels=channels)
+    n, key = a["n0"], a["key"]
+    rtol, atol = TOL[dtype]
+    for _ in range(a["tabs"].n_passes):
+        lin = a["state"]["lin"][:n]
+        na = mc_decays.cascade_pass_plain(
+            a["state"], n, a["dev_tabs"],
+            mc_decays.rng.decay_uniforms(key, lin, dtype),
+            tuple(mc_decays.rng.child_lineage(key, lin, j) for j in (1, 2, 3)))
+        nb = mc_decays.cascade_pass_cuda(b["state"], n, b["dev_tabs"], key)
+        assert na == nb > 0
+        for k in ("sidx", "eid", "lin"):
+            assert torch.equal(a["state"][k][:na], b["state"][k][:na]), k
+        for k in mc_decays.STATE_FLOATS:
+            y = a["state"][k][:na].double()
+            torch.testing.assert_close(b["state"][k][:na].double(), y,
+                                       rtol=rtol,
+                                       atol=atol * float(y.abs().max()))
+        n = na
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("channels", [None, testing.WIDE_CHANNELS])
+def test_cascade_kernel_bit_identical_without_host_sync_on_gpu(
+        cuda_card, channels, dtype):
+    """The whole cascade twice: one launch a pass, queued with no host
+    sync (set_sync_debug_mode "error"), one read; bit-identical runs."""
+    runs = [testing.cascade_edge_inputs(dtype, "cuda", channels=channels)
+            for _ in range(2)]
+    ns = []
+    for r in runs:
+        mc_decays.LAUNCHES = 0
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            counts = mc_decays.launch_cascade(r["state"], r["n0"],
+                                              r["dev_tabs"], r["key"],
+                                              r["tabs"].n_passes)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert mc_decays.LAUNCHES == r["tabs"].n_passes
+        ns.append(mc_decays.final_count(counts, r["state"]["E"].shape[0]))
+    assert ns[0] == ns[1] > runs[0]["n0"]
+    for k in runs[0]["state"]:
+        assert torch.equal(runs[0]["state"][k], runs[1]["state"][k]), k
+
+
+@pytest.mark.gpu
+def test_cascade_overflow_raises_on_gpu(cuda_card):
+    small = testing.cascade_edge_inputs(torch.float32, "cuda", n=64)
+    st = {k: v[:small["n0"]].clone() for k, v in small["state"].items()}
+    with pytest.raises(RuntimeError, match="decay cascade overflow"):
+        mc_decays.run_cascade(st, small["n0"], small["dev_tabs"],
+                              small["key"], small["tabs"].n_passes)
+    with pytest.raises(RuntimeError, match="decay cascade overflow"):
+        mc_decays.cascade_pass_cuda(st, small["n0"], small["dev_tabs"],
+                                    small["key"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_decay_events_cuda_matches_cpu_on_gpu(cuda_card, dtype):
+    """decay_events on the card against the CPU run: the same lists, mcid
+    bit for bit, floats within the kernel's tolerance."""
+    table, _ = testing.synthetic_decaying_table(60, seed=0)
+    tabs = mc_decays.cached_tables(table, 111)
+    r = np.random.default_rng(3)
+    events = []
+    for n in (300, 0, 120, 250):
+        s = r.integers(0, len(tabs.mc_id), n)
+        p = r.normal(0, 0.5, (n, 3))
+        z = np.zeros(n, dtype)
+        events.append(dict(
+            mcid=tabs.mc_id[s], mass=tabs.mass[s].astype(dtype),
+            E=np.sqrt(tabs.mass[s]**2 + (p**2).sum(1)).astype(dtype),
+            px=p[:, 0].astype(dtype), py=p[:, 1].astype(dtype),
+            pz=p[:, 2].astype(dtype), t=z + 6, x=z, y=z, z=z, tau=z + 6,
+            eta=z, yp=z))
+    info = {}
+    got = mc_decays.decay_events(events, table, seed=7, device="cuda",
+                                 info=info)
+    want = mc_decays.decay_events(events, table, seed=7)
+    assert tuple(info["timings"]) == mc_decays.DECAY_TIMINGS
+    rtol, atol = TOL[torch.float32 if dtype == np.float32 else torch.float64]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g["mcid"], w["mcid"])
+        for k in mc_decays.FLOAT_FIELDS:
+            scale = float(np.abs(w[k]).max()) if len(w[k]) else 0.0
+            np.testing.assert_allclose(g[k], w[k], rtol=rtol,
+                                       atol=atol * scale, err_msg=k)

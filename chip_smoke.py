@@ -11,8 +11,9 @@ Phases, each printing its own line(s):
    (nvidia-smi); fails without CUDA;
 2. build: every kernel source (csrc/smooth_spectra.cu, csrc/dndx.cu,
    csrc/smooth_proto.cu, csrc/decays.cu, csrc/feqmod.cu, csrc/vah.cu,
-   csrc/polzn.cu, csrc/sample.cu, csrc/mc_decays.cu; one nvcc each, all
-   started together) and the fastio host library, from this checkout's
+   csrc/polzn.cu, csrc/sample.cu, csrc/mc_decays.cu, csrc/yields.cu,
+   csrc/sample_vah.cu, csrc/sample_search.cu, csrc/sample_vah_search.cu;
+   one nvcc each, all started together) and the fastio host library, from this checkout's
    sources, with ptxas's register and spill lines;
 3. each kernel against its plain torch version at small shapes, in f32
    (atol 2e-5 * max, rtol 2e-4) and f64 (rtol 1e-10, atol 1e-13 * max):
@@ -74,7 +75,7 @@ Phases, each printing its own line(s):
    CLI on a 256-cell run directory on cuda and on cpu (f64), whose spectra
    files must agree;
 5. the spectra kernel on one canonical group of that surface (16384
-   cells), f32: two launches bit-identical; on the group's first 4096
+   cells), f32: two launches bit-identical; on the group's first 2048
    cells agreement with the plain version and both f32 versions against
    the f64 kernel (the kernel's difference at most 3x the plain
    version's); times (CUDA events, one warm-up, median of 5; the plain
@@ -86,7 +87,7 @@ Phases, each printing its own line(s):
    launches of the remap kernel = canonical groups, the results tree; then
    the same CLI on a 256-cell run directory on cuda and on cpu (f64); then
    the remap kernel on one canonical group of that surface as in 5 (the
-   plain version on its first 2048 cells);
+   plain version on its first 1024 cells);
 6. operation 0 main path: a synthetic 65536-cell x 320-species 2+1D run
    directory through ``cli.main`` (df 1, shear + bulk, regulate, outflow,
    f32, native 32 x 24 x 48 grid): launches = canonical groups, every
@@ -94,7 +95,7 @@ Phases, each printing its own line(s):
    the same CLI on a 256-cell run directory on cuda and on cpu (f64);
 7. the dN/dX kernel and the binning kernel on one canonical group of that
    surface (8192 cells), f32: two launches bit-identical; on the group's
-   first 2048 cells agreement with the plain version and the f32 kernel
+   first 1024 cells agreement with the plain version and the f32 kernel
    and the f32 plain version against the f64 kernel; times (one warm-up
    and the median of 5; the plain version's one run; the binning kernel,
    its plain version and its library yardstick on the whole group as 20
@@ -127,7 +128,7 @@ Phases, each printing its own line(s):
    results tree, the share of breakdown cells; the same CLI on a 256-cell
    run directory (bulk x 30) on cuda and on cpu (f64); [feqmod pair] one
    16384-cell group as it is and with the shear x 30 (most cells break
-   down): f32 against the f64 kernel, paired times, its first 2048 cells
+   down): f32 against the f64 kernel, paired times, its first 1024 cells
    against the plain version, the bound from the evaluations each chain
    makes, SASS per evaluation; [feqmod main 2d] the same with df 4 in
    2+1D (the mT remap) and its pair (plain on 512 cells); [feqmod dndx]
@@ -140,7 +141,7 @@ Phases, each printing its own line(s):
    tree; [vah main 3d] the same in 3+1D (fixed nodes); their 256-cell
    cuda-against-cpu runs (2+1D mode 2, 3+1D mode 3); [vah pair] one group
    of each, and the 3+1D group with synthetic c0..c4 (every chain on): f32
-   against the f64 kernel, paired times, plain on 512 / 2048 cells, bound
+   against the f64 kernel, paired times, plain on 512 / 1024 cells, bound
    (kernels/vah.py, vah_formula_ops), SASS; [vah dndx] operation 0 on a
    16384-cell mode-2 2+1D run, its small run and one group;
 11. the polarization paths: [polzn main 2d] a synthetic 131072 x 320
@@ -170,12 +171,38 @@ Phases, each printing its own line(s):
    lookup, cascade, regroup, download) and its small runs; [cascade pair]
    K8 pass by pass on that run's events against its plain version and
    its bound (kernels/mc_decays.py, cascade_formula_ops), each pass's
-   device time and the whole cascade as one call.
+   device time and the whole cascade as one call;
+13. the sampler's second half: [yields small] K7b (csrc/yields.cu)
+   against species_yields_plain on testing.YIELDS_EDGES (df 1-4 and VAH,
+   f32 and f64, two launches and the row-sums mode bit-identical);
+   [sample vah small] and [sample search small], K7's VAH and
+   binary-search instantiations on testing.SAMPLE_EDGES as [sample
+   small]; [yields pair] K7b on [sample main 2d]'s cells against its
+   bound and the torch quadrature it replaced; [sample search 2d] that run
+   with sampler_alias = 0 (K7-search only, each species' count within 5
+   sigma of the alias run's), its 256-cell cuda-against-cpu run and
+   [sample search pair]; [sample vah main 2d] operation 2 on [vah main
+   2d]'s mode-2 surface (K7b's VAH mode, K7a, K7-VAH's packed mode; pion,
+   kaon and proton dN/dy within 5 sigma + 2 % of that surface's
+   operation-1 spectra), its 256-cell runs (mode 2 in 2+1D, mode 3 in
+   3+1D), [yields pair vah] and [sample vah pair] (synthetic c0..c4, every
+   chain on); [sample chunked] 1179648 in-memory cells (BASELINE.md's 1M
+   scale) in 3 chunks and unchunked, one event each, the two counts
+   within 5 sigma, their launches and peak memory, and a 256-cell run
+   with sampler_cell_chunk = 64; [ensemble small] two worker processes of
+   ensemble.multiprocess_oversample on this card, a removed batch rebuilt
+   byte for byte by its worker resumed.
 
-Depth cut to keep the run near ten minutes: [pair], [remap pair] and
+The cpu halves of the 256-cell cuda-against-cpu runs run in the
+background, one process at a time with CPU_THREADS threads, and are
+compared at the end (phase_cpu_runs).  Depth cut to keep the run near
+eight minutes: [pair], [remap pair] and
 [dndx pair] hold the kernel to its plain version on the group's first
-4096, 2048 and 2048 cells, one run each (five runs on the whole group
-took 110 s and 70 s before, and one 31 s for the remap).
+2048, 1024 and 1024 cells, one run each (five runs on the whole group
+took 110 s and 70 s before, and one 31 s for the remap); [feqmod pair]
+on 1024 cells and [vah pair] / [polzn pair] on 512 (2+1D) and 1024
+(3+1D) cells (4096 for [pair], 2048 for the others until the sampler's
+second half added its phases).
 
 Bounds: the larger of the bytes over the memory rate and the operations
 over the card's FP32 and SFU rates, the spectra, dN/dX and prototype
@@ -191,7 +218,7 @@ special functions and their gathers: a table that fits in the 50 MB L2
 read once, a larger one a 32-byte sector a gather (kernels/sample.py,
 gather_bytes, sample_formula_ops; kernels/mc_decays.py,
 cascade_formula_ops).  Before
-every path (4, 5a, 6, 7a, 8, 9, 10, 11, 12) all launch
+every path (4, 5a, 6, 7a, 8, 9, 10, 11, 12, 13) all launch
 counts are set to 0 and they are read right after it.  The line before
 the last is the kernel record as JSON; the last line is ``{"ok": true,
 "device": {...}}``.  Any failed phase exits nonzero before that line is
@@ -203,6 +230,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -238,8 +266,8 @@ FEQMOD_DNDX_ARGS = ["device=cuda", "precision=f32", "operation=0",
                     "dimension=2", "df_mode=3", "include_shear_deltaf=1",
                     "include_bulk_deltaf=1", "regulate_deltaf=1", "outflow=1"]
 # the cells of a group that the plain feqmod version is held to (and timed
-# on) in the [feqmod pair] and [feqmod dndx] phases
-FEQMOD_PLAIN_CELLS = 2048
+# on) in the [feqmod pair] phase
+FEQMOD_PLAIN_CELLS = 1024
 DECAYS_2D_CELLS = 16384
 # anisotropic hydro (modes 2-3) and spin polarization (mode 5): shear and
 # bulk df on in the config, which the VAH gate drops (no c0..c4 columns,
@@ -270,8 +298,17 @@ SAMPLE_DECAYS_ARGS = [a for a in SAMPLE2D_ARGS
 # the slots of the small batch K7 is held to its plain version on in
 # [sample pair]
 SAMPLE_PLAIN_SLOTS = 16384
+# operation 2 on the [vah main 2d] surface (mode 2, the residual-df chains
+# gated off as on every real VAH file), the same target as SAMPLE2D_ARGS
+SAMPLE_VAH2D_ARGS = [a for a in VAH2D_ARGS if not a.startswith("operation")
+                     ] + ["operation=2", "oversample=1",
+                          "min_num_hadrons=1500000", "sampler_seed=17"]
+# the cell-chunked sampler at BASELINE.md's 1M scale: 9 x 131072 cells,
+# three chunks of at most 2^19 by default
+CHUNKED_CELLS = 9 * MAIN_CELLS
 KERNEL_SOURCES = ("smooth_spectra", "dndx", "smooth_proto", "decays",
-                  "feqmod", "vah", "polzn", "sample", "mc_decays")
+                  "feqmod", "vah", "polzn", "sample", "mc_decays", "yields",
+                  "sample_vah", "sample_search", "sample_vah_search")
 # H100 SXM: SMs, FP32, SFU and INT32-multiply lanes per SM, memory rate
 # (bytes/s)
 N_SM, FP32_LANES, SFU_LANES, HBM_RATE = 132, 128, 16, 3.35e12
@@ -797,44 +834,100 @@ def _decay_results_ok(results, mcids, n_y, out):
           f"{gain[211]:.4f}, photon {gain[22]:.3e}")
 
 
+# the cpu halves of the small cuda-against-cpu runs: a background thread
+# runs them one at a time, each in a process of its own with CPU_THREADS
+# threads, beside the rest of the script; phase_cpu_runs waits for them
+# and compares, _stop_cpu_runs ends whatever is left
+CPU_THREADS = 3
+_cpu_jobs: list = []
+_cpu_procs: list = []
+_cpu_pool = None
+
+
+def _cpu_run(argv) -> tuple:
+    """(exit code, stderr's end) of the CLI on the cpu in a process of its
+    own, this checkout's package first on its path."""
+    env = dict(os.environ, OMP_NUM_THREADS=str(CPU_THREADS),
+               PYTHONPATH=os.pathsep.join(
+                   [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    proc = subprocess.Popen([sys.executable, "-m", "is3d_tpu_torch", *argv],
+                            stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True, env=env,
+                            cwd=ROOT)
+    _cpu_procs.append(proc)
+    _, err = proc.communicate(timeout=900)
+    return proc.returncode, err[-3000:]
+
+
 def phase_small_path_cpu_vs_cuda(name="small", dimension=3, params=None,
                                  args=("df_mode=2", "regulate_deltaf=1"),
                                  label="3+1D df2", n_species=11,
                                  decays=False, scale_bulk=1.0, mode=1):
-    """The whole CLI path on cuda and on cpu, f64, on a small run dir."""
+    """The whole CLI path on cuda and on cpu, f64, on a small run dir
+    written twice (the same seed): the cuda run here, the cpu run queued
+    to the background (phase_cpu_runs compares the two trees)."""
+    global _cpu_pool
+    from concurrent.futures import ThreadPoolExecutor
     from is3d_tpu_torch.testing import write_synthetic_run_dir
     run_dir = os.path.join(WORK, name)
-    write_synthetic_run_dir(run_dir, 256, n_species, dimension=dimension,
-                            seed=1, params=params, decays=decays,
-                            scale_bulk=scale_bulk, mode=mode)
-    trees = {}
-    for device in ("cuda", "cpu"):
-        results = os.path.join(run_dir, f"results_{device}")
-        rc, _, _ = _run_cli([run_dir, f"device={device}", "precision=f64",
-                             *args])
+    for d in (run_dir, run_dir + "_cpu"):
+        write_synthetic_run_dir(d, 256, n_species, dimension=dimension,
+                                seed=1, params=params, decays=decays,
+                                scale_bulk=scale_bulk, mode=mode)
+    argv = lambda d, device: [d, f"device={device}", "precision=f64", *args]
+    if _cpu_pool is None:
+        _cpu_pool = ThreadPoolExecutor(max_workers=1)
+    future = _cpu_pool.submit(_cpu_run, argv(run_dir + "_cpu", "cpu"))
+    rc, _, _ = _run_cli(argv(run_dir, "cuda"))
+    if rc != 0:
+        fail(f"{name} run on cuda exited {rc}")
+    _cpu_jobs.append((name, label, n_species, future,
+                      os.path.join(run_dir, "results"),
+                      os.path.join(run_dir + "_cpu", "results")))
+
+
+def phase_cpu_runs():
+    """Wait for the cpu halves of the small runs and hold each cuda tree to
+    its cpu tree: every file, every number within 1e-6 relative (and
+    1e-6 of the file's largest value)."""
+    for name, label, n_species, future, cuda_tree, cpu_tree in _cpu_jobs:
+        rc, err = future.result()
         if rc != 0:
-            fail(f"{name} run on {device} exited {rc}")
-        shutil.move(os.path.join(run_dir, "results"), results)
-        trees[device] = results
-    n_files = worst = 0
-    for d, _, files in os.walk(trees["cpu"]):
-        for f in files:
-            a = os.path.join(d, f)
-            va, vb = _values(a), _values(a.replace(trees["cpu"],
-                                                   trees["cuda"]))
-            err = np.abs(va - vb)
-            if va.shape != vb.shape or (
-                    err > 1e-6 * np.abs(va) + 1e-6 * np.abs(va).max()).any():
-                fail(f"{name} run: {os.path.relpath(a, trees['cpu'])} "
-                     "differs between cuda and cpu beyond 1e-6")
-            worst = max(worst, float(err.max() / np.abs(va).max()))
-            n_files += 1
-    print(f"[{name} path] 256 cells x {n_species} species {label} f64: "
-          f"{n_files} "
-          f"result files agree between cuda and cpu (max difference "
-          f"{worst:.2e} of each file's largest value)")
-    if n_files == 0:
-        fail(f"{name} run wrote no result files")
+            fail(f"{name} run on cpu exited {rc}:\n{err}")
+        n_files = worst = 0
+        for d, _, files in os.walk(cpu_tree):
+            for f in files:
+                a = os.path.join(d, f)
+                va, vb = _values(a), _values(a.replace(cpu_tree, cuda_tree))
+                err = np.abs(va - vb)
+                if va.shape != vb.shape or (
+                        err > 1e-6 * np.abs(va)
+                        + 1e-6 * np.abs(va).max()).any():
+                    fail(f"{name} run: {os.path.relpath(a, cpu_tree)} "
+                         "differs between cuda and cpu beyond 1e-6")
+                worst = max(worst, float(err.max() / np.abs(va).max()))
+                n_files += 1
+        print(f"[{name} path] 256 cells x {n_species} species {label} f64: "
+              f"{n_files} result files agree between cuda and cpu (max "
+              f"difference {worst:.2e} of each file's largest value)")
+        if n_files == 0:
+            fail(f"{name} run wrote no result files")
+    _cpu_jobs.clear()
+
+
+def _stop_cpu_runs():
+    """End the background cpu runs: the queued ones cancelled, a running
+    one killed and waited for."""
+    global _cpu_pool
+    for job in _cpu_jobs:
+        job[3].cancel()
+    for proc in _cpu_procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if _cpu_pool is not None:
+        _cpu_pool.shutdown(wait=True, cancel_futures=True)
+        _cpu_pool = None
 
 
 def _values(path):
@@ -849,7 +942,7 @@ def _values(path):
 
 
 def phase_pair(smi: str, clock: float, run_dir: str, cfg, tag="pair",
-               plain_cells=4096):
+               plain_cells=2048):
     """The spectra kernel on one canonical group (16384 cells) of a
     main-path surface, f32, at the grid and the split the main path
     launches: two launches bit-identical; on the group's first
@@ -1184,6 +1277,9 @@ def _reset_counts():
     vah.LAUNCHES = vah.REMAP_LAUNCHES = 0
     polzn.LAUNCHES = polzn.REMAP_LAUNCHES = 0
     sample.LAUNCHES = sample.PACKED_LAUNCHES = sample.ALIAS_LAUNCHES = 0
+    sample.VAH_LAUNCHES = sample.VAH_PACKED_LAUNCHES = 0
+    sample.SEARCH_LAUNCHES = sample.SEARCH_PACKED_LAUNCHES = 0
+    sample.YIELDS_LAUNCHES = sample.YIELDS_VAH_LAUNCHES = 0
     mc_decays.LAUNCHES = 0
 
 
@@ -1206,7 +1302,13 @@ def _counts() -> dict:
                 polzn=polzn.LAUNCHES, polzn_remap=polzn.REMAP_LAUNCHES,
                 sample_events=sample.LAUNCHES,
                 sample_packed=sample.PACKED_LAUNCHES,
+                sample_events_vah=sample.VAH_LAUNCHES,
+                sample_packed_vah=sample.VAH_PACKED_LAUNCHES,
+                sample_events_search=sample.SEARCH_LAUNCHES,
+                sample_packed_search=sample.SEARCH_PACKED_LAUNCHES,
                 alias_tables=sample.ALIAS_LAUNCHES,
+                species_yields=sample.YIELDS_LAUNCHES,
+                species_yields_vah=sample.YIELDS_VAH_LAUNCHES,
                 mc_cascade=mc_decays.LAUNCHES)
 
 
@@ -1409,7 +1511,7 @@ def phase_dndx_main(smi: str, tag="dndx main", n_cells=DNDX_CELLS,
 
 
 def phase_dndx_pair(smi: str, clock: float, run_dir: str, cfg,
-                    plain_cells=2048):
+                    plain_cells=1024):
     """The dN/dX kernel on one canonical group (8192 cells) of the
     operation-0 path, f32: two launches bit-identical; on the group's first
     ``plain_cells`` cells agreement with the plain version and both f32
@@ -2026,7 +2128,8 @@ def phase_vah(smi: str, clock: float):
     surface); [vah pair] on one group of each (and of the 3+1D one with
     synthetic c0..c4: every chain on); [vah dndx] (operation 0, mode 2,
     16384 cells) and its group.  Returns the kernel records of the three
-    entry points."""
+    entry points, and [vah main 2d]'s run directory (kept for [sample vah
+    main 2d]) with its pion, kaon and proton dN/dy."""
     from is3d_tpu_torch import testing
     from is3d_tpu_torch.kernels import vah
     counts2, run_dir2, cfg2, _ = phase_main_path(
@@ -2048,10 +2151,11 @@ def phase_vah(smi: str, clock: float):
                       for k, v in coeffs.items()})
     rec_remap, rec_fixed, rec_chains = phase_vah_pair(smi, clock, [
         ("2+1D remap", g2, species2, grid2, cfg2, 512),
-        ("3+1D fixed", g3, species3, grid3, cfg3, 2048),
-        ("3+1D fixed, every chain", g3c, species3, grid3, cfg3, 2048)])
-    for d in (run_dir2, run_dir3):
-        shutil.rmtree(d, ignore_errors=True)
+        ("3+1D fixed", g3, species3, grid3, cfg3, 1024),
+        ("3+1D fixed, every chain", g3c, species3, grid3, cfg3, 1024)])
+    shutil.rmtree(run_dir3, ignore_errors=True)
+    # the operation-1 dN/dy [sample vah main 2d] holds its hadrons to
+    dndy = _dndy_files(os.path.join(run_dir2, "results"), (211, 321, 2212))
     rec_remap["launches"] = counts2["vah_spectra_remap"]
     rec_fixed.update(launches=counts3["vah_spectra"], every_chain=rec_chains)
 
@@ -2064,7 +2168,7 @@ def phase_vah(smi: str, clock: float):
     rec_dndx = phase_vah_dndx_pair(smi, clock, run_dir, cfg)
     rec_dndx["launches"] = counts["dndx_vah"]
     shutil.rmtree(run_dir, ignore_errors=True)
-    return rec_fixed, rec_remap, rec_dndx
+    return rec_fixed, rec_remap, rec_dndx, run_dir2, dndy
 
 
 def phase_polzn(smi: str, clock: float):
@@ -2090,7 +2194,7 @@ def phase_polzn(smi: str, clock: float):
         ("2+1D remap", _first_group(polzn.polzn_cols(run2.surface), cfg2),
          species2, grid2, cfg2, run2.plasma().temperature, 512),
         ("3+1D fixed", _first_group(polzn.polzn_cols(run3.surface), cfg3),
-         species3, grid3, cfg3, run3.plasma().temperature, 2048)])
+         species3, grid3, cfg3, run3.plasma().temperature, 1024)])
     for d in (run_dir2, run_dir3):
         shutil.rmtree(d, ignore_errors=True)
     rec_remap["launches"] = counts2["polzn_remap"]
@@ -2164,6 +2268,38 @@ def _packed_same(name, got, ref, per_slot, cfg, n_species, n_cells,
     return kept
 
 
+def phase_small_yields():
+    """[yields small]: K7b against species_yields_plain on
+    testing.YIELDS_EDGES (df 1-4 and VAH, broken-down cells, a massless
+    species, clamped densities, baryon chemistry, cold cells whose e^pbar
+    would overflow), f32 and f64: the densities and row sums within TOL,
+    two launches and the row-sums mode bit-identical."""
+    from is3d_tpu_torch import testing
+    from is3d_tpu_torch.kernels import sample
+    for dtype in (torch.float32, torch.float64):
+        for case in sorted(testing.YIELDS_EDGES):
+            inp = testing.yields_edge_inputs(case, dtype, "cuda")
+            args = (inp["cols"], inp["species"], inp["laguerre"], inp["cfg"])
+            got, sums = sample.species_yields_cuda(*args)
+            again, sums2 = sample.species_yields_cuda(*args)
+            none, sums3 = sample.species_yields_cuda(*args, sums_only=True)
+            want, wsums = sample.species_yields_plain(*args)
+            torch.cuda.synchronize()
+            name = f"[yields small] {case} {str(dtype)[6:]}"
+            if not (none is None and torch.equal(got, again)
+                    and torch.equal(sums, sums2)
+                    and torch.equal(sums, sums3)):
+                fail(f"{name}: two launches (or the row-sums mode) differ")
+            _check(f"{name} densities", got, want, *TOL[dtype])
+            _check(f"{name} row sums", sums, wsums, *TOL[dtype])
+            try:
+                seen = testing.yields_edge_seen(case, inp, got)
+            except AssertionError as e:
+                fail(f"{name}: the case did not exercise its edge: {e}")
+            print(f"{name}: {seen}; two launches and the row-sums mode "
+                  "bit-identical")
+
+
 def phase_small_sample():
     """[sample small]: K7 against its plain version on testing.SAMPLE_EDGES
     (every df mode, 2+1D and 3+1D, broken-down cells, baryon diffusion;
@@ -2177,8 +2313,10 @@ def phase_small_sample():
     from is3d_tpu_torch.config import Config
     from is3d_tpu_torch.io.surface import ThermoAverages
     from is3d_tpu_torch.kernels import sample
-    flips = {torch.float32: [0, 0], torch.float64: [0, 0]}
+    flips = {}
     for case in sorted(testing.SAMPLE_EDGES):
+        tag = ("[sample search small]" if "search" in case else
+               "[sample vah small]" if "vah" in case else "[sample small]")
         for dtype in (torch.float32, torch.float64):
             inp = testing.sample_edge_inputs(case, dtype, "cuda")
             args = (inp["rows"], inp["layout"], inp["tables"],
@@ -2192,15 +2330,16 @@ def phase_small_sample():
             torch.cuda.synchronize()
             if not all(torch.equal(got[k], again[k]) for k in got):
                 fail(f"[sample small] {case}: two launches differ")
-            name = f"[sample small] {case} {str(dtype)[6:]}"
+            name = f"{tag} {case} {str(dtype)[6:]}"
             nf, nv, err = _slot_err(name, want, got, inp["counts"],
                                     inp["n_cap"], dtype)
             try:
                 seen = testing.sample_edge_seen(case, inp, got)
             except AssertionError as e:
                 fail(f"{name}: the case did not exercise its edge: {e}")
-            flips[dtype][0] += nf
-            flips[dtype][1] += nv
+            f = flips.setdefault((tag, dtype), [0, 0])
+            f[0] += nf
+            f[1] += nv
             C, S = inp["rows"].shape[0], inp["species"].mass.shape[0]
             kept = int(got["keep"].sum())
             caps = (sample._packed_capacity(
@@ -2216,8 +2355,8 @@ def phase_small_sample():
                   "two launches bit-identical; packed mode identical to "
                   f"pack_batch at capacities {caps[0]} and {caps[1]} "
                   f"({kept} kept)")
-    for dtype, (nf, nv) in flips.items():
-        print(f"[sample small] {str(dtype)[6:]}: {nf} of {nv} slots flipped "
+    for (tag, dtype), (nf, nv) in flips.items():
+        print(f"{tag} {str(dtype)[6:]}: {nf} of {nv} slots flipped "
               f"({nf / nv:.2e})")
 
     # a batch past its packed capacity runs again at twice it: same events
@@ -2242,7 +2381,8 @@ def phase_small_sample():
     if info["reruns"] < 1 or info_ref["reruns"]:
         fail(f"[sample small] forced rerun: {info['reruns']} reruns")
     _expect_counts("[sample small] forced rerun", _counts(), dict(
-        sample_packed=info["batches"] + info["reruns"], alias_tables=3))
+        sample_packed=info["batches"] + info["reruns"], alias_tables=3,
+        species_yields=1))
     same = len(ref) == len(got) and all(
         a[k].tobytes() == b[k].tobytes() for a, b in zip(ref, got) for k in a)
     if not same:
@@ -2403,26 +2543,49 @@ def _oscar_ok(path: str, n_events: int, n_hadrons: int, allowed=None):
     return os.path.getsize(path)
 
 
-def phase_sample_main(smi: str, name: str, args, decays=False):
+def _sample_counts(cfg, info, decays=False) -> dict:
+    """The launches of one operation-2 run: K7b once (a chunked run: twice a
+    chunk, the pre-pass and the chunk's phase A), K7a three times a table
+    build with alias draws, K7's packed mode (its surface's and draw's
+    instantiation) once a batch and once a rerun, K8 once a pass."""
+    vah, search = cfg.mode in (2, 3), not cfg.sampler_alias
+    tables = info.get("chunks", 1)
+    want = {("species_yields_vah" if vah else "species_yields"):
+            2 * tables if "chunks" in info else 1,
+            ("sample_packed_search" if search else "sample_packed_vah" if vah
+             else "sample_packed"): info["batches"] + info["reruns"]}
+    if not search:
+        want["alias_tables"] = 3 * tables
+    if decays:
+        want["mc_cascade"] = info["decays"]["passes"]
+    return want
+
+
+def phase_sample_main(smi: str, name: str, args, decays=False, run_dir=None,
+                      mode=1):
     """One operation-2 run at full width through the API a user calls
     (``IS3D.from_run_dir(...).run_particlization()``; the CLI's path) on a
     synthetic 131072-cell x 320-species 2+1D run directory (``decays``: the
-    decaying list): phases, the sampler's split (phase A, dispatch, wait
-    for the card, the copy to the host, event assembly), kept hadrons/s,
-    efficiency; K7 launched once a batch (and once a rerun), K7a three
-    times (the 2-level cell table and the species table), K8 once a pass
-    with decays; the OSCAR list (with decays: stable hadrons only)."""
+    decaying list; ``run_dir``: an existing one of surface ``mode``):
+    phases, the sampler's split (phase A, dispatch, wait for the card, the
+    copy to the host, event assembly), kept hadrons/s, efficiency; K7b
+    once, K7 launched once a batch (and once a rerun), K7a three times (the
+    2-level cell table and the species table) with alias draws, K8 once a
+    pass with decays; the OSCAR list (with decays: stable hadrons only).
+    Returns (counts, run_dir, cfg, info, result)."""
     from is3d_tpu_torch.api import IS3D
     from is3d_tpu_torch.config import load_config
     from is3d_tpu_torch.testing import write_synthetic_run_dir
     from is3d_tpu_torch.utils import PhaseTimer
 
-    run_dir = os.path.join(WORK, name.replace(" ", "_"))
-    t0 = time.perf_counter()
-    write_synthetic_run_dir(run_dir, MAIN_CELLS, MAIN_SPECIES, dimension=2,
-                            seed=0, decays=decays)
-    print(f"[{name}] synthetic run dir {MAIN_CELLS} cells x {MAIN_SPECIES} "
-          f"species written in {time.perf_counter() - t0:.2f} s")
+    if run_dir is None:
+        run_dir = os.path.join(WORK, name.replace(" ", "_"))
+        t0 = time.perf_counter()
+        write_synthetic_run_dir(run_dir, MAIN_CELLS, MAIN_SPECIES,
+                                dimension=2, seed=0, decays=decays, mode=mode)
+        print(f"[{name}] synthetic run dir {MAIN_CELLS} cells x "
+              f"{MAIN_SPECIES} species written in "
+              f"{time.perf_counter() - t0:.2f} s")
     overrides = dict(a.split("=", 1) for a in args[1:])
     _reset_counts()
     t0 = time.perf_counter()
@@ -2437,10 +2600,9 @@ def phase_sample_main(smi: str, name: str, args, decays=False):
         print(f"[{name}] run: {line}")
     phases = dict(timer.phases)
     info = result.sample_info
-    want = dict(sample_packed=info["batches"] + info["reruns"],
-                alias_tables=3)
-    if decays:
-        want["mc_cascade"] = info["decays"]["passes"]
+    cfg = load_config(os.path.join(run_dir, "iS3D_parameters.dat"),
+                      overrides=overrides)
+    want = _sample_counts(cfg, info, decays)
     _expect_counts(f"{name} path", counts, want)
     n_ev = len(result.events)
     n_had = sum(len(e["mcid"]) for e in result.events)
@@ -2469,13 +2631,20 @@ def phase_sample_main(smi: str, name: str, args, decays=False):
           + f"writers {phases['writers']:.3f} s, wall {wall:.3f} s | "
           f"{n_ev} events ({info['batches']} batches of "
           f"{info['events_per_batch']}, {info['reruns']} reruns, n_cap "
-          f"{info['n_cap']}, lam {info['lam']:.1f}), {n_had} hadrons, "
+          f"{info['n_cap']}, lam {info['lam']:.1f}), {n_had} hadrons "
+          f"(total yield {n_ev * info['total_yield']:.1f}), "
           f"{n_had / t_s:.4e} hadrons/s in the sampler phase, efficiency "
           f"{eff:.2f} %, OSCAR {size / 1e6:.1f} MB | launches "
           + ", ".join(f"{k} {counts[k]}" for k in want))
-    cfg = load_config(os.path.join(run_dir, "iS3D_parameters.dat"),
-                      overrides=overrides)
-    return counts, run_dir, cfg, info
+    return counts, run_dir, cfg, info, result
+
+
+def _species_counts(events, mcids) -> np.ndarray:
+    """Hadrons of each species in ``events``."""
+    ids = np.concatenate([e["mcid"] for e in events])
+    order = np.argsort(mcids)
+    pos = np.searchsorted(mcids[order], ids)
+    return np.bincount(order[pos], minlength=len(mcids))
 
 
 def _sample_bound(ops: dict, clock: float) -> tuple[float, str]:
@@ -2762,14 +2931,403 @@ def phase_cascade_pair(smi: str, clock: float, run_dir: str, cfg):
     return best
 
 
-def phase_sample(smi: str, clock: float):
+def _yields_inputs(run, cfg) -> tuple:
+    """K7b's float32 inputs on a run's surface as phase A builds them (VH:
+    the cells' T, alpha_B, bulkPi, breakdown and df coefficients; VAH:
+    Lambda and a_L), with the species and the Gauss-Laguerre rules."""
+    from is3d_tpu_torch.io.tables import laguerre_device
+    from is3d_tpu_torch.kernels import sample
+    from is3d_tpu_torch.kernels.common import prepare_cells
+    f32 = torch.float32
+    _, df_data, species, _, _ = run._prepare()
+    species = sample._cast_floats(species, f32)
+    lag = laguerre_device(32, (1, 2), dtype=f32, device="cuda")
+    if cfg.mode in (2, 3):
+        return dict(Lambda=run.surface.Lambda.to(f32),
+                    aL=run.surface.aL.to(f32)), species, lag
+    c = prepare_cells(sample._cast_floats(sample._sampler_cols(
+        run.surface, cfg), f32), cfg, sample._cast_floats(df_data, f32))
+    df = c["df"]
+    return dict(T=c["T"], alphaB=c["alphaB"], bulkPi=c["bulkPi"],
+                breakdown=torch.zeros_like(c["T"], dtype=torch.bool),
+                F=df.F, G=df.G, z=df.z, betabulk=df.betabulk), species, lag
+
+
+def phase_yields_pair(smi: str, clock: float, tag: str, run, cfg) -> dict:
+    """[yields pair] on a main path's surface (131072 cells x 320 species,
+    f32): K7b's device time (5 calls queued behind a device-side sleep,
+    median of 3; utils.cuda_queued_ms), its row-sums mode's, two launches
+    bit-identical, against its plain version (the torch quadrature phase A
+    ran before K7b, one timed run on the card) within TOL, and its bound
+    (kernels/sample.py:yields_formula_ops).  Returns K7b's record."""
+    from is3d_tpu_torch.kernels import sample
+    from is3d_tpu_torch.utils import cuda_queued_ms
+    cols, species, lag = _yields_inputs(run, cfg)
+    kern = lambda sums_only=False: sample.species_yields_cuda(
+        cols, species, lag, cfg, sums_only)
+    got, sums = kern()
+    again, sums2 = kern()
+    torch.cuda.synchronize()
+    if not (torch.equal(got, again) and torch.equal(sums, sums2)):
+        fail(f"[{tag}] two launches of K7b differ")
+    del again, sums2
+    k_ms, k_runs = cuda_queued_ms(kern, inner=5, n=3)
+    s_ms, _ = cuda_queued_ms(lambda: kern(True), inner=5, n=3)
+    (want, wsums), plain_ms = _timed_once(lambda: sample.species_yields_plain(
+        cols, species, lag, cfg))
+    err = _check(f"[{tag}] densities", got, want, *TOL[torch.float32])
+    _check(f"[{tag}] row sums", sums, wsums, *TOL[torch.float32])
+    C, S = got.shape
+    Q = lag[1][0].shape[0]
+    del want, wsums, got
+    ops = sample.yields_formula_ops(C, S, Q, cfg, 4)
+    t = dict(bytes=ops["bytes"] / HBM_RATE,
+             operations=ops["sfu"] / (N_SM * SFU_LANES * clock))
+    by = max(t, key=t.get)
+    bound = t[by] * 1e3
+    print(f"[{tag}] {smi} | K7b on {C} cells x {S} species x {Q} nodes: "
+          f"{k_ms:.4f} ms (runs {', '.join(f'{x:.4f}' for x in k_runs)}), "
+          f"row sums alone {s_ms:.4f} ms; bound {bound:.4f} ms ({by}: "
+          f"{ops['sfu']:.4e} special functions, {ops['bytes'] / 1e6:.1f} "
+          f"MB), kernel at {bound / k_ms:.1%} of it; the plain torch "
+          f"quadrature (phase A's before K7b) {plain_ms:.1f} ms (one run); "
+          "two launches bit-identical")
+    return dict(launches=None, max_abs_err=err, ms=k_ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, library_ms=None, cells=C,
+                species=S, nodes=Q, sums_only_ms=s_ms)
+
+
+def phase_sample_kernel_pair(smi: str, clock: float, tag: str, run, cfg,
+                             df_data, seed: int = 17) -> dict:
+    """[tag]: one batch of a main path's shape (the run's events per batch
+    x n_cap, f32) through ``cfg``'s K7 instantiation: per-slot mode (two
+    launches bit-identical) and packed mode (bit for bit pack_batch of the
+    per-slot output at the run's capacity and at half the kept hadrons),
+    device times (5 calls queued, median of 3) beside their bounds
+    (kernels/sample.py:sample_formula_ops); SAMPLE_PLAIN_SLOTS slots
+    against the plain version, slot by slot.  Returns K7's record."""
+    from is3d_tpu_torch.kernels import rng, sample
+    from is3d_tpu_torch.utils import cuda_queued_ms
+    timed = lambda fn: cuda_queued_ms(fn, inner=5, n=3)
+    _, _, species, _, _ = run._prepare()
+    species = sample._cast_floats(species, torch.float32)
+    cell = sample.build_cell_data(run.surface, species, df_data, cfg,
+                                  run.plasma())
+    lam = float(cell["dn_tot"].sum())
+    tables = sample.build_draw_tables(cell.pop("dn_list"), cell["dn_tot"],
+                                      cfg, lam)
+    rows, layout = sample.pack_rows(cell, cfg)
+    C, S = rows.shape[0], species.mass.shape[0]
+    n_cap = sample._slot_capacity(lam)
+    total = abs(sample._total_yield(cell, cfg))
+    n_ev = sample._oversample_nevents(None, total, cfg)
+    B = sample._batch_width(n_ev, n_cap)
+    cap = sample._packed_capacity(B, min(total, lam) or lam, n_cap)
+    counts = torch.as_tensor(rng.poisson_counts(seed, range(B), lam),
+                             dtype=torch.int32, device="cuda")
+    kern = lambda: sample.event_batch_cuda(rows, layout, tables, species,
+                                           counts, seed, 0, n_cap, cfg)
+    out, again = kern(), kern()
+    torch.cuda.synchronize()
+    if not all(torch.equal(out[k], again[k]) for k in out):
+        fail(f"[{tag}] two launches of K7 differ")
+    del again
+    k_ms, k_runs = timed(kern)
+    n_valid, n_rounds = int(counts.sum()), int(out["rounds"].sum())
+    ops = sample.sample_formula_ops(B * n_cap, n_valid, n_rounds, rows,
+                                    tables)
+    bound = _sample_bound(ops, clock)
+    kept = int(out["keep"].sum())
+    pk = lambda c: sample.event_batch_packed_cuda(
+        rows, layout, tables, species, counts, seed, 0, n_cap, cfg, c)
+    for c in (cap, kept // 2):
+        first = pk(c)
+        _packed_same(f"[{tag}] packed, capacity {c}", pk(c), first, out,
+                     cfg, S, C, c)
+        del first
+    pk_ms, pk_runs = timed(lambda: pk(cap))
+    packed = pk(cap)[0]
+    pk_ops = sample.sample_formula_ops(
+        B * n_cap, n_valid, n_rounds, rows, tables,
+        out_bytes=sample.packed_bytes(packed, kept, B))
+    pk_bound = _sample_bound(pk_ops, clock)
+    del packed, out
+    small = torch.tensor([SAMPLE_PLAIN_SLOTS], dtype=torch.int32,
+                         device="cuda")
+    ks = lambda: sample.event_batch_cuda(rows, layout, tables, species, small,
+                                         seed, 0, SAMPLE_PLAIN_SLOTS, cfg)
+    got = ks()
+    want, plain_ms = _timed_once(lambda: sample.event_batch_plain(
+        rows, tables, species, small,
+        sample.PhiloxSource(seed, 0, torch.float32), SAMPLE_PLAIN_SLOTS,
+        cfg))
+    nf, nv, err = _slot_err(f"[{tag}] small batch", want, got, small,
+                            SAMPLE_PLAIN_SLOTS, torch.float32)
+    ks_ms, _ = timed(ks)
+    print(f"[{tag}] {smi} | K7 ({sample._event_library(cfg, tables)}, df "
+          f"code {sample._kernel_df(cfg)}) one batch {B} events x {n_cap} "
+          f"slots ({n_valid} hadrons to sample, {n_rounds} proposals, "
+          f"{kept} kept): per-slot mode {k_ms:.3f} ms (runs "
+          f"{', '.join(f'{x:.3f}' for x in k_runs)}), bound {bound[0]:.4f} "
+          f"ms ({bound[1]}: {ops['bytes'] / 1e6:.1f} MB), kernel at "
+          f"{bound[0] / k_ms:.1%} of it; packed mode {pk_ms:.3f} ms (runs "
+          f"{', '.join(f'{x:.3f}' for x in pk_runs)}), bound "
+          f"{pk_bound[0]:.4f} ms ({pk_bound[1]}), at "
+          f"{pk_bound[0] / pk_ms:.1%} of it, bit-identical to pack_batch at "
+          f"capacities {cap} and {kept // 2}; two launches bit-identical; "
+          f"small batch of {SAMPLE_PLAIN_SLOTS} slots: kernel {ks_ms:.3f} "
+          f"ms, plain {plain_ms:.1f} ms (one run), {nf} of {nv} slots "
+          f"flipped, max err {err:.2e} of max")
+    return dict(launches=None, max_abs_err=err, ms=k_ms, plain_ms=plain_ms,
+                bound_ms=bound[0], bound_by=bound[1], library_ms=None,
+                slots=B * n_cap, plain_slots=SAMPLE_PLAIN_SLOTS,
+                kernel_ms_on_plain_slots=ks_ms, flipped=nf, packed_ms=pk_ms,
+                packed_bound_ms=pk_bound[0], packed_bound_by=pk_bound[1])
+
+
+def _dndy_files(results: str, mcids) -> dict:
+    """dN/dy at y = 0 of each of ``mcids`` from an operation-1 results
+    tree (dN_dy_MCID.dat)."""
+    out = {}
+    for m in mcids:
+        rows = np.atleast_2d(np.loadtxt(os.path.join(results,
+                                                     f"dN_dy_{m}.dat")))
+        out[m] = float(rows[np.argmin(np.abs(rows[:, 0])), 1])
+    return out
+
+
+def phase_sample_vah(smi: str, clock: float, run_dir: str, dndy: dict):
+    """[sample vah main 2d]: operation 2 on the [vah main 2d] surface (mode
+    2, 131072 x 320, 2+1D, f32, the chains gated off) through the API (the
+    CLI's path), oversampled to 1.5e6 hadrons, the OSCAR list: K7b (VAH)
+    once, K7a three times, K7-VAH's packed mode once a batch; pion, kaon
+    and proton dN/dy within 5 sigma + 2 % of that surface's operation-1
+    spectra (``dndy``).  Its 256-cell cuda-against-cpu runs (mode 2 in
+    2+1D, mode 3 in 3+1D, f64).  [sample vah pair]: one batch of that shape
+    with synthetic c0..c4 (every chain on); [yields pair] for VAH.
+    Returns the records of K7-VAH and K7b (VAH)."""
+    import dataclasses
+    from is3d_tpu_torch import testing
+    from is3d_tpu_torch.api import IS3D
+    from is3d_tpu_torch.kernels import sample
+    counts, run_dir, cfg, info, result = phase_sample_main(
+        smi, "sample vah main 2d", SAMPLE_VAH2D_ARGS, run_dir=run_dir,
+        mode=2)
+    n_ev = len(result.events)
+    n_sp = _species_counts(result.events, np.asarray(result.mcids))
+    lines = []
+    for m, want in dndy.items():
+        n = int(n_sp[list(result.mcids).index(m)])
+        got = n / (2.0 * cfg.y_cut * n_ev)
+        sig = math.sqrt(max(n, 1)) / (2.0 * cfg.y_cut * n_ev)
+        lines.append(f"{m} {got:.4f} against {want:.4f}")
+        if abs(got - want) > 5.0 * sig + 0.02 * want:
+            fail(f"[sample vah main 2d] dN/dy of {m}: sampled {got:.5f}, "
+                 f"operation 1 {want:.5f} (sigma {sig:.5f})")
+    print(f"[sample vah main 2d] dN/dy at y = 0, sampled against the "
+          f"[vah main 2d] spectra: {'; '.join(lines)} (within 5 sigma + 2 %)")
+    small = dict(operation=2, sampler_seed=3, oversample=1,
+                 min_num_hadrons=3000)
+    for dim, mode in ((2, 2), (3, 3)):
+        phase_small_path_cpu_vs_cuda(
+            f"small_sample_vah_{dim}d", dimension=dim, params=small,
+            mode=mode, label=f"operation 2 mode {mode} {dim}+1D")
+    run = IS3D(cfg, data_dir=run_dir, device="cuda")
+    run.read_fo_surf_from_file(write_averages=False)
+    rec_y = phase_yields_pair(smi, clock, "yields pair vah", run, cfg)
+    rec_y["launches"] = counts["species_yields_vah"]
+    surf = run.surface
+    coef = testing.synthetic_vah_coefficients(
+        {"tau": np.zeros(surf.tau.shape[0])}, seed=0)
+    run.surface = dataclasses.replace(surf, **{
+        k: torch.tensor(v, dtype=surf.tau.dtype, device="cuda")
+        for k, v in coef.items()})
+    chains = sample.sampler_effective_cfg(run.surface, cfg)
+    if sample._kernel_df(chains) != 11:
+        fail(f"[sample vah pair] the gate kept {sample._kernel_df(chains)}")
+    rec = phase_sample_kernel_pair(smi, clock, "sample vah pair", run, chains,
+                                   None)
+    rec["launches"] = counts["sample_packed_vah"]
+    return rec, rec_y
+
+
+def phase_sample_search(smi: str, clock: float, run_dir: str, alias_result):
+    """[sample search 2d]: the [sample main 2d] run again with
+    sampler_alias = 0: K7-search's packed mode once a batch and K7b once,
+    no K7a; each species' count within 5 sigma of the alias run's.  Its
+    256-cell cuda-against-cpu run (f64); [sample search pair] on one batch
+    of that shape.  Returns K7-search's record."""
+    from is3d_tpu_torch.api import IS3D
+    counts, _, cfg, info, result = phase_sample_main(
+        smi, "sample search 2d", SAMPLE2D_ARGS + ["sampler_alias=0"],
+        run_dir=run_dir)
+    mcids = np.asarray(result.mcids)
+    a = _species_counts(result.events, mcids)
+    b = _species_counts(alias_result.events, mcids)
+    if len(result.events) != len(alias_result.events):
+        fail(f"[sample search 2d] {len(result.events)} events, the alias "
+             f"run {len(alias_result.events)}")
+    bad = np.abs(a - b) > 5.0 * np.sqrt(a + b + 1.0)
+    if bad.any():
+        fail(f"[sample search 2d] species {mcids[bad].tolist()}: counts "
+             f"{a[bad].tolist()} against the alias run's {b[bad].tolist()}")
+    print(f"[sample search 2d] {len(mcids)} species' counts ({int(a.sum())} "
+          f"against {int(b.sum())} hadrons) within 5 sigma of the alias "
+          "run's")
+    phase_small_path_cpu_vs_cuda(
+        "small_sample_search", dimension=2, params=dict(
+            operation=2, sampler_seed=3, oversample=1, min_num_hadrons=3000),
+        args=("df_mode=2", "regulate_deltaf=1", "sampler_alias=0"),
+        label="operation 2 df2 sampler_alias=0")
+    run = IS3D(cfg, data_dir=run_dir, device="cuda")
+    run.read_fo_surf_from_file(write_averages=False)
+    _, df_data, _, _, _ = run._prepare()
+    rec = phase_sample_kernel_pair(smi, clock, "sample search pair", run, cfg,
+                                   df_data)
+    rec["launches"] = counts["sample_packed_search"]
+    return rec
+
+
+def phase_sample_chunked(smi: str):
+    """[sample chunked]: the API (IS3D.read_fo_surf_from_memory, then
+    run_particlization without writers) on an in-memory viscous-hydro
+    surface of CHUNKED_CELLS cells x 320 species (2+1D, df 2, f32), one
+    event, the default sampler_cell_chunk: 3 chunks of at most 2^19 cells,
+    K7b twice a chunk (the pre-pass, the chunk's phase A), K7a three times
+    a chunk, K7's packed mode once a batch; the same surface unchunked
+    (sampler_cell_chunk = -1); the two hadron counts within 5 sigma of
+    each other; peak device memory of each.  Then the 256-cell
+    cuda-against-cpu run with sampler_cell_chunk = 64 (f64)."""
+    from is3d_tpu_torch import testing
+    from is3d_tpu_torch.api import IS3D
+    from is3d_tpu_torch.config import load_config
+    from is3d_tpu_torch.utils import PhaseTimer
+    rd = os.path.join(WORK, "chunked_tables")
+    testing.write_synthetic_run_dir(rd, 16, MAIN_SPECIES, dimension=2, seed=0)
+    t0 = time.perf_counter()
+    cells = testing.synthetic_surface_cells(CHUNKED_CELLS, 2, seed=0)
+    t_gen = time.perf_counter() - t0
+    over = dict(a.split("=", 1) for a in SAMPLE2D_ARGS[1:])
+    over.update(oversample=0)
+    runs = {}
+    for name, chunk in (("chunked", 0), ("unchunked", -1)):
+        cfg = load_config(os.path.join(rd, "iS3D_parameters.dat"),
+                          overrides=dict(over, sampler_cell_chunk=chunk))
+        run = IS3D(cfg, data_dir=rd, device="cuda")
+        run.read_fo_surf_from_memory(**cells)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _reset_counts()
+        timer = PhaseTimer(verbose=False)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            result = run.run_particlization(write_files=False, timer=timer)
+        wall = time.perf_counter() - t0
+        counts = _counts()
+        info = result.sample_info
+        _expect_counts(f"[sample chunked] {name}", counts,
+                       _sample_counts(cfg, info))
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        n = sum(len(e["mcid"]) for e in result.events)
+        runs[name] = n
+        t = info["timings"]
+        print(f"[sample chunked] {smi} | {name}: {CHUNKED_CELLS} cells x "
+              f"{MAIN_SPECIES} species, {info.get('chunks', 1)} chunks, "
+              f"{len(result.events)} event, {n} hadrons (total yield "
+              f"{info['total_yield']:.1f}), sampler "
+              f"{dict(timer.phases)['sampler']:.3f} s (phase A "
+              f"{t['phase_a']:.3f}, "
+              f"dispatch {t['dispatch']:.3f}, wait {t['wait']:.3f}, copy "
+              f"{t['copy']:.3f}, assembly {t['assembly']:.3f}), wall "
+              f"{wall:.3f} s, peak device memory {peak:.2f} GiB above the "
+              "surface | launches " + ", ".join(
+                  f"{k} {v}" for k, v in counts.items() if v))
+        if name == "chunked" and info["chunks"] != 3:
+            fail(f"[sample chunked] {info['chunks']} chunks, expected 3")
+        del run, result
+    a, b = runs["chunked"], runs["unchunked"]
+    if abs(a - b) > 5.0 * math.sqrt(a + b):
+        fail(f"[sample chunked] {a} hadrons chunked, {b} unchunked")
+    print(f"[sample chunked] {a} hadrons chunked against {b} unchunked, "
+          f"within 5 sigma (surface generated in {t_gen:.1f} s)")
+    shutil.rmtree(rd, ignore_errors=True)
+    phase_small_path_cpu_vs_cuda(
+        "small_sample_chunked", dimension=2, params=dict(
+            operation=2, sampler_seed=3, oversample=1, min_num_hadrons=3000),
+        args=("df_mode=2", "regulate_deltaf=1", "sampler_cell_chunk=64"),
+        label="operation 2 df2 sampler_cell_chunk=64")
+
+
+def phase_ensemble_small():
+    """[ensemble small]: ensemble.multiprocess_oversample with 2 worker
+    processes (python -m is3d_tpu_torch.ensemble_worker) on this card, on
+    a 256-cell run directory: the merged manifest complete, every batch's
+    file, each worker's batches its own; a batch file removed, its worker
+    resumed (oversample_run in this process) runs that batch alone and
+    rebuilds it byte for byte."""
+    from is3d_tpu_torch import ensemble, testing
+    rd = os.path.join(WORK, "ensemble")
+    testing.write_synthetic_run_dir(rd, 256, 11, 2, seed=1)
+    out = os.path.join(rd, "oversampling")
+    kw = dict(n_workers=2, events_per_batch=2, base_seed=7, device="cuda",
+              timeout=600, overrides=dict(operation=2, oversample=1,
+                                          min_num_hadrons=3000,
+                                          precision="f32"))
+    t0 = time.perf_counter()
+    merged = ensemble.multiprocess_oversample(rd, out, **kw)
+    wall = time.perf_counter() - t0
+    nb = len(merged["batches"])
+    if not merged["complete"] or nb < 2:
+        fail(f"[ensemble small] {nb} batches, missing "
+             f"{merged['missing_batches']}")
+    files = {b: open(v["file"], "rb").read()
+             for b, v in merged["batches"].items()}
+    for w in range(2):
+        with open(os.path.join(out, f"manifest_worker{w}.json")) as f:
+            own = set(json.load(f)["batches"])
+        if own != {str(b) for b in range(w, nb, 2)}:
+            fail(f"[ensemble small] worker {w} batches {sorted(own)}")
+    # worker 1 resumed in this process: only the removed batch runs again
+    os.remove(merged["batches"]["1"]["file"])
+    from is3d_tpu_torch.api import IS3D
+    run = IS3D.from_run_dir(rd, overrides=kw["overrides"], device="cuda")
+    table, df_data, species, mcids, _ = run._prepare()
+    _reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        ensemble.oversample_run(
+            run.surface, species, np.asarray(mcids), df_data, run.cfg,
+            run.plasma(), out_dir=out, events_per_batch=2, base_seed=7,
+            worker_id=1, n_workers=2, particle_table=table)
+    wall2 = time.perf_counter() - t0
+    again = ensemble.merge_manifests(out, 2)
+    counts = _counts()
+    if (not again["complete"] or counts["sample_packed"] != 1
+            or open(again["batches"]["1"]["file"], "rb").read()
+            != files["1"]):
+        fail("[ensemble small] the resumed worker did not rebuild batch 1 "
+             f"alone byte for byte ({counts['sample_packed']} batches run)")
+    print(f"[ensemble small] 2 workers, {nb} batches, "
+          f"{merged['total_hadrons']} hadrons, {wall:.1f} s; batch 1 "
+          f"removed and rebuilt byte for byte by worker 1 resumed, alone, "
+          f"{wall2:.1f} s")
+    shutil.rmtree(rd, ignore_errors=True)
+
+
+def phase_sample(smi: str, clock: float, vah_dir: str, vah_dndy: dict):
     """The operation-2 paths: [sample main 2d] and its 256-cell
     cuda-against-cpu runs (f64; the same Philox streams, so the same
-    lists), [sample pair]; [sample decays] (the decaying list,
-    do_resonance_decays = 1) with its small runs and [cascade pair].
-    Returns the kernel records of K7, K7a and K8."""
-    counts, run_dir, cfg, info = phase_sample_main(smi, "sample main 2d",
-                                                   SAMPLE2D_ARGS)
+    lists), [yields pair] (K7b on its surface), [sample pair], [sample
+    search 2d] and [sample search pair] on the same run directory;
+    [sample vah main 2d] on [vah main 2d]'s (``vah_dir``), [sample vah
+    pair] and K7b's VAH pair; [sample chunked]; [ensemble small]; [sample
+    decays] (the decaying list, do_resonance_decays = 1) with its small runs
+    and [cascade pair].  Returns the kernel records of K7, K7a, K8, K7b
+    (VH, VAH), K7-VAH and K7-search."""
+    from is3d_tpu_torch.api import IS3D
+    counts, run_dir, cfg, info, result = phase_sample_main(
+        smi, "sample main 2d", SAMPLE2D_ARGS)
     small = dict(operation=2, sampler_seed=3, oversample=1,
                  min_num_hadrons=3000)
     _reset_counts()
@@ -2781,11 +3339,22 @@ def phase_sample(smi: str, clock: float):
              "packed mode only")
     print(f"[small_sample path] the cuda run went through K7's packed mode "
           f"({small_counts['sample_packed']} launches)")
+    run = IS3D(cfg, data_dir=run_dir, device="cuda")
+    run.read_fo_surf_from_file(write_averages=False)
+    rec_y = phase_yields_pair(smi, clock, "yields pair", run, cfg)
+    rec_y["launches"] = counts["species_yields"]
+    del run
     rec_k7, rec_k7a = phase_sample_pair(smi, clock, run_dir, cfg, info)
     rec_k7["launches"] = counts["sample_packed"]
     rec_k7a["launches"] = counts["alias_tables"]
+    rec_search = phase_sample_search(smi, clock, run_dir, result)
+    del result
     shutil.rmtree(run_dir, ignore_errors=True)
-    counts, run_dir, cfg, _ = phase_sample_main(
+    rec_vah, rec_y_vah = phase_sample_vah(smi, clock, vah_dir, vah_dndy)
+    shutil.rmtree(vah_dir, ignore_errors=True)
+    phase_sample_chunked(smi)
+    phase_ensemble_small()
+    counts, run_dir, cfg, _, _ = phase_sample_main(
         smi, "sample decays", SAMPLE_DECAYS_ARGS, decays=True)
     phase_small_path_cpu_vs_cuda("small_sample_decays", dimension=2,
                                  params=small, n_species=24, decays=True,
@@ -2793,7 +3362,7 @@ def phase_sample(smi: str, clock: float):
     rec_k8 = phase_cascade_pair(smi, clock, run_dir, cfg)
     rec_k8["launches"] = counts["mc_cascade"]
     shutil.rmtree(run_dir, ignore_errors=True)
-    return rec_k7, rec_k7a, rec_k8
+    return rec_k7, rec_k7a, rec_k8, rec_y, rec_y_vah, rec_vah, rec_search
 
 
 def main():
@@ -2809,6 +3378,7 @@ def main():
     phase_small_feqmod()
     phase_small_vah()
     phase_small_polzn()
+    phase_small_yields()
     phase_small_sample()
     phase_small_alias()
     phase_small_cascade()
@@ -2825,7 +3395,7 @@ def main():
         phase_small_path_cpu_vs_cuda(
             "small_2d", dimension=2, label="2+1D mT remap df2")
         rec_remap = phase_pair(smi, clock, run_dir, cfg2d, "remap pair",
-                               plain_cells=2048)
+                               plain_cells=1024)
         rec_remap["launches"] = counts["smooth_spectra_remap"]
         shutil.rmtree(run_dir, ignore_errors=True)
         counts, dndx_dir, dndx_cfg = phase_dndx_main(smi)
@@ -2855,10 +3425,14 @@ def main():
         experiments = phase_experiments(smi, clock)
         rec_feqmod, rec_feqmod_remap, rec_feqmod_dndx = phase_feqmod(smi,
                                                                     clock)
-        rec_vah, rec_vah_remap, rec_vah_dndx = phase_vah(smi, clock)
+        (rec_vah, rec_vah_remap, rec_vah_dndx, vah_dir,
+         vah_dndy) = phase_vah(smi, clock)
         rec_polzn, rec_polzn_remap = phase_polzn(smi, clock)
-        rec_k7, rec_k7a, rec_k8 = phase_sample(smi, clock)
+        (rec_k7, rec_k7a, rec_k8, rec_yields, rec_yields_vah, rec_k7_vah,
+         rec_k7_search) = phase_sample(smi, clock, vah_dir, vah_dndy)
+        phase_cpu_runs()
     finally:
+        _stop_cpu_runs()
         shutil.rmtree(WORK, ignore_errors=True)
     src = "is3d_tpu_torch/csrc/"
     kernels = [
@@ -2905,6 +3479,17 @@ def main():
              replaces="is3d_tpu/kernels/sample.py:92", **rec_k7a),
         dict(name="mc_cascade", route="cuda", source=src + "mc_decays.cu",
              replaces="is3d_tpu/kernels/mc_decays.py:242", **rec_k8),
+        dict(name="species_yields", route="cuda", source=src + "yields.cu",
+             replaces="is3d_tpu/kernels/sample.py:278", **rec_yields),
+        dict(name="species_yields_vah", route="cuda",
+             source=src + "yields.cu",
+             replaces="is3d_tpu/kernels/sample.py:484", **rec_yields_vah),
+        dict(name="sample_events_vah", route="cuda",
+             source=src + "sample_vah.cu",
+             replaces="is3d_tpu/kernels/sample.py:889", **rec_k7_vah),
+        dict(name="sample_events_search", route="cuda",
+             source=src + "sample_search.cu",
+             replaces="is3d_tpu/kernels/sample.py:712", **rec_k7_search),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

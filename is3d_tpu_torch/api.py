@@ -13,9 +13,10 @@ do_resonance_decays = 1) on viscous-hydro surfaces with linear delta-f (df
 surfaces (modes 2-3, the VAH emission) and on thermal-vorticity surfaces
 (mode 5: the spin polarization, then the operation); operation 2 (the
 Monte-Carlo sampler, with the event-level decay cascade when
-do_resonance_decays = 1) on the viscous-hydro surfaces, df 1-4.  The
-other paths raise NotImplementedError naming the ROADMAP slice that ports
-them.
+do_resonance_decays = 1) on the viscous-hydro surfaces, df 1-4, and on the
+anisotropic-hydro ones, with alias or binary-search draws, cell-chunked
+above sampler_cell_chunk.  Multi-GPU runs (``mesh=``) raise
+NotImplementedError naming the ROADMAP slice that ports them.
 """
 
 from __future__ import annotations
@@ -76,13 +77,10 @@ def _not_ported(what: str, slice_name: str, cfg: Config):
 
 
 def check_supported(cfg: Config):
-    """Raise NotImplementedError for every configuration this slice of the
-    port does not run."""
+    """Raise ValueError for a configuration no operation reads (operation,
+    df_mode, precision); every valid one runs on one device."""
     if cfg.operation not in (0, 1, 2):
         raise ValueError(f"operation must be 0, 1 or 2, got {cfg.operation}")
-    if cfg.operation == 2:
-        from .kernels.sample import check_sampler_supported
-        check_sampler_supported(cfg)
     # df_mode must be valid on every surface; VAH (modes 2-3) ignores it
     if cfg.df_mode not in (1, 2, 3, 4):
         raise ValueError(f"df_mode must be 1-4, got {cfg.df_mode}")
@@ -342,8 +340,10 @@ class IS3D:
         seed = _resolve_seed(None, cfg)
         info = {}
         with timer.phase("sampler"):
+            # VAH surfaces (modes 2-3) never read the VH df tables
             result.events = sample_particles(
-                self.surface, species, np.asarray(mcids), df_data, cfg,
+                self.surface, species, np.asarray(mcids),
+                None if cfg.mode in (2, 3) else df_data, cfg,
                 self.plasma(), seed=seed, info=info)
         result.sample_info = info
         if cfg.do_resonance_decays and not cfg.test_sampler:

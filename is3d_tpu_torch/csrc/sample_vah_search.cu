@@ -1,0 +1,8 @@
+// The Monte-Carlo sampler's event batch (K7, csrc/sample.cuh) on
+// anisotropic hydro (modes 2-3) with the binary-search
+// draws, for Hopper (sm_90a), float32 and float64:
+// a library of its own, so that nvcc builds it beside the others.
+
+#include "sample.cuh"
+
+IS3D_SAMPLE_EVENT_ENTRIES(true, true)

@@ -1,0 +1,83 @@
+"""Worker process of ensemble.multiprocess_oversample (port of
+is3d_tpu/ensemble_worker.py).
+
+Usage (spawned by multiprocess_oversample, or by hand or a scheduler
+against a shared filesystem)::
+
+    python -m is3d_tpu_torch.ensemble_worker worker_id=0 n_workers=4 \\
+        run_dir=. out_dir=oversampling events_per_batch=100 base_seed=0 \\
+        [device=cuda|cpu] [platform=cpu|gpu|cuda] [any iS3D parameter]
+
+The worker loads the surface from the reference-layout run_dir, derives
+the same deterministic batch plan as every other worker, and samples the
+batches with batch % n_workers == worker_id, checkpointing each into its
+own manifest.  ``platform`` maps to ``device`` as the CLI maps it;
+``mesh_devices`` and ``host_devices`` raise NotImplementedError
+(multi-device workers, ROADMAP slice 11).
+"""
+
+from __future__ import annotations
+
+import sys
+
+_OWN_KEYS = ("worker_id", "n_workers", "run_dir", "out_dir",
+             "events_per_batch", "base_seed", "platform", "max_batches",
+             "mesh_devices", "host_devices", "device")
+_PLATFORM_DEVICE = {"cpu": "cpu", "gpu": "cuda", "cuda": "cuda"}
+
+
+def main(argv: list[str]) -> int:
+    kv = {}
+    for a in argv:
+        if "=" not in a:
+            raise SystemExit(f"arguments must be key=value, got {a!r}")
+        k, v = a.split("=", 1)
+        kv[k] = v
+    if kv.get("mesh_devices") or kv.get("host_devices"):
+        raise NotImplementedError(
+            "mesh_devices / host_devices (multi-device workers) is not "
+            "ported yet: ROADMAP section 1, slice 11")
+    device = kv.get("device")
+    if kv.get("platform"):
+        mapped = _PLATFORM_DEVICE.get(kv["platform"])
+        if mapped is None or (device is not None
+                              and device.split(":")[0] != mapped):
+            raise SystemExit(f"platform={kv['platform']} is not one of cpu, "
+                             f"gpu, cuda, or contradicts device={device}")
+        device = mapped
+    device = device or "cuda"
+
+    import numpy as np
+    from . import config as _config
+    from .api import IS3D
+    from .ensemble import oversample_run
+
+    overrides = {k: v for k, v in kv.items() if k not in _OWN_KEYS}
+    # a mistyped worker key (n_worker=4) would reach the config, be
+    # dropped there, and leave this worker sampling every batch of the plan
+    unknown = sorted(k for k in overrides if k not in _config._FIELD_TYPES)
+    if unknown:
+        raise SystemExit(
+            f"unknown argument(s) {unknown}: not a worker key "
+            f"({', '.join(_OWN_KEYS)}) and not an iS3D config parameter")
+    run = IS3D.from_run_dir(kv.get("run_dir", "."), overrides=overrides,
+                            device=device)
+    run.read_fo_surf_from_file(write_averages=False)
+    table, df_data, species, mcids, _grid = run._prepare()
+    n_batches, total, ntot = oversample_run(
+        run.surface, species, np.asarray(mcids),
+        None if run.cfg.mode in (2, 3) else df_data, run.cfg, run.plasma(),
+        out_dir=kv.get("out_dir", "oversampling"),
+        events_per_batch=int(kv.get("events_per_batch", 100)),
+        base_seed=int(kv.get("base_seed", 0)),
+        max_batches=int(kv.get("max_batches", 1000)),
+        worker_id=int(kv.get("worker_id", 0)),
+        n_workers=int(kv.get("n_workers", 1)), particle_table=table)
+    print(f"worker {kv.get('worker_id', 0)}/{kv.get('n_workers', 1)}: "
+          f"{total} hadrons over its share of {n_batches} batches "
+          f"(mean yield {ntot:.3f}/event)")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main(sys.argv[1:]))

@@ -208,6 +208,12 @@ def _cached_device_tables(table, lightest: int, dtype, device) -> dict:
     return dev[key]
 
 
+# the lineage keying scheme above: part of which bytes a decayed batch is,
+# so a resumed ensemble run refuses a manifest of another version
+# (ensemble.oversample_run)
+DECAY_STREAM_VERSION = 2
+
+
 def derive_decay_seed(seed: int) -> int:
     """The decay streams' seed from the sampler's, through a SeedSequence
     branch of its own (is3d_tpu/kernels/mc_decays.py:derive_decay_seed)."""

@@ -1250,6 +1250,21 @@ SAMPLE_EDGES = {
     "3d_df3": dict(dimension=3, df_mode=3, scales=(0.1, 0.01)),
     "2d_df4": dict(dimension=2, df_mode=4, scales=(0.1, 0.01)),
     "3d_df4": dict(dimension=3, df_mode=4, scales=(0.1, 0.01)),
+    # anisotropic hydro (K7-VAH): mode 2 gated (no c0..c4, every real VAH
+    # file), each chain alone, every chain on with and without the clip
+    "2d_vah": dict(dimension=2, vah=2),
+    "2d_vah_shear": dict(dimension=2, vah=2, chains=1),
+    "3d_vah_bulk": dict(dimension=3, vah=3, chains=2),
+    "3d_vah_chains": dict(dimension=3, vah=3, chains=3),
+    "2d_vah_chains_noreg": dict(dimension=2, vah=2, chains=3, regulate=0),
+    # the binary-search draws (K7-search, sampler_alias = 0)
+    "2d_df1_search": dict(dimension=2, df_mode=1, search=True),
+    "3d_df2_search": dict(dimension=3, df_mode=2, search=True),
+    "2d_df3_search_broken": dict(dimension=2, df_mode=3, scales=(0.3, 0.01),
+                                 search=True),
+    "3d_df4_search": dict(dimension=3, df_mode=4, scales=(0.1, 0.01),
+                          search=True),
+    "2d_vah_search": dict(dimension=2, vah=2, chains=3, search=True),
 }
 SAMPLE_EDGE_SEED = 23
 
@@ -1257,23 +1272,36 @@ SAMPLE_EDGE_SEED = 23
 def sample_edge_inputs(case: str, dtype=torch.float64, device="cpu",
                        n_cells: int = 1024, n_species: int = 13) -> dict:
     """The inputs of one batch of K7 for SAMPLE_EDGES[case]: rows and
-    layout (kernels/sample.py:pack_rows), the alias tables, species, the
-    per-event counts (a full event, a third, an empty one, one hadron),
-    n_cap, the Config, and the cell data (for edge_seen)."""
+    layout (kernels/sample.py:pack_rows), the draw's tables (alias, or the
+    search's cumulative sums), species, the per-event counts (a full
+    event, a third, an empty one, one hadron), n_cap, the Config (VAH: the
+    gated one), and the cell data (for edge_seen).  A quarter of the cells
+    have dsigma = 0 (zero yield) and species 2 is massless."""
     from .config import Config
     from .io.surface import ThermoAverages
     from .kernels import sample
     spec = SAMPLE_EDGES[case]
     dim = spec["dimension"]
-    cells = synthetic_surface_cells(n_cells, dim, seed=7)
-    s_pi, s_bulk = spec.get("scales", (1.0, 1.0))
-    for k in ("pixx", "pixy", "pixn", "piyy", "piyn"):
-        cells[k] = cells[k] * s_pi
-    cells["bulkPi"] = cells["bulkPi"] * s_bulk
+    kw = dict(operation=2, dimension=dim, df_mode=spec.get("df_mode", 2),
+              include_shear_deltaf=1, include_bulk_deltaf=1, y_cut=3.0,
+              sampler_alias=0 if spec.get("search") else 1,
+              regulate_deltaf=spec.get("regulate", 1))
+    if spec.get("vah"):
+        cells = synthetic_vah_cells(n_cells, dim, seed=7)
+        chains = spec.get("chains", 0)
+        coef = synthetic_vah_coefficients(cells, seed=7)
+        for i in range(5):
+            if (chains & 1 and i >= 3) or (chains & 2 and i < 3):
+                cells[f"c{i}"] = coef[f"c{i}"]
+        kw.update(mode=spec["vah"])
+    else:
+        cells = synthetic_surface_cells(n_cells, dim, seed=7)
+        s_pi, s_bulk = spec.get("scales", (1.0, 1.0))
+        for k in ("pixx", "pixy", "pixn", "piyy", "piyn"):
+            cells[k] = cells[k] * s_pi
+        cells["bulkPi"] = cells["bulkPi"] * s_bulk
     for k in ("dat", "dax", "day", "dan"):
         cells[k][::4] = 0.0
-    kw = dict(operation=2, dimension=dim, df_mode=spec["df_mode"],
-              include_shear_deltaf=1, include_bulk_deltaf=1, y_cut=3.0)
     if spec.get("baryon"):
         rng = np.random.default_rng(8)
         cells.update(muB=rng.uniform(0.05, 0.3, n_cells),
@@ -1282,18 +1310,21 @@ def sample_edge_inputs(case: str, dtype=torch.float64, device="cpu",
                      Vy=rng.normal(0, 0.01, n_cells),
                      Vn=rng.normal(0, 0.002, n_cells))
         kw.update(include_baryon=1, include_baryondiff_deltaf=1)
-    cfg = Config(**kw)
     species = synthetic_species(n_species, dtype=dtype, device=device)
     species = dataclasses.replace(species, mass=species.mass.clone())
     species.mass[2] = 0.0
     surface = surface_from_arrays(dtype=dtype, device=device, **cells)
+    cfg = sample.sampler_effective_cfg(surface, Config(**kw))
+    if spec.get("vah"):
+        assert sample._kernel_df(cfg) == 8 | spec.get("chains", 0), case
     plasma = ThermoAverages(0.152, 0.33, 0.057, 0.0, 0.0)
     cell = sample.build_cell_data(surface, species,
                                   synthetic_deltaf_data(dtype, device), cfg,
                                   plasma)
-    tables = sample.build_alias_tables(cell.pop("dn_list"), cell["dn_tot"])
-    rows, layout = sample.pack_rows(cell, cfg)
     lam = float(cell["dn_tot"].sum())
+    tables = sample.build_draw_tables(cell.pop("dn_list"), cell["dn_tot"],
+                                      cfg, lam)
+    rows, layout = sample.pack_rows(cell, cfg)
     n_cap = sample._slot_capacity(lam)
     counts = torch.tensor([n_cap, n_cap // 3, 0, 1], dtype=torch.int32,
                           device=device)
@@ -1321,10 +1352,86 @@ def sample_edge_seen(case: str, inp: dict, out: dict) -> str:
     assert int(rounds.max()) > 1 and kept > 0
     desc = (f"{int(valid.sum())} slots, {kept} kept, rounds up to "
             f"{int(rounds.max())}")
-    if inp["cfg"].df_mode == 3:
+    cfg = inp["cfg"]
+    chains = int(cfg.include_shear_deltaf) | int(cfg.include_bulk_deltaf) << 1
+    if cfg.mode in (2, 3) and chains:
+        desc += f", chains {chains}"
+    if inp["cfg"].df_mode == 3 and inp["cfg"].mode not in (2, 3):
         broken = inp["cell"]["breakdown"].cpu()[cidx].double().mean().item()
         assert broken > (0.5 if "broken" in case else 0.0), broken
         desc += f", {broken:.0%} of slots on broken-down cells"
+    return desc
+
+
+# K7b (kernels/sample.py:species_yields): per case the df mode (or VAH),
+# dimension-free; breakdown cells, a massless species, strong negative
+# bulk (clamped densities), large roots in float32 (light species at low
+# T: e^pbar would overflow), baryon chemistry
+YIELDS_EDGES = {
+    "df1": dict(df_mode=1),
+    "df2_baryon": dict(df_mode=2, baryon=True),
+    "df3_broken": dict(df_mode=3, broken=0.5),
+    "df3_baryon": dict(df_mode=3, baryon=True, broken=0.2),
+    "df3_negative": dict(df_mode=3, bulk=-40.0),
+    "df4_broken": dict(df_mode=4, broken=0.3),
+    "vah": dict(vah=True),
+    "vah_cold": dict(vah=True, cold=True),
+}
+
+
+def yields_edge_inputs(case: str, dtype=torch.float64, device="cpu",
+                       n_cells: int = 777, n_species: int = 41) -> dict:
+    """K7b's inputs for YIELDS_EDGES[case]: the per-cell columns
+    (kernels/sample.py:YIELDS_VH_COLS or YIELDS_VAH_COLS), species (2
+    massless), the Gauss-Laguerre rules and the Config."""
+    from .config import Config
+    from .io.tables import laguerre_device
+    spec = YIELDS_EDGES[case]
+    rng = np.random.default_rng(41)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float64), dtype=dtype,
+                                  device=device)
+    species = synthetic_species(n_species, dtype=dtype, device=device)
+    species = dataclasses.replace(species, mass=species.mass.clone())
+    species.mass[2] = 0.0
+    lag = laguerre_device(32, (1, 2), dtype=dtype, device=device)
+    T = rng.uniform(0.02, 0.05, n_cells) if spec.get("cold") else \
+        rng.uniform(0.12, 0.17, n_cells)
+    if spec.get("vah"):
+        cfg = Config(operation=2, mode=2)
+        cols = dict(Lambda=t(T), aL=t(rng.uniform(0.3, 1.8, n_cells)))
+    else:
+        cfg = Config(operation=2, df_mode=spec["df_mode"],
+                     include_baryon=int(bool(spec.get("baryon"))))
+        broken = rng.random(n_cells) < spec.get("broken", 0.0)
+        cols = dict(T=t(T), alphaB=t(rng.uniform(0.0, 2.0, n_cells)
+                                     if spec.get("baryon") else
+                                     np.zeros(n_cells)),
+                    bulkPi=t(rng.normal(spec.get("bulk", 0.0), 0.02,
+                                        n_cells)),
+                    breakdown=torch.as_tensor(broken, device=device),
+                    F=t(rng.normal(0.0, 0.1, n_cells)),
+                    G=t(rng.normal(0.0, 0.1, n_cells)),
+                    z=t(rng.uniform(0.5, 1.5, n_cells)),
+                    betabulk=t(rng.uniform(0.05, 0.2, n_cells)))
+    return dict(cols=cols, species=species, laguerre=lag, cfg=cfg)
+
+
+def yields_edge_seen(case: str, inp: dict, dn: torch.Tensor) -> str:
+    """Check that the case exercised what it claims on the densities
+    ``dn`` (either version's): the massless species all zero, finite
+    values; df3_negative: clamped zeros; broken cases: both branches.
+    Returns a short description; raises AssertionError otherwise."""
+    dn = dn.double().cpu()
+    assert torch.isfinite(dn).all()
+    assert (dn[:, 2] == 0).all(), "a massless species has a density"
+    zeros = int((dn == 0).sum()) - dn.shape[0]
+    desc = f"{tuple(dn.shape)}, {zeros} clamped zeros"
+    if case == "df3_negative":
+        assert zeros > 0, "no density was clamped"
+    if "broken" in case:
+        b = inp["cols"]["breakdown"].cpu()
+        assert 0 < int(b.sum()) < b.numel()
+        desc += f", {int(b.sum())} broken-down cells"
     return desc
 
 

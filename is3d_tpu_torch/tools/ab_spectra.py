@@ -5,7 +5,7 @@ C, C, B, A).
     python -m is3d_tpu_torch.tools.ab_spectra ROOT_A ROOT_B [ROOT_C ...]
         [--cells N]
         [--cases 3d_df2,3d_df1,2d_fixed,2d_remap,bin,dndx,proto,decays,
-                 alias,sample,cascade]
+                 yields,alias,sample,cascade]
 
 Each turn runs a fresh interpreter that imports ``is3d_tpu_torch`` from
 that root (building its kernels into that root's _build/) and, per case:
@@ -38,6 +38,11 @@ that root (building its kernels into that root's _build/) and, per case:
   entry a (dimension, dtype, wave, body) (``decays_w0_3body`` the 3+1D
   float32 ones, ``decays_2d_float64_w0_3body`` the others); the float32
   entries' difference from the float64 kernel on the same launch;
+* ``yields``, phase A's (cell, species) densities on the surface of
+  ``alias`` and ``sample`` below (131072 x 320 x 32 nodes, df 2,
+  float32): that side's ``species_yields`` (K7b, csrc/yields.cu), or on a
+  side before K7b its torch quadrature (``_species_yields_exact``), timed
+  as ``alias``; its sum is that of the densities;
 * ``alias`` and ``sample``, the sampler on the surface of chip_smoke.py's
   [sample main 2d] run (``testing.write_synthetic_run_dir``: 131072 2+1D
   cells, 320 species, seed 0; df 2 with shear + bulk, float32, oversampled
@@ -83,7 +88,7 @@ import subprocess
 import sys
 
 CASES = ("3d_df2", "3d_df1", "2d_fixed", "2d_remap", "bin", "dndx", "proto",
-         "decays", "alias", "sample", "cascade")
+         "decays", "yields", "alias", "sample", "cascade")
 
 _TURN = r"""
 import json, statistics, sys
@@ -137,7 +142,7 @@ def sampler_surface():
     _, df_data, species, _, _ = run._prepare()
     cell = sample.build_cell_data(run.surface, species, df_data, cfg,
                                   run.plasma())
-    return cfg, sample._cast_floats(species, dt), cell
+    return cfg, sample._cast_floats(species, dt), cell, run, df_data
 
 
 # K8 on the [cascade pair] shape: pass by pass and the whole cascade
@@ -341,10 +346,28 @@ for case in cases:
     elif case == "cascade":
         cascade_cases(report)
         continue
+    elif case == "yields":
+        from is3d_tpu_torch.io.tables import laguerre_device
+        from is3d_tpu_torch.kernels import sample
+        surface = surface or sampler_surface()
+        cfg, species, _, run, df_data = surface
+        c = prepare_cells(sample._cast_floats(sample._sampler_cols(
+            run.surface, cfg), dt), cfg, sample._cast_floats(df_data, dt))
+        c["breakdown"] = torch.zeros_like(c["T"], dtype=torch.bool)
+        lag = laguerre_device(32, (1, 2), dtype=dt, device=dev)
+        if hasattr(sample, "species_yields"):
+            cols = dict(T=c["T"], alphaB=c["alphaB"], bulkPi=c["bulkPi"],
+                        breakdown=c["breakdown"], F=c["df"].F, G=c["df"].G,
+                        z=c["df"].z, betabulk=c["df"].betabulk)
+            go = lambda: sample.species_yields(cols, species, lag, cfg)[0]
+        else:       # before K7b: phase A's torch quadrature
+            go = lambda: sample._species_yields_exact(c, species, lag, cfg)
+        ms, runs, total = timed(go, inner=5)
+        err = None
     elif case in ("alias", "sample"):
         from is3d_tpu_torch.kernels import rng, sample
         surface = surface or sampler_surface()
-        cfg, species, cell = surface
+        cfg, species, cell = surface[:3]
         dn = cell["dn_list"]
         if case == "alias":
             ms, runs, total = timed(lambda: sample.alias_build(dn)[0],

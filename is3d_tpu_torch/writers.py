@@ -83,7 +83,7 @@ def _ensure_dir(path: str):
 _OWNED_PATTERNS = (
     "dN_pTdpTdphidy.dat", "dN_pTdpTdphidy_*.dat",
     "dN_dpTdphidy.dat", "dN_dpTdphidy_*.dat",
-    "dN_dphidy_*.dat", "dN_twopipTdpTdy_*.dat",
+    "dN_twopidpTdy_*.dat", "dN_dphidy_*.dat", "dN_twopipTdpTdy_*.dat",
     "dN_dy_*.dat", "vn_continuous/vn_*.dat",
     "St.dat", "Sx.dat", "Sy.dat", "Sn.dat", "Snorm.dat",
     "spacetime_distribution/dN_taudtaudy_*.dat",
@@ -151,6 +151,58 @@ def write_dN_dpTdphidy(spectra, grid, mcids, dimension, results_dir="results",
     _write_sci_table(f"{results_dir}/dN_dpTdphidy{suffix}.dat",
                      "y\tphip\tpT\tdN_dpTdphidy\n", rows.reshape(-1, 4),
                      blank_every=len(pTs))
+
+
+def write_dN_twopidpTdy(spectra, grid, mcids, dimension,
+                        results_dir="results"):
+    """results/dN_twopidpTdy_MCID.dat (reference: emissionfunction.cpp:
+    684-727, its call site commented out upstream; is3d_tpu/writers.py:160):
+    the phi-integrated dN/(2 pi dpT dy), dN_twopipTdpTdy times pT."""
+    vals = dN_twopipTdpTdy(spectra, grid)
+    ys = _y_values(grid, dimension)
+    pTs = _np(grid.pT)
+    rows = np.empty((len(mcids), len(ys), len(pTs), 3), np.float64)
+    rows[..., 0] = np.asarray(ys, np.float64)[None, :, None]
+    rows[..., 1] = np.asarray(pTs, np.float64)[None, None, :]
+    rows[..., 2] = (vals * pTs[None, :, None]).transpose(0, 2, 1)
+    for s, mcid in enumerate(mcids):
+        path = f"{results_dir}/dN_twopidpTdy_{int(mcid)}.dat"
+        _write_sci_table(path, None, rows[s].reshape(-1, 3),
+                         blank_every=len(pTs))
+
+
+def write_sampled_pT_pdf(events, mcids, cfg, results_dir="results"):
+    """results/momentum_distribution/pT_pdf_MCID_test.dat (reference:
+    emissionfunction.cpp:1008-1051, dead code upstream, its layout kept;
+    is3d_tpu/writers.py:178): each species' event-summed dN/dpT
+    histogram over [pT_lower_cut, pT_upper_cut) in pT_bins bins, divided
+    by the bin width and the species' count, under a header line of that
+    count."""
+    nbins = int(cfg.pT_bins)
+    lo, hi = float(cfg.pT_lower_cut), float(cfg.pT_upper_cut)
+    width = (hi - lo) / nbins
+    mids = lo + width * (np.arange(nbins) + 0.5)
+    mcids = np.asarray(mcids)
+    counts = np.zeros((len(mcids), nbins))
+    totals = np.zeros(len(mcids), dtype=np.int64)
+    for ev in events:
+        if len(ev) == 0 or len(np.atleast_1d(ev["mcid"])) == 0:
+            continue
+        pT = np.hypot(np.asarray(ev["px"]), np.asarray(ev["py"]))
+        ids = np.asarray(ev["mcid"])
+        for s, mcid in enumerate(mcids):
+            sel = ids == int(mcid)
+            totals[s] += int(sel.sum())
+            h, _ = np.histogram(pT[sel], bins=nbins, range=(lo, hi))
+            counts[s] += h
+    for s, mcid in enumerate(mcids):
+        path = f"{results_dir}/momentum_distribution/pT_pdf_{int(mcid)}_test.dat"
+        _ensure_dir(path)
+        with open(path, "w") as f:
+            f.write(f"{totals[s]}\n")
+            norm = width * max(totals[s], 1)
+            for ipT in range(nbins):
+                f.write(f"{mids[ipT]:.6e}\t{counts[s, ipT] / norm:.6e}\n")
 
 
 def write_dN_dphidy(spectra, grid, mcids, dimension, results_dir="results"):
@@ -230,6 +282,23 @@ def write_polarization(St, Sx, Sy, Sn, Snorm, grid, dimension,
         rows = _block_rows(ys, phis, pTs, _np(arr) / Snorm)
         _write_sci_table(f"{results_dir}/{name}.dat", None,
                          rows.reshape(-1, 4), blank_every=len(pTs))
+
+
+def write_particle_list_csv(events, results_dir="results"):
+    """results/particle_list_{i}.dat, one CSV file an event (reference:
+    emissionfunction.cpp:829-860; is3d_tpu/writers.py:298): a header, then
+    mcid and tau, x, y, eta, E, px, py, pz as Python's %.8e, one hadron a
+    line."""
+    for ievent, ev in enumerate(events):
+        path = f"{results_dir}/particle_list_{ievent + 1}.dat"
+        _ensure_dir(path)
+        with open(path, "w") as f:
+            f.write("mcid,tau,x,y,eta,E,px,py,pz\n")
+            for i in range(len(ev["mcid"])):
+                f.write(f"{int(ev['mcid'][i])}," + ",".join(
+                    f"{float(ev[k][i]):.8e}"
+                    for k in ("tau", "x", "y", "eta", "E", "px", "py", "pz"))
+                    + "\n")
 
 
 def write_spacetime_distributions(dX: dict, mcids, results_dir="results"):

@@ -186,12 +186,15 @@ def test_vh_surface_readers_match_jax(tmp_path, mode, baryon, diff):
 
 
 def test_vah_modes_raise_not_implemented(tmp_path):
-    # the VAH readers are ported; what VAH surfaces do not run yet is the
-    # sampler (operation 2)
+    # the VAH readers and every operation on VAH surfaces are ported, the
+    # sampler (operation 2) last; what raises is mesh= (slice 11)
     for mode in (2, 3):
-        with pytest.raises(NotImplementedError, match="slice 9"):
-            IS3D(Config(operation=2, mode=mode), data_dir=str(tmp_path),
+        for op in (0, 1, 2):
+            IS3D(Config(operation=op, mode=mode), data_dir=str(tmp_path),
                  device="cpu")
+        with pytest.raises(NotImplementedError, match="slice 11"):
+            IS3D(Config(operation=2, mode=mode), data_dir=str(tmp_path),
+                 device="cpu", mesh=object())
 
 
 @pytest.mark.parametrize("df_mode,include_baryon",

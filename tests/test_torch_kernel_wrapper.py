@@ -113,9 +113,22 @@ def test_cli_defaults_to_cuda_and_raises_without_it(no_cuda, tmp_path):
     (dict(operation=2, df_mode=3, sampler_alias=0), "slice 9"),
     (dict(operation=2, do_resonance_decays=1, df_mode=4, mode=3), "slice 9"),
 ])
-def test_unported_configurations_raise(override, slice_name):
-    with pytest.raises(NotImplementedError, match=slice_name):
-        IS3D(Config(**override), device="cpu")
+def test_unported_configurations_raise(override, slice_name, tmp_path):
+    """Operation 2 on VAH surfaces and with the binary-search draws, which
+    raised NotImplementedError naming ``slice_name`` until that slice
+    (9, second half) ported them: each configuration now builds and runs
+    on a small run directory, and mesh= still raises, naming slice 11."""
+    mode = override.get("mode", 1)
+    run_dir = testing.write_synthetic_run_dir(
+        str(tmp_path), 24, 24 if override.get("do_resonance_decays") else 7,
+        2, seed=1, mode=mode, decays=bool(override.get("do_resonance_decays")),
+        params=dict(override, oversample=1, min_num_hadrons=200))
+    result = IS3D(Config(**override), data_dir=run_dir,
+                  device="cpu").run_particlization(write_files=False)
+    assert sum(len(e["mcid"]) for e in result.events) > 0
+    assert result.sample_info["total_yield"] > 0
+    with pytest.raises(NotImplementedError, match="slice 11"):
+        IS3D(Config(**override), device="cpu", mesh=object())
 
 
 @pytest.mark.gpu

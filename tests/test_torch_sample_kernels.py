@@ -1,11 +1,12 @@
 """The sampler's and the cascade's kernel wrappers without JAX: the CPU
 dispatch takes the plain versions and never loads a kernel; the wrappers
 refuse CPU tensors; the edge inputs (is3d_tpu_torch.testing's
-SAMPLE_EDGES, alias_edge_weights, cascade_edge_inputs) are what they
-claim; the packed plain version is pack_batch of the per-slot one; the
+SAMPLE_EDGES, YIELDS_EDGES, alias_edge_weights, cascade_edge_inputs) are
+what they claim; the packed plain version is pack_batch of the per-slot one; the
 interleaved (prob, alias) tables' views; the wide decay tables give the
-same cascade; and, on a CUDA card (gpu-marked), K7 (per-slot and packed),
-K7a and K8 against their plain versions on those inputs (K8 pass by pass
+same cascade; and, on a CUDA card (gpu-marked), K7 (per-slot and packed;
+viscous and anisotropic hydro, alias and search draws), K7a, K7b and K8
+against their plain versions on those inputs (K8 pass by pass
 and whole, on 4 and 64 channels a species, queued with no host sync, two
 runs bit-identical, its overflow guard; decay_events on the card against
 the CPU run).
@@ -15,8 +16,10 @@ On the GPU: python -m pytest tests/test_torch_sample_kernels.py -m gpu
 tables; K7 slot by slot, f64 with no flipped decision (acceptance,
 rounds, keep) and rtol 1e-10 / atol 1e-13 x max, f32 with at most 1e-4
 of the slots flipped and rtol 2e-4 / atol 2e-5 x max on the rest; K7's
-packed mode bit for bit pack_batch of its per-slot output; K8 the same
-daughters, f64 rtol 1e-10, f32 rtol 2e-4.
+packed mode bit for bit pack_batch of its per-slot output; K7b rtol 2e-4
+/ atol 2e-5 x max in f32 and 1e-10 / 1e-13 x max in f64, its row sums
+alike, two launches bit-identical; K8 the same daughters, f64 rtol 1e-10,
+f32 rtol 2e-4.
 """
 
 import numpy as np
@@ -125,6 +128,82 @@ def test_packed_plain_is_pack_batch_of_the_slots(case):
                                   int(out["rounds"].sum())]
         assert packed["px"].dtype == torch.float16
     assert 0 < kept // 2 < kept
+
+
+@pytest.mark.parametrize("case", sorted(testing.YIELDS_EDGES))
+def test_yields_edge_inputs_are_what_they_claim(case):
+    """The plain K7b on each edge: what the case claims, the row sums the
+    rows' sums, and the sums-only mode the same sums with no table."""
+    inp = testing.yields_edge_inputs(case)
+    args = (inp["cols"], inp["species"], inp["laguerre"], inp["cfg"])
+    dn, sums = sample.species_yields(*args)
+    testing.yields_edge_seen(case, inp, dn)
+    assert torch.equal(sums, dn.sum(dim=1))
+    none, again = sample.species_yields(*args, sums_only=True)
+    assert none is None and torch.equal(again, sums)
+
+
+def test_yields_cpu_dispatch_and_cuda_refusal(monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"loaded {name} on the CPU path")
+    monkeypatch.setattr(build, "cuda_library", refuse)
+    inp = testing.yields_edge_inputs("df2_baryon", n_cells=16)
+    args = (inp["cols"], inp["species"], inp["laguerre"], inp["cfg"])
+    assert sample.species_yields(*args)[0].shape == (16, 41)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        sample.species_yields_cuda(*args)
+    bad = dict(inp["cols"], T=inp["cols"]["T"].to(torch.float16))
+    with pytest.raises(ValueError, match="float32 or float64"):
+        sample.species_yields_cuda(bad, *args[1:])
+
+
+def test_formula_counts_the_search_and_the_yields():
+    """sample_formula_ops with search tables: ceil(log2(C + 1)) gathers of
+    cum_dn (in L2: read once) and S.bit_length() + 1 of rowcum (a sector
+    each past L2); yields_formula_ops: 4 special functions a node of each
+    quadrature, df 3's clean cells two."""
+    rows = torch.zeros((1 << 20, 40), dtype=torch.float32)
+    rowcum = torch.empty((1 << 20, 320))        # 1.34 GB
+    tables = dict(cum_dn=torch.zeros(1 << 20), rowcum=rowcum, lam=1.0)
+    ops = sample.sample_formula_ops(1000, 900, 1500, rows, tables,
+                                    out_bytes=0)
+    assert ops["bytes"] == (32 * 900 * 5 + min(4 << 20, 32 * 900 * 21)
+                            + 32 * 900 * 10)
+    from is3d_tpu_torch.config import Config
+    y = sample.yields_formula_ops(100, 7, 32, Config(df_mode=3), 4,
+                                  n_broken=30)
+    assert y["sfu"] == 4 * (2 * 70 + 30) * 7 * 32
+    assert y["bytes"] == (8 * 100 + 28 + 128 + 100) * 4 + 100 * 7 * 4
+    v = sample.yields_formula_ops(100, 7, 32, Config(mode=2), 8,
+                                  sums_only=True)
+    assert v == dict(bytes=(2 * 100 + 28 + 128 + 100) * 8,
+                     sfu=4 * 100 * 7 * 32)
+
+
+def test_drain_frees_its_tables_on_return():
+    """_drain_event_range (a batch rerun included) keeps no reference to
+    the rows and tables it read once it returns, with the cyclic garbage
+    collector off: the cell-chunked sampler frees a chunk's tables before
+    the next chunk's."""
+    import gc
+    import weakref
+    inp = testing.sample_edge_inputs("2d_df2", n_cells=128)
+    rows, tables = inp["rows"].clone(), dict(inp["tables"])
+    tables["sp_prob"] = tables["sp_prob"].clone()
+    refs = [weakref.ref(rows), weakref.ref(tables["sp_prob"])]
+    plan = dict(batches=0, capacity=16, reruns=0)
+    events = []
+    gc.disable()
+    try:
+        sample._drain_event_range(
+            rows, inp["layout"], tables, inp["species"], inp["cell"],
+            inp["cfg"], 5, float(inp["cell"]["dn_tot"].sum()), 0, 3, 2,
+            inp["n_cap"], np.arange(13), {}, plan, events)
+        del rows, tables
+        assert [r() for r in refs] == [None, None]
+    finally:
+        gc.enable()
+    assert plan["reruns"] >= 1 and len(events) == 3
 
 
 def test_pair_table_views_equal_the_plain_tables():
@@ -265,6 +344,32 @@ def test_packed_kernel_matches_pack_batch_on_gpu(cuda_card, case, dtype):
         assert torch.equal(got[1], want_events)
         assert got[2].tolist() == [kept, int(out["ok"].sum()),
                                    int(out["rounds"].sum())]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", sorted(testing.YIELDS_EDGES))
+def test_yields_kernel_matches_plain_on_gpu(cuda_card, case, dtype):
+    """K7b against its plain version on each edge: the densities and the
+    row sums within the tolerance, two launches and the sums-only mode
+    bit-identical."""
+    inp = testing.yields_edge_inputs(case, dtype, "cuda")
+    args = (inp["cols"], inp["species"], inp["laguerre"], inp["cfg"])
+    launches = sample.YIELDS_LAUNCHES + sample.YIELDS_VAH_LAUNCHES
+    got, sums = sample.species_yields_cuda(*args)
+    again, sums2 = sample.species_yields_cuda(*args)
+    none, sums3 = sample.species_yields_cuda(*args, sums_only=True)
+    want, wsums = sample.species_yields_plain(*args)
+    torch.cuda.synchronize()
+    assert sample.YIELDS_LAUNCHES + sample.YIELDS_VAH_LAUNCHES == launches + 3
+    assert none is None
+    assert torch.equal(got, again) and torch.equal(sums, sums2)
+    assert torch.equal(sums, sums3)
+    rtol, atol = TOL[dtype]
+    for g, w in ((got, want), (sums, wsums)):
+        torch.testing.assert_close(g, w, rtol=rtol,
+                                   atol=atol * float(w.abs().max()))
+    testing.yields_edge_seen(case, inp, got)
 
 
 @pytest.mark.gpu

@@ -15,7 +15,8 @@ is3d_tpu's in distribution only; held here:
   test_sampler = 1 tree with is3d_tpu's file names and mean yield, the
   decayed list on the decaying synthetic PDG list, mode 5; a rerun leaves
   no stale list; the writer is byte-identical with is3d_tpu's;
-* the refusals of what this slice leaves out.
+* the configurations the first half refused running (VAH surfaces, the
+  binary-search draws, an active cell chunk), and the mesh= refusal.
 """
 
 import math
@@ -322,16 +323,28 @@ def test_oscar_writer_byte_identical_with_jax(stats, tmp_path, monkeypatch,
 
 @pytest.mark.parametrize("override", [
     dict(mode=2), dict(mode=3), dict(sampler_alias=0)])
-def test_sampler_refusals(override):
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        IS3D(Config(operation=2, **override), device="cpu")
+def test_sampler_refusals(override, tmp_path):
+    """The configurations slice 9's first half refused (VAH surfaces, the
+    binary-search draws) run through the CLI now: the OSCAR list of a
+    small run directory, its structure as is3d_tpu's run writes it."""
+    mode = override.get("mode", 1)
+    rd = write_synthetic_run_dir(str(tmp_path / "rd"), 40, 9,
+                                 3 if mode == 3 else 2, seed=2, mode=mode,
+                                 params=dict(SAMPLE, **override))
+    assert cli.main([rd, "device=cpu", "oversample=1",
+                     "min_num_hadrons=300"]) == 0
+    got = _oscar(os.path.join(rd, "results", "particle_list_osc.dat"))
+    assert got and all(n == len(rows) > 0 for n, rows in got)
+    assert sum(n for n, _ in got) >= 100
 
 
 def test_sampler_refuses_active_cell_chunk_and_mesh(run_dir):
+    """An active cell chunk runs (the chunked sampler, its 4 chunks of 16
+    cells); mesh= still raises, naming slice 11."""
     run = IS3D.from_run_dir(run_dir, overrides=dict(sampler_cell_chunk=16),
                             device="cpu")
-    with pytest.raises(NotImplementedError, match="cell-chunked"):
-        run.run_particlization(write_files=False)
+    result = run.run_particlization(write_files=False)
+    assert result.sample_info["chunks"] == 4 and result.events
     with pytest.raises(NotImplementedError, match="slice 11"):
         IS3D(Config(operation=2), device="cpu", mesh=object())
     run = IS3D.from_run_dir(run_dir, device="cpu")

@@ -158,16 +158,15 @@ def test_averages_file_written_for_modes_0_1_4_6_7(tmp_path, mode):
 
 
 def test_vah_modes_raise_not_implemented_for_the_sampler():
-    """Modes 2, 3 and 5 run operations 0 and 1; operation 2 (the sampler)
-    runs on mode 5 (viscous hydro) and still raises on the VAH modes,
+    """Modes 2, 3 and 5 run operations 0, 1 and 2 (the sampler's VAH
+    branch, slice 9's second half); the sharded sampler (mesh=) raises,
     naming its slice."""
+    from is3d_tpu_torch.kernels.sample import check_sampler_supported
     for mode in (2, 3, 5):
-        check_supported(Config(operation=1, mode=mode))
-        check_supported(Config(operation=0, mode=mode))
-    check_supported(Config(operation=2, mode=5))
-    for mode in (2, 3):
-        with pytest.raises(NotImplementedError, match="slice 9"):
-            check_supported(Config(operation=2, mode=mode))
+        for op in (0, 1, 2):
+            check_supported(Config(operation=op, mode=mode))
+    with pytest.raises(NotImplementedError, match="slice 11"):
+        check_sampler_supported(mesh=object())
 
 
 # ------------------------------------------------ coefficient tables

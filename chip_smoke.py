@@ -12,7 +12,8 @@ Phases, each printing its own line(s):
 2. build: every kernel source (csrc/smooth_spectra.cu, csrc/dndx.cu,
    csrc/smooth_proto.cu, csrc/decays.cu, csrc/feqmod.cu, csrc/vah.cu,
    csrc/polzn.cu, csrc/sample.cu, csrc/mc_decays.cu, csrc/yields.cu,
-   csrc/sample_vah.cu, csrc/sample_search.cu, csrc/sample_vah_search.cu;
+   csrc/sample_vah.cu, csrc/sample_search.cu, csrc/sample_vah_search.cu,
+   csrc/smooth_spectra_bwd.cu, csrc/decays_bwd.cu;
    one nvcc each, all started together) and the fastio host library, from this checkout's
    sources, with ptxas's register and spill lines;
 3. each kernel against its plain torch version at small shapes, in f32
@@ -68,7 +69,12 @@ Phases, each printing its own line(s):
    species), f32 and f64: the same daughters and lineage words,
    one launch a pass queued with no host sync (set_sync_debug_mode
    "error"), two runs bit-identical, and its two guards (capacity, a table
-   short of a pass);
+   short of a pass); [grad small]: the backward kernels K9a and K9b
+   (csrc/smooth_spectra_bwd.cu) on every testing.SPECTRA_EDGES case and
+   K9c (csrc/decays_bwd.cu) on every testing.DECAY_EDGES case against the
+   plain versions' autograd in f64 from the same inputs (a positive
+   cotangent, testing.grad_cotangent), f32 and f64, two launches
+   bit-identical;
 4. operation 1 main path: a synthetic 131072-cell x 320-species 3+1D
    mode-1 run directory through ``is3d_tpu_torch.cli.main`` (df 2, shear +
    bulk, regulate, outflow, f32, native 32 x 24 x 21 grid), then the same
@@ -81,13 +87,22 @@ Phases, each printing its own line(s):
    version's); times (CUDA events, one warm-up, median of 5; the plain
    version's one run), the bound and the kernel's instructions per
    evaluation (tools/sass_count.py, where cuobjdump reads the library);
+   [grad pair] the backward kernel K9a on that group (median of 3, bound
+   from kernels/smooth.py:BACKWARD_FORMULA_OPS, SASS; its first 32 cells
+   against the plain version); [grad main] diff.surface_vjp of the
+   production spectra of that surface and the pullback of sum dN/dy plus
+   the pions' v2 and <pT>, with respect to T, u, bulkPi, pi, dsigma and
+   eta: the forward bit-equal to smooth_spectra, K1 and K9a each launched
+   once a group, forward and backward seconds; on its first 256 cells in
+   f64 five entries against central differences (rtol 5e-5);
 5a. the default 2+1D operation-1 main path: a synthetic 131072-cell x
    320-species 2+1D run directory through ``cli.main`` (df 2, shear + bulk,
    regulate, outflow, f32, native 32 x 24 x 48 grid with the mT remap):
    launches of the remap kernel = canonical groups, the results tree; then
    the same CLI on a 256-cell run directory on cuda and on cpu (f64); then
    the remap kernel on one canonical group of that surface as in 5 (the
-   plain version on its first 1024 cells);
+   plain version on its first 1024 cells); [grad pair 2d] and [grad main
+   2d] as in 5 with K9b (the remap's backward);
 6. operation 0 main path: a synthetic 65536-cell x 320-species 2+1D run
    directory through ``cli.main`` (df 1, shear + bulk, regulate, outflow,
    f32, native 32 x 24 x 48 grid): launches = canonical groups, every
@@ -118,7 +133,17 @@ Phases, each printing its own line(s):
    the f64 one; then the 2+1D waves at full width (320 species of the
    decaying list, native 32 x 24 grid) on the smooth spectra of a 2+1D
    run cut to 16384 cells, timed the same way, the largest launch of each
-   body against its plain version;
+   body against its plain version; [grad decays] decayed_spectra_fn on
+   the decays main path's surface: its forward bit-equal to
+   do_resonance_decays of the production spectra, the pullback of a
+   positive cotangent (K9a once a group, K9c once a wave of each body),
+   then K9c launch by launch on the path's waves (timed beside
+   kernels/decays.py:wave_backward_operations), each launch's first task
+   against the plain version's autograd in f32 and f64, two launches
+   bit-identical; [ensemble batch] IS3D.run_ensemble over 8 events of
+   16384 cells x 320 species (2+1D df 2; one from its file, seven in
+   memory), one results tree each, every row bit-equal to its single run,
+   the wall time by phase;
 8. the experiments at their own shapes, each through its ``measure()``:
    the spectra prototype (32768 cells x 320 x 768 x 21; its plain version
    on the first 1024 cells) and the reduction probe (176 x 48 x 320 x 768);
@@ -218,7 +243,8 @@ special functions and their gathers: a table that fits in the 50 MB L2
 read once, a larger one a 32-byte sector a gather (kernels/sample.py,
 gather_bytes, sample_formula_ops; kernels/mc_decays.py,
 cascade_formula_ops).  Before
-every path (4, 5a, 6, 7a, 8, 9, 10, 11, 12, 13) all launch
+every path (4, 5a, 6, 7a, 8, 9, 10, 11, 12, 13, and the gradients of
+[grad main], [grad main 2d], [grad decays]) all launch
 counts are set to 0 and they are read right after it.  The line before
 the last is the kernel record as JSON; the last line is ``{"ok": true,
 "device": {...}}``.  Any failed phase exits nonzero before that line is
@@ -308,7 +334,8 @@ SAMPLE_VAH2D_ARGS = [a for a in VAH2D_ARGS if not a.startswith("operation")
 CHUNKED_CELLS = 9 * MAIN_CELLS
 KERNEL_SOURCES = ("smooth_spectra", "dndx", "smooth_proto", "decays",
                   "feqmod", "vah", "polzn", "sample", "mc_decays", "yields",
-                  "sample_vah", "sample_search", "sample_vah_search")
+                  "sample_vah", "sample_search", "sample_vah_search",
+                  "smooth_spectra_bwd", "decays_bwd")
 # H100 SXM: SMs, FP32, SFU and INT32-multiply lanes per SM, memory rate
 # (bytes/s)
 N_SM, FP32_LANES, SFU_LANES, HBM_RATE = 132, 128, 16, 3.35e12
@@ -1269,6 +1296,8 @@ def _reset_counts():
     (smooth, dndx, proto, probe, decays, feqmod, vah, polzn, sample,
      mc_decays) = _modules()
     smooth.LAUNCHES = smooth.REMAP_LAUNCHES = 0
+    smooth.BWD_LAUNCHES = smooth.BWD_REMAP_LAUNCHES = 0
+    decays.TWO_BODY_BWD_LAUNCHES = decays.THREE_BODY_BWD_LAUNCHES = 0
     dndx.LAUNCHES = dndx.BIN_LAUNCHES = dndx.FEQMOD_LAUNCHES = 0
     dndx.VAH_LAUNCHES = 0
     proto.LAUNCHES = probe.LAUNCHES = 0
@@ -1293,6 +1322,10 @@ def _counts() -> dict:
                 dndx_probe=probe.LAUNCHES,
                 decay_wave_2body=decays.TWO_BODY_LAUNCHES,
                 decay_wave_3body=decays.THREE_BODY_LAUNCHES,
+                spectra_bwd=smooth.BWD_LAUNCHES,
+                spectra_bwd_remap=smooth.BWD_REMAP_LAUNCHES,
+                decay_wave_bwd_2body=decays.TWO_BODY_BWD_LAUNCHES,
+                decay_wave_bwd_3body=decays.THREE_BODY_BWD_LAUNCHES,
                 feqmod_spectra=feqmod.LAUNCHES,
                 feqmod_spectra_remap=feqmod.REMAP_LAUNCHES,
                 dndx_feqmod=dndx.FEQMOD_LAUNCHES,
@@ -3365,6 +3398,444 @@ def phase_sample(smi: str, clock: float, vah_dir: str, vah_dndy: dict):
     return rec_k7, rec_k7a, rec_k8, rec_y, rec_y_vah, rec_vah, rec_search
 
 
+# ---------------------------------------------------- gradients (K9)
+
+# the spectra the observable of [grad main] reads: the pions' v2 and <pT>
+# besides every species' dN/dy (a calibration observable)
+GRAD_WRT = ("T", "ux", "uy", "un", "bulkPi", "pixx", "pixy", "pixn", "piyy",
+            "piyn", "dat", "dax", "day", "dan")
+# the cells of a main-path group the backward kernels are held to their
+# plain versions on in [grad pair], and of the f64 slice of [grad main]'s
+# central differences
+GRAD_PLAIN_CELLS = 32
+GRAD_FD_CELLS = 256
+ENSEMBLE_EVENTS, ENSEMBLE_CELLS = 8, 16384
+
+
+def _grad_check(name, got, want, dtype, plain=None) -> float:
+    """Fail unless a gradient agrees with its plain version (per field:
+    TOL[dtype] of the field's largest value) or, given the plain version's
+    own gradient in ``dtype`` (``plain``; the main-shape pairs, as [pair]
+    holds the forward kernels), differs from ``want`` by at most 3x what
+    that plain gradient does; returns the largest error."""
+    from is3d_tpu_torch import testing
+    bad, worst = testing.grad_errors(got, want, *TOL[dtype])
+    gl = got if isinstance(got, tuple) else (got,)
+    wl = want if isinstance(want, tuple) else (want,)
+    err = max((g.double().cpu() - w.double().cpu()).abs().max().item()
+              for g, w in zip(gl, wl))
+    line = f"largest error {worst:.2e} of its field's largest value"
+    if plain is not None:
+        worst_p = testing.grad_errors(plain, want, *TOL[dtype])[1]
+        line += f" (the plain version in {dtype}: {worst_p:.2e})"
+        if bad and worst <= 3.0 * worst_p:
+            bad = 0
+    print(f"[kernel vs plain] {name}: {line} {'ok' if not bad else 'FAIL'}")
+    if bad:
+        fail(f"{name}: {bad} gradient entries outside rtol={TOL[dtype][0]}, "
+             f"atol={TOL[dtype][1]}*max of their field")
+    return err
+
+
+def phase_small_grad():
+    """[grad small]: K9a and K9b (csrc/smooth_spectra_bwd.cu) on every
+    testing.SPECTRA_EDGES case (3+1D, 2+1D fixed and remap, df 1 and 2,
+    regulate and outflow on and off, an overflowed exponential, a saturated
+    regulator, pad rows) and K9c (csrc/decays_bwd.cu) on every
+    testing.DECAY_EDGES case, against their plain versions' autograd in
+    f64 from the same inputs, f32 and f64; two launches bit-identical."""
+    from is3d_tpu_torch import testing
+    from is3d_tpu_torch.kernels import decays, smooth
+    for case in sorted(testing.SPECTRA_EDGES):
+        for dtype in (torch.float32, torch.float64):
+            cells, mom, flags, G = testing.spectra_grad_inputs(
+                case, dtype=dtype, device="cuda")
+            want = smooth.spectra_bwd_plain(cells.double(), G.double(),
+                                            mom.to(None, torch.float64),
+                                            flags)
+            got = smooth.spectra_bwd_cuda(cells, G, mom, flags)
+            again = smooth.spectra_bwd_cuda(cells, G, mom, flags)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                fail(f"spectra_bwd {case}: two launches differ")
+            _grad_check(f"[grad small] spectra_bwd {case} {dtype}", got,
+                        want, dtype)
+    for case in sorted(testing.DECAY_EDGES):
+        for dtype in (torch.float32, torch.float64):
+            tables, tasks, wg, G = testing.decay_grad_inputs(
+                case, dtype=dtype, device="cuda")
+            want = decays.wave_bwd_plain(tables.to(None, torch.float64),
+                                         tasks.to(None, torch.float64),
+                                         wg.to(None, torch.float64), G)
+            got = decays.wave_bwd_cuda(tables, tasks, wg, G)
+            again = decays.wave_bwd_cuda(tables, tasks, wg, G)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                fail(f"decay_wave_bwd {case}: two launches differ")
+            _grad_check(f"[grad small] decay_wave_bwd {case} {dtype}", got,
+                        want, dtype)
+
+
+def _grad_group(run_dir: str, cfg):
+    """(run, species, grid, df_data, packed cells of the first canonical
+    group, mom, flags, node table) of a main-path run directory."""
+    from is3d_tpu_torch.api import IS3D
+    from is3d_tpu_torch.kernels import smooth
+    from is3d_tpu_torch.kernels.common import surface_columns, prepare_cells
+    from is3d_tpu_torch.parallel.mesh import canonical_groups
+    run = IS3D(cfg, data_dir=run_dir, device="cuda")
+    particle_table, df_data, species, mcids, grid = run._prepare()
+    cols = surface_columns(run.surface, cfg)
+    _, gs = canonical_groups(cfg, run.surface.n_cells)
+    cells = smooth.pack_cells(prepare_cells({k: v[:gs] for k, v in
+                                             cols.items()}, cfg, df_data),
+                              cfg)
+    mom = smooth.momentum_constants(species, grid, cfg.dimension)
+    flags = smooth.spectra_flags(cfg, grid)
+    table = smooth.remap_node_table(mom) if flags.remap else None
+    return (run, particle_table, species, mcids, grid, df_data, cells, mom,
+            flags, table)
+
+
+def phase_grad_pair(smi: str, clock: float, run_dir: str, cfg,
+                    tag: str) -> dict:
+    """[grad pair]: the backward kernel on one canonical group of a main
+    path (full species and grid, f32, a positive cotangent): two launches
+    bit-identical, the time (one warm-up, median of 3), bound, share,
+    issued per evaluation; on the group's first GRAD_PLAIN_CELLS cells
+    against the plain version's autograd in f64 (and the plain version's
+    time in f32 there)."""
+    from is3d_tpu_torch import testing
+    from is3d_tpu_torch.kernels import smooth
+    from is3d_tpu_torch.utils import cuda_median_ms
+    (_, _, _, _, grid, _, cells, mom, flags, table) = _grad_group(run_dir,
+                                                                  cfg)
+    S, P, F = mom.mass.shape[0], mom.pT.shape[0], mom.n_phi
+    R = mom.nodes.shape[0]
+    G = testing.grad_cotangent((S, P, F, R if cfg.dimension == 3 else 1),
+                               dtype=torch.float32, device="cuda")
+    kern = lambda: smooth.spectra_bwd_cuda(cells, G, mom, flags, table)
+    got, again = kern(), kern()
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        fail(f"spectra_bwd ({tag}): two launches on the same group differ")
+    k_ms, k_all = cuda_median_ms(kern, 3)
+    n = GRAD_PLAIN_CELLS
+    cs = cells[:n].contiguous()
+    want = smooth.spectra_bwd_plain(cs.double(), G.double(),
+                                    mom.to(None, torch.float64), flags)
+    plain, p_ms = _timed_once(lambda: smooth.spectra_bwd_plain(cs, G, mom,
+                                                               flags))
+    err = _grad_check(f"[{tag}] float32 group's first {n} cells",
+                      smooth.spectra_bwd_cuda(cs, G, mom, flags, table),
+                      want, torch.float32, plain)
+    evals = cells.shape[0] * S * P * F * R
+    fp32, sfu = smooth.backward_formula_ops(cfg.df_mode, flags.remap)
+    bound = _bound(evals, fp32, sfu, _nbytes(cells, G, got,
+                                             *mom_tensors(mom)), clock)
+    kernel = (f"remap_bwd_kernelIfLi{cfg.df_mode}E" if flags.remap else
+              f"spectra_bwd_kernelIfLi{cfg.dimension}ELi{cfg.df_mode}E")
+    print(f"[{tag}] {smi} | one group {cells.shape[0]} cells x {S} x "
+          f"{P * F} x {R} nodes: backward kernel {k_ms:.3f} ms (runs "
+          f"{', '.join(f'{t:.2f}' for t in k_all)}), "
+          f"{evals / k_ms * 1e3:.3e} evaluations/s; plain (autograd, f32) "
+          f"{p_ms:.3f} ms on {n} cells; bound {bound[0]:.3f} ms "
+          f"({bound[1]}: {fp32} FP32 + {sfu} SFU an evaluation), kernel at "
+          f"{bound[0] / k_ms:.1%} of it; two launches bit-identical; "
+          "issued per evaluation: " + _issued("smooth_spectra_bwd", kernel))
+    return dict(launches=None, max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                bound_ms=bound[0], bound_by=bound[1], library_ms=None,
+                cells=cells.shape[0], plain_cells=n)
+
+
+def _grad_observable(grid, mcids):
+    """sum dN/dy plus the pions' v2 and <pT> (diff's torch observables)."""
+    from is3d_tpu_torch import diff
+    pi = int(np.nonzero(np.asarray(mcids) == 211)[0][0])
+
+    def obs(spectra):
+        return (diff.dN_dy_j(spectra, grid).sum()
+                + diff.vn_j(spectra[pi:pi + 1], grid, 2).sum()
+                + diff.mean_pT_j(spectra[pi:pi + 1], grid).sum())
+    return obs
+
+
+def phase_grad_main(smi: str, run_dir: str, cfg, tag: str) -> dict:
+    """[grad main] / [grad main 2d]: diff.surface_vjp of the production
+    spectra at full width (the main path's surface, f32) with respect to
+    T, u, bulkPi, the five pi components, dsigma (and eta in 3+1D), then
+    the pullback of the observable's cotangent: the forward equals
+    smooth_spectra bit for bit, each kernel launched once per group in each
+    direction (counted from 0 around the run); forward and backward
+    seconds; on the first GRAD_FD_CELLS cells in f64 a few entries against
+    central differences."""
+    from is3d_tpu_torch import diff
+    from is3d_tpu_torch.kernels.smooth import smooth_spectra
+    from is3d_tpu_torch.parallel.mesh import canonical_groups
+    (run, _, species, mcids, grid, df_data, _, _, flags, _) = _grad_group(
+        run_dir, cfg)
+    surface = run.surface
+    wrt = GRAD_WRT + (("eta",) if cfg.dimension == 3 else ())
+    obs = _grad_observable(grid, mcids)
+    fn = diff.spectra_fn(species, grid, df_data, cfg)
+    groups, _ = canonical_groups(cfg, surface.n_cells)
+    _reset_counts()
+    t0 = time.perf_counter()
+    spectra, pull = diff.surface_vjp(fn, surface, wrt)
+    torch.cuda.synchronize()
+    t_fwd = time.perf_counter() - t0
+    sp = spectra.clone().requires_grad_(True)
+    with torch.enable_grad():
+        (ct,) = torch.autograd.grad(obs(sp), sp)
+    t0 = time.perf_counter()
+    grads = pull(ct)
+    torch.cuda.synchronize()
+    t_bwd = time.perf_counter() - t0
+    counts = _counts()
+    want = dict(smooth_spectra=groups, spectra_bwd=groups)
+    if flags.remap:
+        want.update(smooth_spectra_remap=groups, spectra_bwd_remap=groups)
+    _expect_counts(f"{tag} path", counts, want)
+    prod = smooth_spectra(surface, species, grid, df_data, cfg)
+    if not torch.equal(spectra, prod):
+        fail(f"{tag}: the differentiable forward differs from "
+             "smooth_spectra")
+    for k, g in grads.items():
+        if not (torch.isfinite(g).all() and g.abs().max() > 0):
+            fail(f"{tag}: the gradient by {k} is not finite and nonzero")
+    nodes = grid.n_eta if cfg.dimension == 2 else grid.n_y
+    evals = surface.n_cells * spectra.shape[0] * grid.n_pT * grid.n_phi * \
+        nodes
+    print(f"[{tag}] {smi} | {surface.n_cells} cells x {spectra.shape[0]} "
+          f"species, {len(wrt)} fields: forward {t_fwd:.3f} s (bit-equal "
+          f"to smooth_spectra), backward {t_bwd:.3f} s, "
+          f"{evals / t_bwd:.3e} backward evaluations/s, "
+          f"{t_bwd / groups * 1e3:.1f} ms a group over {groups} groups | "
+          "launches " + ", ".join(f"{k} {v}" for k, v in want.items()
+                                  if k in counts))
+
+    # central differences in f64 on a slice
+    n = GRAD_FD_CELLS
+    s64 = surface.replace(**{k: None if getattr(surface, k) is None else
+                             getattr(surface, k)[:n].double()
+                             for k in ("tau", "x", "y", "eta", "dat", "dax",
+                                       "day", "dan", "ux", "uy", "un", "E",
+                                       "T", "P", "pixx", "pixy", "pixn",
+                                       "piyy", "piyn", "bulkPi", "muB",
+                                       "nB", "Vx", "Vy", "Vn")})
+    fn64 = diff.spectra_fn(species.to(None, torch.float64),
+                           grid.to(None, torch.float64),
+                           df_data.to(None, torch.float64), cfg)
+    obs64 = _grad_observable(grid.to(None, torch.float64), mcids)
+    picks = [("T", 5), ("ux", 17), ("pixy", 33), ("bulkPi", 41)] + (
+        [("eta", 9)] if cfg.dimension == 3 else [("dat", 9)])
+    _, g64 = diff.surface_value_and_grad(lambda s: obs64(fn64(s)), s64,
+                                         [k for k, _ in picks])
+    worst = 0.0
+    for k, i in picks:
+        x = getattr(s64, k)
+        eps = 1e-6 * max(1.0, abs(float(x[i])))
+        hot = torch.zeros_like(x)
+        hot[i] = eps
+        with torch.no_grad():
+            fd = (float(obs64(fn64(s64.replace(**{k: x + hot}))))
+                  - float(obs64(fn64(s64.replace(**{k: x - hot}))))) / (
+                      2 * eps)
+        got = float(g64[k][i])
+        rel = abs(got - fd) / max(abs(fd), 1e-300)
+        worst = max(worst, rel)
+        if abs(got - fd) > 5e-5 * abs(fd) + 1e-9 * float(g64[k].abs().max()):
+            fail(f"{tag}: d/d{k}[{i}] {got:.9e} against central "
+                 f"differences {fd:.9e}")
+    print(f"[{tag}] f64 on the first {n} cells: {len(picks)} gradient "
+          f"entries against central differences, largest relative "
+          f"difference {worst:.2e} (rtol 5e-5)")
+    return dict(counts=counts, forward_s=t_fwd, backward_s=t_bwd)
+
+
+def phase_grad_decays(smi: str, clock: float, run_dir: str, cfg) -> dict:
+    """[grad decays]: decayed_spectra_fn on the [decays main] surface
+    (the decaying list, 3+1D, f32): its forward equals do_resonance_decays
+    of smooth_spectra bit for bit; the pullback of a positive cotangent
+    (forward and backward seconds, launches); then K9c launch by launch on
+    the path's own waves (each timed beside its bound), and on each launch's
+    first tasks against the plain version's autograd in f32 and f64, two
+    launches bit-identical.  Returns the kernel records by body."""
+    from is3d_tpu_torch import diff, testing
+    from is3d_tpu_torch.kernels import decays
+    from is3d_tpu_torch.kernels.smooth import smooth_spectra
+    from is3d_tpu_torch.parallel.mesh import canonical_groups
+    (run, table, species, mcids, grid, df_data, _, _, _, _) = _grad_group(
+        run_dir, cfg)
+    surface = run.surface
+    groups, _ = canonical_groups(cfg, surface.n_cells)
+    fn = diff.decayed_spectra_fn(species, grid, df_data, cfg, table, mcids)
+    _reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        out, pull = diff.surface_vjp(fn, surface, ("T", "ux", "bulkPi"))
+    torch.cuda.synchronize()
+    t_fwd = time.perf_counter() - t0
+    ct = testing.grad_cotangent(out.shape, device="cuda")
+    t0 = time.perf_counter()
+    grads = pull(ct)
+    torch.cuda.synchronize()
+    t_bwd = time.perf_counter() - t0
+    counts = _counts()
+    sched = _main_decays_schedule()
+    _expect_counts("grad decays path", counts, dict(
+        smooth_spectra=groups, spectra_bwd=groups,
+        decay_wave_2body=sched["waves_2body"],
+        decay_wave_3body=sched["waves_3body"],
+        decay_wave_bwd_2body=sched["waves_2body"],
+        decay_wave_bwd_3body=sched["waves_3body"]))
+    with contextlib.redirect_stdout(io.StringIO()):
+        prod = decays.do_resonance_decays(smooth_spectra(
+            surface, species, grid, df_data, cfg), table, mcids, grid, cfg)
+    if not torch.equal(out, prod):
+        fail("grad decays: the traced forward differs from "
+             "do_resonance_decays")
+    for k, g in grads.items():
+        if not (torch.isfinite(g).all() and g.abs().max() > 0):
+            fail(f"grad decays: the gradient by {k} is not finite and "
+                 "nonzero")
+    print(f"[grad decays] {smi} | {surface.n_cells} cells x {out.shape[0]} "
+          f"species, {cfg.dimension}+1D: forward {t_fwd:.3f} s (bit-equal "
+          f"to do_resonance_decays), backward {t_bwd:.3f} s | launches "
+          + ", ".join(f"{k} {counts[k]}" for k in (
+              "decay_wave_2body", "decay_wave_3body", "decay_wave_bwd_2body",
+              "decay_wave_bwd_3body", "spectra_bwd")))
+
+    # K9c on the path's waves: each launch timed, then held to the plain
+    # version on its first task
+    spectra = smooth_spectra(surface, species, grid, df_data, cfg)
+    pT64 = grid.pT.to("cpu", torch.float64).numpy()
+    waves = decays.plan_waves(decays._decay_schedule(
+        table, mcids, pT64, cfg.lightest_particle))
+    staged = decays.stage_waves(waves, pT64, torch.float32, "cuda")
+    wg = decays.wave_grid(grid, cfg.dimension, torch.float32, "cuda")
+    wg64 = decays.wave_grid(grid.to(None, torch.float64), cfg.dimension,
+                            torch.float64, "cuda")
+    acc = spectra.double()
+    rec = {2: dict(ms=0.0, path_ms=0.0, err=0.0), 3: dict(ms=0.0,
+                                                          path_ms=0.0,
+                                                          err=0.0)}
+    G = testing.grad_cotangent(acc.shape, device="cuda")
+    # the launch's first task against the plain version (its autograd
+    # keeps every s node's block: one 3-body task is ~7 GB in f64 on the
+    # main grid); the f64 kernel on the same (upcast) inputs
+    sub = lambda t: decays.WaveTasks(
+        nbody=t.nbody, slot=t.slot[:1], seg=t.seg[:1], par=t.par[:1],
+        order=t.order, target=t.target, tstart=t.tstart)
+    for i, st in enumerate(staged):
+        tables = decays.parent_tables(acc, st.rows, st.masses, st.mtg,
+                                      torch.float32)
+        tables64 = tables.to(None, torch.float64)
+        for tasks in st.launches:
+            kern = lambda: decays.wave_bwd_cuda(tables, tasks, wg, G)
+            got = kern()
+            again, ms = _timed_once(kern)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                fail(f"decay_wave_bwd wave {i} {tasks.nbody}-body: two "
+                     "launches differ")
+            fp32, sfu = decays.wave_backward_operations(tasks, wg)
+            fed = tasks.target.shape[0] * acc[0].numel() * 8
+            nbytes = 2 * _nbytes(tables.logdN, tables.tc, tables.ts) + \
+                _nbytes(tables.mtg, tasks.slot, tasks.par) + fed
+            bound = _bound(1.0, fp32, sfu, nbytes, clock)
+            r = rec[tasks.nbody]
+            r["path_ms"] += ms
+            if ms > r["ms"]:
+                r.update(ms=ms, bound=bound, launch=f"wave {i}")
+            tasks64 = sub(tasks.to(None, torch.float64))
+            want, p_ms = _timed_once(lambda: decays.wave_bwd_plain(
+                tables64, tasks64, wg64, G))
+            err = _grad_check(
+                f"[grad decays] wave {i} {tasks.nbody}-body, its first task, "
+                "float32", decays.wave_bwd_cuda(tables, sub(tasks), wg, G),
+                want, torch.float32,
+                decays.wave_bwd_plain(tables, sub(tasks), wg, G))
+            _grad_check(f"[grad decays] wave {i} {tasks.nbody}-body, its "
+                        "first task, float64",
+                        decays.wave_bwd_cuda(tables64, tasks64, wg64, G),
+                        want, torch.float64)
+            r["err"] = max(r["err"], err)
+            r["plain_ms"] = p_ms
+            del want
+            print(f"[grad decays] {smi} | wave {i} {tasks.nbody}-body "
+                  f"backward: {tasks.slot.shape[0]} tasks, kernel "
+                  f"{ms:.3f} ms, bound {bound[0]:.3f} ms ({bound[1]}), "
+                  f"{bound[0] / ms:.1%} of it; plain (f64 autograd) "
+                  f"{p_ms:.1f} ms on its first task; two launches "
+                  "bit-identical")
+        for tasks in st.launches:
+            decays.decay_wave_cuda(tables, tasks, wg, acc)
+    records = {}
+    for nbody, r in rec.items():
+        records[nbody] = dict(
+            launches=counts[f"decay_wave_bwd_{nbody}body"],
+            max_abs_err=r["err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound"][0], bound_by=r["bound"][1], library_ms=None,
+            launch=f"{r['launch']}, the longest", path_ms=r["path_ms"],
+            plain_tasks=1)
+        print(f"[grad decays] {smi} | decay_wave_bwd {nbody}-body over the "
+              f"path's launches {r['path_ms']:.3f} ms")
+    return records
+
+
+def phase_ensemble_batch(smi: str):
+    """[ensemble batch]: IS3D.run_ensemble over ENSEMBLE_EVENTS events of
+    ENSEMBLE_CELLS cells x 320 species, 2+1D df 2 (the first event read
+    from its file, the rest in memory), writing one results tree per event;
+    each event's spectra equal its single run bit for bit; the wall time
+    by phase."""
+    import dataclasses
+    from is3d_tpu_torch.api import IS3D
+    from is3d_tpu_torch.kernels.smooth import smooth_spectra
+    from is3d_tpu_torch.testing import (synthetic_surface,
+                                        write_synthetic_run_dir)
+    run_dir = os.path.join(WORK, "ensemble_batch")
+    write_synthetic_run_dir(run_dir, ENSEMBLE_CELLS, MAIN_SPECIES,
+                            dimension=2, seed=0)
+    overrides = dict(a.split("=", 1) for a in MAIN2D_ARGS[1:])
+    run = IS3D.from_run_dir(run_dir, device="cuda", overrides=overrides)
+    path = os.path.join(run_dir, "input", "surface.dat")
+    # the in-memory events carry the blocks the file's reader gives
+    first = IS3D.from_run_dir(run_dir, device="cuda", overrides=overrides
+                              ).read_fo_surf_from_file(
+                                  path, write_averages=False).surface
+    absent = {f.name: None for f in dataclasses.fields(first)
+              if getattr(first, f.name) is None}
+    events = [path] + [
+        synthetic_surface(ENSEMBLE_CELLS, 2, seed=e, dtype=torch.float32,
+                          device="cuda").replace(**absent)
+        for e in range(1, ENSEMBLE_EVENTS)]
+    t0 = time.perf_counter()
+    results = run.run_ensemble(events)
+    wall = time.perf_counter() - t0
+    _, df_data, species, _, grid = run._prepare()
+    for e, res in enumerate(results):
+        # run_ensemble leaves the first event (read from its file) as the
+        # run's surface
+        surf = run.surface if e == 0 else events[e]
+        single = smooth_spectra(surf, species, grid, df_data, run.cfg)
+        if not np.array_equal(res.spectra, single.cpu().numpy()):
+            fail(f"ensemble batch: event {e}'s row differs from its single "
+                 "run")
+        if not os.path.isfile(os.path.join(run.results_dir, f"event_{e}",
+                                           "dN_pTdpTdphidy.dat")):
+            fail(f"ensemble batch: event {e} wrote no spectra file")
+    phases = {}
+    for k, v in run.timer.phases:
+        phases[k] = phases.get(k, 0.0) + v
+    print(f"[ensemble batch] {smi} | {ENSEMBLE_EVENTS} events x "
+          f"{ENSEMBLE_CELLS} cells x {MAIN_SPECIES} species, 2+1D df 2: "
+          f"wall {wall:.3f} s; by phase: " + ", ".join(
+              f"{k} {v:.3f} s" for k, v in phases.items())
+          + "; every row bit-equal to its single run")
+    shutil.rmtree(run_dir, ignore_errors=True)
+
+
 def main():
     smi, clock = phase_device()
     phase_build()
@@ -3375,6 +3846,7 @@ def main():
     phase_small_bins()
     phase_small_experiments()
     phase_small_decay_edges()
+    phase_small_grad()
     phase_small_feqmod()
     phase_small_vah()
     phase_small_polzn()
@@ -3388,6 +3860,9 @@ def main():
         phase_small_path_cpu_vs_cuda()
         rec_spectra = phase_pair(smi, clock, run_dir, cfg)
         rec_spectra["launches"] = counts["smooth_spectra"]
+        rec_sbwd = phase_grad_pair(smi, clock, run_dir, cfg, "grad pair")
+        rec_sbwd["launches"] = phase_grad_main(
+            smi, run_dir, cfg, "grad main")["counts"]["spectra_bwd"]
         shutil.rmtree(run_dir, ignore_errors=True)
         counts, run_dir, cfg2d, _ = phase_main_path(
             smi, "main 2d", dimension=2, args=MAIN2D_ARGS, n_nodes=48,
@@ -3397,6 +3872,11 @@ def main():
         rec_remap = phase_pair(smi, clock, run_dir, cfg2d, "remap pair",
                                plain_cells=1024)
         rec_remap["launches"] = counts["smooth_spectra_remap"]
+        rec_rbwd = phase_grad_pair(smi, clock, run_dir, cfg2d,
+                                   "grad pair 2d")
+        rec_rbwd["launches"] = phase_grad_main(
+            smi, run_dir, cfg2d, "grad main 2d")["counts"][
+                "spectra_bwd_remap"]
         shutil.rmtree(run_dir, ignore_errors=True)
         counts, dndx_dir, dndx_cfg = phase_dndx_main(smi)
         phase_small_path_cpu_vs_cuda(
@@ -3420,8 +3900,10 @@ def main():
         rec_decays = phase_decays_pair(smi, clock, run_dir, cfg)
         for nbody in (2, 3):
             rec_decays[nbody]["launches"] = counts[f"decay_wave_{nbody}body"]
+        rec_dbwd = phase_grad_decays(smi, clock, run_dir, cfg)
         shutil.rmtree(run_dir, ignore_errors=True)
         phase_decays_2d(smi, clock)
+        phase_ensemble_batch(smi)
         experiments = phase_experiments(smi, clock)
         rec_feqmod, rec_feqmod_remap, rec_feqmod_dndx = phase_feqmod(smi,
                                                                     clock)
@@ -3490,6 +3972,18 @@ def main():
         dict(name="sample_events_search", route="cuda",
              source=src + "sample_search.cu",
              replaces="is3d_tpu/kernels/sample.py:712", **rec_k7_search),
+        dict(name="spectra_bwd", route="cuda",
+             source=src + "smooth_spectra_bwd.cu",
+             replaces="is3d_tpu/kernels/smooth.py:426", **rec_sbwd),
+        dict(name="spectra_bwd_remap", route="cuda",
+             source=src + "smooth_spectra_bwd.cu",
+             replaces="is3d_tpu/kernels/smooth.py:161", **rec_rbwd),
+        dict(name="decay_wave_bwd_2body", route="cuda",
+             source=src + "decays_bwd.cu",
+             replaces="is3d_tpu/kernels/decays.py:281", **rec_dbwd[2]),
+        dict(name="decay_wave_bwd_3body", route="cuda",
+             source=src + "decays_bwd.cu",
+             replaces="is3d_tpu/kernels/decays.py:350", **rec_dbwd[3]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

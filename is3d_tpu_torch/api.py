@@ -387,6 +387,124 @@ class IS3D:
         return smooth_spectra_feqmod(self.surface, species, grid, df_data,
                                      self.cfg)
 
+    def run_ensemble(self, surfaces, write_files: bool = True,
+                     pad_to: Optional[int] = None, timer=None) -> list:
+        """Smooth spectra for an ensemble of freeze-out surfaces
+        (is3d_tpu/api.py:571-706, operation 1 only): the event-by-event
+        workflow the reference serves with one process per event.
+
+        ``surfaces``: surface-file paths and/or ``Surface`` objects, all of
+        this run's mode, dimension and df config.  The delta-f data is
+        prepared once, from the first event's averages; every event's (T,
+        muB) range is checked against the df tables (VH surfaces only, as
+        the VAH path never reads them).  Each event runs the single-surface
+        path (batch.smooth_spectra_batched), so its spectra are its own
+        single run's bit for bit; mode-5 surfaces also get the batched
+        polarization, each event at its own averaged temperature; the
+        feed-down runs per event.  Results go to
+        ``<results_dir>/event_<i>/`` in the reference formats (stale
+        ``event_*`` trees of a larger earlier ensemble are cleaned);
+        returns one RunResult per event, in order."""
+        from .utils import PhaseTimer
+        from .batch import stack_surfaces, smooth_spectra_batched
+        timer = timer or PhaseTimer(verbose=False)
+        cfg = self.cfg
+        if cfg.operation != 1:
+            raise ValueError("run_ensemble batches smooth spectra "
+                             "(operation 1); for sampling ensembles use "
+                             "ensemble.multiprocess_oversample")
+
+        loaded, averages = [], []
+        with timer.phase("load surfaces"):
+            for s in surfaces:
+                if isinstance(s, (str, os.PathLike)):
+                    surf, avg = read_surface(
+                        s, mode=cfg.mode, dimension=cfg.dimension,
+                        include_baryon=bool(cfg.include_baryon),
+                        include_baryondiff=bool(cfg.include_baryondiff_deltaf),
+                        dtype=self._dtype, device=self.device)
+                else:
+                    surf, avg = s, surface_averages(s)
+                loaded.append(surf)
+                averages.append(avg)
+        if not loaded:
+            raise ValueError("run_ensemble needs at least one surface")
+
+        self.surface, self.averages = loaded[0], averages[0]
+        with timer.phase("prepare (io, pdg, deltaf)"):
+            particle_table, df_data, species, mcids, grid = self._prepare()
+        self.timer = timer
+        # _prepare checked the first event's (T, muB) only
+        if (cfg.include_baryon and cfg.df_mode in (1, 2, 3)
+                and cfg.mode not in (2, 3)):
+            host_df = df_data.to("cpu", torch.float64)
+            for surf in loaded[1:]:
+                if surf.muB is not None:
+                    deltaf_io.validate_df_range(
+                        host_df, surf.T.double().cpu().numpy(),
+                        surf.muB.double().cpu().numpy())
+
+        if write_files:
+            # a previous, larger ensemble may have written more event_<i>
+            # trees here; clean them so globs over event_*/ see this run
+            import glob
+            for d in glob.glob(os.path.join(self.results_dir, "event_*")):
+                tail = os.path.basename(d)[len("event_"):]
+                if tail.isdigit() and int(tail) >= len(loaded):
+                    writers.clean_results_dir(d)  # owned files only
+                    try:
+                        os.rmdir(d)
+                    except OSError:
+                        pass  # user files live there: keep the directory
+
+        with timer.phase("stack + batched spectra"):
+            stacked = stack_surfaces(loaded, pad_to=pad_to,
+                                     dtype=self._dtype)
+            spectra_dev = smooth_spectra_batched(stacked, species, grid,
+                                                 df_data, cfg)
+            spectra = spectra_dev.cpu().numpy()
+
+        polarization = None
+        if cfg.mode == 5:
+            from .batch import polarization_batched
+            T_avg = [cfg.T_switch if cfg.set_FO_temperature
+                     else a.temperature for a in averages]
+            with timer.phase("batched polarization"):
+                pol = polarization_batched(stacked, species, grid, cfg,
+                                           T_avg)
+                polarization = {k: v.cpu().numpy() for k, v in pol.items()}
+
+        host_grid = grid.to("cpu")
+        results = []
+        for e in range(len(loaded)):
+            res = RunResult(spectra=spectra[e], mcids=np.asarray(mcids),
+                            averages=averages[e])
+            event_dir = os.path.join(self.results_dir, f"event_{e}")
+            if polarization is not None:
+                res.polarization = {k: v[e] for k, v in polarization.items()}
+            if write_files:
+                writers.clean_results_dir(event_dir)
+                with timer.phase("writers"):
+                    self._write_smooth_files(spectra[e], host_grid, mcids,
+                                             event_dir)
+                    if polarization is not None:
+                        p = res.polarization
+                        writers.write_polarization(
+                            p["St"], p["Sx"], p["Sy"], p["Sn"], p["Snorm"],
+                            host_grid, cfg.dimension, event_dir)
+            if cfg.do_resonance_decays:
+                from .kernels.decays import do_resonance_decays
+                with timer.phase("resonance decays"):
+                    res.spectra = do_resonance_decays(
+                        spectra_dev[e], particle_table, mcids, grid,
+                        cfg).cpu().numpy()
+                if write_files:
+                    with timer.phase("decay writers"):
+                        self._write_decay_files(res.spectra, host_grid,
+                                                mcids, event_dir)
+            results.append(res)
+        return results
+
     def _write_smooth_files(self, spectra, grid, mcids, results_dir):
         cfg = self.cfg
         os.makedirs(results_dir, exist_ok=True)

@@ -9,6 +9,7 @@ given device and dtype.  The dicts are made on the JAX side with
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -26,13 +27,28 @@ def _t(a, device, dtype) -> torch.Tensor:
                         device=device)
 
 
-def surface_from_state(state: dict, device="cpu",
-                       dtype=torch.float64) -> Surface:
+def surface_from_state(state: dict, device="cpu", dtype=torch.float64,
+                       requires_grad=()) -> Surface:
     """Every surface column, those of the VAH (Lambda, aL, aT, c0..c4, W,
-    pi_perp) and vorticity (w) blocks too; absent (None) ones stay None."""
-    return surface_from_arrays(dtype=dtype, device=device,
-                               **{k: v for k, v in state.items()
-                                  if v is not None})
+    pi_perp) and vorticity (w) blocks too; absent (None) ones stay None.
+    The columns named in ``requires_grad`` are leaves that require grad."""
+    surface = surface_from_arrays(dtype=dtype, device=device,
+                                  **{k: v for k, v in state.items()
+                                     if v is not None})
+    return surface.replace(**{k: getattr(surface, k).requires_grad_(True)
+                              for k in requires_grad})
+
+
+def grads_from_state(grads: dict, device="cpu",
+                     dtype=torch.float64) -> dict:
+    """A JAX gradient dict (is3d_tpu.diff.surface_value_and_grad's, numpy
+    per field) as tensors keyed by the port's Surface field names (the
+    same names: the two Surfaces share their fields)."""
+    fields = {f.name for f in dataclasses.fields(Surface)}
+    unknown = set(grads) - fields
+    if unknown:
+        raise ValueError(f"not Surface fields: {sorted(unknown)}")
+    return {k: _t(v, device, dtype) for k, v in grads.items()}
 
 
 def averages_from_state(state: dict) -> ThermoAverages:

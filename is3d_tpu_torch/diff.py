@@ -1,0 +1,192 @@
+"""Differentiable Cooper-Frye: gradients of smooth observables with respect
+to the freeze-out surface.
+
+Port of ``is3d_tpu.diff`` (its module docstring gives the motivation: one
+reverse pass instead of finite differences over full re-runs).  The
+forward of every map here is the production path itself, bit for bit; the
+reverse pass runs
+
+* on CUDA tensors, the backward kernels: smooth.spectra_bwd_cuda (K1's
+  fixed nodes and 2+1D remap, csrc/smooth_spectra_bwd.cu) for the spectra,
+  decays.wave_bwd_cuda (csrc/decays_bwd.cu) for the feed-down waves, torch
+  autograd for the cheap per-cell and per-slot tensor algebra around them
+  (prepare_cells, the df coefficients, pack_cells, prepare_parents);
+* on CPU tensors, torch autograd of the plain versions, each cell chunk
+  recomputed in the backward (torch.utils.checkpoint, JAX's remat_scan).
+
+Supported surface maps: linear df (df_mode 1-2) spectra on viscous-hydro
+surfaces (spectra_fn) and the same through the 2- and 3-body feed-down
+(decayed_spectra_fn).  The df 3-4 (feqmod), VAH (modes 2-3) and spin-
+polarization (mode 5) maps need the backward passes of K3, K4 and K6, which
+are not ported yet: their map functions raise NotImplementedError on every
+device, so nothing falls back to a plain path on the card.
+
+Non-smooth points inherited from the physics (one-sided derivatives, never
+NaN): the |df| <= 1 regulator, the outflow Theta(p.dsigma) cut, the
+u.dsigma > 0 cell mask; at a tie the plain version's torch convention
+(d max(x, 0)/dx = 1 at x = 0, d clamp(x, -1, 1)/dx = 1 at |x| = 1), where
+JAX takes 1/2.
+
+The observable helpers at the end are torch twins of is3d_tpu.diff's jnp
+ones (observables.py is numpy for the writers).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Iterable
+
+import torch
+
+from .config import Config
+from .data import SpeciesArrays
+from .io.tables import MomentumGrid
+from .io.deltaf import DeltafData
+
+
+def _not_ported(what: str, kernels: str):
+    raise NotImplementedError(
+        f"gradients of {what} are not ported yet: they need the backward "
+        f"passes of {kernels} (ROADMAP section 1, item 10)")
+
+
+def _theta(surface, wrt: Iterable[str]) -> dict:
+    """The named fields as fresh leaves that require grad; raises on an
+    absent (None) field."""
+    theta = {}
+    for k in wrt:
+        v = getattr(surface, k, None)
+        if v is None:
+            raise ValueError(
+                f"cannot differentiate with respect to '{k}': the surface "
+                f"does not carry that field (None)")
+        theta[k] = v.detach().clone().requires_grad_(True)
+    return theta
+
+
+def surface_value_and_grad(fn: Callable, surface, wrt: Iterable[str]):
+    """Value and gradient of ``fn(surface)`` (a scalar tensor) with respect
+    to the named ``Surface`` fields.
+
+    Returns ``(value, grads)`` with ``grads`` a dict mapping each name in
+    ``wrt`` to a tensor of that field's shape.  Fields not in ``wrt`` are
+    constants.  Raises ValueError on fields the surface does not carry
+    (None): a gradient with respect to an absent block is a config error,
+    not a zero."""
+    theta = _theta(surface, tuple(wrt))
+    with torch.enable_grad():
+        value = fn(surface.replace(**theta))
+        grads = torch.autograd.grad(value, list(theta.values()),
+                                    allow_unused=True)
+    return value.detach(), {k: torch.zeros_like(v) if g is None else g
+                            for (k, v), g in zip(theta.items(), grads)}
+
+
+def surface_vjp(fn: Callable, surface, wrt: Iterable[str]):
+    """Forward value plus a pullback on the named surface fields.
+
+    ``fn(surface)`` may return any tensor (e.g. the full (S, PT, PHI, Y)
+    spectra).  Returns ``(value, pullback)`` where ``pullback(cotangent)``
+    (a tensor shaped like ``value``) gives the ``wrt``-keyed gradient dict;
+    it may be called more than once."""
+    theta = _theta(surface, tuple(wrt))
+    with torch.enable_grad():
+        value = fn(surface.replace(**theta))
+
+    def pullback(cotangent):
+        ct = torch.as_tensor(cotangent, dtype=value.dtype,
+                             device=value.device)
+        grads = torch.autograd.grad(value, list(theta.values()), ct,
+                                    retain_graph=True, allow_unused=True)
+        return {k: torch.zeros_like(v) if g is None else g
+                for (k, v), g in zip(theta.items(), grads)}
+
+    return value.detach(), pullback
+
+
+def spectra_fn(species: SpeciesArrays, grid: MomentumGrid,
+               df_data: DeltafData | None, cfg: Config,
+               mesh=None) -> Callable:
+    """The differentiable surface -> spectra map for ``cfg``: the production
+    smooth_spectra (linear df, df_mode 1-2, mode 1 surfaces), so its forward
+    is the production result bit for bit."""
+    if mesh is not None:
+        raise NotImplementedError("mesh= (multi-GPU) is not ported yet: "
+                                  "ROADMAP section 1, slice 11")
+    if cfg.mode in (2, 3):
+        _not_ported("VAH spectra (modes 2-3)", "K4 (csrc/vah.cu)")
+    if cfg.mode == 5:
+        _not_ported("spectra on mode-5 surfaces", "K6 (csrc/polzn.cu)")
+    if cfg.df_mode in (3, 4):
+        _not_ported("feqmod spectra (df_mode 3-4)", "K3 (csrc/feqmod.cu)")
+    if cfg.df_mode not in (1, 2):
+        raise ValueError(f"df_mode must be 1-4, got {cfg.df_mode}")
+
+    def fn(surface):
+        from .kernels.smooth import smooth_spectra
+        return smooth_spectra(surface, species, grid, df_data, cfg)
+    return fn
+
+
+def decayed_spectra_fn(species: SpeciesArrays, grid: MomentumGrid,
+                       df_data: DeltafData | None, cfg: Config,
+                       table, mcids, mesh=None) -> Callable:
+    """The differentiable surface -> post-feed-down spectra map: spectra_fn
+    composed with the 2- and 3-body cascade
+    (kernels.decays.resonance_feed_down_traced), whose forward is
+    do_resonance_decays' bit for bit.  ``species`` rows, ``mcids`` and the
+    spectra's rows are in chosen-particle order (as the API makes them);
+    ``table`` is the full particle table (the decay channels)."""
+    base = spectra_fn(species, grid, df_data, cfg, mesh=mesh)
+
+    def fn(surface):
+        from .kernels.decays import resonance_feed_down_traced
+        return resonance_feed_down_traced(base(surface), table, mcids, grid,
+                                          cfg)
+    return fn
+
+
+def polarization_fn(species: SpeciesArrays, grid: MomentumGrid,
+                    cfg: Config, plasma, mesh=None) -> Callable:
+    """The surface -> polarization map (mode 5) of is3d_tpu.diff: refused
+    until K6's backward pass is ported."""
+    _not_ported("the spin polarization (mode 5)", "K6 (csrc/polzn.cu)")
+
+
+# ------------------------------------------------- differentiable observables
+# torch twins of is3d_tpu.diff's dN_dy_j, mean_pT_j, vn_j (same contractions,
+# same reference citations)
+
+def dN_dy_j(spectra, grid: MomentumGrid,
+            include_pT_jacobian: bool = True) -> torch.Tensor:
+    """(S, PT, PHI, Y) -> (S, Y) transverse-momentum integral
+    (observables.dN_dy, reference emissionfunction.cpp:745-768)."""
+    pw = grid.pT_weight
+    w = pw * grid.pT if include_pT_jacobian else pw
+    return torch.einsum("spfy,p,f->sy", spectra, w, grid.phi_weight)
+
+
+def mean_pT_j(spectra, grid: MomentumGrid) -> torch.Tensor:
+    """(S, Y) mean transverse momentum (observables.mean_pT)."""
+    num = torch.einsum("spfy,p,f->sy", spectra,
+                       grid.pT_weight * grid.pT ** 2, grid.phi_weight)
+    den = dN_dy_j(spectra, grid)
+    return num / torch.where(den == 0.0, torch.ones_like(den), den)
+
+
+def vn_j(spectra, grid: MomentumGrid, n: int) -> torch.Tensor:
+    """pT-integrated |v_n|(y), shape (S, Y) (observables.continuous_vn
+    integrated over pT; reference emissionfunction.cpp:1053-1136).  The
+    magnitude sqrt(re^2 + im^2) takes the double-where guard, so a bin
+    where the harmonic vanishes identically has gradient 0, not NaN."""
+    w = grid.pT_weight * grid.pT
+    wc = torch.cos(n * grid.phi) * grid.phi_weight
+    ws = torch.sin(n * grid.phi) * grid.phi_weight
+    re = torch.einsum("spfy,p,f->sy", spectra, w, wc)
+    im = torch.einsum("spfy,p,f->sy", spectra, w, ws)
+    den = dN_dy_j(spectra, grid)
+    r2 = re * re + im * im
+    pos = r2 > 0.0
+    mag = torch.where(pos, torch.sqrt(torch.where(pos, r2,
+                                                  torch.ones_like(r2))),
+                      torch.zeros_like(r2))
+    return mag / torch.where(den == 0.0, torch.ones_like(den), den)

@@ -25,6 +25,7 @@ Modes (readindata.cpp:133-144):
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional
 
@@ -107,6 +108,11 @@ class Surface(TensorContainer):
     @property
     def n_cells(self) -> int:
         return self.tau.shape[0]
+
+    def replace(self, **fields) -> "Surface":
+        """A copy with ``fields`` replaced (is3d_tpu's ``Surface.replace``);
+        the new tensors may carry ``requires_grad``."""
+        return dataclasses.replace(self, **fields)
 
 
 @dataclass(frozen=True)

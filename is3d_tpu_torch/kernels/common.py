@@ -18,16 +18,93 @@ from ..io.deltaf import DeltafData, evaluate_df_coefficients
 from ..physics import lrf
 
 
+class _FermiBose(torch.autograd.Function):
+    """1 / (e^x + s) with the JAX package's derivative (custom_jvp,
+    is3d_tpu/kernels/common.py:27-51): df/dx = -f (1 - s f), df/ds = -f^2,
+    exact zeros where e^x overflows (autograd's -e^x / (e^x + s)^2 is
+    inf / inf = NaN there)."""
+
+    @staticmethod
+    def forward(ctx, x, s):
+        f = 1.0 / (torch.exp(x) + s)
+        ctx.save_for_backward(f, _as_tensor(s, f))
+        ctx.x_shape = x.shape
+        return f
+
+    @staticmethod
+    def backward(ctx, g):
+        f, s = ctx.saved_tensors
+        gx = gs = None
+        if ctx.needs_input_grad[0]:
+            gx = _sum_to(-g * f * (1.0 - s * f), ctx.x_shape)
+        if ctx.needs_input_grad[1]:
+            gs = _sum_to(-g * f * f, s.shape)
+        return gx, gs
+
+
+class _ScaledFermiBose(torch.autograd.Function):
+    """a / (e^x + s) with the JAX package's derivative (custom_jvp,
+    is3d_tpu/kernels/common.py:54-72): with g = 1 / (e^x + s), df/da = g,
+    df/dx = -a g (1 - s g), df/ds = -a g^2, exact zeros where e^x
+    overflows."""
+
+    @staticmethod
+    def forward(ctx, a, x, s):
+        ex = torch.exp(x)
+        ctx.save_for_backward(_as_tensor(a, ex), ex, _as_tensor(s, ex))
+        return a / (ex + s)
+
+    @staticmethod
+    def backward(ctx, grad):
+        a, ex, s = ctx.saved_tensors
+        g = 1.0 / (ex + s)
+        ga = gx = gs = None
+        if ctx.needs_input_grad[0]:
+            ga = _sum_to(grad * g, a.shape)
+        if ctx.needs_input_grad[1]:
+            gx = _sum_to(-grad * a * g * (1.0 - s * g), ex.shape)
+        if ctx.needs_input_grad[2]:
+            gs = _sum_to(-grad * a * g * g, s.shape)
+        return ga, gx, gs
+
+
+def _as_tensor(v, like: torch.Tensor) -> torch.Tensor:
+    return v if isinstance(v, torch.Tensor) else torch.as_tensor(
+        v, dtype=like.dtype, device=like.device)
+
+
+def _sum_to(t: torch.Tensor, shape) -> torch.Tensor:
+    """Reduce a broadcast gradient to an input's shape."""
+    shape = tuple(shape)
+    if tuple(t.shape) == shape:
+        return t
+    lead = t.dim() - len(shape)
+    t = t.sum(tuple(range(lead))) if lead else t
+    dims = tuple(i for i, n in enumerate(shape) if n == 1 and t.shape[i] != 1)
+    return t.sum(dims, keepdim=True) if dims else t
+
+
+def _tracked(*ts) -> bool:
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in ts)
+
+
 def fermi_bose(x, s):
     """f = 1 / (e^x + s), the Fermi/Bose/Boltzmann occupation (s = +1/-1/0).
-    exp overflow gives 1/(inf + s) = 0 exactly."""
+    exp overflow gives 1/(inf + s) = 0 exactly.  Under autograd the
+    derivative is the JAX package's (_FermiBose); the forward expression is
+    the same either way."""
+    if _tracked(x, s):
+        return _FermiBose.apply(x, s)
     return 1.0 / (torch.exp(x) + s)
 
 
 def scaled_fermi_bose(a, x, s):
     """f = a / (e^x + s): the occupation with a folded-in scale (the feqmod
-    kernel's renormalized f_mod), one division as in the JAX package.
-    Forward only: the derivative waits for the autograd slice."""
+    kernel's renormalized f_mod), one division as in the JAX package; under
+    autograd with its derivative (_ScaledFermiBose)."""
+    if _tracked(a, x, s):
+        return _ScaledFermiBose.apply(a, x, s)
     return a / (torch.exp(x) + s)
 
 

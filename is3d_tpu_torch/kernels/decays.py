@@ -61,9 +61,12 @@ MT_FIT_THRESHOLD2 = 2.73   # mT^2 > 2.73 M^2 for tail-fit points (ref :2063)
 # v, zeta) temporaries
 WAVE_BUCKET = {2: 256, 3: 32}
 
-# launches of csrc/decays.cu in this process (decay_wave_cuda), by body
+# launches of csrc/decays.cu in this process (decay_wave_cuda), by body,
+# and of its backward csrc/decays_bwd.cu (wave_bwd_cuda)
 TWO_BODY_LAUNCHES = 0
 THREE_BODY_LAUNCHES = 0
+TWO_BODY_BWD_LAUNCHES = 0
+THREE_BODY_BWD_LAUNCHES = 0
 
 # The yardstick of the wave kernel's bound (wave_operations): the least
 # FP32 and SFU operations of one Phi solution at one (task, pT, phi, y, v,
@@ -78,6 +81,15 @@ THREE_BODY_LAUNCHES = 0
 # (5) and the first plane of its run of rapidities (4).
 WAVE_EVAL_OPS = {2: (12, 1), 3: (7, 1)}
 WAVE_RUN_OPS = 14
+# The backward's (wave_backward_operations): per evaluation the forward
+# value, formed as the backward kernel forms it (the bilinear (MT, phi)
+# planes of its Y stencil with no plane shared between outputs: 2+1D 12 as
+# the forward, 3+1D two planes 8, the Y lerp 2, the weight 1), exp (1 SFU),
+# the cotangent times W exp 2, and the hat weights' share of it spread onto
+# the corners: 4 FMAs in 2+1D, 8 (two planes) in 3+1D; per (node, phi, +-)
+# in 3+1D the wrap, the phi weight and the four corner weights (10).
+WAVE_BWD_EVAL_OPS = {2: (18, 1), 3: (21, 1)}
+WAVE_BWD_RUN_OPS = 10
 
 # ======================================================================
 # schedule (host, numpy)
@@ -527,6 +539,34 @@ def _eval_parent_pair(tables: ParentTables, slot, wg: WaveGrid, MT, Phip1,
     return torch.where(Y.abs() <= wg.y[-1].abs(), out, 0.0)
 
 
+class _ArccosClipped(torch.autograd.Function):
+    """acos(clamp(x, -1, 1)) with the JAX package's derivative
+    (_arccos_clipped, is3d_tpu/kernels/decays.py:448-470): -1 / sqrt(1 -
+    x^2) inside (-1, 1), 0 where |x| >= 1 (autograd of the clamp then acos
+    is inf x 0 = NaN there)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.acos(torch.clamp(x, -1.0, 1.0))
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        xc = torch.clamp(x, -1.0, 1.0)
+        inside = x.abs() < 1.0
+        d = -1.0 / torch.sqrt(torch.clamp_min(1.0 - xc * xc, 1e-30))
+        return g * torch.where(inside, d, torch.zeros_like(d))
+
+
+def arccos_clipped(x):
+    """acos(clamp(x, -1, 1)); under autograd with _ArccosClipped's
+    derivative, the same forward either way."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _ArccosClipped.apply(x)
+    return torch.acos(torch.clamp(x, -1.0, 1.0))
+
+
 def _kinematics(m2, Estar, pstar, M, wg: WaveGrid):
     """The (v, zeta) nodes of B tasks with m2, Estar, pstar, M (B,) (the
     reference's _decay_kinematics and _parent_MT_Phip, batched): DeltaY
@@ -556,10 +596,10 @@ def _kinematics(m2, Estar, pstar, M, wg: WaveGrid):
     MT = MTbar[..., None] + DeltaMT[..., None] * coszeta   # (B, P, V, Z)
     # 1e-30 (not 1e-300): a normal number in float32 too
     PT = torch.sqrt(torch.clamp_min(MT ** 2 - c(M)[..., None] ** 2, 1e-30))
-    Phip_t = torch.acos(torch.clamp(
+    Phip_t = arccos_clipped(
         (MT * mTc[..., None] - (Estar[:, None] * M[:, None] / pT)[..., None,
                                                                   None])
-        / PT, -1.0, 1.0))
+        / PT)
     return DeltaY, MT, Phip_t, vw
 
 
@@ -649,6 +689,21 @@ def wave_operations(tasks: WaveTasks, wg: WaveGrid) -> tuple[int, int]:
     fp32 *= evals
     if wg.dimension == 3:
         fp32 += WAVE_RUN_OPS * int((n_vy > 0).sum()) * per
+    return fp32, sfu * evals
+
+
+def wave_backward_operations(tasks: WaveTasks, wg: WaveGrid) -> tuple[int,
+                                                                      int]:
+    """The least (FP32, SFU) operations of one backward launch on these
+    inputs (WAVE_BWD_EVAL_OPS an evaluation, in 3+1D WAVE_BWD_RUN_OPS a
+    (node, phi, +-) with an evaluation)."""
+    n_vy = _wave_vy(tasks, wg)
+    per = GAUSS_PTS * wg.phi.shape[0] * 2
+    evals = int(n_vy.sum()) * per
+    fp32, sfu = WAVE_BWD_EVAL_OPS[wg.dimension]
+    fp32 *= evals
+    if wg.dimension == 3:
+        fp32 += WAVE_BWD_RUN_OPS * int((n_vy > 0).sum()) * per
     return fp32, sfu * evals
 
 
@@ -823,6 +878,249 @@ def decay_wave_cuda(tables: ParentTables, tasks: WaveTasks, wg: WaveGrid,
 
 
 # ======================================================================
+# the backward of the wave kernel (csrc/decays_bwd.cu)
+# ======================================================================
+
+def wave_bwd_plain(tables: ParentTables, tasks: WaveTasks, wg: WaveGrid,
+                   G: torch.Tensor):
+    """Plain version of the backward kernel: the gradients (d_logdN, d_tc,
+    d_ts) of <G, wave_plain(tables, tasks)> (G (n_seg, P, F, Y), the
+    cotangent of the spectra the wave feeds, any float dtype), by torch
+    autograd of the gather-form plain version."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True)
+                  for t in (tables.logdN, tables.tc, tables.ts)]
+        t = ParentTables(logdN=leaves[0], tc=leaves[1], ts=leaves[2],
+                         mtg=tables.mtg)
+        out = wave_plain(t, tasks, wg, G.shape[0])
+        return torch.autograd.grad(out, leaves, G.to(out.dtype))
+
+
+def padded_tables(tables: ParentTables) -> torch.Tensor:
+    """(U, LEN) the backward kernel's copy of the slots' tables: per slot
+    the log table (P, F + 2, Y), then tc and ts (F + 2, Y) each, their phi
+    columns padded as the forward stages them (column c holds the slot's
+    column (c - 1) mod F), float32 scaled by log2(e)."""
+    pad = lambda x: torch.cat([x[..., -1:, :], x, x[..., :1, :]], dim=-2)
+    U = tables.logdN.shape[0]
+    flat = torch.cat([pad(tables.logdN).reshape(U, -1),
+                      pad(tables.tc).reshape(U, -1),
+                      pad(tables.ts).reshape(U, -1)], dim=1)
+    if flat.dtype == torch.float32:
+        flat = flat * torch.tensor(1.4426950408889634, dtype=torch.float32)
+    return flat.contiguous()
+
+
+def _bwd_library():
+    from ..native.build import cuda_library
+    lib = cuda_library("decays_bwd")
+    if not getattr(lib, "_is3d_bound", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        for fn in (lib.is3d_decay_wave_bwd_f32, lib.is3d_decay_wave_bwd_f64):
+            fn.restype = ci
+            fn.argtypes = [ci, ci,                     # nbody, dimension
+                           vp, vp,                     # padded tables, mtg
+                           vp, vp, vp, vp, ci,         # pT, phi cells, NB
+                           vp, vp,                     # y, quad
+                           ci, ci, ci, ci,             # U, P, F, Y
+                           vp, vp, vp, ci, ci,         # slot, par, seg, K, NC
+                           vp, vp, vp,                 # G (float64), expo, acc
+                           vp, vp, vp, vp]             # dlog, dtc, dts, stream
+        for fn in (lib.is3d_decay_wave_bwd_blocking_f32,
+                   lib.is3d_decay_wave_bwd_blocking_f64):
+            fn.restype = ci
+            fn.argtypes = [ci] * 7 + [ctypes.POINTER(ci)]
+        lib.is3d_cuda_error_string.restype = ctypes.c_char_p
+        lib.is3d_cuda_error_string.argtypes = [ci]
+        lib._is3d_bound = True
+    return lib
+
+
+def wave_bwd_cuda(tables: ParentTables, tasks: WaveTasks, wg: WaveGrid,
+                  G: torch.Tensor):
+    """Launch csrc/decays_bwd.cu on the current stream: the gradients
+    (d_logdN (U, P, F, Y), d_tc, d_ts (U, F, Y)) of <G, the feed-down of
+    decay_wave_cuda(tables, tasks, wg)>, G (S, P, F, Y) float64 (the
+    cotangent of the spectra accumulator).  The kernel adds every term in
+    fixed point to the slot's int64 table (order-free, so deterministic),
+    one pass for each slot's scale and one for the adds; finish_kernel
+    converts and folds the padded phi columns."""
+    global TWO_BODY_BWD_LAUNCHES, THREE_BODY_BWD_LAUNCHES
+    check_float("wave_bwd_cuda", tables.logdN)
+    if tables.logdN.dim() != 4:
+        raise ValueError("logdN must be (U, P, F, Y), got "
+                         f"{tuple(tables.logdN.shape)}")
+    U, P, F, NY = tables.logdN.shape
+    like = tables.logdN
+    check_tensor("tc", tables.tc, (U, F, NY), like)
+    check_tensor("ts", tables.ts, (U, F, NY), like)
+    check_tensor("mtg", tables.mtg, (U, P), like)
+    check_tensor("pT", wg.pT, (P,), like)
+    check_tensor("y", wg.y, (NY,), like)
+    check_tensor("quad", wg.quad, (3, GAUSS_PTS), like)
+    K = tasks.slot.shape[0]
+    check_tensor("slot", tasks.slot, (K,), like, torch.int32)
+    check_tensor("par", tasks.par, (K, 6), like)
+    check_tensor("G", G, (G.shape[0], P, F, NY), like, torch.float64)
+    if tasks.nbody not in (2, 3) or (wg.dimension, NY > 1) not in (
+            (2, False), (3, True)):
+        raise ValueError(f"wave_bwd_cuda takes 2- or 3-body tasks and a "
+                         f"2+1D (Y = 1) or 3+1D (Y > 1) grid, got "
+                         f"{tasks.nbody}-body, dimension {wg.dimension}, "
+                         f"Y = {NY}")
+    require_cuda("wave_bwd_cuda", like)
+    if wg.phi_bucket is None:
+        raise ValueError("wave_bwd_cuda needs the phi cells of a wave grid "
+                         "built on the card (wave_grid on a CUDA device)")
+    NB = wg.phi_bucket.shape[0]
+    lib = _bwd_library()
+    out = (ctypes.c_int * 4)()
+    f64 = like.dtype == torch.float64
+    with torch.cuda.device(like.device):
+        rc = (lib.is3d_decay_wave_bwd_blocking_f64 if f64
+              else lib.is3d_decay_wave_bwd_blocking_f32)(
+            tasks.nbody, wg.dimension, K, P, F, NY, NB, out)
+    if rc != 0:
+        raise RuntimeError("decay_wave_bwd: no launch configuration: "
+                           f"{lib.is3d_cuda_error_string(rc).decode()}")
+    n_chunks = out[1]
+    ptab = padded_tables(tables)
+    seg = tasks.seg.to(torch.int32)
+    expo = torch.full((U,), -2 ** 31, dtype=torch.int32, device=like.device)
+    acc = torch.zeros((U, 2, ptab.shape[1]), dtype=torch.int64,
+                      device=like.device)
+    d_logdN = torch.empty_like(tables.logdN)
+    d_tc = torch.empty_like(tables.tc)
+    d_ts = torch.empty_like(tables.ts)
+    launch(lib, "decay_wave_bwd",
+           lib.is3d_decay_wave_bwd_f64 if f64 else lib.is3d_decay_wave_bwd_f32,
+           like.device, tasks.nbody, wg.dimension, ptab.data_ptr(),
+           tables.mtg.data_ptr(), wg.pT.data_ptr(), wg.phi_pad.data_ptr(),
+           wg.phi_invd.data_ptr(), wg.phi_bucket.data_ptr(), NB,
+           wg.y.data_ptr(), wg.quad.data_ptr(), U, P, F, NY,
+           tasks.slot.data_ptr(), tasks.par.data_ptr(), seg.data_ptr(), K,
+           n_chunks, G.data_ptr(), expo.data_ptr(), acc.data_ptr(),
+           d_logdN.data_ptr(), d_tc.data_ptr(), d_ts.data_ptr())
+    if tasks.nbody == 2:
+        TWO_BODY_BWD_LAUNCHES += 1
+    else:
+        THREE_BODY_BWD_LAUNCHES += 1
+    return d_logdN, d_tc, d_ts
+
+
+class _WaveLaunch(torch.autograd.Function):
+    """One launch of the wave kernel under autograd: the forward clones the
+    float64 accumulator and folds the launch into the clone exactly as
+    do_resonance_decays folds it into the accumulator (the same bits); the
+    backward passes the accumulator's cotangent through and adds the slots'
+    gradients from wave_bwd_cuda."""
+
+    @staticmethod
+    def forward(ctx, acc, logdN, tc, ts, mtg, tasks, wg):
+        out = acc.clone()
+        tables = ParentTables(logdN=logdN, tc=tc, ts=ts, mtg=mtg)
+        decay_wave_cuda(tables, tasks, wg, out)
+        ctx.save_for_backward(logdN, tc, ts, mtg)
+        ctx.tasks, ctx.wg = tasks, wg
+        return out
+
+    @staticmethod
+    def backward(ctx, G):
+        logdN, tc, ts, mtg = ctx.saved_tensors
+        tables = ParentTables(logdN=logdN, tc=tc, ts=ts, mtg=mtg)
+        d = wave_bwd_cuda(tables, ctx.tasks, ctx.wg, G.contiguous())
+        return (G, *d, None, None, None)
+
+
+class _GatherRows(torch.autograd.Function):
+    """acc.index_select(0, rows) whose backward adds the gradients of the
+    slots that read one row (one slot per adjusted mass) in slot order and
+    writes each row once (index_copy_ of distinct rows), where a CUDA
+    index_add_ with repeated rows would add them in the order of its
+    atomics."""
+
+    @staticmethod
+    def forward(ctx, acc, rows, groups):
+        ctx.shape, ctx.groups = acc.shape, groups
+        ctx.save_for_backward(rows)
+        return acc.index_select(0, rows)
+
+    @staticmethod
+    def backward(ctx, g):
+        unique, slots = ctx.groups
+        rows_g = torch.stack([_ordered_sum(g, s) for s in slots])
+        out = g.new_zeros(ctx.shape)
+        out.index_copy_(0, unique, rows_g)
+        return out, None, None
+
+
+def _ordered_sum(g, slots):
+    acc = g[slots[0]]
+    for u in slots[1:]:
+        acc = acc + g[u]
+    return acc
+
+
+def _row_groups(rows: list, device) -> tuple:
+    """(distinct rows, the slots of each in slot order) of a wave."""
+    seen = {}
+    for u, r in enumerate(rows):
+        seen.setdefault(int(r), []).append(u)
+    return (torch.as_tensor(list(seen), dtype=torch.int64, device=device),
+            list(seen.values()))
+
+
+def resonance_feed_down_traced(spectra: torch.Tensor, table, mcids, grid,
+                               cfg) -> torch.Tensor:
+    """The 2- and 3-body feed-down as a differentiable map: spectra (S, P,
+    F, Y) -> decayed spectra (float64), do_resonance_decays' computation
+    (its result bit for bit).  Under autograd the cotangent reaches the
+    spectra through every wave: on CUDA each launch is a _WaveLaunch (its
+    backward the kernel of csrc/decays_bwd.cu), on the CPU torch autograd
+    of the plain waves; the slots' tables (prepare_parents) and the rows
+    they read (_GatherRows) differentiate in torch."""
+    return _feed_down(spectra, table, mcids, grid, cfg)[0]
+
+
+def _feed_down(spectra: torch.Tensor, table, mcids, grid, cfg):
+    """(decayed spectra, the waves) of the cascade: the parents of a wave
+    read the spectra as they were before it, every launch folds into a
+    float64 accumulator."""
+    dev, dtype = spectra.device, spectra.dtype
+    dimension = int(cfg.dimension)
+    pT64 = grid.pT.to("cpu", torch.float64).numpy()
+    phi = grid.phi.to("cpu", dtype)
+    if not bool(((phi >= 0.0) & (phi < TWO_PI)).all()):
+        raise ValueError("the feed-down takes a phi grid in [0, 2 pi), got "
+                         f"[{phi.min().item()}, {phi.max().item()}]")
+    waves = plan_waves(_decay_schedule(table, np.asarray(mcids), pT64,
+                                       cfg.lightest_particle))
+    wg = wave_grid(grid, dimension, dtype, dev)
+    staged = stage_waves(waves, pT64, dtype, dev)
+    n_y = 1 if dimension == 2 else wg.y.shape[0]
+    want = (len(mcids), wg.pT.shape[0], wg.phi.shape[0], n_y)
+    if tuple(spectra.shape) != want:
+        raise ValueError(f"spectra must be {want}, got {tuple(spectra.shape)}")
+
+    acc = spectra.to(torch.float64).clone()
+    for w, st in zip(waves, staged):
+        parents = _GatherRows.apply(acc, st.rows,
+                                    _row_groups(w.rows, dev)).to(dtype)
+        logdN, tc, ts = prepare_parents(parents, st.mtg, st.masses)
+        for tasks in st.launches:
+            if dev.type == "cuda":
+                acc = _WaveLaunch.apply(acc, logdN, tc, ts, st.mtg, tasks,
+                                        wg)
+            elif dev.type == "cpu":
+                tables = ParentTables(logdN=logdN, tc=tc, ts=ts, mtg=st.mtg)
+                acc = acc + wave_plain(tables, tasks, wg,
+                                       acc.shape[0]).double()
+            else:
+                raise ValueError(f"no decay path for device {dev}")
+    return acc, waves
+
+
+# ======================================================================
 # the cascade
 # ======================================================================
 
@@ -860,38 +1158,10 @@ def do_resonance_decays(spectra: torch.Tensor, table, mcids, grid,
     float64, on the same device: dispatched and not waited for on CUDA
     (reading the result back waits).  The result is the reference's
     heaviest -> lightest cascade (do_resonance_decays, :143-203), its
-    parents grouped into waves."""
-    dev, dtype = spectra.device, spectra.dtype
-    dimension = int(cfg.dimension)
-    pT64 = grid.pT.to("cpu", torch.float64).numpy()
-    # the wave kernel wraps Phi = +-Phi~ + phi to [0, 2 pi) with one add or
-    # subtract of 2 pi, exact for a phi grid in [0, 2 pi) (in the waves'
-    # dtype); the plain version is held to the same grids
-    phi = grid.phi.to("cpu", dtype)
-    if not bool(((phi >= 0.0) & (phi < TWO_PI)).all()):
-        raise ValueError("the feed-down takes a phi grid in [0, 2 pi), got "
-                         f"[{phi.min().item()}, {phi.max().item()}]")
-    schedule = _decay_schedule(table, np.asarray(mcids), pT64,
-                               cfg.lightest_particle)
-    waves = plan_waves(schedule)
-    wg = wave_grid(grid, dimension, dtype, dev)
-    staged = stage_waves(waves, pT64, dtype, dev)
-    n_y = 1 if dimension == 2 else wg.y.shape[0]
-    want = (len(mcids), wg.pT.shape[0], wg.phi.shape[0], n_y)
-    if tuple(spectra.shape) != want:
-        raise ValueError(f"spectra must be {want}, got {tuple(spectra.shape)}")
-
-    acc = spectra.to(torch.float64).clone()
-    for st in staged:
-        # every slot reads the spectra as they were before this wave
-        tables = parent_tables(acc, st.rows, st.masses, st.mtg, dtype)
-        for tasks in st.launches:
-            if dev.type == "cuda":
-                decay_wave_cuda(tables, tasks, wg, acc)
-            elif dev.type == "cpu":
-                acc += wave_plain(tables, tasks, wg, acc.shape[0]).double()
-            else:
-                raise ValueError(f"no decay path for device {dev}")
+    parents grouped into waves: resonance_feed_down_traced without
+    autograd."""
+    with torch.no_grad():
+        acc, waves = _feed_down(spectra, table, mcids, grid, cfg)
     n_channels = sum(len(w.tasks2) + len(w.tasks3) for w in waves)
     print(f"Resonance decays: {n_channels} channel-contributions added"
           f" in {len(waves)} waves")

@@ -39,6 +39,7 @@ import ctypes
 from dataclasses import dataclass
 
 import torch
+import torch.utils.checkpoint
 
 from ..units import CF_PREFACTOR
 from ..config import Config
@@ -69,9 +70,13 @@ IDX = {n: i for i, n in enumerate(FIELDS)}
 _PAD_ONE_FIELDS = ("tau", "ut", "invT")
 
 # launches of the CUDA kernels in this process (smooth_spectra_cuda): all
-# of them, and those that took the 2+1D remap kernel
+# of them, and those that took the 2+1D remap kernel; and of the backward
+# kernels (spectra_bwd_cuda: csrc/smooth_spectra_bwd.cu), fixed nodes and
+# remap
 LAUNCHES = 0
 REMAP_LAUNCHES = 0
+BWD_LAUNCHES = 0
+BWD_REMAP_LAUNCHES = 0
 
 # The yardstick of the emission kernels' bounds: the FP32 and SFU
 # operations per evaluation that depend on cell, node, species and momentum
@@ -112,6 +117,37 @@ FORMULA_OPS = {df: (fp32 + 1, sfu) for df, (fp32, sfu) in EMISSION_OPS.items()}
 # g(cell, phi) + pT sh h(cell, phi), so C2 and C3 are not formed per node;
 # the sum joins pi:pp's three FMAs per evaluation).
 REMAP_NODE_OPS = (18, 0)
+
+
+# The yardstick of the backward kernels' bounds (csrc/smooth_spectra_bwd.cu):
+# the FP32 and SFU operations per evaluation (cell, node, species, point) of
+# the gradient of <G, spectra> with respect to the packed cells, counted from
+# the formula as FORMULA_OPS is, an FMA as one operation, terms of fewer
+# indices hoisted.  The backward recomputes the emission value (its
+# EMISSION_OPS less the hoisted sum) and adds, per evaluation:
+#   g = G x weight (staged, 0), the outflow mask and g f 1, g max(p.ds, 0)
+#   1, the clip mask and g' feq 1, g' (1 + dfc) - sign g'' df 2,
+#   g'' feqbar 1, g_arg = -g_feq feq feqbar 2                      = 8
+#   df 1: g_pi:pp 1, g_V.p 2, g_u.p 3 (g_arg/T + g_df ((kb1 b + 2 kb2 u.p)
+#         Pi + kc4 V.p)); df 2: g_pi:pp 1, g_V.p 2, g_u.p 4        = 6 / 7
+#   the sums a thread carries: g_arg u.p, g_arg b, six of the df chain
+#   (df 1: g_df pi:pp, m^2, b u.p, u.p^2, b V.p, u.p V.p; df 2:
+#   g_df pi:pp r, u.p, b, u.p - m^2 r, V.p, b r V.p: 2 each where two
+#   factors multiply) ~10, the four point terms' cotangents 4, and their
+#   node sums with mT (gp mT, gu mT, gq mT^2, gq mT, gv mT) 6        = 20
+# so (18 + 8 + 6 + 20, 2) = (52, 2) for df 1 and (18 + 8 + 7 + 20, 3) =
+# (53, 3) for df 2; with the remap the node sums take mT cosh and mT sinh
+# apart (13 sums instead of 5: + 9) and the node kinematics are formed per
+# evaluation (mT cosh, mT sinh from the node table: 6; the four terms'
+# node parts: + 10), REMAP_BACKWARD_EXTRA.
+BACKWARD_FORMULA_OPS = {1: (52, 2), 2: (53, 3)}
+REMAP_BACKWARD_EXTRA = 25
+
+
+def backward_formula_ops(df_mode: int, remap: bool) -> tuple[int, int]:
+    """(FP32, SFU) per evaluation of the backward kernel."""
+    fp32, sfu = BACKWARD_FORMULA_OPS[df_mode]
+    return fp32 + (REMAP_BACKWARD_EXTRA if remap else 0), sfu
 
 
 def remap_formula_ops(df_mode: int, n_phi: int) -> tuple[float, float]:
@@ -348,10 +384,20 @@ def smooth_spectra_plain(cells: torch.Tensor, mom: MomentumConstants,
     R = mom.nodes.shape[0]
     C = cells.shape[0]
     chunk = effective_chunk(cell_chunk, C, R * S * P * F)
+    # under autograd each chunk is recomputed in the backward
+    # (torch.utils.checkpoint, JAX's remat_scan), so the reverse pass keeps
+    # one chunk's block at a time; the sums are the same
+    tracked = torch.is_grad_enabled() and cells.requires_grad
     acc = None
     for c0 in range(0, C, chunk):
-        part = _plain_chunk(cells[c0:c0 + chunk], mom, flags)
-        acc = part if acc is None else acc.add_(part)
+        x = cells[c0:c0 + chunk]
+        if tracked:
+            part = torch.utils.checkpoint.checkpoint(
+                _plain_chunk, x, mom, flags, use_reentrant=False)
+            acc = part if acc is None else acc + part
+        else:
+            part = _plain_chunk(x, mom, flags)
+            acc = part if acc is None else acc.add_(part)
     if flags.dimension == 3:
         out = acc.permute(1, 2, 3, 0)
     else:
@@ -515,17 +561,143 @@ def smooth_spectra_cuda(cells: torch.Tensor, mom: MomentumConstants,
     return out
 
 
+# ------------------------------------------------------ backward kernels
+
+def spectra_bwd_plain(cells: torch.Tensor, G: torch.Tensor,
+                      mom: MomentumConstants, flags: SpectraFlags,
+                      cell_chunk: int = 65536) -> torch.Tensor:
+    """Plain version of the backward kernels: the gradient (Cp, NF) of
+    <G, smooth_spectra_plain(cells)> with respect to the packed cells, by
+    torch autograd of the plain version."""
+    with torch.enable_grad():
+        x = cells.detach().requires_grad_(True)
+        out = smooth_spectra_plain(x, mom, flags, cell_chunk)
+        return torch.autograd.grad(out, x, G)[0]
+
+
+def _bwd_library():
+    from ..native.build import cuda_library
+    lib = cuda_library("smooth_spectra_bwd")
+    if not getattr(lib, "_is3d_bound", False):
+        vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+        for fn in (lib.is3d_spectra_bwd_f32, lib.is3d_spectra_bwd_f64):
+            fn.restype = ci
+            fn.argtypes = [vp, ci, ci,                 # cells, n_cells, nf
+                           vp, vp, vp, vp, ci,         # species, n_species
+                           vp, vp, vp, ci, ci,         # pT, px, py, n_pT, n_phi
+                           vp, vp, ci,                 # nodes, weights, n_nodes
+                           ci, ci, ci, ci,             # df, dim, reg, outflow
+                           cd, vp, vp, vp]             # prefactor, G, grad, stream
+        for fn in (lib.is3d_spectra_bwd_remap_f32,
+                   lib.is3d_spectra_bwd_remap_f64):
+            fn.restype = ci
+            fn.argtypes = [vp, ci, ci,                 # cells, n_cells, nf
+                           vp, vp, vp, vp, ci,         # species, n_species
+                           vp, ci, vp, vp, ci,         # pT, n_pT, cos, sin, n_phi
+                           vp, vp, ci,                 # node table, weights, n_nodes
+                           ci, ci, ci,                 # df, reg, outflow
+                           cd, cd, vp, vp, vp]         # prefactor, T_ref, G, grad, stream
+        lib.is3d_cuda_error_string.restype = ctypes.c_char_p
+        lib.is3d_cuda_error_string.argtypes = [ci]
+        lib._is3d_bound = True
+    return lib
+
+
+def spectra_bwd_cuda(cells: torch.Tensor, G: torch.Tensor,
+                     mom: MomentumConstants, flags: SpectraFlags,
+                     table: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch the backward kernel (csrc/smooth_spectra_bwd.cu) on the
+    current stream: the gradient (Cp, NF) of <G, smooth_spectra_cuda(cells,
+    mom, flags)> with respect to the packed cells, G of the output's shape
+    (S, n_pT, n_phi, n_y_out).  With ``flags.remap`` the remap kernel's
+    ``table`` (remap_node_table(mom), built here if None)."""
+    global BWD_LAUNCHES, BWD_REMAP_LAUNCHES
+    check_float("spectra_bwd_cuda", cells)
+    check_tensor("cells", cells, (cells.shape[0], NF), cells)
+    S, P, F = mom.mass.shape[0], mom.pT.shape[0], mom.n_phi
+    R = mom.nodes.shape[0]
+    n_out = R if flags.dimension == 3 else 1
+    check_tensor("G", G, (S, P, F, n_out), cells)
+    for name, n in dict(mass=S, sign=S, baryon=S, degeneracy=S, pT=P,
+                        px=P * F, py=P * F, nodes=R, weights=R, cos_phi=F,
+                        sin_phi=F).items():
+        check_tensor(f"momentum constant {name}", getattr(mom, name), (n,),
+                     cells)
+    remap = flags.dimension == 2 and flags.remap
+    if remap and table is not None:
+        check_tensor("remap node table", table, (S, P, R, 2), cells)
+    require_cuda("spectra_bwd_cuda", cells)
+    grad = torch.empty_like(cells)
+    lib = _bwd_library()
+    f64 = cells.dtype == torch.float64
+    species = (mom.mass.data_ptr(), mom.sign.data_ptr(),
+               mom.baryon.data_ptr(), mom.degeneracy.data_ptr(), S)
+    if remap:
+        if table is None:
+            table = remap_node_table(mom)
+        launch(lib, "spectra_bwd remap",
+               lib.is3d_spectra_bwd_remap_f64 if f64
+               else lib.is3d_spectra_bwd_remap_f32, cells.device,
+               cells.data_ptr(), cells.shape[0], NF, *species,
+               mom.pT.data_ptr(), P, mom.cos_phi.data_ptr(),
+               mom.sin_phi.data_ptr(), F, table.data_ptr(),
+               mom.weights.data_ptr(), R, flags.df_mode,
+               int(flags.regulate), int(flags.outflow), CF_PREFACTOR,
+               ETA_REMAP_T_REF, G.data_ptr(), grad.data_ptr())
+        BWD_LAUNCHES += 1
+        BWD_REMAP_LAUNCHES += 1
+        return grad
+    launch(lib, "spectra_bwd",
+           lib.is3d_spectra_bwd_f64 if f64 else lib.is3d_spectra_bwd_f32,
+           cells.device, cells.data_ptr(), cells.shape[0], NF, *species,
+           mom.pT.data_ptr(), mom.px.data_ptr(), mom.py.data_ptr(), P, F,
+           mom.nodes.data_ptr(), mom.weights.data_ptr(), R, flags.df_mode,
+           flags.dimension, int(flags.regulate), int(flags.outflow),
+           CF_PREFACTOR, G.data_ptr(), grad.data_ptr())
+    BWD_LAUNCHES += 1
+    return grad
+
+
+class _SpectraKernel(torch.autograd.Function):
+    """smooth_spectra_cuda with its backward kernel: the forward keeps only
+    the packed cells (as JAX's remat keeps a chunk's inputs), and the
+    backward recomputes everything else inside spectra_bwd_cuda."""
+
+    @staticmethod
+    def forward(ctx, cells, mom, flags, table):
+        ctx.save_for_backward(cells)
+        ctx.mom, ctx.flags, ctx.table = mom, flags, table
+        return smooth_spectra_cuda(cells, mom, flags, table)
+
+    @staticmethod
+    def backward(ctx, G):
+        (cells,) = ctx.saved_tensors
+        return (spectra_bwd_cuda(cells, G.contiguous(), ctx.mom, ctx.flags,
+                                 ctx.table), None, None, None)
+
+
+def group_spectra(cells: torch.Tensor, mom: MomentumConstants,
+                  flags: SpectraFlags, table: torch.Tensor | None = None,
+                  cell_chunk: int = 65536) -> torch.Tensor:
+    """One group's spectra from its packed cells on their device: the
+    kernel (with its backward kernel under autograd) for CUDA tensors, the
+    plain version (autograd through it) for CPU tensors."""
+    if cells.device.type == "cuda":
+        if torch.is_grad_enabled() and cells.requires_grad:
+            return _SpectraKernel.apply(cells, mom, flags, table)
+        return smooth_spectra_cuda(cells, mom, flags, table)
+    if cells.device.type == "cpu":
+        return smooth_spectra_plain(cells, mom, flags, cell_chunk)
+    raise ValueError(f"no spectra path for device {cells.device}")
+
+
 # ------------------------------------------------------------ entry point
 
 def _group_spectra(cols: dict, mom: MomentumConstants, flags: SpectraFlags,
                    df_data: DeltafData, table: torch.Tensor | None,
                    cfg: Config) -> torch.Tensor:
     cells = pack_cells(prepare_cells(cols, cfg, df_data), cfg)
-    if cells.device.type == "cuda":
-        return smooth_spectra_cuda(cells, mom, flags, table)
-    if cells.device.type == "cpu":
-        return smooth_spectra_plain(cells, mom, flags, cfg.cell_chunk)
-    raise ValueError(f"no spectra path for device {cells.device}")
+    return group_spectra(cells, mom, flags, table, cfg.cell_chunk)
 
 
 def smooth_spectra(surface, species: SpeciesArrays, grid: MomentumGrid,

@@ -1231,6 +1231,66 @@ def decay_edge_seen(case: str, tables, tasks, wg, n_seg, out) -> str:
     return seen
 
 
+# ------------------------------------------------- the backward kernels' inputs
+
+# The backward kernels' cotangents: positive weights (0.5 to 1.5) from a
+# numpy seed, as a calibration loss weights its bins.  Signed random
+# cotangents make the float32 gradient ill-conditioned at the regulator's
+# kink: one evaluation whose |feqbar df| rounds to the other side of 1
+# changes a sum of a few 1e4 terms that cancel down to its square root by
+# one term (~3e-3 of the largest entry of a field on the 203-cell edge
+# inputs; the plain version in float32 is off by 2e-4 there too), which
+# positive weights keep at ~1e-5.
+GRAD_SEED = 31
+
+
+def grad_cotangent(shape, seed: int = GRAD_SEED, dtype=torch.float64,
+                   device="cpu") -> torch.Tensor:
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.uniform(0.5, 1.5, tuple(shape)), dtype=dtype,
+                           device=device)
+
+
+def spectra_grad_inputs(case: str, n_cells: int = 203, n_species: int = 7,
+                        dtype=torch.float64, device="cpu"):
+    """(cells, mom, flags, G): the backward spectra kernels' inputs for the
+    SPECTRA_EDGES case ``case`` (spectra_edge_inputs) and a cotangent of
+    the output's shape."""
+    from .kernels import smooth
+    cells, mom, flags = spectra_edge_inputs(case, n_cells, n_species, dtype,
+                                            device)
+    S, P, F = mom.mass.shape[0], mom.pT.shape[0], mom.n_phi
+    n_out = mom.nodes.shape[0] if flags.dimension == 3 else 1
+    return cells, mom, flags, grad_cotangent((S, P, F, n_out), dtype=dtype,
+                                             device=device)
+
+
+def decay_grad_inputs(case: str, dtype=torch.float64, device="cpu"):
+    """(tables, tasks, wg, G): the backward wave kernel's inputs for the
+    DECAY_EDGES case ``case`` (decay_edge_inputs) and a float64 cotangent
+    of the spectra it feeds."""
+    tables, tasks, wg, n_seg = decay_edge_inputs(case, dtype, device)
+    P, F, NY = tables.logdN.shape[1:]
+    return tables, tasks, wg, grad_cotangent((n_seg, P, F, NY),
+                                             device=device)
+
+
+def grad_errors(got, want, rtol: float, atol_rel: float) -> tuple:
+    """(entries outside rtol |want| + atol_rel x max|want| of the entry's
+    field, largest error over its field's largest value) of a gradient:
+    ``got``/``want`` (rows, fields) tensors, or tuples of tensors (each its
+    own field)."""
+    if isinstance(want, torch.Tensor):
+        got, want = got.double().cpu(), want.double().cpu()
+        scale = want.abs().amax(0, keepdim=True)
+        err = (got - want).abs()
+        bad = int((err > rtol * want.abs() + atol_rel * scale).sum())
+        return bad, float((err / scale.clamp_min(1e-300)).max())
+    out = [grad_errors(g.reshape(-1, 1), w.reshape(-1, 1), rtol, atol_rel)
+           for g, w in zip(got, want)]
+    return sum(b for b, _ in out), max(e for _, e in out)
+
+
 # ------------------------------------------------- the sampler's edge cases
 
 # K7's edge cases (kernels/sample.py:event_batch_cuda against

@@ -1,0 +1,208 @@
+"""The backward kernels' wrappers without JAX: the CPU path takes the plain
+versions' autograd and never loads a kernel; the wrappers refuse CPU
+tensors; the backward fold's plan and the padded tables are what the
+kernel reads; the yardsticks count what the kernels do; and, on a CUDA card
+(gpu-marked), K9a and K9b (csrc/smooth_spectra_bwd.cu: fixed nodes and the
+2+1D mT remap) on testing.SPECTRA_EDGES and K9c (csrc/decays_bwd.cu) on
+testing.DECAY_EDGES against their plain versions, two launches
+bit-identical, and the autograd Functions that carry them.
+
+On the GPU: python -m pytest tests/test_torch_grad_kernels.py -m gpu
+--noconftest (the conftest imports jax).  Tolerances: against the plain
+gradient in float64 from the same inputs, float32 rtol 2e-4 / atol 2e-5 x
+max|grad| of each field, float64 1e-10 / 1e-13 x max; the cotangents are
+testing.grad_cotangent's positive weights (its comment says why).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from is3d_tpu_torch import testing
+from is3d_tpu_torch.kernels import decays, smooth
+from is3d_tpu_torch.native import build
+
+torch.set_num_threads(1)
+
+TOL = {torch.float32: (2e-4, 2e-5), torch.float64: (1e-10, 1e-13)}
+SPECTRA = sorted(testing.SPECTRA_EDGES)
+DECAYS = sorted(testing.DECAY_EDGES)
+
+
+@pytest.fixture
+def cuda_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (on the GPU: python -m pytest "
+                    "tests/test_torch_grad_kernels.py -m gpu --noconftest)")
+
+
+def test_cpu_gradient_never_loads_a_kernel(monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"loaded {name} on the CPU path")
+    monkeypatch.setattr(build, "cuda_library", refuse)
+    cells, mom, flags, G = testing.spectra_grad_inputs("3d_df2_ragged",
+                                                       n_cells=20)
+    x = cells.clone().requires_grad_(True)
+    out = smooth.group_spectra(x, mom, flags)
+    (g,) = torch.autograd.grad(out, x, G)
+    assert torch.equal(g, smooth.spectra_bwd_plain(cells, G, mom, flags))
+    assert torch.isfinite(g).all() and g.abs().max() > 0
+
+
+@pytest.mark.parametrize("which", ["spectra", "decays"])
+def test_wrappers_refuse_cpu_tensors(which):
+    if which == "spectra":
+        cells, mom, flags, G = testing.spectra_grad_inputs("2d_remap_yflow",
+                                                           n_cells=20)
+        with pytest.raises(ValueError, match="needs CUDA"):
+            smooth.spectra_bwd_cuda(cells, G, mom, flags)
+        with pytest.raises(ValueError, match="G"):
+            smooth.spectra_bwd_cuda(cells, G[:1], mom, flags)
+    else:
+        tables, tasks, wg, G = testing.decay_grad_inputs("2body_2d")
+        with pytest.raises(ValueError, match="needs CUDA"):
+            decays.wave_bwd_cuda(tables, tasks, wg, G)
+        with pytest.raises(ValueError, match="G"):
+            decays.wave_bwd_cuda(tables, tasks, wg, G.float())
+
+
+@pytest.mark.parametrize("case", ["2body_3d", "3body_2d"])
+def test_padded_tables(case):
+    """padded_tables lays each slot out as the forward kernel stages it
+    (phi column c holds column (c - 1) mod F; tc and ts after the log
+    table), float32 scaled by log2(e)."""
+    tables, _, _, _ = testing.decay_grad_inputs(case)
+    U, P, F, NY = tables.logdN.shape
+    pt = decays.padded_tables(tables)
+    assert pt.shape == (U, (P + 2) * (F + 2) * NY)
+    log = pt[:, :P * (F + 2) * NY].reshape(U, P, F + 2, NY)
+    assert torch.equal(log[:, :, 1:F + 1], tables.logdN)
+    assert torch.equal(log[:, :, 0], tables.logdN[:, :, F - 1])
+    assert torch.equal(log[:, :, F + 1], tables.logdN[:, :, 0])
+    tail = pt[:, P * (F + 2) * NY:].reshape(U, 2, F + 2, NY)
+    assert torch.equal(tail[:, 0, 1:F + 1], tables.tc)
+    assert torch.equal(tail[:, 1, 1:F + 1], tables.ts)
+    assert torch.equal(decays.padded_tables(tables.to(None, torch.float32))[
+        :, :P * (F + 2) * NY].reshape(U, P, F + 2, NY)[:, :, 1:F + 1],
+        tables.logdN.float() * torch.tensor(1.4426950408889634,
+                                            dtype=torch.float32))
+
+
+def test_backward_yardsticks():
+    """The backward's operations per evaluation exceed the forward's, and
+    the wave backward counts the forward's evaluations."""
+    for df in (1, 2):
+        fwd = smooth.FORMULA_OPS[df]
+        bwd = smooth.backward_formula_ops(df, remap=False)
+        assert bwd[0] > 2 * fwd[0] and bwd[1] <= fwd[1]
+        assert smooth.backward_formula_ops(df, remap=True)[0] > bwd[0]
+    tables, tasks, wg, _ = testing.decay_grad_inputs("2body_3d_narrow_y")
+    f_fwd, s_fwd = decays.wave_operations(tasks, wg)
+    f_bwd, s_bwd = decays.wave_backward_operations(tasks, wg)
+    assert s_bwd == s_fwd == decays.wave_evaluations(tasks, wg)
+    assert f_bwd > f_fwd > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("case", SPECTRA)
+def test_spectra_bwd_kernel_matches_plain(cuda_card, case, dtype):
+    cells, mom, flags, G = testing.spectra_grad_inputs(case, dtype=dtype,
+                                                       device="cuda")
+    want = smooth.spectra_bwd_plain(cells.double(), G.double(),
+                                    mom.to(None, torch.float64), flags)
+    got = smooth.spectra_bwd_cuda(cells, G, mom, flags)
+    again = smooth.spectra_bwd_cuda(cells, G, mom, flags)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    bad, worst = testing.grad_errors(got, want, *TOL[dtype])
+    assert bad == 0, (case, worst)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("case", DECAYS)
+def test_wave_bwd_kernel_matches_plain(cuda_card, case, dtype):
+    tables, tasks, wg, G = testing.decay_grad_inputs(case, dtype=dtype,
+                                                     device="cuda")
+    want = decays.wave_bwd_plain(tables.to(None, torch.float64),
+                                 tasks.to(None, torch.float64),
+                                 wg.to(None, torch.float64), G)
+    got = decays.wave_bwd_cuda(tables, tasks, wg, G)
+    again = decays.wave_bwd_cuda(tables, tasks, wg, G)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    bad, worst = testing.grad_errors(got, want, *TOL[dtype])
+    assert bad == 0, (case, worst)
+
+
+@pytest.mark.gpu
+def test_autograd_functions_launch_the_backward_kernels(cuda_card):
+    """Under autograd on the card the spectra and the feed-down run their
+    backward kernels (the launch counts move), and their forwards are the
+    production kernels' bit for bit."""
+    cells, mom, flags, G = testing.spectra_grad_inputs(
+        "2d_remap_df2_ragged", device="cuda")
+    n0 = smooth.BWD_REMAP_LAUNCHES
+    x = cells.clone().requires_grad_(True)
+    out = smooth.group_spectra(x, mom, flags)
+    assert torch.equal(out.detach(), smooth.smooth_spectra_cuda(cells, mom,
+                                                                flags))
+    (g,) = torch.autograd.grad(out, x, G)
+    assert smooth.BWD_REMAP_LAUNCHES == n0 + 1
+    assert torch.equal(g, smooth.spectra_bwd_cuda(cells, G, mom, flags))
+    table, mcids = testing.synthetic_decaying_table(24)
+    from is3d_tpu_torch.config import Config
+    from is3d_tpu_torch.io.tables import native_momentum_grid
+    grid = native_momentum_grid(2, n_pT=7, pT_max=3.0, n_phi=9, n_eta=4,
+                                device="cuda")
+    cfg = Config(dimension=2, do_resonance_decays=1)
+    spectra = torch.as_tensor(testing.thermal_spectra(
+        table, mcids, grid.to("cpu"), 2), device="cuda")
+    n2 = decays.TWO_BODY_BWD_LAUNCHES + decays.THREE_BODY_BWD_LAUNCHES
+    s = spectra.clone().requires_grad_(True)
+    dec = decays.resonance_feed_down_traced(s, table, mcids, grid, cfg)
+    assert torch.equal(dec.detach(), decays.do_resonance_decays(
+        spectra, table, mcids, grid, cfg))
+    (gs,) = torch.autograd.grad(dec.sum(), s)
+    assert torch.isfinite(gs).all()
+    assert decays.TWO_BODY_BWD_LAUNCHES + decays.THREE_BODY_BWD_LAUNCHES > n2
+
+
+def test_diff_and_batch_import_no_jax():
+    """A fresh interpreter takes a gradient through diff and a batched run
+    through batch without importing jax, flax or is3d_tpu."""
+    import json
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = r"""
+import json, sys
+import torch
+from is3d_tpu_torch import batch, diff, testing
+from is3d_tpu_torch.config import Config
+from is3d_tpu_torch.io.tables import native_momentum_grid
+g = native_momentum_grid(2, n_pT=3, n_phi=4, n_eta=5)
+sp, df = testing.synthetic_species(4), testing.synthetic_deltaf_data()
+cfg = Config(dimension=2, df_mode=2, include_shear_deltaf=1)
+s = testing.synthetic_surface(20, 2)
+fn = diff.spectra_fn(sp, g, df, cfg)
+_, gr = diff.surface_value_and_grad(lambda x: diff.dN_dy_j(fn(x), g).sum(),
+                                    s, ("T",))
+out = batch.smooth_spectra_batched(batch.stack_surfaces([s, s]), sp, g, df,
+                                   cfg)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "is3d_tpu"))
+print(json.dumps({"grad": bool(torch.isfinite(gr["T"]).all()),
+                  "rows": bool(torch.equal(out[0], out[1])), "bad": bad}))
+"""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    proc = subprocess.run([sys.executable, "-c", script], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res == {"grad": True, "rows": True, "bad": []}

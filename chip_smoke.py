@@ -13,8 +13,8 @@ Phases, each printing its own line(s):
    csrc/smooth_proto.cu, csrc/decays.cu, csrc/feqmod.cu, csrc/vah.cu,
    csrc/polzn.cu, csrc/sample.cu, csrc/mc_decays.cu, csrc/yields.cu,
    csrc/sample_vah.cu, csrc/sample_search.cu, csrc/sample_vah_search.cu,
-   csrc/smooth_spectra_bwd.cu, csrc/decays_bwd.cu;
-   one nvcc each, all started together) and the fastio host library, from this checkout's
+   csrc/smooth_spectra_bwd.cu, csrc/decays_bwd.cu, csrc/feqmod_bwd.cu,
+   csrc/vah_bwd.cu; one nvcc each, all started together) and the fastio host library, from this checkout's
    sources, with ptxas's register and spill lines;
 3. each kernel against its plain torch version at small shapes, in f32
    (atol 2e-5 * max, rtol 2e-4) and f64 (rtol 1e-10, atol 1e-13 * max):
@@ -74,7 +74,11 @@ Phases, each printing its own line(s):
    K9c (csrc/decays_bwd.cu) on every testing.DECAY_EDGES case against the
    plain versions' autograd in f64 from the same inputs (a positive
    cotangent, testing.grad_cotangent), f32 and f64, two launches
-   bit-identical;
+   bit-identical; [grad small feqmod] and [grad small vah]: K10a/K10b
+   (csrc/feqmod_bwd.cu) on every testing.FEQMOD_EDGES case and K11a/K11b
+   (csrc/vah_bwd.cu) on every testing.VAH_EDGES case the same way, each
+   field to its own largest value (the f64 reference rounded to the
+   kernel's precision);
 4. operation 1 main path: a synthetic 131072-cell x 320-species 3+1D
    mode-1 run directory through ``is3d_tpu_torch.cli.main`` (df 2, shear +
    bulk, regulate, outflow, f32, native 32 x 24 x 21 grid), then the same
@@ -133,7 +137,10 @@ Phases, each printing its own line(s):
    the f64 one; then the 2+1D waves at full width (320 species of the
    decaying list, native 32 x 24 grid) on the smooth spectra of a 2+1D
    run cut to 16384 cells, timed the same way, the largest launch of each
-   body against its plain version; [grad decays] decayed_spectra_fn on
+   body against its plain version; [grad feqmod decays]
+   decayed_spectra_fn with df 3 on that surface (K3 and K10a once a
+   group, K2 and K9c once a wave of each body, the forward bit-equal);
+   [grad decays] decayed_spectra_fn on
    the decays main path's surface: its forward bit-equal to
    do_resonance_decays of the production spectra, the pullback of a
    positive cotangent (K9a once a group, K9c once a wave of each body),
@@ -155,8 +162,13 @@ Phases, each printing its own line(s):
    16384-cell group as it is and with the shear x 30 (most cells break
    down): f32 against the f64 kernel, paired times, its first 1024 cells
    against the plain version, the bound from the evaluations each chain
-   makes, SASS per evaluation; [feqmod main 2d] the same with df 4 in
-   2+1D (the mT remap) and its pair (plain on 512 cells); [feqmod dndx]
+   makes, SASS per evaluation; [grad feqmod pair] K10a on that group as
+   [grad pair] (its first GRAD_PAIR_PLAIN_CELLS cells against the plain
+   version), [grad feqmod main] diff.surface_vjp of the production df 3
+   spectra (K3 and K10a once a group, the forward bit-equal, f64 central
+   differences); [feqmod main 2d] the same with df 4 in 2+1D (the mT
+   remap) and its pair (plain on 512 cells), [grad feqmod pair 2d] and
+   [grad feqmod main 2d] with K10b; [feqmod dndx]
    operation 0 with df 3 on 16384 cells x 320 species (2+1D) and one of
    its groups (plain on 512 cells);
 10. the VAH paths: [vah main 2d] a synthetic 131072-cell x 320-species
@@ -167,14 +179,20 @@ Phases, each printing its own line(s):
    cuda-against-cpu runs (2+1D mode 2, 3+1D mode 3); [vah pair] one group
    of each, and the 3+1D group with synthetic c0..c4 (every chain on): f32
    against the f64 kernel, paired times, plain on 512 / 1024 cells, bound
-   (kernels/vah.py, vah_formula_ops), SASS; [vah dndx] operation 0 on a
+   (kernels/vah.py, vah_formula_ops), SASS; [grad vah pair] K11b and K11a
+   on those three groups; [grad vah main 2d] (mode 2, gated, by Lambda,
+   a_L, u and dsigma) and [grad vah main 3d] (synthetic c0..c4 on every
+   cell: every chain, by those and the shear, bulkPi, W, c0 and c3) as
+   [grad main]; [vah dndx] operation 0 on a
    16384-cell mode-2 2+1D run, its small run and one group;
 11. the polarization paths: [polzn main 2d] a synthetic 131072 x 320
    mode-5 2+1D run directory through ``cli.main`` (the remap kernel, then
    K1's remap spectra, df 2), the S*.dat files, its 256-cell
    cuda-against-cpu run; [polzn main 3d] the same in 3+1D (the fixed-node
    kernel, then K1); [polzn pair] one group of each as [vah pair]
-   (kernels/polzn.py, polzn_formula_ops);
+   (kernels/polzn.py, polzn_formula_ops); [grad mode5] the spectra
+   gradient of the 2+1D mode-5 surface (K1's remap and K9b once a group,
+   no polarization kernel);
 12. the sampler (operation 2): [sample main 2d] a synthetic 131072 x 320
    2+1D run directory through ``IS3D.from_run_dir(...)
    .run_particlization()`` (df 2, shear + bulk, f32, oversample to
@@ -227,7 +245,8 @@ eight minutes: [pair], [remap pair] and
 took 110 s and 70 s before, and one 31 s for the remap); [feqmod pair]
 on 1024 cells and [vah pair] / [polzn pair] on 512 (2+1D) and 1024
 (3+1D) cells (4096 for [pair], 2048 for the others until the sampler's
-second half added its phases).
+second half added its phases); the [grad ... pair] phases of K10 and K11
+on GRAD_PAIR_PLAIN_CELLS = 128 cells (the plain autograd took 10 s on 512).
 
 Bounds: the larger of the bytes over the memory rate and the operations
 over the card's FP32 and SFU rates, the spectra, dN/dX and prototype
@@ -242,9 +261,15 @@ from their multiply-highs on the INT32 pipe (64 lanes an SM), their
 special functions and their gathers: a table that fits in the 50 MB L2
 read once, a larger one a 32-byte sector a gather (kernels/sample.py,
 gather_bytes, sample_formula_ops; kernels/mc_decays.py,
-cascade_formula_ops).  Before
+cascade_formula_ops), the backward kernels' from theirs
+(kernels/smooth.py, backward_formula_ops; kernels/decays.py,
+wave_backward_operations; kernels/feqmod.py,
+feqmod_backward_formula_ops, each chain apart; kernels/vah.py,
+vah_backward_formula_ops).  Before
 every path (4, 5a, 6, 7a, 8, 9, 10, 11, 12, 13, and the gradients of
-[grad main], [grad main 2d], [grad decays]) all launch
+[grad main], [grad main 2d], [grad decays], [grad feqmod main], [grad
+feqmod main 2d], [grad feqmod decays], [grad vah main 2d], [grad vah main
+3d], [grad mode5]) all launch
 counts are set to 0 and they are read right after it.  The line before
 the last is the kernel record as JSON; the last line is ``{"ok": true,
 "device": {...}}``.  Any failed phase exits nonzero before that line is
@@ -335,7 +360,8 @@ CHUNKED_CELLS = 9 * MAIN_CELLS
 KERNEL_SOURCES = ("smooth_spectra", "dndx", "smooth_proto", "decays",
                   "feqmod", "vah", "polzn", "sample", "mc_decays", "yields",
                   "sample_vah", "sample_search", "sample_vah_search",
-                  "smooth_spectra_bwd", "decays_bwd")
+                  "smooth_spectra_bwd", "decays_bwd", "feqmod_bwd",
+                  "vah_bwd")
 # H100 SXM: SMs, FP32, SFU and INT32-multiply lanes per SM, memory rate
 # (bytes/s)
 N_SM, FP32_LANES, SFU_LANES, HBM_RATE = 132, 128, 16, 3.35e12
@@ -1303,7 +1329,9 @@ def _reset_counts():
     proto.LAUNCHES = probe.LAUNCHES = 0
     decays.TWO_BODY_LAUNCHES = decays.THREE_BODY_LAUNCHES = 0
     feqmod.LAUNCHES = feqmod.REMAP_LAUNCHES = 0
+    feqmod.BWD_LAUNCHES = feqmod.BWD_REMAP_LAUNCHES = 0
     vah.LAUNCHES = vah.REMAP_LAUNCHES = 0
+    vah.BWD_LAUNCHES = vah.BWD_REMAP_LAUNCHES = 0
     polzn.LAUNCHES = polzn.REMAP_LAUNCHES = 0
     sample.LAUNCHES = sample.PACKED_LAUNCHES = sample.ALIAS_LAUNCHES = 0
     sample.VAH_LAUNCHES = sample.VAH_PACKED_LAUNCHES = 0
@@ -1328,6 +1356,10 @@ def _counts() -> dict:
                 decay_wave_bwd_3body=decays.THREE_BODY_BWD_LAUNCHES,
                 feqmod_spectra=feqmod.LAUNCHES,
                 feqmod_spectra_remap=feqmod.REMAP_LAUNCHES,
+                feqmod_bwd=feqmod.BWD_LAUNCHES,
+                feqmod_bwd_remap=feqmod.BWD_REMAP_LAUNCHES,
+                vah_bwd=vah.BWD_LAUNCHES,
+                vah_bwd_remap=vah.BWD_REMAP_LAUNCHES,
                 dndx_feqmod=dndx.FEQMOD_LAUNCHES,
                 vah_spectra=vah.LAUNCHES,
                 vah_spectra_remap=vah.REMAP_LAUNCHES,
@@ -1885,8 +1917,11 @@ def phase_feqmod(smi: str, clock: float):
     """The feqmod (df 3-4) paths at full width: [feqmod main] (3+1D df 3)
     and its 256-cell cuda-against-cpu run, [feqmod pair] on a clean and a
     mostly broken-down group; [feqmod main 2d] (2+1D df 4, mT remap), its
-    small run and pair; [feqmod dndx] (operation 0, df 3) and its group.
-    Returns the kernel records of the three entry points."""
+    small run and pair; [feqmod dndx] (operation 0, df 3) and its group;
+    the backward kernels' [grad feqmod pair] and [grad feqmod main] (3+1D
+    df 3) and [grad feqmod pair 2d] and [grad feqmod main 2d] (2+1D df 4,
+    remap) on those surfaces.  Returns the kernel records of the three
+    entry points and of the two backward kernels."""
     counts, run_dir, cfg, _ = phase_main_path(
         smi, "feqmod main", args=FEQMOD_ARGS, want=("feqmod_spectra",))
     _feqmod_share("feqmod main", run_dir, cfg)
@@ -1894,6 +1929,10 @@ def phase_feqmod(smi: str, clock: float):
         "small_feqmod", dimension=3, args=("df_mode=3", "regulate_deltaf=1"),
         label="3+1D df3 (bulk x 30)", scale_bulk=30.0)
     pair = phase_feqmod_pair(smi, clock, run_dir, cfg, "feqmod pair")
+    rec_bwd = phase_grad_feqmod_pair(smi, clock, run_dir, cfg,
+                                     "grad feqmod pair")
+    rec_bwd["launches"] = phase_grad_feqmod_main(
+        smi, run_dir, cfg, "grad feqmod main")["counts"]["feqmod_bwd"]
     shutil.rmtree(run_dir, ignore_errors=True)
     rec = dict(pair["clean"], launches=counts["feqmod_spectra"],
                most_breakdown=pair["most"])
@@ -1908,6 +1947,11 @@ def phase_feqmod(smi: str, clock: float):
         label="2+1D mT remap df4 (bulk x 30)", scale_bulk=30.0)
     pair = phase_feqmod_pair(smi, clock, run_dir, cfg, "feqmod remap pair",
                              kinds=(("clean", 1.0),), plain_cells=512)
+    rec_bwd_remap = phase_grad_feqmod_pair(smi, clock, run_dir, cfg,
+                                           "grad feqmod pair 2d")
+    rec_bwd_remap["launches"] = phase_grad_feqmod_main(
+        smi, run_dir, cfg, "grad feqmod main 2d")["counts"][
+            "feqmod_bwd_remap"]
     shutil.rmtree(run_dir, ignore_errors=True)
     rec_remap = dict(pair["clean"], launches=counts["feqmod_spectra_remap"])
 
@@ -1917,7 +1961,7 @@ def phase_feqmod(smi: str, clock: float):
     rec_dndx = phase_feqmod_dndx_pair(smi, clock, run_dir, cfg)
     rec_dndx["launches"] = counts["dndx_feqmod"]
     shutil.rmtree(run_dir, ignore_errors=True)
-    return rec, rec_remap, rec_dndx
+    return rec, rec_remap, rec_dndx, rec_bwd, rec_bwd_remap
 
 
 def _polzn_results_ok(results, mcids, n_y, tag):
@@ -1933,12 +1977,18 @@ def _polzn_results_ok(results, mcids, n_y, tag):
           f"{n_y * 24 * 32} points each, finite")
 
 
-def _run_state(run_dir: str, cfg):
-    """(run, species, grid) of a run directory on the card, as the CLI
-    prepares them."""
+def _prepared(run_dir: str, cfg):
+    """(run, particle table, df_data, species, mcids, grid) of a run
+    directory on the card, as the CLI prepares them."""
     from is3d_tpu_torch.api import IS3D
     run = IS3D(cfg, data_dir=run_dir, device="cuda")
-    _, _, species, _, grid = run._prepare()
+    table, df_data, species, mcids, grid = run._prepare()
+    return run, table, df_data, species, mcids, grid
+
+
+def _run_state(run_dir: str, cfg):
+    """(run, species, grid) of a run directory on the card."""
+    run, _, _, species, _, grid = _prepared(run_dir, cfg)
     return run, species, grid
 
 
@@ -2160,9 +2210,12 @@ def phase_vah(smi: str, clock: float):
     each with a 256-cell cuda-against-cpu run (the 3+1D one on a mode-3
     surface); [vah pair] on one group of each (and of the 3+1D one with
     synthetic c0..c4: every chain on); [vah dndx] (operation 0, mode 2,
-    16384 cells) and its group.  Returns the kernel records of the three
-    entry points, and [vah main 2d]'s run directory (kept for [sample vah
-    main 2d]) with its pion, kaon and proton dN/dy."""
+    16384 cells) and its group; the backward kernels' [grad vah pair] (the
+    three groups) and [grad vah main 2d] (gated) and [grad vah main 3d]
+    (every chain, synthetic c0..c4 on every cell).  Returns the kernel
+    records of the three entry points, [vah main 2d]'s run directory (kept
+    for [sample vah main 2d]) with its pion, kaon and proton dN/dy, and
+    the records of the two backward kernels."""
     from is3d_tpu_torch import testing
     from is3d_tpu_torch.kernels import vah
     counts2, run_dir2, cfg2, _ = phase_main_path(
@@ -2186,6 +2239,22 @@ def phase_vah(smi: str, clock: float):
         ("2+1D remap", g2, species2, grid2, cfg2, 512),
         ("3+1D fixed", g3, species3, grid3, cfg3, 1024),
         ("3+1D fixed, every chain", g3c, species3, grid3, cfg3, 1024)])
+    rec_bwd_remap, rec_bwd_off, rec_bwd = phase_grad_vah_pair(smi, clock, [
+        ("2+1D remap", g2, species2, grid2, cfg2),
+        ("3+1D fixed", g3, species3, grid3, cfg3),
+        ("3+1D fixed, every chain", g3c, species3, grid3, cfg3)])
+    rec_bwd_remap["launches"] = phase_grad_vah_main(
+        smi, run2.surface, species2, grid2, cfg2, run2._prepare()[3],
+        "grad vah main 2d", GRAD_VAH_WRT)["counts"]["vah_bwd_remap"]
+    # every chain on: synthetic c0..c4 on every cell of the 3+1D surface
+    coeffs = testing.synthetic_vah_coefficients(
+        {"tau": np.zeros(run3.surface.n_cells)}, seed=0)
+    surface3c = run3.surface.replace(**{
+        k: torch.tensor(v, dtype=torch.float32, device="cuda")
+        for k, v in coeffs.items()})
+    rec_bwd.update(chains_off=rec_bwd_off, launches=phase_grad_vah_main(
+        smi, surface3c, species3, grid3, cfg3, run3._prepare()[3],
+        "grad vah main 3d", GRAD_VAH_CHAIN_WRT)["counts"]["vah_bwd"])
     shutil.rmtree(run_dir3, ignore_errors=True)
     # the operation-1 dN/dy [sample vah main 2d] holds its hadrons to
     dndy = _dndy_files(os.path.join(run_dir2, "results"), (211, 321, 2212))
@@ -2201,7 +2270,8 @@ def phase_vah(smi: str, clock: float):
     rec_dndx = phase_vah_dndx_pair(smi, clock, run_dir, cfg)
     rec_dndx["launches"] = counts["dndx_vah"]
     shutil.rmtree(run_dir, ignore_errors=True)
-    return rec_fixed, rec_remap, rec_dndx, run_dir2, dndy
+    return (rec_fixed, rec_remap, rec_dndx, run_dir2, dndy, rec_bwd,
+            rec_bwd_remap)
 
 
 def phase_polzn(smi: str, clock: float):
@@ -2209,7 +2279,8 @@ def phase_polzn(smi: str, clock: float):
     kernel, then K1's remap spectra) and [polzn main 3d] (3+1D: the
     fixed-node kernel, then K1) through the CLI at 131072 x 320, the
     first with its 256-cell cuda-against-cpu run; [polzn pair] on one
-    group of each.  Returns the kernel records of both."""
+    group of each; [grad mode5] on the 2+1D surface.  Returns the kernel
+    records of both."""
     from is3d_tpu_torch.kernels import polzn
     counts2, run_dir2, cfg2, _ = phase_main_path(
         smi, "polzn main 2d", dimension=2, args=POLZN2D_ARGS, n_nodes=48,
@@ -2228,6 +2299,7 @@ def phase_polzn(smi: str, clock: float):
          species2, grid2, cfg2, run2.plasma().temperature, 512),
         ("3+1D fixed", _first_group(polzn.polzn_cols(run3.surface), cfg3),
          species3, grid3, cfg3, run3.plasma().temperature, 1024)])
+    phase_grad_mode5(smi, run_dir2, cfg2)
     for d in (run_dir2, run_dir3):
         shutil.rmtree(d, ignore_errors=True)
     rec_remap["launches"] = counts2["polzn_remap"]
@@ -3560,25 +3632,29 @@ def _grad_observable(grid, mcids):
     return obs
 
 
-def phase_grad_main(smi: str, run_dir: str, cfg, tag: str) -> dict:
-    """[grad main] / [grad main 2d]: diff.surface_vjp of the production
-    spectra at full width (the main path's surface, f32) with respect to
-    T, u, bulkPi, the five pi components, dsigma (and eta in 3+1D), then
-    the pullback of the observable's cotangent: the forward equals
-    smooth_spectra bit for bit, each kernel launched once per group in each
-    direction (counted from 0 around the run); forward and backward
-    seconds; on the first GRAD_FD_CELLS cells in f64 a few entries against
-    central differences."""
+def _surface_slice(surface, n: int, dtype):
+    """The first n cells of a surface, every carried column in dtype."""
+    import dataclasses
+    return surface.replace(**{
+        f.name: getattr(surface, f.name)[:n].to(dtype)
+        for f in dataclasses.fields(surface)
+        if isinstance(getattr(surface, f.name), torch.Tensor)})
+
+
+def _grad_path(smi: str, tag: str, surface, make_fn, prod, mcids, grid,
+               cfg, wrt, want: dict, picks) -> dict:
+    """diff.surface_vjp of a differentiable spectra map at full width (the
+    main path's surface, f32) with respect to ``wrt``, then the pullback of
+    the observable's cotangent (_grad_observable): ``make_fn(dtype)`` the
+    map on that precision's species, grid and tables, ``prod()`` the
+    production spectra, ``want`` the kernels and their launches (every
+    count set to 0 before the run); the forward equals the production
+    spectra bit for bit, every gradient is finite and nonzero; forward and
+    backward seconds; on the first GRAD_FD_CELLS cells in f64 the entries
+    ``picks`` against central differences (rtol 5e-5)."""
     from is3d_tpu_torch import diff
-    from is3d_tpu_torch.kernels.smooth import smooth_spectra
-    from is3d_tpu_torch.parallel.mesh import canonical_groups
-    (run, _, species, mcids, grid, df_data, _, _, flags, _) = _grad_group(
-        run_dir, cfg)
-    surface = run.surface
-    wrt = GRAD_WRT + (("eta",) if cfg.dimension == 3 else ())
+    fn = make_fn(torch.float32)
     obs = _grad_observable(grid, mcids)
-    fn = diff.spectra_fn(species, grid, df_data, cfg)
-    groups, _ = canonical_groups(cfg, surface.n_cells)
     _reset_counts()
     t0 = time.perf_counter()
     spectra, pull = diff.surface_vjp(fn, surface, wrt)
@@ -3592,43 +3668,33 @@ def phase_grad_main(smi: str, run_dir: str, cfg, tag: str) -> dict:
     torch.cuda.synchronize()
     t_bwd = time.perf_counter() - t0
     counts = _counts()
-    want = dict(smooth_spectra=groups, spectra_bwd=groups)
-    if flags.remap:
-        want.update(smooth_spectra_remap=groups, spectra_bwd_remap=groups)
     _expect_counts(f"{tag} path", counts, want)
-    prod = smooth_spectra(surface, species, grid, df_data, cfg)
-    if not torch.equal(spectra, prod):
-        fail(f"{tag}: the differentiable forward differs from "
-             "smooth_spectra")
+    if not torch.equal(spectra, prod()):
+        fail(f"{tag}: the differentiable forward differs from the "
+             "production spectra")
     for k, g in grads.items():
         if not (torch.isfinite(g).all() and g.abs().max() > 0):
-            fail(f"{tag}: the gradient by {k} is not finite and nonzero")
+            fail(f"{tag}: the gradient by {k} is not finite and nonzero "
+                 f"({int((~torch.isfinite(g)).sum())} entries not finite, "
+                 "first cells "
+                 f"{torch.nonzero(~torch.isfinite(g))[:4, 0].tolist()}; "
+                 f"{int((g == 0).sum())} zero)")
     nodes = grid.n_eta if cfg.dimension == 2 else grid.n_y
     evals = surface.n_cells * spectra.shape[0] * grid.n_pT * grid.n_phi * \
         nodes
+    groups = max(want.values())
     print(f"[{tag}] {smi} | {surface.n_cells} cells x {spectra.shape[0]} "
           f"species, {len(wrt)} fields: forward {t_fwd:.3f} s (bit-equal "
-          f"to smooth_spectra), backward {t_bwd:.3f} s, "
+          f"to the production spectra), backward {t_bwd:.3f} s, "
           f"{evals / t_bwd:.3e} backward evaluations/s, "
           f"{t_bwd / groups * 1e3:.1f} ms a group over {groups} groups | "
-          "launches " + ", ".join(f"{k} {v}" for k, v in want.items()
-                                  if k in counts))
+          "launches " + ", ".join(f"{k} {v}" for k, v in want.items()))
 
     # central differences in f64 on a slice
     n = GRAD_FD_CELLS
-    s64 = surface.replace(**{k: None if getattr(surface, k) is None else
-                             getattr(surface, k)[:n].double()
-                             for k in ("tau", "x", "y", "eta", "dat", "dax",
-                                       "day", "dan", "ux", "uy", "un", "E",
-                                       "T", "P", "pixx", "pixy", "pixn",
-                                       "piyy", "piyn", "bulkPi", "muB",
-                                       "nB", "Vx", "Vy", "Vn")})
-    fn64 = diff.spectra_fn(species.to(None, torch.float64),
-                           grid.to(None, torch.float64),
-                           df_data.to(None, torch.float64), cfg)
+    s64 = _surface_slice(surface, n, torch.float64)
+    fn64 = make_fn(torch.float64)
     obs64 = _grad_observable(grid.to(None, torch.float64), mcids)
-    picks = [("T", 5), ("ux", 17), ("pixy", 33), ("bulkPi", 41)] + (
-        [("eta", 9)] if cfg.dimension == 3 else [("dat", 9)])
     _, g64 = diff.surface_value_and_grad(lambda s: obs64(fn64(s)), s64,
                                          [k for k, _ in picks])
     worst = 0.0
@@ -3651,6 +3717,31 @@ def phase_grad_main(smi: str, run_dir: str, cfg, tag: str) -> dict:
           f"entries against central differences, largest relative "
           f"difference {worst:.2e} (rtol 5e-5)")
     return dict(counts=counts, forward_s=t_fwd, backward_s=t_bwd)
+
+
+def phase_grad_main(smi: str, run_dir: str, cfg, tag: str) -> dict:
+    """[grad main] / [grad main 2d]: _grad_path of the production linear-df
+    spectra (smooth_spectra) with respect to T, u, bulkPi, the five pi
+    components, dsigma (and eta in 3+1D): K1 and K9a (K9b with the remap)
+    each launched once a group."""
+    from is3d_tpu_torch import diff
+    from is3d_tpu_torch.kernels.smooth import smooth_spectra
+    from is3d_tpu_torch.parallel.mesh import canonical_groups
+    (run, _, species, mcids, grid, df_data, _, _, flags, _) = _grad_group(
+        run_dir, cfg)
+    surface = run.surface
+    groups, _ = canonical_groups(cfg, surface.n_cells)
+    want = dict(smooth_spectra=groups, spectra_bwd=groups)
+    if flags.remap:
+        want.update(smooth_spectra_remap=groups, spectra_bwd_remap=groups)
+    return _grad_path(
+        smi, tag, surface,
+        lambda dt: diff.spectra_fn(species.to(None, dt), grid.to(None, dt),
+                                   df_data.to(None, dt), cfg),
+        lambda: smooth_spectra(surface, species, grid, df_data, cfg),
+        mcids, grid, cfg, GRAD_WRT + (("eta",) if cfg.dimension == 3 else ()),
+        want, [("T", 5), ("ux", 17), ("pixy", 33), ("bulkPi", 41)] + (
+            [("eta", 9)] if cfg.dimension == 3 else [("dat", 9)]))
 
 
 def phase_grad_decays(smi: str, clock: float, run_dir: str, cfg) -> dict:
@@ -3783,6 +3874,331 @@ def phase_grad_decays(smi: str, clock: float, run_dir: str, cfg) -> dict:
     return records
 
 
+# ------------------------------------------- gradients of df 3-4 and VAH
+
+# the fields the VAH runs differentiate: the anisotropic variables, flow
+# and dsigma; with every chain on also the shear, bulk, W and two
+# coefficient columns (the gate keeps a chain whose column wants a
+# gradient)
+GRAD_VAH_WRT = ("Lambda", "aL", "ux", "uy", "un", "dat", "dax", "day", "dan")
+GRAD_VAH_CHAIN_WRT = GRAD_VAH_WRT + ("pixx", "pixy", "bulkPi", "Wx", "c0",
+                                     "c3")
+# the cells of a main-path group the backward kernels K10 and K11 are held
+# to their plain versions on in the [grad ... pair] phases (the plain
+# version's autograd in f32 took 10.1 s on 512 cells of a 3+1D df 3 group)
+GRAD_PAIR_PLAIN_CELLS = 128
+
+
+def _grad_check_fields(name, got, want, dtype, plain=None) -> float:
+    """_grad_check of each gradient of a kernel (the packed cells' and, for
+    K10, rn's), each field (column) to its own largest value, the f64
+    reference rounded to the kernel's precision first (a field of float32
+    gradients whose largest value lies below float32's range, 8e-57 on
+    testing.FEQMOD_EDGES["3d_df4_narrow"], is 0 there)."""
+    tup = lambda t: t if isinstance(t, tuple) else (t,)
+    want = tuple(w.to(dtype) for w in tup(want))
+    plains = tup(plain) if plain is not None else (None,) * len(tup(got))
+    return max(_grad_check(f"{name}{part}", g, w, dtype, p)
+               for part, g, w, p in zip(("", " (rn)"), tup(got), tup(want),
+                                        plains))
+
+
+def phase_small_grad_feqmod():
+    """[grad small feqmod]: K10a and K10b (csrc/feqmod_bwd.cu) on every
+    testing.FEQMOD_EDGES case (df 3 and 4; 3+1D, 2+1D fixed and remap;
+    clean, mixed and mostly broken-down cells; the 3+1D narrow mask; exp
+    overflow; the df 4 clamp and a saturated regulator; betaV = 0 tables;
+    pad rows) against the plain version's autograd in f64 from the same
+    inputs (a positive cotangent), f32 and f64; two launches
+    bit-identical."""
+    from is3d_tpu_torch import testing
+    from is3d_tpu_torch.kernels import feqmod
+    for case in sorted(testing.FEQMOD_EDGES):
+        for dtype in (torch.float32, torch.float64):
+            x, rn, wcs, mom, flags, G = testing.feqmod_grad_inputs(
+                case, dtype=dtype, device="cuda")
+            want = feqmod.feqmod_bwd_plain(
+                x.double(), rn.double(), wcs.double(), G.double(),
+                mom.to(None, torch.float64), flags)
+            got = feqmod.feqmod_bwd_cuda(x, rn, wcs, G, mom, flags)
+            again = feqmod.feqmod_bwd_cuda(x, rn, wcs, G, mom, flags)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                fail(f"feqmod_bwd {case}: two launches differ")
+            _grad_check_fields(f"[grad small feqmod] feqmod_bwd {case} "
+                               f"{dtype}", got, want, dtype)
+
+
+def phase_small_grad_vah():
+    """[grad small vah]: K11a and K11b (csrc/vah_bwd.cu) on every
+    testing.VAH_EDGES case (every chain setting on each path, regulate and
+    outflow off and on, a_L on either side of 1, ragged shapes, strong
+    flow, exp overflow, pad rows) against the plain version's autograd in
+    f64 from the same inputs, f32 and f64; two launches bit-identical."""
+    from is3d_tpu_torch import testing
+    from is3d_tpu_torch.kernels import vah
+    for case in sorted(testing.VAH_EDGES):
+        for dtype in (torch.float32, torch.float64):
+            x, mom, flags, G = testing.vah_grad_inputs(case, dtype=dtype,
+                                                       device="cuda")
+            want = vah.vah_bwd_plain(x.double(), G.double(),
+                                     mom.to(None, torch.float64), flags)
+            got = vah.vah_bwd_cuda(x, G, mom, flags)
+            again = vah.vah_bwd_cuda(x, G, mom, flags)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                fail(f"vah_bwd {case}: two launches differ")
+            _grad_check_fields(f"[grad small vah] vah_bwd {case} {dtype}",
+                               got, want, dtype)
+
+
+def _grad_kernel_pair(smi: str, clock: float, tag: str, kern, kslice,
+                      plain, plain64, n: int, bound, evals: float,
+                      library: str, kernel: str, note: str) -> dict:
+    """A backward kernel on one canonical group as [grad pair] takes it:
+    two launches bit-identical, the CUDA-event median of 3 (one warm-up),
+    the group's first n cells (``kslice``) against the plain version's
+    autograd in f64 (``plain64``) and the plain version's own error in f32
+    (``plain``, one timed run), the bound and its share, SASS per
+    evaluation.  Returns the kernel record."""
+    from is3d_tpu_torch.utils import cuda_median_ms
+    tup = lambda t: t if isinstance(t, tuple) else (t,)
+    got, again = tup(kern()), tup(kern())
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"{tag}: two launches on the same group differ")
+    k_ms, k_all = cuda_median_ms(kern, 3)
+    want = plain64()
+    p32, p_ms = _timed_once(plain)
+    err = _grad_check_fields(f"[{tag}] float32 group's first {n} cells",
+                             kslice(), want, torch.float32, p32)
+    del want, p32
+    print(f"[{tag}] {smi} | {note}: backward kernel {k_ms:.3f} ms (runs "
+          f"{', '.join(f'{t:.2f}' for t in k_all)}), "
+          f"{evals / k_ms * 1e3:.3e} evaluations/s; plain (autograd, f32) "
+          f"{p_ms:.3f} ms on {n} cells; bound {bound[0]:.3f} ms "
+          f"({bound[1]}), kernel at {bound[0] / k_ms:.1%} of it; two "
+          "launches bit-identical; issued per evaluation: "
+          + _issued(library, kernel))
+    return dict(launches=None, max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                bound_ms=bound[0], bound_by=bound[1], library_ms=None,
+                plain_cells=n)
+
+
+def phase_grad_feqmod_pair(smi: str, clock: float, run_dir: str, cfg,
+                           tag: str) -> dict:
+    """[grad feqmod pair] / [grad feqmod pair 2d]: K10a (K10b with the
+    remap) on the first canonical group of a feqmod main path (f32, a
+    positive cotangent), as _grad_kernel_pair; the bound from the
+    evaluations of each chain this group makes
+    (kernels/feqmod.py:feqmod_backward_formula_ops)."""
+    from is3d_tpu_torch import testing
+    from is3d_tpu_torch.io.tables import laguerre_device
+    from is3d_tpu_torch.kernels import feqmod
+    from is3d_tpu_torch.kernels.smooth import momentum_constants
+    cols, species, grid, df_data = _feqmod_run(run_dir, cfg)
+    group = _first_group(cols, cfg)
+    flags = feqmod.feqmod_flags(cfg, grid)
+    mom = momentum_constants(species, grid, cfg.dimension)
+    mom64 = mom.to(None, torch.float64)
+    x, rn, wcs = feqmod.group_inputs(
+        group, species, laguerre_device(dtype=torch.float32, device="cuda"),
+        df_data, cfg, flags)
+    S, P, F = mom.mass.shape[0], mom.pT.shape[0], mom.n_phi
+    R = mom.nodes.shape[0]
+    G = testing.grad_cotangent((S, P, F, R if cfg.dimension == 3 else 1),
+                               dtype=torch.float32, device="cuda")
+    n = GRAD_PAIR_PLAIN_CELLS
+    xs, rns, wcss = (t[:n].contiguous() for t in (x, rn, wcs))
+    mod, fb = _feqmod_evals(x, mom, flags)
+    ops = [feqmod.feqmod_backward_formula_ops(flags.df_mode, flags.remap,
+                                              F, chain)
+           for chain in (False, True)]
+    evals = mod + fb
+    bound = _bound(evals, (mod * ops[0][0] + fb * ops[1][0]) / evals,
+                   (mod * ops[0][1] + fb * ops[1][1]) / evals,
+                   _nbytes(x, rn, wcs, G, x, rn, *mom_tensors(mom)), clock)
+    kernel = (f"feqmod_remap_bwd_kernelIfLi{flags.df_mode}EE" if flags.remap
+              else f"feqmod_bwd_kernelIfLi{cfg.dimension}ELi{flags.df_mode}"
+              "EE")
+    bd = (x[:, feqmod.FQ["bd"]] > 0).double().mean().item()
+    return _grad_kernel_pair(
+        smi, clock, tag, lambda: feqmod.feqmod_bwd_cuda(x, rn, wcs, G, mom,
+                                                        flags),
+        lambda: feqmod.feqmod_bwd_cuda(xs, rns, wcss, G, mom, flags),
+        lambda: feqmod.feqmod_bwd_plain(xs, rns, wcss, G, mom, flags),
+        lambda: feqmod.feqmod_bwd_plain(xs.double(), rns.double(),
+                                        wcss.double(), G.double(), mom64,
+                                        flags),
+        n, bound, evals, "feqmod_bwd", kernel,
+        f"df {flags.df_mode}, one group {x.shape[0]} cells x {S} x {P * F} "
+        f"x {R} nodes ({bd:.1%} of cells break down, {fb / evals:.1%} of "
+        "the evaluations take the fallback)")
+
+
+def phase_grad_feqmod_main(smi: str, run_dir: str, cfg, tag: str) -> dict:
+    """[grad feqmod main] / [grad feqmod main 2d]: _grad_path of the
+    production feqmod spectra (smooth_spectra_feqmod) with respect to
+    GRAD_WRT (and eta in 3+1D): K3 and K10a (K10b with the remap) each
+    launched once a group."""
+    from is3d_tpu_torch import diff
+    from is3d_tpu_torch.kernels.feqmod import smooth_spectra_feqmod
+    from is3d_tpu_torch.parallel.mesh import canonical_groups
+    run, _, df_data, species, mcids, grid = _prepared(run_dir, cfg)
+    surface = run.surface
+    groups, _ = canonical_groups(cfg, surface.n_cells)
+    remap = cfg.dimension == 2 and grid.eta_mT_rescale
+    want = (dict(feqmod_spectra_remap=groups, feqmod_bwd_remap=groups)
+            if remap else dict(feqmod_spectra=groups, feqmod_bwd=groups))
+    return _grad_path(
+        smi, tag, surface,
+        lambda dt: diff.spectra_fn(species.to(None, dt), grid.to(None, dt),
+                                   df_data.to(None, dt), cfg),
+        lambda: smooth_spectra_feqmod(surface, species, grid, df_data, cfg),
+        mcids, grid, cfg, GRAD_WRT + (("eta",) if cfg.dimension == 3 else ()),
+        want, [("T", 5), ("ux", 17), ("pixy", 33), ("bulkPi", 41)] + (
+            [("eta", 9)] if cfg.dimension == 3 else [("dat", 9)]))
+
+
+def phase_grad_feqmod_decays(smi: str, run_dir: str, cfg):
+    """[grad feqmod decays]: decayed_spectra_fn with df 3 on the [decays
+    main] surface (the decaying list, 3+1D, f32): its forward equals
+    do_resonance_decays of smooth_spectra_feqmod bit for bit; the pullback
+    of a positive cotangent launches K3 and K10a once a group and K2 and
+    K9c once a wave of each body (counted from 0 around the run); every
+    gradient finite and nonzero; forward and backward seconds."""
+    from is3d_tpu_torch import diff, testing
+    from is3d_tpu_torch.kernels import decays
+    from is3d_tpu_torch.kernels.feqmod import smooth_spectra_feqmod
+    from is3d_tpu_torch.parallel.mesh import canonical_groups
+    cfg = cfg.replace(df_mode=3)
+    run, table, df_data, species, mcids, grid = _prepared(run_dir, cfg)
+    surface = run.surface
+    groups, _ = canonical_groups(cfg, surface.n_cells)
+    fn = diff.decayed_spectra_fn(species, grid, df_data, cfg, table, mcids)
+    _reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        out, pull = diff.surface_vjp(fn, surface, ("T", "ux", "bulkPi",
+                                                   "pixy"))
+    torch.cuda.synchronize()
+    t_fwd = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    grads = pull(testing.grad_cotangent(out.shape, device="cuda"))
+    torch.cuda.synchronize()
+    t_bwd = time.perf_counter() - t0
+    counts = _counts()
+    sched = _main_decays_schedule()
+    _expect_counts("grad feqmod decays path", counts, dict(
+        feqmod_spectra=groups, feqmod_bwd=groups,
+        decay_wave_2body=sched["waves_2body"],
+        decay_wave_3body=sched["waves_3body"],
+        decay_wave_bwd_2body=sched["waves_2body"],
+        decay_wave_bwd_3body=sched["waves_3body"]))
+    with contextlib.redirect_stdout(io.StringIO()):
+        prod = decays.do_resonance_decays(smooth_spectra_feqmod(
+            surface, species, grid, df_data, cfg), table, mcids, grid, cfg)
+    if not torch.equal(out, prod):
+        fail("grad feqmod decays: the traced forward differs from "
+             "do_resonance_decays")
+    for k, g in grads.items():
+        if not (torch.isfinite(g).all() and g.abs().max() > 0):
+            fail(f"grad feqmod decays: the gradient by {k} is not finite "
+                 "and nonzero")
+    print(f"[grad feqmod decays] {smi} | {surface.n_cells} cells x "
+          f"{out.shape[0]} species, 3+1D df 3: forward {t_fwd:.3f} s "
+          f"(bit-equal to do_resonance_decays), backward {t_bwd:.3f} s | "
+          "launches " + ", ".join(f"{k} {counts[k]}" for k in (
+              "feqmod_spectra", "feqmod_bwd", "decay_wave_bwd_2body",
+              "decay_wave_bwd_3body")))
+
+
+def phase_grad_vah_pair(smi: str, clock: float, groups: list) -> list:
+    """[grad vah pair]: K11a / K11b on one canonical group of a VAH main
+    path (f32, a positive cotangent) for each (kind, columns, species,
+    grid, cfg) of ``groups``, as _grad_kernel_pair; the bound from
+    kernels/vah.py:vah_backward_formula_ops."""
+    from is3d_tpu_torch import testing
+    from is3d_tpu_torch.kernels import vah
+    from is3d_tpu_torch.kernels.smooth import momentum_constants
+    records = []
+    for kind, cols, species, grid, cfg in groups:
+        flags = vah.vah_flags(vah.effective_vah_cfg(cols, cfg), grid)
+        x = vah.group_inputs(cols, flags)
+        mom = momentum_constants(species, grid, cfg.dimension)
+        mom64 = mom.to(None, torch.float64)
+        S, P, F = mom.mass.shape[0], mom.pT.shape[0], mom.n_phi
+        R = mom.nodes.shape[0]
+        G = testing.grad_cotangent((S, P, F, R if cfg.dimension == 3 else 1),
+                                   dtype=torch.float32, device="cuda")
+        n = GRAD_PAIR_PLAIN_CELLS
+        xs = x[:n].contiguous()
+        evals = x.shape[0] * S * P * F * R
+        bound = _bound(evals, *vah.vah_backward_formula_ops(flags, F),
+                       _nbytes(x, G, x, *mom_tensors(mom)), clock)
+        kernel = (f"vah_remap_bwd_kernelIfLi{flags.switches}EE" if flags.remap
+                  else f"vah_bwd_kernelIfLi{flags.dimension}ELi"
+                  f"{flags.switches}EE")
+        records.append(_grad_kernel_pair(
+            smi, clock, "grad vah pair",
+            lambda: vah.vah_bwd_cuda(x, G, mom, flags),
+            lambda: vah.vah_bwd_cuda(xs, G, mom, flags),
+            lambda: vah.vah_bwd_plain(xs, G, mom, flags),
+            lambda: vah.vah_bwd_plain(xs.double(), G.double(), mom64, flags),
+            n, bound, evals, "vah_bwd", kernel,
+            f"{kind}: one group {x.shape[0]} cells x {S} x {P * F} x {R} "
+            f"nodes (chains {flags.switches})"))
+    return records
+
+
+def phase_grad_vah_main(smi: str, surface, species, grid, cfg, mcids,
+                        tag: str, wrt) -> dict:
+    """[grad vah main 2d] / [grad vah main 3d]: _grad_path of the
+    production VAH spectra (smooth_spectra_vah) of a VAH main path's
+    surface with respect to ``wrt``: K4 and K11a (K11b with the remap)
+    each launched once a group."""
+    from is3d_tpu_torch import diff
+    from is3d_tpu_torch.kernels.vah import smooth_spectra_vah
+    from is3d_tpu_torch.parallel.mesh import canonical_groups
+    groups, _ = canonical_groups(cfg, surface.n_cells)
+    remap = cfg.dimension == 2 and grid.eta_mT_rescale
+    want = (dict(vah_spectra_remap=groups, vah_bwd_remap=groups) if remap
+            else dict(vah_spectra=groups, vah_bwd=groups))
+    picks = [("Lambda", 5), ("aL", 17), ("ux", 33)] + (
+        [("eta", 9)] if cfg.dimension == 3 else [("dat", 9)])
+    if "c3" in wrt:
+        picks += [("c3", 41), ("bulkPi", 12)]
+    return _grad_path(
+        smi, tag, surface,
+        lambda dt: diff.spectra_fn(species.to(None, dt), grid.to(None, dt),
+                                   None, cfg),
+        lambda: smooth_spectra_vah(surface, species, grid, cfg),
+        mcids, grid, cfg, wrt + (("eta",) if cfg.dimension == 3 else ()),
+        want, picks)
+
+
+def phase_grad_mode5(smi: str, run_dir: str, cfg) -> dict:
+    """[grad mode5]: the spectra of a mode-5 (vorticity) surface are K1's
+    (api.py): _grad_path of smooth_spectra on [polzn main 2d]'s surface,
+    K1's remap and K9b each launched once a group, no polarization
+    kernel."""
+    from is3d_tpu_torch import diff
+    from is3d_tpu_torch.kernels.smooth import smooth_spectra
+    from is3d_tpu_torch.parallel.mesh import canonical_groups
+    run, _, df_data, species, mcids, grid = _prepared(run_dir, cfg)
+    surface = run.surface
+    groups, _ = canonical_groups(cfg, surface.n_cells)
+    return _grad_path(
+        smi, "grad mode5", surface,
+        lambda dt: diff.spectra_fn(species.to(None, dt), grid.to(None, dt),
+                                   df_data.to(None, dt), cfg),
+        lambda: smooth_spectra(surface, species, grid, df_data, cfg),
+        mcids, grid, cfg, GRAD_WRT,
+        dict(smooth_spectra=groups, smooth_spectra_remap=groups,
+             spectra_bwd=groups, spectra_bwd_remap=groups),
+        [("T", 5), ("ux", 17), ("bulkPi", 41)])
+
+
 def phase_ensemble_batch(smi: str):
     """[ensemble batch]: IS3D.run_ensemble over ENSEMBLE_EVENTS events of
     ENSEMBLE_CELLS cells x 320 species, 2+1D df 2 (the first event read
@@ -3847,6 +4263,8 @@ def main():
     phase_small_experiments()
     phase_small_decay_edges()
     phase_small_grad()
+    phase_small_grad_feqmod()
+    phase_small_grad_vah()
     phase_small_feqmod()
     phase_small_vah()
     phase_small_polzn()
@@ -3901,14 +4319,15 @@ def main():
         for nbody in (2, 3):
             rec_decays[nbody]["launches"] = counts[f"decay_wave_{nbody}body"]
         rec_dbwd = phase_grad_decays(smi, clock, run_dir, cfg)
+        phase_grad_feqmod_decays(smi, run_dir, cfg)
         shutil.rmtree(run_dir, ignore_errors=True)
         phase_decays_2d(smi, clock)
         phase_ensemble_batch(smi)
         experiments = phase_experiments(smi, clock)
-        rec_feqmod, rec_feqmod_remap, rec_feqmod_dndx = phase_feqmod(smi,
-                                                                    clock)
-        (rec_vah, rec_vah_remap, rec_vah_dndx, vah_dir,
-         vah_dndy) = phase_vah(smi, clock)
+        (rec_feqmod, rec_feqmod_remap, rec_feqmod_dndx, rec_qbwd,
+         rec_qbwd_remap) = phase_feqmod(smi, clock)
+        (rec_vah, rec_vah_remap, rec_vah_dndx, vah_dir, vah_dndy, rec_vbwd,
+         rec_vbwd_remap) = phase_vah(smi, clock)
         rec_polzn, rec_polzn_remap = phase_polzn(smi, clock)
         (rec_k7, rec_k7a, rec_k8, rec_yields, rec_yields_vah, rec_k7_vah,
          rec_k7_search) = phase_sample(smi, clock, vah_dir, vah_dndy)
@@ -3984,6 +4403,15 @@ def main():
         dict(name="decay_wave_bwd_3body", route="cuda",
              source=src + "decays_bwd.cu",
              replaces="is3d_tpu/kernels/decays.py:350", **rec_dbwd[3]),
+        dict(name="feqmod_bwd", route="cuda", source=src + "feqmod_bwd.cu",
+             replaces="is3d_tpu/kernels/feqmod.py:276", **rec_qbwd),
+        dict(name="feqmod_bwd_remap", route="cuda",
+             source=src + "feqmod_bwd.cu",
+             replaces="is3d_tpu/kernels/feqmod.py:464", **rec_qbwd_remap),
+        dict(name="vah_bwd", route="cuda", source=src + "vah_bwd.cu",
+             replaces="is3d_tpu/kernels/vah.py:51", **rec_vbwd),
+        dict(name="vah_bwd_remap", route="cuda", source=src + "vah_bwd.cu",
+             replaces="is3d_tpu/kernels/vah.py:199", **rec_vbwd_remap),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

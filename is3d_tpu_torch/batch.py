@@ -15,10 +15,11 @@ the batched maps run each event on its own cells, so the padding never
 enters a sum and its gradient is exactly 0.  A stacked surface built
 without counts (any (E, C) Surface) runs every row whole.
 
-Gradients flow through the batch wherever diff.spectra_fn allows them
-(linear df on viscous-hydro surfaces): a loss summed over the ensemble
-differentiates in one reverse pass.  ``mesh=`` (the event axis over
-several GPUs) is refused until slice 11.
+Gradients flow through the batched spectra of every surface and df mode
+(diff.spectra_fn's maps): a loss summed over the ensemble differentiates
+in one reverse pass.  The batched polarization refuses a gradient, as
+diff.polarization_fn does (K6's backward is not ported), and ``mesh=``
+(the event axis over several GPUs) is refused until slice 11.
 """
 
 from __future__ import annotations
@@ -124,22 +125,21 @@ def _single_fn(species: SpeciesArrays, grid: MomentumGrid,
 def batched_spectra_fn(species: SpeciesArrays, grid: MomentumGrid,
                        df_data: DeltafData | None, cfg: Config) -> Callable:
     """The stacked-surface -> (E, S, PT, PHI, Y) spectra map.  Every surface
-    mode and df mode runs forward; gradients flow where diff.spectra_fn
-    allows them (the others raise there).  Each event runs alone, so no
-    memory budget depends on the event count (is3d_tpu's n_events)."""
+    mode and df mode runs forward, and gradients flow through each (the
+    maps of diff.spectra_fn).  Each event runs alone, so no memory budget
+    depends on the event count (is3d_tpu's n_events)."""
     one = _single_fn(species, grid, df_data, cfg)
-    tracked = cfg.mode in (2, 3, 5) or cfg.df_mode in (3, 4)
 
     def fn(stacked):
-        if tracked and torch.is_grad_enabled() and any(
-                getattr(stacked, name) is not None
-                and getattr(stacked, name).requires_grad
-                for name in _fields()):
-            from .diff import spectra_fn
-            spectra_fn(species, grid, df_data, cfg)     # raises
         return torch.stack([one(event(stacked, e))
                             for e in range(stacked.tau.shape[0])])
     return fn
+
+
+def _tracked(stacked: Surface) -> bool:
+    return torch.is_grad_enabled() and any(
+        getattr(stacked, name) is not None
+        and getattr(stacked, name).requires_grad for name in _fields())
 
 
 def smooth_spectra_batched(stacked: Surface, species: SpeciesArrays,
@@ -159,6 +159,9 @@ def polarization_batched(stacked: Surface, species: SpeciesArrays,
     its own T_avg ((E,) or one value for all)."""
     from .kernels.polzn import spin_polarization
     _refuse_mesh(mesh)
+    if _tracked(stacked):
+        from .diff import polarization_fn
+        polarization_fn(species, grid, cfg, None)        # raises
     E = stacked.tau.shape[0]
     T = torch.as_tensor(T_avg, dtype=torch.float64).reshape(-1)
     T = T.expand(E) if T.numel() == 1 else T

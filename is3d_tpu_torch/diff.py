@@ -7,19 +7,29 @@ forward of every map here is the production path itself, bit for bit; the
 reverse pass runs
 
 * on CUDA tensors, the backward kernels: smooth.spectra_bwd_cuda (K1's
-  fixed nodes and 2+1D remap, csrc/smooth_spectra_bwd.cu) for the spectra,
-  decays.wave_bwd_cuda (csrc/decays_bwd.cu) for the feed-down waves, torch
-  autograd for the cheap per-cell and per-slot tensor algebra around them
-  (prepare_cells, the df coefficients, pack_cells, prepare_parents);
+  fixed nodes and 2+1D remap, csrc/smooth_spectra_bwd.cu) for the linear-df
+  spectra, feqmod.feqmod_bwd_cuda (csrc/feqmod_bwd.cu) for df 3-4,
+  vah.vah_bwd_cuda (csrc/vah_bwd.cu) for VAH, decays.wave_bwd_cuda
+  (csrc/decays_bwd.cu) for the feed-down waves, torch autograd for the
+  per-cell and per-slot tensor algebra around them (prepare_cells, the df
+  coefficients, the feqmod transform and renormalization, pack_cells,
+  prepare_parents);
 * on CPU tensors, torch autograd of the plain versions, each cell chunk
   recomputed in the backward (torch.utils.checkpoint, JAX's remat_scan).
 
-Supported surface maps: linear df (df_mode 1-2) spectra on viscous-hydro
-surfaces (spectra_fn) and the same through the 2- and 3-body feed-down
-(decayed_spectra_fn).  The df 3-4 (feqmod), VAH (modes 2-3) and spin-
-polarization (mode 5) maps need the backward passes of K3, K4 and K6, which
-are not ported yet: their map functions raise NotImplementedError on every
-device, so nothing falls back to a plain path on the card.
+Supported surface maps: spectra_fn on viscous-hydro surfaces (modes 1 and
+5) with linear df (df_mode 1-2, K1's backward K9a/K9b) and modified
+equilibrium df (df_mode 3-4, K3's backward K10a/K10b,
+csrc/feqmod_bwd.cu), and on anisotropic surfaces (modes 2-3, K4's backward
+K11a/K11b, csrc/vah_bwd.cu); decayed_spectra_fn, the same through the 2-
+and 3-body feed-down.  The spin polarization (polarization_fn) needs the
+backward pass of K6, which is not ported yet: it raises
+NotImplementedError on every device, so nothing falls back to a plain path
+on the card.  As in is3d_tpu.diff, the df 3-4 forward is the production
+smooth_spectra_feqmod (the JAX package disables its breakdown partition for
+AD; the port's kernels branch per cell and have none), so a cell crossing
+the breakdown threshold switches chains discontinuously and its gradient
+is the one-sided derivative of the chain it took.
 
 Non-smooth points inherited from the physics (one-sided derivatives, never
 NaN): the |df| <= 1 regulator, the outflow Theta(p.dsigma) cut, the
@@ -106,18 +116,25 @@ def surface_vjp(fn: Callable, surface, wrt: Iterable[str]):
 def spectra_fn(species: SpeciesArrays, grid: MomentumGrid,
                df_data: DeltafData | None, cfg: Config,
                mesh=None) -> Callable:
-    """The differentiable surface -> spectra map for ``cfg``: the production
-    smooth_spectra (linear df, df_mode 1-2, mode 1 surfaces), so its forward
-    is the production result bit for bit."""
+    """The differentiable surface -> spectra map for ``cfg``, dispatched as
+    the production API (api.py, _smooth_spectra): VAH surfaces (modes 2-3)
+    to smooth_spectra_vah, else by df mode to smooth_spectra (1-2) or
+    smooth_spectra_feqmod (3-4), so its forward is the production result
+    bit for bit."""
     if mesh is not None:
         raise NotImplementedError("mesh= (multi-GPU) is not ported yet: "
                                   "ROADMAP section 1, slice 11")
     if cfg.mode in (2, 3):
-        _not_ported("VAH spectra (modes 2-3)", "K4 (csrc/vah.cu)")
-    if cfg.mode == 5:
-        _not_ported("spectra on mode-5 surfaces", "K6 (csrc/polzn.cu)")
+        def fn(surface):
+            from .kernels.vah import smooth_spectra_vah
+            return smooth_spectra_vah(surface, species, grid, cfg)
+        return fn
     if cfg.df_mode in (3, 4):
-        _not_ported("feqmod spectra (df_mode 3-4)", "K3 (csrc/feqmod.cu)")
+        def fn(surface):
+            from .kernels.feqmod import smooth_spectra_feqmod
+            return smooth_spectra_feqmod(surface, species, grid, df_data,
+                                         cfg)
+        return fn
     if cfg.df_mode not in (1, 2):
         raise ValueError(f"df_mode must be 1-4, got {cfg.df_mode}")
 

@@ -312,7 +312,13 @@ def evaluate_df_coefficients(data: DeltafData, df_mode: int, include_baryon: boo
         elif df_mode == 4:
             x = bulkPi / P
             lam2 = data.lambda2_spline(x)
-            out["lam"] = torch.sign(bulkPi) * torch.sqrt(torch.clamp(lam2, min=0.0))
+            # the double where: sqrt's derivative is inf at lam2 = 0 (bulkPi
+            # ~ 0), and 0 inf = NaN on a masked cell; lam and its derivative
+            # are 0 where lam2 <= 0
+            pos = lam2 > 0.0
+            lam = torch.sqrt(torch.where(pos, lam2, torch.ones_like(lam2)))
+            out["lam"] = torch.sign(bulkPi) * torch.where(
+                pos, lam, torch.zeros_like(lam))
             out["z"] = data.z_spline(x)
             betapi = ev("betapi") * T4
             out["betapi"] = betapi

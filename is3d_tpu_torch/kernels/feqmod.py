@@ -23,7 +23,12 @@ calculate_dN_ptdptdphidy_feqmod, emissionfunction_smooth_kernels.cpp:
 3. ``feqmod_spectra_cuda`` (csrc/feqmod.cu: ``fixed_kernel`` at fixed
    nodes, ``remap_kernel`` with the 2+1D mT remap) for CUDA tensors,
    ``feqmod_spectra_plain`` for CPU tensors.  The group partials are folded
-   by ``parallel.mesh.grouped_cell_reduce``.
+   by ``parallel.mesh.grouped_cell_reduce``.  Under autograd the CUDA path
+   runs ``_FeqmodKernel``, whose backward is ``feqmod_bwd_cuda``
+   (csrc/feqmod_bwd.cu: the gradients with respect to the packed cells and
+   rn), and the plain version recomputes each chunk in the backward
+   (torch.utils.checkpoint); the per-cell algebra of steps 1-2 is torch
+   autograd on either device.
 
 The plain version evaluates both chains (f_mod at the scaled nodes, the
 linearized fallback at the unscaled ones) at every point and selects per
@@ -54,6 +59,7 @@ import math
 from dataclasses import dataclass
 
 import torch
+import torch.utils.checkpoint
 
 from ..units import CF_PREFACTOR, TWO_PI2_HBARC3
 from ..config import Config
@@ -93,9 +99,13 @@ FQ = {n: i for i, n in enumerate(FQ_FIELDS)}
 NARROW_DETA = 0.01
 
 # launches of the CUDA kernels in this process: at fixed nodes
-# (fixed_kernel) and with the 2+1D mT remap (remap_kernel)
+# (fixed_kernel) and with the 2+1D mT remap (remap_kernel); and of the
+# backward kernels (feqmod_bwd_cuda: csrc/feqmod_bwd.cu), fixed nodes and
+# remap
 LAUNCHES = 0
 REMAP_LAUNCHES = 0
+BWD_LAUNCHES = 0
+BWD_REMAP_LAUNCHES = 0
 
 # The bound's yardstick, counted once from the formula at the main paths'
 # flags (shear + bulk, regulate and outflow on), an FMA as one operation,
@@ -141,6 +151,56 @@ def feqmod_formula_ops(df_mode: int, remap: bool, n_phi: int,
     if not remap:
         return float(fp32), float(sfu)
     return fp32 + node[0] / n_phi, sfu + node[1] / n_phi
+
+
+# The backward kernels' yardstick (csrc/feqmod_bwd.cu), counted from the
+# formula as MOD_OPS is, an FMA as one operation, at the main paths' flags.
+# Per evaluation (cell, node, species, point), (FP32, SFU):
+#   f_mod:    the forward's recomputed value: p.dsigma 2, x 6, |x|^2 3,
+#             the saturation 1, m^2 + |x|^2 1 | sqrt, the exponent 1 | exp,
+#             + sign 1 | 1/(...), x rn 1, the two selects 2     = (18, 3)
+#             the chain: g = G w 1, g f 1, g p.dsigma 1, the p.dsigma sums
+#             (g, g px, g py) 3, rn's sum 2, g_arg 4, its sums (E, 1) 2,
+#             g_arg / T_mod / E 2 | 1/E, g_x 3, their sums (g, g px, g py
+#             for 3 components) 9                               = (29, 1)
+#             with the remap zscale's direct term 2
+#   fallback: the forward's (df 3, shear + bulk): p.dsigma 2, u.p 2, pi:pp
+#             5, the exponent 1 | exp, + sign 1 | 1/(...), 1 - sign feq 1
+#             | 1/u.p, u.p - m^2 r 1, shear 2, bulk 4, x feqbar 1, clip 2,
+#             feq df + feq 1                                    = (23, 3)
+#             the chain: g 3, g_feq 2, the clip mask 2, g_sum and g_feqbar
+#             2, shear 6, bulk 14, g_feq -= 1, g_u -= g_r r^2 2, g_arg 3,
+#             its sums 3, the point sums (p.dsigma 3, u.p 3, pi:pp 9) 15
+#                                                               = (53, 0)
+#             df 4: its bracket (dz - 3 dl + feqbar dl (u.p - m^2 r) / T)
+#             and chain take 6 fewer                            = (70, 3)
+# Per row (species, pT) of a thread, shared by its n_phi points: mT 1 |
+# sqrt, the node kinematics 2 and the chain's composites (f_mod: p.dsigma's
+# and x's 8; fallback 14), and the float64 sums the row adds (f_mod 22,
+# fallback 34, the node derivative's 10 each); with the remap the node's
+# exp and reciprocal (2 SFU) and 4 FP32.
+MOD_BWD_OPS = (47, 4)
+FALLBACK_BWD_OPS = {3: (76, 3), 4: (70, 3)}
+MOD_BWD_ROW_OPS = (42, 1)
+FALLBACK_BWD_ROW_OPS = (60, 1)
+REMAP_BWD_ROW_OPS = (4, 2)
+REMAP_MOD_BWD_EXTRA = 2
+
+
+def feqmod_backward_formula_ops(df_mode: int, remap: bool, n_phi: int,
+                                fallback: bool) -> tuple[float, float]:
+    """(FP32, SFU) per evaluation of one chain of the backward kernels (f_mod,
+    or the fallback with ``fallback``): the yardstick above plus the row's
+    share of one of n_phi points."""
+    if fallback:
+        (fp32, sfu), row = FALLBACK_BWD_OPS[df_mode], FALLBACK_BWD_ROW_OPS
+    else:
+        (fp32, sfu), row = MOD_BWD_OPS, MOD_BWD_ROW_OPS
+        fp32 += REMAP_MOD_BWD_EXTRA if remap else 0
+    rf, rs = row
+    if remap:
+        rf, rs = rf + REMAP_BWD_ROW_OPS[0], rs + REMAP_BWD_ROW_OPS[1]
+    return fp32 + rf / n_phi, sfu + rs / n_phi
 
 
 @dataclass(frozen=True)
@@ -439,6 +499,33 @@ def pack_feqmod_cells(c: dict, cfg: Config, flags: FeqmodFlags
 
 # ------------------------------------------------------------ plain version
 
+class _ZeroSafeMul(torch.autograd.Function):
+    """a b whose derivative is exactly 0 where the cotangent is: the df 3
+    bracket's clip-regulated +-inf (1/betaV = inf) would otherwise give
+    0 inf = NaN under autograd (the CUDA backward skips such terms)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return a * b
+
+    @staticmethod
+    def backward(ctx, g):
+        from .common import _sum_to
+        a, b = ctx.saved_tensors
+        live = g != 0
+        zero = torch.zeros_like(g)
+        ga = _sum_to(torch.where(live, g * b, zero), a.shape)
+        gb = _sum_to(torch.where(live, g * a, zero), b.shape)
+        return ga, gb
+
+
+def _zero_safe_mul(a, b):
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return _ZeroSafeMul.apply(a, b)
+    return a * b
+
+
 def fallback_f(g, sp, pdotu, pipp, Vp, flags: FeqmodFlags):
     """The linearized fallback f_eq (1 + df) (JAX _chunk_contribution_
     feqmod): df 3 the Chapman-Enskog form, deliberately not regrouped (a
@@ -460,8 +547,10 @@ def fallback_f(g, sp, pdotu, pipp, Vp, flags: FeqmodFlags):
             terms.append((g("kF") * pdotu + g("kG") * bary
                           + g("k3") * (pdotu - m2 * r)) * g("bulkPi"))
         if flags.diff:
-            terms.append((g("benth") - bary * r) * Vp * g("kV"))
-        out_df = feqbar * sum(terms[1:], terms[0]) if terms else None
+            terms.append(_zero_safe_mul((g("benth") - bary * r) * Vp,
+                                        g("kV")))
+        out_df = (_zero_safe_mul(feqbar, sum(terms[1:], terms[0]))
+                  if terms else None)
     else:
         if flags.shear:
             terms.append(feqbar * g("ksh") * pipp * r)
@@ -527,8 +616,21 @@ def feqmod_block(x: torch.Tensor, rn: torch.Tensor, wcs: torch.Tensor,
     x2 = torch.nan_to_num(x2, nan=math.inf, posinf=math.inf,
                           neginf=math.inf)
     E_mod = torch.sqrt(sp("m2") + torch.clamp(x2, min=0.0))
-    f_mod = scaled_fermi_bose(cs(rn), E_mod * g("invTm")
-                              - sp("baryon") * g("abm"), sp("sign"))
+    arg = E_mod * g("invTm") - sp("baryon") * g("abm")
+    if torch.is_grad_enabled() and (x.requires_grad or rn.requires_grad):
+        # the double where: where |x|^2 saturated (E_mod = inf) f_mod is
+        # rn / (e^(+-inf) + sign), whose derivative by the exponent is
+        # exactly 0, but by 1/T_mod 0 inf = NaN; the exponent is cut from
+        # the graph there and E_mod kept finite elsewhere in it
+        sat = torch.isinf(x2)
+        E_ok = torch.sqrt(sp("m2") + torch.clamp(
+            torch.where(sat, torch.zeros_like(x2), x2), min=0.0))
+        f_mod = torch.where(
+            sat, scaled_fermi_bose(cs(rn), arg.detach(), sp("sign")),
+            scaled_fermi_bose(cs(rn), E_ok * g("invTm")
+                              - sp("baryon") * g("abm"), sp("sign")))
+    else:
+        f_mod = scaled_fermi_bose(cs(rn), arg, sp("sign"))
     if flags.remap:
         f_mod = f_mod * g("scale")
 
@@ -548,6 +650,17 @@ def feqmod_block(x: torch.Tensor, rn: torch.Tensor, wcs: torch.Tensor,
     return contrib * cs(wcs)
 
 
+def _plain_chunk(x, rn, wcs, mom: MomentumConstants,
+                 flags: FeqmodFlags) -> torch.Tensor:
+    """A chunk's feqmod_block reduced over cells (3+1D: (R, S, P, F)) or
+    over cells and weighted nodes (2+1D: (S, P, F))."""
+    block = feqmod_block(x, rn, wcs, mom, flags)
+    if flags.dimension == 3:
+        return block.sum(0)
+    R = mom.nodes.shape[0]
+    return (block * mom.weights.view(1, R, 1, 1, 1)).sum((0, 1))
+
+
 def feqmod_spectra_plain(x: torch.Tensor, rn: torch.Tensor,
                          wcs: torch.Tensor, mom: MomentumConstants,
                          flags: FeqmodFlags,
@@ -559,15 +672,22 @@ def feqmod_spectra_plain(x: torch.Tensor, rn: torch.Tensor,
     R = mom.nodes.shape[0]
     C = x.shape[0]
     chunk = effective_chunk(cell_chunk, C, 4 * R * S * P * F)
+    # under autograd each chunk is recomputed in the backward
+    # (torch.utils.checkpoint, JAX's remat_scan), so the reverse pass keeps
+    # one chunk's block at a time; the sums are the same
+    tracked = torch.is_grad_enabled() and (x.requires_grad
+                                           or rn.requires_grad)
     acc = None
     for c0 in range(0, max(C, 1), chunk):
-        block = feqmod_block(x[c0:c0 + chunk], rn[c0:c0 + chunk],
-                             wcs[c0:c0 + chunk], mom, flags)
-        if flags.dimension == 3:
-            part = block.sum(0)
+        args = (x[c0:c0 + chunk], rn[c0:c0 + chunk], wcs[c0:c0 + chunk],
+                mom, flags)
+        if tracked:
+            part = torch.utils.checkpoint.checkpoint(
+                _plain_chunk, *args, use_reentrant=False)
+            acc = part if acc is None else acc + part
         else:
-            part = (block * mom.weights.view(1, R, 1, 1, 1)).sum((0, 1))
-        acc = part if acc is None else acc.add_(part)
+            part = _plain_chunk(*args)
+            acc = part if acc is None else acc.add_(part)
     if flags.dimension == 3:
         out = acc.permute(1, 2, 3, 0)
     else:
@@ -683,6 +803,137 @@ def feqmod_spectra_cuda(x: torch.Tensor, rn: torch.Tensor, wcs: torch.Tensor,
     return out
 
 
+# ------------------------------------------------------ backward kernels
+
+def feqmod_bwd_plain(x: torch.Tensor, rn: torch.Tensor, wcs: torch.Tensor,
+                     G: torch.Tensor, mom: MomentumConstants,
+                     flags: FeqmodFlags, cell_chunk: int = 65536
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the backward kernels: the gradients (C, NQ) and
+    (C, S) of <G, feqmod_spectra_plain(x, rn, wcs)> with respect to the
+    packed cells and rn, by torch autograd of the plain version."""
+    with torch.enable_grad():
+        xg = x.detach().requires_grad_(True)
+        rg = rn.detach().requires_grad_(True)
+        out = feqmod_spectra_plain(xg, rg, wcs, mom, flags, cell_chunk)
+        return torch.autograd.grad(out, (xg, rg), G)
+
+
+def _bwd_library():
+    from ..native.build import cuda_library
+    lib = cuda_library("feqmod_bwd")
+    if not getattr(lib, "_is3d_bound", False):
+        vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+        for fn in (lib.is3d_feqmod_bwd_f32, lib.is3d_feqmod_bwd_f64):
+            fn.restype = ci
+            fn.argtypes = [vp, ci, ci, vp, vp,         # cells, C, nq, rn, wcs
+                           vp, vp, vp, vp, ci,         # species, n_species
+                           vp, vp, vp, ci, ci,         # pT px py n_pT n_phi
+                           vp, vp, ci,                 # nodes, weights, R
+                           ci, ci, ci, ci, ci,         # df, dim, sw, reg, out
+                           cd, vp, vp, vp, vp]         # CF, G, grads, stream
+        for fn in (lib.is3d_feqmod_bwd_remap_f32,
+                   lib.is3d_feqmod_bwd_remap_f64):
+            fn.restype = ci
+            fn.argtypes = [vp, ci, ci, vp, vp,         # cells, C, nq, rn, wcs
+                           vp, vp, vp, vp, ci,         # species, n_species
+                           vp, ci, vp, vp, ci,         # pT, n_pT, cos, sin, F
+                           vp, vp, ci,                 # nodes, weights, R
+                           ci, ci, ci, ci,             # df, sw, reg, outflow
+                           cd, cd, vp, vp, vp, vp]     # CF T_ref G grads strm
+        lib.is3d_cuda_error_string.restype = ctypes.c_char_p
+        lib.is3d_cuda_error_string.argtypes = [ci]
+        lib._is3d_bound = True
+    return lib
+
+
+def feqmod_bwd_cuda(x: torch.Tensor, rn: torch.Tensor, wcs: torch.Tensor,
+                    G: torch.Tensor, mom: MomentumConstants,
+                    flags: FeqmodFlags) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the backward kernel (csrc/feqmod_bwd.cu) on the current
+    stream: the gradients (C, NQ) and (C, S) of <G, feqmod_spectra_cuda(x,
+    rn, wcs, mom, flags)> with respect to the packed cells and rn, G of the
+    output's shape (S, n_pT, n_phi, n_y_out)."""
+    global BWD_LAUNCHES, BWD_REMAP_LAUNCHES
+    check_float("feqmod_bwd_cuda", x)
+    C = x.shape[0]
+    S, P, F = mom.mass.shape[0], mom.pT.shape[0], mom.n_phi
+    R = mom.nodes.shape[0]
+    n_out = R if flags.dimension == 3 else 1
+    check_tensor("cells", x, (C, NQ), x)
+    check_tensor("rn", rn, (C, S), x)
+    check_tensor("wcs", wcs, (C, S), x)
+    check_tensor("G", G, (S, P, F, n_out), x)
+    for name, n in dict(mass=S, sign=S, baryon=S, degeneracy=S, pT=P,
+                        px=P * F, py=P * F, nodes=R, weights=R, cos_phi=F,
+                        sin_phi=F).items():
+        check_tensor(f"momentum constant {name}", getattr(mom, name), (n,),
+                     x)
+    require_cuda("feqmod_bwd_cuda", x)
+    lib = _bwd_library()
+    f64 = x.dtype == torch.float64
+    grad = torch.empty_like(x)
+    grad_rn = torch.empty_like(rn)
+    head = (x.data_ptr(), C, NQ, rn.data_ptr(), wcs.data_ptr(),
+            mom.mass.data_ptr(), mom.sign.data_ptr(), mom.baryon.data_ptr(),
+            mom.degeneracy.data_ptr(), S)
+    tail = (int(flags.regulate), int(flags.outflow), CF_PREFACTOR)
+    outs = (G.data_ptr(), grad.data_ptr(), grad_rn.data_ptr())
+    if flags.remap:
+        launch(lib, "feqmod_bwd remap",
+               lib.is3d_feqmod_bwd_remap_f64 if f64
+               else lib.is3d_feqmod_bwd_remap_f32, x.device, *head,
+               mom.pT.data_ptr(), P, mom.cos_phi.data_ptr(),
+               mom.sin_phi.data_ptr(), F, mom.nodes.data_ptr(),
+               mom.weights.data_ptr(), R, flags.df_mode, flags.switches,
+               *tail, ETA_REMAP_T_REF, *outs)
+        BWD_REMAP_LAUNCHES += 1
+        return grad, grad_rn
+    launch(lib, "feqmod_bwd",
+           lib.is3d_feqmod_bwd_f64 if f64 else lib.is3d_feqmod_bwd_f32,
+           x.device, *head, mom.pT.data_ptr(), mom.px.data_ptr(),
+           mom.py.data_ptr(), P, F, mom.nodes.data_ptr(),
+           mom.weights.data_ptr(), R, flags.df_mode, flags.dimension,
+           flags.switches, *tail, *outs)
+    BWD_LAUNCHES += 1
+    return grad, grad_rn
+
+
+class _FeqmodKernel(torch.autograd.Function):
+    """feqmod_spectra_cuda with its backward kernel: the forward keeps only
+    the packed cells, rn and wcs (as JAX's remat keeps a chunk's inputs),
+    and the backward recomputes everything else inside feqmod_bwd_cuda."""
+
+    @staticmethod
+    def forward(ctx, x, rn, wcs, mom, flags, table):
+        ctx.save_for_backward(x, rn, wcs)
+        ctx.mom, ctx.flags = mom, flags
+        return feqmod_spectra_cuda(x, rn, wcs, mom, flags, table)
+
+    @staticmethod
+    def backward(ctx, G):
+        x, rn, wcs = ctx.saved_tensors
+        gx, grn = feqmod_bwd_cuda(x, rn, wcs, G.contiguous(), ctx.mom,
+                                  ctx.flags)
+        return gx, grn, None, None, None, None
+
+
+def group_spectra(x: torch.Tensor, rn: torch.Tensor, wcs: torch.Tensor,
+                  mom: MomentumConstants, flags: FeqmodFlags,
+                  table: torch.Tensor | None = None,
+                  cell_chunk: int = 65536) -> torch.Tensor:
+    """One group's spectra from its packed inputs on their device: the
+    kernel (with its backward kernel under autograd) for CUDA tensors, the
+    plain version (autograd through it) for CPU tensors."""
+    if x.device.type == "cuda":
+        if torch.is_grad_enabled() and (x.requires_grad or rn.requires_grad):
+            return _FeqmodKernel.apply(x, rn, wcs, mom, flags, table)
+        return feqmod_spectra_cuda(x, rn, wcs, mom, flags, table)
+    if x.device.type == "cpu":
+        return feqmod_spectra_plain(x, rn, wcs, mom, flags, cell_chunk)
+    raise ValueError(f"no feqmod spectra path for device {x.device}")
+
+
 # ------------------------------------------------------------ entry point
 
 def group_inputs(cols: dict, species: SpeciesArrays, laguerre: dict,
@@ -697,12 +948,18 @@ def group_inputs(cols: dict, species: SpeciesArrays, laguerre: dict,
 def _group_spectra(cols: dict, species: SpeciesArrays, mom: MomentumConstants,
                    flags: FeqmodFlags, laguerre: dict, df_data: DeltafData,
                    table: torch.Tensor | None, cfg: Config) -> torch.Tensor:
-    x, rn, wcs = group_inputs(cols, species, laguerre, df_data, cfg, flags)
-    if x.device.type == "cuda":
-        return feqmod_spectra_cuda(x, rn, wcs, mom, flags, table)
-    if x.device.type == "cpu":
-        return feqmod_spectra_plain(x, rn, wcs, mom, flags, cfg.cell_chunk)
-    raise ValueError(f"no feqmod spectra path for device {x.device}")
+    if torch.is_grad_enabled() and any(v.requires_grad
+                                       for v in cols.values()):
+        # under autograd the per-cell algebra is recomputed in the backward
+        # (JAX's remat of the chunk body): a group's (cell, species)
+        # Gauss-Laguerre blocks are not kept across the groups
+        x, rn, wcs = torch.utils.checkpoint.checkpoint(
+            group_inputs, cols, species, laguerre, df_data, cfg, flags,
+            use_reentrant=False)
+    else:
+        x, rn, wcs = group_inputs(cols, species, laguerre, df_data, cfg,
+                                  flags)
+    return group_spectra(x, rn, wcs, mom, flags, table, cfg.cell_chunk)
 
 
 def smooth_spectra_feqmod(surface, species: SpeciesArrays, grid: MomentumGrid,

@@ -45,6 +45,7 @@ import ctypes
 from dataclasses import dataclass
 
 import torch
+import torch.utils.checkpoint
 
 from ..units import CF_PREFACTOR
 from ..config import Config
@@ -69,9 +70,12 @@ NV = len(VF_FIELDS)
 VF = {n: i for i, n in enumerate(VF_FIELDS)}
 
 # launches of the CUDA kernels in this process: at fixed nodes
-# (fixed_kernel) and with the 2+1D mT remap (remap_kernel)
+# (fixed_kernel) and with the 2+1D mT remap (remap_kernel); and of the
+# backward kernels (vah_bwd_cuda: csrc/vah_bwd.cu), fixed nodes and remap
 LAUNCHES = 0
 REMAP_LAUNCHES = 0
+BWD_LAUNCHES = 0
+BWD_REMAP_LAUNCHES = 0
 
 # The bound's yardstick, counted once from the formula, an FMA as one
 # operation, factors of fewer indices hoisted.  Per evaluation (cell,
@@ -116,6 +120,55 @@ def vah_formula_ops(flags: "VahFlags", n_phi: int) -> tuple[float, float]:
     node = REMAP_NODE_OPS[0] + (REMAP_SHEAR_NODE_OPS if flags.shear else 0) \
         + (REMAP_BULK_NODE_OPS if flags.bulk else 0)
     return fp32 - 1 + node / n_phi, sfu + REMAP_NODE_OPS[1] / n_phi
+
+
+# The backward kernels' yardstick (csrc/vah_bwd.cu), counted from the
+# formula as EMISSION_OPS is, an FMA as one operation.  Per evaluation
+# (cell, node, species, point), (FP32, SFU):
+#   f_a:   the forward's recomputed value: p.dsigma 2, u.p 2, E_a^2 1 |
+#          sqrt, the exponent 1 | exp, + sign 1 | 1/(...), 1 - sign f_a 1,
+#          max(p.dsigma, 0) 1, the outflow mask 1 (10, 3); the chain: g = G
+#          w 1, g f 1, g max(p.dsigma, 0) 1, g_arg 3, its sum (E_a) 1,
+#          g_arg / Lambda / E_a 2 | 1/E_a, g_u.p 1, g_z.p 2, xi_L's sum 3,
+#          the point sums (p.dsigma 3, u.p 3, z.p 1) 7 (22, 1)   = (32, 4)
+#   a chain on: fabar df 1, clip 2, f_a clip + f_a 1, the clip mask 2,
+#          g_f_a 3, g_df 1                                       = 10
+#   shear: pi:pp 5, W.p 2, c3 (z.p)(W.p) 2; g_W.p 2, g_z.p 2, c3's sum 2,
+#          pi:pp's point sums (g, g px, g py, g px^2, g py^2, g px py) 9,
+#          W.p's (g, g px, g py) 5                               = 29
+#   bulk:  the three terms 4; their sums 5, g_z.p 2, g_u.p 2     = 13
+# Per row (species, pT) of a thread, shared by its n_phi points: mT 1 |
+# sqrt, the node kinematics 2 and the composites (3, with shear 14 more),
+# the float64 sums the row adds (12, with shear 20 more, with bulk 3) and
+# the node derivative's (8, with shear 14 more); with the remap the scale
+# s, its derivative, the node's exp and reciprocal (6 | 3 SFU) and the
+# scale's three sums 6.
+VAH_BWD_OPS = (32, 4)
+VAH_BWD_CHAIN_OPS = 10
+VAH_BWD_SHEAR_OPS = 29
+VAH_BWD_BULK_OPS = 13
+VAH_BWD_ROW_OPS = (25, 1)
+VAH_BWD_ROW_SHEAR_OPS = 48
+VAH_BWD_ROW_BULK_OPS = 3
+VAH_BWD_ROW_REMAP_OPS = (12, 3)
+
+
+def vah_backward_formula_ops(flags: "VahFlags", n_phi: int
+                             ) -> tuple[float, float]:
+    """(FP32, SFU) per evaluation of a backward launch with ``flags``: the
+    yardstick above plus the row's share of one of n_phi points."""
+    fp32, sfu = VAH_BWD_OPS
+    rf, rs = VAH_BWD_ROW_OPS
+    if flags.shear or flags.bulk:
+        fp32 += VAH_BWD_CHAIN_OPS
+    if flags.shear:
+        fp32, rf = fp32 + VAH_BWD_SHEAR_OPS, rf + VAH_BWD_ROW_SHEAR_OPS
+    if flags.bulk:
+        fp32, rf = fp32 + VAH_BWD_BULK_OPS, rf + VAH_BWD_ROW_BULK_OPS
+    if flags.remap:
+        fp32 += 2
+        rf, rs = rf + VAH_BWD_ROW_REMAP_OPS[0], rs + VAH_BWD_ROW_REMAP_OPS[1]
+    return fp32 + rf / n_phi, sfu + rs / n_phi
 
 
 @dataclass(frozen=True)
@@ -168,7 +221,12 @@ def vah_surface_cols(surface) -> dict:
 
 
 def _any_nonzero(*cols) -> bool:
-    """One device-to-host read: does any of ``cols`` hold a nonzero?"""
+    """Can any of ``cols`` be nonzero?  A column that requires grad (under
+    grad mode) counts as nonzero, as a JAX tracer does: its chain is kept
+    and its gradient is exact, also where its values are zeros.  Else one
+    device-to-host read: does any hold a nonzero?"""
+    if torch.is_grad_enabled() and any(c.requires_grad for c in cols):
+        return True
     return bool(torch.count_nonzero(torch.stack(cols)).item())
 
 
@@ -176,7 +234,9 @@ def effective_vah_cfg(cols: dict, cfg: Config) -> Config:
     """Drop the VAH residual-df chains whose coefficient columns are exact
     zeros from the launch (bit-identical: the dropped terms are exact
     zeros), as is3d_tpu's effective_vah_cfg does; one count of nonzeros
-    per column group.  ``cfg.vah_df_gate = 0`` keeps the chains."""
+    per column group, none for a group with a column under grad (kept, as
+    JAX keeps a traced column).  ``cfg.vah_df_gate = 0`` keeps the
+    chains."""
     if not (cfg.vah_df_gate and cfg.mode in (2, 3)):
         return cfg
     shear = bool(cfg.include_shear_deltaf) and _any_nonzero(cols["c3"],
@@ -295,6 +355,22 @@ def vah_block(x: torch.Tensor, mom: MomentumConstants,
     return (torch.clamp(pds, min=0.0) if flags.outflow else pds) * f
 
 
+def _plain_chunk(x: torch.Tensor, mom: MomentumConstants,
+                 flags: VahFlags) -> torch.Tensor:
+    """A chunk's vah_block reduced over cells (3+1D: (R, S, P, F)) or over
+    cells and weighted nodes (2+1D: (S, P, F))."""
+    block = vah_block(x, mom, flags)
+    if flags.dimension == 3:
+        return block.sum(0)
+    R = mom.nodes.shape[0]
+    w = mom.weights.view(1, R, 1, 1, 1)
+    if flags.remap:
+        # the jacobian of the eta -> y_flow - s eta_r substitution, per
+        # cell: inside the cell sum
+        w = w * remap_vah_scale(x, mom)[:, None, :, :, None]
+    return (block * w).sum((0, 1))
+
+
 def vah_spectra_plain(x: torch.Tensor, mom: MomentumConstants,
                       flags: VahFlags,
                       cell_chunk: int = 65536) -> torch.Tensor:
@@ -305,20 +381,19 @@ def vah_spectra_plain(x: torch.Tensor, mom: MomentumConstants,
     R = mom.nodes.shape[0]
     C = x.shape[0]
     chunk = effective_chunk(cell_chunk, C, 4 * R * S * P * F)
+    # under autograd each chunk is recomputed in the backward
+    # (torch.utils.checkpoint, JAX's remat_scan)
+    tracked = torch.is_grad_enabled() and x.requires_grad
     acc = None
     for c0 in range(0, max(C, 1), chunk):
         xc = x[c0:c0 + chunk]
-        block = vah_block(xc, mom, flags)
-        if flags.dimension == 3:
-            part = block.sum(0)
+        if tracked:
+            part = torch.utils.checkpoint.checkpoint(
+                _plain_chunk, xc, mom, flags, use_reentrant=False)
+            acc = part if acc is None else acc + part
         else:
-            w = mom.weights.view(1, R, 1, 1, 1)
-            if flags.remap:
-                # the jacobian of the eta -> y_flow - s eta_r substitution,
-                # per cell: inside the cell sum
-                w = w * remap_vah_scale(xc, mom)[:, None, :, :, None]
-            part = (block * w).sum((0, 1))
-        acc = part if acc is None else acc.add_(part)
+            part = _plain_chunk(xc, mom, flags)
+            acc = part if acc is None else acc.add_(part)
     out = acc.permute(1, 2, 3, 0) if flags.dimension == 3 else acc[..., None]
     deg = mom.degeneracy.view(S, 1, 1, 1)
     return (CF_PREFACTOR * deg * out).contiguous()
@@ -418,6 +493,122 @@ def vah_spectra_cuda(x: torch.Tensor, mom: MomentumConstants,
     return out
 
 
+# ------------------------------------------------------ backward kernels
+
+def vah_bwd_plain(x: torch.Tensor, G: torch.Tensor, mom: MomentumConstants,
+                  flags: VahFlags, cell_chunk: int = 65536) -> torch.Tensor:
+    """Plain version of the backward kernels: the gradient (C, NV) of <G,
+    vah_spectra_plain(x)> with respect to the packed cells, by torch
+    autograd of the plain version."""
+    with torch.enable_grad():
+        xg = x.detach().requires_grad_(True)
+        out = vah_spectra_plain(xg, mom, flags, cell_chunk)
+        return torch.autograd.grad(out, xg, G)[0]
+
+
+def _bwd_library():
+    from ..native.build import cuda_library
+    lib = cuda_library("vah_bwd")
+    if not getattr(lib, "_is3d_bound", False):
+        vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+        for fn in (lib.is3d_vah_bwd_f32, lib.is3d_vah_bwd_f64):
+            fn.restype = ci
+            fn.argtypes = [vp, ci, ci,                 # cells, C, nv
+                           vp, vp, vp, ci,             # mass sign deg, S
+                           vp, vp, vp, ci, ci,         # pT px py n_pT n_phi
+                           vp, vp, ci,                 # nodes, weights, R
+                           ci, ci, ci, ci,             # dim, sw, reg, outflow
+                           cd, vp, vp, vp]             # CF, G, grad, stream
+        for fn in (lib.is3d_vah_bwd_remap_f32, lib.is3d_vah_bwd_remap_f64):
+            fn.restype = ci
+            fn.argtypes = [vp, ci, ci,                 # cells, C, nv
+                           vp, vp, vp, ci,             # mass sign deg, S
+                           vp, ci, vp, vp, ci,         # pT, n_pT, cos, sin, F
+                           vp, vp, ci,                 # nodes, weights, R
+                           ci, ci, ci,                 # sw, reg, outflow
+                           cd, vp, vp, vp]             # CF, G, grad, stream
+        lib.is3d_cuda_error_string.restype = ctypes.c_char_p
+        lib.is3d_cuda_error_string.argtypes = [ci]
+        lib._is3d_bound = True
+    return lib
+
+
+def vah_bwd_cuda(x: torch.Tensor, G: torch.Tensor, mom: MomentumConstants,
+                 flags: VahFlags) -> torch.Tensor:
+    """Launch the backward kernel (csrc/vah_bwd.cu) on the current stream:
+    the gradient (C, NV) of <G, vah_spectra_cuda(x, mom, flags)> with
+    respect to the packed cells, for the same chains, G of the output's
+    shape (S, n_pT, n_phi, n_y_out)."""
+    global BWD_LAUNCHES, BWD_REMAP_LAUNCHES
+    check_float("vah_bwd_cuda", x)
+    C = x.shape[0]
+    S, P, F = mom.mass.shape[0], mom.pT.shape[0], mom.n_phi
+    R = mom.nodes.shape[0]
+    check_tensor("cells", x, (C, NV), x)
+    check_tensor("G", G, (S, P, F, R if flags.dimension == 3 else 1), x)
+    for name, n in dict(mass=S, sign=S, degeneracy=S, pT=P, px=P * F,
+                        py=P * F, nodes=R, weights=R, cos_phi=F,
+                        sin_phi=F).items():
+        check_tensor(f"momentum constant {name}", getattr(mom, name), (n,),
+                     x)
+    if flags.remap and flags.dimension != 2:
+        raise ValueError("vah_bwd_cuda: the remap is 2+1D only")
+    require_cuda("vah_bwd_cuda", x)
+    lib = _bwd_library()
+    f64 = x.dtype == torch.float64
+    grad = torch.empty_like(x)
+    head = (x.data_ptr(), C, NV, mom.mass.data_ptr(), mom.sign.data_ptr(),
+            mom.degeneracy.data_ptr(), S)
+    tail = (flags.switches, int(flags.regulate), int(flags.outflow),
+            CF_PREFACTOR, G.data_ptr(), grad.data_ptr())
+    if flags.remap:
+        launch(lib, "vah_bwd remap",
+               lib.is3d_vah_bwd_remap_f64 if f64
+               else lib.is3d_vah_bwd_remap_f32, x.device, *head,
+               mom.pT.data_ptr(), P, mom.cos_phi.data_ptr(),
+               mom.sin_phi.data_ptr(), F, mom.nodes.data_ptr(),
+               mom.weights.data_ptr(), R, *tail)
+        BWD_REMAP_LAUNCHES += 1
+        return grad
+    launch(lib, "vah_bwd", lib.is3d_vah_bwd_f64 if f64
+           else lib.is3d_vah_bwd_f32, x.device, *head, mom.pT.data_ptr(),
+           mom.px.data_ptr(), mom.py.data_ptr(), P, F, mom.nodes.data_ptr(),
+           mom.weights.data_ptr(), R, flags.dimension, *tail)
+    BWD_LAUNCHES += 1
+    return grad
+
+
+class _VahKernel(torch.autograd.Function):
+    """vah_spectra_cuda with its backward kernel: the forward keeps only the
+    packed cells, and the backward recomputes everything else inside
+    vah_bwd_cuda for the same chains."""
+
+    @staticmethod
+    def forward(ctx, x, mom, flags):
+        ctx.save_for_backward(x)
+        ctx.mom, ctx.flags = mom, flags
+        return vah_spectra_cuda(x, mom, flags)
+
+    @staticmethod
+    def backward(ctx, G):
+        (x,) = ctx.saved_tensors
+        return vah_bwd_cuda(x, G.contiguous(), ctx.mom, ctx.flags), None, None
+
+
+def group_spectra(x: torch.Tensor, mom: MomentumConstants, flags: VahFlags,
+                  cell_chunk: int = 65536) -> torch.Tensor:
+    """One group's spectra from its packed cells on their device: the kernel
+    (with its backward kernel under autograd) for CUDA tensors, the plain
+    version (autograd through it) for CPU tensors."""
+    if x.device.type == "cuda":
+        if torch.is_grad_enabled() and x.requires_grad:
+            return _VahKernel.apply(x, mom, flags)
+        return vah_spectra_cuda(x, mom, flags)
+    if x.device.type == "cpu":
+        return vah_spectra_plain(x, mom, flags, cell_chunk)
+    raise ValueError(f"no VAH spectra path for device {x.device}")
+
+
 # ------------------------------------------------------------ entry point
 
 def group_inputs(cols: dict, flags: VahFlags) -> torch.Tensor:
@@ -427,12 +618,31 @@ def group_inputs(cols: dict, flags: VahFlags) -> torch.Tensor:
 
 def _group_spectra(cols: dict, mom: MomentumConstants, flags: VahFlags,
                    cfg: Config) -> torch.Tensor:
-    x = group_inputs(cols, flags)
-    if x.device.type == "cuda":
-        return vah_spectra_cuda(x, mom, flags)
-    if x.device.type == "cpu":
-        return vah_spectra_plain(x, mom, flags, cfg.cell_chunk)
-    raise ValueError(f"no VAH spectra path for device {x.device}")
+    return group_spectra(group_inputs(cols, flags), mom, flags,
+                         cfg.cell_chunk)
+
+
+def _check_chains(cols: dict, cfg: Config, flags: VahFlags):
+    """Refuse a launch that drops a chain whose coefficient column wants a
+    gradient that is not provably 0 (effective_vah_cfg keeps such chains:
+    the backward kernels differentiate only the chains the forward
+    launched).  A bulk chain dropped for bulkPi = 0 has exact zero
+    derivatives with respect to c0..c2."""
+    if not torch.is_grad_enabled():
+        return
+    for on, kept, names, live in (
+            (cfg.include_shear_deltaf, flags.shear, ("c3", "c4"), True),
+            (cfg.include_bulk_deltaf, flags.bulk, ("c0", "c1", "c2"),
+             None)):
+        wanted = [n for n in names if cols[n].requires_grad]
+        if not on or kept or not wanted:
+            continue
+        if live is None:
+            live = _any_nonzero(cols["bulkPi"])
+        if live:
+            raise ValueError(f"VAH: the chain of {', '.join(wanted)} is off "
+                             "in the launch while its columns want a "
+                             "gradient")
 
 
 def smooth_spectra_vah(surface, species: SpeciesArrays, grid: MomentumGrid,
@@ -443,8 +653,10 @@ def smooth_spectra_vah(surface, species: SpeciesArrays, grid: MomentumGrid,
     order)."""
     from ..parallel.mesh import grouped_cell_reduce
     cols = vah_surface_cols(surface)
-    cfg = effective_vah_cfg(cols, cfg)
-    flags = vah_flags(cfg, grid)
+    gated = effective_vah_cfg(cols, cfg)
+    flags = vah_flags(gated, grid)
+    _check_chains(cols, cfg, flags)
+    cfg = gated
     mom = momentum_constants(species, grid, cfg.dimension)
     return grouped_cell_reduce(
         lambda c, m, fl: _group_spectra(c, m, fl, cfg), cols, (mom, flags),

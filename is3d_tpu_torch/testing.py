@@ -1265,6 +1265,33 @@ def spectra_grad_inputs(case: str, n_cells: int = 203, n_species: int = 7,
                                              device=device)
 
 
+def feqmod_grad_inputs(case: str, n_cells: int = 203, dtype=torch.float64,
+                       device="cpu"):
+    """(x, rn, wcs, mom, flags, G): the feqmod backward kernels' inputs for
+    the FEQMOD_EDGES case ``case`` (feqmod_edge_inputs) and a cotangent of
+    the output's shape."""
+    x, rn, wcs, mom, flags, _, _ = feqmod_edge_inputs(case, n_cells,
+                                                      dtype=dtype,
+                                                      device=device)
+    n_out = mom.nodes.shape[0] if flags.dimension == 3 else 1
+    return x, rn, wcs, mom, flags, grad_cotangent(
+        (mom.mass.shape[0], mom.pT.shape[0], mom.n_phi, n_out), dtype=dtype,
+        device=device)
+
+
+def vah_grad_inputs(case: str, n_cells: int = 203, dtype=torch.float64,
+                    device="cpu"):
+    """(x, mom, flags, G): the VAH backward kernels' inputs for the
+    VAH_EDGES case ``case`` (vah_edge_inputs) and a cotangent of the
+    output's shape."""
+    x, mom, flags, _, _ = vah_edge_inputs(case, n_cells, dtype=dtype,
+                                          device=device)
+    n_out = mom.nodes.shape[0] if flags.dimension == 3 else 1
+    return x, mom, flags, grad_cotangent(
+        (mom.mass.shape[0], mom.pT.shape[0], mom.n_phi, n_out), dtype=dtype,
+        device=device)
+
+
 def decay_grad_inputs(case: str, dtype=torch.float64, device="cpu"):
     """(tables, tasks, wg, G): the backward wave kernel's inputs for the
     DECAY_EDGES case ``case`` (decay_edge_inputs) and a float64 cotangent

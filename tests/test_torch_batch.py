@@ -5,7 +5,8 @@
   is3d_tpu.batch at the f64 bar (rtol 1e-9 / atol 1e-12 x max: JAX's
   vmapped rows are another compilation of the same sums).
 * Gradients through the batch equal is3d_tpu's (rtol 1e-8 / atol 1e-10 x
-  max, as tests/test_torch_grad.py); pad cells get exactly 0.
+  max, as tests/test_torch_grad.py); a VAH ensemble's equal each event's
+  single run's (rtol 1e-12); pad cells get exactly 0.
 * stack_surfaces' padding and refusals; mesh= is refused (slice 11).
 * run_ensemble's per-event trees against is3d_tpu's on synthetic run
   directories (mode 1 with the feed-down off, mode 5 with the
@@ -92,9 +93,26 @@ def test_batched_vah_rows_are_single_runs():
     single = batch._single_fn(sp, grid, None, cfg)
     for e, s in enumerate(surfaces):
         assert torch.equal(out[e], single(s)), e
-    with pytest.raises(NotImplementedError, match="K4"):
-        batch.batched_spectra_fn(sp, grid, None, cfg)(
-            stacked.replace(T=stacked.T.clone().requires_grad_(True)))
+    # a loss summed over the ensemble: each event's gradient is its single
+    # run's (K4's backward on the card), the pad cells' exactly 0
+    wrt = ("Lambda", "aL", "ux")
+    theta = {k: getattr(stacked, k).clone().requires_grad_(True)
+             for k in wrt}
+    with torch.enable_grad():
+        out = batch.batched_spectra_fn(sp, grid, None, cfg)(
+            stacked.replace(**theta))
+        grads = torch.autograd.grad(out.sum(), list(theta.values()))
+    for e, s in enumerate(surfaces):
+        one = {k: getattr(s, k).clone().requires_grad_(True) for k in wrt}
+        with torch.enable_grad():
+            want = torch.autograd.grad(single(s.replace(**one)).sum(),
+                                       list(one.values()))
+        n = s.n_cells
+        for k, g, w in zip(wrt, grads, want):
+            assert w.abs().max() > 0, k
+            np.testing.assert_allclose(g[e, :n].numpy(), w.numpy(),
+                                       rtol=1e-12, atol=0, err_msg=k)
+            assert (g[e, n:] == 0).all(), k
 
 
 def test_batched_polarization_rows_are_single_runs():

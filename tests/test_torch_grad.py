@@ -14,7 +14,8 @@ orders of margin.  The finite-difference checks follow tests/test_grad.py
   regulate and outflow on, a baryon case with diffusion; the forward is
   smooth_spectra's bit for bit; vn_j and mean_pT_j; a saturated regulator,
   a masked cell and an overflowed exponential (finite and equal to JAX's);
-  surface_vjp; the refusals.
+  surface_vjp; mode-5 surfaces' spectra (K1's path); the polarization's
+  refusal.
 * The feed-down: resonance_feed_down_traced's gradient with respect to the
   spectra (the decaying list, one parent all zero and one tail-patched, as
   tests/test_torch_decays.py), 2+1D and 3+1D, and its forward equal to
@@ -294,22 +295,41 @@ def test_absent_field_raises(jax_grads):
         diff.surface_vjp(fn, surf, ("Lambda",))
 
 
-@pytest.mark.parametrize("what", ["df3", "df4", "vah", "mode5",
-                                  "polarization"])
+@pytest.mark.parametrize("what", ["polarization"])
 def test_refusals_name_the_next_slice(what):
+    """The spin polarization's gradient is the one map still refused (K6's
+    backward), on every device."""
     _, (sp, grid, df, cfg) = _inputs(*CASES["3d_df2"])
-    with pytest.raises(NotImplementedError, match="backward"):
-        if what == "polarization":
-            diff.polarization_fn(sp, grid, cfg, None)
-        elif what == "vah":
-            diff.spectra_fn(sp, grid, df, dataclasses.replace(cfg, mode=2))
-        elif what == "mode5":
-            diff.decayed_spectra_fn(sp, grid, df,
-                                    dataclasses.replace(cfg, mode=5), None,
-                                    None)
-        else:
-            diff.spectra_fn(sp, grid, df, dataclasses.replace(
-                cfg, df_mode=int(what[-1])))
+    with pytest.raises(NotImplementedError, match="backward.*K6"):
+        diff.polarization_fn(sp, grid, dataclasses.replace(cfg, mode=5),
+                             None)
+
+
+@pytest.mark.parametrize("dimension", [2, 3])
+def test_mode5_spectra_grad_matches_jax(dimension):
+    """The spectra of a mode-5 (vorticity) surface are the linear-df
+    spectra (api.py), so their gradient runs through K1's backward: against
+    jax.vjp of is3d_tpu.diff.spectra_fn on the same surface, the vorticity
+    columns carried and not differentiated (2+1D the mT remap)."""
+    cfg_kw = dict(CASES["3d_df2" if dimension == 3 else "2d_df2_remap"][0])
+    (jsp, jgrid, jdf, jcfg), (sp, grid, df, cfg) = _inputs(cfg_kw, {})
+    jcfg, cfg = (dataclasses.replace(c, mode=5) for c in (jcfg, cfg))
+    cells = dict(testing.synthetic_surface_cells(16, dimension, seed=9),
+                 **testing.synthetic_vorticity(16, seed=9))
+    wrt = ("T", "ux", "bulkPi", "pixy", "dat") + (
+        ("eta",) if dimension == 3 else ())
+    jfn = jdiff.spectra_fn(jsp, jgrid, jdf, jcfg)
+    jsurf = JSurface(**{k: jnp.asarray(v) for k, v in cells.items()})
+    ct = testing.grad_cotangent(np.asarray(jfn(jsurf)).shape).numpy()
+    jv, jpull = jdiff.surface_vjp(jfn, jsurf, wrt)
+    jg = {k: np.asarray(v) for k, v in jpull(jnp.asarray(ct)).items()}
+    fn = diff.spectra_fn(sp, grid, df, cfg)
+    surf = convert.surface_from_state(cells)
+    v, pull = diff.surface_vjp(fn, surf, wrt)
+    assert torch.equal(v, smooth_spectra(surf, sp, grid, df, cfg))
+    np.testing.assert_allclose(v.numpy(), np.asarray(jv), rtol=1e-9,
+                               atol=1e-12 * np.abs(np.asarray(jv)).max())
+    _close(pull(torch.tensor(ct)), jg)
 
 
 # ------------------------------------------------------------ the feed-down

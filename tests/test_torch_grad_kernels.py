@@ -3,9 +3,12 @@ versions' autograd and never loads a kernel; the wrappers refuse CPU
 tensors; the backward fold's plan and the padded tables are what the
 kernel reads; the yardsticks count what the kernels do; and, on a CUDA card
 (gpu-marked), K9a and K9b (csrc/smooth_spectra_bwd.cu: fixed nodes and the
-2+1D mT remap) on testing.SPECTRA_EDGES and K9c (csrc/decays_bwd.cu) on
-testing.DECAY_EDGES against their plain versions, two launches
-bit-identical, and the autograd Functions that carry them.
+2+1D mT remap) on testing.SPECTRA_EDGES, K9c (csrc/decays_bwd.cu) on
+testing.DECAY_EDGES, K10a/K10b (csrc/feqmod_bwd.cu) on
+testing.FEQMOD_EDGES and K11a/K11b (csrc/vah_bwd.cu) on testing.VAH_EDGES
+against their plain versions, two launches bit-identical, and the
+autograd Functions that carry them.  The plain df 3 gradient stays finite
+on the edges where f_mod saturates or 1/betaV = inf.
 
 On the GPU: python -m pytest tests/test_torch_grad_kernels.py -m gpu
 --noconftest (the conftest imports jax).  Tolerances: against the plain
@@ -19,7 +22,7 @@ import pytest
 import torch
 
 from is3d_tpu_torch import testing
-from is3d_tpu_torch.kernels import decays, smooth
+from is3d_tpu_torch.kernels import decays, feqmod, smooth, vah
 from is3d_tpu_torch.native import build
 
 torch.set_num_threads(1)
@@ -27,6 +30,8 @@ torch.set_num_threads(1)
 TOL = {torch.float32: (2e-4, 2e-5), torch.float64: (1e-10, 1e-13)}
 SPECTRA = sorted(testing.SPECTRA_EDGES)
 DECAYS = sorted(testing.DECAY_EDGES)
+FEQMOD = sorted(testing.FEQMOD_EDGES)
+VAH = sorted(testing.VAH_EDGES)
 
 
 @pytest.fixture
@@ -49,8 +54,84 @@ def test_cpu_gradient_never_loads_a_kernel(monkeypatch):
     assert torch.isfinite(g).all() and g.abs().max() > 0
 
 
-@pytest.mark.parametrize("which", ["spectra", "decays"])
+@pytest.mark.parametrize("which", ["feqmod", "vah"])
+def test_feqmod_vah_cpu_gradients_never_load_a_kernel(monkeypatch, which):
+    """On the CPU the df 3-4 and VAH spectra differentiate through their
+    plain versions (each chunk under torch.utils.checkpoint): no kernel
+    library is loaded, and the gradient is the plain backward's."""
+    def refuse(name):
+        raise AssertionError(f"loaded {name} on the CPU path")
+    monkeypatch.setattr(build, "cuda_library", refuse)
+    if which == "feqmod":
+        x, rn, wcs, mom, flags, G = testing.feqmod_grad_inputs("2d_remap_df3_mixed",
+                                                        n_cells=20)
+        xg = x.clone().requires_grad_(True)
+        rg = rn.clone().requires_grad_(True)
+        got = torch.autograd.grad(
+            feqmod.group_spectra(xg, rg, wcs, mom, flags, cell_chunk=8),
+            (xg, rg), G)
+        want = feqmod.feqmod_bwd_plain(x, rn, wcs, G, mom, flags)
+    else:
+        x, mom, flags, G = testing.vah_grad_inputs("3d_sw3", n_cells=20)
+        xg = x.clone().requires_grad_(True)
+        got = torch.autograd.grad(
+            vah.group_spectra(xg, mom, flags, cell_chunk=8), (xg,), G)
+        want = (vah.vah_bwd_plain(x, G, mom, flags),)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all() and g.abs().max() > 0
+        torch.testing.assert_close(g, w, rtol=1e-12, atol=1e-14)
+
+
+@pytest.mark.parametrize("case", ["2d_df4_most", "3d_degenerate"])
+def test_plain_feqmod_gradient_is_nan_free(case):
+    """The plain version's autograd stays finite where f_mod's |x|^2
+    saturates (a 2+1D node scaled by detA = 62) and where 1/betaV = inf
+    clips the df 3 bracket (the double where and the zero-safe products of
+    kernels/feqmod.py), as K10 does."""
+    x, rn, wcs, mom, flags, G = testing.feqmod_grad_inputs(case)
+    for g in feqmod.feqmod_bwd_plain(x, rn, wcs, G, mom, flags):
+        assert torch.isfinite(g).all() and g.abs().max() > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_df4_lambda_gradient_is_nan_free_near_zero_bulk(dtype):
+    """df 4's lambda = sign(bulkPi) sqrt(lambda2(bulkPi / P)): near bulkPi =
+    0 the float32 spline gives lambda2 <= 0, where sqrt's derivative met a
+    zero cotangent (a masked cell) as 0 / 0 = NaN; the double where gives
+    0 there and leaves the values and the other derivatives as they were
+    (a smoke-2d-df4-feqmod cell, bulkPi = -1.8e-8)."""
+    from is3d_tpu_torch.io.deltaf import evaluate_df_coefficients
+    df = testing.synthetic_deltaf_data(dtype=dtype)
+    T, E, P = (torch.full((4,), v, dtype=dtype) for v in (0.157, 0.39,
+                                                           0.0647))
+    bulk = torch.tensor([-1.8e-8, 0.0, 1e-12, 0.003], dtype=dtype,
+                        requires_grad=True)
+    c = evaluate_df_coefficients(df, 4, False, T, torch.zeros_like(T), E, P,
+                                 bulk)
+    (g,) = torch.autograd.grad(c.lam, bulk, torch.tensor(
+        [0.0, 0.0, 1.0, 1.0], dtype=dtype))
+    assert torch.isfinite(g).all() and g[3] > 0
+    assert c.lam[3] > 0 and (c.lam[1:3] == 0).all()
+
+
+@pytest.mark.parametrize("which", ["spectra", "decays", "feqmod", "vah"])
 def test_wrappers_refuse_cpu_tensors(which):
+    if which == "feqmod":
+        x, rn, wcs, mom, flags, G = testing.feqmod_grad_inputs("3d_df3_clean",
+                                                        n_cells=20)
+        with pytest.raises(ValueError, match="needs CUDA"):
+            feqmod.feqmod_bwd_cuda(x, rn, wcs, G, mom, flags)
+        with pytest.raises(ValueError, match="G"):
+            feqmod.feqmod_bwd_cuda(x, rn, wcs, G[:1], mom, flags)
+        return
+    if which == "vah":
+        x, mom, flags, G = testing.vah_grad_inputs("2d_remap_sw3", n_cells=20)
+        with pytest.raises(ValueError, match="needs CUDA"):
+            vah.vah_bwd_cuda(x, G, mom, flags)
+        with pytest.raises(ValueError, match="G"):
+            vah.vah_bwd_cuda(x, G.float(), mom, flags)
+        return
     if which == "spectra":
         cells, mom, flags, G = testing.spectra_grad_inputs("2d_remap_yflow",
                                                            n_cells=20)
@@ -101,6 +182,98 @@ def test_backward_yardsticks():
     f_bwd, s_bwd = decays.wave_backward_operations(tasks, wg)
     assert s_bwd == s_fwd == decays.wave_evaluations(tasks, wg)
     assert f_bwd > f_fwd > 0
+
+
+def test_feqmod_vah_backward_yardsticks():
+    """K10's and K11's operations per evaluation exceed their forwards',
+    the fallback's f_mod's, every chain's the gated f_a's, and the remap
+    adds its node kinematics."""
+    for df in (3, 4):
+        for fallback in (False, True):
+            fwd = feqmod.feqmod_formula_ops(df, False, 24, fallback)
+            bwd = feqmod.feqmod_backward_formula_ops(df, False, 24, fallback)
+            assert bwd[0] > 2 * fwd[0] and bwd[1] >= fwd[1]
+            assert feqmod.feqmod_backward_formula_ops(
+                df, True, 24, fallback)[0] > bwd[0]
+        assert (feqmod.feqmod_backward_formula_ops(df, False, 24, True)[0]
+                > feqmod.feqmod_backward_formula_ops(df, False, 24, False)[0])
+    flags = lambda sw, remap: vah.VahFlags(
+        dimension=2 if remap else 3, remap=remap, shear=bool(sw & 1),
+        bulk=bool(sw & 2), regulate=True, outflow=True)
+    for remap in (False, True):
+        ops = [vah.vah_backward_formula_ops(flags(sw, remap), 24)
+               for sw in range(4)]
+        for sw in range(4):
+            fwd = vah.vah_formula_ops(flags(sw, remap), 24)
+            assert ops[sw][0] > 2 * fwd[0] and ops[sw][1] >= fwd[1]
+        assert ops[0][0] < ops[2][0] < ops[1][0] < ops[3][0]
+    assert (vah.vah_backward_formula_ops(flags(3, True), 24)[0]
+            > vah.vah_backward_formula_ops(flags(3, False), 24)[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("case", FEQMOD)
+def test_feqmod_bwd_kernel_matches_plain(cuda_card, case, dtype):
+    """K10a/K10b against the plain version's autograd in f64 from the same
+    inputs, the reference rounded to the kernel's precision (a field whose
+    largest f64 value lies below float32's range is 0 there)."""
+    x, rn, wcs, mom, flags, G = testing.feqmod_grad_inputs(case, dtype=dtype,
+                                                    device="cuda")
+    want = feqmod.feqmod_bwd_plain(x.double(), rn.double(), wcs.double(),
+                                   G.double(), mom.to(None, torch.float64),
+                                   flags)
+    got = feqmod.feqmod_bwd_cuda(x, rn, wcs, G, mom, flags)
+    again = feqmod.feqmod_bwd_cuda(x, rn, wcs, G, mom, flags)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for g, w in zip(got, want):
+        bad, worst = testing.grad_errors(g, w.to(dtype), *TOL[dtype])
+        assert bad == 0, (case, worst)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("case", VAH)
+def test_vah_bwd_kernel_matches_plain(cuda_card, case, dtype):
+    x, mom, flags, G = testing.vah_grad_inputs(case, dtype=dtype, device="cuda")
+    want = vah.vah_bwd_plain(x.double(), G.double(),
+                             mom.to(None, torch.float64), flags)
+    got = vah.vah_bwd_cuda(x, G, mom, flags)
+    again = vah.vah_bwd_cuda(x, G, mom, flags)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    bad, worst = testing.grad_errors(got, want.to(dtype), *TOL[dtype])
+    assert bad == 0, (case, worst)
+
+
+@pytest.mark.gpu
+def test_feqmod_vah_autograd_functions_launch_the_backward_kernels(
+        cuda_card):
+    """Under autograd on the card the df 3-4 and VAH spectra run their
+    backward kernels once a group (the launch counts move), and their
+    forwards are the production kernels' bit for bit."""
+    x, rn, wcs, mom, flags, G = testing.feqmod_grad_inputs("2d_remap_df3_mixed",
+                                                    device="cuda")
+    n0 = feqmod.BWD_REMAP_LAUNCHES
+    xg, rg = x.clone().requires_grad_(True), rn.clone().requires_grad_(True)
+    out = feqmod.group_spectra(xg, rg, wcs, mom, flags)
+    assert torch.equal(out.detach(), feqmod.feqmod_spectra_cuda(x, rn, wcs,
+                                                                mom, flags))
+    got = torch.autograd.grad(out, (xg, rg), G)
+    assert feqmod.BWD_REMAP_LAUNCHES == n0 + 1
+    assert all(torch.equal(a, b) for a, b in zip(
+        got, feqmod.feqmod_bwd_cuda(x, rn, wcs, G, mom, flags)))
+    x, mom, flags, G = testing.vah_grad_inputs("3d_sw3", device="cuda")
+    n0 = vah.BWD_LAUNCHES
+    xg = x.clone().requires_grad_(True)
+    out = vah.group_spectra(xg, mom, flags)
+    assert torch.equal(out.detach(), vah.vah_spectra_cuda(x, mom, flags))
+    (g,) = torch.autograd.grad(out, xg, G)
+    assert vah.BWD_LAUNCHES == n0 + 1
+    assert torch.equal(g, vah.vah_bwd_cuda(x, G, mom, flags))
 
 
 @pytest.mark.gpu

@@ -163,8 +163,11 @@ Phases, each printing its own line(s):
    down): f32 against the f64 kernel, paired times, its first 1024 cells
    against the plain version, the bound from the evaluations each chain
    makes, SASS per evaluation; [grad feqmod pair] K10a on that group as
-   [grad pair] (its first GRAD_PAIR_PLAIN_CELLS cells against the plain
-   version), [grad feqmod main] diff.surface_vjp of the production df 3
+   [grad pair] (GRAD_PAIR_PLAIN_CELLS cells, an equal share of each
+   chain's part, against the plain version; the cells each chain's
+   instantiation takes, and each instantiation's registers, spills,
+   resident blocks an SM and SASS per evaluation), [grad feqmod main]
+   diff.surface_vjp of the production df 3
    spectra (K3 and K10a once a group, the forward bit-equal, f64 central
    differences); [feqmod main 2d] the same with df 4 in 2+1D (the mT
    remap) and its pair (plain on 512 cells), [grad feqmod pair 2d] and
@@ -180,7 +183,8 @@ Phases, each printing its own line(s):
    of each, and the 3+1D group with synthetic c0..c4 (every chain on): f32
    against the f64 kernel, paired times, plain on 512 / 1024 cells, bound
    (kernels/vah.py, vah_formula_ops), SASS; [grad vah pair] K11b and K11a
-   on those three groups; [grad vah main 2d] (mode 2, gated, by Lambda,
+   on those three groups (with registers, spills, resident blocks an SM
+   and SASS per evaluation); [grad vah main 2d] (mode 2, gated, by Lambda,
    a_L, u and dsigma) and [grad vah main 3d] (synthetic c0..c4 on every
    cell: every chain, by those and the shear, bulkPi, W, c0 and c3) as
    [grad main]; [vah dndx] operation 0 on a
@@ -3952,15 +3956,53 @@ def phase_small_grad_vah():
                                got, want, dtype)
 
 
+def _ptxas(library: str, kernel: str) -> str:
+    """The registers and spill bytes ptxas reported, in this run's build,
+    for the first kernel of ``library`` whose mangled name matches
+    ``kernel``."""
+    from is3d_tpu_torch.native import build
+    seen, name = {}, None
+    for line in build.CUDA_BUILD_LOGS.get(library, "").splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            seen[name] = {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            seen[name]["spill"] = f"{m.group(1)}/{m.group(2)} B spilled"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            seen[name]["regs"] = f"{m.group(1)} registers"
+    for k, v in seen.items():
+        if re.search(kernel, k) and "regs" in v:
+            return f"ptxas {v['regs']}, {v.get('spill', 'spills not shown')}"
+    return "ptxas: not in this run's build log"
+
+
+def _resources(label: str, props: dict, library: str, kernel: str) -> str:
+    """One instantiation's launch shape, registers, spills and resident
+    blocks an SM (launch.kernel_props and this run's ptxas lines)."""
+    warps = props["blocks_per_sm"] * props["threads"] // 32
+    return (f"{label}: {props['threads']} threads a block of "
+            f"{props['cells_per_block']} cells, {props['smem_bytes']} B shared,"
+            f" {props['blocks_per_sm']} blocks an SM ({warps} warps), "
+            f"{props['registers']} registers, {props['local_bytes']} B local "
+            f"({_ptxas(library, kernel)})")
+
+
 def _grad_kernel_pair(smi: str, clock: float, tag: str, kern, kslice,
                       plain, plain64, n: int, bound, evals: float,
-                      library: str, kernel: str, note: str) -> dict:
+                      bodies: list, note: str, checked: str) -> dict:
     """A backward kernel on one canonical group as [grad pair] takes it:
     two launches bit-identical, the CUDA-event median of 3 (one warm-up),
-    the group's first n cells (``kslice``) against the plain version's
-    autograd in f64 (``plain64``) and the plain version's own error in f32
-    (``plain``, one timed run), the bound and its share, SASS per
-    evaluation.  Returns the kernel record."""
+    n of the group's cells (``kslice``; ``checked`` says which) against the
+    plain version's autograd in f64 (``plain64``) and the plain version's
+    own error in f32 (``plain``, one timed run), the bound and its share;
+    for each instantiation of ``bodies`` (label, library, mangled name,
+    kernel_props) its registers, spills and resident blocks, and its SASS
+    per evaluation.  Returns the kernel record."""
     from is3d_tpu_torch.utils import cuda_median_ms
     tup = lambda t: t if isinstance(t, tuple) else (t,)
     got, again = tup(kern()), tup(kern())
@@ -3970,28 +4012,32 @@ def _grad_kernel_pair(smi: str, clock: float, tag: str, kern, kslice,
     k_ms, k_all = cuda_median_ms(kern, 3)
     want = plain64()
     p32, p_ms = _timed_once(plain)
-    err = _grad_check_fields(f"[{tag}] float32 group's first {n} cells",
-                             kslice(), want, torch.float32, p32)
+    err = _grad_check_fields(f"[{tag}] float32, {n} of the group's cells "
+                             f"({checked})", kslice(), want, torch.float32,
+                             p32)
     del want, p32
     print(f"[{tag}] {smi} | {note}: backward kernel {k_ms:.3f} ms (runs "
           f"{', '.join(f'{t:.2f}' for t in k_all)}), "
           f"{evals / k_ms * 1e3:.3e} evaluations/s; plain (autograd, f32) "
           f"{p_ms:.3f} ms on {n} cells; bound {bound[0]:.3f} ms "
           f"({bound[1]}), kernel at {bound[0] / k_ms:.1%} of it; two "
-          "launches bit-identical; issued per evaluation: "
-          + _issued(library, kernel))
+          "launches bit-identical")
+    for label, library, kernel, props in bodies:
+        print(f"[{tag}] {_resources(label, props, library, kernel)}; issued "
+              f"per evaluation: {_issued(library, kernel)}")
     return dict(launches=None, max_abs_err=err, ms=k_ms, plain_ms=p_ms,
                 bound_ms=bound[0], bound_by=bound[1], library_ms=None,
-                plain_cells=n)
+                plain_cells=n, bodies={b[0]: b[3] for b in bodies})
 
 
 def phase_grad_feqmod_pair(smi: str, clock: float, run_dir: str, cfg,
                            tag: str) -> dict:
     """[grad feqmod pair] / [grad feqmod pair 2d]: K10a (K10b with the
     remap) on the first canonical group of a feqmod main path (f32, a
-    positive cotangent), as _grad_kernel_pair; the bound from the
-    evaluations of each chain this group makes
-    (kernels/feqmod.py:feqmod_backward_formula_ops)."""
+    positive cotangent), as _grad_kernel_pair, the checked cells an equal
+    share of each chain's part (kernels/feqmod.py:bwd_chain_split; cells
+    per instantiation printed); the bound from the evaluations of each
+    chain this group makes (kernels/feqmod.py:feqmod_backward_formula_ops)."""
     from is3d_tpu_torch import testing
     from is3d_tpu_torch.io.tables import laguerre_device
     from is3d_tpu_torch.kernels import feqmod
@@ -4008,8 +4054,16 @@ def phase_grad_feqmod_pair(smi: str, clock: float, run_dir: str, cfg,
     R = mom.nodes.shape[0]
     G = testing.grad_cotangent((S, P, F, R if cfg.dimension == 3 else 1),
                                dtype=torch.float32, device="cuda")
-    n = GRAD_PAIR_PLAIN_CELLS
-    xs, rns, wcss = (t[:n].contiguous() for t in (x, rn, wcs))
+    order, offs = feqmod.bwd_chain_split(x, cfg.dimension)
+    offs = offs.tolist()
+    chains = range(3 if cfg.dimension == 3 else 2)
+    split = {feqmod.BWD_CHAINS[i]: offs[i + 1] - offs[i] for i in chains}
+    present = [i for i in chains if offs[i + 1] > offs[i]]
+    share = GRAD_PAIR_PLAIN_CELLS // len(present)
+    idx = torch.cat([order[offs[i]:offs[i] + share] for i in present]
+                    ).long().sort().values
+    n = idx.numel()
+    xs, rns, wcss = (t[idx].contiguous() for t in (x, rn, wcs))
     mod, fb = _feqmod_evals(x, mom, flags)
     ops = [feqmod.feqmod_backward_formula_ops(flags.df_mode, flags.remap,
                                               F, chain)
@@ -4018,11 +4072,13 @@ def phase_grad_feqmod_pair(smi: str, clock: float, run_dir: str, cfg,
     bound = _bound(evals, (mod * ops[0][0] + fb * ops[1][0]) / evals,
                    (mod * ops[0][1] + fb * ops[1][1]) / evals,
                    _nbytes(x, rn, wcs, G, x, rn, *mom_tensors(mom)), clock)
-    kernel = (f"feqmod_remap_bwd_kernelIfLi{flags.df_mode}EE" if flags.remap
-              else f"feqmod_bwd_kernelIfLi{cfg.dimension}ELi{flags.df_mode}"
-              "EE")
+    bodies = []
+    for i in chains:
+        bodies.append((f"{feqmod.BWD_CHAINS[i]} ({split[feqmod.BWD_CHAINS[i]]}"
+                       " cells)", "feqmod_bwd", feqmod.bwd_kernel_name(flags, i),
+                       feqmod.bwd_props(x.device, False, mom, flags, i)))
     bd = (x[:, feqmod.FQ["bd"]] > 0).double().mean().item()
-    return _grad_kernel_pair(
+    rec = _grad_kernel_pair(
         smi, clock, tag, lambda: feqmod.feqmod_bwd_cuda(x, rn, wcs, G, mom,
                                                         flags),
         lambda: feqmod.feqmod_bwd_cuda(xs, rns, wcss, G, mom, flags),
@@ -4030,10 +4086,14 @@ def phase_grad_feqmod_pair(smi: str, clock: float, run_dir: str, cfg,
         lambda: feqmod.feqmod_bwd_plain(xs.double(), rns.double(),
                                         wcss.double(), G.double(), mom64,
                                         flags),
-        n, bound, evals, "feqmod_bwd", kernel,
+        n, bound, evals, bodies,
         f"df {flags.df_mode}, one group {x.shape[0]} cells x {S} x {P * F} "
         f"x {R} nodes ({bd:.1%} of cells break down, {fb / evals:.1%} of "
-        "the evaluations take the fallback)")
+        "the evaluations take the fallback); cells per instantiation "
+        + ", ".join(f"{k} {v}" for k, v in split.items()),
+        f"the first {share} of each chain's part")
+    rec["cells_per_chain"] = split
+    return rec
 
 
 def phase_grad_feqmod_main(smi: str, run_dir: str, cfg, tag: str) -> dict:
@@ -4145,9 +4205,10 @@ def phase_grad_vah_pair(smi: str, clock: float, groups: list) -> list:
             lambda: vah.vah_bwd_cuda(xs, G, mom, flags),
             lambda: vah.vah_bwd_plain(xs, G, mom, flags),
             lambda: vah.vah_bwd_plain(xs.double(), G.double(), mom64, flags),
-            n, bound, evals, "vah_bwd", kernel,
+            n, bound, evals, [(f"chains {flags.switches}", "vah_bwd", kernel,
+                               vah.bwd_props(x.device, False, mom, flags))],
             f"{kind}: one group {x.shape[0]} cells x {S} x {P * F} x {R} "
-            f"nodes (chains {flags.switches})"))
+            f"nodes (chains {flags.switches})", "the first ones"))
     return records
 
 

@@ -111,18 +111,19 @@ class Config:
     feqmod_partition: int = 1
     feqmod_partition_min_cells: int = 16384
 
-    # --- sampler run knobs (operation 2; no reference counterpart) ---
+    # --- sampler run knobs (operation 2; the same keys as is3d_tpu's
+    # config.py) ---
     # phase-A memory bound in cells: 0 = auto (chunk at 2^19 cells once
     # the surface exceeds 2^20), -1 = never, N = chunk size when C > N.
-    # The cell-chunked sampler is not ported yet: a run that would chunk
-    # raises (kernels/sample.py)
+    # Above it the sampler runs cell chunk by cell chunk
+    # (kernels/sample.py:_sample_cell_chunked, resolve_cell_chunk)
     sampler_cell_chunk: int = 0
     # is3d_tpu's choice between gathering the 8 Milne tetrad fields with a
     # slot's row and rebuilding them per slot (the same values), accepted
     # and inert: the port always gathers them
     sampler_gather_tetrad: int = 1
-    # O(1) Walker-alias (cell, species) draws; 0 (binary search) is not
-    # ported yet and raises
+    # O(1) Walker-alias (cell, species) draws; 0 takes the binary-search
+    # draws (the same distribution, other random streams)
     sampler_alias: int = 1
     # device->host precision of the sampled momenta: "f16", "f32", or
     # "auto" (f16 on f32 runs, exact on f64 runs)

@@ -70,7 +70,7 @@ from ..physics import lrf, thermal
 from .common import (surface_columns, prepare_cells, scaled_fermi_bose,
                      fermi_bose, effective_chunk, CHUNK_ELEMENT_BUDGET)
 from .launch import (check_float, check_tensor, require_cuda, launch,
-                     kernel_grid, tile_split)
+                     kernel_grid, kernel_props, tile_split)
 from .smooth import (ETA_REMAP_T_REF, MomentumConstants, df_switches,
                      emission_terms, node_delta, momentum_constants,
                      remap_scale, remap_node_table, REMAP_NODE_OPS)
@@ -819,6 +819,34 @@ def feqmod_bwd_plain(x: torch.Tensor, rn: torch.Tensor, wcs: torch.Tensor,
         return torch.autograd.grad(out, (xg, rg), G)
 
 
+# the backward kernels' chains (csrc/feqmod_bwd.cu Chain): f_mod, the
+# fallback, and the 3+1D cells whose narrow nodes take the fallback
+BWD_CHAINS = ("mod", "fallback", "narrow")
+
+
+def bwd_chain_split(x: torch.Tensor, dimension: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(order, offs): the packed cells x of a group split by the backward
+    kernels' chain, on x's device and without a host read.  Breakdown cells
+    (bd != 0) take the fallback, clean cells f_mod and, in 3+1D, clean
+    cells with detA < NARROW_DETA (whose nodes with |y - eta| < detA take
+    the fallback, csrc/feqmod_bwd.cu) the two-chain body: ``order`` (int32,
+    a permutation of the cells) holds chain j's cells at offs[j] ..
+    offs[j + 1], each chain's in the group's order (a stable sort)."""
+    bd = x[:, FQ["bd"]] != 0
+    key = bd.to(torch.int32)
+    if dimension == 3:
+        narrow = (~bd) & (x[:, FQ["detA"]] < NARROW_DETA)
+        key = torch.where(narrow, torch.full_like(key, 2), key)
+    order = torch.sort(key, stable=True).indices.to(torch.int32)
+    counts = (key[:, None] == torch.arange(
+        len(BWD_CHAINS), dtype=torch.int32, device=x.device)).sum(0)
+    offs = torch.zeros(len(BWD_CHAINS) + 1, dtype=torch.int32,
+                       device=x.device)
+    offs[1:] = torch.cumsum(counts, 0)
+    return order, offs
+
+
 def _bwd_library():
     from ..native.build import cuda_library
     lib = cuda_library("feqmod_bwd")
@@ -826,25 +854,42 @@ def _bwd_library():
         vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         for fn in (lib.is3d_feqmod_bwd_f32, lib.is3d_feqmod_bwd_f64):
             fn.restype = ci
-            fn.argtypes = [vp, ci, ci, vp, vp,         # cells, C, nq, rn, wcs
+            fn.argtypes = [vp, ci, ci,                 # cells, C, nq
+                           vp, vp, ci,                 # order, offs, chain
+                           vp, vp,                     # rn, wcs
                            vp, vp, vp, vp, ci,         # species, n_species
-                           vp, vp, vp, ci, ci,         # pT px py n_pT n_phi
+                           vp, ci, vp, vp, ci,         # pT n_pT px/cos py F
                            vp, vp, ci,                 # nodes, weights, R
-                           ci, ci, ci, ci, ci,         # df, dim, sw, reg, out
-                           cd, vp, vp, vp, vp]         # CF, G, grads, stream
-        for fn in (lib.is3d_feqmod_bwd_remap_f32,
-                   lib.is3d_feqmod_bwd_remap_f64):
-            fn.restype = ci
-            fn.argtypes = [vp, ci, ci, vp, vp,         # cells, C, nq, rn, wcs
-                           vp, vp, vp, vp, ci,         # species, n_species
-                           vp, ci, vp, vp, ci,         # pT, n_pT, cos, sin, F
-                           vp, vp, ci,                 # nodes, weights, R
-                           ci, ci, ci, ci,             # df, sw, reg, outflow
+                           ci, ci, ci, ci, ci,         # df dim sw reg out
                            cd, cd, vp, vp, vp, vp]     # CF T_ref G grads strm
+        lib.is3d_feqmod_bwd_props.restype = ci
+        lib.is3d_feqmod_bwd_props.argtypes = [ci] * 8 + [vp]
         lib.is3d_cuda_error_string.restype = ctypes.c_char_p
         lib.is3d_cuda_error_string.argtypes = [ci]
         lib._is3d_bound = True
     return lib
+
+
+def bwd_props(device: torch.device, f64: bool, mom: MomentumConstants,
+              flags: FeqmodFlags, chain: int) -> dict:
+    """The launch shape and resources (launch.kernel_props) of the backward
+    kernel of ``chain`` (an index of BWD_CHAINS) at mom's shape."""
+    lib = _bwd_library()
+    dim = 0 if flags.remap else flags.dimension
+    return kernel_props(lib, "feqmod_bwd", lib.is3d_feqmod_bwd_props, device,
+                        int(f64), dim, flags.df_mode, chain, flags.switches,
+                        mom.pT.shape[0], mom.n_phi, mom.nodes.shape[0])
+
+
+def bwd_kernel_name(flags: FeqmodFlags, chain: int) -> str:
+    """The mangled name's part that picks the float32 backward kernel of
+    ``chain`` in the library (for tools/sass_count.py): csrc/feqmod_bwd.cu
+    compiles the fallback's terms in where they are shear + bulk (FSW)."""
+    fsw = "Li3E" if chain != 0 and flags.switches == 3 else "Lin1E"
+    if flags.remap:
+        return f"feqmod_remap_bwd_kernelIfLi{flags.df_mode}ELi{chain}E{fsw}E"
+    return (f"feqmod_bwd_kernelIfLi{flags.dimension}ELi{flags.df_mode}E"
+            f"Li{chain}E{fsw}E")
 
 
 def feqmod_bwd_cuda(x: torch.Tensor, rn: torch.Tensor, wcs: torch.Tensor,
@@ -853,7 +898,9 @@ def feqmod_bwd_cuda(x: torch.Tensor, rn: torch.Tensor, wcs: torch.Tensor,
     """Launch the backward kernel (csrc/feqmod_bwd.cu) on the current
     stream: the gradients (C, NQ) and (C, S) of <G, feqmod_spectra_cuda(x,
     rn, wcs, mom, flags)> with respect to the packed cells and rn, G of the
-    output's shape (S, n_pT, n_phi, n_y_out)."""
+    output's shape (S, n_pT, n_phi, n_y_out).  The cells are split by chain
+    on the card (bwd_chain_split) and each chain's instantiation launched
+    over its part (two launches, three in 3+1D), no host read between."""
     global BWD_LAUNCHES, BWD_REMAP_LAUNCHES
     check_float("feqmod_bwd_cuda", x)
     C = x.shape[0]
@@ -874,28 +921,27 @@ def feqmod_bwd_cuda(x: torch.Tensor, rn: torch.Tensor, wcs: torch.Tensor,
     f64 = x.dtype == torch.float64
     grad = torch.empty_like(x)
     grad_rn = torch.empty_like(rn)
-    head = (x.data_ptr(), C, NQ, rn.data_ptr(), wcs.data_ptr(),
-            mom.mass.data_ptr(), mom.sign.data_ptr(), mom.baryon.data_ptr(),
-            mom.degeneracy.data_ptr(), S)
-    tail = (int(flags.regulate), int(flags.outflow), CF_PREFACTOR)
-    outs = (G.data_ptr(), grad.data_ptr(), grad_rn.data_ptr())
+    order, offs = bwd_chain_split(x, flags.dimension)
+    fn = lib.is3d_feqmod_bwd_f64 if f64 else lib.is3d_feqmod_bwd_f32
     if flags.remap:
-        launch(lib, "feqmod_bwd remap",
-               lib.is3d_feqmod_bwd_remap_f64 if f64
-               else lib.is3d_feqmod_bwd_remap_f32, x.device, *head,
-               mom.pT.data_ptr(), P, mom.cos_phi.data_ptr(),
-               mom.sin_phi.data_ptr(), F, mom.nodes.data_ptr(),
-               mom.weights.data_ptr(), R, flags.df_mode, flags.switches,
-               *tail, ETA_REMAP_T_REF, *outs)
+        xy, dim = (mom.cos_phi, mom.sin_phi), 0
+    else:
+        xy, dim = (mom.px, mom.py), flags.dimension
+    for chain in range(3 if dim == 3 else 2):
+        launch(lib, "feqmod_bwd remap" if flags.remap else "feqmod_bwd", fn,
+               x.device, x.data_ptr(), C, NQ, order.data_ptr(),
+               offs.data_ptr(), chain, rn.data_ptr(), wcs.data_ptr(),
+               mom.mass.data_ptr(), mom.sign.data_ptr(),
+               mom.baryon.data_ptr(), mom.degeneracy.data_ptr(), S,
+               mom.pT.data_ptr(), P, xy[0].data_ptr(), xy[1].data_ptr(), F,
+               mom.nodes.data_ptr(), mom.weights.data_ptr(), R,
+               flags.df_mode, dim, flags.switches, int(flags.regulate),
+               int(flags.outflow), CF_PREFACTOR, ETA_REMAP_T_REF,
+               G.data_ptr(), grad.data_ptr(), grad_rn.data_ptr())
+    if flags.remap:
         BWD_REMAP_LAUNCHES += 1
-        return grad, grad_rn
-    launch(lib, "feqmod_bwd",
-           lib.is3d_feqmod_bwd_f64 if f64 else lib.is3d_feqmod_bwd_f32,
-           x.device, *head, mom.pT.data_ptr(), mom.px.data_ptr(),
-           mom.py.data_ptr(), P, F, mom.nodes.data_ptr(),
-           mom.weights.data_ptr(), R, flags.df_mode, flags.dimension,
-           flags.switches, *tail, *outs)
-    BWD_LAUNCHES += 1
+    else:
+        BWD_LAUNCHES += 1
     return grad, grad_rn
 
 

@@ -51,6 +51,26 @@ def launch(lib, what: str, fn, device: torch.device, *args):
                            f"(error {rc})")
 
 
+# what kernel_props reports, in the C entries' order
+PROPS = ("cells_per_block", "threads", "smem_bytes", "blocks_per_sm",
+         "registers", "local_bytes")
+
+
+def kernel_props(lib, what: str, fn, device: torch.device, *args) -> dict:
+    """One kernel instantiation's launch shape and resources on ``device``
+    from the C entry ``fn(*args, out)``: cells a block, threads, dynamic
+    shared memory, resident blocks an SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), registers and local
+    memory (spill) bytes a thread."""
+    out = (ctypes.c_int * len(PROPS))()
+    with torch.cuda.device(device):
+        rc = fn(*args, out)
+    if rc != 0:
+        raise RuntimeError(f"{what}: no launch configuration: "
+                           f"{lib.is3d_cuda_error_string(rc).decode()}")
+    return dict(zip(PROPS, out))
+
+
 def resident_blocks(lib, what: str, fn, device: torch.device, *args) -> int:
     """The blocks of a kernel that ``device`` holds at once, from the C
     entry ``fn(*args)`` (SMs x blocks per SM, or minus a CUDA error

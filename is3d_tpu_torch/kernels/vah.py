@@ -54,7 +54,7 @@ from ..io.tables import MomentumGrid
 from ..physics import lrf
 from .common import fermi_bose, effective_chunk
 from .launch import (check_float, check_tensor, require_cuda, launch,
-                     kernel_grid, tile_split)
+                     kernel_grid, kernel_props, tile_split)
 from .smooth import MomentumConstants, momentum_constants
 
 # per-cell scalar field order of the packed (C, NV) matrix; the CUDA
@@ -527,10 +527,23 @@ def _bwd_library():
                            vp, vp, ci,                 # nodes, weights, R
                            ci, ci, ci,                 # sw, reg, outflow
                            cd, vp, vp, vp]             # CF, G, grad, stream
+        lib.is3d_vah_bwd_props.restype = ci
+        lib.is3d_vah_bwd_props.argtypes = [ci] * 6 + [vp]
         lib.is3d_cuda_error_string.restype = ctypes.c_char_p
         lib.is3d_cuda_error_string.argtypes = [ci]
         lib._is3d_bound = True
     return lib
+
+
+def bwd_props(device: torch.device, f64: bool, mom: MomentumConstants,
+              flags: VahFlags) -> dict:
+    """The launch shape and resources (launch.kernel_props) of the backward
+    kernel of ``flags``' chains at mom's shape."""
+    lib = _bwd_library()
+    dim = 0 if flags.remap else flags.dimension
+    return kernel_props(lib, "vah_bwd", lib.is3d_vah_bwd_props, device,
+                        int(f64), dim, flags.switches, mom.pT.shape[0],
+                        mom.n_phi, mom.nodes.shape[0])
 
 
 def vah_bwd_cuda(x: torch.Tensor, G: torch.Tensor, mom: MomentumConstants,

@@ -5,7 +5,8 @@ C, C, B, A).
     python -m is3d_tpu_torch.tools.ab_spectra ROOT_A ROOT_B [ROOT_C ...]
         [--cells N]
         [--cases 3d_df2,3d_df1,2d_fixed,2d_remap,bin,dndx,proto,decays,
-                 yields,alias,sample,cascade]
+                 yields,alias,sample,cascade,grad_feqmod_3d,
+                 grad_feqmod_2d,grad_vah_3d,grad_vah_2d]
 
 Each turn runs a fresh interpreter that imports ``is3d_tpu_torch`` from
 that root (building its kernels into that root's _build/) and, per case:
@@ -68,7 +69,22 @@ that root (building its kernels into that root's _build/) and, per case:
   without the read), ``cascade_device`` every pass so, ``cascade_call``
   one ``run_cascade`` call under CUDA events (the host's enqueue and
   reads included, median of 5); the sums are those of the state's px
-  after the pass.
+  after the pass;
+* ``grad_feqmod_3d``, ``grad_feqmod_2d``, ``grad_vah_3d``, ``grad_vah_2d``:
+  the backward kernels K10 (``feqmod_bwd_cuda``: 3+1D df 3, 2+1D df 4
+  with the mT remap) and K11 (``vah_bwd_cuda``: 3+1D with the chains gated
+  off, ``grad_vah_3d_chains`` with synthetic c0..c4 on every cell, and
+  2+1D with the remap, gated) on one group of N synthetic cells
+  (``synthetic_surface`` / ``synthetic_vah_cells``, seed 0), 320 species,
+  the native grid, shear + bulk, regulate, outflow, float32 and the
+  positive cotangent ``testing.grad_cotangent``: timed as the spectra
+  cases; the float64 difference on its first 512 cells; beside it the
+  share of breakdown cells and (a side with ``bwd_kernel_name``) the cells
+  of each chain's instantiation, and for each instantiation its threads,
+  shared memory, resident blocks and warps an SM, registers and local
+  bytes (the side's ``bwd_props``, or ``tools/occupancy.py`` at the first
+  version's launch shape) and SASS per evaluation; a side without the
+  kernel reports the case ``"absent"``.
 
 The report is one JSON line per turn (median, runs, output sum and the
 float32 output's largest difference from the same side's float64 kernel,
@@ -88,11 +104,13 @@ import subprocess
 import sys
 
 CASES = ("3d_df2", "3d_df1", "2d_fixed", "2d_remap", "bin", "dndx", "proto",
-         "decays", "yields", "alias", "sample", "cascade")
+         "decays", "yields", "alias", "sample", "cascade", "grad_feqmod_3d",
+         "grad_feqmod_2d", "grad_vah_3d", "grad_vah_2d")
 
 _TURN = r"""
 import json, statistics, sys
 sys.path.insert(0, sys.argv[1])
+OCCUPANCY_TOOL = sys.argv[4]
 import numpy as np
 import torch
 from is3d_tpu_torch import testing
@@ -253,9 +271,145 @@ def cascade_cases(report):
                               "sum": float(s["px"][:n].double().sum())}
 
 
+# the backward kernels K10 (df 3-4) and K11 (VAH) on one synthetic group
+GRAD = {"grad_feqmod_3d": ("feqmod", 3), "grad_feqmod_2d": ("feqmod", 2),
+        "grad_vah_3d": ("vah", 3), "grad_vah_2d": ("vah", 2)}
+
+
+# an instantiation's registers, local bytes, resident blocks an SM (the
+# side's own query props(), or on a side without one tools/occupancy.py at
+# the launch shape fallback() gives) and SASS per evaluation
+# (tools/sass_count.py)
+def bwd_resources(lib_name, kernel, props, fallback):
+    import importlib.util
+    from is3d_tpu_torch.native import build
+    from is3d_tpu_torch.tools import sass_count
+    lib = build._cuda_paths(lib_name)[1]
+    if props is not None:
+        res = dict(props())
+    else:
+        spec = importlib.util.spec_from_file_location("occupancy",
+                                                      OCCUPANCY_TOOL)
+        occ = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(occ)
+        threads, smem = fallback()
+        res = dict(threads=threads, smem_bytes=smem, **(occ.occupancy(
+            lib, kernel, threads, smem) or {"blocks_per_sm": None}))
+    res["warps_per_sm"] = (None if res.get("blocks_per_sm") is None else
+                           res["blocks_per_sm"] * (res["threads"] // 32))
+    res["sass"] = sass_count.per_eval(lib, kernel)
+    return res
+
+
+# the threads and shared memory of a backward kernel that stages G a row
+# at a time (the kernels' first version): float64 accumulators, NQ or NV
+# columns of the block's threads, the cells' rows, G's row and px, py
+def first_version_shape(R, F, n_cols, fixed3):
+    CT = 128 // R
+    nt = (CT * R + 31) // 32 * 32
+    extra = nt * 8 if n_cols == 54 else 0        # K10's grad_rn shares
+    return nt, n_cols * nt * 8 + extra + (CT * n_cols + F * (
+        R if fixed3 else 1) + 2 * F) * 4
+
+
+def grad_case(case, report):
+    from is3d_tpu_torch.io.surface import surface_from_arrays
+    from is3d_tpu_torch.io.tables import laguerre_device
+    from is3d_tpu_torch.kernels import feqmod, vah
+    kind, dim = GRAD[case]
+    mod = feqmod if kind == "feqmod" else vah
+    if not hasattr(mod, f"{kind}_bwd_cuda"):
+        report[case] = "absent"
+        return
+    f64 = torch.float64
+    grid = native_momentum_grid(dim, eta_mT_rescale=dim == 2, dtype=dt,
+                                device=dev)
+    species = testing.synthetic_species(320, dtype=dt, device=dev)
+    mom = smooth.momentum_constants(species, grid, dim)
+    mom64 = mom.to(dtype=f64)
+    S, P, F = mom.mass.shape[0], mom.pT.shape[0], mom.n_phi
+    R = mom.nodes.shape[0]
+    G = testing.grad_cotangent((S, P, F, R if dim == 3 else 1), dtype=dt,
+                               device=dev)
+    cut = 512
+    base = dict(operation=1, dimension=dim, precision="f32",
+                include_shear_deltaf=1, include_bulk_deltaf=1,
+                regulate_deltaf=1, outflow=1)
+    if kind == "feqmod":
+        df = 3 if dim == 3 else 4
+        cfg = Config(mode=1, df_mode=df, **base)
+        surf = testing.synthetic_surface(n_cells, dim, seed=0, dtype=dt,
+                                         device=dev)
+        flags = feqmod.feqmod_flags(cfg, grid)
+        x, rn, wcs = feqmod.group_inputs(
+            surface_columns(surf, cfg), species,
+            laguerre_device(dtype=dt, device=dev),
+            testing.synthetic_deltaf_data(dtype=dt, device=dev), cfg, flags)
+        go = lambda: feqmod.feqmod_bwd_cuda(x, rn, wcs, G, mom, flags)[0]
+        small = [t[:cut].contiguous() for t in (x, rn, wcs)]
+        out = feqmod.feqmod_bwd_cuda(*small, G, mom, flags)[0].double()
+        ref = feqmod.feqmod_bwd_cuda(*(t.double() for t in small),
+                                     G.double(), mom64, flags)[0]
+        ms, runs, total = timed(go)
+        entry = {"ms": ms, "runs": runs, "sum": total, "err_f64": float(
+            (out - ref).abs().max() / ref.abs().max()),
+            "broken_down": float((x[:, feqmod.FQ["bd"]] != 0).double()
+                                 .mean())}
+        new = hasattr(feqmod, "bwd_kernel_name")
+        if new:
+            order, offs = feqmod.bwd_chain_split(x, dim)
+            offs = offs.tolist()
+            chains = [(i, n) for i, n in enumerate(feqmod.BWD_CHAINS)
+                      if i < (3 if dim == 3 else 2)]
+            entry["cells_per_chain"] = {n: offs[i + 1] - offs[i]
+                                        for i, n in chains}
+        else:
+            chains = [(None, "both")]
+        for i, name in chains:
+            kern = (feqmod.bwd_kernel_name(flags, i) if new
+                    else f"feqmod_remap_bwd_kernelIfLi{df}EE" if dim == 2
+                    else f"feqmod_bwd_kernelIfLi{dim}ELi{df}EE")
+            entry[f"resources_{name}"] = bwd_resources(
+                "feqmod_bwd", kern,
+                (lambda i=i: feqmod.bwd_props(dev, False, mom, flags, i))
+                if new else None,
+                lambda: first_version_shape(R, F, 54, dim == 3))
+        report[case] = entry
+        return
+    cfg = Config(mode=2, **base)
+    cells = testing.synthetic_vah_cells(n_cells, dim, seed=0)
+    kinds = [("", cells)]
+    if dim == 3:
+        kinds.append(("_chains", dict(cells, **testing.synthetic_vah_coefficients(
+            cells, seed=0))))
+    for suffix, c in kinds:
+        cols = vah.vah_surface_cols(surface_from_arrays(dtype=dt, device=dev,
+                                                        **c))
+        flags = vah.vah_flags(vah.effective_vah_cfg(cols, cfg), grid)
+        x = vah.group_inputs(cols, flags)
+        go = lambda: vah.vah_bwd_cuda(x, G, mom, flags)
+        xs = x[:cut].contiguous()
+        out = vah.vah_bwd_cuda(xs, G, mom, flags).double()
+        ref = vah.vah_bwd_cuda(xs.double(), G.double(), mom64, flags)
+        ms, runs, total = timed(go)
+        kern = (f"vah_remap_bwd_kernelIfLi{flags.switches}EE" if dim == 2
+                else f"vah_bwd_kernelIfLi{dim}ELi{flags.switches}EE")
+        report[case + suffix] = {
+            "ms": ms, "runs": runs, "sum": total, "err_f64": float(
+                (out - ref).abs().max() / ref.abs().max()),
+            "chains": flags.switches, "resources": bwd_resources(
+                "vah_bwd", kern,
+                (lambda: vah.bwd_props(dev, False, mom, flags))
+                if hasattr(vah, "bwd_props") else None,
+                lambda: first_version_shape(R, F, 35, dim == 3))}
+
+
 report = {"root": sys.argv[1]}
 surface = None
 for case in cases:
+    if case in GRAD:
+        grad_case(case, report)
+        continue
     if case in SPECTRA:
         dim, df, remap = SPECTRA[case]
         cfg = Config(operation=1, mode=1, dimension=dim, df_mode=df,
@@ -431,15 +585,24 @@ def main(argv=None):
     results = {r: [] for r in roots}
     for root in roots + roots[::-1]:
         proc = subprocess.run([sys.executable, "-c", _TURN, root,
-                               str(args.cells), ",".join(cases)],
+                               str(args.cells), ",".join(cases),
+                               os.path.join(os.path.dirname(
+                                   os.path.abspath(__file__)),
+                                   "occupancy.py")],
                               capture_output=True, text=True, check=True,
                               timeout=1800)
         line = proc.stdout.strip().splitlines()[-1]
         print(line, flush=True)
         results[root].append(json.loads(line))
-    # a case may report several entries (decays: one a launch)
+    # a case may report several entries (decays: one a launch); a side
+    # without a case's kernel reports it "absent"
     entries = [k for k in results[roots[0]][0] if k != "root"]
     for case in entries:
+        absent = [os.path.relpath(r) for r in roots
+                  if not isinstance(results[r][0].get(case), dict)]
+        if absent:
+            print(json.dumps({"case": case, "absent": absent}))
+            continue
         med = {r: sum(t[case]["ms"] for t in results[r]) / 2 for r in roots}
         sums = {r: results[r][0][case]["sum"] for r in roots}
         first = roots[0]

@@ -19,6 +19,7 @@ instructions per evaluation of the spectra, dN/dX and prototype kernels
 from __future__ import annotations
 
 import collections
+import functools
 import glob
 import os
 import re
@@ -28,6 +29,8 @@ import sys
 
 FP32 = ("FFMA", "FMUL", "FADD", "FMNMX", "FSETP", "FSEL", "FCHK", "FSET",
         "FRND")
+F64 = ("DADD", "DFMA", "DMUL", "DSETP", "DMNMX", "F2F")
+BRANCH = ("BRA", "BSSY", "BSYNC", "BRX", "JMP", "CALL", "RET")
 
 
 def _opcode(op: str) -> str:
@@ -70,37 +73,55 @@ def _tool() -> str | None:
     return tool if os.path.exists(tool) else None
 
 
-def _summary(c: collections.Counter) -> tuple[int, dict, int]:
-    """(FP32-pipe, MUFU.* by name, shared loads) of one loop body."""
+def _base(c: collections.Counter) -> collections.Counter:
     base = collections.Counter()
     for k, v in c.items():
         base[k.split(".")[0]] += v
+    return base
+
+
+def _summary(c: collections.Counter) -> tuple[int, dict, int]:
+    """(FP32-pipe, MUFU.* by name, shared loads) of one loop body."""
+    base = _base(c)
     sfu = {k: v for k, v in c.items() if k.startswith("MUFU")}
     return sum(base[k] for k in FP32), sfu, base["LDS"]
+
+
+@functools.lru_cache(maxsize=None)
+def _sass(tool: str, lib: str, mtime: float) -> str | None:
+    """cuobjdump -sass of a library, once a process for each build of it."""
+    proc = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True)
+    return proc.stdout if proc.returncode == 0 else None
 
 
 def per_eval(lib: str, pattern: str) -> dict | None:
     """Instructions per evaluation in the innermost loop of the first
     kernel of ``lib`` matching ``pattern`` whose body holds the most
-    MUFU.EX2 (one per evaluation): dict(instructions, fp32, sfu, lds,
-    evaluations), or None where cuobjdump is missing or finds no such
-    loop."""
+    MUFU.EX2 (one per evaluation): dict(instructions, fp32, sfu, lds, sts,
+    f64 (the float64 pipe and conversions), branch (with the convergence
+    barriers), fchk (of those counted in fp32), evaluations), or None where
+    cuobjdump is missing or finds no such loop."""
     tool = _tool()
-    if tool is None:
+    if tool is None or not os.path.exists(lib):
         return None
-    proc = subprocess.run([tool, "-sass", lib], capture_output=True,
-                          text=True)
-    if proc.returncode != 0:
+    sass = _sass(tool, lib, os.path.getmtime(lib))
+    if sass is None:
         return None
-    for _, bodies in loops(proc.stdout, pattern, None, innermost=True):
+    for _, bodies in loops(sass, pattern, None, innermost=True):
         bodies = [(n, c) for n, c in bodies if c["MUFU.EX2"]]
         if not bodies:
             continue
         length, c = max(bodies, key=lambda b: b[1]["MUFU.EX2"])
         fp32, sfu, lds = _summary(c)
+        base = _base(c)
         n = c["MUFU.EX2"]
         return dict(instructions=length / n, fp32=fp32 / n,
-                    sfu=sum(sfu.values()) / n, lds=lds / n, evaluations=n)
+                    sfu=sum(sfu.values()) / n, lds=lds / n,
+                    sts=base["STS"] / n,
+                    f64=sum(base[k] for k in F64) / n,
+                    branch=sum(base[k] for k in BRANCH) / n,
+                    fchk=base["FCHK"] / n, evaluations=n)
     return None
 
 

@@ -233,6 +233,103 @@ def test_feqmod_bwd_kernel_matches_plain(cuda_card, case, dtype):
         assert bad == 0, (case, worst)
 
 
+def _chain_keys(x, dimension):
+    """The chain of each packed cell by csrc/feqmod_bwd.cu's rule, cell by
+    cell: 1 (the fallback) where it breaks down, in 3+1D 2 (both chains)
+    where detA < 0.01 (its nodes with |y - eta| < detA take the fallback),
+    else 0 (f_mod)."""
+    keys = []
+    for row in x.tolist():
+        bd, detA = row[feqmod.FQ["bd"]], row[feqmod.FQ["detA"]]
+        narrow = dimension == 3 and float(
+            torch.tensor(detA, dtype=x.dtype)) < float(
+                torch.tensor(feqmod.NARROW_DETA, dtype=x.dtype))
+        keys.append(1 if bd != 0 else 2 if narrow else 0)
+    return keys
+
+
+@pytest.mark.parametrize("case", ["3d_df4_narrow", "3d_df4_clamp",
+                                  "3d_df4_mixed", "2d_remap_df4_most",
+                                  "2d_df3_ragged"])
+def test_feqmod_bwd_chain_split(case):
+    """bwd_chain_split on the CPU: the index lists form a permutation of
+    the group, each cell lands in its chain's list (the breakdown flag, and
+    in 3+1D the narrow rule) and each list keeps the cells' order; on
+    shuffled cells too."""
+    x, _, _, _, flags, _ = testing.feqmod_grad_inputs(case)
+    perm = torch.randperm(x.shape[0], generator=torch.Generator().manual_seed(3))
+    for cells in (x, x[perm]):
+        order, offs = feqmod.bwd_chain_split(cells, flags.dimension)
+        assert order.dtype == offs.dtype == torch.int32
+        assert offs.tolist()[0] == 0 and offs.tolist()[-1] == cells.shape[0]
+        assert sorted(order.tolist()) == list(range(cells.shape[0]))
+        keys = _chain_keys(cells, flags.dimension)
+        for j in range(len(feqmod.BWD_CHAINS)):
+            part = order[offs[j]:offs[j + 1]].tolist()
+            assert part == [i for i, k in enumerate(keys) if k == j]
+        if flags.dimension == 2:
+            assert offs[2] == offs[3]
+    if case == "3d_df4_narrow":
+        assert offs[3] - offs[2] > 0 and offs[1] == 0
+
+
+# groups of one chain, of the other, of both, and of 3+1D narrow cells
+CHAIN_GROUPS = [("3d_df4_mixed", (0,)), ("3d_df4_mixed", (1,)),
+                ("3d_df4_mixed", (0, 1)), ("3d_df4_narrow", (2,)),
+                ("3d_df4_clamp", (0, 1, 2)), ("2d_remap_df4_most", (0,)),
+                ("2d_remap_df4_most", (1,)), ("2d_remap_df3_mixed", (0, 1))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("case,chains", CHAIN_GROUPS,
+                         ids=[f"{c}-{''.join(map(str, k))}"
+                              for c, k in CHAIN_GROUPS])
+def test_feqmod_bwd_chain_groups(cuda_card, case, chains, dtype):
+    """K10 on groups whose cells all take one chain's instantiation, the
+    other's, both, and the 3+1D narrow cells' two-chain body, against the
+    plain version as test_feqmod_bwd_kernel_matches_plain holds it; two
+    launches bit-identical."""
+    x, rn, wcs, mom, flags, G = testing.feqmod_grad_inputs(case, dtype=dtype,
+                                                           device="cuda")
+    keys = torch.tensor(_chain_keys(x, flags.dimension), device="cuda")
+    pick = torch.isin(keys, torch.tensor(chains, device="cuda"))
+    x, rn, wcs = (t[pick].contiguous() for t in (x, rn, wcs))
+    assert sorted(set(keys[pick].tolist())) == list(chains)
+    want = feqmod.feqmod_bwd_plain(x.double(), rn.double(), wcs.double(),
+                                   G.double(), mom.to(None, torch.float64),
+                                   flags)
+    got = feqmod.feqmod_bwd_cuda(x, rn, wcs, G, mom, flags)
+    again = feqmod.feqmod_bwd_cuda(x, rn, wcs, G, mom, flags)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for g, w in zip(got, want):
+        bad, worst = testing.grad_errors(g, w.to(dtype), *TOL[dtype])
+        assert bad == 0, (case, chains, worst)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("case", ["3d_df4_clamp", "3d_df3_ragged",
+                                  "2d_remap_df3_mixed", "2d_df4_most"])
+def test_feqmod_bwd_permutation_invariance(cuda_card, case, dtype):
+    """A permutation of a group's cells permutes K10's grad and grad_rn bit
+    for bit: a cell's sums run over its own nodes in node order, whatever
+    cells share its group or block and wherever its chain's part puts it."""
+    x, rn, wcs, mom, flags, G = testing.feqmod_grad_inputs(case, dtype=dtype,
+                                                           device="cuda")
+    perm = torch.randperm(x.shape[0], generator=torch.Generator().manual_seed(
+        11)).to("cuda")
+    got = feqmod.feqmod_bwd_cuda(x, rn, wcs, G, mom, flags)
+    moved = feqmod.feqmod_bwd_cuda(x[perm].contiguous(), rn[perm].contiguous(),
+                                   wcs[perm].contiguous(), G, mom, flags)
+    torch.cuda.synchronize()
+    for a, b in zip(got, moved):
+        assert torch.equal(a[perm], b)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
                          ids=["f32", "f64"])

@@ -71,10 +71,12 @@ Phases, each printing its own line(s):
    "error"), two runs bit-identical, and its two guards (capacity, a table
    short of a pass); [grad small]: the backward kernels K9a and K9b
    (csrc/smooth_spectra_bwd.cu) on every testing.SPECTRA_EDGES case and
-   K9c (csrc/decays_bwd.cu) on every testing.DECAY_EDGES case against the
+   K9c (csrc/decays_bwd.cu) on every testing.DECAY_EDGES case and the
+   finer-y 3-body wave of testing.DECAY_ROUTE_EDGES (whose float32 slot
+   words do not fit in shared memory: the route by shape) against the
    plain versions' autograd in f64 from the same inputs (a positive
    cotangent, testing.grad_cotangent), f32 and f64, two launches
-   bit-identical; [grad small feqmod] and [grad small vah]: K10a/K10b
+   bit-identical, each K9c launch on its route; [grad small feqmod] and [grad small vah]: K10a/K10b
    (csrc/feqmod_bwd.cu) on every testing.FEQMOD_EDGES case and K11a/K11b
    (csrc/vah_bwd.cu) on every testing.VAH_EDGES case the same way, each
    field to its own largest value (the f64 reference rounded to the
@@ -1309,9 +1311,12 @@ def _issued(library: str, kernel: str) -> str:
     r = sass_count.per_eval(build._cuda_paths(library)[1], kernel)
     if r is None:
         return "not measured"
+    atomics = (f", {r['atom']:.2f} device and {r['atoms']:.2f} shared "
+               f"atomics ({r['cas']:.2f} CAS)"
+               if r.get("atom", 0) or r.get("atoms", 0) else "")
     return (f"{r['instructions']:.2f} instructions, {r['fp32']:.2f} FP32, "
-            f"{r['sfu']:.2f} SFU, {r['lds']:.2f} shared loads (loop of "
-            f"{r['evaluations']:.0f} evaluations)")
+            f"{r['sfu']:.2f} SFU, {r['lds']:.2f} shared loads{atomics} "
+            f"(loop of {r['evaluations']:.0f} evaluations)")
 
 
 def _modules():
@@ -3517,9 +3522,11 @@ def phase_small_grad():
     """[grad small]: K9a and K9b (csrc/smooth_spectra_bwd.cu) on every
     testing.SPECTRA_EDGES case (3+1D, 2+1D fixed and remap, df 1 and 2,
     regulate and outflow on and off, an overflowed exponential, a saturated
-    regulator, pad rows) and K9c (csrc/decays_bwd.cu) on every
-    testing.DECAY_EDGES case, against their plain versions' autograd in
-    f64 from the same inputs, f32 and f64; two launches bit-identical."""
+    regulator, pad rows, one species) and K9c (csrc/decays_bwd.cu) on
+    every testing.DECAY_EDGES and DECAY_ROUTE_EDGES case, against their
+    plain versions' autograd in f64 from the same inputs, f32 and f64; two
+    launches bit-identical; K9c's route (float32 slot words in shared
+    memory where they fit, else the device's) as its shape gives it."""
     from is3d_tpu_torch import testing
     from is3d_tpu_torch.kernels import decays, smooth
     for case in sorted(testing.SPECTRA_EDGES):
@@ -3536,20 +3543,27 @@ def phase_small_grad():
                 fail(f"spectra_bwd {case}: two launches differ")
             _grad_check(f"[grad small] spectra_bwd {case} {dtype}", got,
                         want, dtype)
-    for case in sorted(testing.DECAY_EDGES):
-        for dtype in (torch.float32, torch.float64):
-            tables, tasks, wg, G = testing.decay_grad_inputs(
-                case, dtype=dtype, device="cuda")
-            want = decays.wave_bwd_plain(tables.to(None, torch.float64),
-                                         tasks.to(None, torch.float64),
-                                         wg.to(None, torch.float64), G)
-            got = decays.wave_bwd_cuda(tables, tasks, wg, G)
-            again = decays.wave_bwd_cuda(tables, tasks, wg, G)
-            torch.cuda.synchronize()
-            if not all(torch.equal(a, b) for a, b in zip(got, again)):
-                fail(f"decay_wave_bwd {case}: two launches differ")
-            _grad_check(f"[grad small] decay_wave_bwd {case} {dtype}", got,
-                        want, dtype)
+    # the finer-y route case in float32 alone: the forward stages no
+    # float64 table of its grid
+    for case, dtype in [(c, d) for c in sorted(testing.DECAY_EDGES)
+                        for d in (torch.float32, torch.float64)] + [
+            (c, torch.float32) for c in sorted(testing.DECAY_ROUTE_EDGES)]:
+        tables, tasks, wg, G = testing.decay_grad_inputs(
+            case, dtype=dtype, device="cuda")
+        route = decays.wave_bwd_blocking(tables, tasks, wg)["route"]
+        if route != ("shared" if dtype == torch.float32
+                     and case in testing.DECAY_EDGES else "device"):
+            fail(f"decay_wave_bwd {case} {dtype}: route {route}")
+        want = decays.wave_bwd_plain(tables.to(None, torch.float64),
+                                     tasks.to(None, torch.float64),
+                                     wg.to(None, torch.float64), G)
+        got = decays.wave_bwd_cuda(tables, tasks, wg, G)
+        again = decays.wave_bwd_cuda(tables, tasks, wg, G)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"decay_wave_bwd {case}: two launches differ")
+        _grad_check(f"[grad small] decay_wave_bwd {case} {dtype}", got,
+                    want, dtype)
 
 
 def _grad_group(run_dir: str, cfg):
@@ -3606,7 +3620,7 @@ def phase_grad_pair(smi: str, clock: float, run_dir: str, cfg,
                       smooth.spectra_bwd_cuda(cs, G, mom, flags, table),
                       want, torch.float32, plain)
     evals = cells.shape[0] * S * P * F * R
-    fp32, sfu = smooth.backward_formula_ops(cfg.df_mode, flags.remap)
+    fp32, sfu = smooth.backward_formula_ops(cfg.df_mode, flags.remap, F)
     bound = _bound(evals, fp32, sfu, _nbytes(cells, G, got,
                                              *mom_tensors(mom)), clock)
     kernel = (f"remap_bwd_kernelIfLi{cfg.df_mode}E" if flags.remap else
@@ -3616,9 +3630,11 @@ def phase_grad_pair(smi: str, clock: float, run_dir: str, cfg,
           f"{', '.join(f'{t:.2f}' for t in k_all)}), "
           f"{evals / k_ms * 1e3:.3e} evaluations/s; plain (autograd, f32) "
           f"{p_ms:.3f} ms on {n} cells; bound {bound[0]:.3f} ms "
-          f"({bound[1]}: {fp32} FP32 + {sfu} SFU an evaluation), kernel at "
-          f"{bound[0] / k_ms:.1%} of it; two launches bit-identical; "
-          "issued per evaluation: " + _issued("smooth_spectra_bwd", kernel))
+          f"({bound[1]}: {fp32:.4g} FP32 + {sfu} SFU an evaluation), kernel "
+          f"at {bound[0] / k_ms:.1%} of it; two launches bit-identical; "
+          "issued per evaluation: " + _issued("smooth_spectra_bwd", kernel)
+          + (f"; {smooth.bwd_props('cuda', False, mom, flags)}"
+             if flags.remap else ""))
     return dict(launches=None, max_abs_err=err, ms=k_ms, plain_ms=p_ms,
                 bound_ms=bound[0], bound_by=bound[1], library_ms=None,
                 cells=cells.shape[0], plain_cells=n)
@@ -3833,6 +3849,18 @@ def phase_grad_decays(smi: str, clock: float, run_dir: str, cfg) -> dict:
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 fail(f"decay_wave_bwd wave {i} {tasks.nbody}-body: two "
                      "launches differ")
+            blk = decays.wave_bwd_blocking(tables, tasks, wg)
+            route = blk["route"]
+            _, P_, F_, Y_ = tables.logdN.shape
+            blocks = (tasks.slot.shape[0] * -(-P_ // blk["pt_block"])
+                      * blk["chunks"])
+            words = (P_ + 2) * (F_ + 2) * Y_           # a slot's entries
+            b_bits, e_bits = decays.wave_bwd_bits(tables, tasks, wg, G)
+            live = e_bits > -2 ** 31
+            lost = (b_bits - e_bits)[live]
+            if (lost < 0).any():
+                fail(f"decay_wave_bwd wave {i} {tasks.nbody}-body: a term "
+                     "lies above its slot's scale bound")
             fp32, sfu = decays.wave_backward_operations(tasks, wg)
             fed = tasks.target.shape[0] * acc[0].numel() * 8
             nbytes = 2 * _nbytes(tables.logdN, tables.tc, tables.ts) + \
@@ -3862,7 +3890,16 @@ def phase_grad_decays(smi: str, clock: float, run_dir: str, cfg) -> dict:
                   f"{ms:.3f} ms, bound {bound[0]:.3f} ms ({bound[1]}), "
                   f"{bound[0] / ms:.1%} of it; plain (f64 autograd) "
                   f"{p_ms:.1f} ms on its first task; two launches "
-                  "bit-identical")
+                  f"bit-identical; route {route} ({blocks} blocks; "
+                  + (f"at most {blocks * words} device atomics to flush "
+                     "them, plus the carries" if route == "shared"
+                     else "device atomics a term")
+                  + f"), the scale's bound gives up {int(lost.min())}-"
+                  f"{int(lost.max())} bits (log and tail rows of each "
+                  "slot); issued per evaluation: "
+                  + _issued("decays_bwd", f"wave_bwd_kernelIfLi"
+                            f"{cfg.dimension}ELi{tasks.nbody}ELb"
+                            f"{int(route == 'shared')}E"))
         for tasks in st.launches:
             decays.decay_wave_cuda(tables, tasks, wg, acc)
     records = {}

@@ -19,44 +19,77 @@
 // for every corner c of every evaluation (outputs with |Y| > |y_max| add
 // nothing, as in the forward).
 //
-// What bounds it on this card: the scatter.  The forward's evaluations
-// (exp and ~20 FP32, kernels/decays.py: wave_backward_operations) are
-// recomputed, and each adds to 4 (2+1D) or 8 (3+1D) table entries that
-// other threads and blocks add to as well.
+// What bounds it on this card: each evaluation recomputes the forward's
+// (exp and ~20 FP32, kernels/decays.py: wave_backward_operations) and adds
+// to 4 (2+1D) or 8 (3+1D) entries of the slot's table that other threads
+// and blocks add to as well.  The first version (two passes, two device-
+// memory atomics a term: ~8 an evaluation in 3+1D, ~1e11 for the main
+// path's 3-body wave 0) ran at 0.5 % of the FP32 bound, on the L2's
+// atomics.
 //
 // Design.
 //   * The forward's blocking (decays.cu, wave_kernel): a block per (task,
 //     chunk of PB pT values, chunk of the task's (s, v) node pairs), a
-//     thread per output (pT, phi, run of YR rapidities), the (v, zeta)
+//     thread per output (pT, phi, run of YRun rapidities), the (v, zeta)
 //     node table built per s in shared memory (build_node, as the
 //     forward's).  The table it reads (log2(e)-scaled in float32, phi
-//     columns padded, kernels/decays.py: padded_tables) stays in device
-//     memory; L1 and L2 hold it.
+//     columns padded, kernels/decays.py: padded_tables) is copied into
+//     shared memory on the shared route, and read from device memory
+//     (L1, L2) on the device route.
 //   * No float atomic: the adds are integer, in fixed point, so their
-//     order cannot change the sum.  Each contribution x = g W exp(L) w_c
-//     is scaled by 2^(33 - e_u) (2^e_u above every |x| of slot u) and
-//     split into a high word (|.| < 2^33) and a low one (the rest x 2^34,
-//     rounded); each adds to its own 64-bit integer of the slot's padded
-//     table in device memory (two reductions the L2 carries out).  The
-//     sum keeps |x|max 2^-67 absolutely, and up to 2^27 adds to one entry
-//     cannot overflow (a task adds ~1e5 to its busiest one).  In 3+1D a
-//     thread's neighbouring outputs share a rapidity plane; it is summed
-//     in the thread before it is added.
-//   * Two passes of the same kernel: PASS 0 finds e_u (atomicMax of the
-//     largest exponent, an integer too), PASS 1 adds.  finish_kernel
-//     turns each entry's words into the float gradient and folds the
-//     padded phi columns onto the slot's columns: two launches give
-//     identical bits.
+//     order cannot change the sum (two launches give identical bits).  A
+//     term x = g W exp(L) w_c is scaled by 2^S_u (Scale below); in 3+1D a
+//     thread's neighbouring outputs share a rapidity plane, summed in the
+//     thread before it is added.
+//   * One pass.  The slot's scale comes from a bound that needs no
+//     evaluation (kernels/decays.py: wave_bwd_scale, torch on the card:
+//     |pref| max|G| of the task, each node's W and MT, the slot's row
+//     extremes), not from the exact largest term, which the first version
+//     found by running every evaluation twice.  The bound gives up B_u bits
+//     against the exact largest term (measured on the main path's waves:
+//     PERF.md; decays.wave_bwd_bits reads the exact exponent through
+//     emax); the words keep HI_u bits below the bound, so a float32 term
+//     keeps its 24 bits while HI_u - B_u >= 24 (main path: HI_u 32-38,
+//     B_u 1-7), and float64's two words 2 HI_u - B_u bits.
+//   * Routes, chosen by dtype and shape (blocking), never after a failure:
+//     - SHM, float32 where the slot's table and a 32-bit low word an
+//       entry (148.5 KB at 32 x 24 x 21, 7 KB in 2+1D) fit beside the
+//       node tables: the block reads the table from shared memory and
+//       adds each term's low 32 bits to its low word there (a native
+//       shared atomic; a 64-bit atomicAdd on shared memory is a compare-
+//       and-swap loop on sm_90, 2x slower on the 3-body wave 0 by A/B),
+//       the high bits and the carry out of the low word (rare: once the
+//       word passes 2^32) to the slot's int64 word in device memory, and
+//       at its end each nonzero low word to the same int64 word: a term's
+//       bits reach that word exactly once, in any order.  One block an SM
+//       holds a 3+1D copy, so the route's blocks take THREADS_SHM threads
+//       (runs of 7 rapidities) for 18 warps an SM.
+//     - DEVICE, float64 (two words an entry do not fit in 3+1D, and one
+//       word's resolution would miss float64's checks) and float32 grids
+//       whose words do not fit: each term adds to the device's words, as
+//       the first version did, in one pass.
+//   * Precision.  An entry's int64 word sums at most E_u terms of
+//     |.| < 2^HI_u, so it stays below 2^61 (Scale), whatever part of the
+//     sum a block's low word holds.  A float32 term rounds to the word at
+//     2^-HI_u of the bound (HI_u = 61 - ceil(log2 E_u)), below its own
+//     float32 rounding; the absolute error of an entry is at most its
+//     terms' count x 2^-(HI_u + 1) of the bound: 1.2e-5 of the bound for
+//     1e5 terms at HI_u = 32 (~1e-8 as the roundings' signs fall), inside
+//     the checks' 2e-5 x max (float32) of a gradient whose largest entry
+//     sums many terms; float64's two words keep 2^-2HI_u.
+//     finish_kernel turns each entry's words into the float gradient and
+//     folds the padded phi columns onto the slot's columns.
 
 #include <cuda_runtime.h>
 
-#include <climits>
 
 namespace {
 
 constexpr int NG = 12;             // Gauss-Legendre points in v, zeta, s
 constexpr int NODES = NG * NG;     // (v, zeta) nodes per (task, pT[, s])
 constexpr int THREADS = 256;       // most threads a block
+constexpr int THREADS_SHM = 576;   // the shared route's (8 pT values of
+                                   // 24 phi x 3 runs in 3+1D: 18 warps)
 constexpr int NPAR = 6;            // parameters per task
 constexpr int FOLD_THREADS = 256;
 constexpr size_t MAX_SMEM = 232448;
@@ -93,10 +126,13 @@ struct Fn<double> {
   static __device__ __forceinline__ double abs(double x) { return fabs(x); }
 };
 
-// rapidities a thread owns in 3+1D (the forward's YRun)
+// rapidities a thread owns in 3+1D: 7, where the forward's float32 owns
+// 21 (its planes in shared memory; here a float32 run of 7 left the
+// 3-body wave 0 at 0.56 of its time by A/B, more threads for the one
+// resident block of the shared route against ~9 % more plane adds)
 template <typename T, int DIM>
 struct YRun {
-  static constexpr int R = DIM == 2 ? 1 : (sizeof(T) == 4 ? 21 : 7);
+  static constexpr int R = DIM == 2 ? 1 : 7;
 };
 
 template <typename T>
@@ -147,6 +183,23 @@ struct Smem {
 
   __host__ __device__ size_t bytes(const unsigned char* raw) const {
     return reinterpret_cast<const unsigned char*>(bucket + NB) - raw;
+  }
+
+  // the shared route's copy of the slot's table and its 32-bit low
+  // words, past the tables (16-byte aligned)
+  __host__ __device__ static size_t words_at(size_t b) {
+    return (b + 15) / 16 * 16;
+  }
+  __host__ __device__ static size_t shm_bytes(int len) {
+    return (size_t)len * (sizeof(T) + sizeof(unsigned));
+  }
+  __device__ T* table() const {
+    const unsigned char* raw = reinterpret_cast<const unsigned char*>(mtg);
+    return reinterpret_cast<T*>(const_cast<unsigned char*>(raw)
+                                + words_at(bytes(raw)));
+  }
+  __device__ unsigned* low() const {
+    return reinterpret_cast<unsigned*>(table() + LEN);
   }
 };
 
@@ -226,42 +279,105 @@ __device__ __forceinline__ int y_stencil(const Smem<T>& s, int Ls, T Y) {
   return Ls;
 }
 
-// The fixed point of a slot: a term x is scaled by 2^(HI_BITS - e_u),
-// 2^e_u above every |x| of the slot, and split into a high word (|.| <
-// 2^33) and a low one (the rest x 2^34, in [0, 2^34)): exact to 2^(e_u -
-// 67), and up to 2^27 terms of one entry cannot overflow a word.
-constexpr int HI_BITS = 33;
-constexpr int LO_BITS = 34;
+// The fixed point of a slot u.  The wrapper (kernels/decays.py:
+// wave_bwd_scale) bounds every term a w_c of the slot without evaluating
+// one (from the slot's row extremes, the task's largest |pref G| and each
+// node's W and MT), apart for its log rows (nodes inside the MT grid) and
+// its tail rows tc, ts (nodes past it, whose gradients are ~1e-6 of the
+// log rows' and are checked on their own): |a w_c| < 2^e.  With E_u the slot's evaluations (its
+// tasks x nodes x outputs x 2), the sum of any entry's |terms| is below
+// E_u 2^e, so a term scaled by 2^S, S = HI_u - e, HI_u = 61 -
+// ceil(log2 E_u), leaves every entry's sum below 2^61 in magnitude, and a
+// fold of two entries below 2^62: no integer word can overflow, in any
+// order of the adds.
+//   * float32: one 64-bit word an entry, the term rounded to an integer at
+//     that scale (a float32 term carries 24 bits; the word's resolution
+//     is 2^-HI_u of the bound).
+//   * float64: two words, the term's integer part (high) and the rest x
+//     2^HI_u rounded (low): resolution 2^-2HI_u of the bound.
+template <typename T>
+struct Scale;
 
-// PASS 0: the running largest |x| of the four corner terms a w_c; PASS 1:
-// their fixed-point adds at the slot's scale 2^S to acc (high words) and
-// acc + LEN (low words)
-template <int PASS>
+template <>
+struct Scale<float> {
+  float a, b;                  // 2^S = a b (each factor within float32)
+  __device__ Scale(int S, int) {
+    S = S > 250 ? 250 : (S < -250 ? -250 : S);
+    a = exp2f((float)(S / 2));
+    b = exp2f((float)(S - S / 2));
+  }
+  // the term's word at the slot's scale
+  __device__ __forceinline__ long long word(float x) const {
+    return __float2ll_rn((x * a) * b);
+  }
+};
+
+template <>
+struct Scale<double> {
+  int S, HI;
+  __device__ Scale(int S_, int HI_) : S(S_), HI(HI_) {}
+};
+
+// one term x of table entry `at`: in float32 its word into the device's
+// acc[at], or on the shared route its low 32 bits into the block's
+// low[at] and the rest with the carry out of that add into acc[at] (the
+// sum stays exact modulo 2^64, in any order); in float64 its two words
+// into acc[at] and acc[LEN + at]
+template <bool SHM>
+__device__ __forceinline__ void add_term(unsigned long long* acc,
+                                         unsigned* low, int, int at,
+                                         float x, const Scale<float>& sc) {
+  const long long w = sc.word(x);
+  if (SHM) {
+    const unsigned lo = (unsigned)w;
+    const unsigned old = atomicAdd(low + at, lo);
+    const long long hi = (w >> 32) + (old + lo < old ? 1 : 0);
+    if (hi != 0)
+      atomicAdd(acc + at, (unsigned long long)hi << 32);
+  } else {
+    atomicAdd(acc + at, (unsigned long long)w);
+  }
+}
+template <bool SHM>
+__device__ __forceinline__ void add_term(unsigned long long* acc, unsigned*,
+                                         int LEN, int at, double x,
+                                         const Scale<double>& sc) {
+  const double X = ldexp(x, sc.S);
+  const double h = floor(X);
+  atomicAdd(acc + at, (unsigned long long)(long long)h);
+  atomicAdd(acc + LEN + at,
+            (unsigned long long)(long long)rint(ldexp(X - h, sc.HI)));
+}
+
+// the four corner terms a w_c of one (plane of a) Phi solution; `big`
+// keeps the largest |a w_c| where the caller measures it
+template <bool SHM, typename T>
 __device__ __forceinline__ void corner_terms(unsigned long long* acc,
+                                             unsigned* low,
                                              int LEN, int q, int NY,
-                                             int FPNY, double w00, double w01,
-                                             double w10, double w11,
-                                             double a, int S, double& big) {
-  const double x[4] = {a * w00, a * w01, a * w10, a * w11};
+                                             int FPNY, T w00, T w01, T w10,
+                                             T w11, T a, const Scale<T>& sc,
+                                             bool measure, T& big) {
+  const T x[4] = {a * w00, a * w01, a * w10, a * w11};
   const int at[4] = {q, q + NY, q + FPNY, q + FPNY + NY};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    if (PASS == 0) {
-      big = fmax(big, fabs(x[i]));
-    } else {
-      const double X = ldexp(x[i], S);
-      const double h = floor(X);
-      atomicAdd(acc + at[i], (unsigned long long)(long long)h);
-      atomicAdd(acc + LEN + at[i],
-                (unsigned long long)(long long)rint(ldexp(X - h, LO_BITS)));
-    }
+    if (measure) big = max_(big, Fn<T>::abs(x[i]));
+    add_term<SHM>(acc, low, LEN, at[i], x[i], sc);
   }
 }
 
-// PASS 0: expo[u] = the largest binary exponent of slot u's terms; PASS 1:
-// the terms added to acc (U, 2, LEN) at the scales expo gives
-template <typename T, int DIM, int NBODY, int PASS>
-__global__ void __launch_bounds__(THREADS)
+// float32 tables whose copy and low words fit in shared memory beside the
+// node tables (SHM): each block reads its slot's table there and adds its
+// terms' low 32 bits to its own low words, the rest to the device's word,
+// and each low word to the device's word once, at its end (integer adds,
+// so in any order); otherwise every term goes to the device's words.
+// scale (U, 3): S of the log rows, S of the tail rows, HI_u; acc: (U, LEN)
+// words in float32, (U, 2, LEN) in float64; emax (U, 2) or null: the
+// largest binary exponent of the terms added to the log and the tail rows
+// (frexp), measured where asked for
+template <typename T, int DIM, int NBODY, bool SHM>
+__global__ void __launch_bounds__(SHM ? THREADS_SHM : THREADS)
     wave_bwd_kernel(const T* __restrict__ ptab, const T* __restrict__ mtg,
                     const T* __restrict__ pT, const T* __restrict__ phl,
                     const T* __restrict__ invd,
@@ -269,10 +385,12 @@ __global__ void __launch_bounds__(THREADS)
                     const T* __restrict__ quad, const int* __restrict__ slot,
                     const T* __restrict__ par, const int* __restrict__ seg,
                     const double* __restrict__ G, int P, int F, int NY,
-                    int PB, int NC, int NB, int* __restrict__ expo,
-                    unsigned long long* __restrict__ acc) {
+                    int PB, int NC, int NB, const int* __restrict__ scale,
+                    unsigned long long* __restrict__ acc,
+                    int* __restrict__ emax) {
   using F_ = Fn<T>;
   constexpr int R = YRun<T, DIM>::R;
+  constexpr int WORDS = sizeof(T) == 4 ? 1 : 2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const Smem<T> s(smem_raw, P, F, NY, PB, NB);
   const int k = blockIdx.x, p0 = blockIdx.y * PB, ck = blockIdx.z;
@@ -280,10 +398,13 @@ __global__ void __launch_bounds__(THREADS)
   const int nt = blockDim.x, tid = threadIdx.x;
   const int FY = F * NY, FPNY = s.FP * NY;
   const size_t u = slot[k];
-  const T* tab = ptab + u * (size_t)s.LEN;
-  unsigned long long* acc_u = acc + u * 2 * (size_t)s.LEN;
-  const int S = PASS == 1 ? HI_BITS - expo[u] : 0;
-  double big = 0.0;
+  unsigned long long* acc_u = acc + u * WORDS * (size_t)s.LEN;
+  const T* tab = SHM ? s.table() : ptab + u * (size_t)s.LEN;
+  unsigned* low = SHM ? s.low() : nullptr;
+  const Scale<T> sc_in(scale[3 * u], scale[3 * u + 2]);
+  const Scale<T> sc_tail(scale[3 * u + 1], scale[3 * u + 2]);
+  const bool measure = emax != nullptr;
+  T big_in = T(0), big_tail = T(0);
 
   for (int i = tid; i < P; i += nt) s.mtg[i] = mtg[u * P + i];
   for (int i = tid; i < F + 2; i += nt) s.phl[i] = phl[i];
@@ -295,6 +416,11 @@ __global__ void __launch_bounds__(THREADS)
     s.qw[i] = quad[NG + i];
     s.qz[i] = quad[2 * NG + i];
   }
+  if (SHM)
+    for (int i = tid; i < s.LEN; i += nt) {
+      s.table()[i] = ptab[u * (size_t)s.LEN + i];
+      low[i] = 0u;
+    }
 
   const T* pk = par + (size_t)k * NPAR;
   const T pref = pk[0], m2 = pk[1];
@@ -401,12 +527,15 @@ __global__ void __launch_bounds__(THREADS)
             }
           }
           if (!(active && mask)) continue;
+          const bool tl = s.nRow[n] == s.TAIL;      // past the MT grid
+          const Scale<T>& sc = tl ? sc_tail : sc_in;
+          T bg = T(0);
 #pragma unroll
           for (int sg = 0; sg < 2; ++sg) {
             const Corner<T>& c = cc[sg];
             if (DIM == 2) {
-              corner_terms<PASS>(acc_u, s.LEN, c.q, 1, s.FP, c.w00, c.w01,
-                                 c.w10, c.w11, om[sg][0], S, big);
+              corner_terms<SHM>(acc_u, low, s.LEN, c.q, 1, s.FP, c.w00, c.w01,
+                              c.w10, c.w11, om[sg][0], sc, measure, bg);
               continue;
             }
             // output j adds om (1 - tY) to plane Ls and om tY to plane
@@ -414,37 +543,52 @@ __global__ void __launch_bounds__(THREADS)
             // right plane (a run of consecutive stencils) the two are
             // summed before they are added
             int cp = -1;                 // the plane carried, its value
-            double cv = 0.0;
+            T cv = T(0);
 #pragma unroll
             for (int j = 0; j < R; ++j) {
               if (!((mask >> j) & 1u)) continue;
-              const double a = om[sg][j];
-              const double t = tY[j];
-              double lo = a * (1.0 - t);
+              const T a = om[sg][j];
+              const T t = tY[j];
+              T lo = a * (T(1) - t);
               if (cp == Ls[j]) {
                 lo += cv;
               } else if (cp >= 0) {
-                corner_terms<PASS>(acc_u, s.LEN, c.q + cp, NY, FPNY, c.w00,
-                                   c.w01, c.w10, c.w11, cv, S, big);
+                corner_terms<SHM>(acc_u, low, s.LEN, c.q + cp, NY, FPNY, c.w00,
+                                c.w01, c.w10, c.w11, cv, sc, measure, bg);
               }
-              corner_terms<PASS>(acc_u, s.LEN, c.q + Ls[j], NY, FPNY,
-                                 c.w00, c.w01, c.w10, c.w11, lo, S, big);
+              corner_terms<SHM>(acc_u, low, s.LEN, c.q + Ls[j], NY, FPNY, c.w00,
+                              c.w01, c.w10, c.w11, lo, sc, measure, bg);
               cp = Ls[j] + 1;
               cv = a * t;
             }
             if (cp >= 0)
-              corner_terms<PASS>(acc_u, s.LEN, c.q + cp, NY, FPNY, c.w00,
-                                 c.w01, c.w10, c.w11, cv, S, big);
+              corner_terms<SHM>(acc_u, low, s.LEN, c.q + cp, NY, FPNY, c.w00,
+                              c.w01, c.w10, c.w11, cv, sc, measure, bg);
+          }
+          if (measure) {
+            if (tl) big_tail = max_(big_tail, bg);
+            else big_in = max_(big_in, bg);
           }
         }
       }
     }
   }
-  if (PASS == 0 && big > 0.0) {
-    int e;
-    frexp(big, &e);                 // big < 2^e
-    atomicMax(expo + u, e);
+  if (SHM) {
+    __syncthreads();                // every term of the block is added
+    for (int i = tid; i < s.LEN; i += nt) {
+      const unsigned w = low[i];
+      if (w != 0u) atomicAdd(acc_u + i, (unsigned long long)w);
+    }
   }
+  if (measure)
+    for (int i = 0; i < 2; ++i) {
+      const T b = i ? big_tail : big_in;
+      if (b > T(0)) {
+        int e;
+        frexp((double)b, &e);       // b < 2^e
+        atomicMax(emax + 2 * u + i, e);
+      }
+    }
 }
 
 // d_logdN[u, m, c, y] (and d_tc, d_ts): the fixed-point sums of slot u's
@@ -453,9 +597,10 @@ __global__ void __launch_bounds__(THREADS)
 template <typename T>
 __global__ void __launch_bounds__(FOLD_THREADS)
     finish_kernel(const unsigned long long* __restrict__ acc,
-                  const int* __restrict__ expo, int P, int F, int NY,
+                  const int* __restrict__ scale, int P, int F, int NY,
                   T* __restrict__ dlog, T* __restrict__ dtc,
                   T* __restrict__ dts) {
+  constexpr int WORDS = sizeof(T) == 4 ? 1 : 2;
   const int FP = F + 2;
   const long long per = (long long)(P + 2) * F * NY;
   const long long e = (long long)blockIdx.x * FOLD_THREADS + threadIdx.x;
@@ -469,16 +614,17 @@ __global__ void __launch_bounds__(FOLD_THREADS)
   const long long a1 = at + (long long)(c + 1) * NY + iy;
   const long long a2 = c == F - 1 ? at + iy
                        : (c == 0 ? at + (long long)(F + 1) * NY + iy : -1);
-  const unsigned long long* hi = acc + (size_t)u * 2 * LEN;
-  const unsigned long long* lo = hi + LEN;
+  const unsigned long long* hi = acc + (size_t)u * WORDS * LEN;
   long long h = (long long)hi[a1];
-  long long l = (long long)lo[a1];
-  if (a2 >= 0) {
-    h += (long long)hi[a2];
-    l += (long long)lo[a2];
+  if (a2 >= 0) h += (long long)hi[a2];
+  double v = (double)h;
+  if (WORDS == 2) {
+    const unsigned long long* lo = hi + LEN;
+    long long l = (long long)lo[a1];
+    if (a2 >= 0) l += (long long)lo[a2];
+    v += ldexp((double)l, -scale[3 * u + 2]);
   }
-  const double v = expo[u] == INT_MIN ? 0.0
-      : ldexp((double)h + ldexp((double)l, -LO_BITS), expo[u] - HI_BITS);
+  v = ldexp(v, -scale[3 * u + (row < P ? 0 : 1)]);
   if (row < P)
     dlog[((size_t)u * P + row) * F * NY + rest] = (T)v;
   else if (row == P)
@@ -493,8 +639,11 @@ size_t smem_bytes(int P, int F, int NY, int PB, int NB) {
 }
 
 // the backward's blocking for a launch of K tasks: out = {PB, NC, shared
-// memory a block, most phi buckets}, the forward's wave_blocking with the
-// backward's shared memory
+// memory a block, most phi buckets, route (1: the slot's table and low
+// words in shared memory)}.  float32 takes the shared route where they,
+// the node tables of a pT block and the buckets fit (PB from THREADS_SHM,
+// lowered until they do); float64, and float32 where no PB fits, add to
+// the device's words (PB from THREADS, as the forward's wave_blocking).
 template <typename T>
 int blocking(int nbody, int dim, int K, int P, int F, int NY, int NB,
              int* out) {
@@ -510,68 +659,89 @@ int blocking(int nbody, int dim, int K, int P, int F, int NY, int NB,
   if (rc != 0) return rc;
   const int R = dim == 2 ? YRun<T, 2>::R : YRun<T, 3>::R;
   const int runs = F * ((NY + R - 1) / R);
-  int PB = max(1, min(P, THREADS / runs));
-  PB = (P + (P + PB - 1) / PB - 1) / ((P + PB - 1) / PB);
+  auto balance = [&](int pb) {
+    pb = max(1, min(P, pb));
+    return (P + (P + pb - 1) / pb - 1) / ((P + pb - 1) / pb);
+  };
+  auto base = [&](int pb) {
+    return dim == 2 ? smem_bytes<T, 2>(P, F, NY, pb, 0)
+                    : smem_bytes<T, 3>(P, F, NY, pb, 0);
+  };
+  int PB = balance(THREADS / runs);
+  int shm = 0;
+  if (sizeof(T) == 4) {
+    const size_t words = Smem<T>::shm_bytes((P + 2) * (F + 2) * NY);
+    for (int pb = balance(THREADS_SHM / runs); pb >= 1;
+         pb = pb > 1 ? balance(pb - 1) : 0) {
+      if (Smem<T>::words_at(base(pb) + (size_t)NB * sizeof(int)) + words
+          <= MAX_SMEM) {
+        PB = pb;
+        shm = 1;
+        break;
+      }
+      if (pb == 1) break;
+    }
+  }
   const long long blocks = (long long)K * ((P + PB - 1) / PB);
   const long long pairs = (nbody == 2 ? 1 : NG) * NG;
-  const long long want = (4LL * n_sm + blocks - 1) / blocks;
-  const size_t base = dim == 2 ? smem_bytes<T, 2>(P, F, NY, PB, 0)
-                               : smem_bytes<T, 3>(P, F, NY, PB, 0);
-  const size_t with_nb = base + (size_t)NB * sizeof(int);
+  // four waves of blocks on the device route; one on the shared route,
+  // whose blocks each copy the slot's table and zero and flush low words
+  // (0.93 of its time against four waves over the main path's launches)
+  const long long want = ((shm ? 1LL : 4LL) * n_sm + blocks - 1) / blocks;
+  const size_t b0 = base(PB);
+  const size_t with_nb = shm ? Smem<T>::words_at(b0 + (size_t)NB * sizeof(int))
+                                   + Smem<T>::shm_bytes((P + 2) * (F + 2) * NY)
+                             : b0 + (size_t)NB * sizeof(int);
   out[0] = PB;
   out[1] = (int)(want < pairs ? want : pairs);
   out[2] = with_nb > (size_t)0x7fffffff ? 0x7fffffff : (int)with_nb;
-  out[3] = base > MAX_SMEM ? 0 : (int)((MAX_SMEM - base) / sizeof(int));
+  out[3] = b0 > MAX_SMEM ? 0 : (int)((MAX_SMEM - b0) / sizeof(int));
+  out[4] = shm;
   return cudaSuccess;
 }
 
-template <typename T, int DIM, int NBODY>
-cudaError_t launch_kernels(dim3 grid, int threads, size_t smem,
-                           cudaStream_t stream, const T* ptab, const T* mtg,
-                           const T* pT, const T* phl, const T* invd,
-                           const int* bucket, const T* y, const T* quad,
-                           const int* slot, const T* par, const int* seg,
-                           const double* G, int P, int F, int NY, int PB,
-                           int NC, int NB, int* expo,
-                           unsigned long long* acc) {
-  auto k0 = wave_bwd_kernel<T, DIM, NBODY, 0>;
-  auto k1 = wave_bwd_kernel<T, DIM, NBODY, 1>;
+template <typename T, int DIM, int NBODY, bool SHM>
+cudaError_t launch_kernel(dim3 grid, int threads, size_t smem,
+                          cudaStream_t stream, const T* ptab, const T* mtg,
+                          const T* pT, const T* phl, const T* invd,
+                          const int* bucket, const T* y, const T* quad,
+                          const int* slot, const T* par, const int* seg,
+                          const double* G, int P, int F, int NY, int PB,
+                          int NC, int NB, const int* scale,
+                          unsigned long long* acc, int* emax) {
+  auto kern = wave_bwd_kernel<T, DIM, NBODY, SHM>;
   cudaError_t rc = cudaFuncSetAttribute(
-      k0, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (rc == cudaSuccess)
-    rc = cudaFuncSetAttribute(
-        k1, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (rc != cudaSuccess) return rc;
-  k0<<<grid, threads, smem, stream>>>(ptab, mtg, pT, phl, invd, bucket, y,
-                                      quad, slot, par, seg, G, P, F, NY, PB,
-                                      NC, NB, expo, acc);
-  rc = cudaGetLastError();
-  if (rc != cudaSuccess) return rc;
-  k1<<<grid, threads, smem, stream>>>(ptab, mtg, pT, phl, invd, bucket, y,
-                                      quad, slot, par, seg, G, P, F, NY, PB,
-                                      NC, NB, expo, acc);
+  kern<<<grid, threads, smem, stream>>>(ptab, mtg, pT, phl, invd, bucket, y,
+                                        quad, slot, par, seg, G, P, F, NY,
+                                        PB, NC, NB, scale, acc, emax);
   return cudaGetLastError();
 }
 
-// expo (U) must hold INT_MIN and acc (U, 2, LEN) zeros on entry
+// acc must hold zeros on entry: (U, LEN) words in float32, (U, 2, LEN) in
+// float64; scale (U, 3) int32; emax (U, 2) int32 = INT_MIN, or null
 template <typename T>
 int launch_bwd(int nbody, int dim, const void* ptab_v, const void* mtg_v,
                const void* pT_v, const void* phl_v, const void* invd_v,
                const void* bucket_v, int NB, const void* y_v,
                const void* quad_v, int U, int P, int F, int NY,
                const void* slot_v, const void* par_v, const void* seg_v,
-               int K, int NC, const void* G_v, void* expo_v, void* acc_v,
-               void* dlog_v, void* dtc_v, void* dts_v, void* stream_v) {
-  int bl[4];
+               int K, int NC, const void* G_v, const void* scale_v,
+               void* acc_v, void* emax_v, void* dlog_v, void* dtc_v,
+               void* dts_v, void* stream_v) {
+  int bl[5];
   const int rc0 = blocking<T>(nbody, dim, K, P, F, NY, NB, bl);
   if (rc0 != cudaSuccess) return rc0;
   const int PB = bl[0];
   const size_t smem = (size_t)bl[2];
+  const bool shm = bl[4] != 0;
   if (U < 1 || U > 65535 || NB < 1 || NC != bl[1] || smem > MAX_SMEM)
     return cudaErrorInvalidValue;
   const int R = dim == 2 ? YRun<T, 2>::R : YRun<T, 3>::R;
   const int outputs = PB * F * ((NY + R - 1) / R);
-  const int threads = min(THREADS, (outputs + 31) / 32 * 32);
+  const int threads = min(shm ? THREADS_SHM : THREADS,
+                          (outputs + 31) / 32 * 32);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_v);
   const dim3 grid((unsigned)K, (unsigned)((P + PB - 1) / PB), (unsigned)NC);
   const T* ptab = static_cast<const T*>(ptab_v);
@@ -586,24 +756,39 @@ int launch_bwd(int nbody, int dim, const void* ptab_v, const void* mtg_v,
   const T* par = static_cast<const T*>(par_v);
   const int* seg = static_cast<const int*>(seg_v);
   const double* G = static_cast<const double*>(G_v);
-  int* expo = static_cast<int*>(expo_v);
+  const int* scale = static_cast<const int*>(scale_v);
   unsigned long long* acc = static_cast<unsigned long long*>(acc_v);
-  cudaError_t rc;
-#define IS3D_WAVE_BWD(D, N)                                                 \
-  launch_kernels<T, D, N>(grid, threads, smem, stream, ptab, mtg, pT, phl, \
-                          invd, bucket, y, quad, slot, par, seg, G, P, F,  \
-                          NY, PB, NC, NB, expo, acc)
-  if (dim == 2)
-    rc = nbody == 2 ? IS3D_WAVE_BWD(2, 2) : IS3D_WAVE_BWD(2, 3);
-  else
-    rc = nbody == 2 ? IS3D_WAVE_BWD(3, 2) : IS3D_WAVE_BWD(3, 3);
+  int* emax = static_cast<int*>(emax_v);
+  cudaError_t rc = cudaSuccess;
+#define IS3D_WAVE_BWD(D, N, SH)                                            \
+  launch_kernel<T, D, N, SH>(grid, threads, smem, stream, ptab, mtg, pT,   \
+                             phl, invd, bucket, y, quad, slot, par, seg, G, \
+                             P, F, NY, PB, NC, NB, scale, acc, emax)
+  if constexpr (sizeof(T) == 4) {
+    if (shm) {
+      if (dim == 2)
+        rc = nbody == 2 ? IS3D_WAVE_BWD(2, 2, true)
+                        : IS3D_WAVE_BWD(2, 3, true);
+      else
+        rc = nbody == 2 ? IS3D_WAVE_BWD(3, 2, true)
+                        : IS3D_WAVE_BWD(3, 3, true);
+    }
+  }
+  if (!shm) {
+    if (dim == 2)
+      rc = nbody == 2 ? IS3D_WAVE_BWD(2, 2, false)
+                      : IS3D_WAVE_BWD(2, 3, false);
+    else
+      rc = nbody == 2 ? IS3D_WAVE_BWD(3, 2, false)
+                      : IS3D_WAVE_BWD(3, 3, false);
+  }
 #undef IS3D_WAVE_BWD
   if (rc != cudaSuccess) return (int)rc;
   const long long per = (long long)(P + 2) * F * NY;
   const dim3 fgrid((unsigned)((per + FOLD_THREADS - 1) / FOLD_THREADS),
                    (unsigned)U);
   finish_kernel<T><<<fgrid, FOLD_THREADS, 0, stream>>>(
-      acc, expo, P, F, NY, static_cast<T*>(dlog_v), static_cast<T*>(dtc_v),
+      acc, scale, P, F, NY, static_cast<T*>(dlog_v), static_cast<T*>(dtc_v),
       static_cast<T*>(dts_v));
   return (int)cudaGetLastError();
 }
@@ -612,25 +797,29 @@ int launch_bwd(int nbody, int dim, const void* ptab_v, const void* mtg_v,
 
 extern "C" {
 
-// expo (U) int32 = INT_MIN and acc (U, 2, LEN) uint64 = 0 on entry
+// acc zeros on entry ((U, LEN) uint64 in float32, (U, 2, LEN) in float64),
+// scale (U, 3) int32 (kernels/decays.py: wave_bwd_scale), emax (U, 2)
+// int32 = INT_MIN or null
 #define IS3D_DECAY_BWD_ENTRY(NAME, T)                                         \
   int NAME(int nbody, int dim, const void* ptab, const void* mtg,            \
            const void* pT, const void* phl, const void* invd,                \
            const void* bucket, int NB, const void* y, const void* quad,      \
            int U, int P, int F, int NY, const void* slot, const void* par,   \
-           const void* seg, int K, int NC, const void* G, void* expo,        \
-           void* acc, void* dlog, void* dtc, void* dts, void* stream) {      \
+           const void* seg, int K, int NC, const void* G, const void* scale, \
+           void* acc, void* emax, void* dlog, void* dtc, void* dts,          \
+           void* stream) {                                                   \
     return launch_bwd<T>(nbody, dim, ptab, mtg, pT, phl, invd, bucket, NB,   \
                          y, quad, U, P, F, NY, slot, par, seg, K, NC, G,     \
-                         expo, acc, dlog, dtc, dts, stream);                 \
+                         scale, acc, emax, dlog, dtc, dts, stream);          \
   }
 IS3D_DECAY_BWD_ENTRY(is3d_decay_wave_bwd_f32, float)
 IS3D_DECAY_BWD_ENTRY(is3d_decay_wave_bwd_f64, double)
 #undef IS3D_DECAY_BWD_ENTRY
 
-// the backward's blocking for a launch on the current card: out[4] = pT
+// the backward's blocking for a launch on the current card: out[5] = pT
 // values a block, chunks of each task's (s, v) node pairs, shared memory a
-// block, most phi buckets; returns a CUDA error code
+// block, most phi buckets, route (1: the slot's words in shared memory);
+// returns a CUDA error code
 int is3d_decay_wave_bwd_blocking_f32(int nbody, int dim, int K, int P, int F,
                                      int NY, int NB, int* out) {
   return blocking<float>(nbody, dim, K, P, F, NY, NB, out);

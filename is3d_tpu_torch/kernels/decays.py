@@ -911,6 +911,130 @@ def padded_tables(tables: ParentTables) -> torch.Tensor:
     return flat.contiguous()
 
 
+# the tail's breakpoints a slot (wave_term_bound_log2): MT from the grid's
+# end up by 2^(1/TAIL_STEPS) a step
+TAIL_BREAKS = 256
+TAIL_STEPS = 32
+
+
+def wave_term_bound_log2(tables: ParentTables, tasks: WaveTasks,
+                         wg: WaveGrid, G: torch.Tensor) -> torch.Tensor:
+    """(U, 2) float64: log2 of a bound above |g W exp(L) w_c| of every term
+    the backward kernel adds to each slot's log rows (nodes inside the MT
+    grid) and to its tail rows tc, ts (nodes past it), -inf where none,
+    without evaluating one: per task |pref| max |G| of its row; per node
+    (s, pT, v, zeta) its W and MT (the forward's kinematics) and a bound
+    on L and on the corner weight.  Inside the MT grid L interpolates two
+    rows (at most the larger row maximum, weight at most 1); below it
+    (0 <= MT < the grid's first) the interpolation extrapolates: its
+    largest value over (phi, y) is convex in MT, so below the chord from
+    MT = 0 to the first row, weight 1 - tM; past the grid L <= the upper
+    envelope of the lines tc + ts MT over (phi, y), convex in MT, so at
+    most its larger value at the ends of the TAIL_BREAKS interval MT falls
+    in (past the last, that plus max ts times the rest), weight max(1,
+    MT).  The intervals next to the one
+    MT falls in, and both sides of the grid's end, are taken too, so the
+    kernel's own rounding of MT cannot leave the bound; one bit more covers
+    its rounding of the term.  Assumes a y grid symmetric about 0 (|Y| <=
+    |y_max| inside it), as every grid is."""
+    f64 = torch.float64
+    U, P = tables.mtg.shape
+    K = tasks.slot.shape[0]
+    dev = tables.logdN.device
+    ln2 = math.log(2.0)
+    log = tables.logdN.to(f64)
+    m = tables.mtg.to(f64)
+    rmax = log.amax((2, 3))                                 # (U, P)
+    t_lo = -m[:, 0] / (m[:, 1] - m[:, 0])                   # MT = 0
+    below = ((1.0 - t_lo[:, None, None]) * log[:, 0]
+             + t_lo[:, None, None] * log[:, 1]).amax((1, 2))  # at MT = 0
+    tc, ts = tables.tc.to(f64), tables.ts.to(f64)
+    brk = (m[:, -1:] * (1.0 - 1e-4) * torch.exp2(torch.arange(
+        TAIL_BREAKS, dtype=f64, device=dev) / TAIL_STEPS))  # (U, NB)
+    env = (tc.reshape(U, -1, 1) + ts.reshape(U, -1, 1) * brk[:, None]
+           ).amax(1)                                        # (U, NB)
+    tsmax = ts.amax((1, 2)).clamp_min(0.0)
+    slot = tasks.slot.long()
+    mtg = m[slot].contiguous()                              # (K, P)
+    rmax_k, below_k, t_lo_k = rmax[slot], below[slot], t_lo[slot]
+    brk_k, env_k, tsmax_k = brk[slot], env[slot], tsmax[slot]
+    par = tasks.par.to(f64)
+    wg64 = wg.to(None, f64)
+    gmax = (G.abs().amax((1, 2, 3)).to(f64)[tasks.seg.long()]
+            * par[:, 0].abs())
+    wv = wg64.quad[1]
+    p = par[:, 1:]
+    if tasks.nbody == 2:
+        sets = [(p[:, 0], p[:, 1], p[:, 2], p[:, 3], torch.ones_like(p[:, 0]))]
+    else:
+        Es, ps, sw = _three_body_s(*p.unbind(1), wg64)
+        sets = [(p[:, 0], Es[:, i], ps[:, i], p[:, 1], sw[:, i])
+                for i in range(GAUSS_PTS)]
+    best = torch.full((K, 2), -math.inf, dtype=f64, device=dev)
+    for m2, Estar, pstar, M, sw in sets:
+        _, MT, _, vw = _kinematics(m2, Estar, pstar, M, wg64)
+        W = sw[:, None, None, None] * vw[..., None] * wv * MT
+        q = MT.reshape(K, -1).contiguous()
+        iR = torch.searchsorted(mtg, q)
+        inside = torch.full_like(q, -math.inf)
+        for d in (-1, 0, 1):
+            j = (iR + d).clamp(1, P - 1)
+            gL, gR = mtg.gather(1, j - 1), mtg.gather(1, j)
+            t = (q - gL) / (gR - gL)
+            rows = torch.maximum(rmax_k.gather(1, j - 1), rmax_k.gather(1, j))
+            lam = (t / t_lo_k[:, None]).clamp(0.0, 1.0)
+            chord = (1.0 - lam) * rmax_k[:, :1] + lam * below_k[:, None]
+            lb = torch.where((t < 0.0) & (j == 1),
+                             chord / ln2 + torch.log2(1.0 - t),
+                             rows / ln2 + torch.log2(torch.maximum(
+                                 (1.0 - t).abs(), t.abs())))
+            ok = (t <= 1.0 + 1e-4) & ((t >= -1e-4) | (j == 1))
+            inside = torch.maximum(inside, torch.where(ok, lb, -math.inf))
+        i = torch.floor(TAIL_STEPS * torch.log2(q / brk_k[:, :1])).long()
+        lo = i.clamp(0, TAIL_BREAKS - 2)
+        env_q = torch.maximum(env_k.gather(1, lo), env_k.gather(1, lo + 1))
+        past = (q - brk_k[:, -1:]).clamp_min(0.0) * tsmax_k[:, None]
+        env_q = torch.where(i >= TAIL_BREAKS - 1, env_k[:, -1:] + past, env_q)
+        tail = env_q / ln2 + torch.log2(q.clamp_min(1.0))
+        edge = mtg[:, -1:]
+        lw = torch.log2(W.reshape(K, -1).abs())
+        node_in = torch.where(q <= edge * (1.0 + 1e-5), lw + inside,
+                              -math.inf)
+        node_tail = torch.where(q > edge * (1.0 - 1e-5), lw + tail,
+                                -math.inf)
+        best = torch.maximum(best, torch.stack([node_in.amax(1),
+                                                node_tail.amax(1)], 1))
+    task = torch.log2(gmax)[:, None] + best + 1.0
+    return torch.full((U, 2), -math.inf, dtype=f64, device=dev).scatter_reduce(
+        0, slot[:, None].expand(K, 2), task, "amax")
+
+
+def wave_bwd_scale(tables: ParentTables, tasks: WaveTasks, wg: WaveGrid,
+                   G: torch.Tensor) -> torch.Tensor:
+    """(U, 3) int32 on the tables' device, no host read: per slot the
+    backward kernel's fixed-point scales S = HI_u - e of its log rows and
+    of its tail rows, and HI_u (csrc/decays_bwd.cu, Scale): 2^e above
+    wave_term_bound_log2's bound of the rows' terms, HI_u = 61 -
+    ceil(log2 E_u), E_u the slot's evaluations (its tasks x s nodes x P x
+    F x Y x 144 nodes x 2 solutions)."""
+    U, P, F, NY = tables.logdN.shape
+    dev = tables.logdN.device
+    lb = wave_term_bound_log2(tables, tasks, wg, G)
+    # no nonzero term lies below the dtype's least subnormal, which a term
+    # of smaller true value may round up to: the bound stays 4x above it
+    tiny = -1072.0 if tables.logdN.dtype == torch.float64 else -147.0
+    e = torch.nan_to_num(torch.floor(lb) + 1.0, nan=1100.0, posinf=1100.0,
+                         neginf=tiny).clamp(tiny, 1100.0)
+    per_task = ((GAUSS_PTS if tasks.nbody == 3 else 1) * P * F * NY
+                * GAUSS_PTS * GAUSS_PTS * 2)
+    n = torch.zeros(U, dtype=torch.float64, device=dev).index_add_(
+        0, tasks.slot.long(), torch.full(tasks.slot.shape, float(per_task),
+                                         dtype=torch.float64, device=dev))
+    hi = 61.0 - torch.ceil(torch.log2(n.clamp_min(1.0)))
+    return torch.cat([hi[:, None] - e, hi[:, None]], 1).to(
+        torch.int32).contiguous()
+
+
 def _bwd_library():
     from ..native.build import cuda_library
     lib = cuda_library("decays_bwd")
@@ -924,7 +1048,7 @@ def _bwd_library():
                            vp, vp,                     # y, quad
                            ci, ci, ci, ci,             # U, P, F, Y
                            vp, vp, vp, ci, ci,         # slot, par, seg, K, NC
-                           vp, vp, vp,                 # G (float64), expo, acc
+                           vp, vp, vp, vp,             # G (float64), scale, acc, emax
                            vp, vp, vp, vp]             # dlog, dtc, dts, stream
         for fn in (lib.is3d_decay_wave_bwd_blocking_f32,
                    lib.is3d_decay_wave_bwd_blocking_f64):
@@ -936,15 +1060,31 @@ def _bwd_library():
     return lib
 
 
-def wave_bwd_cuda(tables: ParentTables, tasks: WaveTasks, wg: WaveGrid,
-                  G: torch.Tensor):
-    """Launch csrc/decays_bwd.cu on the current stream: the gradients
-    (d_logdN (U, P, F, Y), d_tc, d_ts (U, F, Y)) of <G, the feed-down of
-    decay_wave_cuda(tables, tasks, wg)>, G (S, P, F, Y) float64 (the
-    cotangent of the spectra accumulator).  The kernel adds every term in
-    fixed point to the slot's int64 table (order-free, so deterministic),
-    one pass for each slot's scale and one for the adds; finish_kernel
-    converts and folds the padded phi columns."""
+def wave_bwd_blocking(tables: ParentTables, tasks: WaveTasks,
+                      wg: WaveGrid) -> dict:
+    """The backward kernel's blocking for one launch on the tables' card,
+    as csrc/decays_bwd.cu (blocking, its owner) reports it: pT values a
+    block, node-pair chunks, shared memory, most phi buckets and the route
+    ("shared": a block's private copy of the slot's words in shared
+    memory; "device": every term to the device's words)."""
+    U, P, F, NY = tables.logdN.shape
+    lib = _bwd_library()
+    out = (ctypes.c_int * 5)()
+    fn = (lib.is3d_decay_wave_bwd_blocking_f64
+          if tables.logdN.dtype == torch.float64
+          else lib.is3d_decay_wave_bwd_blocking_f32)
+    with torch.cuda.device(tables.logdN.device):
+        rc = fn(tasks.nbody, wg.dimension, tasks.slot.shape[0], P, F, NY,
+                wg.phi_bucket.shape[0], out)
+    if rc != 0:
+        raise RuntimeError("decay_wave_bwd: no launch configuration: "
+                           f"{lib.is3d_cuda_error_string(rc).decode()}")
+    return dict(pt_block=out[0], chunks=out[1], smem=out[2],
+                max_buckets=out[3], route="shared" if out[4] else "device")
+
+
+def _wave_bwd_launch(tables: ParentTables, tasks: WaveTasks, wg: WaveGrid,
+                     G: torch.Tensor, emax: torch.Tensor | None = None):
     global TWO_BODY_BWD_LAUNCHES, THREE_BODY_BWD_LAUNCHES
     check_float("wave_bwd_cuda", tables.logdN)
     if tables.logdN.dim() != 4:
@@ -974,20 +1114,13 @@ def wave_bwd_cuda(tables: ParentTables, tasks: WaveTasks, wg: WaveGrid,
                          "built on the card (wave_grid on a CUDA device)")
     NB = wg.phi_bucket.shape[0]
     lib = _bwd_library()
-    out = (ctypes.c_int * 4)()
     f64 = like.dtype == torch.float64
-    with torch.cuda.device(like.device):
-        rc = (lib.is3d_decay_wave_bwd_blocking_f64 if f64
-              else lib.is3d_decay_wave_bwd_blocking_f32)(
-            tasks.nbody, wg.dimension, K, P, F, NY, NB, out)
-    if rc != 0:
-        raise RuntimeError("decay_wave_bwd: no launch configuration: "
-                           f"{lib.is3d_cuda_error_string(rc).decode()}")
-    n_chunks = out[1]
+    n_chunks = wave_bwd_blocking(tables, tasks, wg)["chunks"]
     ptab = padded_tables(tables)
     seg = tasks.seg.to(torch.int32)
-    expo = torch.full((U,), -2 ** 31, dtype=torch.int32, device=like.device)
-    acc = torch.zeros((U, 2, ptab.shape[1]), dtype=torch.int64,
+    scale = wave_bwd_scale(tables, tasks, wg, G)
+    # the slots' fixed-point words: one an entry in float32, two in float64
+    acc = torch.zeros((U, 2 if f64 else 1, ptab.shape[1]), dtype=torch.int64,
                       device=like.device)
     d_logdN = torch.empty_like(tables.logdN)
     d_tc = torch.empty_like(tables.tc)
@@ -999,13 +1132,42 @@ def wave_bwd_cuda(tables: ParentTables, tasks: WaveTasks, wg: WaveGrid,
            wg.phi_invd.data_ptr(), wg.phi_bucket.data_ptr(), NB,
            wg.y.data_ptr(), wg.quad.data_ptr(), U, P, F, NY,
            tasks.slot.data_ptr(), tasks.par.data_ptr(), seg.data_ptr(), K,
-           n_chunks, G.data_ptr(), expo.data_ptr(), acc.data_ptr(),
+           n_chunks, G.data_ptr(), scale.data_ptr(), acc.data_ptr(),
+           None if emax is None else emax.data_ptr(),
            d_logdN.data_ptr(), d_tc.data_ptr(), d_ts.data_ptr())
     if tasks.nbody == 2:
         TWO_BODY_BWD_LAUNCHES += 1
     else:
         THREE_BODY_BWD_LAUNCHES += 1
     return d_logdN, d_tc, d_ts
+
+
+def wave_bwd_cuda(tables: ParentTables, tasks: WaveTasks, wg: WaveGrid,
+                  G: torch.Tensor):
+    """Launch csrc/decays_bwd.cu on the current stream: the gradients
+    (d_logdN (U, P, F, Y), d_tc, d_ts (U, F, Y)) of <G, the feed-down of
+    decay_wave_cuda(tables, tasks, wg)>, G (S, P, F, Y) float64 (the
+    cotangent of the spectra accumulator).  One pass: each slot's scale
+    from wave_bwd_scale (torch on the card, no host read), every term
+    added in fixed point (order-free, so deterministic), in float32 to a
+    block's copy of the slot's words in shared memory where it fits
+    (wave_bwd_blocking); finish_kernel converts and folds the padded phi
+    columns."""
+    return _wave_bwd_launch(tables, tasks, wg, G)
+
+
+def wave_bwd_bits(tables: ParentTables, tasks: WaveTasks, wg: WaveGrid,
+                  G: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(bound, exact) (U, 2) int32: per slot and rows (log, tail) the
+    binary exponent of the scale's bound wave_bwd_scale takes (2^e above
+    every term) and of the largest term the kernel adds (frexp; INT_MIN
+    where it adds none), measured in one launch of the kernel: what the
+    bound gives up, in bits."""
+    emax = torch.full((tables.logdN.shape[0], 2), -2 ** 31,
+                      dtype=torch.int32, device=tables.logdN.device)
+    _wave_bwd_launch(tables, tasks, wg, G, emax)
+    sc = wave_bwd_scale(tables, tasks, wg, G)
+    return sc[:, 2:] - sc[:, :2], emax
 
 
 class _WaveLaunch(torch.autograd.Function):

@@ -576,16 +576,19 @@ def _upload(events: list, dtype, device) -> tuple:
 
 
 def cascade_inputs(events: list, table, lightest_particle: int, seed: int,
-                   event_offset: int = 0, device="cpu", mark=None) -> dict:
-    """The events on ``device`` and what their unstable hadrons' cascade
-    starts from: ``mcid`` and ``cols`` (FLOAT_FIELDS) of every hadron,
-    its batch-local ``eid``, the stable ones' indices (``passed``, in
-    order), n0, the state at its worst-case capacity (``initial_state``),
-    the host and device tables and the key.  One read from the device (an
+                   event_offset: int = 0, device="cuda", mark=None) -> dict:
+    """The events on ``device`` (the card unless the caller names the CPU;
+    no fallback: without CUDA it raises as IS3D(device="cuda") does) and
+    what their unstable hadrons' cascade starts from: ``mcid`` and
+    ``cols`` (FLOAT_FIELDS) of every hadron, its batch-local ``eid``, the
+    stable ones' indices (``passed``, in order), n0, the state at its
+    worst-case capacity (``initial_state``), the host and device tables
+    and the key.  One read from the device (an
     unknown mc id's count, n0 and the capacity).  ``mark(name)`` is called
     after the upload and after the lookup."""
+    from ..api import resolve_device
     mark = mark or (lambda name: None)
-    device = torch.device(device)
+    device = resolve_device(device)
     tabs = cached_tables(table, lightest_particle)
     dtype_np = np.asarray(events[0]["E"]).dtype
     dtype = torch.float32 if dtype_np == np.float32 else torch.float64
@@ -650,9 +653,10 @@ def _final_columns(inp: dict, nf: int) -> tuple:
 
 def decay_events(events: list, table, cfg=None, seed: int = 0,
                  lightest_particle: int | None = None,
-                 event_offset: int = 0, device="cpu", info=None) -> list:
+                 event_offset: int = 0, device="cuda", info=None) -> list:
     """Decay every unstable resonance of sampled events to stable hadrons
-    on ``device``: a new list in the same schema holding the final-state
+    on ``device`` (the card unless the caller names the CPU; without CUDA
+    it raises, as IS3D(device="cuda") does): a new list in the same schema holding the final-state
     hadrons, each event's stable input hadrons in their order, then its
     decay products (with their decay vertices) in cascade-slot order.
     ``event_offset`` is the global index of events[0]: a slice of events
@@ -667,13 +671,14 @@ def decay_events(events: list, table, cfg=None, seed: int = 0,
     ``info`` gets the cascade's capacity, hadrons in and out, passes and
     host-clock ``timings`` (s, DECAY_TIMINGS; on CUDA each split ends with
     a device synchronize, so it holds its own device work)."""
+    from ..api import resolve_device
+    device = resolve_device(device)
     if lightest_particle is None:
         lightest_particle = int(getattr(cfg, "lightest_particle", 111))
     if not events:
         return []
     if sum(len(e["E"]) for e in events) == 0:
         return [dict(e) for e in events]
-    device = torch.device(device)
     timings = {}
     clock = [time.perf_counter()]
 

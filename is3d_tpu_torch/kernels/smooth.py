@@ -48,8 +48,8 @@ from ..io.tables import MomentumGrid
 from ..io.deltaf import DeltafData
 from ..tensors import TensorContainer
 from .common import surface_columns, prepare_cells, fermi_bose, effective_chunk
-from .launch import (check_float, check_tensor, require_cuda, launch,
-                     split_to_fill)
+from .launch import (check_float, check_tensor, kernel_props, require_cuda,
+                     launch, split_to_fill)
 
 # reference temperature of the eta-node remap's s(mT) = sqrt(T_ref/mT)
 ETA_REMAP_T_REF = 0.15
@@ -136,18 +136,34 @@ REMAP_NODE_OPS = (18, 0)
 #   factors multiply) ~10, the four point terms' cotangents 4, and their
 #   node sums with mT (gp mT, gu mT, gq mT^2, gq mT, gv mT) 6        = 20
 # so (18 + 8 + 6 + 20, 2) = (52, 2) for df 1 and (18 + 8 + 7 + 20, 3) =
-# (53, 3) for df 2; with the remap the node sums take mT cosh and mT sinh
-# apart (13 sums instead of 5: + 9) and the node kinematics are formed per
-# evaluation (mT cosh, mT sinh from the node table: 6; the four terms'
-# node parts: + 10), REMAP_BACKWARD_EXTRA.
+# (53, 3) for df 2.  With the remap the node kinematics move with (cell,
+# species, pT), so a node sum cannot be hoisted out of the species: either
+# the 13 sums with mT cosh and mT sinh apart run per evaluation (the node
+# sums' 6 become 13 + 4 cotangents), or, species outermost, the row sums
+# of the 6 cotangents (gp, gu, gq, gq px, gq py, gv) run per evaluation
+# and the 9 sums with px, py (gp px, gp py, gu px, gu py, gq px^2, gq py^2,
+# gq px py, gv px, gv py) cannot wait for a species sum: 15 against the
+# fixed node's 10, the cheaper, + 5; and pi:pp's px part is mT cosh g +
+# mT sinh h of the (cell, phi) terms at unit pT, + 1: REMAP_BACKWARD_EXTRA
+# a evaluation.  Per row (cell, node, species, pT), shared by its n_phi
+# points (REMAP_BACKWARD_ROW_OPS): the node kinematics (mT/2 exp(+-y_flow)
+# x the node table 4, mT cosh, mT sinh 2) 6, the composites (tau sinh 1,
+# A 2, B 2, D 2, C1 6, pT mT cosh, pT mT sinh, pT^2 3) 16, the 13 node
+# sums from the row's 6 (cp tQ, sp tQ 2, 13 FMAs) 15 = 37.
 BACKWARD_FORMULA_OPS = {1: (52, 2), 2: (53, 3)}
-REMAP_BACKWARD_EXTRA = 25
+REMAP_BACKWARD_EXTRA = 6
+REMAP_BACKWARD_ROW_OPS = 37
 
 
-def backward_formula_ops(df_mode: int, remap: bool) -> tuple[int, int]:
-    """(FP32, SFU) per evaluation of the backward kernel."""
+def backward_formula_ops(df_mode: int, remap: bool,
+                         n_phi: int) -> tuple[float, int]:
+    """(FP32, SFU) per evaluation of the backward kernel: with the remap
+    the fixed-node count plus the per-evaluation extra and the row's share
+    of one of n_phi points."""
     fp32, sfu = BACKWARD_FORMULA_OPS[df_mode]
-    return fp32 + (REMAP_BACKWARD_EXTRA if remap else 0), sfu
+    if remap:
+        fp32 += REMAP_BACKWARD_EXTRA + REMAP_BACKWARD_ROW_OPS / n_phi
+    return fp32, sfu
 
 
 def remap_formula_ops(df_mode: int, n_phi: int) -> tuple[float, float]:
@@ -597,10 +613,23 @@ def _bwd_library():
                            vp, vp, ci,                 # node table, weights, n_nodes
                            ci, ci, ci,                 # df, reg, outflow
                            cd, cd, vp, vp, vp]         # prefactor, T_ref, G, grad, stream
+        lib.is3d_spectra_bwd_remap_props.restype = ci
+        lib.is3d_spectra_bwd_remap_props.argtypes = [ci] * 5 + [vp]
         lib.is3d_cuda_error_string.restype = ctypes.c_char_p
         lib.is3d_cuda_error_string.argtypes = [ci]
         lib._is3d_bound = True
     return lib
+
+
+def bwd_props(device: torch.device, f64: bool, mom: MomentumConstants,
+              flags: SpectraFlags) -> dict:
+    """The launch shape and resources (launch.kernel_props) of the remap's
+    backward kernel (K9b) of ``flags``' df mode at mom's shape."""
+    lib = _bwd_library()
+    return kernel_props(lib, "spectra_bwd remap",
+                        lib.is3d_spectra_bwd_remap_props, device, int(f64),
+                        flags.df_mode, mom.pT.shape[0], mom.n_phi,
+                        mom.nodes.shape[0])
 
 
 def spectra_bwd_cuda(cells: torch.Tensor, G: torch.Tensor,

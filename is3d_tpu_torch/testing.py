@@ -464,6 +464,10 @@ SPECTRA_EDGES = {
                               eta_shift=15.0, grid=_REMAP),
     "2d_remap_pad_rows": dict(dimension=2, df_mode=1, n_cells=37,
                               grid=_REMAP),
+    # one species: the remap backward stages its one tile (a species' G
+    # and node table) and no second
+    "2d_remap_one_species": dict(dimension=2, df_mode=2, n_species=1,
+                                 n_cells=6, grid=_REMAP),
 }
 
 
@@ -575,6 +579,9 @@ def spectra_edge_seen(case: str, cells, mom, flags, out) -> str:
         yflow = cells[:, smooth.IDX["yflow"]].abs().max().item()
         assert 1.5 < yflow < 2.5, yflow
         return f"|y_flow| up to {yflow:.2f}"
+    if case.endswith("one_species"):
+        assert S == 1, S
+        return f"1 species, {SPECTRA_EDGES[case]['n_cells']} cells"
     if case.endswith("pad_rows"):
         n = SPECTRA_EDGES[case]["n_cells"]
         assert cells.shape[0] > n
@@ -822,6 +829,9 @@ def feqmod_edge_seen(case: str, x, rn, wcs, mom, flags, out) -> str:
         n = int((out == 0).sum())
         assert 0 < n < out.numel(), f"{n} outputs are exactly 0"
         return f"{n} of {out.numel()} outputs exactly 0"
+    if case.endswith("one_species"):
+        assert S == 1, S
+        return f"1 species, {SPECTRA_EDGES[case]['n_cells']} cells"
     if case.endswith("pad_rows"):
         n = spec["n_cells"]
         assert x.shape[0] > n
@@ -953,6 +963,9 @@ def vah_edge_seen(case: str, x, mom, flags, out) -> str:
         n = int((out == 0).sum())
         assert 0 < n < out.numel(), f"{n} outputs are exactly 0"
         return f"{n} of {out.numel()} outputs exactly 0"
+    if case.endswith("one_species"):
+        assert S == 1, S
+        return f"1 species, {SPECTRA_EDGES[case]['n_cells']} cells"
     if case.endswith("pad_rows"):
         n = spec["n_cells"]
         assert x.shape[0] > n
@@ -1057,6 +1070,9 @@ def polzn_edge_seen(case: str, x, mom, pm, wR, flags, sums) -> str:
         n = int((snorm == 0).sum())
         assert 0 < n < snorm.numel(), f"{n} outputs are exactly 0"
         return f"{n} of {snorm.numel()} Snorm values exactly 0"
+    if case.endswith("one_species"):
+        assert S == 1, S
+        return f"1 species, {SPECTRA_EDGES[case]['n_cells']} cells"
     if case.endswith("pad_rows"):
         n = spec["n_cells"]
         pad = polzn.polzn_plain(x[n:], mom, pm, wR, flags)
@@ -1143,12 +1159,24 @@ DECAY_EDGES = {
 }
 
 
+# a backward launch whose float32 slot words do not fit in shared memory
+# (18 x 26 x 65 words = 243 KB), so the backward kernel takes its device
+# route by shape (decays.wave_bwd_blocking): the 3-body wave on a finer y
+# grid, its first task (the plain version's autograd keeps ~10 GB);
+# float32 only, as the forward kernel stages no float64 table of the grid
+DECAY_ROUTE_EDGES = {
+    "3body_3d_fine_y": dict(nbody=3, dimension=3, first_task=True,
+                            grid=dict(n_pT=16, n_phi=24, n_y=65)),
+}
+
+
 def decay_edge_inputs(case: str, dtype=torch.float64, device="cpu"):
     """(tables, tasks, wg, n_seg): one launch of the wave kernel for the
-    DECAY_EDGES case ``case``, on ``device``."""
+    DECAY_EDGES (or DECAY_ROUTE_EDGES) case ``case``, on ``device``."""
     from .io.tables import native_momentum_grid
     from .kernels import decays
-    spec = dict(dict(grid={}), **DECAY_EDGES[case])
+    spec = dict(dict(grid={}), **(DECAY_EDGES.get(case)
+                                  or DECAY_ROUTE_EDGES[case]))
     dimension = spec["dimension"]
     table, mcids = synthetic_decaying_table(24)
     grid = native_momentum_grid(dimension, **dict(
@@ -1167,6 +1195,8 @@ def decay_edge_inputs(case: str, dtype=torch.float64, device="cpu"):
         tasks += [t[:2] + (t[2] + len(rows),) + t[3:] for t in pick]
         rows += w.rows
         masses += w.masses
+    if spec.get("first_task"):
+        tasks = tasks[:1]
     spectra = thermal_spectra(table, mcids, grid, dimension)
     spectra[rows[0]] = 0.0
     spectra[rows[-1], pT64.shape[0] // 2:] = 0.0
@@ -1300,6 +1330,94 @@ def decay_grad_inputs(case: str, dtype=torch.float64, device="cpu"):
     P, F, NY = tables.logdN.shape[1:]
     return tables, tasks, wg, grad_cotangent((n_seg, P, F, NY),
                                              device=device)
+
+
+def wave_term_max(tables, tasks, wg, G) -> torch.Tensor:
+    """(U, 2) float64: per slot the largest |g W exp(L) w_c| of the terms
+    the backward wave kernel adds to its log rows (nodes inside the MT
+    grid) and to its tail rows (nodes past it), over every task, s node,
+    output, (v, zeta) node, Phi solution and corner (outputs with |Y| >
+    |y_max| add none), from the plain version's gather form term by term
+    in float64: what decays.wave_bwd_scale has to bound."""
+    from .kernels import decays as d
+    f64 = torch.float64
+    t, wg = tables.to(None, f64), wg.to(None, f64)
+    par, G = tasks.par.to(f64), G.to(f64)
+    U, P, F, NY = t.logdN.shape
+    x, wv, _ = wg.quad
+    out = torch.zeros((U, 2), dtype=f64, device=G.device)
+    for k in range(tasks.slot.shape[0]):
+        u, seg = int(tasks.slot[k]), int(tasks.seg[k])
+        p = par[k:k + 1, 1:]
+        if tasks.nbody == 2:
+            sets = [(p[:, 0], p[:, 1], p[:, 2], p[:, 3], 1.0)]
+        else:
+            Es, ps, sw = d._three_body_s(*p.unbind(1), wg)
+            sets = [(p[:, 0], Es[:, i], ps[:, i], p[:, 1], sw[0, i])
+                    for i in range(d.GAUSS_PTS)]
+        g = (par[k, 0] * G[seg]).abs()                     # (P, F, Y)
+        mtg = t.mtg[u]
+        for m2, Estar, pstar, M, sw in sets:
+            DY, MT, Ph, vw = d._kinematics(m2, Estar, pstar, M, wg)
+            MT, Ph, DY, vw = MT[0], Ph[0], DY[0], vw[0]   # (P, V, Z), (P,)
+            W = sw * vw[..., None] * wv * MT
+            iR = torch.searchsorted(mtg, MT.contiguous()).clamp(1, P - 1)
+            tM = (MT - mtg[iR - 1]) / (mtg[iR] - mtg[iR - 1])
+            inside = MT <= mtg[-1]
+            W0 = torch.where(inside, 1.0 - tM, torch.ones_like(tM))
+            W1 = torch.where(inside, tM, MT)
+            cM = torch.maximum(W0.abs(), W1.abs())
+            if NY > 1:
+                Y = wg.y[None, :, None] + x[None, None, :] * DY[:, None, None]
+                iYR = torch.searchsorted(wg.y, Y.contiguous()).clamp(1, NY - 1)
+                tY = (Y - wg.y[iYR - 1]) / (wg.y[iYR] - wg.y[iYR - 1])
+                planes = [(iYR - 1, 1.0 - tY), (iYR, tY)]   # (P, Y, V)
+                cY = torch.maximum(1.0 - tY, tY)
+                keep = Y.abs() <= wg.y[-1].abs()
+            else:
+                zero = torch.zeros((P, 1, d.GAUSS_PTS), dtype=torch.int64,
+                                   device=G.device)
+                planes = [(zero, None)]
+                cY = torch.ones(zero.shape, dtype=f64, device=G.device)
+                keep = torch.ones(zero.shape, dtype=torch.bool,
+                                  device=G.device)
+            for sg in (1.0, -1.0):
+                Phip = torch.remainder(sg * Ph[:, None] + wg.phi[None, :,
+                                                                   None, None],
+                                       d.TWO_PI)           # (P, F, V, Z)
+                iL, iRp, wL, wR = d._interp_phi_indices(wg.phi, Phip)
+                iM = iR[:, None, :, :]
+                L = 0.0
+                for iY, wY in planes:
+                    yy = iY[:, None, :, :, None]           # (P, 1, Y, V, 1)
+                    e = lambda tab, m, c: tab[u, m, c, yy] if m is not None \
+                        else tab[u, c, yy]
+                    a5 = lambda v: v[:, :, None]           # add the Y axis
+                    bi = ((e(t.logdN, a5(iM - 1), a5(iL)) * a5(wL)
+                           + e(t.logdN, a5(iM - 1), a5(iRp)) * a5(wR))
+                          * a5(1.0 - tM[:, None])
+                          + (e(t.logdN, a5(iM), a5(iL)) * a5(wL)
+                             + e(t.logdN, a5(iM), a5(iRp)) * a5(wR))
+                          * a5(tM[:, None]))
+                    MT5 = a5(MT[:, None])
+                    tail = ((e(t.tc, None, a5(iL)) + e(t.ts, None, a5(iL))
+                             * MT5) * a5(wL)
+                            + (e(t.tc, None, a5(iRp)) + e(t.ts, None,
+                                                           a5(iRp)) * MT5)
+                            * a5(wR))
+                    plane = torch.where(a5(inside[:, None]), bi, tail)
+                    L = plane if wY is None else L + plane * wY[:, None, :,
+                                                               :, None]
+                term = (g[:, :, :, None, None] * W[:, None, None] * torch.exp(L)
+                        * a5(cM[:, None]) * a5(torch.maximum(wL, wR))
+                        * cY[:, None, :, :, None])
+                term = torch.where(keep[:, None, :, :, None], term, 0.0)
+                tin = inside[:, None, None]
+                out[u, 0] = torch.maximum(out[u, 0], torch.where(
+                    tin, term, 0.0).max())
+                out[u, 1] = torch.maximum(out[u, 1], torch.where(
+                    tin, 0.0, term).max())
+    return out
 
 
 def grad_errors(got, want, rtol: float, atol_rel: float) -> tuple:

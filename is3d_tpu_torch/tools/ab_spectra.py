@@ -6,7 +6,8 @@ C, C, B, A).
         [--cells N]
         [--cases 3d_df2,3d_df1,2d_fixed,2d_remap,bin,dndx,proto,decays,
                  yields,alias,sample,cascade,grad_feqmod_3d,
-                 grad_feqmod_2d,grad_vah_3d,grad_vah_2d]
+                 grad_feqmod_2d,grad_vah_3d,grad_vah_2d,grad_main_3d,
+                 grad_main_2d,grad_decays]
 
 Each turn runs a fresh interpreter that imports ``is3d_tpu_torch`` from
 that root (building its kernels into that root's _build/) and, per case:
@@ -84,7 +85,23 @@ that root (building its kernels into that root's _build/) and, per case:
   shared memory, resident blocks and warps an SM, registers and local
   bytes (the side's ``bwd_props``, or ``tools/occupancy.py`` at the first
   version's launch shape) and SASS per evaluation; a side without the
-  kernel reports the case ``"absent"``.
+  kernel reports the case ``"absent"``;
+* ``grad_main_3d``, ``grad_main_2d``: the linear-df backward kernels
+  (``spectra_bwd_cuda``) K9a (3+1D, fixed nodes) and K9b (2+1D with the mT
+  remap, 48 nodes) on one group of N synthetic cells as the spectra cases
+  (df 2 with shear + bulk, regulate, outflow, float32, 320 species, the
+  positive cotangent): timed as the spectra cases; the float64
+  difference on its first 512 cells; each instantiation's resources and
+  SASS per evaluation as the grad cases (K9b's first version at its
+  launch shape where the side has no ``bwd_props``);
+* ``grad_decays``: the backward wave kernel K9c (``wave_bwd_cuda``) on
+  every launch of the ``decays`` case's cascade (3+1D, float32, the
+  positive cotangent), each launch's feed-down added to the running
+  spectra before the next wave: timed as the spectra cases, one entry a
+  (wave, body) (``grad_decays_w0_3body``); the float64 difference of the
+  launch's first task; the route and, where the side measures it
+  (``wave_bwd_bits``), the bits the scale's bound gives up; the kernel's
+  SASS per evaluation with its atomics.
 
 The report is one JSON line per turn (median, runs, output sum and the
 float32 output's largest difference from the same side's float64 kernel,
@@ -105,7 +122,8 @@ import sys
 
 CASES = ("3d_df2", "3d_df1", "2d_fixed", "2d_remap", "bin", "dndx", "proto",
          "decays", "yields", "alias", "sample", "cascade", "grad_feqmod_3d",
-         "grad_feqmod_2d", "grad_vah_3d", "grad_vah_2d")
+         "grad_feqmod_2d", "grad_vah_3d", "grad_vah_2d", "grad_main_3d",
+         "grad_main_2d", "grad_decays")
 
 _TURN = r"""
 import json, statistics, sys
@@ -404,11 +422,114 @@ def grad_case(case, report):
                 lambda: first_version_shape(R, F, 35, dim == 3))}
 
 
+# K9a / K9b: the linear-df backward on one synthetic group
+def grad_main_case(case, report):
+    dim = 3 if case == "grad_main_3d" else 2
+    f64 = torch.float64
+    cfg = Config(operation=1, mode=1, dimension=dim, df_mode=2,
+                 precision="f32", include_shear_deltaf=1,
+                 include_bulk_deltaf=1, regulate_deltaf=1, outflow=1)
+    surf = testing.synthetic_surface(n_cells, dim, seed=0, dtype=dt,
+                                     device=dev)
+    species = testing.synthetic_species(320, dtype=dt, device=dev)
+    grid = native_momentum_grid(dim, eta_mT_rescale=dim == 2, dtype=dt,
+                                device=dev)
+    df_data = testing.synthetic_deltaf_data(dtype=dt, device=dev)
+    cells = smooth.pack_cells(prepare_cells(surface_columns(surf, cfg), cfg,
+                                            df_data), cfg)
+    mom = smooth.momentum_constants(species, grid, dim)
+    flags = smooth.spectra_flags(cfg, grid)
+    S, P, F = mom.mass.shape[0], mom.pT.shape[0], mom.n_phi
+    R = mom.nodes.shape[0]
+    G = testing.grad_cotangent((S, P, F, R if dim == 3 else 1), dtype=dt,
+                               device=dev)
+    table = smooth.remap_node_table(mom) if flags.remap else None
+    go = lambda: smooth.spectra_bwd_cuda(cells, G, mom, flags, table)
+    cs = cells[:512].contiguous()
+    out = smooth.spectra_bwd_cuda(cs, G, mom, flags, table).double()
+    ref = smooth.spectra_bwd_cuda(cs.double(), G.double(), mom.to(dtype=f64),
+                                  flags, None if table is None
+                                  else table.double())
+    ms, runs, total = timed(go)
+    kern = ("remap_bwd_kernelIfLi2E" if flags.remap
+            else "spectra_bwd_kernelIfLi3ELi2E")
+
+    def first_version():           # 128 threads' worth of (cell, node)
+        CT = 128 // R
+        nt = (CT * R + 31) // 32 * 32
+        gs, red = 16 * F * (R if dim == 3 else 1) * 4, CT * R * 36 * 8
+        rest = CT * 36 + 4 * 16 + CT * F * 4 + 2 * F + (
+            16 * R * 2 if flags.remap else 0)
+        return nt, max(gs, red) + rest * 4
+    props = None
+    if flags.remap and hasattr(smooth, "bwd_props"):
+        props = lambda: smooth.bwd_props(dev, False, mom, flags)
+    report[case] = {"ms": ms, "runs": runs, "sum": total, "err_f64": float(
+        (out - ref).abs().max() / ref.abs().max()), "resources":
+        bwd_resources("smooth_spectra_bwd", kern, props, first_version)}
+
+
+# K9c on every launch of the decays case's cascade, 3+1D float32
+def grad_decays_case(report):
+    from is3d_tpu_torch.native import build
+    from is3d_tpu_torch.tools import sass_count
+    f64 = torch.float64
+    table, mcids = testing.synthetic_decaying_table(320)
+    grid = native_momentum_grid(3)
+    pT64 = grid.pT.numpy()
+    waves = decays.plan_waves(decays._decay_schedule(
+        table, mcids, pT64, Config().lightest_particle))
+    acc = torch.as_tensor(testing.thermal_spectra(table, mcids, grid, 3),
+                          device=dev)
+    wg, wg64 = (decays.wave_grid(grid, 3, t, dev) for t in (dt, f64))
+    G = testing.grad_cotangent(acc.shape, device=dev)
+    lib = build._cuda_paths("decays_bwd")[1]
+    sub = lambda t: decays.WaveTasks(
+        nbody=t.nbody, slot=t.slot[:1], seg=t.seg[:1], par=t.par[:1],
+        order=t.order, target=t.target, tstart=t.tstart)
+    for i, st in enumerate(decays.stage_waves(waves, pT64, dt, dev)):
+        tables = decays.parent_tables(acc, st.rows, st.masses, st.mtg, dt)
+        tables64 = tables.to(None, f64)
+        for tasks in st.launches:
+            go = lambda: decays.wave_bwd_cuda(tables, tasks, wg, G)[0]
+            ms, runs, total = timed(go)
+            one = sub(tasks)
+            out = decays.wave_bwd_cuda(tables, one, wg, G)
+            ref = decays.wave_bwd_cuda(tables64, one.to(None, f64), wg64, G)
+            err = max(float((a.double() - b).abs().max() / b.abs().max())
+                      for a, b in zip(out, ref) if b.abs().max() > 0)
+            entry = {"ms": ms, "runs": runs, "sum": total, "err_f64": err,
+                     "tasks": tasks.slot.shape[0],
+                     "evaluations": decays.wave_evaluations(tasks, wg)}
+            if hasattr(decays, "wave_bwd_blocking"):
+                entry["route"] = decays.wave_bwd_blocking(tables, tasks,
+                                                          wg)["route"]
+                kern = (f"wave_bwd_kernelIfLi3ELi{tasks.nbody}ELb"
+                        f"{int(entry['route'] == 'shared')}E")
+            else:
+                entry["route"] = "two passes, device atomics"
+                kern = f"wave_bwd_kernelIfLi3ELi{tasks.nbody}ELi1E"
+            if hasattr(decays, "wave_bwd_bits"):
+                b, e = decays.wave_bwd_bits(tables, tasks, wg, G)
+                live = e > -2 ** 31
+                entry["bits_given_up"] = [int((b - e)[live].min()),
+                                          int((b - e)[live].max())]
+            entry["sass"] = sass_count.per_eval(lib, kern)
+            report[f"grad_decays_w{i}_{tasks.nbody}body"] = entry
+            decays.decay_wave_cuda(tables, tasks, wg, acc)
+
+
 report = {"root": sys.argv[1]}
 surface = None
 for case in cases:
     if case in GRAD:
         grad_case(case, report)
+        continue
+    if case in ("grad_main_3d", "grad_main_2d"):
+        grad_main_case(case, report)
+        continue
+    if case == "grad_decays":
+        grad_decays_case(report)
         continue
     if case in SPECTRA:
         dim, df, remap = SPECTRA[case]

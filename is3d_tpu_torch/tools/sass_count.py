@@ -10,8 +10,10 @@ For every library under is3d_tpu_torch/_build/ it disassembles the SASS
 regular expression ``pattern`` (default: every kernel), prints its
 innermost loops -- the bodies between a backward branch and its target --
 with the instruction count, the FP32-pipe instructions (FFMA, FMUL, FADD,
-FSETP, FSEL, FMNMX, ...), the SFU instructions (MUFU.*) and the shared-
-memory loads.  Divide a body's counts by its MUFU.EX2 count for the
+FSETP, FSEL, FMNMX, ...), the SFU instructions (MUFU.*), the shared-
+memory loads and the atomics and reductions (ATOM and RED on device
+memory, ATOMS on shared memory; CAS those that compare and swap, the
+instruction of a CAS loop).  Divide a body's counts by its MUFU.EX2 count for the
 instructions per evaluation of the spectra, dN/dX and prototype kernels
 (``per_eval`` does that for one kernel of one library).
 """
@@ -31,6 +33,8 @@ FP32 = ("FFMA", "FMUL", "FADD", "FMNMX", "FSETP", "FSEL", "FCHK", "FSET",
         "FRND")
 F64 = ("DADD", "DFMA", "DMUL", "DSETP", "DMNMX", "F2F")
 BRANCH = ("BRA", "BSSY", "BSYNC", "BRX", "JMP", "CALL", "RET")
+ATOMIC = ("ATOM", "ATOMG", "RED", "REDG")   # device memory (G: global)
+SHARED_ATOMIC = ("ATOMS",)
 
 
 def _opcode(op: str) -> str:
@@ -42,7 +46,9 @@ def loops(sass: str, pattern: str, n_loops: int | None = 3,
           innermost: bool = False):
     """(kernel, [(length, Counter of opcodes)]) for the ``n_loops``
     shortest loops holding an SFU instruction (all if None; only loops
-    that hold no other loop if ``innermost``), per matching kernel."""
+    that hold no other loop with an SFU instruction if ``innermost``, so a
+    compare-and-swap loop inside counts as the body's), per matching
+    kernel."""
     for func in re.split(r"\n\s*Function : ", sass)[1:]:
         name = func.split("\n", 1)[0].strip()
         if not re.search(pattern, name):
@@ -56,14 +62,16 @@ def loops(sass: str, pattern: str, n_loops: int | None = 3,
             m = re.search(r"BRA.*?(0x[0-9a-f]+)", op)
             if m and int(m.group(1), 16) < a and int(m.group(1), 16) in index:
                 spans.append((index[int(m.group(1), 16)], i))
+        sfu = lambda a, b: any(_opcode(o).startswith("MUFU")
+                               for _, o in ins[a:b + 1])
         found = []
         for lo, hi in spans:
-            if innermost and any(lo <= a and b <= hi and (a, b) != (lo, hi)
-                                 for a, b in spans):
+            if not sfu(lo, hi):
                 continue
-            body = [_opcode(o) for _, o in ins[lo:hi + 1]]
-            if any(o.startswith("MUFU") for o in body):
-                found.append(body)
+            if innermost and any(lo <= a and b <= hi and (a, b) != (lo, hi)
+                                 and sfu(a, b) for a, b in spans):
+                continue
+            found.append([_opcode(o) for _, o in ins[lo:hi + 1]])
         found.sort(key=len)
         yield name, [(len(b), collections.Counter(b)) for b in found[:n_loops]]
 
@@ -87,6 +95,16 @@ def _summary(c: collections.Counter) -> tuple[int, dict, int]:
     return sum(base[k] for k in FP32), sfu, base["LDS"]
 
 
+def _atomics(c: collections.Counter) -> tuple[int, int, int]:
+    """(device-memory atomics and reductions, shared-memory atomics,
+    compare-and-swaps among them) of one loop body."""
+    base = _base(c)
+    cas = sum(v for k, v in c.items()
+              if k.split(".")[0] in ATOMIC + SHARED_ATOMIC and "CAS" in k)
+    return (sum(base[k] for k in ATOMIC),
+            sum(base[k] for k in SHARED_ATOMIC), cas)
+
+
 @functools.lru_cache(maxsize=None)
 def _sass(tool: str, lib: str, mtime: float) -> str | None:
     """cuobjdump -sass of a library, once a process for each build of it."""
@@ -100,8 +118,10 @@ def per_eval(lib: str, pattern: str) -> dict | None:
     kernel of ``lib`` matching ``pattern`` whose body holds the most
     MUFU.EX2 (one per evaluation): dict(instructions, fp32, sfu, lds, sts,
     f64 (the float64 pipe and conversions), branch (with the convergence
-    barriers), fchk (of those counted in fp32), evaluations), or None where
-    cuobjdump is missing or finds no such loop."""
+    barriers), fchk (of those counted in fp32), atom (device-memory
+    atomics and reductions), atoms (shared-memory atomics), cas (compare-
+    and-swaps among them), evaluations), or None where cuobjdump is missing
+    or finds no such loop."""
     tool = _tool()
     if tool is None or not os.path.exists(lib):
         return None
@@ -114,6 +134,7 @@ def per_eval(lib: str, pattern: str) -> dict | None:
             continue
         length, c = max(bodies, key=lambda b: b[1]["MUFU.EX2"])
         fp32, sfu, lds = _summary(c)
+        atom, atoms, cas = _atomics(c)
         base = _base(c)
         n = c["MUFU.EX2"]
         return dict(instructions=length / n, fp32=fp32 / n,
@@ -121,7 +142,8 @@ def per_eval(lib: str, pattern: str) -> dict | None:
                     sts=base["STS"] / n,
                     f64=sum(base[k] for k in F64) / n,
                     branch=sum(base[k] for k in BRANCH) / n,
-                    fchk=base["FCHK"] / n, evaluations=n)
+                    fchk=base["FCHK"] / n, atom=atom / n, atoms=atoms / n,
+                    cas=cas / n, evaluations=n)
     return None
 
 
@@ -141,8 +163,10 @@ def main(argv=None):
             print(f"{os.path.basename(lib)} {name}")
             for length, c in bodies:
                 fp32, sfu, lds = _summary(c)
+                atom, atoms, cas = _atomics(c)
                 print(f"  loop of {length} instructions: FP32 {fp32}, "
-                      f"SFU {sfu}, LDS {lds}")
+                      f"SFU {sfu}, LDS {lds}, atomics {atom} device, "
+                      f"{atoms} shared ({cas} CAS)")
     return 0
 
 

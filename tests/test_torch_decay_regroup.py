@@ -126,7 +126,7 @@ def test_decay_events_matches_the_numpy_tail(decaying_table, dtype):
     events = mixed_events(decaying_table, dtype, 1)
     info = {}
     got = mcd.decay_events(events, decaying_table, seed=5, event_offset=2,
-                           info=info)
+                           info=info, device="cpu")
     want = numpy_decay_events(events, decaying_table, 5, event_offset=2)
     assert info["hadrons_out"] > info["hadrons_in"] > 0
     assert len(got) == len(want) == len(events)
@@ -153,7 +153,7 @@ def test_cascade_inputs_state_matches_the_numpy_split(decaying_table):
     events = mixed_events(decaying_table, np.float64, 2)
     tabs = mcd.cached_tables(decaying_table, 111)
     inp = mcd.cascade_inputs(events, decaying_table, 111, 9,
-                             event_offset=4)
+                             event_offset=4, device="cpu")
     cols, sidx, eid, ordv = _concat_events(events, tabs)
     unst = ~tabs.stable[sidx]
     assert inp["n0"] == int(unst.sum())
@@ -175,7 +175,8 @@ def test_decay_events_without_unstable_hadrons(decaying_table):
     for e in events:
         e["mcid"] = tabs.mc_id[stable[:len(e["E"])]]
     info = {}
-    got = mcd.decay_events(events, decaying_table, seed=1, info=info)
+    got = mcd.decay_events(events, decaying_table, seed=1, info=info,
+                           device="cpu")
     assert set(info["timings"]) == {"upload", "lookup"}
     for g, e in zip(got, events):
         for k in mcd.EVENT_FIELDS:
@@ -185,7 +186,7 @@ def test_decay_events_without_unstable_hadrons(decaying_table):
 def test_decay_events_reports_its_timings(decaying_table):
     info = {}
     mcd.decay_events(mixed_events(decaying_table, np.float32, 4),
-                     decaying_table, seed=2, info=info)
+                     decaying_table, seed=2, info=info, device="cpu")
     assert tuple(info["timings"]) == mcd.DECAY_TIMINGS
     assert all(v >= 0.0 for v in info["timings"].values())
     assert info["passes"] == mcd.cached_tables(decaying_table,
@@ -197,17 +198,18 @@ def test_decay_events_unknown_mcid_raises(decaying_table):
     events[2]["mcid"] = events[2]["mcid"].copy()
     events[2]["mcid"][3] = 987654321
     with pytest.raises(KeyError, match="987654321"):
-        mcd.decay_events(events, decaying_table, seed=1)
+        mcd.decay_events(events, decaying_table, seed=1, device="cpu")
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_decay_events_partition_invariant(decaying_table, dtype):
     events = mixed_events(decaying_table, dtype, 6, sizes=(30, 12, 0, 41, 8,
                                                            19, 25))
-    full = mcd.decay_events(events, decaying_table, seed=41)
-    parts = (mcd.decay_events(events[:3], decaying_table, seed=41)
+    full = mcd.decay_events(events, decaying_table, seed=41, device="cpu")
+    parts = (mcd.decay_events(events[:3], decaying_table, seed=41,
+                              device="cpu")
              + mcd.decay_events(events[3:], decaying_table, seed=41,
-                                event_offset=3))
+                                event_offset=3, device="cpu"))
     assert len(parts) == len(full) == 7
     for a, b in zip(full, parts):
         for k in a:

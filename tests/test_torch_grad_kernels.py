@@ -174,14 +174,64 @@ def test_backward_yardsticks():
     the wave backward counts the forward's evaluations."""
     for df in (1, 2):
         fwd = smooth.FORMULA_OPS[df]
-        bwd = smooth.backward_formula_ops(df, remap=False)
+        bwd = smooth.backward_formula_ops(df, remap=False, n_phi=24)
         assert bwd[0] > 2 * fwd[0] and bwd[1] <= fwd[1]
-        assert smooth.backward_formula_ops(df, remap=True)[0] > bwd[0]
+        assert smooth.backward_formula_ops(df, remap=True,
+                                           n_phi=24)[0] > bwd[0]
     tables, tasks, wg, _ = testing.decay_grad_inputs("2body_3d_narrow_y")
     f_fwd, s_fwd = decays.wave_operations(tasks, wg)
     f_bwd, s_bwd = decays.wave_backward_operations(tasks, wg)
     assert s_bwd == s_fwd == decays.wave_evaluations(tasks, wg)
     assert f_bwd > f_fwd > 0
+
+
+@pytest.mark.parametrize("df", [1, 2])
+def test_remap_backward_yardstick_row_share(df):
+    """With the remap the backward's count is the fixed node's plus the
+    per-evaluation extra and the row's share 1 / n_phi (the node
+    kinematics, composites and node sums of a (cell, node, species, pT)
+    row), as remap_formula_ops shares the forward's node kinematics: it
+    falls as n_phi grows, by the row's operations times the change of
+    1 / n_phi; the fixed node's does not depend on n_phi."""
+    fixed = smooth.backward_formula_ops(df, False, 24)
+    assert fixed == smooth.backward_formula_ops(df, False, 8)
+    assert fixed == smooth.BACKWARD_FORMULA_OPS[df]
+    for n_phi in (8, 24, 48):
+        assert smooth.backward_formula_ops(df, True, n_phi) == (
+            fixed[0] + smooth.REMAP_BACKWARD_EXTRA
+            + smooth.REMAP_BACKWARD_ROW_OPS / n_phi, fixed[1])
+    b = {n: smooth.backward_formula_ops(df, True, n)[0] for n in (8, 24, 48)}
+    assert b[8] > b[24] > b[48] > fixed[0]
+    f = {n: smooth.remap_formula_ops(df, n)[0] for n in (8, 48)}
+    row = lambda ops: ops * (1 / 8 - 1 / 48)
+    assert f[8] - f[48] == pytest.approx(row(smooth.REMAP_NODE_OPS[0]))
+    assert b[8] - b[48] == pytest.approx(row(smooth.REMAP_BACKWARD_ROW_OPS))
+
+
+@pytest.mark.parametrize("case", sorted(testing.DECAY_EDGES))
+def test_wave_bwd_scale_bounds_every_term(case):
+    """K9c's slot scales (decays.wave_bwd_scale, no evaluation; one for a
+    slot's log rows, one for its tail rows) lie above every term the
+    backward kernel adds there (testing.wave_term_max, the plain version's
+    gather form term by term in float64; terms that are float64 normal
+    numbers), and give up at most 12 bits against the largest; HI_u = 61 -
+    ceil(log2 E_u) from the slot's evaluations."""
+    tables, tasks, wg, G = testing.decay_grad_inputs(case)
+    lb = decays.wave_term_bound_log2(tables, tasks, wg, G)
+    most = testing.wave_term_max(tables, tasks, wg, G)
+    live = most > 2.0 ** -1000
+    assert live[:, 0].any() and live[:, 1].any()
+    gap = lb[live] - torch.log2(most[live])
+    assert (gap >= 0).all(), gap
+    assert gap.max() <= 12.0, gap
+    sc = decays.wave_bwd_scale(tables, tasks, wg, G).long()
+    e = sc[:, 2:] - sc[:, :2]                   # 2^e above the bounds
+    assert (e.double()[live] > lb[live]).all()
+    U, P, F, NY = tables.logdN.shape
+    n = torch.bincount(tasks.slot.long(), minlength=U).double()
+    evals = n * (12 if tasks.nbody == 3 else 1) * P * F * NY * 144 * 2
+    hi = 61 - torch.ceil(torch.log2(evals.clamp_min(1.0)))
+    assert torch.equal(sc[:, 2].double(), hi)
 
 
 def test_feqmod_vah_backward_yardsticks():
@@ -405,6 +455,32 @@ def test_wave_bwd_kernel_matches_plain(cuda_card, case, dtype):
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     bad, worst = testing.grad_errors(got, want, *TOL[dtype])
+    assert bad == 0, (case, worst)
+    # the route by dtype: float32 slot words in shared memory (they fit),
+    # float64 the device's words
+    route = decays.wave_bwd_blocking(tables, tasks, wg)["route"]
+    assert route == ("shared" if dtype == torch.float32 else "device")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(testing.DECAY_ROUTE_EDGES))
+def test_wave_bwd_kernel_device_route_matches_plain(cuda_card, case):
+    """The 3-body 3+1D wave on a grid whose float32 slot words do not fit
+    in shared memory (testing.DECAY_ROUTE_EDGES) takes K9c's device route
+    by shape, and agrees with the plain version as the shared route does
+    (float32 only: the forward kernel stages a float64 table of this grid
+    nowhere)."""
+    tables, tasks, wg, G = testing.decay_grad_inputs(
+        case, dtype=torch.float32, device="cuda")
+    assert decays.wave_bwd_blocking(tables, tasks, wg)["route"] == "device"
+    want = decays.wave_bwd_plain(tables.to(None, torch.float64),
+                                 tasks.to(None, torch.float64),
+                                 wg.to(None, torch.float64), G)
+    got = decays.wave_bwd_cuda(tables, tasks, wg, G)
+    again = decays.wave_bwd_cuda(tables, tasks, wg, G)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    bad, worst = testing.grad_errors(got, want, *TOL[torch.float32])
     assert bad == 0, (case, worst)
 
 

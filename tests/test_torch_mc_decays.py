@@ -127,14 +127,14 @@ def test_lineage_streams():
 def test_two_body_conservation_onshell_and_line_energy():
     r = np.random.default_rng(1)
     ev = _events_of(113, 0.7752, r.normal(0.0, 1.2, size=(4000, 3)))
-    o = mcd.decay_events(ev, RHO_TABLE, seed=3)[0]
+    o = mcd.decay_events(ev, RHO_TABLE, seed=3, device="cpu")[0]
     assert len(o["E"]) == 8000
     assert set(np.unique(o["mcid"])) == {-211, 211}
     np.testing.assert_allclose(_p4sum(o), _p4sum(ev[0]), rtol=1e-9)
     m2 = o["E"]**2 - o["px"]**2 - o["py"]**2 - o["pz"]**2
     np.testing.assert_allclose(m2, 0.1396**2, rtol=1e-6)
     rest = mcd.decay_events(_events_of(113, 0.7752, np.zeros((500, 3))),
-                            RHO_TABLE, seed=5)[0]
+                            RHO_TABLE, seed=5, device="cpu")[0]
     np.testing.assert_allclose(rest["E"], 0.7752 / 2.0, rtol=1e-9)
     sel = rest["mcid"] == 211
     cth = rest["pz"][sel] / np.sqrt(rest["px"][sel]**2 + rest["py"][sel]**2
@@ -145,7 +145,7 @@ def test_two_body_conservation_onshell_and_line_energy():
 def test_three_body_conservation_and_m23_shape():
     M, mpi, mpi0 = 0.7827, 0.1396, 0.1350
     ev = _events_of(223, M, np.zeros((20000, 3)))
-    o = mcd.decay_events(ev, OMEGA_TABLE, seed=11)[0]
+    o = mcd.decay_events(ev, OMEGA_TABLE, seed=11, device="cpu")[0]
     assert len(o["E"]) == 60000
     np.testing.assert_allclose(_p4sum(o), _p4sum(ev[0]), rtol=1e-9,
                                atol=1e-7)
@@ -170,7 +170,7 @@ def test_decay_vertex_timelike_and_lifetime():
     r = np.random.default_rng(2)
     p4s = r.normal(0.0, 0.8, size=(20000, 3))
     o = mcd.decay_events(_events_of(113, 0.7752, p4s, t0=5.0), RHO_TABLE,
-                         seed=13)[0]
+                         seed=13, device="cpu")[0]
     dt = o["t"] - 5.0
     dr = np.sqrt(o["x"]**2 + o["y"]**2 + o["z"]**2)
     assert np.all(dt >= 0.0) and np.all(dr <= dt + 1e-9)
@@ -186,7 +186,7 @@ def test_branching_ratios_chain_closed_and_lightest():
          (803, 0.4, 0.0, True)],
         {800: [(0.6, [801, 801]), (0.3, [802, 802]), (0.1, [801, 802, 803])]})
     o = mcd.decay_events(_events_of(800, 1.5, np.zeros((30000, 3))), tab,
-                         seed=17)[0]
+                         seed=17, device="cpu")[0]
     n3 = (o["mcid"] == 803).sum()
     n_ch2 = ((o["mcid"] == 802).sum() - n3) // 2
     n_ch1 = ((o["mcid"] == 801).sum() - n3) // 2
@@ -198,7 +198,7 @@ def test_branching_ratios_chain_closed_and_lightest():
     # a two-generation chain runs to the stable leaves in one call
     r = np.random.default_rng(3)
     ev = _events_of(900, 2.0, r.normal(0, 1, (3000, 3)))
-    o = mcd.decay_events(ev, CHAIN_TABLE, seed=19)[0]
+    o = mcd.decay_events(ev, CHAIN_TABLE, seed=19, device="cpu")[0]
     assert sorted(np.unique(o["mcid"])) == [902, 903, 904]
     assert len(o["E"]) == 9000
     np.testing.assert_allclose(_p4sum(o), _p4sum(ev[0]), rtol=1e-9)
@@ -211,16 +211,18 @@ def test_branching_ratios_chain_closed_and_lightest():
         [(820, 1.0, 0.1, False), (821, 0.4, 0.0, True), (822, 0.3, 0.0, True)],
         {820: [(0.5, [821, 821, 821]), (0.5, [821, 822])]})
     o2 = mcd.decay_events(_events_of(820, 1.0, np.zeros((50, 3))), part,
-                          seed=23)[0]
+                          seed=23, device="cpu")[0]
     assert sorted(np.unique(o2["mcid"])) == [821, 822]
     assert len(o2["E"]) == 100
     pi0 = _mk_table([(111, 0.1350, 7.8e-9, False), (22, 0.0, 0.0, True)],
                     {111: [(1.0, [22, 22])]})
     ev = _events_of(111, 0.1350, np.zeros((10, 3)))
     assert np.all(mcd.decay_events(ev, pi0, seed=29,
-                                   lightest_particle=111)[0]["mcid"] == 111)
+                                   lightest_particle=111,
+                                   device="cpu")[0]["mcid"] == 111)
     assert np.all(mcd.decay_events(ev, pi0, seed=29,
-                                   lightest_particle=22)[0]["mcid"] == 22)
+                                   lightest_particle=22,
+                                   device="cpu")[0]["mcid"] == 22)
 
 
 def _mixed_events(tabs, n_events, per_event, seed):
@@ -242,7 +244,7 @@ def _mixed_events(tabs, n_events, per_event, seed):
 def test_final_yields_match_jax_cascade(decaying_table):
     tabs = mcd.build_decay_tables(decaying_table)
     events = _mixed_events(tabs, 20, 400, 4)
-    got = mcd.decay_events(events, decaying_table, seed=31)
+    got = mcd.decay_events(events, decaying_table, seed=31, device="cpu")
     want = jmcd.decay_events(events, decaying_table, seed=31)
     a = np.concatenate([e["mcid"] for e in got])
     b = np.concatenate([e["mcid"] for e in want])
@@ -258,15 +260,17 @@ def test_final_yields_match_jax_cascade(decaying_table):
 def test_partition_invariant_lineage_streams(decaying_table):
     tabs = mcd.build_decay_tables(decaying_table)
     events = _mixed_events(tabs, 7, 30, 6)
-    full = mcd.decay_events(events, decaying_table, seed=41)
-    parts = (mcd.decay_events(events[:3], decaying_table, seed=41)
+    full = mcd.decay_events(events, decaying_table, seed=41, device="cpu")
+    parts = (mcd.decay_events(events[:3], decaying_table, seed=41,
+                              device="cpu")
              + mcd.decay_events(events[3:], decaying_table, seed=41,
-                                event_offset=3))
+                                event_offset=3, device="cpu"))
     assert len(parts) == len(full) == 7
     for a, b in zip(full, parts):
         for k in a:
             assert a[k].tobytes() == b[k].tobytes(), k
-    shifted = mcd.decay_events(events[3:], decaying_table, seed=41)
+    shifted = mcd.decay_events(events[3:], decaying_table, seed=41,
+                               device="cpu")
     assert any(a["px"].tobytes() != b["px"].tobytes()
                for a, b in zip(full[3:], shifted))
 
@@ -274,4 +278,20 @@ def test_partition_invariant_lineage_streams(decaying_table):
 def test_unknown_mcid_raises():
     ev = _events_of(999, 1.0, np.zeros((3, 3)))
     with pytest.raises(KeyError):
-        mcd.decay_events(ev, RHO_TABLE, seed=1)
+        mcd.decay_events(ev, RHO_TABLE, seed=1, device="cpu")
+
+
+@pytest.mark.parametrize("entry", ["decay_events", "cascade_inputs"])
+def test_decay_entry_points_default_to_the_card(monkeypatch, entry):
+    """decay_events and cascade_inputs run on cuda unless the caller names
+    the CPU: without CUDA, a call that names no device raises naming CUDA
+    (api.resolve_device), never falls back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ev = _events_of(113, 0.7752, np.zeros((10, 3)))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        if entry == "decay_events":
+            mcd.decay_events(ev, RHO_TABLE, seed=3)
+        else:
+            mcd.cascade_inputs(ev, RHO_TABLE, 111, 3)
+    assert len(mcd.decay_events(ev, RHO_TABLE, seed=3,
+                                device="cpu")[0]["E"]) == 20

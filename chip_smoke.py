@@ -94,8 +94,10 @@ Phases, each printing its own line(s):
    version's one run), the bound and the kernel's instructions per
    evaluation (tools/sass_count.py, where cuobjdump reads the library);
    [grad pair] the backward kernel K9a on that group (median of 3, bound
-   from kernels/smooth.py:BACKWARD_FORMULA_OPS, SASS; its first 32 cells
-   against the plain version); [grad main] diff.surface_vjp of the
+   from kernels/smooth.py:BACKWARD_FORMULA_OPS, SASS, its plan: cells a
+   block, species a stage, registers, resident blocks, waves and the last
+   wave's blocks, SMs and fill; its first 32 cells against the plain
+   version); [grad main] diff.surface_vjp of the
    production spectra of that surface and the pullback of sum dN/dy plus
    the pions' v2 and <pT>, with respect to T, u, bulkPi, pi, dsigma and
    eta: the forward bit-equal to smooth_spectra, K1 and K9a each launched
@@ -3592,7 +3594,8 @@ def phase_grad_pair(smi: str, clock: float, run_dir: str, cfg,
     """[grad pair]: the backward kernel on one canonical group of a main
     path (full species and grid, f32, a positive cotangent): two launches
     bit-identical, the time (one warm-up, median of 3), bound, share,
-    issued per evaluation; on the group's first GRAD_PLAIN_CELLS cells
+    issued per evaluation, the kernel's plan and resources (bwd_props); on
+    the group's first GRAD_PLAIN_CELLS cells
     against the plain version's autograd in f64 (and the plain version's
     time in f32 there)."""
     from is3d_tpu_torch import testing
@@ -3625,6 +3628,8 @@ def phase_grad_pair(smi: str, clock: float, run_dir: str, cfg,
                                              *mom_tensors(mom)), clock)
     kernel = (f"remap_bwd_kernelIfLi{cfg.df_mode}E" if flags.remap else
               f"spectra_bwd_kernelIfLi{cfg.dimension}ELi{cfg.df_mode}E")
+    plan = _bwd_plan(smooth.bwd_props("cuda", False, mom, flags,
+                                      cells.shape[0]), cells.shape[0])
     print(f"[{tag}] {smi} | one group {cells.shape[0]} cells x {S} x "
           f"{P * F} x {R} nodes: backward kernel {k_ms:.3f} ms (runs "
           f"{', '.join(f'{t:.2f}' for t in k_all)}), "
@@ -3633,11 +3638,26 @@ def phase_grad_pair(smi: str, clock: float, run_dir: str, cfg,
           f"({bound[1]}: {fp32:.4g} FP32 + {sfu} SFU an evaluation), kernel "
           f"at {bound[0] / k_ms:.1%} of it; two launches bit-identical; "
           "issued per evaluation: " + _issued("smooth_spectra_bwd", kernel)
-          + (f"; {smooth.bwd_props('cuda', False, mom, flags)}"
-             if flags.remap else ""))
+          + f"; {plan}")
     return dict(launches=None, max_abs_err=err, ms=k_ms, plain_ms=p_ms,
                 bound_ms=bound[0], bound_by=bound[1], library_ms=None,
                 cells=cells.shape[0], plain_cells=n)
+
+
+def _bwd_plan(props: dict, n_cells: int) -> dict:
+    """A backward kernel's launch shape and resources (its bwd_props),
+    with its last wave where the plan reports its waves (K9a's): the
+    blocks in it, the SMs they occupy and the share of the
+    card's resident blocks they fill."""
+    if "waves" in props:
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        slots = props["blocks_per_sm"] * sms
+        last = -(-n_cells // props["cells_per_block"]) - (
+            props["waves"] - 1) * slots
+        props = dict(props, last_wave_blocks=last,
+                     last_wave_sms=min(last, sms),
+                     last_wave_fill=round(last / slots, 4))
+    return props
 
 
 def _grad_observable(grid, mcids):

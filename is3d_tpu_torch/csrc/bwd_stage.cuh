@@ -1,10 +1,10 @@
-// What the df 3-4 and VAH backward kernels (feqmod_bwd.cu, vah_bwd.cu)
-// share: the asynchronous copy of the cotangent's tiles into shared memory
-// and the map from the cell columns a body touches to its accumulator
-// slots.
+// What the backward kernels (feqmod_bwd.cu, vah_bwd.cu,
+// smooth_spectra_bwd.cu) share: the asynchronous copy of the cotangent's
+// tiles into shared memory and the map from the cell columns a body
+// touches to its accumulator slots.
 //
-//   * cp.async (sm_80 and later) copies one element of global memory into
-//     shared memory without passing through registers; a thread commits
+//   * cp.async (sm_80 and later) copies one element (or 16 bytes) of
+//     global memory into shared memory without passing through registers; a thread commits
 //     its copies as a group and waits for them before the block's barrier,
 //     so the next tile is in flight while the current one is consumed.
 //   * Cols<A0, A1, B0, B1>: a body touches the columns [A0, A1) and [B0,
@@ -29,6 +29,15 @@ __device__ __forceinline__ void cp_async_elem(T* dst, const T* src) {
   else
     asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n"
                  :: "r"(s), "l"(src) : "memory");
+}
+
+// 16 bytes of global memory into shared memory, both 16-byte aligned,
+// cached in L2 only
+template <typename T>
+__device__ __forceinline__ void cp_async16(T* dst, const T* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(s), "l"(src) : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {

@@ -39,23 +39,35 @@
 // cells, stays in L2.
 //
 // Design of the fixed-node kernel (K9a, spectra_bwd_kernel).
-//   * A per-cell reduction over momentum points, the shape of dndx.cu's
-//     percell_kernel: a thread owns one (cell, node) pair and walks every
-//     (pT, phi, species); a block holds CT cells x all nodes, so nothing
-//     of a cell's sum leaves the block.  The node kinematics (cosh, sinh
-//     of Delta) are the thread's constants and the sums that need them are
-//     formed per node (SP .. SV below), then multiplied by cosh and sinh
-//     once at the end.
-//   * Staging.  Per pT row the block stages the weighted cotangent of a
-//     chunk of SB species (all phi, all nodes in 3+1D), the species' mT,
-//     and per (cell, phi) the terms W1, -W2, C4, -D2 that do not depend on
-//     the node or the species: they are the same for every thread of a
-//     cell, so each is formed once per block.
+//   * A per-cell reduction over momentum points: a thread owns one (cell,
+//     node) pair and walks pT rows, then groups of FIX_U angles, then the
+//     species; a block holds CT cells x all nodes, so nothing of a cell's
+//     sum leaves the block.  The node kinematics (cosh, sinh of Delta) are
+//     the thread's constants and the sums that need them are formed per
+//     node (SP .. SV below), then multiplied by cosh and sinh once at the
+//     end.
+//   * Staging: one stage a (pT row, angle group, chunk of SC species), by
+//     cp.async 16 bytes a copy into one of two buffers while the other is
+//     consumed (bwd_stage.cuh), one barrier a stage.  The wrapper lays the
+//     cotangent out for it once a launch (kernels/smooth.py:
+//     fixed_bwd_stage): weighted by prefactor x degeneracy, (pT, angle
+//     group, species, node, angle), so a stage is one contiguous run, and
+//     each (pT, species) row's mT, m^2, sign, b as 16 bytes.  The (cell,
+//     angle) terms W1, -W2, C4, -D2 go into the stage of an angle group's
+//     first chunk.  SC is all the species where two stages fit, two chunks
+//     at 3+1D's main shape.
+//   * Independent chains: a species' row and the cotangent at the FIX_U
+//     angles (one vector load) feed FIX_U evaluations at once, each with
+//     its own sums.
 //   * The accumulator.  One cell's gradient sums S x P x F x nodes terms
-//     (5.2e6 in 3+1D at 320 x 32 x 24 x 21).  The sums run in T over the
-//     SB species of one (pT, phi) point and are carried in float64 across
-//     points, so a float32 sum is never longer than SB terms.
-//
+//     (5.2e6 in 3+1D at 320 x 32 x 24 x 21).  A point's 17 sums run in T
+//     over every species (S terms: at most ~320 x 2^-24 = 2e-5 of the
+//     point's sum of magnitudes in float32) and go to the thread's float64
+//     sums in shared memory once a point.
+//   * The block: CT = FIX_BLOCK / R cells (6 x 21 nodes), FIX_MIN_BLOCKS
+//     of them an SM (16 warps); the last wave is left as it falls
+//     (fixed_plan).
+
 // Design of the 2+1D mT remap (K9b, remap_bwd_kernel), where the nodes
 // move with (cell, species, pT): Delta = y_flow - s(mT) eta_r.
 //   * A thread owns one (cell, node) pair as above (REMAP_BLOCK threads a
@@ -92,6 +104,8 @@
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "bwd_stage.cuh"
 #include "folded.cuh"
 
@@ -99,13 +113,16 @@ namespace {
 
 using namespace is3d;
 
-constexpr int BLOCK = 128;       // most threads a block: CT cells x nodes
+// K9a's: most threads a block (CT cells x nodes), the blocks of that size
+// an SM float32 registers are budgeted for (16 warps), and the angles a
+// thread evaluates at once (its independent chains)
+constexpr int FIX_BLOCK = 128;
+constexpr int FIX_MIN_BLOCKS = 4;
+constexpr int FIX_U = 2;
 // the remap's: most threads a block, and the blocks an SM its registers
 // are budgeted for
 constexpr int REMAP_BLOCK = 192;
 constexpr int REMAP_MIN_BLOCKS = 2;
-constexpr int SB = 16;           // species a staged chunk
-constexpr int NV = 4;            // staged values per (cell, phi)
 constexpr size_t MAX_SMEM = 232448;
 
 enum Mode { FIXED3 = 0, FIXED2 = 1, REMAP = 2 };
@@ -184,248 +201,324 @@ __device__ __forceinline__ void finalize(const T* g, const Sums& a,
   for (int k = 0; k < NF; ++k) o[k] *= w;
 }
 
-// The fixed-node body's shared-memory layout: the block's cell rows, the
-// staged cotangent (SB species x F phi x RG nodes; reused at the end for
-// the per-(cell, node) gradients), the species chunk, the (cell, phi) row
-// terms.
+__host__ __device__ inline size_t align16(size_t b) {
+  return (b + 15) / 16 * 16;
+}
+
+// K9a's float64 sums a thread carries (NA: Gpx, Gpy, Gux, Guy, Gqxx, Gqyy,
+// Gqxy, Gvx, Gvy, sInvT, sAlpha, s0 .. s5, then the node sums before the
+// node's cosh and sinh, SP, SU, S2, SX, SY, SV) and a point's sums in T
+// (NQ), which the flush multiplies by px, py and adds into them
+constexpr int NA = 23;
+constexpr int NQ = 17;
+
+// K9a's shared memory: the float64 sums (NA slots of nt), two stage
+// buffers, and the block's cell rows, placed past the per-(cell, node)
+// gradients (nt x NF float64 from 0) that the end writes over the sums and
+// the stages.  A buffer holds one stage: SC species' weighted cotangent at
+// the stage's FIX_U angles (RU values a species: node-major, angle-minor,
+// padded to 16 bytes; fixed_bwd_stage in kernels/smooth.py lays G out so),
+// their rows (mT, m^2, sign, b) at the stage's pT, the angles' px, py and,
+// filled for the first species chunk of an angle group only, the (cell,
+// angle) terms W1, -W2, C4, -D2.
 template <typename T>
-struct Smem {
-  T *raw, *gs, *mT, *m2, *sgn, *bar, *rowt, *pxs, *pys;
-  double* red;
-  __host__ __device__ Smem(unsigned char* p, int CT, int F, int RG, int R) {
-    red = reinterpret_cast<double*>(p);
-    const size_t gsz = (size_t)SB * F * RG * sizeof(T);
-    const size_t rsz = (size_t)CT * R * NF * sizeof(double);
-    T* t = reinterpret_cast<T*>(p + (gsz > rsz ? gsz : rsz));
-    gs = reinterpret_cast<T*>(p);
-    raw = t;
-    mT = raw + CT * NF;
-    m2 = mT + SB;
-    sgn = m2 + SB;
-    bar = sgn + SB;
-    rowt = bar + SB;
-    pxs = rowt + CT * F * NV;
-    pys = pxs + F;
-    end_ = pys + F;
+struct FSmem {
+  size_t stage_, sz_, rows_, pts_, xy_, raw_, end_;
+  __host__ __device__ FSmem(int nt, int CT, int RU, int SC) {
+    stage_ = align16((size_t)NA * nt * sizeof(double));
+    rows_ = align16((size_t)SC * RU * sizeof(T));
+    pts_ = rows_ + (size_t)SC * 4 * sizeof(T);
+    xy_ = pts_ + (size_t)CT * FIX_U * 4 * sizeof(T);
+    sz_ = align16(xy_ + (size_t)FIX_U * 2 * sizeof(T));
+    const size_t o = stage_ + 2 * sz_;
+    const size_t red = (size_t)nt * NF * sizeof(double);
+    raw_ = o > red ? o : red;
+    end_ = raw_ + (size_t)CT * NF * sizeof(T);
   }
-  T* end_;
-  __host__ __device__ size_t bytes(const unsigned char* p) const {
-    return reinterpret_cast<const unsigned char*>(end_) - p;
+  __device__ T* buf(unsigned char* p, int b, size_t part = 0) const {
+    return reinterpret_cast<T*>(p + stage_ + b * sz_ + part);
   }
 };
 
-// fixed nodes (K9a): grid (blocks of CT cells); thread t owns cell t / R
-// of the block at node t % R
+// U values of T from shared memory, a pair a vector load where U is even
+template <typename T, int U>
+__device__ __forceinline__ void ld_u(const T* p, T* v) {
+  using T2 = typename std::conditional<sizeof(T) == 4, float2, double2>::type;
+#pragma unroll
+  for (int u = 0; u < U; u += 1 + (U % 2 == 0)) {
+    if constexpr (U % 2 == 0) {
+      const T2 a = *reinterpret_cast<const T2*>(p + u);
+      v[u] = a.x;
+      v[u + 1] = a.y;
+    } else {
+      v[u] = p[u];
+    }
+  }
+}
+
+// K9a, fixed nodes: grid (blocks of CT cells); thread t owns cell t / R of
+// the block at node t % R and walks pT rows, then groups of FIX_U angles,
+// then chunks of SC species (one stage each), the species inside a stage
+// evaluated at the group's FIX_U angles at once.  A point's NQ sums run in
+// T over every species and go to the thread's float64 sums once a point.
+// rows (P, S, 4) and Gw (P, ceil(F / FIX_U), S, RU): fixed_bwd_stage's.
 template <typename T, int MODE, int DF>
-__device__ __forceinline__ void bwd_body(
-    const T* __restrict__ cells, int n_cells, int CT,
-    const T* __restrict__ mass, const T* __restrict__ sign,
-    const T* __restrict__ baryon, const T* __restrict__ deg, int S,
-    const T* __restrict__ pT, int P, const T* __restrict__ px,
-    const T* __restrict__ py, int F, const T* __restrict__ nodes,
-    const T* __restrict__ weights, int R, int regulate, int outflow,
-    T prefactor, const T* __restrict__ G, T* __restrict__ grad) {
+__device__ __forceinline__ void fixed_bwd_body(
+    const T* __restrict__ cells, int n_cells, int CT, int S, int SC, int P,
+    const T* __restrict__ px, const T* __restrict__ py, int F,
+    const T* __restrict__ nodes, const T* __restrict__ weights, int R,
+    int RU, int regulate, int outflow, const T* __restrict__ rows,
+    const T* __restrict__ Gw, T* __restrict__ grad) {
   using Fx = Fn<T>;
-  constexpr int RG1 = MODE == FIXED3 ? 0 : 1;   // 1: G has no node axis
-  const int RG = RG1 ? 1 : R;
+  constexpr int U = FIX_U;
+  constexpr int V = 16 / sizeof(T);            // values a 16-byte copy
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Smem<T> s(smem_raw, CT, F, RG, R);
   const int tid = threadIdx.x, nt = blockDim.x;
+  const FSmem<T> s(nt, CT, RU, SC);
+  double* acc = reinterpret_cast<double*>(smem_raw);
+  T* raw = reinterpret_cast<T*>(smem_raw + s.raw_);
   const int c0 = blockIdx.x * CT;
   const int nc = min(CT, n_cells - c0);
   const bool active = tid < nc * R;
   const int ci = active ? tid / R : 0, r = active ? tid - ci * R : 0;
+  const int NFG = (F + U - 1) / U, NSC = (S + SC - 1) / SC;
+  const int K = P * NFG * NSC;
 
   for (int i = tid; i < CT * NF; i += nt) {
     const int c = min(i / NF, nc - 1);
-    s.raw[i] = cells[(size_t)(c0 + c) * NF + (i - (i / NF) * NF)];
+    raw[i] = cells[(size_t)(c0 + c) * NF + (i - (i / NF) * NF)];
   }
+  for (int j = 0; j < NA; ++j) acc[(size_t)j * nt + tid] = 0.0;
   __syncthreads();
-  const T* g = s.raw + ci * NF;
+
+  // stage k = (pT row p, angle group fg, species chunk sc) into buffer
+  // k & 1: the cotangent and the rows by cp.async, 16 bytes a copy; the
+  // angles' px, py and, for the first chunk, the point terms by the
+  // threads
+  auto issue = [&](int k) {
+    const int sc = k % NSC, pf = k / NSC;
+    const int fg = pf % NFG, p = pf / NFG;
+    const int s0 = sc * SC, ns = min(SC, S - s0);
+    T* gs = s.buf(smem_raw, k & 1);
+    const T* g0 = Gw + (((size_t)p * NFG + fg) * S + s0) * RU;
+    for (int i = tid * V; i < ns * RU; i += nt * V) cp_async16(gs + i, g0 + i);
+    T* rs = s.buf(smem_raw, k & 1, s.rows_);
+    const T* r0 = rows + ((size_t)p * S + s0) * 4;
+    for (int i = tid * V; i < ns * 4; i += nt * V) cp_async16(rs + i, r0 + i);
+    cp_async_commit();
+    const int f0 = fg * U, nu = min(U, F - f0);
+    T* xy = s.buf(smem_raw, k & 1, s.xy_);
+    for (int u = tid; u < U; u += nt) {
+      xy[2 * u] = u < nu ? px[p * F + f0 + u] : T(0);
+      xy[2 * u + 1] = u < nu ? py[p * F + f0 + u] : T(0);
+    }
+    if (sc == 0) {
+      T* pts = s.buf(smem_raw, k & 1, s.pts_);
+      for (int i = tid; i < CT * U; i += nt) {
+        const int c = i / U, u = i - c * U;
+        const T x = u < nu ? px[p * F + f0 + u] : T(0);
+        const T y = u < nu ? py[p * F + f0 + u] : T(0);
+        const T* q = raw + c * NF;
+        T* o = pts + 4 * i;
+        o[0] = q[F_DAX] * x + q[F_DAY] * y;
+        o[1] = -(q[F_UX] * x + q[F_UY] * y);
+        o[2] = q[F_PIXX] * x * x + q[F_PIYY] * y * y
+               + T(2) * q[F_PIXY] * x * y;
+        o[3] = -(q[F_VX] * x + q[F_VY] * y);
+      }
+    }
+  };
+
+  const T* g = raw + ci * NF;
   const T tau = g[F_TAU], dat = g[F_DAT], dant = g[F_DANT], ut = g[F_UT];
   const T tun = g[F_TUN], pitt = g[F_PITT], pitx = g[F_PITX];
   const T pity = g[F_PITY], pitn = g[F_PITN], pinn = g[F_PINN];
   const T pixn = g[F_PIXN], piyn = g[F_PIYN], Vt = g[F_VT], Vn = g[F_VN];
-  const T invT = g[F_INVT], alpha = g[F_ALPHAB], ksc = g[F_KSC];
-  const T kb0 = g[F_KB0], kb1 = g[F_KB1], kb2 = g[F_KB2], Pi = g[F_BULKPI];
-  const T kdv = g[F_KDV], benth = g[F_BENTH], kc3 = g[F_KC3];
-  const T kc4 = g[F_KC4];
+  const T invT = g[F_INVT], ksc = g[F_KSC], Pi = g[F_BULKPI];
   const T L = Fx::SCALE;
-  const T invTL = L * invT;
+  const T invTL = L * invT, nAL = -L * g[F_ALPHAB];
+  // the df coefficients folded with bulkPi and k_dv: df 2 as r (ksc pi:pp
+  // + KM m^2 - kdv b V.p) + KP u.p + KB b + KV V.p; df 1 as ksc pi:pp +
+  // KM m^2 + (KB b + KP u.p) u.p + (KC b + KV u.p) V.p
+  const T KB = g[F_KB1] * Pi;
+  const T KP = DF == 2 ? (g[F_KB0] + g[F_KB2]) * Pi : g[F_KB2] * Pi;
+  const T KM = DF == 2 ? -g[F_KB2] * Pi : g[F_KB0] * Pi;
+  const T kdv = g[F_KDV];
+  const T KV = DF == 2 ? kdv * g[F_BENTH] : g[F_KC4];
+  const T KC = g[F_KC3];
   const T dlo = regulate ? T(-1) : -Fx::inf();
   const T dhi = regulate ? T(1) : Fx::inf();
+  const T olo = outflow ? T(0) : -Fx::inf();
   // the thread's node kinematics and composites
-  T ch = T(1), sh = T(0), A1 = T(0), B1 = T(0), C1 = T(0), C2 = T(0);
-  T C3 = T(0), D1 = T(0);
-  {
-    const T delta = MODE == FIXED3 ? nodes[r] - g[F_ETA] : -nodes[r];
-    ch = d_cosh(delta);
-    sh = d_sinh(delta);
-    const T t_sh = sh * tau;
-    A1 = ch * dat + sh * dant;
-    B1 = ch * ut - sh * tun;
-    C1 = ch * ch * pitt + t_sh * t_sh * pinn - T(2) * ch * t_sh * pitn;
-    C2 = T(-2) * (ch * pitx - t_sh * pixn);
-    C3 = T(-2) * (ch * pity - t_sh * piyn);
-    D1 = ch * Vt - t_sh * Vn;
-  }
-  const double w = MODE == FIXED3 ? 1.0 : (double)weights[r];
+  const T delta = MODE == FIXED3 ? nodes[r] - g[F_ETA] : -nodes[r];
+  const T ch = d_cosh(delta), sh = d_sinh(delta);
+  const T t_sh = sh * tau;
+  const T A1 = ch * dat + sh * dant;
+  const T B1 = ch * ut - sh * tun;
+  const T C1 = ch * ch * pitt + t_sh * t_sh * pinn - T(2) * ch * t_sh * pitn;
+  const T C2 = T(-2) * (ch * pitx - t_sh * pixn);
+  const T C3 = T(-2) * (ch * pity - t_sh * piyn);
+  const T D1 = ch * Vt - t_sh * Vn;
+  const int goff = (MODE == FIXED3 ? r : 0) * U;
 
-  Sums a = {};
-  // the node sums before the node's cosh and sinh
-  double SP = 0, SU = 0, S2 = 0, SX = 0, SY = 0, SV = 0;
-
-  for (int p = 0; p < P; ++p) {
-    const T pt = pT[p];
-    for (int sb = 0; sb < S; sb += SB) {
-      const int ns = min(SB, S - sb);
-      __syncthreads();                   // the previous chunk is consumed
-      for (int i = tid; i < SB * F * RG; i += nt) {
-        const int sl = i / (F * RG), rest = i - sl * F * RG;
-        T v = T(0);
-        if (sl < ns) {
-          const int sp = sb + sl;
-          v = prefactor * deg[sp] * G[((size_t)sp * P + p) * F * RG + rest];
-        }
-        s.gs[i] = v;
+  T q[U][NQ];
+  T W1[U], nW2[U], C4[U], nD2[U], PC[U];
+  issue(0);
+  for (int k = 0; k < K; ++k) {
+    cp_async_wait_all();
+    __syncthreads();              // stage k has landed, stage k - 1 is consumed
+    if (k + 1 < K) issue(k + 1);
+    if (!active) continue;
+    const int sc = k % NSC;
+    const int ns = min(SC, S - sc * SC);
+    const int b = k & 1;
+    if (sc == 0) {
+      const T* pts = s.buf(smem_raw, b, s.pts_) + ci * U * 4;
+      const T* xy = s.buf(smem_raw, b, s.xy_);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        Fx::ld4(pts + 4 * u, W1[u], nW2[u], C4[u], nD2[u]);
+        PC[u] = xy[2 * u] * C2 + xy[2 * u + 1] * C3;
+#pragma unroll
+        for (int j = 0; j < NQ; ++j) q[u][j] = T(0);
       }
-      for (int i = tid; i < SB; i += nt) {
-        const int sp = min(sb + i, S - 1);
-        s.m2[i] = mass[sp] * mass[sp];
-        s.mT[i] = d_sqrt(s.m2[i] + pt * pt);
-        s.sgn[i] = sign[sp];
-        s.bar[i] = baryon[sp];
+    }
+    const T* gs = s.buf(smem_raw, b) + goff;
+    const T* rs = s.buf(smem_raw, b, s.rows_);
+    for (int sl = 0; sl < ns; ++sl) {
+      T gv[U];
+      ld_u<T, U>(gs + sl * RU, gv);
+      T mT, m2, sgn, bar;
+      Fx::ld4(rs + 4 * sl, mT, m2, sgn, bar);
+      // the species' factors, shared by the U angles
+      const T nab = nAL * bar;
+      const T km = KM * m2;
+      const T kb = KB * bar;
+      const T kvb = DF == 2 ? kdv * bar : KC * bar;   // df 1: KC b
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        T* a = q[u];
+        const T pds = fma(mT, A1, W1[u]);
+        const T pdu = fma(mT, B1, nW2[u]);
+        const T pipp = fma(fma(mT, C1, PC[u]), mT, C4[u]);
+        const T Vp = fma(mT, D1, nD2[u]);
+        // the forward value
+        const T feq = Fx::rcp(Fx::exp_scaled(fma(pdu, invTL, nab)) + sgn);
+        const T feqbar = fma(-sgn, feq, T(1));
+        T df, X = T(0), r_ = T(0), vb = T(0);
+        if (DF == 1) {
+          vb = fma(KV, pdu, kvb);
+          df = fma(vb, Vp, fma(ksc, pipp, fma(fma(KP, pdu, kb), pdu, km)));
+        } else {
+          r_ = Fx::rcp(pdu);
+          X = fma(ksc, pipp, fma(-kvb, Vp, km));
+          df = fma(r_, X, fma(KP, pdu, fma(KV, Vp, kb)));
+        }
+        const T prod = feqbar * df;
+        const T dfc = fmin(fmax(prod, dlo), dhi);
+        const T fv = fma(feq, dfc, feq);
+        // the chain rule, as torch autograd takes it through plain_block;
+        // the outflow clip max(p.dsigma, 0) as a mask on the cotangent,
+        // which a NaN p.dsigma passes (as it passes the plain version's
+        // clamp)
+        const T gs = pds < olo ? T(0) : gv[u];
+        const T gp = gs * fv;
+        const T gfv = gs * pds;
+        const T gprod = dfc == prod ? gfv * feq : T(0);
+        const T gfeq = fma(-sgn * gprod, df, fma(gfv, dfc, gfv));
+        const T gdf = gprod * feqbar;
+        const T garg = -(gfeq * feq) * feqbar;
+        T gq, gVp, gu;
+        if (DF == 1) {
+          gq = gdf * ksc;
+          gVp = gdf * vb;
+          gu = fma(gdf, fma(KV, Vp, fma(T(2) * KP, pdu, kb)), garg * invT);
+          const T gb = gdf * bar, gpu = gdf * pdu;
+          a[11] = fma(gdf, pipp, a[11]);
+          a[12] = fma(gdf, m2, a[12]);
+          a[13] = fma(gb, pdu, a[13]);
+          a[14] = fma(gpu, pdu, a[14]);
+          a[15] = fma(gb, Vp, a[15]);
+          a[16] = fma(gpu, Vp, a[16]);
+        } else {
+          const T gr = gdf * r_;
+          gq = gr * ksc;
+          gVp = fma(gdf, KV, -(gr * kvb));
+          gu = fma(-(gr * r_), X, fma(gdf, KP, garg * invT));
+          a[11] = fma(gr, pipp, a[11]);
+          a[12] = fma(gdf, pdu, a[12]);
+          a[13] = fma(gdf, bar, a[13]);
+          a[14] = fma(gr, m2, a[14]);       // s3 = s1 - this
+          a[15] = fma(gdf, Vp, a[15]);
+          a[16] = fma(gr * bar, Vp, a[16]);
+        }
+        const T tq = gq * mT;
+        a[0] += gp;
+        a[1] = fma(gp, mT, a[1]);
+        a[2] += gu;
+        a[3] = fma(gu, mT, a[3]);
+        a[4] += gq;
+        a[5] += tq;
+        a[6] = fma(tq, mT, a[6]);
+        a[7] += gVp;
+        a[8] = fma(gVp, mT, a[8]);
+        a[9] = fma(garg, pdu, a[9]);
+        a[10] = fma(garg, bar, a[10]);
       }
-      if (sb == 0) {
-        for (int i = tid; i < F; i += nt) {
-          s.pxs[i] = px[p * F + i];
-          s.pys[i] = py[p * F + i];
-        }
-        __syncthreads();
-        for (int i = tid; i < CT * F; i += nt) {
-          const int c = i / F, f = i - c * F;
-          const T* q = s.raw + c * NF;
-          const T x = s.pxs[f], y = s.pys[f];
-          T* o = s.rowt + i * NV;
-          o[0] = q[F_DAX] * x + q[F_DAY] * y;
-          o[1] = -(q[F_UX] * x + q[F_UY] * y);
-          o[2] = q[F_PIXX] * x * x + q[F_PIYY] * y * y
-                 + T(2) * q[F_PIXY] * x * y;
-          o[3] = -(q[F_VX] * x + q[F_VY] * y);
-        }
-      }
-      __syncthreads();
-      if (!active) continue;
-      for (int f = 0; f < F; ++f) {
-        const T* rt = s.rowt + (ci * F + f) * NV;
-        const T W1 = rt[0], nW2 = rt[1], C4 = rt[2], nD2 = rt[3];
-        const T x = s.pxs[f], y = s.pys[f];
-        const T PC = x * C2 + y * C3;
-        // the point's partial sums over the chunk's species, in T
-        T qgp = 0, qgu = 0, qgq = 0, qgv = 0;
-        T qP = 0, qU = 0, q2 = 0, qX = 0, qV = 0;
-        T qi = 0, qa = 0, q0 = 0, q1 = 0, q2d = 0, q3 = 0, q4 = 0, q5 = 0;
-        const T* gr = s.gs + f * RG + (RG1 ? 0 : r);
-        for (int sl = 0; sl < ns; ++sl) {
-          const T gv = gr[sl * F * RG];
-          const T mT = s.mT[sl], m2 = s.m2[sl];
-          const T sgn = s.sgn[sl], b = s.bar[sl];
-          const T pds = fma(mT, A1, W1);
-          const T pdu = fma(mT, B1, nW2);
-          const T pipp = fma(mT * mT, C1, fma(mT, PC, C4));
-          const T Vp = fma(mT, D1, nD2);
-          // the forward value
-          const T feq = Fx::rcp(Fx::exp_scaled(fma(pdu, invTL, -L * alpha * b))
-                                + sgn);
-          const T feqbar = fma(-sgn, feq, T(1));
-          T df, r_ = T(0);
-          if (DF == 1) {
-            df = ksc * pipp + (kb0 * m2 + (kb1 * b + kb2 * pdu) * pdu) * Pi
-                 + (kc3 * b + kc4 * pdu) * Vp;
-          } else {
-            r_ = Fx::rcp(pdu);
-            df = ksc * pipp * r_ + (kb0 * pdu + kb1 * b + kb2 * (pdu - m2 * r_))
-                 * Pi + (benth - b * r_) * Vp * kdv;
-          }
-          const T prod = feqbar * df;
-          const T dfc = fmin(fmax(prod, dlo), dhi);
-          const T fv = fma(feq, dfc, feq);
-          const T pp = outflow ? fmax(pds, T(0)) : pds;
-          // the chain rule, as torch autograd takes it through plain_block
-          const T gp = (!outflow || pds >= T(0)) ? gv * fv : T(0);
-          const T gfv = gv * pp;
-          const T gprod = (prod >= dlo && prod <= dhi) ? gfv * feq : T(0);
-          const T gfeq = fma(gfv, dfc, gfv) - sgn * gprod * df;
-          const T gdf = gprod * feqbar;
-          const T garg = -gfeq * feq * feqbar;
-          T gq, gVp, gu;
-          if (DF == 1) {
-            gq = gdf * ksc;
-            gVp = gdf * (kc3 * b + kc4 * pdu);
-            gu = garg * invT
-                 + gdf * ((kb1 * b + T(2) * kb2 * pdu) * Pi + kc4 * Vp);
-            q0 = fma(gdf, pipp, q0);
-            q1 = fma(gdf, m2, q1);
-            q2d = fma(gdf * b, pdu, q2d);
-            q3 = fma(gdf * pdu, pdu, q3);
-            q4 = fma(gdf * b, Vp, q4);
-            q5 = fma(gdf * pdu, Vp, q5);
-          } else {
-            gq = gdf * ksc * r_;
-            gVp = gdf * (benth - b * r_) * kdv;
-            gu = garg * invT
-                 + gdf * (-r_ * r_ * (ksc * pipp - kb2 * Pi * m2 - b * Vp * kdv)
-                          + (kb0 + kb2) * Pi);
-            q0 = fma(gdf * pipp, r_, q0);
-            q1 = fma(gdf, pdu, q1);
-            q2d = fma(gdf, b, q2d);
-            q3 = fma(gdf, pdu - m2 * r_, q3);
-            q4 = fma(gdf, Vp, q4);
-            q5 = fma(gdf * b * r_, Vp, q5);
-          }
-          qi = fma(garg, pdu, qi);
-          qa = fma(garg, b, qa);
-          qgp += gp;
-          qgu += gu;
-          qgq += gq;
-          qgv += gVp;
-          qP = fma(gp, mT, qP);
-          qU = fma(gu, mT, qU);
-          q2 = fma(gq * mT, mT, q2);
-          qX = fma(gq, mT, qX);
-          qV = fma(gVp, mT, qV);
-        }
-        // carry the point's sums in float64
-        const double X = x, Y = y;
-        a.Gpx += X * qgp;
-        a.Gpy += Y * qgp;
-        a.Gux += X * qgu;
-        a.Guy += Y * qgu;
-        a.Gqxx += X * X * qgq;
-        a.Gqyy += Y * Y * qgq;
-        a.Gqxy += X * Y * qgq;
-        a.Gvx += X * qgv;
-        a.Gvy += Y * qgv;
-        a.sInvT += qi;
-        a.sAlpha += qa;
-        a.s0 += q0;
-        a.s1 += q1;
-        a.s2 += q2d;
-        a.s3 += q3;
-        a.s4 += q4;
-        a.s5 += q5;
-        SP += qP;
-        SU += qU;
-        S2 += q2;
-        SX += X * qX;
-        SY += Y * qX;
-        SV += qV;
+    }
+    if (sc == NSC - 1) {
+      // the points' sums into float64, once a point
+      const int f0 = ((k / NSC) % NFG) * U, nu = min(U, F - f0);
+      const T* xy = s.buf(smem_raw, b, s.xy_);
+      double* ac = acc + tid;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (u >= nu) break;
+        const T* a = q[u];
+        const double X = xy[2 * u], Y = xy[2 * u + 1];
+        const double gp = a[0], gu = a[2], gq = a[4], gv = a[7], tq = a[5];
+        ac[0 * nt] += X * gp;
+        ac[1 * nt] += Y * gp;
+        ac[2 * nt] += X * gu;
+        ac[3 * nt] += Y * gu;
+        ac[4 * nt] += X * X * gq;
+        ac[5 * nt] += Y * Y * gq;
+        ac[6 * nt] += X * Y * gq;
+        ac[7 * nt] += X * gv;
+        ac[8 * nt] += Y * gv;
+        ac[9 * nt] += (double)a[9];
+        ac[10 * nt] += (double)a[10];
+        ac[11 * nt] += (double)a[11];
+        ac[12 * nt] += (double)a[12];
+        ac[13 * nt] += (double)a[13];
+        ac[14 * nt] += DF == 2 ? (double)a[12] - (double)a[14]
+                               : (double)a[14];
+        ac[15 * nt] += (double)a[15];
+        ac[16 * nt] += (double)a[16];
+        ac[17 * nt] += (double)a[1];
+        ac[18 * nt] += (double)a[3];
+        ac[19 * nt] += (double)a[6];
+        ac[20 * nt] += X * tq;
+        ac[21 * nt] += Y * tq;
+        ac[22 * nt] += (double)a[8];
       }
     }
   }
+  cp_async_wait_all();
+  __syncthreads();
+  Sums a;
   {
+    const double* ac = acc + tid;
+    a.Gpx = ac[0]; a.Gpy = ac[nt]; a.Gux = ac[2 * nt]; a.Guy = ac[3 * nt];
+    a.Gqxx = ac[4 * nt]; a.Gqyy = ac[5 * nt]; a.Gqxy = ac[6 * nt];
+    a.Gvx = ac[7 * nt]; a.Gvy = ac[8 * nt];
+    a.sInvT = ac[9 * nt]; a.sAlpha = ac[10 * nt];
+    a.s0 = ac[11 * nt]; a.s1 = ac[12 * nt]; a.s2 = ac[13 * nt];
+    a.s3 = ac[14 * nt]; a.s4 = ac[15 * nt]; a.s5 = ac[16 * nt];
     // the generic node sums of a fixed node: mT cosh = cosh x mT
     const double C = ch, Sh = sh;
+    const double SP = ac[17 * nt], SU = ac[18 * nt], S2 = ac[19 * nt];
+    const double SX = ac[20 * nt], SY = ac[21 * nt], SV = ac[22 * nt];
     a.Pc = C * SP;
     a.Ps = Sh * SP;
     a.Uc = C * SU;
@@ -440,32 +533,35 @@ __device__ __forceinline__ void bwd_body(
     a.Vc = C * SV;
     a.Vs = Sh * SV;
   }
-  __syncthreads();                       // the last chunk is consumed
-  if (active) finalize<T, DF>(g, a, w, MODE, s.red + (size_t)tid * NF);
+  __syncthreads();                       // every sum is read
+  const double w = MODE == FIXED3 ? 1.0 : (double)weights[r];
+  if (active) finalize<T, DF>(g, a, w, MODE, acc + (size_t)tid * NF);
   __syncthreads();
   // each cell's gradient: its nodes added in node order
   for (int i = tid; i < nc * NF; i += nt) {
     const int c = i / NF, k = i - c * NF;
     double v = 0.0;
-    for (int rr = 0; rr < R; ++rr) v += s.red[(size_t)(c * R + rr) * NF + k];
+    for (int rr = 0; rr < R; ++rr) v += acc[(size_t)(c * R + rr) * NF + k];
     grad[(size_t)(c0 + c) * NF + k] = (T)v;
   }
 }
 
+#define IS3D_FBWD_PARAMS                                                      \
+  const T *__restrict__ cells, int n_cells, int CT, int S, int SC, int P,    \
+      const T *__restrict__ px, const T *__restrict__ py, int F,             \
+      const T *__restrict__ nodes, const T *__restrict__ weights, int R,     \
+      int RU, int regulate, int outflow, const T *__restrict__ rows,         \
+      const T *__restrict__ Gw, T *__restrict__ grad
+
+// float32 is compiled for FIX_MIN_BLOCKS blocks an SM; float64 (its
+// registers spill at that budget) for one
 template <typename T, int DIM, int DF>
-__global__ void __launch_bounds__(BLOCK)
-spectra_bwd_kernel(const T* __restrict__ cells, int n_cells, int CT,
-                   const T* __restrict__ mass, const T* __restrict__ sign,
-                   const T* __restrict__ baryon, const T* __restrict__ deg,
-                   int S, const T* __restrict__ pT, int P,
-                   const T* __restrict__ px, const T* __restrict__ py, int F,
-                   const T* __restrict__ nodes,
-                   const T* __restrict__ weights, int R, int regulate,
-                   int outflow, T prefactor, const T* __restrict__ G,
-                   T* __restrict__ grad) {
-  bwd_body<T, DIM == 3 ? FIXED3 : FIXED2, DF>(
-      cells, n_cells, CT, mass, sign, baryon, deg, S, pT, P, px, py, F,
-      nodes, weights, R, regulate, outflow, prefactor, G, grad);
+__global__ void __launch_bounds__(FIX_BLOCK,
+                                  sizeof(T) == 4 ? FIX_MIN_BLOCKS : 1)
+spectra_bwd_kernel(IS3D_FBWD_PARAMS) {
+  fixed_bwd_body<T, DIM == 3 ? FIXED3 : FIXED2, DF>(
+      cells, n_cells, CT, S, SC, P, px, py, F, nodes, weights, R, RU,
+      regulate, outflow, rows, Gw, grad);
 }
 
 // The remap body's shared-memory layout: the float64 accumulators (NS
@@ -482,10 +578,6 @@ struct alignas(16) RowU {
 
 constexpr int NS = sizeof(Sums) / sizeof(double);
 static_assert(NS == 30, "Sums holds 30 float64 sums");
-
-__host__ __device__ inline size_t align16(size_t b) {
-  return (b + 15) / 16 * 16;
-}
 
 template <typename T>
 struct RSmem {
@@ -600,6 +692,7 @@ __device__ __forceinline__ void remap_bwd_body(
   const T invTL = L * invT;
   const T dlo = regulate ? T(-1) : -Fx::inf();
   const T dhi = regulate ? T(1) : Fx::inf();
+  const T olo = outflow ? T(0) : -Fx::inf();
   const T ey = d_exp(g[F_YFLOW]), eym = d_exp(-g[F_YFLOW]);
   const double w = (double)weights[r];
   const RowU<T>* un = s.unit + ci * F;
@@ -788,17 +881,6 @@ remap_bwd_kernel(IS3D_RBWD_PARAMS) {
                         outflow, prefactor, t_ref, G, grad);
 }
 
-// cells a block and its shared memory for a fixed-node shape, or an error
-// code
-template <typename T>
-int blocking(int mode, int F, int R, int* CT, size_t* smem) {
-  if (R < 1 || R > BLOCK || F < 1) return cudaErrorInvalidValue;
-  *CT = BLOCK / R;
-  const Smem<T> s(nullptr, *CT, F, mode == FIXED3 ? R : 1, R);
-  *smem = s.bytes(nullptr);
-  return *smem > MAX_SMEM ? (int)cudaErrorInvalidValue : 0;
-}
-
 // the remap's: cells a block, threads and shared memory, or an error code
 template <typename T>
 int remap_blocking(int P, int F, int R, int* CT, int* threads,
@@ -811,45 +893,142 @@ int remap_blocking(int P, int F, int R, int* CT, int* threads,
   return *smem > MAX_SMEM ? (int)cudaErrorInvalidValue : 0;
 }
 
-template <typename T, typename K, typename... Args>
-int launch_(K kern, int n_cells, int CT, int R, size_t smem,
-            cudaStream_t stream, Args... args) {
-  cudaError_t rc = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (rc != cudaSuccess) return (int)rc;
-  const int threads = (CT * R + 31) / 32 * 32;
-  const unsigned blocks = (unsigned)((n_cells + CT - 1) / CT);
-  kern<<<blocks, threads, smem, stream>>>(args...);
-  return (int)cudaGetLastError();
+// K9a's stage row: the values a species' row of one stage holds (its
+// nodes' cotangent at the FIX_U angles, 3+1D; FIX_U values, 2+1D), padded
+// to whole 16-byte copies
+template <typename T>
+constexpr int fixed_stage_row(int mode, int R) {
+  return ((mode == FIXED3 ? R : 1) * FIX_U + 16 / (int)sizeof(T) - 1) /
+         (16 / (int)sizeof(T)) * (16 / (int)sizeof(T));
+}
+
+// K9a's launch plan for one shape on the current card: cells a block (CT
+// = FIX_BLOCK / R), threads, shared memory, resident blocks an SM, species
+// a stage (SC), the values a species' stage row holds (RU) and the waves.
+// SC: the fewest species chunks whose two stages fit the shared memory of
+// the blocks an SM the registers allow.  The last wave is left as it
+// falls: a block size that filled it (12 warps an SM) lost 4.4 % and one
+// of 64 threads 3.7 %, by A/B on an NVIDIA H100 80GB HBM3 at 700 W
+// (PERF.md).
+struct FixedPlan {
+  int CT, threads, smem, blocks_per_sm, SC, RU, waves;
+};
+
+template <typename T>
+int fixed_plan(const void* kern, int mode, int S, int F, int R, int n_cells,
+               FixedPlan* pl) {
+  if (R < 1 || R > FIX_BLOCK || F < 1 || S < 1 || n_cells < 1)
+    return cudaErrorInvalidValue;       // also S = 0: no stage to plan
+  int dev = 0, n_sm = 0, per_sm = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(
+        &per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kern,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             optin);
+  if (e != cudaSuccess) return (int)e;
+  const int CT = FIX_BLOCK / R;
+  const int nt = (CT * R + 31) / 32 * 32;
+  const int RU = fixed_stage_row<T>(mode, R);
+  // the blocks an SM the compiled registers hold; the runtime reserves 1 KB
+  // of each block's shared memory
+  const int sm_threads = FIX_BLOCK * (sizeof(T) == 4 ? FIX_MIN_BLOCKS : 1);
+  size_t budget = (size_t)per_sm / (sm_threads / nt) - 1024;
+  if (budget > (size_t)optin) budget = optin;
+  int SC = 0;
+  size_t smem = 0;
+  for (int nsc = 1; nsc <= S && SC == 0; ++nsc) {
+    const int sc = (S + nsc - 1) / nsc;
+    const size_t b = FSmem<T>(nt, CT, RU, sc).end_;
+    if (b <= budget) {
+      SC = sc;
+      smem = b;
+    }
+  }
+  if (SC == 0) return cudaErrorInvalidValue;
+  int bps = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&bps, kern, nt, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (bps < 1) return cudaErrorInvalidValue;
+  const long blocks = (n_cells + CT - 1) / CT;
+  const long slots = (long)bps * n_sm;
+  *pl = FixedPlan{CT, nt, (int)smem, bps, SC, RU,
+                  (int)((blocks + slots - 1) / slots)};
+  return 0;
 }
 
 template <typename T>
-int launch_fixed(const void* cells, int n_cells, int nf, const void* mass,
-                 const void* sign, const void* baryon, const void* deg,
-                 int S, const void* pT, const void* px, const void* py,
-                 int P, int F, const void* nodes, const void* weights, int R,
-                 int df, int dim, int regulate, int outflow,
-                 double prefactor, const void* G, void* grad,
-                 void* stream_v) {
+const void* fixed_kernel(int dim, int df) {
+  if (dim == 3)
+    return df == 1 ? (const void*)spectra_bwd_kernel<T, 3, 1>
+                   : (const void*)spectra_bwd_kernel<T, 3, 2>;
+  return df == 1 ? (const void*)spectra_bwd_kernel<T, 2, 1>
+                 : (const void*)spectra_bwd_kernel<T, 2, 2>;
+}
+
+template <typename T>
+int launch_fixed(const void* cells, int n_cells, int nf, int S, int P,
+                 int F, const void* px, const void* py, const void* nodes,
+                 const void* weights, int R, int df, int dim, int regulate,
+                 int outflow, int RU, const void* rows, const void* Gw,
+                 void* grad, void* stream_v) {
   if (nf != NF || (df != 1 && df != 2) || (dim != 2 && dim != 3) ||
       n_cells < 0 || S < 0 || P < 0)
     return cudaErrorInvalidValue;
   if (n_cells == 0) return cudaSuccess;
-  int CT;
-  size_t smem;
-  const int rc = blocking<T>(dim == 3 ? FIXED3 : FIXED2, F, R, &CT, &smem);
+  const void* kern = fixed_kernel<T>(dim, df);
+  FixedPlan pl;
+  const int rc = fixed_plan<T>(kern, dim == 3 ? FIXED3 : FIXED2, S, F, R,
+                               n_cells, &pl);
   if (rc != 0) return rc;
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_v);
-#define IS3D_BWD(DIM_, DF_)                                                   \
-  launch_<T>(spectra_bwd_kernel<T, DIM_, DF_>, n_cells, CT, R, smem, stream, \
-             (const T*)cells, n_cells, CT, (const T*)mass, (const T*)sign,   \
-             (const T*)baryon, (const T*)deg, S, (const T*)pT, P,            \
-             (const T*)px, (const T*)py, F, (const T*)nodes,                 \
-             (const T*)weights, R, regulate, outflow, (T)prefactor,          \
-             (const T*)G, (T*)grad)
-  if (dim == 3) return df == 1 ? IS3D_BWD(3, 1) : IS3D_BWD(3, 2);
-  return df == 1 ? IS3D_BWD(2, 1) : IS3D_BWD(2, 2);
-#undef IS3D_BWD
+  if (RU != pl.RU) return cudaErrorInvalidValue;    // Gw's stage rows
+  const T* cells_ = static_cast<const T*>(cells);
+  const T* px_ = static_cast<const T*>(px);
+  const T* py_ = static_cast<const T*>(py);
+  const T* nodes_ = static_cast<const T*>(nodes);
+  const T* weights_ = static_cast<const T*>(weights);
+  const T* rows_ = static_cast<const T*>(rows);
+  const T* Gw_ = static_cast<const T*>(Gw);
+  T* grad_ = static_cast<T*>(grad);
+  void* args[] = {&cells_, &n_cells, &pl.CT, &S, &pl.SC, &P, &px_, &py_,
+                  &F, &nodes_, &weights_, &R, &RU, &regulate, &outflow,
+                  &rows_, &Gw_, &grad_};
+  const unsigned blocks = (unsigned)((n_cells + pl.CT - 1) / pl.CT);
+  cudaError_t e = cudaLaunchKernel(kern, dim3(blocks), dim3(pl.threads),
+                                   args, pl.smem,
+                                   static_cast<cudaStream_t>(stream_v));
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// out: fixed_plan's CT, threads, shared memory bytes, resident blocks an
+// SM, then registers and local memory bytes a thread (spills), SC, the
+// angles a stage (FIX_U), RU and the waves, of K9a at one shape
+template <typename T>
+int fixed_props(int dim, int df, int S, int P, int F, int R, int n_cells,
+                int* out) {
+  if ((df != 1 && df != 2) || (dim != 2 && dim != 3) || P < 1)
+    return cudaErrorInvalidValue;
+  const void* kern = fixed_kernel<T>(dim, df);
+  FixedPlan pl;
+  const int rc = fixed_plan<T>(kern, dim == 3 ? FIXED3 : FIXED2, S, F, R,
+                               n_cells, &pl);
+  if (rc != 0) return rc;
+  cudaFuncAttributes attr;
+  const cudaError_t e = cudaFuncGetAttributes(&attr, kern);
+  if (e != cudaSuccess) return (int)e;
+  const int vals[] = {pl.CT, pl.threads, pl.smem, pl.blocks_per_sm,
+                      attr.numRegs, (int)attr.localSizeBytes, pl.SC, FIX_U,
+                      pl.RU, pl.waves};
+  for (int i = 0; i < 10; ++i) out[i] = vals[i];
+  return 0;
 }
 
 template <typename T>
@@ -933,21 +1112,40 @@ int remap_props(int df, int P, int F, int R, int* out) {
 
 extern "C" {
 
-// fixed nodes (3+1D, 2+1D): grad (n_cells, NF) of <G, spectra>
+// fixed nodes (3+1D, 2+1D): grad (n_cells, NF) of <G, spectra>, from
+// kernels/smooth.py:fixed_bwd_stage's rows (P, S, 4) and weighted
+// cotangent Gw (P, ceil(F / FIX_U), S, RU)
 #define IS3D_BWD_ENTRY(NAME, T)                                               \
-  int NAME(const void* cells, int n_cells, int nf, const void* mass,         \
-           const void* sign, const void* baryon, const void* deg, int S,     \
-           const void* pT, const void* px, const void* py, int P, int F,     \
-           const void* nodes, const void* weights, int R, int df, int dim,   \
-           int regulate, int outflow, double prefactor, const void* G,       \
+  int NAME(const void* cells, int n_cells, int nf, int S, int P, int F,      \
+           const void* px, const void* py, const void* nodes,                \
+           const void* weights, int R, int df, int dim, int regulate,        \
+           int outflow, int RU, const void* rows, const void* Gw,            \
            void* grad, void* stream) {                                       \
-    return launch_fixed<T>(cells, n_cells, nf, mass, sign, baryon, deg, S,   \
-                           pT, px, py, P, F, nodes, weights, R, df, dim,     \
-                           regulate, outflow, prefactor, G, grad, stream);   \
+    return launch_fixed<T>(cells, n_cells, nf, S, P, F, px, py, nodes,       \
+                           weights, R, df, dim, regulate, outflow, RU, rows, \
+                           Gw, grad, stream);                                \
   }
 IS3D_BWD_ENTRY(is3d_spectra_bwd_f32, float)
 IS3D_BWD_ENTRY(is3d_spectra_bwd_f64, double)
 #undef IS3D_BWD_ENTRY
+
+// the layout kernels/smooth.py:fixed_bwd_stage gives K9a's cotangent at
+// (f64, dim, R), with no call to the card: out = the angles a stage
+// (FIX_U), the values a species' stage row holds (RU)
+int is3d_spectra_bwd_layout(int f64, int dim, int R, int* out) {
+  const int mode = dim == 3 ? FIXED3 : FIXED2;
+  out[0] = FIX_U;
+  out[1] = f64 ? fixed_stage_row<double>(mode, R)
+               : fixed_stage_row<float>(mode, R);
+  return 0;
+}
+
+// fixed_props<T> of (f64, dim, df) at (S, P, F, R, n_cells): out[10]
+int is3d_spectra_bwd_props(int f64, int dim, int df, int S, int P, int F,
+                           int R, int n_cells, int* out) {
+  return f64 ? fixed_props<double>(dim, df, S, P, F, R, n_cells, out)
+             : fixed_props<float>(dim, df, S, P, F, R, n_cells, out);
+}
 
 // the 2+1D mT remap: table (S, P, R, 2) as the forward's
 #define IS3D_BWD_REMAP_ENTRY(NAME, T)                                         \

@@ -48,8 +48,8 @@ from ..io.tables import MomentumGrid
 from ..io.deltaf import DeltafData
 from ..tensors import TensorContainer
 from .common import surface_columns, prepare_cells, fermi_bose, effective_chunk
-from .launch import (check_float, check_tensor, kernel_props, require_cuda,
-                     launch, split_to_fill)
+from .launch import (PROPS, check_float, check_tensor, kernel_props,
+                     require_cuda, launch, split_to_fill)
 
 # reference temperature of the eta-node remap's s(mT) = sqrt(T_ref/mT)
 ETA_REMAP_T_REF = 0.15
@@ -599,11 +599,14 @@ def _bwd_library():
         for fn in (lib.is3d_spectra_bwd_f32, lib.is3d_spectra_bwd_f64):
             fn.restype = ci
             fn.argtypes = [vp, ci, ci,                 # cells, n_cells, nf
-                           vp, vp, vp, vp, ci,         # species, n_species
-                           vp, vp, vp, ci, ci,         # pT, px, py, n_pT, n_phi
-                           vp, vp, ci,                 # nodes, weights, n_nodes
+                           ci, ci, ci,                 # n_species, n_pT, n_phi
+                           vp, vp, vp, vp, ci,         # px, py, nodes, weights, R
                            ci, ci, ci, ci,             # df, dim, reg, outflow
-                           cd, vp, vp, vp]             # prefactor, G, grad, stream
+                           ci, vp, vp, vp, vp]         # RU, rows, Gw, grad, stream
+        lib.is3d_spectra_bwd_props.restype = ci
+        lib.is3d_spectra_bwd_props.argtypes = [ci] * 8 + [vp]
+        lib.is3d_spectra_bwd_layout.restype = ci
+        lib.is3d_spectra_bwd_layout.argtypes = [ci] * 3 + [vp]
         for fn in (lib.is3d_spectra_bwd_remap_f32,
                    lib.is3d_spectra_bwd_remap_f64):
             fn.restype = ci
@@ -621,15 +624,63 @@ def _bwd_library():
     return lib
 
 
+# what the fixed-node backward kernel's plan reports (csrc/
+# smooth_spectra_bwd.cu:fixed_props): launch.PROPS, then the species a
+# stage, the angles a thread evaluates at once, the values a species' stage
+# row holds and the waves of resident blocks
+FIXED_BWD_PLAN = PROPS + ("species_per_stage", "angles", "stage_row",
+                          "waves")
+
+
 def bwd_props(device: torch.device, f64: bool, mom: MomentumConstants,
-              flags: SpectraFlags) -> dict:
-    """The launch shape and resources (launch.kernel_props) of the remap's
-    backward kernel (K9b) of ``flags``' df mode at mom's shape."""
+              flags: SpectraFlags, n_cells: int | None = None) -> dict:
+    """The launch shape and resources (launch.kernel_props) of the backward
+    kernel of ``flags``' df mode at mom's shape: the remap's (K9b), or with
+    fixed nodes K9a's plan for ``n_cells`` cells (FIXED_BWD_PLAN; its
+    waves depend on the count).  For reports: spectra_bwd_cuda's launch
+    makes its own plan."""
     lib = _bwd_library()
-    return kernel_props(lib, "spectra_bwd remap",
-                        lib.is3d_spectra_bwd_remap_props, device, int(f64),
-                        flags.df_mode, mom.pT.shape[0], mom.n_phi,
-                        mom.nodes.shape[0])
+    S, P, F = mom.mass.shape[0], mom.pT.shape[0], mom.n_phi
+    R = mom.nodes.shape[0]
+    if flags.dimension == 2 and flags.remap:
+        return kernel_props(lib, "spectra_bwd remap",
+                            lib.is3d_spectra_bwd_remap_props, device,
+                            int(f64), flags.df_mode, P, F, R)
+    if n_cells is None:
+        raise ValueError("the fixed-node backward kernel's plan needs "
+                         "n_cells")
+    out = (ctypes.c_int * len(FIXED_BWD_PLAN))()
+    with torch.cuda.device(device):
+        rc = lib.is3d_spectra_bwd_props(int(f64), flags.dimension,
+                                        flags.df_mode, S, P, F, R,
+                                        max(int(n_cells), 1), out)
+    if rc != 0:
+        raise RuntimeError("spectra_bwd: no launch configuration: "
+                           f"{lib.is3d_cuda_error_string(rc).decode()}")
+    return dict(zip(FIXED_BWD_PLAN, out))
+
+
+def fixed_bwd_stage(G: torch.Tensor, mom: MomentumConstants, angles: int,
+                    stage_row: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fixed-node backward kernel's inputs from the cotangent G (S, P,
+    F, n_out), on G's device and dtype: rows (P, S, 4) = mT, m^2, sign,
+    baryon of each (pT, species), and Gw (P, ceil(F / angles), S,
+    stage_row) = prefactor x degeneracy x G, angles padded with zeros to a
+    whole group, each species' (node, angle) values node-major and padded
+    with zeros to stage_row, so that one stage of the kernel (a pT row, an
+    angle group, a chunk of species) is one contiguous run."""
+    S, P, F, R = G.shape
+    nfg = -(-F // angles)
+    w = (CF_PREFACTOR * mom.degeneracy).to(G.dtype).view(S, 1, 1, 1)
+    g = torch.nn.functional.pad(G * w, (0, 0, 0, nfg * angles - F))
+    g = g.view(S, P, nfg, angles, R).permute(1, 2, 0, 4, 3)
+    g = torch.nn.functional.pad(g.reshape(P, nfg, S, R * angles),
+                                (0, stage_row - R * angles))
+    m2 = mom.mass ** 2
+    mT = torch.sqrt(m2[None, :] + mom.pT[:, None] ** 2)
+    rows = torch.stack([mT, m2.expand(P, S), mom.sign.expand(P, S),
+                        mom.baryon.expand(P, S)], dim=2)
+    return rows.to(G.dtype).contiguous(), g.contiguous()
 
 
 def spectra_bwd_cuda(cells: torch.Tensor, G: torch.Tensor,
@@ -659,30 +710,35 @@ def spectra_bwd_cuda(cells: torch.Tensor, G: torch.Tensor,
     grad = torch.empty_like(cells)
     lib = _bwd_library()
     f64 = cells.dtype == torch.float64
-    species = (mom.mass.data_ptr(), mom.sign.data_ptr(),
-               mom.baryon.data_ptr(), mom.degeneracy.data_ptr(), S)
     if remap:
         if table is None:
             table = remap_node_table(mom)
         launch(lib, "spectra_bwd remap",
                lib.is3d_spectra_bwd_remap_f64 if f64
                else lib.is3d_spectra_bwd_remap_f32, cells.device,
-               cells.data_ptr(), cells.shape[0], NF, *species,
-               mom.pT.data_ptr(), P, mom.cos_phi.data_ptr(),
-               mom.sin_phi.data_ptr(), F, table.data_ptr(),
-               mom.weights.data_ptr(), R, flags.df_mode,
+               cells.data_ptr(), cells.shape[0], NF, mom.mass.data_ptr(),
+               mom.sign.data_ptr(), mom.baryon.data_ptr(),
+               mom.degeneracy.data_ptr(), S, mom.pT.data_ptr(), P,
+               mom.cos_phi.data_ptr(), mom.sin_phi.data_ptr(), F,
+               table.data_ptr(), mom.weights.data_ptr(), R, flags.df_mode,
                int(flags.regulate), int(flags.outflow), CF_PREFACTOR,
                ETA_REMAP_T_REF, G.data_ptr(), grad.data_ptr())
         BWD_LAUNCHES += 1
         BWD_REMAP_LAUNCHES += 1
         return grad
+    if cells.shape[0] == 0 or S == 0 or P == 0 or F == 0:
+        return grad.zero_()           # no term: the plan needs a point
+    layout = (ctypes.c_int * 2)()
+    lib.is3d_spectra_bwd_layout(int(f64), flags.dimension, R, layout)
+    angles, stage_row = layout
+    rows, Gw = fixed_bwd_stage(G, mom, angles, stage_row)
     launch(lib, "spectra_bwd",
            lib.is3d_spectra_bwd_f64 if f64 else lib.is3d_spectra_bwd_f32,
-           cells.device, cells.data_ptr(), cells.shape[0], NF, *species,
-           mom.pT.data_ptr(), mom.px.data_ptr(), mom.py.data_ptr(), P, F,
-           mom.nodes.data_ptr(), mom.weights.data_ptr(), R, flags.df_mode,
-           flags.dimension, int(flags.regulate), int(flags.outflow),
-           CF_PREFACTOR, G.data_ptr(), grad.data_ptr())
+           cells.device, cells.data_ptr(), cells.shape[0], NF, S, P, F,
+           mom.px.data_ptr(), mom.py.data_ptr(), mom.nodes.data_ptr(),
+           mom.weights.data_ptr(), R, flags.df_mode, flags.dimension,
+           int(flags.regulate), int(flags.outflow), stage_row,
+           rows.data_ptr(), Gw.data_ptr(), grad.data_ptr())
     BWD_LAUNCHES += 1
     return grad
 

@@ -468,6 +468,20 @@ SPECTRA_EDGES = {
     # and node table) and no second
     "2d_remap_one_species": dict(dimension=2, df_mode=2, n_species=1,
                                  n_cells=6, grid=_REMAP),
+    # the fixed-node backward's (K9a) stages and tail: one species; 151
+    # species at 41 nodes, more than two stages of float32 or float64 hold
+    # (two species chunks, the last one short); 7 angles, which no angle
+    # group of 2 or 4 divides; 3200 rows at 21 nodes, more than one wave of
+    # the 6-cell blocks on a 132-SM card, which do not divide them (the
+    # last block partly empty); 70 fixed 2+1D nodes
+    "3d_one_species": dict(dimension=3, df_mode=2, n_species=1, n_cells=6),
+    "3d_species_chunks": dict(dimension=3, df_mode=2, n_species=151,
+                              n_cells=40, grid=dict(n_y=41)),
+    "3d_phi_tail": dict(dimension=3, df_mode=1, grid=dict(n_phi=7)),
+    "3d_partial_block": dict(dimension=3, df_mode=2, n_cells=3190,
+                             grid=dict(n_y=21)),
+    "2d_fixed_many_nodes": dict(dimension=2, df_mode=2, n_cells=60,
+                                grid=dict(n_eta=70)),
 }
 
 
@@ -582,6 +596,23 @@ def spectra_edge_seen(case: str, cells, mom, flags, out) -> str:
     if case.endswith("one_species"):
         assert S == 1, S
         return f"1 species, {SPECTRA_EDGES[case]['n_cells']} cells"
+    if case.endswith("species_chunks"):
+        # two float32 stages of every species (a species' 41 nodes x 2
+        # angles and its row, 352 bytes) are more than the shared memory of
+        # one of the 4 blocks an SM holds
+        assert S % 2 and R == 41, (S, R)
+        assert 2 * S * (R * 2 * 4 + 16) > 233472 // 4, S
+        return f"{S} species x {R} nodes: two species chunks a stage"
+    if case.endswith("phi_tail"):
+        assert F % 2 and F % 4, F
+        return f"{F} angles"
+    if case.endswith("partial_block"):
+        n = cells.shape[0]
+        assert R == 21 and n % 6 and n > 6 * 4 * 132, (n, R)
+        return f"{n} rows at {R} nodes"
+    if case.endswith("many_nodes"):
+        assert flags.dimension == 2 and R > 21, R
+        return f"{R} fixed eta nodes"
     if case.endswith("pad_rows"):
         n = SPECTRA_EDGES[case]["n_cells"]
         assert cells.shape[0] > n

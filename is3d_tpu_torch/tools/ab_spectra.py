@@ -92,8 +92,10 @@ that root (building its kernels into that root's _build/) and, per case:
   (df 2 with shear + bulk, regulate, outflow, float32, 320 species, the
   positive cotangent): timed as the spectra cases; the float64
   difference on its first 512 cells; each instantiation's resources and
-  SASS per evaluation as the grad cases (K9b's first version at its
-  launch shape where the side has no ``bwd_props``);
+  SASS per evaluation as the grad cases (K9a's plan -- cells a block,
+  species a stage, waves -- where the side has ``FIXED_BWD_PLAN``, else
+  its first version's launch shape; K9b's first version at its launch
+  shape where the side has no ``bwd_props``);
 * ``grad_decays``: the backward wave kernel K9c (``wave_bwd_cuda``) on
   every launch of the ``decays`` case's cascade (3+1D, float32, the
   positive cotangent), each launch's feed-down added to the running
@@ -464,6 +466,9 @@ def grad_main_case(case, report):
     props = None
     if flags.remap and hasattr(smooth, "bwd_props"):
         props = lambda: smooth.bwd_props(dev, False, mom, flags)
+    elif hasattr(smooth, "FIXED_BWD_PLAN"):        # K9a's plan
+        props = lambda: smooth.bwd_props(dev, False, mom, flags,
+                                         cells.shape[0])
     report[case] = {"ms": ms, "runs": runs, "sum": total, "err_f64": float(
         (out - ref).abs().max() / ref.abs().max()), "resources":
         bwd_resources("smooth_spectra_bwd", kern, props, first_version)}

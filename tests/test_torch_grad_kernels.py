@@ -17,11 +17,14 @@ max|grad| of each field, float64 1e-10 / 1e-13 x max; the cotangents are
 testing.grad_cotangent's positive weights (its comment says why).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
 from is3d_tpu_torch import testing
+from is3d_tpu_torch.io.tables import native_momentum_grid
 from is3d_tpu_torch.kernels import decays, feqmod, smooth, vah
 from is3d_tpu_torch.native import build
 
@@ -167,6 +170,38 @@ def test_padded_tables(case):
         :, :P * (F + 2) * NY].reshape(U, P, F + 2, NY)[:, :, 1:F + 1],
         tables.logdN.float() * torch.tensor(1.4426950408889634,
                                             dtype=torch.float32))
+
+
+@pytest.mark.parametrize("angles", [1, 2, 4])
+@pytest.mark.parametrize("case", ["3d_df2_ragged", "2d_df1_ragged"])
+def test_fixed_bwd_stage_is_what_the_kernel_reads(case, angles):
+    """fixed_bwd_stage lays the cotangent out as K9a stages it: entry
+    (pT p, angle group f // angles, species s, node r x angles + f %
+    angles) holds prefactor x degeneracy x G[s, p, f, r], the padded
+    angles and the padding of each species' row are 0; rows hold mT, m^2,
+    sign and baryon number of each (pT, species)."""
+    cells, mom, flags, G = testing.spectra_grad_inputs(case, n_cells=20)
+    S, P, F, R = G.shape
+    ru = -(-R * angles // 2) * 2 + 2
+    rows, Gw = smooth.fixed_bwd_stage(G, mom, angles, ru)
+    nfg = -(-F // angles)
+    assert Gw.shape == (P, nfg, S, ru) and Gw.is_contiguous()
+    w = smooth.CF_PREFACTOR * mom.degeneracy
+    f = torch.arange(F)
+    for r in range(R):
+        got = Gw[:, f // angles, :, r * angles + f % angles]   # (F, P, S)
+        want = (G[:, :, :, r] * w[:, None, None]).permute(2, 1, 0)
+        assert torch.equal(got, want)
+    pad = torch.ones(nfg, angles, dtype=torch.bool)
+    pad.view(-1)[:F] = False
+    for u in range(angles):
+        assert not Gw[:, pad[:, u], :, u:R * angles:angles].any()
+    assert not Gw[..., R * angles:].any()
+    m2 = mom.mass ** 2
+    assert torch.equal(rows[..., 0], torch.sqrt(m2 + mom.pT[:, None] ** 2))
+    assert torch.equal(rows[..., 1], m2.expand(P, S))
+    assert torch.equal(rows[..., 2], mom.sign.expand(P, S))
+    assert torch.equal(rows[..., 3], mom.baryon.expand(P, S))
 
 
 def test_backward_yardsticks():
@@ -438,6 +473,66 @@ def test_spectra_bwd_kernel_matches_plain(cuda_card, case, dtype):
     assert torch.equal(got, again)
     bad, worst = testing.grad_errors(got, want, *TOL[dtype])
     assert bad == 0, (case, worst)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("outflow", [False, True], ids=["clip_off",
+                                                        "clip_on"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("case", ["3d_df2_ragged", "2d_df1_ragged"])
+def test_spectra_bwd_kernel_does_not_hide_nan(cuda_card, case, dtype,
+                                              outflow):
+    """A NaN d sigma_x in one cell: the fixed-node kernel's gradient is NaN
+    wherever the plain version's is (the outflow mask lets a NaN p.dsigma
+    through), and every other cell's row holds the plain version's."""
+    cells, mom, flags, G = testing.spectra_grad_inputs(case, n_cells=24,
+                                                       dtype=dtype,
+                                                       device="cuda")
+    flags = dataclasses.replace(flags, outflow=outflow)
+    assert not flags.remap
+    cells[5, 2] = float("nan")                        # the column dax
+    want = smooth.spectra_bwd_plain(cells.double(), G.double(),
+                                    mom.to(None, torch.float64), flags)
+    got = smooth.spectra_bwd_cuda(cells, G, mom, flags)
+    torch.cuda.synchronize()
+    nan = torch.isnan(want)
+    assert nan[5].any() and not nan[torch.arange(len(want)) != 5].any()
+    assert torch.isnan(got)[nan].all(), (got[5], want[5])
+    rest = torch.arange(len(want)) != 5
+    bad, worst = testing.grad_errors(got[rest], want[rest], *TOL[dtype])
+    assert bad == 0, (case, worst)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f64", [False, True], ids=["f32", "f64"])
+def test_spectra_bwd_plan_stages_and_tail(cuda_card, f64):
+    """K9a's plan (smooth.bwd_props): 3d_species_chunks takes two species
+    chunks a stage; 3d_partial_block's last block is partly empty; at the
+    3+1D main shape (a 16384-cell group, 320 species, 32 x 24 x 21) a block
+    holds 128 // 21 = 6 cells, the float32 kernel holds 16 warps an SM,
+    its waves are its blocks over the card's resident blocks, and no plan
+    spills."""
+    dt = torch.float64 if f64 else torch.float32
+    cells, mom, flags = testing.spectra_edge_inputs(
+        "3d_species_chunks", dtype=dt, device="cuda")
+    plan = smooth.bwd_props("cuda", f64, mom, flags, cells.shape[0])
+    assert plan["species_per_stage"] < mom.mass.shape[0], plan
+    cells, mom, flags = testing.spectra_edge_inputs(
+        "3d_partial_block", dtype=dt, device="cuda")
+    plan = smooth.bwd_props("cuda", f64, mom, flags, cells.shape[0])
+    assert cells.shape[0] % plan["cells_per_block"], plan
+    grid = native_momentum_grid(3, dtype=dt, device="cuda")
+    mom = smooth.momentum_constants(
+        testing.synthetic_species(320, dtype=dt, device="cuda"), grid, 3)
+    plan = smooth.bwd_props("cuda", f64, mom, flags, 16384)
+    assert plan["local_bytes"] == 0 and plan["cells_per_block"] == 6, plan
+    slots = plan["blocks_per_sm"] * torch.cuda.get_device_properties(
+        0).multi_processor_count
+    assert plan["waves"] == -(-(-(-16384 // plan["cells_per_block"]))
+                              // slots), plan
+    if not f64:
+        assert plan["blocks_per_sm"] * plan["threads"] == 16 * 32, plan
 
 
 @pytest.mark.gpu

@@ -14,7 +14,8 @@ Phases, each printing its own line(s):
    csrc/polzn.cu, csrc/sample.cu, csrc/mc_decays.cu, csrc/yields.cu,
    csrc/sample_vah.cu, csrc/sample_search.cu, csrc/sample_vah_search.cu,
    csrc/smooth_spectra_bwd.cu, csrc/decays_bwd.cu, csrc/feqmod_bwd.cu,
-   csrc/vah_bwd.cu; one nvcc each, all started together) and the fastio host library, from this checkout's
+   csrc/vah_bwd.cu, csrc/polzn_bwd.cu; one nvcc each, all started
+   together) and the fastio host library, from this checkout's
    sources, with ptxas's register and spill lines;
 3. each kernel against its plain torch version at small shapes, in f32
    (atol 2e-5 * max, rtol 2e-4) and f64 (rtol 1e-10, atol 1e-13 * max):
@@ -193,12 +194,21 @@ Phases, each printing its own line(s):
    cell: every chain, by those and the shear, bulkPi, W, c0 and c3) as
    [grad main]; [vah dndx] operation 0 on a
    16384-cell mode-2 2+1D run, its small run and one group;
-11. the polarization paths: [polzn main 2d] a synthetic 131072 x 320
+11. the polarization paths: [grad small polzn] K12a and K12b
+   (csrc/polzn_bwd.cu) on every testing.POLZN_EDGES case as [grad small
+   vah] (a massless species' NaN and inf where the plain version has them
+   in the kernel's precision); [polzn main 2d] a synthetic 131072 x 320
    mode-5 2+1D run directory through ``cli.main`` (the remap kernel, then
    K1's remap spectra, df 2), the S*.dat files, its 256-cell
    cuda-against-cpu run; [polzn main 3d] the same in 3+1D (the fixed-node
    kernel, then K1); [polzn pair] one group of each as [vah pair]
-   (kernels/polzn.py, polzn_formula_ops); [grad mode5] the spectra
+   (kernels/polzn.py, polzn_formula_ops); [grad polzn pair] K12b and K12a
+   on those groups as [grad vah pair] (five sums' positive cotangent);
+   [grad polzn main 2d] and [grad polzn main 3d]: diff.surface_vjp of
+   polarization_fn at full width by the vorticity, flow and dsigma (and
+   eta), the observable sum of the Lambda row's Sy_over_Snorm: the
+   forward bit-equal to spin_polarization, K6 and K12 once a group, f64
+   central differences; [grad mode5] the spectra
    gradient of the 2+1D mode-5 surface (K1's remap and K9b once a group,
    no polarization kernel);
 12. the sampler (operation 2): [sample main 2d] a synthetic 131072 x 320
@@ -273,11 +283,12 @@ cascade_formula_ops), the backward kernels' from theirs
 (kernels/smooth.py, backward_formula_ops; kernels/decays.py,
 wave_backward_operations; kernels/feqmod.py,
 feqmod_backward_formula_ops, each chain apart; kernels/vah.py,
-vah_backward_formula_ops).  Before
+vah_backward_formula_ops; kernels/polzn.py,
+polzn_backward_formula_ops).  Before
 every path (4, 5a, 6, 7a, 8, 9, 10, 11, 12, 13, and the gradients of
 [grad main], [grad main 2d], [grad decays], [grad feqmod main], [grad
 feqmod main 2d], [grad feqmod decays], [grad vah main 2d], [grad vah main
-3d], [grad mode5]) all launch
+3d], [grad polzn main 2d], [grad polzn main 3d], [grad mode5]) all launch
 counts are set to 0 and they are read right after it.  The line before
 the last is the kernel record as JSON; the last line is ``{"ok": true,
 "device": {...}}``.  Any failed phase exits nonzero before that line is
@@ -369,7 +380,7 @@ KERNEL_SOURCES = ("smooth_spectra", "dndx", "smooth_proto", "decays",
                   "feqmod", "vah", "polzn", "sample", "mc_decays", "yields",
                   "sample_vah", "sample_search", "sample_vah_search",
                   "smooth_spectra_bwd", "decays_bwd", "feqmod_bwd",
-                  "vah_bwd")
+                  "vah_bwd", "polzn_bwd")
 # H100 SXM: SMs, FP32, SFU and INT32-multiply lanes per SM, memory rate
 # (bytes/s)
 N_SM, FP32_LANES, SFU_LANES, HBM_RATE = 132, 128, 16, 3.35e12
@@ -1344,6 +1355,7 @@ def _reset_counts():
     vah.LAUNCHES = vah.REMAP_LAUNCHES = 0
     vah.BWD_LAUNCHES = vah.BWD_REMAP_LAUNCHES = 0
     polzn.LAUNCHES = polzn.REMAP_LAUNCHES = 0
+    polzn.BWD_LAUNCHES = polzn.BWD_REMAP_LAUNCHES = 0
     sample.LAUNCHES = sample.PACKED_LAUNCHES = sample.ALIAS_LAUNCHES = 0
     sample.VAH_LAUNCHES = sample.VAH_PACKED_LAUNCHES = 0
     sample.SEARCH_LAUNCHES = sample.SEARCH_PACKED_LAUNCHES = 0
@@ -1376,6 +1388,8 @@ def _counts() -> dict:
                 vah_spectra_remap=vah.REMAP_LAUNCHES,
                 dndx_vah=dndx.VAH_LAUNCHES,
                 polzn=polzn.LAUNCHES, polzn_remap=polzn.REMAP_LAUNCHES,
+                polzn_bwd=polzn.BWD_LAUNCHES,
+                polzn_bwd_remap=polzn.BWD_REMAP_LAUNCHES,
                 sample_events=sample.LAUNCHES,
                 sample_packed=sample.PACKED_LAUNCHES,
                 sample_events_vah=sample.VAH_LAUNCHES,
@@ -2286,13 +2300,17 @@ def phase_vah(smi: str, clock: float):
 
 
 def phase_polzn(smi: str, clock: float):
-    """The polarization paths: [polzn main 2d] (mode 5, 2+1D: the remap
+    """The polarization paths: [grad small polzn] (K12a and K12b on
+    testing.POLZN_EDGES); [polzn main 2d] (mode 5, 2+1D: the remap
     kernel, then K1's remap spectra) and [polzn main 3d] (3+1D: the
     fixed-node kernel, then K1) through the CLI at 131072 x 320, the
-    first with its 256-cell cuda-against-cpu run; [polzn pair] on one
-    group of each; [grad mode5] on the 2+1D surface.  Returns the kernel
-    records of both."""
+    first with its 256-cell cuda-against-cpu run; [polzn pair] and [grad
+    polzn pair] on one group of each; [grad polzn main 2d] and [grad polzn
+    main 3d] (the polarization's gradient at full width); [grad mode5] on
+    the 2+1D surface.  Returns the kernel records of K6's two kernels and
+    of K12a and K12b."""
     from is3d_tpu_torch.kernels import polzn
+    phase_small_grad_polzn()
     counts2, run_dir2, cfg2, _ = phase_main_path(
         smi, "polzn main 2d", dimension=2, args=POLZN2D_ARGS, n_nodes=48,
         want=("polzn_remap", "smooth_spectra", "smooth_spectra_remap"),
@@ -2305,17 +2323,25 @@ def phase_polzn(smi: str, clock: float):
         want=("polzn", "smooth_spectra"), mode=5)
     run2, species2, grid2 = _run_state(run_dir2, cfg2)
     run3, species3, grid3 = _run_state(run_dir3, cfg3)
+    g2 = (_first_group(polzn.polzn_cols(run2.surface), cfg2), species2,
+          grid2, cfg2, run2.plasma().temperature)
+    g3 = (_first_group(polzn.polzn_cols(run3.surface), cfg3), species3,
+          grid3, cfg3, run3.plasma().temperature)
     rec_remap, rec_fixed = phase_polzn_pair(smi, clock, [
-        ("2+1D remap", _first_group(polzn.polzn_cols(run2.surface), cfg2),
-         species2, grid2, cfg2, run2.plasma().temperature, 512),
-        ("3+1D fixed", _first_group(polzn.polzn_cols(run3.surface), cfg3),
-         species3, grid3, cfg3, run3.plasma().temperature, 1024)])
+        ("2+1D remap",) + g2 + (512,), ("3+1D fixed",) + g3 + (1024,)])
+    rec_bwd_remap, rec_bwd = phase_grad_polzn_pair(smi, clock, [
+        ("2+1D remap",) + g2, ("3+1D fixed",) + g3])
+    rec_bwd_remap["launches"] = phase_grad_polzn_main(
+        smi, run_dir2, cfg2, "grad polzn main 2d")["counts"][
+            "polzn_bwd_remap"]
+    rec_bwd["launches"] = phase_grad_polzn_main(
+        smi, run_dir3, cfg3, "grad polzn main 3d")["counts"]["polzn_bwd"]
     phase_grad_mode5(smi, run_dir2, cfg2)
     for d in (run_dir2, run_dir3):
         shutil.rmtree(d, ignore_errors=True)
     rec_remap["launches"] = counts2["polzn_remap"]
     rec_fixed["launches"] = counts3["polzn"]
-    return rec_fixed, rec_remap
+    return rec_fixed, rec_remap, rec_bwd, rec_bwd_remap
 
 
 # ------------------------------------------------------------- operation 2
@@ -3493,30 +3519,52 @@ GRAD_WRT = ("T", "ux", "uy", "un", "bulkPi", "pixx", "pixy", "pixn", "piyy",
 GRAD_PLAIN_CELLS = 32
 GRAD_FD_CELLS = 256
 ENSEMBLE_EVENTS, ENSEMBLE_CELLS = 8, 16384
+# the fields [grad polzn main 2d] / [grad polzn main 3d] differentiate by
+# (and eta in 3+1D)
+GRAD_POLZN_WRT = ("wtx", "wty", "wtn", "wxy", "wxn", "wyn", "ux", "uy", "un",
+                  "dat", "dax", "day", "dan")
 
 
-def _grad_check(name, got, want, dtype, plain=None) -> float:
-    """Fail unless a gradient agrees with its plain version (per field:
-    TOL[dtype] of the field's largest value) or, given the plain version's
+def _grad_check(name, got, want, dtype, plain=None, loose=()) -> float:
+    """Fail unless a gradient agrees with its plain version, each field
+    (testing.grad_field_errors) to TOL[dtype] of the field's largest value,
+    the fields in ``loose`` to the float32 bar.  Given the plain version's
     own gradient in ``dtype`` (``plain``; the main-shape pairs, as [pair]
-    holds the forward kernels), differs from ``want`` by at most 3x what
-    that plain gradient does; returns the largest error."""
+    holds the forward kernels), a field outside the bar passes if its
+    error is at most 3x the plain gradient's in that same field.  Returns
+    the largest error."""
     from is3d_tpu_torch import testing
-    bad, worst = testing.grad_errors(got, want, *TOL[dtype])
+    bad, worst = testing.grad_field_errors(got, want, *TOL[dtype])
+    if loose:
+        idx = torch.tensor(sorted(loose))
+        bad[idx] = testing.grad_field_errors(got, want,
+                                             *TOL[torch.float32])[0][idx]
     gl = got if isinstance(got, tuple) else (got,)
     wl = want if isinstance(want, tuple) else (want,)
     err = max((g.double().cpu() - w.double().cpu()).abs().max().item()
               for g, w in zip(gl, wl))
-    line = f"largest error {worst:.2e} of its field's largest value"
+    line = (f"largest error {float(worst.max()):.2e} of its field's largest "
+            "value")
+    if loose:
+        line += f" (fields {sorted(loose)} at the float32 bar)"
     if plain is not None:
-        worst_p = testing.grad_errors(plain, want, *TOL[dtype])[1]
-        line += f" (the plain version in {dtype}: {worst_p:.2e})"
-        if bad and worst <= 3.0 * worst_p:
-            bad = 0
+        worst_p = testing.grad_field_errors(plain, want, *TOL[dtype])[1]
+        line += f" (the plain version in {dtype}: {float(worst_p.max()):.2e})"
+        waive = (bad > 0) & (worst <= 3.0 * worst_p)
+        if waive.any():
+            js = waive.nonzero().flatten().tolist()
+            line += (f"; {len(js)} field(s) outside the bar within 3x the "
+                     "plain version's own error there: " + ", ".join(
+                         f"{j} ({worst[j]:.2e} against {worst_p[j]:.2e})"
+                         for j in js[:4]) + (", ..." if len(js) > 4 else ""))
+        bad = bad.masked_fill(waive, 0)
+    js = bad.nonzero().flatten().tolist()
+    bad = int(bad.sum())
     print(f"[kernel vs plain] {name}: {line} {'ok' if not bad else 'FAIL'}")
     if bad:
         fail(f"{name}: {bad} gradient entries outside rtol={TOL[dtype][0]}, "
-             f"atol={TOL[dtype][1]}*max of their field")
+             f"atol={TOL[dtype][1]}*max of their field (fields " + ", ".join(
+                 f"{j}: {worst[j]:.2e}" for j in js[:6]) + ")")
     return err
 
 
@@ -3682,36 +3730,48 @@ def _surface_slice(surface, n: int, dtype):
 
 
 def _grad_path(smi: str, tag: str, surface, make_fn, prod, mcids, grid,
-               cfg, wrt, want: dict, picks) -> dict:
-    """diff.surface_vjp of a differentiable spectra map at full width (the
-    main path's surface, f32) with respect to ``wrt``, then the pullback of
-    the observable's cotangent (_grad_observable): ``make_fn(dtype)`` the
-    map on that precision's species, grid and tables, ``prod()`` the
-    production spectra, ``want`` the kernels and their launches (every
-    count set to 0 before the run); the forward equals the production
-    spectra bit for bit, every gradient is finite and nonzero; forward and
-    backward seconds; on the first GRAD_FD_CELLS cells in f64 the entries
-    ``picks`` against central differences (rtol 5e-5)."""
+               cfg, wrt, want: dict, picks, observable=None) -> dict:
+    """diff.surface_vjp of a differentiable map at full width (the main
+    path's surface, f32) with respect to ``wrt``, then the pullback of the
+    observable's cotangent: ``make_fn(dtype)`` the map on that precision's
+    species, grid and tables, ``prod()`` the production result (a tensor,
+    or a dict of tensors as polarization_fn's), ``observable(grid)`` the
+    scalar of it (default _grad_observable's spectra observable), ``want``
+    the kernels and their launches (every count set to 0 before the run);
+    the forward equals the production result bit for bit, every gradient
+    is finite and nonzero; forward and backward seconds; on the first
+    GRAD_FD_CELLS cells in f64 the entries ``picks`` against central
+    differences (rtol 5e-5)."""
     from is3d_tpu_torch import diff
+    if observable is None:
+        observable = lambda g: _grad_observable(g, mcids)
     fn = make_fn(torch.float32)
-    obs = _grad_observable(grid, mcids)
+    obs = observable(grid)
     _reset_counts()
     t0 = time.perf_counter()
-    spectra, pull = diff.surface_vjp(fn, surface, wrt)
+    value, pull = diff.surface_vjp(fn, surface, wrt)
     torch.cuda.synchronize()
     t_fwd = time.perf_counter() - t0
-    sp = spectra.clone().requires_grad_(True)
+    # the observable's cotangent on each leaf of the value (0 where unused)
+    leaves = value if isinstance(value, dict) else {None: value}
+    xs = {k: v.clone().requires_grad_(True) for k, v in leaves.items()}
     with torch.enable_grad():
-        (ct,) = torch.autograd.grad(obs(sp), sp)
+        y = obs(xs if isinstance(value, dict) else xs[None])
+        cts = torch.autograd.grad(y, list(xs.values()), allow_unused=True)
+    ct = {k: torch.zeros_like(v) if c is None else c
+          for (k, v), c in zip(xs.items(), cts)}
     t0 = time.perf_counter()
-    grads = pull(ct)
+    grads = pull(ct if isinstance(value, dict) else ct[None])
     torch.cuda.synchronize()
     t_bwd = time.perf_counter() - t0
     counts = _counts()
     _expect_counts(f"{tag} path", counts, want)
-    if not torch.equal(spectra, prod()):
+    ref = prod()
+    refs = ref if isinstance(ref, dict) else {None: ref}
+    if sorted(refs, key=str) != sorted(leaves, key=str) or not all(
+            torch.equal(leaves[k], refs[k]) for k in refs):
         fail(f"{tag}: the differentiable forward differs from the "
-             "production spectra")
+             "production result")
     for k, g in grads.items():
         if not (torch.isfinite(g).all() and g.abs().max() > 0):
             fail(f"{tag}: the gradient by {k} is not finite and nonzero "
@@ -3720,12 +3780,12 @@ def _grad_path(smi: str, tag: str, surface, make_fn, prod, mcids, grid,
                  f"{torch.nonzero(~torch.isfinite(g))[:4, 0].tolist()}; "
                  f"{int((g == 0).sum())} zero)")
     nodes = grid.n_eta if cfg.dimension == 2 else grid.n_y
-    evals = surface.n_cells * spectra.shape[0] * grid.n_pT * grid.n_phi * \
-        nodes
+    n_species = next(iter(leaves.values())).shape[0]
+    evals = surface.n_cells * n_species * grid.n_pT * grid.n_phi * nodes
     groups = max(want.values())
-    print(f"[{tag}] {smi} | {surface.n_cells} cells x {spectra.shape[0]} "
+    print(f"[{tag}] {smi} | {surface.n_cells} cells x {n_species} "
           f"species, {len(wrt)} fields: forward {t_fwd:.3f} s (bit-equal "
-          f"to the production spectra), backward {t_bwd:.3f} s, "
+          f"to the production result), backward {t_bwd:.3f} s, "
           f"{evals / t_bwd:.3e} backward evaluations/s, "
           f"{t_bwd / groups * 1e3:.1f} ms a group over {groups} groups | "
           "launches " + ", ".join(f"{k} {v}" for k, v in want.items()))
@@ -3734,7 +3794,7 @@ def _grad_path(smi: str, tag: str, surface, make_fn, prod, mcids, grid,
     n = GRAD_FD_CELLS
     s64 = _surface_slice(surface, n, torch.float64)
     fn64 = make_fn(torch.float64)
-    obs64 = _grad_observable(grid.to(None, torch.float64), mcids)
+    obs64 = observable(grid.to(None, torch.float64))
     _, g64 = diff.surface_value_and_grad(lambda s: obs64(fn64(s)), s64,
                                          [k for k, _ in picks])
     worst = 0.0
@@ -4051,7 +4111,8 @@ def _resources(label: str, props: dict, library: str, kernel: str) -> str:
 
 def _grad_kernel_pair(smi: str, clock: float, tag: str, kern, kslice,
                       plain, plain64, n: int, bound, evals: float,
-                      bodies: list, note: str, checked: str) -> dict:
+                      bodies: list, note: str, checked: str,
+                      kslice64=None) -> dict:
     """A backward kernel on one canonical group as [grad pair] takes it:
     two launches bit-identical, the CUDA-event median of 3 (one warm-up),
     n of the group's cells (``kslice``; ``checked`` says which) against the
@@ -4059,7 +4120,12 @@ def _grad_kernel_pair(smi: str, clock: float, tag: str, kern, kslice,
     own error in f32 (``plain``, one timed run), the bound and its share;
     for each instantiation of ``bodies`` (label, library, mangled name,
     kernel_props) its registers, spills and resident blocks, and its SASS
-    per evaluation.  Returns the kernel record."""
+    per evaluation.  Given ``kslice64`` (the float64 kernel on the same
+    cells), every field is also held in f64: at the f64 bar, or at the f32
+    bar where the plain version in f32 misses that bar (a field that
+    cancels, whose f32 hold the plain version's own error waives).
+    Returns the kernel record."""
+    from is3d_tpu_torch import testing
     from is3d_tpu_torch.utils import cuda_median_ms
     tup = lambda t: t if isinstance(t, tuple) else (t,)
     got, again = tup(kern()), tup(kern())
@@ -4072,6 +4138,11 @@ def _grad_kernel_pair(smi: str, clock: float, tag: str, kern, kslice,
     err = _grad_check_fields(f"[{tag}] float32, {n} of the group's cells "
                              f"({checked})", kslice(), want, torch.float32,
                              p32)
+    if kslice64 is not None:
+        loose = testing.grad_field_errors(p32, want, *TOL[torch.float32])[0]
+        _grad_check(f"[{tag}] float64, {n} of the group's cells ({checked})",
+                    kslice64(), want, torch.float64,
+                    loose=loose.nonzero().flatten().tolist())
     del want, p32
     print(f"[{tag}] {smi} | {note}: backward kernel {k_ms:.3f} ms (runs "
           f"{', '.join(f'{t:.2f}' for t in k_all)}), "
@@ -4295,6 +4366,150 @@ def phase_grad_vah_main(smi: str, surface, species, grid, cfg, mcids,
         want, picks)
 
 
+def _polzn_bwd_check(name, got, want, plain, dtype, plain32=None) -> float:
+    """A K12 gradient (C, NW) against the f64 plain one (``want``) per
+    field as _grad_check_fields takes it, with a massless species' NaN and
+    inf where the plain version in the kernel's precision (``plain``) has
+    them; ``plain32`` the plain version's own float32 gradient at the main
+    shapes (3x its error allowed)."""
+    for what, f in (("NaN", torch.isnan), ("+inf", torch.isposinf),
+                    ("-inf", torch.isneginf)):
+        if not torch.equal(f(got), f(plain)):
+            fail(f"{name}: the kernel's {what} positions differ from the "
+                 "plain version's")
+    fin = torch.isfinite(plain) & torch.isfinite(want)
+    n_bad = int((~fin).sum())
+    if n_bad:
+        name += f" [{n_bad} non-finite entries in the same places]"
+    keep = lambda t: torch.where(fin, t, torch.zeros_like(t))
+    return _grad_check_fields(name, keep(got), keep(want), dtype,
+                              None if plain32 is None else keep(plain32))
+
+
+def phase_small_grad_polzn():
+    """[grad small polzn]: K12a and K12b (csrc/polzn_bwd.cu) on every
+    testing.POLZN_EDGES case (3+1D, 2+1D fixed nodes and the remap; ragged
+    species, points and nodes; exp overflow; strong flow; a massless
+    species; pad rows) against the plain version's autograd in f64 from
+    the same inputs (a positive cotangent on the five sums), f32 and f64,
+    the massless cases' NaN and inf where the plain version has them in
+    the kernel's precision; two launches bit-identical."""
+    from is3d_tpu_torch import testing
+    from is3d_tpu_torch.kernels import polzn
+    n = 0
+    for case in sorted(testing.POLZN_EDGES):
+        for dtype in (torch.float32, torch.float64):
+            x, mom, pm, wR, flags, table, G = testing.polzn_grad_inputs(
+                case, dtype=dtype, device="cuda")
+            want = polzn.polzn_bwd_plain(
+                x.double(), G.double(), mom.to(None, torch.float64),
+                pm.double(), wR.double(), flags)
+            plain = polzn.polzn_bwd_plain(x, G, mom, pm, wR, flags)
+            got = polzn.polzn_bwd_cuda(x, G, mom, pm, wR, flags, table)
+            again = polzn.polzn_bwd_cuda(x, G, mom, pm, wR, flags, table)
+            torch.cuda.synchronize()
+            if not torch.equal(_bits(got), _bits(again)):
+                fail(f"polzn_bwd {case}: two launches differ")
+            _polzn_bwd_check(f"[grad small polzn] polzn_bwd {case} {dtype}",
+                             got, want, plain, dtype)
+            n += 1
+    print(f"[grad small polzn] {n} gradients of K12a/K12b agree with the "
+          "plain version's autograd; two launches bit-identical; the "
+          "massless species' NaN/inf in place")
+
+
+def phase_grad_polzn_pair(smi: str, clock: float, groups: list) -> list:
+    """[grad polzn pair]: K12a / K12b on one canonical group of a
+    polarization main path (f32, a positive cotangent on the five sums)
+    for each (kind, columns, species, grid, cfg, T_avg) of ``groups``, as
+    _grad_kernel_pair, the float64 kernel on the same cells too (the
+    remap's y_flow column cancels: its gradient is a boundary term of an
+    integral over eta that does not depend on y_flow, and float32 holds
+    little of it); the bound from
+    kernels/polzn.py:polzn_backward_formula_ops."""
+    from is3d_tpu_torch import testing
+    from is3d_tpu_torch.kernels import polzn
+    from is3d_tpu_torch.kernels.smooth import (momentum_constants,
+                                               remap_node_table)
+    records = []
+    for kind, cols, species, grid, cfg, T_avg in groups:
+        flags = polzn.polzn_flags(cfg, grid)
+        x = polzn.pack_polzn_cells(cols, T_avg, flags)
+        mom = momentum_constants(species, grid, cfg.dimension)
+        # the float64 constants from the float64 grid: the remap kernel
+        # forms pT cos phi, pT sin phi itself, which float32 px, py carried
+        # to float64 would miss by their float32 rounding
+        mom64 = momentum_constants(species.to(None, torch.float64),
+                                   grid.to(None, torch.float64),
+                                   cfg.dimension)
+        pm, wR = polzn.species_pm(species), polzn.node_weights(grid, flags)
+        table = remap_node_table(mom) if flags.remap else None
+        S, P, F = mom.mass.shape[0], mom.pT.shape[0], mom.n_phi
+        R = mom.nodes.shape[0]
+        G = testing.grad_cotangent((5, S, P, F, R if cfg.dimension == 3
+                                    else 1), dtype=torch.float32,
+                                   device="cuda")
+        n = GRAD_PAIR_PLAIN_CELLS
+        xs = x[:n].contiguous()
+        evals = x.shape[0] * S * P * F * R
+        nb = _nbytes(x, G, x, pm, wR, *mom_tensors(mom)) + (
+            _nbytes(table) if flags.remap else 0)
+        bound = _bound(evals, *polzn.polzn_backward_formula_ops(
+            flags.remap, F), nb, clock)
+        kernel = ("polzn_remap_bwd_kernelIfEE" if flags.remap
+                  else f"polzn_bwd_kernelIfLi{flags.dimension}EE")
+        plain64 = lambda: polzn.polzn_bwd_plain(
+            xs.double(), G.double(), mom64, pm.double(), wR.double(), flags)
+        rec = _grad_kernel_pair(
+            smi, clock, "grad polzn pair",
+            lambda: polzn.polzn_bwd_cuda(x, G, mom, pm, wR, flags, table),
+            lambda: polzn.polzn_bwd_cuda(xs, G, mom, pm, wR, flags, table),
+            lambda: polzn.polzn_bwd_plain(xs, G, mom, pm, wR, flags),
+            plain64, n, bound, evals,
+            [("five sums", "polzn_bwd", kernel,
+              polzn.bwd_props(x.device, False, mom, flags))],
+            f"{kind}: one group {x.shape[0]} cells x {S} x {P * F} x {R} "
+            f"nodes, five sums", "the first ones",
+            kslice64=lambda: polzn.polzn_bwd_cuda(
+                xs.double(), G.double(), mom64, pm.double(), wR.double(),
+                flags))
+        records.append(rec)
+    return records
+
+
+def phase_grad_polzn_main(smi: str, run_dir: str, cfg, tag: str) -> dict:
+    """[grad polzn main 2d] / [grad polzn main 3d]: _grad_path of the
+    production polarization (spin_polarization's dict) of a polarization
+    main path's surface with respect to the vorticity wtx..wyn, the flow,
+    dsigma (and eta in 3+1D), the observable the sum over pT and phi of
+    the Lambda row's St, Sx, Sy and Sn over Snorm (tests/test_grad.py's
+    Sy_over_Snorm alone does not depend on wty, wxy or wyn, whose
+    gradients would be exactly 0): K6 and K12a (K12b with the remap) each
+    launched once a group."""
+    from is3d_tpu_torch import diff
+    from is3d_tpu_torch.kernels.polzn import spin_polarization
+    from is3d_tpu_torch.parallel.mesh import canonical_groups
+    run, _, _, species, mcids, grid = _prepared(run_dir, cfg)
+    lam = int(np.nonzero(np.asarray(mcids) == 3122)[0][0])
+    surface, plasma = run.surface, run.plasma()
+    groups, _ = canonical_groups(cfg, surface.n_cells)
+    remap = cfg.dimension == 2 and grid.eta_mT_rescale
+    want = (dict(polzn_remap=groups, polzn_bwd_remap=groups) if remap
+            else dict(polzn=groups, polzn_bwd=groups))
+    wrt = GRAD_POLZN_WRT + (("eta",) if cfg.dimension == 3 else ())
+    picks = [("wtx", 5), ("wxn", 17), ("wty", 25), ("ux", 33),
+             ("dat", 41)] + ([("eta", 9)] if cfg.dimension == 3
+                             else [("un", 9)])
+    return _grad_path(
+        smi, tag, surface,
+        lambda dt: diff.polarization_fn(species.to(None, dt),
+                                        grid.to(None, dt), cfg, plasma),
+        lambda: spin_polarization(surface, species, grid, cfg, plasma),
+        mcids, grid, cfg, wrt, want, picks,
+        observable=lambda g: lambda out: sum(
+            out[f"S{c}_over_Snorm"][lam].sum() for c in "txyn"))
+
+
 def phase_grad_mode5(smi: str, run_dir: str, cfg) -> dict:
     """[grad mode5]: the spectra of a mode-5 (vorticity) surface are K1's
     (api.py): _grad_path of smooth_spectra on [polzn main 2d]'s surface,
@@ -4446,7 +4661,8 @@ def main():
          rec_qbwd_remap) = phase_feqmod(smi, clock)
         (rec_vah, rec_vah_remap, rec_vah_dndx, vah_dir, vah_dndy, rec_vbwd,
          rec_vbwd_remap) = phase_vah(smi, clock)
-        rec_polzn, rec_polzn_remap = phase_polzn(smi, clock)
+        rec_polzn, rec_polzn_remap, rec_pbwd, rec_pbwd_remap = phase_polzn(
+            smi, clock)
         (rec_k7, rec_k7a, rec_k8, rec_yields, rec_yields_vah, rec_k7_vah,
          rec_k7_search) = phase_sample(smi, clock, vah_dir, vah_dndy)
         phase_cpu_runs()
@@ -4530,6 +4746,11 @@ def main():
              replaces="is3d_tpu/kernels/vah.py:51", **rec_vbwd),
         dict(name="vah_bwd_remap", route="cuda", source=src + "vah_bwd.cu",
              replaces="is3d_tpu/kernels/vah.py:199", **rec_vbwd_remap),
+        dict(name="polzn_bwd", route="cuda", source=src + "polzn_bwd.cu",
+             replaces="is3d_tpu/kernels/polzn.py:42", **rec_pbwd),
+        dict(name="polzn_bwd_remap", route="cuda",
+             source=src + "polzn_bwd.cu",
+             replaces="is3d_tpu/kernels/polzn.py:73", **rec_pbwd_remap),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

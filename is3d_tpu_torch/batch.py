@@ -16,10 +16,10 @@ enters a sum and its gradient is exactly 0.  A stacked surface built
 without counts (any (E, C) Surface) runs every row whole.
 
 Gradients flow through the batched spectra of every surface and df mode
-(diff.spectra_fn's maps): a loss summed over the ensemble differentiates
-in one reverse pass.  The batched polarization refuses a gradient, as
-diff.polarization_fn does (K6's backward is not ported), and ``mesh=``
-(the event axis over several GPUs) is refused until slice 11.
+(diff.spectra_fn's maps) and through the batched polarization
+(diff.polarization_fn's map): a loss summed over the ensemble
+differentiates in one reverse pass.  ``mesh=`` (the event axis over several
+GPUs) is refused until slice 11.
 """
 
 from __future__ import annotations
@@ -36,6 +36,7 @@ from .data import SpeciesArrays
 from .io.surface import Surface
 from .io.tables import MomentumGrid
 from .io.deltaf import DeltafData
+from .diff import refuse_mesh
 from .kernels.common import PAD_ONE_COLUMNS
 
 
@@ -44,13 +45,6 @@ class StackedSurface(Surface):
     """A Surface with (E, C) leaves and each event's own cell count."""
 
     counts: tuple = ()
-
-
-def _refuse_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError("mesh= (the event axis over several GPUs) "
-                                  "is not ported yet: ROADMAP section 1, "
-                                  "slice 11")
 
 
 def _fields():
@@ -136,18 +130,12 @@ def batched_spectra_fn(species: SpeciesArrays, grid: MomentumGrid,
     return fn
 
 
-def _tracked(stacked: Surface) -> bool:
-    return torch.is_grad_enabled() and any(
-        getattr(stacked, name) is not None
-        and getattr(stacked, name).requires_grad for name in _fields())
-
-
 def smooth_spectra_batched(stacked: Surface, species: SpeciesArrays,
                            grid: MomentumGrid, df_data: DeltafData | None,
                            cfg: Config, mesh=None) -> torch.Tensor:
     """Spectra of a stacked ensemble, (E, S, n_pT, n_phi, n_y_out), each
     row the single run of its event."""
-    _refuse_mesh(mesh)
+    refuse_mesh(mesh)
     return batched_spectra_fn(species, grid, df_data, cfg)(stacked)
 
 
@@ -156,12 +144,11 @@ def polarization_batched(stacked: Surface, species: SpeciesArrays,
                          mesh=None) -> dict:
     """Spin polarization (mode-5 surfaces) of a stacked ensemble: the dict
     of spin_polarization's outputs with a leading event axis, each event at
-    its own T_avg ((E,) or one value for all)."""
+    its own T_avg ((E,) or one value for all, constants).  Gradients flow
+    to the stacked surface's columns, each event's those of its single
+    run."""
     from .kernels.polzn import spin_polarization
-    _refuse_mesh(mesh)
-    if _tracked(stacked):
-        from .diff import polarization_fn
-        polarization_fn(species, grid, cfg, None)        # raises
+    refuse_mesh(mesh)
     E = stacked.tau.shape[0]
     T = torch.as_tensor(T_avg, dtype=torch.float64).reshape(-1)
     T = T.expand(E) if T.numel() == 1 else T

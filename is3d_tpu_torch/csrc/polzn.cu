@@ -56,18 +56,12 @@
 #include <cuda_runtime.h>
 
 #include "folded.cuh"
+#include "polzn.cuh"
 
 namespace {
 
 using namespace is3d;
 
-// must match PW_FIELDS in is3d_tpu_torch/kernels/polzn.py
-enum PwField {
-  W_TAU, W_ETA, W_DAT, W_DANT, W_DAX, W_DAY, W_UT_T, W_TUN_T, W_UX_T,
-  W_UY_T, W_ITAU, W_WTX, W_WTY, W_WTN, W_WXY, W_WXN, W_WYN, W_YFLOW, NW
-};
-
-constexpr int NSUM = 5;            // St, Sx, Sy, Sn, Snorm
 constexpr int BLOCK = 128;         // momentum points per block
 constexpr int JP = 4;              // species per thread
 constexpr int YC = 3;              // nodes per register block

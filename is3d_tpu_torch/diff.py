@@ -9,11 +9,12 @@ reverse pass runs
 * on CUDA tensors, the backward kernels: smooth.spectra_bwd_cuda (K1's
   fixed nodes and 2+1D remap, csrc/smooth_spectra_bwd.cu) for the linear-df
   spectra, feqmod.feqmod_bwd_cuda (csrc/feqmod_bwd.cu) for df 3-4,
-  vah.vah_bwd_cuda (csrc/vah_bwd.cu) for VAH, decays.wave_bwd_cuda
+  vah.vah_bwd_cuda (csrc/vah_bwd.cu) for VAH, polzn.polzn_bwd_cuda
+  (csrc/polzn_bwd.cu) for the spin polarization, decays.wave_bwd_cuda
   (csrc/decays_bwd.cu) for the feed-down waves, torch autograd for the
   per-cell and per-slot tensor algebra around them (prepare_cells, the df
   coefficients, the feqmod transform and renormalization, pack_cells,
-  prepare_parents);
+  pack_polzn_cells, prepare_parents);
 * on CPU tensors, torch autograd of the plain versions, each cell chunk
   recomputed in the backward (torch.utils.checkpoint, JAX's remat_scan).
 
@@ -22,14 +23,13 @@ Supported surface maps: spectra_fn on viscous-hydro surfaces (modes 1 and
 equilibrium df (df_mode 3-4, K3's backward K10a/K10b,
 csrc/feqmod_bwd.cu), and on anisotropic surfaces (modes 2-3, K4's backward
 K11a/K11b, csrc/vah_bwd.cu); decayed_spectra_fn, the same through the 2-
-and 3-body feed-down.  The spin polarization (polarization_fn) needs the
-backward pass of K6, which is not ported yet: it raises
-NotImplementedError on every device, so nothing falls back to a plain path
-on the card.  As in is3d_tpu.diff, the df 3-4 forward is the production
-smooth_spectra_feqmod (the JAX package disables its breakdown partition for
-AD; the port's kernels branch per cell and have none), so a cell crossing
-the breakdown threshold switches chains discontinuously and its gradient
-is the one-sided derivative of the chain it took.
+and 3-body feed-down; polarization_fn, the spin polarization's dict of
+mode-5 surfaces (K6's backward K12a/K12b, csrc/polzn_bwd.cu; T_avg the
+plasma's, a constant).  As in is3d_tpu.diff, the df 3-4 forward is the
+production smooth_spectra_feqmod (the JAX package disables its breakdown
+partition for AD; the port's kernels branch per cell and have none), so a
+cell crossing the breakdown threshold switches chains discontinuously and
+its gradient is the one-sided derivative of the chain it took.
 
 Non-smooth points inherited from the physics (one-sided derivatives, never
 NaN): the |df| <= 1 regulator, the outflow Theta(p.dsigma) cut, the
@@ -53,10 +53,11 @@ from .io.tables import MomentumGrid
 from .io.deltaf import DeltafData
 
 
-def _not_ported(what: str, kernels: str):
-    raise NotImplementedError(
-        f"gradients of {what} are not ported yet: they need the backward "
-        f"passes of {kernels} (ROADMAP section 1, item 10)")
+def refuse_mesh(mesh):
+    """Raise on a device mesh (the maps here and batch.py's)."""
+    if mesh is not None:
+        raise NotImplementedError("mesh= (multi-GPU) is not ported yet: "
+                                  "ROADMAP section 1, slice 11")
 
 
 def _theta(surface, wrt: Iterable[str]) -> dict:
@@ -94,22 +95,31 @@ def surface_value_and_grad(fn: Callable, surface, wrt: Iterable[str]):
 def surface_vjp(fn: Callable, surface, wrt: Iterable[str]):
     """Forward value plus a pullback on the named surface fields.
 
-    ``fn(surface)`` may return any tensor (e.g. the full (S, PT, PHI, Y)
-    spectra).  Returns ``(value, pullback)`` where ``pullback(cotangent)``
-    (a tensor shaped like ``value``) gives the ``wrt``-keyed gradient dict;
-    it may be called more than once."""
+    ``fn(surface)`` may return a tensor (e.g. the full (S, PT, PHI, Y)
+    spectra) or a dict of tensors (e.g. polarization_fn's).  Returns
+    ``(value, pullback)`` where ``pullback(cotangent)`` (shaped like
+    ``value``: a tensor, or a dict with a cotangent for each key) gives the
+    ``wrt``-keyed gradient dict; it may be called more than once."""
     theta = _theta(surface, tuple(wrt))
     with torch.enable_grad():
         value = fn(surface.replace(**theta))
+    keys = list(value) if isinstance(value, dict) else None
+    outs = [value[k] for k in keys] if keys is not None else [value]
 
     def pullback(cotangent):
-        ct = torch.as_tensor(cotangent, dtype=value.dtype,
-                             device=value.device)
-        grads = torch.autograd.grad(value, list(theta.values()), ct,
+        cts = [cotangent[k] for k in keys] if keys is not None else [
+            cotangent]
+        pairs = [(o, torch.as_tensor(c, dtype=o.dtype, device=o.device))
+                 for o, c in zip(outs, cts) if o.requires_grad]
+        grads = torch.autograd.grad([o for o, _ in pairs],
+                                    list(theta.values()),
+                                    [c for _, c in pairs],
                                     retain_graph=True, allow_unused=True)
         return {k: torch.zeros_like(v) if g is None else g
                 for (k, v), g in zip(theta.items(), grads)}
 
+    if keys is not None:
+        return {k: v.detach() for k, v in value.items()}, pullback
     return value.detach(), pullback
 
 
@@ -121,9 +131,7 @@ def spectra_fn(species: SpeciesArrays, grid: MomentumGrid,
     to smooth_spectra_vah, else by df mode to smooth_spectra (1-2) or
     smooth_spectra_feqmod (3-4), so its forward is the production result
     bit for bit."""
-    if mesh is not None:
-        raise NotImplementedError("mesh= (multi-GPU) is not ported yet: "
-                                  "ROADMAP section 1, slice 11")
+    refuse_mesh(mesh)
     if cfg.mode in (2, 3):
         def fn(surface):
             from .kernels.vah import smooth_spectra_vah
@@ -164,9 +172,18 @@ def decayed_spectra_fn(species: SpeciesArrays, grid: MomentumGrid,
 
 def polarization_fn(species: SpeciesArrays, grid: MomentumGrid,
                     cfg: Config, plasma, mesh=None) -> Callable:
-    """The surface -> polarization map (mode 5) of is3d_tpu.diff: refused
-    until K6's backward pass is ported."""
-    _not_ported("the spin polarization (mode 5)", "K6 (csrc/polzn.cu)")
+    """The differentiable surface -> polarization-dict map (mode 5):
+    spin_polarization's St, Sx, Sy, Sn, Snorm and S*_over_Snorm, whose
+    forward is the production result bit for bit, with gradients with
+    respect to the thermal vorticity (wtx..wyn), the flow, dsigma, tau (and
+    eta in 3+1D).  ``plasma.temperature`` is T_avg, a constant, as in
+    is3d_tpu.diff."""
+    refuse_mesh(mesh)
+
+    def fn(surface):
+        from .kernels.polzn import spin_polarization
+        return spin_polarization(surface, species, grid, cfg, plasma)
+    return fn
 
 
 # ------------------------------------------------- differentiable observables

@@ -25,6 +25,15 @@ One group of cells goes through:
 order (``parallel.mesh.grouped_cell_reduce``) and ``polzn_normalize``
 divides by Snorm.
 
+Gradients (``diff.polarization_fn``): on CUDA tensors under autograd the
+kernels run inside ``_PolznKernel``, whose backward is ``polzn_bwd_cuda``
+(csrc/polzn_bwd.cu: K12a ``polzn_bwd_kernel`` at fixed nodes, K12b
+``polzn_remap_bwd_kernel`` with the remap), the gradient of the five sums
+with respect to the packed cells; torch autograd of ``pack_polzn_cells``
+takes it to the surface's columns.  On CPU tensors autograd runs through
+``polzn_plain``, each cell chunk recomputed in the backward
+(torch.utils.checkpoint, the JAX package's remat_scan).
+
 Quadrature, as the JAX package: 2+1D fixed nodes weigh eta_weight x
 (eta[1] - eta[0]) (the reference's quirk, :62-71; it divides out of
 S/Snorm); the 2+1D remap moves the nodes to Delta = y_flow - s eta_r with
@@ -36,6 +45,7 @@ its S sums are inf or NaN as the JAX package's are, Snorm stays finite.
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 
 import torch
@@ -46,12 +56,12 @@ from ..io.tables import MomentumGrid
 from ..physics import lrf
 from .common import fermi_bose, effective_chunk
 from .launch import (check_float, check_tensor, require_cuda, launch,
-                     kernel_grid, tile_split)
+                     kernel_grid, kernel_props, tile_split)
 from .smooth import (ETA_REMAP_T_REF, MomentumConstants, momentum_constants,
                      remap_scale, remap_node_table)
 
 # per-cell scalar field order of the packed (C, NW) matrix; the CUDA
-# source's `enum PwField` (csrc/polzn.cu) must list the same names in the
+# sources' `enum PwField` (csrc/polzn.cuh) must list the same names in the
 # same order.  ut_T, tun_T, ux_T, uy_T carry 1/T_avg; dant = dan / tau,
 # itau = 1 / tau
 PW_FIELDS = ("tau", "eta", "dat", "dant", "dax", "day", "ut_T", "tun_T",
@@ -64,6 +74,8 @@ SUMS = ("St", "Sx", "Sy", "Sn", "Snorm")
 # launches of the CUDA kernels in this process
 LAUNCHES = 0
 REMAP_LAUNCHES = 0
+BWD_LAUNCHES = 0
+BWD_REMAP_LAUNCHES = 0
 
 # The bound's yardstick, counted once from the formula, an FMA as one
 # operation, factors of fewer indices hoisted.  Per evaluation (cell,
@@ -85,6 +97,35 @@ def polzn_formula_ops(remap: bool, n_phi: int) -> tuple[float, float]:
     if not remap:
         return float(fp32), float(sfu)
     return fp32 + REMAP_NODE_OPS[0] / n_phi, sfu + REMAP_NODE_OPS[1] / n_phi
+
+
+# The backward kernels' yardstick (csrc/polzn_bwd.cu), counted from the
+# formula as FORMULA_OPS is, an FMA as one operation, factors of fewer
+# indices hoisted.  Per evaluation (cell, node, species, point), (FP32,
+# SFU): the forward recomputed: p.dsigma 1, u.p / T 1 | exp, + sign 1 |
+# 1/(...), q = 1 - sign f0 1, pref 1, meas 1, mp 1; the four T_k = mT s1 +
+# s2 4; the chain: g_mp 4, g_meas 1, g_pref 1, g_f0 2, g_arg 2, g_pds 1,
+# g_T_k 4; the sums: g_pds, g_arg and the four g_T_k once over the species
+# (their px, py factors per point) and once over the angles (their mT
+# cosh, mT sinh factors per row) 12                             = (38, 2)
+POLZN_BWD_OPS = (38, 2)
+# Per row (cell, node, species, pT), shared by its n_phi points.  Fixed
+# nodes: mT times the six angle sums (cosh and sinh hoisted to the (cell,
+# node)) 6.  The remap: e^+-Delta from the node table 2, mT cosh and mT
+# sinh 2, x itau 1, the row terms of p.dsigma and u.p 4, the four s1 6,
+# the weight x jacobian on the six sums 6, their products with the row's
+# factors 12, d/dDelta 13
+POLZN_BWD_ROW_OPS = 6
+POLZN_BWD_REMAP_ROW_OPS = 46
+
+
+def polzn_backward_formula_ops(remap: bool, n_phi: int
+                               ) -> tuple[float, float]:
+    """(FP32, SFU) per evaluation of a backward launch: the yardstick above
+    plus the row's share of one of n_phi points."""
+    fp32, sfu = POLZN_BWD_OPS
+    row = POLZN_BWD_REMAP_ROW_OPS if remap else POLZN_BWD_ROW_OPS
+    return fp32 + row / n_phi, float(sfu)
 
 
 @dataclass(frozen=True)
@@ -183,6 +224,18 @@ def polzn_block(x: torch.Tensor, mom: MomentumConstants, pm: torch.Tensor,
     return St, Sx, Sy, Sn, meas
 
 
+def _plain_chunk(x: torch.Tensor, mom: MomentumConstants, pm: torch.Tensor,
+                 wR: torch.Tensor, flags: PolznFlags
+                 ) -> tuple[torch.Tensor, ...]:
+    """A chunk's five polzn_block sums reduced over cells (3+1D: (R, S, P,
+    F)) or over cells and weighted nodes (2+1D: (S, P, F))."""
+    R = mom.nodes.shape[0]
+    if flags.dimension == 3:
+        return tuple(b.sum(0) for b in polzn_block(x, mom, pm, flags))
+    return tuple((b * wR.view(1, R, 1, 1, 1)).sum((0, 1))
+                 for b in polzn_block(x, mom, pm, flags))
+
+
 def polzn_plain(x: torch.Tensor, mom: MomentumConstants, pm: torch.Tensor,
                 wR: torch.Tensor, flags: PolznFlags,
                 cell_chunk: int = 65536) -> tuple[torch.Tensor, ...]:
@@ -194,16 +247,17 @@ def polzn_plain(x: torch.Tensor, mom: MomentumConstants, pm: torch.Tensor,
     R = mom.nodes.shape[0]
     C = x.shape[0]
     chunk = effective_chunk(cell_chunk, C, 8 * R * S * P * F)
+    # under autograd each chunk is recomputed in the backward
+    # (torch.utils.checkpoint, JAX's remat_scan); the small per-chunk sums
+    # add out of place
+    run = _plain_chunk
+    if torch.is_grad_enabled() and x.requires_grad:
+        run = functools.partial(torch.utils.checkpoint.checkpoint,
+                                _plain_chunk, use_reentrant=False)
     acc = None
     for c0 in range(0, max(C, 1), chunk):
-        parts = []
-        for b in polzn_block(x[c0:c0 + chunk], mom, pm, flags):
-            if flags.dimension == 3:
-                parts.append(b.sum(0))
-            else:
-                parts.append((b * wR.view(1, R, 1, 1, 1)).sum((0, 1)))
-        acc = parts if acc is None else [a.add_(p)
-                                         for a, p in zip(acc, parts)]
+        parts = run(x[c0:c0 + chunk], mom, pm, wR, flags)
+        acc = parts if acc is None else [a + p for a, p in zip(acc, parts)]
     out = []
     for a in acc:
         if flags.dimension == 3:
@@ -279,6 +333,13 @@ def polzn_cuda(x: torch.Tensor, mom: MomentumConstants, pm: torch.Tensor,
     dtype.  With ``flags.remap``, ``table`` is
     ``smooth.remap_node_table(mom)``, built here if not given, and the
     angles must be separable as ``momentum_constants`` builds them."""
+    return tuple(_polzn_sums(x, mom, pm, wR, flags, table).unbind(0))
+
+
+def _polzn_sums(x: torch.Tensor, mom: MomentumConstants, pm: torch.Tensor,
+                wR: torch.Tensor, flags: PolznFlags,
+                table: torch.Tensor | None) -> torch.Tensor:
+    """polzn_cuda's five sums as one (5, S, n_pT, n_phi, n_y_out) tensor."""
     global LAUNCHES, REMAP_LAUNCHES
     check_float("polzn_cuda", x)
     C = x.shape[0]
@@ -323,7 +384,130 @@ def polzn_cuda(x: torch.Tensor, mom: MomentumConstants, pm: torch.Tensor,
                R, flags.dimension, per, n_parts, partial.data_ptr(),
                out.data_ptr())
         LAUNCHES += 1
-    return tuple(out.unbind(0))
+    return out
+
+
+# ------------------------------------------------------ backward kernels
+
+def polzn_bwd_plain(x: torch.Tensor, G: torch.Tensor, mom: MomentumConstants,
+                    pm: torch.Tensor, wR: torch.Tensor, flags: PolznFlags,
+                    cell_chunk: int = 65536) -> torch.Tensor:
+    """Plain version of the backward kernels: the gradient (C, NW) of <G,
+    polzn_plain(x)> with respect to the packed cells, G (5, S, n_pT, n_phi,
+    n_y_out) the five sums' cotangents, by torch autograd of the plain
+    version."""
+    with torch.enable_grad():
+        xg = x.detach().requires_grad_(True)
+        out = polzn_plain(xg, mom, pm, wR, flags, cell_chunk)
+        return torch.autograd.grad(out, xg, tuple(G.unbind(0)))[0]
+
+
+def _bwd_library():
+    from ..native.build import cuda_library
+    lib = cuda_library("polzn_bwd")
+    if not getattr(lib, "_is3d_bound", False):
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        for fn in (lib.is3d_polzn_bwd_f32, lib.is3d_polzn_bwd_f64):
+            fn.restype = ci
+            fn.argtypes = [vp, ci, ci,                 # cells, C, nw
+                           vp, vp, vp, ci,             # mass sign pm, S
+                           vp, vp, vp, ci, ci,         # pT px py n_pT n_phi
+                           vp, vp, ci, ci,             # nodes, wR, R, dim
+                           vp, vp, vp]                 # G, grad, stream
+        for fn in (lib.is3d_polzn_bwd_remap_f32,
+                   lib.is3d_polzn_bwd_remap_f64):
+            fn.restype = ci
+            fn.argtypes = [vp, ci, ci,                 # cells, C, nw
+                           vp, vp, vp, ci,             # mass sign pm, S
+                           vp, ci, vp, vp, ci,         # pT, n_pT, cos, sin, F
+                           vp, vp, ci,                 # table, wR, R
+                           ctypes.c_double,            # T_ref
+                           vp, vp, vp]                 # G, grad, stream
+        lib.is3d_polzn_bwd_props.restype = ci
+        lib.is3d_polzn_bwd_props.argtypes = [ci] * 5 + [vp]
+        lib.is3d_cuda_error_string.restype = ctypes.c_char_p
+        lib.is3d_cuda_error_string.argtypes = [ci]
+        lib._is3d_bound = True
+    return lib
+
+
+def bwd_props(device: torch.device, f64: bool, mom: MomentumConstants,
+              flags: PolznFlags) -> dict:
+    """The launch shape and resources (launch.kernel_props) of the backward
+    kernel of ``flags`` at mom's shape."""
+    lib = _bwd_library()
+    dim = 0 if flags.remap else flags.dimension
+    return kernel_props(lib, "polzn_bwd", lib.is3d_polzn_bwd_props, device,
+                        int(f64), dim, mom.pT.shape[0], mom.n_phi,
+                        mom.nodes.shape[0])
+
+
+def polzn_bwd_cuda(x: torch.Tensor, G: torch.Tensor, mom: MomentumConstants,
+                   pm: torch.Tensor, wR: torch.Tensor, flags: PolznFlags,
+                   table: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch the backward kernel (csrc/polzn_bwd.cu) on the current
+    stream: the gradient (C, NW) of <G, polzn_cuda(x, mom, pm, wR, flags)>
+    with respect to the packed cells, G (5, S, n_pT, n_phi, n_y_out) the
+    five sums' cotangents.  With ``flags.remap``, ``table`` is
+    ``smooth.remap_node_table(mom)``, built here if not given, and the
+    angles must be separable as ``momentum_constants`` builds them."""
+    global BWD_LAUNCHES, BWD_REMAP_LAUNCHES
+    check_float("polzn_bwd_cuda", x)
+    C = x.shape[0]
+    S, P, F = mom.mass.shape[0], mom.pT.shape[0], mom.n_phi
+    R = mom.nodes.shape[0]
+    check_tensor("cells", x, (C, NW), x)
+    check_tensor("G", G, (5, S, P, F, R if flags.dimension == 3 else 1), x)
+    check_tensor("pm", pm, (S,), x)
+    check_tensor("wR", wR, (R,), x)
+    for name, n in dict(mass=S, sign=S, pT=P, px=P * F, py=P * F, nodes=R,
+                        cos_phi=F, sin_phi=F).items():
+        check_tensor(f"momentum constant {name}", getattr(mom, name), (n,),
+                     x)
+    if flags.remap and table is not None:
+        check_tensor("remap node table", table, (S, P, R, 2), x)
+    if flags.remap and flags.dimension != 2:
+        raise ValueError("polzn_bwd_cuda: the remap is 2+1D only")
+    require_cuda("polzn_bwd_cuda", x)
+    lib = _bwd_library()
+    f64 = x.dtype == torch.float64
+    grad = torch.empty_like(x)
+    head = (x.data_ptr(), C, NW, mom.mass.data_ptr(), mom.sign.data_ptr(),
+            pm.data_ptr(), S, mom.pT.data_ptr())
+    if flags.remap:
+        if table is None:
+            table = remap_node_table(mom)
+        launch(lib, "polzn_bwd remap",
+               lib.is3d_polzn_bwd_remap_f64 if f64
+               else lib.is3d_polzn_bwd_remap_f32, x.device, *head, P,
+               mom.cos_phi.data_ptr(), mom.sin_phi.data_ptr(), F,
+               table.data_ptr(), wR.data_ptr(), R, ETA_REMAP_T_REF,
+               G.data_ptr(), grad.data_ptr())
+        BWD_REMAP_LAUNCHES += 1
+        return grad
+    launch(lib, "polzn_bwd", lib.is3d_polzn_bwd_f64 if f64
+           else lib.is3d_polzn_bwd_f32, x.device, *head, mom.px.data_ptr(),
+           mom.py.data_ptr(), P, F, mom.nodes.data_ptr(), wR.data_ptr(), R,
+           flags.dimension, G.data_ptr(), grad.data_ptr())
+    BWD_LAUNCHES += 1
+    return grad
+
+
+class _PolznKernel(torch.autograd.Function):
+    """polzn_cuda with its backward kernel: the forward keeps only the
+    packed cells, and the backward recomputes everything else inside
+    polzn_bwd_cuda."""
+
+    @staticmethod
+    def forward(ctx, x, mom, pm, wR, flags, table):
+        ctx.save_for_backward(x)
+        ctx.args = (mom, pm, wR, flags, table)
+        return _polzn_sums(x, mom, pm, wR, flags, table)
+
+    @staticmethod
+    def backward(ctx, G):
+        (x,) = ctx.saved_tensors
+        return (polzn_bwd_cuda(x, G.contiguous(), *ctx.args),) + (None,) * 5
 
 
 # ------------------------------------------------------------ entry point
@@ -339,7 +523,11 @@ def _group_sums(cols: dict, mom: MomentumConstants, pm: torch.Tensor,
                 cfg: Config) -> dict:
     x = pack_polzn_cells(cols, T_avg, flags)
     if x.device.type == "cuda":
-        sums = polzn_cuda(x, mom, pm, wR, flags, table)
+        if torch.is_grad_enabled() and x.requires_grad:
+            sums = _PolznKernel.apply(x, mom, pm, wR, flags,
+                                      table).unbind(0)
+        else:
+            sums = polzn_cuda(x, mom, pm, wR, flags, table)
     elif x.device.type == "cpu":
         sums = polzn_plain(x, mom, pm, wR, flags, cfg.cell_chunk)
     else:

@@ -1353,6 +1353,19 @@ def vah_grad_inputs(case: str, n_cells: int = 203, dtype=torch.float64,
         device=device)
 
 
+def polzn_grad_inputs(case: str, n_cells: int = 203, dtype=torch.float64,
+                      device="cpu"):
+    """(x, mom, pm, wR, flags, table, G): the polarization backward
+    kernels' inputs for the POLZN_EDGES case ``case`` (polzn_edge_inputs)
+    and a cotangent of the five sums (5, S, n_pT, n_phi, n_out)."""
+    x, mom, pm, wR, flags, table = polzn_edge_inputs(
+        case, n_cells=n_cells, dtype=dtype, device=device)
+    n_out = mom.nodes.shape[0] if flags.dimension == 3 else 1
+    return x, mom, pm, wR, flags, table, grad_cotangent(
+        (5, mom.mass.shape[0], mom.pT.shape[0], mom.n_phi, n_out),
+        dtype=dtype, device=device)
+
+
 def decay_grad_inputs(case: str, dtype=torch.float64, device="cpu"):
     """(tables, tasks, wg, G): the backward wave kernel's inputs for the
     DECAY_EDGES case ``case`` (decay_edge_inputs) and a float64 cotangent
@@ -1451,20 +1464,29 @@ def wave_term_max(tables, tasks, wg, G) -> torch.Tensor:
     return out
 
 
-def grad_errors(got, want, rtol: float, atol_rel: float) -> tuple:
-    """(entries outside rtol |want| + atol_rel x max|want| of the entry's
-    field, largest error over its field's largest value) of a gradient:
-    ``got``/``want`` (rows, fields) tensors, or tuples of tensors (each its
-    own field)."""
+def grad_field_errors(got, want, rtol: float, atol_rel: float) -> tuple:
+    """Per field of a gradient, (entries outside rtol |want| + atol_rel x
+    max|want| of the field, largest error over the field's largest value),
+    two (fields,) CPU tensors: ``got``/``want`` (rows, ...) tensors, whose
+    fields are the entries of a row, or tuples of tensors (each its own
+    field)."""
     if isinstance(want, torch.Tensor):
-        got, want = got.double().cpu(), want.double().cpu()
+        got = got.double().cpu().reshape(got.shape[0], -1)
+        want = want.double().cpu().reshape(want.shape[0], -1)
         scale = want.abs().amax(0, keepdim=True)
         err = (got - want).abs()
-        bad = int((err > rtol * want.abs() + atol_rel * scale).sum())
-        return bad, float((err / scale.clamp_min(1e-300)).max())
-    out = [grad_errors(g.reshape(-1, 1), w.reshape(-1, 1), rtol, atol_rel)
-           for g, w in zip(got, want)]
-    return sum(b for b, _ in out), max(e for _, e in out)
+        bad = (err > rtol * want.abs() + atol_rel * scale).sum(0)
+        return bad, (err / scale.clamp_min(1e-300)).amax(0)
+    out = [grad_field_errors(g.reshape(-1, 1), w.reshape(-1, 1), rtol,
+                             atol_rel) for g, w in zip(got, want)]
+    return torch.cat([b for b, _ in out]), torch.cat([e for _, e in out])
+
+
+def grad_errors(got, want, rtol: float, atol_rel: float) -> tuple:
+    """grad_field_errors over all fields: (entries outside the bar, the
+    largest error over its field's largest value)."""
+    bad, worst = grad_field_errors(got, want, rtol, atol_rel)
+    return int(bad.sum()), float(worst.max())
 
 
 # ------------------------------------------------- the sampler's edge cases

@@ -6,8 +6,9 @@ C, C, B, A).
         [--cells N]
         [--cases 3d_df2,3d_df1,2d_fixed,2d_remap,bin,dndx,proto,decays,
                  yields,alias,sample,cascade,grad_feqmod_3d,
-                 grad_feqmod_2d,grad_vah_3d,grad_vah_2d,grad_main_3d,
-                 grad_main_2d,grad_decays]
+                 grad_feqmod_2d,grad_vah_3d,grad_vah_2d,grad_polzn_3d,
+                 grad_polzn_2d,grad_main_3d,grad_main_2d,grad_decays,
+                 polzn_3d,polzn_2d]
 
 Each turn runs a fresh interpreter that imports ``is3d_tpu_torch`` from
 that root (building its kernels into that root's _build/) and, per case:
@@ -86,6 +87,17 @@ that root (building its kernels into that root's _build/) and, per case:
   bytes (the side's ``bwd_props``, or ``tools/occupancy.py`` at the first
   version's launch shape) and SASS per evaluation; a side without the
   kernel reports the case ``"absent"``;
+* ``polzn_3d``, ``polzn_2d``: the polarization kernel K6 (``polzn_cuda``:
+  3+1D fixed nodes, 2+1D with the mT remap) on that synthetic mode-5
+  group, its five sums stacked: timed as the spectra cases, the float64
+  difference on its first 512 cells;
+* ``grad_polzn_3d``, ``grad_polzn_2d``: the polarization's backward
+  kernels K12a (``polzn_bwd_cuda``, 3+1D fixed nodes) and K12b (2+1D with
+  the mT remap, 48 nodes) on one group of N synthetic mode-5 cells
+  (``synthetic_surface_cells`` and ``synthetic_vorticity``, seed 0), 320
+  species, the native grid, float32, T_avg ``testing.POLZN_T_AVG`` and a
+  positive cotangent on the five sums: timed, the float64 difference and
+  the resources as the grad cases;
 * ``grad_main_3d``, ``grad_main_2d``: the linear-df backward kernels
   (``spectra_bwd_cuda``) K9a (3+1D, fixed nodes) and K9b (2+1D with the mT
   remap, 48 nodes) on one group of N synthetic cells as the spectra cases
@@ -124,8 +136,9 @@ import sys
 
 CASES = ("3d_df2", "3d_df1", "2d_fixed", "2d_remap", "bin", "dndx", "proto",
          "decays", "yields", "alias", "sample", "cascade", "grad_feqmod_3d",
-         "grad_feqmod_2d", "grad_vah_3d", "grad_vah_2d", "grad_main_3d",
-         "grad_main_2d", "grad_decays")
+         "grad_feqmod_2d", "grad_vah_3d", "grad_vah_2d", "grad_polzn_3d",
+         "grad_polzn_2d", "grad_main_3d", "grad_main_2d", "grad_decays",
+         "polzn_3d", "polzn_2d")
 
 _TURN = r"""
 import json, statistics, sys
@@ -291,9 +304,11 @@ def cascade_cases(report):
                               "sum": float(s["px"][:n].double().sum())}
 
 
-# the backward kernels K10 (df 3-4) and K11 (VAH) on one synthetic group
+# the backward kernels K10 (df 3-4), K11 (VAH) and K12 (polarization) on
+# one synthetic group
 GRAD = {"grad_feqmod_3d": ("feqmod", 3), "grad_feqmod_2d": ("feqmod", 2),
-        "grad_vah_3d": ("vah", 3), "grad_vah_2d": ("vah", 2)}
+        "grad_vah_3d": ("vah", 3), "grad_vah_2d": ("vah", 2),
+        "grad_polzn_3d": ("polzn", 3), "grad_polzn_2d": ("polzn", 2)}
 
 
 # an instantiation's registers, local bytes, resident blocks an SM (the
@@ -335,9 +350,9 @@ def first_version_shape(R, F, n_cols, fixed3):
 def grad_case(case, report):
     from is3d_tpu_torch.io.surface import surface_from_arrays
     from is3d_tpu_torch.io.tables import laguerre_device
-    from is3d_tpu_torch.kernels import feqmod, vah
+    from is3d_tpu_torch.kernels import feqmod, polzn, vah
     kind, dim = GRAD[case]
-    mod = feqmod if kind == "feqmod" else vah
+    mod = dict(feqmod=feqmod, vah=vah, polzn=polzn)[kind]
     if not hasattr(mod, f"{kind}_bwd_cuda"):
         report[case] = "absent"
         return
@@ -395,6 +410,33 @@ def grad_case(case, report):
                 if new else None,
                 lambda: first_version_shape(R, F, 54, dim == 3))
         report[case] = entry
+        return
+    if kind == "polzn":
+        cfg = Config(mode=5, **base)
+        cols = polzn.polzn_cols(surface_from_arrays(
+            dtype=dt, device=dev, **testing.synthetic_surface_cells(
+                n_cells, dim, 0), **testing.synthetic_vorticity(n_cells, 0)))
+        flags = polzn.polzn_flags(cfg, grid)
+        x = polzn.pack_polzn_cells(cols, testing.POLZN_T_AVG, flags)
+        pm, wR = polzn.species_pm(species), polzn.node_weights(grid, flags)
+        G5 = testing.grad_cotangent((5,) + tuple(G.shape), dtype=dt,
+                                    device=dev)
+        table = smooth.remap_node_table(mom) if flags.remap else None
+        go = lambda: polzn.polzn_bwd_cuda(x, G5, mom, pm, wR, flags, table)
+        xs = x[:cut].contiguous()
+        out = polzn.polzn_bwd_cuda(xs, G5, mom, pm, wR, flags,
+                                   table).double()
+        ref = polzn.polzn_bwd_cuda(
+            xs.double(), G5.double(), mom64, pm.double(), wR.double(), flags,
+            smooth.remap_node_table(mom64) if flags.remap else None)
+        ms, runs, total = timed(go)
+        report[case] = {
+            "ms": ms, "runs": runs, "sum": total, "err_f64": float(
+                (out - ref).abs().max() / ref.abs().max()),
+            "resources": bwd_resources(
+                "polzn_bwd", "polzn_remap_bwd_kernelIfEE" if dim == 2
+                else "polzn_bwd_kernelIfLi3EE",
+                lambda: polzn.bwd_props(dev, False, mom, flags), None)}
         return
     cfg = Config(mode=2, **base)
     cells = testing.synthetic_vah_cells(n_cells, dim, seed=0)
@@ -578,6 +620,29 @@ for case in cases:
         out = dndx.dndx_cuda(cells, mom, flags, wM, wR)[0].double()
         ref = dndx.dndx_cuda(cells.double(), mom.to(dtype=torch.float64),
                              flags, wM.double(), wR.double())[0]
+        err = float((out - ref).abs().max() / ref.abs().max())
+    elif case in ("polzn_3d", "polzn_2d"):
+        from is3d_tpu_torch.io.surface import surface_from_arrays
+        from is3d_tpu_torch.kernels import polzn
+        dim = 3 if case == "polzn_3d" else 2
+        grid = native_momentum_grid(dim, eta_mT_rescale=dim == 2, dtype=dt,
+                                    device=dev)
+        species = testing.synthetic_species(320, dtype=dt, device=dev)
+        mom = smooth.momentum_constants(species, grid, dim)
+        mom64 = mom.to(dtype=torch.float64)
+        flags = polzn.polzn_flags(Config(mode=5, dimension=dim), grid)
+        x = polzn.pack_polzn_cells(polzn.polzn_cols(surface_from_arrays(
+            dtype=dt, device=dev, **testing.synthetic_surface_cells(
+                n_cells, dim, 0), **testing.synthetic_vorticity(n_cells, 0))),
+            testing.POLZN_T_AVG, flags)
+        pm, wR = polzn.species_pm(species), polzn.node_weights(grid, flags)
+        sums = lambda x, m, pm, wR: torch.stack(polzn.polzn_cuda(
+            x, m, pm, wR, flags,
+            smooth.remap_node_table(m) if flags.remap else None))
+        ms, runs, total = timed(lambda: sums(x, mom, pm, wR))
+        xs = x[:512].contiguous()
+        out = sums(xs, mom, pm, wR).double()
+        ref = sums(xs.double(), mom64, pm.double(), wR.double())
         err = float((out - ref).abs().max() / ref.abs().max())
     elif case == "proto":
         x = smooth_proto.proto_inputs(device=dev)

@@ -14,8 +14,8 @@ orders of margin.  The finite-difference checks follow tests/test_grad.py
   regulate and outflow on, a baryon case with diffusion; the forward is
   smooth_spectra's bit for bit; vn_j and mean_pT_j; a saturated regulator,
   a masked cell and an overflowed exponential (finite and equal to JAX's);
-  surface_vjp; mode-5 surfaces' spectra (K1's path); the polarization's
-  refusal.
+  surface_vjp; mode-5 surfaces' spectra (K1's path).  The polarization's
+  gradient is tests/test_torch_grad_polzn.py's.
 * The feed-down: resonance_feed_down_traced's gradient with respect to the
   spectra (the decaying list, one parent all zero and one tail-patched, as
   tests/test_torch_decays.py), 2+1D and 3+1D, and its forward equal to
@@ -293,16 +293,6 @@ def test_absent_field_raises(jax_grads):
         diff.surface_value_and_grad(lambda s: obs(fn(s)), surf, ("T", "wtx"))
     with pytest.raises(ValueError, match="Lambda"):
         diff.surface_vjp(fn, surf, ("Lambda",))
-
-
-@pytest.mark.parametrize("what", ["polarization"])
-def test_refusals_name_the_next_slice(what):
-    """The spin polarization's gradient is the one map still refused (K6's
-    backward), on every device."""
-    _, (sp, grid, df, cfg) = _inputs(*CASES["3d_df2"])
-    with pytest.raises(NotImplementedError, match="backward.*K6"):
-        diff.polarization_fn(sp, grid, dataclasses.replace(cfg, mode=5),
-                             None)
 
 
 @pytest.mark.parametrize("dimension", [2, 3])

@@ -5,16 +5,20 @@ kernel reads; the yardsticks count what the kernels do; and, on a CUDA card
 (gpu-marked), K9a and K9b (csrc/smooth_spectra_bwd.cu: fixed nodes and the
 2+1D mT remap) on testing.SPECTRA_EDGES, K9c (csrc/decays_bwd.cu) on
 testing.DECAY_EDGES, K10a/K10b (csrc/feqmod_bwd.cu) on
-testing.FEQMOD_EDGES and K11a/K11b (csrc/vah_bwd.cu) on testing.VAH_EDGES
-against their plain versions, two launches bit-identical, and the
-autograd Functions that carry them.  The plain df 3 gradient stays finite
-on the edges where f_mod saturates or 1/betaV = inf.
+testing.FEQMOD_EDGES, K11a/K11b (csrc/vah_bwd.cu) on testing.VAH_EDGES
+and K12a/K12b (csrc/polzn_bwd.cu: the polarization's fixed nodes and 2+1D
+mT remap) on testing.POLZN_EDGES against their plain versions, two
+launches bit-identical, and the autograd Functions that carry them.  The
+plain df 3 gradient stays finite on the edges where f_mod saturates or
+1/betaV = inf.
 
 On the GPU: python -m pytest tests/test_torch_grad_kernels.py -m gpu
 --noconftest (the conftest imports jax).  Tolerances: against the plain
 gradient in float64 from the same inputs, float32 rtol 2e-4 / atol 2e-5 x
 max|grad| of each field, float64 1e-10 / 1e-13 x max; the cotangents are
-testing.grad_cotangent's positive weights (its comment says why).
+testing.grad_cotangent's positive weights (its comment says why).  A
+massless species' NaN and inf (the polarization's pm = -inf) are held to
+the plain version's positions in the kernel's own precision.
 """
 
 import dataclasses
@@ -25,7 +29,7 @@ import torch
 
 from is3d_tpu_torch import testing
 from is3d_tpu_torch.io.tables import native_momentum_grid
-from is3d_tpu_torch.kernels import decays, feqmod, smooth, vah
+from is3d_tpu_torch.kernels import decays, feqmod, polzn, smooth, vah
 from is3d_tpu_torch.native import build
 
 torch.set_num_threads(1)
@@ -35,6 +39,7 @@ SPECTRA = sorted(testing.SPECTRA_EDGES)
 DECAYS = sorted(testing.DECAY_EDGES)
 FEQMOD = sorted(testing.FEQMOD_EDGES)
 VAH = sorted(testing.VAH_EDGES)
+POLZN = sorted(testing.POLZN_EDGES)
 
 
 @pytest.fixture
@@ -85,6 +90,38 @@ def test_feqmod_vah_cpu_gradients_never_load_a_kernel(monkeypatch, which):
         torch.testing.assert_close(g, w, rtol=1e-12, atol=1e-14)
 
 
+@pytest.mark.parametrize("case", ["3d_ragged", "2d_remap_yflow"])
+def test_polzn_cpu_gradient_never_loads_a_kernel(monkeypatch, case):
+    """On the CPU the polarization differentiates through its plain version
+    (each chunk under torch.utils.checkpoint): no kernel library is loaded,
+    and the gradient of the packed cells is polzn_bwd_plain's."""
+    def refuse(name):
+        raise AssertionError(f"loaded {name} on the CPU path")
+    monkeypatch.setattr(build, "cuda_library", refuse)
+    x, mom, pm, wR, flags, _, G = testing.polzn_grad_inputs(case,
+                                                            n_cells=20)
+    xg = x.clone().requires_grad_(True)
+    sums = polzn.polzn_plain(xg, mom, pm, wR, flags, cell_chunk=8)
+    (g,) = torch.autograd.grad(sums, xg, tuple(G.unbind(0)))
+    want = polzn.polzn_bwd_plain(x, G, mom, pm, wR, flags)
+    assert torch.isfinite(g).all() and g.abs().max() > 0
+    torch.testing.assert_close(g, want, rtol=1e-12, atol=1e-14)
+    assert (g[:, polzn.PW["tau"]] == 0).all()
+
+
+def test_polzn_fields_match_the_cuda_header():
+    """PW_FIELDS is csrc/polzn.cuh's `enum PwField` (both polarization
+    kernels and their backward read it), name for name."""
+    import os
+    import re
+    path = os.path.join(os.path.dirname(polzn.__file__), "..", "csrc",
+                        "polzn.cuh")
+    body = re.search(r"enum PwField \{(.*?)\};", open(path).read(),
+                     re.S).group(1)
+    names = [n.strip() for n in body.split(",")]
+    assert names == ["W_" + n.upper() for n in polzn.PW_FIELDS] + ["NW"]
+
+
 @pytest.mark.parametrize("case", ["2d_df4_most", "3d_degenerate"])
 def test_plain_feqmod_gradient_is_nan_free(case):
     """The plain version's autograd stays finite where f_mod's |x|^2
@@ -118,8 +155,19 @@ def test_df4_lambda_gradient_is_nan_free_near_zero_bulk(dtype):
     assert c.lam[3] > 0 and (c.lam[1:3] == 0).all()
 
 
-@pytest.mark.parametrize("which", ["spectra", "decays", "feqmod", "vah"])
+@pytest.mark.parametrize("which", ["spectra", "decays", "feqmod", "vah",
+                                   "polzn"])
 def test_wrappers_refuse_cpu_tensors(which):
+    if which == "polzn":
+        for case in ("3d", "2d_remap"):
+            x, mom, pm, wR, flags, table, G = testing.polzn_grad_inputs(
+                case, n_cells=20)
+            with pytest.raises(ValueError, match="needs CUDA"):
+                polzn.polzn_bwd_cuda(x, G, mom, pm, wR, flags, table)
+            with pytest.raises(ValueError, match="G"):
+                polzn.polzn_bwd_cuda(x, G[:4], mom, pm, wR, flags, table)
+        assert "polzn_bwd" not in build._cuda_libs
+        return
     if which == "feqmod":
         x, rn, wcs, mom, flags, G = testing.feqmod_grad_inputs("3d_df3_clean",
                                                         n_cells=20)
@@ -456,6 +504,76 @@ def test_feqmod_vah_autograd_functions_launch_the_backward_kernels(
     (g,) = torch.autograd.grad(out, xg, G)
     assert vah.BWD_LAUNCHES == n0 + 1
     assert torch.equal(g, vah.vah_bwd_cuda(x, G, mom, flags))
+
+
+def test_polzn_backward_yardstick():
+    """K12's operations per evaluation exceed twice the forward's (K6's),
+    its SFU count is the forward's, and the remap adds its row's node
+    kinematics and d/dDelta, a share that falls as n_phi grows."""
+    for remap in (False, True):
+        fwd = polzn.polzn_formula_ops(remap, 24)
+        bwd = polzn.polzn_backward_formula_ops(remap, 24)
+        assert bwd[0] > 2 * fwd[0] and bwd[1] == fwd[1]
+    fixed = polzn.polzn_backward_formula_ops(False, 24)
+    assert fixed == (polzn.POLZN_BWD_OPS[0] + polzn.POLZN_BWD_ROW_OPS / 24,
+                     polzn.POLZN_BWD_OPS[1])
+    b = {n: polzn.polzn_backward_formula_ops(True, n)[0] for n in (8, 24)}
+    assert b[8] > b[24] > fixed[0]
+    assert b[8] - b[24] == pytest.approx(polzn.POLZN_BWD_REMAP_ROW_OPS
+                                         * (1 / 8 - 1 / 24))
+
+
+def _polzn_bwd_check(got, want, plain, dtype):
+    """A K12 gradient against the f64 plain one at TOL[dtype] per field,
+    its NaN and inf where the plain version in ``dtype`` (``plain``) has
+    them (a massless species)."""
+    for f in (torch.isnan, torch.isposinf, torch.isneginf):
+        assert torch.equal(f(got), f(plain)), f.__name__
+    fin = torch.isfinite(plain) & torch.isfinite(want)
+    bad, worst = testing.grad_errors(torch.where(fin, got.double(), 0.0),
+                                     torch.where(fin, want, 0.0).to(dtype),
+                                     *TOL[dtype])
+    assert bad == 0, worst
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("case", POLZN)
+def test_polzn_bwd_kernel_matches_plain(cuda_card, case, dtype):
+    x, mom, pm, wR, flags, table, G = testing.polzn_grad_inputs(
+        case, dtype=dtype, device="cuda")
+    want = polzn.polzn_bwd_plain(x.double(), G.double(),
+                                 mom.to(None, torch.float64), pm.double(),
+                                 wR.double(), flags)
+    plain = polzn.polzn_bwd_plain(x, G, mom, pm, wR, flags)
+    got = polzn.polzn_bwd_cuda(x, G, mom, pm, wR, flags, table)
+    again = polzn.polzn_bwd_cuda(x, G, mom, pm, wR, flags, table)
+    torch.cuda.synchronize()
+    assert torch.equal(got.nan_to_num(7.0), again.nan_to_num(7.0))
+    _polzn_bwd_check(got, want, plain, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["3d_ragged", "2d_remap"])
+def test_polzn_autograd_function_launches_the_backward_kernel(cuda_card,
+                                                               case):
+    """Under autograd on the card the polarization runs its backward kernel
+    once a group (the launch count moves), and its forward is the
+    production kernel's bit for bit."""
+    x, mom, pm, wR, flags, table, G = testing.polzn_grad_inputs(
+        case, device="cuda")
+    n0 = polzn.BWD_REMAP_LAUNCHES if flags.remap else polzn.BWD_LAUNCHES
+    xg = x.clone().requires_grad_(True)
+    out = polzn._PolznKernel.apply(xg, mom, pm, wR, flags, table)
+    assert all(torch.equal(a, b) for a, b in zip(
+        out.detach().unbind(0), polzn.polzn_cuda(x, mom, pm, wR, flags,
+                                                 table)))
+    (g,) = torch.autograd.grad(out, xg, G)
+    assert (polzn.BWD_REMAP_LAUNCHES if flags.remap
+            else polzn.BWD_LAUNCHES) == n0 + 1
+    assert torch.equal(g, polzn.polzn_bwd_cuda(x, G, mom, pm, wR, flags,
+                                               table))
 
 
 @pytest.mark.gpu

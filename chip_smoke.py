@@ -4460,19 +4460,28 @@ def phase_grad_polzn_pair(smi: str, clock: float, groups: list) -> list:
                   else f"polzn_bwd_kernelIfLi{flags.dimension}EE")
         plain64 = lambda: polzn.polzn_bwd_plain(
             xs.double(), G.double(), mom64, pm.double(), wR.double(), flags)
+        plan = _bwd_plan(polzn.bwd_props(x.device, False, mom, flags,
+                                         x.shape[0]), x.shape[0])
         rec = _grad_kernel_pair(
             smi, clock, "grad polzn pair",
             lambda: polzn.polzn_bwd_cuda(x, G, mom, pm, wR, flags, table),
             lambda: polzn.polzn_bwd_cuda(xs, G, mom, pm, wR, flags, table),
             lambda: polzn.polzn_bwd_plain(xs, G, mom, pm, wR, flags),
             plain64, n, bound, evals,
-            [("five sums", "polzn_bwd", kernel,
-              polzn.bwd_props(x.device, False, mom, flags))],
+            [("five sums", "polzn_bwd", kernel, plan)],
             f"{kind}: one group {x.shape[0]} cells x {S} x {P * F} x {R} "
             f"nodes, five sums", "the first ones",
             kslice64=lambda: polzn.polzn_bwd_cuda(
                 xs.double(), G.double(), mom64, pm.double(), wR.double(),
                 flags))
+        print(f"[grad polzn pair] {kind}: stages of "
+              f"{plan['species_per_stage']} species x "
+              f"{plan['pT_rows_per_stage']} pT rows ("
+              f"{-(-S // plan['species_per_stage'])} species chunks), "
+              f"{plan['angles']} angles at once, {plan['stage_row']} values "
+              f"a {'point' if flags.remap else 'species stage row'}, "
+              f"{plan['waves']} waves, the last {plan['last_wave_blocks']} "
+              f"blocks ({plan['last_wave_fill']:.1%} of the resident)")
         records.append(rec)
     return records
 

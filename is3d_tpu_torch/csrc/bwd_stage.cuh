@@ -1,7 +1,8 @@
 // What the backward kernels (feqmod_bwd.cu, vah_bwd.cu,
-// smooth_spectra_bwd.cu) share: the asynchronous copy of the cotangent's
-// tiles into shared memory and the map from the cell columns a body
-// touches to its accumulator slots.
+// smooth_spectra_bwd.cu, polzn_bwd.cu) share: the asynchronous copy of the
+// cotangent's tiles into shared memory, the stages' alignment and vector
+// loads, and the map from the cell columns a body touches to its
+// accumulator slots.
 //
 //   * cp.async (sm_80 and later) copies one element (or 16 bytes) of
 //     global memory into shared memory without passing through registers; a thread commits
@@ -16,6 +17,8 @@
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace is3d {
 
@@ -48,6 +51,27 @@ __device__ __forceinline__ void cp_async_commit() {
 // the next barrier)
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// the bytes b rounded up to a whole number of 16-byte vectors
+__host__ __device__ inline size_t align16(size_t b) {
+  return (b + 15) / 16 * 16;
+}
+
+// U values of T from shared memory, a pair a vector load where U is even
+template <typename T, int U>
+__device__ __forceinline__ void ld_u(const T* p, T* v) {
+  using T2 = typename std::conditional<sizeof(T) == 4, float2, double2>::type;
+#pragma unroll
+  for (int u = 0; u < U; u += 1 + (U % 2 == 0)) {
+    if constexpr (U % 2 == 0) {
+      const T2 a = *reinterpret_cast<const T2*>(p + u);
+      v[u] = a.x;
+      v[u + 1] = a.y;
+    } else {
+      v[u] = p[u];
+    }
+  }
 }
 
 // a momentum point: px, py (one 8-byte load in float32), and with their

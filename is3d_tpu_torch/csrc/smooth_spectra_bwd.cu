@@ -104,8 +104,6 @@
 
 #include <cuda_runtime.h>
 
-#include <type_traits>
-
 #include "bwd_stage.cuh"
 #include "folded.cuh"
 
@@ -201,10 +199,6 @@ __device__ __forceinline__ void finalize(const T* g, const Sums& a,
   for (int k = 0; k < NF; ++k) o[k] *= w;
 }
 
-__host__ __device__ inline size_t align16(size_t b) {
-  return (b + 15) / 16 * 16;
-}
-
 // K9a's float64 sums a thread carries (NA: Gpx, Gpy, Gux, Guy, Gqxx, Gqyy,
 // Gqxy, Gvx, Gvy, sInvT, sAlpha, s0 .. s5, then the node sums before the
 // node's cosh and sinh, SP, SU, S2, SX, SY, SV) and a point's sums in T
@@ -239,22 +233,6 @@ struct FSmem {
     return reinterpret_cast<T*>(p + stage_ + b * sz_ + part);
   }
 };
-
-// U values of T from shared memory, a pair a vector load where U is even
-template <typename T, int U>
-__device__ __forceinline__ void ld_u(const T* p, T* v) {
-  using T2 = typename std::conditional<sizeof(T) == 4, float2, double2>::type;
-#pragma unroll
-  for (int u = 0; u < U; u += 1 + (U % 2 == 0)) {
-    if constexpr (U % 2 == 0) {
-      const T2 a = *reinterpret_cast<const T2*>(p + u);
-      v[u] = a.x;
-      v[u + 1] = a.y;
-    } else {
-      v[u] = p[u];
-    }
-  }
-}
 
 // K9a, fixed nodes: grid (blocks of CT cells); thread t owns cell t / R of
 // the block at node t % R and walks pT rows, then groups of FIX_U angles,

@@ -55,8 +55,8 @@ from ..data import SpeciesArrays
 from ..io.tables import MomentumGrid
 from ..physics import lrf
 from .common import fermi_bose, effective_chunk
-from .launch import (check_float, check_tensor, require_cuda, launch,
-                     kernel_grid, kernel_props, tile_split)
+from .launch import (PROPS, check_float, check_tensor, require_cuda,
+                     launch, kernel_grid, tile_split)
 from .smooth import (ETA_REMAP_T_REF, MomentumConstants, momentum_constants,
                      remap_scale, remap_node_table)
 
@@ -104,18 +104,21 @@ def polzn_formula_ops(remap: bool, n_phi: int) -> tuple[float, float]:
 # indices hoisted.  Per evaluation (cell, node, species, point), (FP32,
 # SFU): the forward recomputed: p.dsigma 1, u.p / T 1 | exp, + sign 1 |
 # 1/(...), q = 1 - sign f0 1, pref 1, meas 1, mp 1; the four T_k = mT s1 +
-# s2 4; the chain: g_mp 4, g_meas 1, g_pref 1, g_f0 2, g_arg 2, g_pds 1,
-# g_T_k 4; the sums: g_pds, g_arg and the four g_T_k once over the species
-# (their px, py factors per point) and once over the angles (their mT
-# cosh, mT sinh factors per row) 12                             = (38, 2)
-POLZN_BWD_OPS = (38, 2)
+# s2 4; the chain: g_mp 4, g_meas 1, g_pref 1, g_f0 2, g_arg 2, g_pds 1;
+# the sums: g_pds and g_arg once over the species (their px, py factors
+# per point) and once with mT 4, the four g_T_k = g_k mp the same way,
+# each product fused into its sum's FMA (mp mT once) 9           = (35, 2)
+# (an earlier count, 38, took g_T_k's four products apart from their
+# sums: an FMA is one operation, so they fuse)
+POLZN_BWD_OPS = (35, 2)
 # Per row (cell, node, species, pT), shared by its n_phi points.  Fixed
-# nodes: mT times the six angle sums (cosh and sinh hoisted to the (cell,
-# node)) 6.  The remap: e^+-Delta from the node table 2, mT cosh and mT
-# sinh 2, x itau 1, the row terms of p.dsigma and u.p 4, the four s1 6,
-# the weight x jacobian on the six sums 6, their products with the row's
-# factors 12, d/dDelta 13
-POLZN_BWD_ROW_OPS = 6
+# nodes: none (the sums with mT are the per-evaluation FMAs above, cosh
+# and sinh hoisted to the (cell, node); the order that multiplies six
+# angle sums by mT a row needs 6).  The remap: e^+-Delta from the node
+# table 2, mT cosh and mT sinh 2, x itau 1, the row terms of p.dsigma and
+# u.p 4, the four s1 6, the weight x jacobian on the six sums 6, their
+# products with the row's factors 12, d/dDelta 13
+POLZN_BWD_ROW_OPS = 0
 POLZN_BWD_REMAP_ROW_OPS = 46
 
 
@@ -410,10 +413,9 @@ def _bwd_library():
         for fn in (lib.is3d_polzn_bwd_f32, lib.is3d_polzn_bwd_f64):
             fn.restype = ci
             fn.argtypes = [vp, ci, ci,                 # cells, C, nw
-                           vp, vp, vp, ci,             # mass sign pm, S
-                           vp, vp, vp, ci, ci,         # pT px py n_pT n_phi
-                           vp, vp, ci, ci,             # nodes, wR, R, dim
-                           vp, vp, vp]                 # G, grad, stream
+                           ci, ci, ci,                 # S, n_pT, n_phi
+                           vp, vp, vp, vp, ci, ci,     # px py nodes wR, R, dim
+                           ci, vp, vp, vp, vp]         # RU, rows, Gst, grad, stream
         for fn in (lib.is3d_polzn_bwd_remap_f32,
                    lib.is3d_polzn_bwd_remap_f64):
             fn.restype = ci
@@ -421,25 +423,80 @@ def _bwd_library():
                            vp, vp, vp, ci,             # mass sign pm, S
                            vp, ci, vp, vp, ci,         # pT, n_pT, cos, sin, F
                            vp, vp, ci,                 # table, wR, R
-                           ctypes.c_double,            # T_ref
-                           vp, vp, vp]                 # G, grad, stream
+                           vp, vp, vp]                 # Gs, grad, stream
+        lib.is3d_polzn_bwd_layout.restype = ci
+        lib.is3d_polzn_bwd_layout.argtypes = [ci] * 3 + [vp]
         lib.is3d_polzn_bwd_props.restype = ci
-        lib.is3d_polzn_bwd_props.argtypes = [ci] * 5 + [vp]
+        lib.is3d_polzn_bwd_props.argtypes = [ci] * 7 + [vp]
         lib.is3d_cuda_error_string.restype = ctypes.c_char_p
         lib.is3d_cuda_error_string.argtypes = [ci]
         lib._is3d_bound = True
     return lib
 
 
+# what the backward kernels' plan reports (csrc/polzn_bwd.cu:props):
+# launch.PROPS, then the species a stage, the pT rows a stage, the angles a
+# thread evaluates at once (K12b: the phi loop's unroll), the values a
+# species' stage row (K12a) or a point (K12b) holds, and the waves of
+# resident blocks
+BWD_PLAN = PROPS + ("species_per_stage", "pT_rows_per_stage", "angles",
+                    "stage_row", "waves")
+
+
 def bwd_props(device: torch.device, f64: bool, mom: MomentumConstants,
-              flags: PolznFlags) -> dict:
-    """The launch shape and resources (launch.kernel_props) of the backward
-    kernel of ``flags`` at mom's shape."""
+              flags: PolznFlags, n_cells: int) -> dict:
+    """The launch plan and resources of the backward kernel of ``flags`` at
+    mom's shape for ``n_cells`` cells (BWD_PLAN).  For reports:
+    polzn_bwd_cuda's launch makes its own plan."""
     lib = _bwd_library()
     dim = 0 if flags.remap else flags.dimension
-    return kernel_props(lib, "polzn_bwd", lib.is3d_polzn_bwd_props, device,
-                        int(f64), dim, mom.pT.shape[0], mom.n_phi,
-                        mom.nodes.shape[0])
+    out = (ctypes.c_int * len(BWD_PLAN))()
+    with torch.cuda.device(device):
+        rc = lib.is3d_polzn_bwd_props(
+            int(f64), dim, mom.mass.shape[0], mom.pT.shape[0], mom.n_phi,
+            mom.nodes.shape[0], max(int(n_cells), 1), out)
+    if rc != 0:
+        raise RuntimeError("polzn_bwd: no launch configuration: "
+                           f"{lib.is3d_cuda_error_string(rc).decode()}")
+    return dict(zip(BWD_PLAN, out))
+
+
+def fixed_bwd_stage(G: torch.Tensor, mom: MomentumConstants,
+                    pm: torch.Tensor, angles: int, stage_row: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K12a's inputs from the five sums' cotangents G (5, S, P, F, n_out),
+    on G's device and dtype: rows (P, S, 4) = mT, sign, pm, pm sign of each
+    (pT, species), and Gst (P, ceil(F / angles), S, stage_row): per (pT,
+    angle group, species) first g0..g3 of each (angle, node), angle-major,
+    then g4 of each (node, angle), node-major, padded with zeros to
+    stage_row (the angles too, to a whole group), so that one stage of the
+    kernel (a pT row, an angle group, a chunk of species) is one contiguous
+    run and a (species, node, angle)'s g0..g3 one 16-byte vector."""
+    _, S, P, F, R = G.shape
+    nfg = -(-F // angles)
+    g = torch.nn.functional.pad(G, (0, 0, 0, nfg * angles - F))
+    g = g.view(5, S, P, nfg, angles, R)
+    quads = g[:4].permute(2, 3, 1, 4, 5, 0).reshape(P, nfg, S, -1)
+    g4 = g[4].permute(1, 2, 0, 4, 3).reshape(P, nfg, S, -1)
+    st = torch.nn.functional.pad(torch.cat([quads, g4], dim=3),
+                                 (0, stage_row - 5 * angles * R))
+    mT = torch.sqrt(mom.mass[None, :] ** 2 + mom.pT[:, None] ** 2)
+    rows = torch.stack([mT, mom.sign.expand(P, S), pm.expand(P, S),
+                        (pm * mom.sign).expand(P, S)], dim=2)
+    return rows.to(G.dtype).contiguous(), st.contiguous()
+
+
+def remap_bwd_stage(G: torch.Tensor, mom: MomentumConstants) -> torch.Tensor:
+    """K12b's cotangent from the five sums' cotangents G (5, S, P, F, 1),
+    on G's device and dtype: Gs (S, P, F, 8) = the five G's times the
+    remap's jacobian s(mT) of the (species, pT) row, then cos phi, sin phi
+    and 0, so that a point is two 16-byte vectors."""
+    _, S, P, F, _ = G.shape
+    g = G[..., 0] * remap_scale(mom).to(G.dtype)[None, :, :, None]
+    ang = torch.stack([mom.cos_phi, mom.sin_phi,
+                       torch.zeros_like(mom.cos_phi)], dim=1).to(G.dtype)
+    return torch.cat([g.permute(1, 2, 3, 0),
+                      ang.expand(S, P, F, 3)], dim=3).contiguous()
 
 
 def polzn_bwd_cuda(x: torch.Tensor, G: torch.Tensor, mom: MomentumConstants,
@@ -472,23 +529,28 @@ def polzn_bwd_cuda(x: torch.Tensor, G: torch.Tensor, mom: MomentumConstants,
     lib = _bwd_library()
     f64 = x.dtype == torch.float64
     grad = torch.empty_like(x)
-    head = (x.data_ptr(), C, NW, mom.mass.data_ptr(), mom.sign.data_ptr(),
-            pm.data_ptr(), S, mom.pT.data_ptr())
     if flags.remap:
         if table is None:
             table = remap_node_table(mom)
+        Gs = remap_bwd_stage(G, mom)
         launch(lib, "polzn_bwd remap",
                lib.is3d_polzn_bwd_remap_f64 if f64
-               else lib.is3d_polzn_bwd_remap_f32, x.device, *head, P,
-               mom.cos_phi.data_ptr(), mom.sin_phi.data_ptr(), F,
-               table.data_ptr(), wR.data_ptr(), R, ETA_REMAP_T_REF,
-               G.data_ptr(), grad.data_ptr())
+               else lib.is3d_polzn_bwd_remap_f32, x.device, x.data_ptr(), C,
+               NW, mom.mass.data_ptr(), mom.sign.data_ptr(), pm.data_ptr(),
+               S, mom.pT.data_ptr(), P, mom.cos_phi.data_ptr(),
+               mom.sin_phi.data_ptr(), F, table.data_ptr(), wR.data_ptr(), R,
+               Gs.data_ptr(), grad.data_ptr())
         BWD_REMAP_LAUNCHES += 1
         return grad
+    layout = (ctypes.c_int * 2)()
+    lib.is3d_polzn_bwd_layout(int(f64), flags.dimension, R, layout)
+    angles, stage_row = layout
+    rows, Gst = fixed_bwd_stage(G, mom, pm, angles, stage_row)
     launch(lib, "polzn_bwd", lib.is3d_polzn_bwd_f64 if f64
-           else lib.is3d_polzn_bwd_f32, x.device, *head, mom.px.data_ptr(),
-           mom.py.data_ptr(), P, F, mom.nodes.data_ptr(), wR.data_ptr(), R,
-           flags.dimension, G.data_ptr(), grad.data_ptr())
+           else lib.is3d_polzn_bwd_f32, x.device, x.data_ptr(), C, NW, S, P,
+           F, mom.px.data_ptr(), mom.py.data_ptr(), mom.nodes.data_ptr(),
+           wR.data_ptr(), R, flags.dimension, stage_row, rows.data_ptr(),
+           Gst.data_ptr(), grad.data_ptr())
     BWD_LAUNCHES += 1
     return grad
 

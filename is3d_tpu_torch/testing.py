@@ -1048,15 +1048,16 @@ def polzn_edge_spec(case: str, n_cells: int = 203,
 
 
 def polzn_edge_inputs(case: str, n_cells: int = 203, n_species: int = 7,
-                      dtype=torch.float64, device="cpu"):
+                      dtype=torch.float64, device="cpu", **override):
     """(x, mom, pm, wR, flags, table): the polarization kernels' inputs
     for the POLZN_EDGES case ``case`` on ``device`` (table: the remap's
-    node table, else None)."""
+    node table, else None); ``override`` replaces settings of the case
+    (n_species, grid, ...)."""
     from .config import Config
     from .kernels import polzn
     from .kernels.smooth import momentum_constants, remap_node_table
     from .parallel.mesh import _pad_inert
-    spec = polzn_edge_spec(case, n_cells, n_species)
+    spec = dict(polzn_edge_spec(case, n_cells, n_species), **override)
     dim = spec["dimension"]
     cfg = Config(operation=1, mode=5, dimension=dim)
     grid = edge_grid(spec, dtype, device)
@@ -1354,12 +1355,13 @@ def vah_grad_inputs(case: str, n_cells: int = 203, dtype=torch.float64,
 
 
 def polzn_grad_inputs(case: str, n_cells: int = 203, dtype=torch.float64,
-                      device="cpu"):
+                      device="cpu", **override):
     """(x, mom, pm, wR, flags, table, G): the polarization backward
-    kernels' inputs for the POLZN_EDGES case ``case`` (polzn_edge_inputs)
-    and a cotangent of the five sums (5, S, n_pT, n_phi, n_out)."""
+    kernels' inputs for the POLZN_EDGES case ``case`` (polzn_edge_inputs,
+    with ``override``) and a cotangent of the five sums (5, S, n_pT,
+    n_phi, n_out)."""
     x, mom, pm, wR, flags, table = polzn_edge_inputs(
-        case, n_cells=n_cells, dtype=dtype, device=device)
+        case, n_cells=n_cells, dtype=dtype, device=device, **override)
     n_out = mom.nodes.shape[0] if flags.dimension == 3 else 1
     return x, mom, pm, wR, flags, table, grad_cotangent(
         (5, mom.mass.shape[0], mom.pT.shape[0], mom.n_phi, n_out),

@@ -7,8 +7,8 @@ C, C, B, A).
         [--cases 3d_df2,3d_df1,2d_fixed,2d_remap,bin,dndx,proto,decays,
                  yields,alias,sample,cascade,grad_feqmod_3d,
                  grad_feqmod_2d,grad_vah_3d,grad_vah_2d,grad_polzn_3d,
-                 grad_polzn_2d,grad_main_3d,grad_main_2d,grad_decays,
-                 polzn_3d,polzn_2d]
+                 grad_polzn_2d,grad_polzn_2d_fixed,grad_main_3d,
+                 grad_main_2d,grad_decays,polzn_3d,polzn_2d]
 
 Each turn runs a fresh interpreter that imports ``is3d_tpu_torch`` from
 that root (building its kernels into that root's _build/) and, per case:
@@ -91,13 +91,15 @@ that root (building its kernels into that root's _build/) and, per case:
   3+1D fixed nodes, 2+1D with the mT remap) on that synthetic mode-5
   group, its five sums stacked: timed as the spectra cases, the float64
   difference on its first 512 cells;
-* ``grad_polzn_3d``, ``grad_polzn_2d``: the polarization's backward
-  kernels K12a (``polzn_bwd_cuda``, 3+1D fixed nodes) and K12b (2+1D with
-  the mT remap, 48 nodes) on one group of N synthetic mode-5 cells
+* ``grad_polzn_3d``, ``grad_polzn_2d``, ``grad_polzn_2d_fixed``: the
+  polarization's backward kernels K12a (``polzn_bwd_cuda``, 3+1D fixed
+  nodes; ``_fixed`` 2+1D fixed nodes) and K12b (2+1D with the mT remap,
+  48 nodes) on one group of N synthetic mode-5 cells
   (``synthetic_surface_cells`` and ``synthetic_vorticity``, seed 0), 320
   species, the native grid, float32, T_avg ``testing.POLZN_T_AVG`` and a
   positive cotangent on the five sums: timed, the float64 difference and
-  the resources as the grad cases;
+  the resources as the grad cases (with the side's plan -- species and pT
+  rows a stage, angles, stage row, waves -- where it has ``BWD_PLAN``);
 * ``grad_main_3d``, ``grad_main_2d``: the linear-df backward kernels
   (``spectra_bwd_cuda``) K9a (3+1D, fixed nodes) and K9b (2+1D with the mT
   remap, 48 nodes) on one group of N synthetic cells as the spectra cases
@@ -137,7 +139,8 @@ import sys
 CASES = ("3d_df2", "3d_df1", "2d_fixed", "2d_remap", "bin", "dndx", "proto",
          "decays", "yields", "alias", "sample", "cascade", "grad_feqmod_3d",
          "grad_feqmod_2d", "grad_vah_3d", "grad_vah_2d", "grad_polzn_3d",
-         "grad_polzn_2d", "grad_main_3d", "grad_main_2d", "grad_decays",
+         "grad_polzn_2d", "grad_polzn_2d_fixed", "grad_main_3d",
+         "grad_main_2d", "grad_decays",
          "polzn_3d", "polzn_2d")
 
 _TURN = r"""
@@ -308,7 +311,8 @@ def cascade_cases(report):
 # one synthetic group
 GRAD = {"grad_feqmod_3d": ("feqmod", 3), "grad_feqmod_2d": ("feqmod", 2),
         "grad_vah_3d": ("vah", 3), "grad_vah_2d": ("vah", 2),
-        "grad_polzn_3d": ("polzn", 3), "grad_polzn_2d": ("polzn", 2)}
+        "grad_polzn_3d": ("polzn", 3), "grad_polzn_2d": ("polzn", 2),
+        "grad_polzn_2d_fixed": ("polzn", 2)}
 
 
 # an instantiation's registers, local bytes, resident blocks an SM (the
@@ -357,7 +361,8 @@ def grad_case(case, report):
         report[case] = "absent"
         return
     f64 = torch.float64
-    grid = native_momentum_grid(dim, eta_mT_rescale=dim == 2, dtype=dt,
+    remap = dim == 2 and not case.endswith("_fixed")
+    grid = native_momentum_grid(dim, eta_mT_rescale=remap, dtype=dt,
                                 device=dev)
     species = testing.synthetic_species(320, dtype=dt, device=dev)
     mom = smooth.momentum_constants(species, grid, dim)
@@ -434,9 +439,12 @@ def grad_case(case, report):
             "ms": ms, "runs": runs, "sum": total, "err_f64": float(
                 (out - ref).abs().max() / ref.abs().max()),
             "resources": bwd_resources(
-                "polzn_bwd", "polzn_remap_bwd_kernelIfEE" if dim == 2
-                else "polzn_bwd_kernelIfLi3EE",
-                lambda: polzn.bwd_props(dev, False, mom, flags), None)}
+                "polzn_bwd", "polzn_remap_bwd_kernelIfEE" if flags.remap
+                else f"polzn_bwd_kernelIfLi{dim}EE",
+                (lambda: polzn.bwd_props(dev, False, mom, flags, n_cells))
+                if hasattr(polzn, "BWD_PLAN")
+                else (lambda: polzn.bwd_props(dev, False, mom, flags)),
+                None)}
         return
     cfg = Config(mode=2, **base)
     cells = testing.synthetic_vah_cells(n_cells, dim, seed=0)

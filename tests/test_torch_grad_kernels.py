@@ -252,6 +252,65 @@ def test_fixed_bwd_stage_is_what_the_kernel_reads(case, angles):
     assert torch.equal(rows[..., 3], mom.baryon.expand(P, S))
 
 
+@pytest.mark.parametrize("angles", [1, 2, 4])
+@pytest.mark.parametrize("case", ["3d_ragged", "2d_fixed_ragged"])
+def test_polzn_fixed_bwd_stage_is_what_the_kernel_reads(case, angles):
+    """polzn.fixed_bwd_stage lays the five sums' cotangents out as K12a
+    stages them: entry (pT p, angle group f // angles, species s) holds
+    G[k, s, p, f, r] (k < 4) at ((f % angles) n_out + r) 4 + k, one
+    16-byte vector a (species, angle, node), and G[4, s, p, f, r] at 4
+    angles n_out + r angles + f % angles; the padded angles and each
+    species' padding are 0; rows hold mT, sign, pm and pm sign of each
+    (pT, species)."""
+    x, mom, pm, wR, flags, table, G = testing.polzn_grad_inputs(case,
+                                                                n_cells=20)
+    _, S, P, F, R = G.shape
+    assert R == (mom.nodes.shape[0] if flags.dimension == 3 else 1)
+    ru = -(-5 * angles * R // 4) * 4 + 4
+    rows, Gst = polzn.fixed_bwd_stage(G, mom, pm, angles, ru)
+    nfg = -(-F // angles)
+    assert Gst.shape == (P, nfg, S, ru) and Gst.is_contiguous()
+    assert rows.shape == (P, S, 4) and rows.is_contiguous()
+    want = torch.zeros_like(Gst)
+    for f in range(F):
+        fg, u = divmod(f, angles)
+        for r in range(R):
+            for k in range(4):
+                want[:, fg, :, (u * R + r) * 4 + k] = G[k, :, :, f, r].T
+            want[:, fg, :, 4 * angles * R + r * angles + u] = G[4, :, :, f,
+                                                                r].T
+    assert torch.equal(Gst, want)
+    assert not Gst[..., 5 * angles * R:].any()
+    for u in range(F % angles or angles, angles):     # the padded angles
+        last = Gst[:, -1]
+        assert not last[..., u * R * 4:(u + 1) * R * 4].any()
+        assert not last[..., 4 * angles * R + u:5 * angles * R:angles].any()
+    m2 = mom.mass ** 2
+    assert torch.equal(rows[..., 0], torch.sqrt(m2 + mom.pT[:, None] ** 2))
+    assert torch.equal(rows[..., 1], mom.sign.expand(P, S))
+    assert torch.equal(rows[..., 2], pm.expand(P, S))
+    assert torch.equal(rows[..., 3], (pm * mom.sign).expand(P, S))
+
+
+@pytest.mark.parametrize("case", ["2d_remap", "2d_remap_ragged"])
+def test_polzn_remap_bwd_stage_is_what_the_kernel_reads(case):
+    """polzn.remap_bwd_stage lays the cotangents out as K12b reads a point:
+    (species, pT, phi) holds the five G's times the remap's jacobian s(mT)
+    of the (species, pT) row, then cos phi, sin phi and 0."""
+    x, mom, pm, wR, flags, table, G = testing.polzn_grad_inputs(case,
+                                                                n_cells=20)
+    assert flags.remap
+    _, S, P, F, _ = G.shape
+    Gs = polzn.remap_bwd_stage(G, mom)
+    assert Gs.shape == (S, P, F, 8) and Gs.is_contiguous()
+    s = smooth.remap_scale(mom)
+    for k in range(5):
+        assert torch.equal(Gs[..., k], G[k, ..., 0] * s[:, :, None])
+    assert torch.equal(Gs[..., 5], mom.cos_phi.expand(S, P, F))
+    assert torch.equal(Gs[..., 6], mom.sin_phi.expand(S, P, F))
+    assert not Gs[..., 7].any()
+
+
 def test_backward_yardsticks():
     """The backward's operations per evaluation exceed the forward's, and
     the wave backward counts the forward's evaluations."""
@@ -523,6 +582,12 @@ def test_polzn_backward_yardstick():
                                          * (1 / 8 - 1 / 24))
 
 
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """The bit pattern of a float tensor (NaN equals NaN of the same
+    bits)."""
+    return t.view(torch.int64 if t.dtype == torch.float64 else torch.int32)
+
+
 def _polzn_bwd_check(got, want, plain, dtype):
     """A K12 gradient against the f64 plain one at TOL[dtype] per field,
     its NaN and inf where the plain version in ``dtype`` (``plain``) has
@@ -547,11 +612,67 @@ def test_polzn_bwd_kernel_matches_plain(cuda_card, case, dtype):
                                  mom.to(None, torch.float64), pm.double(),
                                  wR.double(), flags)
     plain = polzn.polzn_bwd_plain(x, G, mom, pm, wR, flags)
+    n0 = polzn.BWD_REMAP_LAUNCHES if flags.remap else polzn.BWD_LAUNCHES
     got = polzn.polzn_bwd_cuda(x, G, mom, pm, wR, flags, table)
     again = polzn.polzn_bwd_cuda(x, G, mom, pm, wR, flags, table)
     torch.cuda.synchronize()
-    assert torch.equal(got.nan_to_num(7.0), again.nan_to_num(7.0))
+    assert (polzn.BWD_REMAP_LAUNCHES if flags.remap
+            else polzn.BWD_LAUNCHES) == n0 + 2
+    assert torch.equal(_bits(got), _bits(again))
     _polzn_bwd_check(got, want, plain, dtype)
+
+
+# the plan test's shapes: 3+1D with 21 nodes and 302 species (a ragged last
+# species chunk in float32 and float64), 2+1D fixed nodes, the remap with
+# 19 pT rows (a partial last tile); an odd n_phi everywhere
+POLZN_PLAN = {
+    "3d": dict(n_species=302, grid=dict(n_pT=3, n_phi=7, n_y=21)),
+    "2d_fixed": dict(n_species=301, grid=dict(n_pT=3, n_phi=7, n_eta=13)),
+    "2d_remap": dict(n_species=23, grid=dict(n_pT=19, n_phi=7, n_eta=12,
+                                             eta_mT_rescale=True)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("case", sorted(POLZN_PLAN))
+def test_polzn_bwd_plan_stages_and_tail(cuda_card, case, dtype):
+    """K12a's and K12b's plans (polzn.bwd_props) on shapes that leave
+    their tails: the 3+1D species' last chunk is ragged, n_phi is not a
+    multiple of K12a's angles a stage, the remap's last tile of pT rows is
+    partial, and the cell counts 1, CT - 1 and CT + 1 (CT the cells a
+    block) leave the last block partly empty; each against the plain
+    version in float64, two launches bit-identical.  No float32 plan
+    spills."""
+    spec = POLZN_PLAN[case]
+    x, mom, pm, wR, flags, table, G = testing.polzn_grad_inputs(
+        case, n_cells=8, dtype=dtype, device="cuda", **spec)
+    f64 = dtype == torch.float64
+    plan = polzn.bwd_props("cuda", f64, mom, flags, 8)
+    S, F = mom.mass.shape[0], mom.n_phi
+    if case == "3d":
+        sc = plan["species_per_stage"]
+        assert sc < S and S % sc, plan
+    if flags.remap:
+        assert mom.pT.shape[0] % plan["pT_rows_per_stage"], plan
+    else:
+        assert F % plan["angles"], plan
+    if not f64:
+        assert plan["local_bytes"] == 0, plan
+    ct = plan["cells_per_block"]
+    for n in sorted({1, max(ct - 1, 1), ct + 1}):
+        x, mom, pm, wR, flags, table, G = testing.polzn_grad_inputs(
+            case, n_cells=n, dtype=dtype, device="cuda", **spec)
+        want = polzn.polzn_bwd_plain(
+            x.double(), G.double(), mom.to(None, torch.float64), pm.double(),
+            wR.double(), flags)
+        plain = polzn.polzn_bwd_plain(x, G, mom, pm, wR, flags)
+        got = polzn.polzn_bwd_cuda(x, G, mom, pm, wR, flags, table)
+        again = polzn.polzn_bwd_cuda(x, G, mom, pm, wR, flags, table)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(got), _bits(again)), n
+        _polzn_bwd_check(got, want, plain, dtype)
 
 
 @pytest.mark.gpu

@@ -167,7 +167,8 @@ Phases, each printing its own line(s):
    16384-cell group as it is and with the shear x 30 (most cells break
    down): f32 against the f64 kernel, paired times, its first 1024 cells
    against the plain version, the bound from the evaluations each chain
-   makes, SASS per evaluation; [grad feqmod pair] K10a on that group as
+   makes, each chain instantiation's cells, resources and SASS per
+   evaluation; [grad feqmod pair] K10a on that group as
    [grad pair] (GRAD_PAIR_PLAIN_CELLS cells, an equal share of each
    chain's part, against the plain version; the cells each chain's
    instantiation takes, and each instantiation's registers, spills,
@@ -175,7 +176,8 @@ Phases, each printing its own line(s):
    diff.surface_vjp of the production df 3
    spectra (K3 and K10a once a group, the forward bit-equal, f64 central
    differences); [feqmod main 2d] the same with df 4 in 2+1D (the mT
-   remap) and its pair (plain on 512 cells), [grad feqmod pair 2d] and
+   remap) and its pair (as it is and with the shear x 30, plain on 512
+   cells), [grad feqmod pair 2d] and
    [grad feqmod main 2d] with K10b; [feqmod dndx]
    operation 0 with df 3 on 16384 cells x 320 species (2+1D) and one of
    its groups (plain on 512 cells);
@@ -1159,7 +1161,6 @@ def _scaled_group(cols: dict, n: int, shear: float) -> dict:
 
 
 def phase_feqmod_pair(smi: str, clock: float, run_dir: str, cfg, tag: str,
-                      kinds=(("clean", 1.0), ("most", 30.0)),
                       plain_cells=FEQMOD_PLAIN_CELLS):
     """[feqmod pair]: a feqmod spectra kernel on one canonical group (16384
     cells) of a main-path surface as it is, and with the shear stress x 30
@@ -1187,15 +1188,11 @@ def phase_feqmod_pair(smi: str, clock: float, run_dir: str, cfg, tag: str,
     lag = laguerre_device(dtype=torch.float32, device="cuda")
     table = remap_node_table(mom) if flags.remap else None
     table64 = remap_node_table(f64["mom"]) if flags.remap else None
-    kernel = f"fixed_kernelIfLi{cfg.dimension}EE"
-    if flags.remap:
-        width = feqmod.feqmod_grid(
-            feqmod._library(), torch.device("cuda"), False,
-            mom.mass.shape[0], mom.pT.shape[0], mom.n_phi,
-            mom.nodes.shape[0], 2, True).phi_width
-        kernel = f"remap_kernelIfLi{width}EE"
+    # one instantiation a chain (csrc/feqmod.cu), the narrow cells' only at
+    # 3+1D fixed nodes
+    chains = range(3 if cfg.dimension == 3 and not flags.remap else 2)
     records = {}
-    for kind, shear in kinds:
+    for kind, shear in (("clean", 1.0), ("most", 30.0)):
         group = _scaled_group(cols, gs, shear)
         x, rn, wcs = feqmod.group_inputs(group, species, lag, df_data, cfg,
                                          flags)
@@ -1243,8 +1240,15 @@ def phase_feqmod_pair(smi: str, clock: float, run_dir: str, cfg, tag: str,
               f"value; on the first {n} cells kernel {ks_ms:.3f} ms, plain "
               f"{p_ms:.1f} ms (one run); bound {bound[0]:.3f} ms "
               f"({bound[1]}), kernel at {bound[0] / k_ms:.1%} of it; two "
-              "launches bit-identical; issued per evaluation (both chains' "
-              "loop bodies over their exps): " + _issued("feqmod", kernel))
+              "launches bit-identical")
+        _, offs = feqmod.chain_split(x, cfg.dimension)
+        offs = offs.tolist()
+        for i in chains:
+            kern = feqmod.chain_kernel_name(flags, i, mom.n_phi)
+            print(f"[{tag}] {kind}: {feqmod.CHAINS[i]} "
+                  f"({offs[i + 1] - offs[i]} cells), {kern}: "
+                  f"{feqmod.chain_props(x.device, False, flags, i, mom.n_phi)}"
+                  "; issued per evaluation: " + _issued("feqmod", kern))
         records[kind] = dict(launches=None, max_abs_err=err, ms=k_ms,
                              plain_ms=p_ms, bound_ms=bound[0],
                              bound_by=bound[1], library_ms=None, cells=gs,
@@ -1971,14 +1975,15 @@ def phase_feqmod(smi: str, clock: float):
         args=("df_mode=4", "regulate_deltaf=1"),
         label="2+1D mT remap df4 (bulk x 30)", scale_bulk=30.0)
     pair = phase_feqmod_pair(smi, clock, run_dir, cfg, "feqmod remap pair",
-                             kinds=(("clean", 1.0),), plain_cells=512)
+                             plain_cells=512)
     rec_bwd_remap = phase_grad_feqmod_pair(smi, clock, run_dir, cfg,
                                            "grad feqmod pair 2d")
     rec_bwd_remap["launches"] = phase_grad_feqmod_main(
         smi, run_dir, cfg, "grad feqmod main 2d")["counts"][
             "feqmod_bwd_remap"]
     shutil.rmtree(run_dir, ignore_errors=True)
-    rec_remap = dict(pair["clean"], launches=counts["feqmod_spectra_remap"])
+    rec_remap = dict(pair["clean"], launches=counts["feqmod_spectra_remap"],
+                     most_breakdown=pair["most"])
 
     counts, run_dir, cfg = phase_dndx_main(
         smi, "feqmod dndx", FEQMOD_DNDX_CELLS, FEQMOD_DNDX_ARGS,
@@ -4163,7 +4168,7 @@ def phase_grad_feqmod_pair(smi: str, clock: float, run_dir: str, cfg,
     """[grad feqmod pair] / [grad feqmod pair 2d]: K10a (K10b with the
     remap) on the first canonical group of a feqmod main path (f32, a
     positive cotangent), as _grad_kernel_pair, the checked cells an equal
-    share of each chain's part (kernels/feqmod.py:bwd_chain_split; cells
+    share of each chain's part (kernels/feqmod.py:chain_split; cells
     per instantiation printed); the bound from the evaluations of each
     chain this group makes (kernels/feqmod.py:feqmod_backward_formula_ops)."""
     from is3d_tpu_torch import testing
@@ -4182,10 +4187,10 @@ def phase_grad_feqmod_pair(smi: str, clock: float, run_dir: str, cfg,
     R = mom.nodes.shape[0]
     G = testing.grad_cotangent((S, P, F, R if cfg.dimension == 3 else 1),
                                dtype=torch.float32, device="cuda")
-    order, offs = feqmod.bwd_chain_split(x, cfg.dimension)
+    order, offs = feqmod.chain_split(x, cfg.dimension)
     offs = offs.tolist()
     chains = range(3 if cfg.dimension == 3 else 2)
-    split = {feqmod.BWD_CHAINS[i]: offs[i + 1] - offs[i] for i in chains}
+    split = {feqmod.CHAINS[i]: offs[i + 1] - offs[i] for i in chains}
     present = [i for i in chains if offs[i + 1] > offs[i]]
     share = GRAD_PAIR_PLAIN_CELLS // len(present)
     idx = torch.cat([order[offs[i]:offs[i] + share] for i in present]
@@ -4202,7 +4207,7 @@ def phase_grad_feqmod_pair(smi: str, clock: float, run_dir: str, cfg,
                    _nbytes(x, rn, wcs, G, x, rn, *mom_tensors(mom)), clock)
     bodies = []
     for i in chains:
-        bodies.append((f"{feqmod.BWD_CHAINS[i]} ({split[feqmod.BWD_CHAINS[i]]}"
+        bodies.append((f"{feqmod.CHAINS[i]} ({split[feqmod.CHAINS[i]]}"
                        " cells)", "feqmod_bwd", feqmod.bwd_kernel_name(flags, i),
                        feqmod.bwd_props(x.device, False, mom, flags, i)))
     bd = (x[:, feqmod.FQ["bd"]] > 0).double().mean().item()

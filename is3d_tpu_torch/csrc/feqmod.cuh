@@ -1,7 +1,9 @@
 // The modified-equilibrium (df 3-4) emission value, shared by the feqmod
 // spectra kernels (feqmod.cu) and the dN/dX kernel's feqmod producer
 // (dndx.cu): the packed per-cell fields, the per-(cell, node) composites
-// at fixed nodes, f_mod and the linearized fallback.
+// at fixed nodes, f_mod and the linearized fallback (fallback_value on the
+// packed fields for dndx.cu; fallback_fixed on feqmod.cu's staged, folded
+// coefficients).
 //
 // Per (cell, node, species, point) a clean cell evaluates only
 //
@@ -113,6 +115,77 @@ __device__ __forceinline__ T fallback_value(int df_mode, int sw, T pdu,
       d = d + (k.dzl + ((feqbar * k.dl) * fma(-m2, r, pdu)) * k.invT);
   }
   if (regulate) d = d < T(-1) ? T(-1) : (d > T(1) ? T(1) : d);
+  return fma(feq, d, feq);
+}
+
+// min(x, +inf): NaN -> +inf, every other value kept (PTX min returns the
+// operand that is not NaN); one instruction for the |x|^2 saturation of a
+// sum of squares, which is never -inf
+__device__ __forceinline__ float fq_sat(float x) {
+  float y;
+  asm("min.f32 %0, %1, %2;"
+      : "=f"(y)
+      : "f"(x), "f"(__int_as_float(0x7f800000)));
+  return y;
+}
+__device__ __forceinline__ double fq_sat(double x) {
+  double y;
+  asm("min.f64 %0, %1, %2;"
+      : "=d"(y)
+      : "d"(x), "d"(__longlong_as_double(0x7ff0000000000000LL)));
+  return y;
+}
+
+// the regulation's clip to [-1, 1], NaN kept as NaN (float32: the .NaN
+// forms of max and min, one instruction each)
+__device__ __forceinline__ float fq_clip(float d) {
+  float y;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(y) : "f"(d), "f"(-1.0f));
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(y) : "f"(y), "f"(1.0f));
+  return y;
+}
+__device__ __forceinline__ double fq_clip(double d) {
+  return d < -1.0 ? -1.0 : (d > 1.0 ? 1.0 : d);
+}
+
+// the fallback's per-cell coefficients as feqmod.cu's kernels stage them
+// (kernels/feqmod.py fixed_stage, remap_stage): fb_coef's with bulkPi
+// folded into kF, kG and k3 (df 3) and 1/T into dl (df 4)
+template <typename T>
+struct FbFold {
+  T invTL, nab, ksh, kFb, kGb, k3b, benth, kV, dzl, dlT;
+};
+
+// fallback_value for feqmod.cu's chains: the same terms in the same order,
+// with bulkPi and 1/T folded into the bulk terms' coefficients (FbFold), the
+// (cell, species) factors nbal = b (-L alphaB) and kGbb = kG bulkPi b
+// hoisted out of the loop, and the df mode (DF) and, where MAIN, the main
+// paths' switches (shear + bulk, regulation) at compile time; the df 3
+// bracket stays unregrouped
+template <typename T, int DF, bool MAIN>
+__device__ __forceinline__ T fallback_fixed(T pdu, T pipp, T Vp, T m2, T sgn,
+                                            T bar, T nbal, T kGbb,
+                                            const FbFold<T>& k, int sw_,
+                                            int regulate) {
+  using F = Fn<T>;
+  const int sw = MAIN ? (SW_SHEAR | SW_BULK) : sw_;
+  const T arg = DF == 3 ? fma(pdu, k.invTL, nbal) : pdu * k.invTL;
+  const T feq = F::rcp(F::exp_scaled(arg) + sgn);
+  if (sw == 0) return feq;
+  const T feqbar = fma(-sgn, feq, T(1));
+  const T r = F::rcp(pdu);
+  T d = T(0);
+  if (DF == 3) {
+    if (sw & SW_SHEAR) d = (k.ksh * pipp) * r;
+    if (sw & SW_BULK)
+      d = d + fma(k.k3b, fma(-m2, r, pdu), fma(k.kFb, pdu, kGbb));
+    if (sw & SW_DIFF) d = d + (fma(-bar, r, k.benth) * Vp) * k.kV;
+    d = feqbar * d;
+  } else {
+    if (sw & SW_SHEAR) d = ((feqbar * k.ksh) * pipp) * r;
+    if (sw & SW_BULK) d = d + fma(feqbar * k.dlT, fma(-m2, r, pdu), k.dzl);
+  }
+  if (MAIN || regulate) d = fq_clip(d);
   return fma(feq, d, feq);
 }
 

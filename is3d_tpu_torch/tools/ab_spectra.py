@@ -8,7 +8,8 @@ C, C, B, A).
                  yields,alias,sample,cascade,grad_feqmod_3d,
                  grad_feqmod_2d,grad_vah_3d,grad_vah_2d,grad_polzn_3d,
                  grad_polzn_2d,grad_polzn_2d_fixed,grad_main_3d,
-                 grad_main_2d,grad_decays,polzn_3d,polzn_2d]
+                 grad_main_2d,grad_decays,polzn_3d,polzn_2d,feqmod_3d,
+                 feqmod_3d_most,feqmod_2d,feqmod_2d_most,feqmod_dndx]
 
 Each turn runs a fresh interpreter that imports ``is3d_tpu_torch`` from
 that root (building its kernels into that root's _build/) and, per case:
@@ -100,6 +101,25 @@ that root (building its kernels into that root's _build/) and, per case:
   positive cotangent on the five sums: timed, the float64 difference and
   the resources as the grad cases (with the side's plan -- species and pT
   rows a stage, angles, stage row, waves -- where it has ``BWD_PLAN``);
+* ``feqmod_3d``, ``feqmod_3d_most``, ``feqmod_2d``, ``feqmod_2d_most``:
+  the df 3-4 forward kernel K3 (``feqmod_spectra_cuda``: 3+1D df 3 at
+  fixed nodes; 2+1D df 4 with the mT remap, 48 nodes) on the first N
+  cells of chip_smoke.py's [feqmod main] / [feqmod main 2d] surface
+  (``testing.write_synthetic_run_dir``, 131072 cells x 320 species, seed
+  0, read as the CLI reads it), df with shear + bulk, regulate, outflow,
+  float32, as it is and (``_most``) with the shear stress x 30, as
+  chip_smoke.py's [feqmod pair]: timed as the spectra cases; the float64
+  difference on its first 512 cells; the share of cells that break down
+  and of evaluations that take the fallback, and each instantiation's
+  cells, threads, resident blocks and warps an SM, registers, local bytes
+  and SASS per evaluation (a side with ``chain_kernel_name``: one a
+  chain; else the first version's one body through
+  ``tools/occupancy.py``);
+* ``feqmod_dndx``: K3's dN/dX producer (``dndx_feqmod_cuda``, csrc/dndx.cu,
+  which shares csrc/feqmod.cuh) on the first canonical group (2048 cells)
+  of chip_smoke.py's [feqmod dndx] surface (16384 2+1D cells x 320
+  species, operation 0, df 3, 48 fixed eta nodes, float32): timed as the
+  spectra cases, the float64 difference on the whole group;
 * ``grad_main_3d``, ``grad_main_2d``: the linear-df backward kernels
   (``spectra_bwd_cuda``) K9a (3+1D, fixed nodes) and K9b (2+1D with the mT
   remap, 48 nodes) on one group of N synthetic cells as the spectra cases
@@ -141,7 +161,8 @@ CASES = ("3d_df2", "3d_df1", "2d_fixed", "2d_remap", "bin", "dndx", "proto",
          "grad_feqmod_2d", "grad_vah_3d", "grad_vah_2d", "grad_polzn_3d",
          "grad_polzn_2d", "grad_polzn_2d_fixed", "grad_main_3d",
          "grad_main_2d", "grad_decays",
-         "polzn_3d", "polzn_2d")
+         "polzn_3d", "polzn_2d", "feqmod_3d", "feqmod_3d_most",
+         "feqmod_2d", "feqmod_2d_most", "feqmod_dndx")
 
 _TURN = r"""
 import json, statistics, sys
@@ -397,9 +418,15 @@ def grad_case(case, report):
                                  .mean())}
         new = hasattr(feqmod, "bwd_kernel_name")
         if new:
-            order, offs = feqmod.bwd_chain_split(x, dim)
+            # (named bwd_chain_split and BWD_CHAINS before the forward
+            # kernels split their cells by chain too)
+            split = getattr(feqmod, "chain_split", None) or getattr(
+                feqmod, "bwd_chain_split")
+            order, offs = split(x, dim)
             offs = offs.tolist()
-            chains = [(i, n) for i, n in enumerate(feqmod.BWD_CHAINS)
+            names = getattr(feqmod, "CHAINS", None) or getattr(
+                feqmod, "BWD_CHAINS")
+            chains = [(i, n) for i, n in enumerate(names)
                       if i < (3 if dim == 3 else 2)]
             entry["cells_per_chain"] = {n: offs[i + 1] - offs[i]
                                         for i, n in chains}
@@ -574,9 +601,147 @@ def grad_decays_case(report):
             decays.decay_wave_cuda(tables, tasks, wg, acc)
 
 
+# K3, the df 3-4 forward (feqmod_spectra_cuda), on the first group of the
+# [feqmod main] (3+1D df 3) and [feqmod main 2d] (2+1D df 4, mT remap)
+# surfaces: as they are, and with the shear stress x 30 (most cells break
+# down), as chip_smoke.py's [feqmod pair] and [feqmod remap pair]
+FEQMOD = {"feqmod_3d": (3, 1.0), "feqmod_3d_most": (3, 30.0),
+          "feqmod_2d": (2, 1.0), "feqmod_2d_most": (2, 30.0)}
+feqmod_runs = {}
+
+
+def feqmod_run(dim):
+    import tempfile
+    from is3d_tpu_torch.api import IS3D
+    if dim not in feqmod_runs:
+        cfg = Config(operation=1, mode=1, dimension=dim,
+                     df_mode=3 if dim == 3 else 4, precision="f32",
+                     include_shear_deltaf=1, include_bulk_deltaf=1,
+                     regulate_deltaf=1, outflow=1)
+        with tempfile.TemporaryDirectory() as run_dir:
+            testing.write_synthetic_run_dir(run_dir, 131072, 320,
+                                            dimension=dim, seed=0)
+            run = IS3D(cfg, data_dir=run_dir, device="cuda")
+            _, df_data, species, _, grid = run._prepare()
+        feqmod_runs[dim] = (cfg, surface_columns(run.surface, cfg), species,
+                            grid, df_data)
+    return feqmod_runs[dim]
+
+
+def feqmod_case(case, report):
+    from is3d_tpu_torch.io.tables import laguerre_device
+    from is3d_tpu_torch.kernels import feqmod
+    from is3d_tpu_torch.native import build
+    from is3d_tpu_torch.tools import sass_count
+    dim, shear = FEQMOD[case]
+    cfg, cols, species, grid, df_data = feqmod_run(dim)
+    group = {k: v[:n_cells] for k, v in cols.items()}
+    for k in ("pixx", "pixy", "pixn", "piyy", "piyn"):
+        group[k] = group[k] * shear
+    flags = feqmod.feqmod_flags(cfg, grid)
+    mom = smooth.momentum_constants(species, grid, dim)
+    x, rn, wcs = feqmod.group_inputs(
+        group, species, laguerre_device(dtype=dt, device=dev), df_data, cfg,
+        flags)
+    table = smooth.remap_node_table(mom) if flags.remap else None
+    ms, runs, total = timed(
+        lambda: feqmod.feqmod_spectra_cuda(x, rn, wcs, mom, flags, table))
+    small = [t[:512].contiguous() for t in (x, rn, wcs)]
+    mom64 = mom.to(dtype=torch.float64)
+    out = feqmod.feqmod_spectra_cuda(*small, mom, flags, table).double()
+    ref = feqmod.feqmod_spectra_cuda(
+        *(t.double() for t in small), mom64, flags,
+        smooth.remap_node_table(mom64) if flags.remap else None)
+    bd = x[:, feqmod.FQ["bd"]] != 0
+    # evaluations of each chain: a breakdown cell's all take the
+    # fallback, in 3+1D also a clean cell's with detA < 0.01 at |y - eta|
+    # < detA
+    S, M, R = mom.mass.shape[0], mom.px.shape[0], mom.nodes.shape[0]
+    fb_nodes = bd.double() * R
+    if dim == 3:
+        detA, eta = x[:, feqmod.FQ["detA"]], x[:, feqmod.FQ["eta"]]
+        fb_nodes = fb_nodes + ((((~bd) & (detA < feqmod.NARROW_DETA))[:, None]
+                                & ((mom.nodes[None, :] - eta[:, None]).abs()
+                                   < detA[:, None])).sum(1))
+    evals = x.shape[0] * R * S * M
+    entry = {"ms": ms, "runs": runs, "sum": total,
+             "err_f64": float((out - ref).abs().max() / ref.abs().max()),
+             "breakdown_share": float(bd.double().mean()),
+             "evaluations": evals,
+             "fallback_share": float(fb_nodes.sum()) * S * M / evals}
+    lib = build._cuda_paths("feqmod")[1]
+    if hasattr(feqmod, "chain_kernel_name"):
+        # one instantiation a chain (csrc/feqmod.cu since its redesign)
+        order, offs = feqmod.chain_split(x, dim)
+        offs = offs.tolist()
+        for i in range(3 if dim == 3 else 2):
+            kern = feqmod.chain_kernel_name(flags, i, mom.n_phi)
+            res = dict(cells=offs[i + 1] - offs[i], kernel=kern,
+                       **feqmod.chain_props(dev, False, flags, i, mom.n_phi))
+            res["warps_per_sm"] = res["blocks_per_sm"] * res["threads"] // 32
+            res["sass"] = sass_count.per_eval(lib, kern)
+            entry[f"resources_{feqmod.CHAINS[i]}"] = res
+    else:
+        # the first version: one body for both chains, 128 threads a block
+        width = (feqmod.feqmod_grid(
+            feqmod._library(), dev, False, S, mom.pT.shape[0], mom.n_phi,
+            R, 2, True).phi_width if flags.remap else 0)
+        kern = (f"remap_kernelIfLi{width}EE" if flags.remap
+                else f"fixed_kernelIfLi{dim}EE")
+        entry["resources_both"] = bwd_resources(
+            "feqmod", kern, None, lambda: (128, 0))
+        entry["resources_both"]["kernel"] = kern
+    report[case] = entry
+
+
+# K3's dN/dX producer (dndx_feqmod_cuda, csrc/dndx.cu, which shares
+# csrc/feqmod.cuh) on the first canonical group of chip_smoke.py's
+# [feqmod dndx] surface (16384 2+1D cells x 320 species, operation 0, df
+# 3, 48 fixed eta nodes)
+def feqmod_dndx_case(report):
+    import dataclasses
+    import tempfile
+    from is3d_tpu_torch.api import IS3D
+    from is3d_tpu_torch.io.tables import laguerre_device
+    from is3d_tpu_torch.kernels import feqmod
+    from is3d_tpu_torch.parallel.mesh import canonical_groups
+    cfg = Config(operation=0, mode=1, dimension=2, df_mode=3,
+                 precision="f32", include_shear_deltaf=1,
+                 include_bulk_deltaf=1, regulate_deltaf=1, outflow=1)
+    with tempfile.TemporaryDirectory() as run_dir:
+        testing.write_synthetic_run_dir(run_dir, 16384, 320, dimension=2,
+                                        seed=0)
+        run = IS3D(cfg, data_dir=run_dir, device="cuda")
+        _, df_data, species, _, grid = run._prepare()
+    grid = dataclasses.replace(grid, eta_mT_rescale=False)
+    cols = surface_columns(run.surface, cfg)
+    _, gs = canonical_groups(cfg, cols["tau"].shape[0])
+    flags = feqmod.feqmod_flags(cfg, grid)
+    mom = smooth.momentum_constants(species, grid, 2)
+    wM, wR = dndx.momentum_weights(grid, cfg), dndx.node_weights(grid, 2)
+    x, rn, wcs = feqmod.group_inputs(
+        {k: v[:gs] for k, v in cols.items()}, species,
+        laguerre_device(dtype=dt, device=dev), df_data, cfg, flags)
+    ms, runs, total = timed(
+        lambda: dndx.dndx_feqmod_cuda(x, rn, wcs, mom, flags, wM, wR)[0])
+    out = dndx.dndx_feqmod_cuda(x, rn, wcs, mom, flags, wM, wR)[0].double()
+    ref = dndx.dndx_feqmod_cuda(x.double(), rn.double(), wcs.double(),
+                                mom.to(dtype=torch.float64), flags,
+                                wM.double(), wR.double())[0]
+    report["feqmod_dndx"] = {"ms": ms, "runs": runs, "sum": total,
+                             "err_f64": float((out - ref).abs().max()
+                                              / ref.abs().max())}
+
+
 report = {"root": sys.argv[1]}
 surface = None
 for case in cases:
+    if case in FEQMOD:
+        feqmod_case(case, report)
+        continue
+    if case == "feqmod_dndx":
+        feqmod_dndx_case(report)
+        continue
     if case in GRAD:
         grad_case(case, report)
         continue

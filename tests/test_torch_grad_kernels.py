@@ -444,19 +444,19 @@ def _chain_keys(x, dimension):
                                   "3d_df4_mixed", "2d_remap_df4_most",
                                   "2d_df3_ragged"])
 def test_feqmod_bwd_chain_split(case):
-    """bwd_chain_split on the CPU: the index lists form a permutation of
+    """chain_split on the CPU: the index lists form a permutation of
     the group, each cell lands in its chain's list (the breakdown flag, and
     in 3+1D the narrow rule) and each list keeps the cells' order; on
     shuffled cells too."""
     x, _, _, _, flags, _ = testing.feqmod_grad_inputs(case)
     perm = torch.randperm(x.shape[0], generator=torch.Generator().manual_seed(3))
     for cells in (x, x[perm]):
-        order, offs = feqmod.bwd_chain_split(cells, flags.dimension)
+        order, offs = feqmod.chain_split(cells, flags.dimension)
         assert order.dtype == offs.dtype == torch.int32
         assert offs.tolist()[0] == 0 and offs.tolist()[-1] == cells.shape[0]
         assert sorted(order.tolist()) == list(range(cells.shape[0]))
         keys = _chain_keys(cells, flags.dimension)
-        for j in range(len(feqmod.BWD_CHAINS)):
+        for j in range(len(feqmod.CHAINS)):
             part = order[offs[j]:offs[j + 1]].tolist()
             assert part == [i for i, k in enumerate(keys) if k == j]
         if flags.dimension == 2:

@@ -988,15 +988,19 @@ def test_feqmod_cell_split_covers_every_cell_in_whole_tiles():
 
 def test_feqmod_yardstick():
     """The feqmod bound's count: f_mod 16 FP32 + 3 SFU (sqrt, exp, rcp;
-    SFU-bound, as K1's df 2), the fallback 29 (df 3) / 24 (df 4) FP32 + 3
-    SFU (FP32-bound); the remap adds its node kinematics per (cell, node,
+    SFU-bound, as K1's df 2); the fallback at the main paths' flags
+    (shear + bulk, no diffusion term, the exponent's b alphaB hoisted per
+    (cell, species)) 23 FP32 + 3 SFU for df 3 and df 4, SFU-bound (an
+    earlier count, 29 and 24, took the diffusion term, V.p and b alphaB
+    in); the remap adds its node kinematics per (cell, node,
     species, pT), a 24th of them per evaluation on the native grid."""
     rate = lambda ops: max(ops[0] / 128, ops[1] / 16)
     assert feqmod.feqmod_formula_ops(3, False, 24, False) == (16.0, 3.0)
     assert rate(feqmod.MOD_OPS) == 3 / 16
-    assert rate(feqmod.FALLBACK_OPS[3]) == 29 / 128
-    assert feqmod.feqmod_formula_ops(4, False, 24, True) == (24.0, 3.0)
+    assert feqmod.FALLBACK_OPS == {3: (23, 3), 4: (23, 3)}
+    assert rate(feqmod.FALLBACK_OPS[3]) == 3 / 16
+    assert feqmod.feqmod_formula_ops(4, False, 24, True) == (23.0, 3.0)
     assert feqmod.feqmod_formula_ops(3, True, 24, False) == (
         16 + 9 / 24, 3 + 2 / 24)
     assert feqmod.feqmod_formula_ops(4, True, 24, True) == (
-        24 + 18 / 24, 3.0)
+        23 + 18 / 24, 3.0)

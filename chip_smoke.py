@@ -254,7 +254,29 @@ Phases, each printing its own line(s):
    within 5 sigma, their launches and peak memory, and a 256-cell run
    with sampler_cell_chunk = 64; [ensemble small] two worker processes of
    ensemble.multiprocess_oversample on this card, a removed batch rebuilt
-   byte for byte by its worker resumed.
+   byte for byte by its worker resumed;
+14. multi-GPU on the cell axis: [mesh] api.IS3D(mesh=) on the run
+   directories of [main], [main 2d], [dndx main], [feqmod main], [vah main
+   2d] and [polzn main 2d] (kept for it), and the slice-local
+   smooth_spectra_multihost ([main]) and spacetime_distributions_multihost
+   ([dndx main]) from process_cell_slice's columns, on W spawned ranks
+   (file:// rendezvous): W = 2 and 3 with gloo, every rank on cuda:0, and W
+   = 1 with NCCL.  The kernels are built by this process first, so no
+   rank builds.  Every rank's spectra, distributions and polarization
+   equal the one-process run's (the same API in this process) with
+   torch.equal, in the W = 3 spawn rank 0's results tree is the CLI's
+   one-process tree byte for byte and no other rank writes (the other
+   spawns write nothing: the writers take most of a spawn's wall), and
+   each rank launched exactly the
+   kernels of its own canonical groups (3, 3, 2 of 8 for W = 3: the pad
+   group is not launched); [mesh grad] in the W = 2 spawn
+   diff.spectra_fn(mesh=) on [grad main]'s observable: every rank's
+   gradient equals the one-process gradient bit for bit, from the same
+   cotangent bits.  Each W prints every rank's compute seconds, the bytes
+   it gathered and its gather-and-fold seconds beside the card's name and
+   power limit: ranks sharing one card, so the walls prove the sharded
+   path, not scaling.  A failed rank or a rank still running after
+   MESH_TIMEOUT seconds fails the run.
 
 The cpu halves of the 256-cell cuda-against-cpu runs run in the
 background, one process at a time with CPU_THREADS threads, and are
@@ -290,8 +312,9 @@ polzn_backward_formula_ops).  Before
 every path (4, 5a, 6, 7a, 8, 9, 10, 11, 12, 13, and the gradients of
 [grad main], [grad main 2d], [grad decays], [grad feqmod main], [grad
 feqmod main 2d], [grad feqmod decays], [grad vah main 2d], [grad vah main
-3d], [grad polzn main 2d], [grad polzn main 3d], [grad mode5]) all launch
-counts are set to 0 and they are read right after it.  The line before
+3d], [grad polzn main 2d], [grad polzn main 3d], [grad mode5], and on
+every rank each run of [mesh] and [mesh grad]) all launch counts are set
+to 0 and they are read right after it.  The line before
 the last is the kernel record as JSON; the last line is ``{"ok": true,
 "device": {...}}``.  Any failed phase exits nonzero before that line is
 printed.
@@ -383,6 +406,15 @@ KERNEL_SOURCES = ("smooth_spectra", "dndx", "smooth_proto", "decays",
                   "sample_vah", "sample_search", "sample_vah_search",
                   "smooth_spectra_bwd", "decays_bwd", "feqmod_bwd",
                   "vah_bwd", "polzn_bwd")
+# [mesh]: the ranks of each spawn (W, backend) and the join timeout (s);
+# the main-path run directories it reuses, by phase tag: (run dir, CLI
+# args, the kernels each group launches), kept by _keep until it ends
+MESH_SPAWNS = ((2, "gloo"), (3, "gloo"), (1, "nccl"))
+# the spawn whose rank 0 writes the results trees (held byte for byte to
+# the CLI's one-process trees): the writers take most of a spawn's wall
+MESH_WRITE_W = 3
+MESH_TIMEOUT = 300.0
+MESH_DIRS: dict = {}
 # H100 SXM: SMs, FP32, SFU and INT32-multiply lanes per SM, memory rate
 # (bytes/s)
 N_SM, FP32_LANES, SFU_LANES, HBM_RATE = 132, 128, 16, 3.35e12
@@ -1962,7 +1994,7 @@ def phase_feqmod(smi: str, clock: float):
                                      "grad feqmod pair")
     rec_bwd["launches"] = phase_grad_feqmod_main(
         smi, run_dir, cfg, "grad feqmod main")["counts"]["feqmod_bwd"]
-    shutil.rmtree(run_dir, ignore_errors=True)
+    _keep("feqmod main", run_dir, FEQMOD_ARGS, ("feqmod_spectra",))
     rec = dict(pair["clean"], launches=counts["feqmod_spectra"],
                most_breakdown=pair["most"])
 
@@ -2288,6 +2320,7 @@ def phase_vah(smi: str, clock: float):
     shutil.rmtree(run_dir3, ignore_errors=True)
     # the operation-1 dN/dy [sample vah main 2d] holds its hadrons to
     dndy = _dndy_files(os.path.join(run_dir2, "results"), (211, 321, 2212))
+    _keep("vah main 2d", run_dir2, VAH2D_ARGS, ("vah_spectra_remap",))
     rec_remap["launches"] = counts2["vah_spectra_remap"]
     rec_fixed.update(launches=counts3["vah_spectra"], every_chain=rec_chains)
 
@@ -2342,8 +2375,9 @@ def phase_polzn(smi: str, clock: float):
     rec_bwd["launches"] = phase_grad_polzn_main(
         smi, run_dir3, cfg3, "grad polzn main 3d")["counts"]["polzn_bwd"]
     phase_grad_mode5(smi, run_dir2, cfg2)
-    for d in (run_dir2, run_dir3):
-        shutil.rmtree(d, ignore_errors=True)
+    _keep("polzn main 2d", run_dir2, POLZN2D_ARGS,
+          ("polzn_remap", "smooth_spectra", "smooth_spectra_remap"))
+    shutil.rmtree(run_dir3, ignore_errors=True)
     rec_remap["launches"] = counts2["polzn_remap"]
     rec_fixed["launches"] = counts3["polzn"]
     return rec_fixed, rec_remap, rec_bwd, rec_bwd_remap
@@ -3498,7 +3532,7 @@ def phase_sample(smi: str, clock: float, vah_dir: str, vah_dndy: dict):
     del result
     shutil.rmtree(run_dir, ignore_errors=True)
     rec_vah, rec_y_vah = phase_sample_vah(smi, clock, vah_dir, vah_dndy)
-    shutil.rmtree(vah_dir, ignore_errors=True)
+    _release(vah_dir)
     phase_sample_chunked(smi)
     phase_ensemble_small()
     counts, run_dir, cfg, _, _ = phase_sample_main(
@@ -4599,6 +4633,266 @@ def phase_ensemble_batch(smi: str):
     shutil.rmtree(run_dir, ignore_errors=True)
 
 
+# ------------------------------------------------------------ multi-GPU
+
+def _keep(tag: str, run_dir: str, args, want):
+    """Keep a main-path run directory for [mesh]: its CLI args, the
+    kernels each canonical group launches there, and the CLI's results
+    tree (the one-process tree) as ``results_mesh_one``."""
+    os.rename(os.path.join(run_dir, "results"),
+              os.path.join(run_dir, "results_mesh_one"))
+    MESH_DIRS[tag] = (run_dir, list(args), tuple(want))
+
+
+def _release(run_dir: str):
+    """Remove a run directory unless [mesh] keeps it."""
+    if not any(run_dir == d for d, _, _ in MESH_DIRS.values()):
+        shutil.rmtree(run_dir, ignore_errors=True)
+
+
+def _overrides(args) -> dict:
+    return dict(a.split("=", 1) for a in args if not a.startswith("device="))
+
+
+def _mesh_runs(results: str) -> list:
+    return [dict(name=tag, run_dir=d, overrides=_overrides(args),
+                 results_dir=os.path.join(d, results))
+            for tag, (d, args, _) in MESH_DIRS.items()]
+
+
+def _slice_local(run, mesh):
+    """The slice-local path of a run (operation 1: smooth_spectra_multihost,
+    0: spacetime_distributions_multihost) from the columns of this rank's
+    process_cell_slice alone."""
+    from is3d_tpu_torch.kernels.common import surface_columns
+    from is3d_tpu_torch.kernels.dndx import dndx_cols
+    from is3d_tpu_torch.parallel import multihost
+    _, df_data, species, _, grid = run._prepare()
+    cfg, n = run.cfg, run.surface.n_cells
+    a, b = multihost.process_cell_slice(cfg, n, mesh)
+    if cfg.operation == 1:
+        cols = surface_columns(run.surface, cfg)
+        local = {k: v[a:b] for k, v in cols.items()}
+        _reset_counts()
+        return multihost.smooth_spectra_multihost(
+            local, n, species, grid, df_data, cfg, mesh).cpu().numpy()
+    cols = dndx_cols(run.surface, cfg)
+    local = {k: v[a:b] for k, v in cols.items()}
+    _reset_counts()
+    return multihost.spacetime_distributions_multihost(
+        local, n, species, grid, df_data, cfg, mesh)
+
+
+def _mesh_grad(run, mesh=None) -> dict:
+    """[grad main]'s observable through diff.spectra_fn (with ``mesh``):
+    its gradient by GRAD_WRT and eta (surface_value_and_grad) and the
+    observable's cotangent on the spectra."""
+    from is3d_tpu_torch import diff
+    _, df_data, species, mcids, grid = run._prepare()
+    fn = diff.spectra_fn(species, grid, df_data, run.cfg, mesh=mesh)
+    obs = _grad_observable(grid, mcids)
+    wrt = GRAD_WRT + ("eta",)
+    _reset_counts()
+    t0 = time.perf_counter()
+    value, grads = diff.surface_value_and_grad(lambda s: obs(fn(s)),
+                                               run.surface, wrt)
+    if run.device.type == "cuda":
+        torch.cuda.synchronize(run.device)
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    y = fn(run.surface).requires_grad_(True)
+    with torch.enable_grad():
+        ct = torch.autograd.grad(obs(y), y)[0]
+    return dict(value=value.cpu(), grads={k: v.cpu() for k, v in
+                                          grads.items()},
+                cotangent=ct.cpu(), counts=counts, wall=wall)
+
+
+def mesh_rank(mesh, runs, slices, grad, write) -> dict:
+    """One rank of [mesh]: api.IS3D(mesh=) on each of ``runs`` (with
+    ``write`` rank 0 writes ``results_dir``; another rank is given
+    ``<results_dir>_rank<r>``, where it must write nothing), the
+    slice-local path on each of ``slices``, and with ``grad`` [mesh grad]
+    on that run; each with its launch counts, parallel.mesh.MESH_STATS and
+    wall seconds."""
+    from is3d_tpu_torch import testing
+    from is3d_tpu_torch.api import IS3D
+    from is3d_tpu_torch.parallel import mesh as pmesh
+    out = dict(runs={}, slices={}, grad=None)
+    for run in runs:
+        _reset_counts()
+        res = testing.mesh_api_rank(mesh, [run], write)[run["name"]]
+        out["runs"][run["name"]] = dict(res, counts=_counts())
+    for run in slices:
+        r = IS3D.from_run_dir(run["run_dir"], overrides=run["overrides"],
+                              mesh=mesh)
+        pmesh.reset_mesh_stats()
+        t0 = time.perf_counter()
+        res = _slice_local(r, mesh)
+        out["slices"][run["name"]] = dict(
+            result=res, counts=_counts(), stats=dict(pmesh.MESH_STATS),
+            wall=time.perf_counter() - t0)
+    if grad is not None:
+        pmesh.reset_mesh_stats()
+        out["grad"] = _mesh_grad(IS3D.from_run_dir(
+            grad["run_dir"], overrides=grad["overrides"], mesh=mesh), mesh)
+        out["grad"]["stats"] = dict(pmesh.MESH_STATS)
+    return out
+
+
+def _same(a, b) -> bool:
+    """torch.equal of two results: arrays, tensors, dicts of them, None."""
+    if a is None or b is None:
+        return a is None and b is None
+    if isinstance(b, dict):
+        return set(a) == set(b) and all(_same(a[k], b[k]) for k in b)
+    return torch.equal(torch.as_tensor(a), torch.as_tensor(b))
+
+
+def _tree_bytes(root: str) -> dict:
+    out = {}
+    for d, _, files in os.walk(root):
+        for f in files:
+            path = os.path.join(d, f)
+            with open(path, "rb") as fh:
+                out[os.path.relpath(path, root)] = fh.read()
+    return out
+
+
+def _rank_line(tag: str, smi: str, W: int, backend: str, r: int,
+               stats: dict, wall: float) -> str:
+    return (f"[{tag}] {smi} | W = {W} ({backend}, every rank on one card) "
+            f"rank {r}: wall {wall:.3f} s, compute {stats['compute_s']:.3f}"
+            f" s over {stats['groups']} groups, gathered "
+            f"{stats['gathered_bytes']} B, gather + fold "
+            f"{stats['gather_fold_s']:.3f} s")
+
+
+def phase_mesh(smi: str, device: str = "cuda"):
+    """[mesh] and [mesh grad] (docstring, 14): the one-process results in
+    this process, then every spawn of MESH_SPAWNS held to them, every rank
+    on ``device`` (index 0)."""
+    from is3d_tpu_torch import testing
+    from is3d_tpu_torch.api import IS3D
+    from is3d_tpu_torch.parallel.mesh import canonical_groups
+    runs = _mesh_runs("results_mesh_one")
+    one, n_cells = {}, {}
+    t0 = time.perf_counter()
+    for run in runs:
+        r = IS3D.from_run_dir(run["run_dir"], overrides=run["overrides"],
+                              device=device)
+        res = r.run_particlization(write_files=False)
+        one[run["name"]] = dict(spectra=res.spectra, dN_dX=res.dN_dX,
+                                polarization=res.polarization)
+        n_cells[run["name"]] = (r.cfg, r.surface.n_cells)
+    grad_run = next(r for r in runs if r["name"] == "main")
+    grad_one = _mesh_grad(IS3D.from_run_dir(
+        grad_run["run_dir"], overrides=grad_run["overrides"], device=device))
+    slice_runs = [r for r in runs if r["name"] in ("main", "dndx main")]
+    slice_want = {"main": one["main"]["spectra"],
+                  "dndx main": one["dndx main"]["dN_dX"]}
+    print(f"[mesh] {smi} | one process: {len(runs)} api.IS3D runs (their "
+          f"trees the CLI's) and [grad main]'s gradient in "
+          f"{time.perf_counter() - t0:.3f} s")
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    for W, backend in MESH_SPAWNS:
+        t0 = time.perf_counter()
+        ranks = testing.run_ranks(
+            mesh_rank, W, os.path.join(WORK, f"mesh_w{W}"),
+            args=(_mesh_runs(f"results_mesh_w{W}"), slice_runs,
+                  grad_run if W == 2 else None, W == MESH_WRITE_W),
+            backend=backend, device=f"{device}:0" if device == "cuda"
+            else device, timeout=MESH_TIMEOUT,
+            # torch's default threads, as this process: the host's share
+            # of the prepare then has this process's bits
+            threads=None)
+        wall = time.perf_counter() - t0
+        for run in runs:
+            name = run["name"]
+            cfg, n = n_cells[name]
+            G, _ = canonical_groups(cfg, n)
+            per = -(-G // W)
+            want = MESH_DIRS[name][2]
+            for r, res in enumerate(ranks):
+                got = res["runs"][name]
+                own = min(G, (r + 1) * per) - min(G, r * per)
+                for key in ("spectra", "dN_dX", "polarization"):
+                    if not _same(got[key], one[name][key]):
+                        fail(f"[mesh] W = {W} rank {r} {name}: {key} "
+                             "differs from the one-process run")
+                _expect_counts(f"[mesh] W = {W} rank {r} {name}",
+                               got["counts"], {k: own for k in want})
+                if got["wrote"] != (r == 0 and W == MESH_WRITE_W) or \
+                        os.path.exists(f"{run['run_dir']}/results_mesh_w{W}"
+                                       f"_rank{r}"):
+                    fail(f"[mesh] W = {W} rank {r} {name}: only rank 0 "
+                         "writes the results tree")
+            files = ""
+            if W == MESH_WRITE_W:
+                a = _tree_bytes(os.path.join(run["run_dir"],
+                                             "results_mesh_one"))
+                b = _tree_bytes(os.path.join(run["run_dir"],
+                                             f"results_mesh_w{W}"))
+                if not a or a != b:
+                    fail(f"[mesh] W = {W} {name}: rank 0's results tree is "
+                         f"not the one-process tree byte for byte ({len(a)} "
+                         f"and {len(b)} files)")
+                files = f", {len(a)} files byte-equal"
+                shutil.rmtree(os.path.join(run["run_dir"],
+                                           f"results_mesh_w{W}"))
+            print(f"[mesh] {smi} | W = {W} {name}: every rank bit-equal"
+                  f"{files}, launches "
+                  + " / ".join(str(res["runs"][name]["counts"][want[0]])
+                               for res in ranks) + f" of {G} groups")
+        for name, want in slice_want.items():
+            cfg, n = n_cells[name]
+            G, _ = canonical_groups(cfg, n)
+            per = -(-G // W)
+            for r, res in enumerate(ranks):
+                got = res["slices"][name]
+                if not _same(got["result"], want):
+                    fail(f"[mesh] W = {W} rank {r} slice-local {name} "
+                         "differs from the one-process run")
+                own = min(G, (r + 1) * per) - min(G, r * per)
+                _expect_counts(f"[mesh] W = {W} rank {r} slice-local {name}",
+                               got["counts"],
+                               {k: own for k in MESH_DIRS[name][2]})
+        for r, res in enumerate(ranks):
+            stats = {k: sum(x["stats"][k] for x in res["runs"].values())
+                     for k in ("compute_s", "groups", "gathered_bytes",
+                               "gather_fold_s")}
+            print(_rank_line("mesh", smi, W, backend, r, stats,
+                             sum(x["wall"] for x in res["runs"].values())))
+            for name, got in res["slices"].items():
+                print(_rank_line(f"mesh slice-local {name}", smi, W,
+                                 backend, r, got["stats"], got["wall"]))
+        print(f"[mesh] {smi} | W = {W} ({backend}): spawn to join "
+              f"{wall:.3f} s, every rank bit-equal to one process")
+        if W == 2:
+            G, _ = canonical_groups(*n_cells["main"])
+            per = -(-G // W)
+            cts = [res["grad"]["cotangent"] for res in ranks]
+            if not all(torch.equal(c, cts[0]) for c in cts):
+                fail("[mesh grad] the ranks' cotangents differ")
+            for r, res in enumerate(ranks):
+                got = res["grad"]
+                own = min(G, (r + 1) * per) - min(G, r * per)
+                if not (torch.equal(got["value"], grad_one["value"])
+                        and _same(got["grads"], grad_one["grads"])):
+                    fail(f"[mesh grad] rank {r}: the gradient differs from "
+                         "the one-process gradient")
+                _expect_counts(f"[mesh grad] rank {r}", got["counts"],
+                               dict(smooth_spectra=own, spectra_bwd=own))
+                print(_rank_line("mesh grad", smi, W, backend, r,
+                                 got["stats"], got["wall"])
+                      + f" (one process {grad_one['wall']:.3f} s): gradient"
+                      f" by {len(got['grads'])} fields bit-equal")
+    for d, _, _ in MESH_DIRS.values():
+        shutil.rmtree(d, ignore_errors=True)
+    MESH_DIRS.clear()
+
+
 def main():
     smi, clock = phase_device()
     phase_build()
@@ -4628,7 +4922,7 @@ def main():
         rec_sbwd = phase_grad_pair(smi, clock, run_dir, cfg, "grad pair")
         rec_sbwd["launches"] = phase_grad_main(
             smi, run_dir, cfg, "grad main")["counts"]["spectra_bwd"]
-        shutil.rmtree(run_dir, ignore_errors=True)
+        _keep("main", run_dir, MAIN_ARGS, ("smooth_spectra",))
         counts, run_dir, cfg2d, _ = phase_main_path(
             smi, "main 2d", dimension=2, args=MAIN2D_ARGS, n_nodes=48,
             want=("smooth_spectra", "smooth_spectra_remap"))
@@ -4642,7 +4936,8 @@ def main():
         rec_rbwd["launches"] = phase_grad_main(
             smi, run_dir, cfg2d, "grad main 2d")["counts"][
                 "spectra_bwd_remap"]
-        shutil.rmtree(run_dir, ignore_errors=True)
+        _keep("main 2d", run_dir, MAIN2D_ARGS,
+              ("smooth_spectra", "smooth_spectra_remap"))
         counts, dndx_dir, dndx_cfg = phase_dndx_main(smi)
         phase_small_path_cpu_vs_cuda(
             "small_dndx", dimension=2, params=dict(operation=0),
@@ -4651,7 +4946,7 @@ def main():
         rec_dndx, rec_bin = phase_dndx_pair(smi, clock, dndx_dir, dndx_cfg)
         rec_dndx["launches"] = counts["dndx"]
         rec_bin["launches"] = counts["dndx_bin"]
-        shutil.rmtree(dndx_dir, ignore_errors=True)
+        _keep("dndx main", dndx_dir, DNDX_ARGS, ("dndx", "dndx_bin"))
         counts, run_dir, cfg, _ = phase_main_path(
             smi, "decays main", args=DECAYS_ARGS, decays=True)
         # 3+1D with 16 species (through the photon and omega, so 2- and
@@ -4680,6 +4975,7 @@ def main():
         (rec_k7, rec_k7a, rec_k8, rec_yields, rec_yields_vah, rec_k7_vah,
          rec_k7_search) = phase_sample(smi, clock, vah_dir, vah_dndy)
         phase_cpu_runs()
+        phase_mesh(smi)
     finally:
         _stop_cpu_runs()
         shutil.rmtree(WORK, ignore_errors=True)

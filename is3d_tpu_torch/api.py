@@ -15,8 +15,16 @@ surfaces (modes 2-3, the VAH emission) and on thermal-vorticity surfaces
 Monte-Carlo sampler, with the event-level decay cascade when
 do_resonance_decays = 1) on the viscous-hydro surfaces, df 1-4, and on the
 anisotropic-hydro ones, with alias or binary-search draws, cell-chunked
-above sampler_cell_chunk.  Multi-GPU runs (``mesh=``) raise
-NotImplementedError naming the ROADMAP slice that ports them.
+above sampler_cell_chunk.
+
+Multi-GPU runs (``mesh=``, a parallel.mesh.CellMesh: a torch.distributed
+process group, one GPU a rank) take operations 0 and 1 on every surface
+mode: every rank reads the whole surface, launches the canonical groups it
+owns, folds every group's partial and holds the one-process result bit for
+bit; the feed-down runs replicated on every rank, and only rank 0 writes
+the results tree and the averages file (is3d_tpu/api.py:105, :245-278).
+Operation 2 under ``mesh=`` (the sharded sampler) raises
+NotImplementedError naming the ROADMAP slice that ports it.
 """
 
 from __future__ import annotations
@@ -106,13 +114,17 @@ class IS3D:
 
     def __init__(self, cfg: Config, data_dir: str = ".",
                  results_dir: Optional[str] = None,
-                 chosen_file: Optional[str] = None, device="cuda",
+                 chosen_file: Optional[str] = None, device=None,
                  mesh=None):
         if mesh is not None:
-            _not_ported("mesh= (multi-GPU)", "slice 11", cfg)
+            if cfg.operation == 2:
+                _not_ported("mesh= (the sharded sampler)", "slice 11", cfg)
+            from .parallel.mesh import check_mesh
+            check_mesh(mesh)
         check_supported(cfg)
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = self._run_device(device, mesh)
         self.data_dir = data_dir
         self.results_dir = results_dir or os.path.join(data_dir, "results")
         self.chosen_file = chosen_file
@@ -120,6 +132,26 @@ class IS3D:
         self.averages: Optional[ThermoAverages] = None
         self._dtype = _DTYPES[cfg.precision]
         self.timer = None
+
+    @staticmethod
+    def _run_device(device, mesh) -> torch.device:
+        """The run's device: ``device`` (default cuda), or with a mesh the
+        rank's device, which ``device`` must name if given."""
+        if mesh is None:
+            return resolve_device("cuda" if device is None else device)
+        if device is not None:
+            dev = resolve_device(device)
+            if dev.type == "cuda" and dev.index is None:
+                dev = torch.device("cuda", torch.cuda.current_device())
+            if dev != mesh.device:
+                raise ValueError(f"device={device!r} is not the mesh's "
+                                 f"rank device {mesh.device}")
+        return resolve_device(mesh.device)
+
+    def _writes(self) -> bool:
+        """Only rank 0 of a mesh writes files (the ranks share the run
+        dir)."""
+        return self.mesh is None or self.mesh.rank == 0
 
     # ------------------------------------------------------------ loading
 
@@ -138,7 +170,8 @@ class IS3D:
             include_baryon=bool(self.cfg.include_baryon),
             include_baryondiff=bool(self.cfg.include_baryondiff_deltaf),
             dtype=self._dtype, device=self.device)
-        if write_averages and self.cfg.mode in (0, 1, 4, 6, 7):
+        if (write_averages and self.cfg.mode in (0, 1, 4, 6, 7)
+                and self._writes()):
             # side-channel file compatibility (reference:
             # readindata.cpp:313-316 <-> Plasma::load_thermodynamic_averages);
             # the reference's readers for modes 2, 3 and 5 never write it
@@ -261,6 +294,7 @@ class IS3D:
         timer = timer or PhaseTimer(verbose=False)
         self.timer = timer
         cfg = self.cfg
+        write_files = write_files and self._writes()
         if write_files:
             # the spectra writers append (reference ios_base::app parity);
             # a rerun into the same results_dir must not duplicate blocks
@@ -276,7 +310,7 @@ class IS3D:
             from .kernels.polzn import spin_polarization
             with timer.phase("spin polarization"):
                 pol = spin_polarization(self.surface, species, grid, cfg,
-                                        self.plasma())
+                                        self.plasma(), mesh=self.mesh)
                 # the host copies wait for the device: the phase includes it
                 result.polarization = {k: v.cpu().numpy()
                                        for k, v in pol.items()}
@@ -322,7 +356,8 @@ class IS3D:
             with timer.phase("dN/dX spacetime"):
                 # returns host arrays: the phase includes the device time
                 result.dN_dX = spacetime_distributions(
-                    self.surface, species, grid, df_data, cfg)
+                    self.surface, species, grid, df_data, cfg,
+                    mesh=self.mesh)
             if write_files:
                 with timer.phase("writers"):
                     writers.write_spacetime_distributions(
@@ -375,10 +410,16 @@ class IS3D:
     def _smooth_spectra(self, species, grid, df_data):
         """The smooth spectra of the surface and df mode (reference
         dispatch: is3d_tpu/api.py:712-736): VAH surfaces (modes 2-3)
-        whatever df_mode, else by df mode."""
+        whatever df_mode, else by df mode; with a mesh VH surfaces through
+        parallel.mesh.smooth_spectra_sharded (is3d_tpu/api.py:722-731)."""
         if self.cfg.mode in (2, 3):
             from .kernels.vah import smooth_spectra_vah
-            return smooth_spectra_vah(self.surface, species, grid, self.cfg)
+            return smooth_spectra_vah(self.surface, species, grid, self.cfg,
+                                      mesh=self.mesh)
+        if self.mesh is not None:
+            from .parallel.mesh import smooth_spectra_sharded
+            return smooth_spectra_sharded(self.surface, species, grid,
+                                          df_data, self.cfg, mesh=self.mesh)
         if self.cfg.df_mode in (1, 2):
             from .kernels.smooth import smooth_spectra
             return smooth_spectra(self.surface, species, grid, df_data,
@@ -409,6 +450,9 @@ class IS3D:
         from .batch import stack_surfaces, smooth_spectra_batched
         timer = timer or PhaseTimer(verbose=False)
         cfg = self.cfg
+        if self.mesh is not None:
+            _not_ported("mesh= with run_ensemble (the event axis over "
+                        "several GPUs)", "slice 11", cfg)
         if cfg.operation != 1:
             raise ValueError("run_ensemble batches smooth spectra "
                              "(operation 1); for sampling ensembles use "

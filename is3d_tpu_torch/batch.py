@@ -19,7 +19,7 @@ Gradients flow through the batched spectra of every surface and df mode
 (diff.spectra_fn's maps) and through the batched polarization
 (diff.polarization_fn's map): a loss summed over the ensemble
 differentiates in one reverse pass.  ``mesh=`` (the event axis over several
-GPUs) is refused until slice 11.
+GPUs, ROADMAP 11b) is refused.
 """
 
 from __future__ import annotations
@@ -36,8 +36,15 @@ from .data import SpeciesArrays
 from .io.surface import Surface
 from .io.tables import MomentumGrid
 from .io.deltaf import DeltafData
-from .diff import refuse_mesh
 from .kernels.common import PAD_ONE_COLUMNS
+
+
+def refuse_mesh(mesh):
+    """Raise on mesh= (the event axis over several GPUs is not ported)."""
+    if mesh is not None:
+        raise NotImplementedError("mesh= (the event axis over several "
+                                  "GPUs) is not ported yet: ROADMAP "
+                                  "section 1, slice 11")
 
 
 @dataclass(frozen=True)

@@ -102,6 +102,10 @@ class Config:
     reduce_groups: int = 8      # groups of the canonical cell-reduction
                                 # tree (parallel/mesh.py): one kernel launch
                                 # per group, partials folded in group order
+    # is3d_tpu's name of the sharded mesh axis, accepted so its parameter
+    # files load; inert: the port's mesh= (a CellMesh of ranks) has one
+    # cell axis, so it names nothing else
+    mesh_axis: str = "cells"
     # is3d_tpu's in-kernel chunk routing of the feqmod pass
     # (kernels/feqmod.routed_switch there), accepted so its parameter files
     # load.  Inert here: they change no result and no code path.  The port's

@@ -37,6 +37,17 @@ u.dsigma > 0 cell mask; at a tie the plain version's torch convention
 (d max(x, 0)/dx = 1 at x = 0, d clamp(x, -1, 1)/dx = 1 at |x| = 1), where
 JAX takes 1/2.
 
+Under ``mesh=`` (a parallel.mesh.CellMesh, is3d_tpu/diff.py:108-207)
+the forward runs sharded: each rank launches its own canonical groups and
+folds every group's partial (parallel/mesh._GatherFold, whose backward
+hands each own partial the output's cotangent).  The cotangent is the same
+on every rank (a replicated output, the same loss), so each rank's backward
+kernels give the gradient rows of its own cells, and
+surface_value_and_grad / surface_vjp all-gather every rank's rows by the
+canonical cell ranges: every rank returns the global gradient, the
+one-process one bit for bit.  A bare torch.autograd.grad under a mesh
+gives only the rank's own rows.
+
 The observable helpers at the end are torch twins of is3d_tpu.diff's jnp
 ones (observables.py is numpy for the writers).
 """
@@ -53,13 +64,6 @@ from .io.tables import MomentumGrid
 from .io.deltaf import DeltafData
 
 
-def refuse_mesh(mesh):
-    """Raise on a device mesh (the maps here and batch.py's)."""
-    if mesh is not None:
-        raise NotImplementedError("mesh= (multi-GPU) is not ported yet: "
-                                  "ROADMAP section 1, slice 11")
-
-
 def _theta(surface, wrt: Iterable[str]) -> dict:
     """The named fields as fresh leaves that require grad; raises on an
     absent (None) field."""
@@ -74,6 +78,21 @@ def _theta(surface, wrt: Iterable[str]) -> dict:
     return theta
 
 
+def _layout(rec: list):
+    """The one ShardLayout the forward's sharded reductions ran on (None
+    for a one-process forward); raises when they differ."""
+    if not rec:
+        return None
+    if any(r != rec[0] for r in rec[1:]):
+        raise ValueError("the sharded reductions of one map must share one "
+                         "layout (cell count, groups and mesh)")
+    return rec[0]
+
+
+def _assemble(layout, grads: dict) -> dict:
+    return grads if layout is None else layout.assemble(grads)
+
+
 def surface_value_and_grad(fn: Callable, surface, wrt: Iterable[str]):
     """Value and gradient of ``fn(surface)`` (a scalar tensor) with respect
     to the named ``Surface`` fields.
@@ -83,13 +102,15 @@ def surface_value_and_grad(fn: Callable, surface, wrt: Iterable[str]):
     constants.  Raises ValueError on fields the surface does not carry
     (None): a gradient with respect to an absent block is a config error,
     not a zero."""
+    from .parallel.mesh import recording_layouts
     theta = _theta(surface, tuple(wrt))
-    with torch.enable_grad():
+    with recording_layouts() as rec, torch.enable_grad():
         value = fn(surface.replace(**theta))
         grads = torch.autograd.grad(value, list(theta.values()),
                                     allow_unused=True)
-    return value.detach(), {k: torch.zeros_like(v) if g is None else g
-                            for (k, v), g in zip(theta.items(), grads)}
+    return value.detach(), _assemble(_layout(rec), {
+        k: torch.zeros_like(v) if g is None else g
+        for (k, v), g in zip(theta.items(), grads)})
 
 
 def surface_vjp(fn: Callable, surface, wrt: Iterable[str]):
@@ -99,10 +120,13 @@ def surface_vjp(fn: Callable, surface, wrt: Iterable[str]):
     spectra) or a dict of tensors (e.g. polarization_fn's).  Returns
     ``(value, pullback)`` where ``pullback(cotangent)`` (shaped like
     ``value``: a tensor, or a dict with a cotangent for each key) gives the
-    ``wrt``-keyed gradient dict; it may be called more than once."""
+    ``wrt``-keyed gradient dict; it may be called more than once (under a
+    mesh on every rank alike: it gathers the ranks' rows)."""
+    from .parallel.mesh import recording_layouts
     theta = _theta(surface, tuple(wrt))
-    with torch.enable_grad():
+    with recording_layouts() as rec, torch.enable_grad():
         value = fn(surface.replace(**theta))
+    layout = _layout(rec)
     keys = list(value) if isinstance(value, dict) else None
     outs = [value[k] for k in keys] if keys is not None else [value]
 
@@ -111,12 +135,16 @@ def surface_vjp(fn: Callable, surface, wrt: Iterable[str]):
             cotangent]
         pairs = [(o, torch.as_tensor(c, dtype=o.dtype, device=o.device))
                  for o, c in zip(outs, cts) if o.requires_grad]
+        if not pairs:
+            return _assemble(layout, {k: torch.zeros_like(v)
+                                      for k, v in theta.items()})
         grads = torch.autograd.grad([o for o, _ in pairs],
                                     list(theta.values()),
                                     [c for _, c in pairs],
                                     retain_graph=True, allow_unused=True)
-        return {k: torch.zeros_like(v) if g is None else g
-                for (k, v), g in zip(theta.items(), grads)}
+        return _assemble(layout, {
+            k: torch.zeros_like(v) if g is None else g
+            for (k, v), g in zip(theta.items(), grads)})
 
     if keys is not None:
         return {k: v.detach() for k, v in value.items()}, pullback
@@ -130,25 +158,28 @@ def spectra_fn(species: SpeciesArrays, grid: MomentumGrid,
     the production API (api.py, _smooth_spectra): VAH surfaces (modes 2-3)
     to smooth_spectra_vah, else by df mode to smooth_spectra (1-2) or
     smooth_spectra_feqmod (3-4), so its forward is the production result
-    bit for bit."""
-    refuse_mesh(mesh)
+    bit for bit.  With ``mesh`` the forward runs sharded over its ranks
+    (module docstring)."""
+    from .parallel.mesh import check_mesh
+    check_mesh(mesh)
     if cfg.mode in (2, 3):
         def fn(surface):
             from .kernels.vah import smooth_spectra_vah
-            return smooth_spectra_vah(surface, species, grid, cfg)
+            return smooth_spectra_vah(surface, species, grid, cfg, mesh=mesh)
         return fn
     if cfg.df_mode in (3, 4):
         def fn(surface):
             from .kernels.feqmod import smooth_spectra_feqmod
             return smooth_spectra_feqmod(surface, species, grid, df_data,
-                                         cfg)
+                                         cfg, mesh=mesh)
         return fn
     if cfg.df_mode not in (1, 2):
         raise ValueError(f"df_mode must be 1-4, got {cfg.df_mode}")
 
     def fn(surface):
         from .kernels.smooth import smooth_spectra
-        return smooth_spectra(surface, species, grid, df_data, cfg)
+        return smooth_spectra(surface, species, grid, df_data, cfg,
+                              mesh=mesh)
     return fn
 
 
@@ -177,12 +208,15 @@ def polarization_fn(species: SpeciesArrays, grid: MomentumGrid,
     forward is the production result bit for bit, with gradients with
     respect to the thermal vorticity (wtx..wyn), the flow, dsigma, tau (and
     eta in 3+1D).  ``plasma.temperature`` is T_avg, a constant, as in
-    is3d_tpu.diff."""
-    refuse_mesh(mesh)
+    is3d_tpu.diff.  With ``mesh`` the forward runs sharded over its ranks
+    (module docstring)."""
+    from .parallel.mesh import check_mesh
+    check_mesh(mesh)
 
     def fn(surface):
         from .kernels.polzn import spin_polarization
-        return spin_polarization(surface, species, grid, cfg, plasma)
+        return spin_polarization(surface, species, grid, cfg, plasma,
+                                 mesh=mesh)
     return fn
 
 

@@ -157,6 +157,19 @@ def load_float_matrix(path: str, ncols: int) -> np.ndarray:
     return flat.reshape(-1, ncols)
 
 
+def count_cells(path: str) -> int:
+    """Row count of a surface file (reference: readindata.cpp:122-131),
+    so that a rank can size the global surface without loading it
+    (parallel/multihost.process_cell_slice)."""
+    n = 0
+    with open(path) as f:
+        for line in f:
+            s = line.split()
+            if s and not s[0].startswith("#"):
+                n += 1
+    return n
+
+
 def _dsigma_magnitude(tau, ux, uy, un, dat, dax, day, dan):
     """|u.dsigma| + sqrt(|(u.dsigma)^2 - dsigma.dsigma|)
     (reference: readindata.cpp:284-288)."""

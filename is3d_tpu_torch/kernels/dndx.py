@@ -590,26 +590,17 @@ def dndx_finalize(acc: dict, grid: MomentumGrid, cfg: Config) -> dict:
     )
 
 
-def spacetime_distributions(surface, species: SpeciesArrays,
-                            grid: MomentumGrid, df_data: DeltafData,
-                            cfg: Config, laguerre: dict | None = None) -> dict:
-    """All dN/dX distributions: a dict of host numpy arrays with bin
-    midpoints and normalized distributions.  The cell reduction runs
-    through the canonical group tree: one launch of each kernel per group,
-    accumulators folded in group order.  Viscous hydro takes df 1-4; df 3-4
-    take the Gauss-Laguerre table (default: feqmod's) in the surface's
-    precision, replicated to every group like df_data.  Anisotropic hydro
-    (modes 2-3) takes the VAH emission, whatever df_mode, its residual
-    chains gated as the spectra's (vah.effective_vah_cfg)."""
-    from ..parallel.mesh import grouped_cell_reduce
-    if cfg.df_mode not in (1, 2, 3, 4):
-        raise ValueError("spacetime_distributions handles df 1-4")
-    cols = dndx_cols(surface, cfg)
+def dndx_reduction(cols: dict, species: SpeciesArrays, grid: MomentumGrid,
+                   df_data: DeltafData, cfg: Config,
+                   laguerre: dict | None = None) -> tuple:
+    """(kernel_fn, replicated, grid) of the dN/dX cell reduction over
+    ``cols`` (the whole surface's or a rank's slice) under ``cfg``, VAH
+    surfaces already gated (vah.effective_vah_cfg); ``grid`` with fixed
+    eta nodes, as dndx_finalize takes it."""
     # dN/dX keeps fixed eta nodes: dN/dy/deta is reported AT the common
     # node positions, which a per-species mT remap would scramble
     grid = dataclasses.replace(grid, eta_mT_rescale=False)
     if cfg.mode in (2, 3):
-        cfg = vah.effective_vah_cfg(cols, cfg)
         flags = vah.vah_flags(cfg, grid)
         laguerre = None
     elif cfg.df_mode in (3, 4):
@@ -622,8 +613,32 @@ def spacetime_distributions(surface, species: SpeciesArrays,
     mom = momentum_constants(species, grid, cfg.dimension)
     wM = momentum_weights(grid, cfg)
     wR = node_weights(grid, cfg.dimension)
-    acc = grouped_cell_reduce(
-        lambda c, m, fl, wm, wr, d, sp, lag: _group_dndx(
-            c, m, fl, wm, wr, d, sp, lag, cfg),
-        cols, (mom, flags, wM, wR, df_data, species, laguerre), cfg)
+    return ((lambda c, m, fl, wm, wr, d, sp, lag: _group_dndx(
+        c, m, fl, wm, wr, d, sp, lag, cfg)),
+        (mom, flags, wM, wR, df_data, species, laguerre), grid)
+
+
+def spacetime_distributions(surface, species: SpeciesArrays,
+                            grid: MomentumGrid, df_data: DeltafData,
+                            cfg: Config, laguerre: dict | None = None,
+                            mesh=None) -> dict:
+    """All dN/dX distributions: a dict of host numpy arrays with bin
+    midpoints and normalized distributions.  The cell reduction runs
+    through the canonical group tree: one launch of each kernel per group,
+    accumulators folded in group order (with ``mesh``, each rank launches
+    its own groups and every rank folds all of them).  Viscous hydro
+    takes df 1-4; df 3-4 take the Gauss-Laguerre table (default:
+    feqmod's) in the surface's precision, replicated to every group like
+    df_data.  Anisotropic hydro (modes 2-3) takes the VAH emission,
+    whatever df_mode, its residual chains gated as the spectra's
+    (vah.effective_vah_cfg)."""
+    from ..parallel.mesh import grouped_cell_reduce
+    if cfg.df_mode not in (1, 2, 3, 4):
+        raise ValueError("spacetime_distributions handles df 1-4")
+    cols = dndx_cols(surface, cfg)
+    if cfg.mode in (2, 3):
+        cfg = vah.effective_vah_cfg(cols, cfg)
+    fn, replicated, grid = dndx_reduction(cols, species, grid, df_data, cfg,
+                                          laguerre)
+    acc = grouped_cell_reduce(fn, cols, replicated, cfg, mesh=mesh)
     return dndx_finalize(acc, grid, cfg)

@@ -1223,27 +1223,38 @@ def _group_spectra(cols: dict, species: SpeciesArrays, mom: MomentumConstants,
     return group_spectra(x, rn, wcs, mom, flags, table, cfg.cell_chunk)
 
 
-def smooth_spectra_feqmod(surface, species: SpeciesArrays, grid: MomentumGrid,
-                          df_data: DeltafData, cfg: Config,
-                          laguerre: dict | None = None) -> torch.Tensor:
-    """dN/(pT dpT dphi dy) with modified equilibrium df (modes 3-4), shape
-    (S, n_pT, n_phi, n_y_out), on the surface's device.
-
-    The cell reduction runs through the canonical group tree
-    (parallel/mesh.grouped_cell_reduce): one kernel launch per group,
-    partials folded in group order.  The Gauss-Laguerre table (default
-    32 nodes, alphas 1 and 2) is replicated to every group like df_data,
-    in the surface's precision."""
-    from ..parallel.mesh import grouped_cell_reduce
+def feqmod_reduction(cols: dict, species: SpeciesArrays, grid: MomentumGrid,
+                     df_data: DeltafData, cfg: Config,
+                     laguerre: dict | None = None) -> tuple:
+    """(kernel_fn, replicated) of the df 3-4 spectra's cell reduction over
+    ``cols`` (the whole surface's or a rank's slice)."""
     flags = feqmod_flags(cfg, grid)
-    cols = surface_columns(surface, cfg)
     dev, dt = cols["tau"].device, cols["tau"].dtype
     laguerre = laguerre_in_precision(laguerre, dt, dev)
     mom = momentum_constants(species, grid, cfg.dimension)
     # the remap kernel's fallback node table, once for every group
     table = (remap_node_table(mom)
              if flags.remap and dev.type == "cuda" else None)
-    return grouped_cell_reduce(
-        lambda c, sp, m, fl, lag, d, t: _group_spectra(c, sp, m, fl, lag, d,
-                                                       t, cfg),
-        cols, (species, mom, flags, laguerre, df_data, table), cfg)
+    return ((lambda c, sp, m, fl, lag, d, t: _group_spectra(
+        c, sp, m, fl, lag, d, t, cfg)),
+        (species, mom, flags, laguerre, df_data, table))
+
+
+def smooth_spectra_feqmod(surface, species: SpeciesArrays, grid: MomentumGrid,
+                          df_data: DeltafData, cfg: Config,
+                          laguerre: dict | None = None,
+                          mesh=None) -> torch.Tensor:
+    """dN/(pT dpT dphi dy) with modified equilibrium df (modes 3-4), shape
+    (S, n_pT, n_phi, n_y_out), on the surface's device.
+
+    The cell reduction runs through the canonical group tree
+    (parallel/mesh.grouped_cell_reduce): one kernel launch per group,
+    partials folded in group order; with ``mesh`` (a CellMesh) each rank
+    launches its own groups and returns the full spectra.  The
+    Gauss-Laguerre table (default 32 nodes, alphas 1 and 2) is replicated
+    to every group like df_data, in the surface's precision."""
+    from ..parallel.mesh import grouped_cell_reduce
+    cols = surface_columns(surface, cfg)
+    fn, replicated = feqmod_reduction(cols, species, grid, df_data, cfg,
+                                      laguerre)
+    return grouped_cell_reduce(fn, cols, replicated, cfg, mesh=mesh)

@@ -597,16 +597,11 @@ def _group_sums(cols: dict, mom: MomentumConstants, pm: torch.Tensor,
     return dict(zip(SUMS, sums))
 
 
-def spin_polarization(surface, species: SpeciesArrays, grid: MomentumGrid,
-                      cfg: Config, plasma) -> dict:
-    """St, Sx, Sy, Sn (unnormalized sums), Snorm and the normalized
-    S{t,x,y,n}_over_Snorm, each (S, n_pT, n_phi, n_y_out), on the surface's
-    device.  ``plasma.temperature`` is T_avg (it honours
-    set_FO_temperature).  The cell reduction runs through the canonical
-    group tree: one launch per group, the five sums folded in group
-    order."""
-    from ..parallel.mesh import grouped_cell_reduce
-    cols = polzn_cols(surface)
+def polzn_reduction(cols: dict, species: SpeciesArrays, grid: MomentumGrid,
+                    cfg: Config, plasma) -> tuple:
+    """(kernel_fn, replicated) of the polarization's cell reduction over
+    ``cols`` (the whole surface's or a rank's slice); T_avg is
+    ``plasma.temperature``."""
     flags = polzn_flags(cfg, grid)
     mom = momentum_constants(species, grid, cfg.dimension)
     pm = species_pm(species)
@@ -614,7 +609,22 @@ def spin_polarization(surface, species: SpeciesArrays, grid: MomentumGrid,
     table = (remap_node_table(mom)
              if flags.remap and cols["tau"].device.type == "cuda" else None)
     T_avg = float(plasma.temperature)
-    acc = grouped_cell_reduce(
-        lambda c, m, p, w, fl, t: _group_sums(c, m, p, w, fl, t, T_avg, cfg),
-        cols, (mom, pm, wR, flags, table), cfg)
+    return ((lambda c, m, p, w, fl, t: _group_sums(c, m, p, w, fl, t, T_avg,
+                                                   cfg)),
+            (mom, pm, wR, flags, table))
+
+
+def spin_polarization(surface, species: SpeciesArrays, grid: MomentumGrid,
+                      cfg: Config, plasma, mesh=None) -> dict:
+    """St, Sx, Sy, Sn (unnormalized sums), Snorm and the normalized
+    S{t,x,y,n}_over_Snorm, each (S, n_pT, n_phi, n_y_out), on the surface's
+    device.  ``plasma.temperature`` is T_avg (it honours
+    set_FO_temperature).  The cell reduction runs through the canonical
+    group tree: one launch per group, the five sums folded in group
+    order (with ``mesh``, each rank launches its own groups and every rank
+    folds all of them)."""
+    from ..parallel.mesh import grouped_cell_reduce
+    cols = polzn_cols(surface)
+    fn, replicated = polzn_reduction(cols, species, grid, cfg, plasma)
+    acc = grouped_cell_reduce(fn, cols, replicated, cfg, mesh=mesh)
     return polzn_normalize(tuple(acc[k] for k in SUMS))

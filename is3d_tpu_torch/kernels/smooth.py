@@ -785,21 +785,30 @@ def _group_spectra(cols: dict, mom: MomentumConstants, flags: SpectraFlags,
     return group_spectra(cells, mom, flags, table, cfg.cell_chunk)
 
 
+def spectra_reduction(cols: dict, species: SpeciesArrays, grid: MomentumGrid,
+                      df_data: DeltafData, cfg: Config) -> tuple:
+    """(kernel_fn, replicated) of the linear-df spectra's cell reduction
+    over ``cols`` (the whole surface's or a rank's slice)."""
+    flags = spectra_flags(cfg, grid)
+    mom = momentum_constants(species, grid, cfg.dimension)
+    # the remap kernel's node table, once for every group
+    table = (remap_node_table(mom)
+             if flags.remap and cols["tau"].device.type == "cuda" else None)
+    return ((lambda c, m, fl, d, t: _group_spectra(c, m, fl, d, t, cfg)),
+            (mom, flags, df_data, table))
+
+
 def smooth_spectra(surface, species: SpeciesArrays, grid: MomentumGrid,
-                   df_data: DeltafData, cfg: Config) -> torch.Tensor:
+                   df_data: DeltafData, cfg: Config,
+                   mesh=None) -> torch.Tensor:
     """dN/(pT dpT dphi dy) with linear df (modes 1-2), shape
     (S, n_pT, n_phi, n_y_out), on the surface's device.
 
     The cell reduction runs through the canonical group tree
     (parallel/mesh.grouped_cell_reduce): one kernel launch per group,
-    partials folded in group order."""
+    partials folded in group order; with ``mesh`` (a CellMesh) each rank
+    launches its own groups and returns the full spectra."""
     from ..parallel.mesh import grouped_cell_reduce
-    flags = spectra_flags(cfg, grid)
-    mom = momentum_constants(species, grid, cfg.dimension)
     cols = surface_columns(surface, cfg)
-    # the remap kernel's node table, once for every group
-    table = (remap_node_table(mom)
-             if flags.remap and cols["tau"].device.type == "cuda" else None)
-    return grouped_cell_reduce(
-        lambda c, m, fl, d, t: _group_spectra(c, m, fl, d, t, cfg),
-        cols, (mom, flags, df_data, table), cfg)
+    fn, replicated = spectra_reduction(cols, species, grid, df_data, cfg)
+    return grouped_cell_reduce(fn, cols, replicated, cfg, mesh=mesh)

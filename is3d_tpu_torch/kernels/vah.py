@@ -243,11 +243,32 @@ def effective_vah_cfg(cols: dict, cfg: Config) -> Config:
                                                              cols["c4"])
     bulk = (bool(cfg.include_bulk_deltaf) and _any_nonzero(cols["bulkPi"])
             and _any_nonzero(cols["c0"], cols["c1"], cols["c2"]))
+    return _gate(cfg, shear, bulk)
+
+
+def _gate(cfg: Config, shear: bool, bulk: bool) -> Config:
     if (shear, bulk) != (bool(cfg.include_shear_deltaf),
                          bool(cfg.include_bulk_deltaf)):
         cfg = cfg.replace(include_shear_deltaf=int(shear),
                           include_bulk_deltaf=int(bulk))
     return cfg
+
+
+def agreed_vah_cfg(cols: dict, cfg: Config, mesh) -> Config:
+    """effective_vah_cfg's decision from every rank's slice of the columns
+    (parallel/multihost.py): one all_reduce(MAX) of the rank's three flags
+    (c3/c4, bulkPi and c0..c2 nonzero), so every rank launches the
+    instantiation the one-process run launches (is3d_tpu leaves the gate
+    off on its slice-local path)."""
+    if not (cfg.vah_df_gate and cfg.mode in (2, 3)):
+        return cfg
+    from ..parallel.mesh import all_reduce_max
+    on_s, on_b = bool(cfg.include_shear_deltaf), bool(cfg.include_bulk_deltaf)
+    shear, pi, coef = all_reduce_max(
+        [on_s and _any_nonzero(cols["c3"], cols["c4"]),
+         on_b and _any_nonzero(cols["bulkPi"]),
+         on_b and _any_nonzero(cols["c0"], cols["c1"], cols["c2"])], mesh)
+    return _gate(cfg, shear, pi and coef)
 
 
 def complete_vah_cells(cols: dict) -> dict:
@@ -658,19 +679,26 @@ def _check_chains(cols: dict, cfg: Config, flags: VahFlags):
                              "gradient")
 
 
+def vah_reduction(species: SpeciesArrays, grid: MomentumGrid,
+                  gated: Config) -> tuple:
+    """(kernel_fn, replicated) of the VAH spectra's cell reduction under
+    the gated config (effective_vah_cfg's)."""
+    flags = vah_flags(gated, grid)
+    mom = momentum_constants(species, grid, gated.dimension)
+    return ((lambda c, m, fl: _group_spectra(c, m, fl, gated)),
+            (mom, flags))
+
+
 def smooth_spectra_vah(surface, species: SpeciesArrays, grid: MomentumGrid,
-                       cfg: Config) -> torch.Tensor:
+                       cfg: Config, mesh=None) -> torch.Tensor:
     """VAH smooth spectra from a mode-2/3 surface: (S, n_pT, n_phi,
     n_y_out) on the surface's device, the cell reduction through the
     canonical group tree (one launch per group, partials folded in group
-    order)."""
+    order; with ``mesh`` each rank launches its own groups and returns the
+    full spectra, the gate decided on the full columns)."""
     from ..parallel.mesh import grouped_cell_reduce
     cols = vah_surface_cols(surface)
     gated = effective_vah_cfg(cols, cfg)
-    flags = vah_flags(gated, grid)
-    _check_chains(cols, cfg, flags)
-    cfg = gated
-    mom = momentum_constants(species, grid, cfg.dimension)
-    return grouped_cell_reduce(
-        lambda c, m, fl: _group_spectra(c, m, fl, cfg), cols, (mom, flags),
-        cfg)
+    fn, replicated = vah_reduction(species, grid, gated)
+    _check_chains(cols, cfg, replicated[1])
+    return grouped_cell_reduce(fn, cols, replicated, gated, mesh=mesh)

@@ -1767,3 +1767,259 @@ def cascade_edge_inputs(dtype=torch.float64, device="cpu", n: int = 3000,
                                  np.arange(n) % 10, cap, key, dtype, device)
     return dict(state=st, n0=n, table=table, tabs=tabs,
                 dev_tabs=tabs.device(dtype, device), key=key)
+
+
+# --------------------------------------------------- ranks of a CellMesh
+# The multi-GPU tests and chip_smoke.py's [mesh] phases run a function on
+# W spawned ranks joined by parallel.multihost.initialize over a file://
+# rendezvous; the mesh cases below are what those ranks run.
+
+def _rank_entry(target, rank: int, world_size: int, init: str, backend: str,
+                device: str, threads, args: tuple, out: str):
+    import traceback
+    try:
+        if threads:
+            torch.set_num_threads(threads)
+        if backend == "gloo":
+            # the ranks talk over the loopback interface
+            os.environ["GLOO_SOCKET_IFNAME"] = "lo"
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        import torch.distributed as dist
+        from .parallel import multihost
+        multihost.initialize(init, world_size, rank, backend)
+        try:
+            result = target(multihost.global_mesh(dev), *args)
+        finally:
+            dist.destroy_process_group()
+        torch.save(result, out)
+    except BaseException:
+        with open(out + ".err", "w") as f:
+            f.write(traceback.format_exc())
+        raise SystemExit(1)
+
+
+def run_ranks(target, world_size: int, work_dir: str, args: tuple = (),
+              backend: str = "gloo", device: str = "cpu",
+              timeout: float = 300.0, threads: int | None = 1) -> list:
+    """``target(mesh, *args)`` on ``world_size`` spawned ranks, each with
+    the CellMesh of the group on ``device`` (every rank the same device:
+    "cuda:0" makes the ranks share one card), joined by a file://
+    rendezvous under ``work_dir``; returns each rank's return value in
+    rank order.  ``target`` must be importable (a module-level function).
+    A rank that fails ends the call with its traceback, and ranks still
+    running after ``timeout`` seconds are killed and the call raises
+    TimeoutError; no rank outlives the call."""
+    import multiprocessing
+    import time
+    import uuid
+    os.makedirs(work_dir, exist_ok=True)
+    tag = uuid.uuid4().hex[:12]
+    init = "file://" + os.path.join(os.path.abspath(work_dir), f"rdzv_{tag}")
+    outs = [os.path.join(work_dir, f"rank{r}_{tag}.pt")
+            for r in range(world_size)]
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_rank_entry,
+                         args=(target, r, world_size, init, backend, device,
+                               threads, args, outs[r]))
+             for r in range(world_size)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    try:
+        while True:
+            codes = [p.exitcode for p in procs]
+            if all(c == 0 for c in codes):
+                break
+            failed = [r for r, c in enumerate(codes) if c not in (None, 0)]
+            if failed:
+                errs = []
+                for r in failed:
+                    path = outs[r] + ".err"
+                    text = (open(path).read() if os.path.exists(path)
+                            else f"exit code {codes[r]}")
+                    errs.append(f"rank {r}:\n{text}")
+                raise RuntimeError(f"{len(failed)} of {world_size} ranks "
+                                   "failed:\n" + "\n".join(errs))
+            if time.monotonic() > deadline:
+                alive = [r for r, c in enumerate(codes) if c is None]
+                raise TimeoutError(f"ranks {alive} of {world_size} still "
+                                   f"running after {timeout} s")
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    return [torch.load(o, weights_only=False) for o in outs]
+
+
+def mesh_case(case: dict, mesh=None, slice_local: bool = False):
+    """One cell-reduced run of a mesh case -- a dict of ``kind`` (smooth:
+    the df 1-4 spectra; vah; polzn; dndx), ``surface``, ``species``,
+    ``grid``, ``df_data``, ``cfg`` and (polzn) ``plasma`` -- in one process
+    (``mesh`` None), over the mesh's ranks with the full columns, or
+    slice-local: each rank only the columns of its process_cell_slice."""
+    from .kernels import smooth, feqmod, vah, polzn, dndx
+    from .kernels.common import surface_columns
+    from .parallel import mesh as pmesh, multihost as mh
+    kind, s, cfg = case["kind"], case["surface"], case["cfg"]
+    sp, grid, df = case["species"], case["grid"], case.get("df_data")
+    feq = cfg.df_mode in (3, 4) and cfg.mode not in (2, 3)
+    if not slice_local:
+        if kind == "smooth" and mesh is not None:
+            return pmesh.smooth_spectra_sharded(s, sp, grid, df, cfg,
+                                                mesh=mesh)
+        if kind == "smooth":
+            return (feqmod.smooth_spectra_feqmod(s, sp, grid, df, cfg) if feq
+                    else smooth.smooth_spectra(s, sp, grid, df, cfg))
+        if kind == "vah":
+            return vah.smooth_spectra_vah(s, sp, grid, cfg, mesh=mesh)
+        if kind == "polzn":
+            return polzn.spin_polarization(s, sp, grid, cfg, case["plasma"],
+                                           mesh=mesh)
+        return dndx.spacetime_distributions(s, sp, grid, df, cfg, mesh=mesh)
+    n = s.tau.shape[0]
+    a, b = mh.process_cell_slice(cfg, n, mesh)
+
+    def cut(cols):
+        return {k: v[a:b] for k, v in cols.items()}
+    if kind == "smooth":
+        cols = cut(surface_columns(s, cfg))
+        if feq:
+            return mh.feqmod_spectra_multihost(cols, n, sp, grid, df, cfg,
+                                               mesh=mesh)
+        return mh.smooth_spectra_multihost(cols, n, sp, grid, df, cfg, mesh)
+    if kind == "vah":
+        return mh.smooth_spectra_vah_multihost(cut(vah.vah_surface_cols(s)),
+                                               n, sp, grid, cfg, mesh)
+    if kind == "polzn":
+        return mh.spin_polarization_multihost(cut(polzn.polzn_cols(s)), n,
+                                              sp, grid, cfg, case["plasma"],
+                                              mesh)
+    cols = cut(dndx.dndx_cols(s, cfg))
+    if feq:
+        return mh.feqmod_spacetime_distributions_multihost(
+            cols, n, sp, grid, df, cfg, mesh=mesh)
+    return mh.spacetime_distributions_multihost(cols, n, sp, grid, df, cfg,
+                                                mesh)
+
+
+def mesh_cases_rank(mesh, inputs_path: str, names) -> dict:
+    """A rank's results of the mesh cases ``names`` of the torch.save'd
+    dict at ``inputs_path``: with the full columns and slice-local, each
+    with the real groups the rank launched."""
+    from .parallel.mesh import MESH_STATS, reset_mesh_stats
+    cases = torch.load(inputs_path, weights_only=False)
+    out = {}
+    for name in names:
+        reset_mesh_stats()
+        full = mesh_case(cases[name], mesh)
+        groups = MESH_STATS["groups"]
+        reset_mesh_stats()
+        local = mesh_case(cases[name], mesh, slice_local=True)
+        out[name] = dict(mesh=full, groups=groups, slice=local,
+                         slice_groups=MESH_STATS["groups"])
+        if cases[name]["cfg"].mode in (2, 3):
+            out[name]["gates"] = _vah_gates(cases[name], mesh)
+    return out
+
+
+def _vah_gates(case: dict, mesh) -> dict:
+    """The VAH gate's (shear, bulk) chains of a mesh case: of the full
+    columns, agreed over the ranks from their slices, and of the rank's
+    slice alone."""
+    from .kernels import vah
+    from .parallel.multihost import process_cell_slice
+    cfg = case["cfg"]
+    cols = vah.vah_surface_cols(case["surface"])
+    a, b = process_cell_slice(cfg, cols["tau"].shape[0], mesh)
+    local = {k: v[a:b] for k, v in cols.items()}
+    chains = lambda c: (c.include_shear_deltaf, c.include_bulk_deltaf)
+    return dict(full=chains(vah.effective_vah_cfg(cols, cfg)),
+                agreed=chains(vah.agreed_vah_cfg(local, cfg, mesh)),
+                local=chains(vah.effective_vah_cfg(local, cfg)))
+
+
+def mesh_suite_rank(mesh, inputs_path: str, names, runs, grads) -> dict:
+    """One spawn's work of a rank: mesh_cases_rank of ``names``,
+    mesh_api_rank of ``runs`` and mesh_grad_rank of each (name, wrt) of
+    ``grads``."""
+    return dict(cases=mesh_cases_rank(mesh, inputs_path, names),
+                api=mesh_api_rank(mesh, runs),
+                grads={name: mesh_grad_rank(mesh, inputs_path, name, wrt)
+                       for name, wrt in grads})
+
+
+def mesh_grad_loss(case: dict, out):
+    """The scalar loss of the mesh gradient cases: the Lambda row's
+    polarization sums (polzn), else sum dN/dy + sum <pT>."""
+    if case["kind"] == "polzn":
+        return out["Sy_over_Snorm"].sum() + out["Snorm"].sum()
+    from .diff import dN_dy_j, mean_pT_j
+    return (dN_dy_j(out, case["grid"]).sum()
+            + mean_pT_j(out, case["grid"]).sum())
+
+
+def mesh_grad(case: dict, wrt, mesh=None) -> dict:
+    """The gradient of mesh_grad_loss by the surface fields ``wrt``
+    (diff.surface_value_and_grad), the loss's cotangent on the map's
+    output, and diff.surface_vjp's pullback of that cotangent, in one
+    process (``mesh`` None) or over the mesh."""
+    from . import diff
+    if case["kind"] == "polzn":
+        fn = diff.polarization_fn(case["species"], case["grid"], case["cfg"],
+                                  case["plasma"], mesh=mesh)
+    else:
+        fn = diff.spectra_fn(case["species"], case["grid"],
+                             case.get("df_data"), case["cfg"], mesh=mesh)
+    value, grads = diff.surface_value_and_grad(
+        lambda x: mesh_grad_loss(case, fn(x)), case["surface"], wrt)
+    out, pullback = diff.surface_vjp(fn, case["surface"], wrt)
+    with torch.enable_grad():
+        if isinstance(out, dict):
+            y = {k: v.clone().requires_grad_(True) for k, v in out.items()}
+            cts = torch.autograd.grad(mesh_grad_loss(case, y), list(y.values()),
+                                      allow_unused=True)
+            ct = {k: torch.zeros_like(v) if c is None else c
+                  for (k, v), c in zip(y.items(), cts)}
+        else:
+            y = out.clone().requires_grad_(True)
+            ct = torch.autograd.grad(mesh_grad_loss(case, y), y)[0]
+    return dict(value=value, grads=grads, cotangent=ct, vjp=pullback(ct))
+
+
+def mesh_grad_rank(mesh, inputs_path: str, name: str, wrt) -> dict:
+    """A rank's mesh_grad of the case ``name`` of the torch.save'd dict at
+    ``inputs_path``."""
+    return mesh_grad(torch.load(inputs_path, weights_only=False)[name], wrt,
+                     mesh)
+
+
+def mesh_api_rank(mesh, runs, write: bool = True) -> dict:
+    """A rank's api.IS3D(mesh=) runs: each of ``runs`` a dict of name,
+    run_dir, overrides and results_dir (with ``write`` rank 0 writes
+    there; another rank is given ``<results_dir>_rank<r>``, where it must
+    write nothing).  Returns each run's spectra, dN/dX, polarization, the
+    real groups the rank launched, its parallel.mesh.MESH_STATS, wall
+    seconds and whether its results directory exists."""
+    import time
+    from .api import IS3D
+    from .parallel.mesh import MESH_STATS, reset_mesh_stats
+    out = {}
+    for run in runs:
+        results = run["results_dir"] + ("" if mesh.rank == 0
+                                        else f"_rank{mesh.rank}")
+        reset_mesh_stats()
+        t0 = time.perf_counter()
+        res = IS3D.from_run_dir(run["run_dir"], overrides=run["overrides"],
+                                results_dir=results, mesh=mesh
+                                ).run_particlization(write_files=write)
+        out[run["name"]] = dict(spectra=res.spectra, dN_dX=res.dN_dX,
+                                polarization=res.polarization,
+                                groups=MESH_STATS["groups"],
+                                stats=dict(MESH_STATS),
+                                wall=time.perf_counter() - t0,
+                                wrote=os.path.exists(results))
+    return out

@@ -293,15 +293,60 @@ def test_cli_runs_operation0(op0_run_dirs):
     assert os.path.isfile(os.path.join(d, "dN_dydeta_211_48pt.dat"))
 
 
-@pytest.mark.parametrize("override,slice_name", [
+MESH_OP0 = [
     (dict(mode=2, df_mode=3), "slice 11"),
     (dict(mode=5, df_mode=4), "slice 11"),
     (dict(mode=2), "slice 11"), (dict(mode=3), "slice 11"),
     (dict(mode=5), "slice 11"),
-])
-def test_operation0_unported_configurations_raise(override, slice_name):
-    # operation 0 runs the VAH and vorticity surfaces now; what it does not
-    # run yet on any surface is a device mesh (multi-GPU)
-    with pytest.raises(NotImplementedError,
-                       match=f"operation 0 .*{slice_name}"):
-        IS3D(Config(operation=0, **override), device="cpu", mesh="2 cards")
+]
+
+
+@pytest.fixture(scope="module")
+def op0_mesh_runs(tmp_path_factory):
+    """Operation 0 on VAH and vorticity surfaces (48 cells, 2+1D) in one
+    process and under IS3D(mesh=) on 2 gloo ranks (one spawn for every
+    case; rank 0 writes the results tree)."""
+    root = tmp_path_factory.mktemp("op0_mesh")
+    dirs = {mode: write_synthetic_run_dir(str(root / f"mode{mode}"), 48, 7, 2,
+                                          seed=mode, mode=mode,
+                                          params=dict(operation=0))
+            for mode in (2, 3, 5)}
+    runs, one = [], []
+    for i, (override, _) in enumerate(MESH_OP0):
+        run_dir = dirs[override["mode"]]
+        overrides = dict(override, operation=0)
+        res = IS3D.from_run_dir(run_dir, overrides=overrides, device="cpu",
+                                results_dir=os.path.join(run_dir, f"one{i}")
+                                ).run_particlization()
+        one.append(res)
+        runs.append(dict(name=i, run_dir=run_dir, overrides=overrides,
+                         results_dir=os.path.join(run_dir, f"mesh{i}")))
+    ranks = ptesting.run_ranks(ptesting.mesh_api_rank, 2, str(root / "w"),
+                               args=(runs,), timeout=240.0)
+    return runs, one, ranks
+
+
+@pytest.mark.parametrize("override,slice_name", MESH_OP0)
+def test_operation0_unported_configurations_raise(op0_mesh_runs, override,
+                                                  slice_name):
+    """Operation 0 under a device mesh on these surfaces raised
+    NotImplementedError naming ``slice_name`` until that slice (11a)
+    ported mesh=: now every rank's distributions equal the one-process
+    run's bit for bit and rank 0's results tree is the one-process tree
+    byte for byte."""
+    from test_torch_slice import _tree
+    runs, one, ranks = op0_mesh_runs
+    i = MESH_OP0.index((override, slice_name))
+    want = one[i].dN_dX
+    for r, res in enumerate(ranks):
+        got = res[i]["dN_dX"]
+        assert set(got) == set(want)
+        for k in want:
+            assert np.array_equal(got[k], want[k]), (slice_name, r, k)
+        assert res[i]["wrote"] == (r == 0)
+    a = _tree(os.path.join(runs[i]["run_dir"], f"one{i}"))
+    b = _tree(runs[i]["results_dir"])
+    assert sorted(a) == sorted(b) and a
+    for rel in a:
+        with open(a[rel], "rb") as fa, open(b[rel], "rb") as fb:
+            assert fa.read() == fb.read(), rel

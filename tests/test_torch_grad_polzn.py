@@ -300,8 +300,30 @@ def test_batched_polarization_gradients_are_single_runs():
             assert (g[e, n:] == 0).all(), k
 
 
-def test_polarization_fn_refuses_mesh():
-    cells, cfg_kw, jgrid, jsp, _ = _inputs("3d")
-    _, sp, grid, cfg, plasma = _port(cells, cfg_kw, jgrid, jsp)
-    with pytest.raises(NotImplementedError, match="slice 11"):
+def test_polarization_fn_refuses_mesh(tmp_path):
+    """polarization_fn(mesh=) raised until slice 11a ported it: on 2 gloo
+    ranks every rank's value, gradient (surface_value_and_grad) and
+    surface_vjp pullback equal the one-process ones bit for bit, from the
+    same cotangent bits on both ranks (the one-process gradient is held to
+    jax.vjp above); a mesh that is not a CellMesh raises TypeError."""
+    cells, cfg_kw, jgrid, jsp, wrt = _inputs("3d")
+    surf, sp, grid, cfg, plasma = _port(cells, cfg_kw, jgrid, jsp)
+    case = dict(kind="polzn", surface=surf, species=sp, grid=grid, cfg=cfg,
+                plasma=plasma)
+    path = str(tmp_path / "case.pt")
+    torch.save({"polzn": case}, path)
+    want = testing.mesh_grad(case, wrt)
+    ranks = testing.run_ranks(testing.mesh_grad_rank, 2, str(tmp_path),
+                              args=(path, "polzn", wrt), timeout=240.0)
+    for r, got in enumerate(ranks):
+        for k in got["cotangent"]:
+            assert torch.equal(got["cotangent"][k],
+                               ranks[0]["cotangent"][k]), k
+        assert torch.equal(got["value"], want["value"])
+        assert sum(bool(g.abs().max() > 0)
+                   for g in want["grads"].values()) >= len(wrt) // 2
+        for k in wrt:
+            assert torch.equal(got["grads"][k], want["grads"][k]), (r, k)
+            assert torch.equal(got["vjp"][k], want["vjp"][k]), (r, k)
+    with pytest.raises(TypeError, match="CellMesh"):
         diff.polarization_fn(sp, grid, cfg, plasma, mesh=object())

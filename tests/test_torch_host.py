@@ -108,10 +108,10 @@ def test_config_parsing_matches_jax(name):
     for n in names:
         assert getattr(got, n) == getattr(want, n), n
     # every reference key of is3d_tpu's Config is kept, and the VAH and
-    # sampler keys; only TPU knobs go (the feqmod partition keys stay,
-    # accepted and inert)
+    # sampler keys; only TPU knobs go (the feqmod partition keys and
+    # mesh_axis stay, accepted and inert)
     dropped = {f.name for f in dataclasses.fields(want)} - set(names)
-    assert dropped == {"mesh_axis", "remat_scan"}
+    assert dropped == {"remat_scan"}
 
 
 def test_pdg_tables_and_species_match_jax(run_dirs):

@@ -276,7 +276,26 @@ Phases, each printing its own line(s):
    it gathered and its gather-and-fold seconds beside the card's name and
    power limit: ranks sharing one card, so the walls prove the sharded
    path, not scaling.  A failed rank or a rank still running after
-   MESH_TIMEOUT seconds fails the run.
+   MESH_TIMEOUT seconds fails the run.  In the W = 2 spawn also: [mesh
+   events] batch.smooth_spectra_batched and batch.polarization_batched
+   (mode 5) on [ensemble batch]'s 8 x 16384-cell x 320-species 2+1D
+   ensemble over the event axis, every rank's rows bit-equal to one
+   process and each rank launching half its kernels (4 events x the
+   groups), and the gradient of the batched spectra
+   (surface_value_and_grad) bit-equal, with its backward launches halved
+   too;
+   [mesh sample] kernels.sample.sample_particles(mesh=) on [sample main
+   2d]'s surface (oversampled to MESH_SAMPLE_HADRONS), every rank's list
+   byte-equal to one process's _sample_cell_chunked with 65536 cells a
+   chunk, each rank launching K7b twice, K7a three times and K7's packed
+   mode once a batch, the pion, kaon and proton dN/dy within 5 sigma + 2 %
+   of [main 2d]'s operation-1 spectra of the same surface; [pod] two CLI
+   processes with the pod keys (mesh_backend=gloo, both on this card):
+   operation 1 on [main]'s run directory and operation 2 with the event
+   decays on [sample decays]'s, rank 0's results tree byte-identical to
+   the one-process run's.  The spawns run in MESH_STAGES: W = 2 beside
+   this process's one-process references, then W = 3, W = 1 (NCCL) and
+   both [pod] pairs at once, so their walls overlap.
 
 The cpu halves of the 256-cell cuda-against-cpu runs run in the
 background, one process at a time with CPU_THREADS threads, and are
@@ -288,7 +307,8 @@ took 110 s and 70 s before, and one 31 s for the remap); [feqmod pair]
 on 1024 cells and [vah pair] / [polzn pair] on 512 (2+1D) and 1024
 (3+1D) cells (4096 for [pair], 2048 for the others until the sampler's
 second half added its phases); the [grad ... pair] phases of K10 and K11
-on GRAD_PAIR_PLAIN_CELLS = 128 cells (the plain autograd took 10 s on 512).
+on GRAD_PAIR_PLAIN_CELLS = 128 cells (the plain autograd took 10 s on 512);
+one warm run of each float64 kernel (three took ~19 s more).
 
 Bounds: the larger of the bytes over the memory rate and the operations
 over the card's FP32 and SFU rates, the spectra, dN/dX and prototype
@@ -409,16 +429,38 @@ KERNEL_SOURCES = ("smooth_spectra", "dndx", "smooth_proto", "decays",
 # [mesh]: the ranks of each spawn (W, backend) and the join timeout (s);
 # the main-path run directories it reuses, by phase tag: (run dir, CLI
 # args, the kernels each group launches), kept by _keep until it ends
-MESH_SPAWNS = ((2, "gloo"), (3, "gloo"), (1, "nccl"))
 # the spawn whose rank 0 writes the results trees (held byte for byte to
 # the CLI's one-process trees): the writers take most of a spawn's wall
 MESH_WRITE_W = 3
+# the spawns in stages: a stage's spawns run at once, the first stage's
+# beside this process's one-process references, the last stage's beside
+# [pod]'s CLI ranks (ranks share the card: the walls overlap, and measure
+# correctness, not scaling)
+MESH_STAGES = (((2, "gloo"),), ((3, "gloo"), (1, "nccl")))
 MESH_TIMEOUT = 300.0
 MESH_DIRS: dict = {}
+# [mesh events]' inputs (kept by [ensemble batch]), [mesh sample]'s run
+# directory (kept by [sample main 2d]) and its hadron target, and [pod]'s
+# operation-2 run directory (kept by [sample decays])
+MESH_EVENTS: dict = {}
+MESH_SAMPLE: dict = {}
+MESH_SAMPLE_HADRONS = 400000
+POD_DIRS: dict = {}
+POD_TIMEOUT = 300.0
 # H100 SXM: SMs, FP32, SFU and INT32-multiply lanes per SM, memory rate
 # (bytes/s)
 N_SM, FP32_LANES, SFU_LANES, HBM_RATE = 132, 128, 16, 3.35e12
 INT32_LANES = 64
+
+
+T_START = time.perf_counter()
+
+
+def _clock(tag: str):
+    """A [clock] line: the seconds since the script started, as ``tag``
+    starts (the run's breakdown against its time limit)."""
+    print(f"[clock] {tag} at {time.perf_counter() - T_START:.1f} s",
+          flush=True)
 
 
 def fail(msg: str):
@@ -1199,7 +1241,7 @@ def phase_feqmod_pair(smi: str, clock: float, run_dir: str, cfg, tag: str,
     (most cells break down), f32: the float64 kernel on the same cells,
     two launches bit-identical, the group's first ``plain_cells`` cells
     held against the plain version; paired CUDA-event times (f32, f64; one
-    warm-up, median of 5 and 3), the plain version's one run on those
+    warm-up, median of 5, and one warm run), the plain version's one run on those
     cells, the bound from the evaluations of each chain, the kernel's
     instructions per evaluation.  Returns the record of each kind."""
     from is3d_tpu_torch.io.tables import laguerre_device
@@ -1257,7 +1299,8 @@ def phase_feqmod_pair(smi: str, clock: float, run_dir: str, cfg, tag: str,
                      kslice(), want, 2e-4, 2e-5)
         del want, ref
         k_ms, k_all = cuda_median_ms(kern)
-        k64_ms, k64_all = cuda_median_ms(kern64, 3)
+        # one run: it is warm, and its runs spread under 1 %
+        k64_ms, k64_all = cuda_median_ms(kern64, 1)
         ks_ms, _ = cuda_median_ms(kslice, 3)
         bound, evals, fb_share = _feqmod_bound(
             x, mom, flags, _nbytes(x, rn, wcs, got, *mom_tensors(mom)), clock)
@@ -2070,8 +2113,8 @@ def _group_pair(name: str, parts, kern, kern64, kslice, plain, n: int):
     (the largest difference as a share of each output's largest value,
     the worst of ``parts``), the group's first ``n`` cells (``kslice``)
     held against the plain version (``plain``, one timed run);
-    CUDA-event medians of the kernel (5), the float64 kernel (3) and the
-    slice (3).  Returns (the group's outputs, the measurements)."""
+    CUDA-event medians of the kernel (5) and the slice (3), and one run
+    of the float64 kernel (warm; its runs spread under 1 %).  Returns (the group's outputs, the measurements)."""
     from is3d_tpu_torch.utils import cuda_median_ms
     tup = lambda t: t if isinstance(t, tuple) else (t,)
     got, again, ref = tup(kern()), tup(kern()), tup(kern64())
@@ -2086,7 +2129,7 @@ def _group_pair(name: str, parts, kern, kern64, kslice, plain, n: int):
               for part, g, w in zip(parts, tup(kslice()), tup(want)))
     del want, ref
     k_ms, k_all = cuda_median_ms(kern)
-    k64_ms, k64_all = cuda_median_ms(kern64, 3)
+    k64_ms, k64_all = cuda_median_ms(kern64, 1)
     ks_ms, _ = cuda_median_ms(kslice, 3)
     return got, dict(err=err, f32_share=f32_share, p_ms=p_ms, k_ms=k_ms,
                      k_all=k_all, k64_ms=k64_ms, k64_all=k64_all, ks_ms=ks_ms)
@@ -3530,7 +3573,11 @@ def phase_sample(smi: str, clock: float, vah_dir: str, vah_dndy: dict):
     rec_k7a["launches"] = counts["alias_tables"]
     rec_search = phase_sample_search(smi, clock, run_dir, result)
     del result
-    shutil.rmtree(run_dir, ignore_errors=True)
+    # [mesh sample] samples this surface again
+    shutil.rmtree(os.path.join(run_dir, "results"), ignore_errors=True)
+    MESH_SAMPLE.update(run_dir=run_dir, overrides=dict(
+        _overrides(SAMPLE2D_ARGS),
+        min_num_hadrons=str(MESH_SAMPLE_HADRONS)))
     rec_vah, rec_y_vah = phase_sample_vah(smi, clock, vah_dir, vah_dndy)
     _release(vah_dir)
     phase_sample_chunked(smi)
@@ -3542,7 +3589,11 @@ def phase_sample(smi: str, clock: float, vah_dir: str, vah_dndy: dict):
                                  label="operation 2 df2 with decays")
     rec_k8 = phase_cascade_pair(smi, clock, run_dir, cfg)
     rec_k8["launches"] = counts["mc_cascade"]
-    shutil.rmtree(run_dir, ignore_errors=True)
+    # [pod] runs it again over two CLI ranks
+    os.rename(os.path.join(run_dir, "results"),
+              os.path.join(run_dir, "results_pod_one"))
+    POD_DIRS["sample decays"] = (run_dir, SAMPLE_DECAYS_ARGS,
+                                 "results_pod_one")
     return rec_k7, rec_k7a, rec_k8, rec_y, rec_y_vah, rec_vah, rec_search
 
 
@@ -4630,7 +4681,31 @@ def phase_ensemble_batch(smi: str):
           f"wall {wall:.3f} s; by phase: " + ", ".join(
               f"{k} {v:.3f} s" for k, v in phases.items())
           + "; every row bit-equal to its single run")
+    _keep_events([run.surface] + events[1:], species, grid, df_data,
+                 run.cfg)
     shutil.rmtree(run_dir, ignore_errors=True)
+
+
+def _keep_events(surfaces, species, grid, df_data, cfg):
+    """[mesh events]' inputs on the host: the ensemble stacked, the same
+    with each event's thermal vorticity (mode 5) and its T_avg."""
+    from is3d_tpu_torch import batch
+    from is3d_tpu_torch.io.surface import surface_averages
+    from is3d_tpu_torch.testing import synthetic_vorticity
+    stacked = batch.stack_surfaces(surfaces)
+    vort = [synthetic_vorticity(ENSEMBLE_CELLS, seed=e)
+            for e in range(ENSEMBLE_EVENTS)]
+    polzn = stacked.replace(**{k: torch.tensor(np.stack([v[k] for v in vort]),
+                                               dtype=stacked.tau.dtype,
+                                               device=stacked.tau.device)
+                               for k in vort[0]})
+    T_avg = [surface_averages(s).temperature for s in surfaces]
+    path = os.path.join(WORK, "mesh_events.pt")
+    torch.save(dict(stacked=stacked.to("cpu"), polzn=polzn.to("cpu"),
+                    species=species.to("cpu"), grid=grid.to("cpu"),
+                    df_data=df_data.to("cpu"), cfg=cfg,
+                    T_avg=torch.tensor(T_avg, dtype=torch.float64)), path)
+    MESH_EVENTS["path"] = path
 
 
 # ------------------------------------------------------------ multi-GPU
@@ -4708,13 +4783,96 @@ def _mesh_grad(run, mesh=None) -> dict:
                 cotangent=ct.cpu(), counts=counts, wall=wall)
 
 
-def mesh_rank(mesh, runs, slices, grad, write) -> dict:
+# [mesh events]' gradient fields of the stacked 2+1D ensemble
+EVENTS_GRAD_WRT = ("T", "ux", "uy", "bulkPi", "pixy", "dat")
+
+
+def _events_cases(path: str, device) -> dict:
+    """[mesh events]' batched cases (testing.batched_case) on ``device``:
+    the spectra of the stacked ensemble, and its mode-5 polarization."""
+    inp = torch.load(path, weights_only=False)
+    common = dict(species=inp["species"].to(device),
+                  grid=inp["grid"].to(device),
+                  df_data=inp["df_data"].to(device))
+    return dict(spectra=dict(common, kind="spectra", cfg=inp["cfg"],
+                             stacked=inp["stacked"].to(device)),
+                polzn=dict(common, kind="polzn",
+                           cfg=inp["cfg"].replace(mode=5),
+                           stacked=inp["polzn"].to(device),
+                           T_avg=inp["T_avg"]))
+
+
+def _timed(fn):
+    """fn()'s result on the host, its launch counts and its wall seconds
+    (to a device sync)."""
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return dict(result=_host(out), counts=_counts(), wall=wall)
+
+
+def _host(x):
+    if isinstance(x, dict):
+        return {k: _host(v) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(_host(v) for v in x)
+    return x.cpu() if isinstance(x, torch.Tensor) else x
+
+
+def _mesh_events(path: str, mesh=None, device="cuda") -> dict:
+    """[mesh events]: the batched spectra, polarization and spectra
+    gradient of the kept ensemble, over the event axis of ``mesh`` (or in
+    one process)."""
+    from is3d_tpu_torch import testing
+    cases = _events_cases(path, device if mesh is None else mesh.device)
+    out = {name: _timed(lambda c=c: testing.batched_case(c, mesh))
+           for name, c in cases.items()}
+    out["grad"] = _timed(lambda: _events_grad(cases["spectra"], mesh))
+    return out
+
+
+def _events_grad(case: dict, mesh):
+    """The value and gradient of sum dN/dy + sum <pT> over the batched
+    spectra's events by EVENTS_GRAD_WRT (one forward and one backward
+    pass; testing.batched_grad adds surface_vjp's on the CPU)."""
+    from is3d_tpu_torch import diff, testing
+
+    def loss(stacked):
+        out = testing.batched_case(dict(case, stacked=stacked), mesh)
+        return sum(diff.dN_dy_j(row, case["grid"]).sum()
+                   + diff.mean_pT_j(row, case["grid"]).sum() for row in out)
+    return diff.surface_value_and_grad(loss, case["stacked"],
+                                       EVENTS_GRAD_WRT)
+
+
+def _mesh_sample(spec: dict, mesh) -> dict:
+    """[mesh sample] on a rank: sample_particles(mesh=) of the kept run
+    directory's surface."""
+    from is3d_tpu_torch.api import IS3D
+    from is3d_tpu_torch.kernels import sample
+    run = IS3D.from_run_dir(spec["run_dir"], overrides=spec["overrides"],
+                            mesh=mesh)
+    run.read_fo_surf_from_file(write_averages=False)
+    _, df_data, species, mcids, _ = run._prepare()
+    info = {}
+    out = _timed(lambda: sample.sample_particles(
+        run.surface, species, mcids, df_data, run.cfg, run.plasma(),
+        mesh=mesh, info=info))
+    return dict(out, info=info)
+
+
+def mesh_rank(mesh, runs, slices, grad, write, events=None,
+              sampled=None) -> dict:
     """One rank of [mesh]: api.IS3D(mesh=) on each of ``runs`` (with
     ``write`` rank 0 writes ``results_dir``; another rank is given
     ``<results_dir>_rank<r>``, where it must write nothing), the
     slice-local path on each of ``slices``, and with ``grad`` [mesh grad]
     on that run; each with its launch counts, parallel.mesh.MESH_STATS and
-    wall seconds."""
+    wall seconds; with ``events`` (the inputs' path) [mesh events] and
+    with ``sampled`` (a run directory and overrides) [mesh sample]."""
     from is3d_tpu_torch import testing
     from is3d_tpu_torch.api import IS3D
     from is3d_tpu_torch.parallel import mesh as pmesh
@@ -4737,15 +4895,22 @@ def mesh_rank(mesh, runs, slices, grad, write) -> dict:
         out["grad"] = _mesh_grad(IS3D.from_run_dir(
             grad["run_dir"], overrides=grad["overrides"], mesh=mesh), mesh)
         out["grad"]["stats"] = dict(pmesh.MESH_STATS)
+    if events is not None:
+        out["events"] = _mesh_events(events, mesh)
+    if sampled is not None:
+        out["sample"] = _mesh_sample(sampled, mesh)
     return out
 
 
 def _same(a, b) -> bool:
-    """torch.equal of two results: arrays, tensors, dicts of them, None."""
+    """torch.equal of two results: arrays, tensors, dicts or tuples of
+    them, None."""
     if a is None or b is None:
         return a is None and b is None
     if isinstance(b, dict):
         return set(a) == set(b) and all(_same(a[k], b[k]) for k in b)
+    if isinstance(b, tuple):
+        return len(a) == len(b) and all(map(_same, a, b))
     return torch.equal(torch.as_tensor(a), torch.as_tensor(b))
 
 
@@ -4769,133 +4934,386 @@ def _rank_line(tag: str, smi: str, W: int, backend: str, r: int,
 
 
 def phase_mesh(smi: str, device: str = "cuda"):
-    """[mesh] and [mesh grad] (docstring, 14): the one-process results in
-    this process, then every spawn of MESH_SPAWNS held to them, every rank
-    on ``device`` (index 0)."""
-    from is3d_tpu_torch import testing
-    from is3d_tpu_torch.api import IS3D
-    from is3d_tpu_torch.parallel.mesh import canonical_groups
+    """[mesh] and [mesh grad] (docstring, 14): the spawns of MESH_STAGES'
+    first stage start, this process computes the one-process results
+    meanwhile, and each spawn is held to them; then each later stage's
+    spawns at once, the last beside [pod]; every rank on ``device`` (index
+    0)."""
     runs = _mesh_runs("results_mesh_one")
+    grad_run = next(r for r in runs if r["name"] == "main")
+    ref = dict(runs=runs, grad_run=grad_run, slice_runs=[
+        r for r in runs if r["name"] in ("main", "dndx main")])
+    started = [_spawn_start(device, W, backend, ref)
+               for W, backend in MESH_STAGES[0]]
+    try:
+        _mesh_references(smi, device, ref)
+    finally:
+        for spawn in started:
+            spawn["thread"].join()
+    for spawn in started:
+        _spawn_check(smi, spawn, ref)
+    for k, stage in enumerate(MESH_STAGES[1:], 1):
+        started, pods = [], []
+        try:
+            started = [_spawn_start(device, W, backend, ref)
+                       for W, backend in stage]
+            if k == len(MESH_STAGES) - 1:
+                pods = _pod_start()
+            for spawn in started:
+                spawn["thread"].join()
+            _pod_finish(smi, pods)
+        finally:
+            for spawn in started:
+                spawn["thread"].join()
+            _pod_stop(pods)
+        for spawn in started:
+            _spawn_check(smi, spawn, ref,
+                         beside=len(stage) > 1 or bool(pods))
+    for d, _, _ in MESH_DIRS.values():
+        shutil.rmtree(d, ignore_errors=True)
+    MESH_DIRS.clear()
+    for d in [MESH_SAMPLE.get("run_dir")] + [v[0]
+                                              for v in POD_DIRS.values()]:
+        if d:
+            shutil.rmtree(d, ignore_errors=True)
+    MESH_SAMPLE.clear()
+    POD_DIRS.clear()
+
+
+def _mesh_references(smi: str, device: str, ref: dict):
+    """The one-process results the spawns are held to, into ``ref``: the
+    API run of each kept run directory, [grad main]'s gradient, [mesh
+    events]' and [mesh sample]'s."""
+    from is3d_tpu_torch.api import IS3D
     one, n_cells = {}, {}
     t0 = time.perf_counter()
-    for run in runs:
+    for run in ref["runs"]:
         r = IS3D.from_run_dir(run["run_dir"], overrides=run["overrides"],
                               device=device)
         res = r.run_particlization(write_files=False)
         one[run["name"]] = dict(spectra=res.spectra, dN_dX=res.dN_dX,
                                 polarization=res.polarization)
         n_cells[run["name"]] = (r.cfg, r.surface.n_cells)
-    grad_run = next(r for r in runs if r["name"] == "main")
+    grad_run = ref["grad_run"]
     grad_one = _mesh_grad(IS3D.from_run_dir(
         grad_run["run_dir"], overrides=grad_run["overrides"], device=device))
-    slice_runs = [r for r in runs if r["name"] in ("main", "dndx main")]
-    slice_want = {"main": one["main"]["spectra"],
-                  "dndx main": one["dndx main"]["dN_dX"]}
-    print(f"[mesh] {smi} | one process: {len(runs)} api.IS3D runs (their "
+    print(f"[mesh] {smi} | one process: {len(one)} api.IS3D runs (their "
           f"trees the CLI's) and [grad main]'s gradient in "
-          f"{time.perf_counter() - t0:.3f} s")
+          f"{time.perf_counter() - t0:.3f} s (beside the first spawns)")
+    ref.update(one=one, n_cells=n_cells, grad_one=grad_one, slice_want={
+        "main": one["main"]["spectra"],
+        "dndx main": one["dndx main"]["dN_dX"]},
+        events=(_mesh_events(MESH_EVENTS["path"], device=device)
+                if MESH_EVENTS else None),
+        sample=_sample_one(MESH_SAMPLE, device) if MESH_SAMPLE else None)
     if device == "cuda":
         torch.cuda.empty_cache()
-    for W, backend in MESH_SPAWNS:
+
+
+def _spawn_start(device: str, W: int, backend: str, ref: dict) -> dict:
+    """Start one spawn of MESH_STAGES, W ranks on ``device`` (index 0), in
+    a thread of this process; its ranks' results (or the error) and its
+    spawn-to-join wall land in the returned dict."""
+    import threading
+    from is3d_tpu_torch import testing
+    spawn = dict(W=W, backend=backend)
+
+    def run():
         t0 = time.perf_counter()
-        ranks = testing.run_ranks(
-            mesh_rank, W, os.path.join(WORK, f"mesh_w{W}"),
-            args=(_mesh_runs(f"results_mesh_w{W}"), slice_runs,
-                  grad_run if W == 2 else None, W == MESH_WRITE_W),
-            backend=backend, device=f"{device}:0" if device == "cuda"
-            else device, timeout=MESH_TIMEOUT,
-            # torch's default threads, as this process: the host's share
-            # of the prepare then has this process's bits
-            threads=None)
-        wall = time.perf_counter() - t0
-        for run in runs:
-            name = run["name"]
-            cfg, n = n_cells[name]
-            G, _ = canonical_groups(cfg, n)
-            per = -(-G // W)
-            want = MESH_DIRS[name][2]
-            for r, res in enumerate(ranks):
-                got = res["runs"][name]
-                own = min(G, (r + 1) * per) - min(G, r * per)
-                for key in ("spectra", "dN_dX", "polarization"):
-                    if not _same(got[key], one[name][key]):
-                        fail(f"[mesh] W = {W} rank {r} {name}: {key} "
-                             "differs from the one-process run")
-                _expect_counts(f"[mesh] W = {W} rank {r} {name}",
-                               got["counts"], {k: own for k in want})
-                if got["wrote"] != (r == 0 and W == MESH_WRITE_W) or \
-                        os.path.exists(f"{run['run_dir']}/results_mesh_w{W}"
-                                       f"_rank{r}"):
-                    fail(f"[mesh] W = {W} rank {r} {name}: only rank 0 "
-                         "writes the results tree")
-            files = ""
-            if W == MESH_WRITE_W:
-                a = _tree_bytes(os.path.join(run["run_dir"],
-                                             "results_mesh_one"))
-                b = _tree_bytes(os.path.join(run["run_dir"],
-                                             f"results_mesh_w{W}"))
-                if not a or a != b:
-                    fail(f"[mesh] W = {W} {name}: rank 0's results tree is "
-                         f"not the one-process tree byte for byte ({len(a)} "
-                         f"and {len(b)} files)")
-                files = f", {len(a)} files byte-equal"
-                shutil.rmtree(os.path.join(run["run_dir"],
-                                           f"results_mesh_w{W}"))
-            print(f"[mesh] {smi} | W = {W} {name}: every rank bit-equal"
-                  f"{files}, launches "
-                  + " / ".join(str(res["runs"][name]["counts"][want[0]])
-                               for res in ranks) + f" of {G} groups")
-        for name, want in slice_want.items():
-            cfg, n = n_cells[name]
-            G, _ = canonical_groups(cfg, n)
-            per = -(-G // W)
-            for r, res in enumerate(ranks):
-                got = res["slices"][name]
-                if not _same(got["result"], want):
-                    fail(f"[mesh] W = {W} rank {r} slice-local {name} "
-                         "differs from the one-process run")
-                own = min(G, (r + 1) * per) - min(G, r * per)
-                _expect_counts(f"[mesh] W = {W} rank {r} slice-local {name}",
-                               got["counts"],
-                               {k: own for k in MESH_DIRS[name][2]})
+        try:
+            spawn["ranks"] = testing.run_ranks(
+                mesh_rank, W, os.path.join(WORK, f"mesh_w{W}"),
+                args=(_mesh_runs(f"results_mesh_w{W}"), ref["slice_runs"],
+                      ref["grad_run"] if W == 2 else None,
+                      W == MESH_WRITE_W,
+                      MESH_EVENTS.get("path") if W == 2 else None,
+                      (MESH_SAMPLE or None) if W == 2 else None),
+                backend=backend, device=f"{device}:0" if device == "cuda"
+                else device, timeout=MESH_TIMEOUT,
+                # torch's default threads, as this process: the host's
+                # share of the prepare then has this process's bits
+                threads=None)
+        except Exception as err:
+            spawn["error"] = err
+        spawn["wall"] = time.perf_counter() - t0
+    spawn["thread"] = threading.Thread(target=run, daemon=True)
+    spawn["thread"].start()
+    return spawn
+
+
+def _spawn_check(smi: str, spawn: dict, ref: dict, beside=False):
+    """Hold a joined spawn's ranks to ``ref``, phase_mesh's one-process
+    results (``beside``: other spawns or [pod]'s CLI ranks shared the card
+    and the host meanwhile)."""
+    from is3d_tpu_torch.parallel.mesh import canonical_groups
+    W, backend = spawn["W"], spawn["backend"]
+    if "error" in spawn:
+        fail(f"[mesh] W = {W} ({backend}): {spawn['error']}")
+    runs, one, n_cells = ref["runs"], ref["one"], ref["n_cells"]
+    grad_one, ranks, wall = ref["grad_one"], spawn["ranks"], spawn["wall"]
+    write = W == MESH_WRITE_W
+    for run in runs:
+        name = run["name"]
+        cfg, n = n_cells[name]
+        G, _ = canonical_groups(cfg, n)
+        per = -(-G // W)
+        want = MESH_DIRS[name][2]
         for r, res in enumerate(ranks):
-            stats = {k: sum(x["stats"][k] for x in res["runs"].values())
-                     for k in ("compute_s", "groups", "gathered_bytes",
-                               "gather_fold_s")}
-            print(_rank_line("mesh", smi, W, backend, r, stats,
-                             sum(x["wall"] for x in res["runs"].values())))
-            for name, got in res["slices"].items():
-                print(_rank_line(f"mesh slice-local {name}", smi, W,
-                                 backend, r, got["stats"], got["wall"]))
-        print(f"[mesh] {smi} | W = {W} ({backend}): spawn to join "
-              f"{wall:.3f} s, every rank bit-equal to one process")
-        if W == 2:
-            G, _ = canonical_groups(*n_cells["main"])
-            per = -(-G // W)
-            cts = [res["grad"]["cotangent"] for res in ranks]
-            if not all(torch.equal(c, cts[0]) for c in cts):
-                fail("[mesh grad] the ranks' cotangents differ")
-            for r, res in enumerate(ranks):
-                got = res["grad"]
-                own = min(G, (r + 1) * per) - min(G, r * per)
-                if not (torch.equal(got["value"], grad_one["value"])
-                        and _same(got["grads"], grad_one["grads"])):
-                    fail(f"[mesh grad] rank {r}: the gradient differs from "
-                         "the one-process gradient")
-                _expect_counts(f"[mesh grad] rank {r}", got["counts"],
-                               dict(smooth_spectra=own, spectra_bwd=own))
-                print(_rank_line("mesh grad", smi, W, backend, r,
-                                 got["stats"], got["wall"])
-                      + f" (one process {grad_one['wall']:.3f} s): gradient"
-                      f" by {len(got['grads'])} fields bit-equal")
-    for d, _, _ in MESH_DIRS.values():
-        shutil.rmtree(d, ignore_errors=True)
-    MESH_DIRS.clear()
+            got = res["runs"][name]
+            own = min(G, (r + 1) * per) - min(G, r * per)
+            for key in ("spectra", "dN_dX", "polarization"):
+                if not _same(got[key], one[name][key]):
+                    fail(f"[mesh] W = {W} rank {r} {name}: {key} "
+                         "differs from the one-process run")
+            _expect_counts(f"[mesh] W = {W} rank {r} {name}",
+                           got["counts"], {k: own for k in want})
+            if got["wrote"] != (r == 0 and write) or \
+                    os.path.exists(f"{run['run_dir']}/results_mesh_w{W}"
+                                   f"_rank{r}"):
+                fail(f"[mesh] W = {W} rank {r} {name}: only rank 0 "
+                     "writes the results tree")
+        files = ""
+        if write:
+            a = _tree_bytes(os.path.join(run["run_dir"],
+                                         "results_mesh_one"))
+            b = _tree_bytes(os.path.join(run["run_dir"],
+                                         f"results_mesh_w{W}"))
+            if not a or a != b:
+                fail(f"[mesh] W = {W} {name}: rank 0's results tree is "
+                     f"not the one-process tree byte for byte ({len(a)} "
+                     f"and {len(b)} files)")
+            files = f", {len(a)} files byte-equal"
+            shutil.rmtree(os.path.join(run["run_dir"],
+                                       f"results_mesh_w{W}"))
+        print(f"[mesh] {smi} | W = {W} {name}: every rank bit-equal"
+              f"{files}, launches "
+              + " / ".join(str(res["runs"][name]["counts"][want[0]])
+                           for res in ranks) + f" of {G} groups")
+    for name, want in ref["slice_want"].items():
+        cfg, n = n_cells[name]
+        G, _ = canonical_groups(cfg, n)
+        per = -(-G // W)
+        for r, res in enumerate(ranks):
+            got = res["slices"][name]
+            if not _same(got["result"], want):
+                fail(f"[mesh] W = {W} rank {r} slice-local {name} "
+                     "differs from the one-process run")
+            own = min(G, (r + 1) * per) - min(G, r * per)
+            _expect_counts(f"[mesh] W = {W} rank {r} slice-local {name}",
+                           got["counts"],
+                           {k: own for k in MESH_DIRS[name][2]})
+    for r, res in enumerate(ranks):
+        stats = {k: sum(x["stats"][k] for x in res["runs"].values())
+                 for k in ("compute_s", "groups", "gathered_bytes",
+                           "gather_fold_s")}
+        print(_rank_line("mesh", smi, W, backend, r, stats,
+                         sum(x["wall"] for x in res["runs"].values())))
+        for name, got in res["slices"].items():
+            print(_rank_line(f"mesh slice-local {name}", smi, W,
+                             backend, r, got["stats"], got["wall"]))
+    print(f"[mesh] {smi} | W = {W} ({backend}): spawn to join "
+          f"{wall:.3f} s" + (" (beside other spawns or [pod]'s CLI ranks)"
+                             if beside else "")
+          + ", every rank bit-equal to one process")
+    if W == 2:
+        G, _ = canonical_groups(*n_cells["main"])
+        per = -(-G // W)
+        cts = [res["grad"]["cotangent"] for res in ranks]
+        if not all(torch.equal(c, cts[0]) for c in cts):
+            fail("[mesh grad] the ranks' cotangents differ")
+        for r, res in enumerate(ranks):
+            got = res["grad"]
+            own = min(G, (r + 1) * per) - min(G, r * per)
+            if not (torch.equal(got["value"], grad_one["value"])
+                    and _same(got["grads"], grad_one["grads"])):
+                fail(f"[mesh grad] rank {r}: the gradient differs from "
+                     "the one-process gradient")
+            _expect_counts(f"[mesh grad] rank {r}", got["counts"],
+                           dict(smooth_spectra=own, spectra_bwd=own))
+            print(_rank_line("mesh grad", smi, W, backend, r,
+                             got["stats"], got["wall"])
+                  + f" (one process {grad_one['wall']:.3f} s): gradient"
+                  f" by {len(got['grads'])} fields bit-equal")
+        if ref["events"] is not None:
+            _check_mesh_events(smi, W, ranks, ref["events"])
+        if ref["sample"] is not None:
+            _check_mesh_sample(smi, W, ranks, ref["sample"])
+
+
+def _check_mesh_events(smi: str, W: int, ranks: list, one: dict):
+    """[mesh events]: every rank's rows and gradient bit-equal to one
+    process's, and each rank's launches the one-process launches over
+    W."""
+    for name in ("spectra", "polzn", "grad"):
+        want = one[name]
+        launches = {k: v for k, v in want["counts"].items() if v}
+        if not launches or any(v % W for v in launches.values()):
+            fail(f"[mesh events] {name}: the one-process launches "
+                 f"{launches} do not split into {W} equal shares")
+        for r, res in enumerate(ranks):
+            got = res["events"][name]
+            if not _same(got["result"], want["result"]):
+                fail(f"[mesh events] W = {W} rank {r} {name}: differs from "
+                     "the one-process run")
+            _expect_counts(f"[mesh events] W = {W} rank {r} {name}",
+                           got["counts"],
+                           {k: v // W for k, v in launches.items()})
+            print(f"[mesh events] {smi} | W = {W} (gloo, every rank on one "
+                  f"card) rank {r} {name}: wall {got['wall']:.3f} s (one "
+                  f"process {want['wall']:.3f} s), launches "
+                  + ", ".join(f"{k} {got['counts'][k]}" for k in launches)
+                  + " (one process " + ", ".join(
+                      f"{k} {v}" for k, v in launches.items())
+                  + "), bit-equal")
+
+
+def _sample_one(spec: dict, device) -> dict:
+    """[mesh sample]'s one-process reference: _sample_cell_chunked of the
+    kept surface with 65536 cells a chunk, and [main 2d]'s dN/dy."""
+    from is3d_tpu_torch.api import IS3D
+    from is3d_tpu_torch.kernels import sample
+    run = IS3D.from_run_dir(spec["run_dir"], overrides=spec["overrides"],
+                            device=device)
+    run.read_fo_surf_from_file(write_averages=False)
+    _, df_data, species, mcids, _ = run._prepare()
+    cfg = sample.sampler_effective_cfg(run.surface, run.cfg)
+    plan = sample._ChunkPlan(run.surface, species, df_data, cfg,
+                             run.plasma(), None, -(-MAIN_CELLS // 2))
+    info = {}
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = _timed(lambda: sample._sample_cell_chunked(
+            plan, mcids, info=info))
+    dndy = _dndy_files(os.path.join(MESH_DIRS["main 2d"][0],
+                                    "results_mesh_one"), (211, 321, 2212))
+    return dict(out, info=info, mcids=np.asarray(mcids), y_cut=cfg.y_cut,
+                dndy=dndy)
+
+
+def _check_mesh_sample(smi: str, W: int, ranks: list, one: dict):
+    """[mesh sample]: every rank's list byte-equal to the one-process
+    chunked run, each rank's launches (K7b for its pre-pass and phase A,
+    K7a three times, K7's packed mode once a batch and a rerun), and the
+    pion, kaon and proton dN/dy within 5 sigma + 2 % of [main 2d]'s."""
+    from is3d_tpu_torch import testing
+    want = one["result"]
+    for r, res in enumerate(ranks):
+        got = res["sample"]
+        if not testing.same_events(got["result"], want):
+            fail(f"[mesh sample] W = {W} rank {r}: the events differ from "
+                 "the one-process chunked run")
+        info = got["info"]
+        _expect_counts(f"[mesh sample] W = {W} rank {r}", got["counts"],
+                       dict(species_yields=2, alias_tables=3,
+                            sample_packed=info["batches"] + info["reruns"]))
+        print(f"[mesh sample] {smi} | W = {W} (gloo, every rank on one "
+              f"card) rank {r}: wall {got['wall']:.3f} s (one process "
+              f"{one['wall']:.3f} s; phase A {info['timings']['phase_a']:.3f}"
+              f", gather {info['timings']['gather']:.3f} s), launches "
+              + ", ".join(f"{k} {v}" for k, v in got["counts"].items() if v)
+              + f"; {len(got['result'])} events byte-equal")
+    n_ev = len(want)
+    n_sp = _species_counts(want, one["mcids"])
+    lines = []
+    for m, dndy in one["dndy"].items():
+        n = int(n_sp[list(one["mcids"]).index(m)])
+        got = n / (2.0 * one["y_cut"] * n_ev)
+        sig = math.sqrt(max(n, 1)) / (2.0 * one["y_cut"] * n_ev)
+        lines.append(f"{m} {got:.4f} against {dndy:.4f}")
+        if abs(got - dndy) > 5.0 * sig + 0.02 * dndy:
+            fail(f"[mesh sample] dN/dy of {m}: sampled {got:.5f}, "
+                 f"operation 1 {dndy:.5f} (sigma {sig:.5f})")
+    print(f"[mesh sample] {smi} | {n_ev} events, "
+          f"{sum(len(e['mcid']) for e in want)} hadrons; dN/dy at y = 0 "
+          f"against [main 2d]'s spectra: {'; '.join(lines)} (within 5 "
+          "sigma + 2 %)")
+
+
+def _pod_start() -> list:
+    """Start [pod]: two CLI processes with the pod keys on 127.0.0.1
+    (mesh_backend=gloo, both on this card) on [main]'s run directory
+    (operation 1) and two on [sample decays]' (operation 2 with the event
+    decays), the four at once, each logging to a file under WORK."""
+    import socket
+    import threading
+    pods = dict(POD_DIRS)
+    if "main" in MESH_DIRS:
+        d, args, _ = MESH_DIRS["main"]
+        pods["main"] = (d, args, "results_mesh_one")
+    socks = [socket.socket() for _ in pods]
+    for sock in socks:
+        sock.bind(("127.0.0.1", 0))
+    ports = [sock.getsockname()[1] for sock in socks]
+    for sock in socks:
+        sock.close()
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo")
+    started = []
+    for (tag, (run_dir, args, one)), port in zip(pods.items(), ports):
+        logs = [os.path.join(WORK, f"pod_{tag.replace(' ', '_')}_{i}.log")
+                for i in range(2)]
+        pod = dict(tag=tag, run_dir=run_dir, one=one, logs=logs,
+                   t0=time.perf_counter(), procs=[], wall=None)
+        started.append(pod)
+        for i, log in enumerate(logs):
+            with open(log, "w") as f:
+                pod["procs"].append(subprocess.Popen(
+                    [sys.executable, "-m", "is3d_tpu_torch", run_dir, *args,
+                     "mesh_backend=gloo",
+                     f"multihost_coordinator=127.0.0.1:{port}",
+                     "multihost_nproc=2", f"multihost_pid={i}"], cwd=ROOT,
+                    env=env, stdout=f, stderr=subprocess.STDOUT))
+
+        def watch(pod=pod):
+            for p in pod["procs"]:
+                p.wait()
+            pod["wall"] = time.perf_counter() - pod["t0"]
+        pod["watch"] = threading.Thread(target=watch, daemon=True)
+        pod["watch"].start()
+    return started
+
+
+def _pod_finish(smi: str, started: list):
+    """Wait for [pod]'s CLI ranks (POD_TIMEOUT from their start): rank 0's
+    results tree must be the one-process run's byte for byte."""
+    for pod in started:
+        pod["watch"].join(max(0.0, POD_TIMEOUT
+                              - (time.perf_counter() - pod["t0"])))
+        tag, run_dir, procs = pod["tag"], pod["run_dir"], pod["procs"]
+        logs = [open(log).read() for log in pod["logs"]]
+        if pod["wall"] is None or any(p.returncode for p in procs):
+            fail(f"[pod] {tag}: the CLI ranks exited "
+                 f"{[p.poll() for p in procs]} (None: still running after "
+                 f"{POD_TIMEOUT} s):\n" + "\n".join(logs))
+        a = _tree_bytes(os.path.join(run_dir, pod["one"]))
+        b = _tree_bytes(os.path.join(run_dir, "results"))
+        if not a or a != b:
+            fail(f"[pod] {tag}: rank 0's results tree is not the "
+                 f"one-process tree byte for byte ({len(a)} and {len(b)} "
+                 "files)")
+        done = [line for line in logs[0].splitlines()
+                if line.startswith("done in")]
+        print(f"[pod] {smi} | {tag}: 2 CLI ranks (gloo, both on one card, "
+              "beside the other pair and [mesh]'s last stage): "
+              f"spawn to exit {pod['wall']:.3f} s, rank 0 {done}; {len(a)} "
+              f"files ({sum(map(len, a.values()))} B) byte-equal to one "
+              "process")
+        shutil.rmtree(os.path.join(run_dir, "results"), ignore_errors=True)
+
+
+def _pod_stop(started: list):
+    """Kill and reap any [pod] CLI rank still running."""
+    for pod in started:
+        for p in pod["procs"]:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
 
 
 def main():
     smi, clock = phase_device()
+    _clock("build")
     phase_build()
+    _clock("small phases")
     phase_small_cases()
     phase_small_edges()
     phase_small_dndx()
@@ -4915,6 +5333,7 @@ def main():
     phase_small_cascade()
     shutil.rmtree(WORK, ignore_errors=True)
     try:
+        _clock("main")
         counts, run_dir, cfg, _ = phase_main_path(smi)
         phase_small_path_cpu_vs_cuda()
         rec_spectra = phase_pair(smi, clock, run_dir, cfg)
@@ -4923,6 +5342,7 @@ def main():
         rec_sbwd["launches"] = phase_grad_main(
             smi, run_dir, cfg, "grad main")["counts"]["spectra_bwd"]
         _keep("main", run_dir, MAIN_ARGS, ("smooth_spectra",))
+        _clock("main 2d")
         counts, run_dir, cfg2d, _ = phase_main_path(
             smi, "main 2d", dimension=2, args=MAIN2D_ARGS, n_nodes=48,
             want=("smooth_spectra", "smooth_spectra_remap"))
@@ -4938,6 +5358,7 @@ def main():
                 "spectra_bwd_remap"]
         _keep("main 2d", run_dir, MAIN2D_ARGS,
               ("smooth_spectra", "smooth_spectra_remap"))
+        _clock("dndx main")
         counts, dndx_dir, dndx_cfg = phase_dndx_main(smi)
         phase_small_path_cpu_vs_cuda(
             "small_dndx", dimension=2, params=dict(operation=0),
@@ -4947,6 +5368,7 @@ def main():
         rec_dndx["launches"] = counts["dndx"]
         rec_bin["launches"] = counts["dndx_bin"]
         _keep("dndx main", dndx_dir, DNDX_ARGS, ("dndx", "dndx_bin"))
+        _clock("decays main")
         counts, run_dir, cfg, _ = phase_main_path(
             smi, "decays main", args=DECAYS_ARGS, decays=True)
         # 3+1D with 16 species (through the photon and omega, so 2- and
@@ -4963,19 +5385,30 @@ def main():
         rec_dbwd = phase_grad_decays(smi, clock, run_dir, cfg)
         phase_grad_feqmod_decays(smi, run_dir, cfg)
         shutil.rmtree(run_dir, ignore_errors=True)
+        _clock("decays 2d")
         phase_decays_2d(smi, clock)
+        _clock("ensemble batch")
         phase_ensemble_batch(smi)
+        _clock("experiments")
         experiments = phase_experiments(smi, clock)
+        _clock("feqmod")
         (rec_feqmod, rec_feqmod_remap, rec_feqmod_dndx, rec_qbwd,
          rec_qbwd_remap) = phase_feqmod(smi, clock)
+        _clock("vah")
         (rec_vah, rec_vah_remap, rec_vah_dndx, vah_dir, vah_dndy, rec_vbwd,
          rec_vbwd_remap) = phase_vah(smi, clock)
+        _clock("polzn")
         rec_polzn, rec_polzn_remap, rec_pbwd, rec_pbwd_remap = phase_polzn(
             smi, clock)
+        _clock("sample")
         (rec_k7, rec_k7a, rec_k8, rec_yields, rec_yields_vah, rec_k7_vah,
          rec_k7_search) = phase_sample(smi, clock, vah_dir, vah_dndy)
-        phase_cpu_runs()
+        _clock("mesh")
         phase_mesh(smi)
+        # the cpu halves of the small runs finish behind [mesh]
+        _clock("cpu runs")
+        phase_cpu_runs()
+        _clock("done")
     finally:
         _stop_cpu_runs()
         shutil.rmtree(WORK, ignore_errors=True)

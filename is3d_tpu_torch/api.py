@@ -23,8 +23,16 @@ mode: every rank reads the whole surface, launches the canonical groups it
 owns, folds every group's partial and holds the one-process result bit for
 bit; the feed-down runs replicated on every rank, and only rank 0 writes
 the results tree and the averages file (is3d_tpu/api.py:105, :245-278).
-Operation 2 under ``mesh=`` (the sharded sampler) raises
-NotImplementedError naming the ROADMAP slice that ports it.
+Operation 2 under a mesh of W > 1 ranks follows is3d_tpu's pod rule
+(is3d_tpu/api.py:343-420; every port mesh is several processes): rank r
+samples the events of ``event_partition=(r, W)`` through the one-device
+sampler, the MC decays key on the global event (``event_offset``) under
+one shared seed, and rank 0 merges the ranks' part files (OSCAR, on a
+results_dir every rank sees) or histograms the events gathered from every
+rank (test_sampler), so its files are the one-process files byte for
+byte.  The
+cell-sharded sampler is kernels.sample.sample_particles(mesh=) and
+ensemble.oversample_run(mesh=).
 """
 
 from __future__ import annotations
@@ -77,13 +85,6 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def _not_ported(what: str, slice_name: str, cfg: Config):
-    if cfg.operation == 0:
-        what = f"operation 0 (dN/dX) with {what}"
-    raise NotImplementedError(f"{what} is not ported yet: ROADMAP "
-                              f"section 1, {slice_name}")
-
-
 def check_supported(cfg: Config):
     """Raise ValueError for a configuration no operation reads (operation,
     df_mode, precision); every valid one runs on one device."""
@@ -117,8 +118,6 @@ class IS3D:
                  chosen_file: Optional[str] = None, device=None,
                  mesh=None):
         if mesh is not None:
-            if cfg.operation == 2:
-                _not_ported("mesh= (the sharded sampler)", "slice 11", cfg)
             from .parallel.mesh import check_mesh
             check_mesh(mesh)
         check_supported(cfg)
@@ -294,6 +293,9 @@ class IS3D:
         timer = timer or PhaseTimer(verbose=False)
         self.timer = timer
         cfg = self.cfg
+        # operation 2 over ranks: every rank writes its part file, then
+        # rank 0 merges them; it keeps the caller's flag
+        want_files = write_files
         write_files = write_files and self._writes()
         if write_files:
             # the spectra writers append (reference ios_base::app parity);
@@ -350,7 +352,7 @@ class IS3D:
                                                 mcids, self.results_dir)
         elif cfg.operation == 2:
             self._sample(result, particle_table, df_data, species, mcids,
-                         timer, write_files)
+                         timer, want_files)
         else:
             from .kernels.dndx import spacetime_distributions
             with timer.phase("dN/dX spacetime"):
@@ -364,14 +366,26 @@ class IS3D:
                         result.dN_dX, mcids, self.results_dir)
         return result
 
+    def _pod(self) -> bool:
+        """A mesh of several ranks: operation 2 takes the pod rule."""
+        return self.mesh is not None and self.mesh.size > 1
+
     def _sample(self, result, particle_table, df_data, species, mcids,
-                timer, write_files):
-        """Operation 2 (is3d_tpu/api.py:338-425, one process): the sampled
-        events, decayed with do_resonance_decays = 1 (not under
-        test_sampler, whose histograms compare with the undecayed yield),
-        then the OSCAR list or the test_sampler histograms."""
+                timer, want_files):
+        """Operation 2 (is3d_tpu/api.py:338-425): the sampled events,
+        decayed with do_resonance_decays = 1 (not under test_sampler, whose
+        histograms compare with the undecayed yield), then the OSCAR list
+        or the test_sampler histograms.  Over ranks each samples its
+        contiguous slice of the global events and the files are merged
+        (module docstring)."""
         from .kernels.sample import sample_particles, _resolve_seed
         cfg = self.cfg
+        pod = self._pod()
+        write_files = want_files and self._writes()
+        if pod and want_files and not cfg.test_sampler:
+            # before the sampling: the OSCAR merge's part files need a
+            # results_dir every rank sees
+            self._check_pod_shared_fs()
         seed = _resolve_seed(None, cfg)
         info = {}
         with timer.phase("sampler"):
@@ -379,7 +393,9 @@ class IS3D:
             result.events = sample_particles(
                 self.surface, species, np.asarray(mcids),
                 None if cfg.mode in (2, 3) else df_data, cfg,
-                self.plasma(), seed=seed, info=info)
+                self.plasma(), seed=seed, info=info,
+                event_partition=((self.mesh.rank, self.mesh.size) if pod
+                                 else None))
         result.sample_info = info
         if cfg.do_resonance_decays and not cfg.test_sampler:
             from .kernels.mc_decays import decay_events, derive_decay_seed
@@ -392,20 +408,93 @@ class IS3D:
                     seed=derive_decay_seed(seed),
                     event_offset=info.get("event_lo", 0), device=self.device,
                     info=info["decays"])
-        if not write_files:
+        if not (write_files or (pod and want_files)):
             return
-        os.makedirs(self.results_dir, exist_ok=True)
+        if write_files or not cfg.test_sampler:
+            os.makedirs(self.results_dir, exist_ok=True)
         with timer.phase("writers"):
             if cfg.test_sampler:
                 from .histograms import (sampler_test_histograms,
                                          write_sampler_test)
-                hist = sampler_test_histograms(result.events, mcids, cfg,
-                                               info["total_yield"])
-                write_sampler_test(hist, mcids, self.results_dir)
+                events = result.events
+                if pod:
+                    # the global event list, in rank order, on every rank
+                    from .parallel.mesh import gather_objects
+                    events = [e for part in gather_objects(events, self.mesh)
+                              for e in part]
+                if write_files:
+                    hist = sampler_test_histograms(events, mcids, cfg,
+                                                   info["total_yield"])
+                    write_sampler_test(hist, mcids, self.results_dir)
+                if pod:
+                    from .parallel.mesh import barrier
+                    barrier(self.mesh)
+            elif pod:
+                self._write_pod_oscar(result.events)
             else:
                 writers.write_particle_list_oscar(
                     result.events,
                     os.path.join(self.results_dir, "particle_list_osc.dat"))
+
+    def _check_pod_shared_fs(self):
+        """Operation 2 over ranks with file output needs results_dir on a
+        filesystem every rank sees (rank 0 merges the ranks' part files).
+        Rank 0 writes a marker, every rank looks for it, and the verdicts
+        are gathered so that every rank raises together, before the
+        sampling (is3d_tpu/api.py:431-461)."""
+        from .parallel.mesh import barrier, gather_objects
+        marker = os.path.join(self.results_dir, ".is3d_pod_fs_probe")
+        if self.mesh.rank == 0:
+            os.makedirs(self.results_dir, exist_ok=True)
+            with open(marker, "w") as f:
+                f.write(str(self.mesh.size))
+        barrier(self.mesh)
+        seen = gather_objects(os.path.exists(marker), self.mesh)
+        if self.mesh.rank == 0:
+            os.remove(marker)
+        bad = [r for r, ok in enumerate(seen) if not ok]
+        if bad:
+            raise RuntimeError(
+                f"operation 2 over ranks with write_files: results_dir "
+                f"'{self.results_dir}' is not visible to rank(s) {bad}; the "
+                "part-file merge needs a filesystem every rank sees.  Point "
+                "results_dir at shared storage, or run with "
+                "write_files=False and write each rank's events yourself")
+
+    def _part_path(self, stem: str, rank: int) -> str:
+        return os.path.join(self.results_dir,
+                            f"{stem}.part{rank}of{self.mesh.size}")
+
+    def _write_pod_oscar(self, events_local):
+        """The particle list over ranks: every rank writes its events to a
+        part file, and after a barrier rank 0 streams the parts in rank
+        order (= global event order) into particle_list_osc.dat, refusing
+        on a missing part; OSCAR events are self-delimiting blocks, so the
+        concatenation is the one-process file byte for byte
+        (is3d_tpu/api.py:503-546).  Every rank waits for the merge."""
+        import shutil
+        from .parallel.mesh import barrier
+        part = self._part_path("particle_list_osc", self.mesh.rank) + ".dat"
+        writers.write_particle_list_oscar(events_local, part)
+        barrier(self.mesh)
+        if self.mesh.rank == 0:
+            out = os.path.join(self.results_dir, "particle_list_osc.dat")
+            parts = [self._part_path("particle_list_osc", r) + ".dat"
+                     for r in range(self.mesh.size)]
+            missing = [f for f in parts if not os.path.exists(f)]
+            if missing:
+                raise FileNotFoundError(
+                    f"OSCAR merge: missing part file(s) {missing} after the "
+                    "write barrier -- a rank failed to write its events")
+            with open(out + ".tmp", "wb") as fo:
+                for f in parts:
+                    # streamed: a rank's list can be gigabytes
+                    with open(f, "rb") as fi:
+                        shutil.copyfileobj(fi, fo, 1 << 22)
+            os.replace(out + ".tmp", out)
+            for f in parts:
+                os.remove(f)
+        barrier(self.mesh)
 
     def _smooth_spectra(self, species, grid, df_data):
         """The smooth spectra of the surface and df mode (reference
@@ -445,14 +534,18 @@ class IS3D:
         feed-down runs per event.  Results go to
         ``<results_dir>/event_<i>/`` in the reference formats (stale
         ``event_*`` trees of a larger earlier ensemble are cleaned);
-        returns one RunResult per event, in order."""
+        returns one RunResult per event, in order.
+
+        With ``mesh=`` the event axis runs over the ranks (batch.py: whole
+        events a rank, the rows gathered in event order; the event count
+        must divide by the ranks), each event's feed-down on the rank that
+        owns it; every rank returns the one-process results and only rank
+        0 writes the trees."""
         from .utils import PhaseTimer
-        from .batch import stack_surfaces, smooth_spectra_batched
+        from .batch import (stack_surfaces, smooth_spectra_batched,
+                            event_layout, gather_events)
         timer = timer or PhaseTimer(verbose=False)
         cfg = self.cfg
-        if self.mesh is not None:
-            _not_ported("mesh= with run_ensemble (the event axis over "
-                        "several GPUs)", "slice 11", cfg)
         if cfg.operation != 1:
             raise ValueError("run_ensemble batches smooth spectra "
                              "(operation 1); for sampling ensembles use "
@@ -473,6 +566,10 @@ class IS3D:
                 averages.append(avg)
         if not loaded:
             raise ValueError("run_ensemble needs at least one surface")
+        # an event count the ranks do not divide fails before any work
+        layout = (None if self.mesh is None or self.mesh.size == 1
+                  else event_layout(len(loaded), self.mesh))
+        write_files = write_files and self._writes()
 
         self.surface, self.averages = loaded[0], averages[0]
         with timer.phase("prepare (io, pdg, deltaf)"):
@@ -505,7 +602,8 @@ class IS3D:
             stacked = stack_surfaces(loaded, pad_to=pad_to,
                                      dtype=self._dtype)
             spectra_dev = smooth_spectra_batched(stacked, species, grid,
-                                                 df_data, cfg)
+                                                 df_data, cfg,
+                                                 mesh=self.mesh)
             spectra = spectra_dev.cpu().numpy()
 
         polarization = None
@@ -515,8 +613,23 @@ class IS3D:
                      else a.temperature for a in averages]
             with timer.phase("batched polarization"):
                 pol = polarization_batched(stacked, species, grid, cfg,
-                                           T_avg)
+                                           T_avg, mesh=self.mesh)
                 polarization = {k: v.cpu().numpy() for k, v in pol.items()}
+
+        decayed = None
+        if cfg.do_resonance_decays:
+            # each event's feed-down on the rank that owns it, the rows
+            # gathered in event order
+            from .kernels.decays import do_resonance_decays
+            own = (range(len(loaded)) if layout is None
+                   else range(*layout.owned()))
+            with timer.phase("resonance decays"):
+                rows = torch.stack([do_resonance_decays(
+                    spectra_dev[e], particle_table, mcids, grid, cfg)
+                    for e in own])
+                if layout is not None:
+                    rows = gather_events(rows, layout)
+                decayed = rows.cpu().numpy()
 
         host_grid = grid.to("cpu")
         results = []
@@ -536,12 +649,8 @@ class IS3D:
                         writers.write_polarization(
                             p["St"], p["Sx"], p["Sy"], p["Sn"], p["Snorm"],
                             host_grid, cfg.dimension, event_dir)
-            if cfg.do_resonance_decays:
-                from .kernels.decays import do_resonance_decays
-                with timer.phase("resonance decays"):
-                    res.spectra = do_resonance_decays(
-                        spectra_dev[e], particle_table, mcids, grid,
-                        cfg).cpu().numpy()
+            if decayed is not None:
+                res.spectra = decayed[e]
                 if write_files:
                     with timer.phase("decay writers"):
                         self._write_decay_files(res.spectra, host_grid,

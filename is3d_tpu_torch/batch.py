@@ -18,13 +18,24 @@ without counts (any (E, C) Surface) runs every row whole.
 Gradients flow through the batched spectra of every surface and df mode
 (diff.spectra_fn's maps) and through the batched polarization
 (diff.polarization_fn's map): a loss summed over the ensemble
-differentiates in one reverse pass.  ``mesh=`` (the event axis over several
-GPUs, ROADMAP 11b) is refused.
+differentiates in one reverse pass.
+
+Event axis over ranks (``mesh=``, a parallel.mesh.CellMesh; port of
+is3d_tpu/batch.py:176-249): rank r runs the events [r E / W, (r + 1) E /
+W), each through the single-surface path with no cell collective, and the
+ranks all-gather their rows in event order, so every rank returns the
+one-process (E, ...) result bit for bit.  E must divide by W (pad with
+``empty_like_surface``).  Under autograd the gather's backward hands each
+rank its own events' cotangent rows (``_GatherEvents``), and
+diff.surface_value_and_grad / surface_vjp assemble each rank's gradient
+rows of the stacked columns by event (parallel.mesh.EventLayout): every
+rank holds the one-process gradient bit for bit.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import types
 from dataclasses import dataclass
 from typing import Callable, Sequence
@@ -37,14 +48,7 @@ from .io.surface import Surface
 from .io.tables import MomentumGrid
 from .io.deltaf import DeltafData
 from .kernels.common import PAD_ONE_COLUMNS
-
-
-def refuse_mesh(mesh):
-    """Raise on mesh= (the event axis over several GPUs is not ported)."""
-    if mesh is not None:
-        raise NotImplementedError("mesh= (the event axis over several "
-                                  "GPUs) is not ported yet: ROADMAP "
-                                  "section 1, slice 11")
+from .parallel import mesh as pmesh
 
 
 @dataclass(frozen=True)
@@ -124,26 +128,99 @@ def _single_fn(species: SpeciesArrays, grid: MomentumGrid,
 
 
 def batched_spectra_fn(species: SpeciesArrays, grid: MomentumGrid,
-                       df_data: DeltafData | None, cfg: Config) -> Callable:
+                       df_data: DeltafData | None, cfg: Config,
+                       mesh=None) -> Callable:
     """The stacked-surface -> (E, S, PT, PHI, Y) spectra map.  Every surface
     mode and df mode runs forward, and gradients flow through each (the
     maps of diff.spectra_fn).  Each event runs alone, so no memory budget
-    depends on the event count (is3d_tpu's n_events)."""
+    depends on the event count (is3d_tpu's n_events); with ``mesh`` whole
+    events a rank (module docstring)."""
+    pmesh.check_mesh(mesh)
     one = _single_fn(species, grid, df_data, cfg)
 
     def fn(stacked):
-        return torch.stack([one(event(stacked, e))
-                            for e in range(stacked.tau.shape[0])])
+        return _event_sharded(lambda e: one(event(stacked, e)), stacked,
+                              mesh)
     return fn
+
+
+def event_layout(n_events: int, mesh) -> pmesh.EventLayout:
+    """The event layout of an E-event ensemble on ``mesh``: whole events,
+    E / W a rank; an E that W does not divide raises ValueError."""
+    if n_events % mesh.size:
+        raise ValueError(
+            f"event count {n_events} does not divide the {mesh.size}-rank "
+            f"mesh; pad the ensemble (stack_surfaces with empty_like_surface "
+            f"throwaway events) to a multiple of {mesh.size}")
+    return pmesh.EventLayout(mesh, n_events)
+
+
+class _GatherEvents(torch.autograd.Function):
+    """All-gather the ranks' event rows in event order: inputs the layout,
+    the rows' spec (parallel.mesh._PartSpec of one event) and this rank's
+    leaves, each (E / W, ...); outputs the (E, ...) leaves.  The backward
+    hands each own leaf its events' rows of the output's cotangent."""
+
+    @staticmethod
+    def forward(ctx, layout, spec, *own):
+        per = layout.per
+        send = torch.cat([t.reshape(per, -1) for t in own], dim=1)
+        rows = pmesh._all_gather_rows(send, layout.mesh)
+        out, at = [], 0
+        for shape in spec.shapes:
+            w = math.prod(shape)
+            out.append(rows[:, at:at + w].reshape((-1,) + shape)
+                       .contiguous())
+            at += w
+        ctx.lo, ctx.hi = layout.owned()
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *cts):
+        return (None, None) + tuple(c[ctx.lo:ctx.hi] for c in cts)
+
+
+def gather_events(own, layout: pmesh.EventLayout):
+    """This rank's event rows (a tensor or a dict of tensors, each (E / W,
+    ...)) gathered over the ranks into the (E, ...) result, in event
+    order, on every rank; differentiable."""
+    spec = pmesh._PartSpec.of({k: v[0] for k, v in own.items()}
+                              if isinstance(own, dict) else own[0])
+    return spec.build(list(_GatherEvents.apply(layout, spec,
+                                               *spec.leaves(own))))
+
+
+def _event_sharded(one: Callable, stacked: Surface, mesh):
+    """``one(e)`` of every event of the ensemble, stacked on the event
+    axis: all E in one process, or over the mesh's ranks (module
+    docstring); ``one`` returns a tensor or a dict of tensors."""
+    E = stacked.tau.shape[0]
+    if mesh is None or mesh.size == 1:
+        rows = [one(e) for e in range(E)]
+    else:
+        if stacked.tau.device != mesh.device:
+            raise ValueError(f"the ensemble is on {stacked.tau.device}, "
+                             f"the mesh's rank on {mesh.device}")
+        layout = event_layout(E, mesh)
+        if pmesh._RECORDERS:
+            pmesh._RECORDERS[-1].append(layout)
+        rows = [one(e) for e in range(*layout.owned())]
+    if isinstance(rows[0], dict):
+        own = {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+    else:
+        own = torch.stack(rows)
+    if mesh is None or mesh.size == 1:
+        return own
+    return gather_events(own, layout)
 
 
 def smooth_spectra_batched(stacked: Surface, species: SpeciesArrays,
                            grid: MomentumGrid, df_data: DeltafData | None,
                            cfg: Config, mesh=None) -> torch.Tensor:
     """Spectra of a stacked ensemble, (E, S, n_pT, n_phi, n_y_out), each
-    row the single run of its event."""
-    refuse_mesh(mesh)
-    return batched_spectra_fn(species, grid, df_data, cfg)(stacked)
+    row the single run of its event; with ``mesh`` whole events a rank
+    (module docstring)."""
+    return batched_spectra_fn(species, grid, df_data, cfg, mesh)(stacked)
 
 
 def polarization_batched(stacked: Surface, species: SpeciesArrays,
@@ -155,14 +232,14 @@ def polarization_batched(stacked: Surface, species: SpeciesArrays,
     to the stacked surface's columns, each event's those of its single
     run."""
     from .kernels.polzn import spin_polarization
-    refuse_mesh(mesh)
+    pmesh.check_mesh(mesh)
     E = stacked.tau.shape[0]
     T = torch.as_tensor(T_avg, dtype=torch.float64).reshape(-1)
     T = T.expand(E) if T.numel() == 1 else T
-    rows = [spin_polarization(event(stacked, e), species, grid, cfg,
-                              types.SimpleNamespace(temperature=float(T[e])))
-            for e in range(E)]
-    return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+    return _event_sharded(
+        lambda e: spin_polarization(
+            event(stacked, e), species, grid, cfg,
+            types.SimpleNamespace(temperature=float(T[e]))), stacked, mesh)
 
 
 def empty_like_surface(surface: Surface) -> Surface:

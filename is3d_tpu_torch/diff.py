@@ -44,7 +44,8 @@ hands each own partial the output's cotangent).  The cotangent is the same
 on every rank (a replicated output, the same loss), so each rank's backward
 kernels give the gradient rows of its own cells, and
 surface_value_and_grad / surface_vjp all-gather every rank's rows by the
-canonical cell ranges: every rank returns the global gradient, the
+canonical cell ranges (on batch.py's event axis, by event:
+parallel.mesh.EventLayout): every rank returns the global gradient, the
 one-process one bit for bit.  A bare torch.autograd.grad under a mesh
 gives only the rank's own rows.
 

@@ -16,6 +16,12 @@ reproduce the reference's output layouts and add deterministic seeds:
   their manifests merged by ``merge_manifests``.  The CUDA libraries are
   built once in the parent before any worker starts (is3d_tpu staggers
   its workers' cold start for its compile cache instead).
+
+A worker of several devices (``mesh_devices=N``: N ranks, one card each,
+NCCL; ``host_devices=N``: N CPU ranks over gloo) is a group of N
+processes with its own rendezvous under out_dir, whose CellMesh
+``oversample_run(mesh=)`` samples each batch over (the cell-sharded
+sampler, kernels.sample.sample_particles_sharded); rank 0 writes.
 """
 
 from __future__ import annotations
@@ -84,16 +90,19 @@ def oversample_run(surface, species, mcids, df_data, cfg, plasma,
     the batch seeds are a single worker's, so the workers' union is the
     single-process run file for file.  With ``cfg.do_resonance_decays``
     and a ``particle_table`` every batch is decayed before it is written,
-    under a seed derived from its own.  ``mesh`` raises
-    NotImplementedError (the sharded sampler, slice 11).
+    under a seed derived from its own.  With ``mesh`` (a CellMesh) every
+    batch is sampled over its ranks (the cell-sharded sampler, whose
+    streams depend on the rank count: ``mesh_shards`` in the manifest, and
+    a resume at another count refuses); every rank returns the same
+    totals, and rank 0 alone writes the batch files and the manifest,
+    after its own view of the checkpoints decided which batches to run.
 
     Returns (n_batches, total_hadrons, mean_yield); with n_workers > 1 the
     total covers this worker's batches."""
-    if mesh is not None:
-        raise NotImplementedError("mesh= (the sharded sampler) is not "
-                                  "ported yet: ROADMAP section 1, slice 11")
     from .kernels.mc_decays import (DECAY_STREAM_VERSION, decay_events,
                                     derive_decay_seed)
+    from .parallel.mesh import check_mesh, gather_objects
+    check_mesh(mesh)
     do_decays = bool(getattr(cfg, "do_resonance_decays", 0))
     if do_decays and particle_table is None:
         raise ValueError("cfg.do_resonance_decays=1 needs particle_table= "
@@ -109,10 +118,12 @@ def oversample_run(surface, species, mcids, df_data, cfg, plasma,
     manifest_path = os.path.join(out_dir, manifest_name)
     sampler_alias = int(getattr(cfg, "sampler_alias", 0))
     decay_stream = DECAY_STREAM_VERSION if do_decays else 0
+    mesh_shards = 0 if mesh is None else mesh.size
+    writes = mesh is None or mesh.rank == 0
     manifest = {"base_seed": base_seed, "events_per_batch": events_per_batch,
                 "n_events_needed": n_events_needed, "batches": {},
                 "worker_id": worker_id, "n_workers": n_workers,
-                "mesh_shards": 0, "max_batches": max_batches,
+                "mesh_shards": mesh_shards, "max_batches": max_batches,
                 "decays": int(do_decays), "sampler_alias": sampler_alias,
                 "decay_stream": decay_stream}
     if os.path.exists(manifest_path):
@@ -127,7 +138,7 @@ def oversample_run(surface, species, mcids, df_data, cfg, plasma,
                 or prev.get("n_events_needed") != n_events_needed
                 or prev.get("worker_id", 0) != worker_id
                 or prev.get("n_workers", 1) != n_workers
-                or prev.get("mesh_shards", 0) != 0
+                or prev.get("mesh_shards", 0) != mesh_shards
                 or prev.get("decays", 0) != int(do_decays)
                 or prev.get("sampler_alias") != sampler_alias
                 or prev.get("decay_stream", 0) != decay_stream):
@@ -137,7 +148,8 @@ def oversample_run(surface, species, mcids, df_data, cfg, plasma,
                 f"{prev.get('events_per_batch')}, n_events_needed="
                 f"{prev.get('n_events_needed')} (now {n_events_needed}), "
                 f"worker {prev.get('worker_id', 0)}/"
-                f"{prev.get('n_workers', 1)}, decays="
+                f"{prev.get('n_workers', 1)}, mesh_shards="
+                f"{prev.get('mesh_shards', 0)} (now {mesh_shards}), decays="
                 f"{prev.get('decays', 0)} (now {int(do_decays)}), "
                 f"sampler_alias={prev.get('sampler_alias')} "
                 f"(now {sampler_alias}), decay_stream="
@@ -152,31 +164,42 @@ def oversample_run(surface, species, mcids, df_data, cfg, plasma,
     plan = _batch_plan(n_events_needed, events_per_batch, max_batches)
     seeds = ensemble_seeds(base_seed, max_batches)
     device = surface.tau.device
+    mine = [(b, nev) for b, nev in enumerate(plan)
+            if b % n_workers == worker_id]
+    # the checkpointed batches (entry and file), by their hadrons: rank
+    # 0's view on every rank, so that the ranks sample the same batches
+    done = {}
+    for b, nev in mine:
+        entry = manifest["batches"].get(str(b))
+        if (entry is not None and entry["events"] == nev
+                and os.path.exists(entry["file"])):
+            done[b] = entry["hadrons"]
+    if mesh is not None and mesh.size > 1:
+        done = gather_objects(done, mesh)[0]
     total = 0
-    for batch, nev in enumerate(plan):
-        if batch % n_workers != worker_id:
-            continue
-        done = manifest["batches"].get(str(batch))
-        if (done is not None and done["events"] == nev
-                and os.path.exists(done["file"])):
-            total += done["hadrons"]
+    for batch, nev in mine:
+        if batch in done:
+            total += done[batch]
             continue
         events = sample_particles(surface, species, mcids, df_data, cfg,
-                                  plasma, nevents=nev, seed=seeds[batch])
+                                  plasma, nevents=nev, seed=seeds[batch],
+                                  mesh=mesh)
         if do_decays:
             events = decay_events(events, particle_table, cfg,
                                   seed=derive_decay_seed(seeds[batch]),
                                   device=device)
+        n_had = sum(len(e["mcid"]) for e in events)
+        total += n_had
+        if not writes:
+            continue
         d = os.path.join(out_dir, f"results_{batch}")
         os.makedirs(d, exist_ok=True)
         out_file = os.path.join(d, "particle_list_osc.dat")
         writers.write_particle_list_oscar(events, out_file)
-        n_had = sum(len(e["mcid"]) for e in events)
         manifest["batches"][str(batch)] = {
             "events": nev, "hadrons": n_had, "file": out_file,
             "seed": seeds[batch]}
         _write_manifest(manifest_path, manifest)
-        total += n_had
     return len(plan), total, ntot
 
 
@@ -254,14 +277,19 @@ def multiprocess_oversample(run_dir: str, out_dir: str, n_workers: int = 2,
     checkpoints make it resume.  ``platform`` names the device as the CLI
     reads it (cpu, gpu or cuda); ``device`` (default cuda) says the same.
     The CUDA libraries are built here first, once, so that the workers do
-    not each run nvcc.  ``mesh_devices`` and ``host_devices`` raise
-    NotImplementedError (multi-device workers, slice 11).
+    not each run nvcc.
+
+    ``mesh_devices=N`` makes each worker a group of N ranks, one card each
+    (worker w's rank r on card (w N + r) mod the card count), over NCCL;
+    ``host_devices=N`` the same on the CPU over gloo (is3d_tpu's virtual
+    CPU devices).  Each group joins through a rendezvous file of its own
+    under out_dir and samples its batches with the cell-sharded sampler
+    (oversample_run(mesh=)).
 
     Returns the merged manifest (see merge_manifests)."""
-    if mesh_devices or host_devices:
-        raise NotImplementedError(
-            "mesh_devices / host_devices (multi-device workers) is not "
-            "ported yet: ROADMAP section 1, slice 11")
+    if mesh_devices and host_devices:
+        raise ValueError("mesh_devices (cards) and host_devices (CPU ranks) "
+                         "are two spellings of a worker's ranks: give one")
     if platform is not None:
         mapped = {"cpu": "cpu", "gpu": "cuda", "cuda": "cuda"}.get(platform)
         if mapped is None or (device is not None
@@ -269,7 +297,16 @@ def multiprocess_oversample(run_dir: str, out_dir: str, n_workers: int = 2,
             raise ValueError(f"platform={platform!r} is not one of cpu, gpu, "
                              f"cuda, or contradicts device={device!r}")
         device = mapped
+    if host_devices:
+        if device is not None and device.split(":")[0] != "cpu":
+            raise ValueError(f"host_devices runs CPU ranks; device={device!r}"
+                             " contradicts it")
+        device = "cpu"
     device = device or "cuda"
+    if mesh_devices and device.split(":")[0] != "cuda":
+        raise ValueError(f"mesh_devices puts each rank on a card; "
+                         f"device={device!r} contradicts it (host_devices "
+                         "runs CPU ranks)")
     if device.split(":")[0] == "cuda":
         from .native.build import build_cuda_libraries
         build_cuda_libraries(CUDA_SOURCES)
@@ -283,11 +320,27 @@ def multiprocess_oversample(run_dir: str, out_dir: str, n_workers: int = 2,
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    n_ranks = int(mesh_devices or host_devices or 1)
+    rdzv = os.path.join(os.path.abspath(out_dir), ".rendezvous")
+    tag = f"{os.getpid()}_{time.monotonic_ns()}"
+    if mesh_devices or host_devices:
+        os.makedirs(rdzv, exist_ok=True)
+        if host_devices:
+            # a CPU worker's ranks are on this host: gloo over loopback
+            env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+
+    def rank_args(w: int, r: int) -> list:
+        if not (mesh_devices or host_devices):
+            return []
+        key = "mesh_devices" if mesh_devices else "host_devices"
+        return [f"{key}={n_ranks}", f"mesh_rank={r}",
+                f"mesh_init=file://{rdzv}/worker{w}_{tag}"]
+
     deadline = time.monotonic() + timeout
-    procs = [subprocess.Popen([sys.executable, "-m",
-                               "is3d_tpu_torch.ensemble_worker",
-                               f"worker_id={w}", *args_common], env=env)
-             for w in range(n_workers)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "is3d_tpu_torch.ensemble_worker",
+         f"worker_id={w}", *args_common, *rank_args(w, r)], env=env)
+        for w in range(n_workers) for r in range(n_ranks)]
     try:
         rcs = [p.wait(timeout=max(1.0, deadline - time.monotonic()))
                for p in procs]
@@ -305,7 +358,7 @@ def multiprocess_oversample(run_dir: str, out_dir: str, n_workers: int = 2,
             f"oversample worker pool exceeded {timeout:.0f} s; all workers "
             "killed -- launch multiprocess_oversample again to resume from "
             "the per-batch checkpoints")
-    bad = [(w, rc) for w, rc in enumerate(rcs) if rc != 0]
+    bad = [(i // n_ranks, rc) for i, rc in enumerate(rcs) if rc != 0]
     if bad:
         raise RuntimeError(
             f"oversample worker(s) failed (worker, rc): {bad}; launch "

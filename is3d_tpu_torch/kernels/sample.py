@@ -43,8 +43,11 @@ depends only on (seed, i), so ``event_partition`` slices concatenate to
 the unpartitioned run byte for byte.  The lists equal is3d_tpu's in
 distribution, not event by event (its streams are Threefry's).
 
-Left for a later slice: the sharded sampler (``mesh=``, slice 11), which
-raises NotImplementedError naming it.
+Over several GPUs (``mesh=``, a parallel.mesh.CellMesh;
+``sample_particles_sharded``) the cell axis is cut into one chunk a rank:
+rank r runs the chunked driver's chunk r alone and the ranks gather their
+event lists in rank order, so every rank returns one process's
+``_sample_cell_chunked`` list with ``sampler_cell_chunk = ceil(C / W)``.
 """
 
 from __future__ import annotations
@@ -95,14 +98,6 @@ YIELDS_VAH_LAUNCHES = 0
 
 def _count(name: str):
     globals()[name] += 1
-
-
-def check_sampler_supported(mesh=None):
-    """Raise NotImplementedError for the sampler path this slice leaves
-    out: the sharded sampler (``mesh=``)."""
-    if mesh is not None:
-        raise NotImplementedError("mesh= (the sharded sampler) is not "
-                                  "ported yet: ROADMAP section 1, slice 11")
 
 
 def resolve_cell_chunk(cfg: Config, n_cells: int):
@@ -1642,13 +1637,29 @@ def sample_particles(surface, species: SpeciesArrays, mcids,
     hadrons an event, ``calculate_total_yield``'s number), the batch plan
     (``batches``, ``n_cap``, ``capacity``, ``reruns``; chunked: ``chunks``),
     the momenta ``accepted`` and ``proposed``, and host-clock ``timings``
-    (s): phase A, dispatch, wait, copy, assembly."""
-    check_sampler_supported(mesh)
+    (s): phase A, dispatch, wait, copy, assembly.
+
+    With ``mesh`` (a parallel.mesh.CellMesh) the cell axis is sharded over
+    its ranks (``sample_particles_sharded``); ``event_partition`` and
+    ``events_per_batch`` are the one-device sampler's and raise
+    ValueError there."""
     if event_partition is not None:
         k, n = event_partition
+        if mesh is not None:
+            raise ValueError("event_partition composes with the one-device "
+                             "sampler; the cell-sharded mesh sampler has "
+                             "its own per-rank streams")
         if not (0 <= int(k) < int(n)):
             raise ValueError(f"event_partition must be (k, n) with "
                              f"0 <= k < n, got {event_partition}")
+    if mesh is not None:
+        if events_per_batch is not None:
+            raise ValueError("events_per_batch is a one-device batching "
+                             "knob; the sharded sampler derives its batch "
+                             "width from the slot budget")
+        return sample_particles_sharded(
+            surface, species, mcids, df_data, cfg, plasma, mesh,
+            nevents=nevents, seed=seed, laguerre=laguerre, info=info)
     cfg = sampler_effective_cfg(surface, cfg)
     dtype = _sampler_dtype(surface.tau.dtype)
     laguerre = _laguerre(laguerre, dtype, surface.tau.device)
@@ -1699,6 +1710,38 @@ def sample_particles(surface, species: SpeciesArrays, mcids,
     if samp:
         print(f"Momentum sampling efficiency = {100.0 * acc / samp:.2f} %")
     return events
+
+
+def sample_particles_sharded(surface, species: SpeciesArrays, mcids,
+                             df_data: Optional[DeltafData], cfg: Config,
+                             plasma, mesh, nevents: Optional[int] = None,
+                             seed: Optional[int] = None, laguerre=None,
+                             info: Optional[dict] = None) -> list:
+    """Cell-sharded sampling over the ranks of ``mesh`` (port of
+    is3d_tpu/kernels/sample.py:1777-1961).  By Poisson superposition the
+    hadrons of disjoint cell subsets are an exact sample of the whole
+    surface, so each rank runs the two-phase sampler on its own cells:
+    rank r takes the cells [r ceil(C / W), (r + 1) ceil(C / W)), padded
+    inert, and runs phase A (K7b, then K7a or the searches' cumsums) and
+    K7 on them under _chunk_seed(seed, r) -- the port's fold_in(key, dev).
+    The batch shapes and the event count come from one all-gather of the
+    ranks' (lam, mean), and each event's lists are gathered in rank order:
+    every rank returns the same list, one process's _sample_cell_chunked
+    with sampler_cell_chunk = ceil(C / W) byte for byte.  ``info`` as
+    sample_particles' (event_lo 0, the whole event range)."""
+    from ..parallel.mesh import check_mesh
+    check_mesh(mesh)
+    if surface.tau.device != mesh.device:
+        raise ValueError(f"the surface is on {surface.tau.device}, the "
+                         f"mesh's rank on {mesh.device}")
+    cfg = sampler_effective_cfg(surface, cfg)
+    dtype = _sampler_dtype(surface.tau.dtype)
+    laguerre = _laguerre(laguerre, dtype, surface.tau.device)
+    chunk = -(-surface.tau.shape[0] // mesh.size)
+    plan = _ChunkPlan(surface, species, df_data, cfg, plasma, laguerre,
+                      chunk)
+    return _sample_cell_chunked(plan, mcids, nevents=nevents, seed=seed,
+                                info=info, mesh=mesh)
 
 
 # ======================================================================
@@ -1764,22 +1807,38 @@ class _ChunkPlan:
                          self.plasma_avg, self.cfg, scalars_only=scalars)
 
 
+def _chunk_scalars(plan: _ChunkPlan, own, mesh) -> tuple[list, list]:
+    """The scalar pre-pass: each chunk's (lam, mean), those of ``own``
+    computed here; over a mesh (one chunk a rank) one all-gather of the
+    ranks' pairs gives every chunk's on every rank."""
+    pairs = [(float(s["lam"]), float(s["mean"]))
+             for s in (plan.build(ci, scalars=True) for ci in own)]
+    if mesh is not None and mesh.size > 1:
+        from ..parallel.mesh import _all_gather_rows
+        send = torch.tensor(pairs or [(0.0, 0.0)], dtype=torch.float64,
+                            device=mesh.device)
+        pairs = [tuple(p) for p in _all_gather_rows(send, mesh)
+                 .cpu().tolist()[:plan.n_chunks]]
+    return [p[0] for p in pairs], [p[1] for p in pairs]
+
+
 def _sample_cell_chunked(plan: _ChunkPlan, mcids, nevents=None, seed=None,
                          events_per_batch=None, event_partition=None,
-                         info=None) -> list:
+                         info=None, mesh=None) -> list:
     """The cell-chunked sampler (is3d_tpu/kernels/sample.py:
     _sample_cell_chunked): the scalar pre-pass, then each chunk's phase A,
     tables and batches under its own seed (_chunk_seed), the events merged
     chunk by chunk in chunk order.  Composes with event_partition: the
     streams key on (chunk seed, global event), so the union of event
-    slices is byte-identical to the whole chunked run."""
+    slices is byte-identical to the whole chunked run.  With ``mesh`` rank
+    r runs chunk r alone (sample_particles_sharded) and the ranks gather
+    their event lists in rank order: every rank returns this run's list
+    one process gives byte for byte."""
     cfg, species = plan.cfg, plan.species
     t0 = time.perf_counter()
-    lam_chunks, mean_chunks = [], []
-    for ci in range(plan.n_chunks):
-        s = plan.build(ci, scalars=True)
-        lam_chunks.append(float(s["lam"]))
-        mean_chunks.append(float(s["mean"]))
+    own = (range(plan.n_chunks) if mesh is None
+           else range(mesh.rank, min(mesh.rank + 1, plan.n_chunks)))
+    lam_chunks, mean_chunks = _chunk_scalars(plan, own, mesh)
     timings = dict(phase_a=time.perf_counter() - t0)
     lam_max = max(lam_chunks)
     y_fact = 2.0 * cfg.y_cut if cfg.dimension == 2 else 1.0
@@ -1811,7 +1870,7 @@ def _sample_cell_chunked(plan: _ChunkPlan, mcids, nevents=None, seed=None,
     mcids_np = np.asarray(mcids, dtype=np.int64)
     merged = [{k: [] for k in EVENT_FIELDS} for _ in range(ev_hi - ev_lo)]
     acc = samp = 0
-    for ci in range(plan.n_chunks):
+    for ci in own:
         if lam_chunks[ci] <= 0.0:
             continue                      # an inert chunk adds nothing
         t = time.perf_counter()
@@ -1831,6 +1890,10 @@ def _sample_cell_chunked(plan: _ChunkPlan, mcids, nevents=None, seed=None,
             for k in EVENT_FIELDS:
                 m[k].append(ev[k])
         del cell, tables, rows
+    if mesh is not None and mesh.size > 1:
+        t = time.perf_counter()
+        merged, acc, samp = _gather_chunk_events(merged, acc, samp, mesh)
+        timings["gather"] = time.perf_counter() - t
     events = [{k: np.concatenate(v) for k, v in m.items()} if m["mcid"]
               else _empty_event() for m in merged]
     batches.update(accepted=acc, proposed=samp)
@@ -1839,6 +1902,26 @@ def _sample_cell_chunked(plan: _ChunkPlan, mcids, nevents=None, seed=None,
     if samp:
         print(f"Momentum sampling efficiency = {100.0 * acc / samp:.2f} %")
     return events
+
+
+def _gather_chunk_events(merged: list, acc0: int, samp0: int, mesh):
+    """Every rank's per-event chunk lists, merged in rank order (= chunk
+    order), and the momenta accepted and proposed over the ranks.  A rank
+    sends each event's arrays as one concatenation (one array a field: a
+    single chunk a rank, or none for an inert one)."""
+    from ..parallel.mesh import gather_objects
+    mine = [{k: np.concatenate(v) for k, v in m.items()} if m["mcid"]
+            else None for m in merged]
+    out = [{k: [] for k in EVENT_FIELDS} for _ in merged]
+    acc = samp = 0
+    for theirs, a, n in gather_objects((mine, acc0, samp0), mesh):
+        acc += a
+        samp += n
+        for m, ev in zip(out, theirs):
+            if ev is not None:
+                for k in EVENT_FIELDS:
+                    m[k].append(ev[k])
+    return out, acc, samp
 
 
 def _drain_event_range(rows, layout, tables, species, cell, cfg, seed: int,

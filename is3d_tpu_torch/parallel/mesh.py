@@ -28,7 +28,9 @@ each of the rank's own partials the output's cotangent (the fold's reverse
 is the identity on each term), so the rank's backward kernels produce the
 gradient rows of its own cells; ``diff.surface_value_and_grad`` and
 ``diff.surface_vjp`` assemble the global gradient from every rank's rows
-(``recording_layouts``, ``ShardLayout.assemble``).
+(``recording_layouts``, ``ShardLayout.assemble``).  The event axis of
+batch.py records an ``EventLayout`` the same way, and the sampler and pod
+mode meet through ``gather_objects`` and ``barrier``.
 """
 
 from __future__ import annotations
@@ -160,23 +162,55 @@ class ShardLayout:
         ``rows`` (a dict), gathered by the canonical cell ranges: rank r's
         rows [r per gs, (r + 1) per gs) come from rank r, so each rank
         returns the tensors a one-process run gives."""
-        if not rows:
-            return rows
-        names = list(rows)
-        flat = [rows[k].reshape(self.n_cells, -1) for k in names]
-        widths = [f.shape[1] for f in flat]
-        block = self.per * self.gs
-        lo = min(self.n_cells, self.mesh.rank * block)
-        hi = min(self.n_cells, lo + block)
-        own = torch.cat(flat, dim=1)[lo:hi]
-        send = own.new_zeros((block, own.shape[1]))
-        send[:hi - lo] = own
-        full = _all_gather_rows(send, self.mesh)[:self.n_cells]
-        out, at = {}, 0
-        for k, w in zip(names, widths):
-            out[k] = full[:, at:at + w].reshape(rows[k].shape).contiguous()
-            at += w
-        return out
+        return _gather_own_rows(rows, self.n_cells, self.per * self.gs,
+                                self.mesh)
+
+
+@dataclass(frozen=True)
+class EventLayout:
+    """Where the events of one event-sharded ensemble map ran: E whole
+    events, E / W a rank in order (batch.py)."""
+
+    mesh: CellMesh
+    n_events: int
+
+    @property
+    def per(self) -> int:
+        return self.n_events // self.mesh.size
+
+    def owned(self, rank: int | None = None) -> tuple[int, int]:
+        """[e0, e1): the events of ``rank`` (default: this rank)."""
+        r = self.mesh.rank if rank is None else rank
+        return r * self.per, (r + 1) * self.per
+
+    def assemble(self, rows: dict) -> dict:
+        """Every rank's own event rows of each (E, ...) tensor in ``rows``
+        gathered in event order (ShardLayout.assemble on the event
+        axis)."""
+        return _gather_own_rows(rows, self.n_events, self.per, self.mesh)
+
+
+def _gather_own_rows(rows: dict, n: int, block: int,
+                     mesh: CellMesh) -> dict:
+    """Each (n, ...) tensor of ``rows`` with rank r's rows [r block, (r +
+    1) block) (clipped to n) taken from rank r: one all-gather of every
+    tensor's own rows side by side."""
+    if not rows:
+        return rows
+    names = list(rows)
+    flat = [rows[k].reshape(n, -1) for k in names]
+    widths = [f.shape[1] for f in flat]
+    lo = min(n, mesh.rank * block)
+    hi = min(n, lo + block)
+    own = torch.cat(flat, dim=1)[lo:hi]
+    send = own.new_zeros((block, own.shape[1]))
+    send[:hi - lo] = own
+    full = _all_gather_rows(send, mesh)[:n]
+    out, at = {}, 0
+    for k, w in zip(names, widths):
+        out[k] = full[:, at:at + w].reshape(rows[k].shape).contiguous()
+        at += w
+    return out
 
 
 _RECORDERS: list = []
@@ -235,6 +269,30 @@ def _all_gather_rows(send: torch.Tensor, mesh: CellMesh) -> torch.Tensor:
     out = torch.empty(shape, dtype=send.dtype, pin_memory=pin)
     dist.all_gather(list(out.chunk(mesh.size)), host, group=mesh.group)
     return out.to(mesh.device, non_blocking=pin)
+
+
+def _collective_device(mesh: CellMesh):
+    """The CUDA device context an object collective needs under NCCL."""
+    return (torch.cuda.device(mesh.device) if mesh.device.type == "cuda"
+            else contextlib.nullcontext())
+
+
+def gather_objects(obj, mesh: CellMesh) -> list:
+    """Every rank's picklable ``obj``, in rank order, on every rank."""
+    import torch.distributed as dist
+    out = [None] * mesh.size
+    with _collective_device(mesh):
+        dist.all_gather_object(out, obj, group=mesh.group)
+    return out
+
+
+def barrier(mesh: CellMesh):
+    """Wait until every rank of the mesh has reached this call."""
+    import torch.distributed as dist
+    if mesh.device_collectives:
+        dist.barrier(group=mesh.group, device_ids=[mesh.device.index])
+    else:
+        dist.barrier(group=mesh.group)
 
 
 def all_reduce_max(flags: list, mesh: CellMesh) -> list:
@@ -325,8 +383,7 @@ def _shard_spec(parts: list, layout: ShardLayout) -> _PartSpec:
     import torch.distributed as dist
     box = [spec]
     src = dist.get_global_rank(layout.mesh.group, 0)
-    with (torch.cuda.device(layout.mesh.device)
-          if layout.mesh.device.type == "cuda" else contextlib.nullcontext()):
+    with _collective_device(layout.mesh):
         dist.broadcast_object_list(box, src=src, group=layout.mesh.group)
     return box[0]
 

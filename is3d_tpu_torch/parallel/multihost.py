@@ -17,8 +17,13 @@ flags, where is3d_tpu leaves the gate off on this path; everything else is
 decided per group (feqmod.chain_split, dndx.bin_plan) or from cfg.
 is3d_tpu's feqmod_kernel_mode, routed_switch, unroll_groups and
 optimization_barrier are XLA code-generation matters: the port's groups
-are separate launches already.  Pod mode (full-surface conveniences for
-api.IS3D) is not ported.
+are separate launches already.
+
+Pod mode (``*_pod``, is3d_tpu/parallel/multihost.py:318-387): where every
+rank holds the whole surface anyway (file mode reads the whole file), each
+of these cuts the rank's process_cell_slice from the full columns and runs
+the slice-local entry, so the same call on every rank gives IS3D(mesh=)'s
+result bit for bit.
 """
 
 from __future__ import annotations
@@ -207,3 +212,71 @@ def feqmod_spacetime_distributions_multihost(cols_local: dict, n_global: int,
                                    laguerre)
     acc = multihost_cell_reduce(fn, cols_local, n_global, rep, cfg, mesh)
     return dndx_finalize(acc, grid, cfg)
+
+
+# --------------------------------------------------------------- pod mode
+
+def _slice_for(cols: dict, n_global: int, cfg: Config,
+               mesh: CellMesh) -> dict:
+    """The columns of this rank's process_cell_slice."""
+    start, stop = process_cell_slice(cfg, n_global, mesh)
+    return {k: v[start:stop] for k, v in cols.items()}
+
+
+def smooth_spectra_pod(surface, species, grid, df_data, cfg: Config,
+                       mesh: CellMesh | None = None):
+    """Pod-mode smooth spectra from the full surface (VH df 1-4)."""
+    from ..kernels.common import surface_columns
+    mesh = global_mesh() if mesh is None else mesh
+    cols = surface_columns(surface, cfg)
+    n = cols["tau"].shape[0]
+    local = _slice_for(cols, n, cfg, mesh)
+    if cfg.df_mode in (3, 4):
+        return feqmod_spectra_multihost(local, n, species, grid, df_data,
+                                        cfg, mesh=mesh)
+    return smooth_spectra_multihost(local, n, species, grid, df_data, cfg,
+                                    mesh)
+
+
+def smooth_spectra_vah_pod(surface, species, grid, cfg: Config,
+                           mesh: CellMesh | None = None):
+    """Pod-mode VAH smooth spectra from the full mode-2/3 surface; the
+    gate is decided from the full columns, the same on every rank."""
+    from ..kernels.vah import vah_surface_cols, effective_vah_cfg
+    mesh = global_mesh() if mesh is None else mesh
+    cols = vah_surface_cols(surface)
+    cfg = effective_vah_cfg(cols, cfg)
+    n = cols["tau"].shape[0]
+    return smooth_spectra_vah_multihost(_slice_for(cols, n, cfg, mesh), n,
+                                        species, grid, cfg, mesh)
+
+
+def spin_polarization_pod(surface, species, grid, cfg: Config, plasma,
+                          mesh: CellMesh | None = None) -> dict:
+    """Pod-mode spin polarization from the full mode-5 surface."""
+    from ..kernels.polzn import polzn_cols
+    mesh = global_mesh() if mesh is None else mesh
+    cols = polzn_cols(surface)
+    n = cols["tau"].shape[0]
+    return spin_polarization_multihost(_slice_for(cols, n, cfg, mesh), n,
+                                       species, grid, cfg, plasma, mesh)
+
+
+def spacetime_distributions_pod(surface, species, grid, df_data,
+                                cfg: Config,
+                                mesh: CellMesh | None = None) -> dict:
+    """Pod-mode dN/dX from the full surface (VH df 1-4 or VAH mode 2/3;
+    the VAH gate from the full columns)."""
+    from ..kernels.dndx import dndx_cols
+    mesh = global_mesh() if mesh is None else mesh
+    cols = dndx_cols(surface, cfg)
+    if cfg.mode in (2, 3):
+        from ..kernels.vah import effective_vah_cfg
+        cfg = effective_vah_cfg(cols, cfg)
+    n = cols["tau"].shape[0]
+    local = _slice_for(cols, n, cfg, mesh)
+    if cfg.df_mode in (3, 4) and cfg.mode not in (2, 3):
+        return feqmod_spacetime_distributions_multihost(
+            local, n, species, grid, df_data, cfg, mesh=mesh)
+    return spacetime_distributions_multihost(local, n, species, grid,
+                                             df_data, cfg, mesh)

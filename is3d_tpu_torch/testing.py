@@ -365,6 +365,51 @@ def write_vah_coefficient_tables(path: str, seed: int = 0) -> str:
     return path
 
 
+def write_surface_file(path: str, n_cells: int, dimension: int,
+                       seed: int = 0, mode: int = 1,
+                       scale_bulk: float = 1.0) -> str:
+    """A surface file of ``n_cells`` synthetic cells in the reference
+    layout of ``mode`` (write_synthetic_run_dir's input/surface.dat)."""
+    if mode in (2, 3):
+        cells = synthetic_vah_cells(n_cells, dimension, seed)
+    elif mode in (1, 5):
+        cells = synthetic_surface_cells(n_cells, dimension, seed)
+        if mode == 5:
+            cells.update(synthetic_vorticity(n_cells, seed))
+    else:
+        raise ValueError(f"write_synthetic_run_dir writes modes 1, 2, 3 "
+                         f"and 5, got {mode}")
+    cells["bulkPi"] = cells["bulkPi"] * scale_bulk
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    np.savetxt(path, _surface_rows(cells, mode), fmt="%.10e")
+    return path
+
+
+def write_momentum_tables(run_dir: str, n_pT: int = 6, n_phi: int = 5,
+                          n_y: int = 5, n_eta: int = 10) -> str:
+    """A small ``tables/`` under ``run_dir`` in the reference's file
+    layout (Gauss-Legendre pT on [0, 4] and phi, trapezoid y on [-5, 5],
+    Gauss-Legendre eta on [-7, 7] under both eta names), so that a run
+    takes this narrow grid in place of the native one."""
+    from .io.tables import gauss_legendre
+    d = os.path.join(run_dir, "tables")
+    os.makedirs(os.path.join(d, "eta"), exist_ok=True)
+    yv = np.linspace(-5.0, 5.0, n_y)
+    yw = np.full(n_y, yv[1] - yv[0])
+    yw[[0, -1]] *= 0.5
+    blocks = {"pT_gauss_legendre_table.dat": gauss_legendre(n_pT, 0.0, 4.0),
+              "phi_gauss_legendre_table.dat":
+                  gauss_legendre(n_phi, 0.0, 2.0 * np.pi),
+              "y_trapezoid_table_21pt.dat": (yv, yw)}
+    eta = gauss_legendre(n_eta, -7.0, 7.0)
+    for name in ("eta_trapezoid_table_41pt.dat",
+                 "eta_trapezoid_table_241pt.dat"):
+        blocks[os.path.join("eta", name)] = eta
+    for name, (x, w) in blocks.items():
+        np.savetxt(os.path.join(d, name), np.stack([x, w], 1), fmt="%.17e")
+    return run_dir
+
+
 def write_synthetic_run_dir(path: str, n_cells: int, n_species: int,
                             dimension: int, seed: int = 0,
                             params: dict | None = None,
@@ -407,19 +452,8 @@ def write_synthetic_run_dir(path: str, n_cells: int, n_species: int,
     deltaf_generator.write_tables(
         T, muB, tables, os.path.join(path, "deltaf_coefficients", "vh", "urqmd"))
 
-    if mode in (2, 3):
-        cells = synthetic_vah_cells(n_cells, dimension, seed)
-    elif mode in (1, 5):
-        cells = synthetic_surface_cells(n_cells, dimension, seed)
-        if mode == 5:
-            cells.update(synthetic_vorticity(n_cells, seed))
-    else:
-        raise ValueError(f"write_synthetic_run_dir writes modes 1, 2, 3 "
-                         f"and 5, got {mode}")
-    cells["bulkPi"] = cells["bulkPi"] * scale_bulk
-    os.makedirs(os.path.join(path, "input"), exist_ok=True)
-    np.savetxt(os.path.join(path, "input", "surface.dat"),
-               _surface_rows(cells, mode), fmt="%.10e")
+    write_surface_file(os.path.join(path, "input", "surface.dat"), n_cells,
+                       dimension, seed, mode, scale_bulk)
 
     run_params = {**_RUN_PARAMS, "dimension": dimension, "mode": mode,
                   "do_resonance_decays": int(decays), **(params or {})}
@@ -2001,16 +2035,19 @@ def mesh_api_rank(mesh, runs, write: bool = True) -> dict:
     """A rank's api.IS3D(mesh=) runs: each of ``runs`` a dict of name,
     run_dir, overrides and results_dir (with ``write`` rank 0 writes
     there; another rank is given ``<results_dir>_rank<r>``, where it must
-    write nothing).  Returns each run's spectra, dN/dX, polarization, the
-    real groups the rank launched, its parallel.mesh.MESH_STATS, wall
-    seconds and whether its results directory exists."""
+    write nothing, unless the run is ``shared``: operation 2 over ranks
+    merges part files in the one results_dir).  Returns each run's
+    spectra, dN/dX, polarization, events, the real groups the rank
+    launched, its parallel.mesh.MESH_STATS, wall seconds and whether its
+    results directory exists."""
     import time
     from .api import IS3D
     from .parallel.mesh import MESH_STATS, reset_mesh_stats
     out = {}
     for run in runs:
-        results = run["results_dir"] + ("" if mesh.rank == 0
-                                        else f"_rank{mesh.rank}")
+        results = run["results_dir"] + (
+            "" if mesh.rank == 0 or run.get("shared")
+            else f"_rank{mesh.rank}")
         reset_mesh_stats()
         t0 = time.perf_counter()
         res = IS3D.from_run_dir(run["run_dir"], overrides=run["overrides"],
@@ -2018,8 +2055,186 @@ def mesh_api_rank(mesh, runs, write: bool = True) -> dict:
                                 ).run_particlization(write_files=write)
         out[run["name"]] = dict(spectra=res.spectra, dN_dX=res.dN_dX,
                                 polarization=res.polarization,
+                                events=res.events,
                                 groups=MESH_STATS["groups"],
                                 stats=dict(MESH_STATS),
                                 wall=time.perf_counter() - t0,
                                 wrote=os.path.exists(results))
+    return out
+
+
+# ------------------------------------------- the event axis and pod mode
+# What the ranks of tests/test_torch_parallel_events.py, test_torch_pod.py
+# and chip_smoke.py's [mesh events], [mesh sample] and [pod] run: each
+# helper runs in one process (``mesh`` None) or over the mesh's ranks.
+
+def batched_case(case: dict, mesh=None):
+    """An ensemble map of a batched case -- a dict of ``kind`` (spectra or
+    polzn), ``stacked``, ``species``, ``grid``, ``df_data``, ``cfg`` and
+    (polzn) ``T_avg`` -- over the event axis."""
+    from . import batch
+    if case["kind"] == "polzn":
+        return batch.polarization_batched(case["stacked"], case["species"],
+                                          case["grid"], case["cfg"],
+                                          case["T_avg"], mesh=mesh)
+    return batch.smooth_spectra_batched(case["stacked"], case["species"],
+                                        case["grid"], case.get("df_data"),
+                                        case["cfg"], mesh=mesh)
+
+
+def batched_grad(case: dict, wrt, mesh=None) -> dict:
+    """The gradient of sum dN/dy + sum <pT> over a batched spectra case's
+    events by the stacked fields ``wrt`` (diff.surface_value_and_grad),
+    and diff.surface_vjp's pullback of that loss's cotangent."""
+    from . import diff
+
+    def fn(stacked):
+        return batched_case(dict(case, stacked=stacked), mesh)
+
+    def loss(out):
+        return sum(diff.dN_dy_j(row, case["grid"]).sum()
+                   + diff.mean_pT_j(row, case["grid"]).sum() for row in out)
+    value, grads = diff.surface_value_and_grad(lambda s: loss(fn(s)),
+                                               case["stacked"], wrt)
+    out, pullback = diff.surface_vjp(fn, case["stacked"], wrt)
+    with torch.enable_grad():
+        y = out.clone().requires_grad_(True)
+        ct = torch.autograd.grad(loss(y), y)[0]
+    return dict(value=value, grads=grads, vjp=pullback(ct))
+
+
+def ensemble_run(run: dict, mesh=None, device="cpu") -> dict:
+    """IS3D.run_ensemble of ``run`` (run_dir, overrides, surfaces: paths
+    and/or Surfaces, results_dir); over a mesh, a rank other than 0 is
+    given ``<results_dir>_rank<r>``, where it must write nothing.  Returns
+    the events' spectra and polarization and whether the rank's results
+    directory exists."""
+    from .api import IS3D
+    results = run["results_dir"] + ("" if mesh is None or mesh.rank == 0
+                                    else f"_rank{mesh.rank}")
+    out = IS3D.from_run_dir(run["run_dir"], overrides=run["overrides"],
+                            results_dir=results, mesh=mesh,
+                            device=None if mesh is not None else device
+                            ).run_ensemble(run["surfaces"])
+    pol = [r.polarization for r in out]
+    return dict(spectra=np.stack([r.spectra for r in out]),
+                polarization=None if pol[0] is None else
+                {k: np.stack([p[k] for p in pol]) for k in pol[0]},
+                wrote=os.path.exists(results))
+
+
+def sample_case(case: dict, mesh=None, chunk=None) -> tuple:
+    """sample_particles of a sampler case -- a dict of ``surface``,
+    ``species``, ``mcids``, ``df_data``, ``cfg``, ``plasma``, ``nevents``
+    and ``seed`` -- over the mesh's ranks (the cell-sharded sampler), or
+    in one process as kernels.sample._sample_cell_chunked with ``chunk``
+    cells a chunk; returns (events, info)."""
+    from .kernels import sample
+    info = {}
+    args = (case["surface"], case["species"], case["mcids"],
+            case.get("df_data"), case["cfg"], case["plasma"])
+    if mesh is not None:
+        ev = sample.sample_particles(*args, nevents=case["nevents"],
+                                     seed=case["seed"], mesh=mesh, info=info)
+        return ev, info
+    cfg = sample.sampler_effective_cfg(case["surface"], case["cfg"])
+    plan = sample._ChunkPlan(case["surface"], case["species"],
+                             case.get("df_data"), cfg, case["plasma"], None,
+                             chunk)
+    return sample._sample_cell_chunked(plan, case["mcids"],
+                                       nevents=case["nevents"],
+                                       seed=case["seed"], info=info), info
+
+
+def same_events(a: list, b: list) -> bool:
+    """Two event lists equal field by field in dtype and bytes."""
+    return len(a) == len(b) and all(
+        sorted(x) == sorted(y) and all(
+            x[k].dtype == y[k].dtype and x[k].tobytes() == y[k].tobytes()
+            for k in x) for x, y in zip(a, b))
+
+
+def event_suite_rank(mesh, inputs_path: str, ensembles, oversample,
+                     grads) -> dict:
+    """One spawn's work of a rank on the event axis and the cell-sharded
+    sampler: every batched case of the torch.save'd inputs, the gradients
+    of the batched cases named in ``grads`` ((name, wrt) pairs), each
+    ensemble run of ``ensembles`` (ensemble_run), every sampler case, and
+    ensemble.oversample_run(mesh=) of ``oversample``: the inputs' sampler
+    case named by its ``case``, that case's cfg with its ``overrides``,
+    and the rest of its keys as oversample_run's arguments.  The batched
+    cases' walls are host-clock seconds."""
+    import time
+    from .ensemble import oversample_run
+    inputs = torch.load(inputs_path, weights_only=False)
+    out = dict(batched={}, grads={}, ensembles={}, samples={}, walls={})
+    for name, case in inputs["batched"].items():
+        t0 = time.perf_counter()
+        out["batched"][name] = batched_case(case, mesh)
+        out["walls"][name] = time.perf_counter() - t0
+    for name, wrt in grads:
+        out["grads"][name] = batched_grad(inputs["batched"][name], wrt, mesh)
+    for run in ensembles:
+        out["ensembles"][run["name"]] = ensemble_run(run, mesh)
+    for name, case in inputs["samples"].items():
+        out["samples"][name] = sample_case(case, mesh)
+    if oversample is not None:
+        kw = dict(oversample)
+        c = inputs["samples"][kw.pop("case")]
+        cfg = c["cfg"].replace(**kw.pop("overrides"))
+        out["oversample"] = oversample_run(
+            c["surface"], c["species"], c["mcids"], c.get("df_data"), cfg,
+            c["plasma"], mesh=mesh, **kw)
+    return out
+
+
+def pod_entries(run_dir: str, overrides: dict, mesh) -> dict:
+    """The pod entries of parallel.multihost on a run directory's prepared
+    inputs (every rank holds the whole surface): the spectra of its
+    surface mode and df mode (smooth_spectra_pod or
+    smooth_spectra_vah_pod), mode 5's spin_polarization_pod and, with
+    operation 0, spacetime_distributions_pod."""
+    from .api import IS3D
+    from .parallel import multihost as mh
+    run = IS3D.from_run_dir(run_dir, overrides=overrides, mesh=mesh)
+    run.read_fo_surf_from_file(write_averages=False)
+    _, df_data, species, _, grid = run._prepare()
+    cfg, s = run.cfg, run.surface
+    out = {}
+    if cfg.mode == 5:
+        out["polarization"] = {k: v.cpu().numpy() for k, v in
+                               mh.spin_polarization_pod(
+                                   s, species, grid, cfg, run.plasma(),
+                                   mesh).items()}
+    if cfg.operation == 0:
+        out["dN_dX"] = mh.spacetime_distributions_pod(s, species, grid,
+                                                      df_data, cfg, mesh)
+    elif cfg.mode in (2, 3):
+        out["spectra"] = mh.smooth_spectra_vah_pod(
+            s, species, grid, cfg, mesh).cpu().numpy()
+    else:
+        out["spectra"] = mh.smooth_spectra_pod(
+            s, species, grid, df_data, cfg, mesh).cpu().numpy()
+    return out
+
+
+def pod_suite_rank(mesh, runs, entries, probe) -> dict:
+    """One spawn's work of a rank in pod mode: mesh_api_rank of ``runs``
+    (operation 2 over the ranks writes through rank 0's merge), the pod
+    entries (pod_entries) of each run of ``entries``, and with ``probe``
+    (a run whose results_dir each rank gets a copy of its own) the error
+    the shared-filesystem probe raises."""
+    out = dict(api=mesh_api_rank(mesh, runs),
+               entries={e["name"]: pod_entries(e["run_dir"],
+                                               e["overrides"], mesh)
+                        for e in entries}, probe=None)
+    if probe is not None:
+        from .api import IS3D
+        try:
+            IS3D.from_run_dir(probe["run_dir"], overrides=probe["overrides"],
+                              results_dir=f"{probe['results_dir']}_"
+                                          f"{mesh.rank}",
+                              mesh=mesh).run_particlization()
+        except RuntimeError as err:
+            out["probe"] = str(err)
     return out

@@ -7,7 +7,10 @@
 * Gradients through the batch equal is3d_tpu's (rtol 1e-8 / atol 1e-10 x
   max, as tests/test_torch_grad.py); a VAH ensemble's equal each event's
   single run's (rtol 1e-12); pad cells get exactly 0.
-* stack_surfaces' padding and refusals; mesh= is refused (slice 11).
+* stack_surfaces' padding and refusals; mesh= of one rank runs the
+  one-process path, and an event count the ranks do not divide or a
+  mesh that is not a CellMesh is refused (the event axis over several
+  ranks: tests/test_torch_parallel_events.py).
 * run_ensemble's per-event trees against is3d_tpu's on synthetic run
   directories (mode 1 with the feed-down off, mode 5 with the
   polarization), file by file as tests/test_torch_slice.py compares them,
@@ -150,15 +153,27 @@ def test_stack_pads_inert_and_refuses_mixed_blocks():
 
 
 def test_mesh_is_refused():
+    """mesh= raised NotImplementedError until the event axis was ported:
+    a one-rank mesh now gives the one-process rows bit for bit (its own
+    events are all of them, no collective), and what is refused is a
+    mesh that is not a CellMesh and an event count the ranks do not
+    divide."""
+    from is3d_tpu_torch.parallel.mesh import CellMesh
     _, (sp, grid, df, cfg) = _port(BASE)
     stacked = batch.stack_surfaces([convert.surface_from_state(c)
-                                    for c in _cells()[:1]])
-    with pytest.raises(NotImplementedError, match="slice 11"):
+                                    for c in _cells()])
+    one_rank = CellMesh(group=None, device=torch.device("cpu"), rank=0,
+                        size=1)
+    assert torch.equal(
+        batch.smooth_spectra_batched(stacked, sp, grid, df, cfg,
+                                     mesh=one_rank),
+        batch.smooth_spectra_batched(stacked, sp, grid, df, cfg))
+    with pytest.raises(TypeError, match="CellMesh"):
         batch.smooth_spectra_batched(stacked, sp, grid, df, cfg,
                                      mesh=object())
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        batch.polarization_batched(stacked, sp, grid, cfg, 0.15,
-                                   mesh=object())
+    two = CellMesh(group=None, device=torch.device("cpu"), rank=0, size=2)
+    with pytest.raises(ValueError, match="event count 3 does not divide"):
+        batch.polarization_batched(stacked, sp, grid, cfg, 0.15, mesh=two)
 
 
 def test_gradients_flow_through_batch():

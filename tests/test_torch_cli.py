@@ -1,8 +1,10 @@
 """The port's CLI keys that is3d_tpu's CLI consumes before its Config
-does: the pod keys and ``host_devices`` are refused naming the multi-GPU
-slice, and ``platform`` names the device (cpu -> device=cpu, gpu or cuda
--> device=cuda); a platform that contradicts ``device=``, or is none of
-those, is a usage error (exit code 2)."""
+does: the pod keys run only all three together (a missing one is a usage
+error, exit code 2; two ranks against one process are in
+tests/test_torch_pod.py), ``host_devices`` raises (a decided difference:
+the port's processes hold one device each), and ``platform`` names the
+device (cpu -> device=cpu, gpu or cuda -> device=cuda); a platform that
+contradicts ``device=``, or is none of those, is a usage error."""
 
 import pytest
 
@@ -18,9 +20,20 @@ def run_dir(tmp_path_factory):
 @pytest.mark.parametrize("key,value", [
     ("multihost_coordinator", "localhost:1234"), ("multihost_nproc", "2"),
     ("multihost_pid", "0"), ("host_devices", "8")])
-def test_multi_device_keys_raise_naming_slice_11(run_dir, key, value):
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        cli.main([run_dir, f"{key}={value}"])
+def test_multi_device_keys_raise_naming_slice_11(run_dir, key, value,
+                                                 capsys):
+    """These keys raised NotImplementedError naming slice 11 until pod
+    mode was ported: a pod key alone is now a usage error naming the two
+    missing ones, and host_devices raises naming its decided
+    difference."""
+    if key == "host_devices":
+        with pytest.raises(NotImplementedError, match="no meaning"):
+            cli.main([run_dir, f"{key}={value}"])
+        return
+    assert cli.main([run_dir, "device=cpu", f"{key}={value}"]) == 2
+    first = capsys.readouterr().err.splitlines()[0]
+    assert first.startswith("pod mode needs all of")
+    assert key not in first.split("missing")[1]
 
 
 def test_platform_cpu_runs_on_the_cpu(run_dir, capsys):

@@ -7,10 +7,14 @@ is3d_tpu's (the plain torch path, CPU):
 * oversample_run: its manifest's keys and parameters equal is3d_tpu's on
   the same run, a run cut short and resumed equal to an uninterrupted one
   file for file (a lost batch rebuilt), the refusals;
+* oversample_run(mesh=) on a one-rank mesh: the one-chunk sharded
+  sampler's files, mesh_shards in the manifest, a resume without the mesh
+  refused (several ranks: tests/test_torch_parallel_events.py);
 * merge_manifests over workers, and multiprocess_oversample with two
   worker processes (python -m is3d_tpu_torch.ensemble_worker) on the CPU:
   their union the single-process run's files; the multi-device keys
-  refused.
+  checked (mesh_devices takes cards, a worker of ranks needs its rank and
+  rendezvous).
 """
 
 import json
@@ -154,8 +158,29 @@ def test_oversample_resume_equals_uninterrupted(prepared, tmp_path):
                                 events_per_batch=4, base_seed=5)
     with pytest.raises(ValueError, match="resume=True"):
         _oversample(prepared, part, resume=False)
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        _oversample(prepared, tmp_path / "mesh", mesh=object())
+    # mesh= raised NotImplementedError until the sharded sampler was
+    # ported: a one-rank mesh samples each batch as one chunk (its seed
+    # _chunk_seed(seed, 0)), records mesh_shards and refuses a resume
+    # without the mesh
+    from is3d_tpu_torch.kernels import sample
+    from is3d_tpu_torch.parallel.mesh import CellMesh
+    one_rank = CellMesh(group=None, device=torch.device("cpu"), rank=0,
+                        size=1)
+    mesh_dir = tmp_path / "mesh"
+    assert _oversample(prepared, mesh_dir, mesh=one_rank)[0] == nb
+    assert json.load(open(mesh_dir / "manifest.json"))["mesh_shards"] == 1
+    run, _, df_data, species, mcids, _ = prepared
+    plan = sample._ChunkPlan(run.surface, species, df_data, run.cfg,
+                             run.plasma(), None, run.surface.n_cells)
+    events = sample._sample_cell_chunked(
+        plan, mcids, nevents=3, seed=ensemble.ensemble_seeds(5, 1000)[0])
+    writers.write_particle_list_oscar(events, str(tmp_path / "b0.dat"))
+    assert _read(tmp_path / "b0.dat") == _read(
+        mesh_dir / "results_0" / "particle_list_osc.dat")
+    with pytest.raises(ValueError, match="mesh_shards=1"):
+        _oversample(prepared, mesh_dir)
+    with pytest.raises(TypeError, match="CellMesh"):
+        _oversample(prepared, tmp_path / "bad", mesh=object())
 
 
 def test_merge_manifests_of_workers(prepared, tmp_path):
@@ -194,7 +219,10 @@ def test_multiprocess_oversample_two_workers(prepared, run_dir, tmp_path):
     for w in range(2):
         batches = json.load(open(out / f"manifest_worker{w}.json"))["batches"]
         assert set(batches) == {str(b) for b in range(w, nb, 2)}
-    with pytest.raises(NotImplementedError, match="slice 11"):
+    # mesh_devices raised NotImplementedError until multi-device workers
+    # were ported: it takes cards (host_devices is the CPU's spelling;
+    # two host_devices workers: tests/test_torch_parallel_events.py)
+    with pytest.raises(ValueError, match="host_devices runs CPU ranks"):
         ensemble.multiprocess_oversample(run_dir, str(out), mesh_devices=2,
                                          device="cpu")
     with pytest.raises(ValueError, match="platform"):
@@ -205,7 +233,9 @@ def test_worker_refuses_unknown_and_multi_device_keys(run_dir):
     with pytest.raises(SystemExit, match="unknown argument"):
         ensemble_worker.main([f"run_dir={run_dir}", "n_worker=2",
                               "device=cpu"])
-    with pytest.raises(NotImplementedError, match="slice 11"):
+    # host_devices raised NotImplementedError until multi-device workers
+    # were ported: a worker of ranks needs its rank and its rendezvous
+    with pytest.raises(SystemExit, match="mesh_rank= and mesh_init="):
         ensemble_worker.main([f"run_dir={run_dir}", "host_devices=4"])
     with pytest.raises(SystemExit, match="platform"):
         ensemble_worker.main([f"run_dir={run_dir}", "platform=cpu",

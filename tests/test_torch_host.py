@@ -186,15 +186,35 @@ def test_vh_surface_readers_match_jax(tmp_path, mode, baryon, diff):
 
 
 def test_vah_modes_raise_not_implemented(tmp_path):
-    # the VAH readers and every operation on VAH surfaces are ported, the
-    # sampler (operation 2) last; what raises is mesh= (slice 11)
+    """The VAH readers and every operation on VAH surfaces are ported, the
+    sampler (operation 2) last, and operation 2 under mesh= (which raised
+    NotImplementedError until pod mode was ported): on 2 gloo ranks each
+    samples its slice of the events, and the slices concatenate to the
+    one-process list byte for byte."""
+    from is3d_tpu_torch import testing
     for mode in (2, 3):
         for op in (0, 1, 2):
             IS3D(Config(operation=op, mode=mode), data_dir=str(tmp_path),
                  device="cpu")
-        with pytest.raises(NotImplementedError, match="slice 11"):
-            IS3D(Config(operation=2, mode=mode), data_dir=str(tmp_path),
-                 device="cpu", mesh=object())
+    runs, one = [], {}
+    for mode in (2, 3):
+        d = write_synthetic_run_dir(
+            str(tmp_path / f"mode{mode}"), 40, 7, 2, seed=mode, mode=mode,
+            params=dict(operation=2, oversample=1, min_num_hadrons=400,
+                        sampler_seed=3))
+        runs.append(dict(name=mode, run_dir=d, overrides={},
+                         results_dir=str(tmp_path / f"mesh{mode}")))
+        one[mode] = IS3D.from_run_dir(d, device="cpu").run_particlization(
+            write_files=False).events
+    ranks = testing.run_ranks(testing.mesh_api_rank, 2,
+                              str(tmp_path / "w"), args=(runs, False),
+                              timeout=240.0)
+    for mode in (2, 3):
+        got = [e for res in ranks for e in res[mode]["events"]]
+        assert len(one[mode]) >= 2
+        assert testing.same_events(got, one[mode]), mode
+    with pytest.raises(TypeError, match="CellMesh"):
+        IS3D(Config(operation=2, mode=2), device="cpu", mesh=object())
 
 
 @pytest.mark.parametrize("df_mode,include_baryon",

@@ -2,7 +2,7 @@
 plain versions and never load the CUDA libraries; pack_cells' pad rows are
 inert; every wrapper checks dtype, shape, contiguity and device before a
 launch; asking for CUDA without it raises instead of running on the CPU;
-unported configurations raise NotImplementedError.  The kernels
+configurations that once raised NotImplementedError now run.  The kernels
 themselves are checked against their plain versions by the gpu-marked
 tests below and by chip_smoke.py."""
 
@@ -105,30 +105,61 @@ def test_cli_defaults_to_cuda_and_raises_without_it(no_cuda, tmp_path):
         cli.main([run_dir])
 
 
-@pytest.mark.parametrize("override,slice_name", [
+OP2_CASES = [
     (dict(operation=2, mode=2, df_mode=3), "slice 9"),
     (dict(operation=2, sampler_alias=0), "slice 9"),
     (dict(operation=2, mode=2), "slice 9"),
     (dict(operation=2, mode=3), "slice 9"),
     (dict(operation=2, df_mode=3, sampler_alias=0), "slice 9"),
     (dict(operation=2, do_resonance_decays=1, df_mode=4, mode=3), "slice 9"),
-])
-def test_unported_configurations_raise(override, slice_name, tmp_path):
+]
+
+
+def _op2_run_dir(path, override, seed=None):
+    params = dict(override, oversample=1, min_num_hadrons=200)
+    if seed is not None:
+        params["sampler_seed"] = seed
+    return testing.write_synthetic_run_dir(
+        path, 24, 24 if override.get("do_resonance_decays") else 7, 2,
+        seed=1, mode=override.get("mode", 1),
+        decays=bool(override.get("do_resonance_decays")), params=params)
+
+
+@pytest.fixture(scope="module")
+def op2_mesh(tmp_path_factory):
+    """Each OP2_CASES configuration in one process and over 2 gloo ranks
+    (one spawn), seeded: the events of each."""
+    root = tmp_path_factory.mktemp("op2_mesh")
+    runs, one = [], []
+    for i, (override, _) in enumerate(OP2_CASES):
+        d = _op2_run_dir(str(root / f"c{i}"), override, seed=11)
+        runs.append(dict(name=i, run_dir=d, overrides={},
+                         results_dir=str(root / f"mesh{i}")))
+        one.append(IS3D.from_run_dir(d, device="cpu").run_particlization(
+            write_files=False).events)
+    ranks = testing.run_ranks(testing.mesh_api_rank, 2, str(root / "w"),
+                              args=(runs, False), timeout=240.0)
+    return one, [[e for res in ranks for e in res[i]["events"]]
+                 for i in range(len(OP2_CASES))]
+
+
+@pytest.mark.parametrize("override,slice_name", OP2_CASES)
+def test_unported_configurations_raise(override, slice_name, tmp_path,
+                                       op2_mesh):
     """Operation 2 on VAH surfaces and with the binary-search draws, which
     raised NotImplementedError naming ``slice_name`` until that slice
     (9, second half) ported them: each configuration now builds and runs
-    on a small run directory, and mesh= still raises, naming slice 11."""
-    mode = override.get("mode", 1)
-    run_dir = testing.write_synthetic_run_dir(
-        str(tmp_path), 24, 24 if override.get("do_resonance_decays") else 7,
-        2, seed=1, mode=mode, decays=bool(override.get("do_resonance_decays")),
-        params=dict(override, oversample=1, min_num_hadrons=200))
+    on a small run directory; under mesh= (NotImplementedError until pod
+    mode was ported) the ranks' slices concatenate to the one-process
+    events byte for byte."""
+    run_dir = _op2_run_dir(str(tmp_path), override)
     result = IS3D(Config(**override), data_dir=run_dir,
                   device="cpu").run_particlization(write_files=False)
     assert sum(len(e["mcid"]) for e in result.events) > 0
     assert result.sample_info["total_yield"] > 0
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        IS3D(Config(**override), device="cpu", mesh=object())
+    one, mesh = (x[OP2_CASES.index((override, slice_name))]
+                 for x in op2_mesh)
+    assert len(one) >= 2 and testing.same_events(mesh, one)
 
 
 @pytest.mark.gpu

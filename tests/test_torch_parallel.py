@@ -357,8 +357,10 @@ def _mesh(W, r):
 
 
 def test_mesh_refusals(tmp_path):
-    """No fallback: no group, a mesh that is not a CellMesh, operation 2
-    under a mesh."""
+    """No fallback: no group, a mesh that is not a CellMesh, a device that
+    is not the mesh's.  Operation 2 under a mesh (refused until pod mode
+    was ported) builds, and takes the pod rule with several ranks
+    (tests/test_torch_pod.py)."""
     with pytest.raises(RuntimeError, match="initialised"):
         pmesh.default_mesh("cpu")
     with pytest.raises(RuntimeError, match="initialised"):
@@ -368,8 +370,9 @@ def test_mesh_refusals(tmp_path):
     with pytest.raises(TypeError, match="CellMesh"):
         pmesh.grouped_cell_reduce(None, {"tau": torch.zeros(3)}, (),
                                   Config(), mesh=object())
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        IS3D(Config(operation=2), device="cpu", mesh=_mesh(2, 0))
+    assert IS3D(Config(operation=2), device="cpu", mesh=_mesh(2, 0))._pod()
+    assert not IS3D(Config(operation=2), device="cpu",
+                    mesh=_mesh(1, 0))._pod()
     with pytest.raises(ValueError, match="rank device"):
         IS3D(Config(operation=1), device="cpu",
              mesh=dataclasses.replace(_mesh(2, 0),

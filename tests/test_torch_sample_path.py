@@ -16,7 +16,8 @@ is3d_tpu's in distribution only; held here:
   decayed list on the decaying synthetic PDG list, mode 5; a rerun leaves
   no stale list; the writer is byte-identical with is3d_tpu's;
 * the configurations the first half refused running (VAH surfaces, the
-  binary-search draws, an active cell chunk), and the mesh= refusal.
+  binary-search draws, an active cell chunk), and mesh= (the sharded
+  sampler, and IS3D's event slices over ranks) on 2 gloo ranks.
 """
 
 import math
@@ -338,17 +339,39 @@ def test_sampler_refusals(override, tmp_path):
     assert sum(n for n, _ in got) >= 100
 
 
-def test_sampler_refuses_active_cell_chunk_and_mesh(run_dir):
+def test_sampler_refuses_active_cell_chunk_and_mesh(run_dir, tmp_path):
     """An active cell chunk runs (the chunked sampler, its 4 chunks of 16
-    cells); mesh= still raises, naming slice 11."""
+    cells).  mesh= raised NotImplementedError until the sharded sampler
+    and pod mode were ported: on 2 gloo ranks sample_particles(mesh=)
+    gives every rank the chunked run of 2 chunks of 32 cells byte for
+    byte, and IS3D(mesh=)'s slices of the events concatenate to the
+    one-process list."""
+    from is3d_tpu_torch import testing
     run = IS3D.from_run_dir(run_dir, overrides=dict(sampler_cell_chunk=16),
                             device="cpu")
     result = run.run_particlization(write_files=False)
     assert result.sample_info["chunks"] == 4 and result.events
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        IS3D(Config(operation=2), device="cpu", mesh=object())
-    run = IS3D.from_run_dir(run_dir, device="cpu")
+    run = IS3D.from_run_dir(run_dir, overrides=dict(sampler_seed=8),
+                            device="cpu")
     _, df_data, species, mcids, grid = run._prepare()
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        sample.sample_particles(run.surface, species, mcids, df_data,
-                                run.cfg, run.plasma(), mesh=object())
+    case = dict(surface=run.surface, species=species, mcids=mcids,
+                df_data=df_data, cfg=run.cfg, plasma=run.plasma(),
+                nevents=5, seed=8)
+    path = str(tmp_path / "case.pt")
+    torch.save(dict(batched={}, samples=dict(c=case)), path)
+    ranks = testing.run_ranks(
+        testing.event_suite_rank, 2, str(tmp_path / "w"),
+        args=(path, [], None, ()), timeout=240.0)
+    want, _ = testing.sample_case(case, chunk=32)
+    assert sum(len(e["mcid"]) for e in want) > 100
+    for res in ranks:
+        assert testing.same_events(res["samples"]["c"][0], want)
+    one = run.run_particlization(write_files=False).events
+    ranks = testing.run_ranks(
+        testing.mesh_api_rank, 2, str(tmp_path / "w2"),
+        args=([dict(name="op2", run_dir=run_dir,
+                    overrides=dict(sampler_seed=8),
+                    results_dir=str(tmp_path / "mesh"))], False),
+        timeout=240.0)
+    assert testing.same_events(
+        [e for res in ranks for e in res["op2"]["events"]], one)

@@ -159,14 +159,27 @@ def test_averages_file_written_for_modes_0_1_4_6_7(tmp_path, mode):
 
 def test_vah_modes_raise_not_implemented_for_the_sampler():
     """Modes 2, 3 and 5 run operations 0, 1 and 2 (the sampler's VAH
-    branch, slice 9's second half); the sharded sampler (mesh=) raises,
-    naming its slice."""
-    from is3d_tpu_torch.kernels.sample import check_sampler_supported
+    branch, slice 9's second half); the sharded sampler (mesh=), which
+    raised NotImplementedError until it was ported, samples a VAH surface
+    on a one-rank mesh as the chunked driver's one chunk, byte for byte
+    (several ranks: tests/test_torch_parallel_events.py)."""
+    from is3d_tpu_torch.parallel.mesh import CellMesh
     for mode in (2, 3, 5):
         for op in (0, 1, 2):
             check_supported(Config(operation=op, mode=mode))
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        check_sampler_supported(mesh=object())
+    cells = testing.synthetic_vah_cells(50, 2, seed=4)
+    cells.update(testing.synthetic_vah_coefficients(cells, seed=4))
+    case = dict(surface=convert.surface_from_state(cells),
+                species=testing.synthetic_species(7), mcids=np.arange(7),
+                cfg=Config(operation=2, mode=2, dimension=2, y_cut=3.0,
+                           include_shear_deltaf=1, include_bulk_deltaf=1),
+                plasma=None, nevents=4, seed=6)
+    one_rank = CellMesh(group=None, device=torch.device("cpu"), rank=0,
+                        size=1)
+    got, info = testing.sample_case(case, one_rank)
+    want, _ = testing.sample_case(case, chunk=50)
+    assert info["chunks"] == 1 and sum(len(e["mcid"]) for e in got) > 0
+    assert testing.same_events(got, want)
 
 
 # ------------------------------------------------ coefficient tables

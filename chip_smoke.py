@@ -111,7 +111,14 @@ Phases, each printing its own line(s):
    the same CLI on a 256-cell run directory on cuda and on cpu (f64); then
    the remap kernel on one canonical group of that surface as in 5 (the
    plain version on its first 1024 cells); [grad pair 2d] and [grad main
-   2d] as in 5 with K9b (the remap's backward);
+   2d] as in 5 with K9b (the remap's backward); [trace] the same CLI run
+   again inside utils.device_trace (CUDA activity), the Chrome trace in
+   chiprun_out/trace_main_2d/ read by tools/trace_summary.py: its
+   remap_kernel launches equal to the run's counted launches (one a
+   canonical group), the results tree byte-equal to the untraced run's;
+   the traced window, the card's busy seconds (the union of its kernel,
+   memcpy and memset intervals), the idle share, the five kernels with
+   the most device time and the trace's size;
 6. operation 0 main path: a synthetic 65536-cell x 320-species 2+1D run
    directory through ``cli.main`` (df 1, shear + bulk, regulate, outflow,
    f32, native 32 x 24 x 48 grid): launches = canonical groups, every
@@ -219,7 +226,14 @@ Phases, each printing its own line(s):
    min_num_hadrons = 1.5e6): phases, the sampler's split (phase A,
    dispatch, wait, copy to the host, assembly), kept hadrons/s,
    efficiency, K7's packed mode launched once a batch, K7a three times,
-   the OSCAR list; its 256-cell f64 cuda-against-cpu run (the same
+   the OSCAR list; [analysis] analysis.compare_sampling_smooth of that
+   run's lists (no new sampling) against [main 2d]'s spectra of the same
+   surface for the pion, kaon and proton (the smooth dN/dy equal to
+   [main 2d]'s dN_dy file, the sampled one within 5 sigma + 2 % of it),
+   analysis.compute_observables with the run's particle table (the
+   identified dN/dy within 5 sigma + 2 % of the smooth spectra's), and
+   IS3D_SAMPLER_TIMINGS=1 on a 256-cell cuda run printing its one line;
+   its 256-cell f64 cuda-against-cpu run (the same
    streams: the same lists; the cuda run through the packed mode);
    [sample pair] alias_scale and K7a on the species table (against its
    plain version, its byte bound and torch's stable sort of the rows),
@@ -447,6 +461,10 @@ MESH_SAMPLE: dict = {}
 MESH_SAMPLE_HADRONS = 400000
 POD_DIRS: dict = {}
 POD_TIMEOUT = 300.0
+# [trace]'s Chrome trace of [main 2d]'s CLI run (chiprun_out/ is
+# gitignored), and the species [analysis] compares with the smooth spectra
+TRACE_DIR = os.path.join(ROOT, "chiprun_out", "trace_main_2d")
+ANALYSIS_SPECIES = (("pion", 211), ("kaon", 321), ("proton", 2212))
 # H100 SXM: SMs, FP32, SFU and INT32-multiply lanes per SM, memory rate
 # (bytes/s)
 N_SM, FP32_LANES, SFU_LANES, HBM_RATE = 132, 128, 16, 3.35e12
@@ -932,6 +950,63 @@ def phase_main_path(smi: str, name="main", dimension=3, args=MAIN_ARGS,
             + ", ".join(f"{k} {counts[k]}" for k in
                         ("decay_wave_2body", "decay_wave_3body")))
     return counts, run_dir, cfg, phases
+
+
+def phase_trace(smi: str, run_dir: str, args, launches: int):
+    """[trace]: [main 2d]'s CLI run again inside utils.device_trace (CUDA
+    activity), its Chrome trace written into TRACE_DIR and read by
+    tools/trace_summary.py.  Fails unless the trace holds device events,
+    its remap-kernel launches equal the run's counted launches and those
+    ``launches`` (one a canonical group), and the run's results tree is
+    [main 2d]'s byte for byte (then removed: no later phase reads it).
+    Prints the traced window, the card's busy seconds (the union of its
+    kernel, memcpy and memset intervals), the idle share, the five kernels
+    with the most device time and the trace's size, beside the card's name
+    and power limit."""
+    from is3d_tpu_torch.tools import trace_summary
+    from is3d_tpu_torch.utils import device_trace
+    shutil.rmtree(TRACE_DIR, ignore_errors=True)
+    results = os.path.join(run_dir, "results")
+    _reset_counts()
+    t0 = time.perf_counter()
+    with device_trace(TRACE_DIR):
+        rc, phases, _ = _run_cli([run_dir] + args)
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    if rc != 0:
+        fail(f"[trace] cli exited {rc}")
+    _expect_counts("[trace] path", counts, dict(
+        smooth_spectra=launches, smooth_spectra_remap=launches))
+    files = [f for f in os.listdir(TRACE_DIR) if f.endswith(".pt.trace.json")]
+    if len(files) != 1:
+        fail(f"[trace] {len(files)} trace files in {TRACE_DIR}")
+    path = os.path.join(TRACE_DIR, files[0])
+    s = trace_summary.summarize(path)
+    if not s["device_events"]:
+        fail("[trace] the trace holds no kernel, memcpy or memset: the "
+             "profiler recorded no CUDA activity")
+    remap = sum(k["count"] for name, k in s["kernels"].items()
+                if re.search(r"(?<!\w)remap_kernel<", name))
+    if remap != launches:
+        fail(f"[trace] {remap} remap_kernel launches in the trace, the run "
+             f"counted {launches}")
+    if _tree_bytes(results) != _tree_bytes(os.path.join(
+            run_dir, "results_mesh_one")):
+        fail("[trace] the traced run's results tree differs from "
+             "[main 2d]'s")
+    shutil.rmtree(results)
+    print(f"[trace] {smi} | traced window {s['window_s']:.3f} s (the "
+          f"traced call's host wall {wall:.3f} s; cli phases: "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in phases.items())
+          + f") | card busy {s['busy_s']:.4f} s ({s['device_events']} "
+          f"kernel, memcpy and memset intervals, their union), idle share "
+          f"{100.0 * s['idle_share']:.2f} % | remap_kernel {remap} "
+          f"launches = counted {launches} | trace {s['bytes']} B, "
+          f"{os.path.relpath(path, ROOT)}; results tree byte-equal to "
+          "[main 2d]'s")
+    for name, sec, n in trace_summary.top_kernels(s, 5):
+        print(f"[trace] {smi} | top kernel {1e3 * sec:.3f} ms in {n} "
+              f"launches: {name[:120]}")
 
 
 def _main_decays_schedule() -> dict:
@@ -3539,6 +3614,125 @@ def phase_ensemble_small():
     shutil.rmtree(rd, ignore_errors=True)
 
 
+def _spectra_file(results: str, mcid: int, n_pT: int, n_phi: int):
+    """(n_pT, n_phi, 1) spectra of one species from a 2+1D results tree's
+    dN_pTdpTdphidy_MCID.dat (rows y, phip, pT, value: phi-major) and its
+    pT column."""
+    rows = np.loadtxt(os.path.join(results, f"dN_pTdpTdphidy_{mcid}.dat"),
+                      skiprows=1)
+    if rows.shape != (n_pT * n_phi, 4):
+        fail(f"[analysis] dN_pTdpTdphidy_{mcid}.dat has shape {rows.shape}")
+    vals = rows[:, 3].reshape(n_phi, n_pT).T[:, :, None]
+    return vals, rows[:n_pT, 2]
+
+
+def _within(got: float, want: float, n: float, per: float, tag: str):
+    """Fail unless a sampled yield ``got`` (``n`` hadrons, ``per`` hadrons
+    a unit of it) lies within 5 sigma + 2 % of ``want``."""
+    sig = math.sqrt(max(n, 1.0)) / per
+    if not (math.isfinite(got) and abs(got - want) <= 5.0 * sig
+            + 0.02 * want):
+        fail(f"[analysis] {tag}: sampled {got:.5f}, smooth {want:.5f} "
+             f"(sigma {sig:.5f})")
+
+
+def phase_analysis(smi: str, result, cfg):
+    """[analysis]: the port's analysis module on [sample main 2d]'s events
+    (held in memory: no new sampling) and [main 2d]'s spectra of the same
+    surface (its results tree, kept for [mesh]).
+    compare_sampling_smooth for the pion, kaon and proton (the spectra as
+    a cuda tensor): the smooth dN/dy equal to [main 2d]'s dN_dy file
+    (rtol 1e-6), the sampled one within 5 sigma + 2 % of it;
+    compute_observables with the run's particle table: the identified
+    dN/dy (|y| < 0.5, both charges) within 5 sigma + 2 % of the smooth
+    sum, every number finite.  Then IS3D_SAMPLER_TIMINGS=1 on a 256-cell
+    cuda run: one [sample_particles timings] line, info["timings"]'s."""
+    from is3d_tpu_torch import analysis
+    from is3d_tpu_torch.api import IS3D
+    from is3d_tpu_torch.histograms import sampler_test_histograms
+    from is3d_tpu_torch.io.pdg import read_resonances
+    from is3d_tpu_torch.io.tables import native_momentum_grid
+    from is3d_tpu_torch.testing import write_synthetic_run_dir
+    t0 = time.perf_counter()
+    events, mcids = result.events, np.asarray(result.mcids)
+    n_ev = len(events)
+    main2d = MESH_DIRS["main 2d"][0]
+    results = os.path.join(main2d, "results_mesh_one")
+    grid = native_momentum_grid(2)
+    n_pT, n_phi = grid.pT.shape[0], grid.phi.shape[0]
+    ids = [int(m) for m in mcids
+           if abs(int(m)) in dict(ANALYSIS_SPECIES).values()]
+    spectra = []
+    for m in ids:
+        vals, pT = _spectra_file(results, m, n_pT, n_phi)
+        if not np.allclose(pT, grid.pT.numpy(), rtol=1e-7, atol=0):
+            fail(f"[analysis] the pT column of {m}'s file is not the grid's")
+        spectra.append(vals)
+    spectra = torch.tensor(np.stack(spectra), device="cuda")
+    hist = sampler_test_histograms(events, ids, cfg)
+    dndy_file = _dndy_files(results, ids)
+    per = 2.0 * cfg.y_cut * n_ev
+    lines = []
+    for _, m in ANALYSIS_SPECIES:
+        c = analysis.compare_sampling_smooth(hist, spectra, grid, ids, m, cfg)
+        if not all(np.isfinite(np.asarray(v, float)).all()
+                   for v in c.values()) or not (
+                       c["dN_2pipTdpTdy_smooth"] > 0).all():
+            fail(f"[analysis] compare_sampling_smooth of {m}: not finite "
+                 "and positive")
+        if not math.isclose(c["dN_dy_smooth"], dndy_file[m], rel_tol=1e-6):
+            fail(f"[analysis] smooth dN/dy of {m} {c['dN_dy_smooth']} "
+                 f"against [main 2d]'s file {dndy_file[m]}")
+        _within(c["dN_dy_sampled"], c["dN_dy_smooth"],
+                c["dN_dy_sampled"] * per, per, f"dN/dy of {m}")
+        lines.append(f"{m} {c['dN_dy_sampled']:.4f} against "
+                     f"{c['dN_dy_smooth']:.4f}")
+    table = read_resonances(os.path.join(main2d, "PDG"), cfg.hrg_eos)
+    obs = analysis.compute_observables(events, particle_table=table)
+    if obs["nsamples"] != n_ev or not all(math.isfinite(v) for v in (
+            obs["dNch_deta"], obs["dET_deta"], obs["pT_fluct"]["sum_pT"],
+            *obs["mean_pT"].values())) or not np.isfinite(
+                obs["flow"]["Qn"]).all() or obs["dNch_deta"] <= 0:
+        fail(f"[analysis] compute_observables: {obs}")
+    ident = []
+    for name, pid in ANALYSIS_SPECIES:
+        want = sum(v for m, v in dndy_file.items() if abs(m) == pid)
+        got = obs["dN_dy"][name]
+        _within(got, want, got * n_ev, n_ev, f"compute_observables {name}")
+        ident.append(f"{name} {got:.3f} against {want:.3f}")
+    took = time.perf_counter() - t0
+    v2 = abs(obs["flow"]["Qn"][1]) / max(obs["flow"]["N"], 1)
+    print(f"[analysis] {smi} | {n_ev} events, "
+          f"{sum(len(e['mcid']) for e in events)} hadrons of [sample main "
+          f"2d] against [main 2d]'s spectra | compare_sampling_smooth dN/dy "
+          f"at y = 0: {'; '.join(lines)} | compute_observables dN/dy (|y| < "
+          f"0.5, both charges): {'; '.join(ident)} (within 5 sigma + 2 %); "
+          f"dNch/deta {obs['dNch_deta']:.2f}, dET/deta "
+          f"{obs['dET_deta']:.2f} GeV, mean pT pion "
+          f"{obs['mean_pT']['pion']:.4f} GeV, |Q2|/N {v2:.5f} | {took:.2f} s")
+    small = os.path.join(WORK, "analysis_timings")
+    write_synthetic_run_dir(small, 256, 24, dimension=2, seed=3, params=dict(
+        operation=2, oversample=1, min_num_hadrons=3000, sampler_seed=3))
+    buf = io.StringIO()
+    os.environ["IS3D_SAMPLER_TIMINGS"] = "1"
+    try:
+        with contextlib.redirect_stdout(buf):
+            res = IS3D.from_run_dir(small, device="cuda").run_particlization()
+    finally:
+        del os.environ["IS3D_SAMPLER_TIMINGS"]
+    shutil.rmtree(small, ignore_errors=True)
+    t = res.sample_info["timings"]
+    want = "[sample_particles timings] " + "  ".join(
+        f"{k}={v:.3f}s" for k, v in t.items())
+    got = [l for l in buf.getvalue().splitlines()
+           if l.startswith("[sample_particles")]
+    if got != [want]:
+        fail(f"[analysis] IS3D_SAMPLER_TIMINGS=1 printed {got}, expected "
+             f"[{want!r}]")
+    print(f"[analysis] IS3D_SAMPLER_TIMINGS=1 on a 256-cell cuda run: "
+          f"{got[0]}")
+
+
 def phase_sample(smi: str, clock: float, vah_dir: str, vah_dndy: dict):
     """The operation-2 paths: [sample main 2d] and its 256-cell
     cuda-against-cpu runs (f64; the same Philox streams, so the same
@@ -3552,6 +3746,9 @@ def phase_sample(smi: str, clock: float, vah_dir: str, vah_dndy: dict):
     from is3d_tpu_torch.api import IS3D
     counts, run_dir, cfg, info, result = phase_sample_main(
         smi, "sample main 2d", SAMPLE2D_ARGS)
+    _clock("analysis")
+    phase_analysis(smi, result, cfg)
+    _clock("sample pairs")
     small = dict(operation=2, sampler_seed=3, oversample=1,
                  min_num_hadrons=3000)
     _reset_counts()
@@ -5358,6 +5555,8 @@ def main():
                 "spectra_bwd_remap"]
         _keep("main 2d", run_dir, MAIN2D_ARGS,
               ("smooth_spectra", "smooth_spectra_remap"))
+        _clock("trace")
+        phase_trace(smi, run_dir, MAIN2D_ARGS, rec_remap["launches"])
         _clock("dndx main")
         counts, dndx_dir, dndx_cfg = phase_dndx_main(smi)
         phase_small_path_cpu_vs_cuda(

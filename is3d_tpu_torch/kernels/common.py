@@ -108,6 +108,27 @@ def scaled_fermi_bose(a, x, s):
     return a / (torch.exp(x) + s)
 
 
+def required_fields(cfg) -> list:
+    """The surface columns a VH run of ``cfg`` reads (is3d_tpu's
+    kernels/common.required_fields): the geometry, flow and temperature,
+    eta in 3+1D, the switched-on viscous and baryon blocks, and E and P
+    where the df mode's coefficients need them."""
+    req = ["tau", "dat", "dax", "day", "dan", "ux", "uy", "un", "T"]
+    if cfg.dimension == 3:
+        req.append("eta")
+    if cfg.include_shear_deltaf:
+        req += ["pixx", "pixy", "pixn", "piyy", "piyn"]
+    if cfg.include_bulk_deltaf:
+        req += ["bulkPi"]
+    if cfg.include_baryon:
+        req += ["muB"]
+        if cfg.include_baryondiff_deltaf:
+            req += ["nB", "Vx", "Vy", "Vn"]
+    if cfg.df_mode in (1, 2, 3, 4) and cfg.mode in (0, 1, 4, 5, 6, 7):
+        req += ["E", "P"]
+    return req
+
+
 def surface_columns(surface: Surface, cfg) -> dict:
     """Extract the cell columns a VH kernel needs, zero-filling switched-off
     viscous blocks exactly like the reference's SoA unpack

@@ -1549,6 +1549,18 @@ def _total_yield(cell, cfg) -> float:
     return ntot
 
 
+def _report_timings(label: str, timings: dict) -> None:
+    """The opt-in breakdown of a sampler run (IS3D_SAMPLER_TIMINGS=1): one
+    ``[label timings]`` line of its always-on ``timings`` (info["timings"]:
+    phase A, dispatch, wait, copy, assembly, gather), through
+    utils.EnvGatedAccumTimer; nothing when the variable is unset."""
+    from ..utils import EnvGatedAccumTimer
+    timer = EnvGatedAccumTimer("IS3D_SAMPLER_TIMINGS")
+    for key, seconds in timings.items():
+        timer.add(key, seconds)
+    timer.report(label)
+
+
 def _oversample_nevents(nevents, ntot: float, cfg) -> int:
     """Oversampling event count (reference: emissionfunction.cpp:1524-1532)."""
     if nevents is not None:
@@ -1709,6 +1721,7 @@ def sample_particles(surface, species: SpeciesArrays, mcids,
         info.update(plan)
     if samp:
         print(f"Momentum sampling efficiency = {100.0 * acc / samp:.2f} %")
+    _report_timings("sample_particles", timings)
     return events
 
 
@@ -1901,6 +1914,8 @@ def _sample_cell_chunked(plan: _ChunkPlan, mcids, nevents=None, seed=None,
         info.update(batches)
     if samp:
         print(f"Momentum sampling efficiency = {100.0 * acc / samp:.2f} %")
+    _report_timings("sample_particles (cell-chunked)" if mesh is None
+                    else "sample_particles_sharded", timings)
     return events
 
 

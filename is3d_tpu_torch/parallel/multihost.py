@@ -46,6 +46,15 @@ def initialize(init_method: str, world_size: int, rank: int,
                             world_size=world_size, rank=rank)
 
 
+def pod_active() -> bool:
+    """True when this process is one of several ranks of an initialized
+    torch.distributed process group (is3d_tpu's jax.process_count() > 1,
+    the test of pod mode)."""
+    import torch.distributed as dist
+    return (dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() > 1)
+
+
 def global_mesh(device=None) -> CellMesh:
     """The CellMesh of every rank of the process group (default_mesh)."""
     return default_mesh(device)

@@ -64,6 +64,24 @@ def milne_basis(ut, ux, uy, un, tau) -> MilneBasis:
     )
 
 
+def basis_orthonormality_residual(b: MilneBasis, ut, ux, uy, un, tau):
+    """Max |residual| of the tetrad normalization/orthogonality relations
+    (reference test: viscous_correction.cpp:31-59).  Returns a tensor."""
+    tau2 = tau * tau
+    res = [
+        ut * ut - ux * ux - uy * uy - tau2 * un * un - 1.0,
+        b.Xt * b.Xt - b.Xx * b.Xx - b.Xy * b.Xy - tau2 * b.Xn * b.Xn + 1.0,
+        -b.Yx * b.Yx - b.Yy * b.Yy + 1.0,
+        b.Zt * b.Zt - tau2 * b.Zn * b.Zn + 1.0,
+        b.Xt * ut - b.Xx * ux - b.Xy * uy - tau2 * b.Xn * un,
+        -b.Yx * ux - b.Yy * uy,
+        b.Zt * ut - tau2 * b.Zn * un,
+        -b.Xx * b.Yx - b.Xy * b.Yy,
+        b.Xt * b.Zt - tau2 * b.Xn * b.Zn,
+    ]
+    return torch.stack([torch.abs(r) for r in res]).amax(dim=0)
+
+
 def boost_pimunu_to_lrf(b: MilneBasis, pitt, pitx, pity, pitn,
                         pixx, pixy, pixn, piyy, piyn, pinn, tau):
     """pi_ij in the LRF: pi_ij = X_i . pi . X_j

@@ -2221,13 +2221,16 @@ def pod_entries(run_dir: str, overrides: dict, mesh) -> dict:
 def pod_suite_rank(mesh, runs, entries, probe) -> dict:
     """One spawn's work of a rank in pod mode: mesh_api_rank of ``runs``
     (operation 2 over the ranks writes through rank 0's merge), the pod
-    entries (pod_entries) of each run of ``entries``, and with ``probe``
+    entries (pod_entries) of each run of ``entries``, multihost.pod_active()
+    in the rank, and with ``probe``
     (a run whose results_dir each rank gets a copy of its own) the error
     the shared-filesystem probe raises."""
+    from .parallel.multihost import pod_active
     out = dict(api=mesh_api_rank(mesh, runs),
                entries={e["name"]: pod_entries(e["run_dir"],
                                                e["overrides"], mesh)
-                        for e in entries}, probe=None)
+                        for e in entries}, probe=None,
+               pod_active=pod_active())
     if probe is not None:
         from .api import IS3D
         try:

@@ -160,6 +160,13 @@ def test_shared_fs_probe_raises_on_every_rank(ranks, inputs):
                               "particle_list_osc.dat")
 
 
+def test_pod_active_on_every_rank(ranks):
+    from is3d_tpu_torch.parallel.multihost import pod_active
+    W, out = ranks
+    assert [res["pod_active"] for res in out] == [True] * W
+    assert not pod_active()          # this process joined no group
+
+
 @pytest.mark.parametrize("name", sorted(ENTRIES))
 def test_pod_entries_match_mesh_and_one_process(ranks, inputs, name):
     W, out = ranks
